@@ -1,0 +1,26 @@
+"""hyperspace_tpu_torch: hyperspace_tpu ported to PyTorch and CUDA.
+
+Covering indexes (bucket-hashed, sorted, column-pruned copies of a
+Parquet source) built on one NVIDIA GPU: the bucket hash and the bucket
+histogram are CUDA kernels (``ops/kernels.py``, ``csrc/``), the stable
+lexsort is ``torch.sort``.  The JAX package ``hyperspace_tpu`` is the
+reference; this package imports nothing of it, and no ``jax``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from hyperspace_tpu_torch.config import HyperspaceConf
+from hyperspace_tpu_torch.dataset import Dataset
+from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.hyperspace import Hyperspace
+from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.session import HyperspaceSession
+
+__all__ = [
+    "Hyperspace",
+    "HyperspaceSession",
+    "HyperspaceConf",
+    "HyperspaceError",
+    "IndexConfig",
+    "Dataset",
+]

@@ -1,0 +1,12 @@
+"""Framework error types (counterpart of hyperspace_tpu/exceptions.py)."""
+
+from __future__ import annotations
+
+
+class HyperspaceError(Exception):
+    """Base error for all hyperspace_tpu_torch failures."""
+
+
+class ConcurrentWriteError(HyperspaceError):
+    """Optimistic-concurrency conflict: a log id was committed by another
+    writer between ``base_id`` capture and ``write_log``."""

@@ -1,0 +1,375 @@
+"""The on-disk metadata model of a covering index (counterpart of
+hyperspace_tpu/index/log_entry.py, its covering-index subset).
+
+  - ``FileInfo``            — (name, size, mtime, id)
+  - ``Directory``/``Content`` — directory tree of index/source files
+  - ``CoveringIndex``       — derived-dataset spec
+  - ``Signature``/``LogicalPlanFingerprint`` — validity fingerprint
+  - ``Relation``/``Source`` — snapshot of the source relation
+  - ``IndexLogEntry``       — the versioned log record
+  - ``FileIdTracker``       — stable (path, size, mtime) -> id map
+
+The JSON written by ``to_dict`` has the JAX package's shape, so either
+package parses the other's log.  Index data files carry no content
+digest here (the port has no integrity recorder).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
+
+from hyperspace_tpu_torch.utils.paths import is_data_file
+
+LOG_ENTRY_VERSION = "0.1"
+
+
+class States:
+    ACTIVE = "ACTIVE"
+    CREATING = "CREATING"
+    DELETED = "DELETED"
+    DOESNOTEXIST = "DOESNOTEXIST"
+
+    STABLE: FrozenSet[str] = frozenset({"ACTIVE", "DELETED", "DOESNOTEXIST"})
+
+
+@dataclasses.dataclass(frozen=True)
+class FileInfo:
+    """One leaf file; ``id`` comes from the FileIdTracker."""
+
+    name: str
+    size: int
+    mtime: int
+    id: int = -1
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "size": self.size,
+                "modifiedTime": self.mtime, "id": self.id}
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "FileInfo":
+        return FileInfo(d["name"], d["size"], d["modifiedTime"], d.get("id", -1))
+
+
+@dataclasses.dataclass
+class Directory:
+    """Recursive directory node."""
+
+    name: str
+    files: List[FileInfo] = dataclasses.field(default_factory=list)
+    subdirs: List["Directory"] = dataclasses.field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "files": [f.to_dict() for f in self.files],
+            "subDirs": [d.to_dict() for d in self.subdirs],
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Directory":
+        return Directory(
+            d["name"],
+            [FileInfo.from_dict(f) for f in d.get("files", [])],
+            [Directory.from_dict(s) for s in d.get("subDirs", [])],
+        )
+
+    @staticmethod
+    def from_leaf_files(files: Sequence[FileInfo]) -> "Directory":
+        """The minimal tree holding exactly ``files`` (absolute paths;
+        leaves store the basename)."""
+        root = Directory(name="/")
+        for f in files:
+            parts = [p for p in os.path.dirname(f.name).split(os.sep) if p]
+            node = root
+            for part in parts:
+                nxt = next((d for d in node.subdirs if d.name == part), None)
+                if nxt is None:
+                    nxt = Directory(name=part)
+                    node.subdirs.append(nxt)
+                node = nxt
+            node.files.append(FileInfo(os.path.basename(f.name), f.size,
+                                       f.mtime, f.id))
+        return root
+
+    @staticmethod
+    def from_directory(path: str, file_id_tracker: "FileIdTracker") -> "Directory":
+        """Recursively list ``path``, skipping non-data files and
+        registering each leaf with the tracker.  The result is rooted at
+        "/" with the full ancestor chain."""
+        path = os.path.abspath(path)
+        node = Directory._scan(path, file_id_tracker)
+        parent = os.path.dirname(path)
+        for part in reversed([p for p in parent.split(os.sep) if p]):
+            node = Directory(part, [], [node])
+        return Directory("/", [], [node]) if node.name != "/" else node
+
+    @staticmethod
+    def _scan(path: str, file_id_tracker: "FileIdTracker") -> "Directory":
+        files: List[FileInfo] = []
+        subdirs: List[Directory] = []
+        if os.path.isdir(path):
+            for entry in sorted(os.scandir(path), key=lambda e: e.name):
+                if entry.is_dir():
+                    subdirs.append(Directory._scan(entry.path, file_id_tracker))
+                elif is_data_file(entry.name):
+                    st = entry.stat()
+                    fid = file_id_tracker.add_file(
+                        os.path.abspath(entry.path), st.st_size, int(st.st_mtime_ns))
+                    files.append(FileInfo(entry.name, st.st_size,
+                                          int(st.st_mtime_ns), fid))
+        return Directory(os.path.basename(path) or "/", files, subdirs)
+
+
+@dataclasses.dataclass
+class Content:
+    """A directory tree plus accessors over its leaf files."""
+
+    root: Directory
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"root": self.root.to_dict()}
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Content":
+        return Content(Directory.from_dict(d["root"]))
+
+    def files(self) -> List[str]:
+        """All leaf file paths, absolute."""
+        return [f.name for f in self.file_infos()]
+
+    def file_infos(self) -> List[FileInfo]:
+        """Leaf files with absolute-path names."""
+        out: List[FileInfo] = []
+
+        def walk(node: Directory, base: str) -> None:
+            base = "/" if node.name == "/" else os.path.join(base, node.name)
+            for f in node.files:
+                out.append(FileInfo(os.path.join(base, f.name), f.size,
+                                    f.mtime, f.id))
+            for sub in node.subdirs:
+                walk(sub, base)
+
+        walk(self.root, "")
+        return out
+
+    @staticmethod
+    def from_directory(path: str, file_id_tracker: "FileIdTracker") -> "Content":
+        return Content(Directory.from_directory(path, file_id_tracker))
+
+    @staticmethod
+    def from_leaf_files(files: Sequence[FileInfo]) -> Optional["Content"]:
+        if not files:
+            return None
+        return Content(Directory.from_leaf_files(files))
+
+
+@dataclasses.dataclass
+class CoveringIndex:
+    """Data bucketed by hash of ``indexed_columns`` into ``num_buckets``
+    files, sorted within buckets by the same columns, plus stored
+    ``included_columns``."""
+
+    KIND = "CoveringIndex"
+
+    indexed_columns: List[str]
+    included_columns: List[str]
+    num_buckets: int
+    schema: Dict[str, str]  # column name -> arrow dtype string
+    properties: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "kind": self.KIND,
+            "properties": {
+                "columns": {
+                    "indexed": self.indexed_columns,
+                    "included": self.included_columns,
+                },
+                "numBuckets": self.num_buckets,
+                "schema": self.schema,
+                "properties": self.properties,
+            },
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "CoveringIndex":
+        if d.get("kind") != CoveringIndex.KIND:
+            raise ValueError(f"Unknown derived dataset kind: {d.get('kind')!r}")
+        p = d["properties"]
+        return CoveringIndex(
+            list(p["columns"]["indexed"]),
+            list(p["columns"]["included"]),
+            p["numBuckets"],
+            dict(p["schema"]),
+            dict(p.get("properties", {})),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Signature:
+    provider: str
+    value: str
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"provider": self.provider, "value": self.value}
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Signature":
+        return Signature(d["provider"], d["value"])
+
+
+@dataclasses.dataclass
+class LogicalPlanFingerprint:
+    """Fingerprint of the source plan at index-build time."""
+
+    signatures: List[Signature]
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "kind": "LogicalPlan",
+            "properties": {"signatures": [s.to_dict() for s in self.signatures]},
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "LogicalPlanFingerprint":
+        return LogicalPlanFingerprint(
+            [Signature.from_dict(s) for s in d["properties"]["signatures"]])
+
+
+@dataclasses.dataclass
+class Relation:
+    """Snapshot of one source relation: root paths, the file content tree
+    at build time, schema, format and options."""
+
+    root_paths: List[str]
+    content: Content
+    schema: Dict[str, str]
+    file_format: str
+    options: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "rootPaths": self.root_paths,
+            "data": {
+                "properties": {
+                    "content": self.content.to_dict(),
+                    "update": None,
+                }
+            },
+            "dataSchemaJson": self.schema,
+            "fileFormat": self.file_format,
+            "options": self.options,
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Relation":
+        return Relation(
+            list(d["rootPaths"]),
+            Content.from_dict(d["data"]["properties"]["content"]),
+            dict(d["dataSchemaJson"]),
+            d["fileFormat"],
+            dict(d.get("options", {})),
+        )
+
+
+@dataclasses.dataclass
+class Source:
+    """Source plan snapshot: relations + fingerprint."""
+
+    relations: List[Relation]
+    fingerprint: LogicalPlanFingerprint
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "plan": {
+                "properties": {
+                    "relations": [r.to_dict() for r in self.relations],
+                    "fingerprint": self.fingerprint.to_dict(),
+                }
+            }
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Source":
+        p = d["plan"]["properties"]
+        return Source(
+            [Relation.from_dict(r) for r in p["relations"]],
+            LogicalPlanFingerprint.from_dict(p["fingerprint"]),
+        )
+
+
+@dataclasses.dataclass
+class IndexLogEntry:
+    """One record in the operation log."""
+
+    name: str
+    derived_dataset: CoveringIndex
+    content: Content
+    source: Source
+    properties: Dict[str, str] = dataclasses.field(default_factory=dict)
+    state: str = States.DOESNOTEXIST
+    id: int = 0
+    timestamp: int = dataclasses.field(default_factory=lambda: int(time.time() * 1000))
+
+    VERSION = LOG_ENTRY_VERSION
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "version": self.VERSION,
+            "id": self.id,
+            "state": self.state,
+            "timestamp": self.timestamp,
+            "name": self.name,
+            "derivedDataset": self.derived_dataset.to_dict(),
+            "content": self.content.to_dict(),
+            "source": self.source.to_dict(),
+            "properties": self.properties,
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "IndexLogEntry":
+        if d.get("version") != LOG_ENTRY_VERSION:
+            raise ValueError(f"Unsupported log entry version: {d.get('version')!r}")
+        return IndexLogEntry(
+            name=d["name"],
+            derived_dataset=CoveringIndex.from_dict(d["derivedDataset"]),
+            content=Content.from_dict(d["content"]),
+            source=Source.from_dict(d["source"]),
+            properties=dict(d.get("properties", {})),
+            state=d["state"],
+            id=d["id"],
+            timestamp=d["timestamp"],
+        )
+
+    @property
+    def indexed_columns(self) -> List[str]:
+        return self.derived_dataset.indexed_columns
+
+    @property
+    def included_columns(self) -> List[str]:
+        return self.derived_dataset.included_columns
+
+    @property
+    def num_buckets(self) -> int:
+        return self.derived_dataset.num_buckets
+
+
+class FileIdTracker:
+    """Stable (path, size, mtime) -> id map; ids are handed out
+    monotonically."""
+
+    def __init__(self) -> None:
+        self._ids: Dict[Tuple[str, int, int], int] = {}
+        self._max_id = -1
+
+    def add_file(self, path: str, size: int, mtime: int) -> int:
+        key = (path, size, mtime)
+        fid = self._ids.get(key)
+        if fid is None:
+            self._max_id += 1
+            fid = self._max_id
+            self._ids[key] = fid
+        return fid

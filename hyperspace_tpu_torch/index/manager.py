@@ -1,0 +1,86 @@
+"""Index collection manager (counterpart of
+hyperspace_tpu/index/manager.py): name -> log and data managers, dispatch
+to actions, and listing of the indexes under the system path."""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional
+
+from hyperspace_tpu_torch.index.data_manager import IndexDataManager
+from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.io.files import list_dir
+
+DEFAULT_SYSTEM_DIR = "spark-warehouse/indexes"
+
+
+class IndexCollectionManager:
+    def __init__(self, session) -> None:
+        self.session = session
+
+    @property
+    def system_path(self) -> str:
+        path = self.session.conf.system_path or os.path.join(
+            os.getcwd(), DEFAULT_SYSTEM_DIR)
+        return os.path.abspath(path)
+
+    def index_path(self, name: str) -> str:
+        """Case-insensitive match against existing index directories,
+        else the given name."""
+        root = self.system_path
+        lowered = name.lower()
+        for existing in list_dir(root):
+            if existing.lower() == lowered:
+                return os.path.join(root, existing)
+        return os.path.join(root, name)
+
+    def _log_manager(self, name: str) -> IndexLogManager:
+        return IndexLogManager(self.index_path(name))
+
+    def _data_manager(self, name: str) -> IndexDataManager:
+        return IndexDataManager(self.index_path(name))
+
+    def create(self, dataset, config: IndexConfig) -> None:
+        from hyperspace_tpu_torch.actions.create import CreateAction
+
+        CreateAction(self._log_manager(config.index_name),
+                     self._data_manager(config.index_name),
+                     self.session, dataset.plan, config).run()
+
+    def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
+        """Latest stable entry of every index, optionally of ``states``
+        only.  Underscore-prefixed directories are system state."""
+        root = self.system_path
+        out: List[IndexLogEntry] = []
+        for name in sorted(list_dir(root)):
+            if name.startswith("_") or not os.path.isdir(os.path.join(root, name)):
+                continue
+            entry = self._log_manager(name).get_latest_stable_log()
+            if entry is not None and (states is None or entry.state in states):
+                out.append(entry)
+        return out
+
+    def get_index(self, name: str) -> Optional[IndexLogEntry]:
+        return self._log_manager(name).get_latest_stable_log()
+
+    def indexes(self) -> List[Dict[str, Any]]:
+        """One summary row per index, with the columns of the JAX
+        package's ``indexes()`` table."""
+        rows = []
+        for e in self.get_indexes():
+            index_files = e.content.file_infos()
+            rows.append({
+                "name": e.name,
+                "indexedColumns": e.indexed_columns,
+                "includedColumns": e.included_columns,
+                "numBuckets": e.num_buckets,
+                "schema": str(e.derived_dataset.schema),
+                "indexLocation": os.path.dirname(index_files[0].name)
+                if index_files else self.index_path(e.name),
+                "state": e.state,
+                "numIndexFiles": len(index_files),
+                "sizeIndexFiles": sum(f.size for f in index_files),
+            })
+        return rows

@@ -1,0 +1,41 @@
+"""File listing over source root paths (counterpart of
+hyperspace_tpu/io/files.py, its build-path subset).  Listing is
+recursive; results are sorted by path for deterministic signatures."""
+
+from __future__ import annotations
+
+import os
+from typing import List, Sequence
+
+from hyperspace_tpu_torch.index.log_entry import FileInfo
+from hyperspace_tpu_torch.utils.paths import is_data_file, normalize_path
+
+
+def list_dir(path: str) -> List[str]:
+    """``os.listdir``; a missing directory reads as empty."""
+    try:
+        return os.listdir(path)
+    except (FileNotFoundError, NotADirectoryError):
+        return []
+
+
+def list_data_files(root_paths: Sequence[str]) -> List[FileInfo]:
+    """All data files under ``root_paths`` (each a file or directory),
+    sorted by path."""
+    out: List[FileInfo] = []
+    for root in (normalize_path(r) for r in root_paths):
+        if os.path.isfile(root):
+            out.append(_file_info(root))
+        elif os.path.isdir(root):
+            for dirpath, dirnames, filenames in os.walk(root):
+                dirnames.sort()
+                for name in sorted(filenames):
+                    if is_data_file(name):
+                        out.append(_file_info(os.path.join(dirpath, name)))
+    out.sort(key=lambda f: f.name)
+    return out
+
+
+def _file_info(path: str) -> FileInfo:
+    st = os.stat(path)
+    return FileInfo(path, st.st_size, int(st.st_mtime_ns))

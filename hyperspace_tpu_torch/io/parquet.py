@@ -1,0 +1,140 @@
+"""Parquet IO of the build: read source files, write bucketed index data.
+
+Counterpart of hyperspace_tpu/io/parquet.py (its build-path subset).  The
+bucketed writer writes one sorted Parquet file per non-empty bucket (more
+when ``max_rows_per_file`` splits a bucket), named ``part-bNNNNN-*`` so a
+file maps to its bucket without reading footers.  The layout and the
+bytes per bucket are the JAX package's, so either package reads the
+other's index files.
+
+pyarrow is imported when a function runs, never when the module is
+imported.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.ops.sort import bucket_counts
+
+_BUCKET_FILE_RE = re.compile(r"part-b(\d{5})-")
+
+# Parquet codec for index data; "none" means uncompressed.
+INDEX_COMPRESSION_DEFAULT = "lz4"
+
+
+def bucket_file_name(bucket: int) -> str:
+    return f"part-b{bucket:05d}-{uuid.uuid4().hex[:12]}.parquet"
+
+
+def bucket_id_of_file(path: str) -> Optional[int]:
+    """The bucket id encoded in an index data file name."""
+    m = _BUCKET_FILE_RE.search(os.path.basename(path))
+    return int(m.group(1)) if m else None
+
+
+def _io_workers(n: int) -> int:
+    return max(1, min(n, os.cpu_count() or 4, 16))
+
+
+def read_table(paths: Sequence[str], columns: Optional[Sequence[str]] = None):
+    """Read Parquet files and concatenate them, in ``paths`` order, into
+    one arrow Table."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    cols = None if columns is None else list(columns)
+
+    def load(path: str):
+        # partitioning=None: no hive columns inferred from the file's own
+        # path (an index file under v__=N/ must not grow a v__ column).
+        return pq.read_table(path, columns=cols, partitioning=None)
+
+    if not paths:
+        return pa.table({})
+    with ThreadPoolExecutor(_io_workers(len(paths))) as pool:
+        tables = list(pool.map(load, paths))
+    return pa.concat_tables(tables, promote_options="default")
+
+
+def row_count(paths: Sequence[str]) -> int:
+    """Total rows of Parquet files, from their footers."""
+    import pyarrow.parquet as pq
+
+    return sum(pq.read_metadata(p).num_rows for p in paths)
+
+
+def read_schema(path: str) -> Dict[str, str]:
+    """Column name -> arrow dtype string for one Parquet file."""
+    import pyarrow.parquet as pq
+
+    return {f.name: str(f.type) for f in pq.read_schema(path)}
+
+
+def bucket_chunks(n_rows: int, max_rows_per_file: int) -> List:
+    """[(offset, rows)] splitting a bucket run at ``max_rows_per_file``
+    (0 = single chunk)."""
+    chunk = max_rows_per_file if max_rows_per_file > 0 else max(n_rows, 1)
+    return [(off, min(chunk, n_rows - off))
+            for off in range(0, n_rows, chunk)]
+
+
+def _codec(compression: Optional[str]):
+    c = (compression or INDEX_COMPRESSION_DEFAULT).lower()
+    return None if c == "none" else c
+
+
+def bucket_offsets(bucket_ids: torch.Tensor, num_buckets: int) -> np.ndarray:
+    """(num_buckets + 1,) int64 run offsets of the buckets in the sorted
+    order: the exclusive prefix sum of the per-bucket row counts, counted
+    on the ids' device (``ops.sort.bucket_counts``)."""
+    counts = bucket_counts(bucket_ids, num_buckets).cpu().numpy()
+    offsets = np.zeros(num_buckets + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets
+
+
+def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
+                   num_buckets: int, out_dir: str,
+                   max_rows_per_file: int = 0,
+                   compression: Optional[str] = None) -> List[str]:
+    """Write ``table`` as sorted Parquet files, one or more per non-empty
+    bucket.
+
+    ``sort_perm`` orders rows by (bucket, sort columns); ``bucket_ids``
+    are the per-row bucket assignments in row order.  Each bucket's run
+    in the sorted order starts at the exclusive prefix sum of the counts
+    of the buckets before it.  Empty buckets get no file."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(out_dir, exist_ok=True)
+    offsets = bucket_offsets(bucket_ids, num_buckets)
+    if offsets[-1] != table.num_rows:
+        raise HyperspaceError(
+            f"bucket counts sum to {offsets[-1]}, table has {table.num_rows} rows")
+    perm = sort_perm.cpu().numpy()
+    sorted_table = table.take(pa.array(perm))
+    jobs: List = []  # one per file, so skewed builds still write in parallel
+    for b in range(num_buckets):
+        start, n = int(offsets[b]), int(offsets[b + 1] - offsets[b])
+        for off, rows in (bucket_chunks(n, max_rows_per_file) if n else []):
+            jobs.append((b, start + off, rows))
+
+    def write(job) -> str:
+        b, start, rows = job
+        path = os.path.join(out_dir, bucket_file_name(b))
+        pq.write_table(sorted_table.slice(start, rows), path,
+                       compression=_codec(compression))
+        return path
+
+    with ThreadPoolExecutor(_io_workers(len(jobs))) as pool:
+        return list(pool.map(write, jobs))

@@ -1,0 +1,41 @@
+"""Bucket/sort permutation and per-bucket row counts of the index build.
+
+Counterpart of hyperspace_tpu/ops/sort.py.  PyTorch runs eagerly, so the
+JAX package's capacity padding (one compiled program per capacity) has
+no counterpart here: padding only parked pad rows after the real ones,
+so ``perm[:n]`` is the same without it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from hyperspace_tpu_torch.ops.hash import route_sort
+from hyperspace_tpu_torch.ops.kernels import bucket_histogram
+
+
+def bucket_sort_permutation(
+    word_cols: Sequence[torch.Tensor],
+    order_words: Sequence[torch.Tensor],
+    num_buckets: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused hash + sort of the build.
+
+    Args:
+      word_cols: per key column (n, 2) uint32 hash words.
+      order_words: per key column (n, 2) uint32 monotone order words.
+      num_buckets: bucket count.
+
+    Returns:
+      (bucket_ids int32 (n,), perm int64 (n,)) on the inputs' device,
+      where perm orders rows by (bucket, *key columns).
+    """
+    return route_sort(word_cols, order_words, num_buckets)
+
+
+def bucket_counts(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """Rows per bucket as (num_buckets,) int32 — the CUDA histogram kernel
+    on the card, its plain version on the CPU."""
+    return bucket_histogram(buckets, num_buckets)

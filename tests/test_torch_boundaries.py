@@ -1,0 +1,87 @@
+"""The port's boundaries: it imports neither ``jax`` nor anything of
+``hyperspace_tpu``, and its entry points run on the card unless asked
+for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import hyperspace_tpu_torch
+from hyperspace_tpu_torch.session import HyperspaceSession
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "hyperspace_tpu_torch")
+
+# ``hyperspace_tpu.`` (a module of the JAX package) and ``hyperspace_tpu``
+# imported whole; ``hyperspace_tpu_torch`` itself never matches.
+_FORBIDDEN = [
+    re.compile(r"^\s*(import|from)\s+jax\b", re.M),
+    re.compile(r"\bhyperspace_tpu\.\w"),
+    re.compile(r"^\s*from\s+hyperspace_tpu\s", re.M),
+    re.compile(r"^\s*import\s+hyperspace_tpu\b(?!_)", re.M),
+]
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        out.extend(os.path.join(dirpath, n) for n in names
+                   if n.endswith((".py", ".cu", ".cpp", ".h", ".cuh")))
+    return sorted(out)
+
+
+def test_no_source_of_the_port_names_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 20
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        for pattern in _FORBIDDEN:
+            assert not pattern.search(text), f"{path}: {pattern.pattern}"
+
+
+def test_a_build_through_the_port_imports_no_jax(tmp_path):
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{"k": rng.integers(0, 50, 300),
+                                  "v": rng.random(300)}}),
+                       os.path.join(data, "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        assert hs.indexes()[0]["state"] == "ACTIVE"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_session_without_a_card_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HyperspaceSession(str(tmp_path))
+    with pytest.raises(RuntimeError):
+        hyperspace_tpu_torch.HyperspaceSession(system_path=str(tmp_path),
+                                               device=None)
+    assert HyperspaceSession(str(tmp_path), device="cpu").device.type == "cpu"

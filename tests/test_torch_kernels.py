@@ -1,0 +1,118 @@
+"""The port's kernel functions against the JAX package's Pallas kernels.
+
+On the CPU each wrapper of ``hyperspace_tpu_torch.ops.kernels`` runs its
+plain PyTorch version; the JAX kernels run in Pallas interpret mode, as
+tests/test_pallas_kernels.py runs them.  Every value is an integer, so
+every comparison is bit-exact.  The CUDA kernels themselves are held
+against the same plain versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hyperspace_tpu.ops.pallas_kernels import bucket_histogram as jax_histogram
+from hyperspace_tpu.ops.pallas_kernels import hash_buckets as jax_hash_buckets
+from hyperspace_tpu_torch.ops import kernels
+
+
+def _words(n, cols, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 2**32, size=(n, 2), dtype=np.uint32)
+            for _ in range(cols)]
+
+
+def _port_hash(words, num_buckets):
+    return kernels.hash_buckets([torch.from_numpy(w) for w in words],
+                                num_buckets).numpy()
+
+
+def _jax_hash(words, num_buckets):
+    out = jax_hash_buckets(tuple(jnp.asarray(w) for w in words), num_buckets)
+    return np.asarray(out).astype(np.int32)  # bucket_ids_pallas's cast
+
+
+@pytest.mark.parametrize("n", [1, 7, 128, 1000, 32768, 32769, 100_003])
+def test_hash_parity(n):
+    words = _words(n, cols=2, seed=0)
+    np.testing.assert_array_equal(_port_hash(words, 0), _jax_hash(words, 0))
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3])
+@pytest.mark.parametrize("num_buckets", [0, 1, 13, 200, 4096])
+def test_bucket_ids_parity(cols, num_buckets):
+    words = _words(10_000, cols=cols, seed=1)
+    got = _port_hash(words, num_buckets)
+    np.testing.assert_array_equal(got, _jax_hash(words, num_buckets))
+    if num_buckets:
+        assert got.min() >= 0 and got.max() < num_buckets
+
+
+@pytest.mark.parametrize("n,num_buckets", [
+    (1, 1), (100, 7), (4096, 128), (4097, 129), (50_000, 200), (1000, 4096),
+    (32769, 13), (100_003, 4096),
+])
+def test_histogram_parity(n, num_buckets):
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, num_buckets, size=n, dtype=np.int32)
+    got = kernels.bucket_histogram(torch.from_numpy(ids), num_buckets).numpy()
+    want = np.asarray(jax_histogram(jnp.asarray(ids), num_buckets))
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32 and int(got.sum()) == n
+
+
+def test_histogram_padding_counts_nowhere():
+    """-1 padding (and any id outside [0, num_buckets)) counts nowhere."""
+    rng = np.random.default_rng(3)
+    ids = rng.integers(-1, 40, size=20_000).astype(np.int32)
+    got = kernels.bucket_histogram(torch.from_numpy(ids), 32).numpy()
+    want = np.asarray(jax_histogram(jnp.asarray(ids), 32))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.bincount(ids[(ids >= 0) & (ids < 32)], minlength=32))
+
+
+def test_histogram_empty_input():
+    got = kernels.bucket_histogram(torch.empty(0, dtype=torch.int32), 64)
+    want = np.asarray(jax_histogram(jnp.asarray(np.empty(0, np.int32)), 64))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.zeros(64, np.int32))
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    kernels.reset_launch_counts()
+    words = [torch.from_numpy(w) for w in _words(500, cols=2, seed=4)]
+    kernels.hash_buckets(words, 16)
+    kernels.bucket_histogram(torch.zeros(10, dtype=torch.int32), 4)
+    assert kernels.launch_counts() == {"hash_buckets": 0, "bucket_histogram": 0}
+
+
+def test_wrappers_refuse_bad_input():
+    good = torch.zeros((4, 2), dtype=torch.uint32)
+    with pytest.raises(ValueError):
+        kernels.hash_buckets([good.to(torch.int32)], 4)     # dtype
+    with pytest.raises(ValueError):
+        kernels.hash_buckets([torch.zeros((4, 3), dtype=torch.uint32)], 4)
+    with pytest.raises(ValueError):
+        kernels.hash_buckets([good, torch.zeros((5, 2), dtype=torch.uint32)], 4)
+    with pytest.raises(ValueError):
+        kernels.hash_buckets([], 4)
+    with pytest.raises(ValueError):
+        kernels.bucket_histogram(torch.zeros(4, dtype=torch.int64), 4)
+    with pytest.raises(ValueError):
+        kernels.bucket_histogram(torch.zeros((2, 2), dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        kernels.bucket_histogram(torch.zeros(4, dtype=torch.int32), 0)
+
+
+def test_no_fallback_off_the_cpu():
+    """A tensor on a device other than the CPU never takes the plain
+    version: a non-CUDA device is refused outright."""
+    with pytest.raises(ValueError):
+        kernels.hash_buckets([torch.zeros((4, 2), dtype=torch.uint32,
+                                          device="meta")], 4)
+    with pytest.raises(ValueError):
+        kernels.bucket_histogram(torch.zeros(4, dtype=torch.int32,
+                                             device="meta"), 4)
