@@ -7,10 +7,21 @@ beside it.
 
   build    compile both CUDA kernels from ``hyperspace_tpu_torch/csrc``
            (one nvcc per source, started together).
-  phase A  each kernel against its plain PyTorch version on the card:
-           random words at n in {1, 7, 32769, 6_000_000}, k in {1, 3},
-           num_buckets in {0, 16, 200, 4096}; histogram ids with -1
-           padding, and n = 0.  Results must be bit-equal.
+  phase A  each kernel against its plain PyTorch version on the card,
+           bit for bit: the hash at n in {1, 2, 3, 5, 32769, 6_000_000},
+           k in {1, 3, HASH_MAX_COLS + 1} (a chunk boundary), num_buckets
+           in {0, 16, 200, 4096}, on aligned columns, on 8- but not
+           16-byte-aligned views (``big[1:]``) and on a mix of both; the
+           histogram at the same n and num_buckets in {16, 200, 1024,
+           1025, 8193, 60000} (per-warp copies, one block histogram, and
+           tiles over gridDim.y), twice back to back (each launch leaves its
+           accumulator and ticket zero for the next), on views 1-3 ids
+           past a 16-byte boundary and at n = 0; on two streams at once
+           (one accumulator per stream); a capture on a stream with no
+           accumulator, which must be refused; twice in one CUDA graph
+           replayed twice, with an eager launch between; then one call
+           of each wrapper under ``torch.cuda.set_sync_debug_mode
+           ("error")``, which raises if a wrapper synchronises.
   phase B  the build's data plane at full size without pyarrow: the
            6,000,000-row SF1 ``l_orderkey`` through
            ``bucket_sort_permutation`` on the card against the numpy
@@ -24,11 +35,24 @@ beside it.
            seeded keys through the pruned bucket's file.
 
 The data is bench.py's SF1 generator (``default_rng(7)``), copied here.
-Then each kernel is timed at the main path's shape (CUDA events, L2
-flushed before each launch, median of 25 launches after warm-up) beside
-its bound, its plain version and, where one exists, one PyTorch call
-computing the same function.  The last lines are the kernels JSON, the
-card's name and power limit, and ``{"ok": true, "device": ...}``.
+Then each kernel is timed at n = 6,000,000 at the shapes of HASH_SHAPES
+and HIST_SHAPES (the first of each is the main path's), in three ways:
+
+  kernel_ms    device time per launch: GRAPH_LAUNCHES wrapper calls
+               captured into one CUDA graph (on the stream that warmed
+               them up) and replayed between two events, each launch on
+               the next of enough input copies to exceed twice the L2
+               cache, so each starts cold.  ``ms`` is this time.
+  profiler_ms  the same launches' device time by ``torch.profiler``
+               (activities named after the kernel), as a cross-check.
+  call_ms      one wrapper call between two events after an L2 flush,
+               median of TIMED_RUNS: the kernel plus the host around it.
+
+beside the bound (bytes read once and written once over HBM_BYTES_PER_S,
+or integer operations over ALU_OPS_PER_S), the plain version's call time
+and, for the histogram, ``torch.bincount``'s device time by the profiler
+(it synchronises, so no graph holds it).  The last lines are the kernels
+JSON, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -58,6 +82,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 33.5e12
 L2_BYTES = 50 * 1024 * 1024
 TIMED_RUNS = 25
+GRAPH_LAUNCHES = 30
+GRAPH_REPLAYS = 5
+PROFILED_CALLS = 30
+# (key columns, buckets) of the hash and buckets of the histogram timed
+# at N_LINEITEM rows; the first of each is the main path's.
+HASH_SHAPES = ((1, NUM_BUCKETS), (1, 200), (3, NUM_BUCKETS))
+HIST_SHAPES = (NUM_BUCKETS, 200)
 
 
 def gen_lineitem(rng, n: int) -> dict:
@@ -105,30 +136,149 @@ def require_equal(name: str, got, want) -> None:
         raise AssertionError(f"{name}: {diff} of {got.numel()} values differ")
 
 
+def _random_words(dev, n: int, k: int, gen) -> list:
+    """k random (n, 2) uint32 word columns, drawn on the card."""
+    import torch
+
+    return [torch.randint(-2**31, 2**31, (n, 2), dtype=torch.int32,
+                          device=dev, generator=gen).view(torch.uint32)
+            for _ in range(k)]
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary: ``big[1:]`` of a tensor one row longer."""
+    import torch
+
+    big = torch.empty((t.shape[0] + 1,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    view = big[1:]
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("misaligned view came out 16-byte aligned")
+    return view
+
+
 def phase_a(dev) -> None:
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(1)
-    for n in (1, 7, 32769, N_LINEITEM):
-        for k in (1, 3):
-            cols = [torch.from_numpy(rng.integers(0, 2**32, size=(n, 2),
-                                                  dtype=np.uint32)).to(dev)
-                    for _ in range(k)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    chunk = kernels.HASH_MAX_COLS
+    for n in (1, 2, 3, 5, 32769, N_LINEITEM):
+        for k in (1, 3, chunk + 1):
+            cols = _random_words(dev, n, k, gen)
             for nb in (0, 16, 200, 4096):
                 require_equal(f"hash_buckets n={n} k={k} nb={nb}",
                               kernels.hash_buckets(cols, nb),
                               kernels.hash_buckets_plain(cols, nb))
-        for nb in (16, 200, 4096):
-            ids = torch.from_numpy(
-                rng.integers(-1, nb, size=n).astype(np.int32)).to(dev)
+            # Every column 8- but not 16-byte aligned, then one of each.
+            odd = [_misaligned(c) for c in cols]
+            for name, view in (("misaligned", odd),
+                               ("mixed", [cols[0]] + odd[1:] if k > 1
+                                else [odd[0]])):
+                require_equal(f"hash_buckets n={n} k={k} {name}",
+                              kernels.hash_buckets(view, 200),
+                              kernels.hash_buckets_plain(view, 200))
+        for nb in (16, 200, 1024, 1025, 8193, 60000):
+            ids = torch.randint(-1, nb, (n,), dtype=torch.int32, device=dev,
+                                generator=gen)
+            want = kernels.bucket_histogram_plain(ids, nb)
             require_equal(f"bucket_histogram n={n} nb={nb}",
-                          kernels.bucket_histogram(ids, nb),
-                          kernels.bucket_histogram_plain(ids, nb))
+                          kernels.bucket_histogram(ids, nb), want)
+            # Back to back: the first launch left the accumulator zero.
+            require_equal(f"bucket_histogram n={n} nb={nb} again",
+                          kernels.bucket_histogram(ids, nb), want)
+            for shift in (1, 2, 3):
+                big = torch.full((n + shift,), -1, dtype=torch.int32,
+                                 device=dev)
+                big[shift:] = ids
+                require_equal(f"bucket_histogram n={n} nb={nb} view+{shift}",
+                              kernels.bucket_histogram(big[shift:], nb), want)
     empty = torch.empty(0, dtype=torch.int32, device=dev)
     require_equal("bucket_histogram n=0", kernels.bucket_histogram(empty, 64),
                   torch.zeros(64, dtype=torch.int32, device=dev))
+
+    # Histograms on two streams at once: each stream has its own
+    # accumulator, so launches that overlap do not add into each other.
+    cur = torch.cuda.current_stream()
+    ids = torch.randint(-1, 200, (N_LINEITEM,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    ids2 = torch.randint(-1, 200, (N_LINEITEM,), dtype=torch.int32,
+                         device=dev, generator=gen)
+    want = kernels.bucket_histogram_plain(ids, 200)
+    want2 = kernels.bucket_histogram_plain(ids2, 200)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    # A few ms of matmul holds both streams back while the host queues
+    # every launch, so the two streams' launches run together.
+    hold = torch.randn(4096, 4096, device=dev, generator=gen)
+    hold = hold @ hold
+    for s in streams:
+        s.wait_stream(cur)
+    for _ in range(4):
+        for s, x, got in zip(streams, (ids, ids2), outs):
+            with torch.cuda.stream(s):
+                got.append(kernels.bucket_histogram(x, 200))
+    for s in streams:
+        cur.wait_stream(s)
+    for i in range(4):
+        require_equal(f"bucket_histogram stream 0 launch {i}", outs[0][i], want)
+        require_equal(f"bucket_histogram stream 1 launch {i}", outs[1][i],
+                      want2)
+    torch.cuda.synchronize()
+
+    # Capture on a stream with no accumulator yet is refused (the zero
+    # fill would only be recorded).  High priority: a pool no launch here
+    # has drawn from.
+    fresh = torch.cuda.Stream(priority=-1)
+    fresh.wait_stream(cur)
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            kernels.bucket_histogram(ids, 200)
+    except RuntimeError as e:
+        if "capture stream" not in str(e):
+            raise
+    else:
+        raise AssertionError("bucket_histogram: capture with no accumulator "
+                             "on the capture stream was not refused")
+
+    # Two histograms inside one CUDA graph, captured on the stream that
+    # made the accumulator, replayed twice with an eager launch between.
+    side = streams[0]
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [kernels.bucket_histogram(ids, 200) for _ in range(2)]
+    for replay in range(2):
+        graph.replay()
+        require_equal(f"bucket_histogram eager after replay {replay}",
+                      kernels.bucket_histogram(ids2, 200), want2)
+        for i, got in enumerate(outs):
+            require_equal(f"bucket_histogram in a graph, replay {replay} "
+                          f"launch {i}", got, want)
+    del graph, outs
+
+    # The wrappers neither copy to the card nor synchronise per call.
+    cols = _random_words(dev, 4096, chunk + 1, gen)
+    ids = torch.randint(-1, 16, (4096,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [kernels.hash_buckets(cols[:1], 16),
+               kernels.hash_buckets(cols, 16),
+               kernels.bucket_histogram(ids, 16)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require_equal("hash_buckets k=1 under sync debug", got[0],
+                  kernels.hash_buckets_plain(cols[:1], 16))
+    require_equal("hash_buckets chunked under sync debug", got[1],
+                  kernels.hash_buckets_plain(cols, 16))
+    require_equal("bucket_histogram under sync debug", got[2],
+                  kernels.bucket_histogram_plain(ids, 16))
     torch.cuda.synchronize()
 
 
@@ -218,9 +368,10 @@ def phase_c(li: dict, root: str) -> dict:
             "files": sum(len(v) for v in files_by_bucket.values())}
 
 
-def time_ms(fn, flush) -> float:
-    """Median milliseconds of ``fn`` over TIMED_RUNS launches, each timed
-    by CUDA events after an L2 flush, after three warm-up calls."""
+def call_ms(fn, flush) -> float:
+    """Median milliseconds of one call of ``fn`` between two CUDA events,
+    over TIMED_RUNS calls, each after an L2 flush, after three warm-up
+    calls: the kernel plus whatever the host does around it."""
     import torch
 
     for _ in range(3):
@@ -238,63 +389,143 @@ def time_ms(fn, flush) -> float:
     return statistics.median(times)
 
 
+def input_sets(make, set_bytes: int) -> list:
+    """Enough copies of one input that together they exceed twice the L2
+    cache, so a launch that reads them in turn always starts cold."""
+    return [make() for _ in range(max(2, 2 * L2_BYTES // set_bytes + 1))]
+
+
+def kernel_ms(fn, sets) -> float:
+    """Device milliseconds per launch: GRAPH_LAUNCHES calls of ``fn``, on
+    the input sets in turn, captured into one CUDA graph and replayed
+    between two events (median of GRAPH_REPLAYS replays).  No host work
+    runs between the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for s in sets:
+            fn(s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        # Kept alive, so every launch writes an output of its own.
+        outs = [fn(sets[i % len(sets)]) for i in range(GRAPH_LAUNCHES)]
+    times = []
+    for _ in range(GRAPH_REPLAYS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    del outs, graph
+    return statistics.median(times[1:])
+
+
+def profiler_ms(fn, sets, kernel=None):
+    """Device milliseconds per call by ``torch.profiler``: PROFILED_CALLS
+    calls of ``fn`` on the input sets in turn; the time of the device
+    activities whose name holds ``kernel`` (every device activity when it
+    is None), over the calls.  None when the profiler saw no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for s in sets:
+        fn(s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILED_CALLS):
+            fn(sets[i % len(sets)])
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (kernel is None or kernel in e.name))
+    return us / 1e3 / PROFILED_CALLS if us else None
+
+
+def bound(nbytes: int, ops: int):
+    """(least milliseconds, "bytes" or "operations") on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def measure(dev, keys: np.ndarray, launches: dict) -> list:
+    """One row per kernel at the main path's shape, with the other shapes
+    of HASH_SHAPES / HIST_SHAPES under ``shapes``."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
 
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
     hw, _ = int64_words(keys)
-    cols = [torch.from_numpy(hw).to(dev)]
+    key_col = torch.from_numpy(hw).to(dev)
     n = len(keys)
-    buckets = kernels.hash_buckets(cols, NUM_BUCKETS)
-    hash_err = int((buckets.to(torch.int64)
-                    - kernels.hash_buckets_plain(cols, NUM_BUCKETS)
-                    .to(torch.int64)).abs().max())
-    # Per row and key word: fmix32 (3 shifts, 3 xors, 2 multiplies), then
-    # h * 31 ^ w and the outer fmix32; one modulo per row.
-    hash_ops = n * (len(cols) * 2 * (8 + 2 + 8) + 1)
-    hash_bytes = n * (8 * len(cols) + 4)
-    hist_err = int((kernels.bucket_histogram(buckets, NUM_BUCKETS)
-                    - kernels.bucket_histogram_plain(buckets, NUM_BUCKETS))
-                   .abs().max())
-    hist_ops = n * 3  # two range compares and one add per row
-    hist_bytes = 4 * n + 4 * NUM_BUCKETS
 
-    def bound(nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / ALU_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    def timed(fn, sets, kernel, plain):
+        graph = kernel_ms(fn, sets)
+        return {"ms": graph, "kernel_ms": graph,
+                "profiler_ms": profiler_ms(fn, sets, kernel),
+                "call_ms": call_ms(lambda: fn(sets[0]), flush),
+                "plain_ms": call_ms(lambda: plain(sets[0]), flush)}
 
-    rows = []
-    hb, hby = bound(hash_bytes, hash_ops)
-    rows.append({
-        "name": "hash_buckets", "route": "cuda",
-        "source": "hyperspace_tpu_torch/csrc/hash_buckets.cu",
-        "replaces": "hyperspace_tpu/ops/pallas_kernels.py:94",
-        "launches": launches["hash_buckets"], "max_abs_err": hash_err,
-        "ms": time_ms(lambda: kernels.hash_buckets(cols, NUM_BUCKETS), flush),
-        "plain_ms": time_ms(
-            lambda: kernels.hash_buckets_plain(cols, NUM_BUCKETS), flush),
-        "bound_ms": hb, "bound_by": hby, "library_ms": None,
-        "shape": {"n": n, "k": len(cols), "num_buckets": NUM_BUCKETS},
-    })
-    bb, bby = bound(hist_bytes, hist_ops)
-    rows.append({
-        "name": "bucket_histogram", "route": "cuda",
-        "source": "hyperspace_tpu_torch/csrc/bucket_histogram.cu",
-        "replaces": "hyperspace_tpu/ops/pallas_kernels.py:145",
-        "launches": launches["bucket_histogram"], "max_abs_err": hist_err,
-        "ms": time_ms(lambda: kernels.bucket_histogram(buckets, NUM_BUCKETS),
-                      flush),
-        "plain_ms": time_ms(
-            lambda: kernels.bucket_histogram_plain(buckets, NUM_BUCKETS), flush),
-        "bound_ms": bb, "bound_by": bby,
-        "library_ms": time_ms(
-            lambda: torch.bincount(buckets, minlength=NUM_BUCKETS), flush),
-        "shape": {"n": n, "num_buckets": NUM_BUCKETS},
-    })
-    return rows
+    hash_rows = []
+    for k, nb in HASH_SHAPES:
+        cols = [key_col] + _random_words(dev, n, k - 1, gen)
+        got = kernels.hash_buckets(cols, nb)
+        err = int((got.to(torch.int64) - kernels.hash_buckets_plain(cols, nb)
+                   .to(torch.int64)).abs().max())
+        # Per row and key word: fmix32 (3 shifts, 3 xors, 2 multiplies),
+        # then h * 31 ^ w and the outer fmix32; one modulo per row.
+        b, by = bound(n * (8 * k + 4), n * (k * 2 * (8 + 2 + 8) + 1))
+        sets = input_sets(lambda: [c.clone() for c in cols], n * (8 * k + 4))
+        hash_rows.append({
+            "shape": {"n": n, "k": k, "num_buckets": nb}, "max_abs_err": err,
+            **timed(lambda s: kernels.hash_buckets(s, nb), sets,
+                    "hash_buckets_kernel",
+                    lambda s: kernels.hash_buckets_plain(s, nb)),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        del sets
+
+    hist_rows = []
+    for nb in HIST_SHAPES:
+        ids = kernels.hash_buckets([key_col], nb)
+        err = int((kernels.bucket_histogram(ids, nb)
+                   - kernels.bucket_histogram_plain(ids, nb)).abs().max())
+        b, by = bound(4 * n + 4 * nb, 3 * n)  # two compares and an add a row
+        sets = input_sets(ids.clone, 4 * n)
+        library = lambda s: torch.bincount(s, minlength=nb)  # noqa: E731
+        hist_rows.append({
+            "shape": {"n": n, "num_buckets": nb}, "max_abs_err": err,
+            **timed(lambda s: kernels.bucket_histogram(s, nb), sets,
+                    "bucket_histogram_kernel",
+                    lambda s: kernels.bucket_histogram_plain(s, nb)),
+            "bound_ms": b, "bound_by": by,
+            # torch.bincount synchronises (it reads the largest id back),
+            # so no graph can hold it: its device time is the profiler's.
+            "library_ms": profiler_ms(library, sets),
+            "library_call_ms": call_ms(lambda: library(sets[0]), flush)})
+        del sets
+
+    def row(name, source, replaces, shapes):
+        return {"name": name, "route": "cuda",
+                "source": f"hyperspace_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": launches[name],
+                **shapes[0], "shapes": shapes}
+
+    return [row("hash_buckets", "hash_buckets.cu",
+                "hyperspace_tpu/ops/pallas_kernels.py:94", hash_rows),
+            row("bucket_histogram", "bucket_histogram.cu",
+                "hyperspace_tpu/ops/pallas_kernels.py:145", hist_rows)]
 
 
 def main() -> int:
@@ -314,8 +545,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    kernels.build_kernels()
+    logs = kernels.build_kernels() or {}
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
+    for source, log in logs.items():
+        for line in log.splitlines():
+            if "Function properties" in line or "registers" in line \
+                    or "Compiling entry" in line or "spill" in line:
+                print(f"ptxas {source}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
     phase_a(dev)
@@ -329,24 +565,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_b(dev, li["l_orderkey"])
-    print(f"phase B: bucket_sort_permutation and bucket_counts bit-equal to "
-          f"the numpy mirror ({time.perf_counter() - t0:.3f} s)", flush=True)
+    print(f"phase B: bucket_sort_permutation and bucket_counts bit-equal "
+          f"to the numpy mirror ({time.perf_counter() - t0:.3f} s)",
+          flush=True)
 
     root = tempfile.mkdtemp(prefix="hs_chip_smoke_")
     try:
         c = phase_c(li, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"phase C: create_index {INDEX_NAME} ACTIVE, {c['files']} files, "
-          f"wall {c['wall_s']:.3f} s, phases "
-          + json.dumps({k: v for k, v in c["phases"].items() if k != "index"}),
-          flush=True)
-    missing = [k for k, v in c["launches"].items() if v <= 0]
+    print(f"phase C: create_index {INDEX_NAME} ACTIVE, {c['files']} "
+          f"files, wall {c['wall_s']:.3f} s, phases "
+          + json.dumps({k: v for k, v in c["phases"].items()
+                        if k != "index"}), flush=True)
+    launches = c["launches"]
+    missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"phase C: kernels not launched on the main "
                              f"path: {missing}")
 
-    rows = measure(dev, li["l_orderkey"], c["launches"])
+    t0 = time.perf_counter()
+    rows = measure(dev, li["l_orderkey"], launches)
+    print(f"timing: {time.perf_counter() - t0:.3f} s", flush=True)
+    bad = [r["name"] for r in rows
+           for s in r["shapes"] if s["max_abs_err"] != 0]
+    if bad:
+        raise AssertionError(f"kernels differ from their plain versions: {bad}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

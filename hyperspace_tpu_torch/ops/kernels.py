@@ -14,6 +14,19 @@ there is no fallback).  Each launch adds one to the kernel's
 ``launches`` count, so a run can show that its main path went through
 the kernel.
 
+Neither wrapper copies to the card or synchronises, so both can be
+captured in a CUDA graph.  The hash passes its column pointers by value,
+in a kernel parameter of up to ``HASH_MAX_COLS`` pointers; more columns
+are hashed in chunks, one launch each, every later launch carrying the
+running hash in its output.  The histogram is one launch: each block
+adds its counts into an accumulator with global atomics, and the last
+block to finish (by an atomic ticket beside the accumulator) moves them
+into the output and zeroes the accumulator for the next launch, so the
+output needs no zero-fill.  The wrapper zeroes the accumulator once and
+keeps one per device and stream, so launches on different streams never
+share one; it is made outside graph capture (call the histogram once on
+the capture stream before capturing it).
+
 The kernels are compiled for ``sm_90a`` with ``nvcc`` at first use, one
 ``nvcc`` per source started together, into ``csrc/build/`` (each library
 is named by the hash of its source, so an edited source never loads a
@@ -34,14 +47,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = _CSRC / "build"
 _NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _MASK32 = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
@@ -76,12 +89,15 @@ class _Kernel:
         self.launches += 1
 
 
-# hs_hash_buckets(cols, n_cols, n, num_buckets, out, stream)
+# hs_hash_buckets(cols, n_cols, n, num_buckets, carry, out, stream);
+# `cols` is a host array of device pointers.
 HASH_BUCKETS = _Kernel("hash_buckets.cu", "hs_hash_buckets",
-                       [_P, _I, _LL, _U, _P, _P])
-# hs_bucket_histogram(ids, n, num_buckets, out, stream)
+                       [_P, _I, _LL, _U, _I, _P, _P])
+# Column pointers one hash launch takes (kMaxCols in hash_buckets.cu).
+HASH_MAX_COLS = 32
+# hs_bucket_histogram(ids, n, num_buckets, acc, out, stream)
 BUCKET_HISTOGRAM = _Kernel("bucket_histogram.cu", "hs_bucket_histogram",
-                           [_P, _LL, _I, _P, _P])
+                           [_P, _LL, _I, _P, _P, _P])
 KERNELS: Dict[str, _Kernel] = {"hash_buckets": HASH_BUCKETS,
                                "bucket_histogram": BUCKET_HISTOGRAM}
 _BUILD_LOCK = threading.Lock()
@@ -108,13 +124,16 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernels() -> None:
+def build_kernels() -> Dict[str, str]:
     """Compile every kernel source not yet built, one ``nvcc`` each, all
-    started together, and load the libraries.  Idempotent."""
+    started together, and load the libraries.  Idempotent.  Returns the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    of each source it compiled."""
+    logs: Dict[str, str] = {}
     with _BUILD_LOCK:
         todo = [k for k in KERNELS.values() if k.lib is None]
         if not todo:
-            return
+            return logs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         jobs = []
         for k in todo:
@@ -131,9 +150,10 @@ def build_kernels() -> None:
         for k, lib, proc, tmp in jobs:
             if proc is not None:
                 out, _ = proc.communicate()
+                logs[k.source] = out.decode(errors="replace")
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed on {k.source}:\n{out.decode(errors='replace')}")
+                        f"nvcc failed on {k.source}:\n{logs[k.source]}")
                 os.replace(tmp, lib)
             dll = ctypes.CDLL(str(lib))
             getattr(dll, k.symbol).argtypes = k.argtypes
@@ -141,6 +161,7 @@ def build_kernels() -> None:
             dll.hs_error_string.argtypes = [_I]
             dll.hs_error_string.restype = ctypes.c_char_p
             k.lib = dll
+    return logs
 
 
 def _stream(device: torch.device) -> int:
@@ -186,10 +207,20 @@ def _as_int32_bits(h: torch.Tensor) -> torch.Tensor:
 
 
 def hash_buckets_plain(word_cols: Sequence[torch.Tensor],
-                       num_buckets: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of :func:`hash_buckets` (int64-masked words)."""
-    h = torch.full((word_cols[0].shape[0],), _SEED, dtype=torch.int64,
-                   device=word_cols[0].device)
+                       num_buckets: int = 0,
+                       h: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hash_buckets` (int64-masked words).
+
+    ``h``: the running hash of earlier key columns, as this function
+    returns it with ``num_buckets == 0`` ((n,) int32 holding the uint32
+    bits); the hash then goes on from it instead of from the seed.  This
+    is the kernel's chunk-and-carry contract: hashing columns ``[:m]``
+    with 0 buckets, then ``[m:]`` from that ``h``, equals hashing all."""
+    if h is None:
+        h = torch.full((word_cols[0].shape[0],), _SEED, dtype=torch.int64,
+                       device=word_cols[0].device)
+    else:
+        h = h.to(torch.int64) & _MASK32
     for w in word_cols:
         w = w.to(torch.int64)
         h = _fmix32_plain(_mul32(h, 31) ^ _fmix32_plain(w[:, 0]))
@@ -197,6 +228,16 @@ def hash_buckets_plain(word_cols: Sequence[torch.Tensor],
     if num_buckets:
         h = h % num_buckets
     return _as_int32_bits(h)
+
+
+def hash_chunks(n_cols: int, num_buckets: int):
+    """The launches that hash ``n_cols`` key columns: per launch
+    ``(start, stop, carry, buckets)``, the columns ``[start, stop)``,
+    whether it goes on from the running hash in the output, and the
+    buckets it applies (0 for all but the last)."""
+    return [(start, min(start + HASH_MAX_COLS, n_cols), start > 0,
+             num_buckets if start + HASH_MAX_COLS >= n_cols else 0)
+            for start in range(0, n_cols, HASH_MAX_COLS)]
 
 
 def hash_buckets(word_cols: Sequence[torch.Tensor],
@@ -222,11 +263,14 @@ def hash_buckets(word_cols: Sequence[torch.Tensor],
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    ptrs = torch.tensor([w.data_ptr() for w in word_cols], dtype=torch.int64,
-                        device=device)
     with torch.cuda.device(device):
-        HASH_BUCKETS.launch(ptrs.data_ptr(), len(word_cols), n, num_buckets,
-                            out.data_ptr(), _stream(device))
+        stream = _stream(device)
+        for start, stop, carry, buckets in hash_chunks(len(word_cols),
+                                                       num_buckets):
+            chunk = word_cols[start:stop]
+            ptrs = (ctypes.c_void_p * len(chunk))(*[w.data_ptr() for w in chunk])
+            HASH_BUCKETS.launch(ptrs, len(chunk), n, buckets, int(carry),
+                                out.data_ptr(), stream)
     return out
 
 
@@ -250,6 +294,32 @@ def bucket_histogram_plain(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return out.scatter_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
 
 
+# Per (device, stream), the histogram's accumulators, newest (widest)
+# last: each is [ticket, counts...], zeroed once and left zero by every
+# launch.  Launches that share one must not overlap, and launches on one
+# stream are ordered, so each stream has its own.  A wider one is added
+# when needed and the older ones are kept, since a CUDA graph may hold a
+# launch that uses them.  A graph's launches use the accumulator of the
+# stream it was captured on: replay it in order with that stream's work.
+_ACCUMULATORS: Dict[Tuple[int, int], list] = {}
+
+
+def _accumulator(device: torch.device, stream: int,
+                 num_buckets: int) -> torch.Tensor:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    held = _ACCUMULATORS.setdefault((index, stream), [])
+    if not held or held[-1].numel() < 1 + num_buckets:
+        # Under capture the zero fill would only be recorded, not run.
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "bucket_histogram: call it once on the capture stream, with "
+                "as many buckets, before capturing it in a CUDA graph")
+        held.append(torch.zeros(1 + max(num_buckets, 1024), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
 def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """(num_buckets,) int32 rows per bucket of the (n,) int32 ``ids``;
     ids outside ``[0, num_buckets)`` count nowhere."""
@@ -259,11 +329,10 @@ def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
         return bucket_histogram_plain(ids, num_buckets)
     if device.type != "cuda":
         raise ValueError(f"bucket_histogram: unsupported device {device}")
-    out = torch.zeros(num_buckets, dtype=torch.int32, device=device)
-    n = ids.shape[0]
-    if n == 0:
-        return out
+    out = torch.empty(num_buckets, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        BUCKET_HISTOGRAM.launch(ids.data_ptr(), n, num_buckets, out.data_ptr(),
-                                _stream(device))
+        stream = _stream(device)
+        acc = _accumulator(device, stream, num_buckets)
+        BUCKET_HISTOGRAM.launch(ids.data_ptr(), ids.shape[0], num_buckets,
+                                acc.data_ptr(), out.data_ptr(), stream)
     return out

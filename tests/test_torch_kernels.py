@@ -116,3 +116,80 @@ def test_no_fallback_off_the_cpu():
     with pytest.raises(ValueError):
         kernels.bucket_histogram(torch.zeros(4, dtype=torch.int32,
                                              device="meta"), 4)
+
+
+def _fold_chunks(words, num_buckets):
+    """The plain hash run over the CUDA wrapper's launch schedule: one
+    call per chunk, each later one carrying the running hash."""
+    cols = [torch.from_numpy(w) for w in words]
+    h = None
+    for start, stop, carry, buckets in kernels.hash_chunks(len(cols),
+                                                           num_buckets):
+        assert carry == (h is not None)
+        h = kernels.hash_buckets_plain(cols[start:stop], buckets, h)
+    return h.numpy()
+
+
+@pytest.mark.parametrize("cols", [kernels.HASH_MAX_COLS + 1, 40])
+@pytest.mark.parametrize("num_buckets", [0, 16, 200])
+def test_chunked_hash_parity(cols, num_buckets):
+    """More key columns than one launch takes: the chunk schedule, folded
+    through the plain version, equals the Pallas kernel over all."""
+    words = _words(3000, cols=cols, seed=5)
+    want = _jax_hash(words, num_buckets)
+    np.testing.assert_array_equal(_fold_chunks(words, num_buckets), want)
+    np.testing.assert_array_equal(_port_hash(words, num_buckets), want)
+
+
+@pytest.mark.parametrize("split", [1, 2, 5])
+@pytest.mark.parametrize("num_buckets", [0, 13, 4096])
+def test_hash_carry_contract(split, num_buckets):
+    """Hashing columns [:split] with no buckets, then the rest from that
+    running hash, equals hashing all of them at once."""
+    words = _words(1001, cols=6, seed=6)
+    cols = [torch.from_numpy(w) for w in words]
+    h = kernels.hash_buckets_plain(cols[:split], 0)
+    got = kernels.hash_buckets_plain(cols[split:], num_buckets, h).numpy()
+    np.testing.assert_array_equal(got, _jax_hash(words, num_buckets))
+
+
+def test_hash_chunk_schedule():
+    m = kernels.HASH_MAX_COLS
+    assert kernels.hash_chunks(1, 7) == [(0, 1, False, 7)]
+    assert kernels.hash_chunks(m, 7) == [(0, m, False, 7)]
+    assert kernels.hash_chunks(m + 1, 7) == [(0, m, False, 0),
+                                             (m, m + 1, True, 7)]
+    assert kernels.hash_chunks(2 * m + 3, 0) == [
+        (0, m, False, 0), (m, 2 * m, True, 0), (2 * m, 2 * m + 3, True, 0)]
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("num_buckets", [0, 200])
+def test_hash_on_sliced_views(offset, num_buckets):
+    """Key columns that start inside a larger tensor (as ``big[1:]`` does
+    on the card, 8- but not 16-byte aligned) hash as the JAX kernel."""
+    words = _words(4099, cols=2, seed=7)
+    views = []
+    for w in words:
+        big = torch.zeros((w.shape[0] + offset, 2), dtype=torch.uint32)
+        big[offset:] = torch.from_numpy(w)
+        views.append(big[offset:])
+        assert views[-1].is_contiguous() and views[-1].storage_offset() == 2 * offset
+    got = kernels.hash_buckets(views, num_buckets).numpy()
+    np.testing.assert_array_equal(got, _jax_hash(words, num_buckets))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("num_buckets", [16, 200, 1025])
+def test_histogram_on_sliced_views(offset, num_buckets):
+    """Ids that start inside a larger tensor (a head of 1-3 ids before a
+    16-byte boundary on the card) count as the JAX kernel counts them."""
+    rng = np.random.default_rng(8)
+    ids = rng.integers(-1, num_buckets, size=10_001).astype(np.int32)
+    big = torch.full((ids.shape[0] + offset,), 7, dtype=torch.int32)
+    big[offset:] = torch.from_numpy(ids)
+    view = big[offset:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    got = kernels.bucket_histogram(view, num_buckets).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_histogram(jnp.asarray(ids), num_buckets)))
