@@ -8,7 +8,8 @@ beside it.
   build    compile both CUDA kernels from ``hyperspace_tpu_torch/csrc``
            (one nvcc per source, started together).
   phase A  each kernel against its plain PyTorch version on the card,
-           bit for bit: the hash at n in {1, 2, 3, 5, 32769, 6_000_000},
+           bit for bit: the hash at n in {1, 2, 3, 5, 32769, 1_500_000,
+           6_000_000} (the last two: the ord_idx and li_idx builds),
            k in {1, 3, HASH_MAX_COLS + 1} (a chunk boundary), num_buckets
            in {0, 16, 200, 4096}, on aligned columns, on 8- but not
            16-byte-aligned views (``big[1:]``) and on a mix of both; the
@@ -33,6 +34,29 @@ beside it.
            after; then the index files are checked: bucket membership,
            order within each file, row total, and a point lookup of five
            seeded keys through the pruned bucket's file.
+  phase D  queries through the indexes: ``create_index`` of ``ord_idx``
+           on the SF1 orders (1,500,000 rows, 64 files, 16 buckets)
+           beside ``li_idx``, with the launch counts set to 0 just before
+           and read after the queries, and its files checked as phase C
+           checks ``li_idx``'s; then, with hyperspace enabled and
+           disabled, the four QUERIES (``point``: bench.py's
+           ``l_orderkey == 123_457``, pruned to one bucket; ``range``: 20%
+           of the keys over every bucket; ``join``: orders with lineitem,
+           bucket by bucket; ``filtered_join``: the same under
+           ``o_totalprice < 2000``), each answer held to numpy's answer
+           from the generated arrays, each indexed plan required to scan
+           the indexes and to record the "device" route of its filters
+           and join kernels and a "bucketed" join.  Each indexed query
+           runs a second time with ``device_filter_min_rows`` and
+           ``device_join_min_rows`` above its row counts, so its filters
+           and join kernels take the host route (arrow predicate,
+           ``sorted_equi_join_np``); that answer too is held to numpy.
+           Each query is timed: ``indexed_ms`` (device route),
+           ``host_route_ms`` and ``scan_ms``, the median host wall of
+           TIMED_QUERY_RUNS collects after the checking one, and one
+           profiled indexed run gives ``device_ms`` (the sum of its device
+           activities), ``busy_share`` (``device_ms`` over that run's
+           wall) and the torch ops with the most device time.
 
 The data is bench.py's SF1 generator (``default_rng(7)``), copied here.
 Then each kernel is timed at n = 6,000,000 at the shapes of HASH_SHAPES
@@ -51,8 +75,9 @@ and HIST_SHAPES (the first of each is the main path's), in three ways:
 beside the bound (bytes read once and written once over HBM_BYTES_PER_S,
 or integer operations over ALU_OPS_PER_S), the plain version's call time
 and, for the histogram, ``torch.bincount``'s device time by the profiler
-(it synchronises, so no graph holds it).  The last lines are the kernels
-JSON, the card's name and power limit, and ``{"ok": true, "device": ...}``.
+(it synchronises, so no graph holds it).  The last lines are the
+queries JSON, the kernels JSON, the card's name and power limit, and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -75,6 +100,16 @@ NUM_BUCKETS = 16
 INDEX_NAME = "li_idx"
 INDEXED = ["l_orderkey"]
 INCLUDED = ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"]
+ORDERS_INDEX = "ord_idx"
+# Phase D's queries: bench.py sf1's point key and join, a range over 20%
+# of the keys, and the join under a filter on the orders' price.
+POINT_KEY = 123_457
+RANGE = (100_000, 400_000)
+PRICE_BELOW = 2_000.0
+TIMED_QUERY_RUNS = 5
+# device_filter_min_rows / device_join_min_rows for the host route: more
+# rows than any query has, so every filter and join kernel runs on the host.
+HOST_ROUTE_MIN_ROWS = 1 << 62
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
@@ -106,16 +141,33 @@ def gen_lineitem(rng, n: int) -> dict:
     return li
 
 
-def gen_data() -> dict:
-    """bench.py's ``_gen_data`` random stream: the orders columns are
-    drawn first (and dropped) so the lineitem is the benchmark's own."""
+def gen_data():
+    """bench.py's ``_gen_data``: (orders, lineitem), the orders drawn
+    first from the same random stream."""
     rng = np.random.default_rng(7)
     o_key = np.arange(N_ORDERS, dtype=np.int64)
     rng.shuffle(o_key)
-    rng.integers(0, 20_000, N_ORDERS)
-    rng.random(N_ORDERS)
-    rng.integers(0, 5, N_ORDERS)
-    return gen_lineitem(rng, N_LINEITEM)
+    orders = {
+        "o_orderkey": o_key,
+        "o_custkey": rng.integers(0, 20_000, N_ORDERS),
+        "o_totalprice": rng.random(N_ORDERS) * 1e5,
+        "o_shippriority": rng.integers(0, 5, N_ORDERS),
+    }
+    return orders, gen_lineitem(rng, N_LINEITEM)
+
+
+def write_files(table: dict, path: str) -> None:
+    """``table`` as N_FILES Parquet files under ``path``, as bench.py
+    writes them."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(path)
+    table = pa.table(table)
+    step = -(-table.num_rows // N_FILES)
+    for f in range(N_FILES):
+        pq.write_table(table.slice(f * step, step),
+                       os.path.join(path, f"part-{f:05d}.parquet"))
 
 
 def int64_words(values: np.ndarray):
@@ -167,7 +219,8 @@ def phase_a(dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     chunk = kernels.HASH_MAX_COLS
-    for n in (1, 2, 3, 5, 32769, N_LINEITEM):
+    # N_ORDERS and N_LINEITEM: the ord_idx and li_idx builds' shapes.
+    for n in (1, 2, 3, 5, 32769, N_ORDERS, N_LINEITEM):
         for k in (1, 3, chunk + 1):
             cols = _random_words(dev, n, k, gen)
             for nb in (0, 16, 200, 4096):
@@ -302,26 +355,51 @@ def phase_b(dev, keys: np.ndarray) -> None:
         raise AssertionError("phase B: bucket_counts differ from np.bincount")
 
 
-def phase_c(li: dict, root: str) -> dict:
+def check_index_files(phase: str, hs, name: str, key: str, rows: int) -> dict:
+    """The index ``name`` is ACTIVE, each of its files holds only rows of
+    its own bucket (by ``bucket_ids_np``) sorted by ``key``, and the
+    files hold ``rows`` rows in all.  Returns bucket -> file paths."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+    from hyperspace_tpu_torch.ops.hash import bucket_ids_np
+
+    listed = [r for r in hs.indexes() if r["name"] == name]
+    if len(listed) != 1 or listed[0]["state"] != "ACTIVE":
+        raise AssertionError(f"{phase}: {name} is not ACTIVE: {listed}")
+    entry = hs.session.index_collection_manager.get_index(name)
+    files_by_bucket: dict = {}
+    total = 0
+    for info in entry.content.file_infos():
+        b = bucket_id_of_file(info.name)
+        files_by_bucket.setdefault(b, []).append(info.name)
+        keys = pq.read_table(info.name, columns=[key]).column(key).to_numpy()
+        total += len(keys)
+        hw, _ = int64_words(keys)
+        if not np.all(bucket_ids_np([hw], NUM_BUCKETS) == b):
+            raise AssertionError(f"{phase}: rows of {info.name} outside bucket {b}")
+        if np.any(np.diff(keys) < 0):
+            raise AssertionError(f"{phase}: {info.name} is not sorted by {key}")
+    if total != rows:
+        raise AssertionError(f"{phase}: {name}'s files hold {total} rows, "
+                             f"expected {rows}")
+    return files_by_bucket
+
+
+def phase_c(li: dict, root: str, dev) -> dict:
     import pyarrow as pa
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
 
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
-    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
     from hyperspace_tpu_torch.ops import kernels
     from hyperspace_tpu_torch.ops.hash import bucket_ids_np
 
     src = os.path.join(root, "lineitem")
-    os.makedirs(src)
-    table = pa.table(li)
-    step = -(-table.num_rows // N_FILES)
-    for f in range(N_FILES):
-        pq.write_table(table.slice(f * step, step),
-                       os.path.join(src, f"part-{f:05d}.parquet"))
-    del table
+    write_files(li, src)
 
-    session = HyperspaceSession(system_path=os.path.join(root, "indexes"))
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
     session.conf.num_buckets = NUM_BUCKETS
     session.conf.device_batch_rows = 1 << 23
     hs = Hyperspace(session)
@@ -333,26 +411,8 @@ def phase_c(li: dict, root: str) -> dict:
     launches = kernels.launch_counts()
     phases = session.build_stats_log[-1]
 
-    listed = [r for r in hs.indexes() if r["name"] == INDEX_NAME]
-    if len(listed) != 1 or listed[0]["state"] != "ACTIVE":
-        raise AssertionError(f"phase C: {INDEX_NAME} is not ACTIVE: {listed}")
-    entry = session.index_collection_manager.get_index(INDEX_NAME)
-    files_by_bucket: dict = {}
-    total = 0
-    for info in entry.content.file_infos():
-        b = bucket_id_of_file(info.name)
-        files_by_bucket.setdefault(b, []).append(info.name)
-        keys = pq.read_table(info.name, columns=["l_orderkey"]).column(
-            "l_orderkey").to_numpy()
-        total += len(keys)
-        hw, _ = int64_words(keys)
-        if not np.all(bucket_ids_np([hw], NUM_BUCKETS) == b):
-            raise AssertionError(f"phase C: rows of {info.name} outside bucket {b}")
-        if np.any(np.diff(keys) < 0):
-            raise AssertionError(f"phase C: {info.name} is not sorted by l_orderkey")
-    if total != N_LINEITEM:
-        raise AssertionError(f"phase C: bucket files hold {total} rows, "
-                             f"expected {N_LINEITEM}")
+    files_by_bucket = check_index_files("phase C", hs, INDEX_NAME,
+                                        "l_orderkey", N_LINEITEM)
     rng = np.random.default_rng(5)
     for key in rng.choice(li["l_orderkey"], size=5, replace=False):
         hw, _ = int64_words(np.array([key]))
@@ -366,6 +426,228 @@ def phase_c(li: dict, root: str) -> dict:
                 raise AssertionError(f"phase C: lookup of {key} differs in {c}")
     return {"wall_s": wall, "phases": phases, "launches": launches,
             "files": sum(len(v) for v in files_by_bucket.values())}
+
+
+def sorted_rows(columns: dict, keys) -> dict:
+    """The columns' rows ordered by ``keys`` (lexicographic)."""
+    order = np.lexsort([columns[k] for k in reversed(keys)])
+    return {c: v[order] for c, v in columns.items()}
+
+
+def require_rows(name: str, table, want: dict, keys=None) -> None:
+    """``table`` holds exactly the rows of ``want`` (column name ->
+    numpy array): in the same order when ``keys`` is None, else as the
+    same multiset of rows, compared after sorting both by ``keys``."""
+    if table.column_names != list(want):
+        raise AssertionError(f"{name}: columns {table.column_names}, "
+                             f"expected {list(want)}")
+    got = {c: table.column(c).to_numpy() for c in want}
+    if keys is not None:
+        got, want = sorted_rows(got, keys), sorted_rows(want, keys)
+    for c, values in want.items():
+        if not np.array_equal(got[c], values):
+            raise AssertionError(f"{name}: column {c} differs from numpy "
+                                 f"({len(got[c])} rows, expected {len(values)})")
+
+
+def expected_answers(orders: dict, li: dict) -> dict:
+    """Each query of QUERIES answered by numpy from the generated arrays:
+    (expected columns, sort keys or None for "in source order").
+    ``o_orderkey`` is a permutation of ``arange``, so the join is a
+    gather of the order row of each lineitem row."""
+    lk = li["l_orderkey"]
+    point = lk == POINT_KEY
+    in_range = (lk >= RANGE[0]) & (lk < RANGE[1])
+    position = np.empty(N_ORDERS, dtype=np.int64)
+    position[orders["o_orderkey"]] = np.arange(N_ORDERS)
+    price = orders["o_totalprice"][position[lk]]
+    joined = {"o_orderkey": lk, "o_totalprice": price,
+              "l_quantity": li["l_quantity"],
+              "l_extendedprice": li["l_extendedprice"]}
+    cheap = price < PRICE_BELOW
+    join_keys = ["o_orderkey", "l_extendedprice"]
+    return {
+        "point": ({c: li[c][point] for c in ("l_orderkey", "l_quantity")},
+                  None),
+        "range": ({c: li[c][in_range] for c in
+                   ("l_orderkey", "l_extendedprice", "l_discount")},
+                  ["l_orderkey", "l_extendedprice"]),
+        "join": (joined, join_keys),
+        "filtered_join": ({c: v[cheap] for c, v in joined.items()}, join_keys),
+    }
+
+
+def build_queries(session, root: str) -> dict:
+    """The four queries of phase D as Datasets of ``session``."""
+    from hyperspace_tpu_torch import col
+
+    li = session.read.parquet(os.path.join(root, "lineitem"))
+    orders = session.read.parquet(os.path.join(root, "orders"))
+    join_cols = ("o_orderkey", "o_totalprice", "l_quantity", "l_extendedprice")
+    return {
+        "point": li.filter(col("l_orderkey") == POINT_KEY)
+        .select("l_orderkey", "l_quantity"),
+        "range": li.filter((col("l_orderkey") >= RANGE[0])
+                           & (col("l_orderkey") < RANGE[1]))
+        .select("l_orderkey", "l_extendedprice", "l_discount"),
+        "join": orders.join(li, col("o_orderkey") == col("l_orderkey"))
+        .select(*join_cols),
+        "filtered_join": orders.filter(col("o_totalprice") < PRICE_BELOW)
+        .join(li, col("o_orderkey") == col("l_orderkey")).select(*join_cols),
+    }
+
+
+def index_scans(plan) -> list:
+    """(index name, pruned buckets) of every index scan in ``plan``."""
+    rel = getattr(plan, "relation", None)
+    out = [] if rel is None or not rel.index_scan_of \
+        else [(rel.index_scan_of, rel.prune_to_buckets)]
+    for child in plan.children:
+        out.extend(index_scans(child))
+    return out
+
+
+def wall_ms(fn) -> float:
+    """Host milliseconds of ``fn()``, which ends in host data (a collect
+    pulls every result to the host, so the device work is done)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def short_kernel_name(name: str) -> str:
+    """``void at::native::elementwise_kernel<128, 4, ...>(...)`` ->
+    ``elementwise_kernel`` (kernels in an anonymous namespace too);
+    copies and memsets keep their names."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    head = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    head = head.split("<", 1)[0].split("(", 1)[0]
+    return head.rsplit("::", 1)[-1]
+
+
+def profile_query(dev, fn) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: its wall time, the
+    sum of its device activities (kernels and copies; one stream, so
+    they do not overlap), and the activities grouped by kernel name with
+    their launches and milliseconds, largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = wall_ms(fn)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            entry = by_name.setdefault(short_kernel_name(e.name), [0, 0.0])
+            entry[0] += 1
+            entry[1] += e.time_range.elapsed_us() / 1e3
+    device_ms = sum(ms for _, ms in by_name.values())
+    return {"profiled_wall_ms": wall, "device_ms": device_ms,
+            "busy_share": device_ms / wall if wall else None,
+            "device_ops": [{"op": k, "launches": n, "ms": ms} for k, (n, ms)
+                           in sorted(by_name.items(), key=lambda kv: -kv[1][1])]}
+
+
+def routes(stats: dict) -> dict:
+    """The strategies a collect recorded, per kind, sorted."""
+    return {k: sorted({d["strategy"] for d in stats.get(k, [])})
+            for k in ("filters", "joins", "join_kernels")}
+
+
+def expected_routes(name: str, route: str) -> dict:
+    """The strategies query ``name`` must record on ``route`` ("device"
+    or "host"): its filters and join kernels on that route, and every
+    join bucketed."""
+    join = name.endswith("join")
+    return {"filters": [route] if name != "join" else [],
+            "joins": ["bucketed"] if join else [],
+            "join_kernels": [route] if join else []}
+
+
+def set_min_rows(session, rows: int) -> None:
+    session.conf.device_filter_min_rows = rows
+    session.conf.device_join_min_rows = rows
+
+
+def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
+    """Queries through the indexes: build ``ord_idx`` beside phase C's
+    ``li_idx`` and check its files, then run QUERIES with hyperspace
+    enabled (device route, then host route) and disabled, each answer
+    held to numpy; time each of the three and profile one indexed run."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.ops import kernels
+
+    write_files(orders, os.path.join(root, "orders"))
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    hs = Hyperspace(session)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hs.create_index(
+        session.read.parquet(os.path.join(root, "orders")),
+        IndexConfig(ORDERS_INDEX, ["o_orderkey"],
+                    ["o_totalprice", "o_custkey", "o_shippriority"]))
+    build_s = time.perf_counter() - t0
+    check_index_files("phase D", hs, ORDERS_INDEX, "o_orderkey", N_ORDERS)
+    queries = build_queries(session, root)
+    expected = expected_answers(orders, li)
+    rows = []
+    for name, ds in queries.items():
+        want, keys = expected[name]
+        session.enable_hyperspace()
+        scans = index_scans(ds.optimized_plan())
+        names = sorted(n for n, _ in scans)
+        need = [INDEX_NAME] + ([ORDERS_INDEX] if name.endswith("join") else [])
+        if names != sorted(need):
+            raise AssertionError(f"phase D {name}: plan scans {names}, "
+                                 f"expected {need}")
+        require_rows(f"phase D {name} indexed", ds.collect(), want, keys)
+        stats = session.last_execution_stats
+        if routes(stats) != expected_routes(name, "device"):
+            raise AssertionError(f"phase D {name}: strategies {routes(stats)}, "
+                                 f"expected {expected_routes(name, 'device')}")
+        indexed = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        profiled = profile_query(dev, ds.collect)
+        set_min_rows(session, HOST_ROUTE_MIN_ROWS)
+        require_rows(f"phase D {name} host route", ds.collect(), want, keys)
+        host = routes(session.last_execution_stats)
+        if host != expected_routes(name, "host"):
+            raise AssertionError(f"phase D {name}: host-route strategies "
+                                 f"{host}, expected "
+                                 f"{expected_routes(name, 'host')}")
+        host_route = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        set_min_rows(session, 0)
+        session.disable_hyperspace()
+        if index_scans(ds.optimized_plan()):
+            raise AssertionError(f"phase D {name}: disabled plan scans an index")
+        require_rows(f"phase D {name} source", ds.collect(), want, keys)
+        scan = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        indexed_ms = statistics.median(indexed)
+        scan_ms = statistics.median(scan)
+        host_route_ms = statistics.median(host_route)
+        rows.append({
+            "name": name, "rows": len(next(iter(want.values()))),
+            "indexed_ms": indexed_ms, "scan_ms": scan_ms,
+            "speedup": scan_ms / indexed_ms,
+            "host_route_ms": host_route_ms,
+            "host_over_device": host_route_ms / indexed_ms,
+            **profiled,
+            "pruned_buckets": [len(b) if b is not None else None
+                               for _, b in scans],
+            "files_read": sum(s["files_read"] for s in stats["scans"]),
+            "filters": len(stats.get("filters", [])),
+            "join_kernels": len(stats.get("join_kernels", [])),
+            "indexed_runs_ms": indexed, "scan_runs_ms": scan,
+            "host_route_runs_ms": host_route})
+    return {"queries": rows, "build_s": build_s,
+            "launches": kernels.launch_counts()}
 
 
 def call_ms(fn, flush) -> float:
@@ -559,8 +841,9 @@ def main() -> int:
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
     t0 = time.perf_counter()
-    li = gen_data()
-    print(f"data: {N_LINEITEM} rows x {len(li)} columns generated "
+    orders, li = gen_data()
+    print(f"data: {N_LINEITEM} rows x {len(li)} columns and {N_ORDERS} "
+          f"rows x {len(orders)} columns generated "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -571,18 +854,27 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix="hs_chip_smoke_")
     try:
-        c = phase_c(li, root)
+        c = phase_c(li, root, dev)
+        print(f"phase C: create_index {INDEX_NAME} ACTIVE, {c['files']} "
+              f"files, wall {c['wall_s']:.3f} s, phases "
+              + json.dumps({k: v for k, v in c["phases"].items()
+                            if k != "index"}), flush=True)
+        launches = c["launches"]
+        missing = [k for k, v in launches.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"phase C: kernels not launched on the main "
+                                 f"path: {missing}")
+        t0 = time.perf_counter()
+        d = phase_d(orders, li, root, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"phase C: create_index {INDEX_NAME} ACTIVE, {c['files']} "
-          f"files, wall {c['wall_s']:.3f} s, phases "
-          + json.dumps({k: v for k, v in c["phases"].items()
-                        if k != "index"}), flush=True)
-    launches = c["launches"]
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in d["launches"].items() if v <= 0]
     if missing:
-        raise AssertionError(f"phase C: kernels not launched on the main "
-                             f"path: {missing}")
+        raise AssertionError(f"phase D: kernels not launched by the "
+                             f"{ORDERS_INDEX} build: {missing}")
+    print(f"phase D: {ORDERS_INDEX} built in {d['build_s']:.3f} s; "
+          f"{len(d['queries'])} queries equal to numpy with indexes on "
+          f"and off ({time.perf_counter() - t0:.3f} s)", flush=True)
 
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches)
@@ -594,6 +886,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"queries": d["queries"], "launches": d["launches"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,12 @@
 Covering indexes (bucket-hashed, sorted, column-pruned copies of a
 Parquet source) built on one NVIDIA GPU: the bucket hash and the bucket
 histogram are CUDA kernels (``ops/kernels.py``, ``csrc/``), the stable
-lexsort is ``torch.sort``.  The JAX package ``hyperspace_tpu`` is the
-reference; this package imports nothing of it, and no ``jax``.
+lexsort is ``torch.sort``.  Filter and join queries are rewritten to
+read the indexes (``session.enable_hyperspace()``) and run on the same
+device: the predicate as torch ops over the index columns, the join
+bucket by bucket with a sorted equi-join in each bucket.  The JAX
+package ``hyperspace_tpu`` is the reference; this package imports
+nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -14,6 +18,7 @@ from hyperspace_tpu_torch.dataset import Dataset
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.hyperspace import Hyperspace
 from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.plan.expr import col, lit
 from hyperspace_tpu_torch.session import HyperspaceSession
 
 __all__ = [
@@ -23,4 +28,6 @@ __all__ = [
     "HyperspaceError",
     "IndexConfig",
     "Dataset",
+    "col",
+    "lit",
 ]

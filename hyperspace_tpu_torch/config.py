@@ -1,6 +1,13 @@
-"""Session configuration of the build (counterpart of
-hyperspace_tpu/config.py, holding the fields the build reads; defaults
-are the JAX package's)."""
+"""Session configuration (counterpart of hyperspace_tpu/config.py,
+holding the fields the build and the query path read; defaults are the
+JAX package's but for the two routing thresholds).
+
+The JAX package derives ``device_min_rows`` from a calibration of the
+attachment, falling back to 2**26 rows; calibration is not ported, so
+the port's thresholds default to 0: every filter and join takes the
+device path, as the port's build does.  A threshold set above a batch's
+rows sends that batch to the host route (arrow predicate, numpy join),
+as in the JAX package."""
 
 from __future__ import annotations
 
@@ -26,3 +33,14 @@ class HyperspaceConf:
             os.environ.get("HS_DEVICE_BATCH_ROWS", 1 << 20)))
     # Parquet codec for index data files ("none" = uncompressed).
     index_file_compression: str = INDEX_COMPRESSION_DEFAULT
+    # Filter rule: carry the bucket spec on index scans even when the
+    # predicate prunes no bucket.
+    filter_rule_use_bucket_spec: bool = False
+    # Rows from which a filter / a join runs on the session's device.
+    device_filter_min_rows: int = 0
+    device_join_min_rows: int = 0
+
+    def device_min_rows(self, kind: str) -> int:
+        """The host-versus-device threshold of ``kind`` ("filter" or
+        "join")."""
+        return int(getattr(self, f"device_{kind}_min_rows"))

@@ -207,6 +207,10 @@ class CoveringIndex:
             dict(p.get("properties", {})),
         )
 
+    @property
+    def all_columns(self) -> List[str]:
+        return self.indexed_columns + self.included_columns
+
 
 @dataclasses.dataclass(frozen=True)
 class Signature:
@@ -249,6 +253,9 @@ class Relation:
     schema: Dict[str, str]
     file_format: str
     options: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # Appended/deleted files a quick refresh recorded, as the JSON holds
+    # them (the port writes none; the rules skip an entry that has one).
+    update: Optional[Dict[str, Any]] = None
 
     def to_dict(self) -> Dict[str, Any]:
         return {
@@ -256,7 +263,7 @@ class Relation:
             "data": {
                 "properties": {
                     "content": self.content.to_dict(),
-                    "update": None,
+                    "update": self.update,
                 }
             },
             "dataSchemaJson": self.schema,
@@ -272,6 +279,7 @@ class Relation:
             dict(d["dataSchemaJson"]),
             d["fileFormat"],
             dict(d.get("options", {})),
+            d["data"]["properties"].get("update"),
         )
 
 
@@ -313,6 +321,9 @@ class IndexLogEntry:
     state: str = States.DOESNOTEXIST
     id: int = 0
     timestamp: int = dataclasses.field(default_factory=lambda: int(time.time() * 1000))
+    # In-memory memo tags, never serialized.
+    _tags: Dict[Any, Any] = dataclasses.field(default_factory=dict, repr=False,
+                                              compare=False)
 
     VERSION = LOG_ENTRY_VERSION
 
@@ -355,6 +366,41 @@ class IndexLogEntry:
     @property
     def num_buckets(self) -> int:
         return self.derived_dataset.num_buckets
+
+    @property
+    def is_covering(self) -> bool:
+        return isinstance(self.derived_dataset, CoveringIndex)
+
+    def signature(self) -> Signature:
+        """The one stored signature of the source plan."""
+        sigs = self.source.fingerprint.signatures
+        if len(sigs) != 1:
+            raise ValueError(f"Expected exactly one signature, got {len(sigs)}")
+        return sigs[0]
+
+    def has_source_update(self) -> bool:
+        """True when a quick refresh recorded appended or deleted source
+        files: the index data alone is then stale."""
+        return any(_update_has_files(r.update) for r in self.source.relations)
+
+    # Tags are keyed by (tag, plan node): one entry can match the
+    # signature of one relation and not another's.
+    def set_tag(self, key: str, value: Any, plan: Any = None) -> None:
+        self._tags[(key, id(plan))] = value
+
+    def get_tag(self, key: str, plan: Any = None) -> Optional[Any]:
+        return self._tags.get((key, id(plan)))
+
+
+class IndexLogEntryTags:
+    SIGNATURE_MATCHED = "signatureMatched"
+
+
+def _update_has_files(update: Optional[Dict[str, Any]]) -> bool:
+    if not update:
+        return False
+    return any(Content.from_dict(update[k]).files()
+               for k in ("appendedFiles", "deletedFiles") if update.get(k))
 
 
 class FileIdTracker:

@@ -1,6 +1,7 @@
-"""Arrow columns -> the uint32 word arrays the build's kernels take.
+"""Arrow columns -> the arrays the device takes.
 
-Counterpart of hyperspace_tpu/io/columnar.py (its build-path subset):
+Counterpart of hyperspace_tpu/io/columnar.py (its build and query
+subset):
 
   - ``to_hash_words``: any column -> (n, 2) uint32 words for the bucket
     hash.  Numerics bitcast on the host; strings, binary and decimals are
@@ -8,6 +9,9 @@ Counterpart of hyperspace_tpu/io/columnar.py (its build-path subset):
     does, because the bucket of every row must be the same bits.
   - ``to_order_words``: any column -> (n, 2) uint32 monotone words whose
     (hi, lo) order equals the column's value order.
+  - ``to_device_numeric`` / ``literal_to_numeric``: a null-free numeric
+    column as float64 or int64 (temporal and bool as int64), and a
+    literal in the same domain, for the device predicate and join.
 
 pyarrow (and pandas, for variable-length keys) is imported when a
 function runs, never when the module is imported: the port's kernels and
@@ -153,3 +157,36 @@ def to_order_words(column) -> np.ndarray:
     """(n, 2) uint32 monotone words: lexicographic (hi, lo) order equals
     the column's value order."""
     return split_words64(_monotone_uint64(to_order_key(column)))
+
+
+def to_device_numeric(column) -> Optional[np.ndarray]:
+    """The column as a float64 or int64 numpy array, ready to upload to
+    the device; None when it is not numeric or holds a null (SQL null
+    semantics stay on the arrow host path)."""
+    import pyarrow as pa
+
+    column = _combine(column)
+    t = column.type
+    if not is_numeric_type(t) or column.null_count > 0:
+        return None
+    if pa.types.is_floating(t):
+        return column.to_numpy(zero_copy_only=False).astype(np.float64)
+    return _numeric_int64(column, fill_null_zero=False)
+
+
+def literal_to_numeric(value, t) -> Optional[float]:
+    """A literal in ``to_device_numeric``'s domain for a column of arrow
+    type ``t``; None when it does not fit that domain."""
+    import pyarrow as pa
+
+    if pa.types.is_temporal(t):
+        try:
+            arr = pa.array([value], type=t)
+        except (pa.ArrowInvalid, pa.ArrowTypeError):
+            return None
+        return int(_temporal_to_int64(arr)[0].as_py())
+    if isinstance(value, bool):
+        return int(value)
+    if isinstance(value, (int, float)):
+        return value
+    return None

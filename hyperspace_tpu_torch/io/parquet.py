@@ -1,6 +1,7 @@
-"""Parquet IO of the build: read source files, write bucketed index data.
+"""Parquet IO: read source and index files, write bucketed index data.
 
-Counterpart of hyperspace_tpu/io/parquet.py (its build-path subset).  The
+Counterpart of hyperspace_tpu/io/parquet.py (its build and query
+subset).  The
 bucketed writer writes one sorted Parquet file per non-empty bucket (more
 when ``max_rows_per_file`` splits a bucket), named ``part-bNNNNN-*`` so a
 file maps to its bucket without reading footers.  The layout and the
@@ -77,6 +78,31 @@ def read_schema(path: str) -> Dict[str, str]:
     import pyarrow.parquet as pq
 
     return {f.name: str(f.type) for f in pq.read_schema(path)}
+
+
+def schema_to_arrow(schema: Dict[str, str]):
+    """Column name -> dtype string (``read_schema``'s form) back to an
+    arrow schema."""
+    import pyarrow as pa
+
+    return pa.schema([(name, _dtype_from_string(t)) for name, t in schema.items()])
+
+
+def _dtype_from_string(t: str):
+    import pyarrow as pa
+
+    if t.startswith("timestamp"):
+        m = re.match(r"timestamp\[(\w+)(?:, tz=(.*))?\]", t)
+        if m:
+            return pa.timestamp(m.group(1), tz=m.group(2))
+    if t.startswith("decimal128"):
+        m = re.match(r"decimal128\((\d+),\s*(\d+)\)", t)
+        if m:
+            return pa.decimal128(int(m.group(1)), int(m.group(2)))
+    try:
+        return pa.type_for_alias(t)
+    except ValueError:
+        return pa.string()
 
 
 def bucket_chunks(n_rows: int, max_rows_per_file: int) -> List:

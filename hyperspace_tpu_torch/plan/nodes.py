@@ -1,21 +1,35 @@
-"""Logical plan leaf (counterpart of hyperspace_tpu/plan/nodes.py, its
-``ScanRelation``/``Scan`` subset): the one node a build reads.  The class
-name ``Scan`` is part of the plan signature, so it matches the JAX
-package's."""
+"""Logical plan nodes (counterpart of hyperspace_tpu/plan/nodes.py, the
+nodes a filter or join query needs): ``Scan``, ``Filter``, ``Project``,
+``Join`` and ``InMemory``.  A plan is a small immutable tree; the rules
+rewrite it with ``transform_up``/``with_children``.  Class names are part
+of the plan signature, so they match the JAX package's, and
+``tree_string`` prints a plan as the JAX package does."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from hyperspace_tpu_torch.plan.expr import Expr
 
 
 @dataclasses.dataclass(frozen=True)
 class ScanRelation:
-    """Where and how to read a relation's data."""
+    """Where and how to read a relation's data.
+
+    ``index_scan_of`` marks a scan already rewritten to an index (so no
+    rule applies twice); ``bucket_spec`` is (num_buckets, bucket columns,
+    sort columns) of bucketed index data; ``file_paths``, when set,
+    replaces the listing of ``root_paths``; ``prune_to_buckets`` keeps
+    only the index files of those buckets."""
 
     root_paths: Tuple[str, ...]
     file_format: str = "parquet"
     options: Tuple[Tuple[str, str], ...] = ()
+    index_scan_of: Optional[str] = None
+    bucket_spec: Optional[Tuple[int, Tuple[str, ...], Tuple[str, ...]]] = None
+    file_paths: Optional[Tuple[str, ...]] = None
+    prune_to_buckets: Optional[Tuple[int, ...]] = None
 
     @property
     def options_dict(self) -> Dict[str, str]:
@@ -33,8 +47,151 @@ class LogicalPlan:
             out.extend(c.leaf_relations())
         return out
 
+    def is_linear(self) -> bool:
+        """True if no node has more than one child."""
+        if len(self.children) > 1:
+            return False
+        return all(c.is_linear() for c in self.children)
+
+    def output_columns(self, schema_of) -> List[str]:
+        """Columns this plan produces; ``schema_of(scan)`` resolves leaf
+        schemas."""
+        raise NotImplementedError
+
+    def transform_up(self, fn) -> "LogicalPlan":
+        new_children = tuple(c.transform_up(fn) for c in self.children)
+        node = self.with_children(new_children) \
+            if new_children != self.children else self
+        return fn(node)
+
+    def with_children(self, children: Tuple["LogicalPlan", ...]) -> "LogicalPlan":
+        raise NotImplementedError
+
+    def simple_string(self) -> str:
+        raise NotImplementedError
+
+    def tree_string(self, indent: int = 0) -> str:
+        lines = ["  " * indent + self.simple_string()]
+        for c in self.children:
+            lines.append(c.tree_string(indent + 1))
+        return "\n".join(lines)
+
 
 class Scan(LogicalPlan):
     def __init__(self, relation: ScanRelation) -> None:
         self.relation = relation
         self.children = ()
+
+    def output_columns(self, schema_of) -> List[str]:
+        return schema_of(self)
+
+    def with_children(self, children) -> "Scan":
+        assert not children
+        return self
+
+    def simple_string(self) -> str:
+        rel = self.relation
+        if rel.index_scan_of:
+            tag = f"Hyperspace(Type: CI, Name: {rel.index_scan_of})"
+            if rel.prune_to_buckets is not None:
+                tag += (f" [buckets: {len(rel.prune_to_buckets)}"
+                        f"/{rel.bucket_spec[0]}]")
+            return f"Scan {tag}"
+        return f"Scan {','.join(rel.root_paths)} ({rel.file_format})"
+
+
+class Filter(LogicalPlan):
+    def __init__(self, condition: Expr, child: LogicalPlan) -> None:
+        self.condition = condition
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return self.child.output_columns(schema_of)
+
+    def with_children(self, children) -> "Filter":
+        (child,) = children
+        return Filter(self.condition, child)
+
+    def simple_string(self) -> str:
+        return f"Filter {self.condition!r}"
+
+
+class Project(LogicalPlan):
+    def __init__(self, columns: Sequence[str], child: LogicalPlan) -> None:
+        self.columns = list(columns)
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return list(self.columns)
+
+    def with_children(self, children) -> "Project":
+        (child,) = children
+        return Project(self.columns, child)
+
+    def simple_string(self) -> str:
+        return f"Project [{', '.join(self.columns)}]"
+
+
+class Join(LogicalPlan):
+    """Equi-join of any SQL join type.  The join index rule rewrites
+    inner equi-joins only; index scans under any type still run bucket
+    by bucket."""
+
+    HOW = ("inner", "left", "right", "full", "semi", "anti")
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 condition: Expr, how: str = "inner") -> None:
+        if how not in self.HOW:
+            raise ValueError(f"Unsupported join type {how!r}; "
+                             f"expected one of {self.HOW}")
+        self.condition = condition
+        self.how = how
+        self.children = (left, right)
+
+    @property
+    def left(self) -> LogicalPlan:
+        return self.children[0]
+
+    @property
+    def right(self) -> LogicalPlan:
+        return self.children[1]
+
+    def output_columns(self, schema_of) -> List[str]:
+        if self.how in ("semi", "anti"):
+            return self.left.output_columns(schema_of)
+        return (self.left.output_columns(schema_of)
+                + self.right.output_columns(schema_of))
+
+    def with_children(self, children) -> "Join":
+        left, right = children
+        return Join(left, right, self.condition, self.how)
+
+    def simple_string(self) -> str:
+        return f"Join {self.how} on {self.condition!r}"
+
+
+class InMemory(LogicalPlan):
+    """A materialized arrow table as a leaf.  The bucket-aligned join
+    uses it to join a bucket whose sides it already read."""
+
+    def __init__(self, table) -> None:
+        self.table = table
+        self.children = ()
+
+    def output_columns(self, schema_of) -> List[str]:
+        return list(self.table.column_names)
+
+    def with_children(self, children) -> "InMemory":
+        assert not children
+        return InMemory(self.table)
+
+    def simple_string(self) -> str:
+        return f"InMemory [{self.table.num_rows} rows]"

@@ -1,0 +1,80 @@
+"""Shared rule machinery (counterpart of hyperspace_tpu/rules/rule_utils.py,
+its signature-exact path): which ACTIVE indexes are valid for a scan, and
+the swap of a scan for an index-only scan.
+
+An index is a candidate for a scan when the signature recorded at build
+time equals the one recomputed over the scan's files now (once per
+provider per rule pass; the result is memoised on the entry, keyed by
+the scan).  Hybrid scan (an index plus appended source files) and
+quarantine are not ported: an entry with recorded source updates is not
+a candidate.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, IndexLogEntryTags
+from hyperspace_tpu_torch.index.signatures import get_provider
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan, ScanRelation
+
+
+def is_index_applied(scan: Scan) -> bool:
+    return scan.relation.index_scan_of is not None
+
+
+def get_candidate_indexes(session, entries: Sequence[IndexLogEntry],
+                          scan: Scan) -> List[IndexLogEntry]:
+    """The covering entries whose signature matches ``scan`` now."""
+    entries = [e for e in entries if e.is_covering]
+    if is_index_applied(scan):
+        return []
+    signature_cache: Dict[str, Optional[str]] = {}
+
+    def current_signature(provider_name: str) -> Optional[str]:
+        if provider_name not in signature_cache:
+            signature_cache[provider_name] = get_provider(provider_name).signature(
+                scan,
+                lambda s: session.source_provider_manager.get_relation(s).all_files())
+        return signature_cache[provider_name]
+
+    out: List[IndexLogEntry] = []
+    for entry in entries:
+        if entry.has_source_update():
+            continue
+        matched = entry.get_tag(IndexLogEntryTags.SIGNATURE_MATCHED, scan)
+        if matched is None:
+            sig = entry.signature()
+            matched = current_signature(sig.provider) == sig.value
+            entry.set_tag(IndexLogEntryTags.SIGNATURE_MATCHED, matched, scan)
+        if matched:
+            out.append(entry)
+    return out
+
+
+def index_scan_relation(entry: IndexLogEntry, use_bucket_spec: bool,
+                        prune_to_buckets: Optional[Tuple[int, ...]] = None
+                        ) -> ScanRelation:
+    """The relation that reads an index's bucketed Parquet files."""
+    files = [f.name for f in entry.content.file_infos()]
+    root = os.path.dirname(files[0]) if files else ""
+    cols = tuple(entry.indexed_columns)
+    return ScanRelation(
+        root_paths=(root,),
+        file_format="parquet",
+        index_scan_of=entry.name,
+        bucket_spec=(entry.num_buckets, cols, cols) if use_bucket_spec else None,
+        file_paths=tuple(files),
+        prune_to_buckets=prune_to_buckets,
+    )
+
+
+def transform_plan_to_use_index_only_scan(
+        plan: LogicalPlan, target: Scan, entry: IndexLogEntry,
+        use_bucket_spec: bool,
+        prune_to_buckets: Optional[Tuple[int, ...]] = None) -> LogicalPlan:
+    """Swap ``target`` for an index-only scan throughout ``plan``."""
+    new_node = Scan(index_scan_relation(entry, use_bucket_spec,
+                                        prune_to_buckets))
+    return plan.transform_up(lambda node: new_node if node is target else node)

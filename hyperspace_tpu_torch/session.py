@@ -1,15 +1,23 @@
 """The engine session (counterpart of hyperspace_tpu/session.py): conf,
-the device the data plane runs on, readers and the source provider
-manager."""
+the device the data plane runs on, readers, the source provider manager,
+schema resolution and the optimizer.
+
+``enable_hyperspace()`` switches the index rewrite rules on; ``optimize``
+then runs, in the JAX package's order: filter pushdown, column pruning,
+JoinIndexRule, FilterIndexRule, BucketPruneRule, and pushdown and pruning
+once more (the rules rebuild sides in Filter-above-Project form).  Not
+ported: the subquery, temporal and data-skipping steps, the degraded
+fallback that answers from the source when a rule fails, and the plan
+cache."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from hyperspace_tpu_torch.config import HyperspaceConf
-from hyperspace_tpu_torch.plan.nodes import Scan, ScanRelation
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan, ScanRelation
 from hyperspace_tpu_torch.sources.manager import FileBasedSourceProviderManager
 
 
@@ -49,6 +57,10 @@ class HyperspaceSession:
             self.conf.system_path = system_path
         # Per-build phase seconds, one dict per CreateAction run.
         self.build_stats_log: List[Dict[str, float]] = []
+        self._hyperspace_enabled = False
+        self._schema_cache: Dict[ScanRelation, Dict[str, str]] = {}
+        # The executor's stats of the most recent Dataset.collect().
+        self.last_execution_stats: Optional[Dict[str, List[Dict[str, Any]]]] = None
 
     @property
     def read(self) -> DataReader:
@@ -63,3 +75,61 @@ class HyperspaceSession:
         from hyperspace_tpu_torch.index.manager import IndexCollectionManager
 
         return IndexCollectionManager(self)
+
+    def schema_of(self, scan: Scan) -> List[str]:
+        return list(self.schema_map_of(scan).keys())
+
+    def schema_map_of(self, scan: Scan) -> Dict[str, str]:
+        """Column name -> arrow dtype string of a Parquet scan, cached by
+        the relation's value."""
+        key = scan.relation
+        if key not in self._schema_cache:
+            if scan.relation.file_paths is not None:
+                from hyperspace_tpu_torch.io.parquet import read_schema
+
+                self._schema_cache[key] = read_schema(scan.relation.file_paths[0])
+            else:
+                self._schema_cache[key] = \
+                    self.source_provider_manager.get_relation(scan).schema()
+        return self._schema_cache[key]
+
+    def enable_hyperspace(self) -> "HyperspaceSession":
+        self._hyperspace_enabled = True
+        return self
+
+    def disable_hyperspace(self) -> "HyperspaceSession":
+        self._hyperspace_enabled = False
+        return self
+
+    def is_hyperspace_enabled(self) -> bool:
+        return self._hyperspace_enabled
+
+    def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        from hyperspace_tpu_torch.index.log_entry import States
+        from hyperspace_tpu_torch.plan.pruning import prune_columns
+        from hyperspace_tpu_torch.plan.pushdown import push_filters
+        from hyperspace_tpu_torch.rules.bucket_prune import BucketPruneRule
+        from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
+        from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
+
+        # The rules swap nodes by identity: a Dataset reused under two
+        # branches must not share one node object.
+        plan = _uniquify(plan)
+        plan = push_filters(plan, self.schema_of)
+        plan = prune_columns(plan, self.schema_of)
+        if not self._hyperspace_enabled:
+            return plan
+        entries = self.index_collection_manager.get_indexes([States.ACTIVE])
+        plan = JoinIndexRule(self, entries).apply(plan)
+        plan = FilterIndexRule(self, entries).apply(plan)
+        plan = BucketPruneRule(self, entries).apply(plan)
+        plan = push_filters(plan, self.schema_of)
+        return prune_columns(plan, self.schema_of)
+
+
+def _uniquify(plan: LogicalPlan) -> LogicalPlan:
+    """The same plan with no node object appearing twice."""
+    new_children = tuple(_uniquify(c) for c in plan.children)
+    if isinstance(plan, Scan):
+        return Scan(plan.relation)
+    return plan.with_children(new_children)

@@ -45,6 +45,27 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
             assert not pattern.search(text), f"{path}: {pattern.pattern}"
 
 
+def test_no_module_of_the_port_imports_pyarrow_when_loaded():
+    """pyarrow is imported inside functions only, so the kernels and the
+    data plane load without it."""
+    import ast
+
+    sources = [p for p in _port_sources()
+               if p.endswith(".py") and p.startswith(PORT)]
+    assert len(sources) > 20
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "pyarrow" for n in names), path
+
+
 def test_a_build_through_the_port_imports_no_jax(tmp_path):
     script = textwrap.dedent(f"""
         import os, sys
@@ -64,6 +85,49 @@ def test_a_build_through_the_port_imports_no_jax(tmp_path):
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
         assert hs.indexes()[0]["state"] == "ACTIVE"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_queries_through_the_port_import_no_jax(tmp_path):
+    """A filter query and a join query, each rewritten to the indexes,
+    through ``collect()``."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        rng = np.random.default_rng(0)
+        paths = {{}}
+        for name, key in (("a", "k"), ("b", "j")):
+            paths[name] = os.path.join({str(tmp_path)!r}, name)
+            os.makedirs(paths[name])
+            pq.write_table(pa.table({{key: rng.integers(0, 50, 300),
+                                      name + "v": rng.random(300)}}),
+                           os.path.join(paths[name], "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(paths["a"]), IndexConfig("ia", ["k"], ["av"]))
+        hs.create_index(s.read.parquet(paths["b"]), IndexConfig("ib", ["j"], ["bv"]))
+        s.enable_hyperspace()
+        a, b = s.read.parquet(paths["a"]), s.read.parquet(paths["b"])
+        assert a.filter(col("k") == 7).select("k", "av").collect().num_rows > 0
+        assert s.last_execution_stats["scans"][0]["is_index"]
+        assert a.join(b, col("k") == col("j")).collect().num_rows > 0
+        assert s.last_execution_stats["joins"][0]["strategy"] == "bucketed"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
