@@ -58,9 +58,31 @@ beside it.
            activities), ``busy_share`` (``device_ms`` over that run's
            wall) and the torch ops with the most device time.
 
-The data is bench.py's SF1 generator (``default_rng(7)``), copied here.
-Then each kernel is timed at n = 6,000,000 at the shapes of HASH_SHAPES
-and HIST_SHAPES (the first of each is the main path's), in three ways:
+  phase E  the spill build at SF1 with the conf's default batch
+           (``device_batch_rows = 1 << 20``: 6 chunks) and 200 buckets:
+           ``li_idx`` over phase C's lineitem three ways, pipelined spill,
+           serial spill (``build_pipeline_enabled=False``) and monolithic
+           (``1 << 23`` rows), each with the launch counts set to 0 just
+           before and read just after (6 and 6 for each spill, 1 and 1 for
+           the monolithic build), every bucket's sha256 equal across the
+           three, and the spilled index's files checked as phase C checks
+           them; a fourth, pipelined, build runs under ``torch.profiler``
+           for its device time and busy share (and is bit-equal too).
+           Then, over a copy of the source with one file appended:
+           a full ``refresh_index`` (6 chunks, files checked), a refresh
+           of the unchanged source (outcome "noop"), and delete, restore,
+           delete, vacuum, with each state checked.
+  phase F  the spill build at SF10: bench.py's SF10 lineitem generator
+           (``default_rng(17)``), copied here, 60,000,000 rows x 15
+           columns in 64 files; ``sf10_li`` on ``l_orderkey`` with phase
+           C's included columns, 200 buckets and the default batch (58
+           chunks, one launch of each kernel per chunk), its files checked,
+           with its wall, phases, the process's peak RSS and the card's
+           peak allocation.
+
+The data is bench.py's generators, copied here.  Then each kernel is
+timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
+phase C's, the last the spill build's chunk), in three ways:
 
   kernel_ms    device time per launch: GRAPH_LAUNCHES wrapper calls
                captured into one CUDA graph (on the stream that warmed
@@ -75,9 +97,11 @@ and HIST_SHAPES (the first of each is the main path's), in three ways:
 beside the bound (bytes read once and written once over HBM_BYTES_PER_S,
 or integer operations over ALU_OPS_PER_S), the plain version's call time
 and, for the histogram, ``torch.bincount``'s device time by the profiler
-(it synchronises, so no graph holds it).  The last lines are the
-queries JSON, the kernels JSON, the card's name and power limit, and
-``{"ok": true, "device": ...}``.
+(it synchronises, so no graph holds it).  Each kernel row carries its
+launches on every path the script drives (``launches_by_path``); the
+chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
+the builds JSON (phases E and F), the queries JSON, the kernels JSON, the
+card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -111,6 +135,17 @@ TIMED_QUERY_RUNS = 5
 # rows than any query has, so every filter and join kernel runs on the host.
 HOST_ROUTE_MIN_ROWS = 1 << 62
 
+# Phases E and F: the spill build with the conf's default batch.
+SPILL_BUCKETS = 200
+DEFAULT_BATCH_ROWS = 1 << 20
+MONOLITHIC_BATCH_ROWS = 1 << 23
+COPY_INDEX = "li_copy"
+APPENDED_ROWS = 1_000
+SF10_INDEX = "sf10_li"
+N_ORDERS_SF10 = 15_000_000
+N_LINEITEM_SF10 = 60_000_000
+SF10_FILES = 64
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -120,10 +155,14 @@ TIMED_RUNS = 25
 GRAPH_LAUNCHES = 30
 GRAPH_REPLAYS = 5
 PROFILED_CALLS = 30
-# (key columns, buckets) of the hash and buckets of the histogram timed
-# at N_LINEITEM rows; the first of each is the main path's.
-HASH_SHAPES = ((1, NUM_BUCKETS), (1, 200), (3, NUM_BUCKETS))
-HIST_SHAPES = (NUM_BUCKETS, 200)
+# (rows, key columns, buckets) of the hash and (rows, buckets) of the
+# histogram; the first of each is phase C's, the last the spill build's
+# chunk at the default batch.
+HASH_SHAPES = ((N_LINEITEM, 1, NUM_BUCKETS), (N_LINEITEM, 1, 200),
+               (N_LINEITEM, 3, NUM_BUCKETS),
+               (DEFAULT_BATCH_ROWS, 1, SPILL_BUCKETS))
+HIST_SHAPES = ((N_LINEITEM, NUM_BUCKETS), (N_LINEITEM, 200),
+               (DEFAULT_BATCH_ROWS, SPILL_BUCKETS))
 
 
 def gen_lineitem(rng, n: int) -> dict:
@@ -355,7 +394,8 @@ def phase_b(dev, keys: np.ndarray) -> None:
         raise AssertionError("phase B: bucket_counts differ from np.bincount")
 
 
-def check_index_files(phase: str, hs, name: str, key: str, rows: int) -> dict:
+def check_index_files(phase: str, hs, name: str, key: str, rows: int,
+                      num_buckets: int = NUM_BUCKETS) -> dict:
     """The index ``name`` is ACTIVE, each of its files holds only rows of
     its own bucket (by ``bucket_ids_np``) sorted by ``key``, and the
     files hold ``rows`` rows in all.  Returns bucket -> file paths."""
@@ -376,7 +416,7 @@ def check_index_files(phase: str, hs, name: str, key: str, rows: int) -> dict:
         keys = pq.read_table(info.name, columns=[key]).column(key).to_numpy()
         total += len(keys)
         hw, _ = int64_words(keys)
-        if not np.all(bucket_ids_np([hw], NUM_BUCKETS) == b):
+        if not np.all(bucket_ids_np([hw], num_buckets) == b):
             raise AssertionError(f"{phase}: rows of {info.name} outside bucket {b}")
         if np.any(np.diff(keys) < 0):
             raise AssertionError(f"{phase}: {info.name} is not sorted by {key}")
@@ -527,10 +567,10 @@ def short_kernel_name(name: str) -> str:
 
 
 def profile_query(dev, fn) -> dict:
-    """One run of ``fn`` under ``torch.profiler``: its wall time, the
-    sum of its device activities (kernels and copies; one stream, so
-    they do not overlap), and the activities grouped by kernel name with
-    their launches and milliseconds, largest first."""
+    """One run of ``fn`` (a query, or a build) under ``torch.profiler``:
+    its wall time, the sum of its device activities (kernels and copies;
+    one stream, so they do not overlap), and the activities grouped by
+    kernel name with their launches and milliseconds, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -650,6 +690,235 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
             "launches": kernels.launch_counts()}
 
 
+def bucket_digests(hs, name: str) -> dict:
+    """bucket -> sorted sha256 of the index ``name``'s files."""
+    import hashlib
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    out: dict = {}
+    entry = hs.session.index_collection_manager.get_index(name)
+    for info in entry.content.file_infos():
+        with open(info.name, "rb") as f:
+            out.setdefault(bucket_id_of_file(info.name), []).append(
+                hashlib.sha256(f.read()).hexdigest())
+    return {b: sorted(v) for b, v in out.items()}
+
+
+def spill_session(dev, system_path: str, **conf):
+    """A session with the conf's defaults but SPILL_BUCKETS buckets; the
+    default batch must be DEFAULT_BATCH_ROWS."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+
+    session = HyperspaceSession(system_path=system_path, device=dev)
+    if session.conf.device_batch_rows != DEFAULT_BATCH_ROWS:
+        raise AssertionError(f"the conf's default batch is "
+                             f"{session.conf.device_batch_rows} rows, not "
+                             f"{DEFAULT_BATCH_ROWS} (HS_DEVICE_BATCH_ROWS set?)")
+    session.conf.num_buckets = SPILL_BUCKETS
+    for k, v in conf.items():
+        setattr(session.conf, k, v)
+    return Hyperspace(session)
+
+
+def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
+    """``run()`` (a build) with the launch counts set to 0 just before and
+    read just after: each kernel must have launched ``want_launches``
+    times.  Returns the build's wall, phases, launches and the card's
+    peak allocation."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outcome = run()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if any(v != want_launches for v in launches.values()):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want_launches} of each kernel")
+    return {"build": label, "wall_s": wall, "launches": launches,
+            "phases": {k: v for k, v in hs.session.build_stats_log[-1].items()
+                       if k != "index"},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "outcome": outcome}
+
+
+def index_state(hs, name: str) -> str:
+    rows = [r for r in hs.indexes() if r["name"] == name]
+    return rows[0]["state"] if rows else "missing"
+
+
+def version_dirs(system_path: str, name: str) -> list:
+    return sorted(d for d in os.listdir(os.path.join(system_path, name))
+                  if d.startswith("v__="))
+
+
+def phase_e(li: dict, root: str, dev) -> list:
+    """The spill build at SF1 with the default batch (see the module
+    docstring); returns one record per build."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import IndexConfig
+
+    src = os.path.join(root, "lineitem")
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    config = IndexConfig(INDEX_NAME, INDEXED, INCLUDED)
+    builds, digests = [], {}
+    for label, conf, want in (
+            ("E spill pipelined", {}, chunks),
+            ("E spill serial", {"build_pipeline_enabled": False}, chunks),
+            ("E monolithic", {"device_batch_rows": MONOLITHIC_BATCH_ROWS}, 1)):
+        path = os.path.join(root, "e_" + label.split()[-1])
+        hs = spill_session(dev, path, **conf)
+        rec = timed_build(dev, label, hs, lambda: hs.create_index(
+            hs.session.read.parquet(src), config), want)
+        spilled = "spill_route_s" in rec["phases"]
+        if spilled != (want > 1):
+            raise AssertionError(f"phase {label}: spilled={spilled}")
+        if want > 1:
+            check_index_files(f"phase {label}", hs, INDEX_NAME, "l_orderkey",
+                              N_LINEITEM, SPILL_BUCKETS)
+        digests[label] = bucket_digests(hs, INDEX_NAME)
+        builds.append(rec)
+        shutil.rmtree(path, ignore_errors=True)
+    # Once more under torch.profiler, for the build's device time and the
+    # card's busy share (the profiler's own cost inflates this wall).
+    path = os.path.join(root, "e_profiled")
+    hs = spill_session(dev, path)
+    profiled: dict = {}
+    rec = timed_build(dev, "E spill profiled", hs, lambda: profiled.update(
+        profile_query(dev, lambda: hs.create_index(
+            hs.session.read.parquet(src), config))), chunks)
+    rec.update(device_ms=profiled["device_ms"],
+               busy_share=profiled["busy_share"],
+               device_ops=profiled["device_ops"][:10])
+    digests[rec["build"]] = bucket_digests(hs, INDEX_NAME)
+    builds.append(rec)
+    shutil.rmtree(path, ignore_errors=True)
+    first = digests["E monolithic"]
+    if len(first) != SPILL_BUCKETS or \
+            any(d != first for d in digests.values()):
+        raise AssertionError("phase E: per-bucket sha256 differ between the "
+                             "spilled and monolithic builds")
+
+    # The lifecycle over a copy of the source (hard links: the files are
+    # never written) with one file appended after the build.
+    copy = os.path.join(root, "lineitem_copy")
+    shutil.copytree(src, copy, copy_function=os.link)
+    path = os.path.join(root, "e_life")
+    hs = spill_session(dev, path)
+    builds.append(timed_build(dev, "E create copy", hs, lambda: hs.create_index(
+        hs.session.read.parquet(copy),
+        IndexConfig(COPY_INDEX, INDEXED, INCLUDED)), chunks))
+    pq.write_table(pa.table({c: v[:APPENDED_ROWS] for c, v in li.items()}),
+                   os.path.join(copy, "part-99999.parquet"))
+    rows = N_LINEITEM + APPENDED_ROWS
+    rec = timed_build(dev, "E refresh full", hs,
+                      lambda: hs.refresh_index(COPY_INDEX, "full"),
+                      -(-rows // DEFAULT_BATCH_ROWS))
+    summary = rec.pop("outcome")
+    if (summary.outcome, summary.appended, summary.deleted) != ("ok", 1, 0):
+        raise AssertionError(f"phase E: refresh summary {summary}")
+    check_index_files("phase E refresh", hs, COPY_INDEX, "l_orderkey", rows,
+                      SPILL_BUCKETS)
+    builds.append(rec)
+    if version_dirs(path, COPY_INDEX) != ["v__=0", "v__=1"]:
+        raise AssertionError(f"phase E: versions {version_dirs(path, COPY_INDEX)}")
+    noop = hs.refresh_index(COPY_INDEX, "full")
+    if noop.outcome != "noop" or noop.version is not None:
+        raise AssertionError(f"phase E: refresh of an unchanged source: {noop}")
+    for verb, want in (("delete_index", "DELETED"), ("restore_index", "ACTIVE"),
+                       ("delete_index", "DELETED"),
+                       ("vacuum_index", "DOESNOTEXIST")):
+        getattr(hs, verb)(COPY_INDEX)
+        if index_state(hs, COPY_INDEX) != want:
+            raise AssertionError(f"phase E: {verb} left "
+                                 f"{index_state(hs, COPY_INDEX)}, not {want}")
+    if version_dirs(path, COPY_INDEX):
+        raise AssertionError(f"phase E: vacuum left {version_dirs(path, COPY_INDEX)}")
+    for rec in builds:
+        rec.pop("outcome", None)
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(copy, ignore_errors=True)
+    return builds
+
+
+def write_sf10_lineitem(path: str) -> None:
+    """bench.py's SF10 generator (``default_rng(17)``): lineitem, 15
+    columns, in SF10_FILES files.  Its orders columns are drawn from the
+    same stream, and not written, so lineitem's values are bench.py's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from concurrent.futures import ThreadPoolExecutor
+
+    os.makedirs(path)
+    rng = np.random.default_rng(17)
+    per_li = -(-N_LINEITEM_SF10 // SF10_FILES)
+    per_ord = -(-N_ORDERS_SF10 // SF10_FILES)
+    pending = []
+    with ThreadPoolExecutor(4) as pool:
+        for f in range(SF10_FILES):
+            n = min(per_li, N_LINEITEM_SF10 - f * per_li)
+            base = f * per_li
+            cols = {
+                "l_orderkey": rng.integers(0, N_ORDERS_SF10, n),
+                "l_quantity": rng.integers(1, 50, n).astype(np.float64),
+                "l_extendedprice": rng.random(n) * 1e4,
+                "l_discount": rng.random(n) * 0.1,
+                "l_shipdate": np.arange(base, base + n, dtype=np.int64),
+                "l_status": rng.integers(0, 4, n),
+            }
+            for i in range(9):
+                cols[f"l_pad{i}"] = rng.random(n)
+            n_o = min(per_ord, N_ORDERS_SF10 - f * per_ord)
+            rng.integers(0, 200_000, n_o)  # o_custkey
+            rng.random(n_o)                # o_totalprice
+            while len(pending) >= 4:
+                pending.pop(0).result()
+            pending.append(pool.submit(
+                pq.write_table, pa.table(cols),
+                os.path.join(path, f"part-{f:05d}.parquet")))
+        for fut in pending:
+            fut.result()
+
+
+def phase_f(root: str, dev) -> dict:
+    """The SF10 spill build (see the module docstring)."""
+    import resource
+
+    from hyperspace_tpu_torch import IndexConfig
+
+    src = os.path.join(root, "sf10_lineitem")
+    t0 = time.perf_counter()
+    write_sf10_lineitem(src)
+    datagen_s = time.perf_counter() - t0
+    free_gb = shutil.disk_usage(root).free / 1e9
+    path = os.path.join(root, "f_indexes")
+    hs = spill_session(dev, path)
+    chunks = -(-N_LINEITEM_SF10 // DEFAULT_BATCH_ROWS)
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    rec = timed_build(dev, "F sf10 spill", hs, lambda: hs.create_index(
+        hs.session.read.parquet(src),
+        IndexConfig(SF10_INDEX, INDEXED, INCLUDED)), chunks)
+    rec.pop("outcome")
+    rec["peak_rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    rec["peak_rss_mb_before"] = rss_before
+    t0 = time.perf_counter()
+    check_index_files("phase F", hs, SF10_INDEX, "l_orderkey", N_LINEITEM_SF10,
+                      SPILL_BUCKETS)
+    rec.update(rows=N_LINEITEM_SF10, files=SF10_FILES, chunks=chunks,
+               datagen_s=datagen_s, check_s=time.perf_counter() - t0,
+               disk_free_gb_before=free_gb)
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(src, ignore_errors=True)
+    return rec
+
+
 def call_ms(fn, flush) -> float:
     """Median milliseconds of one call of ``fn`` between two CUDA events,
     over TIMED_RUNS calls, each after an L2 flush, after three warm-up
@@ -738,9 +1007,12 @@ def bound(nbytes: int, ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def measure(dev, keys: np.ndarray, launches: dict) -> list:
-    """One row per kernel at the main path's shape, with the other shapes
-    of HASH_SHAPES / HIST_SHAPES under ``shapes``."""
+def measure(dev, keys: np.ndarray, launches: dict, by_path: dict,
+            per_sf1_build: dict) -> list:
+    """One row per kernel at phase C's shape, with the other shapes of
+    HASH_SHAPES / HIST_SHAPES under ``shapes``.  ``launches``: phase C's
+    counts; ``by_path``: path -> counts; ``per_sf1_build``: the launches
+    of one SF1 spill build, given to the chunk-shape rows."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
@@ -750,7 +1022,6 @@ def measure(dev, keys: np.ndarray, launches: dict) -> list:
     gen.manual_seed(3)
     hw, _ = int64_words(keys)
     key_col = torch.from_numpy(hw).to(dev)
-    n = len(keys)
 
     def timed(fn, sets, kernel, plain):
         graph = kernel_ms(fn, sets)
@@ -759,9 +1030,13 @@ def measure(dev, keys: np.ndarray, launches: dict) -> list:
                 "call_ms": call_ms(lambda: fn(sets[0]), flush),
                 "plain_ms": call_ms(lambda: plain(sets[0]), flush)}
 
+    def chunk_launches(name, n):
+        return {"launches_per_sf1_build": per_sf1_build[name]} \
+            if n == DEFAULT_BATCH_ROWS else {}
+
     hash_rows = []
-    for k, nb in HASH_SHAPES:
-        cols = [key_col] + _random_words(dev, n, k - 1, gen)
+    for n, k, nb in HASH_SHAPES:
+        cols = [key_col[:n]] + _random_words(dev, n, k - 1, gen)
         got = kernels.hash_buckets(cols, nb)
         err = int((got.to(torch.int64) - kernels.hash_buckets_plain(cols, nb)
                    .to(torch.int64)).abs().max())
@@ -774,12 +1049,13 @@ def measure(dev, keys: np.ndarray, launches: dict) -> list:
             **timed(lambda s: kernels.hash_buckets(s, nb), sets,
                     "hash_buckets_kernel",
                     lambda s: kernels.hash_buckets_plain(s, nb)),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            **chunk_launches("hash_buckets", n)})
         del sets
 
     hist_rows = []
-    for nb in HIST_SHAPES:
-        ids = kernels.hash_buckets([key_col], nb)
+    for n, nb in HIST_SHAPES:
+        ids = kernels.hash_buckets([key_col[:n]], nb)
         err = int((kernels.bucket_histogram(ids, nb)
                    - kernels.bucket_histogram_plain(ids, nb)).abs().max())
         b, by = bound(4 * n + 4 * nb, 3 * n)  # two compares and an add a row
@@ -794,7 +1070,8 @@ def measure(dev, keys: np.ndarray, launches: dict) -> list:
             # torch.bincount synchronises (it reads the largest id back),
             # so no graph can hold it: its device time is the profiler's.
             "library_ms": profiler_ms(library, sets),
-            "library_call_ms": call_ms(lambda: library(sets[0]), flush)})
+            "library_call_ms": call_ms(lambda: library(sets[0]), flush),
+            **chunk_launches("bucket_histogram", n)})
         del sets
 
     def row(name, source, replaces, shapes):
@@ -802,6 +1079,7 @@ def measure(dev, keys: np.ndarray, launches: dict) -> list:
                 "source": f"hyperspace_tpu_torch/csrc/{source}",
                 "replaces": replaces,
                 "launches": launches[name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 **shapes[0], "shapes": shapes}
 
     return [row("hash_buckets", "hash_buckets.cu",
@@ -866,18 +1144,40 @@ def main() -> int:
                                  f"path: {missing}")
         t0 = time.perf_counter()
         d = phase_d(orders, li, root, dev)
+        missing = [k for k, v in d["launches"].items() if v <= 0]
+        if missing:
+            raise AssertionError(f"phase D: kernels not launched by the "
+                                 f"{ORDERS_INDEX} build: {missing}")
+        print(f"phase D: {ORDERS_INDEX} built in {d['build_s']:.3f} s; "
+              f"{len(d['queries'])} queries equal to numpy with indexes on "
+              f"and off ({time.perf_counter() - t0:.3f} s)", flush=True)
+        t0 = time.perf_counter()
+        builds = phase_e(li, root, dev)
+        for b in builds:
+            print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
+                  f"{json.dumps(b['launches'])}, phases "
+                  f"{json.dumps(b['phases'])}", flush=True)
+        print(f"phase E: three SF1 builds bit-equal in every bucket, refresh, "
+              f"noop refresh, delete/restore/vacuum checked "
+              f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        del orders
+        t0 = time.perf_counter()
+        f = phase_f(root, dev)
+        builds.append(f)
+        print(f"phase F: {SF10_INDEX} over {f['rows']} rows in {f['chunks']} "
+              f"chunks, wall {f['wall_s']:.3f} s, phases "
+              f"{json.dumps(f['phases'])}, peak RSS {f['peak_rss_mb']:.0f} MB, "
+              f"card peak {f['max_memory_allocated'] / 2**20:.0f} MiB "
+              f"({time.perf_counter() - t0:.3f} s, datagen "
+              f"{f['datagen_s']:.3f} s)", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    missing = [k for k, v in d["launches"].items() if v <= 0]
-    if missing:
-        raise AssertionError(f"phase D: kernels not launched by the "
-                             f"{ORDERS_INDEX} build: {missing}")
-    print(f"phase D: {ORDERS_INDEX} built in {d['build_s']:.3f} s; "
-          f"{len(d['queries'])} queries equal to numpy with indexes on "
-          f"and off ({time.perf_counter() - t0:.3f} s)", flush=True)
 
+    by_path = {"C create li_idx": launches, "D create ord_idx": d["launches"],
+               **{b["build"]: b["launches"] for b in builds}}
     t0 = time.perf_counter()
-    rows = measure(dev, li["l_orderkey"], launches)
+    rows = measure(dev, li["l_orderkey"], launches, by_path,
+                   builds[0]["launches"])
     print(f"timing: {time.perf_counter() - t0:.3f} s", flush=True)
     bad = [r["name"] for r in rows
            for s in r["shapes"] if s["max_abs_err"] != 0]
@@ -886,6 +1186,7 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"builds": builds}))
     print(json.dumps({"queries": d["queries"], "launches": d["launches"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)

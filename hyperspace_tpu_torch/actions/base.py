@@ -10,13 +10,18 @@ concurrency (counterpart of hyperspace_tpu/actions/base.py).
     the ``latestStable`` pointer to it.
 
 An action that dies mid-flight leaves the transient entry as the latest
-log record.
+log record; ``cancel()`` rolls it back.  ``run()`` returns "ok" for a
+committed run and "noop" when ``validate()`` raised ``NoChangesError``
+(nothing is written).  The JAX package's conflict-retry loop is not
+ported: a concurrent writer's conflict propagates.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
+from hyperspace_tpu_torch.exceptions import HyperspaceError, NoChangesError
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 
@@ -34,10 +39,15 @@ class Action:
             self.log_manager.get_latest_log()
 
     def validate(self) -> None:
-        """Raise HyperspaceError before any state is written."""
+        """Raise HyperspaceError (NoChangesError for a benign no-op)
+        before any state is written."""
 
     def log_entry_for_begin(self) -> IndexLogEntry:
-        raise NotImplementedError
+        """The entry begin() writes: by default a copy of the previous
+        one (actions on an existing index); create builds a fresh one."""
+        if self.previous_log_entry is None:
+            raise HyperspaceError("No existing index log entry for this action")
+        return copy.deepcopy(self.previous_log_entry)
 
     def op(self) -> None:
         raise NotImplementedError
@@ -58,8 +68,12 @@ class Action:
         self.log_manager.write_log_or_raise(self.base_id + 2, entry)
         self.log_manager.create_latest_stable_log(self.base_id + 2)
 
-    def run(self) -> None:
-        self.validate()
+    def run(self) -> str:
+        try:
+            self.validate()
+        except NoChangesError:
+            return "noop"
         self.begin()
         self.op()
         self.end()
+        return "ok"

@@ -1,25 +1,42 @@
 """CreateAction: validate the config and plan, build the covering index on
 the session's device, commit the log entry (counterpart of
-hyperspace_tpu/actions/create.py, its monolithic build).
+hyperspace_tpu/actions/create.py).
 
-The build: read the source columns, turn the key columns into uint32
-hash and order words (``io.columnar``), run the bucket hash kernel and
-the stable lexsort by (bucket, key words) on the device
-(``ops.sort.bucket_sort_permutation``), and write one sorted Parquet file
-per non-empty bucket into the next ``v__=N`` directory
-(``io.parquet.write_bucketed``, whose run offsets come from the bucket
-histogram kernel).
+The build reads the source one file at a time (``_PrefetchReader``, which
+decodes ahead on one thread) and cuts it into batches of exactly
+``conf.device_batch_rows`` rows:
 
-Only the monolithic build is ported: a source of more rows than
-``conf.device_batch_rows`` needs the spill build, which is not, and is
-refused with a ``HyperspaceError`` before any data is read.
+  - Everything fits in one batch: the monolithic build.  Key columns
+    become uint32 hash and order words (``io.columnar``), the hash kernel
+    and the stable lexsort by (bucket, key words) run on the device
+    (``ops.sort.bucket_sort_permutation``), and one sorted Parquet file
+    per non-empty bucket goes into the next ``v__=N`` directory
+    (``io.parquet.write_bucketed``, whose run offsets come from the
+    bucket histogram kernel).
+  - More rows: the spill build (``_BucketSpill``).  Each batch is routed
+    on the device (``ops.hash.route_partition``: the same hash and sorts,
+    and the histogram's counts as the run cuts), and its rows land,
+    grouped by bucket, in Arrow IPC run files in a temporary directory;
+    each group of buckets is then merged and written as Parquet.  The
+    device holds a few batches at once whatever the source's size, and
+    every bucket's bytes equal the monolithic build's.
+
+``RefreshAction`` (actions/refresh.py) rebuilds through the same
+``_build_index_data``.  Not ported: the mesh and multi-host builds, the
+Z-order layouts, the lineage column, ``_sketch.parquet``, build reports
+and telemetry.  pyarrow is imported when a function runs.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from hyperspace_tpu_torch.actions.base import Action
@@ -40,9 +57,70 @@ from hyperspace_tpu_torch.index.log_entry import (
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.index.signatures import get_provider
 from hyperspace_tpu_torch.io import columnar
-from hyperspace_tpu_torch.io.parquet import read_table, row_count, write_bucketed
+from hyperspace_tpu_torch.io.files import remove_file, remove_tree
+from hyperspace_tpu_torch.io.parquet import (
+    _dtype_from_string,
+    read_file,
+    sort_permutation_from_codes,
+    sort_permutation_host,
+    write_bucket_run,
+    write_bucketed,
+)
+from hyperspace_tpu_torch.ops.hash import route_partition
 from hyperspace_tpu_torch.ops.sort import bucket_sort_permutation
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+
+# Spill directories are stamped with the building process's pid, so a
+# later build can prove an orphan's owner dead before it removes the
+# directory: a killed build runs no cleanup, and the directory holds a
+# routed copy of the source.
+_SPILL_DIR_KIND = "hs_build_spill_"
+
+
+def _spill_dir_prefix(kind: str) -> str:
+    return f"{kind}{os.getpid()}_"
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except OSError:
+        pass  # EPERM: the pid exists and belongs to someone else
+    return True
+
+
+def reap_orphan_spill_dirs(tmp_root: Optional[str] = None) -> int:
+    """Remove the spill directories of DEAD processes under ``tmp_root``
+    (the temp directory by default), run at the start of every build.
+    Only pid-stamped directories whose pid provably no longer exists are
+    touched.  Returns how many were removed."""
+    root = tmp_root or tempfile.gettempdir()
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return 0
+    reaped = 0
+    for name in names:
+        if not name.startswith(_SPILL_DIR_KIND):
+            continue
+        pid_part = name[len(_SPILL_DIR_KIND):].split("_", 1)[0]
+        if not pid_part.isdigit():
+            continue  # not pid-stamped: its owner cannot be proven dead
+        pid = int(pid_part)
+        if pid == os.getpid() or _pid_alive(pid):
+            continue
+        remove_tree(os.path.join(root, name), ignore_errors=True)
+        reaped += 1
+    return reaped
+
+
+def bucket_group_bounds(num_buckets: int, groups: int) -> list:
+    """Contiguous bucket ranges: group ``g`` owns the buckets
+    ``bounds[g] <= b < bounds[g + 1]`` (the JAX package's
+    ``parallel/sharded_build.bucket_group_bounds``)."""
+    return [-(-g * num_buckets // groups) for g in range(groups + 1)]
 
 
 def _resolve_or_raise(requested: List[str], available: List[str],
@@ -59,9 +137,78 @@ def _resolve_or_raise(requested: List[str], available: List[str],
     return [lookup[n.lower()] for n in requested]
 
 
-class CreateAction(Action):
-    transient_state = States.CREATING
-    final_state = States.ACTIVE
+class _PrefetchReader:
+    """Bounded decode-ahead over the source files: ONE reader thread
+    decodes file N+1 while the consumer routes file N, holding at most
+    ``depth`` decoded files (the backpressure that bounds host memory by
+    batches, not by the dataset).  ``depth=0`` reads inline: the
+    forced-serial reference.  ``close()`` cancels queued reads and joins
+    the reader, so a failed build never races its own prefetcher."""
+
+    def __init__(self, action: "CreateActionBase", files, columns, relation,
+                 depth: int, spill: "_BucketSpill") -> None:
+        self.action = action
+        self.files = list(files)
+        self.columns = columns
+        self.relation = relation
+        self.depth = max(0, int(depth))
+        self.spill = spill
+        self._stall_buffer_s = 0.0
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pending: List = []
+
+    def _record_stall(self, seconds: float) -> None:
+        """The consumer's wait on decode is the ``prefetch_s`` phase, but
+        only once the build spills: a monolithic build has nothing to
+        overlap, and its wait is the reader's ``read_s`` counted twice.
+        Stalls before the first spill are buffered and flushed with the
+        first one after it."""
+        if not self.spill.spilled:
+            self._stall_buffer_s += seconds
+            return
+        self.action._phase("prefetch_s", self._stall_buffer_s + seconds)
+        self._stall_buffer_s = 0.0
+
+    def _submit(self, f):
+        return self._pool.submit(self.action._read_chunk, f, self.columns,
+                                 self.relation)
+
+    def __iter__(self):
+        if self.depth == 0:
+            for f in self.files:
+                yield self.action._read_chunk(f, self.columns, self.relation)
+            return
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="hs-prefetch")
+        queue = list(self.files)
+        try:
+            while queue and len(self._pending) < self.depth:
+                self._pending.append(self._submit(queue.pop(0)))
+            while self._pending:
+                fut = self._pending.pop(0)
+                t0 = time.perf_counter()
+                t = fut.result()
+                self._record_stall(time.perf_counter() - t0)
+                if queue:
+                    self._pending.append(self._submit(queue.pop(0)))
+                yield t
+            # A build that spilled late still owns its earlier stalls.
+            if self.spill.spilled and self._stall_buffer_s:
+                self._record_stall(0.0)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        futures, self._pending = self._pending, []
+        for fut in futures:
+            fut.cancel()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+class CreateActionBase(Action):
+    """Shared by create and the full refresh."""
 
     def __init__(self, log_manager: IndexLogManager, data_manager: IndexDataManager,
                  session, plan: LogicalPlan, config: IndexConfig) -> None:
@@ -74,16 +221,27 @@ class CreateAction(Action):
         self._index_schema: Dict[str, str] = {}
         self._file_id_tracker = FileIdTracker()
         self._relation_cache = None
-        # Wall seconds of this build by phase (plan / read / kernel /
-        # write), published to ``session.build_stats_log``.
+        # The entry a refresh rebuilds (None for create): its properties
+        # carry over into the new entry.
+        self._previous_entry: Optional[IndexLogEntry] = None
+        # Wall seconds of this build by phase, published to
+        # ``session.build_stats_log``.  The spill build's route and
+        # finalize threads add to it at once, hence the lock; their sums
+        # are thread seconds and may exceed the wall.
         self.build_phases: Dict[str, float] = {}
+        self._phase_lock = threading.Lock()
 
     def _phase(self, name: str, seconds: float) -> None:
-        self.build_phases[name] = self.build_phases.get(name, 0.0) + seconds
+        with self._phase_lock:
+            self.build_phases[name] = self.build_phases.get(name, 0.0) + seconds
 
     @property
     def conf(self) -> HyperspaceConf:
         return self.session.conf
+
+    @property
+    def index_name(self) -> str:
+        return self.config.index_name
 
     @property
     def num_buckets(self) -> int:
@@ -108,7 +266,480 @@ class CreateAction(Action):
             _resolve_or_raise(self.config.indexed_columns, schema, "indexed column"),
             _resolve_or_raise(self.config.included_columns, schema, "included column"))
 
-    # -- protocol -------------------------------------------------------------
+    def _signature(self) -> Signature:
+        provider_name = self.conf.signature_provider
+        value = get_provider(provider_name).signature(
+            self.plan,
+            lambda scan: self.session.source_provider_manager
+            .get_relation(scan).all_files())
+        if value is None:
+            raise HyperspaceError("Could not compute plan signature")
+        return Signature(provider_name, value)
+
+    def _build_log_entry(self) -> IndexLogEntry:
+        resolved = self._resolved_config()
+        prev = self._previous_entry
+        properties: Dict[str, str] = dict(prev.properties) if prev else {}
+        # The port writes no lineage column; the log version is the one
+        # end() commits at (base_id + 2).
+        properties["lineage"] = "false"
+        properties["indexLogVersion"] = str(self.base_id + 2)
+        return IndexLogEntry(
+            name=self.config.index_name,
+            derived_dataset=CoveringIndex(
+                indexed_columns=resolved.indexed_columns,
+                included_columns=resolved.included_columns,
+                num_buckets=self.num_buckets,
+                schema=self._index_schema,
+                properties={"layout": "lexicographic"},
+            ),
+            content=Content.from_directory(
+                self.data_manager.version_path(self._written_version),
+                FileIdTracker()),
+            source=Source(
+                relations=[self._relation().create_relation_metadata(
+                    self._file_id_tracker)],
+                fingerprint=LogicalPlanFingerprint([self._signature()])),
+            properties=properties,
+        )
+
+    # -- the build --------------------------------------------------------------
+    def _build_index_data(self) -> None:
+        t0 = time.perf_counter()
+        # Spill directories a killed build left are reaped here, the one
+        # moment a build provably needs the temp space back.
+        reap_orphan_spill_dirs()
+        relation = self._relation()
+        resolved = self._resolved_config()
+        files = relation.all_files(self._file_id_tracker)
+        if not files:
+            raise HyperspaceError("No source data files to index")
+        batch_rows = max(1, int(self.conf.device_batch_rows))
+        self._phase("plan_s", time.perf_counter() - t0)
+        spill = _BucketSpill(self, resolved)
+        try:
+            self._stream_build(files, resolved.all_columns, relation,
+                               resolved, batch_rows, spill)
+            log = getattr(self.session, "build_stats_log", None)
+            if log is not None:
+                log.append({"index": self.index_name, **self.build_phases})
+        finally:
+            # Joins the route and finalize pools and removes the spill
+            # directory on every exit; a no-op after a clean finish().
+            spill.cleanup()
+
+    def _read_chunk(self, f, columns, relation):
+        """One source file's rows.  A file written before a column was
+        added to the source gets that column as nulls of the relation's
+        type, as the monolithic concatenation would promote it."""
+        import pyarrow as pa
+
+        t0 = time.perf_counter()
+        t = read_file(f.name, columns)
+        self._phase("read_s", time.perf_counter() - t0)
+        missing = [c for c in columns if c not in t.column_names]
+        if missing:
+            rel_schema = relation.schema()
+            for c in missing:
+                t = t.append_column(c, pa.nulls(
+                    t.num_rows,
+                    type=_dtype_from_string(rel_schema.get(c, "string"))))
+        return t
+
+    def _stream_build(self, files, columns, relation, resolved, batch_rows,
+                      spill: "_BucketSpill") -> None:
+        """Read the source and cut it into batches of exactly
+        ``batch_rows`` rows for the spill; a source that fits one batch
+        never spills and takes the monolithic build.  The pipeline
+        (prefetch, route workers, streaming finalize) changes scheduling
+        only: with ``build_pipeline_enabled`` off the same functions run
+        in the same order on this thread."""
+        import pyarrow as pa
+
+        depth = max(1, int(self.conf.build_prefetch_depth)) \
+            if spill.pipelined else 0
+        reader = _PrefetchReader(self, files, columns, relation, depth, spill)
+        buffer: List = []
+        buffered = 0
+        try:
+            for t in reader:
+                buffer.append(t)
+                buffered += t.num_rows
+                while buffered > batch_rows:
+                    combined = pa.concat_tables(buffer,
+                                                promote_options="default")
+                    spill.add_chunk(combined.slice(0, batch_rows))
+                    rest = combined.slice(batch_rows)
+                    buffer = [rest] if rest.num_rows else []
+                    buffered = rest.num_rows
+        finally:
+            reader.close()
+        remainder = pa.concat_tables(buffer, promote_options="default") \
+            if buffer else None
+        if not spill.spilled:
+            self._write_table_bucketed(remainder, resolved)
+            return
+        if remainder is not None and remainder.num_rows:
+            spill.add_chunk(remainder)
+        spill.finish()
+
+    def _write_table_bucketed(self, table, resolved: IndexConfig) -> None:
+        device = self.session.device
+        t0 = time.perf_counter()
+        keys = resolved.indexed_columns
+        word_cols = [torch.from_numpy(columnar.to_hash_words(table.column(c)))
+                     .to(device) for c in keys]
+        order_words = [torch.from_numpy(columnar.to_order_words(table.column(c)))
+                       .to(device) for c in keys]
+        buckets, perm = bucket_sort_permutation(word_cols, order_words,
+                                                self.num_buckets)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # attribute the device time here
+        self._phase("kernel_s", time.perf_counter() - t0)
+        version = self.data_manager.get_next_version()
+        t0 = time.perf_counter()
+        write_bucketed(table, buckets, perm, self.num_buckets,
+                       self.data_manager.version_path(version),
+                       max_rows_per_file=self.conf.index_max_rows_per_file,
+                       compression=self.conf.index_file_compression)
+        self._phase("write_s", time.perf_counter() - t0)
+        self._written_version = version
+        self._index_schema = {name: str(t) for name, t in
+                              zip(table.column_names, table.schema.types)}
+
+
+def _write_chunk_file(routed, path: str, slices) -> None:
+    """One (chunk, bucket group) spill file as raw Arrow IPC, one record
+    batch per ``(offset, rows)`` slice, so the finalize reads any
+    bucket's run by batch index from a memory map.  ``combine_chunks``
+    keeps each slice ONE batch, so batch index == slice position."""
+    import pyarrow as pa
+
+    with pa.OSFile(path, "wb") as sink:
+        with pa.ipc.new_file(sink, routed.schema) as writer:
+            for off, rows in slices:
+                writer.write_table(routed.slice(off, rows).combine_chunks())
+
+
+class _BucketSpill:
+    """The spill build: per chunk, route + partition on the device into
+    bucket-aligned Arrow runs; then per bucket group, merge and write.
+
+    Route: each chunk's rows are ordered by (bucket, key) by
+    ``route_partition``, the same hash and stable sorts as the monolithic
+    build, so bucket ids and tie order cannot differ between the two.
+    For value-mapped key types (numeric, temporal, bool) the rows come
+    out sorted within each bucket, with their uint64 sort codes carried
+    along as temporary columns; rank-mapped keys (strings, binary,
+    decimals) are only grouped by bucket, because chunk-local ranks do not
+    compare across chunks.  The chunk lands in ONE Arrow IPC file per
+    (chunk, bucket group), one record batch per non-empty bucket.
+
+    Finalize: once routing has drained, the bucket groups are closed and
+    merged on a pool of their own: each bucket's runs, concatenated in
+    chunk order, are sorted stably (by the carried codes, or by order
+    words derived again) and written as Parquet, and each group's run
+    files are deleted as soon as it is written.  Chunk order plus a
+    stable sort reproduces the monolithic tie order exactly.
+
+    ``build_pipeline_enabled=False`` is the forced-serial reference:
+    inline routing and sequential finalize, the same functions in the
+    same order, so the bytes are the same."""
+
+    # Chunks route concurrently on multi-core hosts while the stream
+    # keeps decoding; each in-flight chunk pins one batch in host memory
+    # and on the device.
+    _MAX_ROUTE_WORKERS = 4
+    _MAX_IN_FLIGHT = 3
+    _MAX_GROUPS = 8  # bucket groups: the spill-file and finalize unit
+
+    def __init__(self, action: CreateActionBase, resolved: IndexConfig) -> None:
+        self.action = action
+        self.resolved = resolved
+        self.spilled = False
+        self.pipelined = bool(action.conf.build_pipeline_enabled)
+        self._num_buckets = action.num_buckets
+        self._groups = min(self._MAX_GROUPS, self._num_buckets)
+        # Bucket b belongs to the group g with bounds[g] <= b < bounds[g+1]:
+        # contiguous in a chunk's sorted order, so a group is one slice.
+        self._bounds = bucket_group_bounds(self._num_buckets, self._groups)
+        self._chunk_no = 0
+        self._schema = None
+        self._code_cols: tuple = ()
+        self._dir: Optional[str] = None  # made at the first spill
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._futures: List = []
+        # bucket -> [(chunk_no, path, batch_index)], and the run files of
+        # each group; route workers append concurrently.
+        self._manifest_lock = threading.Lock()
+        self._runs: Dict[int, List] = {}
+        self._group_files: Dict[int, List[str]] = {}
+        # Streaming close: the groups close when the LAST route job lands
+        # after end of input, possibly on a route worker while finish()
+        # still joins earlier futures.
+        self._close_lock = threading.Lock()
+        self._routes_pending = 0
+        self._input_done = False
+        self._closed = False
+        self._route_failed = False
+        self._finalize_pool: Optional[ThreadPoolExecutor] = None
+        self._finalize_futures: List = []
+        self._out_dir: Optional[str] = None
+
+    def _route_pool(self) -> Optional[ThreadPoolExecutor]:
+        if not self.pipelined:
+            return None
+        cores = os.cpu_count() or 1
+        if self._pool is None and cores > 1:
+            self._pool = ThreadPoolExecutor(
+                max_workers=min(self._MAX_ROUTE_WORKERS, cores),
+                thread_name_prefix="hs-route")
+        return self._pool
+
+    def _drain(self) -> None:
+        """Wait for the route jobs in flight; raise the first failure."""
+        futures, self._futures = self._futures, []
+        for fut in futures:
+            fut.result()
+
+    def _drain_finalize(self) -> None:
+        """Wait for the group finalize jobs in flight; raise the first
+        failure."""
+        futures, self._finalize_futures = self._finalize_futures, []
+        for fut in futures:
+            fut.result()
+
+    def cleanup(self) -> None:
+        # On the failure path the original error is raised right after
+        # this, so a second failure seen while draining is dropped.
+        try:
+            self._drain()
+        except Exception:  # noqa: BLE001
+            pass
+        try:
+            self._drain_finalize()
+        except Exception:  # noqa: BLE001
+            pass
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        if self._finalize_pool is not None:
+            self._finalize_pool.shutdown(wait=True)
+            self._finalize_pool = None
+        if self._dir is not None:
+            remove_tree(self._dir, ignore_errors=True)
+            self._dir = None
+
+    def _plan_code_columns(self, table) -> tuple:
+        """Names of the carried sort-code columns (one uint64 per indexed
+        column), or () when any key type is rank-mapped."""
+        key_cols = list(self.resolved.indexed_columns)
+        for c in key_cols:
+            if not columnar.is_numeric_type(table.schema.field(c).type):
+                return ()
+        taken = set(table.column_names)
+        names = []
+        for i in range(len(key_cols)):
+            name = f"__hs_sort{i}"
+            while name in taken:
+                name += "_"
+            taken.add(name)
+            names.append(name)
+        return tuple(names)
+
+    def add_chunk(self, table) -> None:
+        if self._dir is None:
+            self._dir = tempfile.mkdtemp(
+                prefix=_spill_dir_prefix(_SPILL_DIR_KIND))
+        self.spilled = True
+        if self._schema is None:
+            self._schema = table.schema
+            self._code_cols = self._plan_code_columns(table)
+        chunk_no = self._chunk_no
+        self._chunk_no += 1
+        pool = self._route_pool()
+        if pool is None:
+            self._route_chunk(table, chunk_no)
+            return
+        while len(self._futures) >= self._MAX_IN_FLIGHT:
+            self._futures.pop(0).result()
+        with self._close_lock:
+            self._routes_pending += 1
+        self._futures.append(pool.submit(self._route_traced, table, chunk_no))
+
+    def _route_traced(self, table, chunk_no: int) -> None:
+        """Route one chunk on a worker, and close the groups when this was
+        the LAST route job after end of input, so the finalize starts while
+        finish() still joins futures."""
+        ok = False
+        try:
+            self._route_chunk(table, chunk_no)
+            ok = True
+        finally:
+            fire = False
+            with self._close_lock:
+                self._routes_pending -= 1
+                if not ok:
+                    self._route_failed = True
+                elif self._input_done and self._routes_pending == 0 \
+                        and not self._closed and not self._route_failed:
+                    self._closed = True
+                    fire = True
+            if fire:
+                self._close_groups()
+
+    def _route_chunk(self, table, chunk_no: int) -> None:
+        import pyarrow as pa
+
+        t0 = time.perf_counter()
+        key_cols = list(self.resolved.indexed_columns)
+        word_cols = [columnar.to_hash_words(table.column(c)) for c in key_cols]
+        codes64 = [columnar.to_order_codes64(table.column(c))
+                   for c in key_cols] if self._code_cols else []
+        perm, counts = route_partition(
+            word_cols, [columnar.split_words64(k) for k in codes64],
+            self._num_buckets, self.action.session.device)
+        if int(counts.sum()) != table.num_rows:
+            raise HyperspaceError(
+                f"bucket counts of chunk {chunk_no} sum to {int(counts.sum())}, "
+                f"the chunk has {table.num_rows} rows")
+        routed = table.take(pa.array(perm))
+        for i, name in enumerate(self._code_cols):
+            routed = routed.append_column(name, pa.array(codes64[i][perm]))
+        starts = np.zeros(self._num_buckets, dtype=np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        self._write_chunk_runs(routed, chunk_no, starts, starts + counts)
+        self.action._phase("spill_route_s", time.perf_counter() - t0)
+
+    def _write_chunk_runs(self, routed, chunk_no: int, starts, ends) -> None:
+        """One Arrow IPC file per (chunk, bucket group), one record batch
+        per non-empty bucket.  The run files are read back once and
+        deleted, so they skip the Parquet encode."""
+        for gid in range(self._groups):
+            b0, b1 = self._bounds[gid], self._bounds[gid + 1]
+            present = [b for b in range(b0, b1) if ends[b] > starts[b]]
+            if not present:
+                continue
+            path = os.path.join(self._dir,
+                                f"chunk-{chunk_no:05d}-g{gid:03d}.arrow")
+            _write_chunk_file(routed, path,
+                              [(int(starts[b]), int(ends[b] - starts[b]))
+                               for b in present])
+            with self._manifest_lock:
+                for bi, b in enumerate(present):
+                    self._runs.setdefault(b, []).append((chunk_no, path, bi))
+                self._group_files.setdefault(gid, []).append(path)
+
+    def _finalize_pool_get(self) -> ThreadPoolExecutor:
+        if self._finalize_pool is None:
+            # At most one worker per core: the finalize is CPU-bound
+            # (merge and Parquet encode); one worker still streams.
+            workers = max(1, min(int(self.action.conf.build_finalize_workers),
+                                 os.cpu_count() or 1))
+            self._finalize_pool = ThreadPoolExecutor(
+                max_workers=workers, thread_name_prefix="hs-finalize")
+        return self._finalize_pool
+
+    def _close_groups(self) -> None:
+        """Every routed bucket group is closed: queue each on the finalize
+        pool, or, in the serial reference, finish them in order.  May run
+        on a route worker."""
+        with self._manifest_lock:
+            gids = sorted(self._group_files)
+        if self.pipelined:
+            pool = self._finalize_pool_get()
+            self._finalize_futures.extend(
+                pool.submit(self._finish_group, gid) for gid in gids)
+        else:
+            for gid in gids:
+                self._finish_group(gid)
+
+    def _finish_group(self, gid: int) -> None:
+        """Merge and write every bucket of one closed group, then delete
+        the group's run files, so spill space goes back while other
+        groups still hold theirs."""
+        import pyarrow as pa
+
+        t0 = time.perf_counter()
+        conf = self.action.conf
+        b0, b1 = self._bounds[gid], self._bounds[gid + 1]
+        with self._manifest_lock:
+            paths = list(self._group_files.get(gid, ()))
+            buckets = sorted(b for b in self._runs if b0 <= b < b1)
+        readers = {}
+        handles = []
+        try:
+            for p in paths:
+                mm = pa.memory_map(p, "rb")
+                handles.append(mm)
+                readers[p] = pa.ipc.open_file(mm)
+            for b in buckets:
+                with self._manifest_lock:
+                    runs = sorted(self._runs[b])  # chunk order = tie order
+                btable = pa.Table.from_batches(
+                    [readers[p].get_batch(bi) for _, p, bi in runs])
+                if self._code_cols:
+                    perm = sort_permutation_from_codes(btable, self._code_cols)
+                    btable = btable.take(pa.array(perm)).drop_columns(
+                        list(self._code_cols))
+                else:
+                    perm = sort_permutation_host(
+                        btable, self.resolved.indexed_columns)
+                    btable = btable.take(pa.array(perm))
+                write_bucket_run(btable, b, self._out_dir,
+                                 conf.index_max_rows_per_file,
+                                 compression=conf.index_file_compression)
+        finally:
+            for mm in handles:
+                mm.close()
+        for p in paths:
+            remove_file(p, missing_ok=True)
+        self.action._phase("spill_finish_s", time.perf_counter() - t0)
+
+    def finish(self) -> None:
+        action = self.action
+        # The version directory exists BEFORE end of input is announced:
+        # the first finalize worker may start while route futures drain.
+        version = action.data_manager.get_next_version()
+        out_dir = action.data_manager.version_path(version)
+        os.makedirs(out_dir, exist_ok=True)
+        self._out_dir = out_dir
+        fire = False
+        with self._close_lock:
+            self._input_done = True
+            if self._routes_pending == 0 and not self._closed \
+                    and not self._route_failed:
+                self._closed = True
+                fire = True
+        if fire:
+            self._close_groups()
+        self._drain()  # raises the first route failure
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        # The exposed finalize tail: how long the build still waits on
+        # the group writes after routing drained (``finalize_s``; the
+        # group work itself is ``spill_finish_s`` on the pool's threads).
+        t0 = time.perf_counter()
+        try:
+            self._drain_finalize()
+        finally:
+            if self.pipelined:
+                action._phase("finalize_s", time.perf_counter() - t0)
+        if self._finalize_pool is not None:
+            self._finalize_pool.shutdown(wait=True)
+            self._finalize_pool = None
+        remove_tree(self._dir, ignore_errors=True)
+        self._dir = None
+        action._written_version = version
+        action._index_schema = {name: str(t) for name, t in
+                                zip(self._schema.names, self._schema.types)}
+
+
+class CreateAction(CreateActionBase):
+    transient_state = States.CREATING
+    final_state = States.ACTIVE
+
     def validate(self) -> None:
         if self.previous_log_entry is not None and \
                 self.previous_log_entry.state != States.DOESNOTEXIST:
@@ -145,89 +776,4 @@ class CreateAction(Action):
         self._build_index_data()
 
     def log_entry(self) -> IndexLogEntry:
-        resolved = self._resolved_config()
-        return IndexLogEntry(
-            name=self.config.index_name,
-            derived_dataset=CoveringIndex(
-                indexed_columns=resolved.indexed_columns,
-                included_columns=resolved.included_columns,
-                num_buckets=self.num_buckets,
-                schema=self._index_schema,
-                properties={"layout": "lexicographic"},
-            ),
-            content=Content.from_directory(
-                self.data_manager.version_path(self._written_version),
-                FileIdTracker()),
-            source=Source(
-                relations=[self._relation().create_relation_metadata(
-                    self._file_id_tracker)],
-                fingerprint=LogicalPlanFingerprint([self._signature()])),
-            # The log version this entry commits at (end() writes at
-            # base_id + 2); the port has no lineage column.
-            properties={"lineage": "false",
-                        "indexLogVersion": str(self.base_id + 2)},
-        )
-
-    def _signature(self) -> Signature:
-        provider_name = self.conf.signature_provider
-        value = get_provider(provider_name).signature(
-            self.plan,
-            lambda scan: self.session.source_provider_manager
-            .get_relation(scan).all_files())
-        if value is None:
-            raise HyperspaceError("Could not compute plan signature")
-        return Signature(provider_name, value)
-
-    # -- the build --------------------------------------------------------------
-    def _build_index_data(self) -> None:
-        t0 = time.perf_counter()
-        relation = self._relation()
-        resolved = self._resolved_config()
-        files = relation.all_files(self._file_id_tracker)
-        if not files:
-            raise HyperspaceError("No source data files to index")
-        batch_rows = max(1, int(self.conf.device_batch_rows))
-        n_rows = row_count([f.name for f in files])
-        if n_rows > batch_rows:
-            raise HyperspaceError(
-                f"The source has {n_rows} rows, more than one device batch "
-                f"(device_batch_rows={batch_rows}); such sources need the "
-                f"spill build, which is not yet ported to hyperspace_tpu_torch")
-        self._phase("plan_s", time.perf_counter() - t0)
-        self._stream_build([f.name for f in files], resolved.all_columns, resolved)
-        log = getattr(self.session, "build_stats_log", None)
-        if log is not None:
-            log.append({"index": self.config.index_name, **self.build_phases})
-
-    def _stream_build(self, paths: List[str], columns: List[str],
-                      resolved: IndexConfig) -> None:
-        """Read the source (one batch: the monolithic build) and write it
-        bucketed."""
-        t0 = time.perf_counter()
-        table = read_table(paths, columns)
-        self._phase("read_s", time.perf_counter() - t0)
-        self._write_table_bucketed(table, resolved)
-
-    def _write_table_bucketed(self, table, resolved: IndexConfig) -> None:
-        device = self.session.device
-        t0 = time.perf_counter()
-        keys = resolved.indexed_columns
-        word_cols = [torch.from_numpy(columnar.to_hash_words(table.column(c)))
-                     .to(device) for c in keys]
-        order_words = [torch.from_numpy(columnar.to_order_words(table.column(c)))
-                       .to(device) for c in keys]
-        buckets, perm = bucket_sort_permutation(word_cols, order_words,
-                                                self.num_buckets)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # attribute the device time here
-        self._phase("kernel_s", time.perf_counter() - t0)
-        version = self.data_manager.get_next_version()
-        t0 = time.perf_counter()
-        write_bucketed(table, buckets, perm, self.num_buckets,
-                       self.data_manager.version_path(version),
-                       max_rows_per_file=self.conf.index_max_rows_per_file,
-                       compression=self.conf.index_file_compression)
-        self._phase("write_s", time.perf_counter() - t0)
-        self._written_version = version
-        self._index_schema = {name: str(t) for name, t in
-                              zip(table.column_names, table.schema.types)}
+        return self._build_log_entry()

@@ -31,6 +31,13 @@ class HyperspaceConf:
     device_batch_rows: int = dataclasses.field(
         default_factory=lambda: int(
             os.environ.get("HS_DEVICE_BATCH_ROWS", 1 << 20)))
+    # The spill build's pipeline: off runs the forced-serial reference
+    # (inline reads, inline routing, sequential finalize), the same bytes.
+    build_pipeline_enabled: bool = True
+    # Source files decoded ahead of the route (the prefetch backpressure).
+    build_prefetch_depth: int = 2
+    # Threads that merge and write the closed bucket groups.
+    build_finalize_workers: int = 4
     # Parquet codec for index data files ("none" = uncompressed).
     index_file_compression: str = INDEX_COMPRESSION_DEFAULT
     # Filter rule: carry the bucket spec on index scans even when the

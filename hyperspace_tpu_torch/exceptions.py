@@ -10,3 +10,8 @@ class HyperspaceError(Exception):
 class ConcurrentWriteError(HyperspaceError):
     """Optimistic-concurrency conflict: a log id was committed by another
     writer between ``base_id`` capture and ``write_log``."""
+
+
+class NoChangesError(HyperspaceError):
+    """Raised by an action's validate() when the operation would be a
+    no-op; ``Action.run`` then commits nothing and returns "noop"."""

@@ -1,5 +1,6 @@
 """Top-level user API (counterpart of hyperspace_tpu/hyperspace.py):
-``create_index`` and ``indexes``."""
+``create_index``, ``delete_index``, ``restore_index``, ``vacuum_index``,
+``refresh_index`` (full), ``cancel`` and ``indexes``."""
 
 from __future__ import annotations
 
@@ -17,6 +18,24 @@ class Hyperspace:
 
     def create_index(self, dataset: Dataset, config: IndexConfig) -> None:
         self.index_manager.create(dataset, config)
+
+    def delete_index(self, name: str) -> None:
+        self.index_manager.delete(name)
+
+    def restore_index(self, name: str) -> None:
+        self.index_manager.restore(name)
+
+    def vacuum_index(self, name: str) -> None:
+        self.index_manager.vacuum(name)
+
+    def refresh_index(self, name: str, mode: str = "full"):
+        """Rebuild ``name`` over its source as it is now; returns a
+        ``RefreshSummary`` (outcome "noop" when the source is unchanged).
+        Only ``mode="full"`` is ported."""
+        return self.index_manager.refresh(name, mode)
+
+    def cancel(self, name: str) -> None:
+        self.index_manager.cancel(name)
 
     def indexes(self) -> List[Dict[str, Any]]:
         """One row per index: the rows of the JAX package's ``indexes()``

@@ -12,6 +12,8 @@ from __future__ import annotations
 import os
 from typing import List, Optional
 
+from hyperspace_tpu_torch.io.files import remove_tree
+
 INDEX_VERSION_DIR_PREFIX = "v__="
 
 
@@ -43,3 +45,9 @@ class IndexDataManager:
     def get_next_version(self) -> int:
         latest = self.get_latest_version()
         return 0 if latest is None else latest + 1
+
+    def delete(self, version: int) -> None:
+        """Remove version ``version``'s data directory, if it exists."""
+        path = self.version_path(version)
+        if os.path.isdir(path):
+            remove_tree(path)

@@ -30,6 +30,10 @@ class States:
     ACTIVE = "ACTIVE"
     CREATING = "CREATING"
     DELETED = "DELETED"
+    DELETING = "DELETING"
+    REFRESHING = "REFRESHING"
+    VACUUMING = "VACUUMING"
+    RESTORING = "RESTORING"
     DOESNOTEXIST = "DOESNOTEXIST"
 
     STABLE: FrozenSet[str] = frozenset({"ACTIVE", "DELETED", "DOESNOTEXIST"})
@@ -371,6 +375,17 @@ class IndexLogEntry:
     def is_covering(self) -> bool:
         return isinstance(self.derived_dataset, CoveringIndex)
 
+    @property
+    def relations(self) -> List[Relation]:
+        return self.source.relations
+
+    def source_file_infos(self) -> List[FileInfo]:
+        """Every source file recorded at build or refresh time."""
+        out: List[FileInfo] = []
+        for rel in self.relations:
+            out.extend(rel.content.file_infos())
+        return out
+
     def signature(self) -> Signature:
         """The one stored signature of the source plan."""
         sigs = self.source.fingerprint.signatures
@@ -419,3 +434,23 @@ class FileIdTracker:
             fid = self._max_id
             self._ids[key] = fid
         return fid
+
+    def add_file_info(self, f: FileInfo) -> None:
+        """Seed from a previous entry's recorded file, keeping its id."""
+        if f.id < 0:
+            raise ValueError(f"FileInfo without id: {f.name}")
+        key = (f.name, f.size, f.mtime)
+        existing = self._ids.get(key)
+        if existing is not None and existing != f.id:
+            raise ValueError(f"Conflicting id for {f.name}: {existing} vs {f.id}")
+        self._ids[key] = f.id
+        self._max_id = max(self._max_id, f.id)
+
+    @staticmethod
+    def from_log_entry(entry: IndexLogEntry) -> "FileIdTracker":
+        """A tracker holding the ids of ``entry``'s source files, so a
+        refresh gives unchanged files the ids they had."""
+        tracker = FileIdTracker()
+        for f in entry.source_file_infos():
+            tracker.add_file_info(f)
+        return tracker

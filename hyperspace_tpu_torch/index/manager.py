@@ -1,12 +1,16 @@
 """Index collection manager (counterpart of
 hyperspace_tpu/index/manager.py): name -> log and data managers, dispatch
-to actions, and listing of the indexes under the system path."""
+to the actions (create, delete, restore, vacuum, cancel, full refresh),
+and listing of the indexes under the system path.  Not ported:
+auto-recovery, repair, the conflict-retry settings and the data-skipping
+dispatch."""
 
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, List, Optional
 
+from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
 from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
@@ -48,6 +52,43 @@ class IndexCollectionManager:
         CreateAction(self._log_manager(config.index_name),
                      self._data_manager(config.index_name),
                      self.session, dataset.plan, config).run()
+
+    def delete(self, name: str) -> None:
+        from hyperspace_tpu_torch.actions.delete import DeleteAction
+
+        DeleteAction(self._log_manager(name)).run()
+
+    def restore(self, name: str) -> None:
+        from hyperspace_tpu_torch.actions.restore import RestoreAction
+
+        RestoreAction(self._log_manager(name)).run()
+
+    def vacuum(self, name: str) -> None:
+        from hyperspace_tpu_torch.actions.vacuum import VacuumAction
+
+        VacuumAction(self._log_manager(name), self._data_manager(name)).run()
+
+    def cancel(self, name: str) -> None:
+        from hyperspace_tpu_torch.actions.cancel import CancelAction
+
+        CancelAction(self._log_manager(name)).run()
+
+    def refresh(self, name: str, mode: str = "full"):
+        """Run one refresh; returns its ``RefreshSummary`` (outcome "noop"
+        for an unchanged source).  Only ``mode="full"`` is ported."""
+        from hyperspace_tpu_torch.actions.refresh import RefreshAction
+
+        if mode in ("incremental", "quick"):
+            raise HyperspaceError(
+                f"refresh mode {mode!r} is not ported to hyperspace_tpu_torch "
+                f"yet (it needs the lineage column); use mode='full'")
+        if mode != "full":
+            raise HyperspaceError(f"Unknown refresh mode {mode!r}")
+        log_manager = self._log_manager(name)
+        action = RefreshAction(log_manager, self._data_manager(name),
+                               self.session,
+                               previous=log_manager.get_latest_stable_log())
+        return action.summary(action.run())
 
     def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
         """Latest stable entry of every index, optionally of ``states``

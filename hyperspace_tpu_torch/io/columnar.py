@@ -8,7 +8,8 @@ subset):
     hashed with pandas' vectorized hasher, exactly as the JAX package
     does, because the bucket of every row must be the same bits.
   - ``to_order_words``: any column -> (n, 2) uint32 monotone words whose
-    (hi, lo) order equals the column's value order.
+    (hi, lo) order equals the column's value order; ``to_order_codes64``
+    the same order as one uint64 per row.
   - ``to_device_numeric`` / ``literal_to_numeric``: a null-free numeric
     column as float64 or int64 (temporal and bool as int64), and a
     literal in the same domain, for the device predicate and join.
@@ -153,10 +154,23 @@ def split_words64(values: np.ndarray) -> np.ndarray:
     return out
 
 
+def join_words64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Inverse of ``split_words64``."""
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
 def to_order_words(column) -> np.ndarray:
     """(n, 2) uint32 monotone words: lexicographic (hi, lo) order equals
     the column's value order."""
     return split_words64(_monotone_uint64(to_order_key(column)))
+
+
+def to_order_codes64(column) -> np.ndarray:
+    """(n,) uint64 monotone codes: ``to_order_words`` without the split
+    into 32-bit words.  The spill build sorts its runs on these on the
+    host and carries them along the run files as the writer's sort
+    codes."""
+    return _monotone_uint64(to_order_key(column))
 
 
 def to_device_numeric(column) -> Optional[np.ndarray]:

@@ -1,10 +1,12 @@
-"""File listing over source root paths (counterpart of
-hyperspace_tpu/io/files.py, its build-path subset).  Listing is
-recursive; results are sorted by path for deterministic signatures."""
+"""File listing over source root paths, and deletes (counterpart of
+hyperspace_tpu/io/files.py, its build-path subset, without fault sites
+or retries).  Listing is recursive; results are sorted by path for
+deterministic signatures."""
 
 from __future__ import annotations
 
 import os
+import shutil
 from typing import List, Sequence
 
 from hyperspace_tpu_torch.index.log_entry import FileInfo
@@ -17,6 +19,20 @@ def list_dir(path: str) -> List[str]:
         return os.listdir(path)
     except (FileNotFoundError, NotADirectoryError):
         return []
+
+
+def remove_tree(path: str, ignore_errors: bool = False) -> None:
+    """Delete a directory tree (vacuumed versions, spill run directories)."""
+    shutil.rmtree(path, ignore_errors=ignore_errors)
+
+
+def remove_file(path: str, missing_ok: bool = False) -> None:
+    """Delete one file; with ``missing_ok`` a missing file is no error."""
+    try:
+        os.unlink(path)
+    except FileNotFoundError:
+        if not missing_ok:
+            raise
 
 
 def list_data_files(root_paths: Sequence[str]) -> List[FileInfo]:

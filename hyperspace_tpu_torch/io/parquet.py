@@ -1,4 +1,5 @@
-"""Parquet IO: read source and index files, write bucketed index data.
+"""Parquet IO: read source and index files, write bucketed index data
+(a whole sorted table, or one bucket's run of the spill build).
 
 Counterpart of hyperspace_tpu/io/parquet.py (its build and query
 subset).  The
@@ -66,11 +67,19 @@ def read_table(paths: Sequence[str], columns: Optional[Sequence[str]] = None):
     return pa.concat_tables(tables, promote_options="default")
 
 
-def row_count(paths: Sequence[str]) -> int:
-    """Total rows of Parquet files, from their footers."""
+def read_file(path: str, columns: Sequence[str]):
+    """One Parquet file's ``columns``, those of them that the file has: a
+    file written before a column was added to the source reads without
+    it (the caller fills it with nulls)."""
+    import pyarrow as pa
     import pyarrow.parquet as pq
 
-    return sum(pq.read_metadata(p).num_rows for p in paths)
+    try:
+        return pq.read_table(path, columns=list(columns), partitioning=None)
+    except (pa.ArrowInvalid, KeyError):
+        present = set(pq.read_schema(path).names)
+        return pq.read_table(path, columns=[c for c in columns if c in present],
+                             partitioning=None)
 
 
 def read_schema(path: str) -> Dict[str, str]:
@@ -164,3 +173,46 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
 
     with ThreadPoolExecutor(_io_workers(len(jobs))) as pool:
         return list(pool.map(write, jobs))
+
+
+def write_bucket_run(sorted_bucket_table, bucket: int, out_dir: str,
+                     max_rows_per_file: int = 0,
+                     compression: Optional[str] = None) -> List[str]:
+    """Write ONE bucket's already sorted rows, split at
+    ``max_rows_per_file``: the spill build's finalize, one bucket at a
+    time (``write_bucketed`` writes a whole sorted table)."""
+    import pyarrow.parquet as pq
+
+    out: List[str] = []
+    for off, rows in bucket_chunks(sorted_bucket_table.num_rows,
+                                   max_rows_per_file):
+        path = os.path.join(out_dir, bucket_file_name(bucket))
+        pq.write_table(sorted_bucket_table.slice(off, rows), path,
+                       compression=_codec(compression))
+        out.append(path)
+    return out
+
+
+def sort_permutation_host(table, indexed_columns) -> np.ndarray:
+    """Within-bucket sort permutation of the lexicographic layout: a
+    stable lexsort over one uint64 order code per indexed column (the
+    same total order as the (hi, lo) word pair), first column primary."""
+    from hyperspace_tpu_torch.io import columnar
+
+    keys: List[np.ndarray] = []
+    for c in reversed(list(indexed_columns)):
+        w = columnar.to_order_words(table.column(c))
+        keys.append(columnar.join_words64(w[:, 0], w[:, 1]))
+    return np.lexsort(tuple(keys))
+
+
+def sort_permutation_from_codes(btable, code_columns) -> np.ndarray:
+    """Within-bucket sort permutation from the uint64 sort codes the spill
+    build's route carried along (one column per indexed column, in
+    indexed-column order): equal to ``sort_permutation_host`` for
+    value-mapped key types, without deriving order words again."""
+    keys: List[np.ndarray] = []
+    # np.lexsort: the LAST key is primary.
+    for name in reversed(list(code_columns)):
+        keys.append(btable.column(name).to_numpy(zero_copy_only=False))
+    return np.lexsort(tuple(keys))

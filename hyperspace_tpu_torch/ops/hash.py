@@ -7,9 +7,13 @@ one kernel serves any key schema.  The hash itself is the CUDA kernel
 stays a library sort (``torch.sort(stable=True)``), as it was an XLA
 program outside any Pallas kernel in the JAX package.
 
+``route_partition`` is the spill build's per-chunk pass: the same
+hash and sorts, and the histogram kernel's counts as the run cuts.
+
 The numpy host mirrors ``bucket_ids_np`` / ``route_partition_np`` are
-copies of the JAX package's and serve as an independent oracle for the
-device path.
+copies of the JAX package's: bucket pruning hashes filter literals with
+``bucket_ids_np``, and ``route_partition_np`` is the oracle the tests
+hold the device path to; no build path calls them.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from hyperspace_tpu_torch.ops.kernels import hash_buckets
+from hyperspace_tpu_torch.ops.kernels import bucket_histogram, hash_buckets
 
 _C1 = np.uint32(0x85EBCA6B)
 _C2 = np.uint32(0xC2B2AE35)
@@ -75,6 +79,31 @@ def route_sort(word_cols: Sequence[torch.Tensor],
     key = buckets[perm]
     perm = perm[torch.sort(key, stable=True).indices]
     return buckets, perm
+
+
+def route_partition(word_cols: Sequence[np.ndarray],
+                    order_words: Sequence[np.ndarray], num_buckets: int,
+                    device) -> Tuple[np.ndarray, np.ndarray]:
+    """Route + partition of one spill chunk on ``device``: the chunk's
+    key words go up, ``route_sort`` (the hash kernel, then the stable
+    sorts) orders its rows by (bucket, *key words), the histogram kernel
+    counts the rows of each bucket, and both come back to the host.
+
+    Counterpart of the JAX package's ``route_partition``, which brings
+    the bucket ids back and cuts the runs on the host; here the counts
+    are the cuts: bucket ``b``'s run in ``perm`` starts at the sum of the
+    counts before it.  Empty ``order_words`` (rank-mapped keys) keeps
+    the chunk's row order within each bucket.
+
+    Returns ``(perm, counts)``: (n,) int64 and (num_buckets,) int64."""
+    device = torch.device(device)
+    words = [torch.from_numpy(np.ascontiguousarray(w)).to(device)
+             for w in word_cols]
+    order = [torch.from_numpy(np.ascontiguousarray(w)).to(device)
+             for w in order_words]
+    buckets, perm = route_sort(words, order, num_buckets)
+    counts = bucket_histogram(buckets, num_buckets)
+    return perm.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

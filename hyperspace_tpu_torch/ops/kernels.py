@@ -12,7 +12,9 @@ Each wrapper takes the kernel's plain PyTorch version for a tensor that
 lies on the CPU and launches the kernel for a CUDA tensor (or raises:
 there is no fallback).  Each launch adds one to the kernel's
 ``launches`` count, so a run can show that its main path went through
-the kernel.
+the kernel.  The wrappers may be called from several threads at once
+(the spill build's route workers): the count and the accumulator lookup
+are locked.
 
 Neither wrapper copies to the card or synchronises, so both can be
 captured in a CUDA graph.  The hash passes its column pointers by value,
@@ -75,6 +77,9 @@ class _Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self.lib = None
+        # The spill build launches from several route threads at once, and
+        # ``+= 1`` is a read-modify-write that could lose a count.
+        self._count_lock = threading.Lock()
 
     def launch(self, *args) -> None:
         """Call the C launcher on the current stream; raise if the launch
@@ -86,7 +91,8 @@ class _Kernel:
         if err != 0:
             msg = self.lib.hs_error_string(err).decode()
             raise RuntimeError(f"{self.source}: launch failed ({err}): {msg}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 # hs_hash_buckets(cols, n_cols, n, num_buckets, carry, out, stream);
@@ -105,7 +111,8 @@ _BUILD_LOCK = threading.Lock()
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        with k._count_lock:
+            k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -302,22 +309,26 @@ def bucket_histogram_plain(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
 # launch that uses them.  A graph's launches use the accumulator of the
 # stream it was captured on: replay it in order with that stream's work.
 _ACCUMULATORS: Dict[Tuple[int, int], list] = {}
+# Route threads of the spill build call the histogram at once: the
+# lookup-or-grow below is a check-then-act.
+_ACCUMULATORS_LOCK = threading.Lock()
 
 
 def _accumulator(device: torch.device, stream: int,
                  num_buckets: int) -> torch.Tensor:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    held = _ACCUMULATORS.setdefault((index, stream), [])
-    if not held or held[-1].numel() < 1 + num_buckets:
-        # Under capture the zero fill would only be recorded, not run.
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "bucket_histogram: call it once on the capture stream, with "
-                "as many buckets, before capturing it in a CUDA graph")
-        held.append(torch.zeros(1 + max(num_buckets, 1024), dtype=torch.int32,
-                                device=device))
-    return held[-1]
+    with _ACCUMULATORS_LOCK:
+        held = _ACCUMULATORS.setdefault((index, stream), [])
+        if not held or held[-1].numel() < 1 + num_buckets:
+            # Under capture the zero fill would only be recorded, not run.
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "bucket_histogram: call it once on the capture stream, "
+                    "with as many buckets, before capturing it in a CUDA graph")
+            held.append(torch.zeros(1 + max(num_buckets, 1024),
+                                    dtype=torch.int32, device=device))
+        return held[-1]
 
 
 def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:

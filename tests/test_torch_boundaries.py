@@ -38,6 +38,10 @@ def _port_sources():
 def test_no_source_of_the_port_names_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
+    for module in ("actions/refresh.py", "actions/delete.py",
+                   "actions/restore.py", "actions/vacuum.py",
+                   "actions/cancel.py", "lifecycle/change_detector.py"):
+        assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()
@@ -85,6 +89,50 @@ def test_a_build_through_the_port_imports_no_jax(tmp_path):
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
         assert hs.indexes()[0]["state"] == "ACTIVE"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_spill_build_and_the_lifecycle_verbs_import_no_jax(tmp_path):
+    """A build over more rows than one device batch (the spill build), a
+    full refresh after an append, and delete / restore / delete / vacuum,
+    each through the port's entry points."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        for i in range(3):
+            pq.write_table(pa.table({{"k": rng.integers(0, 50, 300),
+                                      "v": rng.random(300)}}),
+                           os.path.join(data, f"part-{{i}}.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        s.conf.device_batch_rows = 256
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        assert "spill_route_s" in s.build_stats_log[-1]
+        pq.write_table(pa.table({{"k": [7], "v": [0.5]}}),
+                       os.path.join(data, "part-9.parquet"))
+        assert hs.refresh_index("ix").outcome == "ok"
+        for verb in ("delete_index", "restore_index", "delete_index",
+                     "vacuum_index"):
+            getattr(hs, verb)("ix")
+        assert hs.indexes()[0]["state"] == "DOESNOTEXIST"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

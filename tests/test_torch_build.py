@@ -149,18 +149,3 @@ def test_create_refuses_unknown_columns(tmp_path):
         hyperspace_tpu_torch.Hyperspace(s).create_index(
             s.read.parquet(data),
             hyperspace_tpu_torch.IndexConfig("ix", ["nope"], ["v"]))
-
-
-def test_source_over_one_device_batch_needs_the_spill_build(tmp_path):
-    data = str(tmp_path / "data")
-    _write_source(data)
-    s = hyperspace_tpu_torch.HyperspaceSession(str(tmp_path / "torch"),
-                                               device="cpu")
-    s.conf.device_batch_rows = 1000
-    with pytest.raises(hyperspace_tpu_torch.HyperspaceError,
-                       match="spill build"):
-        hyperspace_tpu_torch.Hyperspace(s).create_index(
-            s.read.parquet(data),
-            hyperspace_tpu_torch.IndexConfig("ix", ["k"], ["v"]))
-    assert not os.path.exists(os.path.join(str(tmp_path / "torch"), "ix",
-                                           "v__=0"))

@@ -193,3 +193,64 @@ def test_histogram_on_sliced_views(offset, num_buckets):
     got = kernels.bucket_histogram(view, num_buckets).numpy()
     np.testing.assert_array_equal(
         got, np.asarray(jax_histogram(jnp.asarray(ids), num_buckets)))
+
+
+def _hammer(fn, threads=16, calls=400):
+    """``fn`` from ``threads`` threads at once, with the interpreter's
+    switch interval cut so a lost update has every chance to show."""
+    import sys
+    import threading
+
+    start = threading.Barrier(threads)
+    errors = []
+
+    def work():
+        start.wait(timeout=30)
+        try:
+            for _ in range(calls):
+                fn()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=work) for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+        assert errors == []
+    finally:
+        sys.setswitchinterval(interval)
+    return threads * calls
+
+
+def test_launch_counts_lose_nothing_under_concurrent_launches():
+    """The spill build launches from several route threads at once."""
+
+    class FakeLib:
+        def hs_fake(self, *args):
+            return 0
+
+    k = kernels._Kernel("fake.cu", "hs_fake", [])
+    k.lib = FakeLib()
+    assert k.launches == 0
+    assert _hammer(k.launch) == k.launches
+
+
+def test_one_accumulator_per_stream_under_concurrent_first_calls(
+        monkeypatch):
+    """Concurrent first histogram calls on one (device, stream) share one
+    accumulator: the lookup-or-grow is one step.  (CPU tensors stand in
+    for the card's; a CPU build of torch has no capture to ask about.)"""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    device, stream = torch.device("cpu", 0), -12345
+    try:
+        _hammer(lambda: kernels._accumulator(device, stream, 200))
+        held = kernels._ACCUMULATORS[(0, stream)]
+        assert len(held) == 1 and held[0].numel() == 1 + 1024
+    finally:
+        kernels._ACCUMULATORS.pop((0, stream), None)
