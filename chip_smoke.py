@@ -79,6 +79,27 @@ beside it.
            chunks, one launch of each kernel per chunk), its files checked,
            with its wall, phases, the process's peak RSS and the card's
            peak allocation.
+  phase G  an index over a changing source, at SF1 with 200 buckets and
+           the default batch: over a copy of phase C's lineitem (hard
+           links), ``ord200`` on the orders and ``li_lin`` with the
+           lineage column (6 spill chunks), both indexes' files checked
+           and every row's ``_data_file_id`` held to its file's id (the
+           file is known from the row's ``l_shipdate``).  Then 8 files of
+           93,750 rows are appended (``gen_lineitem``, ``default_rng(29)``)
+           and 4 original files deleted; ``refresh_index("quick")``
+           (outcome "ok", 8 appended, 4 deleted, no launch); with hybrid
+           scan off no plan scans ``li_lin``; with it on, phase D's four
+           queries over the changed source, each held to numpy, with the
+           hybrid plans (``Union`` or ``BucketUnion`` and the lineage
+           filter), the "bucketed" join marked hybrid, one hash launch
+           per join to route the appended rows, and each timed as phase
+           D times its queries.  Then ``refresh_index("incremental")``
+           (6,375,000 rows, one launch of each kernel), 2 more files
+           appended and a second incremental refresh (6,562,500 rows,
+           buckets with files in two versions), ``optimize_index("quick")``
+           (one file per compacted bucket) and again (outcome "noop"),
+           the files, the lineage and the four answers checked after
+           each.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -100,8 +121,9 @@ and, for the histogram, ``torch.bincount``'s device time by the profiler
 (it synchronises, so no graph holds it).  Each kernel row carries its
 launches on every path the script drives (``launches_by_path``); the
 chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
-the builds JSON (phases E and F), the queries JSON, the kernels JSON, the
-card's name and power limit, and ``{"ok": true, "device": ...}``.
+the builds JSON (phases E, G and F), the queries JSON (phase D's, and
+phase G's as ``hybrid_queries``), the kernels JSON, the card's name and
+power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -130,7 +152,7 @@ ORDERS_INDEX = "ord_idx"
 POINT_KEY = 123_457
 RANGE = (100_000, 400_000)
 PRICE_BELOW = 2_000.0
-TIMED_QUERY_RUNS = 5
+TIMED_QUERY_RUNS = 3
 # device_filter_min_rows / device_join_min_rows for the host route: more
 # rows than any query has, so every filter and join kernel runs on the host.
 HOST_ROUTE_MIN_ROWS = 1 << 62
@@ -145,6 +167,15 @@ SF10_INDEX = "sf10_li"
 N_ORDERS_SF10 = 15_000_000
 N_LINEITEM_SF10 = 60_000_000
 SF10_FILES = 64
+# Phase G: an index over a changing source, at SF1 with 200 buckets.
+LINEAGE_INDEX = "li_lin"
+ORDERS_INDEX_200 = "ord200"
+ROWS_PER_FILE = N_LINEITEM // N_FILES  # 93,750: write_files's cut
+G_APPENDED = 8                  # files appended before the quick refresh
+G_DELETED = (3, 17, 31, 45)     # original files deleted with them
+G_APPENDED_AGAIN = 2            # files appended before the last refresh
+G_QUERY_COLUMNS = ("l_orderkey", "l_quantity", "l_extendedprice",
+                   "l_discount")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
@@ -395,10 +426,15 @@ def phase_b(dev, keys: np.ndarray) -> None:
 
 
 def check_index_files(phase: str, hs, name: str, key: str, rows: int,
-                      num_buckets: int = NUM_BUCKETS) -> dict:
+                      num_buckets: int = NUM_BUCKETS,
+                      lineage: bool = False) -> dict:
     """The index ``name`` is ACTIVE, each of its files holds only rows of
     its own bucket (by ``bucket_ids_np``) sorted by ``key``, and the
-    files hold ``rows`` rows in all.  Returns bucket -> file paths."""
+    files hold ``rows`` rows in all.  With ``lineage`` (phase G's
+    lineitem), every row also carries its source file's id in
+    ``_data_file_id`` (the file is known from the row's ``l_shipdate``
+    block), and every file the entry records gives all its rows.
+    Returns bucket -> file paths."""
     import pyarrow.parquet as pq
 
     from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
@@ -408,21 +444,41 @@ def check_index_files(phase: str, hs, name: str, key: str, rows: int,
     if len(listed) != 1 or listed[0]["state"] != "ACTIVE":
         raise AssertionError(f"{phase}: {name} is not ACTIVE: {listed}")
     entry = hs.session.index_collection_manager.get_index(name)
+    columns = [key]
+    if lineage:
+        columns += ["l_shipdate", "_data_file_id"]
+        ids = {os.path.basename(f.name): f.id for f in entry.source_file_infos()}
+        blocks = N_FILES + G_APPENDED + G_APPENDED_AGAIN
+        want = np.array([ids.get(g_file_name(b), -1) for b in range(blocks)],
+                        dtype=np.int64)
+        per_block = np.zeros(blocks, dtype=np.int64)
     files_by_bucket: dict = {}
     total = 0
     for info in entry.content.file_infos():
         b = bucket_id_of_file(info.name)
         files_by_bucket.setdefault(b, []).append(info.name)
-        keys = pq.read_table(info.name, columns=[key]).column(key).to_numpy()
+        t = pq.read_table(info.name, columns=columns)
+        keys = t.column(key).to_numpy()
         total += len(keys)
         hw, _ = int64_words(keys)
         if not np.all(bucket_ids_np([hw], num_buckets) == b):
             raise AssertionError(f"{phase}: rows of {info.name} outside bucket {b}")
         if np.any(np.diff(keys) < 0):
             raise AssertionError(f"{phase}: {info.name} is not sorted by {key}")
+        if lineage:
+            block = t.column("l_shipdate").to_numpy() // ROWS_PER_FILE
+            if not np.array_equal(t.column("_data_file_id").to_numpy(),
+                                  want[block]):
+                raise AssertionError(f"{phase}: {info.name} holds rows whose "
+                                     f"_data_file_id is not their file's")
+            per_block += np.bincount(block, minlength=blocks)
     if total != rows:
         raise AssertionError(f"{phase}: {name}'s files hold {total} rows, "
                              f"expected {rows}")
+    if lineage and not np.array_equal(
+            per_block, np.where(want >= 0, ROWS_PER_FILE, 0)):
+        raise AssertionError(f"{phase}: {name} does not hold exactly the rows "
+                             f"of its recorded files")
     return files_by_bucket
 
 
@@ -517,11 +573,12 @@ def expected_answers(orders: dict, li: dict) -> dict:
     }
 
 
-def build_queries(session, root: str) -> dict:
-    """The four queries of phase D as Datasets of ``session``."""
+def build_queries(session, root: str, lineitem: str = "lineitem") -> dict:
+    """The four queries of phase D as Datasets of ``session``, over the
+    lineitem files in ``root/lineitem``."""
     from hyperspace_tpu_torch import col
 
-    li = session.read.parquet(os.path.join(root, "lineitem"))
+    li = session.read.parquet(os.path.join(root, lineitem))
     orders = session.read.parquet(os.path.join(root, "orders"))
     join_cols = ("o_orderkey", "o_totalprice", "l_quantity", "l_extendedprice")
     return {
@@ -721,15 +778,23 @@ def spill_session(dev, system_path: str, **conf):
     return Hyperspace(session)
 
 
+def require_launches(label: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+
+
 def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
-    """``run()`` (a build) with the launch counts set to 0 just before and
-    read just after: each kernel must have launched ``want_launches``
-    times.  Returns the build's wall, phases, launches and the card's
-    peak allocation."""
+    """``run()`` (a build, a refresh or an optimize) with the launch
+    counts set to 0 just before and read just after: each kernel must
+    have launched ``want_launches`` times.  Returns its wall, phases (of
+    a run that built index data), launches and the card's peak
+    allocation."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
 
+    log = hs.session.build_stats_log
+    logged = len(log)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
@@ -737,12 +802,10 @@ def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
     outcome = run()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    if any(v != want_launches for v in launches.values()):
-        raise AssertionError(f"{label}: launches {launches}, expected "
-                             f"{want_launches} of each kernel")
+    require_launches(label, launches, {k: want_launches for k in launches})
     return {"build": label, "wall_s": wall, "launches": launches,
-            "phases": {k: v for k, v in hs.session.build_stats_log[-1].items()
-                       if k != "index"},
+            "phases": {k: v for k, v in log[-1].items() if k != "index"}
+            if len(log) > logged else {},
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
             "outcome": outcome}
 
@@ -917,6 +980,244 @@ def phase_f(root: str, dev) -> dict:
     shutil.rmtree(path, ignore_errors=True)
     shutil.rmtree(src, ignore_errors=True)
     return rec
+
+
+def g_append(path: str, first: int, count: int, seed: int) -> dict:
+    """``count`` lineitem files of ROWS_PER_FILE rows from
+    ``gen_lineitem(default_rng(seed))``, written as ``part-9NNNN`` (after
+    the original files in listing order).  File ``first + j`` holds the
+    ``l_shipdate`` values of block ``64 + first + j``, so every row's
+    shipdate names its file, as the original files' do."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    cols = gen_lineitem(np.random.default_rng(seed), count * ROWS_PER_FILE)
+    cols["l_shipdate"] = (N_FILES + first) * ROWS_PER_FILE \
+        + np.arange(count * ROWS_PER_FILE, dtype=np.int64)
+    table = pa.table(cols)
+    for j in range(count):
+        pq.write_table(table.slice(j * ROWS_PER_FILE, ROWS_PER_FILE),
+                       os.path.join(path, f"part-{90000 + first + j:05d}.parquet"))
+    return cols
+
+
+def g_file_name(block: int) -> str:
+    """The source file of ``l_shipdate`` block ``block``."""
+    return f"part-{block:05d}.parquet" if block < N_FILES \
+        else f"part-{90000 + block - N_FILES:05d}.parquet"
+
+
+def g_rows(li: dict, appended: list) -> dict:
+    """The query columns of the changed source in listing order: the
+    original rows of the files not deleted, then the appended files'."""
+    keep = np.ones(N_LINEITEM, dtype=bool)
+    for f in G_DELETED:
+        keep[f * ROWS_PER_FILE:(f + 1) * ROWS_PER_FILE] = False
+    return {c: np.concatenate([li[c][keep]] + [a[c] for a in appended])
+            for c in G_QUERY_COLUMNS}
+
+
+def plan_nodes(plan) -> list:
+    """The class names of ``plan``'s nodes."""
+    return [type(plan).__name__] + [n for c in plan.children
+                                    for n in plan_nodes(c)]
+
+
+def g_queries(phase: str, session, root: str, expected: dict, hybrid: bool,
+              timed: int = 0) -> dict:
+    """Each query over the changed source through ``li_lin``, checked
+    against numpy, with the launch counts set to 0 just before the
+    checking collect and read just after.  Without ``hybrid`` the plan
+    must hold no union.  Returns per query (Dataset, launches, stats,
+    the median wall of ``timed`` more collects or None)."""
+    from hyperspace_tpu_torch.ops import kernels
+
+    session.conf.hybrid_scan_enabled = hybrid
+    session.enable_hyperspace()
+    out = {}
+    for name, ds in build_queries(session, root, "lineitem_mut").items():
+        plan = ds.optimized_plan()
+        if LINEAGE_INDEX not in [n for n, _ in index_scans(plan)]:
+            raise AssertionError(f"{phase} {name}: plan does not scan "
+                                 f"{LINEAGE_INDEX}: {index_scans(plan)}")
+        if not hybrid and {"Union", "BucketUnion"} & set(plan_nodes(plan)):
+            raise AssertionError(f"{phase} {name}: a union without hybrid scan")
+        want, keys = expected[name]
+        kernels.reset_launch_counts()
+        require_rows(f"{phase} {name}", ds.collect(), want, keys)
+        launches = kernels.launch_counts()
+        stats = session.last_execution_stats
+        runs = [wall_ms(ds.collect) for _ in range(timed)]
+        out[name] = (ds, launches, stats,
+                     statistics.median(runs) if runs else None)
+    return out
+
+
+def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
+    """An index over a changing source (see the module docstring)."""
+    from hyperspace_tpu_torch import IndexConfig
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def step(label: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        steps[label] = now - t_phase
+        t_phase = now
+
+    mut = os.path.join(root, "lineitem_mut")
+    shutil.copytree(os.path.join(root, "lineitem"), mut, copy_function=os.link)
+    path = os.path.join(root, "g_indexes")
+    hs = spill_session(dev, path)
+    session = hs.session
+    builds, by_path = [], {}
+    rec = timed_build(dev, "G create ord200", hs, lambda: hs.create_index(
+        session.read.parquet(os.path.join(root, "orders")),
+        IndexConfig(ORDERS_INDEX_200, ["o_orderkey"],
+                    ["o_totalprice", "o_custkey", "o_shippriority"])),
+        -(-N_ORDERS // DEFAULT_BATCH_ROWS))
+    builds.append(rec)
+    session.conf.lineage_enabled = True
+    rec = timed_build(dev, "G create li_lin (lineage)", hs, lambda: hs.create_index(
+        session.read.parquet(mut), IndexConfig(LINEAGE_INDEX, INDEXED, INCLUDED)),
+        -(-N_LINEITEM // DEFAULT_BATCH_ROWS))
+    builds.append(rec)
+    by_path["lineage_create"] = rec["launches"]
+    step("create")
+    check_index_files("phase G create", hs, LINEAGE_INDEX, "l_orderkey",
+                      N_LINEITEM, SPILL_BUCKETS, lineage=True)
+    check_index_files("phase G create", hs, ORDERS_INDEX_200, "o_orderkey",
+                      N_ORDERS, SPILL_BUCKETS)
+    step("check create")
+
+    appended = [g_append(mut, 0, G_APPENDED, 29)]
+    for f in G_DELETED:
+        os.remove(os.path.join(mut, g_file_name(f)))
+    rows = N_LINEITEM + (G_APPENDED - len(G_DELETED)) * ROWS_PER_FILE
+    expected = expected_answers(orders, g_rows(li, appended))
+    step("mutate")
+
+    rec = timed_build(dev, "G refresh quick", hs,
+                      lambda: hs.refresh_index(LINEAGE_INDEX, "quick"), 0)
+    summary = rec.pop("outcome")
+    if (summary.outcome, summary.appended, summary.deleted) != \
+            ("ok", G_APPENDED, len(G_DELETED)):
+        raise AssertionError(f"phase G: quick refresh summary {summary}")
+    builds.append(rec)
+    session.conf.hybrid_scan_enabled = False
+    session.enable_hyperspace()
+    for name, ds in build_queries(session, root, "lineitem_mut").items():
+        if LINEAGE_INDEX in [n for n, _ in index_scans(ds.optimized_plan())]:
+            raise AssertionError(f"phase G {name}: a quick-refreshed index is "
+                                 f"used without hybrid scan")
+    step("quick refresh")
+
+    rows_out = []
+    for name, (ds, launches, stats, _) in g_queries(
+            "phase G hybrid", session, root, expected, True).items():
+        join = name.endswith("join")
+        plan = ds.optimized_plan()
+        if ("BucketUnion" if join else "Union") not in plan_nodes(plan) \
+                or "_data_file_id" not in plan.tree_string():
+            raise AssertionError(f"phase G {name}: hybrid plan\n"
+                                 f"{plan.tree_string()}")
+        want_routes = {"filters": ["device"],
+                       "joins": ["bucketed"] if join else [],
+                       "join_kernels": ["device"] if join else []}
+        if routes(stats) != want_routes or \
+                any(not j["hybrid"] for j in stats["joins"]):
+            raise AssertionError(f"phase G {name}: strategies {routes(stats)}, "
+                                 f"joins {stats['joins']}")
+        # One route of the appended rows per hybrid join side.
+        require_launches(f"phase G {name} hybrid route", launches,
+                         {"hash_buckets": int(join), "bucket_histogram": 0})
+        if join:
+            by_path["hybrid_route"] = launches
+        indexed = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        profiled = profile_query(dev, ds.collect)
+        session.disable_hyperspace()
+        want, keys = expected[name]
+        require_rows(f"phase G {name} source", ds.collect(), want, keys)
+        scan = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        session.enable_hyperspace()
+        indexed_ms, scan_ms = statistics.median(indexed), statistics.median(scan)
+        rows_out.append({
+            "name": f"hybrid {name}", "rows": len(next(iter(want.values()))),
+            "indexed_ms": indexed_ms, "scan_ms": scan_ms,
+            "speedup": scan_ms / indexed_ms, **profiled,
+            "device_ops": profiled["device_ops"][:10],
+            "pruned_buckets": [len(b) if b is not None else None
+                               for _, b in index_scans(plan)],
+            "files_read": sum(s["files_read"] for s in stats["scans"]),
+            "hybrid_route_launches": launches,
+            "indexed_runs_ms": indexed, "scan_runs_ms": scan})
+    step("hybrid queries")
+
+    rec = timed_build(dev, "G refresh incremental", hs,
+                      lambda: hs.refresh_index(LINEAGE_INDEX, "incremental"), 1)
+    summary = rec.pop("outcome")
+    if (summary.outcome, summary.appended, summary.deleted) != \
+            ("ok", G_APPENDED, len(G_DELETED)):
+        raise AssertionError(f"phase G: incremental refresh summary {summary}")
+    builds.append(rec)
+    by_path["incremental_refresh"] = rec["launches"]
+    check_index_files("phase G incremental", hs, LINEAGE_INDEX, "l_orderkey",
+                      rows, SPILL_BUCKETS, lineage=True)
+    # The same source through the clean index: what the hybrid merge
+    # costs on top of the 200-bucket plan.
+    clean = g_queries("phase G incremental", session, root, expected, False,
+                      timed=3)
+    for row in rows_out:
+        ms = clean[row["name"].split()[-1]][3]
+        row.update(clean_index_ms=ms, hybrid_over_clean=row["indexed_ms"] / ms)
+    step("incremental")
+
+    appended.append(g_append(mut, G_APPENDED, G_APPENDED_AGAIN, 31))
+    rows += G_APPENDED_AGAIN * ROWS_PER_FILE
+    expected = expected_answers(orders, g_rows(li, appended))
+    rec = timed_build(dev, "G refresh incremental (appended only)", hs,
+                      lambda: hs.refresh_index(LINEAGE_INDEX, "incremental"), 1)
+    summary = rec.pop("outcome")
+    if (summary.outcome, summary.appended, summary.deleted) != \
+            ("ok", G_APPENDED_AGAIN, 0):
+        raise AssertionError(f"phase G: second incremental summary {summary}")
+    builds.append(rec)
+    files_by_bucket = check_index_files("phase G appended", hs, LINEAGE_INDEX,
+                                        "l_orderkey", rows, SPILL_BUCKETS,
+                                        lineage=True)
+    two_versions = [b for b, fs in files_by_bucket.items()
+                    if len({os.path.dirname(f) for f in fs}) == 2]
+    if not two_versions:
+        raise AssertionError("phase G: no bucket has files in two versions")
+    g_queries("phase G appended", session, root, expected, False)
+    step("incremental appended")
+
+    rec = timed_build(dev, "G optimize quick", hs,
+                      lambda: hs.optimize_index(LINEAGE_INDEX, "quick"), 0)
+    summary = rec.pop("outcome")
+    merged = [b for b, fs in files_by_bucket.items() if len(fs) > 1]
+    if (summary.outcome, summary.compacted_buckets, summary.written_files) != \
+            ("ok", len(merged), len(merged)):
+        raise AssertionError(f"phase G: optimize summary {summary}")
+    builds.append(rec)
+    files_by_bucket = check_index_files("phase G optimize", hs, LINEAGE_INDEX,
+                                        "l_orderkey", rows, SPILL_BUCKETS,
+                                        lineage=True)
+    if any(len(fs) != 1 for fs in files_by_bucket.values()):
+        raise AssertionError("phase G: a bucket kept more than one file")
+    g_queries("phase G optimize", session, root, expected, False)
+    noop = hs.optimize_index(LINEAGE_INDEX, "quick")
+    if noop.outcome != "noop" or noop.version is not None:
+        raise AssertionError(f"phase G: optimize again: {noop}")
+    step("optimize")
+    for rec in builds:
+        rec.pop("outcome", None)
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(mut, ignore_errors=True)
+    return {"builds": builds, "queries": rows_out, "launches_by_path": by_path,
+            "two_version_buckets": len(two_versions), "rows": rows,
+            "steps_s": steps}
 
 
 def call_ms(fn, flush) -> float:
@@ -1160,6 +1461,22 @@ def main() -> int:
         print(f"phase E: three SF1 builds bit-equal in every bucket, refresh, "
               f"noop refresh, delete/restore/vacuum checked "
               f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        t0 = time.perf_counter()
+        g = phase_g(orders, li, root, dev)
+        builds.extend(g["builds"])
+        for b in g["builds"]:
+            print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
+                  f"{json.dumps(b['launches'])}, phases "
+                  f"{json.dumps(b['phases'])}", flush=True)
+        for q in g["queries"]:
+            print(f"phase G {q['name']}: {q['indexed_ms']:.1f} ms, "
+                  f"{q['speedup']:.2f}x the scan, {q['hybrid_over_clean']:.2f}x "
+                  f"the clean index, busy {q['busy_share']:.4f}", flush=True)
+        print(f"phase G: lineage create, quick refresh, hybrid queries, "
+              f"incremental refreshes ({g['rows']} rows, "
+              f"{g['two_version_buckets']} buckets in two versions), optimize "
+              f"checked ({time.perf_counter() - t0:.3f} s; by step "
+              f"{json.dumps(g['steps_s'])})", flush=True)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -1174,7 +1491,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
     by_path = {"C create li_idx": launches, "D create ord_idx": d["launches"],
-               **{b["build"]: b["launches"] for b in builds}}
+               **{b["build"]: b["launches"] for b in builds},
+               **g["launches_by_path"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -1187,7 +1505,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"builds": builds}))
-    print(json.dumps({"queries": d["queries"], "launches": d["launches"]}))
+    print(json.dumps({"queries": d["queries"], "launches": d["launches"],
+                      "hybrid_queries": g["queries"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

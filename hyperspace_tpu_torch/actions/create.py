@@ -21,10 +21,15 @@ decodes ahead on one thread) and cuts it into batches of exactly
     device holds a few batches at once whatever the source's size, and
     every bucket's bytes equal the monolithic build's.
 
+With ``conf.lineage_enabled`` each row carries its source file's
+tracker id in ``DATA_FILE_ID_COLUMN`` (stamped per file as it is read),
+an int64 column of the index like any other, through both builds.
+
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
-``_build_index_data``.  Not ported: the mesh and multi-host builds, the
-Z-order layouts, the lineage column, ``_sketch.parquet``, build reports
-and telemetry.  pyarrow is imported when a function runs.
+``_build_index_data``; ``RefreshIncrementalAction`` writes through
+``_write_table_bucketed``.  Not ported: the mesh and multi-host builds,
+the Z-order layouts, ``_sketch.parquet``, build reports and telemetry.
+pyarrow is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ from hyperspace_tpu_torch.io.parquet import (
 from hyperspace_tpu_torch.ops.hash import route_partition
 from hyperspace_tpu_torch.ops.sort import bucket_sort_permutation
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+
+DATA_FILE_ID_COLUMN = "_data_file_id"  # the lineage column
 
 # Spill directories are stamped with the building process's pid, so a
 # later build can prove an orphan's owner dead before it removes the
@@ -146,11 +153,13 @@ class _PrefetchReader:
     the reader, so a failed build never races its own prefetcher."""
 
     def __init__(self, action: "CreateActionBase", files, columns, relation,
-                 depth: int, spill: "_BucketSpill") -> None:
+                 lineage: bool, depth: int,
+                 spill: Optional["_BucketSpill"] = None) -> None:
         self.action = action
         self.files = list(files)
         self.columns = columns
         self.relation = relation
+        self.lineage = lineage
         self.depth = max(0, int(depth))
         self.spill = spill
         self._stall_buffer_s = 0.0
@@ -162,8 +171,9 @@ class _PrefetchReader:
         only once the build spills: a monolithic build has nothing to
         overlap, and its wait is the reader's ``read_s`` counted twice.
         Stalls before the first spill are buffered and flushed with the
-        first one after it."""
-        if not self.spill.spilled:
+        first one after it; without a spill (incremental refresh) they
+        stay buffered."""
+        if self.spill is None or not self.spill.spilled:
             self._stall_buffer_s += seconds
             return
         self.action._phase("prefetch_s", self._stall_buffer_s + seconds)
@@ -171,12 +181,13 @@ class _PrefetchReader:
 
     def _submit(self, f):
         return self._pool.submit(self.action._read_chunk, f, self.columns,
-                                 self.relation)
+                                 self.relation, self.lineage)
 
     def __iter__(self):
         if self.depth == 0:
             for f in self.files:
-                yield self.action._read_chunk(f, self.columns, self.relation)
+                yield self.action._read_chunk(f, self.columns, self.relation,
+                                              self.lineage)
             return
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="hs-prefetch")
@@ -193,7 +204,8 @@ class _PrefetchReader:
                     self._pending.append(self._submit(queue.pop(0)))
                 yield t
             # A build that spilled late still owns its earlier stalls.
-            if self.spill.spilled and self._stall_buffer_s:
+            if self.spill is not None and self.spill.spilled \
+                    and self._stall_buffer_s:
                 self._record_stall(0.0)
         finally:
             self.close()
@@ -247,6 +259,11 @@ class CreateActionBase(Action):
     def num_buckets(self) -> int:
         return self.conf.num_buckets
 
+    @property
+    def lineage_enabled(self) -> bool:
+        # A refresh pins it to the previous entry's.
+        return self.conf.lineage_enabled
+
     def _relation(self):
         # Cached for the action's lifetime: the file listing is walked once.
         if self._relation_cache is None:
@@ -280,9 +297,8 @@ class CreateActionBase(Action):
         resolved = self._resolved_config()
         prev = self._previous_entry
         properties: Dict[str, str] = dict(prev.properties) if prev else {}
-        # The port writes no lineage column; the log version is the one
-        # end() commits at (base_id + 2).
-        properties["lineage"] = "false"
+        # The log version is the one end() commits at (base_id + 2).
+        properties["lineage"] = str(self.lineage_enabled).lower()
         properties["indexLogVersion"] = str(self.base_id + 2)
         return IndexLogEntry(
             name=self.config.index_name,
@@ -319,7 +335,8 @@ class CreateActionBase(Action):
         spill = _BucketSpill(self, resolved)
         try:
             self._stream_build(files, resolved.all_columns, relation,
-                               resolved, batch_rows, spill)
+                               self.lineage_enabled, resolved, batch_rows,
+                               spill)
             log = getattr(self.session, "build_stats_log", None)
             if log is not None:
                 log.append({"index": self.index_name, **self.build_phases})
@@ -328,10 +345,12 @@ class CreateActionBase(Action):
             # directory on every exit; a no-op after a clean finish().
             spill.cleanup()
 
-    def _read_chunk(self, f, columns, relation):
+    def _read_chunk(self, f, columns, relation, lineage: bool):
         """One source file's rows.  A file written before a column was
         added to the source gets that column as nulls of the relation's
-        type, as the monolithic concatenation would promote it."""
+        type, as the monolithic concatenation would promote it.  With
+        ``lineage`` the rows get the file's tracker id as
+        ``DATA_FILE_ID_COLUMN``."""
         import pyarrow as pa
 
         t0 = time.perf_counter()
@@ -344,10 +363,13 @@ class CreateActionBase(Action):
                 t = t.append_column(c, pa.nulls(
                     t.num_rows,
                     type=_dtype_from_string(rel_schema.get(c, "string"))))
+        if lineage:
+            t = t.append_column(DATA_FILE_ID_COLUMN, pa.array(
+                np.full(t.num_rows, f.id, dtype=np.int64)))
         return t
 
-    def _stream_build(self, files, columns, relation, resolved, batch_rows,
-                      spill: "_BucketSpill") -> None:
+    def _stream_build(self, files, columns, relation, lineage: bool, resolved,
+                      batch_rows, spill: "_BucketSpill") -> None:
         """Read the source and cut it into batches of exactly
         ``batch_rows`` rows for the spill; a source that fits one batch
         never spills and takes the monolithic build.  The pipeline
@@ -358,7 +380,8 @@ class CreateActionBase(Action):
 
         depth = max(1, int(self.conf.build_prefetch_depth)) \
             if spill.pipelined else 0
-        reader = _PrefetchReader(self, files, columns, relation, depth, spill)
+        reader = _PrefetchReader(self, files, columns, relation, lineage,
+                                 depth, spill)
         buffer: List = []
         buffered = 0
         try:

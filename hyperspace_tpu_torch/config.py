@@ -1,6 +1,7 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
-holding the fields the build and the query path read; defaults are the
-JAX package's but for the two routing thresholds).
+holding the fields the build, the refresh and optimize verbs and the
+query path read; defaults are the JAX package's but for the two routing
+thresholds).
 
 The JAX package derives ``device_min_rows`` from a calibration of the
 attachment, falling back to 2**26 rows; calibration is not ported, so
@@ -22,6 +23,19 @@ from hyperspace_tpu_torch.io.parquet import INDEX_COMPRESSION_DEFAULT
 class HyperspaceConf:
     system_path: Optional[str] = None
     num_buckets: int = 200
+    # Stamp each index row with its source file's id (``_data_file_id``):
+    # what incremental refresh with deletes and hybrid scan over deleted
+    # files need.
+    lineage_enabled: bool = False
+    # Hybrid scan: a stale index answers with its deleted files' rows
+    # filtered out and the appended files read beside it, while the
+    # appended (deleted) bytes stay within these shares of the current
+    # (indexed) bytes.
+    hybrid_scan_enabled: bool = False
+    hybrid_scan_max_appended_ratio: float = 0.3
+    hybrid_scan_max_deleted_ratio: float = 0.2
+    # Quick optimize compacts only index files smaller than this.
+    optimize_file_size_threshold: int = 256 * 1024 * 1024
     # Split each bucket's sorted run into files of at most this many rows
     # (0 = one file per bucket).
     index_max_rows_per_file: int = 0

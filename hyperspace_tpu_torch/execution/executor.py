@@ -1,6 +1,6 @@
 """Physical execution of a filter or join plan into an arrow table
 (counterpart of hyperspace_tpu/execution/executor.py, its Scan, Filter,
-Project, Join and InMemory nodes).
+Project, Join, InMemory, Union and BucketUnion nodes).
 
 Numeric work runs on the session's device: a predicate over null-free
 numeric columns as the torch closure of ``ops.filter.compile_predicate``,
@@ -16,7 +16,14 @@ caught to answer from the host instead.
 A join whose sides are ``(Project|Filter)*`` chains over index scans
 with matching bucket specs runs bucket by bucket: equal keys meet only
 inside one bucket, so each per-bucket join reads and joins 1/B of the
-data; up to 8 buckets run at once on the shared thread pool.
+data; up to 8 buckets run at once on the shared thread pool.  A side may
+also be a hybrid scan's ``BucketUnion(index chain, appended files)``:
+the appended rows are routed into the index's buckets by the build's
+bucket hash on the session's device (the hash kernel on the card), and
+each bucket joins its index files followed by its routed rows.
+
+A ``Union`` or ``BucketUnion`` executed whole concatenates its children
+in order, by name; a strict one promotes nulls only.
 
 Scan semantics: ``relation.file_paths`` replaces the listing of the root
 paths (index scans); ``relation.prune_to_buckets`` drops index files
@@ -24,13 +31,13 @@ whose bucket id (from the file name) is not wanted.
 
 ``stats`` records per scan the files and rows read, per filter and per
 join kernel the route taken ("device" or "host") and its rows, and per
-join "bucketed" or "plain"; ``Dataset.collect`` publishes it as
-``session.last_execution_stats``.
+join "bucketed" (with whether a side was hybrid) or "plain";
+``Dataset.collect`` publishes it as ``session.last_execution_stats``.
 
 Not ported: every other plan node, the device column cache (columns are
-uploaded per query), the mesh filter and join, hybrid-scan sides and
-residual join predicates, the lake formats, hypothetical scans and the
-telemetry spans.  pyarrow is imported inside the functions.
+uploaded per query), the mesh filter and join, residual join predicates,
+the lake formats, hypothetical scans and the telemetry spans.  pyarrow
+is imported inside the functions.
 """
 
 from __future__ import annotations
@@ -63,12 +70,14 @@ from hyperspace_tpu_torch.plan.expr import (
     as_equi_join_pairs,
 )
 from hyperspace_tpu_torch.plan.nodes import (
+    BucketUnion,
     Filter,
     InMemory,
     Join,
     LogicalPlan,
     Project,
     Scan,
+    Union,
 )
 
 
@@ -91,6 +100,15 @@ class Executor:
             return self.execute(plan.child).select(plan.columns)
         if isinstance(plan, Join):
             return self._join(plan)
+        if isinstance(plan, (BucketUnion, Union)):
+            import pyarrow as pa
+
+            tables = [self.execute(c) for c in plan.children]
+            # BucketUnion merges an index with its own source's rows: a
+            # width mismatch there is schema drift and must raise.
+            promote = "permissive" if isinstance(plan, Union) \
+                and not plan.strict else "default"
+            return pa.concat_tables(tables, promote_options=promote)
         raise ValueError(f"Unknown plan node: {type(plan).__name__}")
 
     # -- scan ---------------------------------------------------------------
@@ -288,7 +306,8 @@ class Executor:
 
     def _try_bucketed_join(self, plan: Join):
         """Join bucket by bucket when both sides are (Project|Filter)*
-        chains over index scans with matching bucket specs (what
+        chains over index scans with matching bucket specs, or hybrid
+        ``BucketUnion``s of such a chain and appended rows (what
         JoinIndexRule builds).  An outer or anti join joins a bucket only
         one side has against a zero-row table of the other side, so its
         unmatched rows are emitted as the plain path would."""
@@ -300,12 +319,18 @@ class Executor:
         if precheck is None:
             return None
         left_side, right_side, l_files, r_files = precheck
-        l_parts = _side_bucket_parts(left_side, l_files)
-        r_parts = _side_bucket_parts(right_side, r_files)
-        shared = sorted(set(l_parts) & set(r_parts))
+        scans_mark = len(self.stats["scans"])
+        l_parts = self._side_bucket_parts(left_side, l_files)
+        r_parts = None if l_parts is None \
+            else self._side_bucket_parts(right_side, r_files)
+        shared = [] if l_parts is None or r_parts is None \
+            else sorted(set(l_parts) & set(r_parts))
         if not shared:
-            # No bucket on both sides: the plain path gives the right
-            # answer, null extension and the joined schema included.
+            # A side that could not be routed, or no bucket on both
+            # sides: the plain path gives the right answer, null
+            # extension and the joined schema included.  What the
+            # probing read is not counted twice.
+            del self.stats["scans"][scans_mark:]
             return None
         extra_left = sorted(set(l_parts) - set(r_parts)) \
             if plan.how in ("left", "full", "anti") else []
@@ -315,6 +340,7 @@ class Executor:
             "strategy": "bucketed",
             "how": plan.how,
             "buckets": len(shared) + len(extra_left) + len(extra_right),
+            "hybrid": bool(left_side.appended or right_side.appended),
         })
         # The zero-row donors come from one shared bucket, read once and
         # reused for that bucket's own join.
@@ -347,6 +373,78 @@ class Executor:
             join_bucket, sorted(shared + extra_left + extra_right),
             max_workers=8)
         return pa.concat_tables(parts, promote_options="default")
+
+    def _side_bucket_parts(self, side: "_BucketedSide", by_bucket):
+        """bucket id -> zero-argument function making that bucket's
+        sub-plan for one join side, or None when the side's appended rows
+        cannot be routed.  A bucket's sub-plan reads its index files
+        followed by its routed appended rows."""
+        appended_by_bucket: Dict = {}
+        if side.appended is not None:
+            num_buckets, cols, _ = side.scan.relation.bucket_spec
+            routed = self._route_to_buckets(self.execute(side.appended), cols,
+                                            num_buckets, side.scan)
+            if routed is None:
+                return None
+            appended_by_bucket = routed
+
+        def make(bucket: int) -> LogicalPlan:
+            parts: List[LogicalPlan] = []
+            if bucket in by_bucket:
+                parts.append(_rewrap(side.scan, side.inner, by_bucket[bucket]))
+            if bucket in appended_by_bucket:
+                parts.append(InMemory(appended_by_bucket[bucket]))
+            node = parts[0] if len(parts) == 1 else Union(parts, strict=True)
+            for w in reversed(side.outer):
+                node = w.with_children((node,))
+            return node
+
+        return {b: (lambda b=b: make(b))
+                for b in set(by_bucket) | set(appended_by_bucket)}
+
+    def _route_to_buckets(self, table, cols, num_buckets: int,
+                          index_scan: Scan) -> Optional[Dict]:
+        """``table``'s rows by the index's bucket, each bucket's rows in
+        table order.  The bucket ids come from the build's hash on the
+        session's device (the hash kernel on the card; bit-equal to the
+        host mirror ``bucket_ids_np``).  Key columns are cast to the
+        index's stored type first: the hash reads raw bits, so an int64
+        row hashed as float64 would land in another bucket.  None when a
+        key column is missing or does not cast."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        from hyperspace_tpu_torch.ops.hash import bucket_ids
+
+        if table.num_rows == 0:
+            return {}
+        by_lower = {c.lower(): c for c in table.column_names}
+        stored = {k.lower(): v
+                  for k, v in self.session.schema_map_of(index_scan).items()}
+        word_cols = []
+        for c in cols:
+            name = by_lower.get(c.lower())
+            if name is None:
+                return None
+            column = table.column(name)
+            stored_type = stored.get(c.lower())
+            if stored_type is not None and str(column.type) != stored_type:
+                target = schema_to_arrow({"c": stored_type}).field(0).type
+                try:
+                    column = pc.cast(column, target)
+                except (pa.ArrowInvalid, pa.ArrowNotImplementedError,
+                        pa.ArrowTypeError):
+                    return None
+            word_cols.append(torch.from_numpy(np.ascontiguousarray(
+                columnar.to_hash_words(column))).to(self.session.device))
+        ids = bucket_ids(word_cols, num_buckets).cpu().numpy()
+        # A stable sort by bucket keeps each bucket's rows in table order.
+        order = np.argsort(ids, kind="stable")
+        present, starts, counts = np.unique(ids[order], return_index=True,
+                                            return_counts=True)
+        routed = table.take(pa.array(order))
+        return {int(b): routed.slice(int(s), int(n))
+                for b, s, n in zip(present, starts, counts)}
 
 
 # ---------------------------------------------------------------------------
@@ -598,11 +696,23 @@ def _valid_key_positions(table, keys: List[str]) -> np.ndarray:
 
 class _BucketedSide:
     """A join side for the bucket-aligned join: its bucketed index
-    ``scan`` and the Project/Filter ``outer`` wrappers above it."""
+    ``scan``, the ``inner`` wrappers between a hybrid BucketUnion and the
+    scan (none without a union), the ``outer`` wrappers above, and the
+    ``appended`` subtree (None for a plain index chain)."""
 
-    def __init__(self, scan: Scan, outer: List[LogicalPlan]) -> None:
+    def __init__(self, scan: Scan, inner: List[LogicalPlan],
+                 outer: List[LogicalPlan],
+                 appended: Optional[LogicalPlan]) -> None:
         self.scan = scan
+        self.inner = inner
         self.outer = outer
+        self.appended = appended
+
+
+def _is_bucketed_index_scan(node: LogicalPlan) -> bool:
+    return (isinstance(node, Scan) and bool(node.relation.bucket_spec)
+            and node.relation.file_paths is not None
+            and bool(node.relation.index_scan_of))
 
 
 def _unwrap_chain(node: LogicalPlan):
@@ -614,12 +724,18 @@ def _unwrap_chain(node: LogicalPlan):
 
 
 def _bucketed_side(node: LogicalPlan) -> Optional[_BucketedSide]:
-    """Match ``(Project|Filter)*`` over a bucketed index scan."""
-    outer, leaf = _unwrap_chain(node)
-    if (isinstance(leaf, Scan) and leaf.relation.bucket_spec
-            and leaf.relation.file_paths is not None
-            and leaf.relation.index_scan_of):
-        return _BucketedSide(leaf, outer)
+    """Match ``(Project|Filter)*`` over a bucketed index scan or over a
+    hybrid ``BucketUnion(index chain, appended subtree)``."""
+    outer, node = _unwrap_chain(node)
+    if _is_bucketed_index_scan(node):
+        return _BucketedSide(node, [], outer, None)
+    if isinstance(node, BucketUnion) and len(node.children) == 2:
+        # The index chain is found by its shape, not its position.
+        for index_child, appended_child in (node.children,
+                                            node.children[::-1]):
+            inner, leaf = _unwrap_chain(index_child)
+            if _is_bucketed_index_scan(leaf):
+                return _BucketedSide(leaf, inner, outer, appended_child)
     return None
 
 
@@ -689,12 +805,6 @@ def _files_by_bucket(scan: Scan):
             continue
         out.setdefault(b, []).append(p)
     return out
-
-
-def _side_bucket_parts(side: _BucketedSide, by_bucket):
-    """bucket id -> zero-argument function making that bucket's sub-plan."""
-    return {b: (lambda b=b: _rewrap(side.scan, side.outer, by_bucket[b]))
-            for b in by_bucket}
 
 
 def _rewrap(scan: Scan, wrappers, files) -> LogicalPlan:

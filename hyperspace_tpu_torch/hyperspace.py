@@ -1,6 +1,6 @@
 """Top-level user API (counterpart of hyperspace_tpu/hyperspace.py):
 ``create_index``, ``delete_index``, ``restore_index``, ``vacuum_index``,
-``refresh_index`` (full), ``cancel`` and ``indexes``."""
+``refresh_index``, ``optimize_index``, ``cancel`` and ``indexes``."""
 
 from __future__ import annotations
 
@@ -29,10 +29,19 @@ class Hyperspace:
         self.index_manager.vacuum(name)
 
     def refresh_index(self, name: str, mode: str = "full"):
-        """Rebuild ``name`` over its source as it is now; returns a
-        ``RefreshSummary`` (outcome "noop" when the source is unchanged).
-        Only ``mode="full"`` is ported."""
+        """Bring ``name`` up to date with its source: ``mode`` "full"
+        rebuilds, "incremental" indexes only the appended and deleted
+        files, "quick" records them for hybrid scan.  Returns a
+        ``RefreshSummary`` (outcome "noop" when the source is unchanged)."""
         return self.index_manager.refresh(name, mode)
+
+    def optimize_index(self, name: str, mode: str = "quick"):
+        """Merge each bucket's small index files into one sorted run, cut
+        at ``conf.index_max_rows_per_file`` ("quick": only files under
+        ``conf.optimize_file_size_threshold``; "full": every file).
+        Returns an ``OptimizeSummary`` (outcome "noop" when no bucket
+        held files to merge)."""
+        return self.index_manager.optimize(name, mode)
 
     def cancel(self, name: str) -> None:
         self.index_manager.cancel(name)

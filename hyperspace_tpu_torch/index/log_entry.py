@@ -5,6 +5,7 @@ hyperspace_tpu/index/log_entry.py, its covering-index subset).
   - ``Directory``/``Content`` — directory tree of index/source files
   - ``CoveringIndex``       — derived-dataset spec
   - ``Signature``/``LogicalPlanFingerprint`` — validity fingerprint
+  - ``Update``              — appended/deleted files a quick refresh recorded
   - ``Relation``/``Source`` — snapshot of the source relation
   - ``IndexLogEntry``       — the versioned log record
   - ``FileIdTracker``       — stable (path, size, mtime) -> id map
@@ -34,6 +35,7 @@ class States:
     REFRESHING = "REFRESHING"
     VACUUMING = "VACUUMING"
     RESTORING = "RESTORING"
+    OPTIMIZING = "OPTIMIZING"
     DOESNOTEXIST = "DOESNOTEXIST"
 
     STABLE: FrozenSet[str] = frozenset({"ACTIVE", "DELETED", "DOESNOTEXIST"})
@@ -79,6 +81,28 @@ class Directory:
             [FileInfo.from_dict(f) for f in d.get("files", [])],
             [Directory.from_dict(s) for s in d.get("subDirs", [])],
         )
+
+    def merge(self, other: "Directory") -> "Directory":
+        """Two trees rooted at the same name as one: files unioned (the
+        first tree's copy kept for an equal (name, size, mtime)) and
+        same-named subdirectories merged, each list sorted by name."""
+        if self.name != other.name:
+            raise ValueError(f"Directory merge root mismatch: {self.name!r} "
+                             f"vs {other.name!r}")
+        seen = {(f.name, f.size, f.mtime): f for f in self.files}
+        for f in other.files:
+            seen.setdefault((f.name, f.size, f.mtime), f)
+        by_name = {d.name: d for d in self.subdirs}
+        merged_subdirs: List[Directory] = []
+        other_names = set()
+        for sub in other.subdirs:
+            other_names.add(sub.name)
+            merged_subdirs.append(by_name[sub.name].merge(sub)
+                                  if sub.name in by_name else sub)
+        merged_subdirs.extend(sub for sub in self.subdirs
+                              if sub.name not in other_names)
+        return Directory(self.name, sorted(seen.values(), key=lambda f: f.name),
+                         sorted(merged_subdirs, key=lambda d: d.name))
 
     @staticmethod
     def from_leaf_files(files: Sequence[FileInfo]) -> "Directory":
@@ -169,6 +193,9 @@ class Content:
             return None
         return Content(Directory.from_leaf_files(files))
 
+    def merge(self, other: "Content") -> "Content":
+        return Content(self.root.merge(other.root))
+
 
 @dataclasses.dataclass
 class CoveringIndex:
@@ -248,18 +275,42 @@ class LogicalPlanFingerprint:
 
 
 @dataclasses.dataclass
+class Update:
+    """The appended and deleted source files a quick refresh recorded."""
+
+    appended_files: Optional[Content] = None
+    deleted_files: Optional[Content] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "appendedFiles": self.appended_files.to_dict()
+            if self.appended_files else None,
+            "deletedFiles": self.deleted_files.to_dict()
+            if self.deleted_files else None,
+        }
+
+    @staticmethod
+    def from_dict(d: Optional[Dict[str, Any]]) -> Optional["Update"]:
+        if d is None:
+            return None
+        return Update(
+            Content.from_dict(d["appendedFiles"]) if d.get("appendedFiles") else None,
+            Content.from_dict(d["deletedFiles"]) if d.get("deletedFiles") else None,
+        )
+
+
+@dataclasses.dataclass
 class Relation:
     """Snapshot of one source relation: root paths, the file content tree
-    at build time, schema, format and options."""
+    at build time, schema, format, options, and the update a quick
+    refresh recorded since."""
 
     root_paths: List[str]
     content: Content
     schema: Dict[str, str]
     file_format: str
     options: Dict[str, str] = dataclasses.field(default_factory=dict)
-    # Appended/deleted files a quick refresh recorded, as the JSON holds
-    # them (the port writes none; the rules skip an entry that has one).
-    update: Optional[Dict[str, Any]] = None
+    update: Optional[Update] = None
 
     def to_dict(self) -> Dict[str, Any]:
         return {
@@ -267,7 +318,7 @@ class Relation:
             "data": {
                 "properties": {
                     "content": self.content.to_dict(),
-                    "update": self.update,
+                    "update": self.update.to_dict() if self.update else None,
                 }
             },
             "dataSchemaJson": self.schema,
@@ -277,13 +328,14 @@ class Relation:
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Relation":
+        props = d["data"]["properties"]
         return Relation(
             list(d["rootPaths"]),
-            Content.from_dict(d["data"]["properties"]["content"]),
+            Content.from_dict(props["content"]),
             dict(d["dataSchemaJson"]),
             d["fileFormat"],
             dict(d.get("options", {})),
-            d["data"]["properties"].get("update"),
+            Update.from_dict(props.get("update")),
         )
 
 
@@ -393,10 +445,44 @@ class IndexLogEntry:
             raise ValueError(f"Expected exactly one signature, got {len(sigs)}")
         return sigs[0]
 
+    def has_lineage_column(self) -> bool:
+        return self.properties.get("lineage", "false").lower() == "true"
+
+    def appended_files(self) -> List[FileInfo]:
+        """The files a quick refresh recorded as appended."""
+        out: List[FileInfo] = []
+        for rel in self.relations:
+            if rel.update and rel.update.appended_files:
+                out.extend(rel.update.appended_files.file_infos())
+        return out
+
+    def deleted_files(self) -> List[FileInfo]:
+        """The files a quick refresh recorded as deleted."""
+        out: List[FileInfo] = []
+        for rel in self.relations:
+            if rel.update and rel.update.deleted_files:
+                out.extend(rel.update.deleted_files.file_infos())
+        return out
+
     def has_source_update(self) -> bool:
         """True when a quick refresh recorded appended or deleted source
         files: the index data alone is then stale."""
-        return any(_update_has_files(r.update) for r in self.source.relations)
+        return bool(self.appended_files() or self.deleted_files())
+
+    def copy_with_update(self, fingerprint: LogicalPlanFingerprint,
+                         appended: Sequence[FileInfo],
+                         deleted: Sequence[FileInfo]) -> "IndexLogEntry":
+        """This entry with ``appended``/``deleted`` recorded as its
+        relation's update and ``fingerprint`` as its source's: the quick
+        refresh, which leaves the index data as it is."""
+        if len(self.relations) != 1:
+            raise ValueError("copy_with_update supports single-relation sources")
+        new_rel = dataclasses.replace(
+            self.relations[0],
+            update=Update(appended_files=Content.from_leaf_files(list(appended)),
+                          deleted_files=Content.from_leaf_files(list(deleted))))
+        return dataclasses.replace(self, source=Source([new_rel], fingerprint),
+                                   _tags={})
 
     # Tags are keyed by (tag, plan node): one entry can match the
     # signature of one relation and not another's.
@@ -409,13 +495,8 @@ class IndexLogEntry:
 
 class IndexLogEntryTags:
     SIGNATURE_MATCHED = "signatureMatched"
-
-
-def _update_has_files(update: Optional[Dict[str, Any]]) -> bool:
-    if not update:
-        return False
-    return any(Content.from_dict(update[k]).files()
-               for k in ("appendedFiles", "deletedFiles") if update.get(k))
+    IS_HYBRIDSCAN_CANDIDATE = "isHybridScanCandidate"
+    COMMON_BYTES = "commonBytes"
 
 
 class FileIdTracker:

@@ -1,9 +1,9 @@
 """Index collection manager (counterpart of
 hyperspace_tpu/index/manager.py): name -> log and data managers, dispatch
-to the actions (create, delete, restore, vacuum, cancel, full refresh),
-and listing of the indexes under the system path.  Not ported:
-auto-recovery, repair, the conflict-retry settings and the data-skipping
-dispatch."""
+to the actions (create, delete, restore, vacuum, cancel, the full,
+incremental and quick refresh, optimize), and listing of the indexes
+under the system path.  Not ported: auto-recovery, repair, the
+conflict-retry settings and the data-skipping dispatch."""
 
 from __future__ import annotations
 
@@ -74,20 +74,34 @@ class IndexCollectionManager:
         CancelAction(self._log_manager(name)).run()
 
     def refresh(self, name: str, mode: str = "full"):
-        """Run one refresh; returns its ``RefreshSummary`` (outcome "noop"
-        for an unchanged source).  Only ``mode="full"`` is ported."""
-        from hyperspace_tpu_torch.actions.refresh import RefreshAction
+        """Run one refresh ("full", "incremental" or "quick"); returns its
+        ``RefreshSummary`` (outcome "noop" for an unchanged source)."""
+        from hyperspace_tpu_torch.actions.refresh import (
+            RefreshAction,
+            RefreshIncrementalAction,
+            RefreshQuickAction,
+        )
 
-        if mode in ("incremental", "quick"):
-            raise HyperspaceError(
-                f"refresh mode {mode!r} is not ported to hyperspace_tpu_torch "
-                f"yet (it needs the lineage column); use mode='full'")
-        if mode != "full":
+        cls = {"full": RefreshAction,
+               "incremental": RefreshIncrementalAction,
+               "quick": RefreshQuickAction}.get(mode)
+        if cls is None:
             raise HyperspaceError(f"Unknown refresh mode {mode!r}")
         log_manager = self._log_manager(name)
-        action = RefreshAction(log_manager, self._data_manager(name),
-                               self.session,
-                               previous=log_manager.get_latest_stable_log())
+        action = cls(log_manager, self._data_manager(name), self.session,
+                     previous=log_manager.get_latest_stable_log())
+        return action.summary(action.run())
+
+    def optimize(self, name: str, mode: str = "quick"):
+        """Run one compaction ("quick" or "full"); returns its
+        ``OptimizeSummary`` (outcome "noop" when no bucket held files to
+        merge)."""
+        from hyperspace_tpu_torch.actions.optimize import OptimizeAction
+
+        if mode not in ("quick", "full"):
+            raise HyperspaceError(f"Unknown optimize mode {mode!r}")
+        action = OptimizeAction(self._log_manager(name),
+                                self._data_manager(name), self.session, mode)
         return action.summary(action.run())
 
     def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:

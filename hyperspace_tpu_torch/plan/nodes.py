@@ -1,6 +1,7 @@
 """Logical plan nodes (counterpart of hyperspace_tpu/plan/nodes.py, the
 nodes a filter or join query needs): ``Scan``, ``Filter``, ``Project``,
-``Join`` and ``InMemory``.  A plan is a small immutable tree; the rules
+``Join``, ``InMemory``, and the hybrid-scan merges ``BucketUnion`` and
+``Union``.  A plan is a small immutable tree; the rules
 rewrite it with ``transform_up``/``with_children``.  Class names are part
 of the plan signature, so they match the JAX package's, and
 ``tree_string`` prints a plan as the JAX package does."""
@@ -195,3 +196,53 @@ class InMemory(LogicalPlan):
 
     def simple_string(self) -> str:
         return f"InMemory [{self.table.num_rows} rows]"
+
+
+class BucketUnion(LogicalPlan):
+    """Union of children bucketed alike (``bucket_spec``): a hybrid-scan
+    join side, an index and its appended source rows.  The bucket-aligned
+    join routes the appended rows into the index's buckets; executed
+    whole it is a strict by-name concatenation."""
+
+    def __init__(self, children: Sequence[LogicalPlan],
+                 bucket_spec: Tuple[int, Tuple[str, ...], Tuple[str, ...]]) -> None:
+        self.bucket_spec = bucket_spec
+        self.children = tuple(children)
+
+    def output_columns(self, schema_of) -> List[str]:
+        return self.children[0].output_columns(schema_of)
+
+    def with_children(self, children) -> "BucketUnion":
+        return BucketUnion(children, self.bucket_spec)
+
+    def simple_string(self) -> str:
+        return f"BucketUnion (buckets={self.bucket_spec[0]})"
+
+
+class Union(LogicalPlan):
+    """Union by name: the first child's columns, then any names only later
+    children produce.  ``strict`` keeps arrow's default promotion (nulls
+    only), so an index and its own source rows never widen silently
+    (int64 with float64 would corrupt keys above 2**53); otherwise
+    numeric widths widen."""
+
+    def __init__(self, children: Sequence[LogicalPlan],
+                 strict: bool = False) -> None:
+        self.children = tuple(children)
+        self.strict = bool(strict)
+
+    def output_columns(self, schema_of) -> List[str]:
+        out = list(self.children[0].output_columns(schema_of))
+        seen = set(out)
+        for c in self.children[1:]:
+            for name in c.output_columns(schema_of):
+                if name not in seen:
+                    seen.add(name)
+                    out.append(name)
+        return out
+
+    def with_children(self, children) -> "Union":
+        return Union(children, strict=self.strict)
+
+    def simple_string(self) -> str:
+        return "Union"

@@ -11,7 +11,15 @@ from __future__ import annotations
 
 from typing import List, Optional, Set
 
-from hyperspace_tpu_torch.plan.nodes import Filter, Join, LogicalPlan, Project, Scan
+from hyperspace_tpu_torch.plan.nodes import (
+    BucketUnion,
+    Filter,
+    Join,
+    LogicalPlan,
+    Project,
+    Scan,
+    Union,
+)
 from hyperspace_tpu_torch.utils.resolver import resolve
 
 
@@ -79,6 +87,12 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]],
             sides.append(new_side)
         if changed:
             return Join(sides[0], sides[1], plan.condition, plan.how)
+        return plan
+    if isinstance(plan, (BucketUnion, Union)):
+        new_children = tuple(_prune(c, required, schema_of)
+                             for c in plan.children)
+        if any(n is not o for n, o in zip(new_children, plan.children)):
+            return plan.with_children(new_children)
         return plan
     if isinstance(plan, Scan):
         if required is None:

@@ -9,10 +9,13 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
     to a finite set (equality, IN, or an OR of those), the buckets those
     values hash to are computed with ``ops.hash.bucket_ids_np`` (the
     build kernel's bit-equal host mirror) and only their files are read.
+    Under hybrid scan an index whose source changed is swapped in as the
+    index merged with the appended files (``rules.hybrid``); the bucket
+    pruning applies to its index part.
 
-Not ported: the Z-order any-column relaxation, the hybrid-scan and
-quarantine transforms, and the per-file min/max sketch pruning (the
-port's build writes no ``_sketch.parquet``).
+Not ported: the Z-order any-column relaxation, the quarantine
+transform, and the per-file min/max sketch pruning (the port's build
+writes no ``_sketch.parquet``).
 """
 
 from __future__ import annotations
@@ -61,12 +64,24 @@ class FilterIndexRule:
             entries = self.session.index_collection_manager.get_indexes(
                 [States.ACTIVE])
         candidates = rule_utils.get_candidate_indexes(self.session, entries, scan)
+        hybrid = self.session.conf.hybrid_scan_enabled
         best = rank_filter_indexes(
             _find_covering_indexes(candidates, filter_cols, output_cols),
-            filter_cols=filter_cols)
+            scan, hybrid, filter_cols=filter_cols)
         if best is None:
             return None
         prune = _bucket_pruning(filter_node.condition, best)
+        if hybrid:
+            from hyperspace_tpu_torch.rules.hybrid import (
+                hybrid_file_lists,
+                transform_plan_to_use_hybrid_scan,
+            )
+
+            appended, deleted = hybrid_file_lists(best, scan)
+            if appended or deleted:
+                return transform_plan_to_use_hybrid_scan(
+                    self.session, plan, scan, best, bucket_union=False,
+                    prune_to_buckets=prune)
         use_bucket_spec = (self.session.conf.filter_rule_use_bucket_spec
                            or prune is not None)
         return rule_utils.transform_plan_to_use_index_only_scan(

@@ -1,6 +1,6 @@
-"""JoinIndexRule (counterpart of hyperspace_tpu/rules/join_rule.py,
-without hybrid scan): rewrite both sides of an inner equi-join to
-bucketed index scans, so the executor joins bucket by bucket.
+"""JoinIndexRule (counterpart of hyperspace_tpu/rules/join_rule.py):
+rewrite both sides of an inner equi-join to bucketed index scans, so the
+executor joins bucket by bucket.
 
   - applicability: an inner join whose condition is a conjunction of
     column == column equalities, each side a linear plan over one
@@ -9,7 +9,10 @@ bucketed index scans, so the executor joins bucket by bucket.
     keys (as sets) and the index covers the side's required columns; a
     left and a right index pair up when their indexed-column orders match
     through the key mapping; ``rankers.rank_join_index_pairs`` picks one;
-  - rewrite: both scans become index scans WITH the bucket spec.
+  - rewrite: both scans become index scans WITH the bucket spec; under
+    hybrid scan a side whose source changed becomes a ``BucketUnion`` of
+    the index and its appended files (``rules.hybrid``), whose rows the
+    executor routes into the index's buckets.
 """
 
 from __future__ import annotations
@@ -91,16 +94,31 @@ class JoinIndexRule:
         r_usable = _usable_indexes(
             rule_utils.get_candidate_indexes(self.session, entries, r_scan),
             r_keys, self._required_columns(join.right))
+        hybrid = self.session.conf.hybrid_scan_enabled
         best = rank_join_index_pairs(
-            _compatible_pairs(l_usable, r_usable, l_keys, r_keys))
+            _compatible_pairs(l_usable, r_usable, l_keys, r_keys),
+            l_scan, r_scan, hybrid)
         if best is None:
             return None
         l_entry, r_entry = best
-        new_left = rule_utils.transform_plan_to_use_index_only_scan(
-            join.left, l_scan, l_entry, use_bucket_spec=True)
-        new_right = rule_utils.transform_plan_to_use_index_only_scan(
-            join.right, r_scan, r_entry, use_bucket_spec=True)
-        return Join(new_left, new_right, join.condition, join.how)
+
+        def rewrite_side(side_plan, scan, entry):
+            if hybrid:
+                from hyperspace_tpu_torch.rules.hybrid import (
+                    hybrid_file_lists,
+                    transform_plan_to_use_hybrid_scan,
+                )
+
+                appended, deleted = hybrid_file_lists(entry, scan)
+                if appended or deleted:
+                    return transform_plan_to_use_hybrid_scan(
+                        self.session, side_plan, scan, entry, bucket_union=True)
+            return rule_utils.transform_plan_to_use_index_only_scan(
+                side_plan, scan, entry, use_bucket_spec=True)
+
+        return Join(rewrite_side(join.left, l_scan, l_entry),
+                    rewrite_side(join.right, r_scan, r_entry),
+                    join.condition, join.how)
 
     def _required_columns(self, side_plan: LogicalPlan) -> List[str]:
         """The source columns a side must provide: its output plus the

@@ -1,13 +1,16 @@
-"""Shared rule machinery (counterpart of hyperspace_tpu/rules/rule_utils.py,
-its signature-exact path): which ACTIVE indexes are valid for a scan, and
-the swap of a scan for an index-only scan.
+"""Shared rule machinery (counterpart of hyperspace_tpu/rules/rule_utils.py):
+which ACTIVE indexes are valid for a scan, and the swap of a scan for an
+index-only scan.
 
 An index is a candidate for a scan when the signature recorded at build
 time equals the one recomputed over the scan's files now (once per
 provider per rule pass; the result is memoised on the entry, keyed by
-the scan).  Hybrid scan (an index plus appended source files) and
-quarantine are not ported: an entry with recorded source updates is not
-a candidate.
+the scan).  With ``conf.hybrid_scan_enabled`` the file-overlap test of
+``rules.hybrid`` replaces the signature match; without it an entry
+whose quick refresh recorded source changes is not a candidate.  An
+index-only scan of an index with the lineage column is projected to the
+index's own columns, so enabling the indexes never changes a query's
+output schema.  Quarantine is not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, IndexLogEntryTags
 from hyperspace_tpu_torch.index.signatures import get_provider
-from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan, ScanRelation
+from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Project, Scan, ScanRelation
 
 
 def is_index_applied(scan: Scan) -> bool:
@@ -30,6 +33,10 @@ def get_candidate_indexes(session, entries: Sequence[IndexLogEntry],
     entries = [e for e in entries if e.is_covering]
     if is_index_applied(scan):
         return []
+    if session.conf.hybrid_scan_enabled:
+        from hyperspace_tpu_torch.rules.hybrid import get_hybrid_scan_candidates
+
+        return get_hybrid_scan_candidates(session, entries, scan)
     signature_cache: Dict[str, Optional[str]] = {}
 
     def current_signature(provider_name: str) -> Optional[str]:
@@ -42,6 +49,7 @@ def get_candidate_indexes(session, entries: Sequence[IndexLogEntry],
     out: List[IndexLogEntry] = []
     for entry in entries:
         if entry.has_source_update():
+            # Only hybrid scan can use a quick-refreshed entry.
             continue
         matched = entry.get_tag(IndexLogEntryTags.SIGNATURE_MATCHED, scan)
         if matched is None:
@@ -75,6 +83,8 @@ def transform_plan_to_use_index_only_scan(
         use_bucket_spec: bool,
         prune_to_buckets: Optional[Tuple[int, ...]] = None) -> LogicalPlan:
     """Swap ``target`` for an index-only scan throughout ``plan``."""
-    new_node = Scan(index_scan_relation(entry, use_bucket_spec,
-                                        prune_to_buckets))
+    new_node: LogicalPlan = Scan(index_scan_relation(entry, use_bucket_spec,
+                                                     prune_to_buckets))
+    if entry.has_lineage_column():
+        new_node = Project(entry.derived_dataset.all_columns, new_node)
     return plan.transform_up(lambda node: new_node if node is target else node)

@@ -40,7 +40,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     assert len(sources) > 20
     for module in ("actions/refresh.py", "actions/delete.py",
                    "actions/restore.py", "actions/vacuum.py",
-                   "actions/cancel.py", "lifecycle/change_detector.py"):
+                   "actions/cancel.py", "lifecycle/change_detector.py",
+                   "actions/optimize.py", "rules/hybrid.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -57,6 +58,9 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
     sources = [p for p in _port_sources()
                if p.endswith(".py") and p.startswith(PORT)]
     assert len(sources) > 20
+    for module in ("actions/optimize.py", "actions/refresh.py",
+                   "rules/hybrid.py"):
+        assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
             tree = ast.parse(f.read())
@@ -176,6 +180,61 @@ def test_queries_through_the_port_import_no_jax(tmp_path):
         assert s.last_execution_stats["scans"][0]["is_index"]
         assert a.join(b, col("k") == col("j")).collect().num_rows > 0
         assert s.last_execution_stats["joins"][0]["strategy"] == "bucketed"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_refresh_modes_hybrid_scan_and_optimize_import_no_jax(tmp_path):
+    """A lineage index through quick refresh, a hybrid-scan filter and
+    join, incremental refresh and optimize, each through the port's entry
+    points."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        rng = np.random.default_rng(0)
+        paths = {{}}
+        for name, key, n_files in (("a", "k", 6), ("b", "j", 1)):
+            paths[name] = os.path.join({str(tmp_path)!r}, name)
+            os.makedirs(paths[name])
+            for i in range(n_files):
+                pq.write_table(pa.table({{key: rng.integers(0, 50, 300),
+                                          name + "v": rng.random(300)}}),
+                               os.path.join(paths[name], f"part-{{i}}.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        s.conf.lineage_enabled = True
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(paths["a"]), IndexConfig("ia", ["k"], ["av"]))
+        hs.create_index(s.read.parquet(paths["b"]), IndexConfig("ib", ["j"], ["bv"]))
+        pq.write_table(pa.table({{"k": [7], "av": [0.5]}}),
+                       os.path.join(paths["a"], "part-9.parquet"))
+        os.remove(os.path.join(paths["a"], "part-0.parquet"))
+        assert hs.refresh_index("ia", "quick").outcome == "ok"
+        s.conf.hybrid_scan_enabled = True
+        s.enable_hyperspace()
+        a, b = s.read.parquet(paths["a"]), s.read.parquet(paths["b"])
+        assert a.filter(col("k") == 7).select("k", "av").collect().num_rows > 0
+        assert a.join(b, col("k") == col("j")).collect().num_rows > 0
+        assert s.last_execution_stats["joins"][0]["hybrid"]
+        assert hs.refresh_index("ia", "incremental").outcome == "ok"
+        pq.write_table(pa.table({{"k": [8], "av": [0.25]}}),
+                       os.path.join(paths["a"], "part-10.parquet"))
+        assert hs.refresh_index("ia", "incremental").outcome == "ok"
+        assert hs.optimize_index("ia", "full").outcome == "ok"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

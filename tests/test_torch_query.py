@@ -275,7 +275,7 @@ def test_an_index_is_not_used_once_its_source_changes(data, tmp_path):
 
 
 def test_an_entry_with_a_recorded_source_update_is_not_a_candidate(data):
-    from hyperspace_tpu_torch.index.log_entry import Content, FileInfo
+    from hyperspace_tpu_torch.index.log_entry import Content, FileInfo, Update
     from hyperspace_tpu_torch.rules.rule_utils import get_candidate_indexes
 
     root, paths = data
@@ -286,8 +286,7 @@ def test_an_entry_with_a_recorded_source_update_is_not_a_candidate(data):
     assert not entry.has_source_update()
     assert get_candidate_indexes(s, [entry], scan) == [entry]
     appended = Content.from_leaf_files([FileInfo("/x/part-1.parquet", 1, 1, 0)])
-    entry.source.relations[0].update = {"appendedFiles": appended.to_dict(),
-                                        "deletedFiles": None}
+    entry.source.relations[0].update = Update(appended_files=appended)
     assert entry.has_source_update()
     assert get_candidate_indexes(s, [entry], s.read.parquet(paths["orders"]).plan) == []
 

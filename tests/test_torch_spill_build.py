@@ -309,18 +309,6 @@ def test_an_unchanged_source_refreshes_to_noop(tmp_path):
     assert _on_disk(str(tmp_path / "torch"), "ix") == before
 
 
-@pytest.mark.parametrize("mode", ["incremental", "quick"])
-def test_refresh_modes_not_ported_raise(tmp_path, mode):
-    data = str(tmp_path / "data")
-    _write_source(data)
-    _, hs, _ = _build(hyperspace_tpu_torch, str(tmp_path / "torch"), data,
-                      ("ix", ["k"], ["v"]))
-    _append_file(data)
-    with pytest.raises(hyperspace_tpu_torch.HyperspaceError,
-                       match="not ported"):
-        hs.refresh_index("ix", mode)
-
-
 def _transient(pkg, system_path, name, state):
     """Leave ``name`` as an action that died mid-flight leaves it: a
     transient entry above the latest one."""
