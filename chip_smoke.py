@@ -51,12 +51,29 @@ beside it.
            ``device_join_min_rows`` above its row counts, so its filters
            and join kernels take the host route (arrow predicate,
            ``sorted_equi_join_np``); that answer too is held to numpy.
+           Then the aggregates, each held to numpy (floats within
+           AGG_RTOL relative, keys and counts exactly): ``q3``, bench.py's
+           ``q_q3`` (orders under ``o_totalprice < 2000`` joined with
+           lineitem, the revenue summed per ``o_custkey``, the top 10),
+           ``q10``, bench.py's ``q_q10`` with its ``l_shipdate`` window
+           scaled to SF1 (Q10_WINDOW: 1,500,000 rows; the top 20), both
+           on the fused join→aggregate ("device-fused-agg" /
+           "device-join-agg" with ``topn``), and ``agg_by_priority``
+           (half the orders through ``ord_idx``, sum, min, max, mean and
+           count per ``o_shippriority``, "device-segment"); the k-th and
+           (k+1)-th revenues must differ by more than AGG_RTOL, so the
+           top-k check decides.  Their host route is bucketed joins and
+           arrow's group-by, with nothing on the device.
            Each query is timed: ``indexed_ms`` (device route),
            ``host_route_ms`` and ``scan_ms``, the median host wall of
            TIMED_QUERY_RUNS collects after the checking one, and one
            profiled indexed run gives ``device_ms`` (the sum of its device
            activities), ``busy_share`` (``device_ms`` over that run's
-           wall) and the torch ops with the most device time.
+           wall) and the torch ops with the most device time; for the
+           aggregates also ``programs`` (calls and device ms of
+           AGG_PROGRAMS, each under a ``record_function`` of its name)
+           and ``stages`` (one more run's host wall split into reads,
+           predicates, uploads, device calls and the rest).
 
   phase E  the spill build at SF1 with the conf's default batch
            (``device_batch_rows = 1 << 20``: 6 chunks) and 200 buckets:
@@ -128,6 +145,7 @@ power limit, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -152,6 +170,18 @@ ORDERS_INDEX = "ord_idx"
 POINT_KEY = 123_457
 RANGE = (100_000, 400_000)
 PRICE_BELOW = 2_000.0
+# Phase D's aggregates: bench.py's q_q3 (top 10) and q_q10 (top 20) with
+# its l_shipdate window scaled to SF1 (bench.py's [10 M, 25 M) is empty
+# at SF1's 6 M rows; this is the same 25% of the rows), and a grouped
+# aggregate over half the orders.
+Q3_TOP = 10
+Q10_TOP = 20
+Q10_WINDOW = (1_000_000, 2_500_000)
+AGG_ORDERKEY_BELOW = 750_000
+AGG_RTOL = 1e-9
+# The slice's device programs, timed by name in the profiled run.
+AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
+                "_topk_groups")
 TIMED_QUERY_RUNS = 3
 # device_filter_min_rows / device_join_min_rows for the host route: more
 # rows than any query has, so every filter and join kernel runs on the host.
@@ -530,10 +560,13 @@ def sorted_rows(columns: dict, keys) -> dict:
     return {c: v[order] for c, v in columns.items()}
 
 
-def require_rows(name: str, table, want: dict, keys=None) -> None:
+def require_rows(name: str, table, want: dict, keys=None,
+                 rtol: float = 0.0) -> None:
     """``table`` holds exactly the rows of ``want`` (column name ->
     numpy array): in the same order when ``keys`` is None, else as the
-    same multiset of rows, compared after sorting both by ``keys``."""
+    same multiset of rows, compared after sorting both by ``keys``.  With
+    ``rtol``, float columns (sums in another order) agree within it and
+    the rest exactly."""
     if table.column_names != list(want):
         raise AssertionError(f"{name}: columns {table.column_names}, "
                              f"expected {list(want)}")
@@ -541,9 +574,62 @@ def require_rows(name: str, table, want: dict, keys=None) -> None:
     if keys is not None:
         got, want = sorted_rows(got, keys), sorted_rows(want, keys)
     for c, values in want.items():
-        if not np.array_equal(got[c], values):
+        if rtol and np.issubdtype(values.dtype, np.floating) \
+                and got[c].shape == values.shape:
+            same = np.allclose(got[c], values, rtol=rtol, atol=0.0)
+        else:
+            same = np.array_equal(got[c], values)
+        if not same or got[c].dtype != values.dtype:
             raise AssertionError(f"{name}: column {c} differs from numpy "
-                                 f"({len(got[c])} rows, expected {len(values)})")
+                                 f"({len(got[c])} rows of {got[c].dtype}, "
+                                 f"expected {len(values)} of {values.dtype})")
+
+
+def top_groups(groups: np.ndarray, weights: np.ndarray, k: int, label: str):
+    """(group keys, sums) of the k groups with the largest sum of
+    ``weights`` (groups with rows only; ties to the smaller key, as the
+    device ranks them).  Raises unless the k-th and (k+1)-th sums differ
+    by more than AGG_RTOL relative, so that the check decides."""
+    sums = np.bincount(groups, weights=weights)
+    present = np.flatnonzero(np.bincount(groups) > 0)
+    order = present[np.argsort(-sums[present], kind="stable")]
+    kth, after = sums[order[k - 1]], sums[order[k]]
+    if abs(kth - after) <= AGG_RTOL * abs(kth):
+        raise AssertionError(f"{label}: the {k}th and {k + 1}th sums tie "
+                             f"({kth!r}, {after!r}): the check decides nothing")
+    return order[:k], sums[order[:k]]
+
+
+def expected_aggregates(orders: dict, li: dict) -> dict:
+    """The aggregate queries answered by numpy from the generated arrays,
+    in the queries' own row order (keys None): each lineitem row's order
+    is a gather, as in ``expected_answers``."""
+    lk = li["l_orderkey"]
+    position = np.empty(N_ORDERS, dtype=np.int64)
+    position[orders["o_orderkey"]] = np.arange(N_ORDERS)
+    row = position[lk]
+    cust = orders["o_custkey"][row]
+    revenue = li["l_extendedprice"] * (1 - li["l_discount"])
+    cheap = orders["o_totalprice"][row] < PRICE_BELOW
+    q3_cust, q3_rev = top_groups(cust[cheap], revenue[cheap], Q3_TOP, "q3")
+    ship = li["l_shipdate"]
+    window = (ship >= Q10_WINDOW[0]) & (ship < Q10_WINDOW[1])
+    q10_cust, q10_rev = top_groups(cust[window], revenue[window], Q10_TOP,
+                                   "q10")
+    sel = orders["o_orderkey"] < AGG_ORDERKEY_BELOW
+    prio, price = orders["o_shippriority"][sel], orders["o_totalprice"][sel]
+    keys = np.unique(prio)
+    n = np.bincount(prio)[keys]
+    total = np.bincount(prio, weights=price)[keys]
+    low = np.array([price[prio == k].min() for k in keys])
+    high = np.array([price[prio == k].max() for k in keys])
+    return {
+        "q3": ({"o_custkey": q3_cust, "revenue": q3_rev}, None),
+        "q10": ({"o_custkey": q10_cust, "revenue": q10_rev}, None),
+        "agg_by_priority": ({"o_shippriority": keys, "total": total,
+                             "low": low, "high": high, "avg": total / n,
+                             "n": n.astype(np.int64)}, None),
+    }
 
 
 def expected_answers(orders: dict, li: dict) -> dict:
@@ -573,15 +659,17 @@ def expected_answers(orders: dict, li: dict) -> dict:
     }
 
 
-def build_queries(session, root: str, lineitem: str = "lineitem") -> dict:
+def build_queries(session, root: str, lineitem: str = "lineitem",
+                  aggregates: bool = False) -> dict:
     """The four queries of phase D as Datasets of ``session``, over the
-    lineitem files in ``root/lineitem``."""
+    lineitem files in ``root/lineitem``; with ``aggregates`` then also
+    ``q3``, ``q10`` and ``agg_by_priority``."""
     from hyperspace_tpu_torch import col
 
     li = session.read.parquet(os.path.join(root, lineitem))
     orders = session.read.parquet(os.path.join(root, "orders"))
     join_cols = ("o_orderkey", "o_totalprice", "l_quantity", "l_extendedprice")
-    return {
+    queries = {
         "point": li.filter(col("l_orderkey") == POINT_KEY)
         .select("l_orderkey", "l_quantity"),
         "range": li.filter((col("l_orderkey") >= RANGE[0])
@@ -592,6 +680,28 @@ def build_queries(session, root: str, lineitem: str = "lineitem") -> dict:
         "filtered_join": orders.filter(col("o_totalprice") < PRICE_BELOW)
         .join(li, col("o_orderkey") == col("l_orderkey")).select(*join_cols),
     }
+    if not aggregates:
+        return queries
+    revenue = col("l_extendedprice") * (1 - col("l_discount"))
+    queries["q3"] = (
+        orders.filter(col("o_totalprice") < PRICE_BELOW)
+        .join(li, col("o_orderkey") == col("l_orderkey"))
+        .group_by("o_custkey").agg(revenue=(revenue, "sum"))
+        .sort(("revenue", False)).limit(Q3_TOP))
+    queries["q10"] = (
+        li.filter((col("l_shipdate") >= Q10_WINDOW[0])
+                  & (col("l_shipdate") < Q10_WINDOW[1]))
+        .join(orders, col("l_orderkey") == col("o_orderkey"))
+        .group_by("o_custkey").agg(revenue=(revenue, "sum"))
+        .sort(("revenue", False)).limit(Q10_TOP))
+    queries["agg_by_priority"] = (
+        orders.filter(col("o_orderkey") < AGG_ORDERKEY_BELOW)
+        .group_by("o_shippriority")
+        .agg(total=("o_totalprice", "sum"), low=("o_totalprice", "min"),
+             high=("o_totalprice", "max"), avg=("o_totalprice", "mean"),
+             n=("o_totalprice", "count_all"))
+        .sort("o_shippriority"))
+    return queries
 
 
 def index_scans(plan) -> list:
@@ -623,11 +733,88 @@ def short_kernel_name(name: str) -> str:
     return head.rsplit("::", 1)[-1]
 
 
-def profile_query(dev, fn) -> dict:
+@contextlib.contextmanager
+def annotated_programs():
+    """While the context lasts, each of the slice's device programs
+    (AGG_PROGRAMS, in ``ops.aggregate`` and ``ops.join_agg``) runs inside
+    a ``torch.profiler.record_function`` of its name."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import aggregate, join_agg
+
+    saved = []
+    for module in (aggregate, join_agg):
+        for name in AGG_PROGRAMS:
+            fn = getattr(module, name, None)
+            if fn is None:
+                continue
+
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                with torch.profiler.record_function(_name):
+                    return _fn(*args, **kwargs)
+
+            saved.append((module, name, fn))
+            setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def stage_breakdown(fn) -> dict:
+    """One run of ``fn`` (an aggregate query on the device route) with the
+    host wall of its stages, in ms, each counted where it is outermost:
+    the Parquet reads (``Executor._scan``), the predicates
+    (``_eval_predicate``, the upload of their columns included), the
+    other column uploads (``_device_column``: conversion to numpy and
+    the copy to the card) and the device calls (``join_group_aggregate``
+    or ``grouped_aggregate``: the device work and its read backs); the
+    rest of the wall (planning, arrow's filter and take, the result) is
+    ``other_ms``."""
+    from hyperspace_tpu_torch.execution.executor import Executor
+    from hyperspace_tpu_torch.ops import aggregate, join_agg
+
+    stages = {"scan_ms": 0.0, "predicate_ms": 0.0, "upload_ms": 0.0,
+              "device_call_ms": 0.0}
+    depth = [0]
+    saved = []
+    for owner, name, stage in (
+            (Executor, "_scan", "scan_ms"),
+            (Executor, "_eval_predicate", "predicate_ms"),
+            (Executor, "_device_column", "upload_ms"),
+            (join_agg, "join_group_aggregate", "device_call_ms"),
+            (aggregate, "grouped_aggregate", "device_call_ms")):
+        fn0 = getattr(owner, name)
+
+        def timed(*args, _fn=fn0, _stage=stage, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    stages[_stage] += (time.perf_counter() - t0) * 1e3
+
+        saved.append((owner, name, fn0))
+        setattr(owner, name, timed)
+    try:
+        wall = wall_ms(fn)
+    finally:
+        for owner, name, fn0 in saved:
+            setattr(owner, name, fn0)
+    return {"wall_ms": wall, **stages,
+            "other_ms": wall - sum(stages.values())}
+
+
+def profile_query(dev, fn, programs: bool = False) -> dict:
     """One run of ``fn`` (a query, or a build) under ``torch.profiler``:
     its wall time, the sum of its device activities (kernels and copies;
     one stream, so they do not overlap), and the activities grouped by
-    kernel name with their launches and milliseconds, largest first."""
+    kernel name with their launches and milliseconds, largest first.
+    With ``programs``, also per device program of AGG_PROGRAMS its calls
+    and the device time of the kernels it launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -636,18 +823,35 @@ def profile_query(dev, fn) -> dict:
         torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = wall_ms(fn)
+        if programs:
+            with annotated_programs():
+                wall = wall_ms(fn)
+        else:
+            wall = wall_ms(fn)
     by_name: dict = {}
+    by_program: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name in AGG_PROGRAMS:
+            # The annotation itself: on the CPU its calls and the device
+            # time of its kernels; on the device a span, not counted.
+            if e.device_type == DeviceType.CPU:
+                t = getattr(e, "device_time_total", None)
+                entry = by_program.setdefault(e.name, [0, 0.0])
+                entry[0] += 1
+                entry[1] += (t if t is not None else e.cuda_time_total) / 1e3
+        elif e.device_type == DeviceType.CUDA:
             entry = by_name.setdefault(short_kernel_name(e.name), [0, 0.0])
             entry[0] += 1
             entry[1] += e.time_range.elapsed_us() / 1e3
     device_ms = sum(ms for _, ms in by_name.values())
-    return {"profiled_wall_ms": wall, "device_ms": device_ms,
-            "busy_share": device_ms / wall if wall else None,
-            "device_ops": [{"op": k, "launches": n, "ms": ms} for k, (n, ms)
-                           in sorted(by_name.items(), key=lambda kv: -kv[1][1])]}
+    out = {"profiled_wall_ms": wall, "device_ms": device_ms,
+           "busy_share": device_ms / wall if wall else None,
+           "device_ops": [{"op": k, "launches": n, "ms": ms} for k, (n, ms)
+                          in sorted(by_name.items(), key=lambda kv: -kv[1][1])]}
+    if programs:
+        out["programs"] = [{"program": k, "calls": n, "device_ms": ms}
+                           for k, (n, ms) in sorted(by_program.items())]
+    return out
 
 
 def routes(stats: dict) -> dict:
@@ -656,19 +860,57 @@ def routes(stats: dict) -> dict:
             for k in ("filters", "joins", "join_kernels")}
 
 
+AGG_QUERIES = ("q3", "q10", "agg_by_priority")
+
+
 def expected_routes(name: str, route: str) -> dict:
     """The strategies query ``name`` must record on ``route`` ("device"
     or "host"): its filters and join kernels on that route, and every
-    join bucketed."""
-    join = name.endswith("join")
+    join bucketed, except the fused join→aggregate of q3 and q10 on the
+    device route, which records no join kernel."""
+    join = name.endswith("join") or name in ("q3", "q10")
+    if name in ("q3", "q10") and route == "device":
+        return {"filters": [route], "joins": ["device-fused-agg"],
+                "join_kernels": []}
     return {"filters": [route] if name != "join" else [],
             "joins": ["bucketed"] if join else [],
             "join_kernels": [route] if join else []}
 
 
+def expected_aggregates_route(name: str, route: str) -> list:
+    """(strategy, topn) of each device aggregate query ``name`` records."""
+    if route == "host" or name not in AGG_QUERIES:
+        return []
+    if name == "agg_by_priority":
+        return [("device-segment", None)]
+    return [("device-join-agg", Q3_TOP if name == "q3" else Q10_TOP)]
+
+
+def aggregate_routes(stats: dict) -> list:
+    return [(d["strategy"], d.get("topn")) for d in stats.get("aggregates", [])]
+
+
+def query_indexes(name: str) -> list:
+    """The indexes query ``name``'s indexed plan must scan."""
+    if name == "agg_by_priority":
+        return [ORDERS_INDEX]
+    if name.endswith("join") or name in ("q3", "q10"):
+        return sorted([INDEX_NAME, ORDERS_INDEX])
+    return [INDEX_NAME]
+
+
 def set_min_rows(session, rows: int) -> None:
     session.conf.device_filter_min_rows = rows
     session.conf.device_join_min_rows = rows
+    session.conf.device_agg_min_rows = rows
+
+
+def check_routes(label: str, name: str, route: str, stats: dict) -> None:
+    got = (routes(stats), aggregate_routes(stats))
+    want = (expected_routes(name, route), expected_aggregates_route(name, route))
+    if got != want:
+        raise AssertionError(f"phase D {name}: {label} strategies {got}, "
+                             f"expected {want}")
 
 
 def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
@@ -693,38 +935,36 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
                     ["o_totalprice", "o_custkey", "o_shippriority"]))
     build_s = time.perf_counter() - t0
     check_index_files("phase D", hs, ORDERS_INDEX, "o_orderkey", N_ORDERS)
-    queries = build_queries(session, root)
-    expected = expected_answers(orders, li)
+    queries = build_queries(session, root, aggregates=True)
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
     rows = []
     for name, ds in queries.items():
         want, keys = expected[name]
+        rtol = AGG_RTOL if name in AGG_QUERIES else 0.0
         session.enable_hyperspace()
         scans = index_scans(ds.optimized_plan())
         names = sorted(n for n, _ in scans)
-        need = [INDEX_NAME] + ([ORDERS_INDEX] if name.endswith("join") else [])
-        if names != sorted(need):
+        if names != query_indexes(name):
             raise AssertionError(f"phase D {name}: plan scans {names}, "
-                                 f"expected {need}")
-        require_rows(f"phase D {name} indexed", ds.collect(), want, keys)
+                                 f"expected {query_indexes(name)}")
+        require_rows(f"phase D {name} indexed", ds.collect(), want, keys, rtol)
         stats = session.last_execution_stats
-        if routes(stats) != expected_routes(name, "device"):
-            raise AssertionError(f"phase D {name}: strategies {routes(stats)}, "
-                                 f"expected {expected_routes(name, 'device')}")
+        check_routes("indexed", name, "device", stats)
         indexed = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
-        profiled = profile_query(dev, ds.collect)
+        profiled = profile_query(dev, ds.collect, programs=name in AGG_QUERIES)
+        if name in AGG_QUERIES:
+            profiled["stages"] = stage_breakdown(ds.collect)
         set_min_rows(session, HOST_ROUTE_MIN_ROWS)
-        require_rows(f"phase D {name} host route", ds.collect(), want, keys)
-        host = routes(session.last_execution_stats)
-        if host != expected_routes(name, "host"):
-            raise AssertionError(f"phase D {name}: host-route strategies "
-                                 f"{host}, expected "
-                                 f"{expected_routes(name, 'host')}")
+        require_rows(f"phase D {name} host route", ds.collect(), want, keys,
+                     rtol)
+        check_routes("host-route", name, "host", session.last_execution_stats)
         host_route = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
         set_min_rows(session, 0)
         session.disable_hyperspace()
         if index_scans(ds.optimized_plan()):
             raise AssertionError(f"phase D {name}: disabled plan scans an index")
-        require_rows(f"phase D {name} source", ds.collect(), want, keys)
+        require_rows(f"phase D {name} source", ds.collect(), want, keys, rtol)
         scan = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
         indexed_ms = statistics.median(indexed)
         scan_ms = statistics.median(scan)
@@ -741,6 +981,7 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
             "files_read": sum(s["files_read"] for s in stats["scans"]),
             "filters": len(stats.get("filters", [])),
             "join_kernels": len(stats.get("join_kernels", [])),
+            "aggregates": stats.get("aggregates", []),
             "indexed_runs_ms": indexed, "scan_runs_ms": scan,
             "host_route_runs_ms": host_route})
     return {"queries": rows, "build_s": build_s,

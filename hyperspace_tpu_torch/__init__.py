@@ -3,12 +3,15 @@
 Covering indexes (bucket-hashed, sorted, column-pruned copies of a
 Parquet source) built on one NVIDIA GPU: the bucket hash and the bucket
 histogram are CUDA kernels (``ops/kernels.py``, ``csrc/``), the stable
-lexsort is ``torch.sort``.  Filter and join queries are rewritten to
-read the indexes (``session.enable_hyperspace()``) and run on the same
-device: the predicate as torch ops over the index columns, the join
-bucket by bucket with a sorted equi-join in each bucket.  The JAX
-package ``hyperspace_tpu`` is the reference; this package imports
-nothing of it, and no ``jax``.
+lexsort is ``torch.sort``.  Filter, join and aggregate queries are
+rewritten to read the indexes (``session.enable_hyperspace()``) and run
+on the same device: the predicate as torch ops over the index columns,
+the join bucket by bucket with a sorted equi-join in each bucket, a
+GROUP BY as a sort and segment reductions, and the TPC-H Q3/Q10 shape
+(``filter ⋈ index``, ``group_by``, ``agg``, ``sort`` by the aggregate,
+``limit``) as one fused join→aggregate whose joined rows stay on the
+device.  The JAX package ``hyperspace_tpu`` is the reference; this
+package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,14 +1,14 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
 holding the fields the build, the refresh and optimize verbs and the
-query path read; defaults are the JAX package's but for the two routing
+query path read; defaults are the JAX package's but for the routing
 thresholds).
 
 The JAX package derives ``device_min_rows`` from a calibration of the
 attachment, falling back to 2**26 rows; calibration is not ported, so
-the port's thresholds default to 0: every filter and join takes the
-device path, as the port's build does.  A threshold set above a batch's
-rows sends that batch to the host route (arrow predicate, numpy join),
-as in the JAX package."""
+the port's thresholds default to 0: every filter, join and grouped
+aggregate takes the device path, as the port's build does.  A threshold
+set above a batch's rows sends that batch to the host route (arrow
+predicate, numpy join, arrow group-by), as in the JAX package."""
 
 from __future__ import annotations
 
@@ -57,11 +57,16 @@ class HyperspaceConf:
     # Filter rule: carry the bucket spec on index scans even when the
     # predicate prunes no bucket.
     filter_rule_use_bucket_spec: bool = False
-    # Rows from which a filter / a join runs on the session's device.
+    # Rows from which a filter / a join / a grouped aggregate runs on the
+    # session's device.
     device_filter_min_rows: int = 0
     device_join_min_rows: int = 0
+    device_agg_min_rows: int = 0
 
     def device_min_rows(self, kind: str) -> int:
-        """The host-versus-device threshold of ``kind`` ("filter" or
-        "join")."""
-        return int(getattr(self, f"device_{kind}_min_rows"))
+        """The host-versus-device threshold of ``kind`` ("filter", "join",
+        "agg" or "join_agg").  The fused join→aggregate has no field of
+        its own: the join's threshold governs it, since it is the join's
+        device decision with the aggregation behind it."""
+        field = "join" if kind == "join_agg" else kind
+        return int(getattr(self, f"device_{field}_min_rows"))

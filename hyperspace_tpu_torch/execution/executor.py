@@ -1,17 +1,27 @@
-"""Physical execution of a filter or join plan into an arrow table
-(counterpart of hyperspace_tpu/execution/executor.py, its Scan, Filter,
-Project, Join, InMemory, Union and BucketUnion nodes).
+"""Physical execution of a filter, join or aggregate plan into an arrow
+table (counterpart of hyperspace_tpu/execution/executor.py, its Scan,
+Filter, Project, Join, Aggregate, Sort, Limit, InMemory, Union and
+BucketUnion nodes).
 
 Numeric work runs on the session's device: a predicate over null-free
 numeric columns as the torch closure of ``ops.filter.compile_predicate``,
 the match pairs of an equi-join on one numeric key by
 ``ops.join.sorted_equi_join`` (composite and string keys by
-``hashed_equi_join``).  Strings, nulls and division stay on the arrow
-host path, which owns SQL's three-valued logic.  Below
-``conf.device_min_rows(kind)`` rows a filter or join takes the host
-route instead (the arrow predicate, ``sorted_equi_join_np``); the
-default threshold of 0 always takes the device.  No device error is
-caught to answer from the host instead.
+``hashed_equi_join``), a GROUP BY on int or bool keys by
+``ops.aggregate.grouped_aggregate``.  Strings, nulls and division stay on
+the arrow host path, which owns SQL's three-valued logic.  Below
+``conf.device_min_rows(kind)`` rows a filter, join or aggregate takes
+the host route instead (the arrow predicate, ``sorted_equi_join_np``,
+arrow's group-by); the default threshold of 0 always takes the device.
+No device error is caught to answer from the host instead.
+
+An aggregate over an inner equi-join on one numeric key (the TPC-H
+Q3/Q10 shape) reads both sides whole and runs the fused
+``ops.join_agg.join_group_aggregate``: the joined rows stay on the
+device and only per-group results come back; under ``ORDER BY
+<aggregate> LIMIT n`` only the top n groups.  A shape it does not take
+after reading the sides (a string key, nulls, ``count(a / b)``) is
+joined on the host and aggregated from there.
 
 A join whose sides are ``(Project|Filter)*`` chains over index scans
 with matching bucket specs runs bucket by bucket: equal keys meet only
@@ -30,20 +40,23 @@ paths (index scans); ``relation.prune_to_buckets`` drops index files
 whose bucket id (from the file name) is not wanted.
 
 ``stats`` records per scan the files and rows read, per filter and per
-join kernel the route taken ("device" or "host") and its rows, and per
-join "bucketed" (with whether a side was hybrid) or "plain";
-``Dataset.collect`` publishes it as ``session.last_execution_stats``.
+join kernel the route taken ("device" or "host") and its rows, per join
+"bucketed" (with whether a side was hybrid), "plain" or
+"device-fused-agg", and per device aggregate "device-segment" or
+"device-join-agg" (with its groups and ``topn``); ``Dataset.collect``
+publishes it as ``session.last_execution_stats``.
 
 Not ported: every other plan node, the device column cache (columns are
-uploaded per query), the mesh filter and join, residual join predicates,
-the lake formats, hypothetical scans and the telemetry spans.  pyarrow
-is imported inside the functions.
+uploaded per query) and the resident thresholds, the mesh filter, join
+and aggregates, residual join predicates, the lake formats, hypothetical
+scans and the telemetry spans.  pyarrow is imported inside the
+functions.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,13 +83,16 @@ from hyperspace_tpu_torch.plan.expr import (
     as_equi_join_pairs,
 )
 from hyperspace_tpu_torch.plan.nodes import (
+    Aggregate,
     BucketUnion,
     Filter,
     InMemory,
     Join,
+    Limit,
     LogicalPlan,
     Project,
     Scan,
+    Sort,
     Union,
 )
 
@@ -100,6 +116,12 @@ class Executor:
             return self.execute(plan.child).select(plan.columns)
         if isinstance(plan, Join):
             return self._join(plan)
+        if isinstance(plan, Aggregate):
+            return self._aggregate(plan)
+        if isinstance(plan, Sort):
+            return _sorted_table(self.execute(plan.child), plan.keys)
+        if isinstance(plan, Limit):
+            return self._limit(plan)
         if isinstance(plan, (BucketUnion, Union)):
             import pyarrow as pa
 
@@ -446,6 +468,453 @@ class Executor:
         return {int(b): routed.slice(int(s), int(n))
                 for b, s, n in zip(present, starts, counts)}
 
+    # -- sort / limit -------------------------------------------------------
+    def _limit(self, plan: Limit):
+        """The first ``n`` rows.  Over ``Sort(Aggregate)`` ordered by an
+        aggregate, the fused top-N join→aggregate ranks the groups on the
+        device; over any other Sort, ``pc.select_k_unstable`` selects
+        the n rows instead of sorting them all (a key with nulls takes
+        the full sort, for Spark's null order)."""
+        import pyarrow.compute as pc
+
+        child = plan.child
+        if isinstance(child, Sort) and plan.n > 0:
+            if isinstance(child.child, Aggregate):
+                fused = self._topn_join_aggregate(child.child, child, plan.n)
+                if fused is not None:
+                    return fused
+            table = self.execute(child.child)
+            if table.num_rows == 0:
+                return table  # select_k rejects a zero-row input
+            if any(table.column(c).null_count > 0 for c, _ in child.keys):
+                return _sorted_table(table, child.keys).slice(0, plan.n)
+            idx = pc.select_k_unstable(
+                table, k=min(plan.n, table.num_rows),
+                sort_keys=[(c, "ascending" if asc else "descending")
+                           for c, asc in child.keys])
+            return table.take(idx)
+        return self.execute(child).slice(0, plan.n)
+
+    # -- aggregate ----------------------------------------------------------
+    def _aggregate(self, plan: Aggregate):
+        attempt = self._try_join_aggregate(plan)
+        if attempt is None:
+            return self._aggregate_on_table(plan, self.execute(plan.child))
+        kind, payload = attempt
+        if kind == "done":
+            return payload
+        # The sides were read for the attempt and joined on the host.
+        return self._aggregate_on_table(plan, payload)
+
+    def _aggregate_on_table(self, plan: Aggregate, table):
+        """Aggregate a table: grouped on the device when
+        ``_try_device_aggregate`` takes it, else by arrow's group-by; a
+        global aggregation is one row computed per spec."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        # Expression inputs become hidden columns first, so the
+        # reductions see plain columns.
+        agg_inputs: List = []
+        for i, (_func, agg_in, _out) in enumerate(plan.aggs):
+            if isinstance(agg_in, Expr) and not isinstance(agg_in, Col):
+                name = f"__agg_in_{i}"
+                while name in table.column_names:
+                    name += "_"
+                table = table.append_column(name, _eval_column(agg_in, table))
+                agg_inputs.append(name)
+            elif isinstance(agg_in, Col):
+                agg_inputs.append(agg_in.name)
+            else:
+                agg_inputs.append(agg_in)
+        specs = [([] if func == "count_all" else agg_inputs[i], func)
+                 for i, (func, _in, _out) in enumerate(plan.aggs)]
+        if plan.group_by:
+            device = self._try_device_aggregate(table, plan, agg_inputs)
+            if device is not None:
+                return device
+            keys = list(plan.group_by)
+            out = table.group_by(keys).aggregate(specs)
+            # Output columns by position, from arrow's layout: the keys
+            # are one block at the front (pyarrow >= 8) or the back, in
+            # group_by order; the aggregates fill the other positions in
+            # spec order.  Matching by name could swap a key named like
+            # an automatic aggregate name ("v_sum").
+            names = out.column_names
+            nk = len(keys)
+            if names[:nk] == keys:
+                key_idx, agg_idx = list(range(nk)), list(range(nk, len(names)))
+            elif names[-nk:] == keys:
+                key_idx = list(range(len(names) - nk, len(names)))
+                agg_idx = list(range(len(names) - nk))
+            else:
+                raise AssertionError(
+                    f"Unrecognized group-by output layout {names} for keys "
+                    f"{keys}")
+            assert len(agg_idx) == len(plan.aggs)
+            data = {k: out.column(i) for k, i in zip(keys, key_idx)}
+            for (_f, _c, out_name), i in zip(plan.aggs, agg_idx):
+                data[out_name] = out.column(i)
+            return pa.table(data)
+        names, values = [], []
+        for i, (func, _in, out_name) in enumerate(plan.aggs):
+            if func == "count_all":
+                value = table.num_rows
+            elif func == "count":
+                value = table.num_rows - table.column(agg_inputs[i]).null_count
+            else:
+                value = getattr(pc, func)(table.column(agg_inputs[i])).as_py()
+            names.append(out_name)
+            values.append(value)
+        return pa.table({n: [v] for n, v in zip(names, values)})
+
+    def _try_device_aggregate(self, table, plan: Aggregate,
+                              agg_inputs: List[str]):
+        """A GROUP BY on the device (``ops.aggregate.grouped_aggregate``),
+        or None for the arrow route.  It needs ``device_min_rows("agg")``
+        rows, integer or bool group keys without nulls (float keys would
+        split arrow's one NaN group by bit pattern), null-free int or
+        float inputs, and only sum/min/max/mean/count/count_all.  Groups
+        come back in ascending key order (GROUP BY leaves the order
+        open, as on the arrow route)."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        from hyperspace_tpu_torch.ops.aggregate import AGG_OPS, grouped_aggregate
+
+        if table.num_rows == 0 \
+                or table.num_rows < self.session.conf.device_min_rows("agg"):
+            return None
+        if any(func not in AGG_OPS for func, _i, _o in plan.aggs):
+            return None
+        for k in plan.group_by:
+            t = table.schema.field(k).type
+            # uint64 is out: the device domain is int64.
+            if not (pa.types.is_integer(t) or pa.types.is_boolean(t)) \
+                    or pa.types.is_uint64(t) or table.column(k).null_count > 0:
+                return None
+        for i, (func, _in, _out) in enumerate(plan.aggs):
+            if func == "count_all":
+                continue
+            column = table.column(agg_inputs[i])
+            if func == "count":
+                # The group's row count, so only without nulls; any type.
+                if column.null_count > 0:
+                    return None
+                continue
+            # Strictly int or float: a temporal min/max would not cast
+            # back, and a bool sum is uint64 on the arrow route.
+            t = column.type
+            if not (pa.types.is_integer(t) or pa.types.is_floating(t)) \
+                    or pa.types.is_uint64(t) or column.null_count > 0:
+                return None
+        key_cols = [self._device_column(table, k) for k in plan.group_by]
+        # One column per aggregate that is not a count.
+        value_cols = [self._device_column(table, agg_inputs[i])
+                      for i, (func, _in, _out) in enumerate(plan.aggs)
+                      if func not in ("count", "count_all")]
+        first_rows, counts, results = grouped_aggregate(
+            key_cols, value_cols, [f for f, _i, _o in plan.aggs])
+        self.stats.setdefault("aggregates", []).append({
+            "strategy": "device-segment", "groups": int(len(first_rows)),
+            "rows": table.num_rows})
+        # Only the key columns are gathered.
+        taken = table.select(list(plan.group_by)).take(pa.array(first_rows))
+        data = {k: taken.column(k) for k in plan.group_by}
+        for i, ((func, _in, out_name), res) in enumerate(zip(plan.aggs,
+                                                             results)):
+            if func in ("count", "count_all"):
+                data[out_name] = pa.array(counts.astype(np.int64))
+            elif func in ("min", "max"):
+                # A reduction returns one of the values: the input's type.
+                data[out_name] = pc.cast(
+                    pa.array(res), table.schema.field(agg_inputs[i]).type)
+            elif func == "mean":
+                data[out_name] = pa.array(res.astype(np.float64))
+            else:  # sum: int64 or float64, arrow's own sum types
+                data[out_name] = pa.array(res)
+        return pa.table(data)
+
+    # -- fused join→aggregate (Q3/Q10 on the device) -------------------------
+    _JOIN_AGG_OPS = ("sum", "min", "max", "mean", "count", "count_all")
+
+    def _topn_join_aggregate(self, agg: Aggregate, sort: Sort, n: int):
+        """ORDER BY <aggregate> LIMIT n over a fused join→aggregate: the
+        ranking runs on the device too, so only n groups come back.  None
+        when it does not apply."""
+        if len(sort.keys) != 1:
+            return None
+        key, asc = sort.keys[0]
+        agg_index = next((i for i, (_f, _in, out) in enumerate(agg.aggs)
+                          if out == key), None)
+        if agg_index is None:  # ordered by a group column
+            return None
+        attempt = self._try_join_aggregate(
+            agg, topn=(agg_index, bool(asc), int(n)))
+        if attempt is None:
+            return None
+        kind, payload = attempt
+        table = payload if kind == "done" \
+            else self._aggregate_on_table(agg, payload)
+        # The exact sort of the (at most n) groups decides ties.
+        return _sorted_table(table, sort.keys).slice(0, n)
+
+    def _static_column_type(self, node, name: str):
+        """The arrow type of ``name`` in ``node``'s output when known
+        without executing anything (Filter/Project/Sort/Limit chains over
+        a Scan or InMemory); None otherwise."""
+        while True:
+            if isinstance(node, (Filter, Sort, Limit)):
+                node = node.child
+                continue
+            if isinstance(node, Project):
+                if name not in node.columns:
+                    return None
+                node = node.child
+                continue
+            if isinstance(node, InMemory):
+                if name not in node.table.column_names:
+                    return None
+                return node.table.schema.field(name).type
+            if isinstance(node, Scan):
+                types = {k.lower(): v for k, v in
+                         self.session.schema_map_of(node).items()}
+                t = types.get(name.lower())
+                return schema_to_arrow({"c": t}).field(0).type \
+                    if t is not None else None
+            return None
+
+    def _plan_row_upper_bound(self, node) -> Optional[int]:
+        """An upper bound of a join side's rows without executing it: the
+        Parquet footers' counts under Filter/Project chains (filters only
+        shrink).  None for any other shape."""
+        import pyarrow.parquet as pq
+
+        while isinstance(node, (Filter, Project, Sort, Limit)):
+            node = node.child
+        if isinstance(node, InMemory):
+            return node.table.num_rows
+        if not isinstance(node, Scan):
+            return None
+        rel = node.relation
+        paths = list(rel.file_paths) if rel.file_paths is not None \
+            else [f.name for f in list_data_files(rel.root_paths)]
+        return sum(pq.ParquetFile(p).metadata.num_rows for p in paths)
+
+    def _join_agg_static_pregate(self, plan: Aggregate, child: Join) -> bool:
+        """False when the fused path is known ineligible before anything
+        runs (a missing or ambiguous column, a type the device path does
+        not take), so the plan keeps its normal route, bucketed join
+        included; unknowns are left to the checks after the read."""
+        import pyarrow as pa
+
+        l_cols = set(child.left.output_columns(self.session.schema_of))
+        r_cols = set(child.right.output_columns(self.session.schema_of))
+        refs = set(plan.group_by)
+        for _func, agg_in, _out in plan.aggs:
+            if isinstance(agg_in, Expr):
+                refs |= set(agg_in.referenced_columns())
+            elif agg_in:
+                refs.add(agg_in)
+        for name in refs:
+            in_l, in_r = name in l_cols, name in r_cols
+            if in_l == in_r:  # missing or ambiguous
+                return False
+            t = self._static_column_type(child.left if in_l else child.right,
+                                         name)
+            if t is None:
+                continue
+            if name in plan.group_by:
+                if not (pa.types.is_integer(t) or pa.types.is_boolean(t)
+                        or pa.types.is_temporal(t)) or pa.types.is_uint64(t):
+                    return False
+            elif not (pa.types.is_integer(t) or pa.types.is_floating(t)) \
+                    or pa.types.is_uint64(t):
+                return False
+        return True
+
+    def _try_join_aggregate(self, plan: Aggregate,
+                            topn: Optional[Tuple[int, bool, int]] = None):
+        """``aggregate(inner equi-join)`` through the fused device
+        pipeline (``ops.join_agg.join_group_aggregate``): match, gather,
+        expression and reductions on the device, only per-group results
+        back.
+
+        Returns None to leave the plan alone (another shape, or the join
+        threshold above 1 << 22 rows, where the JAX package also keeps
+        its bucketed host route); ("done", table) with the fused result;
+        or ("joined", table) when the sides were read and a check after
+        the read failed: the sides joined on the host, for the caller to
+        aggregate.  Each of these is a routing decision; an error of a
+        device call propagates."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        from hyperspace_tpu_torch.ops.filter import build_value_fn
+        from hyperspace_tpu_torch.ops.join_agg import join_group_aggregate
+
+        conf = self.session.conf
+        if not plan.group_by:
+            return None
+        child = plan.child
+        if not isinstance(child, Join) or child.how != "inner":
+            return None
+        threshold = conf.device_min_rows("join_agg")
+        if threshold > (1 << 22):
+            return None
+        if any(func not in self._JOIN_AGG_OPS for func, _i, _o in plan.aggs):
+            return None
+        # min/max keep their input's type, so they need a plain column.
+        for func, agg_in, _out in plan.aggs:
+            if func in ("min", "max") and not isinstance(agg_in, (Col, str)):
+                return None
+        pairs = as_equi_join_pairs(child.condition)
+        if pairs is None or len(pairs) != 1:
+            return None
+        if not self._join_agg_static_pregate(plan, child):
+            return None
+        # When even the footers' row counts are under the threshold, the
+        # device cannot be taken: nothing is read for the attempt.
+        est_l = self._plan_row_upper_bound(child.left)
+        est_r = self._plan_row_upper_bound(child.right)
+        if est_l is not None and est_r is not None \
+                and max(est_l, est_r) < threshold:
+            return None
+
+        left = self.execute(child.left)
+        right = self.execute(child.right)
+
+        def fallback():
+            self.stats["joins"].append({"strategy": "plain", "how": "inner"})
+            return ("joined", self._host_join_tables(
+                left, right, child.condition, "inner"))
+
+        a, b = pairs[0]
+        if a in left.column_names and b in right.column_names:
+            lk_name, rk_name = a, b
+        elif b in left.column_names and a in right.column_names:
+            lk_name, rk_name = b, a
+        else:
+            return fallback()
+        if (lk_name == rk_name or lk_name in right.column_names
+                or rk_name in left.column_names):
+            # A name on both sides: the column index below cannot tell
+            # them apart.
+            return fallback()
+        if not (columnar.is_numeric_type(left.schema.field(lk_name).type)
+                and columnar.is_numeric_type(right.schema.field(rk_name).type)):
+            return fallback()
+        # An inner join never matches a null key: drop those rows first.
+        lv, rv = left, right
+        if left.column(lk_name).null_count > 0:
+            lv = left.filter(pc.is_valid(left.column(lk_name)))
+        if right.column(rk_name).null_count > 0:
+            rv = right.filter(pc.is_valid(right.column(rk_name)))
+        if lv.num_rows == 0 or rv.num_rows == 0:
+            return fallback()
+
+        def side_of(name: str) -> Optional[str]:
+            in_l, in_r = name in lv.column_names, name in rv.column_names
+            if in_l == in_r:  # missing or ambiguous
+                return None
+            return "l" if in_l else "r"
+
+        def table_of(side: str):
+            return lv if side == "l" else rv
+
+        # Group keys: int, bool or temporal (the int64 domain), no nulls.
+        for k in plan.group_by:
+            side = side_of(k)
+            if side is None:
+                return fallback()
+            t = table_of(side).schema.field(k).type
+            if not (pa.types.is_integer(t) or pa.types.is_boolean(t)
+                    or pa.types.is_temporal(t)) or pa.types.is_uint64(t):
+                return fallback()
+            if table_of(side).column(k).null_count > 0:
+                return fallback()
+        # Aggregate inputs: null-free int or float columns.
+        agg_ref_names: List[str] = []
+        for func, agg_in, _out in plan.aggs:
+            if func == "count_all":
+                continue
+            if func == "count" and isinstance(agg_in, Expr) \
+                    and not isinstance(agg_in, Col):
+                # The device counts group rows, which is count(expr) only
+                # when the expression cannot make a null from null-free
+                # inputs: + - * and negation, not division (x / 0 is
+                # null).
+                try:
+                    build_value_fn(agg_in, sorted(agg_in.referenced_columns()))
+                except ValueError:
+                    return fallback()
+            refs = [agg_in.name] if isinstance(agg_in, Col) else (
+                [agg_in] if isinstance(agg_in, str)
+                else list(agg_in.referenced_columns()))
+            if func in ("min", "max") and not isinstance(agg_in, (Col, str)):
+                return fallback()
+            for r in refs:
+                side = side_of(r)
+                if side is None:
+                    return fallback()
+                t = table_of(side).schema.field(r).type
+                if not (pa.types.is_integer(t) or pa.types.is_floating(t)) \
+                        or pa.types.is_uint64(t) \
+                        or table_of(side).column(r).null_count > 0:
+                    return fallback()
+                agg_ref_names.append(r)
+
+        max_rows = max(lv.num_rows, rv.num_rows)
+        if max_rows < threshold:
+            return fallback()
+        referenced = set(plan.group_by) | set(agg_ref_names)
+        need_l = sorted({lk_name} | {c for c in referenced
+                                     if side_of(c) == "l"})
+        need_r = sorted({rk_name} | {c for c in referenced
+                                     if side_of(c) == "r"})
+        ref_order = [("l", c) for c in need_l] + [("r", c) for c in need_r]
+        col_ix = {c: i for i, (_s, c) in enumerate(ref_order)}
+        value_fns, lits_list = [], []
+        for func, agg_in, _out in plan.aggs:
+            if func in ("count", "count_all"):
+                continue
+            expr = Col(agg_in) if isinstance(agg_in, str) else agg_in
+            try:
+                fn, lits = build_value_fn(expr, [c for _s, c in ref_order])
+            except ValueError:
+                return fallback()
+            value_fns.append(fn)
+            lits_list.append(lits)
+        columns = [self._device_column(table_of(s), c) for s, c in ref_order]
+        li_first, ri_first, counts, results = join_group_aggregate(
+            columns[col_ix[lk_name]], columns[col_ix[rk_name]], columns,
+            [s for s, _c in ref_order], [col_ix[k] for k in plan.group_by],
+            [f for f, _i, _o in plan.aggs], value_fns, lits_list, topn=topn)
+        self.stats["joins"].append({"strategy": "device-fused-agg",
+                                    "how": "inner"})
+        self.stats.setdefault("aggregates", []).append({
+            "strategy": "device-join-agg", "groups": int(len(counts)),
+            "rows": int(max_rows),
+            "topn": None if topn is None else int(topn[2])})
+        data = {}
+        for k in plan.group_by:
+            if side_of(k) == "l":
+                data[k] = lv.column(k).take(pa.array(li_first))
+            else:
+                data[k] = rv.column(k).take(pa.array(ri_first))
+        # One result per aggregate (a count's carries the group counts).
+        for (func, agg_in, out_name), res in zip(plan.aggs, results):
+            if func in ("count", "count_all"):
+                data[out_name] = pa.array(counts.astype(np.int64))
+            elif func in ("min", "max"):
+                name = agg_in.name if isinstance(agg_in, Col) else agg_in
+                data[out_name] = pc.cast(
+                    pa.array(res), table_of(side_of(name)).schema.field(name).type)
+            elif func == "mean":
+                data[out_name] = pa.array(res.astype(np.float64))
+            else:  # sum: the device result's dtype
+                data[out_name] = pa.array(res)
+        return ("done", pa.table(data))
 
 # ---------------------------------------------------------------------------
 # predicate routing and the arrow host path
@@ -563,6 +1032,49 @@ def _eval_arrow(expr: Expr, table) -> np.ndarray:
         # Nulls surface as None in an object array.
         mask = np.array([bool(v) if v is not None else False for v in mask])
     return mask
+
+
+def _eval_column(expr: Expr, table):
+    """``expr`` as an output column (an aggregate's input): an array
+    result as it is, a scalar one repeated for every row."""
+    import pyarrow as pa
+
+    result = _arrow_eval(expr, table)
+    if isinstance(result, pa.Scalar):
+        return pa.array([result.as_py()] * table.num_rows,
+                        type=result.type if result.is_valid else None)
+    return result
+
+
+def _sorted_table(table, keys):
+    """ORDER BY with Spark's null order: nulls sort as the smallest
+    value, first ascending and last descending."""
+    if table.num_rows == 0:
+        return table
+    return table.take(_sort_indices(table, keys))
+
+
+def _sort_indices(table, keys):
+    """The sort permutation with Spark's null order.  Arrow places nulls
+    by one setting for every key, so each key with nulls gets a validity
+    flag key in front of it, sorted in the key's own direction: false <
+    true puts the nulls first ascending and last descending."""
+    import pyarrow.compute as pc
+
+    work = table
+    sort_keys = []
+    for c, asc in keys:
+        direction = "ascending" if asc else "descending"
+        if table.column(c).null_count > 0:
+            flag = f"__valid__{c}"
+            n = 1
+            while flag in work.column_names:
+                flag = f"__valid__{c}__{n}"
+                n += 1
+            work = work.append_column(flag, pc.is_valid(table.column(c)))
+            sort_keys.append((flag, direction))
+        sort_keys.append((c, direction))
+    return pc.sort_indices(work, sort_keys=sort_keys)
 
 
 def _parse_float64(column):

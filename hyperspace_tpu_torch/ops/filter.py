@@ -66,9 +66,14 @@ def _literal(value, device: torch.device) -> torch.Tensor:
 
 
 def _bind(fn: Callable) -> Callable:
-    """``fn(cols, literal tensors)`` as ``f(cols, literal values)``."""
+    """``fn(cols, literal tensors)`` as ``f(cols, literals)``: a list of
+    values, each typed on its own (``_literal``), or one 1-D tensor whose
+    dtype types them all, as the JAX join→aggregate's
+    ``jnp.asarray(np.asarray(lits))`` does (``[1, 2.5]`` is float64)."""
 
-    def bound(cols: Sequence[torch.Tensor], lits: Sequence) -> torch.Tensor:
+    def bound(cols: Sequence[torch.Tensor], lits) -> torch.Tensor:
+        if isinstance(lits, torch.Tensor):
+            return fn(cols, list(lits.unbind()))
         device = cols[0].device if len(cols) else torch.device("cpu")
         return fn(cols, [_literal(v, device) for v in lits])
 

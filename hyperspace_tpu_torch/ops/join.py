@@ -102,6 +102,15 @@ def sorted_equi_join(left_keys: Keys, right_keys: Keys,
         rk = torch.as_tensor(right_keys, device=lk.device)
     if lk.numel() == 0 or rk.numel() == 0:
         return empty
+    left_idx, right_idx = match_pairs(lk, rk)
+    return left_idx.cpu().numpy(), right_idx.cpu().numpy()
+
+
+def match_pairs(lk: torch.Tensor, rk: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(left indices, right indices) of every match of two key tensors
+    on one device, as int64 tensors there, in left-row order and each
+    left row's matches in the right side's stable sorted order."""
     # Sort the right keys in their own dtype, then search in the common
     # one (``jnp.searchsorted`` promotes both sides).
     r_perm = torch.sort(_sort_codes(rk), stable=True).indices
@@ -109,11 +118,8 @@ def sorted_equi_join(left_keys: Keys, right_keys: Keys,
     lo, hi = _match_ranges(_sort_codes(lk.to(common)),
                            _sort_codes(rk[r_perm].to(common)))
     total = int((hi - lo).sum())  # the one synchronisation
-    if total == 0:
-        return empty
     left_idx, right_pos = _expand(lo, hi, total)
-    right_idx = r_perm[right_pos]
-    return left_idx.cpu().numpy(), right_idx.cpu().numpy()
+    return left_idx, r_perm[right_pos]
 
 
 def sorted_equi_join_np(left_keys: np.ndarray, right_keys: np.ndarray

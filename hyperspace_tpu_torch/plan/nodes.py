@@ -1,7 +1,7 @@
 """Logical plan nodes (counterpart of hyperspace_tpu/plan/nodes.py, the
-nodes a filter or join query needs): ``Scan``, ``Filter``, ``Project``,
-``Join``, ``InMemory``, and the hybrid-scan merges ``BucketUnion`` and
-``Union``.  A plan is a small immutable tree; the rules
+nodes a filter, join or aggregate query needs): ``Scan``, ``Filter``,
+``Project``, ``Join``, ``Aggregate``, ``Sort``, ``Limit``, ``InMemory``,
+and the hybrid-scan merges ``BucketUnion`` and ``Union``.  A plan is a small immutable tree; the rules
 rewrite it with ``transform_up``/``with_children``.  Class names are part
 of the plan signature, so they match the JAX package's, and
 ``tree_string`` prints a plan as the JAX package does."""
@@ -9,7 +9,7 @@ of the plan signature, so they match the JAX package's, and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from hyperspace_tpu_torch.plan.expr import Expr
 
@@ -177,6 +177,118 @@ class Join(LogicalPlan):
 
     def simple_string(self) -> str:
         return f"Join {self.how} on {self.condition!r}"
+
+
+class Sort(LogicalPlan):
+    """Total order by ``keys``, (column, ascending) pairs.  The rewrite
+    rules pass through it."""
+
+    def __init__(self, keys: Sequence[Tuple[str, bool]],
+                 child: LogicalPlan) -> None:
+        if not keys:
+            raise ValueError("Sort needs at least one key")
+        self.keys = tuple((c, bool(asc)) for c, asc in keys)
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return self.child.output_columns(schema_of)
+
+    def with_children(self, children) -> "Sort":
+        (child,) = children
+        return Sort(self.keys, child)
+
+    def simple_string(self) -> str:
+        keys = ", ".join(f"{c} {'ASC' if asc else 'DESC'}"
+                         for c, asc in self.keys)
+        return f"Sort [{keys}]"
+
+
+class Limit(LogicalPlan):
+    """First ``n`` rows of the child's order."""
+
+    def __init__(self, n: int, child: LogicalPlan) -> None:
+        if n < 0:
+            raise ValueError(f"Limit must be non-negative, got {n}")
+        self.n = int(n)
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return self.child.output_columns(schema_of)
+
+    def with_children(self, children) -> "Limit":
+        (child,) = children
+        return Limit(self.n, child)
+
+    def simple_string(self) -> str:
+        return f"Limit {self.n}"
+
+
+class Aggregate(LogicalPlan):
+    """Group-by and aggregations: ``aggs`` holds (function, input,
+    output name) triples, functions from arrow's hash-aggregate set
+    (``count_all`` counts rows and ignores its input).  An input is a
+    column name or an ``Expr``, as in ``sum(l_extendedprice * (1 -
+    l_discount))``.  An empty ``group_by`` is a global aggregation.  The
+    rewrite rules never match an Aggregate; they rewrite the patterns
+    below it."""
+
+    FUNCTIONS = ("sum", "min", "max", "mean", "count", "count_all",
+                 "count_distinct", "stddev", "variance")
+
+    def __init__(self, group_by: Sequence[str],
+                 aggs: Sequence[Tuple[str, Any, str]],
+                 child: LogicalPlan) -> None:
+        for func, agg_in, _out in aggs:
+            if func not in self.FUNCTIONS:
+                raise ValueError(
+                    f"Unsupported aggregate function {func!r}; "
+                    f"expected one of {self.FUNCTIONS}")
+            if not isinstance(agg_in, (str, Expr)):
+                raise ValueError(
+                    f"Aggregate input must be a column name or expression, "
+                    f"got {agg_in!r}")
+        self.group_by = tuple(group_by)
+        self.aggs = tuple(aggs)
+        self.children = (child,)
+
+    def input_columns(self) -> List[str]:
+        """Source columns the aggregations read (group keys excluded)."""
+        out: set = set()
+        for _f, agg_in, _o in self.aggs:
+            if isinstance(agg_in, Expr):
+                out |= agg_in.referenced_columns()
+            elif agg_in:
+                out.add(agg_in)
+        return sorted(out)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return list(self.group_by) + [out for _f, _c, out in self.aggs]
+
+    def with_children(self, children) -> "Aggregate":
+        (child,) = children
+        return Aggregate(self.group_by, self.aggs, child)
+
+    def simple_string(self) -> str:
+        def render(f, agg_in):
+            if f == "count_all":
+                return "*"
+            return repr(agg_in) if isinstance(agg_in, Expr) else str(agg_in)
+
+        aggs = ", ".join(f"{f}({render(f, c)}) AS {out}"
+                         for f, c, out in self.aggs)
+        return f"Aggregate [{', '.join(self.group_by)}] [{aggs}]"
 
 
 class InMemory(LogicalPlan):

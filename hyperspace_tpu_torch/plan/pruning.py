@@ -1,5 +1,5 @@
 """Column pruning (counterpart of hyperspace_tpu/plan/pruning.py, for
-the nodes of a filter or join query): push minimal Projects down to each
+the nodes of a filter, join or aggregate query): push minimal Projects down to each
 relation, so a join side asks only for the columns it needs (which lets
 a covering index apply) and scans read only those columns.
 
@@ -12,12 +12,15 @@ from __future__ import annotations
 from typing import List, Optional, Set
 
 from hyperspace_tpu_torch.plan.nodes import (
+    Aggregate,
     BucketUnion,
     Filter,
     Join,
+    Limit,
     LogicalPlan,
     Project,
     Scan,
+    Sort,
     Union,
 )
 from hyperspace_tpu_torch.utils.resolver import resolve
@@ -47,12 +50,33 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]],
         if new_child is not plan.child or cols != plan.columns:
             return Project(cols, new_child)
         return plan
+    if isinstance(plan, Aggregate):
+        # Like a Project, an Aggregate defines what its subtree must
+        # produce: the group keys and the aggregated inputs (count_all's
+        # empty input is no column; an expression gives its columns).
+        child_required = set(plan.group_by) | set(plan.input_columns())
+        new_child = _prune(plan.child, child_required, schema_of)
+        if new_child is not plan.child:
+            return Aggregate(plan.group_by, plan.aggs, new_child)
+        return plan
     if isinstance(plan, Filter):
         child_required = None if required is None else (
             required | set(plan.condition.referenced_columns()))
         new_child = _prune(plan.child, child_required, schema_of)
         if new_child is not plan.child:
             return Filter(plan.condition, new_child)
+        return plan
+    if isinstance(plan, Sort):
+        child_required = None if required is None else (
+            required | {c for c, _asc in plan.keys})
+        new_child = _prune(plan.child, child_required, schema_of)
+        if new_child is not plan.child:
+            return Sort(plan.keys, new_child)
+        return plan
+    if isinstance(plan, Limit):
+        new_child = _prune(plan.child, required, schema_of)
+        if new_child is not plan.child:
+            return Limit(plan.n, new_child)
         return plan
     if isinstance(plan, Join):
         cond_cols = set(plan.condition.referenced_columns())

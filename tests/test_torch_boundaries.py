@@ -41,7 +41,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     for module in ("actions/refresh.py", "actions/delete.py",
                    "actions/restore.py", "actions/vacuum.py",
                    "actions/cancel.py", "lifecycle/change_detector.py",
-                   "actions/optimize.py", "rules/hybrid.py"):
+                   "actions/optimize.py", "rules/hybrid.py",
+                   "ops/aggregate.py", "ops/join_agg.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -59,7 +60,7 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                if p.endswith(".py") and p.startswith(PORT)]
     assert len(sources) > 20
     for module in ("actions/optimize.py", "actions/refresh.py",
-                   "rules/hybrid.py"):
+                   "rules/hybrid.py", "ops/aggregate.py", "ops/join_agg.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -246,6 +247,97 @@ def test_refresh_modes_hybrid_scan_and_optimize_import_no_jax(tmp_path):
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_aggregate_queries_through_the_port_import_no_jax(tmp_path):
+    """The TPC-H Q3 shape through both indexes (the fused join→aggregate
+    with its top-N), a grouped aggregate through the filter rule, and a
+    global one, each through ``collect()``; the new ops modules load
+    without pyarrow."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        from hyperspace_tpu_torch.ops import aggregate, join_agg
+        assert "pyarrow" not in sys.modules
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        rng = np.random.default_rng(0)
+        paths = {{}}
+        for name, cols in (("o", {{"ok": rng.permutation(100),
+                                   "cust": rng.integers(0, 9, 100)}}),
+                           ("l", {{"lk": rng.integers(0, 100, 400),
+                                   "p": rng.random(400),
+                                   "d": rng.random(400) * 0.1}})):
+            paths[name] = os.path.join({str(tmp_path)!r}, name)
+            os.makedirs(paths[name])
+            pq.write_table(pa.table(cols),
+                           os.path.join(paths[name], "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(paths["o"]), IndexConfig("io", ["ok"], ["cust"]))
+        hs.create_index(s.read.parquet(paths["l"]), IndexConfig("il", ["lk"], ["p", "d"]))
+        s.enable_hyperspace()
+        o, l = s.read.parquet(paths["o"]), s.read.parquet(paths["l"])
+        q3 = (o.filter(col("ok") < 60).join(l, col("ok") == col("lk"))
+              .group_by("cust").agg(rev=(col("p") * (1 - col("d")), "sum"))
+              .sort(("rev", False)).limit(3))
+        assert q3.collect().num_rows == 3
+        st = s.last_execution_stats
+        assert st["joins"][-1]["strategy"] == "device-fused-agg"
+        assert st["aggregates"][-1]["topn"] == 3
+        assert sorted(x["relation"] for x in st["scans"]) == ["il", "io"]
+        g = o.filter(col("ok") < 50).group_by("cust").count().collect()
+        assert g.column("count").to_pylist() and \
+            s.last_execution_stats["aggregates"][-1]["strategy"] == "device-segment"
+        assert l.agg(n=("p", "count")).collect().to_pylist() == [{{"n": 400}}]
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_a_device_error_in_the_fused_join_aggregate_propagates(tmp_path,
+                                                               monkeypatch):
+    """Nothing catches an error of the fused path's device work to answer
+    from the host instead."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import col
+    from hyperspace_tpu_torch.ops import join_agg
+
+    for name, cols in (("o", {"ok": np.arange(50), "cust": np.arange(50) % 7}),
+                       ("l", {"lk": np.arange(200) % 50,
+                              "p": np.linspace(0, 1, 200)})):
+        os.makedirs(tmp_path / name)
+        pq.write_table(pa.table(cols), str(tmp_path / name / "part-0.parquet"))
+    s = HyperspaceSession(str(tmp_path / "ix"), device="cpu")
+    ds = (s.read.parquet(str(tmp_path / "o"))
+          .join(s.read.parquet(str(tmp_path / "l")), col("ok") == col("lk"))
+          .group_by("cust").agg(total=("p", "sum")))
+    assert ds.collect().num_rows == 7
+    assert s.last_execution_stats["joins"][-1]["strategy"] == "device-fused-agg"
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("device join failed")
+
+    monkeypatch.setattr(join_agg, "match_pairs", broken)
+    with pytest.raises(RuntimeError, match="device join failed"):
+        ds.collect()
+    with pytest.raises(RuntimeError, match="device join failed"):
+        ds.sort(("total", False)).limit(2).collect()
 
 
 def test_session_without_a_card_raises(monkeypatch, tmp_path):

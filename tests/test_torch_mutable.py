@@ -559,3 +559,188 @@ def test_route_to_buckets_matches_the_jax_host_mirror(tmp_path, source_type,
     assert sorted(troutes) == sorted(jroutes) and len(troutes) > 1
     for b in jroutes:
         assert troutes[b].equals(jroutes[b]), b
+
+
+# ---------------------------------------------------------------------------
+# More hybrid shapes, each held to the JAX package.
+# ---------------------------------------------------------------------------
+def _assert_same_rows(got, want):
+    """Equal rows in the same order; float columns bit for bit, so that
+    NaN equals NaN and -0.0 differs from 0.0 (``Table.equals`` takes no
+    NaN as equal)."""
+    assert got.column_names == want.column_names
+    for name in want.column_names:
+        g, w = got.column(name), want.column(name)
+        if pa.types.is_floating(w.type) and w.null_count == 0:
+            assert g.null_count == 0, name
+            assert np.array_equal(g.to_numpy().view(np.int64),
+                                  w.to_numpy().view(np.int64)), name
+        else:
+            assert g.equals(w), name
+
+
+def _hybrid_both(both, make_ds, hybrid=True):
+    """``make_ds(pkg, session)`` through both packages with hyperspace
+    (and hybrid scan) on: the tables, plans and stats, after checking
+    that rows, order, plans, index scans and strategies agree."""
+    out = []
+    for pkg in PACKAGES:
+        s = both[pkg][0].enable_hyperspace()
+        s.conf.hybrid_scan_enabled = hybrid
+        ds = make_ds(pkg, s)
+        out.append((ds.collect(), ds.optimized_plan(), s.last_execution_stats))
+    (jt, jplan, jstats), (tt, tplan, tstats) = out
+    assert tt.schema.equals(jt.schema)
+    _assert_same_rows(tt, jt)
+    root = os.path.dirname(both[hyperspace_tpu_torch][0].conf.system_path)
+    assert _plan_text(tplan, root) == _plan_text(jplan, root)
+    assert _index_scans(tplan) == _index_scans(jplan)
+    for kind in ("filters", "joins", "join_kernels", "aggregates"):
+        assert [d["strategy"] for d in tstats.get(kind, [])] == \
+            [d["strategy"] for d in jstats.get(kind, [])], kind
+    return tt, tplan, tstats
+
+
+def test_hybrid_join_with_files_appended_on_both_sides(tmp_path):
+    data, other, both = _hybrid_env(tmp_path, "both", quick=False)
+    rng = np.random.default_rng(77)
+    pq.write_table(pa.table({"ok": rng.integers(0, 200, 30),
+                             "price": rng.random(30)}),
+                   os.path.join(other, "part-09000.parquet"))
+    tt, tplan, tstats = _hybrid_both(both, lambda pkg, s: _queries(
+        pkg, s, data, other)["join"])
+    assert tt.num_rows > 0
+    assert _node_names(tplan).count("BucketUnion") == 2
+    assert [(d["strategy"], d["hybrid"]) for d in tstats["joins"]] == \
+        [("bucketed", True)]
+
+
+def test_hybrid_string_keyed_join_with_appends_and_deletes(tmp_path):
+    data, names = str(tmp_path / "data"), str(tmp_path / "names")
+    _write_source(data)
+    os.makedirs(names)
+    rng = np.random.default_rng(12)
+    pq.write_table(pa.table({
+        "name": [f"key-{v:03d}" for v in rng.permutation(150)],
+        "score": rng.random(150)}), os.path.join(names, "part-00000.parquet"))
+    both = _create(tmp_path, data, ("sx", ["s"], ["v"]), lineage=True)
+    for pkg in PACKAGES:
+        s, hs = both[pkg]
+        hs.create_index(s.read.parquet(names),
+                        pkg.IndexConfig("nx", ["name"], ["score"]))
+    _mutate(data, **_CHANGES["both"])
+    tt, tplan, tstats = _hybrid_both(both, lambda pkg, s: s.read.parquet(names)
+                                     .join(s.read.parquet(data),
+                                           pkg.col("name") == pkg.col("s"))
+                                     .select("name", "score", "s", "v"))
+    assert tt.num_rows > 0
+    assert sorted(n for n, _ in _index_scans(tplan)) == ["nx", "sx"]
+    assert "_data_file_id" in tplan.tree_string()
+    assert [d["hybrid"] for d in tstats["joins"]] == [True]
+
+
+@pytest.mark.parametrize("query", ["point", "isin", "join"])
+def test_hybrid_scan_over_an_appended_file_with_null_keys(tmp_path, query):
+    data, other, both = _hybrid_env(tmp_path, "delete", quick=False)
+    rng = np.random.default_rng(31)
+    n = 120
+    keys = rng.integers(0, 200, n)
+    keys[:3] = 17
+    pq.write_table(pa.table({
+        "k": pa.array(keys, mask=rng.random(n) < 0.25, type=pa.int64()),
+        "s": pa.array([f"key-{v:03d}" for v in rng.integers(0, 150, n)]),
+        "v": pa.array(rng.random(n)),
+        "w": pa.array(rng.integers(-50, 50, n), type=pa.int32()),
+    }), os.path.join(data, "part-09100.parquet"))
+
+    def make(pkg, s):
+        c = pkg.col
+        src = s.read.parquet(data)
+        if query == "point":
+            return src.filter(c("k") == 17).select("k", "v")
+        if query == "isin":
+            return src.filter(c("k").isin([17, 40, 41])).select("k", "v", "w")
+        return s.read.parquet(other).join(src, c("ok") == c("k")) \
+            .select("ok", "price", "k", "v")
+
+    tt, tplan, _ = _hybrid_both(both, make)
+    assert tt.num_rows > 0 and tt.column("k").null_count == 0
+    assert ("BucketUnion" if query == "join" else "Union") in _node_names(tplan)
+
+
+def _float_table(rng, n, special):
+    keys = np.round(rng.standard_normal(n) * 4, 1)
+    keys[:len(special)] = special
+    return pa.table({"f": pa.array(keys), "v": pa.array(rng.random(n))})
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["clean", "hybrid"])
+def test_float_keyed_join_with_signed_zero_nan_and_inf(tmp_path, hybrid):
+    special = [-0.0, 0.0, np.nan, np.inf, -np.inf, np.nan]
+    data, other = str(tmp_path / "data"), str(tmp_path / "other")
+    rng = np.random.default_rng(4)
+    for root, name in ((data, "v"), (other, "g")):
+        os.makedirs(root)
+        for i in range(8):
+            t = _float_table(rng, 80, special[i % 3::2])
+            if root == other:
+                t = t.rename_columns(["g", "gv"])
+            pq.write_table(t, os.path.join(root, f"part-{i:05d}.parquet"))
+    both = _create(tmp_path, data, ("fx", ["f"], ["v"]), lineage=True)
+    for pkg in PACKAGES:
+        s, hs = both[pkg]
+        hs.create_index(s.read.parquet(other),
+                        pkg.IndexConfig("gx", ["g"], ["gv"]))
+    if hybrid:
+        # Within the default ratios: 1 of 8 files deleted, 40 rows added.
+        pq.write_table(_float_table(rng, 40, special),
+                       os.path.join(data, "part-09000.parquet"))
+        os.remove(os.path.join(data, "part-00001.parquet"))
+    tt, tplan, tstats = _hybrid_both(both, lambda pkg, s: s.read.parquet(other)
+                                     .join(s.read.parquet(data),
+                                           pkg.col("g") == pkg.col("f"))
+                                     .select("g", "gv", "f", "v"),
+                                     hybrid=hybrid)
+    assert tt.num_rows > 0
+    f = tt.column("f").to_numpy()
+    assert np.isnan(f).any() and np.isinf(f).any() and (f == 0).any()
+    assert sorted(n for n, _ in _index_scans(tplan)) == ["fx", "gx"]
+    assert [d["hybrid"] for d in tstats["joins"]] == [hybrid]
+
+
+@pytest.mark.parametrize("quick", [False, True], ids=["stale", "quick"])
+def test_q3_through_hybrid_scan_equals_jax(tmp_path, quick):
+    """The TPC-H Q3 shape over a lineitem-like side with appended and
+    deleted files: the fused join→aggregate reads the hybrid side whole
+    (index files less the deleted files' rows, then the appended rows)."""
+    data, other, both = _hybrid_env(tmp_path, "both", quick=quick)
+
+    def q3(pkg, s):
+        c = pkg.col
+        return (s.read.parquet(other).filter(c("price") < 0.8)
+                .join(s.read.parquet(data), c("ok") == c("k"))
+                .group_by("w").agg(revenue=(c("v") * (1 - c("price")), "sum"))
+                .sort(("revenue", False)).limit(6))
+
+    out = []
+    for pkg in PACKAGES:
+        s = both[pkg][0].enable_hyperspace()
+        s.conf.hybrid_scan_enabled = True
+        ds = q3(pkg, s)
+        out.append((ds.collect(), ds.optimized_plan(), s.last_execution_stats))
+    (jt, jplan, jstats), (tt, tplan, tstats) = out
+    assert tt.num_rows == 6
+    assert tt.schema.equals(jt.schema)
+    assert tt.column("w").to_pylist() == jt.column("w").to_pylist()
+    np.testing.assert_allclose(tt.column("revenue").to_numpy(),
+                               jt.column("revenue").to_numpy(), rtol=1e-9)
+    root = str(tmp_path)
+    assert _plan_text(tplan, root) == _plan_text(jplan, root)
+    assert sorted(n for n, _ in _index_scans(tplan)) == ["ix", "ox"]
+    assert "BucketUnion" in _node_names(tplan)
+    assert "_data_file_id" in tplan.tree_string()
+    for kind in ("joins", "aggregates"):
+        assert [d["strategy"] for d in tstats[kind]] == \
+            [d["strategy"] for d in jstats[kind]]
+    assert tstats["joins"][-1]["strategy"] == "device-fused-agg"
+    assert tstats["aggregates"][-1]["topn"] == 6
