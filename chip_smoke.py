@@ -50,7 +50,9 @@ beside it.
            runs a second time with ``device_filter_min_rows`` and
            ``device_join_min_rows`` above its row counts, so its filters
            and join kernels take the host route (arrow predicate,
-           ``sorted_equi_join_np``); that answer too is held to numpy.
+           ``sorted_equi_join_np``), with ``device_resident_min_rows``
+           raised too, since resident columns would otherwise keep the
+           device; that answer too is held to numpy.
            Then the aggregates, each held to numpy (floats within
            AGG_RTOL relative, keys and counts exactly): ``q3``, bench.py's
            ``q_q3`` (orders under ``o_totalprice < 2000`` joined with
@@ -64,16 +66,30 @@ beside it.
            (k+1)-th revenues must differ by more than AGG_RTOL, so the
            top-k check decides.  Their host route is bucketed joins and
            arrow's group-by, with nothing on the device.
-           Each query is timed: ``indexed_ms`` (device route),
-           ``host_route_ms`` and ``scan_ms``, the median host wall of
-           TIMED_QUERY_RUNS collects after the checking one, and one
-           profiled indexed run gives ``device_ms`` (the sum of its device
+           The phase starts on an empty device column cache.  Each
+           query is timed cold and warm: ``indexed_cold_ms`` is the
+           median host wall of TIMED_QUERY_RUNS collects, the cache
+           emptied before each (outside the clock), after a checking one
+           on an empty cache; ``indexed_warm_ms`` the median of as many
+           collects after one more checked one, which must have read
+           every column from the cache (hits, no miss, every device
+           filter, join kernel, fused join and aggregate ``resident``);
+           ``scan_cold_ms`` and ``scan_warm_ms`` the same with hyperspace
+           off; ``host_route_ms`` the host route.  Beside them the two
+           speedups, the two ``host_over_device`` and the cache's hits
+           and misses of the checked cold and warm collects.  One
+           profiled cold run gives ``device_ms`` (the sum of its device
            activities), ``busy_share`` (``device_ms`` over that run's
-           wall) and the torch ops with the most device time; for the
-           aggregates also ``programs`` (calls and device ms of
-           AGG_PROGRAMS, each under a ``record_function`` of its name)
-           and ``stages`` (one more run's host wall split into reads,
-           predicates, uploads, device calls and the rest).
+           wall) and the torch ops with the most device time, a warm one
+           ``warm_device_ms`` and ``warm_busy_share``; for the aggregates
+           also ``programs`` (calls and device ms of AGG_PROGRAMS, each
+           under a ``record_function`` of its name).  ``stages`` splits
+           one cold and one warm run by stage (``stage_breakdown``:
+           reads, fingerprints, arrow, uploads, predicates, device calls,
+           the pool's wait).  Then q3 runs twice with the cache's budget
+           at EVICTION_BUDGET, under its working set: both answers held
+           to numpy, and the cache must have evicted or rejected columns.
+           The resident MiB at the phase's end are printed.
 
   phase E  the spill build at SF1 with the conf's default batch
            (``device_batch_rows = 1 << 20``: 6 chunks) and 200 buckets:
@@ -109,14 +125,24 @@ beside it.
            queries over the changed source, each held to numpy, with the
            hybrid plans (``Union`` or ``BucketUnion`` and the lineage
            filter), the "bucketed" join marked hybrid, one hash launch
-           per join to route the appended rows, and each timed as phase
-           D times its queries.  Then ``refresh_index("incremental")``
+           per join to route the appended rows, and each timed cold and
+           warm as phase D times its queries (the buckets that gained
+           rows are unions, which have no file identity: their columns
+           are uploaded every time).  Then ``refresh_index("incremental")``
            (6,375,000 rows, one launch of each kernel), 2 more files
            appended and a second incremental refresh (6,562,500 rows,
            buckets with files in two versions), ``optimize_index("quick")``
            (one file per compacted bucket) and again (outcome "noop"),
            the files, the lineage and the four answers checked after
-           each.
+           each; after the first incremental refresh the four queries
+           through the clean ``li_lin`` are timed cold and warm (every
+           warm device entry resident), and the clean join and the two
+           hybrid joins are split by stage cold and warm
+           (``stage_breakdown``: the 200 bucket joins' thread-ms by stage
+           and the wait on the pool).  Phases E, F and G start on an
+           empty cache, every timed build empties it first (so the
+           card's peak is the build's own), and each phase prints the
+           MiB resident at its end.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -138,8 +164,9 @@ and, for the histogram, ``torch.bincount``'s device time by the profiler
 (it synchronises, so no graph holds it).  Each kernel row carries its
 launches on every path the script drives (``launches_by_path``); the
 chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
-the builds JSON (phases E, G and F), the queries JSON (phase D's, and
-phase G's as ``hybrid_queries``), the kernels JSON, the card's name and
+the builds JSON (phases E, G and F), the queries JSON (phase D's with
+its ``eviction`` run, phase G's as ``hybrid_queries`` and phase G's
+stage splits as ``join_splits``), the kernels JSON, the card's name and
 power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -183,9 +210,13 @@ AGG_RTOL = 1e-9
 AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
                 "_topk_groups")
 TIMED_QUERY_RUNS = 3
-# device_filter_min_rows / device_join_min_rows for the host route: more
-# rows than any query has, so every filter and join kernel runs on the host.
+# The cold and the resident thresholds of the host route: more rows than
+# any query has, so every filter, join kernel and aggregate runs on the
+# host, resident columns or not.
 HOST_ROUTE_MIN_ROWS = 1 << 62
+# The device column cache's budget of phase D's eviction run: under q3's
+# working set (li_idx's three referenced columns, 48 MB each).
+EVICTION_BUDGET = 64 << 20
 
 # Phases E and F: the spill build with the conf's default batch.
 SPILL_BUCKETS = 200
@@ -762,50 +793,116 @@ def annotated_programs():
             setattr(module, name, fn)
 
 
+# (owner, attribute, stage) of stage_breakdown: the owner is the class
+# or module whose attribute the executor looks up at call time.
+STAGES = (
+    ("Executor", "_scan", "scan_ms"),
+    ("executor", "files_fingerprint", "fingerprint_ms"),
+    ("Executor", "_filter", "arrow_ms"),
+    ("Executor", "_host_join_tables", "arrow_ms"),
+    ("pyarrow", "concat_tables", "arrow_ms"),
+    ("Executor", "_device_column", "upload_ms"),
+    ("Executor", "_eval_predicate", "predicate_ms"),
+    ("Executor", "_eval_device", "predicate_ms"),
+    ("executor", "_eval_arrow", "predicate_ms"),
+    ("join", "sorted_equi_join", "device_call_ms"),
+    ("join_agg", "join_group_aggregate", "device_call_ms"),
+    ("aggregate", "grouped_aggregate", "device_call_ms"),
+    ("join", "sorted_equi_join_np", "host_match_ms"),
+    ("Executor", "_route_to_buckets", "route_ms"),
+    ("Executor", "_join", "join_other_ms"),
+)
+
+
 def stage_breakdown(fn) -> dict:
-    """One run of ``fn`` (an aggregate query on the device route) with the
-    host wall of its stages, in ms, each counted where it is outermost:
-    the Parquet reads (``Executor._scan``), the predicates
-    (``_eval_predicate``, the upload of their columns included), the
-    other column uploads (``_device_column``: conversion to numpy and
-    the copy to the card) and the device calls (``join_group_aggregate``
-    or ``grouped_aggregate``: the device work and its read backs); the
-    rest of the wall (planning, arrow's filter and take, the result) is
-    ``other_ms``."""
-    from hyperspace_tpu_torch.execution.executor import Executor
-    from hyperspace_tpu_torch.ops import aggregate, join_agg
+    """One run of ``fn`` (a query) with its time split by stage, in
+    thread-ms summed over every thread that ran a stage (the bucketed
+    join runs its buckets on 8 pool threads): each stage counts its own
+    time, not the time of the stages it calls (per thread, a stack of
+    open stages in a ``threading.local``).
 
-    stages = {"scan_ms": 0.0, "predicate_ms": 0.0, "upload_ms": 0.0,
-              "device_call_ms": 0.0}
-    depth = [0]
-    saved = []
-    for owner, name, stage in (
-            (Executor, "_scan", "scan_ms"),
-            (Executor, "_eval_predicate", "predicate_ms"),
-            (Executor, "_device_column", "upload_ms"),
-            (join_agg, "join_group_aggregate", "device_call_ms"),
-            (aggregate, "grouped_aggregate", "device_call_ms")):
-        fn0 = getattr(owner, name)
+      scan_ms         Parquet reads (``Executor._scan``)
+      fingerprint_ms  the file identities (``files_fingerprint``)
+      arrow_ms        arrow's filter, take and concat (``_filter``,
+                      ``_host_join_tables``, ``pa.concat_tables``)
+      upload_ms       the columns to the card (``_device_column``:
+                      conversion and copy; a cache hit costs ~0)
+      predicate_ms    a predicate beside its uploads (compare on the
+                      card and the mask back, or arrow's predicate)
+      device_call_ms  the join, aggregate and fused calls with their read
+                      backs, a numpy upload inside them included
+      host_match_ms   the host route's ``sorted_equi_join_np``
+      route_ms        the hybrid route of appended rows (hash on the card)
+      join_other_ms   the rest of ``_join``; on the calling thread of a
+                      bucketed join the wait on the pool
 
-        def timed(*args, _fn=fn0, _stage=stage, **kwargs):
-            depth[0] += 1
-            t0 = time.perf_counter()
+    Beside them: ``threads`` that ran a stage; per pool thread its busy
+    ms (the time under its outermost stage, a bucket's ``_join``), the
+    busiest, and ``pool_wait_ms``, the wall minus the busiest worker;
+    ``mean_busy_workers``, the pool threads' busy ms over the wall (the
+    shared pool rotates a call's at most 8 tasks over all its threads, so
+    8 means the call kept its workers saturated); ``other_ms``, the wall
+    minus the calling thread's outermost stages (planning, the
+    result)."""
+    import threading
+
+    import pyarrow
+
+    from hyperspace_tpu_torch.execution import executor
+    from hyperspace_tpu_torch.ops import aggregate, join, join_agg
+
+    owners = {"Executor": executor.Executor, "executor": executor,
+              "pyarrow": pyarrow, "join": join, "join_agg": join_agg,
+              "aggregate": aggregate}
+    totals: dict = {}
+    outer: dict = {}
+    lock = threading.Lock()
+    local = threading.local()
+
+    def add(book: dict, key, ms: float) -> None:
+        with lock:
+            book[key] = book.get(key, 0.0) + ms
+
+    def wrap(fn0, stage):
+        def timed(*args, **kwargs):
+            stack = local.__dict__.setdefault("stack", [])
+            entered = time.perf_counter()
+            if stack:
+                add(totals, stack[-1][0], (entered - stack[-1][1]) * 1e3)
+            stack.append([stage, entered])
             try:
-                return _fn(*args, **kwargs)
+                return fn0(*args, **kwargs)
             finally:
-                depth[0] -= 1
-                if depth[0] == 0:
-                    stages[_stage] += (time.perf_counter() - t0) * 1e3
+                left = time.perf_counter()
+                add(totals, stage, (left - stack.pop()[1]) * 1e3)
+                if stack:
+                    stack[-1][1] = left
+                else:
+                    add(outer, threading.get_ident(), (left - entered) * 1e3)
+        return timed
 
+    saved = []
+    for owner_name, name, stage in STAGES:
+        owner = owners[owner_name]
+        fn0 = getattr(owner, name)
         saved.append((owner, name, fn0))
-        setattr(owner, name, timed)
+        setattr(owner, name, wrap(fn0, stage))
+    main = threading.get_ident()
     try:
         wall = wall_ms(fn)
     finally:
-        for owner, name, fn0 in saved:
+        for owner, name, fn0 in reversed(saved):
             setattr(owner, name, fn0)
-    return {"wall_ms": wall, **stages,
-            "other_ms": wall - sum(stages.values())}
+    workers = sorted((ms for t, ms in outer.items() if t != main), reverse=True)
+    busiest = workers[0] if workers else 0.0
+    return {"wall_ms": wall,
+            **{stage: totals.get(stage, 0.0)
+               for stage in dict.fromkeys(st for _o, _n, st in STAGES)},
+            "threads": len(outer), "worker_busy_ms": workers,
+            "busiest_worker_ms": busiest,
+            "pool_wait_ms": wall - busiest if workers else 0.0,
+            "mean_busy_workers": sum(workers) / wall,
+            "other_ms": wall - outer.get(main, 0.0)}
 
 
 def profile_query(dev, fn, programs: bool = False) -> dict:
@@ -900,9 +997,43 @@ def query_indexes(name: str) -> list:
 
 
 def set_min_rows(session, rows: int) -> None:
+    """The cold and the resident thresholds: with only the cold ones
+    raised, a query whose columns are resident still takes the card."""
     session.conf.device_filter_min_rows = rows
     session.conf.device_join_min_rows = rows
     session.conf.device_agg_min_rows = rows
+    session.conf.device_resident_min_rows = rows
+
+
+def device_cache():
+    from hyperspace_tpu_torch.execution.device_cache import global_cache
+
+    return global_cache()
+
+
+def resident_mib() -> float:
+    return device_cache().bytes_cached / 2**20
+
+
+def cold_ms(fn) -> float:
+    """``wall_ms(fn)`` on an empty device column cache (emptied before
+    the clock starts)."""
+    device_cache().clear()
+    return wall_ms(fn)
+
+
+def require_warm(label: str, stats: dict) -> None:
+    """A warm collect: the cache answered every column (hits, no miss)
+    and every device filter, join kernel, fused join and aggregate read
+    resident inputs."""
+    cache = stats.get("device_cache") or {}
+    entries = [d for k in ("filters", "join_kernels", "joins", "aggregates")
+               for d in stats.get(k, [])
+               if d["strategy"] not in ("host", "bucketed", "plain")]
+    if not cache.get("hits") or cache.get("misses") \
+            or not all(d.get("resident") is True for d in entries):
+        raise AssertionError(f"{label}: warm run with cache {cache}, "
+                             f"entries {entries}")
 
 
 def check_routes(label: str, name: str, route: str, stats: dict) -> None:
@@ -916,11 +1047,14 @@ def check_routes(label: str, name: str, route: str, stats: dict) -> None:
 def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
     """Queries through the indexes: build ``ord_idx`` beside phase C's
     ``li_idx`` and check its files, then run QUERIES with hyperspace
-    enabled (device route, then host route) and disabled, each answer
-    held to numpy; time each of the three and profile one indexed run."""
+    enabled (device route cold and warm, then the host route) and
+    disabled (cold and warm), each answer held to numpy; time each, and
+    profile and split one cold and one warm indexed run.  Then q3 once
+    more under a device column cache budget below its working set."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
     from hyperspace_tpu_torch.ops import kernels
 
+    device_cache().clear()
     write_files(orders, os.path.join(root, "orders"))
     session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
                                 device=dev)
@@ -942,39 +1076,61 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
     for name, ds in queries.items():
         want, keys = expected[name]
         rtol = AGG_RTOL if name in AGG_QUERIES else 0.0
+
+        def checked(label: str, route: str, warm: bool = False) -> dict:
+            require_rows(f"phase D {name} {label}", ds.collect(), want, keys,
+                         rtol)
+            stats = session.last_execution_stats
+            if route is not None:
+                check_routes(label, name, route, stats)
+            if warm:
+                require_warm(f"phase D {name} {label}", stats)
+            return stats
+
         session.enable_hyperspace()
         scans = index_scans(ds.optimized_plan())
         names = sorted(n for n, _ in scans)
         if names != query_indexes(name):
             raise AssertionError(f"phase D {name}: plan scans {names}, "
                                  f"expected {query_indexes(name)}")
-        require_rows(f"phase D {name} indexed", ds.collect(), want, keys, rtol)
-        stats = session.last_execution_stats
-        check_routes("indexed", name, "device", stats)
-        indexed = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        device_cache().clear()
+        stats = checked("indexed", "device")
+        cache_cold = stats.get("device_cache")
+        indexed_cold = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        cache_warm = checked("indexed warm", "device", warm=True)["device_cache"]
+        indexed_warm = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        device_cache().clear()
         profiled = profile_query(dev, ds.collect, programs=name in AGG_QUERIES)
-        if name in AGG_QUERIES:
-            profiled["stages"] = stage_breakdown(ds.collect)
+        warm_profile = profile_query(dev, ds.collect)
+        profiled.update(warm_device_ms=warm_profile["device_ms"],
+                        warm_busy_share=warm_profile["busy_share"])
+        device_cache().clear()
+        profiled["stages"] = {"cold": stage_breakdown(ds.collect),
+                              "warm": stage_breakdown(ds.collect)}
+        # Resident columns lower no threshold here: the route is the host.
         set_min_rows(session, HOST_ROUTE_MIN_ROWS)
-        require_rows(f"phase D {name} host route", ds.collect(), want, keys,
-                     rtol)
-        check_routes("host-route", name, "host", session.last_execution_stats)
+        checked("host route", "host")
         host_route = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
         set_min_rows(session, 0)
         session.disable_hyperspace()
         if index_scans(ds.optimized_plan()):
             raise AssertionError(f"phase D {name}: disabled plan scans an index")
-        require_rows(f"phase D {name} source", ds.collect(), want, keys, rtol)
-        scan = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
-        indexed_ms = statistics.median(indexed)
-        scan_ms = statistics.median(scan)
-        host_route_ms = statistics.median(host_route)
+        device_cache().clear()
+        checked("source", None)
+        scan_cold = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        checked("source warm", None, warm=True)
+        scan_warm = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        med = {k: statistics.median(v) for k, v in (
+            ("indexed_cold_ms", indexed_cold), ("indexed_warm_ms", indexed_warm),
+            ("scan_cold_ms", scan_cold), ("scan_warm_ms", scan_warm),
+            ("host_route_ms", host_route))}
         rows.append({
-            "name": name, "rows": len(next(iter(want.values()))),
-            "indexed_ms": indexed_ms, "scan_ms": scan_ms,
-            "speedup": scan_ms / indexed_ms,
-            "host_route_ms": host_route_ms,
-            "host_over_device": host_route_ms / indexed_ms,
+            "name": name, "rows": len(next(iter(want.values()))), **med,
+            "speedup_cold": med["scan_cold_ms"] / med["indexed_cold_ms"],
+            "speedup_warm": med["scan_warm_ms"] / med["indexed_warm_ms"],
+            "host_over_device_cold": med["host_route_ms"] / med["indexed_cold_ms"],
+            "host_over_device_warm": med["host_route_ms"] / med["indexed_warm_ms"],
+            "device_cache_cold": cache_cold, "device_cache_warm": cache_warm,
             **profiled,
             "pruned_buckets": [len(b) if b is not None else None
                                for _, b in scans],
@@ -982,10 +1138,50 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
             "filters": len(stats.get("filters", [])),
             "join_kernels": len(stats.get("join_kernels", [])),
             "aggregates": stats.get("aggregates", []),
-            "indexed_runs_ms": indexed, "scan_runs_ms": scan,
+            "indexed_cold_runs_ms": indexed_cold,
+            "indexed_warm_runs_ms": indexed_warm,
+            "scan_cold_runs_ms": scan_cold, "scan_warm_runs_ms": scan_warm,
             "host_route_runs_ms": host_route})
-    return {"queries": rows, "build_s": build_s,
+    resident_end = resident_mib()
+    eviction = eviction_run(session, queries["q3"], expected["q3"])
+    device_cache().clear()
+    return {"queries": rows, "build_s": build_s, "eviction": eviction,
+            "resident_mib_end": resident_end,
             "launches": kernels.launch_counts()}
+
+
+def eviction_run(session, ds, expected: tuple) -> dict:
+    """q3 twice through the indexes with the cache's budget at
+    EVICTION_BUDGET, under its working set: both answers right, the
+    cache's evictions and rejections over the two counted."""
+    want, keys = expected
+    session.enable_hyperspace()
+    cache = device_cache()
+    cache.clear()
+    before = cache.stats()
+    budget = session.conf.device_cache_bytes
+    session.conf.device_cache_bytes = EVICTION_BUDGET
+    try:
+        runs = []
+        for i in range(2):
+            ms = wall_ms(lambda: require_rows(f"phase D q3 eviction run {i}",
+                                              ds.collect(), want, keys,
+                                              AGG_RTOL))
+            runs.append({"ms": ms, "device_cache":
+                         session.last_execution_stats.get("device_cache"),
+                         "resident": [d.get("resident") for d in
+                                      session.last_execution_stats.get(
+                                          "aggregates", [])]})
+    finally:
+        session.conf.device_cache_bytes = budget
+    after = cache.stats()
+    out = {"budget_mib": EVICTION_BUDGET / 2**20, "runs": runs,
+           "evictions": after["evictions"] - before["evictions"],
+           "rejected": after["rejected"], "resident_mib": resident_mib()}
+    if not out["evictions"] and not out["rejected"]:
+        raise AssertionError(f"phase D q3 eviction: nothing evicted or "
+                             f"rejected: {out}")
+    return out
 
 
 def bucket_digests(hs, name: str) -> dict:
@@ -1036,6 +1232,9 @@ def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
 
     log = hs.session.build_stats_log
     logged = len(log)
+    # A build reads no cached column: what queries left resident would
+    # only raise its peak.
+    device_cache().clear()
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
@@ -1069,6 +1268,7 @@ def phase_e(li: dict, root: str, dev) -> list:
 
     from hyperspace_tpu_torch import IndexConfig
 
+    device_cache().clear()
     src = os.path.join(root, "lineitem")
     chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
     config = IndexConfig(INDEX_NAME, INDEXED, INCLUDED)
@@ -1197,6 +1397,7 @@ def phase_f(root: str, dev) -> dict:
 
     from hyperspace_tpu_torch import IndexConfig
 
+    device_cache().clear()
     src = os.path.join(root, "sf10_lineitem")
     t0 = time.perf_counter()
     write_sf10_lineitem(src)
@@ -1267,10 +1468,13 @@ def plan_nodes(plan) -> list:
 def g_queries(phase: str, session, root: str, expected: dict, hybrid: bool,
               timed: int = 0) -> dict:
     """Each query over the changed source through ``li_lin``, checked
-    against numpy, with the launch counts set to 0 just before the
-    checking collect and read just after.  Without ``hybrid`` the plan
-    must hold no union.  Returns per query (Dataset, launches, stats,
-    the median wall of ``timed`` more collects or None)."""
+    against numpy on an empty device column cache, with the launch counts
+    set to 0 just before the checking collect and read just after.
+    Without ``hybrid`` the plan must hold no union.  Returns per query
+    its Dataset, launches and stats, and with ``timed`` the median wall
+    of ``timed`` cold collects (the cache emptied before each) and of
+    ``timed`` warm ones after a checked warm collect, with the stats of
+    the last."""
     from hyperspace_tpu_torch.ops import kernels
 
     session.conf.hybrid_scan_enabled = hybrid
@@ -1284,13 +1488,22 @@ def g_queries(phase: str, session, root: str, expected: dict, hybrid: bool,
         if not hybrid and {"Union", "BucketUnion"} & set(plan_nodes(plan)):
             raise AssertionError(f"{phase} {name}: a union without hybrid scan")
         want, keys = expected[name]
+        device_cache().clear()
         kernels.reset_launch_counts()
         require_rows(f"{phase} {name}", ds.collect(), want, keys)
         launches = kernels.launch_counts()
         stats = session.last_execution_stats
-        runs = [wall_ms(ds.collect) for _ in range(timed)]
-        out[name] = (ds, launches, stats,
-                     statistics.median(runs) if runs else None)
+        cold = [cold_ms(ds.collect) for _ in range(timed)]
+        if timed:
+            require_rows(f"{phase} {name} warm", ds.collect(), want, keys)
+        warm = [wall_ms(ds.collect) for _ in range(timed)]
+        out[name] = {
+            "ds": ds, "launches": launches, "stats": stats,
+            "cold_ms": statistics.median(cold) if cold else None,
+            "warm_ms": statistics.median(warm) if warm else None,
+            "cold_runs_ms": cold, "warm_runs_ms": warm,
+            "device_cache_cold": stats.get("device_cache"),
+            "warm_stats": session.last_execution_stats if warm else None}
     return out
 
 
@@ -1307,6 +1520,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
         steps[label] = now - t_phase
         t_phase = now
 
+    device_cache().clear()
     mut = os.path.join(root, "lineitem_mut")
     shutil.copytree(os.path.join(root, "lineitem"), mut, copy_function=os.link)
     path = os.path.join(root, "g_indexes")
@@ -1354,9 +1568,10 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
                                  f"used without hybrid scan")
     step("quick refresh")
 
-    rows_out = []
-    for name, (ds, launches, stats, _) in g_queries(
-            "phase G hybrid", session, root, expected, True).items():
+    rows_out, splits = [], {}
+    for name, q in g_queries("phase G hybrid", session, root, expected, True,
+                             timed=TIMED_QUERY_RUNS).items():
+        ds, launches, stats = q["ds"], q["launches"], q["stats"]
         join = name.endswith("join")
         plan = ds.optimized_plan()
         if ("BucketUnion" if join else "Union") not in plan_nodes(plan) \
@@ -1375,24 +1590,34 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
                          {"hash_buckets": int(join), "bucket_histogram": 0})
         if join:
             by_path["hybrid_route"] = launches
-        indexed = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+            device_cache().clear()
+            splits[f"hybrid {name}"] = {"cold": stage_breakdown(ds.collect),
+                                        "warm": stage_breakdown(ds.collect)}
+        device_cache().clear()
         profiled = profile_query(dev, ds.collect)
         session.disable_hyperspace()
         want, keys = expected[name]
+        device_cache().clear()
         require_rows(f"phase G {name} source", ds.collect(), want, keys)
-        scan = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        scan = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
         session.enable_hyperspace()
-        indexed_ms, scan_ms = statistics.median(indexed), statistics.median(scan)
+        scan_ms = statistics.median(scan)
         rows_out.append({
             "name": f"hybrid {name}", "rows": len(next(iter(want.values()))),
-            "indexed_ms": indexed_ms, "scan_ms": scan_ms,
-            "speedup": scan_ms / indexed_ms, **profiled,
+            "indexed_cold_ms": q["cold_ms"], "indexed_warm_ms": q["warm_ms"],
+            "scan_cold_ms": scan_ms,
+            "speedup_cold": scan_ms / q["cold_ms"],
+            "speedup_warm": scan_ms / q["warm_ms"], **profiled,
             "device_ops": profiled["device_ops"][:10],
             "pruned_buckets": [len(b) if b is not None else None
                                for _, b in index_scans(plan)],
             "files_read": sum(s["files_read"] for s in stats["scans"]),
             "hybrid_route_launches": launches,
-            "indexed_runs_ms": indexed, "scan_runs_ms": scan})
+            "device_cache_cold": q["device_cache_cold"],
+            "device_cache_warm": q["warm_stats"].get("device_cache"),
+            "indexed_cold_runs_ms": q["cold_runs_ms"],
+            "indexed_warm_runs_ms": q["warm_runs_ms"], "scan_cold_runs_ms": scan})
+    resident_hybrid = resident_mib()
     step("hybrid queries")
 
     rec = timed_build(dev, "G refresh incremental", hs,
@@ -1408,10 +1633,18 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
     # The same source through the clean index: what the hybrid merge
     # costs on top of the 200-bucket plan.
     clean = g_queries("phase G incremental", session, root, expected, False,
-                      timed=3)
+                      timed=TIMED_QUERY_RUNS)
     for row in rows_out:
-        ms = clean[row["name"].split()[-1]][3]
-        row.update(clean_index_ms=ms, hybrid_over_clean=row["indexed_ms"] / ms)
+        q = clean[row["name"].split()[-1]]
+        # The clean index's columns are cached per bucket file set.
+        require_warm(f"phase G clean {row['name']}", q["warm_stats"])
+        row.update(clean_cold_ms=q["cold_ms"], clean_warm_ms=q["warm_ms"],
+                   hybrid_over_clean=row["indexed_cold_ms"] / q["cold_ms"],
+                   clean_device_cache_warm=q["warm_stats"]["device_cache"])
+    device_cache().clear()
+    join_ds = clean["join"]["ds"]
+    splits["clean join"] = {"cold": stage_breakdown(join_ds.collect),
+                            "warm": stage_breakdown(join_ds.collect)}
     step("incremental")
 
     appended.append(g_append(mut, G_APPENDED, G_APPENDED_AGAIN, 31))
@@ -1456,9 +1689,13 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
         rec.pop("outcome", None)
     shutil.rmtree(path, ignore_errors=True)
     shutil.rmtree(mut, ignore_errors=True)
+    resident_end = resident_mib()
+    device_cache().clear()
     return {"builds": builds, "queries": rows_out, "launches_by_path": by_path,
             "two_version_buckets": len(two_versions), "rows": rows,
-            "steps_s": steps}
+            "steps_s": steps, "join_splits": splits,
+            "resident_mib_hybrid": resident_hybrid,
+            "resident_mib_end": resident_end}
 
 
 def call_ms(fn, flush) -> float:
@@ -1630,6 +1867,15 @@ def measure(dev, keys: np.ndarray, launches: dict, by_path: dict,
                 "hyperspace_tpu/ops/pallas_kernels.py:145", hist_rows)]
 
 
+def print_split(label: str, split: dict) -> None:
+    """One line per temperature of a ``stage_breakdown`` pair."""
+    for temp in ("cold", "warm"):
+        print(f"{label} split {temp}: "
+              + json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                            for k, v in split[temp].items()
+                            if k != "worker_busy_ms"}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1690,9 +1936,24 @@ def main() -> int:
         if missing:
             raise AssertionError(f"phase D: kernels not launched by the "
                                  f"{ORDERS_INDEX} build: {missing}")
+        for q in d["queries"]:
+            print(f"phase D {q['name']}: indexed cold {q['indexed_cold_ms']:.1f} "
+                  f"warm {q['indexed_warm_ms']:.1f} ms, host route "
+                  f"{q['host_route_ms']:.1f} ms, scan cold {q['scan_cold_ms']:.1f} "
+                  f"warm {q['scan_warm_ms']:.1f} ms; host/device cold "
+                  f"{q['host_over_device_cold']:.2f} warm "
+                  f"{q['host_over_device_warm']:.2f}; cache cold "
+                  f"{json.dumps(q['device_cache_cold'])} warm "
+                  f"{json.dumps(q['device_cache_warm'])}", flush=True)
+        for q in d["queries"]:
+            if q["name"] in ("join", "q3"):
+                print_split(f"phase D {q['name']}", q["stages"])
+        print(f"phase D q3 eviction: {json.dumps(d['eviction'])}", flush=True)
         print(f"phase D: {ORDERS_INDEX} built in {d['build_s']:.3f} s; "
               f"{len(d['queries'])} queries equal to numpy with indexes on "
-              f"and off ({time.perf_counter() - t0:.3f} s)", flush=True)
+              f"(cold, warm, host route) and off (cold, warm); "
+              f"{d['resident_mib_end']:.1f} MiB resident at the end "
+              f"({time.perf_counter() - t0:.3f} s)", flush=True)
         t0 = time.perf_counter()
         builds = phase_e(li, root, dev)
         for b in builds:
@@ -1700,7 +1961,8 @@ def main() -> int:
                   f"{json.dumps(b['launches'])}, phases "
                   f"{json.dumps(b['phases'])}", flush=True)
         print(f"phase E: three SF1 builds bit-equal in every bucket, refresh, "
-              f"noop refresh, delete/restore/vacuum checked "
+              f"noop refresh, delete/restore/vacuum checked; "
+              f"{resident_mib():.1f} MiB resident at the end "
               f"({time.perf_counter() - t0:.3f} s)", flush=True)
         t0 = time.perf_counter()
         g = phase_g(orders, li, root, dev)
@@ -1710,13 +1972,19 @@ def main() -> int:
                   f"{json.dumps(b['launches'])}, phases "
                   f"{json.dumps(b['phases'])}", flush=True)
         for q in g["queries"]:
-            print(f"phase G {q['name']}: {q['indexed_ms']:.1f} ms, "
-                  f"{q['speedup']:.2f}x the scan, {q['hybrid_over_clean']:.2f}x "
-                  f"the clean index, busy {q['busy_share']:.4f}", flush=True)
+            print(f"phase G {q['name']}: cold {q['indexed_cold_ms']:.1f} warm "
+                  f"{q['indexed_warm_ms']:.1f} ms, {q['speedup_cold']:.2f}x the "
+                  f"scan cold, {q['hybrid_over_clean']:.2f}x the clean index "
+                  f"(clean cold {q['clean_cold_ms']:.1f} warm "
+                  f"{q['clean_warm_ms']:.1f} ms), busy {q['busy_share']:.4f}, "
+                  f"cache warm {json.dumps(q['device_cache_warm'])}", flush=True)
+        for label, split in g["join_splits"].items():
+            print_split(f"phase G {label}", split)
         print(f"phase G: lineage create, quick refresh, hybrid queries, "
               f"incremental refreshes ({g['rows']} rows, "
               f"{g['two_version_buckets']} buckets in two versions), optimize "
-              f"checked ({time.perf_counter() - t0:.3f} s; by step "
+              f"checked; {g['resident_mib_end']:.1f} MiB resident at the end "
+              f"({time.perf_counter() - t0:.3f} s; by step "
               f"{json.dumps(g['steps_s'])})", flush=True)
         del orders
         t0 = time.perf_counter()
@@ -1725,7 +1993,8 @@ def main() -> int:
         print(f"phase F: {SF10_INDEX} over {f['rows']} rows in {f['chunks']} "
               f"chunks, wall {f['wall_s']:.3f} s, phases "
               f"{json.dumps(f['phases'])}, peak RSS {f['peak_rss_mb']:.0f} MB, "
-              f"card peak {f['max_memory_allocated'] / 2**20:.0f} MiB "
+              f"card peak {f['max_memory_allocated'] / 2**20:.0f} MiB, "
+              f"{resident_mib():.1f} MiB resident at the end "
               f"({time.perf_counter() - t0:.3f} s, datagen "
               f"{f['datagen_s']:.3f} s)", flush=True)
     finally:
@@ -1747,7 +2016,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"builds": builds}))
     print(json.dumps({"queries": d["queries"], "launches": d["launches"],
-                      "hybrid_queries": g["queries"]}))
+                      "eviction": d["eviction"],
+                      "hybrid_queries": g["queries"],
+                      "join_splits": g["join_splits"]}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

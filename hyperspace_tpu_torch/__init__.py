@@ -10,8 +10,10 @@ the join bucket by bucket with a sorted equi-join in each bucket, a
 GROUP BY as a sort and segment reductions, and the TPC-H Q3/Q10 shape
 (``filter ⋈ index``, ``group_by``, ``agg``, ``sort`` by the aggregate,
 ``limit``) as one fused join→aggregate whose joined rows stay on the
-device.  The JAX package ``hyperspace_tpu`` is the reference; this
-package imports nothing of it, and no ``jax``.
+device.  A repeat query over the same index files takes their columns
+from card memory (``execution/device_cache.py``) instead of converting
+and uploading them again.  The JAX package ``hyperspace_tpu`` is the
+reference; this package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,14 +1,18 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
-holding the fields the build, the refresh and optimize verbs and the
-query path read; defaults are the JAX package's but for the routing
-thresholds).
+holding the fields the build, the refresh and optimize verbs, the query
+path and the device column cache read; defaults are the JAX package's
+but for the routing thresholds).
 
-The JAX package derives ``device_min_rows`` from a calibration of the
-attachment, falling back to 2**26 rows; calibration is not ported, so
-the port's thresholds default to 0: every filter, join and grouped
+The JAX package derives ``device_min_rows`` and ``resident_min_rows``
+from a calibration of the attachment, falling back to 2**26 cold and
+2**22-2**24 resident rows; calibration (``utils/calibrate.py``) is not
+ported yet and will replace these defaults, so the port's thresholds,
+the resident one included, default to 0: every filter, join and grouped
 aggregate takes the device path, as the port's build does.  A threshold
 set above a batch's rows sends that batch to the host route (arrow
-predicate, numpy join, arrow group-by), as in the JAX package."""
+predicate, numpy join, arrow group-by), as in the JAX package; once the
+batch's columns are resident in the device column cache, the resident
+threshold governs instead, so a host route needs both raised."""
 
 from __future__ import annotations
 
@@ -62,6 +66,17 @@ class HyperspaceConf:
     device_filter_min_rows: int = 0
     device_join_min_rows: int = 0
     device_agg_min_rows: int = 0
+    # The device column cache (execution/device_cache.py): byte budget
+    # for the post-decode columns kept on the device across queries,
+    # keyed by file identity; 0 disables it.
+    device_cache_bytes: int = 1 << 30
+    # "auto": cache when the device path runs anyway; "eager": take the
+    # device on first use for scans whose columns can be cached (pay the
+    # upload once, serve repeats from card memory); "off": never cache.
+    device_cache_policy: str = "auto"
+    # Rows from which an operation whose inputs are already resident (or
+    # will be, under "eager") runs on the device; every kind.
+    device_resident_min_rows: int = 0
 
     def device_min_rows(self, kind: str) -> int:
         """The host-versus-device threshold of ``kind`` ("filter", "join",
@@ -70,3 +85,9 @@ class HyperspaceConf:
         device decision with the aggregation behind it."""
         field = "join" if kind == "join_agg" else kind
         return int(getattr(self, f"device_{field}_min_rows"))
+
+    def resident_min_rows(self, kind: str) -> int:
+        """The threshold of ``kind`` when its inputs are already on the
+        device (only the round trip is left to repay); one value for
+        every kind until calibration derives them."""
+        return int(self.device_resident_min_rows)

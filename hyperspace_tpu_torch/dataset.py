@@ -2,7 +2,7 @@
 what ``session.read.parquet`` returns, what ``Hyperspace.create_index``
 takes, and the query verbs ``filter``, ``select`` (column names),
 ``join``, ``group_by(...).agg(...)``, ``agg``, ``sort``, ``limit``,
-``collect`` and ``count``.
+``cache``, ``collect`` and ``count``.
 
 ``collect()`` optimizes the plan (the index rules run when hyperspace is
 enabled on the session), executes it into an arrow table and publishes
@@ -19,6 +19,7 @@ from hyperspace_tpu_torch.plan.expr import Expr
 from hyperspace_tpu_torch.plan.nodes import (
     Aggregate,
     Filter,
+    InMemory,
     Join,
     Limit,
     LogicalPlan,
@@ -97,6 +98,13 @@ class Dataset:
 
     def limit(self, n: int) -> "Dataset":
         return Dataset(Limit(n, self.plan), self.session)
+
+    def cache(self) -> "Dataset":
+        """This dataset's result now, as a Dataset over the in-memory
+        table: later queries over it read no file, and later changes of
+        the files do not reach it.  Keeping index columns on the device
+        is the device column cache's job (execution/device_cache.py)."""
+        return Dataset(InMemory(self.collect()), self.session)
 
     def optimized_plan(self) -> LogicalPlan:
         return self.session.optimize(self.plan)

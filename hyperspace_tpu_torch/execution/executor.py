@@ -39,28 +39,49 @@ Scan semantics: ``relation.file_paths`` replaces the listing of the root
 paths (index scans); ``relation.prune_to_buckets`` drops index files
 whose bucket id (from the file name) is not wanted.
 
-``stats`` records per scan the files and rows read, per filter and per
-join kernel the route taken ("device" or "host") and its rows, per join
-"bucketed" (with whether a side was hybrid), "plain" or
-"device-fused-agg", and per device aggregate "device-segment" or
-"device-join-agg" (with its groups and ``topn``); ``Dataset.collect``
-publishes it as ``session.last_execution_stats``.
+Identity and residency: every scan's output table is registered with
+the fingerprint of the files it read (``device_cache.files_fingerprint``:
+paths, sizes, mtimes), a column selection keeps it, and a filter's
+output and a join side without its null keys get a derived fingerprint
+(the parent's hashed with ``filter:<condition>`` or ``dropnull:<keys>``).
+A column of an identified table is converted and uploaded once per
+(device, fingerprint, column, kind) into the process-wide
+``device_cache.global_cache()``, and later queries over the same files
+take it from there (``_device_column``).  Routing follows the JAX
+package: an operation whose every input column is resident (or, under
+the "eager" policy, cacheable) compares its rows with
+``conf.resident_min_rows`` instead of ``conf.device_min_rows``.
 
-Not ported: every other plan node, the device column cache (columns are
-uploaded per query) and the resident thresholds, the mesh filter, join
-and aggregates, residual join predicates, the lake formats, hypothetical
-scans and the telemetry spans.  pyarrow is imported inside the
-functions.
+``stats`` records per scan the files and rows read, per filter and per
+join kernel the route taken ("device" or "host"), its rows and whether
+its inputs were resident, per join "bucketed" (with whether a side was
+hybrid), "plain" or "device-fused-agg" (with ``resident``), per device
+aggregate "device-segment" or "device-join-agg" (with its groups,
+``resident`` and ``topn``) and, when the cache was consulted,
+``device_cache`` hits and misses; ``Dataset.collect`` publishes it as
+``session.last_execution_stats``.
+
+Not ported: every other plan node, calibration of the cold and resident
+thresholds, ``finalize_stats``' memory gauges, the telemetry counters,
+spans and transfer timeline, the mesh filter, join and aggregates,
+residual join predicates, the lake formats and hypothetical scans.
+pyarrow is imported inside the functions.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.execution.device_cache import (
+    files_fingerprint,
+    global_cache,
+)
 from hyperspace_tpu_torch.io import columnar
 from hyperspace_tpu_torch.io.files import list_data_files
 from hyperspace_tpu_torch.io.parquet import (
@@ -101,6 +122,109 @@ class Executor:
     def __init__(self, session) -> None:
         self.session = session
         self.stats: Dict[str, list] = {"joins": [], "scans": []}
+        # File identity of the tables of THIS query, for the device
+        # column cache: id(table) -> (fingerprint, cacheable column
+        # names, the table itself, so that its id is not reused).
+        self._scan_fp: Dict[int, Tuple[str, frozenset, object]] = {}
+        # The per-query hit and miss counts are updated from the bucketed
+        # join's worker threads.
+        self._cache_lock = threading.Lock()
+
+    # -- device column cache ------------------------------------------------
+    def _register_scan_identity(self, table, paths) -> None:
+        conf = self.session.conf
+        if conf.device_cache_policy == "off" or conf.device_cache_bytes <= 0:
+            return
+        fp = files_fingerprint(paths)
+        if fp:
+            self._scan_fp[id(table)] = (fp, frozenset(table.column_names),
+                                        table)
+
+    def _scan_identity(self, table) -> Optional[Tuple[str, frozenset]]:
+        entry = self._scan_fp.get(id(table))
+        return (entry[0], entry[1]) if entry is not None else None
+
+    def _register_derived_identity(self, out, parent_identity,
+                                   transform: str) -> None:
+        """Identity of a table derived from an identified one by a
+        deterministic transform (a filter, a drop of null keys): the
+        parent's fingerprint hashed with the transform's text, so the
+        repeat of a query addresses the same cached columns, and another
+        predicate or file set addresses others."""
+        if parent_identity is None or out is None:
+            return
+        fp, cacheable = parent_identity
+        derived = hashlib.md5(f"{fp}|{transform}".encode()).hexdigest()
+        self._scan_fp[id(out)] = (
+            derived, cacheable & frozenset(out.column_names), out)
+
+    def _propagate_identity(self, out, parent) -> None:
+        """A column selection keeps its parent's rows and arrays, so it
+        keeps the parent's fingerprint."""
+        entry = self._scan_fp.get(id(parent))
+        if entry is None or out is None:
+            return
+        fp, cacheable, _table = entry
+        self._scan_fp[id(out)] = (
+            fp, cacheable & frozenset(out.column_names), out)
+
+    def _cache_key(self, identity, column: str, kind: str):
+        if identity is None:
+            return None
+        fp, cacheable = identity
+        return (str(self.session.device), fp, column, kind) \
+            if column in cacheable else None
+
+    def _all_resident(self, identity, pairs) -> bool:
+        """Whether every (column, kind) pair is cached for ``identity``."""
+        cache = global_cache()
+        keys = [self._cache_key(identity, c, k) for c, k in pairs]
+        return bool(keys) and all(k is not None and cache.contains(k)
+                                  for k in keys)
+
+    def _device_column(self, table, column: str, identity=None,
+                       kind: str = "num") -> "np.ndarray | torch.Tensor":
+        """The column in its device domain (``to_device_numeric``; the
+        "order" kind of the JAX package's group keys is the same int64
+        domain here): a tensor on the session's device from the cache
+        when the table's file identity is known (a miss converts,
+        uploads and caches it), else the host array, which the device op
+        uploads."""
+        key = self._cache_key(identity, column, kind)
+        if key is None:
+            return columnar.to_device_numeric(table.column(column))
+        cache = global_cache()
+        tensor = cache.get(key)
+        with self._cache_lock:
+            counters = self.stats.setdefault("device_cache",
+                                             {"hits": 0, "misses": 0})
+            counters["hits" if tensor is not None else "misses"] += 1
+        if tensor is not None:
+            return tensor
+        host = columnar.to_device_numeric(table.column(column))
+        tensor = torch.from_numpy(np.require(host, requirements="CW")) \
+            .to(self.session.device)
+        cache.put(key, tensor, self.session.conf.device_cache_bytes)
+        return tensor
+
+    def _cache_aware_min_rows(self, identity, pairs, kind: str) -> int:
+        """The routing threshold: ``device_min_rows(kind)``, or the lower
+        ``resident_min_rows(kind)`` when every input pair is cached for
+        this identity, or under "eager" when every one can be (no
+        computed column, none the budget rejected)."""
+        conf = self.session.conf
+        min_rows = conf.device_min_rows(kind)
+        if identity is None:
+            return min_rows
+        cache = global_cache()
+        keys = [self._cache_key(identity, c, k) for c, k in pairs]
+        eager_all_cacheable = (
+            conf.device_cache_policy == "eager"
+            and all(k is not None and not cache.was_rejected(k)
+                    for k in keys))
+        if eager_all_cacheable or self._all_resident(identity, pairs):
+            return min(min_rows, conf.resident_min_rows(kind))
+        return min_rows
 
     def execute(self, plan: LogicalPlan):
         if isinstance(plan, InMemory):
@@ -113,7 +237,10 @@ class Executor:
             if isinstance(plan.child, Scan):
                 # Read only the projected columns from disk.
                 return self._scan(plan.child, columns=plan.columns)
-            return self.execute(plan.child).select(plan.columns)
+            table = self.execute(plan.child)
+            out = table.select(plan.columns)
+            self._propagate_identity(out, table)
+            return out
         if isinstance(plan, Join):
             return self._join(plan)
         if isinstance(plan, Aggregate):
@@ -171,6 +298,7 @@ class Executor:
         if columns:
             out = out.select(columns)
         record["rows"] = out.num_rows
+        self._register_scan_identity(out, paths)
         return out
 
     # -- filter -------------------------------------------------------------
@@ -180,37 +308,45 @@ class Executor:
         table = self.execute(plan.child)
         if table.num_rows == 0:
             return table
-        return table.filter(pa.array(self._eval_predicate(plan.condition, table)))
+        out = table.filter(pa.array(self._eval_predicate(plan.condition, table)))
+        # The kept rows are a function of the files and the predicate.
+        self._register_derived_identity(out, self._scan_identity(table),
+                                        f"filter:{plan.condition!r}")
+        return out
 
     def _eval_predicate(self, expr: Expr, table) -> np.ndarray:
         """The device path needs at least one column, every referenced
         column numeric and null-free, and ``device_min_rows("filter")``
-        rows; all else takes the arrow path."""
+        rows (or the resident threshold); all else takes the arrow
+        path."""
         cols = expr.referenced_columns()
+        identity = self._scan_identity(table)
+        pairs = [(c, "num") for c in cols]
+        min_rows = self._cache_aware_min_rows(identity, pairs, "filter")
         on_device = bool(cols) \
-            and table.num_rows >= self.session.conf.device_min_rows("filter") \
+            and table.num_rows >= min_rows \
             and all(columnar.is_numeric_type(table.schema.field(c).type)
                     and table.column(c).null_count == 0 for c in cols) \
             and _device_compatible(expr, table)
-        self.stats.setdefault("filters", []).append({
-            "strategy": "device" if on_device else "host",
-            "rows": table.num_rows})
         if on_device:
-            return self._eval_device(expr, table)
+            resident = self._all_resident(identity, pairs)
+            mask = self._eval_device(expr, table, identity)
+            self.stats.setdefault("filters", []).append({
+                "strategy": "device", "rows": table.num_rows,
+                "resident": resident})
+            return mask
+        self.stats.setdefault("filters", []).append({
+            "strategy": "host", "rows": table.num_rows})
         return _eval_arrow(expr, table)
 
-    def _device_column(self, table, column: str) -> torch.Tensor:
-        """The column uploaded to the session's device (no cache)."""
-        host = columnar.to_device_numeric(table.column(column))
-        return torch.from_numpy(np.require(host, requirements="W")) \
-            .to(self.session.device)
-
-    def _eval_device(self, expr: Expr, table) -> np.ndarray:
+    def _eval_device(self, expr: Expr, table, identity) -> np.ndarray:
+        from hyperspace_tpu_torch.ops.aggregate import to_device
         from hyperspace_tpu_torch.ops.filter import compile_predicate
 
         order = sorted(expr.referenced_columns())
         fn, literals = compile_predicate(_normalize_literals(expr, table), order)
-        mask = fn([self._device_column(table, c) for c in order], literals)
+        mask = fn([to_device(self._device_column(table, c, identity, "num"),
+                             self.session.device) for c in order], literals)
         return mask.cpu().numpy()
 
     # -- join ---------------------------------------------------------------
@@ -249,6 +385,14 @@ class Executor:
         r_map = _valid_key_positions(right, r_keys)
         lv = left if len(l_map) == left.num_rows else left.take(pa.array(l_map))
         rv = right if len(r_map) == right.num_rows else right.take(pa.array(r_map))
+        # The rows with valid keys are a function of the files and the
+        # key columns: the sides keep a derived identity.
+        if lv is not left:
+            self._register_derived_identity(
+                lv, self._scan_identity(left), f"dropnull:{l_keys}")
+        if rv is not right:
+            self._register_derived_identity(
+                rv, self._scan_identity(right), f"dropnull:{r_keys}")
         li, ri = self._inner_match_pairs(lv, rv, l_keys, r_keys)
         li = l_map[li] if len(l_map) != left.num_rows else li
         ri = r_map[ri] if len(r_map) != right.num_rows else ri
@@ -295,22 +439,38 @@ class Executor:
         )
 
         max_rows = max(left.num_rows, right.num_rows)
-        use_device = max_rows >= self.session.conf.device_min_rows("join")
+        cold = self.session.conf.device_min_rows("join")
         if (len(l_keys) == 1
                 and columnar.is_numeric_type(left.schema.field(l_keys[0]).type)
                 and columnar.is_numeric_type(right.schema.field(r_keys[0]).type)):
-            lk = columnar.to_device_numeric(left.column(l_keys[0]))
-            rk = columnar.to_device_numeric(right.column(r_keys[0]))
+            # The cold threshold, or the resident one when both key
+            # columns are cached for their (maybe filter-derived) sides.
+            id_l = self._scan_identity(left)
+            id_r = self._scan_identity(right)
+            pl = [(l_keys[0], "num")]
+            pr = [(r_keys[0], "num")]
+            use_device = max_rows >= cold
+            if not use_device:
+                eff = max(self._cache_aware_min_rows(id_l, pl, "join"),
+                          self._cache_aware_min_rows(id_r, pr, "join"))
+                use_device = eff < cold and max_rows >= eff
+            resident = use_device and self._all_resident(id_l, pl) \
+                and self._all_resident(id_r, pr)
             if use_device:
+                lk = self._device_column(left, l_keys[0], id_l, "num")
+                rk = self._device_column(right, r_keys[0], id_r, "num")
                 li, ri = sorted_equi_join(lk, rk, self.session.device)
             else:
-                li, ri = sorted_equi_join_np(lk, rk)
+                li, ri = sorted_equi_join_np(
+                    columnar.to_device_numeric(left.column(l_keys[0])),
+                    columnar.to_device_numeric(right.column(r_keys[0])))
             self.stats.setdefault("join_kernels", []).append({
                 "strategy": "device" if use_device else "host",
-                "rows": int(max_rows)})
+                "rows": int(max_rows), "resident": resident})
             return np.asarray(li, dtype=np.int64), np.asarray(ri, dtype=np.int64)
         # Composite or string keys: the digest join with exact
         # verification; pandas only for key pairs with no common domain.
+        use_device = max_rows >= cold
         try:
             li, ri = hashed_equi_join(
                 left, right, l_keys, r_keys,
@@ -513,6 +673,9 @@ class Executor:
         import pyarrow as pa
         import pyarrow.compute as pc
 
+        # The identity of the table as read: the hidden columns appended
+        # below are computed per query and never cacheable.
+        identity = self._scan_identity(table)
         # Expression inputs become hidden columns first, so the
         # reductions see plain columns.
         agg_inputs: List = []
@@ -530,7 +693,8 @@ class Executor:
         specs = [([] if func == "count_all" else agg_inputs[i], func)
                  for i, (func, _in, _out) in enumerate(plan.aggs)]
         if plan.group_by:
-            device = self._try_device_aggregate(table, plan, agg_inputs)
+            device = self._try_device_aggregate(table, plan, agg_inputs,
+                                                identity)
             if device is not None:
                 return device
             keys = list(plan.group_by)
@@ -569,21 +733,27 @@ class Executor:
         return pa.table({n: [v] for n, v in zip(names, values)})
 
     def _try_device_aggregate(self, table, plan: Aggregate,
-                              agg_inputs: List[str]):
+                              agg_inputs: List[str], identity=None):
         """A GROUP BY on the device (``ops.aggregate.grouped_aggregate``),
         or None for the arrow route.  It needs ``device_min_rows("agg")``
-        rows, integer or bool group keys without nulls (float keys would
-        split arrow's one NaN group by bit pattern), null-free int or
-        float inputs, and only sum/min/max/mean/count/count_all.  Groups
-        come back in ascending key order (GROUP BY leaves the order
-        open, as on the arrow route)."""
+        rows (the resident threshold when its columns are cached for
+        ``identity``), integer or bool group keys without nulls (float
+        keys would split arrow's one NaN group by bit pattern), null-free
+        int or float inputs, and only sum/min/max/mean/count/count_all.
+        Groups come back in ascending key order (GROUP BY leaves the
+        order open, as on the arrow route)."""
         import pyarrow as pa
         import pyarrow.compute as pc
 
         from hyperspace_tpu_torch.ops.aggregate import AGG_OPS, grouped_aggregate
 
-        if table.num_rows == 0 \
-                or table.num_rows < self.session.conf.device_min_rows("agg"):
+        if table.num_rows == 0:
+            return None
+        pairs = [(k, "order") for k in plan.group_by] + [
+            (agg_inputs[i], "num")
+            for i, (func, _in, _out) in enumerate(plan.aggs)
+            if func not in ("count", "count_all")]
+        if table.num_rows < self._cache_aware_min_rows(identity, pairs, "agg"):
             return None
         if any(func not in AGG_OPS for func, _i, _o in plan.aggs):
             return None
@@ -608,16 +778,19 @@ class Executor:
             if not (pa.types.is_integer(t) or pa.types.is_floating(t)) \
                     or pa.types.is_uint64(t) or column.null_count > 0:
                 return None
-        key_cols = [self._device_column(table, k) for k in plan.group_by]
+        resident = self._all_resident(identity, pairs)
+        key_cols = [self._device_column(table, k, identity, "order")
+                    for k in plan.group_by]
         # One column per aggregate that is not a count.
-        value_cols = [self._device_column(table, agg_inputs[i])
+        value_cols = [self._device_column(table, agg_inputs[i], identity, "num")
                       for i, (func, _in, _out) in enumerate(plan.aggs)
                       if func not in ("count", "count_all")]
         first_rows, counts, results = grouped_aggregate(
-            key_cols, value_cols, [f for f, _i, _o in plan.aggs])
+            key_cols, value_cols, [f for f, _i, _o in plan.aggs],
+            device=self.session.device)
         self.stats.setdefault("aggregates", []).append({
             "strategy": "device-segment", "groups": int(len(first_rows)),
-            "rows": table.num_rows})
+            "rows": table.num_rows, "resident": resident})
         # Only the key columns are gathered.
         taken = table.select(list(plan.group_by)).take(pa.array(first_rows))
         data = {k: taken.column(k) for k in plan.group_by}
@@ -740,9 +913,11 @@ class Executor:
         expression and reductions on the device, only per-group results
         back.
 
-        Returns None to leave the plan alone (another shape, or the join
-        threshold above 1 << 22 rows, where the JAX package also keeps
-        its bucketed host route); ("done", table) with the fused result;
+        Returns None to leave the plan alone (another shape; the join
+        threshold above 1 << 22 rows without the "eager" cache policy,
+        where the JAX package also keeps its bucketed host route; or
+        footers' row counts under both the cold and the resident
+        threshold); ("done", table) with the fused result;
         or ("joined", table) when the sides were read and a check after
         the read failed: the sides joined on the host, for the caller to
         aggregate.  Each of these is a routing decision; an error of a
@@ -759,8 +934,11 @@ class Executor:
         child = plan.child
         if not isinstance(child, Join) or child.how != "inner":
             return None
-        threshold = conf.device_min_rows("join_agg")
-        if threshold > (1 << 22):
+        # The plausibility gate: "eager" (pay the upload once, serve
+        # repeats from card memory) or a cold threshold low enough that
+        # a cold device join can win.
+        if conf.device_cache_policy != "eager" \
+                and conf.device_min_rows("join_agg") > (1 << 22):
             return None
         if any(func not in self._JOIN_AGG_OPS for func, _i, _o in plan.aggs):
             return None
@@ -773,12 +951,15 @@ class Executor:
             return None
         if not self._join_agg_static_pregate(plan, child):
             return None
-        # When even the footers' row counts are under the threshold, the
-        # device cannot be taken: nothing is read for the attempt.
+        # When even the footers' row counts are under the lower of the
+        # cold and resident thresholds, the device cannot be taken:
+        # nothing is read for the attempt.
+        lo_thresh = min(conf.device_min_rows("join_agg"),
+                        conf.resident_min_rows("join_agg"))
         est_l = self._plan_row_upper_bound(child.left)
         est_r = self._plan_row_upper_bound(child.right)
         if est_l is not None and est_r is not None \
-                and max(est_l, est_r) < threshold:
+                and max(est_l, est_r) < lo_thresh:
             return None
 
         left = self.execute(child.left)
@@ -804,12 +985,17 @@ class Executor:
         if not (columnar.is_numeric_type(left.schema.field(lk_name).type)
                 and columnar.is_numeric_type(right.schema.field(rk_name).type)):
             return fallback()
-        # An inner join never matches a null key: drop those rows first.
+        # An inner join never matches a null key: drop those rows first,
+        # with a derived identity, so residency carries across repeats.
         lv, rv = left, right
         if left.column(lk_name).null_count > 0:
             lv = left.filter(pc.is_valid(left.column(lk_name)))
+            self._register_derived_identity(
+                lv, self._scan_identity(left), f"dropnull:{lk_name}")
         if right.column(rk_name).null_count > 0:
             rv = right.filter(pc.is_valid(right.column(rk_name)))
+            self._register_derived_identity(
+                rv, self._scan_identity(right), f"dropnull:{rk_name}")
         if lv.num_rows == 0 or rv.num_rows == 0:
             return fallback()
 
@@ -864,16 +1050,32 @@ class Executor:
                     return fallback()
                 agg_ref_names.append(r)
 
-        max_rows = max(lv.num_rows, rv.num_rows)
-        if max_rows < threshold:
-            return fallback()
+        # Routing: the cold threshold, or the resident (or eager) one when
+        # every referenced column of each side is cached for that side's
+        # (maybe filter-derived) identity.
         referenced = set(plan.group_by) | set(agg_ref_names)
         need_l = sorted({lk_name} | {c for c in referenced
                                      if side_of(c) == "l"})
         need_r = sorted({rk_name} | {c for c in referenced
                                      if side_of(c) == "r"})
+        id_l, id_r = self._scan_identity(lv), self._scan_identity(rv)
+        pl = [(c, "num") for c in need_l]
+        pr = [(c, "num") for c in need_r]
+        max_rows = max(lv.num_rows, rv.num_rows)
+        cold = conf.device_min_rows("join_agg")
+        use_device = max_rows >= cold
+        if not use_device:
+            eff = max(self._cache_aware_min_rows(id_l, pl, "join_agg"),
+                      self._cache_aware_min_rows(id_r, pr, "join_agg"))
+            use_device = eff < cold and max_rows >= eff
+        if not use_device:
+            return fallback()
+        resident = self._all_resident(id_l, pl) and self._all_resident(id_r, pr)
         ref_order = [("l", c) for c in need_l] + [("r", c) for c in need_r]
         col_ix = {c: i for i, (_s, c) in enumerate(ref_order)}
+        columns = [self._device_column(table_of(s), c,
+                                       id_l if s == "l" else id_r, "num")
+                   for s, c in ref_order]
         value_fns, lits_list = [], []
         for func, agg_in, _out in plan.aggs:
             if func in ("count", "count_all"):
@@ -885,16 +1087,16 @@ class Executor:
                 return fallback()
             value_fns.append(fn)
             lits_list.append(lits)
-        columns = [self._device_column(table_of(s), c) for s, c in ref_order]
         li_first, ri_first, counts, results = join_group_aggregate(
             columns[col_ix[lk_name]], columns[col_ix[rk_name]], columns,
             [s for s, _c in ref_order], [col_ix[k] for k in plan.group_by],
-            [f for f, _i, _o in plan.aggs], value_fns, lits_list, topn=topn)
+            [f for f, _i, _o in plan.aggs], value_fns, lits_list, topn=topn,
+            device=self.session.device)
         self.stats["joins"].append({"strategy": "device-fused-agg",
-                                    "how": "inner"})
+                                    "how": "inner", "resident": resident})
         self.stats.setdefault("aggregates", []).append({
             "strategy": "device-join-agg", "groups": int(len(counts)),
-            "rows": int(max_rows),
+            "rows": int(max_rows), "resident": resident,
             "topn": None if topn is None else int(topn[2])})
         data = {}
         for k in plan.group_by:

@@ -82,12 +82,14 @@ def sorted_equi_join(left_keys: Keys, right_keys: Keys,
     """Inner equi-join on one numeric key: (left_indices, right_indices)
     into the inputs, as int64 numpy arrays, in left-row order.
 
-    numpy keys are narrowed to int32 when both sides allow it, then
-    uploaded to ``device`` (``cuda`` when None); tensor keys stay on
-    their own device, unnarrowed, like the JAX package's resident
-    arrays."""
+    Two numpy key arrays are narrowed to int32 when both sides allow it,
+    then uploaded to ``device`` (``cuda`` when None).  Tensor keys (the
+    device column cache's) stay on their own device, unnarrowed, like the
+    JAX package's resident arrays, and a numpy side beside one is
+    uploaded to that device as it is.  Neither input is written."""
     empty = (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64))
-    if isinstance(left_keys, np.ndarray) and isinstance(right_keys, np.ndarray):
+    tensors = [k for k in (left_keys, right_keys) if isinstance(k, torch.Tensor)]
+    if not tensors:
         if (np.issubdtype(left_keys.dtype, np.integer)
                 and np.issubdtype(right_keys.dtype, np.integer)
                 and left_keys.size and right_keys.size
@@ -95,11 +97,13 @@ def sorted_equi_join(left_keys: Keys, right_keys: Keys,
             left_keys = left_keys.astype(np.int32, copy=False)
             right_keys = right_keys.astype(np.int32, copy=False)
         device = torch.device(device if device is not None else "cuda")
-        lk = torch.from_numpy(np.require(left_keys, requirements="CW")).to(device)
-        rk = torch.from_numpy(np.require(right_keys, requirements="CW")).to(device)
     else:
-        lk = torch.as_tensor(left_keys)
-        rk = torch.as_tensor(right_keys, device=lk.device)
+        device = tensors[0].device
+    lk, rk = (k if isinstance(k, torch.Tensor)
+              else torch.from_numpy(np.require(k, requirements="CW")).to(device)
+              for k in (left_keys, right_keys))
+    if lk.device != rk.device:
+        raise ValueError(f"join keys on two devices: {lk.device}, {rk.device}")
     if lk.numel() == 0 or rk.numel() == 0:
         return empty
     left_idx, right_idx = match_pairs(lk, rk)

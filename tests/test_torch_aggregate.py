@@ -294,9 +294,15 @@ def _session(pkg, system_path, threshold):
     s.conf.device_join_min_rows = threshold
     s.conf.device_agg_min_rows = threshold
     if pkg is hyperspace_tpu:
-        # The port has no mesh and no device column cache.
+        # The port has no mesh: the JAX package's single-device path,
+        # uncached.
         s.conf.mesh_enabled = "off"
         s.conf.device_cache_policy = "off"
+    else:
+        # The port's device column cache stays on, so the repeats of a
+        # query are answered from its cached columns; residency never
+        # lowers a threshold here, so routes stay the uncached ones.
+        s.conf.device_resident_min_rows = HIGH
     return s
 
 

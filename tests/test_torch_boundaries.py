@@ -42,7 +42,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "actions/restore.py", "actions/vacuum.py",
                    "actions/cancel.py", "lifecycle/change_detector.py",
                    "actions/optimize.py", "rules/hybrid.py",
-                   "ops/aggregate.py", "ops/join_agg.py"):
+                   "ops/aggregate.py", "ops/join_agg.py",
+                   "execution/device_cache.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -60,7 +61,8 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                if p.endswith(".py") and p.startswith(PORT)]
     assert len(sources) > 20
     for module in ("actions/optimize.py", "actions/refresh.py",
-                   "rules/hybrid.py", "ops/aggregate.py", "ops/join_agg.py"):
+                   "rules/hybrid.py", "ops/aggregate.py", "ops/join_agg.py",
+                   "execution/device_cache.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -153,7 +155,8 @@ def test_the_spill_build_and_the_lifecycle_verbs_import_no_jax(tmp_path):
 
 def test_queries_through_the_port_import_no_jax(tmp_path):
     """A filter query and a join query, each rewritten to the indexes,
-    through ``collect()``."""
+    through ``collect()``, and the join again from the device column
+    cache."""
     script = textwrap.dedent(f"""
         import os, sys
         import numpy as np
@@ -181,6 +184,10 @@ def test_queries_through_the_port_import_no_jax(tmp_path):
         assert s.last_execution_stats["scans"][0]["is_index"]
         assert a.join(b, col("k") == col("j")).collect().num_rows > 0
         assert s.last_execution_stats["joins"][0]["strategy"] == "bucketed"
+        assert a.join(b, col("k") == col("j")).collect().num_rows > 0
+        assert s.last_execution_stats["device_cache"]["misses"] == 0
+        assert all(d["resident"]
+                   for d in s.last_execution_stats["join_kernels"])
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

@@ -69,7 +69,9 @@ def _session(pkg, system_path, lineage=False, batch_rows=1 << 20):
     s.conf.device_filter_min_rows = 0
     s.conf.device_join_min_rows = 0
     if pkg is hyperspace_tpu:
-        # The port's single-device path: no mesh, no device column cache.
+        # The port's single-device path: no mesh; the JAX side uncached,
+        # the port's cache on, so changed files must never be served
+        # from it.
         s.conf.parallel_build = "off"
         s.conf.mesh_enabled = "off"
         s.conf.device_cache_policy = "off"
