@@ -143,6 +143,34 @@ beside it.
            empty cache, every timed build empties it first (so the
            card's peak is the build's own), and each phase prints the
            MiB resident at its end.
+  phase H  calibration, build reports and data skipping, run after
+           phase D over its data and indexes.  Phases A-G pin every
+           routing threshold (0: the device routes, ``set_min_rows``),
+           so the calibration probe first runs here: its profile
+           (latency, h2d and d2h MB/s, host Mrows/s per kind, the cold
+           and resident threshold per kind, ``calibrated`` required
+           true) and its own seconds.  Then phase D's seven queries in a
+           session with every threshold left at None, each run cold in
+           turns with phase D's device route (thresholds 0) and host
+           route (above every row count), then warm, each route after a
+           checked run of its own (the host route reads no cached
+           column, so its warm time is its cold one); each route's first
+           cold answer and its warm-up answer held to numpy; per query
+           the route calibration chose ("device",
+           "host" or "mixed" over its filters, join kernels and
+           aggregates), its ms, and the faster of the other two.  Then one
+           SF1 ``create_index`` at the calibrated defaults, its route
+           and launches printed and every bucket's sha256 held to phase
+           C's.  Then a data-skipping index ``li_ds`` on ``l_shipdate``
+           (timed) and bench.py's ``ds_range`` (``l_shipdate`` in
+           [300,000, 390,000)) cold with hyperspace on and off: files
+           kept of all (2 of 64), ms, the answer held to numpy; and
+           q10's plan with ``li_ds`` present.  After phase G it prints
+           the build reports of phase C's create, phase E's pipelined
+           spill build and phase G's first incremental refresh and
+           quick optimize; every timed build's report (phases C, E, G,
+           F) has its ``bytes_written`` and ``files_written`` held to
+           the data files of the version it wrote.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -164,10 +192,11 @@ and, for the histogram, ``torch.bincount``'s device time by the profiler
 (it synchronises, so no graph holds it).  Each kernel row carries its
 launches on every path the script drives (``launches_by_path``); the
 chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
-the builds JSON (phases E, G and F), the queries JSON (phase D's with
-its ``eviction`` run, phase G's as ``hybrid_queries`` and phase G's
-stage splits as ``join_splits``), the kernels JSON, the card's name and
-power limit, and ``{"ok": true, "device": ...}``.
+the builds JSON (phases E, G and F, each with its build ``report``), the
+queries JSON (phase D's with its ``eviction`` run, phase G's as
+``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
+H's under ``calibration``), the kernels JSON, the card's name and power
+limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -238,6 +267,12 @@ G_APPENDED_AGAIN = 2            # files appended before the last refresh
 G_QUERY_COLUMNS = ("l_orderkey", "l_quantity", "l_extendedprice",
                    "l_discount")
 
+# Phase H: bench.py's ds_range window over SF1 (l_shipdate is the row
+# number, ROWS_PER_FILE rows a file, so it spans files 3 and 4).
+DS_INDEX = "li_ds"
+DS_RANGE = (N_LINEITEM // 20, N_LINEITEM * 13 // 200)
+DS_WANT_FILES = (2, N_FILES)
+CALIBRATED_INDEX = "li_cal"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -543,6 +578,28 @@ def check_index_files(phase: str, hs, name: str, key: str, rows: int,
     return files_by_bucket
 
 
+def checked_report(label: str, hs) -> dict:
+    """The last build report of ``hs`` as a dict, its ``bytes_written``
+    and ``files_written`` held to the data files of the version
+    directory the action wrote (the newest of its index's content); an
+    action that wrote no index file is not checked."""
+    report = hs.last_build_report()
+    if report is None or report.outcome != "ok":
+        raise AssertionError(f"{label}: build report {report}")
+    if report.files_written:
+        entry = hs.session.index_collection_manager.get_index(report.index)
+        dirs = {os.path.dirname(f.name) for f in entry.content.file_infos()}
+        newest = max(dirs, key=lambda d: int(d.rsplit("v__=", 1)[1]))
+        files = [f.name for f in entry.content.file_infos()
+                 if os.path.dirname(f.name) == newest]
+        want = (sum(os.path.getsize(f) for f in files), len(files))
+        if (report.bytes_written, report.files_written) != want:
+            raise AssertionError(
+                f"{label}: report wrote {report.bytes_written} bytes in "
+                f"{report.files_written} files, {newest} holds {want}")
+    return report.to_dict()
+
+
 def phase_c(li: dict, root: str, dev) -> dict:
     import pyarrow as pa
     import pyarrow.compute as pc
@@ -559,6 +616,7 @@ def phase_c(li: dict, root: str, dev) -> dict:
                                 device=dev)
     session.conf.num_buckets = NUM_BUCKETS
     session.conf.device_batch_rows = 1 << 23
+    set_min_rows(session, 0)
     hs = Hyperspace(session)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -567,6 +625,7 @@ def phase_c(li: dict, root: str, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     phases = session.build_stats_log[-1]
+    report = checked_report("phase C", hs)
 
     files_by_bucket = check_index_files("phase C", hs, INDEX_NAME,
                                         "l_orderkey", N_LINEITEM)
@@ -582,7 +641,8 @@ def phase_c(li: dict, root: str, dev) -> dict:
             if not np.array_equal(got.column(c).to_numpy(), li[c][mask]):
                 raise AssertionError(f"phase C: lookup of {key} differs in {c}")
     return {"wall_s": wall, "phases": phases, "launches": launches,
-            "files": sum(len(v) for v in files_by_bucket.values())}
+            "files": sum(len(v) for v in files_by_bucket.values()),
+            "report": report}
 
 
 def sorted_rows(columns: dict, keys) -> dict:
@@ -997,11 +1057,15 @@ def query_indexes(name: str) -> list:
 
 
 def set_min_rows(session, rows: int) -> None:
-    """The cold and the resident thresholds: with only the cold ones
-    raised, a query whose columns are resident still takes the card."""
+    """Every routing threshold, the cold and the resident ones and the
+    build's: with only the cold ones raised, a query whose columns are
+    resident still takes the card.  Phases A-G pin them (0: the device
+    routes) instead of taking the calibrated defaults; phase H leaves
+    them at None."""
     session.conf.device_filter_min_rows = rows
     session.conf.device_join_min_rows = rows
     session.conf.device_agg_min_rows = rows
+    session.conf.device_build_min_rows = rows
     session.conf.device_resident_min_rows = rows
 
 
@@ -1060,6 +1124,7 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
                                 device=dev)
     session.conf.num_buckets = NUM_BUCKETS
     session.conf.device_batch_rows = 1 << 23
+    set_min_rows(session, 0)
     hs = Hyperspace(session)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1200,8 +1265,9 @@ def bucket_digests(hs, name: str) -> dict:
 
 
 def spill_session(dev, system_path: str, **conf):
-    """A session with the conf's defaults but SPILL_BUCKETS buckets; the
-    default batch must be DEFAULT_BATCH_ROWS."""
+    """A session with the conf's defaults but SPILL_BUCKETS buckets and
+    the routing thresholds pinned to 0; the default batch must be
+    DEFAULT_BATCH_ROWS."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
 
     session = HyperspaceSession(system_path=system_path, device=dev)
@@ -1210,6 +1276,7 @@ def spill_session(dev, system_path: str, **conf):
                              f"{session.conf.device_batch_rows} rows, not "
                              f"{DEFAULT_BATCH_ROWS} (HS_DEVICE_BATCH_ROWS set?)")
     session.conf.num_buckets = SPILL_BUCKETS
+    set_min_rows(session, 0)
     for k, v in conf.items():
         setattr(session.conf, k, v)
     return Hyperspace(session)
@@ -1224,8 +1291,8 @@ def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
     """``run()`` (a build, a refresh or an optimize) with the launch
     counts set to 0 just before and read just after: each kernel must
     have launched ``want_launches`` times.  Returns its wall, phases (of
-    a run that built index data), launches and the card's peak
-    allocation."""
+    a run that built index data), launches, the card's peak allocation
+    and its checked build report."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
@@ -1247,6 +1314,7 @@ def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
             "phases": {k: v for k, v in log[-1].items() if k != "index"}
             if len(log) > logged else {},
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "report": checked_report(label, hs),
             "outcome": outcome}
 
 
@@ -1698,6 +1766,201 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
             "resident_mib_end": resident_end}
 
 
+def route_of(stats: dict) -> str:
+    """The route a collect took over its filters, join kernels, fused
+    joins and device aggregates: "device", "host", "mixed", or "none"
+    when it recorded none."""
+    sides = {"host" if d["strategy"] == "host" else "device"
+             for k in ("filters", "join_kernels") for d in stats.get(k, [])}
+    sides |= {"device" for d in stats.get("joins", [])
+              if d["strategy"] == "device-fused-agg"}
+    sides |= {"device" for _ in stats.get("aggregates", [])}
+    if not sides:
+        return "none"
+    return sides.pop() if len(sides) == 1 else "mixed"
+
+
+def faster_route(device_ms: float, host_ms: float) -> str:
+    return "device" if device_ms < host_ms else "host"
+
+
+def phase_h(orders: dict, li: dict, root: str, dev) -> dict:
+    """Calibration, the calibrated routes and build, and data skipping
+    (see the module docstring) over phase D's data and indexes."""
+    from hyperspace_tpu_torch import (
+        DataSkippingIndexConfig,
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+        col,
+    )
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.utils import calibrate
+
+    # (a) the probe: phases A-G pinned every threshold, so none probed.
+    if calibrate._PROFILES:
+        raise AssertionError(f"phase H: probed before phase H: "
+                             f"{list(calibrate._PROFILES)}")
+    t0 = time.perf_counter()
+    calibrate.device_profile(dev)
+    probe_s = time.perf_counter() - t0
+    summary = calibrate.profile_summary(dev)
+    if summary.get("calibrated") is not True:
+        raise AssertionError(f"phase H: the probe failed: {summary}")
+
+    # (b) phase D's queries with every threshold at None, timed in turns
+    # with phase D's device route (thresholds 0) and host route (above
+    # every row count), each run cold; then warm, each route after a
+    # checked run of its own.
+    device_cache().clear()
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    for field in ("filter", "join", "agg", "build", "resident"):
+        if getattr(session.conf, f"device_{field}_min_rows") is not None:
+            raise AssertionError(f"phase H: device_{field}_min_rows is set")
+    hs = Hyperspace(session)
+    session.enable_hyperspace()
+    queries = build_queries(session, root, aggregates=True)
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
+    routes_of = {"calibrated": None, "device": 0, "host": HOST_ROUTE_MIN_ROWS}
+    rows = []
+    for name, ds in queries.items():
+        want, keys = expected[name]
+        rtol = AGG_RTOL if name in AGG_QUERIES else 0.0
+
+        def run(route: str, label: str, cold: bool,
+                check: bool = False) -> tuple:
+            set_min_rows(session, routes_of[route])
+            if cold:
+                device_cache().clear()
+            t0 = time.perf_counter()
+            got = ds.collect()
+            ms = (time.perf_counter() - t0) * 1e3
+            if check:
+                require_rows(f"phase H {name} {route} {label}", got, want,
+                             keys, rtol)
+            return ms, route_of(session.last_execution_stats)
+
+        cold = {r: [] for r in routes_of}
+        taken = {}
+        for i in range(TIMED_QUERY_RUNS):
+            for r in routes_of:
+                ms, taken[(r, "cold")] = run(r, "cold", True, check=i == 0)
+                cold[r].append(ms)
+        warm = {}
+        for r in ("calibrated", "device"):
+            device_cache().clear()
+            run(r, "warm-up", False, check=True)
+            runs = [run(r, "warm", False) for _ in range(TIMED_QUERY_RUNS)]
+            warm[r] = [ms for ms, _ in runs]
+            taken[(r, "warm")] = runs[-1][1]
+        if (taken[("device", "cold")], taken[("host", "cold")]) not in (
+                ("device", "host"), ("none", "none")):
+            raise AssertionError(f"phase H {name}: the pinned routes took "
+                                 f"{taken}")
+        med = {f"{r}_cold_ms": statistics.median(v) for r, v in cold.items()}
+        med.update({f"{r}_warm_ms": statistics.median(v)
+                    for r, v in warm.items()})
+        # The host route reads no cached column: warm is cold.
+        med["host_warm_ms"] = med["host_cold_ms"]
+        rows.append({
+            "name": name,
+            "route_cold": taken[("calibrated", "cold")],
+            "route_warm": taken[("calibrated", "warm")], **med,
+            "faster_cold": faster_route(med["device_cold_ms"],
+                                        med["host_cold_ms"]),
+            "faster_warm": faster_route(med["device_warm_ms"],
+                                        med["host_warm_ms"]),
+            "cold_runs_ms": cold, "warm_runs_ms": warm})
+    set_min_rows(session, None)
+    device_cache().clear()
+
+    # (c) an SF1 build at the calibrated defaults, bit-equal to phase C's.
+    path = os.path.join(root, "h_indexes")
+    cal = HyperspaceSession(system_path=path, device=dev)
+    cal.conf.num_buckets = NUM_BUCKETS
+    cal.conf.device_batch_rows = 1 << 23
+    cal_hs = Hyperspace(cal)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cal_hs.create_index(cal.read.parquet(os.path.join(root, "lineitem")),
+                        IndexConfig(CALIBRATED_INDEX, INDEXED, INCLUDED))
+    build_wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    threshold = cal.conf.device_min_rows("build", dev)
+    route = "device" if N_LINEITEM >= threshold else "host"
+    if (route == "device") != all(v > 0 for v in launches.values()) \
+            or (route == "host") != all(v == 0 for v in launches.values()):
+        raise AssertionError(f"phase H: a {route} build launched {launches}")
+    if bucket_digests(cal_hs, CALIBRATED_INDEX) != \
+            bucket_digests(hs, INDEX_NAME):
+        raise AssertionError("phase H: the calibrated build's buckets differ "
+                             "from phase C's")
+    build = {"route": route, "threshold": threshold, "launches": launches,
+             "wall_s": build_wall,
+             "report": checked_report("phase H calibrated build", cal_hs)}
+    shutil.rmtree(path, ignore_errors=True)
+
+    # (e) data skipping: li_ds beside li_idx and ord_idx.
+    src = os.path.join(root, "lineitem")
+    t0 = time.perf_counter()
+    hs.create_index(session.read.parquet(src),
+                    DataSkippingIndexConfig(DS_INDEX, ["l_shipdate"]))
+    ds_create_s = time.perf_counter() - t0
+    ds_report = checked_report("phase H li_ds", hs)
+    lo, hi = DS_RANGE
+    ds_range = (session.read.parquet(src)
+                .filter((col("l_shipdate") >= lo) & (col("l_shipdate") < hi))
+                .select("l_shipdate", "l_extendedprice", "l_discount"))
+    mask = (li["l_shipdate"] >= lo) & (li["l_shipdate"] < hi)
+    want = {c: li[c][mask] for c in ("l_shipdate", "l_extendedprice",
+                                     "l_discount")}
+    t0 = time.perf_counter()
+    plan = ds_range.optimized_plan()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    pruned = [sc.relation for sc in plan.leaf_relations()
+              if sc.relation.data_skipping_of == DS_INDEX]
+    if len(pruned) != 1 or pruned[0].data_skipping_stats != DS_WANT_FILES:
+        raise AssertionError(f"phase H ds_range: plan\n{plan.tree_string()}")
+    on_ms, off_ms = [], []
+    for _ in range(TIMED_QUERY_RUNS):
+        device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds_range.collect()
+        on_ms.append((time.perf_counter() - t0) * 1e3)
+        require_rows("phase H ds_range", got, want)
+        files_on = sum(sc["files_read"]
+                       for sc in session.last_execution_stats["scans"])
+        session.disable_hyperspace()
+        device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds_range.collect()
+        off_ms.append((time.perf_counter() - t0) * 1e3)
+        require_rows("phase H ds_range off", got, want)
+        files_off = sum(sc["files_read"]
+                        for sc in session.last_execution_stats["scans"])
+        session.enable_hyperspace()
+    if (files_on, files_off) != DS_WANT_FILES:
+        raise AssertionError(f"phase H ds_range read {files_on} and "
+                             f"{files_off} files")
+    q10_plan = queries["q10"].optimized_plan().tree_string()
+    device_cache().clear()
+    return {"calibration": summary, "probe_s": probe_s, "queries": rows,
+            "build": build,
+            "data_skipping": {
+                "create_s": ds_create_s, "report": ds_report,
+                "kept": pruned[0].data_skipping_stats[0],
+                "total": pruned[0].data_skipping_stats[1],
+                "rows": int(mask.sum()), "plan_ms": plan_ms,
+                "on_ms": statistics.median(on_ms),
+                "off_ms": statistics.median(off_ms),
+                "on_runs_ms": on_ms, "off_runs_ms": off_ms,
+                "q10_plan": q10_plan}}
+
+
 def call_ms(fn, flush) -> float:
     """Median milliseconds of one call of ``fn`` between two CUDA events,
     over TIMED_RUNS calls, each after an L2 flush, after three warm-up
@@ -1955,6 +2218,38 @@ def main() -> int:
               f"{d['resident_mib_end']:.1f} MiB resident at the end "
               f"({time.perf_counter() - t0:.3f} s)", flush=True)
         t0 = time.perf_counter()
+        h = phase_h(orders, li, root, dev)
+        cal = h["calibration"]
+        print(f"phase H calibration: probe {h['probe_s']:.3f} s, calibrated "
+              f"{json.dumps(cal['calibrated'])}, latency {cal['latency_ms']} ms, "
+              f"h2d {cal['h2d_mb_per_s']} MB/s, d2h {cal['d2h_mb_per_s']} MB/s, "
+              f"host Mrows/s {json.dumps(cal['host_mrows_per_s'])}", flush=True)
+        print(f"phase H thresholds: cold {json.dumps(cal['thresholds'])} "
+              f"resident {json.dumps(cal['resident_thresholds'])}", flush=True)
+        for q in h["queries"]:
+            print(f"phase H {q['name']}: calibrated route cold "
+                  f"{q['route_cold']} {q['calibrated_cold_ms']:.1f} ms (device "
+                  f"{q['device_cold_ms']:.1f} / host {q['host_cold_ms']:.1f} ms, "
+                  f"faster {q['faster_cold']}), warm {q['route_warm']} "
+                  f"{q['calibrated_warm_ms']:.1f} ms (device "
+                  f"{q['device_warm_ms']:.1f} / host {q['host_warm_ms']:.1f} ms, "
+                  f"faster {q['faster_warm']})", flush=True)
+        b = h["build"]
+        print(f"phase H calibrated build: {CALIBRATED_INDEX} took the "
+              f"{b['route']} route (build threshold {b['threshold']} rows), "
+              f"launches {json.dumps(b['launches'])}, wall {b['wall_s']:.3f} s, "
+              f"every bucket's sha256 equal to phase C's", flush=True)
+        ds = h["data_skipping"]
+        print(f"phase H data skipping: {DS_INDEX} created in "
+              f"{ds['create_s']:.3f} s; ds_range kept {ds['kept']}/{ds['total']} "
+              f"files, {ds['rows']} rows equal to numpy, cold "
+              f"{ds['on_ms']:.1f} ms with hyperspace (its plan "
+              f"{ds['plan_ms']:.1f} ms), {ds['off_ms']:.1f} ms without",
+              flush=True)
+        print("phase H q10 plan with li_ds present:\n" + ds["q10_plan"],
+              flush=True)
+        print(f"phase H: ({time.perf_counter() - t0:.3f} s)", flush=True)
+        t0 = time.perf_counter()
         builds = phase_e(li, root, dev)
         for b in builds:
             print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
@@ -1986,6 +2281,15 @@ def main() -> int:
               f"checked; {g['resident_mib_end']:.1f} MiB resident at the end "
               f"({time.perf_counter() - t0:.3f} s; by step "
               f"{json.dumps(g['steps_s'])})", flush=True)
+        reports = {"C create li_idx": c["report"],
+                   **{b["build"]: b["report"] for b in builds
+                      if b["build"] in ("E spill pipelined",
+                                        "G refresh incremental",
+                                        "G optimize quick")}}
+        for label, report in reports.items():
+            print(f"phase H build report {label}: {json.dumps(report)}",
+                  flush=True)
+        h["build_reports"] = reports
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -2018,7 +2322,7 @@ def main() -> int:
     print(json.dumps({"queries": d["queries"], "launches": d["launches"],
                       "eviction": d["eviction"],
                       "hybrid_queries": g["queries"],
-                      "join_splits": g["join_splits"]}))
+                      "join_splits": g["join_splits"], "calibration": h}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

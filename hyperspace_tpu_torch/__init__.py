@@ -12,7 +12,11 @@ GROUP BY as a sort and segment reductions, and the TPC-H Q3/Q10 shape
 ``limit``) as one fused join→aggregate whose joined rows stay on the
 device.  A repeat query over the same index files takes their columns
 from card memory (``execution/device_cache.py``) instead of converting
-and uploading them again.  The JAX package ``hyperspace_tpu`` is the
+and uploading them again.  Which route each operation takes is calibrated
+for the session's device (``utils/calibrate.py``); every action publishes
+a build report (``telemetry/build_report.py``); per-file sketches prune
+the files a scan reads (``DataSkippingIndexConfig``, and each covering
+build's ``_sketch.parquet``).  The JAX package ``hyperspace_tpu`` is the
 reference; this package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -22,7 +26,10 @@ from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.dataset import Dataset
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.hyperspace import Hyperspace
-from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.index.index_config import (
+    DataSkippingIndexConfig,
+    IndexConfig,
+)
 from hyperspace_tpu_torch.plan.expr import col, lit
 from hyperspace_tpu_torch.session import HyperspaceSession
 
@@ -32,6 +39,7 @@ __all__ = [
     "HyperspaceConf",
     "HyperspaceError",
     "IndexConfig",
+    "DataSkippingIndexConfig",
     "Dataset",
     "col",
     "lit",

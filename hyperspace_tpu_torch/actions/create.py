@@ -12,10 +12,14 @@ decodes ahead on one thread) and cuts it into batches of exactly
     (``ops.sort.bucket_sort_permutation``), and one sorted Parquet file
     per non-empty bucket goes into the next ``v__=N`` directory
     (``io.parquet.write_bucketed``, whose run offsets come from the
-    bucket histogram kernel).
+    bucket histogram kernel).  Below ``conf.device_min_rows("build")``
+    rows the bit-identical host mirror
+    (``ops.sort.bucket_sort_permutation_np``) computes the permutation
+    instead, and nothing is launched.
   - More rows: the spill build (``_BucketSpill``).  Each batch is routed
     on the device (``ops.hash.route_partition``: the same hash and sorts,
-    and the histogram's counts as the run cuts), and its rows land,
+    and the histogram's counts as the run cuts; below the build
+    threshold its host mirror ``route_partition_np``), and its rows land,
     grouped by bucket, in Arrow IPC run files in a temporary directory;
     each group of buckets is then merged and written as Parquet.  The
     device holds a few batches at once whatever the source's size, and
@@ -25,11 +29,17 @@ With ``conf.lineage_enabled`` each row carries its source file's
 tracker id in ``DATA_FILE_ID_COLUMN`` (stamped per file as it is read),
 an int64 column of the index like any other, through both builds.
 
+Every version directory a build writes gets ``_sketch.parquet``, the
+min/max of the indexed columns per index file
+(``actions/data_skipping.write_index_file_sketch``; the ``sketch_s``
+phase).  Phase seconds go to ``session.build_stats_log`` and, with the
+bytes read, written and spilled, to the action's build report.
+
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
 ``_write_table_bucketed``.  Not ported: the mesh and multi-host builds,
-the Z-order layouts, ``_sketch.parquet``, build reports and telemetry.
-pyarrow is imported when a function runs.
+the Z-order layouts and the telemetry beyond the build report.  pyarrow
+is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -71,8 +81,11 @@ from hyperspace_tpu_torch.io.parquet import (
     write_bucket_run,
     write_bucketed,
 )
-from hyperspace_tpu_torch.ops.hash import route_partition
-from hyperspace_tpu_torch.ops.sort import bucket_sort_permutation
+from hyperspace_tpu_torch.ops.hash import route_partition, route_partition_np
+from hyperspace_tpu_torch.ops.sort import (
+    bucket_sort_permutation,
+    bucket_sort_permutation_np,
+)
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
 
 DATA_FILE_ID_COLUMN = "_data_file_id"  # the lineage column
@@ -163,6 +176,7 @@ class _PrefetchReader:
         self.depth = max(0, int(depth))
         self.spill = spill
         self._stall_buffer_s = 0.0
+        self.peak_chunks = 0  # most decoded, unconsumed files seen
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: List = []
 
@@ -196,6 +210,8 @@ class _PrefetchReader:
             while queue and len(self._pending) < self.depth:
                 self._pending.append(self._submit(queue.pop(0)))
             while self._pending:
+                self.peak_chunks = max(self.peak_chunks, sum(
+                    1 for f in self._pending if f.done()))
                 fut = self._pending.pop(0)
                 t0 = time.perf_counter()
                 t = fut.result()
@@ -246,6 +262,26 @@ class CreateActionBase(Action):
     def _phase(self, name: str, seconds: float) -> None:
         with self._phase_lock:
             self.build_phases[name] = self.build_phases.get(name, 0.0) + seconds
+        # The build report keeps the same seconds under bare phase names.
+        self.build_report.add_phase(name, seconds)
+
+    def _host_route(self, rows: int) -> bool:
+        """Whether ``rows`` rows take the build's host mirror: fewer than
+        the build threshold on the session's device."""
+        return rows < self.conf.device_min_rows("build", self.session.device)
+
+    def _write_index_file_sketch(self, out_dir: str,
+                                 resolved: IndexConfig) -> None:
+        """``_sketch.parquet`` beside the bucket files: each index file's
+        min/max of the indexed columns, from the footers (the
+        ``sketch_s`` phase)."""
+        from hyperspace_tpu_torch.actions.data_skipping import (
+            write_index_file_sketch,
+        )
+
+        t0 = time.perf_counter()
+        write_index_file_sketch(out_dir, resolved.indexed_columns)
+        self._phase("sketch_s", time.perf_counter() - t0)
 
     @property
     def conf(self) -> HyperspaceConf:
@@ -356,6 +392,7 @@ class CreateActionBase(Action):
         t0 = time.perf_counter()
         t = read_file(f.name, columns)
         self._phase("read_s", time.perf_counter() - t0)
+        self.build_report.add_bytes(read=t.nbytes)
         missing = [c for c in columns if c not in t.column_names]
         if missing:
             rel_schema = relation.schema()
@@ -397,6 +434,9 @@ class CreateActionBase(Action):
                     buffered = rest.num_rows
         finally:
             reader.close()
+        if depth:
+            self.build_report.properties.update(
+                prefetch_depth=depth, prefetch_peak_chunks=reader.peak_chunks)
         remainder = pa.concat_tables(buffer, promote_options="default") \
             if buffer else None
         if not spill.spilled:
@@ -410,38 +450,51 @@ class CreateActionBase(Action):
         device = self.session.device
         t0 = time.perf_counter()
         keys = resolved.indexed_columns
-        word_cols = [torch.from_numpy(columnar.to_hash_words(table.column(c)))
-                     .to(device) for c in keys]
-        order_words = [torch.from_numpy(columnar.to_order_words(table.column(c)))
-                       .to(device) for c in keys]
-        buckets, perm = bucket_sort_permutation(word_cols, order_words,
-                                                self.num_buckets)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # attribute the device time here
+        word_cols = [columnar.to_hash_words(table.column(c)) for c in keys]
+        order_words = [columnar.to_order_words(table.column(c)) for c in keys]
+        if self._host_route(table.num_rows):
+            # The host mirror: the same bytes, no transfer and no launch.
+            buckets, perm = (torch.from_numpy(a) for a in
+                             bucket_sort_permutation_np(
+                                 word_cols, order_words, self.num_buckets))
+        else:
+            buckets, perm = bucket_sort_permutation(
+                [torch.from_numpy(w).to(device) for w in word_cols],
+                [torch.from_numpy(w).to(device) for w in order_words],
+                self.num_buckets)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)  # the device time lands here
         self._phase("kernel_s", time.perf_counter() - t0)
         version = self.data_manager.get_next_version()
+        out_dir = self.data_manager.version_path(version)
         t0 = time.perf_counter()
-        write_bucketed(table, buckets, perm, self.num_buckets,
-                       self.data_manager.version_path(version),
-                       max_rows_per_file=self.conf.index_max_rows_per_file,
-                       compression=self.conf.index_file_compression)
+        written = write_bucketed(
+            table, buckets, perm, self.num_buckets, out_dir,
+            max_rows_per_file=self.conf.index_max_rows_per_file,
+            compression=self.conf.index_file_compression)
         self._phase("write_s", time.perf_counter() - t0)
+        self.build_report.add_bytes(
+            written=sum(os.path.getsize(p) for p in written),
+            files=len(written))
+        self._write_index_file_sketch(out_dir, resolved)
         self._written_version = version
         self._index_schema = {name: str(t) for name, t in
                               zip(table.column_names, table.schema.types)}
 
 
-def _write_chunk_file(routed, path: str, slices) -> None:
+def _write_chunk_file(routed, path: str, slices) -> int:
     """One (chunk, bucket group) spill file as raw Arrow IPC, one record
     batch per ``(offset, rows)`` slice, so the finalize reads any
     bucket's run by batch index from a memory map.  ``combine_chunks``
-    keeps each slice ONE batch, so batch index == slice position."""
+    keeps each slice ONE batch, so batch index == slice position.
+    Returns the bytes written (the report's ``spill_bytes``)."""
     import pyarrow as pa
 
     with pa.OSFile(path, "wb") as sink:
         with pa.ipc.new_file(sink, routed.schema) as writer:
             for off, rows in slices:
                 writer.write_table(routed.slice(off, rows).combine_chunks())
+    return os.path.getsize(path)
 
 
 class _BucketSpill:
@@ -619,9 +672,15 @@ class _BucketSpill:
         word_cols = [columnar.to_hash_words(table.column(c)) for c in key_cols]
         codes64 = [columnar.to_order_codes64(table.column(c))
                    for c in key_cols] if self._code_cols else []
-        perm, counts = route_partition(
-            word_cols, [columnar.split_words64(k) for k in codes64],
-            self._num_buckets, self.action.session.device)
+        if self.action._host_route(table.num_rows):
+            # The host mirror, as in the monolithic build: the same bytes.
+            buckets, perm = route_partition_np(word_cols, codes64,
+                                               self._num_buckets)
+            counts = np.bincount(buckets, minlength=self._num_buckets)
+        else:
+            perm, counts = route_partition(
+                word_cols, [columnar.split_words64(k) for k in codes64],
+                self._num_buckets, self.action.session.device)
         if int(counts.sum()) != table.num_rows:
             raise HyperspaceError(
                 f"bucket counts of chunk {chunk_no} sum to {int(counts.sum())}, "
@@ -645,13 +704,15 @@ class _BucketSpill:
                 continue
             path = os.path.join(self._dir,
                                 f"chunk-{chunk_no:05d}-g{gid:03d}.arrow")
-            _write_chunk_file(routed, path,
-                              [(int(starts[b]), int(ends[b] - starts[b]))
+            nbytes = _write_chunk_file(
+                routed, path, [(int(starts[b]), int(ends[b] - starts[b]))
                                for b in present])
             with self._manifest_lock:
                 for bi, b in enumerate(present):
                     self._runs.setdefault(b, []).append((chunk_no, path, bi))
                 self._group_files.setdefault(gid, []).append(path)
+            self.action.build_report.add_bytes(spill=nbytes,
+                                               spill_runs=len(present))
 
     def _finalize_pool_get(self) -> ThreadPoolExecutor:
         if self._finalize_pool is None:
@@ -709,9 +770,12 @@ class _BucketSpill:
                     perm = sort_permutation_host(
                         btable, self.resolved.indexed_columns)
                     btable = btable.take(pa.array(perm))
-                write_bucket_run(btable, b, self._out_dir,
-                                 conf.index_max_rows_per_file,
-                                 compression=conf.index_file_compression)
+                written = write_bucket_run(
+                    btable, b, self._out_dir, conf.index_max_rows_per_file,
+                    compression=conf.index_file_compression)
+                self.action.build_report.add_bytes(
+                    written=sum(os.path.getsize(p) for p in written),
+                    files=len(written))
         finally:
             for mm in handles:
                 mm.close()
@@ -754,6 +818,7 @@ class _BucketSpill:
             self._finalize_pool = None
         remove_tree(self._dir, ignore_errors=True)
         self._dir = None
+        action._write_index_file_sketch(out_dir, self.resolved)
         action._written_version = version
         action._index_schema = {name: str(t) for name, t in
                                 zip(self._schema.names, self._schema.types)}

@@ -8,8 +8,13 @@
     cap; the bucket id comes from the file name;
   - ``op()`` reads each merged bucket's candidate files, sorts them
     stably by the indexed columns and writes them into a new version
-    directory; the committed entry keeps the other files and swaps the
-    merged ones.  The source and its fingerprint are untouched.
+    directory, with its ``_sketch.parquet``; the committed entry keeps
+    the other files and swaps the merged ones.  The source and its
+    fingerprint are untouched.  The build report gets the ``read``,
+    ``sort``, ``write`` and ``sketch`` phases and the bytes read and
+    written.
+
+A data-skipping index is refused: it has nothing to compact.
 
 Not ported: the Z-order layout's compaction and the content digests of
 index files (the port has no integrity recorder).  pyarrow is imported
@@ -21,6 +26,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import time
 from collections import defaultdict
 from typing import Dict, List, Optional
 
@@ -74,11 +80,6 @@ class OptimizeAction(Action):
         self._retained: List[FileInfo] = []
         self._candidates_cache: Optional[Dict[int, List[FileInfo]]] = None
 
-    @property
-    def index_name(self) -> str:
-        entry = self.previous_log_entry
-        return entry.name if entry is not None else ""
-
     def _candidates(self) -> Dict[int, List[FileInfo]]:
         """Bucket -> the files to merge; memoised, since validate() and
         op() both need it and it reads Parquet footers."""
@@ -123,6 +124,8 @@ class OptimizeAction(Action):
                 self.previous_log_entry.state != States.ACTIVE:
             raise HyperspaceError(
                 f"Optimize is only supported in {States.ACTIVE} state")
+        if not self.previous_log_entry.is_covering:
+            raise HyperspaceError("Optimize applies to covering indexes only")
         layout = self.previous_log_entry.derived_dataset.properties.get(
             "layout", "lexicographic")
         if layout != "lexicographic":
@@ -137,18 +140,36 @@ class OptimizeAction(Action):
     def op(self) -> None:
         import pyarrow as pa
 
+        from hyperspace_tpu_torch.actions.data_skipping import (
+            write_index_file_sketch,
+        )
+
         conf = self.session.conf
         entry = self.previous_log_entry
+        report = self.build_report
         version = self.data_manager.get_next_version()
         out_dir = self.data_manager.version_path(version)
         os.makedirs(out_dir, exist_ok=True)
         for bucket, files in sorted(self._candidates().items()):
+            t0 = time.perf_counter()
             merged = read_table([f.name for f in files])
+            report.add_phase("read", time.perf_counter() - t0)
+            report.add_bytes(read=merged.nbytes)
+            t0 = time.perf_counter()
             perm = sort_permutation_host(merged, entry.indexed_columns)
-            self._new_files.extend(write_bucket_run(
-                merged.take(pa.array(perm)), bucket, out_dir,
-                conf.index_max_rows_per_file,
-                compression=conf.index_file_compression))
+            merged = merged.take(pa.array(perm))
+            report.add_phase("sort", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            new = write_bucket_run(merged, bucket, out_dir,
+                                   conf.index_max_rows_per_file,
+                                   compression=conf.index_file_compression)
+            self._new_files.extend(new)
+            report.add_phase("write", time.perf_counter() - t0)
+            report.add_bytes(written=sum(os.stat(p).st_size for p in new),
+                             files=len(new))
+        t0 = time.perf_counter()
+        write_index_file_sketch(out_dir, entry.indexed_columns)
+        report.add_phase("sketch", time.perf_counter() - t0)
 
     def log_entry(self) -> IndexLogEntry:
         entry = copy.deepcopy(self.previous_log_entry)

@@ -21,7 +21,8 @@ no-op (``NoChangesError``, outcome "noop").
     deleted files and the new fingerprint, and hybrid scan handles them
     at query time.
 
-A Z-order index is refused: that layout is not ported.
+A Z-order index is refused: that layout is not ported.  The diff's mode
+and counts go into the build report's ``properties``.
 """
 
 from __future__ import annotations
@@ -123,6 +124,9 @@ class RefreshActionBase(CreateActionBase):
                 f"Refresh is only supported in {States.ACTIVE} state")
         appended, deleted = self._diff()
         self._diff_counts = (len(appended), len(deleted))
+        self.build_report.properties.update(
+            refresh_mode=self.mode_name, refresh_appended=len(appended),
+            refresh_deleted=len(deleted))
         if not appended and not deleted:
             raise NoChangesError("Source data is unchanged; refresh is a no-op")
 

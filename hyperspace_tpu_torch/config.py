@@ -1,18 +1,18 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
 holding the fields the build, the refresh and optimize verbs, the query
-path and the device column cache read; defaults are the JAX package's
-but for the routing thresholds).
+path, the device column cache and the build reports read; defaults are
+the JAX package's).
 
-The JAX package derives ``device_min_rows`` and ``resident_min_rows``
-from a calibration of the attachment, falling back to 2**26 cold and
-2**22-2**24 resident rows; calibration (``utils/calibrate.py``) is not
-ported yet and will replace these defaults, so the port's thresholds,
-the resident one included, default to 0: every filter, join and grouped
-aggregate takes the device path, as the port's build does.  A threshold
-set above a batch's rows sends that batch to the host route (arrow
-predicate, numpy join, arrow group-by), as in the JAX package; once the
-batch's columns are resident in the device column cache, the resident
-threshold governs instead, so a host route needs both raised."""
+The routing thresholds default to None: ``device_min_rows(kind, device)``
+and ``resident_min_rows(kind, device)`` then take the value calibration
+derives for the session's device (``utils/calibrate.py``), or its static
+constants (2**26 cold and 2**20-2**24 resident rows, 2**22 for the
+build) when calibration is off, its probe failed or the device is the
+CPU.  A value set explicitly always wins.  Below a threshold a batch
+takes the host route (arrow predicate, numpy join, arrow group-by, the
+build's numpy mirror), as in the JAX package; once an operation's
+columns are resident in the device column cache, the resident threshold
+governs instead, so a forced host route needs both raised."""
 
 from __future__ import annotations
 
@@ -61,11 +61,13 @@ class HyperspaceConf:
     # Filter rule: carry the bucket spec on index scans even when the
     # predicate prunes no bucket.
     filter_rule_use_bucket_spec: bool = False
-    # Rows from which a filter / a join / a grouped aggregate runs on the
-    # session's device.
-    device_filter_min_rows: int = 0
-    device_join_min_rows: int = 0
-    device_agg_min_rows: int = 0
+    # Rows from which a filter / a join / a grouped aggregate / the
+    # build's hash and sort run on the session's device; None derives the
+    # threshold from calibration.
+    device_filter_min_rows: Optional[int] = None
+    device_join_min_rows: Optional[int] = None
+    device_agg_min_rows: Optional[int] = None
+    device_build_min_rows: Optional[int] = None
     # The device column cache (execution/device_cache.py): byte budget
     # for the post-decode columns kept on the device across queries,
     # keyed by file identity; 0 disables it.
@@ -75,19 +77,35 @@ class HyperspaceConf:
     # upload once, serve repeats from card memory); "off": never cache.
     device_cache_policy: str = "auto"
     # Rows from which an operation whose inputs are already resident (or
-    # will be, under "eager") runs on the device; every kind.
-    device_resident_min_rows: int = 0
+    # will be, under "eager") runs on the device; a value set applies to
+    # every kind, None calibrates one per kind.
+    device_resident_min_rows: Optional[int] = None
+    # Build reports (telemetry/build_report.py): off keeps the phase
+    # seconds and bytes but skips the memory sampling.
+    build_profiling_enabled: bool = True
 
-    def device_min_rows(self, kind: str) -> int:
-        """The host-versus-device threshold of ``kind`` ("filter", "join",
-        "agg" or "join_agg").  The fused join→aggregate has no field of
-        its own: the join's threshold governs it, since it is the join's
-        device decision with the aggregation behind it."""
+    def device_min_rows(self, kind: str, device) -> int:
+        """The host-versus-device threshold of ``kind`` ("filter",
+        "join", "agg", "join_agg" or "build") on ``device``: the field set
+        explicitly, else the calibrated value.  The fused join→aggregate
+        has no field of its own: an explicit join threshold governs it,
+        since it is the join's device decision with the aggregation
+        behind it; otherwise it calibrates as a kind of its own."""
         field = "join" if kind == "join_agg" else kind
-        return int(getattr(self, f"device_{field}_min_rows"))
+        explicit = getattr(self, f"device_{field}_min_rows")
+        if explicit is not None:
+            return int(explicit)
+        from hyperspace_tpu_torch.utils.calibrate import calibrated_min_rows
 
-    def resident_min_rows(self, kind: str) -> int:
-        """The threshold of ``kind`` when its inputs are already on the
-        device (only the round trip is left to repay); one value for
-        every kind until calibration derives them."""
-        return int(self.device_resident_min_rows)
+        return calibrated_min_rows(kind, device)
+
+    def resident_min_rows(self, kind: str, device) -> int:
+        """The threshold of ``kind`` on ``device`` when its inputs are
+        already there (only the round trip is left to repay)."""
+        if self.device_resident_min_rows is not None:
+            return int(self.device_resident_min_rows)
+        from hyperspace_tpu_torch.utils.calibrate import (
+            calibrated_resident_min_rows,
+        )
+
+        return calibrated_resident_min_rows(kind, device)

@@ -12,7 +12,8 @@ the match pairs of an equi-join on one numeric key by
 the arrow host path, which owns SQL's three-valued logic.  Below
 ``conf.device_min_rows(kind)`` rows a filter, join or aggregate takes
 the host route instead (the arrow predicate, ``sorted_equi_join_np``,
-arrow's group-by); the default threshold of 0 always takes the device.
+arrow's group-by); by default the threshold is calibrated for the
+session's device (``utils/calibrate.py``).
 No device error is caught to answer from the host instead.
 
 An aggregate over an inner equi-join on one numeric key (the TPC-H
@@ -61,9 +62,10 @@ aggregate "device-segment" or "device-join-agg" (with its groups,
 ``device_cache`` hits and misses; ``Dataset.collect`` publishes it as
 ``session.last_execution_stats``.
 
-Not ported: every other plan node, calibration of the cold and resident
-thresholds, ``finalize_stats``' memory gauges, the telemetry counters,
-spans and transfer timeline, the mesh filter, join and aggregates,
+``IsNull`` is evaluated on the arrow path only.
+
+Not ported: every other plan node, ``finalize_stats``' memory gauges,
+the telemetry counters, spans and transfer timeline, the mesh filter, join and aggregates,
 residual join predicates, the lake formats and hypothetical scans.
 pyarrow is imported inside the functions.
 """
@@ -97,6 +99,7 @@ from hyperspace_tpu_torch.plan.expr import (
     Col,
     Expr,
     IsIn,
+    IsNull,
     Lit,
     Neg,
     Not,
@@ -213,7 +216,8 @@ class Executor:
         this identity, or under "eager" when every one can be (no
         computed column, none the budget rejected)."""
         conf = self.session.conf
-        min_rows = conf.device_min_rows(kind)
+        device = self.session.device
+        min_rows = conf.device_min_rows(kind, device)
         if identity is None:
             return min_rows
         cache = global_cache()
@@ -223,7 +227,7 @@ class Executor:
             and all(k is not None and not cache.was_rejected(k)
                     for k in keys))
         if eager_all_cacheable or self._all_resident(identity, pairs):
-            return min(min_rows, conf.resident_min_rows(kind))
+            return min(min_rows, conf.resident_min_rows(kind, device))
         return min_rows
 
     def execute(self, plan: LogicalPlan):
@@ -439,7 +443,8 @@ class Executor:
         )
 
         max_rows = max(left.num_rows, right.num_rows)
-        cold = self.session.conf.device_min_rows("join")
+        cold = self.session.conf.device_min_rows("join",
+                                                 self.session.device)
         if (len(l_keys) == 1
                 and columnar.is_numeric_type(left.schema.field(l_keys[0]).type)
                 and columnar.is_numeric_type(right.schema.field(r_keys[0]).type)):
@@ -937,8 +942,9 @@ class Executor:
         # The plausibility gate: "eager" (pay the upload once, serve
         # repeats from card memory) or a cold threshold low enough that
         # a cold device join can win.
+        device = self.session.device
         if conf.device_cache_policy != "eager" \
-                and conf.device_min_rows("join_agg") > (1 << 22):
+                and conf.device_min_rows("join_agg", device) > (1 << 22):
             return None
         if any(func not in self._JOIN_AGG_OPS for func, _i, _o in plan.aggs):
             return None
@@ -954,8 +960,8 @@ class Executor:
         # When even the footers' row counts are under the lower of the
         # cold and resident thresholds, the device cannot be taken:
         # nothing is read for the attempt.
-        lo_thresh = min(conf.device_min_rows("join_agg"),
-                        conf.resident_min_rows("join_agg"))
+        lo_thresh = min(conf.device_min_rows("join_agg", device),
+                        conf.resident_min_rows("join_agg", device))
         est_l = self._plan_row_upper_bound(child.left)
         est_r = self._plan_row_upper_bound(child.right)
         if est_l is not None and est_r is not None \
@@ -1062,7 +1068,7 @@ class Executor:
         pl = [(c, "num") for c in need_l]
         pr = [(c, "num") for c in need_r]
         max_rows = max(lv.num_rows, rv.num_rows)
-        cold = conf.device_min_rows("join_agg")
+        cold = conf.device_min_rows("join_agg", self.session.device)
         use_device = max_rows >= cold
         if not use_device:
             eff = max(self._cache_aware_min_rows(id_l, pl, "join_agg"),
@@ -1372,6 +1378,8 @@ def _arrow_eval(expr: Expr, table):
         if isinstance(child, pa.Scalar):
             return result if child.is_valid else null_bool
         return pc.if_else(pc.is_valid(child), result, null_bool)
+    if isinstance(expr, IsNull):
+        return pc.is_null(_arrow_eval(expr.child, table))
     raise ValueError(f"Unsupported expression: {expr!r}")
 
 

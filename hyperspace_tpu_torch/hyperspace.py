@@ -1,13 +1,17 @@
 """Top-level user API (counterpart of hyperspace_tpu/hyperspace.py):
 ``create_index``, ``delete_index``, ``restore_index``, ``vacuum_index``,
-``refresh_index``, ``optimize_index``, ``cancel`` and ``indexes``."""
+``refresh_index``, ``optimize_index``, ``cancel``, ``indexes`` and
+``last_build_report``."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Union
 
 from hyperspace_tpu_torch.dataset import Dataset
-from hyperspace_tpu_torch.index.index_config import IndexConfig
+from hyperspace_tpu_torch.index.index_config import (
+    DataSkippingIndexConfig,
+    IndexConfig,
+)
 from hyperspace_tpu_torch.session import HyperspaceSession
 
 
@@ -16,7 +20,8 @@ class Hyperspace:
         self.session = session
         self.index_manager = session.index_collection_manager
 
-    def create_index(self, dataset: Dataset, config: IndexConfig) -> None:
+    def create_index(self, dataset: Dataset,
+                     config: Union[IndexConfig, DataSkippingIndexConfig]) -> None:
         self.index_manager.create(dataset, config)
 
     def delete_index(self, name: str) -> None:
@@ -50,3 +55,15 @@ class Hyperspace:
         """One row per index: the rows of the JAX package's ``indexes()``
         table, as dictionaries (pyarrow stays inside ``io/``)."""
         return self.index_manager.indexes()
+
+    def last_build_report(self):
+        """The ``BuildReport`` (telemetry/build_report.py) of the last
+        action run through this session, or else of the last one in the
+        process: its phase seconds, device and host split, bytes and
+        memory; None before the first action."""
+        report = self.session.last_build_report_value
+        if report is not None:
+            return report
+        from hyperspace_tpu_torch.telemetry.build_report import last_report
+
+        return last_report()

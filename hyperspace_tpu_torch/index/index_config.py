@@ -1,12 +1,13 @@
-"""User-facing index specification (counterpart of
-hyperspace_tpu/index/index_config.py): name + indexed columns + included
-columns, validated (non-empty name and indexed columns, no duplicate
-columns across the two lists, case-insensitive)."""
+"""User-facing index specifications (counterpart of
+hyperspace_tpu/index/index_config.py): a covering index's name, indexed
+and included columns, validated (non-empty name and indexed columns, no
+duplicate columns across the two lists, case-insensitive), and a
+data-skipping index's name, sketched columns and sketch types."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
@@ -42,3 +43,52 @@ class IndexConfig:
     @property
     def all_columns(self) -> List[str]:
         return list(self.indexed_columns) + list(self.included_columns)
+
+
+SKETCH_TYPES = ("MinMax", "ValueList", "BloomFilter")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSkippingIndexConfig:
+    """A data-skipping index: per-source-file sketches over
+    ``sketched_columns``; queries scan the source with fewer files.
+
+    Sketch types, per column:
+      - "MinMax" (default): the value range from the Parquet footers;
+        prunes range and point predicates on clustered columns.
+      - "ValueList": the distinct values when at most 64; prunes equality
+        and IN on low-cardinality columns whose range spans everything.
+      - "BloomFilter": an 8192-bit bloom filter over the distinct values;
+        prunes equality and IN at any cardinality, with false positives
+        only."""
+
+    index_name: str
+    sketched_columns: List[str]
+    sketch_types: List[str] = dataclasses.field(default_factory=list)
+
+    def __init__(self, index_name: str,
+                 sketched_columns: Sequence[str],
+                 sketch_types: Optional[Sequence[str]] = None) -> None:
+        object.__setattr__(self, "index_name", index_name)
+        object.__setattr__(self, "sketched_columns", list(sketched_columns))
+        object.__setattr__(
+            self, "sketch_types",
+            list(sketch_types) if sketch_types is not None
+            else ["MinMax"] * len(self.sketched_columns))
+        self._validate()
+
+    def _validate(self) -> None:
+        if not self.index_name or not self.index_name.strip():
+            raise HyperspaceError("Index name cannot be empty")
+        if not self.sketched_columns:
+            raise HyperspaceError("Sketched columns cannot be empty")
+        lowered = [c.lower() for c in self.sketched_columns]
+        if len(set(lowered)) != len(lowered):
+            raise HyperspaceError("Duplicate sketched column names are not allowed")
+        if len(self.sketch_types) != len(self.sketched_columns):
+            raise HyperspaceError(
+                "sketch_types must match sketched_columns in length")
+        bad = [t for t in self.sketch_types if t not in SKETCH_TYPES]
+        if bad:
+            raise HyperspaceError(
+                f"Unknown sketch type(s) {bad}; expected {SKETCH_TYPES}")

@@ -1,9 +1,9 @@
-"""The on-disk metadata model of a covering index (counterpart of
-hyperspace_tpu/index/log_entry.py, its covering-index subset).
+"""The on-disk metadata model of an index (counterpart of
+hyperspace_tpu/index/log_entry.py).
 
   - ``FileInfo``            — (name, size, mtime, id)
   - ``Directory``/``Content`` — directory tree of index/source files
-  - ``CoveringIndex``       — derived-dataset spec
+  - ``CoveringIndex``, ``DataSkippingIndex`` — derived-dataset specs
   - ``Signature``/``LogicalPlanFingerprint`` — validity fingerprint
   - ``Update``              — appended/deleted files a quick refresh recorded
   - ``Relation``/``Source`` — snapshot of the source relation
@@ -204,6 +204,7 @@ class CoveringIndex:
     ``included_columns``."""
 
     KIND = "CoveringIndex"
+    KIND_ABBR = "CI"
 
     indexed_columns: List[str]
     included_columns: List[str]
@@ -241,6 +242,60 @@ class CoveringIndex:
     @property
     def all_columns(self) -> List[str]:
         return self.indexed_columns + self.included_columns
+
+
+@dataclasses.dataclass
+class DataSkippingIndex:
+    """Per-source-file sketches over ``sketched_columns``: queries keep
+    scanning the source, and the rule only shrinks the file list."""
+
+    KIND = "DataSkippingIndex"
+    KIND_ABBR = "DS"
+
+    sketched_columns: List[str]
+    sketch_types: List[str]  # per column: MinMax, ValueList or BloomFilter
+    schema: Dict[str, str]  # sketched column name -> arrow dtype string
+    properties: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "kind": self.KIND,
+            "properties": {
+                "sketches": [
+                    {"column": c, "type": t}
+                    for c, t in zip(self.sketched_columns, self.sketch_types)
+                ],
+                "schema": self.schema,
+                "properties": self.properties,
+            },
+        }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "DataSkippingIndex":
+        p = d["properties"]
+        return DataSkippingIndex(
+            [s["column"] for s in p["sketches"]],
+            [s["type"] for s in p["sketches"]],
+            dict(p.get("schema", {})),
+            dict(p.get("properties", {})),
+        )
+
+    @property
+    def all_columns(self) -> List[str]:
+        return list(self.sketched_columns)
+
+
+_DERIVED_DATASET_KINDS = {
+    CoveringIndex.KIND: CoveringIndex,
+    DataSkippingIndex.KIND: DataSkippingIndex,
+}
+
+
+def derived_dataset_from_dict(d: Dict[str, Any]):
+    cls = _DERIVED_DATASET_KINDS.get(d.get("kind"))
+    if cls is None:
+        raise ValueError(f"Unknown derived dataset kind: {d.get('kind')!r}")
+    return cls.from_dict(d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,7 +425,7 @@ class IndexLogEntry:
     """One record in the operation log."""
 
     name: str
-    derived_dataset: CoveringIndex
+    derived_dataset: Any  # CoveringIndex or DataSkippingIndex
     content: Content
     source: Source
     properties: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -402,7 +457,7 @@ class IndexLogEntry:
             raise ValueError(f"Unsupported log entry version: {d.get('version')!r}")
         return IndexLogEntry(
             name=d["name"],
-            derived_dataset=CoveringIndex.from_dict(d["derivedDataset"]),
+            derived_dataset=derived_dataset_from_dict(d["derivedDataset"]),
             content=Content.from_dict(d["content"]),
             source=Source.from_dict(d["source"]),
             properties=dict(d.get("properties", {})),
@@ -413,19 +468,29 @@ class IndexLogEntry:
 
     @property
     def indexed_columns(self) -> List[str]:
+        # A data-skipping entry exposes its sketched columns here; the
+        # rewrite rules filter by kind before reading these.
+        if not self.is_covering:
+            return list(self.derived_dataset.sketched_columns)
         return self.derived_dataset.indexed_columns
 
     @property
     def included_columns(self) -> List[str]:
+        if not self.is_covering:
+            return []
         return self.derived_dataset.included_columns
 
     @property
     def num_buckets(self) -> int:
-        return self.derived_dataset.num_buckets
+        return getattr(self.derived_dataset, "num_buckets", 0)
 
     @property
     def is_covering(self) -> bool:
         return isinstance(self.derived_dataset, CoveringIndex)
+
+    @property
+    def kind_abbr(self) -> str:
+        return self.derived_dataset.KIND_ABBR
 
     @property
     def relations(self) -> List[Relation]:

@@ -1,9 +1,10 @@
 """Index collection manager (counterpart of
 hyperspace_tpu/index/manager.py): name -> log and data managers, dispatch
 to the actions (create, delete, restore, vacuum, cancel, the full,
-incremental and quick refresh, optimize), and listing of the indexes
-under the system path.  Not ported: auto-recovery, repair, the
-conflict-retry settings and the data-skipping dispatch."""
+incremental and quick refresh, optimize; a data-skipping index's create
+and refresh go to its own actions), and listing of the indexes under the
+system path.  Not ported: auto-recovery, repair and the conflict-retry
+settings."""
 
 from __future__ import annotations
 
@@ -12,7 +13,6 @@ from typing import Any, Dict, List, Optional
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
-from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.io.files import list_dir
@@ -46,12 +46,22 @@ class IndexCollectionManager:
     def _data_manager(self, name: str) -> IndexDataManager:
         return IndexDataManager(self.index_path(name))
 
-    def create(self, dataset, config: IndexConfig) -> None:
+    def create(self, dataset, config) -> None:
+        """Build the index ``config`` describes: an ``IndexConfig``
+        (covering) or a ``DataSkippingIndexConfig``."""
         from hyperspace_tpu_torch.actions.create import CreateAction
+        from hyperspace_tpu_torch.actions.data_skipping import (
+            CreateDataSkippingAction,
+        )
+        from hyperspace_tpu_torch.index.index_config import (
+            DataSkippingIndexConfig,
+        )
 
-        CreateAction(self._log_manager(config.index_name),
-                     self._data_manager(config.index_name),
-                     self.session, dataset.plan, config).run()
+        cls = CreateDataSkippingAction \
+            if isinstance(config, DataSkippingIndexConfig) else CreateAction
+        cls(self._log_manager(config.index_name),
+            self._data_manager(config.index_name),
+            self.session, dataset.plan, config).run()
 
     def delete(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.delete import DeleteAction
@@ -76,10 +86,14 @@ class IndexCollectionManager:
     def refresh(self, name: str, mode: str = "full"):
         """Run one refresh ("full", "incremental" or "quick"); returns its
         ``RefreshSummary`` (outcome "noop" for an unchanged source)."""
+        from hyperspace_tpu_torch.actions.data_skipping import (
+            RefreshDataSkippingAction,
+        )
         from hyperspace_tpu_torch.actions.refresh import (
             RefreshAction,
             RefreshIncrementalAction,
             RefreshQuickAction,
+            RefreshSummary,
         )
 
         cls = {"full": RefreshAction,
@@ -88,8 +102,19 @@ class IndexCollectionManager:
         if cls is None:
             raise HyperspaceError(f"Unknown refresh mode {mode!r}")
         log_manager = self._log_manager(name)
+        stable = log_manager.get_latest_stable_log()
+        # A data-skipping sketch is patched by its own action in the full
+        # and incremental modes; the quick refresh is metadata only.
+        if stable is not None and not stable.is_covering and mode != "quick":
+            action = RefreshDataSkippingAction(
+                log_manager, self._data_manager(name), self.session,
+                previous=stable)
+            outcome = action.run()
+            return RefreshSummary(
+                index=name, mode=mode, outcome=outcome,
+                version=action.base_id + 2 if outcome == "ok" else None)
         action = cls(log_manager, self._data_manager(name), self.session,
-                     previous=log_manager.get_latest_stable_log())
+                     previous=stable)
         return action.summary(action.run())
 
     def optimize(self, name: str, mode: str = "quick"):

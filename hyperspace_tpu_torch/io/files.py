@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from hyperspace_tpu_torch.index.log_entry import FileInfo
 from hyperspace_tpu_torch.utils.paths import is_data_file, normalize_path
@@ -35,9 +35,11 @@ def remove_file(path: str, missing_ok: bool = False) -> None:
             raise
 
 
-def list_data_files(root_paths: Sequence[str]) -> List[FileInfo]:
+def list_data_files(root_paths: Sequence[str],
+                    extension: Optional[str] = None) -> List[FileInfo]:
     """All data files under ``root_paths`` (each a file or directory),
-    sorted by path."""
+    sorted by path; with ``extension``, only the files of a directory
+    whose name ends with it."""
     out: List[FileInfo] = []
     for root in (normalize_path(r) for r in root_paths):
         if os.path.isfile(root):
@@ -46,8 +48,11 @@ def list_data_files(root_paths: Sequence[str]) -> List[FileInfo]:
             for dirpath, dirnames, filenames in os.walk(root):
                 dirnames.sort()
                 for name in sorted(filenames):
-                    if is_data_file(name):
-                        out.append(_file_info(os.path.join(dirpath, name)))
+                    if not is_data_file(name):
+                        continue
+                    if extension and not name.endswith(extension):
+                        continue
+                    out.append(_file_info(os.path.join(dirpath, name)))
     out.sort(key=lambda f: f.name)
     return out
 

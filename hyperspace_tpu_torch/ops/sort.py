@@ -10,9 +10,10 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-from hyperspace_tpu_torch.ops.hash import route_sort
+from hyperspace_tpu_torch.ops.hash import route_partition_np, route_sort
 from hyperspace_tpu_torch.ops.kernels import bucket_histogram
 
 
@@ -33,6 +34,19 @@ def bucket_sort_permutation(
       where perm orders rows by (bucket, *key columns).
     """
     return route_sort(word_cols, order_words, num_buckets)
+
+
+def bucket_sort_permutation_np(
+    word_cols: Sequence[np.ndarray],
+    order_words: Sequence[np.ndarray],
+    num_buckets: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Bit-identical host mirror of ``bucket_sort_permutation``, which the
+    build takes below ``device_min_rows("build")``: the same bucket ids
+    (``bucket_ids_np``) and a stable lexsort over the same (bucket,
+    order-word) keys; it is the spill route's mirror
+    ``ops.hash.route_partition_np``."""
+    return route_partition_np(word_cols, order_words, num_buckets)
 
 
 def bucket_counts(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:

@@ -2,9 +2,9 @@
 hyperspace_tpu/plan/expr.py, its filter-and-join subset).
 
 Column references, literals, comparisons, + - * / arithmetic, negation,
-the boolean connectives and IN.  ``repr`` is the JAX package's, so plans
-print alike.  String predicates, ``Cast``, ``Case``, ``Extract``,
-``IsNull``, ``BucketIn`` and the subquery nodes are not ported.
+the boolean connectives, IN and IS [NOT] NULL.  ``repr`` is the JAX
+package's, so plans print alike.  String predicates, ``Cast``, ``Case``,
+``Extract``, ``BucketIn`` and the subquery nodes are not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +69,12 @@ class Expr:
 
     def isin(self, values: Iterable[Any]) -> "Expr":
         return IsIn(self, list(values))
+
+    def is_null(self) -> "Expr":
+        return IsNull(self)
+
+    def is_not_null(self) -> "Expr":
+        return Not(IsNull(self))
 
     def __hash__(self) -> int:
         return hash(repr(self))
@@ -172,6 +178,18 @@ class IsIn(Expr):
         return f"{self.child!r}.isin({self.values!r})"
 
 
+class IsNull(Expr):
+    """SQL IS NULL: true for null values, where a comparison with a null
+    drops the row.  The device filter path and every pruning analysis
+    treat it as an opaque shape; it is evaluated on the arrow path."""
+
+    def __init__(self, child: Expr) -> None:
+        self.child = child
+
+    def __repr__(self) -> str:
+        return f"{self.child!r}.is_null()"
+
+
 def col(name: str) -> Col:
     return Col(name)
 
@@ -190,7 +208,7 @@ def _collect_columns(e: Expr, out: Set[str]) -> None:
     elif isinstance(e, (BinOp, Arith, And, Or)):
         _collect_columns(e.left, out)
         _collect_columns(e.right, out)
-    elif isinstance(e, (Neg, Not, IsIn)):
+    elif isinstance(e, (Neg, Not, IsIn, IsNull)):
         _collect_columns(e.child, out)
 
 

@@ -22,7 +22,10 @@ class ScanRelation:
     rule applies twice); ``bucket_spec`` is (num_buckets, bucket columns,
     sort columns) of bucketed index data; ``file_paths``, when set,
     replaces the listing of ``root_paths``; ``prune_to_buckets`` keeps
-    only the index files of those buckets."""
+    only the index files of those buckets.  ``data_skipping_of`` names
+    the data-skipping index that pruned a source scan's file list, and
+    ``data_skipping_stats`` is (files kept, files in all) of a scan whose
+    files a sketch pruned."""
 
     root_paths: Tuple[str, ...]
     file_format: str = "parquet"
@@ -31,6 +34,8 @@ class ScanRelation:
     bucket_spec: Optional[Tuple[int, Tuple[str, ...], Tuple[str, ...]]] = None
     file_paths: Optional[Tuple[str, ...]] = None
     prune_to_buckets: Optional[Tuple[int, ...]] = None
+    data_skipping_of: Optional[str] = None
+    data_skipping_stats: Optional[Tuple[int, int]] = None
 
     @property
     def options_dict(self) -> Dict[str, str]:
@@ -97,8 +102,18 @@ class Scan(LogicalPlan):
             if rel.prune_to_buckets is not None:
                 tag += (f" [buckets: {len(rel.prune_to_buckets)}"
                         f"/{rel.bucket_spec[0]}]")
+            if rel.data_skipping_stats is not None:
+                kept, total = rel.data_skipping_stats
+                tag += f" [files: {kept}/{total}]"
             return f"Scan {tag}"
-        return f"Scan {','.join(rel.root_paths)} ({rel.file_format})"
+        base = f"Scan {','.join(rel.root_paths)} ({rel.file_format})"
+        if rel.data_skipping_of:
+            tag = f"Hyperspace(Type: DS, Name: {rel.data_skipping_of})"
+            if rel.data_skipping_stats is not None:
+                kept, total = rel.data_skipping_stats
+                tag += f" [files: {kept}/{total}]"
+            return f"{base} {tag}"
+        return base
 
 
 class Filter(LogicalPlan):

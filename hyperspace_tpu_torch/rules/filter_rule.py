@@ -11,11 +11,13 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
     build kernel's bit-equal host mirror) and only their files are read.
     Under hybrid scan an index whose source changed is swapped in as the
     index merged with the appended files (``rules.hybrid``); the bucket
-    pruning applies to its index part.
+    pruning applies to its index part.  Otherwise the index files whose
+    per-file min/max (the ``_sketch.parquet`` each build version writes)
+    cannot satisfy the predicate are dropped too
+    (``rules.data_skipping.prune_index_files_by_sketch``).
 
-Not ported: the Z-order any-column relaxation, the quarantine
-transform, and the per-file min/max sketch pruning (the port's build
-writes no ``_sketch.parquet``).
+Not ported: the Z-order any-column relaxation and the quarantine
+transform.
 """
 
 from __future__ import annotations
@@ -84,8 +86,15 @@ class FilterIndexRule:
                     prune_to_buckets=prune)
         use_bucket_spec = (self.session.conf.filter_rule_use_bucket_spec
                            or prune is not None)
+        from hyperspace_tpu_torch.rules.data_skipping import (
+            prune_index_files_by_sketch,
+        )
+
+        pruned = prune_index_files_by_sketch(best, filter_node.condition)
+        file_paths, file_stats = (None, None) if pruned is None \
+            else (pruned[0], (len(pruned[0]), pruned[1]))
         return rule_utils.transform_plan_to_use_index_only_scan(
-            plan, scan, best, use_bucket_spec, prune)
+            plan, scan, best, use_bucket_spec, prune, file_paths, file_stats)
 
 
 def _extract_filter_nodes(plan: LogicalPlan

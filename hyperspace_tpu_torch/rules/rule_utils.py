@@ -62,10 +62,15 @@ def get_candidate_indexes(session, entries: Sequence[IndexLogEntry],
 
 
 def index_scan_relation(entry: IndexLogEntry, use_bucket_spec: bool,
-                        prune_to_buckets: Optional[Tuple[int, ...]] = None
+                        prune_to_buckets: Optional[Tuple[int, ...]] = None,
+                        file_paths: Optional[Sequence[str]] = None,
+                        file_stats: Optional[Tuple[int, int]] = None
                         ) -> ScanRelation:
-    """The relation that reads an index's bucketed Parquet files."""
-    files = [f.name for f in entry.content.file_infos()]
+    """The relation that reads an index's bucketed Parquet files, or
+    ``file_paths``, the subset a sketch kept (``file_stats``: kept, in
+    all)."""
+    files = list(file_paths) if file_paths is not None \
+        else [f.name for f in entry.content.file_infos()]
     root = os.path.dirname(files[0]) if files else ""
     cols = tuple(entry.indexed_columns)
     return ScanRelation(
@@ -75,16 +80,19 @@ def index_scan_relation(entry: IndexLogEntry, use_bucket_spec: bool,
         bucket_spec=(entry.num_buckets, cols, cols) if use_bucket_spec else None,
         file_paths=tuple(files),
         prune_to_buckets=prune_to_buckets,
+        data_skipping_stats=file_stats,
     )
 
 
 def transform_plan_to_use_index_only_scan(
         plan: LogicalPlan, target: Scan, entry: IndexLogEntry,
         use_bucket_spec: bool,
-        prune_to_buckets: Optional[Tuple[int, ...]] = None) -> LogicalPlan:
+        prune_to_buckets: Optional[Tuple[int, ...]] = None,
+        file_paths: Optional[Sequence[str]] = None,
+        file_stats: Optional[Tuple[int, int]] = None) -> LogicalPlan:
     """Swap ``target`` for an index-only scan throughout ``plan``."""
-    new_node: LogicalPlan = Scan(index_scan_relation(entry, use_bucket_spec,
-                                                     prune_to_buckets))
+    new_node: LogicalPlan = Scan(index_scan_relation(
+        entry, use_bucket_spec, prune_to_buckets, file_paths, file_stats))
     if entry.has_lineage_column():
         new_node = Project(entry.derived_dataset.all_columns, new_node)
     return plan.transform_up(lambda node: new_node if node is target else node)

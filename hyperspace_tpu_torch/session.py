@@ -4,11 +4,11 @@ schema resolution and the optimizer.
 
 ``enable_hyperspace()`` switches the index rewrite rules on; ``optimize``
 then runs, in the JAX package's order: filter pushdown, column pruning,
-JoinIndexRule, FilterIndexRule, BucketPruneRule, and pushdown and pruning
+JoinIndexRule, FilterIndexRule, BucketPruneRule, DataSkippingFilterRule
+(last: a covering rewrite beats file pruning), and pushdown and pruning
 once more (the rules rebuild sides in Filter-above-Project form).  Not
-ported: the subquery, temporal and data-skipping steps, the degraded
-fallback that answers from the source when a rule fails, and the plan
-cache."""
+ported: the subquery and temporal steps, the degraded fallback that
+answers from the source when a rule fails, and the plan cache."""
 
 from __future__ import annotations
 
@@ -57,6 +57,8 @@ class HyperspaceSession:
             self.conf.system_path = system_path
         # Per-build phase seconds, one dict per CreateAction run.
         self.build_stats_log: List[Dict[str, float]] = []
+        # The BuildReport of the last action run with this session.
+        self.last_build_report_value = None
         self._hyperspace_enabled = False
         self._schema_cache: Dict[ScanRelation, Dict[str, str]] = {}
         # The executor's stats of the most recent Dataset.collect().
@@ -109,6 +111,9 @@ class HyperspaceSession:
         from hyperspace_tpu_torch.plan.pruning import prune_columns
         from hyperspace_tpu_torch.plan.pushdown import push_filters
         from hyperspace_tpu_torch.rules.bucket_prune import BucketPruneRule
+        from hyperspace_tpu_torch.rules.data_skipping import (
+            DataSkippingFilterRule,
+        )
         from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
         from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
 
@@ -123,6 +128,7 @@ class HyperspaceSession:
         plan = JoinIndexRule(self, entries).apply(plan)
         plan = FilterIndexRule(self, entries).apply(plan)
         plan = BucketPruneRule(self, entries).apply(plan)
+        plan = DataSkippingFilterRule(self, entries).apply(plan)
         plan = push_filters(plan, self.schema_of)
         return prune_columns(plan, self.schema_of)
 

@@ -303,6 +303,8 @@ def _session(pkg, system_path, threshold):
         # query are answered from its cached columns; residency never
         # lowers a threshold here, so routes stay the uncached ones.
         s.conf.device_resident_min_rows = HIGH
+        # The device build (the CPU default takes the host mirror).
+        s.conf.device_build_min_rows = 0
     return s
 
 

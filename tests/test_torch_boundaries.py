@@ -43,7 +43,9 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "actions/cancel.py", "lifecycle/change_detector.py",
                    "actions/optimize.py", "rules/hybrid.py",
                    "ops/aggregate.py", "ops/join_agg.py",
-                   "execution/device_cache.py"):
+                   "execution/device_cache.py", "utils/calibrate.py",
+                   "telemetry/build_report.py", "actions/data_skipping.py",
+                   "rules/data_skipping.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -62,7 +64,9 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
     assert len(sources) > 20
     for module in ("actions/optimize.py", "actions/refresh.py",
                    "rules/hybrid.py", "ops/aggregate.py", "ops/join_agg.py",
-                   "execution/device_cache.py"):
+                   "execution/device_cache.py", "utils/calibrate.py",
+                   "telemetry/build_report.py", "actions/data_skipping.py",
+                   "rules/data_skipping.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -93,6 +97,9 @@ def test_a_build_through_the_port_imports_no_jax(tmp_path):
                        os.path.join(data, "part-0.parquet"))
         s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
         s.conf.num_buckets = 4
+        # The device routes (the CPU defaults send work to the host).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
         assert hs.indexes()[0]["state"] == "ACTIVE"
@@ -129,6 +136,9 @@ def test_the_spill_build_and_the_lifecycle_verbs_import_no_jax(tmp_path):
                            os.path.join(data, f"part-{{i}}.parquet"))
         s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
         s.conf.num_buckets = 4
+        # The device routes (the CPU defaults send work to the host).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
         s.conf.device_batch_rows = 256
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
@@ -175,6 +185,9 @@ def test_queries_through_the_port_import_no_jax(tmp_path):
                            os.path.join(paths[name], "part-0.parquet"))
         s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
         s.conf.num_buckets = 4
+        # The device routes (the CPU defaults send work to the host).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(paths["a"]), IndexConfig("ia", ["k"], ["av"]))
         hs.create_index(s.read.parquet(paths["b"]), IndexConfig("ib", ["j"], ["bv"]))
@@ -224,6 +237,9 @@ def test_refresh_modes_hybrid_scan_and_optimize_import_no_jax(tmp_path):
                                os.path.join(paths[name], f"part-{{i}}.parquet"))
         s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
         s.conf.num_buckets = 4
+        # The device routes (the CPU defaults send work to the host).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
         s.conf.lineage_enabled = True
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(paths["a"]), IndexConfig("ia", ["k"], ["av"]))
@@ -284,6 +300,9 @@ def test_aggregate_queries_through_the_port_import_no_jax(tmp_path):
                            os.path.join(paths[name], "part-0.parquet"))
         s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
         s.conf.num_buckets = 4
+        # The device routes (the CPU defaults send work to the host).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(paths["o"]), IndexConfig("io", ["ok"], ["cust"]))
         hs.create_index(s.read.parquet(paths["l"]), IndexConfig("il", ["lk"], ["p", "d"]))
@@ -314,6 +333,49 @@ def test_aggregate_queries_through_the_port_import_no_jax(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+def test_calibration_reports_and_data_skipping_import_no_jax(tmp_path):
+    """The calibration probe, a build report and a data-skipping index
+    with a pruned query, each through the port's entry points."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (DataSkippingIndexConfig, Hyperspace,
+                                          HyperspaceSession, IndexConfig, col)
+        from hyperspace_tpu_torch.utils import calibrate
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        for i in range(4):
+            pq.write_table(pa.table({{"k": np.arange(i * 100, (i + 1) * 100),
+                                      "v": np.arange(100) * 0.5}}),
+                           os.path.join(data, f"part-{{i}}.parquet"))
+        os.environ["HS_CALIBRATE"] = "1"
+        assert calibrate.profile_summary("cpu")["calibrated"] is True
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ci", ["v"], ["k"]))
+        assert hs.last_build_report().bytes_written > 0
+        hs.create_index(s.read.parquet(data), DataSkippingIndexConfig("ds", ["k"]))
+        s.enable_hyperspace()
+        ds = s.read.parquet(data).filter(col("k") == 250).select("k")
+        assert "[files: 1/4]" in ds.optimized_plan().tree_string()
+        assert ds.collect().num_rows == 1
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 def test_a_device_error_in_the_fused_join_aggregate_propagates(tmp_path,
                                                                monkeypatch):
     """Nothing catches an error of the fused path's device work to answer
@@ -331,6 +393,8 @@ def test_a_device_error_in_the_fused_join_aggregate_propagates(tmp_path,
         os.makedirs(tmp_path / name)
         pq.write_table(pa.table(cols), str(tmp_path / name / "part-0.parquet"))
     s = HyperspaceSession(str(tmp_path / "ix"), device="cpu")
+    for kind in ("filter", "join", "agg", "build", "resident"):
+        setattr(s.conf, f"device_{kind}_min_rows", 0)
     ds = (s.read.parquet(str(tmp_path / "o"))
           .join(s.read.parquet(str(tmp_path / "l")), col("ok") == col("lk"))
           .group_by("cust").agg(total=("p", "sum")))

@@ -47,6 +47,9 @@ def _build(pkg, system_path, data, num_buckets, config, max_rows_per_file=0,
     s = pkg.HyperspaceSession(system_path=system_path, **session_kw)
     s.conf.num_buckets = num_buckets
     s.conf.index_max_rows_per_file = max_rows_per_file
+    if pkg is hyperspace_tpu_torch:
+        # The device route (the CPU default takes the host mirror).
+        s.conf.device_build_min_rows = 0
     hs = pkg.Hyperspace(s)
     hs.create_index(s.read.parquet(data), pkg.IndexConfig(*config))
     return s, hs, s.index_collection_manager.get_index(config[0])

@@ -70,6 +70,9 @@ def _session(pkg, system_path, policy="eager", resident=1, cold=COLD):
     s.conf.device_agg_min_rows = cold
     s.conf.device_cache_policy = policy
     s.conf.device_resident_min_rows = resident
+    if pkg is hyperspace_tpu_torch:
+        # The device build (the CPU default takes the host mirror).
+        s.conf.device_build_min_rows = 0
     return s
 
 
@@ -678,6 +681,9 @@ def indexed(tmp_path_factory):
     s = hyperspace_tpu_torch.HyperspaceSession(
         system_path=os.path.join(root, "ix"), device="cpu")
     s.conf.num_buckets = NUM_BUCKETS
+    # The device routes (the CPU defaults take the host).
+    for kind in ("filter", "join", "agg", "build", "resident"):
+        setattr(s.conf, f"device_{kind}_min_rows", 0)
     hs = hyperspace_tpu_torch.Hyperspace(s)
     hs.create_index(s.read.parquet(paths["lineitem"]), hyperspace_tpu_torch.IndexConfig(
         "li_idx", ["l_orderkey"], ["l_quantity", "l_extendedprice", "l_discount"]))
@@ -738,6 +744,8 @@ def test_every_device_query_kind_warm_equals_cold(indexed, kind):
     s = hyperspace_tpu_torch.HyperspaceSession(system_path=system_path,
                                                device="cpu")
     s.conf.num_buckets = NUM_BUCKETS
+    for k in ("filter", "join", "agg", "resident"):
+        setattr(s.conf, f"device_{k}_min_rows", 0)  # the device routes
     if kind != "join":
         s.enable_hyperspace()
     ds = _kind_query(kind, s, paths)
@@ -775,6 +783,8 @@ def test_cache_key_names_the_device(indexed):
     system_path, paths = indexed
     s = hyperspace_tpu_torch.HyperspaceSession(system_path=system_path,
                                                device="cpu")
+    for k in ("filter", "join", "agg", "resident"):
+        setattr(s.conf, f"device_{k}_min_rows", 0)  # the device routes
     s.enable_hyperspace()
     ds = _kind_query("filter", s, paths)
     want = ds.collect()

@@ -68,6 +68,11 @@ def _session(pkg, system_path, lineage=False, batch_rows=1 << 20):
     s.conf.device_batch_rows = batch_rows
     s.conf.device_filter_min_rows = 0
     s.conf.device_join_min_rows = 0
+    if pkg is hyperspace_tpu_torch:
+        # The device routes everywhere (the CPU defaults take the host).
+        s.conf.device_agg_min_rows = 0
+        s.conf.device_build_min_rows = 0
+        s.conf.device_resident_min_rows = 0
     if pkg is hyperspace_tpu:
         # The port's single-device path: no mesh; the JAX side uncached,
         # the port's cache on, so changed files must never be served

@@ -53,6 +53,9 @@ def _session(pkg, system_path, threshold, **kw):
         # query are answered from its cached columns; residency never
         # lowers a threshold here, so routes stay the uncached ones.
         s.conf.device_resident_min_rows = HIGH
+        # The device build and aggregate (the CPU defaults take the host).
+        s.conf.device_agg_min_rows = 0
+        s.conf.device_build_min_rows = 0
     return s
 
 

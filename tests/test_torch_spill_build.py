@@ -66,6 +66,10 @@ def _session(pkg, system_path, num_buckets=4, batch_rows=BATCH,
     s.conf.index_max_rows_per_file = max_rows_per_file
     if pkg is hyperspace_tpu:
         s.conf.parallel_build = "off"  # the single-chip spill path
+    else:
+        # The device routes (the CPU defaults take the host mirror).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{kind}_min_rows", 0)
     return s
 
 
