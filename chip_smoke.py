@@ -171,6 +171,33 @@ beside it.
            quick optimize; every timed build's report (phases C, E, G,
            F) has its ``bytes_written`` and ``files_written`` held to
            the data files of the version it wrote.
+  phase I  the integrity loop, after phase G, over phase C's lineitem:
+           ``li_int`` (``l_orderkey`` with quantity, price and discount,
+           200 buckets, lineage, the default batch) and ``ord_int`` on
+           the orders; every FileInfo has a content digest and each
+           bucket's sha256 is kept.  ``verify_index`` quick and full
+           (timed; every file "ok", nothing quarantined; the MB full
+           read).  ``point`` and ``range`` of phase D timed cold clean
+           and as scans.  Bit rot: one byte flipped in the middle of the
+           file of ``POINT_KEY``'s bucket, size and mtime kept; quick
+           reads "ok", full "digest-mismatch" for that file alone, the
+           only one quarantined.  Containment: both queries' plans hold
+           one ``BucketIn`` branch of that bucket, their answers equal
+           numpy's (phase D's order), each BucketIn takes the device
+           route with one hash launch, and both are timed cold; the
+           join leaves ``li_int`` unused.  Another bucket's file is then
+           truncated to half: ``range``'s collect quarantines it, answers
+           right from the containment re-plan (no source fallback).  A
+           device fault (``ops.filter.compile_predicate`` made to raise,
+           then restored) propagates out of ``collect`` and changes no
+           quarantine.  ``refresh_index(mode="repair")``: one launch of
+           each kernel, its report's phases and wall; the two repaired
+           buckets' rows equal numpy's in the index order (lineage ids
+           included) and every bucket's sha256 equals the build's; a
+           full verify is clean, the quarantine empty, the plans hold no
+           ``BucketIn``.  Last, phase C's build four times, digest on
+           write off and on in turns (DIGEST_BUILDS), and the written MB
+           hashed again serially.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -195,8 +222,10 @@ chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
 the builds JSON (phases E, G and F, each with its build ``report``), the
 queries JSON (phase D's with its ``eviction`` run, phase G's as
 ``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
-H's under ``calibration``), the kernels JSON, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+H's under ``calibration``), the kernels JSON (``launches_by_path`` with
+phase I's ``I repair`` and ``I containment``), the integrity JSON
+(phase I), the card's name and power limit, and ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
@@ -273,6 +302,13 @@ DS_INDEX = "li_ds"
 DS_RANGE = (N_LINEITEM // 20, N_LINEITEM * 13 // 200)
 DS_WANT_FILES = (2, N_FILES)
 CALIBRATED_INDEX = "li_cal"
+# Phase I: the integrity loop at SF1, 200 buckets with lineage.
+INTEGRITY_INDEX = "li_int"
+INTEGRITY_ORDERS = "ord_int"
+INTEGRITY_INCLUDED = ["l_quantity", "l_extendedprice", "l_discount"]
+INTEGRITY_COLUMNS = ["l_orderkey"] + INTEGRITY_INCLUDED
+# Phase C's build with digest on write off and on, in turns.
+DIGEST_BUILDS = (False, True, False, True)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -1766,6 +1802,305 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
             "resident_mib_end": resident_end}
 
 
+def bucket_of(keys: np.ndarray, num_buckets: int) -> np.ndarray:
+    """The build's bucket of each int64 key (the host mirror)."""
+    from hyperspace_tpu_torch.ops.hash import bucket_ids_np
+
+    hw, _ = int64_words(keys)
+    return bucket_ids_np([hw], num_buckets)
+
+
+def flip_byte(path: str) -> None:
+    """Flip one byte in the middle of ``path``, keeping its size and
+    putting its mtime back: bit rot that only a digest sees."""
+    st = os.stat(path)
+    with open(path, "r+b") as f:
+        f.seek(st.st_size // 2)
+        byte = f.read(1)
+        f.seek(st.st_size // 2)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns))
+
+
+def bucket_in_branches(plan) -> list:
+    """The ``BucketIn`` filters of ``plan`` (quarantine containment)."""
+    from hyperspace_tpu_torch.plan.expr import BucketIn
+
+    own = [plan] if type(plan).__name__ == "Filter" \
+        and isinstance(plan.condition, BucketIn) else []
+    return own + [n for c in plan.children for n in bucket_in_branches(c)]
+
+
+def verify_statuses(hs, mode: str) -> tuple:
+    """(seconds, {file: status}, quarantined files) of one scrub."""
+    t0 = time.perf_counter()
+    report = hs.verify_index(INTEGRITY_INDEX, mode)
+    seconds = time.perf_counter() - t0
+    statuses = dict(zip(report.column("file").to_pylist(),
+                        report.column("status").to_pylist()))
+    quarantined = {f for f, q in zip(report.column("file").to_pylist(),
+                                     report.column("quarantined").to_pylist())
+                   if q}
+    return seconds, statuses, quarantined
+
+
+def require_flagged(label: str, statuses: dict, want: dict) -> dict:
+    """Every file "ok" but those of ``want`` (file -> status)."""
+    flagged = {f: s for f, s in statuses.items() if s != "ok"}
+    if flagged != want:
+        raise AssertionError(f"phase I {label}: flagged {flagged}, "
+                             f"expected {want}")
+    return {os.path.basename(f): s for f, s in flagged.items()}
+
+
+def phase_i(orders: dict, li: dict, root: str, dev) -> dict:
+    """The integrity loop at SF1 (see the module docstring)."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import (
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+        col,
+    )
+    from hyperspace_tpu_torch.io import integrity
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+    from hyperspace_tpu_torch.ops import filter as device_filter
+    from hyperspace_tpu_torch.ops import kernels
+
+    # 1. The indexes: a digest on every file, each bucket's sha256 kept.
+    device_cache().clear()
+    path = os.path.join(root, "i_indexes")
+    hs = spill_session(dev, path, lineage_enabled=True)
+    session = hs.session
+    mgr = session.index_collection_manager
+    source = os.path.join(root, "lineitem")
+    t0 = time.perf_counter()
+    hs.create_index(session.read.parquet(source),
+                    IndexConfig(INTEGRITY_INDEX, INDEXED, INTEGRITY_INCLUDED))
+    create_s = time.perf_counter() - t0
+    hs.create_index(session.read.parquet(os.path.join(root, "orders")),
+                    IndexConfig(INTEGRITY_ORDERS, ["o_orderkey"],
+                                ["o_totalprice"]))
+    entry = mgr.get_index(INTEGRITY_INDEX)
+    infos = entry.content.file_infos()
+    if not infos or not all(f.digest for f in infos):
+        raise AssertionError("phase I: an index file of the entry has no digest")
+    pristine = bucket_digests(hs, INTEGRITY_INDEX)
+    file_of = {bucket_id_of_file(f.name): f.name for f in infos}
+    if len(file_of) != len(infos):
+        raise AssertionError("phase I: a bucket with more than one file")
+    lk = li["l_orderkey"]
+    key_buckets = bucket_of(lk, SPILL_BUCKETS)
+    b = int(bucket_of(np.array([POINT_KEY]), SPILL_BUCKETS)[0])
+    c = next(x for x in ((b + 100 + i) % SPILL_BUCKETS
+                         for i in range(SPILL_BUCKETS))
+             if x in file_of and file_of[x] != infos[0].name)
+    flagged = {}
+
+    # 2. Scrubs of the clean index.
+    quick_s, statuses, quarantined = verify_statuses(hs, "quick")
+    flagged["clean_quick"] = require_flagged("clean quick", statuses, {})
+    full_s, statuses, quarantined = verify_statuses(hs, "full")
+    flagged["clean_full"] = require_flagged("clean full", statuses, {})
+    if quarantined or mgr.quarantine_manager(INTEGRITY_INDEX).paths():
+        raise AssertionError(f"phase I: clean scrub quarantined {quarantined}")
+    full_mb = sum(f.size for f in infos) / 1e6
+
+    point = (session.read.parquet(source).filter(col("l_orderkey") == POINT_KEY)
+             .select("l_orderkey", "l_quantity"))
+    rng_q = (session.read.parquet(source)
+             .filter((col("l_orderkey") >= RANGE[0])
+                     & (col("l_orderkey") < RANGE[1]))
+             .select("l_orderkey", "l_extendedprice", "l_discount"))
+    join = (session.read.parquet(os.path.join(root, "orders"))
+            .join(session.read.parquet(source),
+                  col("o_orderkey") == col("l_orderkey"))
+            .select("o_orderkey", "o_totalprice", "l_quantity"))
+    want_point = ({c_: li[c_][lk == POINT_KEY]
+                   for c_ in ("l_orderkey", "l_quantity")}, None)
+    in_range = (lk >= RANGE[0]) & (lk < RANGE[1])
+    want_range = ({c_: li[c_][in_range] for c_ in
+                   ("l_orderkey", "l_extendedprice", "l_discount")},
+                  ["l_orderkey", "l_extendedprice"])
+    queries = {"point": (point, want_point), "range": (rng_q, want_range)}
+    session.enable_hyperspace()
+    if sorted(n for n, _ in index_scans(join.optimized_plan())) != \
+            sorted([INTEGRITY_INDEX, INTEGRITY_ORDERS]):
+        raise AssertionError("phase I: the clean join does not read both "
+                             "indexes")
+    times = {}
+    for name, (ds, (want, keys)) in queries.items():
+        require_rows(f"phase I clean {name}", ds.collect(), want, keys)
+        clean = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        session.disable_hyperspace()
+        require_rows(f"phase I scan {name}", ds.collect(), want, keys)
+        scan = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        session.enable_hyperspace()
+        times[name] = {"clean_ms": statistics.median(clean),
+                       "scan_ms": statistics.median(scan),
+                       "clean_runs_ms": clean, "scan_runs_ms": scan}
+
+    # 3. Bit rot in bucket b's file: only a full scrub sees it.
+    flip_byte(file_of[b])
+    _, statuses, _ = verify_statuses(hs, "quick")
+    flagged["bitrot_quick"] = require_flagged("bit rot quick", statuses, {})
+    _, statuses, quarantined = verify_statuses(hs, "full")
+    flagged["bitrot_full"] = require_flagged(
+        "bit rot full", statuses, {file_of[b]: "digest-mismatch"})
+    qm = mgr.quarantine_manager(INTEGRITY_INDEX)
+    if quarantined != {file_of[b]} or qm.paths() != {file_of[b]}:
+        raise AssertionError(f"phase I: quarantined {qm.paths()}")
+
+    # 4. Containment: bucket b's rows come from the source.
+    contained_launches = {}
+    for name, (ds, (want, keys)) in queries.items():
+        plan = ds.optimized_plan()
+        branches = bucket_in_branches(plan)
+        if len(branches) != 1 or branches[0].condition.buckets != (b,):
+            raise AssertionError(f"phase I {name}: {len(branches)} BucketIn "
+                                 f"branches:\n{plan.tree_string()}")
+        device_cache().clear()
+        kernels.reset_launch_counts()
+        require_rows(f"phase I contained {name}", ds.collect(), want, keys)
+        contained_launches[name] = kernels.launch_counts()
+        stats = session.last_execution_stats
+        if [r["strategy"] for r in stats.get("bucket_in", [])] != ["device"] \
+                or contained_launches[name]["hash_buckets"] != 1:
+            raise AssertionError(
+                f"phase I {name}: BucketIn routes {stats.get('bucket_in')}, "
+                f"launches {contained_launches[name]}")
+        runs = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        times[name].update(contained_ms=statistics.median(runs),
+                           contained_runs_ms=runs)
+    if INTEGRITY_INDEX in [n for n, _ in index_scans(join.optimized_plan())]:
+        raise AssertionError("phase I: the join reads the quarantined index")
+
+    # 5. A truncated file found by the query itself.
+    with open(file_of[c], "r+b") as f:
+        f.truncate(os.path.getsize(file_of[c]) // 2)
+    ds, (want, keys) = queries["range"]
+    device_cache().clear()
+    require_rows("phase I truncated range", ds.collect(), want, keys)
+    stats = session.last_execution_stats
+    record = stats.get("containment") or {}
+    if record.get("replan") != "containment" \
+            or record.get("quarantined") != [file_of[c]] \
+            or not any(s["is_index"] for s in stats["scans"]) \
+            or qm.paths() != {file_of[b], file_of[c]}:
+        raise AssertionError(f"phase I: execution containment {record}, "
+                             f"quarantine {qm.paths()}")
+    flagged["execution"] = {os.path.basename(p): "quarantined"
+                            for p in record["quarantined"]}
+
+    # 6. A device fault is not contained.
+    def fault(*args, **kwargs):
+        raise RuntimeError("phase I injected device fault")
+
+    real = device_filter.compile_predicate
+    device_filter.compile_predicate = fault
+    try:
+        ds.collect()
+    except RuntimeError as e:
+        if "injected device fault" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase I: the device fault did not propagate")
+    finally:
+        device_filter.compile_predicate = real
+    if qm.paths() != {file_of[b], file_of[c]}:
+        raise AssertionError(f"phase I: the device fault changed the "
+                             f"quarantine: {qm.paths()}")
+
+    # 7. Repair: buckets b and c from the recorded snapshot.
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = hs.refresh_index(INTEGRITY_INDEX, mode="repair")
+    repair_s = time.perf_counter() - t0
+    repair_launches = kernels.launch_counts()
+    require_launches("phase I repair", repair_launches,
+                     {"hash_buckets": 1, "bucket_histogram": 1})
+    report = checked_report("phase I repair", hs)
+    if summary.outcome != "ok":
+        raise AssertionError(f"phase I: repair summary {summary}")
+    entry = mgr.get_index(INTEGRITY_INDEX)
+    ids = {os.path.basename(f.name): f.id for f in entry.source_file_infos()}
+    file_id = np.array([ids[f"part-{i:05d}.parquet"] for i in range(N_FILES)],
+                       dtype=np.int64)
+    for bucket in (b, c):
+        files = sorted(f.name for f in entry.content.file_infos()
+                       if bucket_id_of_file(f.name) == bucket)
+        got = pq.read_table(files[0], partitioning=None) \
+            if len(files) == 1 else None
+        if got is None:
+            raise AssertionError(f"phase I: bucket {bucket} has {files}")
+        rows = np.flatnonzero(key_buckets == bucket)
+        rows = rows[np.argsort(lk[rows], kind="stable")]
+        want = {c_: li[c_][rows] for c_ in INTEGRITY_COLUMNS}
+        want["_data_file_id"] = file_id[rows // ROWS_PER_FILE]
+        require_rows(f"phase I repaired bucket {bucket}", got, want)
+    repaired = bucket_digests(hs, INTEGRITY_INDEX)
+    if repaired != pristine:
+        raise AssertionError("phase I: a repaired bucket's sha256 differs "
+                             "from the build's")
+    _, statuses, quarantined = verify_statuses(hs, "full")
+    flagged["repaired_full"] = require_flagged("repaired full", statuses, {})
+    if quarantined or qm.paths():
+        raise AssertionError(f"phase I: quarantine after repair {qm.paths()}")
+    for name, (ds, (want, keys)) in queries.items():
+        if bucket_in_branches(ds.optimized_plan()):
+            raise AssertionError(f"phase I {name}: BucketIn after repair")
+        require_rows(f"phase I repaired {name}", ds.collect(), want, keys)
+
+    # 8. What digest on write costs a build (phase C's shape): builds
+    # with it off and on in turns, so neither is always the first.
+    walls = {"on": [], "off": []}
+    for i, on in enumerate(DIGEST_BUILDS):
+        label = "on" if on else "off"
+        system_path = os.path.join(root, f"i_digest_{i}")
+        s2 = HyperspaceSession(system_path=system_path, device=dev)
+        s2.conf.num_buckets = NUM_BUCKETS
+        s2.conf.device_batch_rows = 1 << 23
+        s2.conf.integrity_digest_on_write = on
+        set_min_rows(s2, 0)
+        device_cache().clear()
+        t0 = time.perf_counter()
+        Hyperspace(s2).create_index(s2.read.parquet(source),
+                                    IndexConfig(INDEX_NAME, INDEXED, INCLUDED))
+        walls[label].append(time.perf_counter() - t0)
+        written = s2.index_collection_manager.get_index(INDEX_NAME) \
+            .content.file_infos()
+        if all(f.digest for f in written) != on or \
+                any(f.digest for f in written) != on:
+            raise AssertionError(f"phase I: digest on write {label}: "
+                                 f"{[f.digest for f in written][:3]}")
+        if on:
+            t0 = time.perf_counter()
+            for f in written:
+                if integrity.digest_file(f.name) != f.digest:
+                    raise AssertionError(f"phase I: digest of {f.name}")
+            serial_digest_s = time.perf_counter() - t0
+            written_mb = sum(f.size for f in written) / 1e6
+        shutil.rmtree(system_path, ignore_errors=True)
+    shutil.rmtree(path, ignore_errors=True)
+    session.disable_hyperspace()
+    device_cache().clear()
+    return {
+        "digest_algo": integrity.DEFAULT_ALGO, "create_s": create_s,
+        "buckets": {"bitrot": b, "truncated": c},
+        "verify_quick_s": quick_s, "verify_full_s": full_s,
+        "verify_full_mb": full_mb, "flagged": flagged, "queries": times,
+        "contained_launches": contained_launches,
+        "repair_wall_s": repair_s, "repair_phases": report["phases_s"],
+        "repair_launches": repair_launches, "repair_report": report,
+        "digest_on_write_s": {
+            "on": walls["on"], "off": walls["off"],
+            "difference": statistics.median(walls["on"])
+            - statistics.median(walls["off"]),
+            "serial_digest_s": serial_digest_s, "mb": written_mb}}
+
+
 def route_of(stats: dict) -> str:
     """The route a collect took over its filters, join kernels, fused
     joins and device aggregates: "device", "host", "mixed", or "none"
@@ -2130,6 +2465,30 @@ def measure(dev, keys: np.ndarray, launches: dict, by_path: dict,
                 "hyperspace_tpu/ops/pallas_kernels.py:145", hist_rows)]
 
 
+def print_integrity(integ: dict) -> None:
+    print(f"phase I: digests {integ['digest_algo']}; li_int created in "
+          f"{integ['create_s']:.3f} s; verify quick {integ['verify_quick_s']:.4f} "
+          f"s, full {integ['verify_full_s']:.4f} s over "
+          f"{integ['verify_full_mb']:.1f} MB; buckets "
+          f"{json.dumps(integ['buckets'])}", flush=True)
+    print(f"phase I flagged: {json.dumps(integ['flagged'])}", flush=True)
+    for name, q in integ["queries"].items():
+        print(f"phase I {name}: contained {q['contained_ms']:.1f} ms, clean "
+              f"{q['clean_ms']:.1f} ms, scan {q['scan_ms']:.1f} ms (cold); "
+              f"launches {json.dumps(integ['contained_launches'][name])}",
+              flush=True)
+    print(f"phase I repair: wall {integ['repair_wall_s']:.3f} s, launches "
+          f"{json.dumps(integ['repair_launches'])}, phases "
+          f"{json.dumps(integ['repair_phases'])}; repaired buckets' sha256 "
+          f"equal the build's", flush=True)
+    dw = integ["digest_on_write_s"]
+    print(f"phase I digest on write: builds on {json.dumps(dw['on'])} s, "
+          f"off {json.dumps(dw['off'])} s, medians' difference "
+          f"{dw['difference']:+.3f} s; the "
+          f"{dw['mb']:.1f} MB hashed again serially in "
+          f"{dw['serial_digest_s']:.3f} s", flush=True)
+
+
 def print_split(label: str, split: dict) -> None:
     """One line per temperature of a ``stage_breakdown`` pair."""
     for temp in ("cold", "warm"):
@@ -2290,6 +2649,13 @@ def main() -> int:
             print(f"phase H build report {label}: {json.dumps(report)}",
                   flush=True)
         h["build_reports"] = reports
+        t0 = time.perf_counter()
+        integ = phase_i(orders, li, root, dev)
+        print_integrity(integ)
+        print(f"phase I: digests on every file, scrubs, bit rot, containment, "
+              f"a truncated file found at execution, a device fault "
+              f"propagated, repair checked ({time.perf_counter() - t0:.3f} s)",
+              flush=True)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -2304,9 +2670,12 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    contained = {k: sum(c[k] for c in integ["contained_launches"].values())
+                 for k in launches}
     by_path = {"C create li_idx": launches, "D create ord_idx": d["launches"],
                **{b["build"]: b["launches"] for b in builds},
-               **g["launches_by_path"]}
+               **g["launches_by_path"], "I repair": integ["repair_launches"],
+               "I containment": contained}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -2324,6 +2693,7 @@ def main() -> int:
                       "hybrid_queries": g["queries"],
                       "join_splits": g["join_splits"], "calibration": h}))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"integrity": integ}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,8 +32,10 @@ an int64 column of the index like any other, through both builds.
 Every version directory a build writes gets ``_sketch.parquet``, the
 min/max of the indexed columns per index file
 (``actions/data_skipping.write_index_file_sketch``; the ``sketch_s``
-phase).  Phase seconds go to ``session.build_stats_log`` and, with the
-bytes read, written and spilled, to the action's build report.
+phase).  Every index data file is hashed as it lands
+(``io/integrity.py``), so the committed entry carries its digest.
+Phase seconds go to ``session.build_stats_log`` and, with the bytes
+read, written and spilled, to the action's build report.
 
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
@@ -71,7 +73,7 @@ from hyperspace_tpu_torch.index.log_entry import (
 )
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.index.signatures import get_provider
-from hyperspace_tpu_torch.io import columnar
+from hyperspace_tpu_torch.io import columnar, integrity
 from hyperspace_tpu_torch.io.files import remove_file, remove_tree
 from hyperspace_tpu_torch.io.parquet import (
     _dtype_from_string,
@@ -361,6 +363,9 @@ class CreateActionBase(Action):
         # Spill directories a killed build left are reaped here, the one
         # moment a build provably needs the temp space back.
         reap_orphan_spill_dirs()
+        # Digest on write follows this session's conf (the recorder is
+        # process-wide).
+        integrity.configure_from_conf(self.conf)
         relation = self._relation()
         resolved = self._resolved_config()
         files = relation.all_files(self._file_id_tracker)

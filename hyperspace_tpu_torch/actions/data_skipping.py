@@ -11,10 +11,10 @@ own index files as ``_sketch.parquet`` (``write_index_file_sketch``),
 which FilterIndexRule prunes index files by.
 
 Sketches are host work (Parquet footers, arrow and numpy); pyarrow is
-imported when a function runs.  Not ported: hive partition columns (the
-port's sources have none) and the content digest of a sketch file
-(``io/integrity.record_file``), which waits for the port's verify and
-repair.
+imported when a function runs.  A sketch file's content digest is
+recorded as it lands (``io/integrity.record_file``), so verify_index
+scrubs it.  Not ported: hive partition columns (the port's sources have
+none).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from hyperspace_tpu_torch.index.log_entry import (
     Source,
     States,
 )
+from hyperspace_tpu_torch.io import integrity
 
 # Sketch-table metadata columns (underscored like the lineage column).
 SKETCH_FILE_NAME = "_ds_file_name"
@@ -249,8 +250,9 @@ def write_sketch(rows: List[Dict], out_dir: str) -> str:
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"sketch-{uuid.uuid4().hex[:12]}.parquet")
     pq.write_table(pa.Table.from_pylist(rows), path)
-    # The content digest of the sketch (io/integrity.record_file) goes
-    # here once the port has verify and repair.
+    # The sketch is a data-skipping index's data: its digest lets
+    # verify_index scrub both kinds of index.
+    integrity.record_file(path)
     return path
 
 
@@ -293,6 +295,7 @@ class CreateDataSkippingAction(CreateActionBase):
 
     def _build_sketch(self, file_names: Optional[List[str]] = None,
                       carry_rows: Optional[List[Dict]] = None) -> None:
+        integrity.configure_from_conf(self.conf)
         relation = self._relation()
         resolved = self._resolved_config()
         files = relation.all_files(self._file_id_tracker)

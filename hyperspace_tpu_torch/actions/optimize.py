@@ -16,9 +16,9 @@
 
 A data-skipping index is refused: it has nothing to compact.
 
-Not ported: the Z-order layout's compaction and the content digests of
-index files (the port has no integrity recorder).  pyarrow is imported
-when a function runs.
+Each new file carries the content digest its writer recorded
+(``io/integrity.py``).  Not ported: the Z-order layout's compaction.
+pyarrow is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from hyperspace_tpu_torch.index.log_entry import (
     States,
 )
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.io import integrity
 from hyperspace_tpu_torch.io.parquet import (
     bucket_id_of_file,
     read_table,
@@ -145,6 +146,7 @@ class OptimizeAction(Action):
         )
 
         conf = self.session.conf
+        integrity.configure_from_conf(conf)
         entry = self.previous_log_entry
         report = self.build_report
         version = self.data_manager.get_next_version()
@@ -176,7 +178,8 @@ class OptimizeAction(Action):
         new_infos = []
         for path in self._new_files:
             st = os.stat(path)
-            new_infos.append(FileInfo(path, st.st_size, int(st.st_mtime_ns), -1))
+            new_infos.append(FileInfo(path, st.st_size, int(st.st_mtime_ns), -1,
+                                      integrity.recorded_digest(path)))
         entry.content = Content.from_leaf_files(self._retained + new_infos)
         return entry
 

@@ -47,6 +47,7 @@ from hyperspace_tpu_torch.index.log_entry import (
     States,
 )
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.io import integrity
 from hyperspace_tpu_torch.io.parquet import read_table
 from hyperspace_tpu_torch.lifecycle.change_detector import diff_file_sets
 from hyperspace_tpu_torch.plan.nodes import Scan, ScanRelation
@@ -170,6 +171,7 @@ class RefreshIncrementalAction(RefreshActionBase):
         import pyarrow as pa
         import pyarrow.compute as pc
 
+        integrity.configure_from_conf(self.conf)
         appended, deleted = self._diff()
         resolved = self._resolved_config()
         parts: List = []

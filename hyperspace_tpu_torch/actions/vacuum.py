@@ -1,6 +1,6 @@
 """VacuumAction: hard delete, DELETED -> DOESNOTEXIST, removing every
-index data version, newest first (counterpart of
-hyperspace_tpu/actions/vacuum.py, without quarantine)."""
+index data version, newest first, and the index's quarantine records
+(counterpart of hyperspace_tpu/actions/vacuum.py)."""
 
 from __future__ import annotations
 
@@ -30,6 +30,10 @@ class VacuumAction(Action):
     def op(self) -> None:
         for version in reversed(self.data_manager.versions()):
             self.data_manager.delete(version)
+        # Each delete dropped its version's records; a record that maps
+        # to no version directory goes too.
+        if self.data_manager.quarantine is not None:
+            self.data_manager.quarantine.clear()
 
     def log_entry(self) -> IndexLogEntry:
         return self.log_entry_for_begin()

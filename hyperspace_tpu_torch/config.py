@@ -1,7 +1,7 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
 holding the fields the build, the refresh and optimize verbs, the query
-path, the device column cache and the build reports read; defaults are
-the JAX package's).
+path, the device column cache, the build reports and the integrity loop
+read; defaults are the JAX package's).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -83,6 +83,22 @@ class HyperspaceConf:
     # Build reports (telemetry/build_report.py): off keeps the phase
     # seconds and bytes but skips the memory sampling.
     build_profiling_enabled: bool = True
+    # The integrity loop (io/integrity.py, actions/verify.py,
+    # index/quarantine.py, actions/repair.py):
+    #   - digest on write: hash every index data file as it lands and
+    #     record the digest in its FileInfo; off, files commit without
+    #     one and a full scrub reports them "unknown";
+    #   - quarantine on failure: when reading an index file fails at
+    #     execution, probe the files the plan read, quarantine the
+    #     damaged ones and re-plan with their buckets read from source;
+    #   - auto repair: after such a re-plan answered, rebuild the
+    #     quarantined buckets (refresh mode "repair") in the same call;
+    #   - degraded fallback: when containment cannot answer, re-run the
+    #     query against the source without the indexes.
+    integrity_digest_on_write: bool = True
+    integrity_quarantine_on_failure: bool = True
+    auto_repair_enabled: bool = False
+    degraded_fallback_to_source: bool = True
 
     def device_min_rows(self, kind: str, device) -> int:
         """The host-versus-device threshold of ``kind`` ("filter",

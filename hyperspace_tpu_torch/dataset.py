@@ -6,8 +6,31 @@ takes, and the query verbs ``filter``, ``select`` (column names),
 
 ``collect()`` optimizes the plan (the index rules run when hyperspace is
 enabled on the session), executes it into an arrow table and publishes
-the executor's stats as ``session.last_execution_stats``.  An error of
-the execution propagates: nothing re-plans without the indexes."""
+the executor's stats as ``session.last_execution_stats``.
+
+When reading index data fails at execution, ``collect`` contains the
+damage (the JAX package's execution-time containment), with
+``conf.degraded_fallback_to_source`` set:
+
+  - with ``conf.integrity_quarantine_on_failure``, it probes every index
+    file the plan reads (execution/containment.py), quarantines the
+    damaged ones and runs the query again, planned with the indexes: the
+    damaged buckets are now read from the source;
+  - with ``conf.auto_repair_enabled``, after that answer it rebuilds the
+    quarantined buckets (``refresh_index(mode="repair")``);
+  - when nothing was quarantined, or the re-plan's own index read
+    failed, it runs the query against the source without the indexes.
+
+One deliberate narrowing against the JAX package, which takes any
+failure there: only a failure to READ index data starts containment,
+an ``OSError`` or a pyarrow ``ArrowException`` raised while the executor
+read index files (``Executor.index_read_failures``).  A CUDA or
+kernel-loader error, or any other error of a device op, propagates
+unchanged and quarantines nothing, since no fallback may hide the card;
+so does a failed auto repair's error other than a ``HyperspaceError``
+or a read error.  ``last_execution_stats["containment"]`` records what
+was done: the files quarantined and the re-plan's mode
+("containment" or "source-fallback")."""
 
 from __future__ import annotations
 
@@ -106,17 +129,72 @@ class Dataset:
         is the device column cache's job (execution/device_cache.py)."""
         return Dataset(InMemory(self.collect()), self.session)
 
-    def optimized_plan(self) -> LogicalPlan:
-        return self.session.optimize(self.plan)
+    def optimized_plan(self, use_indexes: bool = True) -> LogicalPlan:
+        return self.session.optimize(self.plan, use_indexes=use_indexes)
 
     def collect(self):
         """The result as a pyarrow Table."""
         from hyperspace_tpu_torch.execution.executor import Executor
 
         executor = Executor(self.session)
-        out = executor.execute(self.optimized_plan())
+        plan = self.optimized_plan()
+        try:
+            out = executor.execute(plan)
+        except Exception as e:  # noqa: BLE001 - _contain re-raises the rest
+            out, executor = self._contain(plan, executor, e)
         self.session.last_execution_stats = executor.stats
         return out
+
+    def _contain(self, plan: LogicalPlan, failed, error: Exception):
+        """(answer, its executor) after ``failed`` raised ``error`` running
+        ``plan``; ``error`` itself unless it is a read error of index
+        files and the conf allows the fallback."""
+        from hyperspace_tpu_torch.exceptions import HyperspaceError
+        from hyperspace_tpu_torch.execution.containment import (
+            index_scans_of,
+            is_read_error,
+            quarantine_damaged_index_files,
+        )
+        from hyperspace_tpu_torch.execution.executor import Executor
+
+        conf = self.session.conf
+        if not (failed.index_read_failures and is_read_error(error)
+                and conf.degraded_fallback_to_source):
+            raise error
+        record = {"error": repr(error), "quarantined": []}
+        if conf.integrity_quarantine_on_failure:
+            record["quarantined"] = quarantine_damaged_index_files(
+                self.session, plan)
+        if record["quarantined"]:
+            executor = Executor(self.session)
+            try:
+                out = executor.execute(self.optimized_plan())
+            except Exception as e:  # noqa: BLE001 - re-raised unless a
+                # read error of index files, which the source answers
+                if not (executor.index_read_failures and is_read_error(e)):
+                    raise
+            else:
+                record["replan"] = "containment"
+                executor.stats["containment"] = record
+                if conf.auto_repair_enabled:
+                    for name in index_scans_of(plan):
+                        try:
+                            self.session.index_collection_manager.refresh(
+                                name, "repair")
+                        except Exception as e:  # noqa: BLE001 - a repair
+                            # failure costs no answer, but a device error
+                            # propagates
+                            if not isinstance(e, HyperspaceError) \
+                                    and not is_read_error(e):
+                                raise
+                            record.setdefault("repair_errors", []).append(
+                                repr(e))
+                return out, executor
+        executor = Executor(self.session)
+        out = executor.execute(self.optimized_plan(use_indexes=False))
+        record["replan"] = "source-fallback"
+        executor.stats["containment"] = record
+        return out, executor
 
     def count(self) -> int:
         return self.collect().num_rows

@@ -62,7 +62,16 @@ aggregate "device-segment" or "device-join-agg" (with its groups,
 ``device_cache`` hits and misses; ``Dataset.collect`` publishes it as
 ``session.last_execution_stats``.
 
-``IsNull`` is evaluated on the arrow path only.
+``IsNull`` is evaluated on the arrow path only, and so is ``BucketIn``,
+the quarantine containment's filter: its rows' buckets come from the
+build's hash on the session's device (the hash kernel on the card) from
+``device_min_rows("build")`` rows, from the host mirror below
+(``stats["bucket_in"]`` records the route).
+
+A read of index files that fails with ``OSError`` or pyarrow's
+``ArrowException`` is noted in ``index_read_failures``, for
+``Dataset.collect``'s containment (execution/containment.py); the error
+still propagates.
 
 Not ported: every other plan node, ``finalize_stats``' memory gauges,
 the telemetry counters, spans and transfer timeline, the mesh filter, join and aggregates,
@@ -96,6 +105,7 @@ from hyperspace_tpu_torch.plan.expr import (
     And,
     Arith,
     BinOp,
+    BucketIn,
     Col,
     Expr,
     IsIn,
@@ -132,6 +142,26 @@ class Executor:
         # The per-query hit and miss counts are updated from the bucketed
         # join's worker threads.
         self._cache_lock = threading.Lock()
+        # (index name, paths) of each read of index files that failed with
+        # a read error (``containment.is_read_error``): what
+        # Dataset.collect's containment takes, and nothing else.
+        self.index_read_failures: List[Tuple[str, List[str]]] = []
+
+    def _read_index_files(self, rel, paths, read):
+        """``read()``, which reads ``paths`` of ``rel``; a read error of
+        index files is noted in ``index_read_failures`` and raised."""
+        try:
+            return read()
+        except Exception as e:
+            from hyperspace_tpu_torch.execution.containment import (
+                is_read_error,
+            )
+
+            if rel.index_scan_of is not None and is_read_error(e):
+                with self._cache_lock:
+                    self.index_read_failures.append(
+                        (rel.index_scan_of, list(paths)))
+            raise
 
     # -- device column cache ------------------------------------------------
     def _register_scan_identity(self, table, paths) -> None:
@@ -298,7 +328,8 @@ class Executor:
             empty = schema_to_arrow(read_schema(all_paths[0])).empty_table() \
                 if all_paths else pa.table({})
             return empty.select(columns) if columns else empty
-        out = read_table(paths, columns)
+        out = self._read_index_files(rel, paths,
+                                     lambda: read_table(paths, columns))
         if columns:
             out = out.select(columns)
         record["rows"] = out.num_rows
@@ -341,7 +372,30 @@ class Executor:
             return mask
         self.stats.setdefault("filters", []).append({
             "strategy": "host", "rows": table.num_rows})
-        return _eval_arrow(expr, table)
+        return _eval_arrow(expr, table, self._bucket_ids)
+
+    def _bucket_ids(self, table, columns, num_buckets: int) -> np.ndarray:
+        """The build's bucket of every row of ``table`` over ``columns``
+        (a ``BucketIn``): by ``ops.hash.bucket_ids`` on the session's
+        device (the hash kernel on the card) from
+        ``device_min_rows("build")`` rows, by the bit-equal host mirror
+        ``bucket_ids_np`` below.  A null key hashes to the build's null
+        bucket."""
+        from hyperspace_tpu_torch.ops.hash import bucket_ids, bucket_ids_np
+
+        word_cols = [columnar.to_hash_words(table.column(c)) for c in columns]
+        device = self.session.device
+        on_device = table.num_rows >= \
+            self.session.conf.device_min_rows("build", device)
+        if on_device:
+            ids = bucket_ids([torch.from_numpy(w).to(device) for w in word_cols],
+                             num_buckets).cpu().numpy()
+        else:
+            ids = bucket_ids_np(word_cols, num_buckets)
+        self.stats.setdefault("bucket_in", []).append({
+            "strategy": "device" if on_device else "host",
+            "rows": table.num_rows})
+        return ids
 
     def _eval_device(self, expr: Expr, table, identity) -> np.ndarray:
         from hyperspace_tpu_torch.ops.aggregate import to_device
@@ -877,7 +931,8 @@ class Executor:
         rel = node.relation
         paths = list(rel.file_paths) if rel.file_paths is not None \
             else [f.name for f in list_data_files(rel.root_paths)]
-        return sum(pq.ParquetFile(p).metadata.num_rows for p in paths)
+        return self._read_index_files(rel, paths, lambda: sum(
+            pq.ParquetFile(p).metadata.num_rows for p in paths))
 
     def _join_agg_static_pregate(self, plan: Aggregate, child: Join) -> bool:
         """False when the fused path is known ineligible before anything
@@ -1226,12 +1281,13 @@ def _normalize_literals(expr: Expr, table) -> Expr:
     return expr
 
 
-def _eval_arrow(expr: Expr, table) -> np.ndarray:
+def _eval_arrow(expr: Expr, table, bucket_ids=None) -> np.ndarray:
     """The host predicate: arrow compute with SQL's three-valued logic;
-    null counts as false."""
+    null counts as false.  ``bucket_ids(table, columns, num_buckets)``
+    gives the rows' buckets of a ``BucketIn``."""
     import pyarrow as pa
 
-    result = _arrow_eval(expr, table)
+    result = _arrow_eval(expr, table, bucket_ids)
     if isinstance(result, pa.Scalar):
         value = result.as_py()
         return np.full(table.num_rows, bool(value) if value is not None else False)
@@ -1303,17 +1359,20 @@ def _parse_float64(column):
                         type=pa.float64())
 
 
-def _arrow_eval(expr: Expr, table):
+def _arrow_eval(expr: Expr, table, bucket_ids=None):
     import pyarrow as pa
     import pyarrow.compute as pc
+
+    def ev(e: Expr):
+        return _arrow_eval(e, table, bucket_ids)
 
     if isinstance(expr, Col):
         return table.column(expr.name)
     if isinstance(expr, Lit):
         return pa.scalar(expr.value)
     if isinstance(expr, BinOp):
-        left = _arrow_eval(expr.left, table)
-        right = _arrow_eval(expr.right, table)
+        left = ev(expr.left)
+        right = ev(expr.right)
         ops = {"==": pc.equal, "<": pc.less, "<=": pc.less_equal,
                ">": pc.greater, ">=": pc.greater_equal}
         try:
@@ -1342,8 +1401,8 @@ def _arrow_eval(expr: Expr, table):
                 pass
             raise
     if isinstance(expr, Arith):
-        left = _arrow_eval(expr.left, table)
-        right = _arrow_eval(expr.right, table)
+        left = ev(expr.left)
+        right = ev(expr.right)
         if expr.op == "/":
             # float64 division; x / 0 is null.
             left = pc.cast(left, pa.float64())
@@ -1355,17 +1414,15 @@ def _arrow_eval(expr: Expr, table):
         fn = {"+": pc.add, "-": pc.subtract, "*": pc.multiply}[expr.op]
         return fn(left, right)
     if isinstance(expr, Neg):
-        return pc.negate(_arrow_eval(expr.child, table))
+        return pc.negate(ev(expr.child))
     if isinstance(expr, And):
-        return pc.and_kleene(_arrow_eval(expr.left, table),
-                             _arrow_eval(expr.right, table))
+        return pc.and_kleene(ev(expr.left), ev(expr.right))
     if isinstance(expr, Or):
-        return pc.or_kleene(_arrow_eval(expr.left, table),
-                            _arrow_eval(expr.right, table))
+        return pc.or_kleene(ev(expr.left), ev(expr.right))
     if isinstance(expr, Not):
-        return pc.invert(_arrow_eval(expr.child, table))
+        return pc.invert(ev(expr.child))
     if isinstance(expr, IsIn):
-        child = _arrow_eval(expr.child, table)
+        child = ev(expr.child)
         # SQL: NULL IN (...) is NULL, and x IN (no match..., NULL) is NULL
         # (arrow's is_in says false); both matter under NOT.
         values = [v for v in expr.values if v is not None]
@@ -1379,7 +1436,14 @@ def _arrow_eval(expr: Expr, table):
             return result if child.is_valid else null_bool
         return pc.if_else(pc.is_valid(child), result, null_bool)
     if isinstance(expr, IsNull):
-        return pc.is_null(_arrow_eval(expr.child, table))
+        return pc.is_null(ev(expr.child))
+    if isinstance(expr, BucketIn):
+        # The containment branch's rows: each row's bucket as the build
+        # hashed it, so the mask is null-free.
+        if bucket_ids is None:
+            raise ValueError(f"{expr!r} needs the executor's bucket hash")
+        ids = bucket_ids(table, expr.columns, expr.num_buckets)
+        return pa.array(np.isin(ids, np.asarray(expr.buckets, dtype=ids.dtype)))
     raise ValueError(f"Unsupported expression: {expr!r}")
 
 

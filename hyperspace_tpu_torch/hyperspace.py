@@ -1,7 +1,7 @@
 """Top-level user API (counterpart of hyperspace_tpu/hyperspace.py):
 ``create_index``, ``delete_index``, ``restore_index``, ``vacuum_index``,
-``refresh_index``, ``optimize_index``, ``cancel``, ``indexes`` and
-``last_build_report``."""
+``refresh_index``, ``optimize_index``, ``verify_index``, ``cancel``,
+``indexes`` and ``last_build_report``."""
 
 from __future__ import annotations
 
@@ -36,9 +36,23 @@ class Hyperspace:
     def refresh_index(self, name: str, mode: str = "full"):
         """Bring ``name`` up to date with its source: ``mode`` "full"
         rebuilds, "incremental" indexes only the appended and deleted
-        files, "quick" records them for hybrid scan.  Returns a
-        ``RefreshSummary`` (outcome "noop" when the source is unchanged)."""
+        files, "quick" records them for hybrid scan, and "repair"
+        rebuilds only the buckets whose files are quarantined, from the
+        recorded source snapshot, then clears their records.  Returns a
+        ``RefreshSummary`` (outcome "noop" when the source is unchanged,
+        or when nothing is quarantined)."""
         return self.index_manager.refresh(name, mode)
+
+    def verify_index(self, name: str, mode: str = "quick"):
+        """Scrub ``name``'s index data files against its log entry and
+        return the per-file report, an arrow table (file, status,
+        detail, quarantined).  "quick" checks existence, size and mtime;
+        "full" also reads every file again and hashes it against the
+        digest recorded when it was written.  Damaged files are
+        quarantined: later queries keep the index and read only the
+        damaged buckets from the source, and
+        ``refresh_index(name, mode="repair")`` rebuilds them."""
+        return self.index_manager.verify(name, mode)
 
     def optimize_index(self, name: str, mode: str = "quick"):
         """Merge each bucket's small index files into one sorted run, cut

@@ -18,8 +18,12 @@ INDEX_VERSION_DIR_PREFIX = "v__="
 
 
 class IndexDataManager:
-    def __init__(self, index_path: str) -> None:
+    def __init__(self, index_path: str, quarantine=None) -> None:
         self.index_path = index_path
+        # The index's QuarantineManager (index/quarantine.py), which the
+        # collection manager attaches: deleting a version drops its
+        # quarantine records too.
+        self.quarantine = quarantine
 
     def version_path(self, version: int) -> str:
         return os.path.join(self.index_path, f"{INDEX_VERSION_DIR_PREFIX}{version}")
@@ -47,7 +51,12 @@ class IndexDataManager:
         return 0 if latest is None else latest + 1
 
     def delete(self, version: int) -> None:
-        """Remove version ``version``'s data directory, if it exists."""
+        """Remove version ``version``'s data directory, if it exists, and
+        its quarantine records."""
         path = self.version_path(version)
         if os.path.isdir(path):
             remove_tree(path)
+        if self.quarantine is not None:
+            # The files are gone: a record of one would read as
+            # "missing" to every later scrub.
+            self.quarantine.clear_version(version)

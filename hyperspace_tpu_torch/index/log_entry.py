@@ -1,7 +1,7 @@
 """The on-disk metadata model of an index (counterpart of
 hyperspace_tpu/index/log_entry.py).
 
-  - ``FileInfo``            — (name, size, mtime, id)
+  - ``FileInfo``            — (name, size, mtime, id, digest)
   - ``Directory``/``Content`` — directory tree of index/source files
   - ``CoveringIndex``, ``DataSkippingIndex`` — derived-dataset specs
   - ``Signature``/``LogicalPlanFingerprint`` — validity fingerprint
@@ -11,8 +11,8 @@ hyperspace_tpu/index/log_entry.py).
   - ``FileIdTracker``       — stable (path, size, mtime) -> id map
 
 The JSON written by ``to_dict`` has the JAX package's shape, so either
-package parses the other's log.  Index data files carry no content
-digest here (the port has no integrity recorder).
+package parses the other's log.  An index data file carries the content
+digest its writer recorded (``io/integrity.py``).
 """
 
 from __future__ import annotations
@@ -43,20 +43,31 @@ class States:
 
 @dataclasses.dataclass(frozen=True)
 class FileInfo:
-    """One leaf file; ``id`` comes from the FileIdTracker."""
+    """One leaf file; ``id`` comes from the FileIdTracker.  ``digest`` is
+    the content digest (``"<algo>:<hex>"``, io/integrity.py) recorded
+    when an index data file was written; source files, and files written
+    with digest on write off, carry None, which a full scrub reports as
+    "unknown"."""
 
     name: str
     size: int
     mtime: int
     id: int = -1
+    digest: Optional[str] = None
 
     def to_dict(self) -> Dict[str, Any]:
-        return {"name": self.name, "size": self.size,
-                "modifiedTime": self.mtime, "id": self.id}
+        d = {"name": self.name, "size": self.size,
+             "modifiedTime": self.mtime, "id": self.id}
+        if self.digest is not None:
+            # A digest-less file keeps the JSON shape it had before
+            # digests existed.
+            d["digest"] = self.digest
+        return d
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "FileInfo":
-        return FileInfo(d["name"], d["size"], d["modifiedTime"], d.get("id", -1))
+        return FileInfo(d["name"], d["size"], d["modifiedTime"],
+                        d.get("id", -1), d.get("digest"))
 
 
 @dataclasses.dataclass
@@ -119,7 +130,7 @@ class Directory:
                     node.subdirs.append(nxt)
                 node = nxt
             node.files.append(FileInfo(os.path.basename(f.name), f.size,
-                                       f.mtime, f.id))
+                                       f.mtime, f.id, f.digest))
         return root
 
     @staticmethod
@@ -143,11 +154,16 @@ class Directory:
                 if entry.is_dir():
                     subdirs.append(Directory._scan(entry.path, file_id_tracker))
                 elif is_data_file(entry.name):
+                    from hyperspace_tpu_torch.io import integrity
+
                     st = entry.stat()
                     fid = file_id_tracker.add_file(
                         os.path.abspath(entry.path), st.st_size, int(st.st_mtime_ns))
-                    files.append(FileInfo(entry.name, st.st_size,
-                                          int(st.st_mtime_ns), fid))
+                    # The digest its writer recorded; a source file has
+                    # none.
+                    files.append(FileInfo(
+                        entry.name, st.st_size, int(st.st_mtime_ns), fid,
+                        integrity.recorded_digest(os.path.abspath(entry.path))))
         return Directory(os.path.basename(path) or "/", files, subdirs)
 
 
@@ -176,7 +192,7 @@ class Content:
             base = "/" if node.name == "/" else os.path.join(base, node.name)
             for f in node.files:
                 out.append(FileInfo(os.path.join(base, f.name), f.size,
-                                    f.mtime, f.id))
+                                    f.mtime, f.id, f.digest))
             for sub in node.subdirs:
                 walk(sub, base)
 

@@ -1,10 +1,10 @@
 """Index collection manager (counterpart of
-hyperspace_tpu/index/manager.py): name -> log and data managers, dispatch
-to the actions (create, delete, restore, vacuum, cancel, the full,
-incremental and quick refresh, optimize; a data-skipping index's create
-and refresh go to its own actions), and listing of the indexes under the
-system path.  Not ported: auto-recovery, repair and the conflict-retry
-settings."""
+hyperspace_tpu/index/manager.py): name -> log, data and quarantine
+managers, dispatch to the actions (create, delete, restore, vacuum,
+cancel, the full, incremental, quick and repair refresh, optimize,
+verify; a data-skipping index's create and refresh go to its own
+actions), and listing of the indexes under the system path.  Not
+ported: auto-recovery and the conflict-retry settings."""
 
 from __future__ import annotations
 
@@ -44,7 +44,27 @@ class IndexCollectionManager:
         return IndexLogManager(self.index_path(name))
 
     def _data_manager(self, name: str) -> IndexDataManager:
-        return IndexDataManager(self.index_path(name))
+        # Deleting a version (vacuum) drops its quarantine records too.
+        return IndexDataManager(self.index_path(name),
+                                quarantine=self.quarantine_manager(name))
+
+    def quarantine_manager(self, name: str):
+        """The index's quarantine set (index/quarantine.py)."""
+        from hyperspace_tpu_torch.index.quarantine import (
+            quarantine_manager_for,
+        )
+
+        return quarantine_manager_for(self.session.conf, self.index_path(name))
+
+    def verify(self, name: str, mode: str = "quick"):
+        """Scrub ``name``'s data files against its log entry
+        (actions/verify.py); returns the per-file report table."""
+        from hyperspace_tpu_torch.actions.verify import VerifyIndexAction
+
+        return VerifyIndexAction(self._log_manager(name),
+                                 self._data_manager(name),
+                                 self.quarantine_manager(name),
+                                 mode=mode).run()
 
     def create(self, dataset, config) -> None:
         """Build the index ``config`` describes: an ``IndexConfig``
@@ -84,8 +104,9 @@ class IndexCollectionManager:
         CancelAction(self._log_manager(name)).run()
 
     def refresh(self, name: str, mode: str = "full"):
-        """Run one refresh ("full", "incremental" or "quick"); returns its
-        ``RefreshSummary`` (outcome "noop" for an unchanged source)."""
+        """Run one refresh ("full", "incremental", "quick" or "repair");
+        returns its ``RefreshSummary`` (outcome "noop" for an unchanged
+        source, or a repair with nothing quarantined)."""
         from hyperspace_tpu_torch.actions.data_skipping import (
             RefreshDataSkippingAction,
         )
@@ -96,6 +117,17 @@ class IndexCollectionManager:
             RefreshSummary,
         )
 
+        if mode == "repair":
+            # Rebuild only the quarantined buckets and clear their
+            # records (actions/repair.py).
+            from hyperspace_tpu_torch.actions.repair import RepairAction
+
+            log_manager = self._log_manager(name)
+            action = RepairAction(
+                log_manager, self._data_manager(name), self.session,
+                previous=log_manager.get_latest_stable_log(),
+                quarantine=self.quarantine_manager(name))
+            return action.summary(action.run())
         cls = {"full": RefreshAction,
                "incremental": RefreshIncrementalAction,
                "quick": RefreshQuickAction}.get(mode)

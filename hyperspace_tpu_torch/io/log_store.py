@@ -1,0 +1,148 @@
+"""A flat key -> bytes store with per-key generations and conditional
+puts (counterpart of hyperspace_tpu/io/log_store.py, its ``LogStore``
+and ``PosixLogStore``).  The quarantine records of an index
+(``index/quarantine.py``) live in one.
+
+``PosixLogStore`` keeps each key as a file in ``root``, its generation
+in a ``<key>.g`` sidecar (``{"g": N, "t": commit time}``), and
+serialises every put and delete with ``flock`` on ``root/.lock`` plus an
+in-process mutex, so a conditional put is atomic across processes.  The
+layout on disk is the JAX package's, so either package reads the records
+the other wrote.
+
+Not ported: ``EmulatedObjectStore``, the fault-injection sites and the
+spans and metrics of a put.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+from typing import List
+
+try:  # flock arbitrates between processes; without it, within one only
+    import fcntl as _fcntl
+except ImportError:
+    _fcntl = None
+
+_LOCK_NAME = ".lock"
+_GEN_SUFFIX = ".g"
+
+
+class LogStore:
+    """Keys with generations: ``generation(key)`` is 0 for an absent key
+    and grows with every put to it; the conditional puts are atomic with
+    respect to every other mutation of the key; point reads are strongly
+    consistent."""
+
+    def list_keys(self) -> List[str]:
+        raise NotImplementedError
+
+    def read(self, key: str) -> bytes:
+        """The bytes at ``key``; FileNotFoundError when absent."""
+        raise NotImplementedError
+
+    def generation(self, key: str) -> int:
+        raise NotImplementedError
+
+    def exists(self, key: str) -> bool:
+        return self.generation(key) > 0
+
+    def put_if_absent(self, key: str, data: bytes) -> bool:
+        """Commit ``data`` iff ``key`` does not exist; False otherwise."""
+        return self.put_if_generation_match(key, data, 0)
+
+    def put_if_generation_match(self, key: str, data: bytes,
+                                expected_generation: int) -> bool:
+        """Commit ``data`` iff the key's generation is
+        ``expected_generation`` (0: absent); False otherwise."""
+        raise NotImplementedError
+
+    def delete(self, key: str) -> None:
+        """Remove ``key``; an absent key is a no-op."""
+        raise NotImplementedError
+
+
+class PosixLogStore(LogStore):
+    """Keys are files in ``root``; puts and deletes run under ``flock``
+    on ``root/.lock``; generations live in ``<key>.g`` sidecars."""
+
+    def __init__(self, root: str) -> None:
+        self.root = root
+        self._mutex = threading.Lock()
+
+    def _data_path(self, key: str) -> str:
+        return os.path.join(self.root, key)
+
+    def _gen_path(self, key: str) -> str:
+        return self._data_path(key) + _GEN_SUFFIX
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """The cross-process critical section: ``flock`` on
+        ``root/.lock`` (closing the descriptor releases it)."""
+        with self._mutex:
+            os.makedirs(self.root, exist_ok=True)
+            fd = os.open(os.path.join(self.root, _LOCK_NAME),
+                         os.O_CREAT | os.O_RDWR)
+            try:
+                if _fcntl is not None:
+                    _fcntl.flock(fd, _fcntl.LOCK_EX)
+                yield
+            finally:
+                os.close(fd)
+
+    def generation(self, key: str) -> int:
+        """From the sidecar; a data file without one (a layout from
+        before generations) has generation 1, so it stays visible."""
+        try:
+            with open(self._gen_path(key), "r", encoding="utf-8") as f:
+                return int(json.load(f)["g"])
+        except (FileNotFoundError, ValueError, KeyError):
+            return 1 if os.path.isfile(self._data_path(key)) else 0
+
+    def read(self, key: str) -> bytes:
+        with open(self._data_path(key), "rb") as f:
+            return f.read()
+
+    def list_keys(self) -> List[str]:
+        if not os.path.isdir(self.root):
+            return []
+        return sorted(name for name in os.listdir(self.root)
+                      if name != _LOCK_NAME and not name.endswith(_GEN_SUFFIX)
+                      and ".tmp-" not in name)
+
+    def _commit(self, key: str, data: bytes, gen: int) -> None:
+        """Install the data, then the generation, each by an atomic
+        replace of a temporary file."""
+        data_path = self._data_path(key)
+        tmp = f"{data_path}.tmp-{os.getpid()}"
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, data_path)
+        gen_tmp = f"{self._gen_path(key)}.tmp-{os.getpid()}"
+        with open(gen_tmp, "w", encoding="utf-8") as f:
+            json.dump({"g": gen, "t": time.time()}, f)
+        os.replace(gen_tmp, self._gen_path(key))
+
+    def put_if_generation_match(self, key: str, data: bytes,
+                                expected_generation: int) -> bool:
+        with self._locked():
+            cur = self.generation(key)
+            if cur != int(expected_generation):
+                return False
+            self._commit(key, data, cur + 1)
+            return True
+
+    def delete(self, key: str) -> None:
+        with self._locked():
+            for path in (self._data_path(key), self._gen_path(key)):
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass

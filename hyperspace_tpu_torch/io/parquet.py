@@ -7,7 +7,9 @@ bucketed writer writes one sorted Parquet file per non-empty bucket (more
 when ``max_rows_per_file`` splits a bucket), named ``part-bNNNNN-*`` so a
 file maps to its bucket without reading footers.  The layout and the
 bytes per bucket are the JAX package's, so either package reads the
-other's index files.
+other's index files.  Each file is hashed as it lands
+(``io/integrity.record_file``, in the writer threads), so the committed
+entry carries its content digest.
 
 pyarrow is imported when a function runs, never when the module is
 imported.
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.io import integrity
 from hyperspace_tpu_torch.ops.sort import bucket_counts
 
 _BUCKET_FILE_RE = re.compile(r"part-b(\d{5})-")
@@ -169,6 +172,7 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
         path = os.path.join(out_dir, bucket_file_name(b))
         pq.write_table(sorted_table.slice(start, rows), path,
                        compression=_codec(compression))
+        integrity.record_file(path)
         return path
 
     with ThreadPoolExecutor(_io_workers(len(jobs))) as pool:
@@ -189,6 +193,7 @@ def write_bucket_run(sorted_bucket_table, bucket: int, out_dir: str,
         path = os.path.join(out_dir, bucket_file_name(bucket))
         pq.write_table(sorted_bucket_table.slice(off, rows), path,
                        compression=_codec(compression))
+        integrity.record_file(path)
         out.append(path)
     return out
 

@@ -2,9 +2,10 @@
 hyperspace_tpu/plan/expr.py, its filter-and-join subset).
 
 Column references, literals, comparisons, + - * / arithmetic, negation,
-the boolean connectives, IN and IS [NOT] NULL.  ``repr`` is the JAX
-package's, so plans print alike.  String predicates, ``Cast``, ``Case``,
-``Extract``, ``BucketIn`` and the subquery nodes are not ported.
+the boolean connectives, IN, IS [NOT] NULL and the containment rewrite's
+``BucketIn``.  ``repr`` is the JAX package's, so plans print alike.
+String predicates, ``Cast``, ``Case``, ``Extract`` and the subquery
+nodes are not ported.
 """
 
 from __future__ import annotations
@@ -178,6 +179,29 @@ class IsIn(Expr):
         return f"{self.child!r}.isin({self.values!r})"
 
 
+class BucketIn(Expr):
+    """Rows whose bucket over ``columns`` (the build's hash, bit-equal on
+    every route) is in ``buckets``.  Only the quarantine containment
+    rewrite builds it (rules/hybrid.py): the branch that replaces a
+    quarantined bucket is ``Filter(BucketIn(indexed, num_buckets, {b}),
+    Scan(source))``, so exactly the rows the damaged bucket held are read
+    from the source.  Never null (a null key hashes to its own bucket, as
+    in the build); evaluated on the arrow route, and opaque to the device
+    predicate and to every pruning analysis."""
+
+    def __init__(self, columns: Sequence[str], num_buckets: int,
+                 buckets: Sequence[int]) -> None:
+        if not columns or num_buckets <= 0:
+            raise ValueError("BucketIn needs columns and num_buckets > 0")
+        self.columns = tuple(columns)
+        self.num_buckets = int(num_buckets)
+        self.buckets = tuple(sorted({int(b) for b in buckets}))
+
+    def __repr__(self) -> str:
+        return (f"bucket_in({list(self.columns)!r}, {self.num_buckets}, "
+                f"{list(self.buckets)!r})")
+
+
 class IsNull(Expr):
     """SQL IS NULL: true for null values, where a comparison with a null
     drops the row.  The device filter path and every pruning analysis
@@ -210,6 +234,8 @@ def _collect_columns(e: Expr, out: Set[str]) -> None:
         _collect_columns(e.right, out)
     elif isinstance(e, (Neg, Not, IsIn, IsNull)):
         _collect_columns(e.child, out)
+    elif isinstance(e, BucketIn):
+        out.update(e.columns)
 
 
 def split_conjuncts(e: Expr) -> List[Expr]:

@@ -10,14 +10,15 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
     values hash to are computed with ``ops.hash.bucket_ids_np`` (the
     build kernel's bit-equal host mirror) and only their files are read.
     Under hybrid scan an index whose source changed is swapped in as the
-    index merged with the appended files (``rules.hybrid``); the bucket
-    pruning applies to its index part.  Otherwise the index files whose
+    index merged with the appended files (``rules.hybrid``), and an index
+    with quarantined buckets as the index without them merged with their
+    rows read from the source; the bucket pruning applies to its index
+    part.  Otherwise the index files whose
     per-file min/max (the ``_sketch.parquet`` each build version writes)
     cannot satisfy the predicate are dropped too
     (``rules.data_skipping.prune_index_files_by_sketch``).
 
-Not ported: the Z-order any-column relaxation and the quarantine
-transform.
+Not ported: the Z-order any-column relaxation.
 """
 
 from __future__ import annotations
@@ -73,17 +74,20 @@ class FilterIndexRule:
         if best is None:
             return None
         prune = _bucket_pruning(filter_node.condition, best)
-        if hybrid:
-            from hyperspace_tpu_torch.rules.hybrid import (
-                hybrid_file_lists,
-                transform_plan_to_use_hybrid_scan,
-            )
+        from hyperspace_tpu_torch.rules.hybrid import (
+            hybrid_file_lists,
+            quarantined_split,
+            transform_plan_to_use_hybrid_scan,
+        )
 
-            appended, deleted = hybrid_file_lists(best, scan)
-            if appended or deleted:
-                return transform_plan_to_use_hybrid_scan(
-                    self.session, plan, scan, best, bucket_union=False,
-                    prune_to_buckets=prune)
+        changed = hybrid and any(hybrid_file_lists(best, scan))
+        # Quarantined buckets take the hybrid transform even on an exact
+        # signature match: the index side drops them and a BucketIn
+        # branch reads their rows from the source.
+        if changed or quarantined_split(self.session, best)[1]:
+            return transform_plan_to_use_hybrid_scan(
+                self.session, plan, scan, best, bucket_union=False,
+                prune_to_buckets=prune)
         use_bucket_spec = (self.session.conf.filter_rule_use_bucket_spec
                            or prune is not None)
         from hyperspace_tpu_torch.rules.data_skipping import (

@@ -14,22 +14,30 @@
     appended files are read by a scan of their own and merged with
     ``BucketUnion`` on a join side (the executor routes their rows into
     the index's buckets) or ``Union(strict=True)`` on a filter side.
+  - quarantine containment: an index data file recorded as damaged
+    (index/quarantine.py) drops its whole bucket from the index side,
+    and that bucket's rows are read again from the common source files
+    by a ``Project(Filter(BucketIn(indexed, numBuckets, buckets),
+    Scan(common source files)))`` branch unioned back in, the merge
+    shape of the appended files.  One damaged bucket costs one bucket's
+    rows of source, not the whole index; a join side cannot take the
+    branch (it has no bucket structure to align) and is refused.
 
-Not ported: quarantine containment (it belongs with verify and repair)
-and ``closest_index``, which serves lake formats only.
+Not ported: ``closest_index``, which serves lake formats only.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import FrozenSet, List, Optional, Sequence, Tuple
 
 from hyperspace_tpu_torch.actions.create import DATA_FILE_ID_COLUMN
+from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.log_entry import (
     FileInfo,
     IndexLogEntry,
     IndexLogEntryTags,
 )
-from hyperspace_tpu_torch.plan.expr import Col, IsIn, Not
+from hyperspace_tpu_torch.plan.expr import BucketIn, Col, IsIn, Not
 from hyperspace_tpu_torch.plan.nodes import (
     BucketUnion,
     Filter,
@@ -42,6 +50,7 @@ from hyperspace_tpu_torch.plan.nodes import (
 from hyperspace_tpu_torch.rules import rule_utils
 
 _HYBRID_INFO_TAG = "hybridScanFileLists"  # (appended, deleted) FileInfo lists
+_QUARANTINE_TAG = "quarantineSplit"  # (excluded paths, buckets or None)
 
 
 def _file_key(f: FileInfo) -> Tuple[str, int, int]:
@@ -85,6 +94,50 @@ def get_hybrid_scan_candidates(session, entries: Sequence[IndexLogEntry],
     return out
 
 
+def quarantined_split(session, entry: IndexLogEntry
+                      ) -> Tuple[FrozenSet[str], Optional[Tuple[int, ...]]]:
+    """(excluded index file paths, affected bucket ids) of ``entry``.
+
+    A quarantined file takes its whole bucket with it: a bucket split
+    over several files must drop entirely, or the source branch would
+    repeat its healthy files' rows.  ``buckets`` None with files
+    excluded means no containment plan exists (a quarantined file whose
+    bucket its name does not tell, or every file excluded): the
+    candidate selection drops the entry and the source answers.  The
+    result is a tag of the entry, which the optimizer reads again from
+    the log on every pass, so the store is listed once per entry per
+    query."""
+    cached = entry.get_tag(_QUARANTINE_TAG)
+    if cached is not None:
+        return cached
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    qpaths = session.index_collection_manager \
+        .quarantine_manager(entry.name).paths()
+    result: Tuple[FrozenSet[str], Optional[Tuple[int, ...]]] = (frozenset(), ())
+    infos = entry.content.file_infos() if qpaths else []
+    flagged = [f.name for f in infos if f.name in qpaths]
+    if flagged:
+        buckets = {bucket_id_of_file(p) for p in flagged}
+        if None in buckets:
+            result = (frozenset(f.name for f in infos), None)
+        else:
+            excluded = frozenset(f.name for f in infos
+                                 if bucket_id_of_file(f.name) in buckets)
+            # Nothing healthy left: containment would be a source scan.
+            result = (excluded, None) if len(excluded) == len(infos) \
+                else (excluded, tuple(sorted(buckets)))
+    entry.set_tag(_QUARANTINE_TAG, result)
+    return result
+
+
+def quarantine_excludes_entry(session, entry: IndexLogEntry) -> bool:
+    """Whether the quarantine leaves ``entry`` no containment plan (drop
+    it from the candidates; the source answers)."""
+    excluded, buckets = quarantined_split(session, entry)
+    return bool(excluded) and buckets is None
+
+
 def hybrid_file_lists(entry: IndexLogEntry, scan: Scan
                       ) -> Tuple[List[FileInfo], List[FileInfo]]:
     """(appended, deleted) of ``entry`` against ``scan``: the candidate
@@ -99,31 +152,66 @@ def hybrid_file_lists(entry: IndexLogEntry, scan: Scan
 def transform_plan_to_use_hybrid_scan(session, plan: LogicalPlan, target: Scan,
                                       entry: IndexLogEntry, bucket_union: bool,
                                       prune_to_buckets=None) -> LogicalPlan:
-    """Swap ``target`` for the index merged with the appended files.
+    """Swap ``target`` for the index merged with the appended files and
+    with the source rows of its quarantined buckets.
     ``prune_to_buckets`` restricts the index side's buckets; the appended
     side is raw source data and is always read."""
     appended, deleted = hybrid_file_lists(entry, target)
+    excluded, qbuckets = quarantined_split(session, entry)
+    if excluded and qbuckets is None:
+        # The candidate selection drops such entries; reaching here means
+        # a caller skipped that check.
+        raise HyperspaceError(
+            f"index {entry.name!r} has unusable quarantined files")
+    if excluded and bucket_union:
+        # JoinIndexRule drops quarantined entries from its candidates.
+        raise HyperspaceError(
+            f"index {entry.name!r} has quarantined buckets; bucket-aligned "
+            "join merge is not possible")
     visible_cols = entry.derived_dataset.all_columns
+    index_files = None if not excluded else tuple(
+        f.name for f in entry.content.file_infos() if f.name not in excluded)
     index_side: LogicalPlan = Scan(rule_utils.index_scan_relation(
         entry, use_bucket_spec=bucket_union or prune_to_buckets is not None,
-        prune_to_buckets=prune_to_buckets))
+        prune_to_buckets=prune_to_buckets, file_paths=index_files))
     if deleted:
         index_side = Filter(
             Not(IsIn(Col(DATA_FILE_ID_COLUMN), sorted({f.id for f in deleted}))),
             index_side)
     index_side = Project(visible_cols, index_side)
-    if appended:
-        src = target.relation
-        appended_side: LogicalPlan = Project(visible_cols, Scan(ScanRelation(
+    src = target.relation
+
+    def source_scan(files) -> Scan:
+        return Scan(ScanRelation(
             root_paths=src.root_paths, file_format=src.file_format,
-            options=src.options,
-            file_paths=tuple(f.name for f in appended))))
+            options=src.options, file_paths=tuple(f.name for f in files)))
+
+    repair_side: Optional[LogicalPlan] = None
+    if qbuckets:
+        # The quarantined buckets' rows, read from the COMMON source
+        # files (recorded minus deleted): appended files' rows come
+        # through the appended branch, and deleted ones must not return.
+        # BucketIn hashes as the build did, so the branch holds exactly
+        # the rows the dropped files held.
+        deleted_keys = {_file_key(f) for f in deleted}
+        common = [f for f in entry.source_file_infos()
+                  if _file_key(f) not in deleted_keys]
+        if common:
+            repair_side = Project(visible_cols, Filter(
+                BucketIn(tuple(entry.indexed_columns), entry.num_buckets,
+                         qbuckets),
+                source_scan(common)))
+    sides = [index_side]
+    if appended:
+        sides.append(Project(visible_cols, source_scan(appended)))
+    if repair_side is not None:
+        sides.append(repair_side)
+    if len(sides) == 1:
+        merged: LogicalPlan = index_side
+    elif bucket_union:
+        # A join side (never one with quarantined buckets, refused above).
         cols = tuple(entry.indexed_columns)
-        if bucket_union:
-            merged: LogicalPlan = BucketUnion([index_side, appended_side],
-                                              (entry.num_buckets, cols, cols))
-        else:
-            merged = Union([index_side, appended_side], strict=True)
+        merged = BucketUnion(sides, (entry.num_buckets, cols, cols))
     else:
-        merged = index_side
+        merged = Union(sides, strict=True)
     return plan.transform_up(lambda node: merged if node is target else node)

@@ -12,7 +12,10 @@ executor joins bucket by bucket.
   - rewrite: both scans become index scans WITH the bucket spec; under
     hybrid scan a side whose source changed becomes a ``BucketUnion`` of
     the index and its appended files (``rules.hybrid``), whose rows the
-    executor routes into the index's buckets.
+    executor routes into the index's buckets.  An index with any
+    quarantined file is no join candidate: the source branch of its
+    damaged buckets has no bucket structure to align (the filter rule
+    still serves it with containment).
 """
 
 from __future__ import annotations
@@ -88,12 +91,17 @@ class JoinIndexRule:
         if entries is None:
             entries = self.session.index_collection_manager.get_indexes(
                 [States.ACTIVE])
-        l_usable = _usable_indexes(
-            rule_utils.get_candidate_indexes(self.session, entries, l_scan),
-            l_keys, self._required_columns(join.left))
-        r_usable = _usable_indexes(
-            rule_utils.get_candidate_indexes(self.session, entries, r_scan),
-            r_keys, self._required_columns(join.right))
+        from hyperspace_tpu_torch.rules.hybrid import quarantined_split
+
+        def candidates(scan):
+            return [e for e in rule_utils.get_candidate_indexes(
+                        self.session, entries, scan)
+                    if not quarantined_split(self.session, e)[0]]
+
+        l_usable = _usable_indexes(candidates(l_scan), l_keys,
+                                   self._required_columns(join.left))
+        r_usable = _usable_indexes(candidates(r_scan), r_keys,
+                                   self._required_columns(join.right))
         hybrid = self.session.conf.hybrid_scan_enabled
         best = rank_join_index_pairs(
             _compatible_pairs(l_usable, r_usable, l_keys, r_keys),

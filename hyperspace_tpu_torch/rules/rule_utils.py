@@ -10,7 +10,10 @@ the scan).  With ``conf.hybrid_scan_enabled`` the file-overlap test of
 whose quick refresh recorded source changes is not a candidate.  An
 index-only scan of an index with the lineage column is projected to the
 index's own columns, so enabling the indexes never changes a query's
-output schema.  Quarantine is not ported.
+output schema.  An entry whose quarantine leaves no containment plan
+(``rules.hybrid.quarantine_excludes_entry``) is no candidate; a partly
+quarantined one stays one, and the rules read its damaged buckets from
+the source.
 """
 
 from __future__ import annotations
@@ -33,9 +36,14 @@ def get_candidate_indexes(session, entries: Sequence[IndexLogEntry],
     entries = [e for e in entries if e.is_covering]
     if is_index_applied(scan):
         return []
-    if session.conf.hybrid_scan_enabled:
-        from hyperspace_tpu_torch.rules.hybrid import get_hybrid_scan_candidates
+    from hyperspace_tpu_torch.rules.hybrid import (
+        get_hybrid_scan_candidates,
+        quarantine_excludes_entry,
+    )
 
+    entries = [e for e in entries
+               if not quarantine_excludes_entry(session, e)]
+    if session.conf.hybrid_scan_enabled:
         return get_hybrid_scan_candidates(session, entries, scan)
     signature_cache: Dict[str, Optional[str]] = {}
 

@@ -6,9 +6,11 @@ schema resolution and the optimizer.
 then runs, in the JAX package's order: filter pushdown, column pruning,
 JoinIndexRule, FilterIndexRule, BucketPruneRule, DataSkippingFilterRule
 (last: a covering rewrite beats file pruning), and pushdown and pruning
-once more (the rules rebuild sides in Filter-above-Project form).  Not
-ported: the subquery and temporal steps, the degraded fallback that
-answers from the source when a rule fails, and the plan cache."""
+once more (the rules rebuild sides in Filter-above-Project form);
+``use_indexes=False`` skips the rules (the source plan of
+``Dataset.collect``'s fallback).  Not ported: the subquery and temporal
+steps, the degraded fallback that answers from the source when a rule
+fails, and the plan cache."""
 
 from __future__ import annotations
 
@@ -106,7 +108,7 @@ class HyperspaceSession:
     def is_hyperspace_enabled(self) -> bool:
         return self._hyperspace_enabled
 
-    def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+    def optimize(self, plan: LogicalPlan, use_indexes: bool = True) -> LogicalPlan:
         from hyperspace_tpu_torch.index.log_entry import States
         from hyperspace_tpu_torch.plan.pruning import prune_columns
         from hyperspace_tpu_torch.plan.pushdown import push_filters
@@ -122,7 +124,7 @@ class HyperspaceSession:
         plan = _uniquify(plan)
         plan = push_filters(plan, self.schema_of)
         plan = prune_columns(plan, self.schema_of)
-        if not self._hyperspace_enabled:
+        if not (self._hyperspace_enabled and use_indexes):
             return plan
         entries = self.index_collection_manager.get_indexes([States.ACTIVE])
         plan = JoinIndexRule(self, entries).apply(plan)

@@ -66,7 +66,8 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "rules/hybrid.py", "ops/aggregate.py", "ops/join_agg.py",
                    "execution/device_cache.py", "utils/calibrate.py",
                    "telemetry/build_report.py", "actions/data_skipping.py",
-                   "rules/data_skipping.py"):
+                   "rules/data_skipping.py", "actions/verify.py",
+                   "actions/repair.py", "execution/containment.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -363,6 +364,71 @@ def test_calibration_reports_and_data_skipping_import_no_jax(tmp_path):
         ds = s.read.parquet(data).filter(col("k") == 250).select("k")
         assert "[files: 1/4]" in ds.optimized_plan().tree_string()
         assert ds.collect().num_rows == 1
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_integrity_loop_imports_no_jax(tmp_path):
+    """verify_index quick and full, a query contained around a
+    quarantined bucket, a truncated file found at execution, and
+    refresh_index(mode="repair"), each through the port's entry points;
+    the integrity modules load without pyarrow."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        from hyperspace_tpu_torch.actions import repair, verify
+        from hyperspace_tpu_torch.execution import containment
+        from hyperspace_tpu_torch.index import quarantine
+        from hyperspace_tpu_torch.io import integrity, log_store
+        assert "pyarrow" not in sys.modules
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        for i in range(3):
+            pq.write_table(pa.table({{"k": rng.integers(0, 50, 300),
+                                      "v": rng.random(300)}}),
+                           os.path.join(data, f"part-{{i}}.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        # The device routes (the CPU defaults send work to the host).
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        files = [f.name for f in
+                 s.index_collection_manager.get_index("ix").content.file_infos()]
+        assert hs.verify_index("ix", "quick").column("status").to_pylist() \
+            == ["ok"] * 4
+        with open(files[1], "r+b") as f:
+            f.seek(100)
+            f.write(b"rot")
+        assert "digest-mismatch" in \
+            hs.verify_index("ix", "full").column("status").to_pylist()
+        s.enable_hyperspace()
+        q = s.read.parquet(data).filter(col("k") < 30).select("k", "v")
+        assert "bucket_in" in q.optimized_plan().tree_string()
+        n = q.collect().num_rows
+        with open(files[2], "r+b") as f:
+            f.truncate(100)
+        assert q.collect().num_rows == n
+        assert s.last_execution_stats["containment"]["replan"] == "containment"
+        assert hs.refresh_index("ix", "repair").outcome == "ok"
+        assert set(hs.verify_index("ix", "full").column("status").to_pylist()) \
+            == {{"ok"}}
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

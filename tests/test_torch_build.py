@@ -57,14 +57,16 @@ def _build(pkg, system_path, data, num_buckets, config, max_rows_per_file=0,
 
 def _index_defining(entry_dict):
     """The fields that define an index: everything but the log id's
-    timestamp and where the index data lives on disk."""
+    timestamp and where the index data lives on disk (the data files'
+    content digests included)."""
     dd = entry_dict["derivedDataset"]
     rel = entry_dict["source"]["plan"]["properties"]["relations"]
     data_files = []
 
     def walk(node):
         for f in node["files"]:
-            data_files.append((bucket_id_of_file(f["name"]), f["size"]))
+            data_files.append((bucket_id_of_file(f["name"]), f["size"],
+                               f["digest"]))
         for sub in node["subDirs"]:
             walk(sub)
 

@@ -121,11 +121,10 @@ def _sketch_rows(pkg, entry):
 
 def _normalized(entry_dict, roots):
     """A log entry's JSON with the system paths and the sketch file's
-    random name taken out, and its timestamp and digests dropped."""
+    random name taken out, and its timestamp dropped (digests stay)."""
     def walk(x):
         if isinstance(x, dict):
-            return {k: walk(v) for k, v in x.items()
-                    if k not in ("timestamp", "digest")}
+            return {k: walk(v) for k, v in x.items() if k != "timestamp"}
         if isinstance(x, list):
             return [walk(v) for v in x]
         if isinstance(x, str):
@@ -174,7 +173,8 @@ class TestBuild:
             d = entry.to_dict()
             # The content tree as its leaf files: the trees differ in the
             # directory names of the two system paths.
-            d["content"] = [[f.name, f.size] for f in entry.content.file_infos()]
+            d["content"] = [[f.name, f.size, f.digest]
+                            for f in entry.content.file_infos()]
             dicts[_name(pkg)] = _normalized(d, roots)
         assert dicts["torch"] == dicts["jax"]
         # Either package reads the other's entry.

@@ -100,7 +100,8 @@ def _index_defining(entry):
         path = os.path.join(base, node["name"]) if base else node["name"]
         for f in node["files"]:
             data_files.append((os.path.basename(path),
-                               bucket_id_of_file(f["name"]), f["size"]))
+                               bucket_id_of_file(f["name"]), f["size"],
+                               f["digest"]))
         for sub in node["subDirs"]:
             walk(sub, path)
 
