@@ -198,6 +198,43 @@ beside it.
            ``BucketIn``.  Last, phase C's build four times, digest on
            write off and on in turns (DIGEST_BUILDS), and the written MB
            hashed again serially.
+  phase J  the Z-order layout, after phase I, over phase C's lineitem:
+           bench.py's ``li_z`` (``l_shipdate``, ``l_extendedprice`` with
+           ``l_quantity``, ``layout="zorder"``, one bucket, N_LINEITEM // 64
+           rows per file).  The codes first: the numpy mirror
+           (``ops.zorder.zorder_order_words_np`` and a stable argsort) on
+           the host, timed, and ``ops.zorder.zorder_sort`` on the card,
+           timed between CUDA events, bit for bit equal; the mirror's
+           codes give the layout (``zorder_split_chunks``: each cut on a
+           cell boundary or at the row cap) and the files whose price
+           range meets bench.py's ``q_zorder_second_dim`` ([2500, 3000)).
+           ``li_z`` built monolithic (``1 << 23`` rows a batch: hash 0,
+           histogram 1 launches) and two-pass (the default batch: 0 and
+           0), each held to that layout file for file and row for row
+           (a row is known by its ``l_shipdate``), each file in Morton
+           order.  ``q_zorder_second_dim`` through the monolithic index
+           pinned to the card: its files kept equal to the layout's, the
+           answer to numpy's, cold and warm beside the scan and the plan
+           ms; once more at the calibrated defaults; and a lexicographic
+           index on the same columns must not apply to the price-only
+           predicate.  Then over a hard-linked copy: ``li_z`` built, 2
+           files appended (``default_rng(31)``), an incremental refresh
+           (0 and 1 launches, layout kept, two versions), ``optimize_index
+           ("quick")`` (0 and 0; files in Morton order and cell-aligned by
+           the card's codes of the 6,187,500 rows), one flipped byte that
+           a full verify flags, ``refresh_index(mode="repair")`` (1 and 1;
+           the files equal to the monolithic layout of the snapshot row
+           for row, verify clean after), the answer held to numpy's after
+           each step.  Its SF10 part runs in phase F before phase F's
+           source goes: ``sf10_z`` (bench.py:512-526) built two-pass over
+           the 60,000,000 rows (0 and 0 launches; wall, phases, peak RSS,
+           card peak); on the card the ranks of pass A checked to be the
+           stable order (a permutation, keys non-decreasing along it, ties
+           in row order) and the scaled, interleaved codes equal to numpy's
+           on a seeded 1-in-ZORDER_SAMPLE sample of the rows; the files
+           held to the card codes' layout as at SF1; the query's files
+           kept and answer checked, cold beside the scan.  Prints the
+           ``{"zorder": ...}`` line.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -219,13 +256,13 @@ and, for the histogram, ``torch.bincount``'s device time by the profiler
 (it synchronises, so no graph holds it).  Each kernel row carries its
 launches on every path the script drives (``launches_by_path``); the
 chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
-the builds JSON (phases E, G and F, each with its build ``report``), the
-queries JSON (phase D's with its ``eviction`` run, phase G's as
+the builds JSON (phases E, G, J and F, each with its build ``report``),
+the queries JSON (phase D's with its ``eviction`` run, phase G's as
 ``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
 H's under ``calibration``), the kernels JSON (``launches_by_path`` with
-phase I's ``I repair`` and ``I containment``), the integrity JSON
-(phase I), the card's name and power limit, and ``{"ok": true,
-"device": ...}``.
+phase I's ``I repair`` and ``I containment`` and phase J's steps), the
+integrity JSON (phase I), the Z-order JSON (phase J), the card's name and
+power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -309,6 +346,23 @@ INTEGRITY_INCLUDED = ["l_quantity", "l_extendedprice", "l_discount"]
 INTEGRITY_COLUMNS = ["l_orderkey"] + INTEGRITY_INCLUDED
 # Phase C's build with digest on write off and on, in turns.
 DIGEST_BUILDS = (False, True, False, True)
+ZORDER_INDEX = "li_z"           # bench.py's li_z (bench.py:1165-1176)
+ZORDER_LEX_INDEX = "li_zlex"    # the same columns, lexicographic
+ZORDER_INDEXED = ["l_shipdate", "l_extendedprice"]
+ZORDER_INCLUDED = ["l_quantity"]
+ZORDER_COLUMNS = ZORDER_INDEXED + ZORDER_INCLUDED
+ZORDER_BITS = 16 * len(ZORDER_INDEXED)
+ZORDER_RANGE = (2500.0, 3000.0)  # bench.py's q_zorder_second_dim
+J_APPENDED = 2                  # files appended before the refresh
+J_LAUNCHES = {                  # hash, histogram per Z-order step
+    "monolithic": {"hash_buckets": 0, "bucket_histogram": 1},
+    "two-pass": {"hash_buckets": 0, "bucket_histogram": 0},
+    "refresh": {"hash_buckets": 0, "bucket_histogram": 1},
+    "optimize": {"hash_buckets": 0, "bucket_histogram": 0},
+    "repair": {"hash_buckets": 1, "bucket_histogram": 1},
+}
+SF10_Z_INDEX = "sf10_z"         # bench.py's sf10_z (bench.py:512-526)
+ZORDER_SAMPLE = 64              # SF10: codes checked on 1 row in 64
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -1323,12 +1377,13 @@ def require_launches(label: str, launches: dict, want: dict) -> None:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
 
 
-def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
+def timed_build(dev, label: str, hs, run, want_launches) -> dict:
     """``run()`` (a build, a refresh or an optimize) with the launch
     counts set to 0 just before and read just after: each kernel must
-    have launched ``want_launches`` times.  Returns its wall, phases (of
-    a run that built index data), launches, the card's peak allocation
-    and its checked build report."""
+    have launched ``want_launches`` times (or, a dict, as many times as
+    it names).  Returns its wall, phases (of a run that built index
+    data), launches, the card's peak allocation and its checked build
+    report."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
@@ -1345,7 +1400,9 @@ def timed_build(dev, label: str, hs, run, want_launches: int) -> dict:
     outcome = run()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    require_launches(label, launches, {k: want_launches for k in launches})
+    require_launches(label, launches, want_launches
+                     if isinstance(want_launches, dict)
+                     else {k: want_launches for k in launches})
     return {"build": label, "wall_s": wall, "launches": launches,
             "phases": {k: v for k, v in log[-1].items() if k != "index"}
             if len(log) > logged else {},
@@ -1524,6 +1581,8 @@ def phase_f(root: str, dev) -> dict:
                datagen_s=datagen_s, check_s=time.perf_counter() - t0,
                disk_free_gb_before=free_gb)
     shutil.rmtree(path, ignore_errors=True)
+    # Phase J's SF10 part, on this source before it goes.
+    rec["zorder"] = zorder_sf10(root, src, dev)
     shutil.rmtree(src, ignore_errors=True)
     return rec
 
@@ -2101,6 +2160,525 @@ def phase_i(orders: dict, li: dict, root: str, dev) -> dict:
             "serial_digest_s": serial_digest_s, "mb": written_mb}}
 
 
+def zorder_words(columns: dict) -> list:
+    """The order words of the Z-order index's columns (``io.columnar``)."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.io.columnar import to_order_words
+
+    return [to_order_words(pa.array(columns[c])) for c in ZORDER_INDEXED]
+
+
+def zorder_layout(codes: np.ndarray, order: np.ndarray, price: np.ndarray,
+                  max_rows: int) -> dict:
+    """The layout that ``codes`` (uint64 per row) and their stable
+    ``order`` give: the files' cuts (``zorder_split_chunks``), each cut on
+    a cell boundary or at the row cap, and the files whose price range
+    meets ZORDER_RANGE (what the sketch keeps)."""
+    from hyperspace_tpu_torch.io.parquet import zorder_split_chunks
+
+    sorted_codes = codes[order]
+    if np.any(sorted_codes[1:] < sorted_codes[:-1]):
+        raise AssertionError("Z-order: the codes' order is not sorted")
+    chunks = zorder_split_chunks(sorted_codes, ZORDER_BITS, max_rows)
+    level = max(1, min(ZORDER_BITS, int(np.ceil(np.log2(
+        -(-len(codes) // max_rows))))))
+    cells = sorted_codes >> np.uint64(ZORDER_BITS - level)
+    for (off, rows), (nxt, _) in zip(chunks, chunks[1:]):
+        if rows != max_rows and cells[off + rows - 1] == cells[nxt]:
+            raise AssertionError(f"Z-order: a cut at row {nxt} inside a cell")
+    starts = np.array([off for off, _ in chunks])
+    p = price[order]
+    lo, hi = ZORDER_RANGE
+    kept = (np.maximum.reduceat(p, starts) >= lo) \
+        & (np.minimum.reduceat(p, starts) < hi)
+    return {"chunks": chunks, "files": len(chunks), "kept": int(kept.sum())}
+
+
+def zorder_index_files(hs, name: str) -> dict:
+    """first row id -> (row ids in file order, file path) of the index
+    ``name``: one bucket, layout "zorder", every file bucket 0.  A row's
+    id is its ``l_shipdate`` (the generators' row number)."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    entry = hs.session.index_collection_manager.get_index(name)
+    if entry.num_buckets != 1 or \
+            entry.derived_dataset.properties.get("layout") != "zorder":
+        raise AssertionError(f"{name}: {entry.num_buckets} buckets, layout "
+                             f"{entry.derived_dataset.properties}")
+    files = {}
+    for info in entry.content.file_infos():
+        if bucket_id_of_file(info.name) != 0:
+            raise AssertionError(f"{name}: {info.name} is not bucket 0")
+        ids = pq.read_table(info.name, columns=["l_shipdate"],
+                            partitioning=None).column("l_shipdate").to_numpy()
+        files[int(ids[0])] = (ids, info.name)
+    return files
+
+
+def check_zorder_files(label: str, hs, name: str, codes: np.ndarray,
+                       layout: dict, order, columns: dict) -> int:
+    """The index ``name``'s files are the layout's, file for file and row
+    for row: each file's rows are one of its cuts of ``order``, with the
+    codes non-decreasing, and each row's values are ``columns``' (the
+    source's, by row id).  Returns the file count."""
+    import pyarrow.parquet as pq
+
+    files = zorder_index_files(hs, name)
+    for off, rows in layout["chunks"]:
+        want = order[off:off + rows]
+        got = files.pop(int(want[0]), (None, None))[0]
+        if got is None or not np.array_equal(got, want):
+            raise AssertionError(f"{label}: the file of rows {off}.. is not "
+                                 f"the layout's")
+    if files:
+        raise AssertionError(f"{label}: {len(files)} files outside the layout")
+    entry = hs.session.index_collection_manager.get_index(name)
+    for info in entry.content.file_infos():
+        t = pq.read_table(info.name, partitioning=None,
+                          columns=[c for c in ZORDER_COLUMNS if c in columns])
+        ids = t.column("l_shipdate").to_numpy()
+        z = codes[ids]
+        if np.any(z[1:] < z[:-1]):
+            raise AssertionError(f"{label}: {info.name} is not in Morton order")
+        for c in t.column_names:
+            if not np.array_equal(t.column(c).to_numpy(), columns[c][ids]):
+                raise AssertionError(f"{label}: {info.name} differs in {c}")
+    return len(layout["chunks"])
+
+
+def check_zorder_order(label: str, hs, name: str, codes: np.ndarray,
+                       max_rows: int, rows: int) -> int:
+    """The index ``name``'s files in Morton order and cell-aligned, by
+    ``codes`` of each row id (a layout whose tie order is not the
+    source's, as optimize's): within each file the codes are
+    non-decreasing, the files do not overlap along the curve, every cut
+    is on a cell boundary or at the row cap, and the files hold ``rows``
+    rows.  Returns the file count."""
+    files = zorder_index_files(hs, name)
+    spans = sorted((codes[ids[0]], codes[ids[-1]], len(ids))
+                   for ids, _ in files.values())
+    for ids, path in files.values():
+        z = codes[ids]
+        if np.any(z[1:] < z[:-1]):
+            raise AssertionError(f"{label}: {path} is not in Morton order")
+    level = max(1, min(ZORDER_BITS,
+                       int(np.ceil(np.log2(-(-rows // max_rows))))))
+    shift = np.uint64(ZORDER_BITS - level)
+    for (_, last, n), (first, _, _) in zip(spans, spans[1:]):
+        if first < last or (n != max_rows and last >> shift == first >> shift):
+            raise AssertionError(f"{label}: files overlap or cut inside a cell")
+    if sum(n for _, _, n in spans) != rows:
+        raise AssertionError(f"{label}: the files hold "
+                             f"{sum(n for _, _, n in spans)} rows, not {rows}")
+    return len(spans)
+
+
+def card_codes(dev, words: list, runs: int = 3) -> tuple:
+    """The Z-order pass on the card (``ops.zorder.zorder_sort``) over
+    ``words``: ((n,) uint64 codes, (n,) int64 order), both on the host,
+    the device ms of the pass on words already there (the median of
+    ``runs`` between two CUDA events), and the host ms of one pass with
+    the words' upload and the results' download."""
+    import torch
+
+    from hyperspace_tpu_torch.ops.zorder import key64_to_codes, zorder_sort
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    up = [torch.from_numpy(w).to(dev) for w in words]
+    key, perm = zorder_sort(up)
+    codes, order = key64_to_codes(key), perm.cpu().numpy()
+    with_copies_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        zorder_sort(up)
+        end.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(end))
+    del up, key, perm
+    return codes, order, statistics.median(times), with_copies_ms
+
+
+def zorder_query(session, src: str):
+    from hyperspace_tpu_torch import col
+
+    lo, hi = ZORDER_RANGE
+    return (session.read.parquet(src)
+            .filter((col("l_extendedprice") >= lo)
+                    & (col("l_extendedprice") < hi))
+            .select(*ZORDER_COLUMNS))
+
+
+def zorder_want(columns: dict) -> dict:
+    lo, hi = ZORDER_RANGE
+    price = columns["l_extendedprice"]
+    mask = (price >= lo) & (price < hi)
+    return {c: columns[c][mask] for c in ZORDER_COLUMNS}
+
+
+def kept_of(ds, name: str) -> tuple:
+    """(files kept, files in all) of the plan's scan of index ``name``."""
+    plan = ds.optimized_plan()
+    scans = [sc.relation for sc in plan.leaf_relations()
+             if sc.relation.index_scan_of == name]
+    if len(scans) != 1 or scans[0].data_skipping_stats is None:
+        raise AssertionError(f"{name}: plan\n{plan.tree_string()}")
+    return tuple(scans[0].data_skipping_stats)
+
+
+def timed_collects(label: str, ds, want: dict, cold: bool) -> list:
+    """TIMED_QUERY_RUNS collects of ``ds`` (cold: the device column cache
+    emptied before each, outside the clock), each answer held to
+    ``want`` after its clock stopped; their ms."""
+    times = []
+    for _ in range(TIMED_QUERY_RUNS):
+        if cold:
+            device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds.collect()
+        times.append((time.perf_counter() - t0) * 1e3)
+        require_rows(label, got, want, ["l_shipdate"])
+    return times
+
+
+def timed_zorder_query(label: str, session, src: str, want: dict,
+                       layout: dict, name: str = ZORDER_INDEX) -> dict:
+    """The second-dimension query with hyperspace on, cold and warm, and
+    the scan cold: each answer held to ``want``, the files kept to the
+    layout's; with the plan's ms."""
+    ds = zorder_query(session, src)
+    session.enable_hyperspace()
+    t0 = time.perf_counter()
+    kept = kept_of(ds, name)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    if kept != (layout["kept"], layout["files"]):
+        raise AssertionError(f"{label}: kept {kept}, the layout keeps "
+                             f"{layout['kept']} of {layout['files']}")
+    cold = timed_collects(label, ds, want, cold=True)
+    warm = timed_collects(label + " warm", ds, want, cold=False)
+    route = route_of(session.last_execution_stats)
+    session.disable_hyperspace()
+    scan = timed_collects(label + " scan", ds, want, cold=True)
+    session.enable_hyperspace()
+    device_cache().clear()
+    return {"kept": kept[0], "files": kept[1], "rows": len(want["l_shipdate"]),
+            "plan_ms": plan_ms, "cold_ms": statistics.median(cold),
+            "warm_ms": statistics.median(warm),
+            "scan_ms": statistics.median(scan), "route": route,
+            "cold_runs_ms": cold,
+            "warm_runs_ms": warm, "scan_runs_ms": scan}
+
+
+def j_append(path: str, count: int) -> dict:
+    """``count`` files of ROWS_PER_FILE new rows (``gen_lineitem``,
+    ``default_rng(31)``) whose row ids (``l_shipdate``) follow the SF1
+    lineitem's; returns their columns."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rows = ROWS_PER_FILE * count
+    new = gen_lineitem(np.random.default_rng(31), rows)
+    new["l_shipdate"] = np.arange(N_LINEITEM, N_LINEITEM + rows, dtype=np.int64)
+    for i in range(count):
+        pq.write_table(pa.table({c: v[i * ROWS_PER_FILE:(i + 1) * ROWS_PER_FILE]
+                                 for c, v in new.items()}),
+                       os.path.join(path, f"part-{99000 + i:05d}.parquet"))
+    return new
+
+
+def zorder_step(dev, label: str, hs, run, want) -> dict:
+    rec = timed_build(dev, label, hs, run, want)
+    outcome = rec.pop("outcome")
+    if outcome is not None and getattr(outcome, "outcome", "ok") != "ok":
+        raise AssertionError(f"{label}: {outcome}")
+    return rec
+
+
+def phase_j(li: dict, root: str, dev) -> dict:
+    """The Z-order layout at SF1 (see the module docstring)."""
+    from hyperspace_tpu_torch import HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.ops.zorder import (
+        words_to_codes64,
+        zorder_order_words_np,
+    )
+
+    device_cache().clear()
+    src = os.path.join(root, "lineitem")
+    max_rows = N_LINEITEM // 64
+    columns = {c: li[c] for c in ZORDER_COLUMNS}
+    if not np.array_equal(li["l_shipdate"], np.arange(N_LINEITEM)):
+        raise AssertionError("phase J: l_shipdate is not the row number")
+    if len(np.unique(li["l_extendedprice"])) != N_LINEITEM:
+        raise AssertionError("phase J: l_extendedprice has ties; the checks "
+                             "of optimize's order need distinct keys")
+    out: dict = {"builds": [], "launches_by_path": {}}
+
+    # (a) the codes: the numpy mirror on the host, the card's pass.
+    t0 = time.perf_counter()
+    words = zorder_words(columns)
+    words_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = words_to_codes64(zorder_order_words_np(words))
+    order = np.argsort(codes, kind="stable")
+    mirror_s = time.perf_counter() - t0
+    got_codes, got_order, card_ms, card_copies_ms = card_codes(dev, words)
+    if not (np.array_equal(got_codes, codes)
+            and np.array_equal(got_order, order)):
+        raise AssertionError("phase J: the card's codes or order differ from "
+                             "the numpy mirror's")
+    del got_codes, got_order
+    layout = zorder_layout(codes, order, columns["l_extendedprice"], max_rows)
+    out["codes"] = {"rows": N_LINEITEM, "words_s": words_s,
+                    "mirror_s": mirror_s, "card_ms": card_ms,
+                    "card_with_copies_ms": card_copies_ms,
+                    "files": layout["files"], "kept": layout["kept"]}
+
+    # (b) the two builds, each held to the mirror's layout.
+    config = IndexConfig(ZORDER_INDEX, ZORDER_INDEXED, ZORDER_INCLUDED,
+                         layout="zorder")
+    for kind, conf in (("monolithic",
+                        {"device_batch_rows": MONOLITHIC_BATCH_ROWS}),
+                       ("two-pass", {})):
+        label = f"J create {ZORDER_INDEX} {kind}"
+        path = os.path.join(root, "j_" + kind)
+        hs = spill_session(dev, path, index_max_rows_per_file=max_rows, **conf)
+        rec = zorder_step(dev, label, hs, lambda: hs.create_index(
+            hs.session.read.parquet(src), config), J_LAUNCHES[kind])
+        if ("spill_route_s" in rec["phases"]) != (kind == "two-pass"):
+            raise AssertionError(f"{label}: phases {rec['phases']}")
+        t0 = time.perf_counter()
+        rec["files"] = check_zorder_files(label, hs, ZORDER_INDEX, codes,
+                                          layout, order, columns)
+        rec["check_s"] = time.perf_counter() - t0
+        out["builds"].append(rec)
+        out["launches_by_path"][label] = rec["launches"]
+        if kind == "monolithic":
+            mono_hs = hs
+        else:
+            shutil.rmtree(path, ignore_errors=True)
+
+    # (c) the second-dimension query through the monolithic build's
+    # index: pinned to the card, then at the calibrated defaults; a
+    # lexicographic index on the same columns does not apply.
+    want = zorder_want(columns)
+    hs, session = mono_hs, mono_hs.session
+    out["query"] = timed_zorder_query("phase J q_zorder_second_dim", session,
+                                      src, want, layout)
+    calibrated = HyperspaceSession(system_path=session.conf.system_path,
+                                   device=dev)
+    calibrated.enable_hyperspace()
+    ds = zorder_query(calibrated, src)
+    device_cache().clear()
+    t0 = time.perf_counter()
+    require_rows("phase J calibrated", ds.collect(), want, ["l_shipdate"])
+    out["query"]["calibrated_cold_ms"] = (time.perf_counter() - t0) * 1e3
+    out["query"]["calibrated_route"] = route_of(calibrated.last_execution_stats)
+    if kept_of(ds, ZORDER_INDEX) != (layout["kept"], layout["files"]):
+        raise AssertionError("phase J: the calibrated plan keeps other files")
+    hs.create_index(session.read.parquet(src),
+                    IndexConfig(ZORDER_LEX_INDEX, ZORDER_INDEXED,
+                                ZORDER_INCLUDED))
+    hs.delete_index(ZORDER_INDEX)
+    plan = zorder_query(session, src).optimized_plan()
+    if index_scans(plan):
+        raise AssertionError(f"phase J: a lexicographic index applied to the "
+                             f"price-only predicate:\n{plan.tree_string()}")
+    shutil.rmtree(os.path.join(root, "j_monolithic"), ignore_errors=True)
+
+    # (d) maintenance over a copy of the source (hard links).
+    copy = os.path.join(root, "lineitem_z")
+    shutil.copytree(src, copy, copy_function=os.link)
+    path = os.path.join(root, "j_life")
+    hs = spill_session(dev, path, index_max_rows_per_file=max_rows,
+                       device_batch_rows=MONOLITHIC_BATCH_ROWS)
+    session = hs.session
+    steps = {}
+    rec = zorder_step(dev, "J create copy", hs, lambda: hs.create_index(
+        session.read.parquet(copy), config), J_LAUNCHES["monolithic"])
+    out["builds"].append(rec)
+    new = j_append(copy, J_APPENDED)
+    rows = N_LINEITEM + len(new["l_shipdate"])
+    union = {c: np.concatenate([columns[c], new[c]]) for c in ZORDER_COLUMNS}
+    if len(np.unique(union["l_extendedprice"])) != rows:
+        raise AssertionError("phase J: the appended prices add ties")
+    union_codes, union_order, _, _ = card_codes(dev, zorder_words(union), 1)
+    union_layout = zorder_layout(union_codes, union_order,
+                                 union["l_extendedprice"], max_rows)
+    union_want = zorder_want(union)
+    for step, run, kind in (
+            ("J refresh incremental",
+             lambda: hs.refresh_index(ZORDER_INDEX, "incremental"), "refresh"),
+            ("J optimize quick",
+             lambda: hs.optimize_index(ZORDER_INDEX, "quick"), "optimize")):
+        rec = zorder_step(dev, step, hs, run, J_LAUNCHES[kind])
+        entry = session.index_collection_manager.get_index(ZORDER_INDEX)
+        if entry.derived_dataset.properties.get("layout") != "zorder":
+            raise AssertionError(
+                f"{step}: layout {entry.derived_dataset.properties}")
+        if kind == "refresh":
+            versions = {os.path.dirname(f.name)
+                        for f in entry.content.file_infos()}
+            if len(versions) != 2:
+                raise AssertionError(f"{step}: versions {sorted(versions)}")
+        else:
+            rec["files"] = check_zorder_order(step, hs, ZORDER_INDEX,
+                                              union_codes, max_rows, rows)
+        session.enable_hyperspace()
+        device_cache().clear()
+        t0 = time.perf_counter()
+        require_rows(step, zorder_query(session, copy).collect(), union_want,
+                     ["l_shipdate"])
+        rec["query_cold_ms"] = (time.perf_counter() - t0) * 1e3
+        out["builds"].append(rec)
+        out["launches_by_path"][step] = rec["launches"]
+    entry = session.index_collection_manager.get_index(ZORDER_INDEX)
+    infos = entry.content.file_infos()
+    flip_byte(infos[len(infos) // 2].name)
+    report = hs.verify_index(ZORDER_INDEX, "full")
+    flagged = [s for s in report.column("status").to_pylist() if s != "ok"]
+    if flagged != ["digest-mismatch"]:
+        raise AssertionError(f"phase J verify: flagged {flagged}")
+    rec = zorder_step(dev, "J repair", hs,
+                      lambda: hs.refresh_index(ZORDER_INDEX, "repair"),
+                      J_LAUNCHES["repair"])
+    rec["files"] = check_zorder_files("J repair", hs, ZORDER_INDEX,
+                                      union_codes, union_layout, union_order,
+                                      union)
+    report = hs.verify_index(ZORDER_INDEX, "full")
+    if set(report.column("status").to_pylist()) != {"ok"}:
+        raise AssertionError("phase J: verify after repair is not clean")
+    device_cache().clear()
+    require_rows("J repair", zorder_query(session, copy).collect(), union_want,
+                 ["l_shipdate"])
+    out["builds"].append(rec)
+    out["launches_by_path"]["J repair"] = rec["launches"]
+    out["union"] = {"rows": rows, "files": union_layout["files"],
+                    "kept": union_layout["kept"]}
+    shutil.rmtree(path, ignore_errors=True)
+    shutil.rmtree(copy, ignore_errors=True)
+    device_cache().clear()
+    return out
+
+
+def zorder_sf10(root: str, src: str, dev) -> dict:
+    """The SF10 two-pass Z-order build over phase F's source (see the
+    module docstring)."""
+    import resource
+
+    import torch
+
+    from hyperspace_tpu_torch import IndexConfig, col
+    from hyperspace_tpu_torch.io.parquet import read_table
+    from hyperspace_tpu_torch.ops.hash import order_key64
+    from hyperspace_tpu_torch.ops.zorder import (
+        interleave16_np,
+        rank_scale,
+        stable_ranks,
+        zorder_order_words,
+    )
+
+    device_cache().clear()
+    n = N_LINEITEM_SF10
+    max_rows = n // 64
+    path = os.path.join(root, "f_zorder")
+    hs = spill_session(dev, path, index_max_rows_per_file=max_rows)
+    rec = zorder_step(dev, f"F {SF10_Z_INDEX} two-pass", hs,
+                      lambda: hs.create_index(
+                          hs.session.read.parquet(src),
+                          IndexConfig(SF10_Z_INDEX, ZORDER_INDEXED,
+                                      ZORDER_INCLUDED, layout="zorder")),
+                      J_LAUNCHES["two-pass"])
+    rec["peak_rss_mb"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    if "spill_route_s" not in rec["phases"]:
+        raise AssertionError(f"F {SF10_Z_INDEX}: phases {rec['phases']}")
+
+    t0 = time.perf_counter()
+    files = sorted(os.path.join(src, f) for f in os.listdir(src))
+    table = read_table(files, ["l_shipdate", "l_extendedprice"])
+    columns = {c: table.column(c).to_numpy() for c in table.column_names}
+    del table
+    if not np.array_equal(columns["l_shipdate"], np.arange(n)):
+        raise AssertionError("phase F: l_shipdate is not the row number")
+    words = zorder_words(columns)
+    # Pass A's ranks: a permutation, the keys non-decreasing along it and
+    # ties in row order.
+    up = [torch.from_numpy(w).to(dev) for w in words]
+    ranks = []
+    for c, w in zip(ZORDER_INDEXED, up):
+        rank = stable_ranks(w)
+        by_rank = torch.empty_like(rank)
+        by_rank[rank] = torch.arange(n, dtype=torch.int64, device=dev)
+        if not torch.equal(torch.sort(rank).values,
+                           torch.arange(n, dtype=torch.int64, device=dev)):
+            raise AssertionError(
+                f"phase F: the ranks of {c} are no permutation")
+        key = order_key64(w)[by_rank]
+        tie = key[1:] == key[:-1]
+        if bool((key[1:] < key[:-1]).any()) or \
+                bool((tie & (by_rank[1:] < by_rank[:-1])).any()):
+            raise AssertionError(f"phase F: the ranks of {c} are not the "
+                                 f"stable order")
+        ranks.append(rank)
+    # The scale and interleave on a seeded sample, against numpy.
+    sample = np.sort(np.random.default_rng(41).choice(
+        n, n // ZORDER_SAMPLE, replace=False))
+    idx = torch.from_numpy(sample).to(dev)
+    scaled = [np.clip(r[idx].cpu().numpy().astype(np.float32) * rank_scale(n),
+                      0, 65535).astype(np.uint32) for r in ranks]
+    hi, lo = interleave16_np(scaled)
+    got = zorder_order_words(up)[idx].cpu().numpy()
+    if not (np.array_equal(got[:, 0], hi) and np.array_equal(got[:, 1], lo)):
+        raise AssertionError("phase F: the card's codes differ from numpy's "
+                             "scale and interleave of its ranks")
+    del up, ranks, idx
+    codes, order, card_ms, card_copies_ms = card_codes(dev, words, 1)
+    del words
+    layout = zorder_layout(codes, order, columns["l_extendedprice"], max_rows)
+    rec["files"] = check_zorder_files(f"F {SF10_Z_INDEX}", hs, SF10_Z_INDEX,
+                                      codes, layout, order, columns)
+    rec["check_s"] = time.perf_counter() - t0
+    rec.update(rows=n, codes_card_ms=card_ms,
+               codes_card_with_copies_ms=card_copies_ms,
+               sample_rows=len(sample))
+    del codes, order
+    want = {c: columns[c] for c in columns}
+    lo_p, hi_p = ZORDER_RANGE
+    mask = (want["l_extendedprice"] >= lo_p) & (want["l_extendedprice"] < hi_p)
+    session = hs.session
+    session.enable_hyperspace()
+    ds = (session.read.parquet(src)
+          .filter((col("l_extendedprice") >= lo_p)
+                  & (col("l_extendedprice") < hi_p))
+          .select("l_shipdate", "l_extendedprice"))
+    kept = kept_of(ds, SF10_Z_INDEX)
+    if kept != (layout["kept"], layout["files"]):
+        raise AssertionError(f"phase F {SF10_Z_INDEX}: kept {kept}, the "
+                             f"layout keeps {layout['kept']} of "
+                             f"{layout['files']}")
+    device_cache().clear()
+    t0 = time.perf_counter()
+    got = ds.collect()
+    rec["query_cold_ms"] = (time.perf_counter() - t0) * 1e3
+    require_rows(f"phase F {SF10_Z_INDEX} query", got,
+                 {c: v[mask] for c, v in want.items()}, ["l_shipdate"])
+    session.disable_hyperspace()
+    device_cache().clear()
+    t0 = time.perf_counter()
+    ds.collect()
+    rec["scan_cold_ms"] = (time.perf_counter() - t0) * 1e3
+    rec.update(kept=kept[0], query_rows=int(mask.sum()))
+    shutil.rmtree(path, ignore_errors=True)
+    device_cache().clear()
+    return rec
+
+
 def route_of(stats: dict) -> str:
     """The route a collect took over its filters, join kernels, fused
     joins and device aggregates: "device", "host", "mixed", or "none"
@@ -2656,10 +3234,36 @@ def main() -> int:
               f"a truncated file found at execution, a device fault "
               f"propagated, repair checked ({time.perf_counter() - t0:.3f} s)",
               flush=True)
+        t0 = time.perf_counter()
+        zorder = phase_j(li, root, dev)
+        builds.extend(zorder["builds"])
+        codes = zorder["codes"]
+        print(f"phase J codes: {codes['rows']} rows, numpy mirror "
+              f"{codes['mirror_s']:.3f} s on the host (order words "
+              f"{codes['words_s']:.3f} s), the card {codes['card_ms']:.3f} ms "
+              f"({codes['card_with_copies_ms']:.1f} ms with the copies), bit "
+              f"for bit; {codes['files']} files, {codes['kept']} kept by the "
+              f"second-dimension range", flush=True)
+        for b in zorder["builds"]:
+            print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
+                  f"{json.dumps(b['launches'])}, phases "
+                  f"{json.dumps(b['phases'])}", flush=True)
+        q = zorder["query"]
+        print(f"phase J q_zorder_second_dim: kept {q['kept']}/{q['files']} "
+              f"files, {q['rows']} rows equal to numpy, cold "
+              f"{q['cold_ms']:.1f} warm {q['warm_ms']:.1f} ms ({q['route']}), "
+              f"scan {q['scan_ms']:.1f} ms, plan {q['plan_ms']:.1f} ms, "
+              f"calibrated cold {q['calibrated_cold_ms']:.1f} ms "
+              f"({q['calibrated_route']})", flush=True)
+        print(f"phase J: two builds equal to the mirror's layout file for "
+              f"file, refresh, optimize, repair checked "
+              f"({time.perf_counter() - t0:.3f} s)", flush=True)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
+        sf10_z = f.pop("zorder")
         builds.append(f)
+        builds.append(sf10_z)
         print(f"phase F: {SF10_INDEX} over {f['rows']} rows in {f['chunks']} "
               f"chunks, wall {f['wall_s']:.3f} s, phases "
               f"{json.dumps(f['phases'])}, peak RSS {f['peak_rss_mb']:.0f} MB, "
@@ -2667,6 +3271,15 @@ def main() -> int:
               f"{resident_mib():.1f} MiB resident at the end "
               f"({time.perf_counter() - t0:.3f} s, datagen "
               f"{f['datagen_s']:.3f} s)", flush=True)
+        print(f"phase J {SF10_Z_INDEX}: {sf10_z['files']} files, wall "
+              f"{sf10_z['wall_s']:.3f} s, phases "
+              f"{json.dumps(sf10_z['phases'])}, peak RSS "
+              f"{sf10_z['peak_rss_mb']:.0f} MB, card peak "
+              f"{sf10_z['max_memory_allocated'] / 2**20:.0f} MiB; codes "
+              f"{sf10_z['codes_card_ms']:.3f} ms on the card; kept "
+              f"{sf10_z['kept']}/{sf10_z['files']}, query cold "
+              f"{sf10_z['query_cold_ms']:.1f} ms, scan "
+              f"{sf10_z['scan_cold_ms']:.1f} ms", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2694,6 +3307,12 @@ def main() -> int:
                       "join_splits": g["join_splits"], "calibration": h}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"integrity": integ}))
+    print(json.dumps({"zorder": {
+        "codes": zorder["codes"], "query": zorder["query"],
+        "union": zorder["union"],
+        "launches_by_path": zorder["launches_by_path"],
+        "walls_s": {b["build"]: b["wall_s"] for b in zorder["builds"]},
+        "sf10": {k: v for k, v in sf10_z.items() if k != "report"}}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

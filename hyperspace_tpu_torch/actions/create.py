@@ -29,6 +29,24 @@ With ``conf.lineage_enabled`` each row carries its source file's
 tracker id in ``DATA_FILE_ID_COLUMN`` (stamped per file as it is read),
 an int64 column of the index like any other, through both builds.
 
+A Z-order index (``IndexConfig(..., layout="zorder")``) has one bucket
+and its rows in Morton order (``ops/zorder.py``), with its files cut at
+cell boundaries (``io.parquet.zorder_split_chunks``), and hashes
+nothing:
+
+  - Everything fits in one batch: ``_write_table_bucketed`` computes the
+    codes and the stable permutation on the device
+    (``ops.zorder.zorder_sort``; below the build threshold the numpy
+    mirror) and ``write_bucketed`` writes the one bucket, its run offsets
+    from the histogram kernel.
+  - More rows: the two-pass ``_zorder_streaming_build``.  Pass A reads
+    the indexed columns alone and computes the global codes, their order
+    and each row's output file on the device; pass B reads the rows
+    again and routes them to one Arrow IPC run per (output file, source
+    file) in an ``hs_zbuild_`` temporary directory; each output file's
+    runs are then merged, sorted by code and written.  The files are the
+    monolithic build's, row for row.
+
 Every version directory a build writes gets ``_sketch.parquet``, the
 min/max of the indexed columns per index file
 (``actions/data_skipping.write_index_file_sketch``; the ``sketch_s``
@@ -39,9 +57,9 @@ read, written and spilled, to the action's build report.
 
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
-``_write_table_bucketed``.  Not ported: the mesh and multi-host builds,
-the Z-order layouts and the telemetry beyond the build report.  pyarrow
-is imported when a function runs.
+``_write_table_bucketed``.  Not ported: the mesh and multi-host builds
+and the telemetry beyond the build report.  pyarrow is imported when a
+function runs.
 """
 
 from __future__ import annotations
@@ -82,12 +100,15 @@ from hyperspace_tpu_torch.io.parquet import (
     sort_permutation_host,
     write_bucket_run,
     write_bucketed,
+    zorder_codes_from_order_words,
+    zorder_split_chunks,
 )
 from hyperspace_tpu_torch.ops.hash import route_partition, route_partition_np
 from hyperspace_tpu_torch.ops.sort import (
     bucket_sort_permutation,
     bucket_sort_permutation_np,
 )
+from hyperspace_tpu_torch.ops.zorder import key64_to_codes, zorder_sort
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
 
 DATA_FILE_ID_COLUMN = "_data_file_id"  # the lineage column
@@ -95,8 +116,11 @@ DATA_FILE_ID_COLUMN = "_data_file_id"  # the lineage column
 # Spill directories are stamped with the building process's pid, so a
 # later build can prove an orphan's owner dead before it removes the
 # directory: a killed build runs no cleanup, and the directory holds a
-# routed copy of the source.
+# routed copy of the source.  One kind per build: the bucket spill and
+# the Z-order two-pass build's runs.
 _SPILL_DIR_KIND = "hs_build_spill_"
+_ZBUILD_DIR_KIND = "hs_zbuild_"
+_SPILL_DIR_KINDS = (_SPILL_DIR_KIND, _ZBUILD_DIR_KIND)
 
 
 def _spill_dir_prefix(kind: str) -> str:
@@ -125,9 +149,10 @@ def reap_orphan_spill_dirs(tmp_root: Optional[str] = None) -> int:
         return 0
     reaped = 0
     for name in names:
-        if not name.startswith(_SPILL_DIR_KIND):
+        kind = next((k for k in _SPILL_DIR_KINDS if name.startswith(k)), None)
+        if kind is None:
             continue
-        pid_part = name[len(_SPILL_DIR_KIND):].split("_", 1)[0]
+        pid_part = name[len(kind):].split("_", 1)[0]
         if not pid_part.isdigit():
             continue  # not pid-stamped: its owner cannot be proven dead
         pid = int(pid_part)
@@ -295,6 +320,11 @@ class CreateActionBase(Action):
 
     @property
     def num_buckets(self) -> int:
+        # A Z-order index is ONE Morton-ordered run: hash buckets would
+        # scatter the clustering, each bucket's files spanning every
+        # dimension.  Its file granularity is index_max_rows_per_file.
+        if getattr(self.config, "layout", None) == "zorder":
+            return 1
         return self.conf.num_buckets
 
     @property
@@ -319,7 +349,8 @@ class CreateActionBase(Action):
         return IndexConfig(
             self.config.index_name,
             _resolve_or_raise(self.config.indexed_columns, schema, "indexed column"),
-            _resolve_or_raise(self.config.included_columns, schema, "included column"))
+            _resolve_or_raise(self.config.included_columns, schema, "included column"),
+            layout=self.config.layout)
 
     def _signature(self) -> Signature:
         provider_name = self.conf.signature_provider
@@ -345,7 +376,7 @@ class CreateActionBase(Action):
                 included_columns=resolved.included_columns,
                 num_buckets=self.num_buckets,
                 schema=self._index_schema,
-                properties={"layout": "lexicographic"},
+                properties={"layout": resolved.layout},
             ),
             content=Content.from_directory(
                 self.data_manager.version_path(self._written_version),
@@ -373,18 +404,27 @@ class CreateActionBase(Action):
             raise HyperspaceError("No source data files to index")
         batch_rows = max(1, int(self.conf.device_batch_rows))
         self._phase("plan_s", time.perf_counter() - t0)
+        if resolved.layout == "zorder":
+            self._zorder_streaming_build(files, resolved.all_columns, relation,
+                                         self.lineage_enabled, resolved,
+                                         batch_rows)
+            self._publish_build_stats()
+            return
         spill = _BucketSpill(self, resolved)
         try:
             self._stream_build(files, resolved.all_columns, relation,
                                self.lineage_enabled, resolved, batch_rows,
                                spill)
-            log = getattr(self.session, "build_stats_log", None)
-            if log is not None:
-                log.append({"index": self.index_name, **self.build_phases})
+            self._publish_build_stats()
         finally:
             # Joins the route and finalize pools and removes the spill
             # directory on every exit; a no-op after a clean finish().
             spill.cleanup()
+
+    def _publish_build_stats(self) -> None:
+        log = getattr(self.session, "build_stats_log", None)
+        if log is not None:
+            log.append({"index": self.index_name, **self.build_phases})
 
     def _read_chunk(self, f, columns, relation, lineage: bool):
         """One source file's rows.  A file written before a column was
@@ -451,24 +491,228 @@ class CreateActionBase(Action):
             spill.add_chunk(remainder)
         spill.finish()
 
+    def _zorder_streaming_build(self, files, columns, relation, lineage: bool,
+                                resolved: IndexConfig, batch_rows: int) -> None:
+        """The Z-order build of a source beyond one batch, two passes whose
+        files equal the monolithic build's row for row:
+
+          A. read the INDEXED columns alone.  Value-mapped types (numeric,
+             temporal, bool) become order words at once, 8 bytes per row
+             and column; rank-mapped ones (strings, binary, decimals) keep
+             their raw chunks for ONE global rank pass, since chunk-local
+             ranks do not compare across chunks.  Then the global codes,
+             their order and each row's output file
+             (``zorder_split_chunks`` of the codes in order), on the
+             device (``_zorder_pass_a``);
+          B. read the rows again and route each source file's rows to one
+             Arrow IPC run per output file, the code riding along in a
+             temporary column; then per output file, concatenate its runs
+             in source order, sort stably by code (ties in row order, as
+             the monolithic argsort) and write it.
+
+        A source whose Parquet footers count at most ``batch_rows`` rows
+        takes the monolithic build directly."""
+        import pyarrow as pa
+
+        key_cols = list(resolved.indexed_columns)
+        depth = max(1, int(self.conf.build_prefetch_depth)) \
+            if self.conf.build_pipeline_enabled else 0
+
+        def build_monolithic() -> None:
+            reader = _PrefetchReader(self, files, columns, relation, lineage,
+                                     depth)
+            try:
+                table = pa.concat_tables(list(reader),
+                                         promote_options="default")
+            finally:
+                reader.close()
+            self._write_table_bucketed(table, resolved)
+
+        footer_n = _footer_row_count(files)
+        if footer_n is not None and footer_n <= batch_rows:
+            build_monolithic()
+            return
+        # -- pass A: the global codes from the indexed columns ------------
+        word_parts: List[List] = [[] for _ in key_cols]
+        value_mapped: List[Optional[bool]] = [None] * len(key_cols)
+        n = 0
+        reader = _PrefetchReader(self, files, key_cols, relation, False, depth)
+        try:
+            for kt in reader:
+                n += kt.num_rows
+                for i, c in enumerate(key_cols):
+                    arr = kt.column(c)
+                    if value_mapped[i] is None:
+                        value_mapped[i] = columnar.is_numeric_type(
+                            kt.schema.field(c).type)
+                    if value_mapped[i]:
+                        word_parts[i].append(columnar.to_order_words(arr))
+                    else:
+                        word_parts[i].extend(arr.chunks)
+        finally:
+            reader.close()
+        if n <= batch_rows:
+            build_monolithic()
+            return
+        t0 = time.perf_counter()
+        per_col_words = [
+            np.concatenate(word_parts[i], axis=0) if value_mapped[i]
+            else columnar.to_order_words(pa.chunked_array(word_parts[i]))
+            for i in range(len(key_cols))]
+        del word_parts
+        codes, file_of_row = self._zorder_pass_a(per_col_words, n)
+        del per_col_words
+        self._phase("kernel_s", time.perf_counter() - t0)
+
+        # -- pass B: route the rows to per-output-file runs ---------------
+        # The code's temporary column must not collide with an indexed,
+        # included or lineage column.
+        z_col = "__z"
+        taken = set(columns) | {DATA_FILE_ID_COLUMN}
+        while z_col in taken:
+            z_col += "_"
+        run_dir = tempfile.mkdtemp(prefix=_spill_dir_prefix(_ZBUILD_DIR_KIND))
+        schema = None
+        try:
+            offset = 0
+            reader = _PrefetchReader(self, files, columns, relation, lineage,
+                                     depth)
+            try:
+                for chunk_no, t in enumerate(reader):
+                    if schema is None:
+                        schema = t.schema
+                    t0 = time.perf_counter()
+                    rows = t.num_rows
+                    if offset + rows > n:
+                        raise HyperspaceError(
+                            "Source grew between Z-order build passes; retry")
+                    self._route_zorder_chunk(
+                        t.append_column(z_col, pa.array(
+                            codes[offset:offset + rows])),
+                        file_of_row[offset:offset + rows], run_dir, chunk_no)
+                    offset += rows
+                    self._phase("spill_route_s", time.perf_counter() - t0)
+            finally:
+                reader.close()
+            if offset != n:
+                raise HyperspaceError(
+                    "Source shrank between Z-order build passes; retry")
+            del codes, file_of_row
+            t0 = time.perf_counter()
+            version = self.data_manager.get_next_version()
+            out_dir = self.data_manager.version_path(version)
+            os.makedirs(out_dir, exist_ok=True)
+            names = sorted(os.listdir(run_dir))
+            with ThreadPoolExecutor(max(1, min(4, len(names)))) as pool:
+                list(pool.map(lambda d: self._finish_zorder_file(
+                    os.path.join(run_dir, d), z_col, out_dir), names))
+            self._phase("spill_finish_s", time.perf_counter() - t0)
+        finally:
+            remove_tree(run_dir, ignore_errors=True)
+        self._write_index_file_sketch(out_dir, resolved)
+        self._written_version = version
+        self._index_schema = {name: str(t) for name, t in
+                              zip(schema.names, schema.types)}
+
+    def _zorder_pass_a(self, per_col_words, n: int) -> tuple:
+        """``(codes, file_of_row)``: the rows' (n,) uint64 Morton codes and
+        the (n,) int32 index of the output file each row goes to, files
+        numbered along the curve and cut by ``zorder_split_chunks``.  The
+        codes and their order come from ``_zorder_codes`` (the device at
+        or above the build threshold); the cuts are found on the host."""
+        codes, perm = self._zorder_codes(per_col_words)
+        sorted_codes = codes[perm.cpu().numpy()]
+        chunks = zorder_split_chunks(sorted_codes, 16 * len(per_col_words),
+                                     self.conf.index_max_rows_per_file)
+        del sorted_codes
+        counts = torch.tensor([rows for _, rows in chunks], dtype=torch.int64,
+                              device=perm.device)
+        file_of_sorted = torch.repeat_interleave(
+            torch.arange(len(chunks), dtype=torch.int32, device=perm.device),
+            counts, output_size=n)
+        file_of_row = torch.empty(n, dtype=torch.int32, device=perm.device)
+        file_of_row[perm] = file_of_sorted
+        return codes, file_of_row.cpu().numpy()
+
+    def _route_zorder_chunk(self, t, fids: np.ndarray, run_dir: str,
+                            chunk_no: int) -> None:
+        """One source file's rows (with their code column), grouped by
+        output file stably, as one Arrow IPC run per output file."""
+        import pyarrow as pa
+
+        o = np.argsort(fids, kind="stable")
+        sf = fids[o]
+        routed = t.take(pa.array(o))
+        uniq = np.unique(sf)
+        starts = np.searchsorted(sf, uniq, "left")
+        ends = np.searchsorted(sf, uniq, "right")
+        for fid, st, en in zip(uniq, starts, ends):
+            d = os.path.join(run_dir, f"file={int(fid):06d}")
+            os.makedirs(d, exist_ok=True)
+            self.build_report.add_bytes(spill=_write_chunk_file(
+                routed, os.path.join(d, f"run-{chunk_no:05d}.arrow"),
+                [(int(st), int(en - st))]), spill_runs=1)
+
+    def _finish_zorder_file(self, d: str, z_col: str, out_dir: str) -> None:
+        """One output file from its runs: concatenated in source order,
+        sorted stably by code, written as bucket 0 without a further cut
+        (pass A's cuts already are cell-aligned and capped)."""
+        import pyarrow as pa
+
+        bt = pa.concat_tables(
+            [_read_run(os.path.join(d, r)) for r in sorted(os.listdir(d))],
+            promote_options="default")
+        z = bt.column(z_col).to_numpy()
+        bt = bt.take(pa.array(np.argsort(z, kind="stable"))).drop_columns(
+            [z_col])
+        written = write_bucket_run(
+            bt, 0, out_dir, 0, compression=self.conf.index_file_compression)
+        self.build_report.add_bytes(
+            written=sum(os.path.getsize(p) for p in written),
+            files=len(written))
+        remove_tree(d, ignore_errors=True)  # its runs are consumed
+
+    def _zorder_codes(self, order_words) -> tuple:
+        """The Z-order pass over per-column (n, 2) uint32 order words:
+        ``(codes, perm)``, the (n,) uint64 Morton codes on the host and the
+        stable permutation into Morton order, a tensor on the session's
+        device at or above the build threshold (``ops.zorder.zorder_sort``)
+        and the numpy mirror's, on the CPU, below it."""
+        n = order_words[0].shape[0]
+        if self._host_route(n):
+            codes, _ = zorder_codes_from_order_words(order_words)
+            return codes, torch.from_numpy(np.argsort(codes, kind="stable"))
+        device = self.session.device
+        key, perm = zorder_sort([torch.from_numpy(w).to(device)
+                                 for w in order_words])
+        return key64_to_codes(key), perm
+
     def _write_table_bucketed(self, table, resolved: IndexConfig) -> None:
         device = self.session.device
         t0 = time.perf_counter()
         keys = resolved.indexed_columns
-        word_cols = [columnar.to_hash_words(table.column(c)) for c in keys]
         order_words = [columnar.to_order_words(table.column(c)) for c in keys]
-        if self._host_route(table.num_rows):
-            # The host mirror: the same bytes, no transfer and no launch.
-            buckets, perm = (torch.from_numpy(a) for a in
-                             bucket_sort_permutation_np(
-                                 word_cols, order_words, self.num_buckets))
+        split_keys = None
+        if resolved.layout == "zorder":
+            # No hash: the one bucket's ids are zeros where the permutation
+            # lives, so write_bucketed counts them there.
+            split_keys, perm = self._zorder_codes(order_words)
+            buckets = torch.zeros(table.num_rows, dtype=torch.int32,
+                                  device=perm.device)
         else:
-            buckets, perm = bucket_sort_permutation(
-                [torch.from_numpy(w).to(device) for w in word_cols],
-                [torch.from_numpy(w).to(device) for w in order_words],
-                self.num_buckets)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)  # the device time lands here
+            word_cols = [columnar.to_hash_words(table.column(c)) for c in keys]
+            if self._host_route(table.num_rows):
+                # The host mirror: the same bytes, no transfer, no launch.
+                buckets, perm = (torch.from_numpy(a) for a in
+                                 bucket_sort_permutation_np(
+                                     word_cols, order_words, self.num_buckets))
+            else:
+                buckets, perm = bucket_sort_permutation(
+                    [torch.from_numpy(w).to(device) for w in word_cols],
+                    [torch.from_numpy(w).to(device) for w in order_words],
+                    self.num_buckets)
+        if perm.device.type == "cuda":
+            torch.cuda.synchronize(perm.device)  # the device time lands here
         self._phase("kernel_s", time.perf_counter() - t0)
         version = self.data_manager.get_next_version()
         out_dir = self.data_manager.version_path(version)
@@ -476,6 +720,7 @@ class CreateActionBase(Action):
         written = write_bucketed(
             table, buckets, perm, self.num_buckets, out_dir,
             max_rows_per_file=self.conf.index_max_rows_per_file,
+            split_keys=split_keys, split_key_bits=16 * len(keys),
             compression=self.conf.index_file_compression)
         self._phase("write_s", time.perf_counter() - t0)
         self.build_report.add_bytes(
@@ -488,11 +733,12 @@ class CreateActionBase(Action):
 
 
 def _write_chunk_file(routed, path: str, slices) -> int:
-    """One (chunk, bucket group) spill file as raw Arrow IPC, one record
-    batch per ``(offset, rows)`` slice, so the finalize reads any
-    bucket's run by batch index from a memory map.  ``combine_chunks``
-    keeps each slice ONE batch, so batch index == slice position.
-    Returns the bytes written (the report's ``spill_bytes``)."""
+    """One spill file as raw Arrow IPC, one record batch per ``(offset,
+    rows)`` slice: a (chunk, bucket group) file, whose finalize reads any
+    bucket's run by batch index from a memory map, or one Z-order run (a
+    single slice).  ``combine_chunks`` keeps each slice ONE batch, so
+    batch index == slice position.  Returns the bytes written (the
+    report's ``spill_bytes``)."""
     import pyarrow as pa
 
     with pa.OSFile(path, "wb") as sink:
@@ -500,6 +746,29 @@ def _write_chunk_file(routed, path: str, slices) -> int:
             for off, rows in slices:
                 writer.write_table(routed.slice(off, rows).combine_chunks())
     return os.path.getsize(path)
+
+
+def _read_run(path: str):
+    """A whole spill file, from a memory map."""
+    import pyarrow as pa
+
+    with pa.memory_map(path, "rb") as source:
+        return pa.ipc.open_file(source).read_all()
+
+
+def _footer_row_count(files) -> Optional[int]:
+    """The source's rows from its Parquet footers, without a decode, or
+    None when a footer cannot be read."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    total = 0
+    for f in files:
+        try:
+            total += pq.read_metadata(f.name).num_rows
+        except (OSError, pa.ArrowException):
+            return None
+    return total
 
 
 class _BucketSpill:

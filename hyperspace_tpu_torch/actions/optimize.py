@@ -8,7 +8,10 @@
     cap; the bucket id comes from the file name;
   - ``op()`` reads each merged bucket's candidate files, sorts them
     stably by the indexed columns and writes them into a new version
-    directory, with its ``_sketch.parquet``; the committed entry keeps
+    directory, with its ``_sketch.parquet``; a Z-order index's merged
+    files are sorted into Morton order by their own ranks and cut at
+    cell boundaries (``io.parquet.write_zorder_run``), on the host as in
+    the JAX package; the committed entry keeps
     the other files and swaps the merged ones.  The source and its
     fingerprint are untouched.  The build report gets the ``read``,
     ``sort``, ``write`` and ``sketch`` phases and the bytes read and
@@ -17,8 +20,7 @@
 A data-skipping index is refused: it has nothing to compact.
 
 Each new file carries the content digest its writer recorded
-(``io/integrity.py``).  Not ported: the Z-order layout's compaction.
-pyarrow is imported when a function runs.
+(``io/integrity.py``).  pyarrow is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from hyperspace_tpu_torch.io.parquet import (
     read_table,
     sort_permutation_host,
     write_bucket_run,
+    write_zorder_run,
 )
 
 
@@ -127,12 +130,6 @@ class OptimizeAction(Action):
                 f"Optimize is only supported in {States.ACTIVE} state")
         if not self.previous_log_entry.is_covering:
             raise HyperspaceError("Optimize applies to covering indexes only")
-        layout = self.previous_log_entry.derived_dataset.properties.get(
-            "layout", "lexicographic")
-        if layout != "lexicographic":
-            raise HyperspaceError(
-                f"Optimize of an index with layout {layout!r} is not ported "
-                f"to hyperspace_tpu_torch")
         if not self._candidates():
             raise NoChangesError(
                 "No index files eligible for optimization (every bucket has "
@@ -152,12 +149,26 @@ class OptimizeAction(Action):
         version = self.data_manager.get_next_version()
         out_dir = self.data_manager.version_path(version)
         os.makedirs(out_dir, exist_ok=True)
+        layout = entry.derived_dataset.properties.get("layout",
+                                                      "lexicographic")
         for bucket, files in sorted(self._candidates().items()):
             t0 = time.perf_counter()
             merged = read_table([f.name for f in files])
             report.add_phase("read", time.perf_counter() - t0)
             report.add_bytes(read=merged.nbytes)
             t0 = time.perf_counter()
+            if layout == "zorder":
+                # Morton order AND cell-aligned cuts, or the files' min/max
+                # widen on every dimension but the first.
+                new = write_zorder_run(merged, bucket, out_dir,
+                                       conf.index_max_rows_per_file,
+                                       entry.indexed_columns,
+                                       compression=conf.index_file_compression)
+                self._new_files.extend(new)
+                report.add_phase("write", time.perf_counter() - t0)
+                report.add_bytes(written=sum(os.stat(p).st_size for p in new),
+                                 files=len(new))
+                continue
             perm = sort_permutation_host(merged, entry.indexed_columns)
             merged = merged.take(pa.array(perm))
             report.add_phase("sort", time.perf_counter() - t0)

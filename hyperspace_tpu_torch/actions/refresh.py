@@ -3,8 +3,9 @@
 
 ``RefreshActionBase`` rebuilds the source plan from the relation the
 previous entry recorded, diffs the source files against the recorded
-ones into appended and deleted sets, and pins the bucket count and the
-lineage column to the previous entry's.  An unchanged source is a benign
+ones into appended and deleted sets, and pins the bucket count, the
+lineage column and the layout to the previous entry's (a Z-order index
+is never rebuilt lexicographic).  An unchanged source is a benign
 no-op (``NoChangesError``, outcome "noop").
 
   - ``RefreshAction`` (full): rebuilds through the create build
@@ -21,8 +22,7 @@ no-op (``NoChangesError``, outcome "noop").
     deleted files and the new fingerprint, and hybrid scan handles them
     at query time.
 
-A Z-order index is refused: that layout is not ported.  The diff's mode
-and counts go into the build report's ``properties``.
+The diff's mode and counts go into the build report's ``properties``.
 """
 
 from __future__ import annotations
@@ -83,19 +83,16 @@ class RefreshActionBase(CreateActionBase):
             raise HyperspaceError("Refresh: index does not exist")
         if len(prev.relations) != 1:
             raise HyperspaceError("Refresh supports single-relation indexes")
-        layout = prev.derived_dataset.properties.get("layout", "lexicographic")
-        if layout != "lexicographic":
-            raise HyperspaceError(
-                f"Refresh of an index with layout {layout!r} is not ported "
-                f"to hyperspace_tpu_torch")
         # The port's one source provider pins no snapshot: the recorded
         # relation is the source to list again.
         rel = prev.relations[0]
         plan = Scan(ScanRelation(root_paths=tuple(rel.root_paths),
                                  file_format=rel.file_format,
                                  options=tuple(sorted(rel.options.items()))))
-        config = IndexConfig(prev.name, prev.indexed_columns,
-                             prev.included_columns)
+        config = IndexConfig(
+            prev.name, prev.indexed_columns, prev.included_columns,
+            layout=prev.derived_dataset.properties.get("layout",
+                                                       "lexicographic"))
         super().__init__(log_manager, data_manager, session, plan, config)
         self._previous_entry = prev
         # Unchanged files keep their ids.
@@ -198,9 +195,7 @@ class RefreshIncrementalAction(RefreshActionBase):
         combined = pa.concat_tables(parts, promote_options="default")
         self._write_table_bucketed(combined, resolved)
         self._had_deletes = bool(deleted)
-        log = getattr(self.session, "build_stats_log", None)
-        if log is not None:
-            log.append({"index": self.index_name, **self.build_phases})
+        self._publish_build_stats()
 
     def log_entry(self) -> IndexLogEntry:
         entry = self._build_log_entry()

@@ -27,12 +27,13 @@ on the session's device, from ``conf.device_min_rows("build")`` rows:
 
 and per bucket the build's within-bucket sort (``sort_permutation_host``)
 and writer (``write_bucket_run``, which records each file's digest),
-then the version's ``_sketch.parquet``.  The phases (``read_s``,
+then the version's ``_sketch.parquet``.  A Z-order index has one bucket,
+so its repair rebuilds every file: the whole snapshot's rows go through
+``write_zorder_run`` (Morton order by the snapshot's ranks, which are
+the build's, and cell-aligned cuts, on the host as in the JAX package),
+so the repaired files equal the build's.  The phases (``read_s``,
 ``kernel_s``, ``write_s``, ``sketch_s``) go to the build report and
 ``session.build_stats_log``.
-
-A Z-order index is refused by ``RefreshActionBase`` with the refresh's
-own error: that layout is not ported (ROADMAP Queue A 6).
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from hyperspace_tpu_torch.io.parquet import (
     bucket_offsets,
     sort_permutation_host,
     write_bucket_run,
+    write_zorder_run,
 )
 from hyperspace_tpu_torch.ops.hash import bucket_ids, bucket_ids_np
 
@@ -173,6 +175,12 @@ class RepairAction(RefreshActionBase):
             if hi == lo:
                 continue
             bt = routed.slice(lo, hi - lo)
+            if resolved.layout == "zorder":
+                new_files.extend(write_zorder_run(
+                    bt, b, out_dir, self.conf.index_max_rows_per_file,
+                    resolved.indexed_columns,
+                    compression=self.conf.index_file_compression))
+                continue
             bt = bt.take(pa.array(sort_permutation_host(
                 bt, resolved.indexed_columns)))
             new_files.extend(write_bucket_run(
@@ -186,9 +194,7 @@ class RepairAction(RefreshActionBase):
         self._write_index_file_sketch(out_dir, resolved)
         self._written_version = version
         self._new_files = new_files
-        log = getattr(self.session, "build_stats_log", None)
-        if log is not None:
-            log.append({"index": self.index_name, **self.build_phases})
+        self._publish_build_stats()
 
     def log_entry(self) -> IndexLogEntry:
         entry = copy.deepcopy(self._previous_entry)

@@ -1,8 +1,9 @@
 """User-facing index specifications (counterpart of
 hyperspace_tpu/index/index_config.py): a covering index's name, indexed
-and included columns, validated (non-empty name and indexed columns, no
-duplicate columns across the two lists, case-insensitive), and a
-data-skipping index's name, sketched columns and sketch types."""
+and included columns and row layout, validated (non-empty name and
+indexed columns, a known layout, at most 4 Z-order columns, no duplicate
+columns across the two lists, case-insensitive), and a data-skipping
+index's name, sketched columns and sketch types."""
 
 from __future__ import annotations
 
@@ -11,18 +12,27 @@ from typing import List, Optional, Sequence
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 
+LAYOUTS = ("lexicographic", "zorder")
+
 
 @dataclasses.dataclass(frozen=True)
 class IndexConfig:
     index_name: str
     indexed_columns: List[str]
     included_columns: List[str] = dataclasses.field(default_factory=list)
+    # Row order of the index: "lexicographic" by the indexed columns, or
+    # "zorder": one bucket in Morton order of the indexed columns' ranks,
+    # so per-file min/max prunes ranges on every indexed column
+    # (ops/zorder.py).
+    layout: str = "lexicographic"
 
     def __init__(self, index_name: str, indexed_columns: Sequence[str],
-                 included_columns: Sequence[str] = ()) -> None:
+                 included_columns: Sequence[str] = (),
+                 layout: str = "lexicographic") -> None:
         object.__setattr__(self, "index_name", index_name)
         object.__setattr__(self, "indexed_columns", list(indexed_columns))
         object.__setattr__(self, "included_columns", list(included_columns))
+        object.__setattr__(self, "layout", layout)
         self._validate()
 
     def _validate(self) -> None:
@@ -30,6 +40,11 @@ class IndexConfig:
             raise HyperspaceError("Index name cannot be empty")
         if not self.indexed_columns:
             raise HyperspaceError("Indexed columns cannot be empty")
+        if self.layout not in LAYOUTS:
+            raise HyperspaceError(
+                f"Unknown layout {self.layout!r}; expected one of {LAYOUTS}")
+        if self.layout == "zorder" and len(self.indexed_columns) > 4:
+            raise HyperspaceError("Z-order supports at most 4 indexed columns")
         lowered_indexed = [c.lower() for c in self.indexed_columns]
         lowered_included = [c.lower() for c in self.included_columns]
         if len(set(lowered_indexed)) != len(lowered_indexed):

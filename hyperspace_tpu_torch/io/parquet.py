@@ -7,7 +7,10 @@ bucketed writer writes one sorted Parquet file per non-empty bucket (more
 when ``max_rows_per_file`` splits a bucket), named ``part-bNNNNN-*`` so a
 file maps to its bucket without reading footers.  The layout and the
 bytes per bucket are the JAX package's, so either package reads the
-other's index files.  Each file is hashed as it lands
+other's index files.  A Z-order index (one bucket) cuts its files where
+the top bits of the rows' Morton codes change (``zorder_split_chunks``),
+so each file stays inside one cell of the curve.  Each file is hashed as
+it lands
 (``io/integrity.record_file``, in the writer threads), so the committed
 entry carries its content digest.
 
@@ -21,7 +24,7 @@ import os
 import re
 import uuid
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,6 +128,55 @@ def bucket_chunks(n_rows: int, max_rows_per_file: int) -> List:
             for off in range(0, n_rows, chunk)]
 
 
+def zorder_codes_from_order_words(word_cols: Sequence[np.ndarray]
+                                  ) -> Tuple[np.ndarray, int]:
+    """(uint64 Morton code per row, total code bits) from per-column
+    (n, 2) uint32 monotone order words, on the host
+    (``ops.zorder.zorder_order_words_np``)."""
+    from hyperspace_tpu_torch.ops.zorder import (
+        words_to_codes64,
+        zorder_order_words_np,
+    )
+
+    z = zorder_order_words_np([np.asarray(w) for w in word_cols])
+    return words_to_codes64(z), 16 * len(word_cols)
+
+
+def zorder_codes_host(table, indexed_columns) -> Tuple[np.ndarray, int]:
+    """(uint64 Morton code per row, total code bits) of ``table``'s rows
+    by the ``indexed_columns``: the writer's file-split key, computed on
+    the host."""
+    from hyperspace_tpu_torch.io import columnar
+
+    return zorder_codes_from_order_words([
+        columnar.to_order_words(table.column(c)) for c in indexed_columns])
+
+
+def zorder_split_chunks(z_sorted: np.ndarray, key_bits: int,
+                        max_rows_per_file: int) -> List:
+    """[(offset, rows)] of one bucket run in Morton order, cut at cell
+    boundaries: where the top ``level`` code bits change, ``level`` the
+    fewest bits that give the file count ``max_rows_per_file`` asks for.
+    A file then lies inside one cell, narrow on every indexed column;
+    ``max_rows_per_file`` still caps a skewed cell's files."""
+    n = int(len(z_sorted))
+    if n == 0:
+        return []
+    if max_rows_per_file <= 0 or n <= max_rows_per_file:
+        return [(0, n)]
+    target_files = -(-n // max_rows_per_file)
+    level = max(1, min(key_bits, int(np.ceil(np.log2(target_files)))))
+    cells = z_sorted >> np.uint64(key_bits - level)
+    cuts = (np.flatnonzero(np.diff(cells)) + 1).tolist()
+    bounds = [0, *cuts, n]
+    out: List = []
+    for i in range(len(bounds) - 1):
+        off = bounds[i]
+        for o, r in bucket_chunks(bounds[i + 1] - off, max_rows_per_file):
+            out.append((off + o, r))
+    return out
+
+
 def _codec(compression: Optional[str]):
     c = (compression or INDEX_COMPRESSION_DEFAULT).lower()
     return None if c == "none" else c
@@ -143,6 +195,8 @@ def bucket_offsets(bucket_ids: torch.Tensor, num_buckets: int) -> np.ndarray:
 def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
                    num_buckets: int, out_dir: str,
                    max_rows_per_file: int = 0,
+                   split_keys: Optional[np.ndarray] = None,
+                   split_key_bits: int = 0,
                    compression: Optional[str] = None) -> List[str]:
     """Write ``table`` as sorted Parquet files, one or more per non-empty
     bucket.
@@ -150,7 +204,11 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
     ``sort_perm`` orders rows by (bucket, sort columns); ``bucket_ids``
     are the per-row bucket assignments in row order.  Each bucket's run
     in the sorted order starts at the exclusive prefix sum of the counts
-    of the buckets before it.  Empty buckets get no file."""
+    of the buckets before it.  Empty buckets get no file.
+    ``split_keys`` (the rows' uint64 Morton codes in row order, a
+    Z-order layout) cuts each run at cell boundaries
+    (``zorder_split_chunks``) instead of every ``max_rows_per_file``
+    rows."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -161,10 +219,16 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
             f"bucket counts sum to {offsets[-1]}, table has {table.num_rows} rows")
     perm = sort_perm.cpu().numpy()
     sorted_table = table.take(pa.array(perm))
+    sorted_keys = None if split_keys is None else split_keys[perm]
     jobs: List = []  # one per file, so skewed builds still write in parallel
     for b in range(num_buckets):
         start, n = int(offsets[b]), int(offsets[b + 1] - offsets[b])
-        for off, rows in (bucket_chunks(n, max_rows_per_file) if n else []):
+        if sorted_keys is not None:
+            chunks = zorder_split_chunks(sorted_keys[start:start + n],
+                                         split_key_bits, max_rows_per_file)
+        else:
+            chunks = bucket_chunks(n, max_rows_per_file) if n else []
+        for off, rows in chunks:
             jobs.append((b, start + off, rows))
 
     def write(job) -> str:
@@ -181,15 +245,25 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
 
 def write_bucket_run(sorted_bucket_table, bucket: int, out_dir: str,
                      max_rows_per_file: int = 0,
+                     split_keys: Optional[np.ndarray] = None,
+                     split_key_bits: int = 0,
                      compression: Optional[str] = None) -> List[str]:
     """Write ONE bucket's already sorted rows, split at
     ``max_rows_per_file``: the spill build's finalize, one bucket at a
-    time (``write_bucketed`` writes a whole sorted table)."""
+    time (``write_bucketed`` writes a whole sorted table), and optimize's
+    and repair's rewrites.  ``split_keys``, the run's Morton codes in its
+    sorted order, cuts at cell boundaries instead
+    (``zorder_split_chunks``)."""
     import pyarrow.parquet as pq
 
+    if split_keys is not None:
+        chunks = zorder_split_chunks(split_keys, split_key_bits,
+                                     max_rows_per_file)
+    else:
+        chunks = bucket_chunks(sorted_bucket_table.num_rows,
+                               max_rows_per_file)
     out: List[str] = []
-    for off, rows in bucket_chunks(sorted_bucket_table.num_rows,
-                                   max_rows_per_file):
+    for off, rows in chunks:
         path = os.path.join(out_dir, bucket_file_name(bucket))
         pq.write_table(sorted_bucket_table.slice(off, rows), path,
                        compression=_codec(compression))
@@ -198,12 +272,19 @@ def write_bucket_run(sorted_bucket_table, bucket: int, out_dir: str,
     return out
 
 
-def sort_permutation_host(table, indexed_columns) -> np.ndarray:
-    """Within-bucket sort permutation of the lexicographic layout: a
-    stable lexsort over one uint64 order code per indexed column (the
-    same total order as the (hi, lo) word pair), first column primary."""
+def sort_permutation_host(table, indexed_columns,
+                          layout: str = "lexicographic") -> np.ndarray:
+    """Within-bucket sort permutation of the index ``layout`` on the host:
+    a stable lexsort over one uint64 order code per indexed column (the
+    same total order as the (hi, lo) word pair), first column primary;
+    or, for "zorder", a stable argsort of the rows' Morton codes by
+    ranks within ``table`` (``write_zorder_run`` also cuts the files at
+    cell boundaries)."""
     from hyperspace_tpu_torch.io import columnar
 
+    if layout == "zorder":
+        codes, _ = zorder_codes_host(table, indexed_columns)
+        return np.argsort(codes, kind="stable")
     keys: List[np.ndarray] = []
     for c in reversed(list(indexed_columns)):
         w = columnar.to_order_words(table.column(c))
@@ -221,3 +302,20 @@ def sort_permutation_from_codes(btable, code_columns) -> np.ndarray:
     for name in reversed(list(code_columns)):
         keys.append(btable.column(name).to_numpy(zero_copy_only=False))
     return np.lexsort(tuple(keys))
+
+
+def write_zorder_run(btable, bucket: int, out_dir: str,
+                     max_rows_per_file: int, indexed_columns,
+                     compression: Optional[str] = None) -> List[str]:
+    """Sort one run into Morton order by ranks within the run, on the
+    host, and write it with cell-aligned file cuts: optimize's
+    compaction (a subset of the index's files, clustered by its own
+    ranks) and repair's rebuild of the one bucket (the whole snapshot,
+    so its ranks are the build's)."""
+    import pyarrow as pa
+
+    codes, bits = zorder_codes_host(btable, indexed_columns)
+    perm = np.argsort(codes, kind="stable")
+    return write_bucket_run(btable.take(pa.array(perm)), bucket, out_dir,
+                            max_rows_per_file, split_keys=codes[perm],
+                            split_key_bits=bits, compression=compression)

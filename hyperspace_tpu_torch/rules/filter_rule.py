@@ -4,7 +4,9 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
   - pattern: a Filter directly over a supported Scan (seeing through one
     pruning Project), optionally under a Project;
   - applicability: the index's FIRST indexed column appears in the
-    predicate, and the index covers the filter and output columns;
+    predicate (ANY indexed column for a Z-order index, whose files are
+    narrow on every indexed dimension), and the index covers the filter
+    and output columns;
   - rewrite: swap the scan; when the predicate pins every indexed column
     to a finite set (equality, IN, or an OR of those), the buckets those
     values hash to are computed with ``ops.hash.bucket_ids_np`` (the
@@ -17,8 +19,6 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
     per-file min/max (the ``_sketch.parquet`` each build version writes)
     cannot satisfy the predicate are dropped too
     (``rules.data_skipping.prune_index_files_by_sketch``).
-
-Not ported: the Z-order any-column relaxation.
 """
 
 from __future__ import annotations
@@ -142,12 +142,18 @@ def _find_covering_indexes(candidates: Sequence[IndexLogEntry],
                            filter_cols: List[str],
                            output_cols: List[str]) -> List[IndexLogEntry]:
     """The first indexed column is in the predicate, and the index holds
-    the filter and output columns (case-insensitive)."""
+    the filter and output columns (case-insensitive).  A Z-order index
+    needs ANY indexed column in the predicate: its Morton clustering
+    makes the per-file pruning work on every indexed dimension, where
+    lexicographic data clusters the first column alone."""
     filter_set = {c.lower() for c in filter_cols}
     needed = filter_set | {c.lower() for c in output_cols}
     out = []
     for entry in candidates:
-        if entry.indexed_columns[0].lower() not in filter_set:
+        if entry.derived_dataset.properties.get("layout") == "zorder":
+            if not filter_set & {c.lower() for c in entry.indexed_columns}:
+                continue
+        elif entry.indexed_columns[0].lower() not in filter_set:
             continue
         if needed <= {c.lower() for c in entry.derived_dataset.all_columns}:
             out.append(entry)

@@ -45,7 +45,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "ops/aggregate.py", "ops/join_agg.py",
                    "execution/device_cache.py", "utils/calibrate.py",
                    "telemetry/build_report.py", "actions/data_skipping.py",
-                   "rules/data_skipping.py"):
+                   "rules/data_skipping.py", "ops/zorder.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -67,7 +67,8 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "execution/device_cache.py", "utils/calibrate.py",
                    "telemetry/build_report.py", "actions/data_skipping.py",
                    "rules/data_skipping.py", "actions/verify.py",
-                   "actions/repair.py", "execution/containment.py"):
+                   "actions/repair.py", "execution/containment.py",
+                   "ops/zorder.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -429,6 +430,71 @@ def test_the_integrity_loop_imports_no_jax(tmp_path):
         assert hs.refresh_index("ix", "repair").outcome == "ok"
         assert set(hs.verify_index("ix", "full").column("status").to_pylist()) \
             == {{"ok"}}
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_zorder_layout_imports_no_jax(tmp_path):
+    """A Z-order index built monolithic and two-pass, refreshed
+    incrementally, optimized, repaired and queried on its second column,
+    each through the port's entry points; ``ops/zorder.py`` loads
+    without pyarrow."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        from hyperspace_tpu_torch.ops import zorder
+        assert "pyarrow" not in sys.modules
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        def part(i):
+            pq.write_table(pa.table({{"x": rng.integers(0, 1000, 300),
+                                      "y": rng.random(300)}}),
+                           os.path.join(data, f"part-{{i}}.parquet"))
+        for i in range(4):
+            part(i)
+        for batch, name in ((1 << 20, "mono"), (256, "two_pass")):
+            s = HyperspaceSession({str(tmp_path / "ix")!r} + name,
+                                  device="cpu")
+            s.conf.device_batch_rows = batch
+            s.conf.index_max_rows_per_file = 100
+            # The device routes (the CPU defaults send work to the host).
+            for kind in ("filter", "join", "agg", "build", "resident"):
+                setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+            hs = Hyperspace(s)
+            hs.create_index(s.read.parquet(data),
+                            IndexConfig("z", ["x", "y"], layout="zorder"))
+            assert ("spill_route_s" in s.build_stats_log[-1]) \
+                == (name == "two_pass")
+        part(9)
+        assert hs.refresh_index("z", "incremental").outcome == "ok"
+        assert hs.optimize_index("z", "full").outcome == "ok"
+        files = [f.name for f in
+                 s.index_collection_manager.get_index("z").content.file_infos()]
+        with open(files[1], "r+b") as f:
+            f.seek(100)
+            f.write(b"rot")
+        hs.verify_index("z", "full")
+        assert hs.refresh_index("z", "repair").outcome == "ok"
+        s.enable_hyperspace()
+        q = s.read.parquet(data).filter(col("y") < 0.1).select("x", "y")
+        assert "z" in [x.relation.index_scan_of
+                       for x in q.optimized_plan().leaf_relations()]
+        assert q.collect().num_rows > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
