@@ -126,7 +126,8 @@ beside it.
            hybrid plans (``Union`` or ``BucketUnion`` and the lineage
            filter), the "bucketed" join marked hybrid, one hash launch
            per join to route the appended rows, and each timed cold and
-           warm as phase D times its queries (the buckets that gained
+           warm as phase D times its queries, over G_TIMED_RUNS
+           collects (the buckets that gained
            rows are unions, which have no file identity: their columns
            are uploaded every time).  Then ``refresh_index("incremental")``
            (6,375,000 rows, one launch of each kernel), 2 more files
@@ -236,6 +237,35 @@ beside it.
            kept and answer checked, cold beside the scan.  Prints the
            ``{"zorder": ...}`` line.
 
+  phase K  the analytic operators, after phase J, over phase C's
+           lineitem and ``li_idx``; every answer held to a numpy oracle
+           written here (``k_expected``: a stable ``np.lexsort`` per
+           ``l_status`` partition, plain cumulative sums), float running
+           sums within K_PREFIX_RTOL of the column's absolute sum.
+           bench.py's ``_sec_window`` shapes (bench.py:1672-1760) on the
+           host route (agg threshold raised, cache off): ``running_sum``,
+           ``rank``, ``trailing7_frame``, ``whole_partition_sum``, each
+           timed over K_RUNS collects.  The device route: the
+           whole-partition sum with a chained count window at the
+           calibrated thresholds and the "eager" policy, cold once on an
+           emptied cache, then warm (both windows "device-segment" over
+           4 groups, resident), answers within AGG_RTOL of the host
+           route's.  Seven tie-heavy windows ordered by ``l_quantity``
+           (49 values: ties about 30,000 rows deep): the RANGE running
+           sum, ``dense_rank``, ``ntile(4)``, ``lag`` and ``lead`` of
+           ``l_orderkey``, ``min`` over ROWS (-2, 2), ``first_value``.
+           Through ``li_idx``: a 5% key range, ``rank`` by price within
+           ``l_quantity``, a computed revenue.  ``distinct`` over
+           (``l_status``, ``l_quantity``) (196 rows, sorted),
+           ``intersect`` and ``subtract`` of two overlapping key ranges
+           through ``li_idx`` (in order), ``union`` by name.  No kernel
+           launches on this path (checked).  Then ``ops.window``'s
+           ``frame_sum``, ``frame_min_max`` (prefix scan and sparse
+           table) and ``rank_from_ties`` on the card against the same
+           functions on CPU tensors over the sorted layouts (ints and
+           rows bit for bit, sums within the prefix bound), both timed:
+           a measurement, no route.  Prints ``{"window": ...}``.
+
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
 phase C's, the last the spill build's chunk), in three ways:
@@ -260,9 +290,11 @@ the builds JSON (phases E, G, J and F, each with its build ``report``),
 the queries JSON (phase D's with its ``eviction`` run, phase G's as
 ``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
 H's under ``calibration``), the kernels JSON (``launches_by_path`` with
-phase I's ``I repair`` and ``I containment`` and phase J's steps), the
-integrity JSON (phase I), the Z-order JSON (phase J), the card's name and
-power limit, and ``{"ok": true, "device": ...}``.
+phase I's ``I repair`` and ``I containment``, phase J's steps and phase
+K's ``K analytic``), the
+integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
+(phase K), the card's name and power limit, and ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
@@ -305,6 +337,10 @@ AGG_RTOL = 1e-9
 AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
                 "_topk_groups")
 TIMED_QUERY_RUNS = 3
+# Phase G times its hybrid and clean queries and scans over two collects
+# each (three before phase K was added), which keeps the script's
+# command time under 750 s on the slower card hosts.
+G_TIMED_RUNS = 2
 # The cold and the resident thresholds of the host route: more rows than
 # any query has, so every filter, join kernel and aggregate runs on the
 # host, resident columns or not.
@@ -363,6 +399,20 @@ J_LAUNCHES = {                  # hash, histogram per Z-order step
 }
 SF10_Z_INDEX = "sf10_z"         # bench.py's sf10_z (bench.py:512-526)
 ZORDER_SAMPLE = 64              # SF10: codes checked on 1 row in 64
+# Phase K: the analytic operators over phase C's lineitem and li_idx.
+K_RUNS = 2                      # timed runs of each step-1 shape
+# A float running sum is a difference of prefix sums over the whole
+# sorted table (up to sum |x|, about 3e10 at SF1), so it is held to
+# K_PREFIX_RTOL * sum |x| absolute: the prefixes' rounding (about
+# sqrt(n) * 2**-53 * sum |x| in any summation order, 1e-13 of it at
+# 6 M rows) and not the frame's own sum sets the error.
+K_PREFIX_RTOL = 1e-11
+K_NTILE = 4
+K_RANGE = (600_000, 675_000)    # step 4: 5% of the order keys
+K_SET_A = (100_000, 160_000)    # step 5: two overlapping key ranges
+K_SET_B = (140_000, 200_000)
+K_UNION_KEYS = (POINT_KEY, POINT_KEY + 1)
+K_DISTINCT_ROWS = 4 * 49        # (l_status, l_quantity) pairs
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -1733,7 +1783,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
 
     rows_out, splits = [], {}
     for name, q in g_queries("phase G hybrid", session, root, expected, True,
-                             timed=TIMED_QUERY_RUNS).items():
+                             timed=G_TIMED_RUNS).items():
         ds, launches, stats = q["ds"], q["launches"], q["stats"]
         join = name.endswith("join")
         plan = ds.optimized_plan()
@@ -1762,7 +1812,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
         want, keys = expected[name]
         device_cache().clear()
         require_rows(f"phase G {name} source", ds.collect(), want, keys)
-        scan = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        scan = [cold_ms(ds.collect) for _ in range(G_TIMED_RUNS)]
         session.enable_hyperspace()
         scan_ms = statistics.median(scan)
         rows_out.append({
@@ -1796,7 +1846,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
     # The same source through the clean index: what the hybrid merge
     # costs on top of the 200-bucket plan.
     clean = g_queries("phase G incremental", session, root, expected, False,
-                      timed=TIMED_QUERY_RUNS)
+                      timed=G_TIMED_RUNS)
     for row in rows_out:
         q = clean[row["name"].split()[-1]]
         # The clean index's columns are cached per bucket file set.
@@ -2679,6 +2729,413 @@ def zorder_sf10(root: str, src: str, dev) -> dict:
     return rec
 
 
+def k_partitions(li: dict, order_key: str, ascending: bool = True) -> list:
+    """Per ``l_status`` value (ascending), its rows in the window's order:
+    a stable sort by ``order_key`` (ties keep the rows' order)."""
+    status = li["l_status"]
+    out = []
+    for p in np.unique(status):
+        rows = np.flatnonzero(status == p)
+        key = li[order_key][rows]
+        out.append(rows[np.lexsort((key if ascending else -key,))])
+    return out
+
+
+def k_expected(li: dict) -> dict:
+    """Phase K's windows answered by numpy, one loop over the four
+    partitions each, in the source's row order: (values, valid or None)
+    per output column."""
+    n = len(li["l_status"])
+    price, qty, key = li["l_extendedprice"], li["l_quantity"], li["l_orderkey"]
+    out = {c: np.zeros(n, dtype=d) for c, d in (
+        ("rs", np.float64), ("trailing7", np.float64), ("whole", np.float64),
+        ("rk", np.int32), ("tie_rs", np.float64), ("dr", np.int32),
+        ("nt", np.int32), ("lg", np.int64), ("ld", np.int64),
+        ("mn", np.float64), ("fv", np.float64), ("cnt", np.int64))}
+    lag_valid = np.ones(n, dtype=bool)
+    lead_valid = np.ones(n, dtype=bool)
+    for rows in k_partitions(li, "l_shipdate"):
+        out["rs"][rows] = np.cumsum(price[rows])
+        c = np.concatenate([[0.0], np.cumsum(qty[rows])])
+        i = np.arange(len(rows))
+        out["trailing7"][rows] = c[i + 1] - c[np.maximum(i - 6, 0)]
+        out["whole"][rows] = price[rows].sum()
+        out["cnt"][rows] = len(rows)
+    for rows in k_partitions(li, "l_extendedprice", ascending=False):
+        v = price[rows]
+        out["rk"][rows] = len(v) - np.searchsorted(np.sort(v), v,
+                                                   side="right") + 1
+    for rows in k_partitions(li, "l_quantity"):
+        q, v, m = qty[rows], price[rows], len(rows)
+        change = np.concatenate([[True], q[1:] != q[:-1]])
+        group = np.cumsum(change) - 1
+        ends = np.concatenate([np.flatnonzero(change)[1:] - 1, [m - 1]])
+        out["tie_rs"][rows] = np.cumsum(v)[ends[group]]
+        out["dr"][rows] = group + 1
+        base, rem = divmod(m, K_NTILE)
+        out["nt"][rows] = np.repeat(np.arange(1, K_NTILE + 1),
+                                    [base + 1] * rem + [base] * (K_NTILE - rem))
+        out["lg"][rows[1:]] = key[rows[:-1]]
+        out["ld"][rows[:-1]] = key[rows[1:]]
+        lag_valid[rows[0]] = False
+        lead_valid[rows[-1]] = False
+        padded = np.concatenate([[np.inf] * 2, v, [np.inf] * 2])
+        out["mn"][rows] = np.lib.stride_tricks.sliding_window_view(
+            padded, 5).min(axis=1)
+        out["fv"][rows] = v[0]
+    want = {c: (v, None) for c, v in out.items()}
+    want["lg"] = (out["lg"], lag_valid)
+    want["ld"] = (out["ld"], lead_valid)
+    return want
+
+
+def k_require(label: str, column, want, valid=None, atol: float = 0.0,
+              rtol: float = 0.0) -> float:
+    """``column`` (arrow) equals ``want`` (numpy) in order: exactly, or
+    within ``atol`` absolute or ``rtol`` relative; nulls exactly where
+    ``valid`` is False.  Returns the largest absolute difference."""
+    import pyarrow as pa
+
+    column = column.combine_chunks() if hasattr(column, "combine_chunks") \
+        else column
+    got_valid = np.asarray(column.is_valid().to_numpy(zero_copy_only=False))
+    if not np.array_equal(got_valid, np.ones(len(want), dtype=bool)
+                          if valid is None else valid):
+        raise AssertionError(f"phase K {label}: nulls differ from numpy")
+    filled = column.fill_null(pa.scalar(0, type=column.type))
+    got = np.asarray(filled.to_numpy(zero_copy_only=False))
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"phase K {label}: {got.shape} {got.dtype}, "
+                             f"expected {want.shape} {want.dtype}")
+    keep = got_valid
+    diff = np.abs(got[keep].astype(np.float64) - want[keep].astype(np.float64))
+    err = float(diff.max()) if diff.size else 0.0
+    if atol or rtol:
+        bound = atol + rtol * np.abs(want[keep].astype(np.float64))
+        ok = bool(np.all(diff <= bound))
+    else:
+        ok = np.array_equal(got[keep], want[keep])
+    if not ok:
+        raise AssertionError(f"phase K {label}: differs from numpy (max "
+                             f"abs diff {err!r}, atol {atol!r}, rtol {rtol!r})")
+    return err
+
+
+def k_timed(fn, runs: int = K_RUNS) -> tuple:
+    """(first result, ms of each run) of ``runs`` calls of ``fn``."""
+    first, times = None, []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        got = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        first = got if first is None else first
+    return first, times
+
+
+def k_sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def k_segment_functions(li: dict, dev, prefix_atol: float) -> dict:
+    """ops.window's frame_sum, frame_min_max (prefix scan and sparse
+    table) and rank_from_ties on the card against the same functions on
+    CPU tensors, over step 1's and step 3's sorted layouts; both timed
+    (the card's second call, inputs already there, synchronised)."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import window as W
+
+    status, price = li["l_status"], li["l_extendedprice"]
+    layouts = {}
+    for name, key in (("shipdate", "l_shipdate"), ("quantity", "l_quantity")):
+        order = np.lexsort((li[key], status))
+        s, k = status[order], li[key][order]
+        new_part = np.concatenate([[True], s[1:] != s[:-1]])
+        new_tie = new_part | np.concatenate([[True], k[1:] != k[:-1]])
+        layouts[name] = (torch.from_numpy(new_part), torch.from_numpy(new_tie),
+                         torch.from_numpy(price[order].copy()))
+
+    def calls(where):
+        out = {}
+        (p1, t1, v1), (p3, t3, v3) = [
+            tuple(x.to(where) for x in layouts[k])
+            for k in ("shipdate", "quantity")]
+        valid = torch.ones(v1.shape[0], dtype=torch.bool, device=where)
+
+        def run_sum():
+            ps, _ = W.segment_bounds(p1)
+            _, te = W.segment_bounds(t1)
+            return W.frame_sum(v1, valid, ps, te)[0]
+
+        def run_min(frame):
+            def f():
+                ps, pe = W.segment_bounds(p3)
+                _, te = W.segment_bounds(t3)
+                lo, hi = W.frame_bounds(ps, pe, te, frame, True)
+                return W.frame_min_max(v3, valid, lo, hi, ps, pe, frame,
+                                       is_min=True)[0]
+            return f
+
+        def rank():
+            ps, _ = W.segment_bounds(p3)
+            return W.rank_from_ties(ps, t3)
+
+        for label, fn in (("frame_sum", run_sum),
+                          ("frame_min_max_scan", run_min((None, 0))),
+                          ("frame_min_max_sparse", run_min((-2, 2))),
+                          ("rank_from_ties", rank)):
+            ms = []
+            # The card's first call warms it up; the CPU's needs none.
+            for _ in range(2 if where.type == "cuda" else 1):
+                k_sync(dev)
+                t0 = time.perf_counter()
+                got = fn()
+                k_sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[label] = (got.cpu(), ms[-1])
+        return out
+
+    host = calls(torch.device("cpu"))
+    card = calls(dev)
+    result = {}
+    for label, (want, host_ms) in host.items():
+        got, card_ms = card[label]
+        if want.is_floating_point():
+            err = float((got - want).abs().max())
+            ok = err <= prefix_atol
+        else:
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            ok = torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"phase K {label}: the card differs from the "
+                                 f"CPU ({err!r}, bound {prefix_atol!r})")
+        result[label] = {"cpu_ms": host_ms, "card_ms": card_ms,
+                         "max_abs_err": err}
+    return result
+
+
+def phase_k(li: dict, root: str, dev) -> dict:
+    """The analytic operators at SF1 (see the module docstring)."""
+    from hyperspace_tpu_torch import HyperspaceSession, col
+    from hyperspace_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    src = os.path.join(root, "lineitem")
+    n = len(li["l_status"])
+    want = k_expected(li)
+    prefix_atol = K_PREFIX_RTOL * float(np.abs(li["l_extendedprice"]).sum())
+    out: dict = {"rows": n, "prefix_atol": prefix_atol}
+
+    # (1) bench.py's _sec_window shapes on the host route.
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.device_cache_policy = "off"
+    session.conf.device_agg_min_rows = HOST_ROUTE_MIN_ROWS
+    li_ds = session.read.parquet(src)
+    shapes = {
+        "running_sum": (li_ds.select("l_status", "l_shipdate",
+                                     "l_extendedprice")
+                        .with_window("rs", "sum", partition_by=["l_status"],
+                                     order_by=["l_shipdate"],
+                                     value="l_extendedprice"),
+                        "rs", prefix_atol),
+        "rank": (li_ds.select("l_status", "l_extendedprice")
+                 .with_window("rk", "rank", partition_by=["l_status"],
+                              order_by=[("l_extendedprice", False)]),
+                 "rk", 0.0),
+        "trailing7_frame": (li_ds.select("l_status", "l_shipdate",
+                                         "l_quantity")
+                            .with_window("trailing7", "sum",
+                                         partition_by=["l_status"],
+                                         order_by=["l_shipdate"],
+                                         value="l_quantity", frame=(-6, 0)),
+                            "trailing7", 0.0),
+        "whole_partition_sum": (li_ds.with_window(
+            "whole", "sum", partition_by=["l_status"],
+            value="l_extendedprice").select("l_status", "whole"),
+            "whole", prefix_atol),
+    }
+    out["shapes"] = {}
+    for name, (ds, column, atol) in shapes.items():
+        got, times = k_timed(ds.collect)
+        if session.last_execution_stats.get("windows"):
+            raise AssertionError(f"phase K {name}: left the host route")
+        err = k_require(name, got.column(column), want[column][0], atol=atol)
+        med = statistics.median(times)
+        out["shapes"][name] = {"median_ms": med, "runs_ms": times,
+                               "mrows_per_s": n / med / 1e3,
+                               "max_abs_err": err}
+
+    # (2) the device route: calibrated thresholds, the eager policy.
+    cal = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                            device=dev)
+    cal.conf.device_cache_policy = "eager"
+    for field in ("filter", "join", "agg", "build", "resident"):
+        if getattr(cal.conf, f"device_{field}_min_rows") is not None:
+            raise AssertionError(f"phase K: device_{field}_min_rows is set")
+    def chained(ds):
+        return (ds.with_window("whole", "sum", partition_by=["l_status"],
+                               value="l_extendedprice")
+                .with_window("cnt", "count", partition_by=["l_status"])
+                .select("l_status", "whole", "cnt"))
+
+    whole = chained(cal.read.parquet(src))
+
+    def windows_of(label, stats, resident):
+        entries = stats.get("windows") or []
+        if len(entries) != 2 or any(
+                w["strategy"] != "device-segment" or w["groups"] != 4
+                or (resident is not None and w["resident"] is not resident)
+                for w in entries):
+            raise AssertionError(f"phase K {label}: windows {entries}")
+        return entries
+
+    device_cache().clear()
+    t0 = time.perf_counter()
+    cold = whole.collect()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    windows_of("cold", cal.last_execution_stats, None)
+    warm = whole.collect()
+    entries = windows_of("warm", cal.last_execution_stats, True)
+    _, warm_times = k_timed(whole.collect)
+    windows_of("timed warm", cal.last_execution_stats, True)
+    host, host_times = k_timed(chained(li_ds).collect)
+    if session.last_execution_stats.get("windows"):
+        raise AssertionError("phase K: the chained host route left the host")
+    k_require("host chained count", host.column("cnt"), want["cnt"][0])
+    for label, got in (("cold", cold), ("warm", warm)):
+        k_require(f"device {label} whole", got.column("whole"),
+                  host.column("whole").to_numpy(), rtol=AGG_RTOL)
+        k_require(f"device {label} whole (numpy)", got.column("whole"),
+                  want["whole"][0], rtol=AGG_RTOL)
+        k_require(f"device {label} count", got.column("cnt"), want["cnt"][0])
+    host_ms = statistics.median(host_times)
+    warm_ms = statistics.median(warm_times)
+    out["device_route"] = {
+        "cold_ms": cold_ms, "warm_ms": warm_ms, "warm_runs_ms": warm_times,
+        "host_ms": host_ms, "host_runs_ms": host_times,
+        "host_over_device": host_ms / warm_ms,
+        "windows": entries,
+        "agg_threshold": cal.conf.device_min_rows("agg", dev),
+        "resident_threshold": cal.conf.resident_min_rows("agg", dev)}
+    device_cache().clear()
+
+    # (3) tie-heavy windows: ordered by l_quantity, 49 distinct values.
+    over = dict(partition_by=["l_status"], order_by=["l_quantity"])
+    ties = (li_ds.select("l_status", "l_quantity", "l_extendedprice",
+                         "l_orderkey")
+            .with_window("tie_rs", "sum", value="l_extendedprice", **over)
+            .with_window("dr", "dense_rank", **over)
+            .with_window("nt", "ntile", offset=K_NTILE, **over)
+            .with_window("lg", "lag", value="l_orderkey", **over)
+            .with_window("ld", "lead", value="l_orderkey", **over)
+            .with_window("mn", "min", value="l_extendedprice", frame=(-2, 2),
+                         **over)
+            .with_window("fv", "first_value", value="l_extendedprice",
+                         **over))
+    t0 = time.perf_counter()
+    got = ties.collect()
+    ties_ms = (time.perf_counter() - t0) * 1e3
+    errs = {}
+    for c in ("tie_rs", "dr", "nt", "lg", "ld", "mn", "fv"):
+        values, valid = want[c]
+        errs[c] = k_require(f"ties {c}", got.column(c), values, valid,
+                            atol=prefix_atol if c == "tie_rs" else 0.0)
+    out["ties"] = {"wall_ms": ties_ms, "windows": 7, "max_abs_err": errs}
+
+    # (4) through the index: a key range, a rank, a computed select.
+    session.enable_hyperspace()
+    set_min_rows(session, 0)
+    lo, hi = K_RANGE
+    indexed = (li_ds.filter((col("l_orderkey") >= lo) & (col("l_orderkey") < hi))
+               .with_window("rk", "rank", partition_by=["l_quantity"],
+                            order_by=[("l_extendedprice", False)])
+               .select("l_shipdate", "l_orderkey", "rk",
+                       revenue=col("l_extendedprice") * (1 - col("l_discount"))))
+    names = sorted(name for name, _ in index_scans(indexed.optimized_plan()))
+    if names != [INDEX_NAME]:
+        raise AssertionError(f"phase K indexed: the plan scans {names}")
+    got, times = k_timed(indexed.collect)
+    sel = np.flatnonzero((li["l_orderkey"] >= lo) & (li["l_orderkey"] < hi))
+    rank = np.zeros(len(sel), dtype=np.int32)
+    q, p = li["l_quantity"][sel], li["l_extendedprice"][sel]
+    for value in np.unique(q):
+        part = np.flatnonzero(q == value)
+        rank[part] = len(part) - np.searchsorted(np.sort(p[part]), p[part],
+                                                 side="right") + 1
+    require_rows("phase K indexed", got, {
+        "l_shipdate": li["l_shipdate"][sel], "l_orderkey": li["l_orderkey"][sel],
+        "rk": rank,
+        "revenue": p * (1 - li["l_discount"][sel])}, ["l_shipdate"])
+    out["indexed"] = {"rows": int(len(sel)), "runs_ms": times,
+                      "median_ms": statistics.median(times), "plan": names}
+
+    # (5) DISTINCT and the set operations.
+    t0 = time.perf_counter()
+    got = li_ds.select("l_status", "l_quantity").distinct().collect()
+    distinct_ms = (time.perf_counter() - t0) * 1e3
+    # l_quantity holds the integers 1..49: one int64 code per pair.
+    pairs = np.unique(li["l_status"] * 64 + li["l_quantity"].astype(np.int64))
+    if len(pairs) != K_DISTINCT_ROWS:
+        raise AssertionError(f"phase K: {len(pairs)} distinct pairs")
+    require_rows("phase K distinct", got,
+                 {"l_status": pairs // 64,
+                  "l_quantity": (pairs % 64).astype(np.float64)},
+                 ["l_status", "l_quantity"])
+
+    def key_range(bounds):
+        return li_ds.filter((col("l_orderkey") >= bounds[0])
+                            & (col("l_orderkey") < bounds[1])) \
+            .select("l_orderkey")
+
+    left = key_range(K_SET_A).collect().column("l_orderkey").to_numpy()
+    mask_b = (li["l_orderkey"] >= K_SET_B[0]) & (li["l_orderkey"] < K_SET_B[1])
+    in_b = np.isin(left, li["l_orderkey"][mask_b])
+    _, first = np.unique(left, return_index=True)
+    setops = {"distinct_rows": int(got.num_rows), "distinct_ms": distinct_ms}
+    for kind, keep in (("intersect", in_b[first]), ("subtract", ~in_b[first])):
+        ds = getattr(key_range(K_SET_A), kind)(key_range(K_SET_B))
+        names = sorted(name for name, _ in index_scans(ds.optimized_plan()))
+        if names != [INDEX_NAME, INDEX_NAME]:
+            raise AssertionError(f"phase K {kind}: the plan scans {names}")
+        t0 = time.perf_counter()
+        got = ds.collect()
+        setops[f"{kind}_ms"] = (time.perf_counter() - t0) * 1e3
+        setops[f"{kind}_rows"] = int(got.num_rows)
+        require_rows(f"phase K {kind}", got,
+                     {"l_orderkey": left[np.sort(first[keep])]})
+    k1, k2 = K_UNION_KEYS
+    part1 = li_ds.filter(col("l_orderkey") == k1).select("l_orderkey",
+                                                         "l_quantity")
+    part2 = li_ds.filter(col("l_orderkey") == k2).select("l_orderkey")
+    got = part1.union(part2).collect()
+    a, b = part1.collect(), part2.collect()
+    na, nb = int((li["l_orderkey"] == k1).sum()), int((li["l_orderkey"] == k2).sum())
+    if (a.num_rows, b.num_rows) != (na, nb) or got.num_rows != na + nb \
+            or got.column_names != ["l_orderkey", "l_quantity"] \
+            or got.column("l_orderkey").to_pylist() \
+            != a.column("l_orderkey").to_pylist() + b.column("l_orderkey").to_pylist() \
+            or got.column("l_quantity").to_pylist() \
+            != a.column("l_quantity").to_pylist() + [None] * nb:
+        raise AssertionError("phase K union: not the two selects by name")
+    setops["union_rows"] = int(got.num_rows)
+    out["setops"] = setops
+
+    out["launches"] = kernels.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase K launched {out['launches']}: no kernel "
+                             f"is on the analytic operators' path")
+    # (6) the segment functions on the card, measured only.
+    out["segment_functions"] = k_segment_functions(li, dev, prefix_atol)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def route_of(stats: dict) -> str:
     """The route a collect took over its filters, join kernels, fused
     joins and device aggregates: "device", "host", "mixed", or "none"
@@ -3067,6 +3524,36 @@ def print_integrity(integ: dict) -> None:
           f"{dw['serial_digest_s']:.3f} s", flush=True)
 
 
+def print_window(window: dict) -> None:
+    for name, shape in window["shapes"].items():
+        print(f"phase K {name}: median {shape['median_ms']:.1f} ms of "
+              f"{K_RUNS} on the host route, {shape['mrows_per_s']:.2f} "
+              f"Mrows/s, max abs diff from numpy {shape['max_abs_err']!r}",
+              flush=True)
+    d = window["device_route"]
+    print(f"phase K device route: whole_partition_sum with a chained count, "
+          f"cold {d['cold_ms']:.1f} warm {d['warm_ms']:.1f} ms "
+          f"(device-segment, resident), host route {d['host_ms']:.1f} ms, "
+          f"host_over_device {d['host_over_device']:.2f}", flush=True)
+    t = window["ties"]
+    print(f"phase K ties: {t['windows']} windows ordered by l_quantity in "
+          f"{t['wall_ms']:.1f} ms, equal to numpy (max abs diff "
+          f"{json.dumps(t['max_abs_err'])})", flush=True)
+    i = window["indexed"]
+    print(f"phase K indexed: {i['rows']} rows through {i['plan']}, rank and "
+          f"revenue equal to numpy, median {i['median_ms']:.1f} ms",
+          flush=True)
+    print(f"phase K set operations: {json.dumps(window['setops'])}",
+          flush=True)
+    for name, f in window["segment_functions"].items():
+        print(f"phase K {name}: cpu {f['cpu_ms']:.1f} ms, card "
+              f"{f['card_ms']:.2f} ms, max abs diff {f['max_abs_err']!r}",
+              flush=True)
+    print(f"phase K: analytic operators checked, launches "
+          f"{json.dumps(window['launches'])} ({window['wall_s']:.3f} s)",
+          flush=True)
+
+
 def print_split(label: str, split: dict) -> None:
     """One line per temperature of a ``stage_breakdown`` pair."""
     for temp in ("cold", "warm"):
@@ -3258,6 +3745,8 @@ def main() -> int:
         print(f"phase J: two builds equal to the mirror's layout file for "
               f"file, refresh, optimize, repair checked "
               f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        window = phase_k(li, root, dev)
+        print_window(window)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -3288,7 +3777,7 @@ def main() -> int:
     by_path = {"C create li_idx": launches, "D create ord_idx": d["launches"],
                **{b["build"]: b["launches"] for b in builds},
                **g["launches_by_path"], "I repair": integ["repair_launches"],
-               "I containment": contained}
+               "I containment": contained, "K analytic": window["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -3313,6 +3802,7 @@ def main() -> int:
         "launches_by_path": zorder["launches_by_path"],
         "walls_s": {b["build"]: b["wall_s"] for b in zorder["builds"]},
         "sf10": {k: v for k, v in sf10_z.items() if k != "report"}}}))
+    print(json.dumps({"window": window}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

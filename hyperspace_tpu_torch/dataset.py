@@ -1,8 +1,10 @@
 """A plan bound to its session (counterpart of hyperspace_tpu/dataset.py):
 what ``session.read.parquet`` returns, what ``Hyperspace.create_index``
-takes, and the query verbs ``filter``, ``select`` (column names),
-``join``, ``group_by(...).agg(...)``, ``agg``, ``sort``, ``limit``,
-``cache``, ``collect`` and ``count``.
+takes, and the query verbs ``filter``, ``select`` (column names and
+computed columns), ``with_column``, ``with_window``, ``join``,
+``group_by(...).agg(...)``, ``agg``, ``sort``, ``limit``, ``distinct``,
+``union``, ``intersect``, ``subtract``, ``cache``, ``collect``,
+``to_pandas``, ``count``, ``columns`` and ``show``.
 
 ``collect()`` optimizes the plan (the index rules run when hyperspace is
 enabled on the session), executes it into an arrow table and publishes
@@ -34,20 +36,26 @@ was done: the files quarantined and the re-plan's mode
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
-from hyperspace_tpu_torch.plan.expr import Expr
+from hyperspace_tpu_torch.plan.expr import Col, Expr, Lit
 from hyperspace_tpu_torch.plan.nodes import (
     Aggregate,
+    Compute,
+    Distinct,
     Filter,
     InMemory,
     Join,
     Limit,
     LogicalPlan,
     Project,
+    SetOp,
     Sort,
+    Union,
+    Window,
+    WithColumns,
 )
 
 
@@ -85,11 +93,72 @@ class Dataset:
     def filter(self, condition: Expr) -> "Dataset":
         return Dataset(Filter(condition, self.plan), self.session)
 
-    def select(self, *columns: str) -> "Dataset":
+    def select(self, *columns: str, **computed: Expr) -> "Dataset":
+        """Columns by name, and computed ones as keywords:
+        ``select("o_orderkey", revenue=col("p") * (1 - col("d")))``.
+        Names alone stay a Project (the shape the rules match); any
+        computed output makes a Compute."""
         bad = [c for c in columns if not isinstance(c, str)]
         if bad:
-            raise ValueError(f"select() takes column names, got {bad[0]!r}")
-        return Dataset(Project(list(columns), self.plan), self.session)
+            raise ValueError(
+                f"select() positional arguments are column names; pass "
+                f"expressions as keywords (alias=expr), got {bad[0]!r}")
+        if not computed:
+            return Dataset(Project(list(columns), self.plan), self.session)
+        exprs = [(c, Col(c)) for c in columns]
+        for name, e in computed.items():
+            if isinstance(e, str):
+                # A rename (col) or a constant (lit)?  The caller says.
+                raise ValueError(
+                    f"select({name}={e!r}): pass col({e!r}) to project a "
+                    f"column under a new name, or lit({e!r}) for a string "
+                    f"constant")
+            exprs.append((name, e if isinstance(e, Expr) else Lit(e)))
+        return Dataset(Compute(exprs, self.plan), self.session)
+
+    def with_column(self, name: str, expr: Expr) -> "Dataset":
+        """Append one computed column, or replace the one of that name,
+        keeping every other."""
+        return Dataset(WithColumns([(name, expr)], self.plan), self.session)
+
+    def with_window(self, name: str, func: str,
+                    partition_by: Sequence[str] = (),
+                    order_by: Sequence = (),
+                    value: str = None, offset: int = 1,
+                    frame=None) -> "Dataset":
+        """Append one analytic column, ``func(value) OVER (PARTITION BY
+        partition_by ORDER BY order_by [ROWS frame])``: row_number, rank,
+        dense_rank, ntile, sum, min, max, mean, count, lag, lead,
+        first_value or last_value (semantics in ``plan.nodes.Window``).
+
+            ds.with_window("rk", "rank", partition_by=["grp"],
+                           order_by=[("revenue", False)])
+
+        ``order_by`` entries are column names or (column, ascending)
+        pairs; ``offset`` is lag's and lead's shift and ntile's tile
+        count; ``frame`` is a ROWS frame (lo, hi) of row offsets,
+        negative preceding and None unbounded: ``(None, 0)`` is ROWS
+        BETWEEN UNBOUNDED PRECEDING AND CURRENT ROW."""
+        normalized = []
+        for k in order_by:
+            if isinstance(k, str):
+                normalized.append((k, True))
+            elif (isinstance(k, (tuple, list)) and len(k) == 2
+                    and isinstance(k[0], str)):
+                normalized.append((k[0], bool(k[1])))
+            else:
+                raise ValueError(
+                    f"Window order key must be a column name or a "
+                    f"(column, ascending) pair, got {k!r}")
+        if frame is not None:
+            if not isinstance(frame, (tuple, list)) or len(frame) != 2:
+                raise ValueError(
+                    f"frame must be an (lo, hi) pair of row offsets "
+                    f"(None = unbounded), got {frame!r}")
+            frame = (frame[0], frame[1])
+        return Dataset(Window(name, func, value, list(partition_by),
+                              normalized, self.plan, offset=offset,
+                              frame=frame), self.session)
 
     def join(self, other: "Dataset", condition: Expr,
              how: str = "inner") -> "Dataset":
@@ -121,6 +190,27 @@ class Dataset:
 
     def limit(self, n: int) -> "Dataset":
         return Dataset(Limit(n, self.plan), self.session)
+
+    def distinct(self) -> "Dataset":
+        """The distinct rows of the whole output (SQL DISTINCT)."""
+        return Dataset(Distinct(self.plan), self.session)
+
+    def union(self, other: "Dataset") -> "Dataset":
+        """UNION ALL by name (Spark's ``unionByName(allowMissingColumns=
+        True)``): a column one side lacks is null there, and numeric
+        widths widen.  ``.distinct()`` after it is SQL's UNION."""
+        return Dataset(Union([self.plan, other.plan]), self.session)
+
+    def intersect(self, other: "Dataset") -> "Dataset":
+        """SQL INTERSECT: the distinct rows in both, compared by position
+        and null-safely."""
+        return Dataset(SetOp("intersect", self.plan, other.plan),
+                       self.session)
+
+    def subtract(self, other: "Dataset") -> "Dataset":
+        """SQL EXCEPT: the distinct rows of this dataset that ``other``
+        lacks, compared null-safely."""
+        return Dataset(SetOp("except", self.plan, other.plan), self.session)
 
     def cache(self) -> "Dataset":
         """This dataset's result now, as a Dataset over the in-memory
@@ -196,5 +286,26 @@ class Dataset:
         executor.stats["containment"] = record
         return out, executor
 
+    def to_pandas(self):
+        return self.collect().to_pandas()
+
     def count(self) -> int:
         return self.collect().num_rows
+
+    @property
+    def columns(self) -> List[str]:
+        return self.plan.output_columns(self.session.schema_of)
+
+    def show(self, n: int = 20) -> None:
+        """Print the first ``n`` rows; the whole result is collected."""
+        table = self.collect()
+        head = table.slice(0, n)
+        names = head.column_names
+        rows = [[str(v) for v in row.values()] for row in head.to_pylist()]
+        widths = [max(len(name), *(len(r[i]) for r in rows), 1) if rows
+                  else len(name) for i, name in enumerate(names)]
+        print(" ".join(name.rjust(w) for name, w in zip(names, widths)))
+        for r in rows:
+            print(" ".join(v.rjust(w) for v, w in zip(r, widths)))
+        if table.num_rows > n:
+            print(f"... ({table.num_rows - n} more rows)")

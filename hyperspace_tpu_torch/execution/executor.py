@@ -1,7 +1,5 @@
-"""Physical execution of a filter, join or aggregate plan into an arrow
-table (counterpart of hyperspace_tpu/execution/executor.py, its Scan,
-Filter, Project, Join, Aggregate, Sort, Limit, InMemory, Union and
-BucketUnion nodes).
+"""Physical execution of a plan into an arrow table (counterpart of
+hyperspace_tpu/execution/executor.py).
 
 Numeric work runs on the session's device: a predicate over null-free
 numeric columns as the torch closure of ``ops.filter.compile_predicate``,
@@ -36,15 +34,26 @@ each bucket joins its index files followed by its routed rows.
 A ``Union`` or ``BucketUnion`` executed whole concatenates its children
 in order, by name; a strict one promotes nulls only.
 
+The analytic operators, as in the JAX package: ``Compute`` and
+``WithColumns`` evaluate their expressions with arrow; ``Distinct`` is
+arrow's group-by over every column (no fixed row order); ``SetOp``
+codes both sides' rows null-safely and keeps the distinct left rows in
+order.  A ``Window`` takes the device route when ``_try_device_window``
+takes it (a whole-partition aggregate over one int or bool key, reduced
+by ``ops.aggregate.grouped_aggregate``), else the host engine
+``_window``: one arrow stable sort, ``ops.window``'s segment functions
+on CPU tensors, the column scattered back to the input's order.
+
 Scan semantics: ``relation.file_paths`` replaces the listing of the root
 paths (index scans); ``relation.prune_to_buckets`` drops index files
 whose bucket id (from the file name) is not wanted.
 
 Identity and residency: every scan's output table is registered with
 the fingerprint of the files it read (``device_cache.files_fingerprint``:
-paths, sizes, mtimes), a column selection keeps it, and a filter's
-output and a join side without its null keys get a derived fingerprint
-(the parent's hashed with ``filter:<condition>`` or ``dropnull:<keys>``).
+paths, sizes, mtimes), a column selection and a window keep it (not the
+window's own column), and a filter's output and a join side without its
+null keys get a derived fingerprint (the parent's hashed with
+``filter:<condition>`` or ``dropnull:<keys>``).
 A column of an identified table is converted and uploaded once per
 (device, fingerprint, column, kind) into the process-wide
 ``device_cache.global_cache()``, and later queries over the same files
@@ -58,7 +67,8 @@ join kernel the route taken ("device" or "host"), its rows and whether
 its inputs were resident, per join "bucketed" (with whether a side was
 hybrid), "plain" or "device-fused-agg" (with ``resident``), per device
 aggregate "device-segment" or "device-join-agg" (with its groups,
-``resident`` and ``topn``) and, when the cache was consulted,
+``resident`` and ``topn``), per device window "device-segment" (with
+its rows, groups and ``resident``) and, when the cache was consulted,
 ``device_cache`` hits and misses; ``Dataset.collect`` publishes it as
 ``session.last_execution_stats``.
 
@@ -73,7 +83,7 @@ A read of index files that fails with ``OSError`` or pyarrow's
 ``Dataset.collect``'s containment (execution/containment.py); the error
 still propagates.
 
-Not ported: every other plan node, ``finalize_stats``' memory gauges,
+Not ported: ``finalize_stats``' memory gauges,
 the telemetry counters, spans and transfer timeline, the mesh filter, join and aggregates,
 residual join predicates, the lake formats and hypothetical scans.
 pyarrow is imported inside the functions.
@@ -119,6 +129,8 @@ from hyperspace_tpu_torch.plan.expr import (
 from hyperspace_tpu_torch.plan.nodes import (
     Aggregate,
     BucketUnion,
+    Compute,
+    Distinct,
     Filter,
     InMemory,
     Join,
@@ -126,8 +138,11 @@ from hyperspace_tpu_torch.plan.nodes import (
     LogicalPlan,
     Project,
     Scan,
+    SetOp,
     Sort,
     Union,
+    Window,
+    WithColumns,
 )
 
 
@@ -191,15 +206,18 @@ class Executor:
         self._scan_fp[id(out)] = (
             derived, cacheable & frozenset(out.column_names), out)
 
-    def _propagate_identity(self, out, parent) -> None:
-        """A column selection keeps its parent's rows and arrays, so it
-        keeps the parent's fingerprint."""
+    def _propagate_identity(self, out, parent, replaced=()) -> None:
+        """A column selection, or a window appending its column, keeps
+        its parent's rows and arrays, so it keeps the parent's
+        fingerprint; a column of ``replaced`` holds new values and is no
+        longer cacheable under it."""
         entry = self._scan_fp.get(id(parent))
         if entry is None or out is None:
             return
         fp, cacheable, _table = entry
         self._scan_fp[id(out)] = (
-            fp, cacheable & frozenset(out.column_names), out)
+            fp, (cacheable - frozenset(replaced))
+            & frozenset(out.column_names), out)
 
     def _cache_key(self, identity, column: str, kind: str):
         if identity is None:
@@ -275,14 +293,52 @@ class Executor:
             out = table.select(plan.columns)
             self._propagate_identity(out, table)
             return out
+        if isinstance(plan, Compute):
+            import pyarrow as pa
+
+            table = self.execute(plan.child)
+            return pa.table({name: _eval_column(e, table)
+                             for name, e in plan.exprs})
+        if isinstance(plan, WithColumns):
+            table = self.execute(plan.child)
+            for name, e in plan.exprs:
+                column = _eval_column(e, table)
+                if name in table.column_names:
+                    table = table.set_column(
+                        table.column_names.index(name), name, column)
+                else:
+                    table = table.append_column(name, column)
+            return table
         if isinstance(plan, Join):
             return self._join(plan)
+        if isinstance(plan, Window):
+            table = self.execute(plan.child)
+            out = self._try_device_window(table, plan)
+            if out is None:
+                out = _window(table, plan)
+            # The appended column keeps the rows and the source arrays:
+            # the identity carries, so a chained window still routes by
+            # residency.
+            self._propagate_identity(out, table, replaced=(plan.name,))
+            return out
         if isinstance(plan, Aggregate):
             return self._aggregate(plan)
+        if isinstance(plan, Distinct):
+            table = self.execute(plan.child)
+            names = table.column_names
+            if len(set(names)) != len(names):
+                raise ValueError(
+                    f"distinct() needs unique column names, got {names}; "
+                    f"project/rename the duplicates first")
+            if table.num_rows == 0:
+                return table
+            return table.group_by(names).aggregate([]).select(names)
         if isinstance(plan, Sort):
             return _sorted_table(self.execute(plan.child), plan.keys)
         if isinstance(plan, Limit):
             return self._limit(plan)
+        if isinstance(plan, SetOp):
+            return self._set_op(plan)
         if isinstance(plan, (BucketUnion, Union)):
             import pyarrow as pa
 
@@ -713,6 +769,116 @@ class Executor:
                            for c, asc in child.keys])
             return table.take(idx)
         return self.execute(child).slice(0, plan.n)
+
+    # -- set operations -----------------------------------------------------
+    def _set_op(self, plan: SetOp):
+        """INTERSECT or EXCEPT with SQL's null-safe row equality: both
+        sides stacked into one promoted table, every row given a dense
+        null-safe code (``ops.window.partition_codes``), membership one
+        ``torch.isin``; the distinct kept rows in left-row order (each
+        at its first occurrence)."""
+        import pyarrow as pa
+
+        from hyperspace_tpu_torch.ops.window import partition_codes
+
+        left = self.execute(plan.left)
+        right = self.execute(plan.right)
+        if len(left.column_names) != len(right.column_names):
+            raise ValueError(
+                f"{plan.kind.upper()} needs equal column counts: "
+                f"{left.column_names} vs {right.column_names}")
+        stacked = pa.concat_tables(
+            [left, right.rename_columns(left.column_names)],
+            promote_options="permissive")
+        if stacked.num_rows == 0:
+            return stacked
+        codes = partition_codes(stacked, stacked.column_names)
+        ca, cb = codes[:left.num_rows], codes[left.num_rows:]
+        in_b = torch.isin(ca, cb)
+        kept_rows = torch.nonzero(in_b if plan.kind == "intersect"
+                                  else ~in_b).flatten()
+        if kept_rows.numel() == 0:
+            return stacked.slice(0, 0)
+        _, inverse = torch.unique(ca[kept_rows], return_inverse=True)
+        first = torch.full((int(inverse.max()) + 1,), kept_rows.numel(),
+                           dtype=torch.int64).scatter_reduce_(
+            0, inverse, torch.arange(kept_rows.numel()), "amin")
+        rows = torch.sort(kept_rows[first]).values
+        return stacked.take(pa.array(rows.numpy()))
+
+    # -- window on the device -----------------------------------------------
+    def _try_device_window(self, table, plan: Window):
+        """A whole-partition window aggregate (``sum(x) OVER (PARTITION
+        BY k)``) through ``ops.aggregate.grouped_aggregate`` on the
+        session's device: only per-group results come back, broadcast to
+        the rows by one host ``np.searchsorted`` over the ascending group
+        keys.  It takes one null-free int or bool partition key, sum,
+        min, max, mean or count, a null-free int or float value (count
+        reads only the key), no ORDER BY and no frame, and routes by the
+        "agg" threshold as ``_try_device_aggregate`` does; None for the
+        host engine."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        from hyperspace_tpu_torch.ops.aggregate import grouped_aggregate
+
+        if (plan.frame is not None or plan.order_by
+                or len(plan.partition_by) != 1
+                or plan.func not in ("sum", "min", "max", "mean", "count")
+                or table.num_rows == 0):
+            return None
+        key = plan.partition_by[0]
+        kt = table.schema.field(key).type
+        if not (pa.types.is_integer(kt) or pa.types.is_boolean(kt)) \
+                or pa.types.is_uint64(kt) or table.column(key).null_count > 0:
+            return None
+        pairs = [(key, "order")]
+        src_type = None
+        if plan.func == "count":
+            # A null-free value's count is the group's row count: only
+            # the key ships, and the value stays out of ``pairs``.
+            if plan.value is not None \
+                    and table.column(plan.value).null_count > 0:
+                return None
+        else:
+            src_type = table.schema.field(plan.value).type
+            if not (pa.types.is_integer(src_type)
+                    or pa.types.is_floating(src_type)) \
+                    or pa.types.is_uint64(src_type) \
+                    or table.column(plan.value).null_count > 0:
+                return None
+            pairs.append((plan.value, "num"))
+        identity = self._scan_identity(table)
+        if table.num_rows < self._cache_aware_min_rows(identity, pairs, "agg"):
+            return None
+        resident = self._all_resident(identity, pairs)
+        key_cols = [self._device_column(table, key, identity, "order")]
+        value_cols = [] if plan.func == "count" else [
+            self._device_column(table, plan.value, identity, "num")]
+        first_rows, counts, results = grouped_aggregate(
+            key_cols, value_cols,
+            ["count_all" if plan.func == "count" else plan.func],
+            device=self.session.device)
+        group_keys = columnar.to_device_numeric(
+            table.column(key).take(pa.array(first_rows)))
+        rows = columnar.to_device_numeric(table.column(key))
+        idx = pa.array(np.searchsorted(group_keys, rows))  # keys ascend
+        if plan.func == "count":
+            out = pa.array(counts.astype(np.int64))
+        elif plan.func in ("min", "max"):
+            out = pc.cast(pa.array(results[0]), src_type)
+        elif plan.func == "mean":
+            out = pa.array(results[0].astype(np.float64))
+        else:  # sum: int64 or float64, by the device result's dtype
+            out = pa.array(results[0])
+        out = out.take(idx)
+        self.stats.setdefault("windows", []).append({
+            "strategy": "device-segment", "rows": table.num_rows,
+            "groups": int(len(counts)), "resident": resident})
+        if plan.name in table.column_names:
+            return table.set_column(
+                table.column_names.index(plan.name), plan.name, out)
+        return table.append_column(plan.name, out)
 
     # -- aggregate ----------------------------------------------------------
     def _aggregate(self, plan: Aggregate):
@@ -1339,6 +1505,218 @@ def _sort_indices(table, keys):
             sort_keys.append((flag, direction))
         sort_keys.append((c, direction))
     return pc.sort_indices(work, sort_keys=sort_keys)
+
+
+def _window_empty_type(table, plan: Window):
+    """The output type of a window over no rows: the type the rows
+    would have given."""
+    import pyarrow as pa
+
+    out_type = {"row_number": pa.int32(), "rank": pa.int32(),
+                "dense_rank": pa.int32(), "ntile": pa.int32(),
+                "count": pa.int64(), "mean": pa.float64()}.get(plan.func)
+    if out_type is None and plan.func in ("lag", "lead", "first_value",
+                                          "last_value"):
+        out_type = table.schema.field(plan.value).type
+    if out_type is None and plan.func == "sum":
+        src = table.schema.field(plan.value).type
+        out_type = pa.int64() \
+            if pa.types.is_integer(src) or pa.types.is_boolean(src) \
+            else pa.float64()
+    if out_type is None:  # min and max keep the input's type
+        out_type = table.schema.field(plan.value).type \
+            if plan.value else pa.int64()
+    return out_type
+
+
+def _window_values(v_sorted):
+    """(values, valid) of a sorted arrow column for ``ops.window``'s
+    frame functions, on the CPU: bools and temporals as their integers,
+    ints as int64 and floats as float64 tensors, nulls filled with 0 and
+    marked in the bool tensor ``valid``; uint64 as a numpy array (no
+    torch op takes it).  Strings, binary and decimals give (None,
+    valid): the caller takes an exact arrow path or raises (a float64
+    view of a decimal would round)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    t = v_sorted.type
+    valid = torch.from_numpy(np.asarray(
+        pc.is_valid(v_sorted).to_numpy(zero_copy_only=False), dtype=bool))
+    num = None
+    if pa.types.is_boolean(t):
+        num = v_sorted.cast(pa.int8())
+    elif pa.types.is_date32(t) or pa.types.is_time32(t):
+        num = v_sorted.cast(pa.int32())
+    elif (pa.types.is_date64(t) or pa.types.is_time64(t)
+            or pa.types.is_timestamp(t) or pa.types.is_duration(t)):
+        num = v_sorted.cast(pa.int64())
+    elif pa.types.is_integer(t) or pa.types.is_floating(t):
+        num = v_sorted
+    if num is None:
+        return None, valid
+    zero = pa.scalar(0.0 if pa.types.is_floating(num.type) else 0,
+                     type=num.type)
+    vals = pc.fill_null(num, zero).to_numpy(zero_copy_only=False)
+    if vals.dtype == np.uint64:
+        return vals, valid
+    wide = np.float64 if vals.dtype.kind == "f" else np.int64
+    return torch.from_numpy(vals.astype(wide)), valid
+
+
+def _whole_partition_agg_arrow(v_sorted, part: np.ndarray, func: str):
+    """A whole-partition aggregate of a type the frame functions do not
+    take (strings, binary, decimals): arrow's hash aggregation, exact in
+    the value's own type, broadcast back by the partition code."""
+    import pyarrow as pa
+
+    t = pa.table({"__c": pa.array(part), "__v": v_sorted})
+    by_code = t.group_by("__c").aggregate([("__v", func)]) \
+        .sort_by("__c").column(f"__v_{func}")
+    if isinstance(by_code, pa.ChunkedArray):
+        by_code = by_code.combine_chunks()
+    return by_code.take(pa.array(part))
+
+
+def _tie_starts(table, order_by, perm, new_part: np.ndarray) -> np.ndarray:
+    """Per sorted row whether it starts a tie group: a new partition or
+    a change of any order key, null-safe, NaN equal to NaN."""
+    import pyarrow.compute as pc
+
+    new_tie = new_part.copy()
+    for c, _asc in order_by:
+        col_sorted = table.column(c).take(perm)
+        valid = np.asarray(pc.is_valid(col_sorted)
+                           .to_numpy(zero_copy_only=False))
+        vals = col_sorted.to_numpy(zero_copy_only=False)
+        with np.errstate(invalid="ignore"):
+            eq = vals[1:] == vals[:-1]
+        if vals.dtype.kind == "f":
+            eq = eq | (np.isnan(vals[1:].astype(float))
+                       & np.isnan(vals[:-1].astype(float)))
+        same = (valid[1:] == valid[:-1]) & (~valid[1:] | eq)
+        new_tie[1:] |= ~same.astype(bool)
+    return new_tie
+
+
+def _window(table, plan: Window):
+    """One analytic column over ``table`` by the host engine: one stable
+    arrow sort by (partition code, order keys) with Spark's null order,
+    then ``ops.window``'s segment functions on CPU tensors, then the
+    column scattered back to the input's row order."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from hyperspace_tpu_torch.ops import window as W
+
+    n = table.num_rows
+    if n == 0:
+        return table.append_column(
+            plan.name, pa.array([], type=_window_empty_type(table, plan)))
+    part_orig = W.partition_codes(table, plan.partition_by)
+    pname = "__part"
+    suffix = 1
+    while pname in table.column_names:
+        pname = f"__part__{suffix}"
+        suffix += 1
+    perm = _sort_indices(table.append_column(pname, pa.array(part_orig.numpy())),
+                         [(pname, True)] + list(plan.order_by))
+    perm_t = torch.from_numpy(np.asarray(perm).astype(np.int64))
+    part = part_orig[perm_t]
+    new_part = torch.ones(n, dtype=torch.bool)
+    new_part[1:] = part[1:] != part[:-1]
+    new_tie = torch.from_numpy(
+        _tie_starts(table, plan.order_by, perm, new_part.numpy()))
+    part_start, part_end = W.segment_bounds(new_part)
+    func = plan.func
+    src_type = table.schema.field(plan.value).type if plan.value else None
+    v_sorted = None
+    if plan.value is not None:
+        v_sorted = table.column(plan.value).take(perm)
+        if isinstance(v_sorted, pa.ChunkedArray):
+            v_sorted = v_sorted.combine_chunks()
+    null = pa.scalar(None, type=src_type) if src_type is not None else None
+    if func in ("lag", "lead"):
+        # An index shift inside the partition: arrow's take keeps the
+        # value's type bit for bit, and a row outside it is null.
+        idx = torch.arange(n) - (plan.offset if func == "lag"
+                                 else -plan.offset)
+        valid = (idx >= 0) & (idx < n) \
+            & (part[torch.clamp(idx, 0, n - 1)] == part)
+        taken = v_sorted.take(pa.array(torch.where(valid, idx, 0).numpy()))
+        out = pc.if_else(pa.array(valid.numpy()), taken, null)
+    elif func == "row_number":
+        out = pa.array(W.row_number(part_start).numpy())
+    elif func == "rank":
+        out = pa.array(W.rank_from_ties(part_start, new_tie).numpy())
+    elif func == "dense_rank":
+        out = pa.array(W.dense_rank_from_ties(new_part, new_tie).numpy())
+    elif func == "ntile":
+        out = pa.array(W.ntile(part_start, part_end, plan.offset).numpy())
+    else:
+        _, tie_end = W.segment_bounds(new_tie)
+        lo, hi = W.frame_bounds(part_start, part_end, tie_end, plan.frame,
+                                bool(plan.order_by))
+        if func in ("first_value", "last_value"):
+            arg, nonempty = W.frame_first_last(lo, hi, func == "first_value")
+            out = pc.if_else(pa.array(nonempty.numpy()),
+                             v_sorted.take(pa.array(arg.numpy())), null)
+        elif func == "count" and plan.value is None:
+            out = pa.array(W.frame_count(None, lo, hi).numpy())
+        else:
+            vals, valid = _window_values(v_sorted)
+            if vals is None:
+                # Strings, binary, decimals: arrow's exact whole-partition
+                # aggregate, or an error for a running frame.
+                whole = plan.frame is None and not plan.order_by
+                arrow_funcs = ("min", "max", "sum", "mean") \
+                    if pa.types.is_decimal(v_sorted.type) else ("min", "max")
+                if func in arrow_funcs and whole:
+                    out = _whole_partition_agg_arrow(v_sorted, part.numpy(),
+                                                     func)
+                    if func in ("sum", "mean"):
+                        out = pc.cast(out, pa.float64())
+                elif func == "count":
+                    out = pa.array(W.frame_count(valid, lo, hi).numpy())
+                else:
+                    raise ValueError(
+                        f"Running window {func}() over a "
+                        f"{v_sorted.type} column is not supported; "
+                        f"drop the ORDER BY for a whole-partition "
+                        f"{func}, or cast the column to a "
+                        f"numeric/temporal type")
+            elif func == "count":
+                out = pa.array(W.frame_count(valid, lo, hi).numpy())
+            elif func == "sum":
+                sums, cnt = W.frame_sum(vals, valid, lo, hi)
+                empty = (cnt == 0).numpy()
+                if isinstance(sums, np.ndarray):
+                    # uint64 sums: an int64 result overflows loudly and
+                    # never wraps.
+                    if sums.size and sums.max() > np.iinfo(np.int64).max:
+                        raise ValueError(
+                            "window sum() over a uint64 column "
+                            "overflows the int64 result type")
+                    out = pa.array(sums.astype(np.int64), mask=empty)
+                else:
+                    out = pa.array(sums.numpy(), mask=empty)
+            elif func == "mean":
+                means, cnt = W.frame_mean(vals, valid, lo, hi)
+                out = pa.array(means.numpy(), mask=(cnt == 0).numpy())
+            else:  # min, max
+                arg, cnt = W.frame_min_max(
+                    vals, valid, lo, hi, part_start, part_end, plan.frame,
+                    is_min=(func == "min"))
+                out = pc.if_else(pa.array((cnt > 0).numpy()),
+                                 v_sorted.take(pa.array(arg.numpy())), null)
+    # Back to the input's row order.
+    inverse = torch.empty(n, dtype=torch.int64)
+    inverse[perm_t] = torch.arange(n)
+    out = out.take(pa.array(inverse.numpy()))
+    if plan.name in table.column_names:
+        return table.set_column(table.column_names.index(plan.name),
+                                plan.name, out)
+    return table.append_column(plan.name, out)
 
 
 def _parse_float64(column):

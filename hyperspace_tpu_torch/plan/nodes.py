@@ -1,7 +1,8 @@
-"""Logical plan nodes (counterpart of hyperspace_tpu/plan/nodes.py, the
-nodes a filter, join or aggregate query needs): ``Scan``, ``Filter``,
-``Project``, ``Join``, ``Aggregate``, ``Sort``, ``Limit``, ``InMemory``,
-and the hybrid-scan merges ``BucketUnion`` and ``Union``.  A plan is a small immutable tree; the rules
+"""Logical plan nodes (counterpart of hyperspace_tpu/plan/nodes.py):
+``Scan``, ``Filter``, ``Project``, ``Join``, ``Aggregate``, ``Sort``,
+``Limit``, ``InMemory``, the hybrid-scan merges ``BucketUnion`` and
+``Union``, and the analytic operators ``Compute``, ``Window``,
+``WithColumns``, ``Distinct`` and ``SetOp``.  A plan is a small immutable tree; the rules
 rewrite it with ``transform_up``/``with_children``.  Class names are part
 of the plan signature, so they match the JAX package's, and
 ``tree_string`` prints a plan as the JAX package does."""
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from hyperspace_tpu_torch.plan.expr import Expr
+from hyperspace_tpu_torch.plan.expr import Col as ColRef, Expr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +157,208 @@ class Project(LogicalPlan):
         return f"Project [{', '.join(self.columns)}]"
 
 
+class Compute(LogicalPlan):
+    """A projection by expressions: the output is exactly ``exprs``,
+    (name, Expr) pairs, a passthrough column being ``(name, Col(name))``.
+    The rules never match a Compute; pruning asks its child for the
+    columns its expressions read, so a plain Project lands over the scan
+    below and the rules match that."""
+
+    def __init__(self, exprs: Sequence[Tuple[str, Expr]],
+                 child: LogicalPlan) -> None:
+        if not exprs:
+            raise ValueError("Compute needs at least one output expression")
+        names = [n for n, _ in exprs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"Duplicate output names in select: {names}")
+        self.exprs = tuple((n, e) for n, e in exprs)
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def input_columns(self) -> List[str]:
+        out: set = set()
+        for _n, e in self.exprs:
+            out |= e.referenced_columns()
+        return sorted(out)
+
+    def output_columns(self, schema_of) -> List[str]:
+        return [n for n, _e in self.exprs]
+
+    def with_children(self, children) -> "Compute":
+        (child,) = children
+        return Compute(self.exprs, child)
+
+    def simple_string(self) -> str:
+        parts = []
+        for n, e in self.exprs:
+            if isinstance(e, ColRef) and e.name == n:
+                parts.append(n)
+            else:
+                parts.append(f"{e!r} AS {n}")
+        return f"Compute [{', '.join(parts)}]"
+
+
+class Window(LogicalPlan):
+    """One analytic column, ``func(value) OVER (PARTITION BY keys ORDER
+    BY keys [ROWS frame])``, appended to the child's output (replacing a
+    column of the same name).
+
+    Spark's semantics:
+      - row_number, rank, dense_rank and ntile need an ORDER BY; their
+        results are int32;
+      - an aggregate (sum, min, max, mean, count) without an ORDER BY
+        reduces the whole partition; with one it runs over the default
+        RANGE frame (UNBOUNDED PRECEDING to CURRENT ROW), so rows tied on
+        the order keys share one value;
+      - lag and lead shift ``value`` by ``offset`` rows inside the
+        partition (null outside it); ntile's tile count is ``offset``;
+      - ``frame`` is an explicit ROWS frame (lo, hi) of row offsets
+        (None: unbounded) for an aggregate, first_value or last_value;
+      - the order keys sort nulls first ascending and last descending.
+    """
+
+    RANKING = ("row_number", "rank", "dense_rank", "ntile")
+    AGGREGATES = ("sum", "min", "max", "mean", "count")
+    SHIFTS = ("lag", "lead")
+    POSITIONAL = ("first_value", "last_value")
+
+    def __init__(self, name: str, func: str, value: Optional[str],
+                 partition_by: Sequence[str],
+                 order_by: Sequence[Tuple[str, bool]],
+                 child: LogicalPlan, offset: int = 1,
+                 frame: Optional[Tuple[Optional[int],
+                                       Optional[int]]] = None) -> None:
+        all_funcs = (self.RANKING + self.AGGREGATES + self.SHIFTS
+                     + self.POSITIONAL)
+        if func not in all_funcs:
+            raise ValueError(
+                f"Unsupported window function {func!r}; one of "
+                f"{all_funcs}")
+        if func in self.RANKING + self.SHIFTS and not order_by:
+            raise ValueError(f"{func}() requires an ORDER BY")
+        if func in self.RANKING and func != "ntile" and value is not None:
+            raise ValueError(f"{func}() takes no value column")
+        if func in self.AGGREGATES and func != "count" and value is None:
+            raise ValueError(f"window {func}() needs a value column")
+        if func in self.SHIFTS:
+            if value is None:
+                raise ValueError(f"{func}() needs a value column")
+            if not isinstance(offset, int) or offset < 0:
+                raise ValueError(f"{func}() offset must be a "
+                                 f"non-negative int, got {offset!r}")
+        if func == "ntile":
+            if not isinstance(offset, int) or offset < 1:
+                raise ValueError(f"ntile(n) needs a positive integer "
+                                 f"tile count, got {offset!r}")
+            if value is not None:
+                raise ValueError("ntile() takes no value column")
+        if func in self.POSITIONAL and value is None:
+            raise ValueError(f"{func}() needs a value column")
+        if frame is not None:
+            if func not in self.AGGREGATES + self.POSITIONAL:
+                raise ValueError(
+                    f"A ROWS frame only applies to aggregate/"
+                    f"first_value/last_value windows, not {func}()")
+            if not order_by:
+                raise ValueError("A ROWS frame requires an ORDER BY")
+            lo, hi = frame
+            for b in (lo, hi):
+                if b is not None and not isinstance(b, int):
+                    raise ValueError(f"Frame bounds must be ints or "
+                                     f"None (unbounded), got {b!r}")
+            if lo is not None and hi is not None and lo > hi:
+                raise ValueError(
+                    f"Frame lower bound {lo} is above upper bound {hi}")
+            frame = (lo, hi)
+        self.name = name
+        self.func = func
+        self.value = value
+        self.offset = int(offset)
+        self.frame = frame
+        self.partition_by = tuple(partition_by)
+        self.order_by = tuple((c, bool(a)) for c, a in order_by)
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        base = self.child.output_columns(schema_of)
+        return list(base) + ([self.name] if self.name not in base else [])
+
+    def with_children(self, children) -> "Window":
+        (child,) = children
+        return Window(self.name, self.func, self.value, self.partition_by,
+                      self.order_by, child, offset=self.offset,
+                      frame=self.frame)
+
+    @staticmethod
+    def _bound_string(off: Optional[int], upper: bool) -> str:
+        if off is None:
+            return ("UNBOUNDED FOLLOWING" if upper
+                    else "UNBOUNDED PRECEDING")
+        if off == 0:
+            return "CURRENT ROW"
+        return (f"{off} FOLLOWING" if off > 0
+                else f"{-off} PRECEDING")
+
+    def simple_string(self) -> str:
+        arg = self.value or ""
+        if self.func in self.SHIFTS:
+            arg = f"{arg}, {self.offset}"
+        elif self.func == "ntile":
+            arg = str(self.offset)
+        over = []
+        if self.partition_by:
+            over.append(f"PARTITION BY {', '.join(self.partition_by)}")
+        if self.order_by:
+            keys = ", ".join(f"{c}{'' if a else ' DESC'}"
+                             for c, a in self.order_by)
+            over.append(f"ORDER BY {keys}")
+        if self.frame is not None:
+            lo, hi = self.frame
+            over.append(f"ROWS BETWEEN {self._bound_string(lo, False)} "
+                        f"AND {self._bound_string(hi, True)}")
+        return (f"Window {self.name} := {self.func}({arg}) "
+                f"OVER ({' '.join(over)})")
+
+
+class WithColumns(LogicalPlan):
+    """The child's output with computed columns appended, or replacing
+    the columns of the same names (``ds.with_column``)."""
+
+    def __init__(self, exprs: Sequence[Tuple[str, Expr]],
+                 child: LogicalPlan) -> None:
+        if not exprs:
+            raise ValueError("with_column needs at least one expression")
+        names = [n for n, _ in exprs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"Duplicate with_column names: {names}")
+        self.exprs = tuple((n, e) for n, e in exprs)
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        base = self.child.output_columns(schema_of)
+        new = [n for n, _e in self.exprs if n not in base]
+        return list(base) + new
+
+    def with_children(self, children) -> "WithColumns":
+        (child,) = children
+        return WithColumns(self.exprs, child)
+
+    def simple_string(self) -> str:
+        parts = ", ".join(f"{n} := {e!r}" for n, e in self.exprs)
+        return f"WithColumns [{parts}]"
+
+
 class Join(LogicalPlan):
     """Equi-join of any SQL join type.  The join index rule rewrites
     inner equi-joins only; index scans under any type still run bucket
@@ -192,6 +395,62 @@ class Join(LogicalPlan):
 
     def simple_string(self) -> str:
         return f"Join {self.how} on {self.condition!r}"
+
+
+class Distinct(LogicalPlan):
+    """The distinct rows of the child's whole output (SQL DISTINCT)."""
+
+    def __init__(self, child: LogicalPlan) -> None:
+        self.children = (child,)
+
+    @property
+    def child(self) -> LogicalPlan:
+        return self.children[0]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return self.child.output_columns(schema_of)
+
+    def with_children(self, children) -> "Distinct":
+        (child,) = children
+        return Distinct(child)
+
+    def simple_string(self) -> str:
+        return "Distinct"
+
+
+class SetOp(LogicalPlan):
+    """INTERSECT or EXCEPT with SQL set semantics: the distinct rows of
+    the left side that do (intersect) or do not (except) appear in the
+    right side, rows compared null-safely (NULL equals NULL, unlike a
+    join predicate).  Columns pair by position."""
+
+    KINDS = ("intersect", "except")
+
+    def __init__(self, kind: str, left: LogicalPlan,
+                 right: LogicalPlan) -> None:
+        if kind not in self.KINDS:
+            raise ValueError(f"SetOp kind must be one of {self.KINDS}, "
+                             f"got {kind!r}")
+        self.kind = kind
+        self.children = (left, right)
+
+    @property
+    def left(self) -> LogicalPlan:
+        return self.children[0]
+
+    @property
+    def right(self) -> LogicalPlan:
+        return self.children[1]
+
+    def output_columns(self, schema_of) -> List[str]:
+        return self.left.output_columns(schema_of)
+
+    def with_children(self, children) -> "SetOp":
+        left, right = children
+        return SetOp(self.kind, left, right)
+
+    def simple_string(self) -> str:
+        return self.kind.upper()
 
 
 class Sort(LogicalPlan):

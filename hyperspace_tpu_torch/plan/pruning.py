@@ -1,5 +1,5 @@
-"""Column pruning (counterpart of hyperspace_tpu/plan/pruning.py, for
-the nodes of a filter, join or aggregate query): push minimal Projects down to each
+"""Column pruning (counterpart of hyperspace_tpu/plan/pruning.py): push
+minimal Projects down to each
 relation, so a join side asks only for the columns it needs (which lets
 a covering index apply) and scans read only those columns.
 
@@ -14,14 +14,19 @@ from typing import List, Optional, Set
 from hyperspace_tpu_torch.plan.nodes import (
     Aggregate,
     BucketUnion,
+    Compute,
+    Distinct,
     Filter,
     Join,
     Limit,
     LogicalPlan,
     Project,
     Scan,
+    SetOp,
     Sort,
     Union,
+    Window,
+    WithColumns,
 )
 from hyperspace_tpu_torch.utils.resolver import resolve
 
@@ -50,6 +55,46 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]],
         if new_child is not plan.child or cols != plan.columns:
             return Project(cols, new_child)
         return plan
+    if isinstance(plan, Compute):
+        # Like a Project: its subtree must produce the columns its
+        # expressions read.
+        new_child = _prune(plan.child, set(plan.input_columns()), schema_of)
+        if new_child is not plan.child:
+            return Compute(plan.exprs, new_child)
+        return plan
+    if isinstance(plan, WithColumns):
+        # A computed column nothing above requires is dropped (its inputs
+        # would otherwise survive pruning for a discarded value); the
+        # kept ones' inputs and the parent's other needs flow down.
+        if required is None:
+            keep = plan.exprs
+        else:
+            keep = tuple((n, e) for n, e in plan.exprs if n in required)
+        expr_refs: Set[str] = set()
+        for _n, e in keep:
+            expr_refs |= e.referenced_columns()
+        child_required = None if required is None else (
+            (required - {n for n, _e in keep}) | expr_refs)
+        new_child = _prune(plan.child, child_required, schema_of)
+        if not keep:
+            return new_child
+        # Lengths, not tuples, compare: == on an Expr builds a BinOp.
+        if new_child is not plan.child or len(keep) != len(plan.exprs):
+            return WithColumns(keep, new_child)
+        return plan
+    if isinstance(plan, Window):
+        if required is not None and plan.name not in required:
+            # Nothing above reads the analytic column: drop the node.
+            return _prune(plan.child, required, schema_of)
+        refs = set(plan.partition_by) | {c for c, _a in plan.order_by}
+        if plan.value:
+            refs.add(plan.value)
+        child_required = None if required is None else (
+            (required - {plan.name}) | refs)
+        new_child = _prune(plan.child, child_required, schema_of)
+        if new_child is not plan.child:
+            return plan.with_children((new_child,))
+        return plan
     if isinstance(plan, Aggregate):
         # Like a Project, an Aggregate defines what its subtree must
         # produce: the group keys and the aggregated inputs (count_all's
@@ -77,6 +122,20 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]],
         new_child = _prune(plan.child, required, schema_of)
         if new_child is not plan.child:
             return Limit(plan.n, new_child)
+        return plan
+    if isinstance(plan, Distinct):
+        # DISTINCT compares whole rows: narrowing its child would change
+        # the row multiplicity.
+        new_child = _prune(plan.child, None, schema_of)
+        if new_child is not plan.child:
+            return Distinct(new_child)
+        return plan
+    if isinstance(plan, SetOp):
+        # Set operations compare whole rows on both sides.
+        new_left = _prune(plan.left, None, schema_of)
+        new_right = _prune(plan.right, None, schema_of)
+        if new_left is not plan.left or new_right is not plan.right:
+            return SetOp(plan.kind, new_left, new_right)
         return plan
     if isinstance(plan, Join):
         cond_cols = set(plan.condition.referenced_columns())

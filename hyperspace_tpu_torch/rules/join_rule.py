@@ -24,7 +24,14 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, States
 from hyperspace_tpu_torch.plan.expr import Expr, as_equi_join_pairs
-from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan
+from hyperspace_tpu_torch.plan.nodes import (
+    Aggregate,
+    Compute,
+    Filter,
+    Join,
+    LogicalPlan,
+    WithColumns,
+)
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.rankers import rank_join_index_pairs
 from hyperspace_tpu_torch.utils.resolver import resolve
@@ -130,13 +137,20 @@ class JoinIndexRule:
 
     def _required_columns(self, side_plan: LogicalPlan) -> List[str]:
         """The source columns a side must provide: its output plus the
-        columns its filters read.  An aggregate's output needed above is
-        replaced by its input columns; its group keys pass through."""
+        columns its filters read.  A computed column (a Compute's or
+        WithColumns' expression, an aggregate's output) needed above is
+        replaced by the columns its expression or input reads, since the
+        computation runs above the scan; group keys pass through."""
         needed: Set[str] = set(side_plan.output_columns(self.session.schema_of))
 
         def walk(node: LogicalPlan) -> None:
             if isinstance(node, Filter):
                 needed.update(node.condition.referenced_columns())
+            elif isinstance(node, (Compute, WithColumns)):
+                for name, e in node.exprs:
+                    if name in needed:
+                        needed.discard(name)
+                        needed.update(e.referenced_columns())
             elif isinstance(node, Aggregate):
                 for _func, agg_in, out in node.aggs:
                     if out in needed:

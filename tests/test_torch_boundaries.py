@@ -45,7 +45,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "ops/aggregate.py", "ops/join_agg.py",
                    "execution/device_cache.py", "utils/calibrate.py",
                    "telemetry/build_report.py", "actions/data_skipping.py",
-                   "rules/data_skipping.py", "ops/zorder.py"):
+                   "rules/data_skipping.py", "ops/zorder.py",
+                   "ops/window.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -68,7 +69,8 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "telemetry/build_report.py", "actions/data_skipping.py",
                    "rules/data_skipping.py", "actions/verify.py",
                    "actions/repair.py", "execution/containment.py",
-                   "ops/zorder.py"):
+                   "ops/zorder.py", "ops/window.py",
+                   "execution/executor.py", "plan/pruning.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -495,6 +497,57 @@ def test_the_zorder_layout_imports_no_jax(tmp_path):
         assert "z" in [x.relation.index_scan_of
                        for x in q.optimized_plan().leaf_relations()]
         assert q.collect().num_rows > 0
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_analytic_operators_import_no_jax(tmp_path):
+    """Windows on the host engine and on the device-segment route,
+    computed columns, DISTINCT and the set operations, each through the
+    port's entry points; ``ops/window.py``, the executor and pruning
+    load without pyarrow."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        from hyperspace_tpu_torch.ops import window
+        from hyperspace_tpu_torch.execution import executor
+        from hyperspace_tpu_torch.plan import pruning
+        assert "pyarrow" not in sys.modules
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import HyperspaceSession, col
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{"g": rng.integers(0, 5, 400),
+                                  "o": rng.integers(0, 50, 400),
+                                  "v": rng.random(400)}}),
+                       os.path.join(data, "p.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.device_agg_min_rows = 0
+        ds = s.read.parquet(data)
+        out = (ds.with_window("t", "sum", partition_by=["g"], value="v")
+               .with_window("r", "rank", partition_by=["g"], order_by=["o"])
+               .with_window("m", "min", partition_by=["g"], order_by=["o"],
+                            value="v", frame=(-2, 2))
+               .select("g", "t", "r", "m", w=col("v") * 2).collect())
+        assert out.num_rows == 400
+        assert s.last_execution_stats["windows"][0]["strategy"] \\
+            == "device-segment"
+        assert ds.select("g").distinct().count() == 5
+        assert ds.select("g").intersect(ds.select("g")).count() == 5
+        assert ds.select("g").subtract(ds.select("g")).count() == 0
+        assert ds.union(ds.with_column("x", col("o") + 1)).count() == 800
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

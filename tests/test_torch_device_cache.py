@@ -3,7 +3,7 @@ the JAX package's (execution/device_cache.py and the executor's
 residency routing).
 
 Every test of tests/test_device_cache.py but the three window tests
-(the port has no ``Window`` node yet), and the residency tests of
+(tests/test_torch_window.py holds those), and the residency tests of
 tests/test_join_agg.py, run here as one sequence of queries through
 both packages over the same data, each package with its own copy of
 the files and its own system path.  Both sessions get the same explicit
