@@ -265,6 +265,37 @@ beside it.
            functions on CPU tensors over the sorted layouts (ints and
            rows bit for bit, sums within the prefix bound), both timed:
            a measurement, no route.  Prints ``{"window": ...}``.
+  phase L  the plan language, after phase K, at SF1: TPC-H-shaped
+           ``orders`` (1,500,000 rows) and ``lineitem`` (6,000,000) in
+           64 files each from ``default_rng(31)`` (``l_gen``), with
+           TPC-H's names and value domains (dates as date32 rising with
+           file order, the five priorities, the seven ship modes,
+           comments from a small vocabulary with 1% nulls); ``li_q`` on
+           ``l_orderkey`` and ``ord_q`` on ``o_orderkey`` (16 buckets,
+           covering what the queries read) and ``li_q_ds`` on
+           ``l_shipdate``, with the launch counts set to 0 before the
+           builds and read after them (both kernels must have
+           launched: ``L builds``), then set to 0 again before the
+           queries and read after them (neither may have launched:
+           ``L plan language``).  Every threshold pinned to 0.
+           Seventeen queries, each held to numpy's answer (``l_expected``;
+           ints, strings and dates exactly, float sums within AGG_RTOL)
+           on a checked collect from an emptied cache and on
+           L_TIMED_RUNS timed ones: ``year_1995`` (no ``year(`` left in
+           the plan, the filter on the card, files kept equal to numpy's
+           count of the files whose dates meet 1995), ``year_isin`` (the
+           covering interval's files), ``month_3`` (a host ``Extract``,
+           no file pruned), TPC-H ``q12`` (CASE sums over ``li_q`` ⋈
+           ``ord_q``, both indexes in the plan), Q13's orders side
+           (``NOT LIKE``; there is no customer table, so its outer join
+           is left out), the string functions and matches, ``q4`` (a
+           semi join), Q17's shape (a correlated scalar: an aggregate
+           and an inner join), Q22's scalar (a literal in the plan, the
+           filter on the card), ``in``, ``not_in`` and ``not_in_null``
+           (a CASE without ELSE makes the null: no row), and Q21's shape
+           over one month's orders (a semi and an anti join, each with a
+           residual).  Prints ``{"plan_language": ...}``: per query its
+           ms, rows, routes, files kept and plan facts.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -291,10 +322,10 @@ the queries JSON (phase D's with its ``eviction`` run, phase G's as
 ``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
 H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
-K's ``K analytic``), the
+K's ``K analytic``, phase L's ``L builds`` and ``L plan language``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
-(phase K), the card's name and power limit, and ``{"ok": true,
-"device": ...}``.
+(phase K), the plan-language JSON (phase L), the card's name and power
+limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -302,6 +333,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -413,6 +445,32 @@ K_SET_A = (100_000, 160_000)    # step 5: two overlapping key ranges
 K_SET_B = (140_000, 200_000)
 K_UNION_KEYS = (POINT_KEY, POINT_KEY + 1)
 K_DISTINCT_ROWS = 4 * 49        # (l_status, l_quantity) pairs
+# Phase L: the plan language over TPC-H-shaped orders and lineitem.
+L_SEED = 31
+L_ORDERS = N_ORDERS
+L_LINEITEM = N_LINEITEM
+L_CUSTOMERS = 150_000           # TPC-H SF1's customer count
+L_SUPPLIERS = 10_000            # TPC-H SF1's supplier count
+L_FIRST_DAY = 8035              # 1992-01-01, days since 1970-01-01
+L_LAST_DAY = 10440              # 1998-08-02, TPC-H's last order date
+L_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+L_SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+L_WORDS = ("special", "requests", "pending", "deposits", "furiously",
+           "carefully", "quickly", "final", "accounts", "packages",
+           "ironic", "regular")
+L_PHRASES = 256                 # distinct comments, 2-6 words each
+L_COMMENT_NULLS = 0.01
+L_LI_INDEX = "li_q"
+L_ORD_INDEX = "ord_q"
+L_DS_INDEX = "li_q_ds"
+L_LI_INCLUDED = ["l_suppkey", "l_quantity", "l_extendedprice", "l_shipdate",
+                 "l_commitdate", "l_receiptdate", "l_shipmode"]
+L_ORD_INCLUDED = ["o_custkey", "o_totalprice", "o_orderpriority"]
+L_TIMED_RUNS = 2                # timed collects after the checked one
+L_STRING_KEYS = (600_000, 615_000)  # 1% of the order keys
+L_Q21_MONTH = (9190, 9221)      # 1995-03-01 .. 1995-04-01: ~1/80 of orders
+L_Q4_QUARTER = (8582, 8674)     # 1993-07-01 .. 1993-10-01
+L_NULL_KEYS = (0, 20_000)       # NOT IN with a null: the keys scanned
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -3136,6 +3194,475 @@ def phase_k(li: dict, root: str, dev) -> dict:
     return out
 
 
+def l_gen() -> tuple:
+    """TPC-H-shaped orders and lineitem at L_ORDERS and L_LINEITEM rows
+    from ``default_rng(L_SEED)``, TPC-H's names and value domains: keys
+    ascend with the order date, so the dates rise with file order as an
+    appending lake writes them.  Strings are dictionary codes here (the
+    numpy oracle reads the codes); ``l_arrow`` decodes them."""
+    rng = np.random.default_rng(L_SEED)
+    span = L_LAST_DAY - L_FIRST_DAY + 1
+    o_date = L_FIRST_DAY + np.arange(L_ORDERS, dtype=np.int64) * span // L_ORDERS
+    phrases = []
+    for _ in range(L_PHRASES):
+        words = rng.choice(L_WORDS, size=int(rng.integers(2, 7)))
+        phrases.append(" ".join(words))
+    orders = {
+        "o_orderkey": np.arange(L_ORDERS, dtype=np.int64),
+        "o_custkey": rng.integers(0, L_CUSTOMERS, L_ORDERS),
+        "o_totalprice": rng.random(L_ORDERS) * 1e5,
+        "o_orderdate": o_date,
+        "o_orderpriority": rng.integers(0, len(L_PRIORITIES), L_ORDERS),
+        "o_comment": rng.integers(0, L_PHRASES, L_ORDERS),
+        "o_comment_valid": rng.random(L_ORDERS) >= L_COMMENT_NULLS,
+    }
+    key = np.sort(rng.integers(0, L_ORDERS, L_LINEITEM))
+    ship = o_date[key] + rng.integers(1, 122, L_LINEITEM)
+    li = {
+        "l_orderkey": key,
+        "l_suppkey": rng.integers(0, L_SUPPLIERS, L_LINEITEM),
+        "l_quantity": rng.integers(1, 51, L_LINEITEM).astype(np.float64),
+        "l_extendedprice": rng.random(L_LINEITEM) * 1e4,
+        "l_discount": rng.integers(0, 11, L_LINEITEM) / 100.0,
+        "l_shipdate": ship,
+        "l_commitdate": o_date[key] + rng.integers(30, 91, L_LINEITEM),
+        "l_receiptdate": ship + rng.integers(1, 31, L_LINEITEM),
+        "l_shipmode": rng.integers(0, len(L_SHIPMODES), L_LINEITEM),
+    }
+    return orders, li, phrases
+
+
+def l_arrow(orders: dict, li: dict, phrases: list) -> tuple:
+    """The two tables as arrow columns: dates as date32, the string
+    codes decoded (a null comment where ``o_comment_valid`` is false)."""
+    import pyarrow as pa
+
+    def strings(codes, values, valid=None):
+        mask = None if valid is None else ~valid
+        return pa.DictionaryArray.from_arrays(
+            pa.array(codes.astype(np.int32), mask=mask),
+            pa.array(list(values))).dictionary_decode()
+
+    def dates(days):
+        return pa.array(days.astype("datetime64[D]"))
+
+    o = {"o_orderkey": orders["o_orderkey"], "o_custkey": orders["o_custkey"],
+         "o_totalprice": orders["o_totalprice"],
+         "o_orderdate": dates(orders["o_orderdate"]),
+         "o_orderpriority": strings(orders["o_orderpriority"], L_PRIORITIES),
+         "o_comment": strings(orders["o_comment"], phrases,
+                              orders["o_comment_valid"])}
+    line = {c: (dates(v) if c.endswith("date") else v)
+            for c, v in li.items() if c != "l_shipmode"}
+    line["l_shipmode"] = strings(li["l_shipmode"], L_SHIPMODES)
+    return o, line
+
+
+def l_year_days(year: int) -> tuple:
+    import datetime
+
+    epoch = datetime.date(1970, 1, 1)
+    return ((datetime.date(year, 1, 1) - epoch).days,
+            (datetime.date(year + 1, 1, 1) - epoch).days)
+
+
+def l_files_meeting(days: np.ndarray, ranges) -> int:
+    """How many of write_files' N_FILES files hold a date range that
+    meets one of ``ranges`` ([lo, hi) in days)."""
+    step = -(-len(days) // N_FILES)
+    kept = 0
+    for f in range(N_FILES):
+        part = days[f * step:(f + 1) * step]
+        if len(part) and any(part.max() >= lo and part.min() < hi
+                             for lo, hi in ranges):
+            kept += 1
+    return kept
+
+
+def l_expected(orders: dict, li: dict, phrases: list) -> dict:
+    """Each query's answer (column -> numpy array) from the generated
+    arrays, and the files a year range keeps."""
+    import re
+
+    out = {}
+    ship = li["l_shipdate"]
+    price = li["l_extendedprice"]
+
+    def total(mask, name="revenue"):
+        return {"n": np.array([int(mask.sum())], dtype=np.int64),
+                name: np.array([price[mask].sum()])}
+
+    y95 = l_year_days(1995)
+    out["year_1995"] = total((ship >= y95[0]) & (ship < y95[1]))
+    out["year_1995_files"] = l_files_meeting(ship, [y95])
+    both = [l_year_days(1994), l_year_days(1996)]
+    out["year_isin"] = total(((ship >= both[0][0]) & (ship < both[0][1]))
+                             | ((ship >= both[1][0]) & (ship < both[1][1])))
+    # The sketches prune an OR of ranges by its covering interval.
+    out["year_isin_files"] = l_files_meeting(ship, [(both[0][0], both[1][1])])
+    months = ship.astype("datetime64[D]").astype("datetime64[M]").astype(np.int64) % 12
+    out["month_3"] = total(months == 2)
+
+    # q12: MAIL and SHIP, received in 1994, high and low priority lines.
+    y94 = l_year_days(1994)
+    modes = [L_SHIPMODES.index("MAIL"), L_SHIPMODES.index("SHIP")]
+    mask = (np.isin(li["l_shipmode"], modes)
+            & (li["l_commitdate"] < li["l_receiptdate"])
+            & (li["l_shipdate"] < li["l_commitdate"])
+            & (li["l_receiptdate"] >= y94[0]) & (li["l_receiptdate"] < y94[1]))
+    pri = orders["o_orderpriority"][li["l_orderkey"][mask]]
+    mode = li["l_shipmode"][mask]
+    order = sorted(modes, key=lambda m: L_SHIPMODES[m])
+    out["q12"] = {
+        "l_shipmode": np.array([L_SHIPMODES[m] for m in order], dtype=object),
+        "high_line_count": np.array([int(((mode == m) & (pri <= 1)).sum())
+                                     for m in order], dtype=np.int64),
+        "low_line_count": np.array([int(((mode == m) & (pri > 1)).sum())
+                                    for m in order], dtype=np.int64)}
+
+    # q13's orders side: NOT LIKE '%special%requests%' (a null drops).
+    like = np.array([re.search("special.*requests", p) is not None
+                     for p in phrases])
+    keep = orders["o_comment_valid"] & ~like[orders["o_comment"]]
+    per_cust = np.bincount(orders["o_custkey"][keep], minlength=L_CUSTOMERS)
+    counts = per_cust[per_cust > 0]
+    dist = np.bincount(counts)
+    c_count = np.flatnonzero(dist)
+    order = np.lexsort((-c_count, -dist[c_count]))
+    out["q13_orders"] = {"c_count": c_count[order].astype(np.int64),
+                         "custdist": dist[c_count][order].astype(np.int64)}
+
+    # strings.
+    pri_all = orders["o_orderpriority"]
+    names = sorted(range(len(L_PRIORITIES)), key=lambda i: L_PRIORITIES[i])
+    out["strings_digit_sum"] = {
+        "o_orderpriority": np.array([L_PRIORITIES[i] for i in names],
+                                    dtype=object),
+        "digit": np.array([int((pri_all == i).sum()) * int(L_PRIORITIES[i][0])
+                           for i in names], dtype=np.int64)}
+    lo, hi = L_STRING_KEYS
+    sel = np.arange(lo, hi)
+    text = [L_PRIORITIES[i] for i in pri_all[sel]]
+    out["strings_functions"] = {
+        "o_orderkey": orders["o_orderkey"][sel],
+        "u": np.array([t.upper() for t in text], dtype=object),
+        "lo": np.array([t.lower() for t in text], dtype=object),
+        "n": np.array([len(t) for t in text], dtype=np.int32),
+        "t": np.array([t.strip() for t in text], dtype=object),
+        "c": np.array([f"{t}-{c}" for t, c in
+                       zip(text, orders["o_custkey"][sel])], dtype=object)}
+    codes = np.bincount(li["l_shipmode"], minlength=len(L_SHIPMODES))
+    out["strings_matches"] = {
+        label: np.array([sum(int(codes[i]) for i, m in enumerate(L_SHIPMODES)
+                             if test(m))], dtype=np.int64)
+        for label, test in (("startswith", lambda m: m.startswith("R")),
+                            ("endswith", lambda m: m.endswith("AIR")),
+                            ("contains", lambda m: "AI" in m))}
+
+    # q4: orders of 1993 Q3 with a late line, per priority.
+    late = li["l_commitdate"] < li["l_receiptdate"]
+    q_lo, q_hi = L_Q4_QUARTER
+    in_q = (orders["o_orderdate"] >= q_lo) & (orders["o_orderdate"] < q_hi)
+    has = in_q & np.isin(orders["o_orderkey"], li["l_orderkey"][late])
+    out["q4"] = {
+        "o_orderpriority": np.array([L_PRIORITIES[i] for i in names],
+                                    dtype=object),
+        "order_count": np.array([int((has & (pri_all == i)).sum())
+                                 for i in names], dtype=np.int64)}
+    out["q4"] = {c: v[out["q4"]["order_count"] > 0]
+                 for c, v in out["q4"].items()}
+
+    # q17's shape: quantity under 0.2 of its supplier's mean.
+    supp = li["l_suppkey"]
+    sums = np.bincount(supp, weights=li["l_quantity"], minlength=L_SUPPLIERS)
+    cnt = np.bincount(supp, minlength=L_SUPPLIERS)
+    mean = sums / np.maximum(cnt, 1)
+    mask = li["l_quantity"] < 0.2 * mean[supp]
+    out["q17_shape"] = {"avg_yearly": np.array([price[mask].sum() / 7.0])}
+
+    # q22's scalar: orders above the mean price.
+    tp = orders["o_totalprice"]
+    m = tp > tp.mean()
+    out["q22_scalar"] = {"n": np.array([int(m.sum())], dtype=np.int64),
+                         "total": np.array([tp[m].sum()])}
+
+    # IN and NOT IN over the orders under PRICE_BELOW.
+    cheap = orders["o_orderkey"][tp < PRICE_BELOW]
+    hit = np.isin(li["l_orderkey"], cheap)
+    out["in"] = total(hit)
+    out["not_in"] = total(~hit)
+    out["not_in_null"] = {"n": np.array([0], dtype=np.int64)}
+    lo, hi = L_NULL_KEYS
+    if not (tp[lo:hi] >= PRICE_BELOW).any():
+        raise AssertionError("phase L: the NOT IN key range makes no null")
+
+    # q21's shape: late lines of one month's orders whose order has
+    # another supplier, none of them late.
+    m_lo, m_hi = L_Q21_MONTH
+    k0, k1 = np.searchsorted(orders["o_orderdate"], [m_lo, m_hi])
+    rows = np.flatnonzero((li["l_orderkey"] >= k0) & (li["l_orderkey"] < k1))
+    ok, sk, lt = li["l_orderkey"][rows], supp[rows], late[rows]
+    # late here is l_receiptdate > l_commitdate, as the query writes it.
+    pair = ok * (L_SUPPLIERS + 1) + sk
+    _, pair_ix, pair_n = np.unique(pair, return_inverse=True, return_counts=True)
+    _, ord_ix, ord_n = np.unique(ok, return_inverse=True, return_counts=True)
+    late_pair = np.bincount(pair_ix, weights=lt, minlength=len(pair_n))
+    late_ord = np.bincount(ord_ix, weights=lt, minlength=len(ord_n))
+    other = ord_n[ord_ix] - pair_n[pair_ix] > 0
+    other_late = late_ord[ord_ix] - late_pair[pair_ix] > 0
+    hit = lt & other & ~other_late
+    per = np.bincount(sk[hit], minlength=L_SUPPLIERS)
+    present = np.flatnonzero(per)
+    order = present[np.lexsort((present, -per[present]))][:100]
+    out["q21_shape"] = {"l_suppkey": order.astype(np.int64),
+                        "numwait": per[order].astype(np.int64)}
+    out["q21_keys"] = (int(k0), int(k1))
+    return out
+
+
+def l_queries(session, root: str, keys21: tuple) -> dict:
+    """Phase L's queries as Datasets of ``session``: name -> (Dataset,
+    the sort keys to compare its rows by, or None for its own order)."""
+    import datetime
+
+    from hyperspace_tpu_torch import (
+        col,
+        concat,
+        exists,
+        in_subquery,
+        length,
+        lit,
+        lower,
+        month,
+        outer_ref,
+        scalar,
+        substring,
+        trim,
+        upper,
+        when,
+        year,
+    )
+
+    li = lambda: session.read.parquet(os.path.join(root, "l_lineitem"))  # noqa: E731
+    orders = lambda: session.read.parquet(os.path.join(root, "l_orders"))  # noqa: E731
+    epoch = datetime.date(1970, 1, 1)
+
+    def day(n):
+        return epoch + datetime.timedelta(days=n)
+
+    def totals(ds, name="revenue"):
+        return ds.agg(n=("l_extendedprice", "count_all"),
+                      **{name: ("l_extendedprice", "sum")})
+
+    urgent = col("o_orderpriority").isin(["1-URGENT", "2-HIGH"])
+    cheap = orders().filter(col("o_totalprice") < PRICE_BELOW).select("o_orderkey")
+    lo, hi = L_NULL_KEYS
+    with_null = orders().filter((col("o_orderkey") >= lo) & (col("o_orderkey") < hi)) \
+        .select(k=when(col("o_totalprice") < PRICE_BELOW, col("o_orderkey")).end())
+    k0, k1 = keys21
+    late = col("l_receiptdate") > col("l_commitdate")
+    same_order = col("l_orderkey") == outer_ref("l_orderkey")
+    other_supp = col("l_suppkey") != outer_ref("l_suppkey")
+    s_lo, s_hi = L_STRING_KEYS
+    q_lo, q_hi = L_Q4_QUARTER
+    return {
+        "year_1995": (totals(li().filter(year("l_shipdate") == 1995)), None),
+        "year_isin": (totals(li().filter(year("l_shipdate").isin([1994, 1996]))),
+                      None),
+        "month_3": (totals(li().filter(month("l_shipdate") == 3)), None),
+        "q12": (li().filter(col("l_shipmode").isin(["MAIL", "SHIP"])
+                            & (col("l_commitdate") < col("l_receiptdate"))
+                            & (col("l_shipdate") < col("l_commitdate"))
+                            & (year("l_receiptdate") == 1994))
+                .join(orders(), col("l_orderkey") == col("o_orderkey"))
+                .group_by("l_shipmode")
+                .agg(high_line_count=(when(urgent, 1).otherwise(0), "sum"),
+                     low_line_count=(when(~urgent, 1).otherwise(0), "sum"))
+                .sort("l_shipmode"), None),
+        "q13_orders": (orders().filter(~col("o_comment").like("%special%requests%"))
+                       .group_by("o_custkey").agg(c_count=("o_orderkey", "count"))
+                       .group_by("c_count").agg(custdist=("o_custkey", "count_all"))
+                       .sort(("custdist", False), ("c_count", False)), None),
+        "strings_digit_sum": (orders().group_by("o_orderpriority").agg(
+            digit=(substring("o_orderpriority", 1, 1).cast("int"), "sum"))
+            .sort("o_orderpriority"), None),
+        "strings_functions": (orders().filter((col("o_orderkey") >= s_lo)
+                                              & (col("o_orderkey") < s_hi))
+                              .select("o_orderkey", u=upper("o_orderpriority"),
+                                      lo=lower("o_orderpriority"),
+                                      n=length("o_orderpriority"),
+                                      t=trim("o_orderpriority"),
+                                      c=concat("o_orderpriority", lit("-"),
+                                               "o_custkey")),
+                              ["o_orderkey"]),
+        # One scan of l_shipmode counts all three matches.
+        "strings_matches": (li().agg(**{
+            label: (when(match, 1).otherwise(0), "sum") for label, match in (
+                ("startswith", col("l_shipmode").startswith("R")),
+                ("endswith", col("l_shipmode").endswith("AIR")),
+                ("contains", col("l_shipmode").contains("AI")))}), None),
+        "q4": (orders().filter((col("o_orderdate") >= day(q_lo))
+                               & (col("o_orderdate") < day(q_hi))
+                               & exists(li().filter(
+                                   (col("l_orderkey") == outer_ref("o_orderkey"))
+                                   & (col("l_commitdate") < col("l_receiptdate")))))
+               .group_by("o_orderpriority")
+               .agg(order_count=("o_orderkey", "count_all"))
+               .sort("o_orderpriority"), None),
+        "q17_shape": (li().filter(col("l_quantity") < 0.2 * scalar(
+            li().filter(col("l_suppkey") == outer_ref("l_suppkey"))
+            .agg(m=("l_quantity", "mean"))))
+            .agg(total=("l_extendedprice", "sum"))
+            .select(avg_yearly=col("total") / 7.0), None),
+        "q22_scalar": (orders().filter(col("o_totalprice") > scalar(
+            orders().agg(m=("o_totalprice", "mean"))))
+            .agg(n=("o_totalprice", "count_all"), total=("o_totalprice", "sum")),
+            None),
+        "in": (totals(li().filter(in_subquery("l_orderkey", cheap))), None),
+        "not_in": (totals(li().filter(~in_subquery("l_orderkey", cheap))), None),
+        "not_in_null": (li().filter(~in_subquery("l_orderkey", with_null))
+                        .agg(n=("l_extendedprice", "count_all")), None),
+        "q21_shape": (li().filter((col("l_orderkey") >= k0)
+                                  & (col("l_orderkey") < k1) & late)
+                      .filter(exists(li().filter(same_order & other_supp))
+                              & ~exists(li().filter(same_order & other_supp
+                                                    & late)))
+                      .group_by("l_suppkey").agg(numwait=("l_orderkey", "count_all"))
+                      .sort(("numwait", False), "l_suppkey").limit(100), None),
+    }
+
+
+def l_plan_facts(name: str, plan, ds_index: str) -> dict:
+    """What query ``name``'s optimized plan must show, checked: the
+    canonicalized year (no ``year(``), the host ``month(``, the folded
+    literal, the semi join, the residual, the two indexes of q12."""
+    text = plan.tree_string()
+    facts = {"extract": "year(" in text or "month(" in text,
+             "scalar_subquery": "scalar_subquery" in text,
+             "semi": "Join semi" in text, "anti": "Join anti" in text,
+             "residual": " residual " in text,
+             "indexes": sorted(name_ for name_, _ in index_scans(plan))}
+    kept = [sc.relation.data_skipping_stats for sc in plan.leaf_relations()
+            if sc.relation.data_skipping_of == ds_index]
+    facts["files"] = list(kept[0]) if kept and kept[0] is not None else None
+    want = {
+        "year_1995": not facts["extract"], "year_isin": not facts["extract"],
+        "month_3": "month(" in text,
+        "q12": facts["indexes"] == sorted([L_LI_INDEX, L_ORD_INDEX]),
+        "q4": facts["semi"] and not facts["scalar_subquery"],
+        "q17_shape": not facts["scalar_subquery"] and "Join inner" in text,
+        "q22_scalar": not facts["scalar_subquery"]
+        and re.search(r"Filter \(col\('o_totalprice'\) > lit\(", text) is not None,
+        "in": facts["semi"], "not_in": facts["anti"],
+        "not_in_null": "lit(False)" in text,
+        "q21_shape": facts["semi"] and facts["anti"] and facts["residual"],
+    }.get(name, True)
+    if not want:
+        raise AssertionError(f"phase L {name}: plan\n{text}")
+    return facts
+
+
+def phase_l(root: str, dev) -> dict:
+    """The plan language at SF1 (see the module docstring)."""
+    from hyperspace_tpu_torch import (
+        DataSkippingIndexConfig,
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+    )
+    from hyperspace_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    device_cache().clear()
+    t0 = time.perf_counter()
+    orders, li, phrases = l_gen()
+    o_cols, li_cols = l_arrow(orders, li, phrases)
+    write_files(o_cols, os.path.join(root, "l_orders"))
+    write_files(li_cols, os.path.join(root, "l_lineitem"))
+    del o_cols, li_cols
+    want = l_expected(orders, li, phrases)
+    out: dict = {"datagen_s": time.perf_counter() - t0,
+                 "rows": {"orders": L_ORDERS, "lineitem": L_LINEITEM}}
+
+    session = HyperspaceSession(system_path=os.path.join(root, "l_indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    hs = Hyperspace(session)
+    kernels.reset_launch_counts()
+    builds = {}
+    for name, src, config in (
+            (L_LI_INDEX, "l_lineitem",
+             IndexConfig(L_LI_INDEX, ["l_orderkey"], L_LI_INCLUDED)),
+            (L_ORD_INDEX, "l_orders",
+             IndexConfig(L_ORD_INDEX, ["o_orderkey"], L_ORD_INCLUDED)),
+            (L_DS_INDEX, "l_lineitem",
+             DataSkippingIndexConfig(L_DS_INDEX, ["l_shipdate"]))):
+        t0 = time.perf_counter()
+        hs.create_index(session.read.parquet(os.path.join(root, src)), config)
+        builds[name] = time.perf_counter() - t0
+    out["build_s"] = builds
+    out["launches_builds"] = kernels.launch_counts()
+    # On CPU tensors (a rehearsal) the plain versions count no launch.
+    missing = [k for k, v in out["launches_builds"].items() if v <= 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"phase L: kernels not launched by the builds: "
+                             f"{missing}")
+    session.enable_hyperspace()
+
+    queries = l_queries(session, root, want["q21_keys"])
+    out["queries"] = {}
+    kernels.reset_launch_counts()
+    for name, (ds, keys) in queries.items():
+        t0 = time.perf_counter()
+        plan = ds.optimized_plan()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        facts = l_plan_facts(name, plan, L_DS_INDEX)
+        device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds.collect()
+        checked_ms = (time.perf_counter() - t0) * 1e3
+        stats = session.last_execution_stats
+        require_rows(f"phase L {name}", got, want[name], keys, rtol=AGG_RTOL)
+        times = []
+        for _ in range(L_TIMED_RUNS):
+            t0 = time.perf_counter()
+            again = ds.collect()
+            times.append((time.perf_counter() - t0) * 1e3)
+            require_rows(f"phase L {name} (timed)", again, want[name], keys,
+                         rtol=AGG_RTOL)
+        record = {"checked_ms": checked_ms, "timed_ms": times,
+                  "median_ms": statistics.median(times), "plan_ms": plan_ms,
+                  "rows": int(got.num_rows), **routes(stats),
+                  "aggregates": sorted({d["strategy"]
+                                        for d in stats.get("aggregates", [])}),
+                  "plan": facts}
+        out["queries"][name] = record
+
+    y = out["queries"]["year_1995"]
+    if y["filters"] != ["device"] or y["plan"]["files"] != [
+            want["year_1995_files"], N_FILES]:
+        raise AssertionError(f"phase L year_1995: {y}, numpy keeps "
+                             f"{want['year_1995_files']} files")
+    yi = out["queries"]["year_isin"]
+    if yi["plan"]["files"] != [want["year_isin_files"], N_FILES]:
+        raise AssertionError(f"phase L year_isin: {yi}, numpy keeps "
+                             f"{want['year_isin_files']} files")
+    m3 = out["queries"]["month_3"]
+    if m3["filters"] != ["host"] or m3["plan"]["files"] not in (
+            None, [N_FILES, N_FILES]):
+        raise AssertionError(f"phase L month_3: {m3}")
+    q22 = out["queries"]["q22_scalar"]
+    if q22["filters"] != ["device"]:
+        raise AssertionError(f"phase L q22_scalar: {q22}")
+    out["launches"] = kernels.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase L's queries launched {out['launches']}: "
+                             f"no kernel is on their path")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def route_of(stats: dict) -> str:
     """The route a collect took over its filters, join kernels, fused
     joins and device aggregates: "device", "host", "mixed", or "none"
@@ -3554,6 +4081,22 @@ def print_window(window: dict) -> None:
           flush=True)
 
 
+def print_plan_language(pl: dict) -> None:
+    for name, q in pl["queries"].items():
+        files = q["plan"]["files"]
+        print(f"phase L {name}: checked {q['checked_ms']:.1f} ms, timed "
+              f"median {q['median_ms']:.1f} ms, {q['rows']} rows; filters "
+              f"{q['filters']} joins {q['joins']} join kernels "
+              f"{q['join_kernels']} aggregates {q['aggregates']}"
+              + (f"; files {files[0]}/{files[1]}" if files else ""),
+              flush=True)
+    print(f"phase L: plan language checked (data {pl['datagen_s']:.3f} s, "
+          f"builds {json.dumps({k: round(v, 3) for k, v in pl['build_s'].items()})}"
+          f"), launches by the builds {json.dumps(pl['launches_builds'])}, "
+          f"by the queries {json.dumps(pl['launches'])} "
+          f"({pl['wall_s']:.3f} s)", flush=True)
+
+
 def print_split(label: str, split: dict) -> None:
     """One line per temperature of a ``stage_breakdown`` pair."""
     for temp in ("cold", "warm"):
@@ -3747,6 +4290,8 @@ def main() -> int:
               f"({time.perf_counter() - t0:.3f} s)", flush=True)
         window = phase_k(li, root, dev)
         print_window(window)
+        plan_language = phase_l(root, dev)
+        print_plan_language(plan_language)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -3777,7 +4322,9 @@ def main() -> int:
     by_path = {"C create li_idx": launches, "D create ord_idx": d["launches"],
                **{b["build"]: b["launches"] for b in builds},
                **g["launches_by_path"], "I repair": integ["repair_launches"],
-               "I containment": contained, "K analytic": window["launches"]}
+               "I containment": contained, "K analytic": window["launches"],
+               "L builds": plan_language["launches_builds"],
+               "L plan language": plan_language["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -3803,6 +4350,7 @@ def main() -> int:
         "walls_s": {b["build"]: b["wall_s"] for b in zorder["builds"]},
         "sf10": {k: v for k, v in sf10_z.items() if k != "report"}}}))
     print(json.dumps({"window": window}))
+    print(json.dumps({"plan_language": plan_language}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

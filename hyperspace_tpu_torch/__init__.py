@@ -30,7 +30,25 @@ from hyperspace_tpu_torch.index.index_config import (
     DataSkippingIndexConfig,
     IndexConfig,
 )
-from hyperspace_tpu_torch.plan.expr import col, lit
+from hyperspace_tpu_torch.plan.expr import (
+    col,
+    concat,
+    dayofmonth,
+    exists,
+    in_subquery,
+    length,
+    lit,
+    lower,
+    month,
+    outer_ref,
+    quarter,
+    scalar,
+    substring,
+    trim,
+    upper,
+    when,
+    year,
+)
 from hyperspace_tpu_torch.session import HyperspaceSession
 
 __all__ = [
@@ -43,4 +61,19 @@ __all__ = [
     "Dataset",
     "col",
     "lit",
+    "when",
+    "year",
+    "month",
+    "dayofmonth",
+    "quarter",
+    "scalar",
+    "in_subquery",
+    "exists",
+    "outer_ref",
+    "upper",
+    "lower",
+    "length",
+    "trim",
+    "substring",
+    "concat",
 ]

@@ -83,16 +83,25 @@ A read of index files that fails with ``OSError`` or pyarrow's
 ``Dataset.collect``'s containment (execution/containment.py); the error
 still propagates.
 
+A join's ``residual`` (an inequality correlation of a rewritten
+subquery) filters the matched pairs on the arrow path before the join
+type shapes the output; such a join takes the plain route, never the
+bucket-aligned join or the fused join→aggregate.  ``Cast``, ``Case``,
+``Extract``, the string functions and the string predicates are
+evaluated on the arrow path only, as in the JAX package.
+
 Not ported: ``finalize_stats``' memory gauges,
 the telemetry counters, spans and transfer timeline, the mesh filter, join and aggregates,
-residual join predicates, the lake formats and hypothetical scans.
+the lake formats and hypothetical scans.
 pyarrow is imported inside the functions.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import os
+import re
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -116,14 +125,19 @@ from hyperspace_tpu_torch.plan.expr import (
     Arith,
     BinOp,
     BucketIn,
+    Case,
+    Cast,
     Col,
     Expr,
+    Extract,
     IsIn,
     IsNull,
     Lit,
     Neg,
     Not,
     Or,
+    StringFn,
+    StringMatch,
     as_equi_join_pairs,
 )
 from hyperspace_tpu_torch.plan.nodes import (
@@ -472,12 +486,15 @@ class Executor:
             self.stats["joins"].append({"strategy": "plain", "how": plan.how})
         return self._host_join_tables(self.execute(plan.left),
                                       self.execute(plan.right),
-                                      plan.condition, plan.how)
+                                      plan.condition, plan.how,
+                                      plan.residual)
 
-    def _host_join_tables(self, left, right, condition: Expr, how: str):
+    def _host_join_tables(self, left, right, condition: Expr, how: str,
+                          residual: Optional[Expr] = None):
         """Join two tables.  Match pairs come from the inner equi-join
-        over the rows whose keys are all valid (null keys never match);
-        the join type then shapes the output from them: null extension by
+        over the rows whose keys are all valid (null keys never match),
+        then, with a ``residual``, only the pairs it holds true for; the
+        join type then shapes the output from them: null extension by
         arrow's null-index take, existence joins by membership."""
         import pyarrow as pa
 
@@ -510,6 +527,14 @@ class Executor:
         li, ri = self._inner_match_pairs(lv, rv, l_keys, r_keys)
         li = l_map[li] if len(l_map) != left.num_rows else li
         ri = r_map[ri] if len(r_map) != right.num_rows else ri
+        if residual is not None and len(li):
+            # A pair whose residual is false or null is no match, so an
+            # anti join keeps exactly the left rows with no surviving
+            # match (NOT EXISTS as SQL reads it).
+            combined = _concat_horizontal(left.take(pa.array(li)),
+                                          right.take(pa.array(ri)))
+            mask = _eval_arrow(residual, combined, self._bucket_ids)
+            li, ri = li[mask], ri[mask]
 
         if how == "inner":
             return _concat_horizontal(left.take(pa.array(li)),
@@ -607,11 +632,15 @@ class Executor:
         ``BucketUnion``s of such a chain and appended rows (what
         JoinIndexRule builds).  An outer or anti join joins a bucket only
         one side has against a zero-row table of the other side, so its
-        unmatched rows are emitted as the plain path would."""
+        unmatched rows are emitted as the plain path would.  A join with
+        a residual takes the plain path: the per-bucket joins below are
+        equi-joins."""
         import pyarrow as pa
 
         from hyperspace_tpu_torch.utils.parallel_map import parallel_map_ordered
 
+        if plan.residual is not None:
+            return None
         precheck = bucketed_join_precheck(self.session, plan)
         if precheck is None:
             return None
@@ -1158,7 +1187,8 @@ class Executor:
         if not plan.group_by:
             return None
         child = plan.child
-        if not isinstance(child, Join) or child.how != "inner":
+        if not isinstance(child, Join) or child.how != "inner" \
+                or child.residual is not None:
             return None
         # The plausibility gate: "eager" (pay the upload once, serve
         # repeats from card memory) or a cold threshold low enough that
@@ -1719,6 +1749,16 @@ def _window(table, plan: Window):
     return table.append_column(plan.name, out)
 
 
+def _coerce_numeric_strings(column) -> np.ndarray:
+    """A string column parsed as float64 at once, NaN where a string
+    (or a null) does not parse."""
+    import pandas as pd
+
+    arr = column.to_numpy(zero_copy_only=False)
+    return pd.to_numeric(pd.Series(arr), errors="coerce") \
+        .to_numpy(dtype=np.float64, na_value=np.nan)
+
+
 def _parse_float64(column):
     """A string column as float64; a string that does not parse becomes
     NaN, which no comparison matches (the row drops, as for Spark's
@@ -1729,12 +1769,150 @@ def _parse_float64(column):
     try:
         return pc.cast(column, pa.float64())
     except (pa.ArrowInvalid, pa.ArrowTypeError):
-        import pandas as pd
+        return pa.array(_coerce_numeric_strings(column), type=pa.float64())
 
-        values = pd.to_numeric(pd.Series(column.to_numpy(zero_copy_only=False)),
-                               errors="coerce")
-        return pa.array(values.to_numpy(dtype=np.float64, na_value=np.nan),
-                        type=pa.float64())
+
+def _int_bounds(t):
+    """The least and greatest value of arrow integer type ``t``."""
+    import pyarrow as pa
+
+    bits = t.bit_width
+    if pa.types.is_signed_integer(t):
+        return -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    return 0, (1 << bits) - 1
+
+
+def _cast_scalar(v, target):
+    """One value cast as Spark's non-ANSI CAST does: null when it does
+    not convert.  A string parses as a decimal and truncates to an
+    integer target ('3.5' AS INT is 3); an integer string parses exactly
+    (no float64 round trip) and only in ASCII-digit form, so Python-only
+    syntax ('1_000') is null as on the column path; a float truncates
+    toward zero, and a value out of the target's range is null."""
+    import pyarrow as pa
+
+    if v is None:
+        return None
+    if isinstance(v, (float, str)) and pa.types.is_integer(target):
+        if isinstance(v, str):
+            sv = v.strip()
+            if re.fullmatch(r"[+-]?[0-9]+", sv):
+                v = int(sv)
+            else:
+                f = _coerce_numeric_strings(pa.array([v]))[0]
+                if math.isnan(f):
+                    return None
+                v = float(f)
+        if isinstance(v, float):
+            if math.isnan(v) or math.isinf(v):
+                return None
+            v = int(v)
+        lo, hi = _int_bounds(target)
+        return v if lo <= v <= hi else None
+    try:
+        return pa.array([v]).cast(target)[0].as_py()
+    except (pa.ArrowInvalid, pa.ArrowNotImplementedError,
+            pa.ArrowTypeError, ValueError, OverflowError):
+        return None
+
+
+def _cast_to_int(child, target):
+    """A float or string column cast to integer ``target`` at once:
+    truncation toward zero, null where a value does not parse or is out
+    of range.  float64 is exact only below 2**53, so integer strings at
+    or past it are parsed again one by one (only those that are ASCII
+    integers can gain precision)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    ctype = child.type
+    valid = np.asarray(pc.is_valid(child).to_numpy(zero_copy_only=False))
+    if pa.types.is_floating(ctype):
+        arr = np.asarray(pc.fill_null(child, 0.0).to_numpy(zero_copy_only=False),
+                         dtype=np.float64)
+    else:
+        arr = _coerce_numeric_strings(child)
+        valid &= ~np.isnan(arr)
+        arr = np.where(np.isnan(arr), 0.0, arr)
+    finite = np.isfinite(arr)
+    trunc = np.trunc(np.where(finite, arr, 0.0))
+    lo, hi = _int_bounds(target)
+    hi_f = float(hi)
+    ok = valid & finite & (trunc >= float(lo)) & (
+        trunc <= hi_f if int(hi_f) == hi else trunc < hi_f)
+    vals = np.where(ok, trunc, 0.0).astype(np.int64)
+    if not pa.types.is_floating(ctype):
+        big = np.nonzero(valid & (np.abs(trunc) >= 2.0**53))[0]
+        if big.size:
+            intlike = np.asarray(pc.fill_null(
+                pc.match_substring_regex(child, r"^\s*[+-]?[0-9]+\s*$"), False)
+                .to_numpy(zero_copy_only=False), dtype=bool)
+            big = big[intlike[big]]
+        for i in big.tolist():
+            exact = _cast_scalar(child[i].as_py(), target)
+            if exact is None:
+                ok[i] = False
+            else:
+                vals[i] = exact
+                ok[i] = True
+    return pc.cast(pa.array(vals, mask=~ok), target)
+
+
+def _cast(child, type_name: str):
+    """CAST with Spark's non-ANSI semantics: arrow's safe cast when every
+    value converts, else null for each value that does not."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from hyperspace_tpu_torch.io.parquet import _dtype_from_string
+
+    target = _dtype_from_string(type_name)
+    try:
+        return pc.cast(child, target)
+    except (pa.ArrowInvalid, pa.ArrowNotImplementedError, pa.ArrowTypeError):
+        pass
+    if isinstance(child, pa.Scalar):
+        return pa.scalar(_cast_scalar(child.as_py(), target), type=target)
+    ctype = child.type
+    if (pa.types.is_integer(target) and target.bit_width <= 64
+            and not (pa.types.is_unsigned_integer(target)
+                     and target.bit_width == 64)
+            and (pa.types.is_floating(ctype) or pa.types.is_string(ctype)
+                 or pa.types.is_large_string(ctype))):
+        return _cast_to_int(child, target)
+    return pa.array([_cast_scalar(v, target) for v in child.to_pylist()],
+                    type=target)
+
+
+def _string_fn(name: str, args, literal_args):
+    """A ``StringFn`` over its evaluated ``args``; ``literal_args`` are
+    the expressions (substring's start and length are literals)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if name == "upper":
+        return pc.utf8_upper(args[0])
+    if name == "lower":
+        return pc.utf8_lower(args[0])
+    if name == "length":
+        return pc.cast(pc.utf8_length(args[0]), pa.int32())  # Spark's INT
+    if name == "trim":
+        return pc.utf8_trim_whitespace(args[0])
+    if name == "ltrim":
+        return pc.utf8_ltrim_whitespace(args[0])
+    if name == "rtrim":
+        return pc.utf8_rtrim_whitespace(args[0])
+    if name == "substring":
+        begin = literal_args[1].value - 1  # 1-based, checked >= 1
+        if len(literal_args) == 2:
+            return pc.utf8_slice_codeunits(args[0], begin)
+        return pc.utf8_slice_codeunits(args[0], begin,
+                                       begin + literal_args[2].value)
+    # concat: every part as a string, null when any part is null; a
+    # scalar part broadcasts without an array of the table's length.
+    parts = [a if pa.types.is_string(a.type) or pa.types.is_large_string(a.type)
+             else pc.cast(a, pa.string()) for a in args]
+    return pc.binary_join_element_wise(*parts, "", null_handling="emit_null")
 
 
 def _arrow_eval(expr: Expr, table, bucket_ids=None):
@@ -1822,6 +2000,39 @@ def _arrow_eval(expr: Expr, table, bucket_ids=None):
             raise ValueError(f"{expr!r} needs the executor's bucket hash")
         ids = bucket_ids(table, expr.columns, expr.num_buckets)
         return pa.array(np.isin(ids, np.asarray(expr.buckets, dtype=ids.dtype)))
+    if isinstance(expr, Cast):
+        return _cast(ev(expr.child), expr.type_name)
+    if isinstance(expr, Extract):
+        fns = {"year": pc.year, "month": pc.month, "day": pc.day,
+               "quarter": pc.quarter}
+        # Spark's year() and friends return INT; arrow's int64.
+        return pc.cast(fns[expr.field](ev(expr.child)), pa.int32())
+    if isinstance(expr, StringFn):
+        return _string_fn(expr.name, [ev(a) for a in expr.args], expr.args)
+    if isinstance(expr, StringMatch):
+        child = ev(expr.child)
+        fn = {"like": pc.match_like, "startswith": pc.starts_with,
+              "endswith": pc.ends_with,
+              "contains": pc.match_substring}[expr.kind]
+        return fn(child, expr.pattern)
+    if isinstance(expr, Case):
+        # Branches in order (built right to left so the first wins); a
+        # null condition is false, where arrow's if_else would give null.
+        result = ev(expr.otherwise)
+        if isinstance(result, pa.Scalar) and not result.is_valid \
+                and result.type == pa.null():
+            result = None  # an untyped null ELSE: the branches' type
+        for cond, value in reversed(expr.branches):
+            mask = ev(cond)
+            if isinstance(mask, pa.Scalar):
+                mask = pa.scalar(bool(mask.as_py()) if mask.is_valid else False)
+            else:
+                mask = pc.fill_null(mask, False)
+            val = ev(value)
+            if result is None:
+                result = pa.scalar(None, type=val.type)
+            result = pc.if_else(mask, val, result)
+        return result
     raise ValueError(f"Unsupported expression: {expr!r}")
 
 

@@ -120,6 +120,17 @@ def _dtype_from_string(t: str):
         return pa.string()
 
 
+def is_cast_type_name(name: str) -> bool:
+    """Whether ``name`` is an arrow type name ``_dtype_from_string``
+    resolves (it falls back to a string for any name it does not know);
+    ``plan.expr.Cast`` checks its target through this, so that the plan
+    never imports pyarrow."""
+    import pyarrow as pa
+
+    return _dtype_from_string(name) != pa.string() \
+        or name in ("string", "str", "utf8")
+
+
 def bucket_chunks(n_rows: int, max_rows_per_file: int) -> List:
     """[(offset, rows)] splitting a bucket run at ``max_rows_per_file``
     (0 = single chunk)."""

@@ -362,17 +362,25 @@ class WithColumns(LogicalPlan):
 class Join(LogicalPlan):
     """Equi-join of any SQL join type.  The join index rule rewrites
     inner equi-joins only; index scans under any type still run bucket
-    by bucket."""
+    by bucket.
+
+    ``residual`` is a predicate over the matched pairs, applied after the
+    equi match and before the join type shapes the output (null: no
+    match).  Only the subquery rewrite makes one, for an inequality
+    correlation (TPC-H Q21's ``l2.l_suppkey <> l1.l_suppkey`` riding the
+    ``l_orderkey`` equality); ``Dataset.join`` stays equi-only."""
 
     HOW = ("inner", "left", "right", "full", "semi", "anti")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
-                 condition: Expr, how: str = "inner") -> None:
+                 condition: Expr, how: str = "inner",
+                 residual: Optional[Expr] = None) -> None:
         if how not in self.HOW:
             raise ValueError(f"Unsupported join type {how!r}; "
                              f"expected one of {self.HOW}")
         self.condition = condition
         self.how = how
+        self.residual = residual
         self.children = (left, right)
 
     @property
@@ -391,9 +399,13 @@ class Join(LogicalPlan):
 
     def with_children(self, children) -> "Join":
         left, right = children
-        return Join(left, right, self.condition, self.how)
+        return Join(left, right, self.condition, self.how,
+                    residual=self.residual)
 
     def simple_string(self) -> str:
+        if self.residual is not None:
+            return (f"Join {self.how} on {self.condition!r} "
+                    f"residual {self.residual!r}")
         return f"Join {self.how} on {self.condition!r}"
 
 

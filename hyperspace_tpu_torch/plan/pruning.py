@@ -139,6 +139,9 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]],
         return plan
     if isinstance(plan, Join):
         cond_cols = set(plan.condition.referenced_columns())
+        if plan.residual is not None:
+            # The residual reads both sides' columns over matched pairs.
+            cond_cols |= set(plan.residual.referenced_columns())
         left_schema = plan.left.output_columns(schema_of)
         right_schema = plan.right.output_columns(schema_of)
         if required is None:
@@ -169,7 +172,8 @@ def _prune(plan: LogicalPlan, required: Optional[Set[str]],
             changed = changed or new_side is not side
             sides.append(new_side)
         if changed:
-            return Join(sides[0], sides[1], plan.condition, plan.how)
+            return Join(sides[0], sides[1], plan.condition, plan.how,
+                        residual=plan.residual)
         return plan
     if isinstance(plan, (BucketUnion, Union)):
         new_children = tuple(_prune(c, required, schema_of)

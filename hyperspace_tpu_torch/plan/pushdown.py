@@ -77,7 +77,7 @@ def _push_one(node: Filter, schema_of: Callable) -> LogicalPlan:
             new_right = _push_one(Filter(conjoin(right_pushed), new_right),
                                   schema_of)
         out: LogicalPlan = Join(new_left, new_right, child.condition,
-                                child.how)
+                                child.how, residual=child.residual)
         if kept:
             out = Filter(conjoin(kept), out)
         return out

@@ -133,7 +133,7 @@ class JoinIndexRule:
 
         return Join(rewrite_side(join.left, l_scan, l_entry),
                     rewrite_side(join.right, r_scan, r_entry),
-                    join.condition, join.how)
+                    join.condition, join.how, residual=join.residual)
 
     def _required_columns(self, side_plan: LogicalPlan) -> List[str]:
         """The source columns a side must provide: its output plus the

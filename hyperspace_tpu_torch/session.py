@@ -112,6 +112,8 @@ class HyperspaceSession:
         from hyperspace_tpu_torch.index.log_entry import States
         from hyperspace_tpu_torch.plan.pruning import prune_columns
         from hyperspace_tpu_torch.plan.pushdown import push_filters
+        from hyperspace_tpu_torch.plan.subquery import rewrite_subqueries
+        from hyperspace_tpu_torch.plan.temporal import canonicalize_temporal
         from hyperspace_tpu_torch.rules.bucket_prune import BucketPruneRule
         from hyperspace_tpu_torch.rules.data_skipping import (
             DataSkippingFilterRule,
@@ -122,7 +124,14 @@ class HyperspaceSession:
         # The rules swap nodes by identity: a Dataset reused under two
         # branches must not share one node object.
         plan = _uniquify(plan)
+        # Subqueries first: folding a scalar and materializing NOT IN
+        # optimize and execute their subplans (this method again), and
+        # every pass below sees only joins, filters and literals.
+        plan = rewrite_subqueries(plan, self)
         plan = push_filters(plan, self.schema_of)
+        # year(col) ranges after pushdown: the filter must sit over its
+        # scan for the column's type to be known.
+        plan = canonicalize_temporal(plan, self.schema_map_of)
         plan = prune_columns(plan, self.schema_of)
         if not (self._hyperspace_enabled and use_indexes):
             return plan

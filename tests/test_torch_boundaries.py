@@ -46,7 +46,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "execution/device_cache.py", "utils/calibrate.py",
                    "telemetry/build_report.py", "actions/data_skipping.py",
                    "rules/data_skipping.py", "ops/zorder.py",
-                   "ops/window.py"):
+                   "ops/window.py", "plan/temporal.py", "plan/subquery.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -70,7 +70,8 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "rules/data_skipping.py", "actions/verify.py",
                    "actions/repair.py", "execution/containment.py",
                    "ops/zorder.py", "ops/window.py",
-                   "execution/executor.py", "plan/pruning.py"):
+                   "execution/executor.py", "plan/pruning.py",
+                   "plan/temporal.py", "plan/subquery.py", "plan/expr.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -83,6 +84,32 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
             else:
                 continue
             assert not any(n.split(".")[0] == "pyarrow" for n in names), path
+
+
+def test_the_plan_never_imports_pyarrow():
+    """No module under ``plan/`` imports pyarrow, not even inside a
+    function: ``Cast`` checks its type name through ``io.parquet``."""
+    import ast
+
+    from hyperspace_tpu_torch.plan.expr import Cast, col
+
+    plan_dir = os.path.join(PORT, "plan")
+    modules = sorted(n for n in os.listdir(plan_dir) if n.endswith(".py"))
+    assert {"expr.py", "temporal.py", "subquery.py"} <= set(modules)
+    for name in modules:
+        with open(os.path.join(plan_dir, name), encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "pyarrow" for n in names), name
+    assert Cast(col("k"), "Long").type_name == "int64"
+    with pytest.raises(ValueError, match="Unknown cast type"):
+        Cast(col("k"), "varchar(10)")
 
 
 def test_a_build_through_the_port_imports_no_jax(tmp_path):
@@ -604,3 +631,56 @@ def test_session_without_a_card_raises(monkeypatch, tmp_path):
         hyperspace_tpu_torch.HyperspaceSession(system_path=str(tmp_path),
                                                device=None)
     assert HyperspaceSession(str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_the_plan_language_imports_no_jax(tmp_path):
+    """A correlated EXISTS with an inequality (a residual anti join), a
+    folded scalar, CASE, CAST, a string function and a canonicalized
+    year through the port's entry points; the plan modules load without
+    pyarrow."""
+    script = textwrap.dedent(f"""
+        import os, sys, datetime
+        import numpy as np
+        from hyperspace_tpu_torch.plan import expr, subquery, temporal
+        assert "pyarrow" not in sys.modules
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (HyperspaceSession, col, exists,
+                                          outer_ref, scalar, substring, when,
+                                          year)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{
+            "g": rng.integers(0, 20, 400), "s": rng.integers(0, 4, 400),
+            "d": pa.array(np.datetime64("1994-06-01")
+                          + np.arange(400).astype("timedelta64[D]")),
+            "t": pa.array([("MAIL", "SHIP")[i % 2] for i in range(400)])}}),
+            os.path.join(data, "p.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        rows = lambda: s.read.parquet(data)
+        q = rows().filter(~exists(rows().filter(
+            (col("g") == outer_ref("g")) & (col("s") != outer_ref("s")))))
+        assert "residual" in q.optimized_plan().tree_string()
+        df = pq.read_table(data).to_pandas()
+        want = sum(df[df.g == g].s.nunique() == 1 for g in df.g)
+        assert q.count() == want
+        y = rows().filter((year("d") == 1995)
+                          & (col("s") > scalar(rows().agg(m=("s", "mean")))))
+        assert "year(" not in y.optimized_plan().tree_string()
+        out = y.select(c=when(col("g") > 10, 1).otherwise(0),
+                       p=substring("t", 1, 2),
+                       n=col("g").cast("string")).collect()
+        assert out.num_rows > 0 and set(out.column("p").to_pylist()) <= {{"MA", "SH"}}
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
