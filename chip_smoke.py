@@ -278,7 +278,7 @@ beside it.
            launched: ``L builds``), then set to 0 again before the
            queries and read after them (neither may have launched:
            ``L plan language``).  Every threshold pinned to 0.
-           Seventeen queries, each held to numpy's answer (``l_expected``;
+           Fifteen queries, each held to numpy's answer (``l_expected``;
            ints, strings and dates exactly, float sums within AGG_RTOL)
            on a checked collect from an emptied cache and on
            L_TIMED_RUNS timed ones: ``year_1995`` (no ``year(`` left in
@@ -296,6 +296,26 @@ beside it.
            over one month's orders (a semi and an anti join, each with a
            residual).  Prints ``{"plan_language": ...}``: per query its
            ms, rows, routes, files kept and plan facts.
+  phase M  SQL and explain, right after phase L in its session, over its
+           tables and indexes, with the launch counts set to 0 before
+           it and read after it (neither kernel may have launched:
+           ``M sql``).  Each of phase L's queries as SQL text
+           (``m_texts``) through ``hyperspace_tpu_torch.sql.sql``: the
+           parse and lower and the optimize timed, the optimized plan
+           equal to its DSL twin's (but for M_PLAN_EXCEPTIONS, where the
+           text cannot spell the DSL's node), numpy's answer on a
+           checked collect from an emptied cache and on four timed
+           collects in turns with the DSL twin (SQL, DSL, DSL, SQL), the
+           routes phase L took.  Then
+           ``Hyperspace.explain(ds, verbose=True)`` of the SQL ``q12``,
+           ``q21_shape`` and ``year_1995``, timed: q12 uses ``li_q``
+           and ``ord_q`` through ``PerBucketMergeJoinExec``, year_1995's
+           scan IO keeps numpy's count of files, and the optimizer's
+           decisions list the four rules.  Then ``hs.index("li_q")``
+           (16 buckets, ACTIVE) and ``hs.indexes()``.  Prints
+           ``{"sql": ...}``: per query its ms, the DSL twin's in turns
+           and its phase L median, and its routes; each explain's ms;
+           the statistics.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -322,10 +342,11 @@ the queries JSON (phase D's with its ``eviction`` run, phase G's as
 ``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
 H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
-K's ``K analytic``, phase L's ``L builds`` and ``L plan language``), the
-integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
-(phase K), the plan-language JSON (phase L), the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
+phase M's ``M sql``), the integrity JSON (phase I), the Z-order JSON
+(phase J), the window JSON (phase K), the plan-language JSON (phase L),
+the SQL JSON (phase M), the card's name and power limit, and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -471,6 +492,15 @@ L_STRING_KEYS = (600_000, 615_000)  # 1% of the order keys
 L_Q21_MONTH = (9190, 9221)      # 1995-03-01 .. 1995-04-01: ~1/80 of orders
 L_Q4_QUARTER = (8582, 8674)     # 1993-07-01 .. 1993-10-01
 L_NULL_KEYS = (0, 20_000)       # NOT IN with a null: the keys scanned
+# Phase M: phase L's queries as SQL text.  Their optimized plans equal
+# the DSL twins' but where the text cannot spell the DSL's node: LIKE for
+# startswith/endswith/contains, and count(*) for a count_all of a named
+# column (which keeps that column through pruning).  The CPU test
+# (tests/test_torch_sql.py) holds this set to the reference package's.
+M_PLAN_EXCEPTIONS = frozenset({"strings_matches", "not_in_null"})
+M_EXPLAINED = ("q12", "q21_shape", "year_1995")
+M_RULES = ("JoinIndexRule", "FilterIndexRule", "BucketPruneRule",
+           "DataSkippingFilterRule")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -734,7 +764,7 @@ def check_index_files(phase: str, hs, name: str, key: str, rows: int,
     from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
     from hyperspace_tpu_torch.ops.hash import bucket_ids_np
 
-    listed = [r for r in hs.indexes() if r["name"] == name]
+    listed = [r for r in hs.indexes().to_pylist() if r["name"] == name]
     if len(listed) != 1 or listed[0]["state"] != "ACTIVE":
         raise AssertionError(f"{phase}: {name} is not ACTIVE: {listed}")
     entry = hs.session.index_collection_manager.get_index(name)
@@ -1520,7 +1550,7 @@ def timed_build(dev, label: str, hs, run, want_launches) -> dict:
 
 
 def index_state(hs, name: str) -> str:
-    rows = [r for r in hs.indexes() if r["name"] == name]
+    rows = [r for r in hs.indexes().to_pylist() if r["name"] == name]
     return rows[0]["state"] if rows else "missing"
 
 
@@ -3420,28 +3450,21 @@ def l_expected(orders: dict, li: dict, phrases: list) -> dict:
     return out
 
 
-def l_queries(session, root: str, keys21: tuple) -> dict:
+def l_queries(session, root: str, keys21: tuple, pkg=None) -> dict:
     """Phase L's queries as Datasets of ``session``: name -> (Dataset,
-    the sort keys to compare its rows by, or None for its own order)."""
+    the sort keys to compare its rows by, or None for its own order).
+    ``pkg`` is the package whose DSL builds them (the port's by default;
+    a CPU test passes the reference package to compare plans there)."""
     import datetime
 
-    from hyperspace_tpu_torch import (
-        col,
-        concat,
-        exists,
-        in_subquery,
-        length,
-        lit,
-        lower,
-        month,
-        outer_ref,
-        scalar,
-        substring,
-        trim,
-        upper,
-        when,
-        year,
-    )
+    if pkg is None:
+        import hyperspace_tpu_torch as pkg
+    col, concat, exists, in_subquery = pkg.col, pkg.concat, pkg.exists, \
+        pkg.in_subquery
+    length, lit, lower, month, outer_ref = pkg.length, pkg.lit, pkg.lower, \
+        pkg.month, pkg.outer_ref
+    scalar, substring, trim, upper, when, year = pkg.scalar, pkg.substring, \
+        pkg.trim, pkg.upper, pkg.when, pkg.year
 
     li = lambda: session.read.parquet(os.path.join(root, "l_lineitem"))  # noqa: E731
     orders = lambda: session.read.parquet(os.path.join(root, "l_orders"))  # noqa: E731
@@ -3562,8 +3585,10 @@ def l_plan_facts(name: str, plan, ds_index: str) -> dict:
     return facts
 
 
-def phase_l(root: str, dev) -> dict:
-    """The plan language at SF1 (see the module docstring)."""
+def phase_l(root: str, dev) -> tuple:
+    """The plan language at SF1 (see the module docstring).  Returns its
+    record and what phase M reuses: the session, its Hyperspace, the
+    numpy oracle and the DSL queries."""
     from hyperspace_tpu_torch import (
         DataSkippingIndexConfig,
         Hyperspace,
@@ -3658,6 +3683,226 @@ def phase_l(root: str, dev) -> dict:
     out["launches"] = kernels.launch_counts()
     if any(out["launches"].values()):
         raise AssertionError(f"phase L's queries launched {out['launches']}: "
+                             f"no kernel is on their path")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out, {"session": session, "hs": hs, "want": want,
+                 "queries": queries}
+
+
+def m_texts(keys21: tuple) -> dict:
+    """Phase L's queries as SQL text over the tables ``lineitem`` and
+    ``orders``: name -> the text of ``l_queries``' Dataset of that name."""
+    import datetime
+
+    epoch = datetime.date(1970, 1, 1)
+
+    def day(n):
+        return f"DATE '{(epoch + datetime.timedelta(days=n)).isoformat()}'"
+
+    totals = ("SELECT count(*) AS n, sum(l_extendedprice) AS revenue "
+              "FROM lineitem WHERE ")
+    cheap = f"SELECT o_orderkey FROM orders WHERE o_totalprice < {PRICE_BELOW!r}"
+    urgent = "o_orderpriority IN ('1-URGENT', '2-HIGH')"
+    k0, k1 = keys21
+    s_lo, s_hi = L_STRING_KEYS
+    q_lo, q_hi = L_Q4_QUARTER
+    n_lo, n_hi = L_NULL_KEYS
+    other = ("{t}.l_orderkey = l1.l_orderkey AND {t}.l_suppkey <> l1.l_suppkey")
+    count_match = "sum(CASE WHEN l_shipmode LIKE '{p}' THEN 1 ELSE 0 END) AS {a}"
+    return {
+        "year_1995": totals + "year(l_shipdate) = 1995",
+        "year_isin": totals + "year(l_shipdate) IN (1994, 1996)",
+        "month_3": totals + "month(l_shipdate) = 3",
+        "q12": f"""
+            SELECT l_shipmode,
+                   sum(CASE WHEN {urgent} THEN 1 ELSE 0 END) AS high_line_count,
+                   sum(CASE WHEN NOT {urgent} THEN 1 ELSE 0 END)
+                       AS low_line_count
+            FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+            WHERE l_shipmode IN ('MAIL', 'SHIP')
+              AND l_commitdate < l_receiptdate AND l_shipdate < l_commitdate
+              AND year(l_receiptdate) = 1994
+            GROUP BY l_shipmode ORDER BY l_shipmode""",
+        "q13_orders": """
+            SELECT c_count, count(*) AS custdist
+            FROM (SELECT o_custkey, count(o_orderkey) AS c_count FROM orders
+                  WHERE o_comment NOT LIKE '%special%requests%'
+                  GROUP BY o_custkey) c
+            GROUP BY c_count ORDER BY custdist DESC, c_count DESC""",
+        "strings_digit_sum": """
+            SELECT o_orderpriority,
+                   sum(CAST(substring(o_orderpriority, 1, 1) AS int)) AS digit
+            FROM orders GROUP BY o_orderpriority ORDER BY o_orderpriority""",
+        "strings_functions": f"""
+            SELECT o_orderkey, upper(o_orderpriority) AS u,
+                   lower(o_orderpriority) AS lo, length(o_orderpriority) AS n,
+                   trim(o_orderpriority) AS t,
+                   concat(o_orderpriority, '-', o_custkey) AS c
+            FROM orders WHERE o_orderkey >= {s_lo} AND o_orderkey < {s_hi}""",
+        "strings_matches": "SELECT " + ", ".join(
+            count_match.format(p=p, a=a) for p, a in (
+                ("R%", "startswith"), ("%AIR", "endswith"),
+                ("%AI%", "contains"))) + " FROM lineitem",
+        "q4": f"""
+            SELECT o_orderpriority, count(*) AS order_count FROM orders
+            WHERE o_orderdate >= {day(q_lo)} AND o_orderdate < {day(q_hi)}
+              AND EXISTS (SELECT 1 FROM lineitem l
+                          WHERE l.l_orderkey = orders.o_orderkey
+                            AND l.l_commitdate < l.l_receiptdate)
+            GROUP BY o_orderpriority ORDER BY o_orderpriority""",
+        "q17_shape": """
+            SELECT total / 7.0 AS avg_yearly
+            FROM (SELECT sum(l_extendedprice) AS total FROM lineitem l1
+                  WHERE l1.l_quantity < 0.2 * (
+                      SELECT avg(l2.l_quantity) AS m FROM lineitem l2
+                      WHERE l2.l_suppkey = l1.l_suppkey)) t""",
+        "q22_scalar": """
+            SELECT count(*) AS n, sum(o_totalprice) AS total FROM orders
+            WHERE o_totalprice > (SELECT avg(o_totalprice) AS m FROM orders)""",
+        "in": totals + f"l_orderkey IN ({cheap})",
+        "not_in": totals + f"l_orderkey NOT IN ({cheap})",
+        "not_in_null": f"""
+            SELECT count(*) AS n FROM lineitem
+            WHERE l_orderkey NOT IN (
+                SELECT CASE WHEN o_totalprice < {PRICE_BELOW!r}
+                            THEN o_orderkey END AS k
+                FROM orders WHERE o_orderkey >= {n_lo} AND o_orderkey < {n_hi})""",
+        "q21_shape": f"""
+            SELECT l_suppkey, count(*) AS numwait FROM lineitem l1
+            WHERE l1.l_orderkey >= {k0} AND l1.l_orderkey < {k1}
+              AND l1.l_receiptdate > l1.l_commitdate
+              AND EXISTS (SELECT 1 FROM lineitem l2
+                          WHERE {other.format(t="l2")})
+              AND NOT EXISTS (SELECT 1 FROM lineitem l3
+                              WHERE {other.format(t="l3")}
+                                AND l3.l_receiptdate > l3.l_commitdate)
+            GROUP BY l_suppkey ORDER BY numwait DESC, l_suppkey LIMIT 100""",
+    }
+
+
+def m_tables(root: str) -> dict:
+    return {"lineitem": os.path.join(root, "l_lineitem"),
+            "orders": os.path.join(root, "l_orders")}
+
+
+def m_section(text: str, title: str) -> list:
+    """The lines of explain's section ``title`` (between its header and
+    the next one)."""
+    lines = text.splitlines()
+    start = lines.index(title) + 2
+    end = next((i for i in range(start, len(lines))
+                if lines[i].startswith("=" * 64)), len(lines))
+    return [ln for ln in lines[start:end] if ln]
+
+
+def m_explain(name: str, text: str, files: tuple) -> None:
+    """Raise unless explain's ``text`` for query ``name`` holds what phase
+    L measured: q12's two indexes and its bucket-aligned join, the files
+    year_1995's sketch keeps, and the four rules' decisions."""
+    used = [ln.split(":")[0] for ln in m_section(text, "Indexes used:")]
+    ops = m_section(text, "Physical operator stats:")
+    scans = m_section(text, "Scan IO (with indexes):")
+    rules = [ln.split(":")[0] for ln in m_section(text, "Optimizer decisions:")
+             if ln.startswith("rule ")]
+    want_rules = [f"rule {r}" for r in M_RULES]
+    bad = []
+    if rules[:4] != want_rules:
+        bad.append(f"rules {rules}")
+    if name == "q12":
+        if used != sorted([L_LI_INDEX, L_ORD_INDEX]):
+            bad.append(f"indexes used {used}")
+        if not any(ln.split()[0] == "PerBucketMergeJoinExec"
+                   and ln.split()[2] == "1" for ln in ops):
+            bad.append(f"operators {ops}")
+    if name == "year_1995":
+        kept = f"files {files[0]}/{files[1]},"
+        if used != [L_DS_INDEX] or not any(kept in ln for ln in scans):
+            bad.append(f"indexes used {used}, scans {scans}, want {kept}")
+    if bad:
+        raise AssertionError(f"phase M explain {name}: {bad}\n{text}")
+
+
+def phase_m(root: str, dev, pl: dict, ctx: dict) -> dict:
+    """SQL and explain on the card, over phase L's session, tables and
+    indexes (see the module docstring)."""
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.sql import sql
+
+    t_phase = time.perf_counter()
+    session, hs, want = ctx["session"], ctx["hs"], ctx["want"]
+    texts = m_texts(want["q21_keys"])
+    tables = m_tables(root)
+    out: dict = {"queries": {}, "explain": {}}
+    kernels.reset_launch_counts()
+    sql_ds = {}
+    for name, (dsl, keys) in ctx["queries"].items():
+        t0 = time.perf_counter()
+        ds = sql(session, texts[name], tables)
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plan = ds.optimized_plan()
+        optimize_ms = (time.perf_counter() - t0) * 1e3
+        same = plan.tree_string() == dsl.optimized_plan().tree_string()
+        if same == (name in M_PLAN_EXCEPTIONS):
+            raise AssertionError(
+                f"phase M {name}: SQL plan {'equals' if same else 'differs from'}"
+                f" the DSL twin's\n{plan.tree_string()}")
+        device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds.collect()
+        checked_ms = (time.perf_counter() - t0) * 1e3
+        stats = session.last_execution_stats
+        require_rows(f"phase M {name}", got, want[name], keys, rtol=AGG_RTOL)
+        # Timed in turns with the DSL twin, so the two compare within
+        # one stretch of the run.
+        turns = {"sql": [], "dsl": []}
+        for label in ("sql", "dsl", "dsl", "sql"):
+            t0 = time.perf_counter()
+            again = (ds if label == "sql" else dsl).collect()
+            turns[label].append((time.perf_counter() - t0) * 1e3)
+            require_rows(f"phase M {name} ({label}, timed)", again,
+                         want[name], keys, rtol=AGG_RTOL)
+        twin = pl["queries"][name]
+        record = {"parse_ms": parse_ms, "optimize_ms": optimize_ms,
+                  "checked_ms": checked_ms, "timed_ms": turns["sql"],
+                  "median_ms": statistics.median(turns["sql"]),
+                  "dsl_turns_ms": turns["dsl"],
+                  "dsl_turns_median_ms": statistics.median(turns["dsl"]),
+                  "dsl_median_ms": twin["median_ms"], "plan_equal": same,
+                  **routes(stats),
+                  "aggregates": sorted({d["strategy"]
+                                        for d in stats.get("aggregates", [])})}
+        for k in ("filters", "joins", "join_kernels", "aggregates"):
+            if record[k] != twin[k]:
+                raise AssertionError(f"phase M {name}: {k} {record[k]}, phase "
+                                     f"L took {twin[k]}")
+        out["queries"][name] = record
+        sql_ds[name] = ds
+    files = (want["year_1995_files"], N_FILES)
+    for name in M_EXPLAINED:
+        t0 = time.perf_counter()
+        text = hs.explain(sql_ds[name], verbose=True)
+        out["explain"][name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                "lines": len(text.splitlines())}
+        m_explain(name, text, files)
+        if name == "q12":
+            print(f"phase M explain q12 (verbose):\n{text}", flush=True)
+    t0 = time.perf_counter()
+    row = hs.index(L_LI_INDEX).to_pylist()
+    listed = hs.indexes().to_pylist()
+    out["statistics_ms"] = (time.perf_counter() - t0) * 1e3
+    if len(row) != 1 or row[0]["numBuckets"] != NUM_BUCKETS \
+            or row[0]["state"] != "ACTIVE" or sorted(
+                r["name"] for r in listed) != sorted(
+                    [L_LI_INDEX, L_ORD_INDEX, L_DS_INDEX]):
+        raise AssertionError(f"phase M statistics: {row}, {listed}")
+    out["index"] = {k: v for k, v in row[0].items() if k != "schema"}
+    out["indexes"] = [{k: r[k] for k in ("name", "numBuckets", "state",
+                                          "numIndexFiles", "sizeIndexFiles")}
+                      for r in listed]
+    out["launches"] = kernels.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase M's queries launched {out['launches']}: "
                              f"no kernel is on their path")
     out["wall_s"] = time.perf_counter() - t_phase
     return out
@@ -4097,6 +4342,23 @@ def print_plan_language(pl: dict) -> None:
           f"({pl['wall_s']:.3f} s)", flush=True)
 
 
+def print_sql(m: dict) -> None:
+    for name, q in m["queries"].items():
+        print(f"phase M {name}: parse {q['parse_ms']:.2f} ms, optimize "
+              f"{q['optimize_ms']:.1f} ms, checked {q['checked_ms']:.1f} ms, "
+              f"timed median {q['median_ms']:.1f} ms (the DSL twin in turns "
+              f"{q['dsl_turns_median_ms']:.1f} ms, its phase L median "
+              f"{q['dsl_median_ms']:.1f} ms); plan equal to the twin's "
+              f"{q['plan_equal']}", flush=True)
+    for name, e in m["explain"].items():
+        print(f"phase M explain {name} (verbose): {e['ms']:.1f} ms, "
+              f"{e['lines']} lines", flush=True)
+    print(f"phase M index {L_LI_INDEX}: {json.dumps(m['index'])}", flush=True)
+    print(f"phase M indexes: {json.dumps(m['indexes'])}", flush=True)
+    print(f"phase M: SQL twins, explain and statistics checked, launches "
+          f"{json.dumps(m['launches'])} ({m['wall_s']:.3f} s)", flush=True)
+
+
 def print_split(label: str, split: dict) -> None:
     """One line per temperature of a ``stage_breakdown`` pair."""
     for temp in ("cold", "warm"):
@@ -4290,8 +4552,11 @@ def main() -> int:
               f"({time.perf_counter() - t0:.3f} s)", flush=True)
         window = phase_k(li, root, dev)
         print_window(window)
-        plan_language = phase_l(root, dev)
+        plan_language, l_ctx = phase_l(root, dev)
         print_plan_language(plan_language)
+        sql_m = phase_m(root, dev, plan_language, l_ctx)
+        del l_ctx
+        print_sql(sql_m)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -4324,7 +4589,8 @@ def main() -> int:
                **g["launches_by_path"], "I repair": integ["repair_launches"],
                "I containment": contained, "K analytic": window["launches"],
                "L builds": plan_language["launches_builds"],
-               "L plan language": plan_language["launches"]}
+               "L plan language": plan_language["launches"],
+               "M sql": sql_m["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -4351,6 +4617,7 @@ def main() -> int:
         "sf10": {k: v for k, v in sf10_z.items() if k != "report"}}}))
     print(json.dumps({"window": window}))
     print(json.dumps({"plan_language": plan_language}))
+    print(json.dumps({"sql": sql_m}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

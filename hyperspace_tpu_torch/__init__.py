@@ -16,8 +16,12 @@ and uploading them again.  Which route each operation takes is calibrated
 for the session's device (``utils/calibrate.py``); every action publishes
 a build report (``telemetry/build_report.py``); per-file sketches prune
 the files a scan reads (``DataSkippingIndexConfig``, and each covering
-build's ``_sketch.parquet``).  The JAX package ``hyperspace_tpu`` is the
-reference; this package imports nothing of it, and no ``jax``.
+build's ``_sketch.parquet``).  Queries can be SQL text
+(``hyperspace_tpu_torch.sql.sql``); ``Hyperspace.explain`` shows a
+query's plans with and without the indexes, ``Dataset.last_run_report``
+what the last collect decided and read, and ``Hyperspace.indexes`` and
+``index`` the index statistics.  The JAX package ``hyperspace_tpu`` is
+the reference; this package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

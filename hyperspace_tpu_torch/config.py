@@ -1,7 +1,7 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
 holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
-read; defaults are the JAX package's).
+read, and the explain display mode; defaults are the JAX package's).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -99,6 +99,12 @@ class HyperspaceConf:
     integrity_quarantine_on_failure: bool = True
     auto_repair_enabled: bool = False
     degraded_fallback_to_source: bool = True
+    # Explain output rendering (plananalysis/display.py): "plaintext",
+    # "html" or "console"; custom highlight tags, both set, override the
+    # mode's own.
+    display_mode: str = "plaintext"
+    highlight_begin_tag: str = ""
+    highlight_end_tag: str = ""
 
     def device_min_rows(self, kind: str, device) -> int:
         """The host-versus-device threshold of ``kind`` ("filter",

@@ -4,11 +4,13 @@ takes, and the query verbs ``filter``, ``select`` (column names and
 computed columns), ``with_column``, ``with_window``, ``join``,
 ``group_by(...).agg(...)``, ``agg``, ``sort``, ``limit``, ``distinct``,
 ``union``, ``intersect``, ``subtract``, ``cache``, ``collect``,
-``to_pandas``, ``count``, ``columns`` and ``show``.
+``to_pandas``, ``count``, ``columns``, ``show``, ``explain``,
+``explain_string`` and ``last_run_report``.
 
 ``collect()`` optimizes the plan (the index rules run when hyperspace is
 enabled on the session), executes it into an arrow table and publishes
-the executor's stats as ``session.last_execution_stats``.
+the executor's stats as ``session.last_execution_stats`` and its run
+report (telemetry/report.py) as ``last_run_report()``.
 
 When reading index data fails at execution, ``collect`` contains the
 damage (the JAX package's execution-time containment), with
@@ -32,7 +34,8 @@ unchanged and quarantines nothing, since no fallback may hide the card;
 so does a failed auto repair's error other than a ``HyperspaceError``
 or a read error.  ``last_execution_stats["containment"]`` records what
 was done: the files quarantined and the re-plan's mode
-("containment" or "source-fallback")."""
+("containment" or "source-fallback"); the run report records the
+quarantine and the containment re-plan, as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from hyperspace_tpu_torch.plan.nodes import (
     Window,
     WithColumns,
 )
+from hyperspace_tpu_torch.telemetry import report as run_report
 
 
 class GroupedDataset:
@@ -223,17 +227,44 @@ class Dataset:
         return self.session.optimize(self.plan, use_indexes=use_indexes)
 
     def collect(self):
-        """The result as a pyarrow Table."""
+        """The result as a pyarrow Table.  A run report
+        (telemetry/report.py) is open while it runs, and is published as
+        ``session.last_run_report_value`` (``last_run_report()``)."""
         from hyperspace_tpu_torch.execution.executor import Executor
 
-        executor = Executor(self.session)
-        plan = self.optimized_plan()
+        token = run_report.start()
         try:
-            out = executor.execute(plan)
-        except Exception as e:  # noqa: BLE001 - _contain re-raises the rest
-            out, executor = self._contain(plan, executor, e)
+            executor = Executor(self.session)
+            plan = self.optimized_plan()
+            try:
+                out = executor.execute(plan)
+            except Exception as e:  # noqa: BLE001 - _contain re-raises
+                out, executor = self._contain(plan, executor, e)
+        except Exception:
+            run_report.active().outcome = "error"
+            raise
+        finally:
+            self.session.last_run_report_value = run_report.finish(token)
         self.session.last_execution_stats = executor.stats
         return out
+
+    def last_run_report(self):
+        """The run report of this session's most recent ``collect()`` on
+        the calling thread (None before any query): the indexes
+        considered and used, each rule's decision, every executed scan's
+        IO, and what containment did."""
+        return self.session.last_run_report_value
+
+    def explain(self, verbose: bool = False) -> str:
+        """The plans with and without the indexes, side by side
+        (``Hyperspace.explain`` without the Hyperspace object)."""
+        from hyperspace_tpu_torch.plananalysis.explain import explain_string
+
+        return explain_string(self, self.session, verbose=verbose)
+
+    def explain_string(self) -> str:
+        """The unoptimized plan's tree."""
+        return self.plan.tree_string()
 
     def _contain(self, plan: LogicalPlan, failed, error: Exception):
         """(answer, its executor) after ``failed`` raised ``error`` running
@@ -256,6 +287,10 @@ class Dataset:
             record["quarantined"] = quarantine_damaged_index_files(
                 self.session, plan)
         if record["quarantined"]:
+            names = index_scans_of(plan)
+            run_report.record("quarantine", index=",".join(names),
+                              files=record["quarantined"])
+            run_report.record("replan", mode="containment", stage="execution")
             executor = Executor(self.session)
             try:
                 out = executor.execute(self.optimized_plan())
@@ -267,7 +302,7 @@ class Dataset:
                 record["replan"] = "containment"
                 executor.stats["containment"] = record
                 if conf.auto_repair_enabled:
-                    for name in index_scans_of(plan):
+                    for name in names:
                         try:
                             self.session.index_collection_manager.refresh(
                                 name, "repair")

@@ -90,6 +90,9 @@ bucket-aligned join or the fused join→aggregate.  ``Cast``, ``Case``,
 ``Extract``, the string functions and the string predicates are
 evaluated on the arrow path only, as in the JAX package.
 
+Each executed scan appends its IO (files read and listed, bytes) to
+``stats["scans"]`` and to the active run report (telemetry/report.py).
+
 Not ported: ``finalize_stats``' memory gauges,
 the telemetry counters, spans and transfer timeline, the mesh filter, join and aggregates,
 the lake formats and hypothetical scans.
@@ -158,6 +161,7 @@ from hyperspace_tpu_torch.plan.nodes import (
     Window,
     WithColumns,
 )
+from hyperspace_tpu_torch.telemetry import report as run_report
 
 
 class Executor:
@@ -390,6 +394,7 @@ class Executor:
             "bytes_read": bytes_read,
         }
         self.stats["scans"].append(record)
+        run_report.record("scan", **record)
         if not paths:
             # Every file pruned: an empty table that keeps the schema, so
             # the nodes above still resolve their columns.

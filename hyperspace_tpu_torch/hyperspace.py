@@ -1,17 +1,18 @@
 """Top-level user API (counterpart of hyperspace_tpu/hyperspace.py):
 ``create_index``, ``delete_index``, ``restore_index``, ``vacuum_index``,
 ``refresh_index``, ``optimize_index``, ``verify_index``, ``cancel``,
-``indexes`` and ``last_build_report``."""
+``indexes``, ``index``, ``explain`` and ``last_build_report``."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Union
+from typing import Union
 
 from hyperspace_tpu_torch.dataset import Dataset
 from hyperspace_tpu_torch.index.index_config import (
     DataSkippingIndexConfig,
     IndexConfig,
 )
+from hyperspace_tpu_torch.index.statistics import index_statistics_table
 from hyperspace_tpu_torch.session import HyperspaceSession
 
 
@@ -65,10 +66,27 @@ class Hyperspace:
     def cancel(self, name: str) -> None:
         self.index_manager.cancel(name)
 
-    def indexes(self) -> List[Dict[str, Any]]:
-        """One row per index: the rows of the JAX package's ``indexes()``
-        table, as dictionaries (pyarrow stays inside ``io/``)."""
+    def indexes(self):
+        """The summary of every index, a pyarrow Table with one row per
+        index (``index.statistics.INDEX_SUMMARY_COLUMNS``)."""
         return self.index_manager.indexes()
+
+    def index(self, name: str):
+        """The extended statistics of ``name``, a pyarrow Table of one row
+        (``index.statistics.EXTENDED_COLUMNS``), or of none when there is
+        no such index."""
+        entry = self.index_manager.get_index(name)
+        return index_statistics_table([entry] if entry else [], extended=True,
+                                      index_path=self.index_manager.index_path)
+
+    def explain(self, dataset: Dataset, verbose: bool = False) -> str:
+        """The plans of ``dataset`` with and without the indexes, side by
+        side, the differences highlighted, and the indexes used; verbose
+        adds the physical operators, each scan's IO, the optimizer's
+        decisions and the session's last run report."""
+        from hyperspace_tpu_torch.plananalysis.explain import explain_string
+
+        return explain_string(dataset, self.session, verbose=verbose)
 
     def last_build_report(self):
         """The ``BuildReport`` (telemetry/build_report.py) of the last

@@ -9,12 +9,13 @@ ported: auto-recovery and the conflict-retry settings."""
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional
+from typing import List, Optional
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.index.statistics import index_statistics_table
 from hyperspace_tpu_torch.io.files import list_dir
 
 DEFAULT_SYSTEM_DIR = "spark-warehouse/indexes"
@@ -177,22 +178,8 @@ class IndexCollectionManager:
     def get_index(self, name: str) -> Optional[IndexLogEntry]:
         return self._log_manager(name).get_latest_stable_log()
 
-    def indexes(self) -> List[Dict[str, Any]]:
-        """One summary row per index, with the columns of the JAX
-        package's ``indexes()`` table."""
-        rows = []
-        for e in self.get_indexes():
-            index_files = e.content.file_infos()
-            rows.append({
-                "name": e.name,
-                "indexedColumns": e.indexed_columns,
-                "includedColumns": e.included_columns,
-                "numBuckets": e.num_buckets,
-                "schema": str(e.derived_dataset.schema),
-                "indexLocation": os.path.dirname(index_files[0].name)
-                if index_files else self.index_path(e.name),
-                "state": e.state,
-                "numIndexFiles": len(index_files),
-                "sizeIndexFiles": sum(f.size for f in index_files),
-            })
-        return rows
+    def indexes(self):
+        """The summary table of every index (index/statistics.py), a
+        pyarrow Table, as the JAX package's ``indexes()`` gives it."""
+        return index_statistics_table(self.get_indexes(),
+                                      index_path=self.index_path)

@@ -17,8 +17,8 @@ source mutations with no hybrid-scan machinery.
 
 ``prune_index_files_by_sketch`` does the same for a covering index's own
 files, by the ``_sketch.parquet`` each build version writes.  Host work:
-pyarrow is imported when a function runs.  Not ported: the index-usage
-events.
+pyarrow is imported when a function runs.  A pruned scan records its
+index as used in the active run report (telemetry/report.py).
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from hyperspace_tpu_torch.plan.expr import (
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.filter_rule import _extract_filter_nodes
+from hyperspace_tpu_torch.telemetry import report
 
 # In-process memo of loaded sketches keyed by the sketch files' identity
 # (name, size, mtime): correct across rebuilds AND across same-name indexes
@@ -452,7 +453,10 @@ class DataSkippingFilterRule:
         def swap(node: LogicalPlan) -> LogicalPlan:
             return new_scan if node is scan else node
 
-        return plan.transform_up(swap)
+        new_plan = plan.transform_up(swap)
+        report.record("index.used", index=entry.name,
+                      message="DataSkippingFilterRule applied")
+        return new_plan
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,9 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
     per-file min/max (the ``_sketch.parquet`` each build version writes)
     cannot satisfy the predicate are dropped too
     (``rules.data_skipping.prune_index_files_by_sketch``).
+
+Each rewrite records its index as used in the active run report
+(telemetry/report.py).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from hyperspace_tpu_torch.plan.expr import BinOp, Col, Expr, IsIn, Lit, Or, spli
 from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.rankers import rank_filter_indexes
+from hyperspace_tpu_torch.telemetry import report
 from hyperspace_tpu_torch.utils.resolver import resolve
 
 
@@ -85,20 +89,25 @@ class FilterIndexRule:
         # signature match: the index side drops them and a BucketIn
         # branch reads their rows from the source.
         if changed or quarantined_split(self.session, best)[1]:
-            return transform_plan_to_use_hybrid_scan(
+            new_plan = transform_plan_to_use_hybrid_scan(
                 self.session, plan, scan, best, bucket_union=False,
                 prune_to_buckets=prune)
-        use_bucket_spec = (self.session.conf.filter_rule_use_bucket_spec
-                           or prune is not None)
-        from hyperspace_tpu_torch.rules.data_skipping import (
-            prune_index_files_by_sketch,
-        )
+        else:
+            use_bucket_spec = (self.session.conf.filter_rule_use_bucket_spec
+                               or prune is not None)
+            from hyperspace_tpu_torch.rules.data_skipping import (
+                prune_index_files_by_sketch,
+            )
 
-        pruned = prune_index_files_by_sketch(best, filter_node.condition)
-        file_paths, file_stats = (None, None) if pruned is None \
-            else (pruned[0], (len(pruned[0]), pruned[1]))
-        return rule_utils.transform_plan_to_use_index_only_scan(
-            plan, scan, best, use_bucket_spec, prune, file_paths, file_stats)
+            pruned = prune_index_files_by_sketch(best, filter_node.condition)
+            file_paths, file_stats = (None, None) if pruned is None \
+                else (pruned[0], (len(pruned[0]), pruned[1]))
+            new_plan = rule_utils.transform_plan_to_use_index_only_scan(
+                plan, scan, best, use_bucket_spec, prune, file_paths,
+                file_stats)
+        report.record("index.used", index=best.name,
+                      message="FilterIndexRule applied")
+        return new_plan
 
 
 def _extract_filter_nodes(plan: LogicalPlan

@@ -16,6 +16,9 @@ executor joins bucket by bucket.
     quarantined file is no join candidate: the source branch of its
     damaged buckets has no bucket structure to align (the filter rule
     still serves it with containment).
+
+Each rewrite records both indexes as used in the active run report
+(telemetry/report.py).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from hyperspace_tpu_torch.plan.nodes import (
 )
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.rankers import rank_join_index_pairs
+from hyperspace_tpu_torch.telemetry import report
 from hyperspace_tpu_torch.utils.resolver import resolve
 
 
@@ -131,9 +135,13 @@ class JoinIndexRule:
             return rule_utils.transform_plan_to_use_index_only_scan(
                 side_plan, scan, entry, use_bucket_spec=True)
 
-        return Join(rewrite_side(join.left, l_scan, l_entry),
-                    rewrite_side(join.right, r_scan, r_entry),
-                    join.condition, join.how, residual=join.residual)
+        new_plan = Join(rewrite_side(join.left, l_scan, l_entry),
+                        rewrite_side(join.right, r_scan, r_entry),
+                        join.condition, join.how, residual=join.residual)
+        for name in (l_entry.name, r_entry.name):
+            report.record("index.used", index=name,
+                          message="JoinIndexRule applied")
+        return new_plan
 
     def _required_columns(self, side_plan: LogicalPlan) -> List[str]:
         """The source columns a side must provide: its output plus the

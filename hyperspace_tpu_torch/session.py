@@ -8,12 +8,16 @@ JoinIndexRule, FilterIndexRule, BucketPruneRule, DataSkippingFilterRule
 (last: a covering rewrite beats file pruning), and pushdown and pruning
 once more (the rules rebuild sides in Filter-above-Project form);
 ``use_indexes=False`` skips the rules (the source plan of
-``Dataset.collect``'s fallback).  Not ported: the subquery and temporal
-steps, the degraded fallback that answers from the source when a rule
-fails, and the plan cache."""
+``Dataset.collect``'s fallback).  Each pass records the indexes it
+considered and each rule's decision in the active run report
+(telemetry/report.py); ``last_run_report_value`` holds the report of
+the calling thread's last ``Dataset.collect``.  Not ported: the
+degraded fallback that answers from the source when a rule fails, and
+the plan cache."""
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -21,6 +25,7 @@ import torch
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan, ScanRelation
 from hyperspace_tpu_torch.sources.manager import FileBasedSourceProviderManager
+from hyperspace_tpu_torch.telemetry import report
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -65,6 +70,16 @@ class HyperspaceSession:
         self._schema_cache: Dict[ScanRelation, Dict[str, str]] = {}
         # The executor's stats of the most recent Dataset.collect().
         self.last_execution_stats: Optional[Dict[str, List[Dict[str, Any]]]] = None
+        # The run report of the calling thread's most recent collect().
+        self._run_report = threading.local()
+
+    @property
+    def last_run_report_value(self):
+        return getattr(self._run_report, "value", None)
+
+    @last_run_report_value.setter
+    def last_run_report_value(self, value) -> None:
+        self._run_report.value = value
 
     @property
     def read(self) -> DataReader:
@@ -136,12 +151,19 @@ class HyperspaceSession:
         if not (self._hyperspace_enabled and use_indexes):
             return plan
         entries = self.index_collection_manager.get_indexes([States.ACTIVE])
-        plan = JoinIndexRule(self, entries).apply(plan)
-        plan = FilterIndexRule(self, entries).apply(plan)
-        plan = BucketPruneRule(self, entries).apply(plan)
-        plan = DataSkippingFilterRule(self, entries).apply(plan)
+        report.record("indexes.considered", names=[e.name for e in entries])
+        for rule in (JoinIndexRule, FilterIndexRule, BucketPruneRule,
+                     DataSkippingFilterRule):
+            plan = _apply_rule(rule.__name__, rule(self, entries).apply, plan)
         plan = push_filters(plan, self.schema_of)
         return prune_columns(plan, self.schema_of)
+
+
+def _apply_rule(name: str, apply_fn, plan: LogicalPlan) -> LogicalPlan:
+    """Run one rewrite rule and record whether it changed the plan."""
+    new_plan = apply_fn(plan)
+    report.record("rule", rule=name, applied=new_plan is not plan)
+    return new_plan
 
 
 def _uniquify(plan: LogicalPlan) -> LogicalPlan:

@@ -1,0 +1,140 @@
+"""Per-query run reports: why this query ran the way it did (counterpart
+of hyperspace_tpu/telemetry/report.py).
+
+``Dataset.collect()`` opens a :class:`QueryRunReport` for the duration of
+the query; the optimizer, the rules, the executor and the containment
+path append structured *decisions* to it through :func:`record`, a
+contextvar lookup plus an append.  Retrieval: ``ds.last_run_report()``
+(thread-local on the session, like ``last_execution_stats``) or the
+"Last run report" section of ``explain(verbose=True)``.
+
+Not ported yet: the telemetry events feeding it (``observe_event``), the
+metrics registry, the span timings of a traced query, and the decisions
+of the degraded fallbacks (a rule that raises still raises).  A report
+here has no span, so ``render()`` gives the text the JAX package gives
+with tracing off.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import time
+from typing import Any, Dict, List, Optional
+
+
+class QueryRunReport:
+    """The explain-yourself artifact of one ``collect()``.
+
+    ``decisions`` is an append-only list of dicts, each with a ``kind``:
+
+    ========================  ===============================================
+    ``rule``                  one optimizer rule ran: ``rule``, ``applied``
+    ``indexes.considered``    ACTIVE entries the optimizer pass loaded
+    ``index.used``            a rule rewrote the plan to use ``index``
+    ``quarantine``            execution-failure containment quarantined
+                              files: ``index``, ``files``
+    ``replan``                the query re-planned (``mode``
+                              ``containment``)
+    ``scan``                  one executed scan's IO: ``relation``,
+                              ``is_index``, ``files_read``,
+                              ``files_listed``, ``bytes_read``
+    ========================  ===============================================
+    """
+
+    def __init__(self) -> None:
+        self.started_at = time.time()
+        self.duration_ms = 0.0
+        self.outcome = "ok"  # "ok" | "error"
+        self.decisions: List[Dict[str, Any]] = []
+        self.indexes_considered: List[str] = []
+        self.indexes_used: List[str] = []
+
+    def skipped_indexes(self) -> List[str]:
+        """Indexes that were considered (or quarantined) but did not end
+        up serving the query."""
+        named = {d.get("index", "") for d in self.decisions
+                 if d["kind"] == "quarantine" and d.get("index")}
+        return sorted((set(self.indexes_considered) | named)
+                      - set(self.indexes_used))
+
+    def rules(self) -> List[Dict[str, Any]]:
+        return [d for d in self.decisions if d["kind"] == "rule"]
+
+    def scans(self) -> List[Dict[str, Any]]:
+        """Per-scan IO records of the execution (kind ``scan``)."""
+        return [d for d in self.decisions if d["kind"] == "scan"]
+
+    def bytes_read(self, is_index: Optional[bool] = None) -> int:
+        """Total bytes the query's scans read: all scans, or only the
+        index or only the source side.  A containment re-plan's scans
+        count too: the report describes what the query cost."""
+        return sum(d.get("bytes_read", 0) for d in self.scans()
+                   if is_index is None or bool(d.get("is_index")) == is_index)
+
+    def render(self) -> str:
+        """Human-readable report (what explain(verbose=True) embeds)."""
+        lines = [f"Query run report: outcome={self.outcome} "
+                 f"duration={self.duration_ms:.1f}ms"]
+        lines.append(f"  indexes considered: "
+                     f"{', '.join(self.indexes_considered) or '(none)'}")
+        lines.append(f"  indexes used:       "
+                     f"{', '.join(self.indexes_used) or '(none)'}")
+        skipped = self.skipped_indexes()
+        if skipped:
+            lines.append(f"  indexes skipped:    {', '.join(skipped)}")
+        for d in self.decisions:
+            kind = d["kind"]
+            if kind == "rule":
+                state = "applied" if d.get("applied") else "no match"
+                lines.append(f"  rule {d.get('rule')}: {state}")
+            elif kind == "quarantine":
+                lines.append(f"  quarantine: index={d.get('index')} "
+                             f"files={d.get('files')}")
+            elif kind == "replan":
+                lines.append(f"  re-planned: {d.get('mode')}")
+            elif kind == "scan":
+                side = "index" if d.get("is_index") else "source"
+                lines.append(
+                    f"  scan [{side}] {d.get('relation')}: "
+                    f"{d.get('files_read')}/{d.get('files_listed')} files, "
+                    f"{d.get('bytes_read', 0)} bytes")
+        return "\n".join(lines)
+
+
+_active: "contextvars.ContextVar[Optional[QueryRunReport]]" = \
+    contextvars.ContextVar("hyperspace_torch_run_report", default=None)
+
+
+def start() -> "contextvars.Token":
+    """Install a fresh report for the calling context; pair with
+    :func:`finish`."""
+    return _active.set(QueryRunReport())
+
+
+def finish(token: "contextvars.Token") -> QueryRunReport:
+    report = _active.get()
+    _active.reset(token)
+    report.duration_ms = (time.time() - report.started_at) * 1000.0
+    return report
+
+
+def active() -> Optional[QueryRunReport]:
+    return _active.get()
+
+
+def record(kind: str, **data: Any) -> None:
+    """Append one decision to the active report (a no-op outside a
+    query)."""
+    report = _active.get()
+    if report is None:
+        return
+    data["kind"] = kind
+    report.decisions.append(data)
+    if kind == "indexes.considered":
+        for n in data.get("names", ()):
+            if n not in report.indexes_considered:
+                report.indexes_considered.append(n)
+    elif kind == "index.used":
+        n = data.get("index", "")
+        if n and n not in report.indexes_used:
+            report.indexes_used.append(n)

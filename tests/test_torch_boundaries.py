@@ -46,7 +46,10 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "execution/device_cache.py", "utils/calibrate.py",
                    "telemetry/build_report.py", "actions/data_skipping.py",
                    "rules/data_skipping.py", "ops/zorder.py",
-                   "ops/window.py", "plan/temporal.py", "plan/subquery.py"):
+                   "ops/window.py", "plan/temporal.py", "plan/subquery.py",
+                   "sql/parser.py", "plananalysis/display.py",
+                   "plananalysis/explain.py", "plananalysis/physical.py",
+                   "telemetry/report.py", "index/statistics.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -71,7 +74,11 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "actions/repair.py", "execution/containment.py",
                    "ops/zorder.py", "ops/window.py",
                    "execution/executor.py", "plan/pruning.py",
-                   "plan/temporal.py", "plan/subquery.py", "plan/expr.py"):
+                   "plan/temporal.py", "plan/subquery.py", "plan/expr.py",
+                   "sql/__init__.py", "sql/parser.py",
+                   "plananalysis/__init__.py", "plananalysis/display.py",
+                   "plananalysis/explain.py", "plananalysis/physical.py",
+                   "telemetry/report.py", "index/statistics.py"):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -112,6 +119,30 @@ def test_the_plan_never_imports_pyarrow():
         Cast(col("k"), "varchar(10)")
 
 
+def test_the_sql_front_end_and_the_display_never_import_pyarrow():
+    """``sql/`` and ``plananalysis/display.py`` import no pyarrow, not
+    even inside a function: parsing and rendering need no arrow."""
+    import ast
+
+    sql_dir = os.path.join(PORT, "sql")
+    paths = [os.path.join(sql_dir, n) for n in sorted(os.listdir(sql_dir))
+             if n.endswith(".py")]
+    paths.append(os.path.join(PORT, "plananalysis", "display.py"))
+    assert {os.path.basename(p) for p in paths} >= {
+        "__init__.py", "parser.py", "display.py"}
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] == "pyarrow" for n in names), path
+
+
 def test_a_build_through_the_port_imports_no_jax(tmp_path):
     script = textwrap.dedent(f"""
         import os, sys
@@ -133,7 +164,7 @@ def test_a_build_through_the_port_imports_no_jax(tmp_path):
             setattr(s.conf, f"device_{{kind}}_min_rows", 0)
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
-        assert hs.indexes()[0]["state"] == "ACTIVE"
+        assert hs.indexes().to_pylist()[0]["state"] == "ACTIVE"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
@@ -180,7 +211,7 @@ def test_the_spill_build_and_the_lifecycle_verbs_import_no_jax(tmp_path):
         for verb in ("delete_index", "restore_index", "delete_index",
                      "vacuum_index"):
             getattr(hs, verb)("ix")
-        assert hs.indexes()[0]["state"] == "DOESNOTEXIST"
+        assert hs.indexes().to_pylist()[0]["state"] == "DOESNOTEXIST"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
@@ -232,6 +263,53 @@ def test_queries_through_the_port_import_no_jax(tmp_path):
         assert s.last_execution_stats["device_cache"]["misses"] == 0
         assert all(d["resident"]
                    for d in s.last_execution_stats["join_kernels"])
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_sql_explain_and_statistics_import_no_jax(tmp_path):
+    """A join query as SQL text through ``collect()``, its verbose explain
+    with the run report, and the index statistics, each through the
+    port's entry points."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+        from hyperspace_tpu_torch.sql import sql
+
+        rng = np.random.default_rng(0)
+        paths = {{}}
+        for name, key in (("a", "k"), ("b", "j")):
+            paths[name] = os.path.join({str(tmp_path)!r}, name)
+            os.makedirs(paths[name])
+            pq.write_table(pa.table({{key: rng.integers(0, 50, 300),
+                                      name + "v": rng.random(300)}}),
+                           os.path.join(paths[name], "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(paths["a"]), IndexConfig("ia", ["k"], ["av"]))
+        hs.create_index(s.read.parquet(paths["b"]), IndexConfig("ib", ["j"], ["bv"]))
+        s.enable_hyperspace()
+        ds = sql(s, "SELECT k, sum(bv) AS t FROM a JOIN b ON k = j "
+                    "WHERE av < 0.5 GROUP BY k ORDER BY k", paths)
+        assert ds.collect().num_rows > 0
+        assert ds.last_run_report().indexes_used == ["ia", "ib"]
+        text = hs.explain(ds, verbose=True)
+        assert "PerBucketMergeJoinExec" in text and "Last run report:" in text
+        assert hs.index("ia").column("numBuckets").to_pylist() == [4]
+        assert hs.indexes().column("name").to_pylist() == ["ia", "ib"]
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

@@ -102,7 +102,8 @@ def test_port_index_is_bit_equal_to_jax(tmp_path, num_buckets, config):
     location = "indexLocation"
     jrows = [{k: v for k, v in r.items() if k != location}
              for r in jhs.indexes().to_pylist()]
-    trows = [{k: v for k, v in r.items() if k != location} for r in ths.indexes()]
+    trows = [{k: v for k, v in r.items() if k != location}
+             for r in ths.indexes().to_pylist()]
     assert trows == jrows
     assert ts.build_stats_log[-1]["index"] == config[0]
 

@@ -194,7 +194,7 @@ class TestBuild:
         out = _both(tmp_path, data, [_ci("ci1", ["id"], ["name"]),
                                      _ds("ds1", ["id"])])
         jnames = out["jax"]["hs"].indexes().column("name").to_pylist()
-        tnames = [r["name"] for r in out["torch"]["hs"].indexes()]
+        tnames = out["torch"]["hs"].indexes().column("name").to_pylist()
         assert sorted(tnames) == sorted(jnames) == ["ci1", "ds1"]
 
     @pytest.mark.parametrize("pkg", PKGS, ids=_name)
