@@ -316,6 +316,57 @@ beside it.
            ``{"sql": ...}``: per query its ms, the DSL twin's in turns
            and its phase L median, and its routes; each explain's ms;
            the statistics.
+  phase N  the failure envelope at SF1, after phase M, over a
+           hard-linked copy of phase C's lineitem (N_SOURCE) in a system
+           path of its own: the spill build with the default batch, 200
+           buckets and lineage.  Each step runs with the launch counts
+           set to 0 just before and read just after and prints its wall,
+           outcome and launches; each fault is armed in the port's
+           injector (io/faults.py) and cleared in a finally.  The clean
+           build ``n_clean`` (its files' sha256 per bucket kept) and
+           ``n_ord`` on the orders; ``data.read eio`` at the third
+           source read (retried; the bytes ``n_clean``'s); ``data.write
+           eio`` (no IO retry, as in the JAX package: the build raises
+           OSError, no spill directory of this process is left, the log
+           is CREATING) and its rebuild under auto recovery (the clean
+           bytes); ``data.write torn`` (InjectedCrash, no spill
+           directory, CREATING with no stable entry) and its rebuild
+           (ACTIVE, the clean bytes).  Then N_APPENDED files appended:
+           an uninterrupted incremental refresh of ``n_read`` (a copy of
+           the clean bytes), the same refresh of ``n_clean`` crashed at
+           ``action.commit`` (the stable entry unchanged, point and q3
+           answering numpy's over the changed source), and its refresh
+           under auto recovery (the uninterrupted refresh's bytes).
+           ``log.rename`` ``crash-before-rename`` of a delete (no
+           pointer, its tmp file left, the DELETED entry resolved) and
+           ``crash-after-rename`` of the restore (the pointer durable at
+           ACTIVE).  ``data.read eio`` at query time: point and q3
+           through the indexes, numpy's answers, one ``io.retry``
+           decision in the run report, the extra ms against a clean cold
+           run.  Degraded: a system path holding a copy of ``n_clean``'s
+           log with every entry torn; the point query answers numpy's
+           from the source, the report "degraded" naming the copy, and
+           with the fallback off ``DegradedIndexError``; a real
+           allocation error of the card (``torch.empty(1 << 50)``)
+           raised inside FilterIndexRule propagates and degrades
+           nothing.  Prints ``{"envelope": ...}``.
+  phase O  the advisor at SF1, after phase N, over phase C's lineitem
+           and phase D's orders in a fresh system path, 16 buckets,
+           thresholds pinned to 0, capture on: phase D's point, range,
+           join and q3 twice each from an emptied cache (numpy's
+           answers; four shapes of two hits in ``captured_workload()``);
+           O_CAPTURE_CALLS capture calls of the point query timed;
+           ``recommend_indexes(top_k=5)`` twice, equal, each row
+           printed; ``explain(whatif=...)`` of the top two candidates
+           over each query's relations (the text printed, the estimated
+           bytes falling), the system path's listing unchanged, and the
+           executor refusing q3's what-if plan; ``apply_recommendations
+           (top_k=2)`` with the launch counts set to 0 just before and
+           read just after (``O apply``: both kernels), its build report
+           checked; the four queries again from an emptied cache through
+           the built indexes alone, numpy's answers, fewer bytes read,
+           the ms before and after (``O rerun``).  Prints
+           ``{"advisor": ...}``.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -343,10 +394,12 @@ the queries JSON (phase D's with its ``eviction`` run, phase G's as
 H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
-phase M's ``M sql``), the integrity JSON (phase I), the Z-order JSON
-(phase J), the window JSON (phase K), the plan-language JSON (phase L),
-the SQL JSON (phase M), the card's name and power limit, and
-``{"ok": true, "device": ...}``.
+phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
+``O rerun``), the integrity JSON (phase I), the Z-order JSON (phase J),
+the window JSON (phase K), the plan-language JSON (phase L), the SQL
+JSON (phase M), the envelope JSON (phase N) and the advisor JSON
+(phase O), each of the last two with the card's name and power limit,
+the card's name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -3908,6 +3961,519 @@ def phase_m(root: str, dev, pl: dict, ctx: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase N: the failure envelope at SF1
+# ---------------------------------------------------------------------------
+
+N_SOURCE = "n_lineitem"         # a hard-linked copy of phase C's lineitem
+N_CLEAN = "n_clean"             # the fault-free build every fault holds to
+N_ORDERS_INDEX = "n_ord"        # so point and q3 run through indexes
+N_APPENDED = 2                  # files appended before the refresh
+N_READ_AT = 3                   # data.read eio: the third source read
+N_WRITE_AT = 2                  # data.write eio: the second file written
+N_QUERIES = ("point", "q3")
+
+
+def n_spill_dirs() -> set:
+    """This process's spill directories in the temporary directory."""
+    prefix = f"hs_build_spill_{os.getpid()}_"
+    return {n for n in os.listdir(tempfile.gettempdir())
+            if n.startswith(prefix)}
+
+
+def n_log(hs, name: str) -> dict:
+    """The ids, states and resolved stable entry of ``name``'s log."""
+    mgr = hs.session.index_collection_manager._log_manager(name)
+    ids = mgr.log_ids()
+    stable = mgr.get_latest_stable_log()
+    return {"ids": ids,
+            "states": [(e.state if e is not None else None)
+                       for e in (mgr.get_log(i) for i in ids)],
+            "stable": None if stable is None else [stable.id, stable.state],
+            "pointer": os.path.isfile(os.path.join(mgr.log_dir,
+                                                   "latestStable")),
+            "pointer_tmp": os.path.isfile(os.path.join(
+                mgr.log_dir, "latestStable.tmp"))}
+
+
+def n_step(out: dict, label: str, run, plan=None, error=None) -> dict:
+    """``run()`` under the fault ``plan`` (a FaultPlan's fields, cleared
+    in a finally), the launch counts set to 0 just before and read just
+    after; ``error``, the exception class the run must raise.  Records
+    and prints its wall, outcome and launches."""
+    from hyperspace_tpu_torch.io import faults
+    from hyperspace_tpu_torch.ops import kernels
+
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        if plan is not None:
+            faults.install(faults.FaultPlan(**plan))
+        result = run()
+    except BaseException as e:  # noqa: BLE001 - the injected crash too
+        if error is None or not isinstance(e, error):
+            raise
+        raised, result = e, None
+    finally:
+        faults.clear()
+    wall = time.perf_counter() - t0
+    if error is not None and raised is None:
+        raise AssertionError(f"phase N {label}: the run did not raise "
+                             f"{error.__name__}")
+    outcome = type(raised).__name__ if raised is not None \
+        else getattr(result, "outcome", "ok")
+    rec = {"step": label, "wall_s": wall, "outcome": outcome,
+           "launches": kernels.launch_counts(), "fault": plan}
+    out["steps"].append(rec)
+    print(f"phase N {label}: wall {wall:.3f} s, outcome {outcome}, "
+          f"launches {json.dumps(rec['launches'])}", flush=True)
+    return rec
+
+
+def n_require(label: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"phase N {label}: {got!r}, expected {want!r}")
+
+
+def n_want(want: dict, name: str) -> tuple:
+    """(columns, sort keys) of ``name``'s answer: the point query's rows
+    compared as a multiset, since after an incremental refresh its key's
+    rows may lie in two versions of a bucket."""
+    rows, keys = want[name]
+    return rows, (["l_orderkey", "l_quantity"] if name == "point" else keys)
+
+
+def n_check_queries(label: str, session, root: str, want: dict,
+                    indexed: bool) -> dict:
+    """Point and q3 over the phase's source, each held to numpy; with
+    ``indexed`` every scan of their plans must read an index.  Returns
+    each query's cold ms."""
+    queries = build_queries(session, root, lineitem=N_SOURCE, aggregates=True)
+    ms = {}
+    for name in N_QUERIES:
+        ds = queries[name]
+        plan = ds.optimized_plan()
+        scans = index_scans(plan)
+        if indexed and len(scans) != len(plan.leaf_relations()):
+            raise AssertionError(f"phase N {label} {name}: plan scans "
+                                 f"{scans} of {len(plan.leaf_relations())} "
+                                 f"relations")
+        device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds.collect()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        rows, keys = n_want(want, name)
+        require_rows(f"phase N {label} {name}", got, rows, keys,
+                     rtol=AGG_RTOL if name == "q3" else 0.0)
+    return ms
+
+
+def phase_n(orders: dict, li: dict, root: str, dev) -> dict:
+    """The failure envelope at SF1 (see the module docstring)."""
+    from hyperspace_tpu_torch import HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.exceptions import DegradedIndexError
+    from hyperspace_tpu_torch.io.faults import InjectedCrash
+    from hyperspace_tpu_torch.rules import filter_rule
+
+    t_phase = time.perf_counter()
+    src = os.path.join(root, N_SOURCE)
+    shutil.copytree(os.path.join(root, "lineitem"), src,
+                    copy_function=os.link)
+    sys_path = os.path.join(root, "n_indexes")
+    hs = spill_session(dev, sys_path, lineage_enabled=True)
+    session = hs.session
+    out: dict = {"steps": []}
+
+    def create(name: str):
+        return lambda: hs.create_index(
+            session.read.parquet(src), IndexConfig(name, INDEXED, INCLUDED))
+
+    # 1. The clean build, and the orders index q3 joins through.
+    n_step(out, "clean build", create(N_CLEAN))
+    clean = bucket_digests(hs, N_CLEAN)
+    out["clean_files"] = sum(len(v) for v in clean.values())
+    n_step(out, "orders build", lambda: hs.create_index(
+        session.read.parquet(os.path.join(root, "orders")),
+        IndexConfig(N_ORDERS_INDEX, ["o_orderkey"],
+                    ["o_totalprice", "o_custkey"])))
+    if dev.type == "cuda":
+        for rec in out["steps"]:
+            missing = [k for k, v in rec["launches"].items() if v <= 0]
+            if missing:
+                raise AssertionError(f"phase N {rec['step']}: kernels not "
+                                     f"launched: {missing}")
+
+    # 2. A transient read error past the first chunk: the read is retried
+    #    and the build commits the clean bytes.  A write error has no IO
+    #    retry (as in the JAX package): the build fails, leaves no spill
+    #    directory, and the rebuild under auto recovery commits them.
+    n_step(out, "data.read eio", create("n_read"),
+           plan={"site": "data.read", "kind": "eio", "at": N_READ_AT})
+    n_require("data.read eio bytes", bucket_digests(hs, "n_read"), clean)
+    before = n_spill_dirs()
+    n_step(out, "data.write eio", create("n_write"), error=OSError,
+           plan={"site": "data.write", "kind": "eio", "at": N_WRITE_AT})
+    n_require("data.write eio spill dirs", n_spill_dirs() - before, set())
+    n_require("data.write eio log", n_log(hs, "n_write")["states"],
+              ["CREATING"])
+    session.conf.auto_recovery_enabled = True
+    n_step(out, "data.write eio rebuild", create("n_write"))
+    n_require("data.write eio rebuild bytes", bucket_digests(hs, "n_write"),
+              clean)
+
+    # 3. A torn data write: the build dies, no spill directory is left,
+    #    the log is CREATING with no stable entry; the rebuild recovers.
+    session.conf.auto_recovery_enabled = False
+    before = n_spill_dirs()
+    n_step(out, "data.write torn", create("n_torn"), error=InjectedCrash,
+           plan={"site": "data.write", "kind": "torn"})
+    n_require("data.write torn spill dirs", n_spill_dirs() - before, set())
+    log = n_log(hs, "n_torn")
+    n_require("data.write torn log", (log["states"], log["stable"]),
+              (["CREATING"], None))
+    session.conf.auto_recovery_enabled = True
+    n_step(out, "data.write torn rebuild", create("n_torn"))
+    n_require("data.write torn rebuild state", index_state(hs, "n_torn"),
+              "ACTIVE")
+    n_require("data.write torn rebuild bytes", bucket_digests(hs, "n_torn"),
+              clean)
+    out["torn_log"] = n_log(hs, "n_torn")
+
+    # 4. A crash at commit of an incremental refresh after appends: the
+    #    stable entry stays the previous version and the queries answer
+    #    from the changed source; the refresh under auto recovery commits
+    #    the bytes an uninterrupted refresh of the same change commits.
+    appended = g_append(src, 0, N_APPENDED, seed=141)
+    li2 = {c: np.concatenate([li[c], appended[c]]) for c in li}
+    want = {**expected_answers(orders, li2),
+            **expected_aggregates(orders, li2)}
+    n_step(out, "uninterrupted refresh", lambda: hs.refresh_index(
+        "n_read", "incremental"))
+    reference = bucket_digests(hs, "n_read")
+    stable_before = n_log(hs, N_CLEAN)["stable"]
+    session.conf.auto_recovery_enabled = False
+    n_step(out, "action.commit crash", lambda: hs.refresh_index(
+        N_CLEAN, "incremental"), error=InjectedCrash,
+        plan={"site": "action.commit", "kind": "crash"})
+    log = n_log(hs, N_CLEAN)
+    n_require("action.commit crash stable", log["stable"], stable_before)
+    n_require("action.commit crash latest", log["states"][-1], "REFRESHING")
+    session.enable_hyperspace()
+    out["crashed_ms"] = n_check_queries("after the crash", session, root,
+                                        want, indexed=False)
+    session.conf.auto_recovery_enabled = True
+    n_step(out, "recovered refresh", lambda: hs.refresh_index(
+        N_CLEAN, "incremental"))
+    n_require("recovered refresh bytes", bucket_digests(hs, N_CLEAN),
+              reference)
+    out["refresh_log"] = n_log(hs, N_CLEAN)
+
+    # 5. Crashes on either side of the pointer's rename resolve.
+    n_step(out, "log.rename crash-before-rename",
+           lambda: hs.delete_index("n_torn"), error=InjectedCrash,
+           plan={"site": "log.rename", "kind": "crash-before-rename"})
+    log = n_log(hs, "n_torn")
+    n_require("crash-before-rename", (log["pointer"], log["pointer_tmp"],
+                                      log["stable"]),
+              (False, True, [log["ids"][-1], "DELETED"]))
+    n_step(out, "log.rename crash-after-rename",
+           lambda: hs.restore_index("n_torn"), error=InjectedCrash,
+           plan={"site": "log.rename", "kind": "crash-after-rename"})
+    log = n_log(hs, "n_torn")
+    n_require("crash-after-rename", (log["pointer"], log["stable"]),
+              (True, [log["ids"][-1], "ACTIVE"]))
+    out["rename_log"] = log
+
+    # 6. A transient read error at query time: retried, recorded.
+    clean_ms = n_check_queries("clean", session, root, want, indexed=True)
+    out["queries"] = {}
+    for name in N_QUERIES:
+        ds = build_queries(session, root, lineitem=N_SOURCE,
+                           aggregates=True)[name]
+        rows, keys = n_want(want, name)
+        holder = {}
+
+        def faulted():
+            holder["table"] = ds.collect()
+
+        device_cache().clear()
+        rec = n_step(out, f"data.read eio {name}", faulted,
+                     plan={"site": "data.read", "kind": "eio"})
+        require_rows(f"phase N data.read eio {name}", holder["table"], rows,
+                     keys, rtol=AGG_RTOL if name == "q3" else 0.0)
+        retries = [d for d in ds.last_run_report().decisions
+                   if d["kind"] == "io.retry"]
+        if len(retries) != 1:
+            raise AssertionError(f"phase N data.read eio {name}: retries "
+                                 f"{retries}")
+        out["queries"][name] = {
+            "clean_ms": clean_ms[name], "faulted_ms": rec["wall_s"] * 1e3,
+            "extra_ms": rec["wall_s"] * 1e3 - clean_ms[name],
+            "crashed_ms": out["crashed_ms"][name],
+            "indexes": sorted(n for n, _ in index_scans(ds.optimized_plan())),
+            "retry": retries[0]}
+        print(f"phase N data.read eio {name}: {rec['wall_s'] * 1e3:.1f} ms "
+              f"against {clean_ms[name]:.1f} ms clean (extra "
+              f"{out['queries'][name]['extra_ms']:+.1f} ms), "
+              f"{json.dumps(retries[0])}", flush=True)
+
+    # 7. Degraded: every log entry of a copied index torn.
+    deg_path = os.path.join(root, "n_degraded")
+    deg_log = os.path.join(deg_path, "n_deg", "_hyperspace_log")
+    shutil.copytree(os.path.join(sys_path, N_CLEAN, "_hyperspace_log"),
+                    deg_log)
+    for name in os.listdir(deg_log):
+        with open(os.path.join(deg_log, name), "w", encoding="utf-8") as f:
+            f.write('{"torn')
+    deg = HyperspaceSession(system_path=deg_path, device=dev)
+    set_min_rows(deg, 0)
+    deg.enable_hyperspace()
+    point = build_queries(deg, root, lineitem=N_SOURCE)["point"]
+    t0 = time.perf_counter()
+    got = point.collect()
+    deg_ms = (time.perf_counter() - t0) * 1e3
+    require_rows("phase N degraded point", got, *n_want(want, "point"))
+    rep = point.last_run_report()
+    if rep.outcome != "degraded" or rep.skipped_indexes() != ["n_deg"] \
+            or index_scans(point.optimized_plan()):
+        raise AssertionError(f"phase N degraded: {rep.render()}")
+    deg.conf.degraded_fallback_to_source = False
+    strict = None
+    try:
+        point.collect()
+    except DegradedIndexError as e:
+        strict = str(e)
+    if strict is None or "n_deg" not in strict:
+        raise AssertionError(f"phase N strict: {strict!r}")
+    out["degraded"] = {"ms": deg_ms, "outcome": rep.outcome,
+                       "skipped": rep.skipped_indexes(),
+                       "reasons": rep.degraded_reasons(), "strict": strict}
+    print(f"phase N degraded: point from the source in {deg_ms:.1f} ms, "
+          f"{json.dumps(out['degraded'])}", flush=True)
+
+    # A real allocation error of the card inside a rule propagates.
+    import torch
+
+    original = filter_rule.FilterIndexRule.apply
+
+    def card_error(self, plan):
+        torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        return original(self, plan)
+
+    point = build_queries(session, root, lineitem=N_SOURCE)["point"]
+    filter_rule.FilterIndexRule.apply = card_error
+    try:
+        point.collect()
+    except RuntimeError as e:
+        device_error = e
+    else:
+        raise AssertionError("phase N: the card's error inside a rule was "
+                             "degraded")
+    finally:
+        filter_rule.FilterIndexRule.apply = original
+    rep = point.last_run_report()
+    if rep.outcome != "error" or rep.degraded:
+        raise AssertionError(f"phase N device error: {rep.render()}")
+    require_rows("phase N after the device error", point.collect(),
+                 *n_want(want, "point"))
+    out["device_error"] = f"{type(device_error).__name__}: " \
+        f"{str(device_error).splitlines()[0][:160]}"
+    print(f"phase N device error inside a rule propagated: "
+          f"{out['device_error']}", flush=True)
+    out["launches"] = {k: sum(s["launches"][k] for s in out["steps"])
+                       for k in out["steps"][0]["launches"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    device_cache().clear()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase O: the advisor at SF1
+# ---------------------------------------------------------------------------
+
+O_QUERIES = ("point", "range", "join", "q3")
+O_TOP_K = 5
+O_APPLY = 2
+O_CAPTURE_CALLS = 30            # timed capture calls of the point query
+
+
+def o_listing(path: str) -> list:
+    """Every file under ``path``, relative, sorted."""
+    out = []
+    for dirpath, _, names in os.walk(path):
+        out.extend(os.path.relpath(os.path.join(dirpath, n), path)
+                   for n in names)
+    return sorted(out)
+
+
+def phase_o(orders: dict, li: dict, root: str, dev) -> dict:
+    """The advisor at SF1 (see the module docstring)."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.advisor import workload
+    from hyperspace_tpu_torch.advisor.hypothetical import hypothetical_entry
+    from hyperspace_tpu_torch.exceptions import HyperspaceError
+    from hyperspace_tpu_torch.execution.executor import Executor
+    from hyperspace_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    sys_path = os.path.join(root, "o_indexes")
+    session = HyperspaceSession(system_path=sys_path, device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    session.conf.advisor_capture_enabled = True
+    session.enable_hyperspace()
+    hs = Hyperspace(session)
+    workload.reset_cache()
+    queries = build_queries(session, root, aggregates=True)
+    want = {**expected_answers(orders, li), **expected_aggregates(orders, li)}
+    out: dict = {"queries": {}}
+    reports = {}
+
+    def run(name: str, label: str) -> dict:
+        ds = queries[name]
+        rows, keys = want[name]
+        device_cache().clear()
+        t0 = time.perf_counter()
+        got = ds.collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        require_rows(f"phase O {name} {label}", got, rows, keys,
+                     rtol=AGG_RTOL if name in AGG_QUERIES else 0.0)
+        rep = reports[name] = ds.last_run_report()
+        return {"ms": ms, "bytes_read": rep.bytes_read(),
+                "indexes": sorted(n for n, _ in index_scans(
+                    ds.optimized_plan()))}
+
+    # 1. Capture: each query twice, cold, on no index.
+    for name in O_QUERIES:
+        run(name, "capture")
+        out["queries"][name] = {"before": run(name, "capture")}
+        if out["queries"][name]["before"]["indexes"]:
+            raise AssertionError(f"phase O {name}: an index before apply")
+    captured = hs.captured_workload().to_pylist()
+    if sorted(r["hits"] for r in captured) != [2] * len(O_QUERIES):
+        raise AssertionError(f"phase O workload: {captured}")
+    out["workload"] = [{k: r[k] for k in (
+        "hits", "eqColumns", "rangeColumns", "joinColumns", "groupColumns",
+        "projectedColumns", "lastBytesScanned")} for r in captured]
+    # What capture adds to a collect: the point query's, with its own
+    # report, O_CAPTURE_CALLS times (each a hit more of its shape).
+    point_rows = len(next(iter(want["point"][0].values())))
+    capture_us = []
+    for _ in range(O_CAPTURE_CALLS):
+        t0 = time.perf_counter()
+        workload.capture(session, queries["point"].plan, reports["point"],
+                         result_rows=point_rows)
+        capture_us.append((time.perf_counter() - t0) * 1e6)
+    out["capture_us"] = {"median": statistics.median(capture_us),
+                         "max": max(capture_us)}
+
+    # 2. Recommend twice: the same table.
+    t0 = time.perf_counter()
+    rec = hs.recommend_indexes(top_k=O_TOP_K).to_pylist()
+    out["recommend_ms"] = (time.perf_counter() - t0) * 1e3
+    again = hs.recommend_indexes(top_k=O_TOP_K).to_pylist()
+    if again != rec or len(rec) < O_APPLY:
+        raise AssertionError(f"phase O recommendations: {rec} then {again}")
+    out["recommendations"] = rec
+    for r in rec:
+        print(f"phase O recommend: {json.dumps(r)}", flush=True)
+
+    # 3. What-if of the top candidates, per query over its relations:
+    #    nothing written, a what-if plan refused by the executor.
+    top = rec[:O_APPLY]
+    listing = o_listing(sys_path)
+    out["whatif"] = {}
+    for name in O_QUERIES:
+        ds = queries[name]
+        roots = {",".join(s.relation.root_paths)
+                 for s in ds.plan.leaf_relations()}
+        configs = [IndexConfig(r["candidate"], r["indexedColumns"],
+                               r["includedColumns"])
+                   for r in top if r["relation"] in roots]
+        t0 = time.perf_counter()
+        text = ds.explain(whatif=configs)
+        whatif_ms = (time.perf_counter() - t0) * 1e3
+        report = hs.whatif(ds, configs).to_dict()
+        if not report["hypothetical_used"] \
+                or report["est_bytes_delta"] <= 0:
+            raise AssertionError(f"phase O what-if {name}: {report}")
+        out["whatif"][name] = {
+            "ms": whatif_ms, "used": report["hypothetical_used"],
+            "est_bytes_before": report["est_bytes_before"],
+            "est_bytes_after": report["est_bytes_after"]}
+        print(f"phase O what-if {name} ({whatif_ms:.1f} ms):\n{text}",
+              flush=True)
+    q3 = queries["q3"]
+    entries = [hypothetical_entry(session, q3, IndexConfig(
+        r["candidate"], r["indexedColumns"], r["includedColumns"]))
+        for r in top]
+    refused = None
+    try:
+        Executor(session).execute(session.optimize(q3.plan,
+                                                   hypothetical=entries))
+    except HyperspaceError as e:
+        refused = str(e)
+    if refused is None or "hypothetical" not in refused:
+        raise AssertionError(f"phase O: a what-if plan ran ({refused!r})")
+    if o_listing(sys_path) != listing:
+        raise AssertionError("phase O: what-if wrote files")
+    out["whatif_refused"] = refused
+
+    # 4. Apply the top candidates: built on the card.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    built = hs.apply_recommendations(top_k=O_APPLY)
+    out["apply_s"] = time.perf_counter() - t0
+    out["launches"] = kernels.launch_counts()
+    if built != [r["candidate"] for r in top]:
+        raise AssertionError(f"phase O apply built {built}, expected {top}")
+    if dev.type == "cuda" and not all(out["launches"].values()):
+        raise AssertionError(f"phase O apply launches {out['launches']}")
+    out["built"] = built
+    out["apply_report"] = checked_report("phase O apply", hs)
+    print(f"phase O apply: {built} in {out['apply_s']:.3f} s, launches "
+          f"{json.dumps(out['launches'])}, last build report "
+          f"{json.dumps(out['apply_report'])}", flush=True)
+
+    # 5. The queries again, cold: through the built indexes, numpy's
+    #    answers, fewer bytes read.
+    kernels.reset_launch_counts()
+    for name in O_QUERIES:
+        after = run(name, "after apply")
+        before = out["queries"][name]["before"]
+        n_leaves = len(queries[name].plan.leaf_relations())
+        if not set(after["indexes"]) <= set(built) \
+                or len(after["indexes"]) != n_leaves \
+                or after["bytes_read"] >= before["bytes_read"]:
+            raise AssertionError(f"phase O {name}: {after} after, "
+                                 f"{before} before")
+        out["queries"][name]["after"] = after
+        print(f"phase O {name}: {before['ms']:.1f} -> {after['ms']:.1f} ms, "
+              f"bytes {before['bytes_read']} -> {after['bytes_read']} "
+              f"through {after['indexes']}", flush=True)
+    out["launches_rerun"] = kernels.launch_counts()
+    out["wall_s"] = time.perf_counter() - t_phase
+    workload.reset_cache()
+    device_cache().clear()
+    return out
+
+
+def print_envelope(n: dict) -> None:
+    print(f"phase N: failure envelope checked, launches "
+          f"{json.dumps(n['launches'])} ({n['wall_s']:.3f} s)", flush=True)
+
+
+def print_advisor(o: dict) -> None:
+    print(f"phase O: advisor checked, capture {o['capture_us']['median']:.1f}"
+          f" us a collect (max {o['capture_us']['max']:.1f}), recommend "
+          f"{o['recommend_ms']:.1f} ms, "
+          f"apply {o['apply_s']:.3f} s, launches {json.dumps(o['launches'])}"
+          f", rerun launches {json.dumps(o['launches_rerun'])} "
+          f"({o['wall_s']:.3f} s)", flush=True)
+
+
 def route_of(stats: dict) -> str:
     """The route a collect took over its filters, join kernels, fused
     joins and device aggregates: "device", "host", "mixed", or "none"
@@ -4557,6 +5123,10 @@ def main() -> int:
         sql_m = phase_m(root, dev, plan_language, l_ctx)
         del l_ctx
         print_sql(sql_m)
+        envelope = phase_n(orders, li, root, dev)
+        print_envelope(envelope)
+        advisor = phase_o(orders, li, root, dev)
+        print_advisor(advisor)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -4590,7 +5160,10 @@ def main() -> int:
                "I containment": contained, "K analytic": window["launches"],
                "L builds": plan_language["launches_builds"],
                "L plan language": plan_language["launches"],
-               "M sql": sql_m["launches"]}
+               "M sql": sql_m["launches"],
+               "N envelope": envelope["launches"],
+               "O apply": advisor["launches"],
+               "O rerun": advisor["launches_rerun"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -4618,6 +5191,8 @@ def main() -> int:
     print(json.dumps({"window": window}))
     print(json.dumps({"plan_language": plan_language}))
     print(json.dumps({"sql": sql_m}))
+    print(json.dumps({"envelope": {**envelope, "card": smi}}))
+    print(json.dumps({"advisor": {**advisor, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

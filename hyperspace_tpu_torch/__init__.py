@@ -20,7 +20,12 @@ build's ``_sketch.parquet``).  Queries can be SQL text
 (``hyperspace_tpu_torch.sql.sql``); ``Hyperspace.explain`` shows a
 query's plans with and without the indexes, ``Dataset.last_run_report``
 what the last collect decided and read, and ``Hyperspace.indexes`` and
-``index`` the index statistics.  The JAX package ``hyperspace_tpu`` is
+``index`` the index statistics.  The failure envelope injects faults at
+the IO and op-log seams (``io/faults.py``), retries transient IO errors,
+recovers a crashed action and answers from the source when an index
+cannot be read; the advisor (``advisor/``) captures the workload and
+recommends, plans against (what-if) and builds indexes for it.  The JAX
+package ``hyperspace_tpu`` is
 the reference; this package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

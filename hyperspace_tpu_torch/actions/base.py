@@ -10,10 +10,13 @@ concurrency (counterpart of hyperspace_tpu/actions/base.py).
     the ``latestStable`` pointer to it.
 
 An action that dies mid-flight leaves the transient entry as the latest
-log record; ``cancel()`` rolls it back.  ``run()`` returns "ok" for a
-committed run and "noop" when ``validate()`` raised ``NoChangesError``
-(nothing is written).  The JAX package's conflict-retry loop is not
-ported: a concurrent writer's conflict propagates.
+log record; ``cancel()`` rolls it back, and so does the manager's auto
+recovery before the next verb.  The ``action.commit`` fault site
+(io/faults.py) sits between ``op()`` and ``end()``.  ``run()`` returns
+"ok" for a committed run and "noop" when ``validate()`` raised
+``NoChangesError`` (nothing is written).  The JAX package's
+conflict-retry loop is not ported: a concurrent writer's conflict
+propagates.
 
 Each action owns a ``BuildReport`` (telemetry/build_report.py): ``run()``
 times itself, ``validate`` and ``commit`` are phases, and the finished
@@ -29,6 +32,7 @@ from typing import Optional
 from hyperspace_tpu_torch.exceptions import HyperspaceError, NoChangesError
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.io import faults
 from hyperspace_tpu_torch.telemetry import build_report
 
 
@@ -110,6 +114,10 @@ class Action:
         self.begin()
         report.add_phase("commit", time.perf_counter() - t0)
         self.op()
+        # Crash checkpoint: the work is done, the final entry is not
+        # committed; the state a killed process leaves, which cancel()
+        # and auto recovery roll back.
+        faults.check("action.commit")
         t0 = time.perf_counter()
         self.end()
         report.add_phase("commit", time.perf_counter() - t0)

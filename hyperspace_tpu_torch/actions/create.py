@@ -110,6 +110,7 @@ from hyperspace_tpu_torch.ops.sort import (
 )
 from hyperspace_tpu_torch.ops.zorder import key64_to_codes, zorder_sort
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+from hyperspace_tpu_torch.utils.resolver import resolve_or_raise
 
 DATA_FILE_ID_COLUMN = "_data_file_id"  # the lineage column
 
@@ -168,20 +169,6 @@ def bucket_group_bounds(num_buckets: int, groups: int) -> list:
     ``bounds[g] <= b < bounds[g + 1]`` (the JAX package's
     ``parallel/sharded_build.bucket_group_bounds``)."""
     return [-(-g * num_buckets // groups) for g in range(groups + 1)]
-
-
-def _resolve_or_raise(requested: List[str], available: List[str],
-                      what: str) -> List[str]:
-    """Resolve ``requested`` against ``available`` case-insensitively,
-    returning the schema's own spelling."""
-    lookup: Dict[str, str] = {}
-    for name in available:
-        lookup.setdefault(name.lower(), name)
-    missing = [n for n in requested if n.lower() not in lookup]
-    if missing:
-        raise HyperspaceError(
-            f"Could not resolve {what}(s) {missing} against schema {available}")
-    return [lookup[n.lower()] for n in requested]
 
 
 class _PrefetchReader:
@@ -348,8 +335,8 @@ class CreateActionBase(Action):
         schema = list(self._relation().schema())
         return IndexConfig(
             self.config.index_name,
-            _resolve_or_raise(self.config.indexed_columns, schema, "indexed column"),
-            _resolve_or_raise(self.config.included_columns, schema, "included column"),
+            resolve_or_raise(self.config.indexed_columns, schema, "indexed column"),
+            resolve_or_raise(self.config.included_columns, schema, "included column"),
             layout=self.config.layout)
 
     def _signature(self) -> Signature:
@@ -861,14 +848,16 @@ class _BucketSpill:
 
     def cleanup(self) -> None:
         # On the failure path the original error is raised right after
-        # this, so a second failure seen while draining is dropped.
+        # this, so a second failure seen while draining is dropped, an
+        # injected crash of another worker included: the spill directory
+        # below must go whatever the workers raised.
         try:
             self._drain()
-        except Exception:  # noqa: BLE001
+        except BaseException:  # noqa: BLE001
             pass
         try:
             self._drain_finalize()
-        except Exception:  # noqa: BLE001
+        except BaseException:  # noqa: BLE001
             pass
         if self._pool is not None:
             self._pool.shutdown(wait=True)

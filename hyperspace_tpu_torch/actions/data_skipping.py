@@ -25,10 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from hyperspace_tpu_torch.actions.create import (
-    CreateActionBase,
-    _resolve_or_raise,
-)
+from hyperspace_tpu_torch.actions.create import CreateActionBase
 from hyperspace_tpu_torch.exceptions import HyperspaceError, NoChangesError
 from hyperspace_tpu_torch.index.index_config import DataSkippingIndexConfig
 from hyperspace_tpu_torch.index.log_entry import (
@@ -42,6 +39,7 @@ from hyperspace_tpu_torch.index.log_entry import (
     States,
 )
 from hyperspace_tpu_torch.io import integrity
+from hyperspace_tpu_torch.utils.resolver import resolve_or_raise
 
 # Sketch-table metadata columns (underscored like the lineage column).
 SKETCH_FILE_NAME = "_ds_file_name"
@@ -275,7 +273,7 @@ class CreateDataSkippingAction(CreateActionBase):
 
     def _resolved_config(self) -> DataSkippingIndexConfig:
         schema = list(self._relation().schema())
-        sketched = _resolve_or_raise(self.config.sketched_columns, schema,
+        sketched = resolve_or_raise(self.config.sketched_columns, schema,
                                      "sketched column")
         return DataSkippingIndexConfig(self.config.index_name, sketched,
                                        self.config.sketch_types)

@@ -1,7 +1,8 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
 holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
-read, and the explain display mode; defaults are the JAX package's).
+read, the explain display mode, the failure envelope and the advisor;
+defaults are the JAX package's).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -94,11 +95,41 @@ class HyperspaceConf:
     #   - auto repair: after such a re-plan answered, rebuild the
     #     quarantined buckets (refresh mode "repair") in the same call;
     #   - degraded fallback: when containment cannot answer, re-run the
-    #     query against the source without the indexes.
+    #     query against the source without the indexes; a rewrite rule
+    #     or an index listing that fails on index metadata leaves the
+    #     index out of the plan (off: DegradedIndexError, or the rule's
+    #     own error).
     integrity_digest_on_write: bool = True
     integrity_quarantine_on_failure: bool = True
     auto_repair_enabled: bool = False
     degraded_fallback_to_source: bool = True
+    # The failure envelope (io/faults.py, utils/retry.py):
+    #   - transient IO errors (EIO, ENOSPC, ...) of the op log, listings
+    #     and data files retry this many times in all, with exponential
+    #     backoff from the initial delay up to the cap, jittered;
+    #   - auto recovery: before each lifecycle verb, a transient latest
+    #     log entry (an action that died mid-flight) is rolled back, an
+    #     implicit cancel();
+    #   - the listing of ACTIVE entries the optimizer reads is cached for
+    #     this many seconds, and cleared by every lifecycle verb;
+    #   - fault injection armed through the conf (the session installs
+    #     it): site, kind, the first call to fail and how many fail.
+    io_retry_max_attempts: int = 3
+    io_retry_initial_backoff_ms: float = 10.0
+    io_retry_max_backoff_ms: float = 1000.0
+    auto_recovery_enabled: bool = False
+    cache_expiry_seconds: int = 300
+    fault_injection_enabled: bool = False
+    fault_injection_site: str = ""
+    fault_injection_kind: str = ""
+    fault_injection_at: int = 1
+    fault_injection_count: int = 1
+    # The index advisor (advisor/): capture a fingerprint of each collect
+    # (at most this many distinct shapes), and enumerate at most this
+    # many candidate indexes.
+    advisor_capture_enabled: bool = False
+    advisor_capture_max_entries: int = 512
+    advisor_max_candidates: int = 20
     # Explain output rendering (plananalysis/display.py): "plaintext",
     # "html" or "console"; custom highlight tags, both set, override the
     # mode's own.

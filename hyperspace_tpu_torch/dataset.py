@@ -4,13 +4,16 @@ takes, and the query verbs ``filter``, ``select`` (column names and
 computed columns), ``with_column``, ``with_window``, ``join``,
 ``group_by(...).agg(...)``, ``agg``, ``sort``, ``limit``, ``distinct``,
 ``union``, ``intersect``, ``subtract``, ``cache``, ``collect``,
-``to_pandas``, ``count``, ``columns``, ``show``, ``explain``,
-``explain_string`` and ``last_run_report``.
+``to_pandas``, ``count``, ``columns``, ``show``, ``explain`` (with
+``whatif=``, the advisor's what-if), ``explain_string`` and
+``last_run_report``.
 
 ``collect()`` optimizes the plan (the index rules run when hyperspace is
 enabled on the session), executes it into an arrow table and publishes
 the executor's stats as ``session.last_execution_stats`` and its run
-report (telemetry/report.py) as ``last_run_report()``.
+report (telemetry/report.py) as ``last_run_report()``; with
+``conf.advisor_capture_enabled`` the report then feeds the advisor's
+workload capture (advisor/workload.py), which never fails the query.
 
 When reading index data fails at execution, ``collect`` contains the
 damage (the JAX package's execution-time containment), with
@@ -24,6 +27,13 @@ damage (the JAX package's execution-time containment), with
     quarantined buckets (``refresh_index(mode="repair")``);
   - when nothing was quarantined, or the re-plan's own index read
     failed, it runs the query against the source without the indexes.
+
+Each step is recorded in the run report as the JAX package records it:
+the quarantine, a ``degraded`` decision naming the index and the error,
+and the re-plan.  Planning itself degrades too: when optimizing with the
+indexes fails on the index's side (an index whose every file is gone),
+``collect`` records a ``degraded`` decision and a planning-stage
+re-plan, and plans without the indexes.
 
 One deliberate narrowing against the JAX package, which takes any
 failure there: only a failure to READ index data starts containment,
@@ -235,7 +245,7 @@ class Dataset:
         token = run_report.start()
         try:
             executor = Executor(self.session)
-            plan = self.optimized_plan()
+            plan = self._plan_degradable()
             try:
                 out = executor.execute(plan)
             except Exception as e:  # noqa: BLE001 - _contain re-raises
@@ -244,8 +254,16 @@ class Dataset:
             run_report.active().outcome = "error"
             raise
         finally:
-            self.session.last_run_report_value = run_report.finish(token)
+            rep = run_report.finish(token)
+            self.session.last_run_report_value = rep
         self.session.last_execution_stats = executor.stats
+        if self.session.conf.advisor_capture_enabled:
+            # The finished report feeds the advisor's workload capture,
+            # which never raises (advisor/workload.py).
+            from hyperspace_tpu_torch.advisor import workload
+
+            workload.capture(self.session, self.plan, rep,
+                             result_rows=out.num_rows)
         return out
 
     def last_run_report(self):
@@ -255,9 +273,19 @@ class Dataset:
         IO, and what containment did."""
         return self.session.last_run_report_value
 
-    def explain(self, verbose: bool = False) -> str:
+    def explain(self, verbose: bool = False, whatif=None) -> str:
         """The plans with and without the indexes, side by side
-        (``Hyperspace.explain`` without the Hyperspace object)."""
+        (``Hyperspace.explain`` without the Hyperspace object).  With
+        ``whatif``, a list of ``IndexConfig``s (or hypothetical entries),
+        the advisor's what-if instead: the plan as if they were built
+        beside the plan without, and the estimated bytes each scans;
+        nothing runs and no file is written (advisor/hypothetical.py)."""
+        if whatif is not None:
+            from hyperspace_tpu_torch.advisor.hypothetical import (
+                whatif as _whatif,
+            )
+
+            return _whatif(self.session, self, whatif).render()
         from hyperspace_tpu_torch.plananalysis.explain import explain_string
 
         return explain_string(self, self.session, verbose=verbose)
@@ -265,6 +293,30 @@ class Dataset:
     def explain_string(self) -> str:
         """The unoptimized plan's tree."""
         return self.plan.tree_string()
+
+    def _plan_degradable(self) -> LogicalPlan:
+        """The optimized plan; when planning with the indexes failed on
+        the index's side (every file of an index gone, so not even its
+        schema reads), the plan without them, the failure recorded as a
+        ``degraded`` decision and a planning-stage re-plan.  A device or
+        kernel error propagates, and so does any error with the fallback
+        off."""
+        from hyperspace_tpu_torch.execution.containment import (
+            is_index_side_error,
+        )
+
+        try:
+            return self.optimized_plan()
+        except Exception as e:  # noqa: BLE001 - narrowed just below
+            if not (self.session.is_hyperspace_enabled()
+                    and self.session.conf.degraded_fallback_to_source
+                    and is_index_side_error(e)):
+                raise
+            run_report.record("degraded", index="",
+                              reason=f"index-aware planning failed: {e!r}")
+            run_report.record("replan", mode="source-fallback",
+                              stage="planning")
+            return self.optimized_plan(use_indexes=False)
 
     def _contain(self, plan: LogicalPlan, failed, error: Exception):
         """(answer, its executor) after ``failed`` raised ``error`` running
@@ -286,10 +338,15 @@ class Dataset:
         if conf.integrity_quarantine_on_failure:
             record["quarantined"] = quarantine_damaged_index_files(
                 self.session, plan)
+        names = index_scans_of(plan)
         if record["quarantined"]:
-            names = index_scans_of(plan)
             run_report.record("quarantine", index=",".join(names),
                               files=record["quarantined"])
+            run_report.record(
+                "degraded", index=",".join(names),
+                reason=f"index scan failed at execution: {error!r}; "
+                       f"quarantined {len(record['quarantined'])} damaged "
+                       f"file(s)")
             run_report.record("replan", mode="containment", stage="execution")
             executor = Executor(self.session)
             try:
@@ -315,6 +372,9 @@ class Dataset:
                             record.setdefault("repair_errors", []).append(
                                 repr(e))
                 return out, executor
+        run_report.record("degraded", index=",".join(names),
+                          reason=f"index scan failed at execution: {error!r}")
+        run_report.record("replan", mode="source-fallback", stage="execution")
         executor = Executor(self.session)
         out = executor.execute(self.optimized_plan(use_indexes=False))
         record["replan"] = "source-fallback"

@@ -15,3 +15,8 @@ class ConcurrentWriteError(HyperspaceError):
 class NoChangesError(HyperspaceError):
     """Raised by an action's validate() when the operation would be a
     no-op; ``Action.run`` then commits nothing and returns "noop"."""
+
+
+class DegradedIndexError(HyperspaceError):
+    """An index's operation log is unreadable and the degraded fallback
+    (``conf.degraded_fallback_to_source``) is off."""

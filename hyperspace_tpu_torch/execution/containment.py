@@ -3,7 +3,8 @@ probe in hyperspace_tpu/dataset.py): what ``Dataset.collect`` does when
 reading an index file failed.
 
   - ``is_read_error``: the failures containment takes, ``OSError`` and
-    pyarrow's ``ArrowException``.  The executor notes such a failure
+    pyarrow's ``ArrowException``; ``is_index_side_error`` the wider set
+    the planning-stage degraded fallback takes.  The executor notes such a failure
     only where it reads index files (``Executor.index_read_failures``),
     so a device or kernel error, or any other ``RuntimeError``, never
     counts as one.
@@ -29,6 +30,21 @@ def is_read_error(e: BaseException) -> bool:
     import pyarrow as pa
 
     return isinstance(e, (OSError, pa.ArrowException))
+
+
+def is_index_side_error(e: BaseException) -> bool:
+    """The failures the planning-stage degraded fallback takes (a rule
+    that raised, an index listing that failed): a read error, a log
+    entry's JSON or key decode error, or a ``HyperspaceError``.  A CUDA
+    or other torch error, and the kernel loader's ``KernelError``, are
+    none of these: no fallback may hide the card."""
+    import json
+
+    from hyperspace_tpu_torch.exceptions import HyperspaceError
+
+    return is_read_error(e) or isinstance(
+        e, (json.JSONDecodeError, UnicodeDecodeError, KeyError,
+            HyperspaceError))
 
 
 def index_scans_of(plan: LogicalPlan) -> List[str]:

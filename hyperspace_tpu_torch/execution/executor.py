@@ -111,6 +111,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.execution.device_cache import (
     files_fingerprint,
     global_cache,
@@ -297,6 +298,16 @@ class Executor:
         return min_rows
 
     def execute(self, plan: LogicalPlan):
+        hypothetical = [s.relation.index_scan_of
+                        for s in plan.leaf_relations()
+                        if s.relation.hypothetical]
+        if hypothetical:
+            # A what-if plan (advisor/hypothetical.py): its index scans
+            # have no file, and running one would answer empty.
+            raise HyperspaceError(
+                f"Plan contains a hypothetical index scan "
+                f"({hypothetical[0]!r}); what-if plans are for analysis "
+                f"only and can never execute")
         if isinstance(plan, InMemory):
             return plan.table
         if isinstance(plan, Scan):

@@ -1,7 +1,10 @@
 """Top-level user API (counterpart of hyperspace_tpu/hyperspace.py):
 ``create_index``, ``delete_index``, ``restore_index``, ``vacuum_index``,
 ``refresh_index``, ``optimize_index``, ``verify_index``, ``cancel``,
-``indexes``, ``index``, ``explain`` and ``last_build_report``."""
+``indexes``, ``index``, ``explain``, ``last_build_report`` and the
+advisor's verbs ``whatif``, ``captured_workload``,
+``clear_captured_workload``, ``recommend_indexes`` and
+``apply_recommendations``."""
 
 from __future__ import annotations
 
@@ -87,6 +90,48 @@ class Hyperspace:
         from hyperspace_tpu_torch.plananalysis.explain import explain_string
 
         return explain_string(dataset, self.session, verbose=verbose)
+
+    def whatif(self, dataset: Dataset, candidates):
+        """Plan ``dataset`` as if ``candidates`` (``IndexConfig``s or
+        hypothetical entries) were built: the real optimizer's two plans
+        and the estimated bytes each scans, with nothing executed and no
+        file written.  Returns a ``WhatIfReport``."""
+        from hyperspace_tpu_torch.advisor.hypothetical import whatif
+
+        return whatif(self.session, dataset, candidates)
+
+    def captured_workload(self):
+        """The captured workload (``conf.advisor_capture_enabled``), a
+        pyarrow Table with one row per query shape: its hits, its filter,
+        join, group and projected columns, and the bytes it scanned."""
+        from hyperspace_tpu_torch.advisor.workload import workload_table
+
+        return workload_table(self.session.conf)
+
+    def clear_captured_workload(self) -> None:
+        from hyperspace_tpu_torch.advisor.workload import clear
+
+        clear(self.session.conf)
+
+    def recommend_indexes(self, top_k: int = 5):
+        """Candidate covering indexes for the captured workload, best
+        first, a pyarrow Table: ``candidate``, ``relation``,
+        ``indexedColumns``, ``includedColumns``, ``supportingQueries``,
+        ``supportingHits``, ``estBenefitBytes``, ``estBuildCostBytes``,
+        ``score`` (advisor/candidates.py's model)."""
+        from hyperspace_tpu_torch.advisor.recommend import recommend_indexes
+
+        return recommend_indexes(self.session, top_k)
+
+    def apply_recommendations(self, top_k: int = 1) -> list:
+        """Build the top ``top_k`` recommendations through the normal
+        ``create_index`` path; returns the names built.  A candidate an
+        ACTIVE index already covers is skipped."""
+        from hyperspace_tpu_torch.advisor.recommend import (
+            apply_recommendations,
+        )
+
+        return apply_recommendations(self.session, top_k)
 
     def last_build_report(self):
         """The ``BuildReport`` (telemetry/build_report.py) of the last

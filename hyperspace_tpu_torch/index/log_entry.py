@@ -26,6 +26,9 @@ from hyperspace_tpu_torch.utils.paths import is_data_file
 
 LOG_ENTRY_VERSION = "0.1"
 
+# The property that marks a what-if entry (advisor/hypothetical.py).
+HYPOTHETICAL_PROPERTY = "hypothetical"
+
 
 class States:
     ACTIVE = "ACTIVE"
@@ -499,6 +502,15 @@ class IndexLogEntry:
     @property
     def num_buckets(self) -> int:
         return getattr(self.derived_dataset, "num_buckets", 0)
+
+    @property
+    def is_hypothetical(self) -> bool:
+        """True for the advisor's what-if entries (advisor/hypothetical.py):
+        ACTIVE-looking, with no data file.  Only
+        ``session.optimize(hypothetical=[...])`` plans with them; the log
+        refuses to persist them and the executor to scan them."""
+        return self.properties.get(HYPOTHETICAL_PROPERTY, "").lower() \
+            == "true"
 
     @property
     def is_covering(self) -> bool:

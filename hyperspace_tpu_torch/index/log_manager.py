@@ -6,31 +6,65 @@
   - ``write_log(id, entry)`` fails if the id already exists: multi-writer
     safety comes from exactly this create-if-absent write;
   - ``latestStable`` is a copy of the newest entry whose state is stable,
-    with ``get_latest_stable_log`` falling back to a reverse scan;
+    with ``get_latest_stable_log`` falling back to a reverse scan.
+
+The failure envelope (io/faults.py, utils/retry.py):
+
+  - transient IO errors of a write, the pointer's rename and the id
+    listing retry under ``retry`` (bounded, jittered backoff);
   - a torn or corrupt entry (a writer died mid-write) is skipped by every
-    reader; its id stays burned.
+    reader, never repaired in place; its id stays burned;
+  - a crash on either side of the pointer's rename leaves the old
+    pointer, no pointer or the new one, and all three resolve (the
+    numbered entries are the truth, the pointer a cache).
+
+A hypothetical entry (the advisor's what-if, advisor/hypothetical.py) is
+refused at the write.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import List, Optional
 
-from hyperspace_tpu_torch.exceptions import ConcurrentWriteError
+from hyperspace_tpu_torch.exceptions import (
+    ConcurrentWriteError,
+    HyperspaceError,
+)
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, States
+from hyperspace_tpu_torch.io import faults
 from hyperspace_tpu_torch.io.files import list_dir
+from hyperspace_tpu_torch.utils.retry import RetryPolicy
 
 HYPERSPACE_LOG_DIR = "_hyperspace_log"
 LATEST_STABLE = "latestStable"
 
 
+def _refuse_hypothetical(entry: IndexLogEntry) -> None:
+    """What-if entries have no data files: persisting one would make later
+    queries trust an index that cannot serve a row."""
+    if entry.is_hypothetical:
+        raise HyperspaceError(
+            f"Refusing to persist hypothetical index entry "
+            f"{entry.name!r}: what-if entries are never written to the "
+            f"operation log")
+
+
 class IndexLogManager:
     """Manages the operation log of one index."""
+
+    # The transient-IO budget; the collection manager sets it from the
+    # session conf on each instance.
+    retry: RetryPolicy = RetryPolicy()
 
     def __init__(self, index_path: str) -> None:
         self.index_path = index_path
         self.log_dir = os.path.join(index_path, HYPERSPACE_LOG_DIR)
+
+    def configure(self, conf) -> None:
+        """Hook run after construction with the session conf; the POSIX
+        log reads nothing from it."""
 
     @staticmethod
     def _read(path: str) -> Optional[IndexLogEntry]:
@@ -48,8 +82,8 @@ class IndexLogManager:
 
     def get_latest_id(self) -> Optional[int]:
         """Highest id present; torn entries count (their id is burned)."""
-        ids = [int(n) for n in list_dir(self.log_dir) if n.isdigit()]
-        return max(ids) if ids else None
+        ids = self.log_ids()
+        return ids[-1] if ids else None
 
     def get_latest_log(self) -> Optional[IndexLogEntry]:
         """Newest parseable entry."""
@@ -77,24 +111,34 @@ class IndexLogManager:
         return None
 
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
-        """Atomically create log file ``log_id``; False if it exists."""
+        """Atomically create log file ``log_id``; False if it exists.  A
+        transient error retries: each failed attempt unlinks its partial
+        file first, so the create-if-absent probe stays honest; a crash
+        leaves it (the torn state the readers survive)."""
+        _refuse_hypothetical(entry)
         os.makedirs(self.log_dir, exist_ok=True)
         path = os.path.join(self.log_dir, str(log_id))
         entry.id = log_id
         payload = json.dumps(entry.to_dict(), indent=2).encode("utf-8")
-        try:
-            fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-        except FileExistsError:
-            return False
-        try:
-            with os.fdopen(fd, "wb") as f:
-                f.write(payload)
-                f.flush()
-                os.fsync(f.fileno())
-        except BaseException:
-            os.unlink(path)
-            raise
-        return True
+
+        def attempt() -> bool:
+            try:
+                fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                return False
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    faults.write_payload(f, payload, "log.write")
+                    f.flush()
+                    os.fsync(f.fileno())
+            except faults.InjectedCrash:
+                raise  # a real crash runs no cleanup
+            except BaseException:
+                os.unlink(path)
+                raise
+            return True
+
+        return self.retry.call(attempt)
 
     def write_log_or_raise(self, log_id: int, entry: IndexLogEntry) -> None:
         if not self.write_log(log_id, entry):
@@ -104,21 +148,31 @@ class IndexLogManager:
 
     def create_latest_stable_log(self, log_id: int) -> bool:
         """Copy entry ``log_id`` to the latestStable pointer (tmp + atomic
-        rename)."""
+        rename through the ``log.rename`` site)."""
         src = os.path.join(self.log_dir, str(log_id))
         if not os.path.isfile(src):
             return False
         dst = os.path.join(self.log_dir, LATEST_STABLE)
         tmp = dst + ".tmp"
-        with open(src, "rb") as f_in, open(tmp, "wb") as f_out:
-            f_out.write(f_in.read())
-            f_out.flush()
-            os.fsync(f_out.fileno())
-        os.replace(tmp, dst)
-        return True
 
-    def delete_latest_stable_log(self) -> None:
+        def attempt() -> bool:
+            with open(src, "rb") as f_in, open(tmp, "wb") as f_out:
+                f_out.write(f_in.read())
+                f_out.flush()
+                os.fsync(f_out.fileno())
+            faults.atomic_replace(tmp, dst, "log.rename")
+            return True
+
+        return self.retry.call(attempt)
+
+    def delete_latest_stable_log(self) -> bool:
         try:
             os.unlink(os.path.join(self.log_dir, LATEST_STABLE))
         except FileNotFoundError:
             pass
+        return True
+
+    def log_ids(self) -> List[int]:
+        """Every numbered id present, ascending, listed under ``retry``."""
+        return sorted(int(n) for n in list_dir(self.log_dir, self.retry)
+                      if n.isdigit())

@@ -3,46 +3,91 @@ hyperspace_tpu/index/manager.py): name -> log, data and quarantine
 managers, dispatch to the actions (create, delete, restore, vacuum,
 cancel, the full, incremental, quick and repair refresh, optimize,
 verify; a data-skipping index's create and refresh go to its own
-actions), and listing of the indexes under the system path.  Not
-ported: auto-recovery and the conflict-retry settings."""
+actions), and listing of the indexes under the system path.
+
+The failure envelope:
+
+  - every log manager retries transient IO under the conf's
+    ``io_retry_*`` policy (utils/retry.py);
+  - with ``conf.auto_recovery_enabled``, each lifecycle verb but cancel
+    first rolls back a transient latest entry (a prior action died
+    mid-flight): an implicit ``cancel()``;
+  - ``get_indexes``, the query path's one way to index metadata, skips
+    an index whose log is unreadable or torn past recovery and records a
+    ``degraded`` decision in the run report (telemetry/report.py), so a
+    damaged index stops accelerating queries without breaking them; with
+    ``conf.degraded_fallback_to_source`` off it raises
+    ``DegradedIndexError`` instead.  Only index-side errors degrade
+    (``execution.containment.is_index_side_error``): a device or kernel
+    error propagates.
+
+Not ported: the conflict-retry settings and pluggable log managers."""
 
 from __future__ import annotations
 
 import os
 from typing import List, Optional
 
-from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.exceptions import DegradedIndexError, HyperspaceError
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
-from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, States
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.index.statistics import index_statistics_table
 from hyperspace_tpu_torch.io.files import list_dir
+from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.utils.retry import policy_from_conf
 
 DEFAULT_SYSTEM_DIR = "spark-warehouse/indexes"
+
+
+def system_path_of(conf) -> str:
+    """The absolute system path: ``conf.system_path``, or the default
+    directory under the working directory."""
+    return os.path.abspath(conf.system_path or os.path.join(
+        os.getcwd(), DEFAULT_SYSTEM_DIR))
 
 
 class IndexCollectionManager:
     def __init__(self, session) -> None:
         self.session = session
+        # Whether the last get_indexes skipped an unreadable index: the
+        # caching manager never caches such a listing.
+        self.last_listing_degraded = False
 
     @property
     def system_path(self) -> str:
-        path = self.session.conf.system_path or os.path.join(
-            os.getcwd(), DEFAULT_SYSTEM_DIR)
-        return os.path.abspath(path)
+        return system_path_of(self.session.conf)
 
     def index_path(self, name: str) -> str:
         """Case-insensitive match against existing index directories,
         else the given name."""
         root = self.system_path
-        lowered = name.lower()
-        for existing in list_dir(root):
-            if existing.lower() == lowered:
-                return os.path.join(root, existing)
+        if os.path.isdir(root):
+            lowered = name.lower()
+            for existing in os.listdir(root):
+                if existing.lower() == lowered:
+                    return os.path.join(root, existing)
         return os.path.join(root, name)
 
     def _log_manager(self, name: str) -> IndexLogManager:
-        return IndexLogManager(self.index_path(name))
+        mgr = IndexLogManager(self.index_path(name))
+        mgr.retry = policy_from_conf(self.session.conf)
+        mgr.configure(self.session.conf)
+        return mgr
+
+    def _maybe_recover(self, name: str) -> None:
+        """With ``conf.auto_recovery_enabled``, roll a transient latest
+        entry back to the last stable state before a verb runs.  A slow
+        (not dead) action and the rollback race for the same log id, and
+        the create-if-absent write decides."""
+        if not self.session.conf.auto_recovery_enabled:
+            return
+        from hyperspace_tpu_torch.actions.cancel import CancelAction
+
+        mgr = self._log_manager(name)
+        latest = mgr.get_latest_log()
+        if latest is not None and latest.state not in States.STABLE:
+            CancelAction(mgr).run()
 
     def _data_manager(self, name: str) -> IndexDataManager:
         # Deleting a version (vacuum) drops its quarantine records too.
@@ -78,6 +123,7 @@ class IndexCollectionManager:
             DataSkippingIndexConfig,
         )
 
+        self._maybe_recover(config.index_name)
         cls = CreateDataSkippingAction \
             if isinstance(config, DataSkippingIndexConfig) else CreateAction
         cls(self._log_manager(config.index_name),
@@ -87,16 +133,19 @@ class IndexCollectionManager:
     def delete(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.delete import DeleteAction
 
+        self._maybe_recover(name)
         DeleteAction(self._log_manager(name)).run()
 
     def restore(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.restore import RestoreAction
 
+        self._maybe_recover(name)
         RestoreAction(self._log_manager(name)).run()
 
     def vacuum(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.vacuum import VacuumAction
 
+        self._maybe_recover(name)
         VacuumAction(self._log_manager(name), self._data_manager(name)).run()
 
     def cancel(self, name: str) -> None:
@@ -123,6 +172,7 @@ class IndexCollectionManager:
             # records (actions/repair.py).
             from hyperspace_tpu_torch.actions.repair import RepairAction
 
+            self._maybe_recover(name)
             log_manager = self._log_manager(name)
             action = RepairAction(
                 log_manager, self._data_manager(name), self.session,
@@ -134,6 +184,7 @@ class IndexCollectionManager:
                "quick": RefreshQuickAction}.get(mode)
         if cls is None:
             raise HyperspaceError(f"Unknown refresh mode {mode!r}")
+        self._maybe_recover(name)
         log_manager = self._log_manager(name)
         stable = log_manager.get_latest_stable_log()
         # A data-skipping sketch is patched by its own action in the full
@@ -158,19 +209,56 @@ class IndexCollectionManager:
 
         if mode not in ("quick", "full"):
             raise HyperspaceError(f"Unknown optimize mode {mode!r}")
+        self._maybe_recover(name)
         action = OptimizeAction(self._log_manager(name),
                                 self._data_manager(name), self.session, mode)
         return action.summary(action.run())
 
+    def _degrade(self, name: str, reason: str) -> None:
+        """Record one index's degradation in the run report, or raise
+        ``DegradedIndexError`` when the fallback is off."""
+        if not self.session.conf.degraded_fallback_to_source:
+            raise DegradedIndexError(
+                f"Index {name!r} is unreadable ({reason}) and "
+                "conf.degraded_fallback_to_source is off")
+        self.last_listing_degraded = True
+        report.record("degraded", index=name, reason=reason)
+
     def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
-        """Latest stable entry of every index, optionally of ``states``
-        only.  Underscore-prefixed directories are system state."""
+        """Latest stable entry of every readable index, optionally of
+        ``states`` only.  Underscore-prefixed directories are system
+        state (the advisor's workload among them)."""
+        from hyperspace_tpu_torch.execution.containment import (
+            is_index_side_error,
+        )
+
+        self.last_listing_degraded = False
         root = self.system_path
         out: List[IndexLogEntry] = []
-        for name in sorted(list_dir(root)):
-            if name.startswith("_") or not os.path.isdir(os.path.join(root, name)):
+        try:
+            names = sorted(n for n in list_dir(root)
+                           if not n.startswith("_")
+                           and os.path.isdir(os.path.join(root, n)))
+        except OSError as e:
+            self._degrade("", f"system path listing failed: {e}")
+            return out
+        for name in names:
+            mgr = self._log_manager(name)
+            try:
+                entry = mgr.get_latest_stable_log()
+                if entry is None and mgr.log_ids() \
+                        and mgr.get_latest_log() is None:
+                    # Entries exist and none parses: torn past recovery
+                    # (an empty log, or one mid-lifecycle, is not).
+                    self._degrade(name, "operation log torn past recovery")
+                    continue
+            except DegradedIndexError:
+                raise
+            except Exception as e:  # noqa: BLE001 - narrowed just below
+                if not is_index_side_error(e):
+                    raise
+                self._degrade(name, f"operation log unreadable: {e}")
                 continue
-            entry = self._log_manager(name).get_latest_stable_log()
             if entry is not None and (states is None or entry.state in states):
                 out.append(entry)
         return out

@@ -1,7 +1,10 @@
 """File listing over source root paths, and deletes (counterpart of
-hyperspace_tpu/io/files.py, its build-path subset, without fault sites
-or retries).  Listing is recursive; results are sorted by path for
-deterministic signatures."""
+hyperspace_tpu/io/files.py, its build-path subset).  Listing is
+recursive; results are sorted by path for deterministic signatures.
+
+Listings go through the ``io.list`` fault site and retry transient IO
+errors (utils/retry.py); deletes of index data go through the
+``io.delete`` site (io/faults.py)."""
 
 from __future__ import annotations
 
@@ -10,24 +13,36 @@ import shutil
 from typing import List, Optional, Sequence
 
 from hyperspace_tpu_torch.index.log_entry import FileInfo
+from hyperspace_tpu_torch.io import faults
 from hyperspace_tpu_torch.utils.paths import is_data_file, normalize_path
+from hyperspace_tpu_torch.utils.retry import RetryPolicy
 
 
-def list_dir(path: str) -> List[str]:
-    """``os.listdir``; a missing directory reads as empty."""
-    try:
-        return os.listdir(path)
-    except (FileNotFoundError, NotADirectoryError):
-        return []
+def list_dir(path: str, retry: Optional[RetryPolicy] = None) -> List[str]:
+    """``os.listdir`` behind the ``io.list`` site with ``retry`` (the
+    default policy if None): the listing primitive of log ids and index
+    names.  A missing directory reads as empty."""
+    def attempt() -> List[str]:
+        faults.check("io.list")
+        try:
+            return os.listdir(path)
+        except (FileNotFoundError, NotADirectoryError):
+            return []
+
+    return (retry if retry is not None else RetryPolicy()).call(attempt)
 
 
 def remove_tree(path: str, ignore_errors: bool = False) -> None:
-    """Delete a directory tree (vacuumed versions, spill run directories)."""
+    """Delete a directory tree (vacuumed versions, spill run directories)
+    behind the ``io.delete`` site."""
+    faults.check("io.delete")
     shutil.rmtree(path, ignore_errors=ignore_errors)
 
 
 def remove_file(path: str, missing_ok: bool = False) -> None:
-    """Delete one file; with ``missing_ok`` a missing file is no error."""
+    """Delete one file behind the ``io.delete`` site; with ``missing_ok``
+    a missing file is no error."""
+    faults.check("io.delete")
     try:
         os.unlink(path)
     except FileNotFoundError:
@@ -39,7 +54,17 @@ def list_data_files(root_paths: Sequence[str],
                     extension: Optional[str] = None) -> List[FileInfo]:
     """All data files under ``root_paths`` (each a file or directory),
     sorted by path; with ``extension``, only the files of a directory
-    whose name ends with it."""
+    whose name ends with it.  The walk goes through the ``io.list`` site
+    and retries transient errors with the default policy."""
+    def attempt() -> List[FileInfo]:
+        faults.check("io.list")
+        return _list_data_files(root_paths, extension)
+
+    return RetryPolicy().call(attempt)
+
+
+def _list_data_files(root_paths: Sequence[str],
+                     extension: Optional[str]) -> List[FileInfo]:
     out: List[FileInfo] = []
     for root in (normalize_path(r) for r in root_paths):
         if os.path.isfile(root):

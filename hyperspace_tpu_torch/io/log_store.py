@@ -10,8 +10,13 @@ in-process mutex, so a conditional put is atomic across processes.  The
 layout on disk is the JAX package's, so either package reads the records
 the other wrote.
 
-Not ported: ``EmulatedObjectStore``, the fault-injection sites and the
-spans and metrics of a put.
+Every call goes through a fault site (io/faults.py): ``store.put``
+(where ``torn`` commits half the payload with a real generation, then
+dies, so readers must skip the burned key), ``store.read``,
+``store.list`` and ``store.delete``.  The advisor's captured workload
+(advisor/workload.py) lives in one too.
+
+Not ported: ``EmulatedObjectStore`` and the spans and metrics of a put.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import json
 import os
 import threading
 import time
-from typing import List
+from typing import List, Optional, Tuple
+
+from hyperspace_tpu_torch.io import faults
 
 try:  # flock arbitrates between processes; without it, within one only
     import fcntl as _fcntl
@@ -43,6 +50,10 @@ class LogStore:
 
     def read(self, key: str) -> bytes:
         """The bytes at ``key``; FileNotFoundError when absent."""
+        raise NotImplementedError
+
+    def read_with_generation(self, key: str) -> Tuple[Optional[bytes], int]:
+        """(bytes or None, generation); generation 0 means absent."""
         raise NotImplementedError
 
     def generation(self, key: str) -> int:
@@ -95,7 +106,7 @@ class PosixLogStore(LogStore):
             finally:
                 os.close(fd)
 
-    def generation(self, key: str) -> int:
+    def _generation(self, key: str) -> int:
         """From the sidecar; a data file without one (a layout from
         before generations) has generation 1, so it stays visible."""
         try:
@@ -104,11 +115,28 @@ class PosixLogStore(LogStore):
         except (FileNotFoundError, ValueError, KeyError):
             return 1 if os.path.isfile(self._data_path(key)) else 0
 
+    def generation(self, key: str) -> int:
+        faults.check("store.read")
+        return self._generation(key)
+
     def read(self, key: str) -> bytes:
+        faults.check("store.read")
         with open(self._data_path(key), "rb") as f:
             return f.read()
 
+    def read_with_generation(self, key: str) -> Tuple[Optional[bytes], int]:
+        faults.check("store.read")
+        gen = self._generation(key)
+        if gen == 0:
+            return None, 0
+        try:
+            with open(self._data_path(key), "rb") as f:
+                return f.read(), gen
+        except FileNotFoundError:
+            return None, gen
+
     def list_keys(self) -> List[str]:
+        faults.check("store.list")
         if not os.path.isdir(self.root):
             return []
         return sorted(name for name in os.listdir(self.root)
@@ -132,14 +160,21 @@ class PosixLogStore(LogStore):
 
     def put_if_generation_match(self, key: str, data: bytes,
                                 expected_generation: int) -> bool:
+        kind = faults.fire("store.put")  # enospc, eio, crash raise here
         with self._locked():
-            cur = self.generation(key)
+            cur = self._generation(key)
             if cur != int(expected_generation):
                 return False
+            if kind == "torn":
+                # The store accepted a partial upload: half the payload
+                # commits with a real generation, then the writer dies.
+                self._commit(key, data[:max(1, len(data) // 2)], cur + 1)
+                raise faults.InjectedCrash(f"injected torn put of {key!r}")
             self._commit(key, data, cur + 1)
             return True
 
     def delete(self, key: str) -> None:
+        faults.check("store.delete")
         with self._locked():
             for path in (self._data_path(key), self._gen_path(key)):
                 try:

@@ -14,12 +14,19 @@ it lands
 (``io/integrity.record_file``, in the writer threads), so the committed
 entry carries its content digest.
 
+Every single-file read goes through the ``data.read`` fault site and
+retries transient IO errors (``_read_retry``), after the corruption
+checkpoint of that site; every index data file written goes through the
+``data.write`` site, and its corruption checkpoint comes after the
+digest of the intended bytes (io/faults.py).
+
 pyarrow is imported when a function runs, never when the module is
 imported.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import re
 import uuid
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
-from hyperspace_tpu_torch.io import integrity
+from hyperspace_tpu_torch.io import faults, integrity
 from hyperspace_tpu_torch.ops.sort import bucket_counts
 
 _BUCKET_FILE_RE = re.compile(r"part-b(\d{5})-")
@@ -53,23 +60,48 @@ def _io_workers(n: int) -> int:
     return max(1, min(n, os.cpu_count() or 4, 16))
 
 
+def _read_retry(fn):
+    """One file read behind the ``data.read`` site, transient IO errors
+    retried with the default policy."""
+    from hyperspace_tpu_torch.utils.retry import RetryPolicy
+
+    def attempt():
+        faults.check("data.read")
+        return fn()
+
+    return RetryPolicy().call(attempt)
+
+
+def _read_parquet_file(path: str, columns: Optional[Sequence[str]]):
+    """One Parquet file, the corruption checkpoint of ``data.read`` just
+    before it (damage found at read time stays on retry)."""
+    import pyarrow.parquet as pq
+
+    cols = None if columns is None else list(columns)
+    faults.corrupt_file("data.read", path)
+    # partitioning=None: no hive columns inferred from the file's own
+    # path (an index file under v__=N/ must not grow a v__ column).
+    return _read_retry(
+        lambda: pq.read_table(path, columns=cols, partitioning=None))
+
+
 def read_table(paths: Sequence[str], columns: Optional[Sequence[str]] = None):
     """Read Parquet files and concatenate them, in ``paths`` order, into
     one arrow Table."""
     import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    cols = None if columns is None else list(columns)
-
-    def load(path: str):
-        # partitioning=None: no hive columns inferred from the file's own
-        # path (an index file under v__=N/ must not grow a v__ column).
-        return pq.read_table(path, columns=cols, partitioning=None)
 
     if not paths:
         return pa.table({})
+    if len(paths) == 1:
+        return pa.concat_tables([_read_parquet_file(paths[0], columns)],
+                                promote_options="default")
+    # Each read runs in a copy of the caller's context, so a retry it
+    # absorbs lands in the caller's run report (telemetry/report.py).
+    contexts = [contextvars.copy_context() for _ in paths]
     with ThreadPoolExecutor(_io_workers(len(paths))) as pool:
-        tables = list(pool.map(load, paths))
+        tables = list(pool.map(
+            lambda ctx, p: ctx.run(_read_parquet_file, p, columns),
+            contexts, paths))
     return pa.concat_tables(tables, promote_options="default")
 
 
@@ -81,18 +113,18 @@ def read_file(path: str, columns: Sequence[str]):
     import pyarrow.parquet as pq
 
     try:
-        return pq.read_table(path, columns=list(columns), partitioning=None)
+        return _read_parquet_file(path, columns)
     except (pa.ArrowInvalid, KeyError):
         present = set(pq.read_schema(path).names)
-        return pq.read_table(path, columns=[c for c in columns if c in present],
-                             partitioning=None)
+        return _read_parquet_file(path, [c for c in columns if c in present])
 
 
 def read_schema(path: str) -> Dict[str, str]:
     """Column name -> arrow dtype string for one Parquet file."""
     import pyarrow.parquet as pq
 
-    return {f.name: str(f.type) for f in pq.read_schema(path)}
+    return {f.name: str(f.type)
+            for f in _read_retry(lambda: pq.read_schema(path))}
 
 
 def schema_to_arrow(schema: Dict[str, str]):
@@ -245,9 +277,13 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
     def write(job) -> str:
         b, start, rows = job
         path = os.path.join(out_dir, bucket_file_name(b))
+        faults.check("data.write")
         pq.write_table(sorted_table.slice(start, rows), path,
                        compression=_codec(compression))
+        # The digest of the intended bytes, then the corruption
+        # checkpoint: damage after a write the writer believed good.
         integrity.record_file(path)
+        faults.corrupt_file("data.write", path)
         return path
 
     with ThreadPoolExecutor(_io_workers(len(jobs))) as pool:
@@ -276,9 +312,11 @@ def write_bucket_run(sorted_bucket_table, bucket: int, out_dir: str,
     out: List[str] = []
     for off, rows in chunks:
         path = os.path.join(out_dir, bucket_file_name(bucket))
+        faults.check("data.write")
         pq.write_table(sorted_bucket_table.slice(off, rows), path,
                        compression=_codec(compression))
         integrity.record_file(path)
+        faults.corrupt_file("data.write", path)
         out.append(path)
     return out
 

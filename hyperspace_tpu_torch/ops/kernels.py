@@ -67,6 +67,12 @@ _SEED = 0x3C074A61
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 
 
+class KernelError(RuntimeError):
+    """A kernel did not build, load or launch.  Never an ``OSError``, so
+    no fallback that takes read errors (containment, the degraded rule
+    boundary) can mistake the loader's failure for the index's."""
+
+
 class _Kernel:
     """One CUDA source: the C function it exports, its lazily built
     library, and its launch count."""
@@ -90,7 +96,7 @@ class _Kernel:
         err = getattr(self.lib, self.symbol)(*args)
         if err != 0:
             msg = self.lib.hs_error_string(err).decode()
-            raise RuntimeError(f"{self.source}: launch failed ({err}): {msg}")
+            raise KernelError(f"{self.source}: launch failed ({err}): {msg}")
         with self._count_lock:
             self.launches += 1
 
@@ -127,7 +133,7 @@ def _nvcc() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+        raise KernelError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
     return found
 
 
@@ -136,6 +142,13 @@ def build_kernels() -> Dict[str, str]:
     started together, and load the libraries.  Idempotent.  Returns the
     compiler's output (``-Xptxas -v``: registers, shared memory, spills)
     of each source it compiled."""
+    try:
+        return _build_kernels()
+    except OSError as e:
+        raise KernelError(f"kernel build or load failed: {e}") from e
+
+
+def _build_kernels() -> Dict[str, str]:
     logs: Dict[str, str] = {}
     with _BUILD_LOCK:
         todo = [k for k in KERNELS.values() if k.lib is None]
@@ -159,7 +172,7 @@ def build_kernels() -> Dict[str, str]:
                 out, _ = proc.communicate()
                 logs[k.source] = out.decode(errors="replace")
                 if proc.returncode != 0:
-                    raise RuntimeError(
+                    raise KernelError(
                         f"nvcc failed on {k.source}:\n{logs[k.source]}")
                 os.replace(tmp, lib)
             dll = ctypes.CDLL(str(lib))

@@ -26,7 +26,10 @@ class ScanRelation:
     only the index files of those buckets.  ``data_skipping_of`` names
     the data-skipping index that pruned a source scan's file list, and
     ``data_skipping_stats`` is (files kept, files in all) of a scan whose
-    files a sketch pruned."""
+    files a sketch pruned.  ``hypothetical`` marks a scan rewritten onto
+    a what-if index (advisor/hypothetical.py): it has no file, the
+    executor refuses it, and ``hypothetical_schema`` ((column, dtype)
+    pairs) stands in for the footer it lacks."""
 
     root_paths: Tuple[str, ...]
     file_format: str = "parquet"
@@ -37,6 +40,8 @@ class ScanRelation:
     prune_to_buckets: Optional[Tuple[int, ...]] = None
     data_skipping_of: Optional[str] = None
     data_skipping_stats: Optional[Tuple[int, int]] = None
+    hypothetical: bool = False
+    hypothetical_schema: Optional[Tuple[Tuple[str, str], ...]] = None
 
     @property
     def options_dict(self) -> Dict[str, str]:

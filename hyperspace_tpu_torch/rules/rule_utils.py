@@ -76,7 +76,8 @@ def index_scan_relation(entry: IndexLogEntry, use_bucket_spec: bool,
                         ) -> ScanRelation:
     """The relation that reads an index's bucketed Parquet files, or
     ``file_paths``, the subset a sketch kept (``file_stats``: kept, in
-    all)."""
+    all).  A what-if entry's relation carries the hypothetical tag and
+    the entry's schema."""
     files = list(file_paths) if file_paths is not None \
         else [f.name for f in entry.content.file_infos()]
     root = os.path.dirname(files[0]) if files else ""
@@ -89,6 +90,11 @@ def index_scan_relation(entry: IndexLogEntry, use_bucket_spec: bool,
         file_paths=tuple(files),
         prune_to_buckets=prune_to_buckets,
         data_skipping_stats=file_stats,
+        hypothetical=entry.is_hypothetical,
+        hypothetical_schema=tuple(
+            (c, entry.derived_dataset.schema.get(c, "string"))
+            for c in entry.derived_dataset.all_columns)
+        if entry.is_hypothetical else None,
     )
 
 

@@ -11,9 +11,24 @@ once more (the rules rebuild sides in Filter-above-Project form);
 ``Dataset.collect``'s fallback).  Each pass records the indexes it
 considered and each rule's decision in the active run report
 (telemetry/report.py); ``last_run_report_value`` holds the report of
-the calling thread's last ``Dataset.collect``.  Not ported: the
-degraded fallback that answers from the source when a rule fails, and
-the plan cache."""
+the calling thread's last ``Dataset.collect``.
+
+Each rule runs behind the degraded boundary (``_apply_rule_degradable``):
+a rule that fails on index metadata or data (a read error, a log entry
+that does not decode, a ``HyperspaceError``) costs the query its
+acceleration, not its answer.  The plan stays un-rewritten, and the
+report records the rule as skipped with its reason and a ``degraded``
+decision; with ``conf.degraded_fallback_to_source`` off the error
+propagates.  A CUDA or other torch error, and the kernel loader's
+``KernelError``, always propagate.
+
+``optimize(..., hypothetical=[...])`` is the advisor's what-if channel
+(advisor/hypothetical.py): entries tagged hypothetical are considered
+beside the persisted ACTIVE ones for that one pass; the plan is for
+analysis only, since the executor refuses its hypothetical scans.
+
+A conf with ``fault_injection_enabled`` arms the fault injector
+(io/faults.py) when the session is made.  Not ported: the plan cache."""
 
 from __future__ import annotations
 
@@ -62,6 +77,10 @@ class HyperspaceSession:
         self.conf = conf if conf is not None else HyperspaceConf()
         if system_path is not None:
             self.conf.system_path = system_path
+        if self.conf.fault_injection_enabled:
+            from hyperspace_tpu_torch.io import faults
+
+            faults.install_from_conf(self.conf)
         # Per-build phase seconds, one dict per CreateAction run.
         self.build_stats_log: List[Dict[str, float]] = []
         # The BuildReport of the last action run with this session.
@@ -91,16 +110,24 @@ class HyperspaceSession:
 
     @property
     def index_collection_manager(self):
-        from hyperspace_tpu_torch.index.manager import IndexCollectionManager
+        """The manager, its listing cached on the session for
+        ``conf.cache_expiry_seconds`` (index/cache.py)."""
+        from hyperspace_tpu_torch.index.cache import (
+            CachingIndexCollectionManager,
+        )
 
-        return IndexCollectionManager(self)
+        return CachingIndexCollectionManager(self)
 
     def schema_of(self, scan: Scan) -> List[str]:
         return list(self.schema_map_of(scan).keys())
 
     def schema_map_of(self, scan: Scan) -> Dict[str, str]:
         """Column name -> arrow dtype string of a Parquet scan, cached by
-        the relation's value."""
+        the relation's value; a hypothetical index scan has no file and
+        carries its schema itself."""
+        if scan.relation.hypothetical \
+                and scan.relation.hypothetical_schema is not None:
+            return dict(scan.relation.hypothetical_schema)
         key = scan.relation
         if key not in self._schema_cache:
             if scan.relation.file_paths is not None:
@@ -123,7 +150,8 @@ class HyperspaceSession:
     def is_hyperspace_enabled(self) -> bool:
         return self._hyperspace_enabled
 
-    def optimize(self, plan: LogicalPlan, use_indexes: bool = True) -> LogicalPlan:
+    def optimize(self, plan: LogicalPlan, use_indexes: bool = True,
+                 hypothetical=None) -> LogicalPlan:
         from hyperspace_tpu_torch.index.log_entry import States
         from hyperspace_tpu_torch.plan.pruning import prune_columns
         from hyperspace_tpu_torch.plan.pushdown import push_filters
@@ -150,20 +178,55 @@ class HyperspaceSession:
         plan = prune_columns(plan, self.schema_of)
         if not (self._hyperspace_enabled and use_indexes):
             return plan
-        entries = self.index_collection_manager.get_indexes([States.ACTIVE])
+        entries = [e for e in
+                   self.index_collection_manager.get_indexes([States.ACTIVE])
+                   if not e.is_hypothetical]
+        if hypothetical:
+            bad = [e.name for e in hypothetical if not e.is_hypothetical]
+            if bad:
+                from hyperspace_tpu_torch.exceptions import HyperspaceError
+
+                raise HyperspaceError(
+                    f"optimize(hypothetical=...) entries must carry the "
+                    f"hypothetical tag; got untagged {bad}: use "
+                    f"advisor.hypothetical.hypothetical_entry()")
+            entries = entries + list(hypothetical)
+        # Listed entries are cached across queries (index/cache.py), and
+        # their tags memoize per plan node: each pass starts clean.
+        for e in entries:
+            e._tags.clear()
         report.record("indexes.considered", names=[e.name for e in entries])
         for rule in (JoinIndexRule, FilterIndexRule, BucketPruneRule,
                      DataSkippingFilterRule):
-            plan = _apply_rule(rule.__name__, rule(self, entries).apply, plan)
+            plan = self._apply_rule_degradable(
+                rule.__name__, rule(self, entries).apply, plan)
         plan = push_filters(plan, self.schema_of)
         return prune_columns(plan, self.schema_of)
 
+    def _apply_rule_degradable(self, name: str, apply_fn,
+                               plan: LogicalPlan) -> LogicalPlan:
+        """Run one rewrite rule and record its decision: applied, no
+        match, or skipped with its reason when it failed on the index's
+        side (then the plan comes back un-rewritten, and a ``degraded``
+        decision names the rule).  Every other error propagates, and so
+        does an ``InjectedCrash``, a ``BaseException``."""
+        from hyperspace_tpu_torch.execution.containment import (
+            is_index_side_error,
+        )
 
-def _apply_rule(name: str, apply_fn, plan: LogicalPlan) -> LogicalPlan:
-    """Run one rewrite rule and record whether it changed the plan."""
-    new_plan = apply_fn(plan)
-    report.record("rule", rule=name, applied=new_plan is not plan)
-    return new_plan
+        try:
+            new_plan = apply_fn(plan)
+        except Exception as e:  # noqa: BLE001 - narrowed just below
+            if not (self.conf.degraded_fallback_to_source
+                    and is_index_side_error(e)):
+                raise
+            report.record("rule", rule=name, applied=False,
+                          skipped_reason=f"{e!r}")
+            report.record("degraded", index="",
+                          reason=f"{name} failed: {e!r}")
+            return plan
+        report.record("rule", rule=name, applied=new_plan is not plan)
+        return new_plan
 
 
 def _uniquify(plan: LogicalPlan) -> LogicalPlan:

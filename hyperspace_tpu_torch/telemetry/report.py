@@ -8,11 +8,14 @@ contextvar lookup plus an append.  Retrieval: ``ds.last_run_report()``
 (thread-local on the session, like ``last_execution_stats``) or the
 "Last run report" section of ``explain(verbose=True)``.
 
-Not ported yet: the telemetry events feeding it (``observe_event``), the
-metrics registry, the span timings of a traced query, and the decisions
-of the degraded fallbacks (a rule that raises still raises).  A report
-here has no span, so ``render()`` gives the text the JAX package gives
-with tracing off.
+The JAX package derives its ``degraded`` decisions from telemetry
+events; the port records the same decision at the same two seams, the
+session's rule boundary and the manager's degraded listing, so
+``degraded``, ``degraded_reasons()``, ``skipped_indexes()`` and the
+"degraded" outcome read as there.  Not ported yet: the events
+themselves (``observe_event``), the metrics registry, ``to_dict`` and
+the span timings of a traced query.  A report here has no span, so
+``render()`` gives the text the JAX package gives with tracing off.
 """
 
 from __future__ import annotations
@@ -28,13 +31,19 @@ class QueryRunReport:
     ``decisions`` is an append-only list of dicts, each with a ``kind``:
 
     ========================  ===============================================
-    ``rule``                  one optimizer rule ran: ``rule``, ``applied``
+    ``rule``                  one optimizer rule ran: ``rule``, ``applied``,
+                              ``skipped_reason`` when it failed and was
+                              skipped
     ``indexes.considered``    ACTIVE entries the optimizer pass loaded
     ``index.used``            a rule rewrote the plan to use ``index``
+    ``degraded``              an index was skipped or a rule fell back:
+                              ``index``, ``reason``
     ``quarantine``            execution-failure containment quarantined
                               files: ``index``, ``files``
     ``replan``                the query re-planned (``mode``
                               ``containment``)
+    ``io.retry``              a transient IO error was retried:
+                              ``attempt``, ``error``
     ``scan``                  one executed scan's IO: ``relation``,
                               ``is_index``, ``files_read``,
                               ``files_listed``, ``bytes_read``
@@ -44,16 +53,24 @@ class QueryRunReport:
     def __init__(self) -> None:
         self.started_at = time.time()
         self.duration_ms = 0.0
-        self.outcome = "ok"  # "ok" | "error"
+        self.outcome = "ok"  # "ok" | "degraded" | "error"
         self.decisions: List[Dict[str, Any]] = []
         self.indexes_considered: List[str] = []
         self.indexes_used: List[str] = []
 
+    @property
+    def degraded(self) -> bool:
+        return any(d["kind"] == "degraded" for d in self.decisions)
+
+    def degraded_reasons(self) -> List[str]:
+        return [d.get("reason", "") for d in self.decisions
+                if d["kind"] == "degraded"]
+
     def skipped_indexes(self) -> List[str]:
-        """Indexes that were considered (or quarantined) but did not end
-        up serving the query."""
+        """Indexes that were considered (or degraded, or quarantined) but
+        did not end up serving the query."""
         named = {d.get("index", "") for d in self.decisions
-                 if d["kind"] == "quarantine" and d.get("index")}
+                 if d["kind"] in ("degraded", "quarantine") and d.get("index")}
         return sorted((set(self.indexes_considered) | named)
                       - set(self.indexes_used))
 
@@ -85,8 +102,13 @@ class QueryRunReport:
         for d in self.decisions:
             kind = d["kind"]
             if kind == "rule":
-                state = "applied" if d.get("applied") else "no match"
+                state = "applied" if d.get("applied") else (
+                    f"skipped ({d['skipped_reason']})"
+                    if d.get("skipped_reason") else "no match")
                 lines.append(f"  rule {d.get('rule')}: {state}")
+            elif kind == "degraded":
+                lines.append(f"  degraded: index={d.get('index') or '?'} "
+                             f"reason={d.get('reason')}")
             elif kind == "quarantine":
                 lines.append(f"  quarantine: index={d.get('index')} "
                              f"files={d.get('files')}")
@@ -115,6 +137,8 @@ def finish(token: "contextvars.Token") -> QueryRunReport:
     report = _active.get()
     _active.reset(token)
     report.duration_ms = (time.time() - report.started_at) * 1000.0
+    if report.outcome == "ok" and report.degraded:
+        report.outcome = "degraded"
     return report
 
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Sequence
 
+from hyperspace_tpu_torch.exceptions import HyperspaceError
+
 
 def resolve(requested: Sequence[str], available: Iterable[str]) -> Optional[List[str]]:
     """Resolve all of ``requested`` against ``available``; None if any
@@ -20,3 +22,16 @@ def resolve(requested: Sequence[str], available: Iterable[str]) -> Optional[List
             return None
         out.append(hit)
     return out
+
+
+def resolve_or_raise(requested: Sequence[str], available: Iterable[str],
+                     what: str = "column") -> List[str]:
+    """``resolve``, raising ``HyperspaceError`` with the names that do
+    not resolve."""
+    available = list(available)
+    resolved = resolve(requested, available)
+    if resolved is None:
+        missing = [n for n in requested if resolve([n], available) is None]
+        raise HyperspaceError(
+            f"Could not resolve {what}(s) {missing} against schema {available}")
+    return resolved

@@ -49,7 +49,11 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "ops/window.py", "plan/temporal.py", "plan/subquery.py",
                    "sql/parser.py", "plananalysis/display.py",
                    "plananalysis/explain.py", "plananalysis/physical.py",
-                   "telemetry/report.py", "index/statistics.py"):
+                   "telemetry/report.py", "index/statistics.py",
+                   "io/faults.py", "utils/retry.py", "index/cache.py",
+                   "advisor/__init__.py", "advisor/hypothetical.py",
+                   "advisor/workload.py", "advisor/candidates.py",
+                   "advisor/recommend.py",):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -78,7 +82,11 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "sql/__init__.py", "sql/parser.py",
                    "plananalysis/__init__.py", "plananalysis/display.py",
                    "plananalysis/explain.py", "plananalysis/physical.py",
-                   "telemetry/report.py", "index/statistics.py"):
+                   "telemetry/report.py", "index/statistics.py",
+                   "io/faults.py", "utils/retry.py", "index/cache.py",
+                   "advisor/__init__.py", "advisor/hypothetical.py",
+                   "advisor/workload.py", "advisor/candidates.py",
+                   "advisor/recommend.py",):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -212,6 +220,72 @@ def test_the_spill_build_and_the_lifecycle_verbs_import_no_jax(tmp_path):
                      "vacuum_index"):
             getattr(hs, verb)("ix")
         assert hs.indexes().to_pylist()[0]["state"] == "DOESNOTEXIST"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_failure_envelope_and_the_advisor_import_no_jax(tmp_path):
+    """The fault injector, the retry and the listing cache load without
+    pyarrow; then a build that crashes at commit and recovers, a degraded
+    query over a torn log, and the advisor's capture, what-if, recommend
+    and apply, each through the port's entry points."""
+    script = textwrap.dedent(f"""
+        import glob, os, sys
+        import hyperspace_tpu_torch.io.faults as faults
+        import hyperspace_tpu_torch.utils.retry
+        import hyperspace_tpu_torch.index.cache
+        import hyperspace_tpu_torch.advisor
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{"k": np.arange(300), "v": rng.random(300)}}),
+                       os.path.join(data, "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+        hs = Hyperspace(s)
+        faults.install(faults.FaultPlan(site="action.commit", kind="crash"))
+        try:
+            hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        except faults.InjectedCrash:
+            pass
+        finally:
+            faults.clear()
+        s.conf.auto_recovery_enabled = True
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        s.conf.advisor_capture_enabled = True
+        s.enable_hyperspace()
+        for _ in range(2):
+            s.read.parquet(data).filter(col("v") < 0.5).select("k").collect()
+        assert "What-if" in (s.read.parquet(data).filter(col("v") < 0.5)
+                             .select("k").explain(
+                                 whatif=[IndexConfig("h", ["v"], ["k"])]))
+        assert hs.recommend_indexes().num_rows == 1
+        assert hs.apply_recommendations() == ["adv_data_v"]
+        for f in glob.glob({str(tmp_path / "ix")!r} + "/ix/_hyperspace_log/*"):
+            open(f, "w").write('{{"torn')
+        s.index_collection_manager.clear_cache()
+        ds = s.read.parquet(data).filter(col("k") == 7).select("k", "v")
+        assert ds.collect().num_rows == 1
+        assert ds.last_run_report().outcome == "degraded"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
