@@ -367,6 +367,40 @@ beside it.
            the built indexes alone, numpy's answers, fewer bytes read,
            the ms before and after (``O rerun``).  Prints
            ``{"advisor": ...}``.
+  phase P  the autonomous index lifecycle at SF1, after phase O, over a
+           hard-linked copy of phase C's lineitem (P_SOURCE): ``p_li``
+           (200 buckets, lineage, hybrid scan and CDC merge-on-read on),
+           and a twin of it in a second system path, driven by hand with
+           ``refresh_index``/``optimize_index`` in the mode the daemon
+           journaled.  Each cycle is ``Hyperspace.maintenance_cycle()``
+           with the launch counts set to 0 just before and read just
+           after (P_CYCLES: the decision, mode, outcome and reason each
+           must journal; incremental, repair, full and the advisor's
+           create must launch both kernels, a quick refresh neither):
+           1 unchanged (the detection ms); 2 one file appended (quick);
+           3 eight more (incremental, every bucket then holds two files);
+           4 compaction turned on, idle (optimize quick); 5 four files
+           deleted and one rewritten in place with fewer rows (CDC
+           quick, the queries through the delete overlay); 6 twelve more
+           deleted (incremental on merge debt); 7 one byte flipped in an
+           index file and a full verify (repair, the digests equal to
+           those before the damage); 8 half the files deleted (full);
+           9a phase D's point, range and q3 captured and a byte budget
+           (the advisor's create); 9b a cold index built and a budget
+           under the total (its delete).  After each, point, range and
+           q3 held to numpy (``p_expected``), and after each
+           incremental, full and optimize every bucket's sha256 equal to
+           the twin's.  Files are written beside the source and renamed
+           in (``p_write``): a linked file is never rewritten in place.
+           Then the lease (a second session over the system path stands
+           by until the first releases: the handoff ms), the staleness
+           (``start_maintenance`` at a 30 s interval with the watch on,
+           hybrid scan off: one file renamed in, the seconds to the
+           journal's done record, under P_STALENESS_LIMIT_S, both
+           kernels launched by the daemon thread) and a real allocation
+           error of the card inside the daemon's refresh, journaled and
+           raised out of the cycle, then the refresh under auto
+           recovery.  Prints ``{"lifecycle": ...}``.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -395,11 +429,12 @@ H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
-``O rerun``), the integrity JSON (phase I), the Z-order JSON (phase J),
-the window JSON (phase K), the plan-language JSON (phase L), the SQL
-JSON (phase M), the envelope JSON (phase N) and the advisor JSON
-(phase O), each of the last two with the card's name and power limit,
-the card's name and power limit, and ``{"ok": true, "device": ...}``.
+``O rerun``, phase P's ``P lifecycle``), the integrity JSON (phase I),
+the Z-order JSON (phase J), the window JSON (phase K), the
+plan-language JSON (phase L), the SQL JSON (phase M), the envelope JSON
+(phase N), the advisor JSON (phase O) and the lifecycle JSON (phase P),
+each of the last three with the card's name and power limit, the card's
+name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -1531,17 +1566,24 @@ def eviction_run(session, ds, expected: tuple) -> dict:
 
 
 def bucket_digests(hs, name: str) -> dict:
-    """bucket -> sorted sha256 of the index ``name``'s files."""
+    """bucket -> sorted sha256 of the index ``name``'s files (hashed on
+    8 threads: hashlib releases the GIL)."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
 
     from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
 
-    out: dict = {}
+    def digest(path: str) -> str:
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
     entry = hs.session.index_collection_manager.get_index(name)
-    for info in entry.content.file_infos():
-        with open(info.name, "rb") as f:
-            out.setdefault(bucket_id_of_file(info.name), []).append(
-                hashlib.sha256(f.read()).hexdigest())
+    paths = [info.name for info in entry.content.file_infos()]
+    with ThreadPoolExecutor(8) as pool:
+        digests = list(pool.map(digest, paths))
+    out: dict = {}
+    for path, d in zip(paths, digests):
+        out.setdefault(bucket_id_of_file(path), []).append(d)
     return {b: sorted(v) for b, v in out.items()}
 
 
@@ -4460,6 +4502,513 @@ def phase_o(orders: dict, li: dict, root: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase P: the autonomous index lifecycle at SF1
+# ---------------------------------------------------------------------------
+
+P_SOURCE = "p_lineitem"         # a hard-linked copy of phase C's lineitem
+P_INDEX = "p_li"
+P_COLD = "p_cold"               # an index no captured query touches
+P_SEED = 161                    # the appended files' rows
+P_QUERIES = ("point", "range", "q3")
+P_DELETED = (5, 19, 33, 47)     # cycle 5: original files deleted
+P_REWRITTEN = 60                # cycle 5: rewritten in place, rows dropped
+P_REWRITE_DROP = 1_000
+P_DELETED_AGAIN = tuple(range(6, 18))   # cycle 6: 12 more
+P_STALENESS_LIMIT_S = 5.0
+P_INTERVAL_S = 30.0
+# Per cycle: its label, the decision, mode and outcome it must journal
+# for P_INDEX (the advisor's for 9a and 9b), a phrase its reason must
+# hold, and whether both kernels must launch in it.
+P_CYCLES = (
+    ("1 unchanged", "none", "", "noop", "source unchanged", False),
+    ("2 append 1", "refresh", "quick", "done", "small appended", False),
+    ("3 append 8", "refresh", "incremental", "done", "beyond the quick",
+     True),
+    ("4 compaction", "optimize", "quick", "done", "small index file", False),
+    ("5 delete 4, rewrite 1", "refresh", "quick", "done",
+     "CDC merge-on-read", False),
+    ("6 delete 12", "refresh", "incremental", "done", "merge debt ratio",
+     True),
+    ("7 bit rot", "repair", "repair", "done", "quarantined index file",
+     True),
+    ("8 churn", "refresh", "full", "done", "churn ratio", True),
+    ("9a advisor create", "create", "", "done", "advisor-recommended", True),
+    ("9b advisor delete", "delete", "", "done", "cold index", False),
+)
+
+
+def p_columns(li: dict, f: int, rows=None) -> dict:
+    """The query columns of original file ``f`` (its first ``rows``)."""
+    lo = f * ROWS_PER_FILE
+    hi = lo + (ROWS_PER_FILE if rows is None else rows)
+    return {c: li[c][lo:hi] for c in G_QUERY_COLUMNS}
+
+
+def p_expected(orders: dict, files: dict) -> dict:
+    """Point, range and q3 answered by numpy over ``files`` (name ->
+    query columns), as phase D answers them; the point query's rows as
+    a multiset (after a refresh its key's rows may lie in two versions
+    of a bucket)."""
+    li = {c: np.concatenate([files[n][c] for n in sorted(files)])
+          for c in G_QUERY_COLUMNS}
+    lk = li["l_orderkey"]
+    point = lk == POINT_KEY
+    in_range = (lk >= RANGE[0]) & (lk < RANGE[1])
+    position = np.empty(N_ORDERS, dtype=np.int64)
+    position[orders["o_orderkey"]] = np.arange(N_ORDERS)
+    row = position[lk]
+    cheap = orders["o_totalprice"][row] < PRICE_BELOW
+    revenue = li["l_extendedprice"] * (1 - li["l_discount"])
+    q3_cust, q3_rev = top_groups(orders["o_custkey"][row][cheap],
+                                 revenue[cheap], Q3_TOP, "phase P q3")
+    return {
+        "point": ({c: li[c][point] for c in ("l_orderkey", "l_quantity")},
+                  ["l_orderkey", "l_quantity"]),
+        "range": ({c: li[c][in_range] for c in
+                   ("l_orderkey", "l_extendedprice", "l_discount")},
+                  ["l_orderkey", "l_extendedprice"]),
+        "q3": ({"o_custkey": q3_cust, "revenue": q3_rev}, None),
+    }
+
+
+def p_check(label: str, session, root: str, want: dict,
+            through_index: bool = False, names=P_QUERIES) -> dict:
+    """The queries ``names`` (of point, range and q3) over phase P's
+    source held to ``want`` (``p_expected``); with ``through_index``
+    point and range must read P_INDEX.  Returns each query's ms."""
+    queries = build_queries(session, root, lineitem=P_SOURCE, aggregates=True)
+    ms = {}
+    for name in names:
+        ds = queries[name]
+        if through_index and name != "q3":
+            used = [n for n, _ in index_scans(ds.optimized_plan())]
+            if P_INDEX not in used:
+                raise AssertionError(f"phase P {label} {name}: the plan "
+                                     f"reads {used}, not {P_INDEX}")
+        t0 = time.perf_counter()
+        got = ds.collect()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        rows, keys = want[name]
+        require_rows(f"phase P {label} {name}", got, rows, keys,
+                     rtol=AGG_RTOL if name == "q3" else 0.0)
+    return ms
+
+
+def p_write(src: str, staging: str, name: str, table) -> float:
+    """Write ``table`` as ``src/name`` through a file in ``staging`` and
+    ``os.replace``: a linked file is never rewritten in place, and the
+    file appears whole.  Returns the wall clock of the rename."""
+    import pyarrow.parquet as pq
+
+    tmp = os.path.join(staging, name)
+    pq.write_table(table, tmp)
+    t = time.time()
+    os.replace(tmp, os.path.join(src, name))
+    return t
+
+
+def p_append(src: str, staging: str, files: dict, first: int, count: int,
+             seed: int) -> float:
+    """``count`` new lineitem files (``gen_lineitem`` from ``seed``) named
+    after the original ones; returns the last rename's wall clock."""
+    import pyarrow as pa
+
+    cols = gen_lineitem(np.random.default_rng(seed), count * ROWS_PER_FILE)
+    cols["l_shipdate"] = (N_FILES + first) * ROWS_PER_FILE \
+        + np.arange(count * ROWS_PER_FILE, dtype=np.int64)
+    table = pa.table(cols)
+    t = 0.0
+    for j in range(count):
+        name = f"part-{90000 + first + j:05d}.parquet"
+        lo = j * ROWS_PER_FILE
+        t = p_write(src, staging, name,
+                    table.slice(lo, ROWS_PER_FILE))
+        files[name] = {c: cols[c][lo:lo + ROWS_PER_FILE]
+                       for c in G_QUERY_COLUMNS}
+    return t
+
+
+def p_delete(src: str, files: dict, numbers) -> None:
+    for f in numbers:
+        name = f"part-{f:05d}.parquet"
+        os.remove(os.path.join(src, name))
+        del files[name]
+
+
+def p_record(recs: list, decision: str, mode: str) -> dict:
+    """The one record of ``decision`` in ``mode`` among ``recs``; of the
+    advisor's creates, the first (each must agree with it)."""
+    hits = [r for r in recs if r["decision"] == decision
+            and r["mode"] == mode]
+    if len(hits) != 1 and not (decision == "create" and hits):
+        raise AssertionError(f"phase P: one {decision} {mode} record "
+                             f"expected, the cycle journaled {recs}")
+    if any(r["outcome"] != hits[0]["outcome"] for r in hits):
+        raise AssertionError(f"phase P: {hits}")
+    return hits[0]
+
+
+def p_bucket_rows(hs, bucket: int) -> dict:
+    """Column name -> numpy array of ``bucket``'s rows of P_INDEX, its
+    files in name order (read as files: no column from the version
+    directory's name)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    entry = hs.session.index_collection_manager.get_index(P_INDEX)
+    names = sorted(f.name for f in entry.content.file_infos()
+                   if bucket_id_of_file(f.name) == bucket)
+    table = pa.concat_tables([pq.ParquetFile(n).read() for n in names])
+    return {c: table.column(c).to_numpy() for c in table.column_names}
+
+
+def p_sorted(rows: dict) -> list:
+    """``rows`` as a sorted list of row tuples (a multiset)."""
+    return sorted(zip(*(rows[c].tolist() for c in sorted(rows))))
+
+
+def phase_p(orders: dict, li: dict, root: str, dev) -> dict:
+    """The autonomous index lifecycle at SF1 (see the module docstring)."""
+    import torch
+
+    from hyperspace_tpu_torch import HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+    from hyperspace_tpu_torch.lifecycle import journal
+    from hyperspace_tpu_torch.lifecycle.change_detector import detect_changes
+    from hyperspace_tpu_torch.ops import hash as ops_hash
+    from hyperspace_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    src = os.path.join(root, P_SOURCE)
+    shutil.copytree(os.path.join(root, "lineitem"), src,
+                    copy_function=os.link)
+    staging = os.path.join(root, "p_staging")
+    os.makedirs(staging)
+    files = {f"part-{f:05d}.parquet": p_columns(li, f)
+             for f in range(N_FILES)}
+    conf = {"lineage_enabled": True, "hybrid_scan_enabled": True}
+    hs = spill_session(dev, os.path.join(root, "p_indexes"),
+                       lifecycle_cdc_enabled=True, **conf)
+    twin = spill_session(dev, os.path.join(root, "p_twin"), **conf)
+    session = hs.session
+    device_cache().clear()
+    out: dict = {"cycles": []}
+    config = IndexConfig(P_INDEX, INDEXED, INCLUDED)
+    t0 = time.perf_counter()
+    hs.create_index(session.read.parquet(src), config)
+    out["create_s"] = time.perf_counter() - t0
+    twin.create_index(twin.session.read.parquet(src), config)
+    session.enable_hyperspace()
+    cuda = dev.type == "cuda"
+
+    split = out["split_s"] = {k: 0.0 for k in (
+        "cycles", "twin", "digests", "oracle", "queries")}
+
+    def digests() -> dict:
+        t0 = time.perf_counter()
+        got = bucket_digests(hs, P_INDEX)
+        split["digests"] += time.perf_counter() - t0
+        return got
+
+    def cycle(i: int, twin_step=None) -> dict:
+        label, decision, mode, outcome, phrase, kernels_run = P_CYCLES[i]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        recs = hs.maintenance_cycle()
+        wall = time.perf_counter() - t0
+        split["cycles"] += wall
+        launches = kernels.launch_counts()
+        rec = p_record(recs, decision, mode)
+        if rec["outcome"] != outcome or phrase not in rec["reason"]:
+            raise AssertionError(f"phase P cycle {label}: {rec}")
+        if cuda and kernels_run and not all(launches.values()):
+            raise AssertionError(f"phase P cycle {label}: launches "
+                                 f"{launches}")
+        if cuda and mode == "quick" and decision == "refresh" \
+                and any(launches.values()):
+            raise AssertionError(f"phase P cycle {label}: a quick refresh "
+                                 f"launched {launches}")
+        step = {"cycle": label, "decision": rec["decision"],
+                "index": rec["index"], "mode": rec["mode"],
+                "outcome": rec["outcome"], "reason": rec["reason"],
+                "wall_s": wall, "launches": launches,
+                "records": len(recs)}
+        if twin_step is not None:
+            t0 = time.perf_counter()
+            twin_step(rec["mode"])
+            step["twin_wall_s"] = time.perf_counter() - t0
+            split["twin"] += step["twin_wall_s"]
+            mine = step["digests"] = digests()
+            t0 = time.perf_counter()
+            theirs = bucket_digests(twin, P_INDEX)
+            split["digests"] += time.perf_counter() - t0
+            if mine != theirs:
+                raise AssertionError(f"phase P cycle {label}: the digests "
+                                     f"differ from the twin's")
+        out["cycles"].append(step)
+        print(f"phase P cycle {label}: {rec['decision']} {rec['index']} "
+              f"{rec['mode'] or '-'} {rec['outcome']}, wall {wall:.3f} s, "
+              f"launches {json.dumps(launches)}"
+              + (f", twin {step['twin_wall_s']:.3f} s" if twin_step else "")
+              + f"; {rec['reason']}", flush=True)
+        return step
+
+    def refresh_twin(mode: str) -> None:
+        twin.refresh_index(P_INDEX, mode)
+
+    def optimize_twin(mode: str) -> None:
+        twin.optimize_index(P_INDEX, mode)
+
+    oracle: dict = {}
+
+    def check(label: str, through_index: bool = False,
+              names=P_QUERIES) -> None:
+        state = sorted((n, len(c["l_orderkey"])) for n, c in files.items())
+        t0 = time.perf_counter()
+        if oracle.get("state") != state:
+            oracle.update(state=state, want=p_expected(orders, files))
+        split["oracle"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["cycles"][-1].setdefault("query_ms", {})[label] = p_check(
+            label, session, root, oracle["want"], through_index, names)
+        split["queries"] += time.perf_counter() - t0
+
+    # 1. Unchanged: detection alone.
+    entry = session.index_collection_manager.get_index(P_INDEX)
+    t0 = time.perf_counter()
+    detect_changes(session, entry)
+    out["detect_ms"] = (time.perf_counter() - t0) * 1e3
+    cycle(0)
+    check("unchanged", through_index=True)
+    # 2. One file appended: metadata only, hybrid scan serves it.
+    p_append(src, staging, files, 0, 1, P_SEED)
+    cycle(1, refresh_twin)
+    check("quick", through_index=True)
+    # 3. Eight more: past the quick budget; every bucket gains a file.
+    p_append(src, staging, files, 1, 8, P_SEED + 1)
+    step = cycle(2, refresh_twin)
+    per_bucket = {len(v) for v in step["digests"].values()}
+    if per_bucket != {2}:
+        raise AssertionError(f"phase P: files per bucket {per_bucket}")
+    check("incremental", through_index=True)
+    # 4. Compaction on, nothing changed: the optimize rung.
+    session.conf.lifecycle_compaction_enabled = True
+    cycle(3, optimize_twin)
+    check("optimize", through_index=True)
+    # 5. Deletes and a rewrite in place: merge debt, the delete overlay.
+    import pyarrow.parquet as pq
+
+    p_delete(src, files, P_DELETED)
+    name = f"part-{P_REWRITTEN:05d}.parquet"
+    kept = ROWS_PER_FILE - P_REWRITE_DROP
+    p_write(src, staging, name,
+            pq.read_table(os.path.join(src, name)).slice(0, kept))
+    files[name] = p_columns(li, P_REWRITTEN, kept)
+    cycle(4, refresh_twin)
+    check("cdc quick", through_index=True)
+    # 6. Twelve more deleted: the merge debt outgrows its budget.
+    p_delete(src, files, P_DELETED_AGAIN)
+    before = cycle(5, refresh_twin)["digests"]
+    check("merge debt", through_index=True)
+    # 7. Bit rot in one index file, found by a full verify: repair.  The
+    #    repair rebuilds the bucket from the recorded snapshot in source
+    #    order, where the damaged file held the refreshes' merge order:
+    #    rows with equal keys may swap, so the bucket is held to its rows
+    #    and its key order, and every other bucket to its sha256.
+    victim = sorted(f.name for f in session.index_collection_manager
+                    .get_index(P_INDEX).content.file_infos())[0]
+    bucket = bucket_id_of_file(victim)
+    rows_before = p_bucket_rows(hs, bucket)
+    flip_byte(victim)
+    t0 = time.perf_counter()
+    flagged = [r for r in hs.verify_index(P_INDEX, "full").to_pylist()
+               if r["quarantined"]]
+    out["verify_full_s"] = time.perf_counter() - t0
+    if [r["file"] for r in flagged] != [victim]:
+        raise AssertionError(f"phase P verify: {flagged}")
+    cycle(6)
+    after = digests()
+    changed = sorted(b for b in set(before) | set(after)
+                     if before.get(b) != after.get(b))
+    rows_after = p_bucket_rows(hs, bucket)
+    keys = rows_after["l_orderkey"]
+    if changed not in ([], [bucket]) or np.any(keys[1:] < keys[:-1]) \
+            or p_sorted(rows_after) != p_sorted(rows_before):
+        a, b = p_sorted(rows_before), p_sorted(rows_after)
+        raise AssertionError(
+            f"phase P repair: buckets {changed} changed; bucket {bucket}: "
+            f"{len(a)} rows before, {len(b)} after, columns "
+            f"{[(c, str(v.dtype)) for c, v in sorted(rows_before.items())]} "
+            f"-> {[(c, str(v.dtype)) for c, v in sorted(rows_after.items())]}"
+            f", key order {not np.any(keys[1:] < keys[:-1])}, "
+            f"{len(set(a) - set(b))} rows only before (e.g. "
+            f"{sorted(set(a) - set(b))[:3]}), {len(set(b) - set(a))} only "
+            f"after (e.g. {sorted(set(b) - set(a))[:3]})")
+    out["repair"] = {"bucket": bucket, "rows": len(keys),
+                     "bytes_equal": changed == [],
+                     "verify_full_s": out["verify_full_s"]}
+    check("repair", through_index=True)
+    # 8. Churn past half the recorded files: a full rebuild.
+    survivors = sorted(n for n in files if n.startswith("part-0"))
+    churn = [int(n[5:10]) for n in survivors[:-(-len(files) // 2)]]
+    p_delete(src, files, churn)
+    cycle(7, refresh_twin)
+    check("full", through_index=True)
+    # 9. The advisor: phase D's shapes captured (q3 four times, as often
+    #    as phase O's workload joins orders), a budget, then a cold index
+    #    and a budget under the total.
+    session.conf.advisor_capture_enabled = True
+    check("capture")
+    for _ in range(3):
+        check("capture q3", names=("q3",))
+    out["recommendations"] = hs.recommend_indexes(top_k=5).to_pylist()
+    for r in out["recommendations"]:
+        print(f"phase P recommend: {json.dumps(r)}", flush=True)
+    session.conf.lifecycle_byte_budget = 1 << 40
+    created = cycle(8)
+    check("advisor create")
+    hs.create_index(session.read.parquet(src),
+                    IndexConfig(P_COLD, ["l_shipdate"], ["l_quantity"]))
+    total = sum(sum(f.size for f in e.content.file_infos())
+                for e in session.index_collection_manager.get_indexes(
+                    ["ACTIVE"]))
+    session.conf.lifecycle_byte_budget = total - 1
+    deleted = cycle(9)
+    if deleted["index"] != P_COLD:
+        raise AssertionError(f"phase P: the advisor dropped {deleted}")
+    session.conf.advisor_capture_enabled = False
+    session.conf.lifecycle_byte_budget = 0
+    out["advisor"] = {"created": created["index"], "deleted": P_COLD,
+                      "budget": total - 1}
+
+    # The lease: a second session over the same system path stands by
+    # until the first releases.
+    session.conf.lifecycle_lease_enabled = True
+    hs.maintenance_cycle()
+    other = HyperspaceSession(system_path=session.conf.system_path,
+                              device=dev)
+    set_min_rows(other, 0)
+    other.conf.lifecycle_lease_enabled = True
+    from hyperspace_tpu_torch import Hyperspace
+
+    hs2 = Hyperspace(other)
+    standby = hs2.maintenance_cycle()
+    if [r["outcome"] for r in standby] != ["skipped"] \
+            or "lease standby" not in standby[0]["reason"]:
+        raise AssertionError(f"phase P lease: {standby}")
+    t0 = time.perf_counter()
+    hs.stop_maintenance()
+    taken = hs2.maintenance_cycle()
+    out["lease_handoff_ms"] = (time.perf_counter() - t0) * 1e3
+    if any(r["outcome"] == "skipped" for r in taken):
+        raise AssertionError(f"phase P lease handoff: {taken}")
+    hs2.stop_maintenance()
+    out["lease_standby"] = standby[0]["reason"]
+    print(f"phase P lease: {standby[0]['reason']}; handoff "
+          f"{out['lease_handoff_ms']:.1f} ms", flush=True)
+
+    # Staleness: the daemon thread with a long interval and the watch on;
+    # hybrid scan off, so the append is an incremental refresh run by the
+    # thread on the card.
+    session.conf.hybrid_scan_enabled = False
+    session.conf.lifecycle_enabled = True
+    session.conf.lifecycle_interval_s = P_INTERVAL_S
+    session.conf.watch_enabled = True
+    session.conf.watch_mode = "auto"
+    n_before = len(journal.records(session.conf))
+    kernels.reset_launch_counts()
+    daemon = hs.start_maintenance()
+    deadline = time.monotonic() + 60.0
+    while len(journal.records(session.conf)) <= n_before + 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase P: the daemon's first cycle never "
+                                 "journaled")
+        time.sleep(0.01)
+    watcher = daemon.watcher()
+    out["watch_mode"] = watcher.mode if watcher is not None else "none"
+    n_before = len(journal.records(session.conf))
+    t_rename = p_append(src, staging, files, 9, 1, P_SEED + 2)
+    if out["watch_mode"] == "store":
+        from hyperspace_tpu_torch.io import watch
+
+        watch.publish(session.conf, src, detail="p append")
+    done = None
+    while done is None:
+        if time.monotonic() > deadline + P_INTERVAL_S:
+            raise AssertionError("phase P: the append was never refreshed")
+        done = next((r for r in journal.records(session.conf)[n_before:]
+                     if r["decision"] == "refresh"
+                     and r["outcome"] == "done"), None)
+        time.sleep(0.005)
+    hs.stop_maintenance()
+    out["staleness_s"] = done["ts"] - t_rename
+    out["staleness_mode"] = done["mode"]
+    out["staleness_launches"] = kernels.launch_counts()
+    if out["staleness_s"] >= P_STALENESS_LIMIT_S:
+        raise AssertionError(f"phase P staleness {out['staleness_s']:.3f} s")
+    if cuda and not all(out["staleness_launches"].values()):
+        raise AssertionError(f"phase P: the daemon thread's refresh "
+                             f"launched {out['staleness_launches']}")
+    session.conf.lifecycle_enabled = False
+    session.conf.watch_enabled = False
+    check("after the daemon thread")
+    print(f"phase P staleness: {out['staleness_s']:.3f} s from the rename "
+          f"to the journal's {done['mode']} done (watch "
+          f"{out['watch_mode']}, interval {P_INTERVAL_S:.0f} s), launches "
+          f"{json.dumps(out['staleness_launches'])}", flush=True)
+
+    # A real allocation error of the card inside the daemon's refresh:
+    # journaled, then raised out of the cycle.
+    original = ops_hash.hash_buckets
+
+    def card_error(*a, **kw):
+        torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        return original(*a, **kw)
+
+    p_append(src, staging, files, 10, 1, P_SEED + 3)
+    n_before = len(journal.records(session.conf))
+    ops_hash.hash_buckets = card_error
+    try:
+        hs.maintenance_cycle()
+    except RuntimeError as e:
+        device_error = e
+    else:
+        raise AssertionError("phase P: the card's error was swallowed")
+    finally:
+        ops_hash.hash_buckets = original
+    rec = p_record(journal.records(session.conf)[n_before:], "refresh",
+                   "incremental")
+    if rec["outcome"] != "error" or rec["error"] != str(device_error)[:500]:
+        raise AssertionError(f"phase P device error journaled as {rec}")
+    out["device_error"] = f"{type(device_error).__name__}: " \
+        f"{str(device_error).splitlines()[0][:160]}"
+    session.conf.auto_recovery_enabled = True
+    recovered = p_record(hs.maintenance_cycle(), "refresh", "incremental")
+    if recovered["outcome"] != "done":
+        raise AssertionError(f"phase P after the device error: {recovered}")
+    check("after the device error")
+    print(f"phase P device error inside the daemon's refresh journaled and "
+          f"propagated: {out['device_error']}", flush=True)
+    out["launches"] = {k: sum(c["launches"][k] for c in out["cycles"])
+                       for k in out["cycles"][0]["launches"]}
+    for c in out["cycles"]:
+        c.pop("digests", None)
+    out["journal_records"] = len(journal.records(session.conf))
+    out["wall_s"] = time.perf_counter() - t_phase
+    device_cache().clear()
+    return out
+
+
+def print_lifecycle(p: dict) -> None:
+    print(f"phase P: lifecycle checked, {len(p['cycles'])} cycles, detect "
+          f"{p['detect_ms']:.1f} ms, staleness {p['staleness_s']:.3f} s, "
+          f"launches {json.dumps(p['launches'])} ({p['wall_s']:.3f} s)",
+          flush=True)
+
+
 def print_envelope(n: dict) -> None:
     print(f"phase N: failure envelope checked, launches "
           f"{json.dumps(n['launches'])} ({n['wall_s']:.3f} s)", flush=True)
@@ -5127,6 +5676,8 @@ def main() -> int:
         print_envelope(envelope)
         advisor = phase_o(orders, li, root, dev)
         print_advisor(advisor)
+        lifecycle = phase_p(orders, li, root, dev)
+        print_lifecycle(lifecycle)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -5163,7 +5714,8 @@ def main() -> int:
                "M sql": sql_m["launches"],
                "N envelope": envelope["launches"],
                "O apply": advisor["launches"],
-               "O rerun": advisor["launches_rerun"]}
+               "O rerun": advisor["launches_rerun"],
+               "P lifecycle": lifecycle["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -5193,6 +5745,7 @@ def main() -> int:
     print(json.dumps({"sql": sql_m}))
     print(json.dumps({"envelope": {**envelope, "card": smi}}))
     print(json.dumps({"advisor": {**advisor, "card": smi}}))
+    print(json.dumps({"lifecycle": {**lifecycle, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

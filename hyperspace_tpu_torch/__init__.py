@@ -24,8 +24,11 @@ what the last collect decided and read, and ``Hyperspace.indexes`` and
 the IO and op-log seams (``io/faults.py``), retries transient IO errors,
 recovers a crashed action and answers from the source when an index
 cannot be read; the advisor (``advisor/``) captures the workload and
-recommends, plans against (what-if) and builds indexes for it.  The JAX
-package ``hyperspace_tpu`` is
+recommends, plans against (what-if) and builds indexes for it.  The
+lifecycle (``lifecycle/``) maintains the indexes unattended: it detects
+source changes (pushed by ``io/watch.py``), picks the cheapest refresh,
+repair, compaction or advisor build, runs it and journals every
+decision.  The JAX package ``hyperspace_tpu`` is
 the reference; this package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

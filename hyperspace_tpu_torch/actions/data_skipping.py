@@ -364,16 +364,13 @@ class RefreshDataSkippingAction(CreateDataSkippingAction):
 
     def __init__(self, log_manager, data_manager, session,
                  previous: Optional[IndexLogEntry] = None) -> None:
-        from hyperspace_tpu_torch.plan.nodes import Scan, ScanRelation
+        from hyperspace_tpu_torch.lifecycle.change_detector import recorded_scan
 
         prev = previous if previous is not None \
             else log_manager.get_latest_stable_log()
         if prev is None:
             raise HyperspaceError("Refresh: index does not exist")
-        rel = prev.relations[0]
-        plan = Scan(ScanRelation(root_paths=tuple(rel.root_paths),
-                                 file_format=rel.file_format,
-                                 options=tuple(sorted(rel.options.items()))))
+        plan = recorded_scan(prev.relations[0])
         config = DataSkippingIndexConfig(
             prev.name, prev.derived_dataset.sketched_columns,
             prev.derived_dataset.sketch_types)

@@ -49,8 +49,10 @@ from hyperspace_tpu_torch.index.log_entry import (
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.io import integrity
 from hyperspace_tpu_torch.io.parquet import read_table
-from hyperspace_tpu_torch.lifecycle.change_detector import diff_file_sets
-from hyperspace_tpu_torch.plan.nodes import Scan, ScanRelation
+from hyperspace_tpu_torch.lifecycle.change_detector import (
+    diff_file_sets,
+    recorded_scan,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,12 +85,7 @@ class RefreshActionBase(CreateActionBase):
             raise HyperspaceError("Refresh: index does not exist")
         if len(prev.relations) != 1:
             raise HyperspaceError("Refresh supports single-relation indexes")
-        # The port's one source provider pins no snapshot: the recorded
-        # relation is the source to list again.
-        rel = prev.relations[0]
-        plan = Scan(ScanRelation(root_paths=tuple(rel.root_paths),
-                                 file_format=rel.file_format,
-                                 options=tuple(sorted(rel.options.items()))))
+        plan = recorded_scan(prev.relations[0])
         config = IndexConfig(
             prev.name, prev.indexed_columns, prev.included_columns,
             layout=prev.derived_dataset.properties.get("layout",

@@ -1,8 +1,8 @@
 """Session configuration (counterpart of hyperspace_tpu/config.py,
 holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
-read, the explain display mode, the failure envelope and the advisor;
-defaults are the JAX package's).
+read, the explain display mode, the failure envelope, the advisor, the
+index lifecycle and the source watch; defaults are the JAX package's).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -130,6 +130,53 @@ class HyperspaceConf:
     advisor_capture_enabled: bool = False
     advisor_capture_max_entries: int = 512
     advisor_max_candidates: int = 20
+    # The autonomous index lifecycle (lifecycle/):
+    #   - enabled: the opt-in maintenance daemon thread
+    #     (``Hyperspace.start_maintenance``), one cycle every interval;
+    #     ``Hyperspace.maintenance_cycle()`` runs one cycle regardless;
+    #   - byte budget: the on-disk index bytes the advisor pass may grow
+    #     the indexes to (0: no autonomous create or delete);
+    #   - quick append ratio: appended plus pending bytes over recorded
+    #     bytes below which an append takes the quick refresh (with
+    #     hybrid scan on); full churn ratio: the changed share of the
+    #     recorded files from which a full rebuild is chosen;
+    #   - the journal keeps at most this many decisions;
+    #   - a failed action backs its index off from the initial delay,
+    #     doubling per failure up to the cap;
+    #   - lease: one daemon per system path holds the maintenance lease
+    #     (lifecycle/lease.py), renewed each cycle, expiring after ttl;
+    #   - CDC merge-on-read: deletes and rewrites with lineage and
+    #     hybrid scan take the quick refresh while the merge debt stays
+    #     within its ratio of the recorded bytes;
+    #   - compaction: an otherwise idle index with at least this many
+    #     mergeable small files gets an optimize in ``mode``.
+    lifecycle_enabled: bool = False
+    lifecycle_interval_s: float = 30.0
+    lifecycle_byte_budget: int = 0
+    lifecycle_quick_append_ratio: float = 0.1
+    lifecycle_full_churn_ratio: float = 0.5
+    lifecycle_journal_max_entries: int = 1024
+    lifecycle_backoff_initial_s: float = 1.0
+    lifecycle_backoff_max_s: float = 300.0
+    lifecycle_lease_enabled: bool = False
+    lifecycle_lease_ttl_s: float = 30.0
+    lifecycle_cdc_enabled: bool = False
+    lifecycle_cdc_merge_debt_ratio: float = 0.2
+    lifecycle_compaction_enabled: bool = False
+    lifecycle_compaction_min_small_files: int = 8
+    lifecycle_compaction_mode: str = "quick"
+    # A maintenance cycle sheds (journals a skip) while the process's
+    # resident set exceeds this many MB (0: never).
+    serving_shed_rss_watermark_mb: float = 0.0
+    # The source watch (io/watch.py): the daemon wakes on source events
+    # instead of sleeping the whole interval.  mode "auto" takes inotify,
+    # else the store notification bus; "inotify", "store" and "poll"
+    # force a backend.  The poll interval paces the watcher; the debounce
+    # folds a burst of events into one wake.
+    watch_enabled: bool = False
+    watch_mode: str = "auto"
+    watch_poll_interval_s: float = 0.5
+    watch_debounce_ms: float = 50.0
     # Explain output rendering (plananalysis/display.py): "plaintext",
     # "html" or "console"; custom highlight tags, both set, override the
     # mode's own.

@@ -4,7 +4,8 @@
 ``indexes``, ``index``, ``explain``, ``last_build_report`` and the
 advisor's verbs ``whatif``, ``captured_workload``,
 ``clear_captured_workload``, ``recommend_indexes`` and
-``apply_recommendations``."""
+``apply_recommendations``, and the lifecycle's ``maintenance_cycle``,
+``start_maintenance``, ``stop_maintenance`` and ``lifecycle_history``."""
 
 from __future__ import annotations
 
@@ -132,6 +133,37 @@ class Hyperspace:
         )
 
         return apply_recommendations(self.session, top_k)
+
+    def maintenance_cycle(self) -> list:
+        """Run one maintenance cycle now (lifecycle/daemon.py): detect,
+        decide, act, journal.  Returns the journal records it wrote, one
+        per decision, "did nothing" ones included."""
+        from hyperspace_tpu_torch.lifecycle.daemon import daemon_for
+
+        return daemon_for(self.session).run_once()
+
+    def start_maintenance(self):
+        """Start the opt-in maintenance daemon thread
+        (``conf.lifecycle_enabled`` must be true); returns the
+        ``MaintenanceDaemon``."""
+        from hyperspace_tpu_torch.lifecycle.daemon import daemon_for
+
+        return daemon_for(self.session).start()
+
+    def stop_maintenance(self) -> None:
+        """Stop the daemon thread (idempotent); raises the error that
+        stopped it, if one did."""
+        from hyperspace_tpu_torch.lifecycle.daemon import daemon_for
+
+        daemon_for(self.session).stop()
+
+    def lifecycle_history(self):
+        """The decision journal as a pyarrow table, oldest first
+        (lifecycle/journal.py has the columns), read from
+        ``<systemPath>/_hyperspace_lifecycle``."""
+        from hyperspace_tpu_torch.lifecycle.journal import history_table
+
+        return history_table(self.session.conf)
 
     def last_build_report(self):
         """The ``BuildReport`` (telemetry/build_report.py) of the last

@@ -53,7 +53,10 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "io/faults.py", "utils/retry.py", "index/cache.py",
                    "advisor/__init__.py", "advisor/hypothetical.py",
                    "advisor/workload.py", "advisor/candidates.py",
-                   "advisor/recommend.py",):
+                   "advisor/recommend.py", "lifecycle/__init__.py",
+                   "lifecycle/policy.py", "lifecycle/cdc.py",
+                   "lifecycle/journal.py", "lifecycle/lease.py",
+                   "lifecycle/daemon.py", "io/watch.py",):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -86,7 +89,11 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "io/faults.py", "utils/retry.py", "index/cache.py",
                    "advisor/__init__.py", "advisor/hypothetical.py",
                    "advisor/workload.py", "advisor/candidates.py",
-                   "advisor/recommend.py",):
+                   "advisor/recommend.py", "lifecycle/__init__.py",
+                   "lifecycle/change_detector.py", "lifecycle/policy.py",
+                   "lifecycle/cdc.py", "lifecycle/journal.py",
+                   "lifecycle/lease.py", "lifecycle/daemon.py",
+                   "io/watch.py",):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -286,6 +293,62 @@ def test_the_failure_envelope_and_the_advisor_import_no_jax(tmp_path):
         ds = s.read.parquet(data).filter(col("k") == 7).select("k", "v")
         assert ds.collect().num_rows == 1
         assert ds.last_run_report().outcome == "degraded"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_lifecycle_imports_no_jax(tmp_path):
+    """The lifecycle and the source watch load without pyarrow (the
+    journal's history table imports it when called); then a maintenance
+    cycle that refreshes, the history table, the lease and a watcher,
+    each through the port's entry points."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import hyperspace_tpu_torch.lifecycle
+        import hyperspace_tpu_torch.lifecycle.journal as journal
+        import hyperspace_tpu_torch.lifecycle.lease as lease
+        import hyperspace_tpu_torch.lifecycle.daemon
+        import hyperspace_tpu_torch.io.watch as watch
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{"k": np.arange(300), "v": rng.random(300)}}),
+                       os.path.join(data, "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        s.conf.lifecycle_lease_enabled = True
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        pq.write_table(pa.table({{"k": np.arange(300, 310),
+                                 "v": rng.random(10)}}),
+                       os.path.join(data, "part-1.parquet"))
+        recs = hs.maintenance_cycle()
+        assert [(r["decision"], r["mode"], r["outcome"]) for r in recs] == [
+            ("refresh", "full", "done")], recs
+        assert hs.lifecycle_history().num_rows == 2  # acquire, refresh
+        assert lease.status(s.conf)["fresh"]
+        w = watch.SourceWatcher(s.conf, [data], mode="poll").start()
+        w.stop()
+        hs.stop_maintenance()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
