@@ -401,6 +401,22 @@ beside it.
            error of the card inside the daemon's refresh, journaled and
            raised out of the cycle, then the refresh under auto
            recovery.  Prints ``{"lifecycle": ...}``.
+  phase Q  telemetry on the card (after phase P): with the timeline and
+           tracing on, one SF1 spill build of ``li_tel`` and phase D's
+           seven queries.  The build's ``exec.kernel.route_partition``
+           seam must count one sample per launch of its chunks, its
+           summed CUDA-event ms lie between the launches times the
+           kernels line's chunk ``kernel_ms`` (hash plus histogram,
+           checked after the timing) and the report's ``spill_route``
+           seconds; ``export_timeline`` must write Perfetto JSON with a
+           ``device:0`` lane and a memory counter track,
+           ``perf_history()`` must hold the build's row and
+           ``metrics_text()`` must parse as Prometheus text.  With the
+           timeline off, ``torch.profiler`` over the queries must see no
+           ``cudaEventRecord`` or ``cudaEventSynchronize`` (and, on, see
+           them).  Then Q_PAIRS interleaved off/on pairs of the build and
+           of the queries give the overhead, printed, not gated.  Prints
+           ``{"telemetry": ...}`` with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -429,12 +445,13 @@ H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
-``O rerun``, phase P's ``P lifecycle``), the integrity JSON (phase I),
-the Z-order JSON (phase J), the window JSON (phase K), the
-plan-language JSON (phase L), the SQL JSON (phase M), the envelope JSON
-(phase N), the advisor JSON (phase O) and the lifecycle JSON (phase P),
-each of the last three with the card's name and power limit, the card's
-name and power limit, and ``{"ok": true, "device": ...}``.
+``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``), the
+integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
+(phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
+envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
+(phase P) and the telemetry JSON (phase Q), each of the last four with
+the card's name and power limit, the card's name and power limit, and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -477,11 +494,12 @@ AGG_RTOL = 1e-9
 # The slice's device programs, timed by name in the profiled run.
 AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
                 "_topk_groups")
-TIMED_QUERY_RUNS = 3
-# Phase G times its hybrid and clean queries and scans over two collects
-# each (three before phase K was added), which keeps the script's
-# command time under 750 s on the slower card hosts.
-G_TIMED_RUNS = 2
+# Two timed runs per variant of phase D (and phase I), one of phase G's
+# hybrid and clean queries and scans and of phase K's shapes: with phase
+# Q added, what keeps the whole script well inside its time limit on the
+# slower card hosts.
+TIMED_QUERY_RUNS = 2
+G_TIMED_RUNS = 1
 # The cold and the resident thresholds of the host route: more rows than
 # any query has, so every filter, join kernel and aggregate runs on the
 # host, resident columns or not.
@@ -541,7 +559,7 @@ J_LAUNCHES = {                  # hash, histogram per Z-order step
 SF10_Z_INDEX = "sf10_z"         # bench.py's sf10_z (bench.py:512-526)
 ZORDER_SAMPLE = 64              # SF10: codes checked on 1 row in 64
 # Phase K: the analytic operators over phase C's lineitem and li_idx.
-K_RUNS = 2                      # timed runs of each step-1 shape
+K_RUNS = 1                      # timed runs of each step-1 shape
 # A float running sum is a difference of prefix sums over the whole
 # sorted table (up to sum |x|, about 3e10 at SF1), so it is held to
 # K_PREFIX_RTOL * sum |x| absolute: the prefixes' rounding (about
@@ -589,6 +607,9 @@ M_PLAN_EXCEPTIONS = frozenset({"strings_matches", "not_in_null"})
 M_EXPLAINED = ("q12", "q21_shape", "year_1995")
 M_RULES = ("JoinIndexRule", "FilterIndexRule", "BucketPruneRule",
            "DataSkippingFilterRule")
+Q_INDEX = "li_tel"               # phase Q's SF1 spill build
+Q_PAIRS = 5                     # interleaved timeline off/on pairs
+Q_EVENT_CALLS = ("cudaEventRecord", "cudaEventSynchronize")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -5002,6 +5023,265 @@ def phase_p(orders: dict, li: dict, root: str, dev) -> dict:
     return out
 
 
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"\})? '
+    r'(-?[0-9.]+(?:[eE][-+]?[0-9]+)?|[-+]?Inf|NaN)( # .*)?$')
+
+
+def prometheus_families(text: str) -> dict:
+    """family -> type of a Prometheus text exposition, raising on a line
+    that is neither a well-formed HELP/TYPE comment nor a sample of a
+    family whose TYPE came before it."""
+    kinds: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            if len(line.split(" ", 3)) < 4:
+                raise AssertionError(f"phase Q: bad HELP line {line!r}")
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            if kind not in ("counter", "gauge", "histogram"):
+                raise AssertionError(f"phase Q: bad TYPE line {line!r}")
+            kinds[name] = kind
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"phase Q: bad sample line {line!r}")
+        name = m.group(1)
+        family = re.sub(r"_(bucket|sum|count)$", "", name) \
+            if name not in kinds else name
+        if family not in kinds:
+            raise AssertionError(f"phase Q: sample {name} before its TYPE")
+    return kinds
+
+
+def q_event_calls(dev, queries: dict) -> dict:
+    """Each query once under ``torch.profiler``: the host calls of
+    Q_EVENT_CALLS it made (by prefix: CUDA 12's runtime records through
+    ``cudaEventRecordWithFlags``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ds in queries.values():
+            ds.collect()
+    counts = {name: 0 for name in Q_EVENT_CALLS}
+    for e in prof.events():
+        for name in Q_EVENT_CALLS:
+            if e.name.startswith(name):
+                counts[name] += 1
+    return counts
+
+
+def phase_q(orders: dict, li: dict, root: str, dev) -> dict:
+    """Telemetry on the card (see the module docstring): a traced SF1
+    spill build and phase D's queries with the timeline on, their seams,
+    export, ledger and exposition checked; the profiler's view of the
+    seams off and on; then Q_PAIRS interleaved off/on pairs of the build
+    and of the queries."""
+    from hyperspace_tpu_torch import HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import metrics, timeline, trace
+
+    t_phase = time.perf_counter()
+    src = os.path.join(root, "lineitem")
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    session.enable_hyperspace()
+    queries = build_queries(session, root, aggregates=True)
+    for name, ds in queries.items():
+        scans = sorted(n for n, _ in index_scans(ds.optimized_plan()))
+        if scans != query_indexes(name):
+            raise AssertionError(f"phase Q {name}: plan scans {scans}, "
+                                 f"expected {query_indexes(name)}")
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
+    sink = trace.add_sink(trace.CollectingTraceSink())
+    n_build = [0]
+
+    def build(on: bool):
+        """One SF1 spill build of Q_INDEX into a fresh system path."""
+        n_build[0] += 1
+        hs = spill_session(dev, os.path.join(root, f"q_tel_{n_build[0]}"))
+        (timeline.enable_timeline if on else timeline.disable_timeline)()
+        (trace.enable_tracing if on else trace.disable_tracing)()
+        try:
+            return hs, timed_build(dev, f"Q build {'on' if on else 'off'}",
+                                   hs, lambda: hs.create_index(
+                                       hs.session.read.parquet(src),
+                                       IndexConfig(Q_INDEX, INDEXED,
+                                                   INCLUDED)),
+                                   -(-N_LINEITEM // DEFAULT_BATCH_ROWS))
+        finally:
+            timeline.disable_timeline()
+            trace.disable_tracing()
+
+    try:
+        # 1. The checked run: one build and every query, timeline on.
+        device_cache().clear()
+        timeline.reset()
+        metrics.reset()
+        kernels.reset_launch_counts()
+        hs, checked = build(True)
+        sink.reset()
+        timeline.enable_timeline()
+        trace.enable_tracing()
+        try:
+            for name, ds in queries.items():
+                want, keys = expected[name]
+                require_rows(f"phase Q {name}", ds.collect(), want, keys,
+                             AGG_RTOL if name in AGG_QUERIES else 0.0)
+                check_routes("timeline on", name, "device",
+                             session.last_execution_stats)
+        finally:
+            timeline.disable_timeline()
+            trace.disable_tracing()
+        launches = kernels.launch_counts()
+        snap = metrics.snapshot()
+        route = snap.get("exec.kernel.route_partition.device_ms")
+        # One seam per chunk; on the card timed_build held each kernel to
+        # one launch per chunk.
+        chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+        if not isinstance(route, dict) or route["count"] != chunks:
+            raise AssertionError(f"phase Q: route_partition seam samples "
+                                 f"{route}, chunks {chunks}")
+        spill_route_ms = checked["report"]["phases_s"]["spill_route"] * 1e3
+        if not 0 < route["sum"] <= spill_route_ms:
+            raise AssertionError(f"phase Q: route seams {route['sum']} ms "
+                                 f"against spill_route {spill_route_ms} ms")
+        seams = {k[len("exec.kernel."):-len(".device_ms")]:
+                 {"count": v["count"], "sum_ms": v["sum"],
+                  "max_ms": v["max"]}
+                 for k, v in snap.items() if k.startswith("exec.kernel.")}
+        for seam in ("filter", "join", "join_agg", "aggregate"):
+            if seam not in seams:
+                raise AssertionError(f"phase Q: no {seam} seam in {seams}")
+        path = os.path.join(root, "q_timeline.json")
+        hs.export_timeline(path)
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        lanes = sorted({e["args"]["name"] for e in events if e["ph"] == "M"})
+        memory = [e for e in events
+                  if e["ph"] == "C" and e["name"] == "memory"]
+        lane = f"device:{dev.index or 0}" if dev.type == "cuda" \
+            else "device:-1"
+        if lane not in lanes or not memory:
+            raise AssertionError(f"phase Q: exported lanes {lanes}, "
+                                 f"{len(memory)} memory samples")
+        if dev.type == "cuda" \
+                and max(e["args"]["device_live_mb"] for e in memory) <= 0:
+            raise AssertionError("phase Q: no card memory sampled")
+        history = hs.perf_history(index=Q_INDEX)
+        if history.column("name").to_pylist() != [f"CreateAction({Q_INDEX})"]:
+            raise AssertionError(f"phase Q: perf_history "
+                                 f"{history.column('name').to_pylist()}")
+        ledger = json.loads(history.column("recordJson")[0].as_py())
+        families = prometheus_families(hs.metrics_text())
+        if families.get("hyperspace_exec_kernel_route_partition_device_ms") \
+                != "histogram":
+            raise AssertionError("phase Q: no route_partition histogram in "
+                                 "the exposition")
+        # One query.collect root per query (the bucketed join's worker
+        # threads deliver their own roots beside them).
+        traced = [r for r in sink.spans if r.name == "query.collect"]
+        if len(traced) != len(queries):
+            raise AssertionError(f"phase Q: {len(traced)} traced queries")
+        # 2. The seams' events under the profiler, off then on.
+        events_off = q_event_calls(dev, queries)
+        timeline.enable_timeline()
+        try:
+            events_on = q_event_calls(dev, queries)
+        finally:
+            timeline.disable_timeline()
+        if any(events_off.values()) or not all(events_on.values()):
+            raise AssertionError(f"phase Q: event calls off {events_off}, "
+                                 f"on {events_on}")
+        # 3. The overhead: interleaved off/on pairs, queries warm.
+        walls: dict = {"build_off_s": [], "build_on_s": [],
+                       "queries_off_ms": [], "queries_on_ms": []}
+        for _ in range(Q_PAIRS):
+            for on in (False, True):
+                _hs, b = build(on)
+                walls["build_on_s" if on else "build_off_s"].append(
+                    b["wall_s"])
+                shutil.rmtree(_hs.session.conf.system_path,
+                              ignore_errors=True)
+        for ds in queries.values():
+            ds.collect()  # warm: every pair reads resident columns
+        for _ in range(Q_PAIRS):
+            for on in (False, True):
+                (timeline.enable_timeline if on
+                 else timeline.disable_timeline)()
+                (trace.enable_tracing if on else trace.disable_tracing)()
+                try:
+                    ms = sum(wall_ms(ds.collect) for ds in queries.values())
+                finally:
+                    timeline.disable_timeline()
+                    trace.disable_tracing()
+                walls["queries_on_ms" if on else "queries_off_ms"].append(ms)
+                sink.reset()
+    finally:
+        trace.remove_sink(sink)
+        timeline.disable_timeline()
+        trace.disable_tracing()
+        timeline.reset()
+        device_cache().clear()
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    return {"launches": launches, "build_launches": checked["launches"],
+            "build": {k: v for k, v in checked.items() if k != "report"},
+            "build_report": checked["report"],
+            "route_partition_seam_ms": route["sum"],
+            "route_partition_seams": route["count"],
+            "spill_route_ms": spill_route_ms, "seams": seams,
+            "exported_events": len(events), "exported_lanes": lanes,
+            "memory_samples": len(memory),
+            "ledger_keys": sorted(ledger), "families": len(families),
+            "event_calls_off": events_off, "event_calls_on": events_on,
+            "walls": walls, "medians": med,
+            "build_on_over_off": med["build_on_s"] / med["build_off_s"],
+            "queries_on_over_off":
+                med["queries_on_ms"] / med["queries_off_ms"],
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def q_check_seams(q: dict, rows: list) -> dict:
+    """The route seams' summed ms against the kernels line: at least the
+    build's launches times the chunk-shape kernel_ms of the hash and the
+    histogram.  Returns the floor and both chunk times."""
+    chunk = {}
+    for r in rows:
+        for shape in r["shapes"]:
+            if shape["shape"]["n"] == DEFAULT_BATCH_ROWS:
+                chunk[r["name"]] = shape["kernel_ms"]
+    floor = sum(q["build_launches"][name] * ms for name, ms in chunk.items())
+    if not floor <= q["route_partition_seam_ms"]:
+        raise AssertionError(f"phase Q: route seams "
+                             f"{q['route_partition_seam_ms']} ms below the "
+                             f"kernels' {floor} ms")
+    return {"chunk_kernel_ms": chunk, "seam_floor_ms": floor}
+
+
+def print_telemetry(q: dict) -> None:
+    med = q["medians"]
+    print(f"phase Q: {q['route_partition_seams']} route_partition seams "
+          f"{q['route_partition_seam_ms']:.3f} ms (spill_route "
+          f"{q['spill_route_ms']:.1f} ms), seams {json.dumps(q['seams'])}; "
+          f"export {q['exported_events']} events, lanes "
+          f"{q['exported_lanes']}, {q['memory_samples']} memory samples; "
+          f"{q['families']} metric families; event calls off "
+          f"{json.dumps(q['event_calls_off'])} on "
+          f"{json.dumps(q['event_calls_on'])}; build off/on "
+          f"{med['build_off_s']:.3f}/{med['build_on_s']:.3f} s "
+          f"({q['build_on_over_off']:.3f}x), queries off/on "
+          f"{med['queries_off_ms']:.1f}/{med['queries_on_ms']:.1f} ms "
+          f"({q['queries_on_over_off']:.3f}x) ({q['phase_s']:.3f} s)",
+          flush=True)
+
+
 def print_lifecycle(p: dict) -> None:
     print(f"phase P: lifecycle checked, {len(p['cycles'])} cycles, detect "
           f"{p['detect_ms']:.1f} ms, staleness {p['staleness_s']:.3f} s, "
@@ -5678,6 +5958,8 @@ def main() -> int:
         print_advisor(advisor)
         lifecycle = phase_p(orders, li, root, dev)
         print_lifecycle(lifecycle)
+        telemetry = phase_q(orders, li, root, dev)
+        print_telemetry(telemetry)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -5715,7 +5997,8 @@ def main() -> int:
                "N envelope": envelope["launches"],
                "O apply": advisor["launches"],
                "O rerun": advisor["launches_rerun"],
-               "P lifecycle": lifecycle["launches"]}
+               "P lifecycle": lifecycle["launches"],
+               "Q telemetry": telemetry["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -5724,6 +6007,7 @@ def main() -> int:
            for s in r["shapes"] if s["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
+    telemetry.update(q_check_seams(telemetry, rows))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -5746,6 +6030,7 @@ def main() -> int:
     print(json.dumps({"envelope": {**envelope, "card": smi}}))
     print(json.dumps({"advisor": {**advisor, "card": smi}}))
     print(json.dumps({"lifecycle": {**lifecycle, "card": smi}}))
+    print(json.dumps({"telemetry": {**telemetry, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

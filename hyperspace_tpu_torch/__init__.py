@@ -34,6 +34,8 @@ the reference; this package imports nothing of it, and no ``jax``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from hyperspace_tpu_torch.actions.optimize import OptimizeSummary
+from hyperspace_tpu_torch.actions.refresh import RefreshSummary
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.dataset import Dataset
 from hyperspace_tpu_torch.exceptions import HyperspaceError
@@ -71,6 +73,8 @@ __all__ = [
     "IndexConfig",
     "DataSkippingIndexConfig",
     "Dataset",
+    "RefreshSummary",
+    "OptimizeSummary",
     "col",
     "lit",
     "when",

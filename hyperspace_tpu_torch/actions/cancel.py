@@ -13,9 +13,11 @@ import copy
 from hyperspace_tpu_torch.actions.base import Action
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.log_entry import States
+from hyperspace_tpu_torch.telemetry.events import CancelActionEvent
 
 
 class CancelAction(Action):
+    event_class = CancelActionEvent
     def validate(self) -> None:
         if self.previous_log_entry is None:
             raise HyperspaceError("Cancel: index does not exist")

@@ -57,9 +57,9 @@ read, written and spilled, to the action's build report.
 
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
-``_write_table_bucketed``.  Not ported: the mesh and multi-host builds
-and the telemetry beyond the build report.  pyarrow is imported when a
-function runs.
+``_write_table_bucketed``.  Each source file read is an ``io.read``
+span.  Not ported: the mesh and multi-host builds.  pyarrow is imported
+when a function runs.
 """
 
 from __future__ import annotations
@@ -110,6 +110,8 @@ from hyperspace_tpu_torch.ops.sort import (
 )
 from hyperspace_tpu_torch.ops.zorder import key64_to_codes, zorder_sort
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
+from hyperspace_tpu_torch.telemetry.events import CreateActionEvent
+from hyperspace_tpu_torch.telemetry.trace import span
 from hyperspace_tpu_torch.utils.resolver import resolve_or_raise
 
 DATA_FILE_ID_COLUMN = "_data_file_id"  # the lineage column
@@ -422,7 +424,9 @@ class CreateActionBase(Action):
         import pyarrow as pa
 
         t0 = time.perf_counter()
-        t = read_file(f.name, columns)
+        with span("io.read", files=1, format="parquet") as sp:
+            t = read_file(f.name, columns)
+            sp.set(rows=t.num_rows, bytes=t.nbytes)
         self._phase("read_s", time.perf_counter() - t0)
         self.build_report.add_bytes(read=t.nbytes)
         missing = [c for c in columns if c not in t.column_names]
@@ -1088,6 +1092,7 @@ class _BucketSpill:
 
 
 class CreateAction(CreateActionBase):
+    event_class = CreateActionEvent
     transient_state = States.CREATING
     final_state = States.ACTIVE
 

@@ -39,6 +39,10 @@ from hyperspace_tpu_torch.index.log_entry import (
     States,
 )
 from hyperspace_tpu_torch.io import integrity
+from hyperspace_tpu_torch.telemetry.events import (
+    CreateActionEvent,
+    RefreshActionEvent,
+)
 from hyperspace_tpu_torch.utils.resolver import resolve_or_raise
 
 # Sketch-table metadata columns (underscored like the lineage column).
@@ -268,6 +272,7 @@ def read_sketch(entry: IndexLogEntry):
 
 
 class CreateDataSkippingAction(CreateActionBase):
+    event_class = CreateActionEvent
     transient_state = States.CREATING
     final_state = States.ACTIVE
 
@@ -361,6 +366,7 @@ class RefreshDataSkippingAction(CreateDataSkippingAction):
     the same row."""
 
     transient_state = States.REFRESHING
+    event_class = RefreshActionEvent
 
     def __init__(self, log_manager, data_manager, session,
                  previous: Optional[IndexLogEntry] = None) -> None:
@@ -377,6 +383,15 @@ class RefreshDataSkippingAction(CreateDataSkippingAction):
         super().__init__(log_manager, data_manager, session, plan, config)
         self._previous_entry = prev
         self._file_id_tracker = FileIdTracker.from_log_entry(prev)
+
+    def _rebase(self) -> None:
+        """After a conflict, sketch against the stable entry the winning
+        writer committed (``RefreshActionBase._rebase``'s contract)."""
+        super()._rebase()
+        stable = self.log_manager.get_latest_stable_log()
+        if stable is not None:
+            self._previous_entry = stable
+            self._file_id_tracker = FileIdTracker.from_log_entry(stable)
 
     def _changed_files(self):
         from hyperspace_tpu_torch.lifecycle.change_detector import diff_file_sets

@@ -50,6 +50,7 @@ from hyperspace_tpu_torch.io.parquet import (
     write_bucket_run,
     write_zorder_run,
 )
+from hyperspace_tpu_torch.telemetry.events import OptimizeActionEvent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +72,7 @@ class OptimizeSummary:
 
 
 class OptimizeAction(Action):
+    event_class = OptimizeActionEvent
     transient_state = States.OPTIMIZING
     final_state = States.ACTIVE
 

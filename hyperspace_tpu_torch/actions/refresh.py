@@ -53,6 +53,7 @@ from hyperspace_tpu_torch.lifecycle.change_detector import (
     diff_file_sets,
     recorded_scan,
 )
+from hyperspace_tpu_torch.telemetry.events import RefreshActionEvent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,7 @@ class RefreshSummary:
 
 
 class RefreshActionBase(CreateActionBase):
+    event_class = RefreshActionEvent
     transient_state = States.REFRESHING
     final_state = States.ACTIVE
     mode_name = "full"
@@ -135,6 +137,16 @@ class RefreshActionBase(CreateActionBase):
 
     def log_entry_for_begin(self) -> IndexLogEntry:
         return copy.deepcopy(self._previous_entry)
+
+    def _rebase(self) -> None:
+        """After a conflict, diff and merge against the stable entry the
+        winning writer committed, not the one captured at construction:
+        the retry must not index files the winner already covered."""
+        super()._rebase()
+        stable = self.log_manager.get_latest_stable_log()
+        if stable is not None:
+            self._previous_entry = stable
+            self._file_id_tracker = FileIdTracker.from_log_entry(stable)
 
 
 class RefreshAction(RefreshActionBase):

@@ -6,9 +6,11 @@ from __future__ import annotations
 from hyperspace_tpu_torch.actions.base import Action
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, States
+from hyperspace_tpu_torch.telemetry.events import RestoreActionEvent
 
 
 class RestoreAction(Action):
+    event_class = RestoreActionEvent
     transient_state = States.RESTORING
     final_state = States.ACTIVE
 

@@ -9,9 +9,11 @@ from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
 from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, States
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+from hyperspace_tpu_torch.telemetry.events import VacuumActionEvent
 
 
 class VacuumAction(Action):
+    event_class = VacuumActionEvent
     transient_state = States.VACUUMING
     final_state = States.DOESNOTEXIST
 

@@ -13,8 +13,9 @@ process.  Its one mutation is the quarantine (index/quarantine.py): a
 damaged file is quarantined (idempotently); a full pass releases a
 quarantined file that verifies clean and drops the records of files no
 current entry references.  The per-file report comes back as an arrow
-table (file, status, detail, quarantined).  Not ported: the
-``IndexScrubEvent`` telemetry.
+table (file, status, detail, quarantined), and each pass emits an
+``IndexScrubEvent`` (files checked and flagged; the ``scrub.*``
+counters).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from hyperspace_tpu_torch.index.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.index.quarantine import QuarantineManager
 from hyperspace_tpu_torch.io import integrity
+from hyperspace_tpu_torch.telemetry.events import IndexScrubEvent, emit_event
 
 STATUS_OK = "ok"
 STATUS_UNKNOWN = "unknown"          # no digest to check (full mode)
@@ -104,12 +106,15 @@ class VerifyIndexAction:
         already = self.quarantine.paths()
         rows: List[Dict] = []
         referenced = set()
-        for f in entry.content.file_infos():
+        infos = entry.content.file_infos()
+        flagged = 0
+        for f in infos:
             referenced.add(f.name)
             res = self._check_file(f)
             status = res["status"]
             quarantined = f.name in already
             if status in _FLAGGED:
+                flagged += 1
                 if not quarantined:
                     self.quarantine.add(f.name, f"scrub[{self.mode}]: "
                                                 f"{status}", size=f.size)
@@ -130,6 +135,11 @@ class VerifyIndexAction:
             # intersect with the entry's content, but noise in reports.
             for stale in already - referenced:
                 self.quarantine.remove(stale)
+        emit_event(IndexScrubEvent(
+            index_name=entry.name, mode=self.mode,
+            files_checked=len(infos), files_flagged=flagged,
+            message=f"scrub[{self.mode}] {entry.name}: "
+                    f"{flagged}/{len(infos)} flagged"))
         return pa.table({
             "file": pa.array([r["file"] for r in rows], type=pa.string()),
             "status": pa.array([r["status"] for r in rows],

@@ -26,6 +26,7 @@ import re
 from typing import Any, Dict, List, Tuple
 
 from hyperspace_tpu_torch.plan.nodes import Scan, ScanRelation
+from hyperspace_tpu_torch.telemetry import metrics
 
 
 @dataclasses.dataclass
@@ -157,4 +158,5 @@ def score_candidates(session, candidates: List[Candidate],
                 est_scan /= num_buckets
             benefit += hits * max(0.0, measured - est_scan)
         cand.est_benefit_bytes = benefit
+        metrics.inc("advisor.candidates_scored")
     return sorted(candidates, key=lambda c: (-c.score, c.name))

@@ -37,6 +37,8 @@ from hyperspace_tpu_torch.index.log_entry import (
     States,
 )
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
+from hyperspace_tpu_torch.telemetry import metrics
+from hyperspace_tpu_torch.telemetry.trace import span
 from hyperspace_tpu_torch.utils.resolver import resolve_or_raise
 
 
@@ -250,27 +252,31 @@ def whatif(session, dataset_or_plan, candidates: Sequence) -> WhatIfReport:
                 f"whatif() candidates are IndexConfig or hypothetical "
                 f"IndexLogEntry, got {type(c).__name__}")
     hypo_by_name = {e.name: e for e in entries}
-    was_enabled = session.is_hyperspace_enabled()
-    try:
-        session.enable_hyperspace()
-        plan_before = session.optimize(plan)
-        plan_after = session.optimize(plan, hypothetical=entries)
-    finally:
-        if not was_enabled:
-            session.disable_hyperspace()
-    before_total, before_detail = estimate_plan_bytes(session, plan_before)
-    after_total, after_detail = estimate_plan_bytes(
-        session, plan_after, hypo_by_name)
-    used = sorted({s.relation.index_scan_of
-                   for s in plan_after.leaf_relations()
-                   if s.relation.hypothetical and s.relation.index_scan_of})
-    return WhatIfReport(
-        hypothetical=sorted(hypo_by_name),
-        hypothetical_used=used,
-        plan_before=plan_before.tree_string(),
-        plan_after=plan_after.tree_string(),
-        est_bytes_before=before_total,
-        est_bytes_after=after_total,
-        detail_before=before_detail,
-        detail_after=after_detail,
-    )
+    with span("advisor.whatif", candidates=len(entries)):
+        metrics.inc("advisor.whatif.runs")
+        was_enabled = session.is_hyperspace_enabled()
+        try:
+            session.enable_hyperspace()
+            plan_before = session.optimize(plan)
+            plan_after = session.optimize(plan, hypothetical=entries)
+        finally:
+            if not was_enabled:
+                session.disable_hyperspace()
+        before_total, before_detail = estimate_plan_bytes(session,
+                                                          plan_before)
+        after_total, after_detail = estimate_plan_bytes(
+            session, plan_after, hypo_by_name)
+        used = sorted({s.relation.index_scan_of
+                       for s in plan_after.leaf_relations()
+                       if s.relation.hypothetical
+                       and s.relation.index_scan_of})
+        return WhatIfReport(
+            hypothetical=sorted(hypo_by_name),
+            hypothetical_used=used,
+            plan_before=plan_before.tree_string(),
+            plan_after=plan_after.tree_string(),
+            est_bytes_before=before_total,
+            est_bytes_after=after_total,
+            detail_before=before_detail,
+            detail_after=after_detail,
+        )

@@ -18,6 +18,7 @@ from hyperspace_tpu_torch.advisor import candidates as _cand
 from hyperspace_tpu_torch.advisor import workload as _workload
 from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.index.log_entry import States
+from hyperspace_tpu_torch.telemetry.trace import span
 
 
 def scored_candidates(session) -> List[_cand.Candidate]:
@@ -32,7 +33,8 @@ def recommend_indexes(session, top_k: int = 5):
     """The ranked recommendation table (``Hyperspace.recommend_indexes``)."""
     import pyarrow as pa
 
-    ranked = scored_candidates(session)[:max(0, int(top_k))]
+    with span("advisor.recommend", top_k=top_k):
+        ranked = scored_candidates(session)[:max(0, int(top_k))]
     return pa.table({
         "candidate": [c.name for c in ranked],
         "relation": [",".join(c.roots) for c in ranked],
@@ -93,14 +95,15 @@ def apply_recommendations(session, top_k: int = 1,
     from hyperspace_tpu_torch.dataset import Dataset
 
     built: List[str] = []
-    for cand in scored_candidates(session)[:max(0, int(top_k))]:
-        if min_score is not None and cand.score < min_score:
-            continue
-        if _already_covered(session, cand):
-            continue
-        name = _unique_name(session, cand.name)
-        ds = Dataset(cand.source_scan(), session)
-        session.index_collection_manager.create(
-            ds, IndexConfig(name, cand.indexed, cand.included))
-        built.append(name)
+    with span("advisor.apply", top_k=top_k):
+        for cand in scored_candidates(session)[:max(0, int(top_k))]:
+            if min_score is not None and cand.score < min_score:
+                continue
+            if _already_covered(session, cand):
+                continue
+            name = _unique_name(session, cand.name)
+            ds = Dataset(cand.source_scan(), session)
+            session.index_collection_manager.create(
+                ds, IndexConfig(name, cand.indexed, cand.included))
+            built.append(name)
     return built

@@ -17,8 +17,9 @@ At most ``conf.advisor_capture_max_entries`` shapes are kept; new ones
 past the cap are dropped.
 
 Capture never fails a query: ``capture`` catches its own errors, after
-the answer exists; an ``InjectedCrash`` still propagates.  Not ported:
-the capture's spans and metrics.
+the answer exists (counted in ``advisor.capture.errors``); an
+``InjectedCrash`` still propagates.  Each capture is an
+``advisor.capture`` span counted in ``advisor.queries_captured``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ from hyperspace_tpu_torch.plan.expr import (
     split_conjuncts,
 )
 from hyperspace_tpu_torch.plan.nodes import Aggregate, Filter, Join, LogicalPlan
+from hyperspace_tpu_torch.telemetry import metrics
+from hyperspace_tpu_torch.telemetry.trace import span
 
 WORKLOAD_DIR = "_hyperspace_workload"
 RECORD_VERSION = 1
@@ -192,9 +195,11 @@ def capture(session, plan: LogicalPlan, report,
             result_rows: Optional[int] = None) -> None:
     """Record one executed query; never raises an ``Exception``."""
     try:
-        _capture_inner(session, plan, report, result_rows)
+        with span("advisor.capture"):
+            _capture_inner(session, plan, report, result_rows)
+            metrics.inc("advisor.queries_captured")
     except Exception:  # noqa: BLE001 - capture never costs an answer
-        pass
+        metrics.inc("advisor.capture.errors")
 
 
 def _capture_inner(session, plan, report, result_rows) -> None:
@@ -277,6 +282,7 @@ def _flush_locked(conf, key: str, p: _Pending) -> None:
         data, gen = store.read_with_generation(key)
         if data is None:
             if len(store.list_keys()) >= int(conf.advisor_capture_max_entries):
+                metrics.inc("advisor.capture.dropped")
                 p.dropped = True
                 return
             rec = _new_record(p, p.hits, p.bytes_total, p.duration_ms_total)
@@ -299,6 +305,7 @@ def _flush_locked(conf, key: str, p: _Pending) -> None:
                 p.hits = p.bytes_total = 0
                 p.duration_ms_total = 0.0
                 return
+    metrics.inc("advisor.capture.cas_giveup")
 
 
 def flush_pending(conf) -> None:

@@ -2,7 +2,8 @@
 holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
-index lifecycle and the source watch; defaults are the JAX package's).
+index lifecycle, the source watch, the transaction loop and telemetry;
+defaults are the JAX package's).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -82,8 +83,35 @@ class HyperspaceConf:
     # every kind, None calibrates one per kind.
     device_resident_min_rows: Optional[int] = None
     # Build reports (telemetry/build_report.py): off keeps the phase
-    # seconds and bytes but skips the memory sampling.
+    # seconds and bytes but skips the memory sampling, the metric and
+    # span export and the perf-ledger append.
     build_profiling_enabled: bool = True
+    # The optimistic transaction loop (actions/base.py): on a write
+    # conflict a manager-dispatched action rebases on the winner's log
+    # entry and retries after a jittered backoff (the io_retry_* delays),
+    # up to this many extra attempts (0: the first conflict raises).
+    concurrency_max_retries: int = 3
+    # Telemetry (telemetry/; docs/16-observability.md):
+    #   - event_logger: a registered logger name or a dotted class path
+    #     (telemetry/events.py); "" keeps the no-op logger;
+    #   - tracing: per-query and per-action span trees, and a JSONL file
+    #     every finished root span is appended to, rotated past max bytes
+    #     (0: unbounded);
+    #   - timeline: build phases, executor operators and the device
+    #     programs' CUDA-event seams as intervals in a bounded ring, and a
+    #     memory sampler during actions at the cadence (0: no sampler);
+    #     off, each seam costs one bool check and no torch.cuda call;
+    #   - perf ledger: one record per action under
+    #     <systemPath>/_hyperspace_perf, the oldest pruned past the cap.
+    event_logger: str = ""
+    telemetry_tracing_enabled: bool = False
+    telemetry_trace_sink: str = ""
+    telemetry_trace_max_bytes: int = 256 << 20
+    timeline_enabled: bool = False
+    timeline_max_intervals: int = 8192
+    timeline_memory_sample_ms: float = 25.0
+    perf_ledger_enabled: bool = True
+    perf_ledger_max_entries: int = 2048
     # The integrity loop (io/integrity.py, actions/verify.py,
     # index/quarantine.py, actions/repair.py):
     #   - digest on write: hash every index data file as it lands and

@@ -29,11 +29,15 @@ damage (the JAX package's execution-time containment), with
     failed, it runs the query against the source without the indexes.
 
 Each step is recorded in the run report as the JAX package records it:
-the quarantine, a ``degraded`` decision naming the index and the error,
-and the re-plan.  Planning itself degrades too: when optimizing with the
-indexes fails on the index's side (an index whose every file is gone),
-``collect`` records a ``degraded`` decision and a planning-stage
-re-plan, and plans without the indexes.
+the quarantine (and the ``quarantine.files`` counter), an
+``IndexDegradedEvent`` naming the index and the error (which the report
+turns into a ``degraded`` decision), and the re-plan.  Planning itself
+degrades too: when optimizing with the indexes fails on the index's side
+(an index whose every file is gone), ``collect`` emits an
+``IndexDegradedEvent``, records a planning-stage re-plan, and plans
+without the indexes.  ``collect`` is a ``query.collect`` span with
+``execute``, ``containment.probe``, ``execute.replan`` and
+``optimize.replan`` spans under it (telemetry/).
 
 One deliberate narrowing against the JAX package, which takes any
 failure there: only a failure to READ index data starts containment,
@@ -70,7 +74,13 @@ from hyperspace_tpu_torch.plan.nodes import (
     Window,
     WithColumns,
 )
+from hyperspace_tpu_torch.telemetry import metrics
 from hyperspace_tpu_torch.telemetry import report as run_report
+from hyperspace_tpu_torch.telemetry import trace
+from hyperspace_tpu_torch.telemetry.events import (
+    IndexDegradedEvent,
+    emit_event,
+)
 
 
 class GroupedDataset:
@@ -241,21 +251,32 @@ class Dataset:
         (telemetry/report.py) is open while it runs, and is published as
         ``session.last_run_report_value`` (``last_run_report()``)."""
         from hyperspace_tpu_torch.execution.executor import Executor
+        from hyperspace_tpu_torch.telemetry import timeline
 
+        # A conf field set after the session was made still takes effect.
+        trace.configure_from_conf(self.session.conf)
+        timeline.configure_from_conf(self.session.conf)
         token = run_report.start()
+        query_span = None
         try:
-            executor = Executor(self.session)
-            plan = self._plan_degradable()
-            try:
-                out = executor.execute(plan)
-            except Exception as e:  # noqa: BLE001 - _contain re-raises
-                out, executor = self._contain(plan, executor, e)
+            with trace.span("query.collect") as sp:
+                query_span = sp  # the real Span when tracing is on
+                executor = Executor(self.session)
+                plan = self._plan_degradable()
+                try:
+                    with trace.span("execute"):
+                        out = executor.execute(plan)
+                except Exception as e:  # noqa: BLE001 - _contain re-raises
+                    out, executor = self._contain(plan, executor, e)
         except Exception:
             run_report.active().outcome = "error"
             raise
         finally:
             rep = run_report.finish(token)
+            if isinstance(query_span, trace.Span):
+                rep.root_span = query_span
             self.session.last_run_report_value = rep
+        executor.finalize_stats()
         self.session.last_execution_stats = executor.stats
         if self.session.conf.advisor_capture_enabled:
             # The finished report feeds the advisor's workload capture,
@@ -312,11 +333,13 @@ class Dataset:
                     and self.session.conf.degraded_fallback_to_source
                     and is_index_side_error(e)):
                 raise
-            run_report.record("degraded", index="",
-                              reason=f"index-aware planning failed: {e!r}")
+            emit_event(IndexDegradedEvent(
+                reason=f"index-aware planning failed: {e!r}",
+                message="re-planned without index rewrites"))
             run_report.record("replan", mode="source-fallback",
                               stage="planning")
-            return self.optimized_plan(use_indexes=False)
+            with trace.span("optimize.replan", mode="source-fallback"):
+                return self.optimized_plan(use_indexes=False)
 
     def _contain(self, plan: LogicalPlan, failed, error: Exception):
         """(answer, its executor) after ``failed`` raised ``error`` running
@@ -336,21 +359,26 @@ class Dataset:
             raise error
         record = {"error": repr(error), "quarantined": []}
         if conf.integrity_quarantine_on_failure:
-            record["quarantined"] = quarantine_damaged_index_files(
-                self.session, plan)
+            with trace.span("containment.probe") as sp:
+                record["quarantined"] = quarantine_damaged_index_files(
+                    self.session, plan)
+                sp.set(quarantined=len(record["quarantined"]))
         names = index_scans_of(plan)
         if record["quarantined"]:
+            metrics.inc("quarantine.files", len(record["quarantined"]))
             run_report.record("quarantine", index=",".join(names),
                               files=record["quarantined"])
-            run_report.record(
-                "degraded", index=",".join(names),
+            emit_event(IndexDegradedEvent(
+                index_name=",".join(names),
                 reason=f"index scan failed at execution: {error!r}; "
                        f"quarantined {len(record['quarantined'])} damaged "
-                       f"file(s)")
+                       f"file(s)",
+                message="re-planned with damaged buckets read from source"))
             run_report.record("replan", mode="containment", stage="execution")
             executor = Executor(self.session)
             try:
-                out = executor.execute(self.optimized_plan())
+                with trace.span("execute.replan", mode="containment"):
+                    out = executor.execute(self.optimized_plan())
             except Exception as e:  # noqa: BLE001 - re-raised unless a
                 # read error of index files, which the source answers
                 if not (executor.index_read_failures and is_read_error(e)):
@@ -372,11 +400,14 @@ class Dataset:
                             record.setdefault("repair_errors", []).append(
                                 repr(e))
                 return out, executor
-        run_report.record("degraded", index=",".join(names),
-                          reason=f"index scan failed at execution: {error!r}")
+        emit_event(IndexDegradedEvent(
+            index_name=",".join(names),
+            reason=f"index scan failed at execution: {error!r}",
+            message="re-executed against the source scan"))
         run_report.record("replan", mode="source-fallback", stage="execution")
         executor = Executor(self.session)
-        out = executor.execute(self.optimized_plan(use_indexes=False))
+        with trace.span("execute.replan", mode="source-fallback"):
+            out = executor.execute(self.optimized_plan(use_indexes=False))
         record["replan"] = "source-fallback"
         executor.stats["containment"] = record
         return out, executor

@@ -27,9 +27,10 @@ operation reads is resident, the executor compares its rows with
 
 Cached tensors are shared by every later query: no consumer may write
 into one (the query ops only read their inputs and gather from them).
-The JAX package's cache also feeds process metrics
-(``telemetry.metrics``, not ported); here the counters live on the
-object only.
+The cache also feeds the process metrics registry (telemetry/metrics.py):
+``cache.device.hits``, ``.misses`` and ``.evictions`` counters and the
+``cache.device.bytes`` gauge, from which the registry derives
+``cache.device.hit_ratio``.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class ByteBudgetLRU:
 
     _REJECTED_MAX = 4096  # bound the tombstone set; clear it on overflow
 
-    def __init__(self) -> None:
+    def __init__(self, metric_prefix: Optional[str] = None) -> None:
         self._entries: "OrderedDict[object, object]" = OrderedDict()
         self._nbytes: Dict[object, int] = {}
         # Keys whose values did not fit the budget: a caller that routes
@@ -74,19 +75,30 @@ class ByteBudgetLRU:
         # every repeat pays the full upload forever.
         self._rejected: set = set()
         self._lock = threading.Lock()
+        # Counters and the bytes gauge go to the metrics registry under
+        # this prefix, when set.
+        self._prefix = metric_prefix
         self.bytes_cached = 0
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+
+    def _inc(self, name: str) -> None:
+        if self._prefix is not None:
+            from hyperspace_tpu_torch.telemetry import metrics
+
+            metrics.inc(f"{self._prefix}.{name}")
 
     def get(self, key):
         with self._lock:
             value = self._entries.get(key)
             if value is None:
                 self.misses += 1
+                self._inc("misses")
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+            self._inc("hits")
             return value
 
     def contains(self, key) -> bool:
@@ -122,9 +134,14 @@ class ByteBudgetLRU:
                 old_key, _old = self._entries.popitem(last=False)
                 self.bytes_cached -= self._nbytes.pop(old_key)
                 self.evictions += 1
+                self._inc("evictions")
             self._entries[key] = value
             self._nbytes[key] = nbytes
             self.bytes_cached += nbytes
+            if self._prefix is not None:
+                from hyperspace_tpu_torch.telemetry import metrics
+
+                metrics.set_gauge(f"{self._prefix}.bytes", self.bytes_cached)
         return True
 
     def pop(self, key) -> None:
@@ -153,6 +170,9 @@ class ByteBudgetLRU:
 
 class DeviceColumnCache(ByteBudgetLRU):
     """The LRU of device tensors; an entry costs its tensor's bytes."""
+
+    def __init__(self) -> None:
+        super().__init__(metric_prefix="cache.device")
 
     def put(self, key: Key, tensor, budget_bytes: int) -> bool:  # type: ignore[override]
         return super().put(key, tensor,

@@ -163,6 +163,8 @@ from hyperspace_tpu_torch.plan.nodes import (
     WithColumns,
 )
 from hyperspace_tpu_torch.telemetry import report as run_report
+from hyperspace_tpu_torch.telemetry import timeline
+from hyperspace_tpu_torch.telemetry.trace import span
 
 
 class Executor:
@@ -274,6 +276,7 @@ class Executor:
         host = columnar.to_device_numeric(table.column(column))
         tensor = torch.from_numpy(np.require(host, requirements="CW")) \
             .to(self.session.device)
+        timeline.record_transfer("h2d", tensor.nbytes)
         cache.put(key, tensor, self.session.conf.device_cache_bytes)
         return tensor
 
@@ -297,7 +300,46 @@ class Executor:
             return min(min_rows, conf.resident_min_rows(kind, device))
         return min_rows
 
+    def finalize_stats(self) -> None:
+        """Close one query's stats: the peak host RSS and, when the query
+        ran on a CUDA device, the bytes allocated there, into
+        ``stats["memory"]`` and the ``mem.host.peak_rss_mb`` and
+        ``mem.device.live_bytes`` gauges.  Once per collect()."""
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        mem: Dict[str, float] = {}
+        try:
+            import resource
+
+            mem["peak_rss_mb"] = round(
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                / 1024.0, 1)
+            metrics.set_gauge("mem.host.peak_rss_mb", mem["peak_rss_mb"])
+        except Exception:  # noqa: BLE001 - non-POSIX platform
+            pass
+        device = self.session.device
+        touched_device = bool(
+            self.stats.get("device_cache")
+            or any(j.get("strategy", "").startswith("device")
+                   for j in self.stats.get("joins", []))
+            or any(a.get("strategy", "").startswith("device")
+                   for a in self.stats.get("aggregates", [])))
+        if touched_device and device.type == "cuda":
+            live = int(torch.cuda.memory_allocated(device))
+            mem["device_live_bytes"] = live
+            metrics.set_gauge("mem.device.live_bytes", live)
+        if mem:
+            self.stats["memory"] = mem
+
     def execute(self, plan: LogicalPlan):
+        # Each operator is one interval on the timeline's "exec" lane
+        # (one bool check with the timeline off).
+        t0 = timeline.op_begin()
+        out = self._execute_node(plan)
+        timeline.op_end("exec", type(plan).__name__, t0)
+        return out
+
+    def _execute_node(self, plan: LogicalPlan):
         hypothetical = [s.relation.index_scan_of
                         for s in plan.leaf_relations()
                         if s.relation.hypothetical]
@@ -381,6 +423,12 @@ class Executor:
 
     # -- scan ---------------------------------------------------------------
     def _scan(self, plan: Scan, columns: Optional[List[str]] = None):
+        with span("exec.scan") as sp:
+            out = self._scan_inner(plan, columns, sp)
+            sp.set(rows=out.num_rows)
+            return out
+
+    def _scan_inner(self, plan: Scan, columns, sp):
         rel = plan.relation
         if rel.file_paths is not None:
             paths = list(rel.file_paths)
@@ -405,6 +453,7 @@ class Executor:
             "bytes_read": bytes_read,
         }
         self.stats["scans"].append(record)
+        sp.set(**record)
         run_report.record("scan", **record)
         if not paths:
             # Every file pruned: an empty table that keeps the schema, so
@@ -474,8 +523,9 @@ class Executor:
         on_device = table.num_rows >= \
             self.session.conf.device_min_rows("build", device)
         if on_device:
-            ids = bucket_ids([torch.from_numpy(w).to(device) for w in word_cols],
-                             num_buckets).cpu().numpy()
+            uploaded = [torch.from_numpy(w).to(device) for w in word_cols]
+            timeline.record_transfer("h2d", sum(w.nbytes for w in uploaded))
+            ids = bucket_ids(uploaded, num_buckets).cpu().numpy()
         else:
             ids = bucket_ids_np(word_cols, num_buckets)
         self.stats.setdefault("bucket_in", []).append({
@@ -489,21 +539,36 @@ class Executor:
 
         order = sorted(expr.referenced_columns())
         fn, literals = compile_predicate(_normalize_literals(expr, table), order)
-        mask = fn([to_device(self._device_column(table, c, identity, "num"),
-                             self.session.device) for c in order], literals)
+        device = self.session.device
+        cols = [to_device(self._device_column(table, c, identity, "num"),
+                          device) for c in order]
+        t0 = timeline.kernel_begin(device)
+        mask = fn(cols, literals)
+        timeline.kernel_end("filter", t0, mask)
+        timeline.record_transfer("d2h", mask.nbytes)
         return mask.cpu().numpy()
 
     # -- join ---------------------------------------------------------------
     def _join(self, plan: Join, _record: bool = True):
-        bucketed = self._try_bucketed_join(plan)
-        if bucketed is not None:
-            return bucketed
-        if _record:
-            self.stats["joins"].append({"strategy": "plain", "how": plan.how})
-        return self._host_join_tables(self.execute(plan.left),
-                                      self.execute(plan.right),
-                                      plan.condition, plan.how,
-                                      plan.residual)
+        with span("exec.join", how=plan.how) as sp:
+            joins_mark = len(self.stats["joins"])
+            bucketed = self._try_bucketed_join(plan)
+            if bucketed is not None:
+                if len(self.stats["joins"]) > joins_mark:
+                    sp.set(strategy=self.stats["joins"][joins_mark]
+                           .get("strategy"))
+                sp.set(rows=bucketed.num_rows)
+                return bucketed
+            if _record:
+                self.stats["joins"].append({"strategy": "plain",
+                                            "how": plan.how})
+            sp.set(strategy="plain")
+            out = self._host_join_tables(self.execute(plan.left),
+                                         self.execute(plan.right),
+                                         plan.condition, plan.how,
+                                         plan.residual)
+            sp.set(rows=out.num_rows)
+            return out
 
     def _host_join_tables(self, left, right, condition: Expr, how: str,
                           residual: Optional[Expr] = None):
@@ -779,6 +844,7 @@ class Executor:
                     return None
             word_cols.append(torch.from_numpy(np.ascontiguousarray(
                 columnar.to_hash_words(column))).to(self.session.device))
+        timeline.record_transfer("h2d", sum(w.nbytes for w in word_cols))
         ids = bucket_ids(word_cols, num_buckets).cpu().numpy()
         # A stable sort by bucket keeps each bucket's rows in table order.
         order = np.argsort(ids, kind="stable")
@@ -927,14 +993,20 @@ class Executor:
 
     # -- aggregate ----------------------------------------------------------
     def _aggregate(self, plan: Aggregate):
-        attempt = self._try_join_aggregate(plan)
-        if attempt is None:
-            return self._aggregate_on_table(plan, self.execute(plan.child))
-        kind, payload = attempt
-        if kind == "done":
-            return payload
-        # The sides were read for the attempt and joined on the host.
-        return self._aggregate_on_table(plan, payload)
+        with span("exec.aggregate", groups=len(plan.group_by)) as sp:
+            attempt = self._try_join_aggregate(plan)
+            if attempt is None:
+                out = self._aggregate_on_table(plan, self.execute(plan.child))
+            else:
+                kind, payload = attempt
+                if kind == "done":
+                    sp.set(strategy="fused_join_agg", rows=payload.num_rows)
+                    return payload
+                # The sides were read for the attempt and joined on the
+                # host.
+                out = self._aggregate_on_table(plan, payload)
+            sp.set(rows=out.num_rows)
+            return out
 
     def _aggregate_on_table(self, plan: Aggregate, table):
         """Aggregate a table: grouped on the device when

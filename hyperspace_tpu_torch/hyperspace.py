@@ -5,7 +5,9 @@
 advisor's verbs ``whatif``, ``captured_workload``,
 ``clear_captured_workload``, ``recommend_indexes`` and
 ``apply_recommendations``, and the lifecycle's ``maintenance_cycle``,
-``start_maintenance``, ``stop_maintenance`` and ``lifecycle_history``."""
+``start_maintenance``, ``stop_maintenance`` and ``lifecycle_history``,
+and telemetry's ``metrics``, ``metrics_text``, ``reset_metrics``,
+``perf_history`` and ``export_timeline``."""
 
 from __future__ import annotations
 
@@ -176,3 +178,83 @@ class Hyperspace:
         from hyperspace_tpu_torch.telemetry.build_report import last_report
 
         return last_report()
+
+    # -- telemetry (docs/16-observability.md) --------------------------------
+    def perf_history(self, index: str = None, section: str = None,
+                     limit: int = None):
+        """The perf ledger (telemetry/perf_ledger.py) as a pyarrow table,
+        one row per recorded run under ``<systemPath>/_hyperspace_perf``,
+        oldest first: key, kind, name, ts, wallSeconds, outcome,
+        phasesJson, bytesWritten, spillBytes, recordJson.  ``index``
+        keeps that index's action records, ``section`` that bench
+        section's records, ``limit`` the most recent N."""
+        from hyperspace_tpu_torch.telemetry.perf_ledger import history_table
+
+        return history_table(self.session.conf, index=index,
+                             section=section, limit=limit)
+
+    def export_timeline(self, path: str, trace_id: str = None,
+                        ledger_key: str = None) -> str:
+        """Write a Perfetto/Chrome trace-event JSON file to ``path``.
+
+        By default: the live timeline ring (build-phase, executor and
+        ``device:<index>`` kernel lanes and the memory counter track;
+        ``conf.timeline_enabled`` must have been on) and the span tree of
+        this thread's last query when tracing was on.  ``ledger_key``
+        rebuilds the phases of that perf-ledger record instead.
+        ``trace_id`` (a flight-recorder record) is not ported yet and
+        raises."""
+        from hyperspace_tpu_torch.telemetry import timeline
+
+        if trace_id is not None:
+            from hyperspace_tpu_torch.exceptions import HyperspaceError
+
+            raise HyperspaceError(
+                "export_timeline(trace_id=...) reads the flight recorder "
+                "(telemetry/flight_recorder.py), which this package does "
+                "not have yet; export the live ring or a ledger_key")
+        if ledger_key is not None:
+            import json
+
+            from hyperspace_tpu_torch.telemetry import perf_ledger
+            from hyperspace_tpu_torch.telemetry.trace import span
+
+            for rec in perf_ledger.records(self.session.conf):
+                if rec.get("key") == ledger_key:
+                    events = timeline.ledger_to_trace_events(rec)
+                    with span("timeline.export", path=path) as sp:
+                        with open(path, "w", encoding="utf-8") as f:
+                            json.dump({"traceEvents": events,
+                                       "displayTimeUnit": "ms"}, f)
+                        sp.set(events=len(events))
+                    return path
+            raise ValueError(f"no perf-ledger record {ledger_key!r}")
+        roots = []
+        rep = self.session.last_run_report_value
+        if rep is not None and rep.root_span is not None:
+            roots.append(rep.root_span)
+        timeline.export_chrome_trace(path, span_roots=roots)
+        return path
+
+    def metrics(self) -> dict:
+        """A snapshot of the process-wide metrics registry
+        (telemetry/metrics.py): counters such as ``io.retry.attempts``,
+        ``log.cas.conflicts``, ``rule.filter.applied``,
+        ``degraded.fallbacks``, ``exec.device.0.kernel_ms``, histograms
+        such as ``exec.kernel.route_partition.device_ms``, and derived
+        ratios such as ``cache.device.hit_ratio``."""
+        from hyperspace_tpu_torch.telemetry import metrics as m
+
+        return m.snapshot()
+
+    def metrics_text(self) -> str:
+        """The same registry as a Prometheus text exposition."""
+        from hyperspace_tpu_torch.telemetry import metrics as m
+
+        return m.registry().render_prometheus()
+
+    def reset_metrics(self) -> None:
+        """Zero every series."""
+        from hyperspace_tpu_torch.telemetry import metrics as m
+
+        m.reset()

@@ -55,6 +55,28 @@ class IndexConfig:
             raise HyperspaceError(
                 "Duplicate column names in indexed/included columns are not allowed")
 
+    # Case-insensitive equality and hash (IndexConfig.scala:55-66): names
+    # and indexed columns lowered, included columns lowered and sorted.
+    # The generated dataclass pair would be case-sensitive and unhashable
+    # (list fields).
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, IndexConfig):
+            return NotImplemented
+        return (
+            self.index_name.lower() == other.index_name.lower()
+            and [c.lower() for c in self.indexed_columns]
+            == [c.lower() for c in other.indexed_columns]
+            and sorted(c.lower() for c in self.included_columns)
+            == sorted(c.lower() for c in other.included_columns)
+        )
+
+    def __hash__(self) -> int:
+        return hash((
+            self.index_name.lower(),
+            tuple(c.lower() for c in self.indexed_columns),
+            tuple(sorted(c.lower() for c in self.included_columns)),
+        ))
+
     @property
     def all_columns(self) -> List[str]:
         return list(self.indexed_columns) + list(self.included_columns)
@@ -107,3 +129,17 @@ class DataSkippingIndexConfig:
         if bad:
             raise HyperspaceError(
                 f"Unknown sketch type(s) {bad}; expected {SKETCH_TYPES}")
+
+    # The same case-insensitive contract as IndexConfig's.
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, DataSkippingIndexConfig):
+            return NotImplemented
+        return (self.index_name.lower() == other.index_name.lower()
+                and [c.lower() for c in self.sketched_columns]
+                == [c.lower() for c in other.sketched_columns]
+                and self.sketch_types == other.sketch_types)
+
+    def __hash__(self) -> int:
+        return hash((self.index_name.lower(),
+                     tuple(c.lower() for c in self.sketched_columns),
+                     tuple(self.sketch_types)))

@@ -600,6 +600,10 @@ class FileIdTracker:
         self._ids: Dict[Tuple[str, int, int], int] = {}
         self._max_id = -1
 
+    @property
+    def max_id(self) -> int:
+        return self._max_id
+
     def add_file(self, path: str, size: int, mtime: int) -> int:
         key = (path, size, mtime)
         fid = self._ids.get(key)

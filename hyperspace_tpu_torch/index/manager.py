@@ -13,15 +13,19 @@ The failure envelope:
     first rolls back a transient latest entry (a prior action died
     mid-flight): an implicit ``cancel()``;
   - ``get_indexes``, the query path's one way to index metadata, skips
-    an index whose log is unreadable or torn past recovery and records a
-    ``degraded`` decision in the run report (telemetry/report.py), so a
+    an index whose log is unreadable or torn past recovery and emits an
+    ``IndexDegradedEvent`` (a ``degraded`` decision in the run report), so a
     damaged index stops accelerating queries without breaking them; with
     ``conf.degraded_fallback_to_source`` off it raises
     ``DegradedIndexError`` instead.  Only index-side errors degrade
     (``execution.containment.is_index_side_error``): a device or kernel
     error propagates.
 
-Not ported: the conflict-retry settings and pluggable log managers."""
+Every action the manager dispatches is armed with
+``conf.concurrency_max_retries`` and the ``io_retry_*`` backoff, so a
+write conflict rebases and retries (actions/base.py).  A degraded index
+emits an ``IndexDegradedEvent`` (telemetry/events.py).  Not ported:
+pluggable log managers."""
 
 from __future__ import annotations
 
@@ -34,7 +38,10 @@ from hyperspace_tpu_torch.index.log_entry import IndexLogEntry, States
 from hyperspace_tpu_torch.index.log_manager import IndexLogManager
 from hyperspace_tpu_torch.index.statistics import index_statistics_table
 from hyperspace_tpu_torch.io.files import list_dir
-from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.telemetry.events import (
+    IndexDegradedEvent,
+    emit_event,
+)
 from hyperspace_tpu_torch.utils.retry import policy_from_conf
 
 DEFAULT_SYSTEM_DIR = "spark-warehouse/indexes"
@@ -75,6 +82,16 @@ class IndexCollectionManager:
         mgr.configure(self.session.conf)
         return mgr
 
+    def _dispatch(self, action) -> str:
+        """Arm the action's transaction loop from the conf, then run it:
+        a ``ConcurrentWriteError`` rebases, re-validates and retries after
+        a jittered backoff up to ``conf.concurrency_max_retries`` times
+        (actions/base.py).  Returns the run's outcome ("ok" or "noop")."""
+        action.concurrency_max_retries = int(
+            self.session.conf.concurrency_max_retries)
+        action.conflict_backoff = policy_from_conf(self.session.conf)
+        return action.run()
+
     def _maybe_recover(self, name: str) -> None:
         """With ``conf.auto_recovery_enabled``, roll a transient latest
         entry back to the last stable state before a verb runs.  A slow
@@ -87,7 +104,7 @@ class IndexCollectionManager:
         mgr = self._log_manager(name)
         latest = mgr.get_latest_log()
         if latest is not None and latest.state not in States.STABLE:
-            CancelAction(mgr).run()
+            self._dispatch(CancelAction(mgr))
 
     def _data_manager(self, name: str) -> IndexDataManager:
         # Deleting a version (vacuum) drops its quarantine records too.
@@ -126,32 +143,33 @@ class IndexCollectionManager:
         self._maybe_recover(config.index_name)
         cls = CreateDataSkippingAction \
             if isinstance(config, DataSkippingIndexConfig) else CreateAction
-        cls(self._log_manager(config.index_name),
-            self._data_manager(config.index_name),
-            self.session, dataset.plan, config).run()
+        self._dispatch(cls(self._log_manager(config.index_name),
+                           self._data_manager(config.index_name),
+                           self.session, dataset.plan, config))
 
     def delete(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.delete import DeleteAction
 
         self._maybe_recover(name)
-        DeleteAction(self._log_manager(name)).run()
+        self._dispatch(DeleteAction(self._log_manager(name)))
 
     def restore(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.restore import RestoreAction
 
         self._maybe_recover(name)
-        RestoreAction(self._log_manager(name)).run()
+        self._dispatch(RestoreAction(self._log_manager(name)))
 
     def vacuum(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.vacuum import VacuumAction
 
         self._maybe_recover(name)
-        VacuumAction(self._log_manager(name), self._data_manager(name)).run()
+        self._dispatch(VacuumAction(self._log_manager(name),
+                                    self._data_manager(name)))
 
     def cancel(self, name: str) -> None:
         from hyperspace_tpu_torch.actions.cancel import CancelAction
 
-        CancelAction(self._log_manager(name)).run()
+        self._dispatch(CancelAction(self._log_manager(name)))
 
     def refresh(self, name: str, mode: str = "full"):
         """Run one refresh ("full", "incremental", "quick" or "repair");
@@ -178,7 +196,7 @@ class IndexCollectionManager:
                 log_manager, self._data_manager(name), self.session,
                 previous=log_manager.get_latest_stable_log(),
                 quarantine=self.quarantine_manager(name))
-            return action.summary(action.run())
+            return action.summary(self._dispatch(action))
         cls = {"full": RefreshAction,
                "incremental": RefreshIncrementalAction,
                "quick": RefreshQuickAction}.get(mode)
@@ -193,13 +211,13 @@ class IndexCollectionManager:
             action = RefreshDataSkippingAction(
                 log_manager, self._data_manager(name), self.session,
                 previous=stable)
-            outcome = action.run()
+            outcome = self._dispatch(action)
             return RefreshSummary(
                 index=name, mode=mode, outcome=outcome,
                 version=action.base_id + 2 if outcome == "ok" else None)
         action = cls(log_manager, self._data_manager(name), self.session,
                      previous=stable)
-        return action.summary(action.run())
+        return action.summary(self._dispatch(action))
 
     def optimize(self, name: str, mode: str = "quick"):
         """Run one compaction ("quick" or "full"); returns its
@@ -212,17 +230,19 @@ class IndexCollectionManager:
         self._maybe_recover(name)
         action = OptimizeAction(self._log_manager(name),
                                 self._data_manager(name), self.session, mode)
-        return action.summary(action.run())
+        return action.summary(self._dispatch(action))
 
     def _degrade(self, name: str, reason: str) -> None:
-        """Record one index's degradation in the run report, or raise
-        ``DegradedIndexError`` when the fallback is off."""
+        """Emit one index's degradation (an ``IndexDegradedEvent``), or
+        raise ``DegradedIndexError`` when the fallback is off."""
         if not self.session.conf.degraded_fallback_to_source:
             raise DegradedIndexError(
                 f"Index {name!r} is unreadable ({reason}) and "
                 "conf.degraded_fallback_to_source is off")
         self.last_listing_degraded = True
-        report.record("degraded", index=name, reason=reason)
+        emit_event(IndexDegradedEvent(
+            index_name=name, reason=reason,
+            message=f"index {name!r} skipped: {reason}"))
 
     def get_indexes(self, states: Optional[List[str]] = None) -> List[IndexLogEntry]:
         """Latest stable entry of every readable index, optionally of

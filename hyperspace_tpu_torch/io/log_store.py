@@ -16,7 +16,9 @@ dies, so readers must skip the burned key), ``store.read``,
 ``store.list`` and ``store.delete``.  The advisor's captured workload
 (advisor/workload.py) lives in one too.
 
-Not ported: ``EmulatedObjectStore`` and the spans and metrics of a put.
+Each conditional put is a ``store.put`` span and counts in
+``log.store.puts``; a lost compare-and-swap counts in
+``log.cas.conflicts`` (telemetry/).  Not ported: ``EmulatedObjectStore``.
 """
 
 from __future__ import annotations
@@ -160,11 +162,19 @@ class PosixLogStore(LogStore):
 
     def put_if_generation_match(self, key: str, data: bytes,
                                 expected_generation: int) -> bool:
+        from hyperspace_tpu_torch.telemetry import metrics
+        from hyperspace_tpu_torch.telemetry.trace import span
+
         kind = faults.fire("store.put")  # enospc, eio, crash raise here
-        with self._locked():
+        with span("store.put", key=key) as sp, self._locked():
+            metrics.inc("log.store.puts")
             cur = self._generation(key)
             if cur != int(expected_generation):
+                # Another writer moved the key's generation first.
+                metrics.inc("log.cas.conflicts")
+                sp.set(outcome="conflict")
                 return False
+            sp.set(outcome="committed", bytes=len(data))
             if kind == "torn":
                 # The store accepted a partial upload: half the payload
                 # commits with a real generation, then the writer dies.

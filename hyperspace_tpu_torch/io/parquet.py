@@ -18,7 +18,9 @@ Every single-file read goes through the ``data.read`` fault site and
 retries transient IO errors (``_read_retry``), after the corruption
 checkpoint of that site; every index data file written goes through the
 ``data.write`` site, and its corruption checkpoint comes after the
-digest of the intended bytes (io/faults.py).
+digest of the intended bytes (io/faults.py).  Reads are ``io.read``
+spans and writes ``io.write`` spans, counted in ``io.files.read`` and
+``io.files.written`` (telemetry/).
 
 pyarrow is imported when a function runs, never when the module is
 imported.
@@ -39,6 +41,8 @@ import torch
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.io import faults, integrity
 from hyperspace_tpu_torch.ops.sort import bucket_counts
+from hyperspace_tpu_torch.telemetry import metrics
+from hyperspace_tpu_torch.telemetry.trace import span
 
 _BUCKET_FILE_RE = re.compile(r"part-b(\d{5})-")
 
@@ -69,10 +73,12 @@ def _read_retry(fn):
         faults.check("data.read")
         return fn()
 
-    return RetryPolicy().call(attempt)
+    out = RetryPolicy().call(attempt)
+    metrics.inc("io.files.read")
+    return out
 
 
-def _read_parquet_file(path: str, columns: Optional[Sequence[str]]):
+def read_parquet_file(path: str, columns: Optional[Sequence[str]]):
     """One Parquet file, the corruption checkpoint of ``data.read`` just
     before it (damage found at read time stays on retry)."""
     import pyarrow.parquet as pq
@@ -90,19 +96,23 @@ def read_table(paths: Sequence[str], columns: Optional[Sequence[str]] = None):
     one arrow Table."""
     import pyarrow as pa
 
-    if not paths:
-        return pa.table({})
-    if len(paths) == 1:
-        return pa.concat_tables([_read_parquet_file(paths[0], columns)],
-                                promote_options="default")
-    # Each read runs in a copy of the caller's context, so a retry it
-    # absorbs lands in the caller's run report (telemetry/report.py).
-    contexts = [contextvars.copy_context() for _ in paths]
-    with ThreadPoolExecutor(_io_workers(len(paths))) as pool:
-        tables = list(pool.map(
-            lambda ctx, p: ctx.run(_read_parquet_file, p, columns),
-            contexts, paths))
-    return pa.concat_tables(tables, promote_options="default")
+    with span("io.read", files=len(paths), format="parquet") as sp:
+        if not paths:
+            return pa.table({})
+        if len(paths) == 1:
+            tables = [read_parquet_file(paths[0], columns)]
+        else:
+            # Each read runs in a copy of the caller's context, so a
+            # retry it absorbs lands in the caller's run report
+            # (telemetry/report.py).
+            contexts = [contextvars.copy_context() for _ in paths]
+            with ThreadPoolExecutor(_io_workers(len(paths))) as pool:
+                tables = list(pool.map(
+                    lambda ctx, p: ctx.run(read_parquet_file, p, columns),
+                    contexts, paths))
+        out = pa.concat_tables(tables, promote_options="default")
+        sp.set(rows=out.num_rows, bytes=out.nbytes)
+        return out
 
 
 def read_file(path: str, columns: Sequence[str]):
@@ -113,10 +123,10 @@ def read_file(path: str, columns: Sequence[str]):
     import pyarrow.parquet as pq
 
     try:
-        return _read_parquet_file(path, columns)
+        return read_parquet_file(path, columns)
     except (pa.ArrowInvalid, KeyError):
         present = set(pq.read_schema(path).names)
-        return _read_parquet_file(path, [c for c in columns if c in present])
+        return read_parquet_file(path, [c for c in columns if c in present])
 
 
 def read_schema(path: str) -> Dict[str, str]:
@@ -284,9 +294,11 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
         # checkpoint: damage after a write the writer believed good.
         integrity.record_file(path)
         faults.corrupt_file("data.write", path)
+        metrics.inc("io.files.written")
         return path
 
-    with ThreadPoolExecutor(_io_workers(len(jobs))) as pool:
+    with span("io.write", rows=table.num_rows, files=len(jobs)), \
+            ThreadPoolExecutor(_io_workers(len(jobs))) as pool:
         return list(pool.map(write, jobs))
 
 
@@ -310,14 +322,18 @@ def write_bucket_run(sorted_bucket_table, bucket: int, out_dir: str,
         chunks = bucket_chunks(sorted_bucket_table.num_rows,
                                max_rows_per_file)
     out: List[str] = []
-    for off, rows in chunks:
-        path = os.path.join(out_dir, bucket_file_name(bucket))
-        faults.check("data.write")
-        pq.write_table(sorted_bucket_table.slice(off, rows), path,
-                       compression=_codec(compression))
-        integrity.record_file(path)
-        faults.corrupt_file("data.write", path)
-        out.append(path)
+    with span("io.write", bucket=bucket,
+              rows=sorted_bucket_table.num_rows) as sp:
+        for off, rows in chunks:
+            path = os.path.join(out_dir, bucket_file_name(bucket))
+            faults.check("data.write")
+            pq.write_table(sorted_bucket_table.slice(off, rows), path,
+                           compression=_codec(compression))
+            integrity.record_file(path)
+            faults.corrupt_file("data.write", path)
+            metrics.inc("io.files.written")
+            out.append(path)
+        sp.set(files=len(out))
     return out
 
 

@@ -21,8 +21,8 @@ are debounced (``conf.watch_debounce_ms``): a burst of commits is one
 wake.  A backend that cannot start degrades (a forced inotify to poll);
 no backend raises out of the watcher.
 
-Not ported: the watch's metrics (ROADMAP.md Queue A item 9) and the
-``EmulatedObjectStore`` backend of the bus (item 11).
+Publishes, events, wakes and errors count in ``lifecycle.watch.*``.  Not
+ported: the ``EmulatedObjectStore`` backend of the bus.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
+
+from hyperspace_tpu_torch.telemetry import metrics
 
 WATCH_DIR = "_hyperspace_watch"
 _MARKER_CAP = 256  # notification-bus bound: oldest markers pruned
@@ -119,6 +121,7 @@ def publish(conf, root: str, detail: str = "") -> Optional[str]:
             if len(keys) > _MARKER_CAP:
                 for old in sorted(keys)[:len(keys) - _MARKER_CAP]:
                     store.delete(old)
+            metrics.inc("lifecycle.watch.publishes")
             return key
     except Exception:  # noqa: BLE001 — the bus is advisory
         return None
@@ -363,7 +366,10 @@ class SourceWatcher:
                     with self._lock:
                         self._events.extend(events)
                         del self._events[:-_MARKER_CAP]
+                    metrics.inc("lifecycle.watch.events", len(events))
+                    metrics.inc("lifecycle.watch.wakes")
                     self.wake.set()
             except Exception:  # noqa: BLE001 - a tick never kills the
-                pass           # thread; the daemon's interval still runs
+                # thread; the daemon's interval still runs
+                metrics.inc("lifecycle.watch.errors")
             self._stop.wait(interval)

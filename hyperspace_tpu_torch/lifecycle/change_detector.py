@@ -12,8 +12,8 @@ refresh already accounted for do not read as new forever.  The pending
 lists are carried as debt (``hybrid_debt_bytes``, ``merge_debt_bytes``)
 for the policy to weigh.
 
-Not ported: the detection span and its counts (ROADMAP.md Queue A
-item 9), and the lake providers' ``refresh_relation_metadata`` (item 11).
+Each pass is a ``lifecycle.detect`` span tagged with its counts.  Not
+ported: the lake providers' ``refresh_relation_metadata``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import List, Tuple
 
 from hyperspace_tpu_torch.index.log_entry import FileInfo, IndexLogEntry
 from hyperspace_tpu_torch.plan.nodes import Scan, ScanRelation
+from hyperspace_tpu_torch.telemetry.trace import span
 
 
 def diff_file_sets(current: List[FileInfo], recorded: List[FileInfo],
@@ -142,21 +143,26 @@ def current_source_files(session, entry: IndexLogEntry) -> List[FileInfo]:
 
 def detect_changes(session, entry: IndexLogEntry) -> ChangeSummary:
     """One detection pass for one ACTIVE entry: list the source, diff it
-    against the effective recorded set, count."""
-    current = current_source_files(session, entry)
-    recorded = _effective_recorded(entry)
-    appended, deleted, mutated = diff_file_sets(current, recorded)
-    return ChangeSummary(
-        index=entry.name,
-        appended=len(appended),
-        deleted=len(deleted),
-        mutated=len(mutated),
-        appended_bytes=sum(f.size for f in appended),
-        recorded_files=len(recorded),
-        recorded_bytes=sum(f.size for f in recorded),
-        hybrid_debt_bytes=sum(f.size for f in entry.appended_files()),
-        newest_change_ms=max((_mtime_epoch_ms(f.mtime) for f in appended),
-                             default=0),
-        deleted_bytes=sum(f.size for f in deleted),
-        merge_debt_bytes=sum(f.size for f in entry.deleted_files()),
-    )
+    against the effective recorded set, count (a ``lifecycle.detect``
+    span)."""
+    with span("lifecycle.detect", index=entry.name) as sp:
+        current = current_source_files(session, entry)
+        recorded = _effective_recorded(entry)
+        appended, deleted, mutated = diff_file_sets(current, recorded)
+        summary = ChangeSummary(
+            index=entry.name,
+            appended=len(appended),
+            deleted=len(deleted),
+            mutated=len(mutated),
+            appended_bytes=sum(f.size for f in appended),
+            recorded_files=len(recorded),
+            recorded_bytes=sum(f.size for f in recorded),
+            hybrid_debt_bytes=sum(f.size for f in entry.appended_files()),
+            newest_change_ms=max((_mtime_epoch_ms(f.mtime)
+                                  for f in appended), default=0),
+            deleted_bytes=sum(f.size for f in deleted),
+            merge_debt_bytes=sum(f.size for f in entry.deleted_files()),
+        )
+        sp.set(appended=summary.appended, deleted=summary.deleted,
+               mutated=summary.mutated)
+        return summary

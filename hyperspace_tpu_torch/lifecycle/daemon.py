@@ -37,8 +37,13 @@ The thread is given no device: the kernels take theirs from the tensors
 the build hands them and launch on that device's current stream, the
 thread's default stream.
 
-Not ported: the spans, metrics, flight-recorder records and fleet role
-(ROADMAP.md Queue A item 9).
+Each cycle is a ``lifecycle.cycle`` span and each executed decision a
+``lifecycle.action`` span under it, with the ``lifecycle.*`` counters
+and the ``lifecycle.staleness_s`` gauge (docs/16-observability.md).  A
+refresh the daemon dispatches goes through the manager's transaction
+loop, so one that races a refresh run by hand rebases and ends in
+"done" or a journaled "noop" instead of a backoff.  Not ported: the
+flight-recorder records and the fleet role.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from hyperspace_tpu_torch.exceptions import HyperspaceError, NoChangesError
 from hyperspace_tpu_torch.execution.containment import is_index_side_error
 from hyperspace_tpu_torch.lifecycle import journal, lease as _lease, policy
 from hyperspace_tpu_torch.lifecycle.change_detector import detect_changes
+from hyperspace_tpu_torch.telemetry import metrics
+from hyperspace_tpu_torch.telemetry.trace import span
 
 # Process-wide drain latch: a draining server parks the daemon too.
 _drain = threading.Event()
@@ -176,6 +183,7 @@ class MaintenanceDaemon:
                     if not is_index_side_error(e):
                         self._error = e
                         return
+                    metrics.inc("lifecycle.actions.errors")
                 self._wake.wait(float(self.session.conf.lifecycle_interval_s))
         finally:
             if self._watcher is not None:
@@ -201,34 +209,45 @@ class MaintenanceDaemon:
             return SourceWatcher(conf, sorted(set(roots)),
                                  wake=self._wake).start()
         except Exception:  # noqa: BLE001 - push detection is advisory
+            metrics.inc("lifecycle.watch.errors")
             return None
 
     # -- one cycle (Hyperspace.maintenance_cycle) ----------------------------
     def run_once(self) -> List[dict]:
         """One maintenance cycle; returns the journal records it wrote."""
+        self._cycle += 1
+        out: List[dict] = []
+        with span("lifecycle.cycle", cycle=self._cycle) as sp:
+            metrics.inc("lifecycle.cycles")
+            self._cycle_body(out, sp)
+        return out
+
+    def _cycle_body(self, out: List[dict], sp) -> None:
         from hyperspace_tpu_torch.index.log_entry import States
 
         conf = self.session.conf
-        self._cycle += 1
-        out: List[dict] = []
         shed = self._shed_reason(conf)
         if shed is not None:
+            metrics.inc("lifecycle.skipped")
             out.append(self._journal(
                 policy.MaintenanceDecision(policy.KIND_NONE, reason=shed),
                 outcome="skipped"))
-            return out
+            sp.set(skipped=shed)
+            return
         if _lease.enabled(conf):
             if self._lease is None:
                 self._lease = _lease.MaintenanceLease(conf)
             if not self._lease.ensure():
                 # Another daemon holds the lease over this system path.
+                metrics.inc("lifecycle.skipped")
                 holder = (_lease.status(conf) or {}).get("holder", "?")
                 out.append(self._journal(
                     policy.MaintenanceDecision(
                         policy.KIND_NONE,
                         reason=f"lease standby: held by {holder}"),
                     outcome="skipped"))
-                return out
+                sp.set(skipped="lease standby")
+                return
         try:
             entries = self.session.index_collection_manager \
                 .get_indexes([States.ACTIVE])
@@ -240,11 +259,11 @@ class MaintenanceDaemon:
                 outcome="error", error=str(e)))
             if not is_index_side_error(e):
                 raise
-            return out
+            return
         for entry in entries:
             out.append(self._maintain_index(entry))
         out.extend(self._advisor_pass(entries))
-        return out
+        sp.set(decisions=len(out))
 
     def _shed_reason(self, conf) -> Optional[str]:
         if draining():
@@ -263,6 +282,7 @@ class MaintenanceDaemon:
         name = entry.name
         failures, not_before = self._backoff.get(name, (0, 0.0))
         if time.monotonic() < not_before:
+            metrics.inc("lifecycle.backoff.skips")
             return self._journal(
                 policy.MaintenanceDecision(
                     policy.KIND_NONE, name,
@@ -283,6 +303,7 @@ class MaintenanceDaemon:
             if not is_index_side_error(e):
                 raise
             self._note_failure(name, failures)
+            metrics.inc("lifecycle.actions.errors")
             return rec
         decision = policy.decide_refresh(
             change,
@@ -299,6 +320,10 @@ class MaintenanceDaemon:
             if compaction is not None:
                 return self._execute(compaction, change=change)
             return self._journal(decision, outcome="noop", change=change)
+        if change.newest_change_ms > 0:
+            metrics.set_gauge(
+                "lifecycle.staleness_s",
+                max(0.0, time.time() - change.newest_change_ms / 1000.0))
         return self._execute(decision, change=change)
 
     def _decide_compaction(self, entry):
@@ -327,21 +352,26 @@ class MaintenanceDaemon:
         manager = self.session.index_collection_manager
         outcome, error, raised = "done", "", None
         try:
-            if decision.kind in (policy.KIND_REFRESH, policy.KIND_REPAIR):
-                summary = manager.refresh(name, decision.mode)
-                if summary is not None and summary.outcome == "noop":
-                    outcome = "noop"
-            elif decision.kind == policy.KIND_OPTIMIZE:
-                summary = manager.optimize(name, decision.mode or "quick")
-                if summary is not None and summary.outcome == "noop":
-                    outcome = "noop"
-            elif decision.kind == policy.KIND_DELETE:
-                manager.delete(name)
-            elif decision.kind == policy.KIND_CREATE:
-                self._build_candidate(decision)
-            else:
-                raise HyperspaceError(
-                    f"Unknown decision kind {decision.kind!r}")
+            with span("lifecycle.action", index=name, kind=decision.kind,
+                      mode=decision.mode):
+                metrics.inc("lifecycle.actions")
+                if decision.kind in (policy.KIND_REFRESH,
+                                     policy.KIND_REPAIR):
+                    summary = manager.refresh(name, decision.mode)
+                    if summary is not None and summary.outcome == "noop":
+                        outcome = "noop"
+                elif decision.kind == policy.KIND_OPTIMIZE:
+                    summary = manager.optimize(name,
+                                               decision.mode or "quick")
+                    if summary is not None and summary.outcome == "noop":
+                        outcome = "noop"
+                elif decision.kind == policy.KIND_DELETE:
+                    manager.delete(name)
+                elif decision.kind == policy.KIND_CREATE:
+                    self._build_candidate(decision)
+                else:
+                    raise HyperspaceError(
+                        f"Unknown decision kind {decision.kind!r}")
             self._backoff.pop(name, None)
         except NoChangesError:
             # A racing writer did the work between detection and dispatch.
@@ -349,6 +379,7 @@ class MaintenanceDaemon:
             self._backoff.pop(name, None)
         except Exception as e:  # noqa: BLE001 - narrowed below
             outcome, error = "error", str(e)
+            metrics.inc("lifecycle.actions.errors")
             if is_index_side_error(e):
                 self._note_failure(name, failures)
             else:
@@ -454,6 +485,7 @@ class MaintenanceDaemon:
     def _journal(self, decision: policy.MaintenanceDecision, *,
                  outcome: str, error: str = "", wall_s: float = 0.0,
                  change=None) -> dict:
+        metrics.inc("lifecycle.decisions")
         rec = {
             "cycle": self._cycle,
             "decision": decision.kind,

@@ -17,8 +17,9 @@ object: ``v``, ``ts``, ``cycle``, ``decision``, ``index``, ``mode``,
 fault armed at the system under test) and never raises: a journal
 failure must not cost an action its commit.
 
-Not ported: the journal's metrics (ROADMAP.md Queue A item 9) and the
-``EmulatedObjectStore`` backend (item 11).
+Appends count in ``lifecycle.journal.appends`` and failures in
+``lifecycle.journal.errors``.  Not ported: the ``EmulatedObjectStore``
+backend.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def append(conf, record: Dict[str, Any]) -> Optional[str]:
     """Append one decision record; returns its key, or None on failure.
     Never raises; runs fault-quiet."""
     from hyperspace_tpu_torch.io import faults
+    from hyperspace_tpu_torch.telemetry import metrics
 
     try:
         with faults.quiet():
@@ -71,6 +73,7 @@ def append(conf, record: Dict[str, Any]) -> Optional[str]:
                 if store.put_if_absent(key, payload):
                     break
             else:
+                metrics.inc("lifecycle.journal.errors")
                 return None
             cap = int(conf.lifecycle_journal_max_entries)
             if cap > 0:
@@ -78,8 +81,10 @@ def append(conf, record: Dict[str, Any]) -> Optional[str]:
                 if len(keys) > cap:
                     for old in sorted(keys)[:len(keys) - cap]:
                         store.delete(old)
+            metrics.inc("lifecycle.journal.appends")
             return key
     except Exception:  # noqa: BLE001 - journal IO never fails the daemon
+        metrics.inc("lifecycle.journal.errors")
         return None
 
 

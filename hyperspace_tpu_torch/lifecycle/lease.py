@@ -28,8 +28,9 @@ Every acquire, takeover, renew, fence and release is a journal record of
 decision ``lease`` (lifecycle/journal.py).
 
 Not ported: ``WorkClaims``, whose callers are the multi-host build and
-the chaos drill (ROADMAP.md Queue A item 12); the lease's metrics
-(item 9); the ``EmulatedObjectStore`` backend (item 11).
+the chaos drill, and the ``EmulatedObjectStore`` backend.  The
+``lease.*`` counters (acquires, takeovers, conflicts, renews, fenced,
+releases) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ import os
 import threading
 import time
 from typing import Any, Dict, Optional
+
+from hyperspace_tpu_torch.telemetry import metrics
 
 LEASE_DIR = "_hyperspace_lease"
 LEASE_KEY = "maintenance"
@@ -161,12 +164,15 @@ class MaintenanceLease:
             LEASE_KEY, self._record(prior_epoch + 1, now), gen)
         self._observe_latency(time.monotonic() - t0)
         if not committed:
+            metrics.inc("lease.conflicts")
             return False  # another candidate won this round
         self.epoch = prior_epoch + 1
         self._held = True
         self._gen = gen + 1
         self._expires_at = now + ttl_s(self.conf)
+        metrics.inc("lease.acquires")
         if takeover:
+            metrics.inc("lease.takeovers")
             self._note("takeover",
                        reason=f"expired lease epoch {prior_epoch} "
                               f"(holder {rec.get('holder', '?')}) taken "
@@ -187,11 +193,13 @@ class MaintenanceLease:
         if renewed:
             self._gen += 1
             self._expires_at = now + ttl_s(self.conf)
+            metrics.inc("lease.renews")
             self._note("renew", reason=f"epoch {self.epoch}")
             return True
         # Lost the CAS: the lease moved while this process stalled.
         self._held = False
         self._gen = 0
+        metrics.inc("lease.fenced")
         self._note("fence", outcome="error",
                    reason=f"renew lost the CAS at epoch {self.epoch}; "
                           f"lease taken over — standing down")
@@ -208,6 +216,7 @@ class MaintenanceLease:
             rec["expires_at"] = 0.0
             store.put_if_generation_match(
                 LEASE_KEY, json.dumps(rec).encode("utf-8"), self._gen)
+            metrics.inc("lease.releases")
             self._note("release", reason=f"epoch {self.epoch} released")
         except Exception as e:  # noqa: BLE001 - best effort
             self._note("error", outcome="error", error=str(e))

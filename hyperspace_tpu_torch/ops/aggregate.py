@@ -33,6 +33,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.telemetry import timeline
+
 AGG_OPS = ("sum", "min", "max", "mean", "count", "count_all")
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -100,7 +102,9 @@ def to_device(a: Array, device: Optional[torch.device]) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a
     device = torch.device(device if device is not None else "cuda")
-    return torch.from_numpy(np.require(a, requirements="CW")).to(device)
+    out = torch.from_numpy(np.require(a, requirements="CW")).to(device)
+    timeline.record_transfer("h2d", out.nbytes)
+    return out
 
 
 def empty_result(ops: Sequence[str]):
@@ -135,9 +139,12 @@ def grouped_aggregate(key_cols: Sequence[Array], value_cols: Sequence[Array],
     values = [to_device(v, keys[0].device) for v in value_cols]
     if keys[0].shape[0] == 0:
         return empty_result(ops)
+    t0 = timeline.kernel_begin(keys[0].device)
     perm, boundaries = _group_sort(keys)
     starts = torch.nonzero(boundaries).flatten()  # the one synchronisation
     out = _segment_reduce(perm, boundaries, starts, values, ops)
+    timeline.kernel_end("aggregate", t0, out)
+    timeline.record_transfer("d2h", sum(r.nbytes for r in out))
     first_rows = out[0].cpu().numpy()
     counts = out[1].cpu().numpy()
     return first_rows, counts, [r.cpu().numpy() for r in out[2:]]

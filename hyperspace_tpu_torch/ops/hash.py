@@ -10,6 +10,11 @@ program outside any Pallas kernel in the JAX package.
 ``route_partition`` is the spill build's per-chunk pass: the same
 hash and sorts, and the histogram kernel's counts as the run cuts.
 
+``bucket_ids`` and ``route_partition`` are timeline seams
+(telemetry/timeline.py): with the timeline on, each is bracketed by a
+CUDA-event pair and attributed as ``exec.kernel.bucket_ids`` /
+``exec.kernel.route_partition``; off, a seam is one bool check.
+
 The numpy host mirrors ``bucket_ids_np`` / ``route_partition_np`` are
 copies of the JAX package's: bucket pruning hashes filter literals with
 ``bucket_ids_np``, and ``route_partition_np`` is the oracle the tests
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.ops.kernels import bucket_histogram, hash_buckets
+from hyperspace_tpu_torch.telemetry import timeline
 
 _C1 = np.uint32(0x85EBCA6B)
 _C2 = np.uint32(0xC2B2AE35)
@@ -38,6 +44,14 @@ def combine_hashes(word_cols: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def bucket_ids(word_cols: Sequence[torch.Tensor], num_buckets: int) -> torch.Tensor:
     """Per-row bucket assignment in [0, num_buckets) as int32."""
+    t0 = timeline.kernel_begin(word_cols[0].device if word_cols else None)
+    out = _bucket_ids(word_cols, num_buckets)
+    timeline.kernel_end("bucket_ids", t0, out)
+    return out
+
+
+def _bucket_ids(word_cols: Sequence[torch.Tensor],
+                num_buckets: int) -> torch.Tensor:
     if num_buckets < 1:
         raise ValueError(f"num_buckets must be >= 1, got {num_buckets}")
     return hash_buckets(word_cols, num_buckets)
@@ -64,7 +78,7 @@ def route_sort(word_cols: Sequence[torch.Tensor],
     the current permutation; the bucket pass comes last.  Empty
     ``order_words`` groups rows by bucket with their original order kept.
     Every sort is stable: tie order is part of the index bytes."""
-    buckets = bucket_ids(word_cols, num_buckets)
+    buckets = _bucket_ids(word_cols, num_buckets)
     n = buckets.shape[0]
     order_words = list(order_words)
     for w in order_words:
@@ -101,8 +115,13 @@ def route_partition(word_cols: Sequence[np.ndarray],
              for w in word_cols]
     order = [torch.from_numpy(np.ascontiguousarray(w)).to(device)
              for w in order_words]
+    t0 = timeline.kernel_begin(device)
+    if t0 is not None:
+        timeline.record_transfer("h2d", sum(w.nbytes for w in words + order))
     buckets, perm = route_sort(words, order, num_buckets)
     counts = bucket_histogram(buckets, num_buckets)
+    timeline.kernel_end("route_partition", t0, perm)
+    timeline.record_transfer("d2h", perm.nbytes + counts.nbytes)
     return perm.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
 
 

@@ -32,6 +32,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.telemetry import timeline
+
 Keys = Union[np.ndarray, torch.Tensor]
 
 _FNV_OFFSET = np.uint64(0xcbf29ce484222325)
@@ -102,11 +104,17 @@ def sorted_equi_join(left_keys: Keys, right_keys: Keys,
     lk, rk = (k if isinstance(k, torch.Tensor)
               else torch.from_numpy(np.require(k, requirements="CW")).to(device)
               for k in (left_keys, right_keys))
+    timeline.record_transfer("h2d", sum(
+        a.nbytes for a in (left_keys, right_keys)
+        if not isinstance(a, torch.Tensor)))
     if lk.device != rk.device:
         raise ValueError(f"join keys on two devices: {lk.device}, {rk.device}")
     if lk.numel() == 0 or rk.numel() == 0:
         return empty
+    t0 = timeline.kernel_begin(lk.device)
     left_idx, right_idx = match_pairs(lk, rk)
+    timeline.kernel_end("join", t0, (left_idx, right_idx))
+    timeline.record_transfer("d2h", left_idx.nbytes + right_idx.nbytes)
     return left_idx.cpu().numpy(), right_idx.cpu().numpy()
 
 

@@ -35,6 +35,7 @@ from hyperspace_tpu_torch.ops.aggregate import (
     to_device,
 )
 from hyperspace_tpu_torch.ops.join import match_pairs
+from hyperspace_tpu_torch.telemetry import timeline
 
 
 def _topk_groups(col: torch.Tensor, k: int, ascending: bool) -> torch.Tensor:
@@ -103,8 +104,10 @@ def join_group_aggregate(
     rk = to_device(r_key, lk.device)
     if lk.shape[0] == 0 or rk.shape[0] == 0:
         return _empty(agg_ops)
+    t0 = timeline.kernel_begin(lk.device)
     li, ri = match_pairs(lk, rk)
     if li.shape[0] == 0:
+        timeline.kernel_end("join_agg", t0, li)
         return _empty(agg_ops)
     gathered = [to_device(c, lk.device)[li if side == "l" else ri]
                 for c, side in zip(columns, column_sides)]
@@ -121,5 +124,8 @@ def join_group_aggregate(
                            bool(ascending))
         first_rows, counts = first_rows[sel], counts[sel]
         results = [r[sel] for r in results]
+    timeline.kernel_end("join_agg", t0, (first_rows, counts, results))
+    timeline.record_transfer("d2h", 2 * first_rows.nbytes + counts.nbytes
+                             + sum(r.nbytes for r in results))
     return (li[first_rows].cpu().numpy(), ri[first_rows].cpu().numpy(),
             counts.cpu().numpy(), [r.cpu().numpy() for r in results])

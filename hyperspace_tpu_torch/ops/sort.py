@@ -4,6 +4,11 @@ Counterpart of hyperspace_tpu/ops/sort.py.  PyTorch runs eagerly, so the
 JAX package's capacity padding (one compiled program per capacity) has
 no counterpart here: padding only parked pad rows after the real ones,
 so ``perm[:n]`` is the same without it.
+
+The fused hash and sort is a timeline seam (``exec.kernel.bucket_sort``)
+and so is the histogram (``exec.kernel.bucket_histogram``): with the
+timeline on, each is bracketed by a CUDA-event pair
+(telemetry/timeline.py); off, a seam is one bool check.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from hyperspace_tpu_torch.ops.hash import route_partition_np, route_sort
 from hyperspace_tpu_torch.ops.kernels import bucket_histogram
+from hyperspace_tpu_torch.telemetry import timeline
 
 
 def bucket_sort_permutation(
@@ -33,7 +39,10 @@ def bucket_sort_permutation(
       (bucket_ids int32 (n,), perm int64 (n,)) on the inputs' device,
       where perm orders rows by (bucket, *key columns).
     """
-    return route_sort(word_cols, order_words, num_buckets)
+    t0 = timeline.kernel_begin(word_cols[0].device if word_cols else None)
+    out = route_sort(word_cols, order_words, num_buckets)
+    timeline.kernel_end("bucket_sort", t0, out)
+    return out
 
 
 def bucket_sort_permutation_np(
@@ -52,4 +61,7 @@ def bucket_sort_permutation_np(
 def bucket_counts(buckets: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """Rows per bucket as (num_buckets,) int32 — the CUDA histogram kernel
     on the card, its plain version on the CPU."""
-    return bucket_histogram(buckets, num_buckets)
+    t0 = timeline.kernel_begin(buckets.device)
+    out = bucket_histogram(buckets, num_buckets)
+    timeline.kernel_end("bucket_histogram", t0, out)
+    return out

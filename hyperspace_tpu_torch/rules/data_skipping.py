@@ -17,8 +17,9 @@ source mutations with no hybrid-scan machinery.
 
 ``prune_index_files_by_sketch`` does the same for a covering index's own
 files, by the ``_sketch.parquet`` each build version writes.  Host work:
-pyarrow is imported when a function runs.  A pruned scan records its
-index as used in the active run report (telemetry/report.py).
+pyarrow is imported when a function runs.  A pruned scan emits a
+``HyperspaceIndexUsageEvent``, which records its index as used in the
+active run report (telemetry/).
 """
 
 from __future__ import annotations
@@ -55,7 +56,10 @@ from hyperspace_tpu_torch.plan.expr import (
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.filter_rule import _extract_filter_nodes
-from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.telemetry.events import (
+    HyperspaceIndexUsageEvent,
+    emit_event,
+)
 
 # In-process memo of loaded sketches keyed by the sketch files' identity
 # (name, size, mtime): correct across rebuilds AND across same-name indexes
@@ -454,8 +458,11 @@ class DataSkippingFilterRule:
             return new_scan if node is scan else node
 
         new_plan = plan.transform_up(swap)
-        report.record("index.used", index=entry.name,
-                      message="DataSkippingFilterRule applied")
+        emit_event(HyperspaceIndexUsageEvent(
+            index_names=[entry.name],
+            plan_before=plan.tree_string(),
+            plan_after=new_plan.tree_string(),
+            message="DataSkippingFilterRule applied"))
         return new_plan
 
 
@@ -472,9 +479,9 @@ def _load_index_sketch(path: str) -> List[dict]:
     key = (path, st.st_size, st.st_mtime_ns)
     rows = _INDEX_SKETCH_CACHE.get(key)
     if rows is None:
-        from hyperspace_tpu_torch.io.parquet import read_table
+        from hyperspace_tpu_torch.io.parquet import read_parquet_file
 
-        rows = read_table([path]).to_pylist()
+        rows = read_parquet_file(path, None).to_pylist()
         if len(_INDEX_SKETCH_CACHE) >= _SKETCH_CACHE_MAX:
             _INDEX_SKETCH_CACHE.clear()
         _INDEX_SKETCH_CACHE[key] = rows

@@ -20,8 +20,8 @@ rewrite Filter[->Project] over a Scan to an index-only scan.
     cannot satisfy the predicate are dropped too
     (``rules.data_skipping.prune_index_files_by_sketch``).
 
-Each rewrite records its index as used in the active run report
-(telemetry/report.py).
+Each rewrite emits a ``HyperspaceIndexUsageEvent`` (telemetry/events.py),
+which records the index as used in the active run report.
 """
 
 from __future__ import annotations
@@ -36,7 +36,10 @@ from hyperspace_tpu_torch.plan.expr import BinOp, Col, Expr, IsIn, Lit, Or, spli
 from hyperspace_tpu_torch.plan.nodes import Filter, LogicalPlan, Project, Scan
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.rankers import rank_filter_indexes
-from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.telemetry.events import (
+    HyperspaceIndexUsageEvent,
+    emit_event,
+)
 from hyperspace_tpu_torch.utils.resolver import resolve
 
 
@@ -105,8 +108,11 @@ class FilterIndexRule:
             new_plan = rule_utils.transform_plan_to_use_index_only_scan(
                 plan, scan, best, use_bucket_spec, prune, file_paths,
                 file_stats)
-        report.record("index.used", index=best.name,
-                      message="FilterIndexRule applied")
+        emit_event(HyperspaceIndexUsageEvent(
+            index_names=[best.name],
+            plan_before=plan.tree_string(),
+            plan_after=new_plan.tree_string(),
+            message="FilterIndexRule applied"))
         return new_plan
 
 

@@ -17,8 +17,8 @@ executor joins bucket by bucket.
     damaged buckets has no bucket structure to align (the filter rule
     still serves it with containment).
 
-Each rewrite records both indexes as used in the active run report
-(telemetry/report.py).
+Each rewrite emits a ``HyperspaceIndexUsageEvent`` (telemetry/events.py),
+which records the index as used in the active run report.
 """
 
 from __future__ import annotations
@@ -37,7 +37,10 @@ from hyperspace_tpu_torch.plan.nodes import (
 )
 from hyperspace_tpu_torch.rules import rule_utils
 from hyperspace_tpu_torch.rules.rankers import rank_join_index_pairs
-from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.telemetry.events import (
+    HyperspaceIndexUsageEvent,
+    emit_event,
+)
 from hyperspace_tpu_torch.utils.resolver import resolve
 
 
@@ -138,9 +141,12 @@ class JoinIndexRule:
         new_plan = Join(rewrite_side(join.left, l_scan, l_entry),
                         rewrite_side(join.right, r_scan, r_entry),
                         join.condition, join.how, residual=join.residual)
-        for name in (l_entry.name, r_entry.name):
-            report.record("index.used", index=name,
-                          message="JoinIndexRule applied")
+        emit_event(HyperspaceIndexUsageEvent(
+            index_names=[l_entry.name, r_entry.name],
+            plan_before=Join(join.left, join.right, join.condition,
+                             join.how).tree_string(),
+            plan_after=new_plan.tree_string(),
+            message="JoinIndexRule applied"))
         return new_plan
 
     def _required_columns(self, side_plan: LogicalPlan) -> List[str]:

@@ -27,8 +27,12 @@ propagates.  A CUDA or other torch error, and the kernel loader's
 beside the persisted ACTIVE ones for that one pass; the plan is for
 analysis only, since the executor refuses its hypothetical scans.
 
-A conf with ``fault_injection_enabled`` arms the fault injector
-(io/faults.py) when the session is made.  Not ported: the plan cache."""
+Each optimize pass is an ``optimize`` span and each rule an
+``optimize.rule.<slug>`` span with a ``rule.<slug>.applied`` (or
+``.skipped``) counter; a skipped rule emits an ``IndexDegradedEvent``
+(telemetry/).  A conf with ``fault_injection_enabled`` arms the fault
+injector (io/faults.py) and ``event_logger`` installs its event logger
+when the session is made.  Not ported: the plan cache."""
 
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan, Scan, ScanRelation
 from hyperspace_tpu_torch.sources.manager import FileBasedSourceProviderManager
-from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.telemetry import metrics, report, trace
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -77,20 +81,40 @@ class HyperspaceSession:
         self.conf = conf if conf is not None else HyperspaceConf()
         if system_path is not None:
             self.conf.system_path = system_path
+        if self.conf.event_logger:
+            from hyperspace_tpu_torch.telemetry.events import (
+                apply_conf_event_logger,
+            )
+
+            apply_conf_event_logger(self.conf.event_logger)
         if self.conf.fault_injection_enabled:
             from hyperspace_tpu_torch.io import faults
 
             faults.install_from_conf(self.conf)
+        # Tracing and its sink from the conf; collect() applies them again,
+        # so a field set later still takes effect.
+        trace.configure_from_conf(self.conf)
         # Per-build phase seconds, one dict per CreateAction run.
         self.build_stats_log: List[Dict[str, float]] = []
         # The BuildReport of the last action run with this session.
         self.last_build_report_value = None
         self._hyperspace_enabled = False
         self._schema_cache: Dict[ScanRelation, Dict[str, str]] = {}
-        # The executor's stats of the most recent Dataset.collect().
-        self.last_execution_stats: Optional[Dict[str, List[Dict[str, Any]]]] = None
-        # The run report of the calling thread's most recent collect().
+        # The executor's stats and the run report of the calling thread's
+        # most recent Dataset.collect(): thread-local, so a query on
+        # another thread never overwrites what a caller reads right after
+        # its own collect().
+        self._exec_stats = threading.local()
         self._run_report = threading.local()
+
+    @property
+    def last_execution_stats(self) -> Optional[Dict[str, List[Dict[str, Any]]]]:
+        return getattr(self._exec_stats, "value", None)
+
+    @last_execution_stats.setter
+    def last_execution_stats(
+            self, value: Optional[Dict[str, List[Dict[str, Any]]]]) -> None:
+        self._exec_stats.value = value
 
     @property
     def last_run_report_value(self):
@@ -152,6 +176,14 @@ class HyperspaceSession:
 
     def optimize(self, plan: LogicalPlan, use_indexes: bool = True,
                  hypothetical=None) -> LogicalPlan:
+        # The rules swap nodes by identity: a Dataset reused under two
+        # branches must not share one node object.
+        plan = _uniquify(plan)
+        with trace.span("optimize", use_indexes=use_indexes):
+            return self._optimize(plan, use_indexes, hypothetical)
+
+    def _optimize(self, plan: LogicalPlan, use_indexes: bool,
+                  hypothetical) -> LogicalPlan:
         from hyperspace_tpu_torch.index.log_entry import States
         from hyperspace_tpu_torch.plan.pruning import prune_columns
         from hyperspace_tpu_torch.plan.pushdown import push_filters
@@ -164,9 +196,6 @@ class HyperspaceSession:
         from hyperspace_tpu_torch.rules.filter_rule import FilterIndexRule
         from hyperspace_tpu_torch.rules.join_rule import JoinIndexRule
 
-        # The rules swap nodes by identity: a Dataset reused under two
-        # branches must not share one node object.
-        plan = _uniquify(plan)
         # Subqueries first: folding a scalar and materializing NOT IN
         # optimize and execute their subplans (this method again), and
         # every pass below sees only joins, filters and literals.
@@ -214,19 +243,49 @@ class HyperspaceSession:
             is_index_side_error,
         )
 
-        try:
-            new_plan = apply_fn(plan)
-        except Exception as e:  # noqa: BLE001 - narrowed just below
-            if not (self.conf.degraded_fallback_to_source
-                    and is_index_side_error(e)):
-                raise
-            report.record("rule", rule=name, applied=False,
-                          skipped_reason=f"{e!r}")
-            report.record("degraded", index="",
-                          reason=f"{name} failed: {e!r}")
-            return plan
-        report.record("rule", rule=name, applied=new_plan is not plan)
-        return new_plan
+        slug = _rule_slug(name)
+        with trace.span(f"optimize.rule.{slug}") as sp:
+            try:
+                new_plan = apply_fn(plan)
+            except Exception as e:  # noqa: BLE001 - narrowed just below
+                if not (self.conf.degraded_fallback_to_source
+                        and is_index_side_error(e)):
+                    raise
+                from hyperspace_tpu_torch.telemetry.events import (
+                    IndexDegradedEvent,
+                    emit_event,
+                )
+
+                sp.set(applied=False, skipped=repr(e))
+                metrics.inc(f"rule.{slug}.skipped")
+                report.record("rule", rule=name, applied=False,
+                              skipped_reason=f"{e!r}")
+                emit_event(IndexDegradedEvent(
+                    reason=f"{name} failed: {e!r}",
+                    message=f"{name} skipped; query answers from the "
+                            "source scan"))
+                return plan
+            applied = new_plan is not plan
+            sp.set(applied=applied)
+            if applied:
+                metrics.inc(f"rule.{slug}.applied")
+            report.record("rule", rule=name, applied=applied)
+            return new_plan
+
+
+def _rule_slug(rule_name: str) -> str:
+    """``FilterIndexRule`` -> ``filter``, ``BucketPruneRule`` ->
+    ``bucket_prune``: the metric catalog's name for a rule class."""
+    name = rule_name
+    for suffix in ("Rule", "Index", "Filter"):
+        if name.endswith(suffix) and name != suffix:
+            name = name[:-len(suffix)]
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isupper() and i > 0:
+            out.append("_")
+        out.append(ch.lower())
+    return "".join(out)
 
 
 def _uniquify(plan: LogicalPlan) -> LogicalPlan:

@@ -19,13 +19,20 @@ Every action run through ``actions/base.Action.run()`` owns one
   - **memory**: the peak host RSS and, on a CUDA session, the card's
     allocated bytes, sampled once at the action's end.
 
-A finished report is published as ``session.last_build_report_value``
-and :func:`last_report`, which ``Hyperspace.last_build_report()``
-returns.  ``conf.build_profiling_enabled`` (on by default) gates the
-memory sampling; the phases and bytes are always kept.  Not ported: the
-metrics export, the phase spans, the perf-ledger append and the
-timeline's intervals, lanes and memory sampler; the port has no
-conflict-retry loop, so ``conflict_retries`` stays 0.
+Finish exports the report into the metrics registry
+(``build.phase.<name>.seconds``, ``build.spill.bytes``,
+``build.bytes.written``, ``build.actions``, the ``build.peak_rss_mb``
+gauge), synthesizes ``build.phase.<name>`` child spans onto the live
+``action.*`` span, appends a perf-ledger record
+(telemetry/perf_ledger.py) and publishes the report as
+``session.last_build_report_value`` and :func:`last_report`, which
+``Hyperspace.last_build_report()`` returns.  With the timeline on
+(telemetry/timeline.py) every phase also lands as an interval on its
+lane, and the memory sampler's samples give per-phase high-water marks.
+``conf.build_profiling_enabled`` (on by default) gates the memory
+sampling, the metric export, the phase spans and the ledger append; the
+phases and bytes are always kept.  ``conflict_retries`` counts the write
+conflicts the action's transaction loop absorbed (actions/base.py).
 """
 
 from __future__ import annotations
@@ -66,14 +73,45 @@ class BuildReport:
         # Action-specific annotations (a refresh's mode and diff counts);
         # flat scalars only.
         self.properties: Dict[str, Any] = {}
+        # Kernel milliseconds attributed per CUDA device index.
+        self.device_kernel_ms: Dict[int, float] = {}
+        # Timeline intervals (lane = phase name) and memory samples, kept
+        # while the timeline is on (telemetry/timeline.py).
+        self.intervals: list = []
+        self.memory_samples: list = []
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
     # -- recording (thread-safe: the spill's pools call in) -----------------
     def add_phase(self, name: str, seconds: float) -> None:
+        from hyperspace_tpu_torch.telemetry import timeline
+
         name = _phase_key(name)
         with self._lock:
             self.phases[name] = self.phases.get(name, 0.0) + float(seconds)
+        if timeline.timeline_enabled():
+            # The caller timed [now - seconds, now].
+            end_ns = time.monotonic_ns()
+            start_ns = end_ns - int(float(seconds) * 1e9)
+            with self._lock:
+                if len(self.intervals) < 8192:  # a runaway phase loop
+                    self.intervals.append((name, start_ns, end_ns))
+            timeline.record_interval(name, "build.phase", start_ns, end_ns)
+
+    def add_device_kernel_ms(self, device_id: int, ms: float) -> None:
+        """Attribute ``ms`` of kernel time to one CUDA device index."""
+        with self._lock:
+            self.device_kernel_ms[int(device_id)] = \
+                self.device_kernel_ms.get(int(device_id), 0.0) + float(ms)
+
+    def add_memory_sample(self, ts_ns: int, rss_mb: float,
+                          device_bytes: int) -> None:
+        """One memory-sampler observation (the sink contract of
+        ``timeline.MemorySampler``)."""
+        with self._lock:
+            if len(self.memory_samples) < 8192:
+                self.memory_samples.append(
+                    (int(ts_ns), float(rss_mb), int(device_bytes)))
 
     def add_bytes(self, *, read: int = 0, written: int = 0, files: int = 0,
                   spill: int = 0, spill_runs: int = 0) -> None:
@@ -115,11 +153,75 @@ class BuildReport:
         return sum(v for k, v in self.phases.items()
                    if k not in _DEVICE_PHASES)
 
+    def lane_report(self) -> Dict[str, Any]:
+        """Gap/overlap analysis over this build's intervals (the timeline
+        must have been on): per-lane busy shares and the pairwise "X idle
+        while Y busy" matrix."""
+        from hyperspace_tpu_torch.telemetry import timeline
+
+        with self._lock:
+            intervals = list(self.intervals)
+        return timeline.busy_report(intervals)
+
+    def phase_memory_mb(self) -> Dict[str, float]:
+        """Per-phase high-water host RSS (MB): the largest sampled RSS
+        whose timestamp falls inside one of the phase's intervals."""
+        with self._lock:
+            intervals = list(self.intervals)
+            samples = list(self.memory_samples)
+        out: Dict[str, float] = {}
+        for lane, s, e in intervals:
+            for ts, rss_mb, _dev in samples:
+                if s <= ts <= e and rss_mb > out.get(lane, 0.0):
+                    out[lane] = rss_mb
+        return {k: round(v, 1) for k, v in sorted(out.items())}
+
     # -- lifecycle (driven by actions/base.Action.run) -----------------------
     def finish(self, outcome: str = "ok", error: str = "") -> None:
         self.wall_s = time.perf_counter() - self._t0
         self.outcome = outcome
         self.error = error
+
+    def export_metrics(self) -> None:
+        """This report into the process metrics registry (the
+        docs/16-observability.md catalog)."""
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        metrics.inc("build.actions")
+        metrics.observe("build.wall.seconds", self.wall_s * 1000.0)
+        for name, s in self.phases.items():
+            metrics.inc(f"build.phase.{name}.seconds", s)
+        if self.spill_bytes:
+            metrics.inc("build.spill.bytes", self.spill_bytes)
+        if self.spill_runs:
+            metrics.inc("build.spill.runs", self.spill_runs)
+        if self.bytes_written:
+            metrics.inc("build.bytes.written", self.bytes_written)
+        if self.bytes_read:
+            metrics.inc("build.bytes.read", self.bytes_read)
+        if self.peak_rss_mb is not None:
+            metrics.set_gauge("build.peak_rss_mb", self.peak_rss_mb)
+        if self.device_live_bytes is not None:
+            metrics.set_gauge("build.device.live_bytes",
+                              self.device_live_bytes)
+
+    def attach_to_span(self, sp) -> None:
+        """Summarize onto the live ``action.*`` span and add one
+        ``build.phase.<name>`` child per phase."""
+        from hyperspace_tpu_torch.telemetry.trace import Span
+
+        sp.set(build_wall_s=round(self.wall_s, 4),
+               build_phase_total_s=round(self.phase_total_s(), 4),
+               build_bytes_written=self.bytes_written,
+               build_spill_bytes=self.spill_bytes)
+        children = getattr(sp, "children", None)
+        if children is None:
+            return  # tracing off: sp is the shared no-op
+        for name, s in sorted(self.phases.items()):
+            child = Span(f"build.phase.{name}", {})
+            child.start_s = self.started_at
+            child.duration_ms = s * 1000.0
+            children.append(child)
 
     # -- serialization -------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
@@ -144,6 +246,14 @@ class BuildReport:
             "device_live_bytes": self.device_live_bytes,
             **({"properties": dict(sorted(self.properties.items()))}
                if self.properties else {}),
+            **({"device_kernel_ms": {
+                str(k): round(v, 3)
+                for k, v in sorted(self.device_kernel_ms.items())}}
+               if self.device_kernel_ms else {}),
+            # Present only when the timeline was on for this run.
+            **({"lanes": self.lane_report()} if self.intervals else {}),
+            **({"phase_peak_rss_mb": self.phase_memory_mb()}
+               if self.memory_samples and self.intervals else {}),
         }
 
     def render(self) -> str:

@@ -2,20 +2,18 @@
 of hyperspace_tpu/telemetry/report.py).
 
 ``Dataset.collect()`` opens a :class:`QueryRunReport` for the duration of
-the query; the optimizer, the rules, the executor and the containment
-path append structured *decisions* to it through :func:`record`, a
-contextvar lookup plus an append.  Retrieval: ``ds.last_run_report()``
+the query; the optimizer, the rules, the executor, the kernel seams and
+the containment path append structured *decisions* to it through
+:func:`record`, a contextvar lookup plus an append, always on.  When
+tracing is enabled the query's root span is attached too, so the report
+carries per-span timings.  Retrieval: ``ds.last_run_report()``
 (thread-local on the session, like ``last_execution_stats``) or the
 "Last run report" section of ``explain(verbose=True)``.
 
-The JAX package derives its ``degraded`` decisions from telemetry
-events; the port records the same decision at the same two seams, the
-session's rule boundary and the manager's degraded listing, so
-``degraded``, ``degraded_reasons()``, ``skipped_indexes()`` and the
-"degraded" outcome read as there.  Not ported yet: the events
-themselves (``observe_event``), the metrics registry, ``to_dict`` and
-the span timings of a traced query.  A report here has no span, so
-``render()`` gives the text the JAX package gives with tracing off.
+:func:`observe_event` is the second feeder: every telemetry event
+emitted through ``events.emit_event`` is translated here into the active
+report's decisions and the process metrics registry, one mapping from the
+event taxonomy to the metric catalog.
 """
 
 from __future__ import annotations
@@ -23,6 +21,9 @@ from __future__ import annotations
 import contextvars
 import time
 from typing import Any, Dict, List, Optional
+
+from hyperspace_tpu_torch.telemetry import metrics
+from hyperspace_tpu_torch.telemetry.trace import Span
 
 
 class QueryRunReport:
@@ -40,13 +41,15 @@ class QueryRunReport:
                               ``index``, ``reason``
     ``quarantine``            execution-failure containment quarantined
                               files: ``index``, ``files``
-    ``replan``                the query re-planned (``mode``
-                              ``containment``)
+    ``replan``                the query re-planned (``mode``:
+                              ``containment`` or ``source-fallback``)
     ``io.retry``              a transient IO error was retried:
                               ``attempt``, ``error``
     ``scan``                  one executed scan's IO: ``relation``,
                               ``is_index``, ``files_read``,
                               ``files_listed``, ``bytes_read``
+    ``kernel``                one timed device program (the timeline's
+                              seams): ``name``, ``device_ms``, ``device``
     ========================  ===============================================
     """
 
@@ -57,6 +60,7 @@ class QueryRunReport:
         self.decisions: List[Dict[str, Any]] = []
         self.indexes_considered: List[str] = []
         self.indexes_used: List[str] = []
+        self.root_span: Optional[Span] = None
 
     @property
     def degraded(self) -> bool:
@@ -87,6 +91,27 @@ class QueryRunReport:
         count too: the report describes what the query cost."""
         return sum(d.get("bytes_read", 0) for d in self.scans()
                    if is_index is None or bool(d.get("is_index")) == is_index)
+
+    def span_timings(self) -> List[Dict[str, Any]]:
+        """Flattened (name, duration_ms, status) rows of the attached
+        trace, in document order; empty when tracing was off."""
+        if self.root_span is None:
+            return []
+        return [{"name": s.name, "duration_ms": round(s.duration_ms, 3),
+                 "status": s.status} for s in self.root_span.walk()]
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "started_at": self.started_at,
+            "duration_ms": round(self.duration_ms, 3),
+            "outcome": self.outcome,
+            "indexes_considered": list(self.indexes_considered),
+            "indexes_used": list(self.indexes_used),
+            "indexes_skipped": self.skipped_indexes(),
+            "decisions": [dict(d) for d in self.decisions],
+            "spans": (self.root_span.to_dict()
+                      if self.root_span is not None else None),
+        }
 
     def render(self) -> str:
         """Human-readable report (what explain(verbose=True) embeds)."""
@@ -120,6 +145,13 @@ class QueryRunReport:
                     f"  scan [{side}] {d.get('relation')}: "
                     f"{d.get('files_read')}/{d.get('files_listed')} files, "
                     f"{d.get('bytes_read', 0)} bytes")
+        timings = self.span_timings()
+        if timings:
+            lines.append("  where time went:")
+            for row in timings:
+                flag = "" if row["status"] == "ok" else f" [{row['status']}]"
+                lines.append(f"    {row['name']:<28}"
+                             f"{row['duration_ms']:>10.2f} ms{flag}")
         return "\n".join(lines)
 
 
@@ -162,3 +194,29 @@ def record(kind: str, **data: Any) -> None:
         n = data.get("index", "")
         if n and n not in report.indexes_used:
             report.indexes_used.append(n)
+
+
+def observe_event(event) -> None:
+    """Translate one telemetry event (``events.emit_event``) into the
+    active report and the metrics registry."""
+    from hyperspace_tpu_torch.telemetry.events import (
+        HyperspaceIndexUsageEvent,
+        IndexDegradedEvent,
+        IndexScrubEvent,
+        _IndexActionEvent,
+    )
+
+    if isinstance(event, IndexDegradedEvent):
+        metrics.inc("degraded.fallbacks")
+        record("degraded", index=event.index_name, reason=event.reason)
+    elif isinstance(event, HyperspaceIndexUsageEvent):
+        for name in event.index_names:
+            record("index.used", index=name, message=event.message)
+    elif isinstance(event, IndexScrubEvent):
+        metrics.inc("scrub.files_checked", event.files_checked)
+        metrics.inc("scrub.files_flagged", event.files_flagged)
+    elif isinstance(event, _IndexActionEvent):
+        if event.state.startswith("CONFLICT_RETRY"):
+            metrics.inc("action.conflict.retries")
+        elif event.state.startswith("FAILURE"):
+            metrics.inc("action.failures")

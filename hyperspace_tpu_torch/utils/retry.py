@@ -9,8 +9,7 @@ transient errnos retry; everything else, ``FileExistsError`` (the
 optimistic-concurrency signal) included, propagates at once.
 
 Each retry it absorbs records an ``io.retry`` decision in the active
-run report (telemetry/report.py).  The ``io.retry.attempts`` metric of
-the JAX package is not ported.
+run report (telemetry/report.py) and counts in ``io.retry.attempts``.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import random
 import time
 from typing import Callable, Optional, TypeVar
 
-from hyperspace_tpu_torch.telemetry import report
+from hyperspace_tpu_torch.telemetry import metrics, report
 
 T = TypeVar("T")
 
@@ -63,6 +62,7 @@ class RetryPolicy:
                 attempt += 1
                 if not is_transient(e) or attempt >= max(1, self.max_attempts):
                     raise
+                metrics.inc("io.retry.attempts")
                 report.record("io.retry", attempt=attempt,
                               error=f"{type(e).__name__}: {e}")
                 time.sleep(self.delay_s(attempt - 1, rng))

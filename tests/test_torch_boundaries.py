@@ -56,7 +56,12 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "advisor/recommend.py", "lifecycle/__init__.py",
                    "lifecycle/policy.py", "lifecycle/cdc.py",
                    "lifecycle/journal.py", "lifecycle/lease.py",
-                   "lifecycle/daemon.py", "io/watch.py",):
+                   "lifecycle/daemon.py", "io/watch.py",
+                   "telemetry/trace.py", "telemetry/metrics.py",
+                   "telemetry/events.py", "telemetry/timeline.py",
+                   "telemetry/perf_ledger.py", "telemetry/bench_compare.py",
+                   "telemetry/__init__.py", "utils/reflection.py",
+                   "lint/catalog.py",):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -93,7 +98,11 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "lifecycle/change_detector.py", "lifecycle/policy.py",
                    "lifecycle/cdc.py", "lifecycle/journal.py",
                    "lifecycle/lease.py", "lifecycle/daemon.py",
-                   "io/watch.py",):
+                   "io/watch.py", "telemetry/trace.py",
+                   "telemetry/metrics.py", "telemetry/events.py",
+                   "telemetry/timeline.py", "telemetry/perf_ledger.py",
+                   "telemetry/bench_compare.py", "utils/reflection.py",
+                   "lint/catalog.py",):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -349,6 +358,62 @@ def test_the_lifecycle_imports_no_jax(tmp_path):
         w = watch.SourceWatcher(s.conf, [data], mode="poll").start()
         w.stop()
         hs.stop_maintenance()
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_telemetry_core_imports_no_jax(tmp_path):
+    """The telemetry modules load without pyarrow; then a traced build
+    and query with the timeline on, the metrics text (its HELP lines
+    parsed from docs/16 by the port's own ``lint/catalog.py``), the perf
+    ledger and a Perfetto export, each through the port's entry points,
+    load neither jax nor the JAX package."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import hyperspace_tpu_torch.telemetry
+        from hyperspace_tpu_torch.telemetry import (bench_compare, events,
+            metrics, perf_ledger, timeline, trace)
+        import hyperspace_tpu_torch.lint.catalog
+        import hyperspace_tpu_torch.utils.reflection
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        pq.write_table(pa.table({{"k": np.arange(300), "v": np.ones(300)}}),
+                       os.path.join(data, "part-0.parquet"))
+        from hyperspace_tpu_torch import HyperspaceConf
+        conf = HyperspaceConf(event_logger="CollectingEventLogger")
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu",
+                              conf=conf)
+        s.conf.num_buckets = 4
+        s.conf.telemetry_tracing_enabled = True
+        s.conf.timeline_enabled = True
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        s.enable_hyperspace()
+        assert s.read.parquet(data).filter(col("k") == 3).collect().num_rows == 1
+        assert "# HELP hyperspace_build_actions" in hs.metrics_text()
+        assert hs.perf_history().num_rows == 1
+        hs.export_timeline({str(tmp_path / "t.json")!r})
+        assert hs.metrics()["exec.kernel.filter.device_ms"]["count"] == 1
+        assert events.get_event_logger().events
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

@@ -1,10 +1,16 @@
 """Build reports in the port, held to the JAX package's
 telemetry/build_report.py: for the same action over the same source,
 the same outcome, phase names, bytes read and written, files written,
-spill bytes and refresh properties, and bytes that equal the disk's."""
+spill bytes and refresh properties, and bytes that equal the disk's.
+Then what tests/test_build_report.py holds the JAX package to: the
+metric and span export, the report of a conflict-retried action, the
+perf ledger (round trip, restart, bound, fault budget, and a ledger the
+port wrote read by the JAX package) and the bench regression watchdog
+(telemetry/bench_compare.py)."""
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -248,3 +254,298 @@ def test_profiling_switch_gates_the_memory_sampling(tmp_path, enabled):
     assert report is not None and report.outcome == "ok"
     assert (report.peak_rss_mb is not None) == enabled
     assert report.phases.get("kernel", 0) > 0  # phases stay on
+
+
+# ---------------------------------------------------------------------------
+# Export, the conflict-retried report, the switch's other gates
+# ---------------------------------------------------------------------------
+def test_metrics_and_span_export(tmp_path):
+    from hyperspace_tpu_torch.telemetry import metrics, trace
+
+    src = str(tmp_path / "src")
+    _write_source(src, n=2_000, files=2)
+    sink = trace.add_sink(trace.CollectingTraceSink())
+    trace.enable_tracing()
+    try:
+        s = _session(hyperspace_tpu_torch, str(tmp_path))
+        before = metrics.registry().counter("build.actions")
+        hs = hyperspace_tpu_torch.Hyperspace(s)
+        hs.create_index(s.read.parquet(src),
+                        hyperspace_tpu_torch.IndexConfig("mi", ["k"], ["v"]))
+    finally:
+        trace.disable_tracing()
+        trace.remove_sink(sink)
+    assert metrics.registry().counter("build.actions") == before + 1
+    assert metrics.registry().counter("build.phase.read.seconds") > 0
+    action_spans = sink.find("action.CreateAction")
+    assert action_spans
+    names = {sp.name for sp in action_spans[-1].walk()}
+    assert {"build.phase.read", "build.phase.kernel",
+            "build.phase.write"} <= names, names
+    assert action_spans[-1].tags["build_bytes_written"] == \
+        hs.last_build_report().bytes_written
+
+
+def test_report_survives_conflict_retry(tmp_path):
+    from hyperspace_tpu_torch.actions.refresh import RefreshAction
+    from hyperspace_tpu_torch.exceptions import ConcurrentWriteError
+    from hyperspace_tpu_torch.utils.retry import RetryPolicy
+
+    src = str(tmp_path / "src")
+    _write_source(src, n=2_000, files=2)
+    s = _session(hyperspace_tpu_torch, str(tmp_path))
+    hs = hyperspace_tpu_torch.Hyperspace(s)
+    hs.create_index(s.read.parquet(src),
+                    hyperspace_tpu_torch.IndexConfig("bi", ["k"], ["v"]))
+    _write_source(src, n=300, files=1, seed=5, first=7)
+    mgr = s.index_collection_manager
+    log_manager = mgr._log_manager("bi")
+    action = RefreshAction(log_manager, mgr._data_manager("bi"), s,
+                           previous=log_manager.get_latest_stable_log())
+    action.concurrency_max_retries = 2
+    action.conflict_backoff = RetryPolicy(max_attempts=2,
+                                          initial_backoff_ms=1.0,
+                                          max_backoff_ms=2.0)
+    real_write = log_manager.write_log_or_raise
+    fails = {"n": 1}
+
+    def flaky_write(log_id, entry):
+        if fails["n"] > 0:
+            fails["n"] -= 1
+            raise ConcurrentWriteError("injected conflict")
+        return real_write(log_id, entry)
+
+    log_manager.write_log_or_raise = flaky_write
+    action.run()
+    report = action.build_report
+    assert report.outcome == "ok"
+    assert report.conflict_retries == 1
+    assert report.to_dict()["conflict_retries"] == 1
+    assert report.phases.get("read", 0) > 0
+    assert s.last_build_report_value is report
+
+
+def test_disabled_profiling_skips_export_and_ledger(tmp_path):
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    src = str(tmp_path / "src")
+    _write_source(src, n=2_000, files=2)
+    s = _session(hyperspace_tpu_torch, str(tmp_path),
+                 build_profiling_enabled=False)
+    hs = hyperspace_tpu_torch.Hyperspace(s)
+    before = metrics.registry().counter("build.actions")
+    hs.create_index(s.read.parquet(src),
+                    hyperspace_tpu_torch.IndexConfig("di", ["k"], ["v"]))
+    report = hs.last_build_report()
+    assert report is not None and report.peak_rss_mb is None
+    assert metrics.registry().counter("build.actions") == before
+    assert hs.perf_history().num_rows == 0
+
+
+# ---------------------------------------------------------------------------
+# The perf ledger
+# ---------------------------------------------------------------------------
+from hyperspace_tpu.telemetry import perf_ledger as jax_ledger  # noqa: E402
+from hyperspace_tpu_torch.telemetry import perf_ledger  # noqa: E402
+
+
+def test_ledger_round_trip_and_restart(tmp_path):
+    src = str(tmp_path / "src")
+    _write_source(src, n=2_000, files=2)
+    s = _session(hyperspace_tpu_torch, str(tmp_path))
+    hs = hyperspace_tpu_torch.Hyperspace(s)
+    hs.create_index(s.read.parquet(src),
+                    hyperspace_tpu_torch.IndexConfig("li", ["k"], ["v"]))
+    hs.optimize_index("li", mode="full")
+    table = hs.perf_history()
+    assert table.num_rows == 2
+    assert set(table.column("kind").to_pylist()) == {"action"}
+    names = table.column("name").to_pylist()
+    assert names == ["CreateAction(li)", "OptimizeAction(li)"]
+    rec = json.loads(table.column("recordJson").to_pylist()[0])
+    assert rec["fingerprint"]["num_buckets"] == 4
+    assert rec["fingerprint"]["torch"] == __import__("torch").__version__
+    assert "phases_s" in rec and rec["wall_s"] > 0
+    s2 = _session(hyperspace_tpu_torch, str(tmp_path))
+    assert hyperspace_tpu_torch.Hyperspace(s2).perf_history().num_rows == 2
+
+
+def test_ledger_bounded_keeps_newest(tmp_path):
+    s = _session(hyperspace_tpu_torch, str(tmp_path),
+                 perf_ledger_max_entries=3)
+    for i in range(6):
+        perf_ledger.append(s.conf, {"kind": "bench", "name": f"s{i}",
+                                    "wall_s": float(i)})
+    recs = perf_ledger.records(s.conf)
+    assert [r["name"] for r in recs] == ["s3", "s4", "s5"]
+
+
+def test_ledger_append_never_consumes_fault_budget(tmp_path):
+    from hyperspace_tpu_torch.io import faults
+
+    s = _session(hyperspace_tpu_torch, str(tmp_path))
+    plan = faults.FaultPlan(site="store.put", kind="eio", at=1, count=1)
+    faults.install(plan)
+    try:
+        assert perf_ledger.append(s.conf, {"kind": "bench", "name": "x",
+                                           "wall_s": 0.0}) is not None
+        assert plan._calls == 0
+    finally:
+        faults.clear()
+
+
+def test_ledger_disabled_appends_nothing(tmp_path):
+    s = _session(hyperspace_tpu_torch, str(tmp_path),
+                 perf_ledger_enabled=False)
+    assert perf_ledger.append(s.conf, {"kind": "bench", "name": "x"}) is None
+    assert perf_ledger.records(s.conf) == []
+
+
+def test_index_listing_ignores_ledger_dir(tmp_path):
+    src = str(tmp_path / "src")
+    _write_source(src, n=500, files=1)
+    s = _session(hyperspace_tpu_torch, str(tmp_path))
+    hs = hyperspace_tpu_torch.Hyperspace(s)
+    hs.create_index(s.read.parquet(src),
+                    hyperspace_tpu_torch.IndexConfig("bi", ["k"], ["v"]))
+    assert os.path.isdir(os.path.join(s.conf.system_path,
+                                      perf_ledger.PERF_DIR))
+    assert hs.indexes().column("name").to_pylist() == ["bi"]
+
+
+def test_jax_package_reads_the_ports_ledger(tmp_path):
+    """A ledger the port wrote reads through the JAX package's
+    ``records`` (its posix store), with the same keys and version."""
+    src = str(tmp_path / "src")
+    _write_source(src, n=1_000, files=2)
+    out = _run_both(tmp_path, src)
+    torch_s, jax_s = out["torch"][1], out["jax"][1]
+    assert perf_ledger.RECORD_VERSION == jax_ledger.RECORD_VERSION
+    jax_s.conf.log_store_class = "hyperspace_tpu.io.log_store.PosixLogStore"
+    mine = perf_ledger.records(torch_s.conf)
+    theirs = jax_ledger.records(jax_s.conf,
+                                root=perf_ledger.perf_root(torch_s.conf))
+    assert theirs == mine and len(mine) == 1
+    reference = jax_ledger.records(jax_s.conf)
+    assert len(reference) == 1
+    assert set(mine[0]) == set(reference[0])
+    # The environment half of the fingerprint names torch, not jax.
+    extra = set(mine[0]["fingerprint"]) - set(reference[0]["fingerprint"])
+    assert {"torch", "cuda"} <= extra <= {"torch", "cuda", "device_name"}
+    assert mine[0]["v"] == reference[0]["v"] == jax_ledger.RECORD_VERSION
+    assert mine[0]["name"] == reference[0]["name"] == "CreateAction(bi)"
+    assert mine[0]["phases_s"].keys() == reference[0]["phases_s"].keys()
+
+
+# ---------------------------------------------------------------------------
+# The regression watchdog (telemetry/bench_compare.py)
+# ---------------------------------------------------------------------------
+from hyperspace_tpu.telemetry import bench_compare as jax_compare  # noqa: E402
+from hyperspace_tpu_torch.telemetry import bench_compare  # noqa: E402
+
+
+def _write_results(path, sections) -> str:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(json.dumps({"bench": "hyperspace-tpu"}) + "\n")
+        for rec in sections:
+            f.write(json.dumps(rec) + "\n")
+    return str(path)
+
+
+def _sections(filter_median=0.01, speedup=4.0, build_s=2.0,
+              spill_route=1.0, scan_median=2.0):
+    return [
+        {"section": "setup", "status": "ok", "elapsed_s": 3.0,
+         "index_build_s": build_s,
+         "index_build_phases": [
+             {"index": "li_idx", "read_s": 0.5,
+              "spill_route_s": spill_route, "write_s": 0.4}]},
+        {"section": "sf1_queries", "status": "ok", "elapsed_s": 2.0,
+         "filter_scan_s": {"median": scan_median, "min": scan_median,
+                           "max": scan_median, "reps": 3},
+         "filter_indexed_s": {"median": filter_median,
+                              "min": filter_median, "max": filter_median,
+                              "reps": 3},
+         "filter_speedup": speedup},
+    ]
+
+
+class TestBenchCompare:
+    def test_identical_runs_no_regression(self, tmp_path):
+        a = _write_results(tmp_path / "a.jsonl", _sections())
+        b = _write_results(tmp_path / "b.jsonl", _sections())
+        result, report = bench_compare.compare_files(a, b, 25.0, 0.0)
+        assert result.ok and result.compared >= 3
+        assert "no regression" in report
+
+    def test_timing_regression_flagged_with_attribution(self, tmp_path):
+        base = _write_results(tmp_path / "base.jsonl", _sections())
+        cur = _write_results(tmp_path / "cur.jsonl",
+                             _sections(build_s=5.0, spill_route=4.0))
+        result, report = bench_compare.compare_files(cur, base, 25.0, 0.1)
+        assert not result.ok
+        assert "index_build_s" in {r["metric"] for r in result.regressions}
+        assert result.regressions[0]["section"] == "setup"
+        assert "per-phase attribution" in report
+        assert "spill_route" in report
+        assert "+3.000" in report
+
+    def test_speedup_regression_flagged(self, tmp_path):
+        base = _write_results(tmp_path / "base.jsonl",
+                              _sections(speedup=8.0))
+        cur = _write_results(tmp_path / "cur.jsonl", _sections(speedup=4.0))
+        result, _report = bench_compare.compare_files(cur, base, 25.0, 0.5)
+        assert any(r["metric"] == "filter_speedup"
+                   for r in result.regressions)
+
+    def test_ratio_noise_guard_uses_reference_seconds(self, tmp_path):
+        base = _write_results(tmp_path / "base.jsonl",
+                              _sections(speedup=8.0, scan_median=0.004))
+        cur = _write_results(tmp_path / "cur.jsonl",
+                             _sections(speedup=4.0, scan_median=0.004))
+        result, _ = bench_compare.compare_files(cur, base, 25.0, 0.5)
+        assert not any(r["metric"] == "filter_speedup"
+                       for r in result.regressions)
+
+    def test_abs_floor_suppresses_toy_noise(self, tmp_path):
+        base = _write_results(tmp_path / "base.jsonl",
+                              _sections(filter_median=0.01))
+        cur = _write_results(tmp_path / "cur.jsonl",
+                             _sections(filter_median=0.02))
+        result, _ = bench_compare.compare_files(cur, base, 25.0, 0.5)
+        assert not any(r["metric"].startswith("filter_indexed_s")
+                       for r in result.regressions)
+        result2, _ = bench_compare.compare_files(cur, base, 25.0, 0.0)
+        assert any(r["metric"] == "filter_indexed_s.median"
+                   for r in result2.regressions)
+
+    def test_missing_baseline_raises(self, tmp_path):
+        cur = _write_results(tmp_path / "cur.jsonl", _sections())
+        with pytest.raises(bench_compare.BaselineError):
+            bench_compare.compare_files(cur, str(tmp_path / "nope.jsonl"))
+
+    def test_headline_shaped_baseline_loads(self, tmp_path):
+        headline = {"metric": "tpch_sf1_indexed_query_speedup_geomean",
+                    "value": 4.5, "unit": "x", "vs_baseline": 4.5,
+                    "detail": {"filter_speedup": 4.0,
+                               "index_build_s": 2.0,
+                               "platform": "cpu"}}
+        base = tmp_path / "BENCH_rXX.json"
+        base.write_text(json.dumps(headline))
+        cur = _write_results(tmp_path / "cur.jsonl",
+                             _sections(speedup=1.0, build_s=2.0))
+        result, _ = bench_compare.compare_files(str(cur), str(base),
+                                                25.0, 0.5)
+        assert any(r["metric"] == "filter_speedup"
+                   for r in result.regressions)
+
+    @pytest.mark.parametrize("cur_kw", [{}, {"build_s": 5.0,
+                                             "spill_route": 4.0},
+                                        {"speedup": 1.0}])
+    def test_reports_equal_the_jax_package(self, tmp_path, cur_kw):
+        base = _write_results(tmp_path / "base.jsonl", _sections())
+        cur = _write_results(tmp_path / "cur.jsonl", _sections(**cur_kw))
+        mine = bench_compare.compare_files(cur, base, 25.0, 0.1)
+        theirs = jax_compare.compare_files(cur, base, 25.0, 0.1)
+        assert mine[1] == theirs[1]
+        assert mine[0].regressions == theirs[0].regressions
