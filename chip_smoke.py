@@ -68,7 +68,7 @@ beside it.
            arrow's group-by, with nothing on the device.
            The phase starts on an empty device column cache.  Each
            query is timed cold and warm: ``indexed_cold_ms`` is the
-           median host wall of TIMED_QUERY_RUNS collects, the cache
+           median host wall of D_TIMED_RUNS collects, the cache
            emptied before each (outside the clock), after a checking one
            on an empty cache; ``indexed_warm_ms`` the median of as many
            collects after one more checked one, which must have read
@@ -417,6 +417,35 @@ beside it.
            them).  Then Q_PAIRS interleaved off/on pairs of the build and
            of the queries give the overhead, printed, not gated.  Prints
            ``{"telemetry": ...}`` with the card's name and power limit.
+  phase R  the query-path guards and diagnostics (after phase Q): an SF1
+           spill build of ``r_li`` over a hard-linked copy of phase C's
+           lineitem with the guard off, then the first collect with
+           ``device_guard_enabled`` arms the strict sync guard and the
+           same build runs again (timeline on): every bucket's sha256
+           equal, its launches (chunks of each kernel) counted under
+           ``R diagnostics``, ``exec.transfer.d2h.bytes`` at least the
+           chunks' permutations and counts.  Phase D's seven queries
+           cold and warm under the guard: numpy's answers, 0
+           ``guard.sync.violations``, attributed read-backs above 0, no
+           launch; an ``.item()`` injected through
+           ``ops/filter.compile_predicate`` raises ``DeviceSyncError``
+           with nothing contained; R_PAIRS off/armed pairs of the warm
+           queries give the guard's overhead, and R_PAIRS passes before
+           the first arming the cost of the installed patch against
+           unpatched torch (both printed, not gated).  The
+           plan cache: two passes, 7 hits, the optimizer ms a hit skips,
+           a committed action (delete) and the stale miss.  Deadlines:
+           q3 under 1 ms raises ``DeadlineExceededError`` uncontained,
+           under 60 s answers.  The flight recorder (slow at R_SLOW_MS):
+           q3's record by trace id, ``export_timeline(trace_id=)``, the
+           two error records, one bundle dumped and read back.  The
+           doctor over ``r_li``: integrity and staleness ``ok``; a
+           flipped byte and a full verify, ``crit``; the repair (one
+           launch of each kernel, under ``R diagnostics``), ``ok``; an
+           appended file, staleness ``warn``; one maintenance cycle (a
+           quick refresh, no launch) and its ``maintenance`` flight
+           record.  The guard is disarmed at the end.  Prints
+           ``{"diagnostics": ...}`` with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -445,12 +474,14 @@ H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
-``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``), the
+``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
+R's ``R diagnostics``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
-(phase P) and the telemetry JSON (phase Q), each of the last four with
-the card's name and power limit, the card's name and power limit, and
+(phase P), the telemetry JSON (phase Q) and the diagnostics JSON (phase
+R), each of the last five with the card's name and power limit, the
+card's name and power limit, and
 ``{"ok": true, "device": ...}``.
 """
 
@@ -494,11 +525,12 @@ AGG_RTOL = 1e-9
 # The slice's device programs, timed by name in the profiled run.
 AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
                 "_topk_groups")
-# Two timed runs per variant of phase D (and phase I), one of phase G's
-# hybrid and clean queries and scans and of phase K's shapes: with phase
-# Q added, what keeps the whole script well inside its time limit on the
-# slower card hosts.
+# Two timed runs per variant of phase I, one of phase D's variants, of
+# phase G's hybrid and clean queries and scans and of phase K's shapes:
+# with phases Q and R added, what keeps the whole script well inside its
+# time limit on the slower card hosts.
 TIMED_QUERY_RUNS = 2
+D_TIMED_RUNS = 1
 G_TIMED_RUNS = 1
 # The cold and the resident thresholds of the host route: more rows than
 # any query has, so every filter, join kernel and aggregate runs on the
@@ -608,8 +640,14 @@ M_EXPLAINED = ("q12", "q21_shape", "year_1995")
 M_RULES = ("JoinIndexRule", "FilterIndexRule", "BucketPruneRule",
            "DataSkippingFilterRule")
 Q_INDEX = "li_tel"               # phase Q's SF1 spill build
-Q_PAIRS = 5                     # interleaved timeline off/on pairs
+Q_PAIRS = 3                     # interleaved timeline off/on pairs
 Q_EVENT_CALLS = ("cudaEventRecord", "cudaEventSynchronize")
+R_SOURCE = "r_lineitem"         # a hard-linked copy of phase C's lineitem
+R_INDEX = "r_li"                # phase R's strict SF1 spill build
+R_PAIRS = 3                     # interleaved guard off/armed pairs
+R_SLOW_MS = 1.0                 # flight_recorder_slow_ms: q3 is kept
+R_APPENDED_ROWS = 10_000        # one appended file: a quick refresh
+R_PLAN_RUNS = 3                 # timed optimizer passes per query
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 67 TFLOP/s of float32 outside the tensor cores counts an FMA as two
 # operations; the kernels' integer ops issue one each, so 33.5e12 op/s.
@@ -1498,9 +1536,9 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
         device_cache().clear()
         stats = checked("indexed", "device")
         cache_cold = stats.get("device_cache")
-        indexed_cold = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        indexed_cold = [cold_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         cache_warm = checked("indexed warm", "device", warm=True)["device_cache"]
-        indexed_warm = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        indexed_warm = [wall_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         device_cache().clear()
         profiled = profile_query(dev, ds.collect, programs=name in AGG_QUERIES)
         warm_profile = profile_query(dev, ds.collect)
@@ -1512,16 +1550,16 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
         # Resident columns lower no threshold here: the route is the host.
         set_min_rows(session, HOST_ROUTE_MIN_ROWS)
         checked("host route", "host")
-        host_route = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        host_route = [wall_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         set_min_rows(session, 0)
         session.disable_hyperspace()
         if index_scans(ds.optimized_plan()):
             raise AssertionError(f"phase D {name}: disabled plan scans an index")
         device_cache().clear()
         checked("source", None)
-        scan_cold = [cold_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        scan_cold = [cold_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         checked("source warm", None, warm=True)
-        scan_warm = [wall_ms(ds.collect) for _ in range(TIMED_QUERY_RUNS)]
+        scan_warm = [wall_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         med = {k: statistics.median(v) for k, v in (
             ("indexed_cold_ms", indexed_cold), ("indexed_warm_ms", indexed_warm),
             ("scan_cold_ms", scan_cold), ("scan_warm_ms", scan_warm),
@@ -5248,6 +5286,408 @@ def phase_q(orders: dict, li: dict, root: str, dev) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+def r_sneaky_filter():
+    """Patch ``ops.filter.compile_predicate`` so every predicate program
+    first reads one value back with an unattributed ``.item()``; returns
+    the original, to put back."""
+    from hyperspace_tpu_torch.ops import filter as ops_filter
+
+    orig = ops_filter.compile_predicate
+
+    def sneaky(expr, order):
+        fn, lits = orig(expr, order)
+
+        def bad_fn(cols, literals):
+            cols[0][0].item()  # the unattributed sync
+            return fn(cols, literals)
+
+        return bad_fn, lits
+
+    ops_filter.compile_predicate = sneaky
+    return orig
+
+
+def r_decisions(session) -> list:
+    return [d.get("kind") for d in session.last_run_report_value.decisions]
+
+
+def r_grades(hs) -> dict:
+    return {c.name: c.status for c in hs.doctor().checks}
+
+
+def r_require_grade(label: str, grades: dict, check: str, want: str) -> None:
+    if grades.get(check) != want:
+        raise AssertionError(f"phase R {label}: doctor {check} "
+                             f"{grades.get(check)}, expected {want} "
+                             f"({grades})")
+
+
+def phase_r(orders: dict, li: dict, root: str, dev) -> dict:
+    """The query-path guards and diagnostics at SF1 (see the module
+    docstring)."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch.config import HyperspaceConf
+    from hyperspace_tpu_torch.exceptions import (
+        DeadlineExceededError,
+        DeviceSyncError,
+    )
+    from hyperspace_tpu_torch.execution import plan_cache as pc
+    from hyperspace_tpu_torch.execution import sync_guard
+    from hyperspace_tpu_torch.ops import filter as ops_filter
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import (
+        flight_recorder,
+        metrics,
+        timeline,
+        trace,
+    )
+    from hyperspace_tpu_torch.utils import deadline
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    src = os.path.join(root, R_SOURCE)
+    shutil.copytree(os.path.join(root, "lineitem"), src,
+                    copy_function=os.link)
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    session.conf.flight_recorder_slow_ms = R_SLOW_MS
+    session.enable_hyperspace()
+    hs = Hyperspace(session)
+    queries = build_queries(session, root, aggregates=True)
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    config = IndexConfig(R_INDEX, INDEXED, INCLUDED)
+    out: dict = {}
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(label: str) -> None:
+        """Close the step running since the last mark."""
+        now = time.perf_counter()
+        steps[label] = now - mark[0]
+        mark[0] = now
+
+    answers: dict = {}
+
+    def check(label: str, name: str, table) -> None:
+        """``table`` equal to numpy's answer: to the first checked one's
+        table when equal to it (a cheap equality instead of sorting
+        millions of rows again), else against numpy itself."""
+        if name in answers and table.equals(answers[name]):
+            return
+        want, keys = expected[name]
+        require_rows(f"phase R {label} {name}", table, want, keys,
+                     AGG_RTOL if name in AGG_QUERIES else 0.0)
+        answers.setdefault(name, table)
+
+    def snap(name: str) -> float:
+        return float(metrics.snapshot().get(name, 0.0) or 0.0)
+
+    try:
+        metrics.reset()
+        flight_recorder.reset()
+        sync_guard.arm(HyperspaceConf(), dev)  # off: the reference build
+        ref = spill_session(dev, os.path.join(root, "r_ref"))
+        timed_build(dev, "R reference build", ref, lambda: ref.create_index(
+            ref.session.read.parquet(src), config), chunks)
+        want_digests = bucket_digests(ref, R_INDEX)
+        shutil.rmtree(ref.session.conf.system_path, ignore_errors=True)
+        step("setup_and_reference_build")
+
+        # The unpatched baseline: the seven warm queries before the first
+        # arming patches torch.Tensor (the off/armed pairs below both run
+        # patched).  Taken only where nothing installed the patch yet.
+        unpatched_ms = None
+        if not sync_guard._patched:
+            for ds in queries.values():
+                ds.collect()  # warm
+            unpatched_ms = [sum(wall_ms(ds.collect)
+                                for ds in queries.values())
+                            for _ in range(R_PAIRS)]
+        step("unpatched_baseline")
+
+        # 1. Strict mode: the first collect arms the guard.
+        session.conf.device_guard_enabled = True
+        check("arming", "point", queries["point"].collect())
+        if not sync_guard.armed():
+            raise AssertionError("phase R: the first collect did not arm "
+                                 "the guard")
+        hs_r = spill_session(dev, os.path.join(root, "r_indexes"),
+                             device_guard_enabled=True)
+        timeline.enable_timeline()
+        try:
+            strict = timed_build(
+                dev, "R strict build", hs_r, lambda: hs_r.create_index(
+                    hs_r.session.read.parquet(src), config), chunks)
+        finally:
+            timeline.disable_timeline()
+        d2h = snap("exec.transfer.d2h.bytes")
+        d2h_floor = N_LINEITEM * 8 + chunks * SPILL_BUCKETS * 4
+        if d2h < d2h_floor:
+            raise AssertionError(f"phase R: d2h bytes {d2h} under the "
+                                 f"chunks' permutations and counts "
+                                 f"{d2h_floor}")
+        if bucket_digests(hs_r, R_INDEX) != want_digests:
+            raise AssertionError("phase R: the strict build's buckets "
+                                 "differ from the unguarded build's")
+        launches = dict(strict["launches"])
+        step("strict_build")
+        v0 = snap("guard.sync.violations")
+        a0 = snap("guard.sync.attributed")
+        kernels.reset_launch_counts()
+        q_ms: dict = {}
+        for name, ds in queries.items():
+            device_cache().clear()
+            t0 = time.perf_counter()
+            table = ds.collect()
+            cold = (time.perf_counter() - t0) * 1e3
+            check("strict cold", name, table)
+            check_routes("strict", name, "device",
+                         session.last_execution_stats)
+            t0 = time.perf_counter()
+            table = ds.collect()
+            q_ms[name] = {"cold_ms": cold,
+                          "warm_ms": (time.perf_counter() - t0) * 1e3}
+            check("strict warm", name, table)
+        query_launches = kernels.launch_counts()
+        if any(query_launches.values()):
+            raise AssertionError(f"phase R: the queries launched "
+                                 f"{query_launches}")
+        step("strict_queries")
+        violations = snap("guard.sync.violations") - v0
+        attributed = snap("guard.sync.attributed") - a0
+        if violations != 0 or attributed <= 0:
+            raise AssertionError(f"phase R: strict queries counted "
+                                 f"{violations} violations, {attributed} "
+                                 f"attributed read-backs")
+        orig = r_sneaky_filter()
+        try:
+            try:
+                queries["point"].collect()
+            except DeviceSyncError as e:
+                injected = str(e)
+            else:
+                raise AssertionError("phase R: the injected .item() was "
+                                     "not caught")
+        finally:
+            ops_filter.compile_predicate = orig
+        kinds = r_decisions(session)
+        if {"replan", "degraded", "quarantine"} & set(kinds) \
+                or "containment" in (session.last_execution_stats or {}):
+            raise AssertionError(f"phase R: the violation was contained: "
+                                 f"{kinds}")
+        if snap("guard.sync.violations") - v0 != 1:
+            raise AssertionError("phase R: the injected .item() counted "
+                                 "no violation")
+        step("injected")
+        pairs: dict = {"off_ms": [], "armed_ms": []}
+        for _ in range(R_PAIRS):
+            for armed in (False, True):
+                session.conf.device_guard_enabled = armed
+                ms = sum(wall_ms(ds.collect) for ds in queries.values())
+                pairs["armed_ms" if armed else "off_ms"].append(ms)
+        session.conf.device_guard_enabled = True
+        step("overhead_pairs")
+        out["strict"] = {
+            "build_wall_s": strict["wall_s"], "build_launches": launches,
+            "d2h_bytes": d2h, "d2h_floor": d2h_floor,
+            "attributed": attributed, "violations": violations,
+            "queries": q_ms, "injected": injected[:80],
+            "pairs": pairs, "unpatched_ms": unpatched_ms,
+            "armed_over_off": statistics.median(pairs["armed_ms"])
+            / statistics.median(pairs["off_ms"]),
+            "off_over_unpatched": statistics.median(pairs["off_ms"])
+            / statistics.median(unpatched_ms) if unpatched_ms else None}
+
+        # 2. The plan cache.
+        cache = pc.PlanCache()
+        passes = []
+        for _ in range(2):
+            ms = 0.0
+            for name, ds in queries.items():
+                t0 = time.perf_counter()
+                table = ds.collect(plan_cache=cache)
+                ms += (time.perf_counter() - t0) * 1e3
+                check("plan cache", name, table)
+            passes.append(ms)
+        stats = cache.stats()
+        if stats["hits"] != len(queries) or stats["misses"] != len(queries):
+            raise AssertionError(f"phase R: plan cache {stats}")
+        optimize_ms = {}
+        for name, ds in queries.items():
+            runs = []
+            for _ in range(R_PLAN_RUNS):
+                t0 = time.perf_counter()
+                ds.optimized_plan()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            optimize_ms[name] = statistics.median(runs)
+        g0, stale0 = pc.current_generation(), snap("serve.plan_cache.stale")
+        hs_r.delete_index(R_INDEX)  # one committed action
+        if pc.current_generation() != g0 + 1:
+            raise AssertionError("phase R: the action bumped no generation")
+        check("stale", "q3", queries["q3"].collect(plan_cache=cache))
+        hit = [d["hit"] for d in session.last_run_report_value.decisions
+               if d.get("kind") == "plan_cache"]
+        if hit != [False] or snap("serve.plan_cache.stale") != stale0 + 1:
+            raise AssertionError(f"phase R: after the action the lookup "
+                                 f"was {hit}, stale "
+                                 f"{snap('serve.plan_cache.stale') - stale0}")
+        hs_r.restore_index(R_INDEX)
+        step("plan_cache")
+        out["plan_cache"] = {"miss_pass_ms": passes[0],
+                             "hit_pass_ms": passes[1], "stats": stats,
+                             "optimize_ms": optimize_ms,
+                             "saved_ms": sum(optimize_ms.values())}
+
+        # 3. Deadlines.
+        q3 = queries["q3"]
+        t0 = time.perf_counter()
+        try:
+            with deadline.scope(0.001):
+                q3.collect()
+        except DeadlineExceededError as e:
+            expired = str(e)
+        else:
+            raise AssertionError("phase R: q3 beat a 1 ms deadline")
+        expired_ms = (time.perf_counter() - t0) * 1e3
+        kinds = r_decisions(session)
+        if {"replan", "degraded", "quarantine"} & set(kinds):
+            raise AssertionError(f"phase R: the deadline was contained: "
+                                 f"{kinds}")
+        trace.enable_tracing()
+        try:
+            t0 = time.perf_counter()
+            with deadline.scope(60.0):
+                table = q3.collect()
+            within_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            trace.disable_tracing()
+        check("deadline 60 s", "q3", table)
+        step("deadline")
+        out["deadline"] = {"expired": expired, "expired_ms": expired_ms,
+                           "within_ms": within_ms}
+
+        # 4. The flight recorder.
+        rec = flight_recorder.recorder().records()[-1]
+        tid = rec["trace_id"]
+        if rec["kind"] != "local" or rec["outcome"] != "ok" \
+                or rec["reason"] != "slow" or not rec["spans"]:
+            raise AssertionError(f"phase R: q3's record {rec['kind']} "
+                                 f"{rec['outcome']} {rec['reason']}")
+        slow = hs.slow_queries()
+        if tid not in slow.column("traceId").to_pylist() \
+                or hs.trace(tid)["trace_id"] != tid:
+            raise AssertionError("phase R: q3 not found by trace id")
+        path = os.path.join(root, "r_trace.json")
+        hs.export_timeline(path, trace_id=tid)
+        with open(path, encoding="utf-8") as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]}
+        if "query.collect" not in names:
+            raise AssertionError(f"phase R: exported {sorted(names)[:8]}")
+        # Kept as errors: the injected .item()'s query and the expired q3.
+        errors = [r for r in flight_recorder.recorder().records()
+                  if r["outcome"] == "error"]
+        if len(errors) != 2 or any(r["reason"] != "error" for r in errors):
+            raise AssertionError(f"phase R: {len(errors)} error records")
+        flight_recorder.clear_bundles(session.conf)
+        key = hs.dump_diagnostics()
+        bundles = hs.diagnostics_bundles()
+        if [b["key"] for b in bundles] != [key] \
+                or not bundles[0]["records"] or not bundles[0]["metrics"]:
+            raise AssertionError(f"phase R: bundles "
+                                 f"{[b.get('key') for b in bundles]}")
+        step("flight_recorder")
+        out["flight"] = {"records": slow.num_rows, "errors": len(errors),
+                         "trace_id": tid, "exported_events": len(names),
+                         "bundle_records": len(bundles[0]["records"]),
+                         "bundle_metrics": len(bundles[0]["metrics"])}
+
+        # 5. The doctor.
+        grades = {"clean": r_grades(hs_r)}
+        for c in ("integrity", "staleness"):
+            r_require_grade("clean", grades["clean"], c, "ok")
+        entry = hs_r.session.index_collection_manager.get_index(R_INDEX)
+        victim = sorted(f.name for f in entry.content.file_infos())[0]
+        flip_byte(victim)
+        full = hs_r.verify_index(R_INDEX, "full")
+        flagged = [f for f, st in zip(full.column("file").to_pylist(),
+                                      full.column("status").to_pylist())
+                   if st != "ok"]
+        if flagged != [victim]:
+            raise AssertionError(f"phase R: verify flagged {flagged}")
+        grades["damaged"] = r_grades(hs_r)
+        r_require_grade("damaged", grades["damaged"], "integrity", "crit")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hs_r.refresh_index(R_INDEX, "repair")
+        repair_s = time.perf_counter() - t0
+        repair = kernels.launch_counts()
+        if cuda:
+            require_launches("phase R repair", repair,
+                             {k: 1 for k in repair})
+        launches = {k: launches[k] + repair[k] for k in launches}
+        grades["repaired"] = r_grades(hs_r)
+        r_require_grade("repaired", grades["repaired"], "integrity", "ok")
+        cols = gen_lineitem(np.random.default_rng(171), R_APPENDED_ROWS)
+        staging = os.path.join(root, "r_staging")
+        os.makedirs(staging)
+        p_write(src, staging, "part-95000.parquet", pa.table(cols))
+        grades["appended"] = r_grades(hs_r)
+        r_require_grade("appended", grades["appended"], "staleness", "warn")
+        hs_r.session.conf.hybrid_scan_enabled = True  # a quick refresh
+        kernels.reset_launch_counts()
+        recs = hs_r.maintenance_cycle()
+        cycle_launches = kernels.launch_counts()
+        if [(r["decision"], r["mode"], r["outcome"]) for r in recs] \
+                != [("refresh", "quick", "done")] \
+                or any(cycle_launches.values()):
+            raise AssertionError(f"phase R: maintenance cycle {recs}, "
+                                 f"launches {cycle_launches}")
+        maint = [r for r in flight_recorder.recorder().records()
+                 if r["kind"] == "maintenance"]
+        if len(maint) != 1 or maint[0]["outcome"] != "OK":
+            raise AssertionError(f"phase R: maintenance records {maint}")
+        grades["maintained"] = r_grades(hs_r)
+        r_require_grade("maintained", grades["maintained"], "staleness",
+                        "ok")
+        step("doctor")
+        out["doctor"] = {"grades": grades, "repair_s": repair_s,
+                         "repair_launches": repair,
+                         "maintenance_ms": maint[0]["latency_ms"]}
+        out["launches"] = launches
+    finally:
+        sync_guard.arm(HyperspaceConf(), dev)  # later phases run unguarded
+        timeline.disable_timeline()
+        trace.disable_tracing()
+        device_cache().clear()
+    out["steps_s"] = steps
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def print_diagnostics(r: dict) -> None:
+    st, cache = r["strict"], r["plan_cache"]
+    print(f"phase R: strict build {st['build_wall_s']:.3f} s "
+          f"{json.dumps(st['build_launches'])}, d2h {st['d2h_bytes']:.0f} "
+          f"bytes, {st['attributed']:.0f} attributed read-backs, "
+          f"{st['violations']:.0f} violations; guard armed/off "
+          f"{st['armed_over_off']:.3f}x, off (patched)/unpatched "
+          f"{st['off_over_unpatched'] or float('nan'):.3f}x; plan cache "
+          f"miss/hit pass "
+          f"{cache['miss_pass_ms']:.1f}/{cache['hit_pass_ms']:.1f} ms, "
+          f"optimize saved {cache['saved_ms']:.2f} ms; deadline "
+          f"{r['deadline']['expired_ms']:.1f} ms; doctor "
+          f"{json.dumps(r['doctor']['grades']['clean'])} "
+          f"({r['phase_s']:.3f} s; by step {json.dumps(r['steps_s'])})",
+          flush=True)
+
+
 def q_check_seams(q: dict, rows: list) -> dict:
     """The route seams' summed ms against the kernels line: at least the
     build's launches times the chunk-shape kernel_ms of the hash and the
@@ -5960,6 +6400,8 @@ def main() -> int:
         print_lifecycle(lifecycle)
         telemetry = phase_q(orders, li, root, dev)
         print_telemetry(telemetry)
+        diagnostics = phase_r(orders, li, root, dev)
+        print_diagnostics(diagnostics)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -5998,7 +6440,8 @@ def main() -> int:
                "O apply": advisor["launches"],
                "O rerun": advisor["launches_rerun"],
                "P lifecycle": lifecycle["launches"],
-               "Q telemetry": telemetry["launches"]}
+               "Q telemetry": telemetry["launches"],
+               "R diagnostics": diagnostics["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -6031,6 +6474,7 @@ def main() -> int:
     print(json.dumps({"advisor": {**advisor, "card": smi}}))
     print(json.dumps({"lifecycle": {**lifecycle, "card": smi}}))
     print(json.dumps({"telemetry": {**telemetry, "card": smi}}))
+    print(json.dumps({"diagnostics": {**diagnostics, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

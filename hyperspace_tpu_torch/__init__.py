@@ -28,7 +28,12 @@ recommends, plans against (what-if) and builds indexes for it.  The
 lifecycle (``lifecycle/``) maintains the indexes unattended: it detects
 source changes (pushed by ``io/watch.py``), picks the cheapest refresh,
 repair, compaction or advisor build, runs it and journals every
-decision.  The JAX package ``hyperspace_tpu`` is
+decision.  Strict mode (``execution/sync_guard.py``) makes every
+device→host read-back go through attributed seams; queries take
+deadlines (``utils/deadline.py``) and a plan cache
+(``execution/plan_cache.py``); the flight recorder, the SLO math and the
+doctor (``telemetry/``) explain them after the fact, and a JSON spec
+becomes a query (``interop/``).  The JAX package ``hyperspace_tpu`` is
 the reference; this package imports nothing of it, and no ``jax``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -160,6 +160,15 @@ class Action:
                 while True:
                     try:
                         outcome = self._attempt()
+                        if outcome == "ok":
+                            # A committed index change makes every cached
+                            # optimize result suspect: the next lookup of
+                            # a plan cache re-plans (execution/plan_cache.py).
+                            from hyperspace_tpu_torch.execution import (
+                                plan_cache,
+                            )
+
+                            plan_cache.bump_generation()
                         sp.set(conflict_retries=self.conflict_retries)
                         self._finish_report(outcome, "", sp)
                         return outcome

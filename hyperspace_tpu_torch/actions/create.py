@@ -77,6 +77,7 @@ import torch
 from hyperspace_tpu_torch.actions.base import Action
 from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
 from hyperspace_tpu_torch.index.index_config import IndexConfig
 from hyperspace_tpu_torch.index.log_entry import (
@@ -612,7 +613,7 @@ class CreateActionBase(Action):
         codes and their order come from ``_zorder_codes`` (the device at
         or above the build threshold); the cuts are found on the host."""
         codes, perm = self._zorder_codes(per_col_words)
-        sorted_codes = codes[perm.cpu().numpy()]
+        sorted_codes = codes[sync_guard.pull(perm, "zorder.perm")]
         chunks = zorder_split_chunks(sorted_codes, 16 * len(per_col_words),
                                      self.conf.index_max_rows_per_file)
         del sorted_codes
@@ -623,7 +624,7 @@ class CreateActionBase(Action):
             counts, output_size=n)
         file_of_row = torch.empty(n, dtype=torch.int32, device=perm.device)
         file_of_row[perm] = file_of_sorted
-        return codes, file_of_row.cpu().numpy()
+        return codes, sync_guard.pull(file_of_row, "zorder.file_of_row")
 
     def _route_zorder_chunk(self, t, fids: np.ndarray, run_dir: str,
                             chunk_no: int) -> None:

@@ -47,6 +47,7 @@ import torch
 
 from hyperspace_tpu_torch.actions.refresh import RefreshActionBase
 from hyperspace_tpu_torch.exceptions import HyperspaceError, NoChangesError
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.index.data_manager import IndexDataManager
 from hyperspace_tpu_torch.index.log_entry import (
     Content,
@@ -140,7 +141,7 @@ class RepairAction(RefreshActionBase):
         sub = ids[rows]
         order = torch.sort(sub, stable=True).indices
         offsets = bucket_offsets(sub, self.num_buckets)
-        return rows[order].cpu().numpy(), offsets
+        return sync_guard.pull(rows[order], "repair.rows"), offsets
 
     def op(self) -> None:
         import pyarrow as pa

@@ -2,8 +2,9 @@
 holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
-index lifecycle, the source watch, the transaction loop and telemetry;
-defaults are the JAX package's).
+index lifecycle, the source watch, the transaction loop, telemetry, the
+sync guard, the doctor, deadlines, the plan cache and the flight
+recorder; defaults are the JAX package's).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -205,6 +206,27 @@ class HyperspaceConf:
     watch_mode: str = "auto"
     watch_poll_interval_s: float = 0.5
     watch_debounce_ms: float = 50.0
+    # The strict-mode sync guard (execution/sync_guard.py): armed by each
+    # collect for the session's device; a device→host read-back outside
+    # the attributed sync_guard.pull/scalar seams raises DeviceSyncError
+    # and counts guard.sync.violations.  Off leaves torch untouched.
+    device_guard_enabled: bool = False
+    # The doctor (telemetry/doctor.py): the serving check warns past
+    # shed/requests >= the ratio (crit at 5x) and grades the latency-SLO
+    # burn against the bound; the device-skew check warns when the
+    # max/median of the per-device kernel ms reaches its value (0: never).
+    doctor_latency_slo_ms: float = 1000.0
+    doctor_shed_warn_ratio: float = 0.05
+    doctor_device_skew_warn: float = 4.0
+    # The flight recorder (telemetry/flight_recorder.py): a bounded ring
+    # of completed queries; slow (>= slow_ms), error and deadline ones
+    # always kept, healthy ones sampled 1-in-N (0: none); bundles dumped
+    # under <systemPath>/_hyperspace_diagnostics, at most max_bundles.
+    flight_recorder_enabled: bool = True
+    flight_recorder_max_records: int = 256
+    flight_recorder_slow_ms: float = 1000.0
+    flight_recorder_healthy_sample_n: int = 16
+    flight_recorder_max_bundles: int = 8
     # Explain output rendering (plananalysis/display.py): "plaintext",
     # "html" or "console"; custom highlight tags, both set, override the
     # mode's own.

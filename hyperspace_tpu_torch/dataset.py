@@ -8,6 +8,14 @@ computed columns), ``with_column``, ``with_window``, ``join``,
 ``whatif=``, the advisor's what-if), ``explain_string`` and
 ``last_run_report``.
 
+``collect(plan_cache=None)`` first applies the session's conf to the
+strict sync guard (execution/sync_guard.py) for the session's device,
+checks the deadline (utils/deadline.py) at its ``planning`` seam, takes
+the optimized plan from ``plan_cache`` (execution/plan_cache.py) on a
+fresh hit, and offers the finished run report to the flight recorder
+(telemetry/flight_recorder.py).  A past deadline and a sync-guard
+violation propagate: no containment, fallback or re-plan takes them.
+
 ``collect()`` optimizes the plan (the index rules run when hyperspace is
 enabled on the session), executes it into an arrow table and publishes
 the executor's stats as ``session.last_execution_stats`` and its run
@@ -246,28 +254,34 @@ class Dataset:
     def optimized_plan(self, use_indexes: bool = True) -> LogicalPlan:
         return self.session.optimize(self.plan, use_indexes=use_indexes)
 
-    def collect(self):
+    def collect(self, plan_cache=None):
         """The result as a pyarrow Table.  A run report
         (telemetry/report.py) is open while it runs, and is published as
-        ``session.last_run_report_value`` (``last_run_report()``)."""
-        from hyperspace_tpu_torch.execution.executor import Executor
-        from hyperspace_tpu_torch.telemetry import timeline
+        ``session.last_run_report_value`` (``last_run_report()``); the
+        finished report is offered to the flight recorder
+        (telemetry/flight_recorder.py).  The first thing ``collect`` does
+        is apply the session's conf to the strict sync guard
+        (execution/sync_guard.py), for the session's device.
+
+        ``plan_cache`` is an optimize-result cache
+        (execution/plan_cache.py): a fresh hit skips the optimizer and
+        runs the cached plan; a plan that fails at execution is dropped
+        from it before containment runs.  A past deadline
+        (utils/deadline.py) and a sync-guard violation propagate, never
+        degraded, re-planned or contained."""
+        from hyperspace_tpu_torch.execution import sync_guard
+        from hyperspace_tpu_torch.telemetry import flight_recorder, timeline
 
         # A conf field set after the session was made still takes effect.
         trace.configure_from_conf(self.session.conf)
         timeline.configure_from_conf(self.session.conf)
+        sync_guard.arm(self.session.conf, self.session.device)
         token = run_report.start()
         query_span = None
         try:
             with trace.span("query.collect") as sp:
                 query_span = sp  # the real Span when tracing is on
-                executor = Executor(self.session)
-                plan = self._plan_degradable()
-                try:
-                    with trace.span("execute"):
-                        out = executor.execute(plan)
-                except Exception as e:  # noqa: BLE001 - _contain re-raises
-                    out, executor = self._contain(plan, executor, e)
+                out, executor = self._collect_traced(plan_cache)
         except Exception:
             run_report.active().outcome = "error"
             raise
@@ -276,6 +290,8 @@ class Dataset:
             if isinstance(query_span, trace.Span):
                 rep.root_span = query_span
             self.session.last_run_report_value = rep
+            # Never raises: diagnostics never fail a query.
+            flight_recorder.record_local(self.session.conf, rep)
         executor.finalize_stats()
         self.session.last_execution_stats = executor.stats
         if self.session.conf.advisor_capture_enabled:
@@ -286,6 +302,54 @@ class Dataset:
             workload.capture(self.session, self.plan, rep,
                              result_rows=out.num_rows)
         return out
+
+    def _collect_traced(self, plan_cache):
+        """(answer, its executor): plan (from the cache on a hit), then
+        execute, containing a read failure of index files."""
+        from hyperspace_tpu_torch.execution.containment import (
+            always_propagates,
+            index_scans_of,
+        )
+        from hyperspace_tpu_torch.execution.executor import Executor
+        from hyperspace_tpu_torch.utils import deadline
+
+        # A query whose budget is spent stops before planning.
+        deadline.check("planning")
+        executor = Executor(self.session)
+        plan = None
+        cache_key = None
+        if plan_cache is not None:
+            cache_key = plan_cache.key_for(self.session, self.plan)
+            if cache_key is not None:
+                plan = plan_cache.get(cache_key)
+                if plan is not None:
+                    # The rules that record the indexes used did not run:
+                    # name the cached plan's index scans instead.
+                    run_report.record("plan_cache", hit=True,
+                                      fingerprint=cache_key)
+                    for name in index_scans_of(plan):
+                        run_report.record("index.used", index=name,
+                                          message="served from plan cache")
+        if plan is None:
+            try:
+                plan = self.optimized_plan()
+            except Exception as e:  # noqa: BLE001 - _replan re-raises
+                plan = self._replan_without_indexes(e)
+            else:
+                if cache_key is not None:
+                    plan_cache.put(cache_key, plan)
+                    run_report.record("plan_cache", hit=False,
+                                      fingerprint=cache_key)
+        try:
+            with trace.span("execute"):
+                out = executor.execute(plan)
+        except Exception as e:  # noqa: BLE001 - _contain re-raises
+            if cache_key is not None and not always_propagates(e):
+                # The next query derives its plan anew instead of
+                # replaying this failure.
+                plan_cache.invalidate(cache_key)
+            out, executor = self._contain(plan, executor, e)
+        return out, executor
 
     def last_run_report(self):
         """The run report of this session's most recent ``collect()`` on
@@ -315,31 +379,28 @@ class Dataset:
         """The unoptimized plan's tree."""
         return self.plan.tree_string()
 
-    def _plan_degradable(self) -> LogicalPlan:
-        """The optimized plan; when planning with the indexes failed on
-        the index's side (every file of an index gone, so not even its
-        schema reads), the plan without them, the failure recorded as a
-        ``degraded`` decision and a planning-stage re-plan.  A device or
-        kernel error propagates, and so does any error with the fallback
-        off."""
+    def _replan_without_indexes(self, error: Exception) -> LogicalPlan:
+        """The plan without the indexes after planning with them raised
+        ``error`` on the index's side (every file of an index gone, so
+        not even its schema reads), the failure recorded as a
+        ``degraded`` decision and a planning-stage re-plan.  ``error``
+        itself when it is a device or kernel error, a past deadline or
+        a sync-guard violation, or when the fallback is off."""
         from hyperspace_tpu_torch.execution.containment import (
             is_index_side_error,
         )
 
-        try:
-            return self.optimized_plan()
-        except Exception as e:  # noqa: BLE001 - narrowed just below
-            if not (self.session.is_hyperspace_enabled()
-                    and self.session.conf.degraded_fallback_to_source
-                    and is_index_side_error(e)):
-                raise
-            emit_event(IndexDegradedEvent(
-                reason=f"index-aware planning failed: {e!r}",
-                message="re-planned without index rewrites"))
-            run_report.record("replan", mode="source-fallback",
-                              stage="planning")
-            with trace.span("optimize.replan", mode="source-fallback"):
-                return self.optimized_plan(use_indexes=False)
+        if not (self.session.is_hyperspace_enabled()
+                and self.session.conf.degraded_fallback_to_source
+                and is_index_side_error(error)):
+            raise error
+        emit_event(IndexDegradedEvent(
+            reason=f"index-aware planning failed: {error!r}",
+            message="re-planned without index rewrites"))
+        run_report.record("replan", mode="source-fallback",
+                          stage="planning")
+        with trace.span("optimize.replan", mode="source-fallback"):
+            return self.optimized_plan(use_indexes=False)
 
     def _contain(self, plan: LogicalPlan, failed, error: Exception):
         """(answer, its executor) after ``failed`` raised ``error`` running
@@ -347,6 +408,7 @@ class Dataset:
         files and the conf allows the fallback."""
         from hyperspace_tpu_torch.exceptions import HyperspaceError
         from hyperspace_tpu_torch.execution.containment import (
+            always_propagates,
             index_scans_of,
             is_read_error,
             quarantine_damaged_index_files,
@@ -394,8 +456,9 @@ class Dataset:
                         except Exception as e:  # noqa: BLE001 - a repair
                             # failure costs no answer, but a device error
                             # propagates
-                            if not isinstance(e, HyperspaceError) \
-                                    and not is_read_error(e):
+                            if always_propagates(e) or (
+                                    not isinstance(e, HyperspaceError)
+                                    and not is_read_error(e)):
                                 raise
                             record.setdefault("repair_errors", []).append(
                                 repr(e))

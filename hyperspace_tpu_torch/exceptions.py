@@ -20,3 +20,17 @@ class NoChangesError(HyperspaceError):
 class DegradedIndexError(HyperspaceError):
     """An index's operation log is unreadable and the degraded fallback
     (``conf.degraded_fallback_to_source``) is off."""
+
+
+class DeviceSyncError(HyperspaceError):
+    """The strict-mode sync guard (execution/sync_guard.py,
+    ``conf.device_guard_enabled``): a device→host read-back ran outside
+    the attributed seams (``sync_guard.pull``/``scalar``, the timeline's
+    kernel seams).  It propagates like a deadline expiry: a re-plan or a
+    fallback would only repeat the unattributed read-back."""
+
+
+class DeadlineExceededError(HyperspaceError):
+    """The deadline (utils/deadline.py) passed: the query stopped at a
+    phase boundary.  Never a degraded-mode trigger: it propagates to the
+    caller, since a re-plan would spend more time past the deadline."""

@@ -32,16 +32,32 @@ def is_read_error(e: BaseException) -> bool:
     return isinstance(e, (OSError, pa.ArrowException))
 
 
+def always_propagates(e: BaseException) -> bool:
+    """A passed deadline or a sync-guard violation: errors no cache
+    invalidation, containment, fallback or backoff may act on, since
+    each would spend more time past the deadline or repeat the
+    unattributed read-back."""
+    from hyperspace_tpu_torch.exceptions import (
+        DeadlineExceededError,
+        DeviceSyncError,
+    )
+
+    return isinstance(e, (DeadlineExceededError, DeviceSyncError))
+
+
 def is_index_side_error(e: BaseException) -> bool:
     """The failures the planning-stage degraded fallback takes (a rule
     that raised, an index listing that failed): a read error, a log
     entry's JSON or key decode error, or a ``HyperspaceError``.  A CUDA
     or other torch error, and the kernel loader's ``KernelError``, are
-    none of these: no fallback may hide the card."""
+    none of these: no fallback may hide the card.  Nor is an error that
+    ``always_propagates``, though both such are ``HyperspaceError``s."""
     import json
 
     from hyperspace_tpu_torch.exceptions import HyperspaceError
 
+    if always_propagates(e):
+        return False
     return is_read_error(e) or isinstance(
         e, (json.JSONDecodeError, UnicodeDecodeError, KeyError,
             HyperspaceError))

@@ -92,10 +92,12 @@ evaluated on the arrow path only, as in the JAX package.
 
 Each executed scan appends its IO (files read and listed, bytes) to
 ``stats["scans"]`` and to the active run report (telemetry/report.py).
+Every read-back of a device result goes through
+``execution/sync_guard.pull``/``scalar``, so the strict guard passes and
+``exec.transfer.d2h.bytes`` counts it; each operator's entry and exit
+are deadline checks (utils/deadline.py).
 
-Not ported: ``finalize_stats``' memory gauges,
-the telemetry counters, spans and transfer timeline, the mesh filter, join and aggregates,
-the lake formats and hypothetical scans.
+Not ported: the mesh filter, join and aggregates and the lake formats.
 pyarrow is imported inside the functions.
 """
 
@@ -112,6 +114,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.execution.device_cache import (
     files_fingerprint,
     global_cache,
@@ -165,6 +168,7 @@ from hyperspace_tpu_torch.plan.nodes import (
 from hyperspace_tpu_torch.telemetry import report as run_report
 from hyperspace_tpu_torch.telemetry import timeline
 from hyperspace_tpu_torch.telemetry.trace import span
+from hyperspace_tpu_torch.utils import deadline as _deadline
 
 
 class Executor:
@@ -333,13 +337,19 @@ class Executor:
 
     def execute(self, plan: LogicalPlan):
         # Each operator is one interval on the timeline's "exec" lane
-        # (one bool check with the timeline off).
+        # (one bool check with the timeline off).  Its entry and its exit
+        # are both deadline boundaries (utils/deadline.py): the entry
+        # checks run on the way down, within microseconds of each other,
+        # so only the exit check stops the work stacked above a long
+        # scan once the scan spent the budget.
         t0 = timeline.op_begin()
         out = self._execute_node(plan)
         timeline.op_end("exec", type(plan).__name__, t0)
+        _deadline.check(type(plan).__name__)
         return out
 
     def _execute_node(self, plan: LogicalPlan):
+        _deadline.check(type(plan).__name__)
         hypothetical = [s.relation.index_scan_of
                         for s in plan.leaf_relations()
                         if s.relation.hypothetical]
@@ -525,7 +535,8 @@ class Executor:
         if on_device:
             uploaded = [torch.from_numpy(w).to(device) for w in word_cols]
             timeline.record_transfer("h2d", sum(w.nbytes for w in uploaded))
-            ids = bucket_ids(uploaded, num_buckets).cpu().numpy()
+            ids = sync_guard.pull(bucket_ids(uploaded, num_buckets),
+                                  "bucket_in.bucket_ids")
         else:
             ids = bucket_ids_np(word_cols, num_buckets)
         self.stats.setdefault("bucket_in", []).append({
@@ -545,8 +556,7 @@ class Executor:
         t0 = timeline.kernel_begin(device)
         mask = fn(cols, literals)
         timeline.kernel_end("filter", t0, mask)
-        timeline.record_transfer("d2h", mask.nbytes)
-        return mask.cpu().numpy()
+        return sync_guard.pull(mask, "filter.mask")
 
     # -- join ---------------------------------------------------------------
     def _join(self, plan: Join, _record: bool = True):
@@ -845,7 +855,8 @@ class Executor:
             word_cols.append(torch.from_numpy(np.ascontiguousarray(
                 columnar.to_hash_words(column))).to(self.session.device))
         timeline.record_transfer("h2d", sum(w.nbytes for w in word_cols))
-        ids = bucket_ids(word_cols, num_buckets).cpu().numpy()
+        ids = sync_guard.pull(bucket_ids(word_cols, num_buckets),
+                              "hybrid_route.bucket_ids")
         # A stable sort by bucket keeps each bucket's rows in table order.
         order = np.argsort(ids, kind="stable")
         present, starts, counts = np.unique(ids[order], return_index=True,
@@ -911,11 +922,12 @@ class Executor:
         if kept_rows.numel() == 0:
             return stacked.slice(0, 0)
         _, inverse = torch.unique(ca[kept_rows], return_inverse=True)
-        first = torch.full((int(inverse.max()) + 1,), kept_rows.numel(),
+        groups = int(sync_guard.scalar(inverse.max(), "setop.groups")) + 1
+        first = torch.full((groups,), kept_rows.numel(),
                            dtype=torch.int64).scatter_reduce_(
             0, inverse, torch.arange(kept_rows.numel()), "amin")
         rows = torch.sort(kept_rows[first]).values
-        return stacked.take(pa.array(rows.numpy()))
+        return stacked.take(pa.array(sync_guard.pull(rows, "setop.rows")))
 
     # -- window on the device -----------------------------------------------
     def _try_device_window(self, table, plan: Window):
@@ -1737,14 +1749,15 @@ def _window(table, plan: Window):
     while pname in table.column_names:
         pname = f"__part__{suffix}"
         suffix += 1
-    perm = _sort_indices(table.append_column(pname, pa.array(part_orig.numpy())),
+    perm = _sort_indices(table.append_column(
+                             pname, pa.array(sync_guard.pull(part_orig))),
                          [(pname, True)] + list(plan.order_by))
     perm_t = torch.from_numpy(np.asarray(perm).astype(np.int64))
     part = part_orig[perm_t]
     new_part = torch.ones(n, dtype=torch.bool)
     new_part[1:] = part[1:] != part[:-1]
     new_tie = torch.from_numpy(
-        _tie_starts(table, plan.order_by, perm, new_part.numpy()))
+        _tie_starts(table, plan.order_by, perm, sync_guard.pull(new_part)))
     part_start, part_end = W.segment_bounds(new_part)
     func = plan.func
     src_type = table.schema.field(plan.value).type if plan.value else None
@@ -1761,26 +1774,31 @@ def _window(table, plan: Window):
                                  else -plan.offset)
         valid = (idx >= 0) & (idx < n) \
             & (part[torch.clamp(idx, 0, n - 1)] == part)
-        taken = v_sorted.take(pa.array(torch.where(valid, idx, 0).numpy()))
-        out = pc.if_else(pa.array(valid.numpy()), taken, null)
+        taken = v_sorted.take(
+            pa.array(sync_guard.pull(torch.where(valid, idx, 0))))
+        out = pc.if_else(pa.array(sync_guard.pull(valid)), taken, null)
     elif func == "row_number":
-        out = pa.array(W.row_number(part_start).numpy())
+        out = pa.array(sync_guard.pull(W.row_number(part_start)))
     elif func == "rank":
-        out = pa.array(W.rank_from_ties(part_start, new_tie).numpy())
+        out = pa.array(sync_guard.pull(
+            W.rank_from_ties(part_start, new_tie)))
     elif func == "dense_rank":
-        out = pa.array(W.dense_rank_from_ties(new_part, new_tie).numpy())
+        out = pa.array(sync_guard.pull(
+            W.dense_rank_from_ties(new_part, new_tie)))
     elif func == "ntile":
-        out = pa.array(W.ntile(part_start, part_end, plan.offset).numpy())
+        out = pa.array(sync_guard.pull(
+            W.ntile(part_start, part_end, plan.offset)))
     else:
         _, tie_end = W.segment_bounds(new_tie)
         lo, hi = W.frame_bounds(part_start, part_end, tie_end, plan.frame,
                                 bool(plan.order_by))
         if func in ("first_value", "last_value"):
             arg, nonempty = W.frame_first_last(lo, hi, func == "first_value")
-            out = pc.if_else(pa.array(nonempty.numpy()),
-                             v_sorted.take(pa.array(arg.numpy())), null)
+            out = pc.if_else(pa.array(sync_guard.pull(nonempty)),
+                             v_sorted.take(pa.array(sync_guard.pull(arg))),
+                             null)
         elif func == "count" and plan.value is None:
-            out = pa.array(W.frame_count(None, lo, hi).numpy())
+            out = pa.array(sync_guard.pull(W.frame_count(None, lo, hi)))
         else:
             vals, valid = _window_values(v_sorted)
             if vals is None:
@@ -1790,12 +1808,13 @@ def _window(table, plan: Window):
                 arrow_funcs = ("min", "max", "sum", "mean") \
                     if pa.types.is_decimal(v_sorted.type) else ("min", "max")
                 if func in arrow_funcs and whole:
-                    out = _whole_partition_agg_arrow(v_sorted, part.numpy(),
-                                                     func)
+                    out = _whole_partition_agg_arrow(
+                        v_sorted, sync_guard.pull(part), func)
                     if func in ("sum", "mean"):
                         out = pc.cast(out, pa.float64())
                 elif func == "count":
-                    out = pa.array(W.frame_count(valid, lo, hi).numpy())
+                    out = pa.array(sync_guard.pull(
+                        W.frame_count(valid, lo, hi)))
                 else:
                     raise ValueError(
                         f"Running window {func}() over a "
@@ -1804,10 +1823,10 @@ def _window(table, plan: Window):
                         f"{func}, or cast the column to a "
                         f"numeric/temporal type")
             elif func == "count":
-                out = pa.array(W.frame_count(valid, lo, hi).numpy())
+                out = pa.array(sync_guard.pull(W.frame_count(valid, lo, hi)))
             elif func == "sum":
                 sums, cnt = W.frame_sum(vals, valid, lo, hi)
-                empty = (cnt == 0).numpy()
+                empty = sync_guard.pull(cnt == 0)
                 if isinstance(sums, np.ndarray):
                     # uint64 sums: an int64 result overflows loudly and
                     # never wraps.
@@ -1817,20 +1836,22 @@ def _window(table, plan: Window):
                             "overflows the int64 result type")
                     out = pa.array(sums.astype(np.int64), mask=empty)
                 else:
-                    out = pa.array(sums.numpy(), mask=empty)
+                    out = pa.array(sync_guard.pull(sums), mask=empty)
             elif func == "mean":
                 means, cnt = W.frame_mean(vals, valid, lo, hi)
-                out = pa.array(means.numpy(), mask=(cnt == 0).numpy())
+                out = pa.array(sync_guard.pull(means),
+                               mask=sync_guard.pull(cnt == 0))
             else:  # min, max
                 arg, cnt = W.frame_min_max(
                     vals, valid, lo, hi, part_start, part_end, plan.frame,
                     is_min=(func == "min"))
-                out = pc.if_else(pa.array((cnt > 0).numpy()),
-                                 v_sorted.take(pa.array(arg.numpy())), null)
+                out = pc.if_else(pa.array(sync_guard.pull(cnt > 0)),
+                                 v_sorted.take(pa.array(sync_guard.pull(arg))),
+                                 null)
     # Back to the input's row order.
     inverse = torch.empty(n, dtype=torch.int64)
     inverse[perm_t] = torch.arange(n)
-    out = out.take(pa.array(inverse.numpy()))
+    out = out.take(pa.array(sync_guard.pull(inverse)))
     if plan.name in table.column_names:
         return table.set_column(table.column_names.index(plan.name),
                                 plan.name, out)

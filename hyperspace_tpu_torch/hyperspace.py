@@ -6,8 +6,10 @@ advisor's verbs ``whatif``, ``captured_workload``,
 ``clear_captured_workload``, ``recommend_indexes`` and
 ``apply_recommendations``, and the lifecycle's ``maintenance_cycle``,
 ``start_maintenance``, ``stop_maintenance`` and ``lifecycle_history``,
-and telemetry's ``metrics``, ``metrics_text``, ``reset_metrics``,
-``perf_history`` and ``export_timeline``."""
+telemetry's ``metrics``, ``metrics_text``, ``reset_metrics``,
+``perf_history`` and ``export_timeline``, and the diagnostics'
+``doctor``, ``slow_queries``, ``trace``, ``diagnostics``,
+``dump_diagnostics`` and ``diagnostics_bundles``."""
 
 from __future__ import annotations
 
@@ -201,18 +203,23 @@ class Hyperspace:
         ``device:<index>`` kernel lanes and the memory counter track;
         ``conf.timeline_enabled`` must have been on) and the span tree of
         this thread's last query when tracing was on.  ``ledger_key``
-        rebuilds the phases of that perf-ledger record instead.
-        ``trace_id`` (a flight-recorder record) is not ported yet and
-        raises."""
+        rebuilds the phases of that perf-ledger record instead, and
+        ``trace_id`` the span tree of that retained flight-recorder
+        record (telemetry/flight_recorder.py); both work after the
+        fact, without the ring."""
         from hyperspace_tpu_torch.telemetry import timeline
 
         if trace_id is not None:
-            from hyperspace_tpu_torch.exceptions import HyperspaceError
+            from hyperspace_tpu_torch.telemetry import flight_recorder
 
-            raise HyperspaceError(
-                "export_timeline(trace_id=...) reads the flight recorder "
-                "(telemetry/flight_recorder.py), which this package does "
-                "not have yet; export the live ring or a ledger_key")
+            rec = flight_recorder.recorder().find(trace_id.lower())
+            if rec is None:
+                raise ValueError(
+                    f"no retained flight record for trace id {trace_id!r}")
+            timeline.export_chrome_trace(
+                path, intervals=(), memory_samples=(),
+                span_roots=[rec["spans"]] if rec.get("spans") else ())
+            return path
         if ledger_key is not None:
             import json
 
@@ -258,3 +265,75 @@ class Hyperspace:
         from hyperspace_tpu_torch.telemetry import metrics as m
 
         m.reset()
+
+    # -- diagnostics (telemetry/doctor.py, telemetry/flight_recorder.py) -----
+    def doctor(self, fleet: bool = False):
+        """One health report over what this process knows
+        (telemetry/doctor.py): quarantine records, per-index staleness,
+        merge debt, the daemon's backoffs, the perf-ledger trend, the
+        degraded events and the per-device kernel-ms skew, graded
+        ok/warn/crit, the worst check winning, and published as the
+        ``health.status`` gauge.  ``fleet=True`` raises: this package
+        has no fleet plane yet."""
+        from hyperspace_tpu_torch.telemetry.doctor import doctor
+
+        return doctor(self.session, fleet=fleet)
+
+    def slow_queries(self, fleet: bool = False):
+        """The flight recorder's retained ring as a pyarrow table, oldest
+        first: slow (>= ``conf.flight_recorder_slow_ms``), error and
+        deadline queries always, healthy ones sampled 1-in-N.  Columns:
+        ts, traceId, requestId, kind, outcome, latencyMs, queueWaitMs,
+        deviceMs, slow, reason, error, recordJson (the whole record).
+        ``fleet=True`` raises: this package has no fleet plane yet."""
+        _no_fleet(fleet, "slow_queries")
+        from hyperspace_tpu_torch.telemetry.flight_recorder import (
+            slow_queries_table,
+        )
+
+        return slow_queries_table(self.session.conf)
+
+    def trace(self, trace_id: str, fleet: bool = False):
+        """The retained flight record (a dict) of ``trace_id``, or None.
+        ``fleet=True`` raises: this package has no fleet plane yet."""
+        _no_fleet(fleet, "trace")
+        from hyperspace_tpu_torch.telemetry import flight_recorder
+
+        return flight_recorder.recorder().find(trace_id.lower())
+
+    def diagnostics(self) -> dict:
+        """The live diagnostics bundle: the flight recorder's ring, a
+        metrics snapshot and the perf ledger's tail, what
+        :meth:`dump_diagnostics` writes."""
+        from hyperspace_tpu_torch.telemetry.flight_recorder import (
+            diagnostics_bundle,
+        )
+
+        return diagnostics_bundle(self.session.conf)
+
+    def dump_diagnostics(self):
+        """Write :meth:`diagnostics` as one bundle under
+        ``<systemPath>/_hyperspace_diagnostics`` (at most
+        ``conf.flight_recorder_max_bundles`` kept); returns its key, or
+        None when the recorder is off or the write failed."""
+        from hyperspace_tpu_torch.telemetry.flight_recorder import (
+            dump_diagnostics,
+        )
+
+        return dump_diagnostics(self.session.conf)
+
+    def diagnostics_bundles(self) -> list:
+        """Every written diagnostics bundle, oldest first, each with its
+        ``key``: what a restarted process reads back."""
+        from hyperspace_tpu_torch.telemetry.flight_recorder import bundles
+
+        return bundles(self.session.conf)
+
+
+def _no_fleet(fleet: bool, verb: str) -> None:
+    if fleet:
+        from hyperspace_tpu_torch.exceptions import HyperspaceError
+
+        raise HyperspaceError(
+            f"{verb}(fleet=True) reads the fleet heartbeats "
+            f"(telemetry/fleet.py), which this package does not have yet")

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exceptions import HyperspaceError
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.io import faults, integrity
 from hyperspace_tpu_torch.ops.sort import bucket_counts
 from hyperspace_tpu_torch.telemetry import metrics
@@ -239,7 +240,8 @@ def bucket_offsets(bucket_ids: torch.Tensor, num_buckets: int) -> np.ndarray:
     """(num_buckets + 1,) int64 run offsets of the buckets in the sorted
     order: the exclusive prefix sum of the per-bucket row counts, counted
     on the ids' device (``ops.sort.bucket_counts``)."""
-    counts = bucket_counts(bucket_ids, num_buckets).cpu().numpy()
+    counts = sync_guard.pull(bucket_counts(bucket_ids, num_buckets),
+                             "write_bucketed.counts")
     offsets = np.zeros(num_buckets + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     return offsets
@@ -270,7 +272,7 @@ def write_bucketed(table, bucket_ids: torch.Tensor, sort_perm: torch.Tensor,
     if offsets[-1] != table.num_rows:
         raise HyperspaceError(
             f"bucket counts sum to {offsets[-1]}, table has {table.num_rows} rows")
-    perm = sort_perm.cpu().numpy()
+    perm = sync_guard.pull(sort_perm, "write_bucketed.perm")
     sorted_table = table.take(pa.array(perm))
     sorted_keys = None if split_keys is None else split_keys[perm]
     jobs: List = []  # one per file, so skewed builds still write in parallel

@@ -42,8 +42,9 @@ Each cycle is a ``lifecycle.cycle`` span and each executed decision a
 and the ``lifecycle.staleness_s`` gauge (docs/16-observability.md).  A
 refresh the daemon dispatches goes through the manager's transaction
 loop, so one that races a refresh run by hand rebases and ends in
-"done" or a journaled "noop" instead of a backoff.  Not ported: the
-flight-recorder records and the fleet role.
+"done" or a journaled "noop" instead of a backoff.  Each executed
+decision is also offered to the flight recorder as a ``maintenance``
+record (telemetry/flight_recorder.py).  Not ported: the fleet role.
 """
 
 from __future__ import annotations
@@ -384,11 +385,28 @@ class MaintenanceDaemon:
                 self._note_failure(name, failures)
             else:
                 raised = e
+        wall_s = time.perf_counter() - t0
+        self._record_flight(decision, outcome, error, wall_s)
         rec = self._journal(decision, outcome=outcome, error=error,
-                            wall_s=time.perf_counter() - t0, change=change)
+                            wall_s=wall_s, change=change)
         if raised is not None:
             raise raised
         return rec
+
+    def _record_flight(self, decision: policy.MaintenanceDecision,
+                       outcome: str, error: str, wall_s: float) -> None:
+        """A daemon action lands in the flight recorder beside the
+        queries (kind ``maintenance``); never raises."""
+        from hyperspace_tpu_torch.interop.query import mint_trace_id
+        from hyperspace_tpu_torch.telemetry import flight_recorder
+
+        flight_recorder.record(
+            self.session.conf, kind="maintenance",
+            outcome="OK" if outcome in ("done", "noop") else "FAILED",
+            latency_ms=wall_s * 1000.0,
+            trace_id=mint_trace_id(), request_id=mint_trace_id(),
+            error=error or f"{decision.kind} {decision.index} "
+                           f"{decision.mode}".strip())
 
     def _note_failure(self, name: str, prior_failures: int) -> None:
         conf = self.session.conf

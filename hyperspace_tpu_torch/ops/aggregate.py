@@ -33,6 +33,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.telemetry import timeline
 
 AGG_OPS = ("sum", "min", "max", "mean", "count", "count_all")
@@ -144,7 +145,7 @@ def grouped_aggregate(key_cols: Sequence[Array], value_cols: Sequence[Array],
     starts = torch.nonzero(boundaries).flatten()  # the one synchronisation
     out = _segment_reduce(perm, boundaries, starts, values, ops)
     timeline.kernel_end("aggregate", t0, out)
-    timeline.record_transfer("d2h", sum(r.nbytes for r in out))
-    first_rows = out[0].cpu().numpy()
-    counts = out[1].cpu().numpy()
-    return first_rows, counts, [r.cpu().numpy() for r in out[2:]]
+    first_rows = sync_guard.pull(out[0], "aggregate.first_rows")
+    counts = sync_guard.pull(out[1], "aggregate.counts")
+    return first_rows, counts, [sync_guard.pull(r, "aggregate.results")
+                                for r in out[2:]]

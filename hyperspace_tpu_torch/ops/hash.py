@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.ops.kernels import bucket_histogram, hash_buckets
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.telemetry import timeline
 
 _C1 = np.uint32(0x85EBCA6B)
@@ -121,8 +122,9 @@ def route_partition(word_cols: Sequence[np.ndarray],
     buckets, perm = route_sort(words, order, num_buckets)
     counts = bucket_histogram(buckets, num_buckets)
     timeline.kernel_end("route_partition", t0, perm)
-    timeline.record_transfer("d2h", perm.nbytes + counts.nbytes)
-    return perm.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
+    return (sync_guard.pull(perm, "route_partition.perm"),
+            sync_guard.pull(counts, "route_partition.counts")
+            .astype(np.int64))
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.telemetry import timeline
 
 Keys = Union[np.ndarray, torch.Tensor]
@@ -114,8 +115,8 @@ def sorted_equi_join(left_keys: Keys, right_keys: Keys,
     t0 = timeline.kernel_begin(lk.device)
     left_idx, right_idx = match_pairs(lk, rk)
     timeline.kernel_end("join", t0, (left_idx, right_idx))
-    timeline.record_transfer("d2h", left_idx.nbytes + right_idx.nbytes)
-    return left_idx.cpu().numpy(), right_idx.cpu().numpy()
+    return (sync_guard.pull(left_idx, "join.left_idx"),
+            sync_guard.pull(right_idx, "join.right_idx"))
 
 
 def match_pairs(lk: torch.Tensor, rk: torch.Tensor
@@ -129,7 +130,8 @@ def match_pairs(lk: torch.Tensor, rk: torch.Tensor
     common = torch.promote_types(lk.dtype, rk.dtype)
     lo, hi = _match_ranges(_sort_codes(lk.to(common)),
                            _sort_codes(rk[r_perm].to(common)))
-    total = int((hi - lo).sum())  # the one synchronisation
+    # The one synchronisation: the match count sizes the output.
+    total = int(sync_guard.scalar((hi - lo).sum(), "join.match_count"))
     left_idx, right_pos = _expand(lo, hi, total)
     return left_idx, r_perm[right_pos]
 

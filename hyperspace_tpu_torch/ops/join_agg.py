@@ -35,6 +35,7 @@ from hyperspace_tpu_torch.ops.aggregate import (
     to_device,
 )
 from hyperspace_tpu_torch.ops.join import match_pairs
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.telemetry import timeline
 
 
@@ -125,7 +126,7 @@ def join_group_aggregate(
         first_rows, counts = first_rows[sel], counts[sel]
         results = [r[sel] for r in results]
     timeline.kernel_end("join_agg", t0, (first_rows, counts, results))
-    timeline.record_transfer("d2h", 2 * first_rows.nbytes + counts.nbytes
-                             + sum(r.nbytes for r in results))
-    return (li[first_rows].cpu().numpy(), ri[first_rows].cpu().numpy(),
-            counts.cpu().numpy(), [r.cpu().numpy() for r in results])
+    return (sync_guard.pull(li[first_rows], "join_agg.left_rows"),
+            sync_guard.pull(ri[first_rows], "join_agg.right_rows"),
+            sync_guard.pull(counts, "join_agg.counts"),
+            [sync_guard.pull(r, "join_agg.results") for r in results])

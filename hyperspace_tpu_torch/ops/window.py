@@ -52,6 +52,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.execution import sync_guard
+
 __all__ = [
     "partition_codes", "segment_bounds", "frame_bounds",
     "row_number", "rank_from_ties", "dense_rank_from_ties", "ntile",
@@ -85,7 +87,8 @@ def partition_codes(table, keys) -> torch.Tensor:
         idx = pc.fill_null(enc.indices, -1).to_numpy(zero_copy_only=False)
         card = len(enc.dictionary) + 1  # + 1 for the null slot
         codes = torch.from_numpy(idx.astype(np.int64)) + 1
-        if n and card > 1 and int(combined.max()) > (2**62) // card:
+        if n and card > 1 and sync_guard.scalar(
+                combined.max(), "window.codes_max") > (2**62) // card:
             # Densify again before the product could overflow int64.
             _, combined = torch.unique(combined, sorted=True,
                                        return_inverse=True)
@@ -217,14 +220,17 @@ def frame_sum(vals: Values, valid: torch.Tensor, lo: torch.Tensor,
     float64 with NaN as missing; a numpy uint64 array sums in uint64 in
     numpy and its sums come back as that numpy array."""
     if isinstance(vals, np.ndarray):
-        work = np.where(valid.cpu().numpy(), vals, 0).astype(np.uint64)
+        work = np.where(sync_guard.pull(valid, "window.valid"), vals,
+                        0).astype(np.uint64)
         s = np.zeros(work.shape[0] + 1, dtype=np.uint64)
         np.cumsum(work, out=s[1:])
         n = work.shape[0]
-        lo_np, hi_np = lo.cpu().numpy(), hi.cpu().numpy()
+        lo_np = sync_guard.pull(lo, "window.lo")
+        hi_np = sync_guard.pull(hi, "window.hi")
         sums = s[np.clip(hi_np + 1, 0, n)] - s[np.clip(lo_np, 0, n)]
         cnt = frame_count(valid, lo, hi)
-        return np.where((cnt > 0).cpu().numpy(), sums, 0), cnt
+        return np.where(sync_guard.pull(cnt > 0, "window.nonempty"),
+                        sums, 0), cnt
     if vals.is_floating_point():
         valid = valid & ~torch.isnan(vals)
         work = torch.where(valid, vals, 0.0).to(torch.float64)
@@ -241,7 +247,8 @@ def frame_mean(vals: Values, valid: torch.Tensor, lo: torch.Tensor,
     and is masked by its count."""
     if isinstance(vals, np.ndarray):
         work = torch.from_numpy(
-            np.where(valid.cpu().numpy(), vals, 0).astype(np.float64)) \
+            np.where(sync_guard.pull(valid, "window.valid"), vals,
+                     0).astype(np.float64)) \
             .to(valid.device)
     elif vals.is_floating_point():
         valid = valid & ~torch.isnan(vals)
@@ -272,7 +279,7 @@ def _arg_scan(work: torch.Tensor, part_start: torch.Tensor,
     while shift < n:
         src = idx - shift
         ok = src >= part_start
-        if not bool(ok.any()):
+        if not sync_guard.scalar(ok.any(), "window.scan_live"):
             break
         src = torch.clamp(src, min=0)
         s_best, s_arg = best[src], arg[src]
@@ -295,7 +302,8 @@ def _sparse_arg(work: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     clamped at the partition edges."""
     n = work.shape[0]
     width = torch.clamp(hi - lo + 1, min=1)
-    max_w = int(width.max()) if n else 1
+    max_w = int(sync_guard.scalar(width.max(), "window.max_width")) \
+        if n else 1
     levels = max(max_w.bit_length() - 1, 0)
     val_tab = [work]
     arg_tab = [torch.arange(n, dtype=torch.int64, device=work.device)]
@@ -315,7 +323,7 @@ def _sparse_arg(work: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     out = torch.empty(n, dtype=torch.int64, device=work.device)
     for k in range(levels + 1):
         mask = k_i == k
-        if not bool(mask.any()):
+        if not sync_guard.scalar(mask.any(), "window.level_live"):
             continue
         a = lo[mask]
         b = torch.clamp(hi[mask] - (1 << k) + 1, min=0)

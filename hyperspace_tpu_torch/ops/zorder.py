@@ -39,6 +39,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.execution import sync_guard
 from hyperspace_tpu_torch.ops.hash import order_key64
 
 MAX_ZORDER_COLUMNS = 4  # 4 x 16 bits = the 64-bit (hi, lo) code
@@ -114,7 +115,8 @@ def key64_to_codes(key: torch.Tensor) -> np.ndarray:
     """``order_key64`` int64 keys, on any device -> the (n,) uint64 codes
     ``(hi << 32) | lo`` on the host (the key is the code with its top bit
     flipped)."""
-    return key.cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)
+    return sync_guard.pull(key, "zorder.codes").view(np.uint64) \
+        ^ np.uint64(1 << 63)
 
 
 def zorder_order_words_np(order_words: Sequence[np.ndarray]) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Telemetry: spans (``trace``), the metrics registry (``metrics``),
 events (``events``), per-query run reports (``report``), the timeline
 with kernel attribution (``timeline``), per-action build reports
-(``build_report``), the perf ledger (``perf_ledger``) and the bench
-diff (``bench_compare``); docs/16-observability.md is the catalog."""
+(``build_report``), the perf ledger (``perf_ledger``), the bench diff
+(``bench_compare``), the flight recorder (``flight_recorder``), the SLO
+math (``slo``) and the doctor (``doctor``); docs/16-observability.md is
+the catalog."""
 
 from hyperspace_tpu_torch.telemetry.events import (
     AppInfo,

@@ -121,6 +121,24 @@ class MetricsRegistry:
             self._gauges.clear()
             self._histograms.clear()
 
+    def typed_snapshot(self) -> Dict[str, Dict[str, object]]:
+        """Point-in-time snapshot split by series kind (counters, gauges,
+        histograms), for a reader that must tell them apart, such as the
+        doctor's per-device kernel-ms map.  Histogram dicts also carry
+        ``exemplars`` (bucket index -> ``(trace_id, value)``)."""
+        with self._lock:
+            out: Dict[str, Dict[str, object]] = {
+                "counters": dict(self._counters),
+                "gauges": dict(self._gauges),
+                "histograms": {},
+            }
+            for name, h in self._histograms.items():
+                snap = h.snapshot()
+                snap["exemplars"] = {str(i): list(ex)
+                                     for i, ex in h.exemplars.items()}
+                out["histograms"][name] = snap
+            return out
+
     def snapshot(self) -> Dict[str, object]:
         """Point-in-time dict of every series, plus the derived ratios the
         catalog promises (``cache.device.hit_ratio``)."""

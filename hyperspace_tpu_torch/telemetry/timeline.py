@@ -252,9 +252,12 @@ def kernel_end(name: str, mark: Optional[_KernelMark],
     if mark.event is not None:
         import torch
 
+        from hyperspace_tpu_torch.execution import sync_guard
+
         end = torch.cuda.Event(enable_timing=True)
         end.record(torch.cuda.current_stream(mark.device))
-        end.synchronize()  # a device error raised here propagates
+        with sync_guard.allowed():  # the seam's own sync is attributed
+            end.synchronize()  # a device error raised here propagates
         ms = float(mark.event.elapsed_time(end))
         end_ns = time.monotonic_ns()
         start_ns = end_ns - int(ms * 1e6)

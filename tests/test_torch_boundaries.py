@@ -27,6 +27,14 @@ _FORBIDDEN = [
 ]
 
 
+# The query-path guards and diagnostics.
+_GUARDS_AND_DIAGNOSTICS = (
+    "execution/sync_guard.py", "utils/deadline.py",
+    "execution/plan_cache.py", "interop/__init__.py", "interop/query.py",
+    "telemetry/flight_recorder.py", "telemetry/slo.py",
+    "telemetry/doctor.py")
+
+
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
@@ -61,7 +69,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "telemetry/events.py", "telemetry/timeline.py",
                    "telemetry/perf_ledger.py", "telemetry/bench_compare.py",
                    "telemetry/__init__.py", "utils/reflection.py",
-                   "lint/catalog.py",):
+                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -102,7 +110,7 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "telemetry/metrics.py", "telemetry/events.py",
                    "telemetry/timeline.py", "telemetry/perf_ledger.py",
                    "telemetry/bench_compare.py", "utils/reflection.py",
-                   "lint/catalog.py",):
+                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -953,6 +961,64 @@ def test_the_plan_language_imports_no_jax(tmp_path):
                        p=substring("t", 1, 2),
                        n=col("g").cast("string")).collect()
         assert out.num_rows > 0 and set(out.column("p").to_pylist()) <= {{"MA", "SH"}}
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_guards_and_diagnostics_import_no_jax(tmp_path):
+    """The guards and diagnostics load without pyarrow (the slow-query
+    table, the doctor's table and the bundles import it when called);
+    then a strict collect, a plan-cache hit, a deadline, the flight
+    recorder, a bundle, the doctor and a JSON spec, each through the
+    port's entry points, load neither jax nor the JAX package."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        from hyperspace_tpu_torch.execution import plan_cache, sync_guard
+        from hyperspace_tpu_torch.utils import deadline
+        from hyperspace_tpu_torch import interop
+        from hyperspace_tpu_torch.telemetry import doctor, flight_recorder, slo
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        pq.write_table(pa.table({{"k": np.arange(300), "v": np.ones(300)}}),
+                       os.path.join(data, "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+        s.conf.device_guard_enabled = True
+        s.conf.flight_recorder_slow_ms = 0.001
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        s.enable_hyperspace()
+        cache = plan_cache.PlanCache()
+        ds = s.read.parquet(data).filter(col("k") == 7).select("k", "v")
+        for _ in range(2):
+            with deadline.scope(60.0):
+                assert ds.collect(plan_cache=cache).num_rows == 1
+        assert sync_guard.armed() and cache.stats()["hits"] == 1
+        spec = {{"source": {{"format": "parquet", "path": data}},
+                 "filter": {{"op": "==", "col": "k", "value": 7}}}}
+        assert interop.dataset_from_spec(s, spec).collect().num_rows == 1
+        assert hs.slow_queries().num_rows == 3
+        assert hs.dump_diagnostics() and len(hs.diagnostics_bundles()) == 1
+        assert hs.doctor().table().num_rows == 10
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

@@ -506,7 +506,10 @@ class TestScenariosAgainstJax:
         _one(pair.cycle(), decision="refresh", outcome="done")
 
     def test_backoff_after_an_armed_fault(self, tmp_path):
-        pair = _Pair(tmp_path, lifecycle_backoff_initial_s=0.3,
+        # Each package's backoff starts at its own failed cycle; the
+        # second cycle of both must fall inside both backoffs, so the
+        # backoff outlasts a cycle and the cross-package check between.
+        pair = _Pair(tmp_path, lifecycle_backoff_initial_s=2.0,
                      auto_recovery_enabled=True)
         _append(pair.src, start=90_000)
 
@@ -520,7 +523,7 @@ class TestScenariosAgainstJax:
         rec = _one(pair.cycle(), index="lix")
         assert rec["outcome"] == "skipped" \
             and rec["reason"].startswith("backing off after 1 failure(s)")
-        time.sleep(0.35)
+        time.sleep(2.05)
         _one(pair.cycle(), decision="refresh", outcome="done")
 
 

@@ -547,11 +547,10 @@ def _event_view(e):
             e.message, getattr(e, "state", None))
 
 
-# Series only one package can have: the flight recorder is not ported,
-# and the JAX package counts live jax buffers on its CPU device where a
-# CPU session of the port has no device memory to count.
-_JAX_ONLY_SERIES = {"flight.recorded", "flight.retained", "flight.ring_size",
-                    "build.device.live_bytes", "mem.device.live_bytes"}
+# Series only one package can have: the JAX package counts live jax
+# buffers on its CPU device where a CPU session of the port has no device
+# memory to count.
+_JAX_ONLY_SERIES = {"build.device.live_bytes", "mem.device.live_bytes"}
 
 
 @pytest.fixture(scope="module")
@@ -574,6 +573,9 @@ def workload(tmp_path_factory):
         logs[pkg] = _m(pkg, "telemetry.events").CollectingEventLogger()
         _m(pkg, "telemetry.events").set_event_logger(logs[pkg])
         _m(pkg, "telemetry.metrics").reset()
+        # The rings are process-wide: their healthy 1-in-N sample must
+        # start from the same count in both packages.
+        _m(pkg, "telemetry.flight_recorder").reset()
     try:
         for pkg in (JAX, TORCH):
             s = _xsession(pkg, root)
