@@ -446,6 +446,31 @@ beside it.
            quick refresh, no launch) and its ``maintenance`` flight
            record.  The guard is disarmed at the end.  Prints
            ``{"diagnostics": ...}`` with the card's name and power limit.
+  phase S  the object store (after phase R): an SF1 spill build of
+           ``s_li`` over a hard-linked copy of phase C's lineitem through
+           ``ObjectStoreLogManager`` over ``EmulatedObjectStore`` under a
+           S_STALE_MS listing window, and a twin on the posix log: every
+           bucket's sha256 equal, nothing listed yet ids 1 and 2 found by
+           the forward probe.  Phase D's seven queries: numpy's answers
+           and the twin's, no launch.  A flipped byte in the point key's
+           bucket: a full verify quarantines it through the emulated
+           store (listed nothing, found by point reads), the point query
+           answers that bucket from the source (one hash launch), the
+           repair restores the twin's bytes.  One appended file and an
+           incremental refresh on each log, bucket for bucket equal.  A
+           quick refresh with an eio at its third ``store.put`` (the
+           pointer's swap) commits through the retry; one with a torn
+           first put dies, its id stays burned and the refresh run again
+           commits at the next ids; two sessions' incremental refreshes
+           race (both past validation before either claims an id): one
+           "ok" (one launch of each kernel), one "noop" after a conflict
+           retry, the files the twin's after its own refresh.  The
+           pointer only moves forward.  The ms per log commit (S_COMMITS commits of the
+           index's entry, ``write_log`` and the pointer) on each store
+           class and on the posix log.  Its launches (the build, the
+           contained query, the repair, the refresh and the race's
+           winner) are ``S object store``; prints ``{"object_store": ...}`` with the card's name
+           and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -475,12 +500,13 @@ phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
-R's ``R diagnostics``), the
+R's ``R diagnostics``, phase S's ``S object store``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
-(phase P), the telemetry JSON (phase Q) and the diagnostics JSON (phase
-R), each of the last five with the card's name and power limit, the
+(phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
+R) and the object-store JSON (phase S), each of the last six with the
+card's name and power limit, the
 card's name and power limit, and
 ``{"ok": true, "device": ...}``.
 """
@@ -5671,6 +5697,420 @@ def phase_r(orders: dict, li: dict, root: str, dev) -> dict:
     return out
 
 
+S_SOURCE = "s_lineitem"         # a hard-linked copy of phase C's lineitem
+S_INDEX = "s_li"                # phase S's SF1 index on the object-store log
+S_STALE_MS = 60_000.0           # the listing window: nothing lists in it
+S_SEED = 191                    # the appended files' rows
+S_COMMITS = 50                  # timed log commits per store
+S_OBJECT_CONF = {
+    "log_manager_class":
+        "hyperspace_tpu_torch.index.object_log_manager.ObjectStoreLogManager",
+    "log_store_class": "hyperspace_tpu_torch.io.log_store.EmulatedObjectStore",
+    "object_store_stale_list_ms": S_STALE_MS,
+}
+
+
+def s_pointer(hs) -> tuple:
+    """(id, state, generation) of the object-store log's pointer."""
+    mgr = hs.session.index_collection_manager._log_manager(S_INDEX)
+    data, gen = mgr.store.read_with_generation("latestStable")
+    entry = mgr._parse(data)
+    return (None if entry is None else entry.id,
+            None if entry is None else entry.state, gen)
+
+
+def s_commit_ms(root: str, entry) -> dict:
+    """ms per log commit (``write_log`` and the pointer's update) of
+    S_COMMITS commits of ``entry`` through the object-store log on each
+    store class, and through the posix log (create-if-absent and a
+    rename) beside them."""
+    import copy
+
+    from hyperspace_tpu_torch.index.log_manager import IndexLogManager
+    from hyperspace_tpu_torch.index.object_log_manager import (
+        ObjectStoreLogManager,
+    )
+
+    out = {}
+    for label, store in (("EmulatedObjectStore", "EmulatedObjectStore"),
+                         ("PosixLogStore", "PosixLogStore"),
+                         ("posix log (IndexLogManager)", None)):
+        path = os.path.join(root, "s_commits", label.split()[0])
+        if store is None:
+            mgr = IndexLogManager(path)
+        else:
+            mgr = ObjectStoreLogManager(path)
+            mgr.store_class = f"hyperspace_tpu_torch.io.log_store.{store}"
+            mgr.stale_list_s = S_STALE_MS / 1000.0
+        entries = [copy.deepcopy(entry) for _ in range(S_COMMITS)]
+        t0 = time.perf_counter()
+        for i, e in enumerate(entries, start=1):
+            if not (mgr.write_log(i, e) and mgr.create_latest_stable_log(i)):
+                raise AssertionError(f"phase S: commit {i} on {label} lost")
+        out[label] = (time.perf_counter() - t0) * 1e3 / S_COMMITS
+        if mgr.get_latest_stable_log().id != S_COMMITS:
+            raise AssertionError(f"phase S: {label} pointer not at "
+                                 f"{S_COMMITS}")
+    shutil.rmtree(os.path.join(root, "s_commits"), ignore_errors=True)
+    return out
+
+
+def phase_s(orders: dict, li: dict, root: str, dev) -> dict:
+    """The object store and the object-store log at SF1 (see the module
+    docstring)."""
+    import threading
+
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch.index.object_log_manager import (
+        ObjectStoreLogManager,
+    )
+    from hyperspace_tpu_torch.io import faults
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    src = os.path.join(root, S_SOURCE)
+    shutil.copytree(os.path.join(root, "lineitem"), src,
+                    copy_function=os.link)
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    one = {"hash_buckets": 1, "bucket_histogram": 1}
+    none = {"hash_buckets": 0, "bucket_histogram": 0}
+    config = IndexConfig(S_INDEX, INDEXED, INCLUDED)
+    obj_path = os.path.join(root, "s_object")
+    obj = spill_session(dev, obj_path, **S_OBJECT_CONF)
+    twin = spill_session(dev, os.path.join(root, "s_posix"))
+    launches = dict(none)
+    out: dict = {}
+    steps: dict = {}
+    mark = [time.perf_counter()]
+    pointers = []
+
+    def step(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - mark[0]
+        mark[0] = now
+
+    def count(label: str, run, want: dict):
+        """``run()`` on the object-store index, its launches required to
+        be ``want`` and added to the phase's."""
+        device_cache().clear()
+        kernels.reset_launch_counts()
+        result = run()
+        got = kernels.launch_counts()
+        require_launches(f"phase S {label}", got, want)
+        for k, v in got.items():
+            launches[k] += v
+        pointers.append((label, s_pointer(obj)))
+        return result
+
+    def same_files(label: str) -> None:
+        got, want = bucket_digests(obj, S_INDEX), bucket_digests(twin, S_INDEX)
+        if got != want:
+            bad = sorted(b for b in set(got) | set(want)
+                         if got.get(b) != want.get(b))
+            raise AssertionError(f"phase S {label}: buckets {bad[:8]} "
+                                 f"differ from the posix twin's")
+
+    def log_of(hs) -> tuple:
+        mgr = hs.session.index_collection_manager._log_manager(S_INDEX)
+        ids = mgr.log_ids()
+        return ids, [None if e is None else e.state
+                     for e in (mgr.get_log(i) for i in ids)]
+
+    def quick(label: str, hs=None) -> str:
+        return count(label, lambda: (hs or obj).refresh_index(
+            S_INDEX, "quick").outcome, none)
+
+    try:
+        metrics.reset()
+        # 1. The build, bit for bit the posix twin's.
+        build = count("build", lambda: timed_build(
+            dev, "S object-store build", obj, lambda: obj.create_index(
+                obj.session.read.parquet(src), config), chunks),
+            {k: chunks for k in none})
+        twin_build = timed_build(dev, "S posix twin build", twin,
+                                 lambda: twin.create_index(
+                                     twin.session.read.parquet(src), config),
+                                 chunks)
+        same_files("build")
+        mgr = obj.session.index_collection_manager._log_manager(S_INDEX)
+        if not isinstance(mgr, ObjectStoreLogManager) \
+                or type(mgr.store).__name__ != "EmulatedObjectStore" \
+                or mgr.stale_list_s != S_STALE_MS / 1000.0:
+            raise AssertionError(f"phase S: the log is {type(mgr).__name__} "
+                                 f"over {type(mgr.store).__name__}")
+        listed = mgr.store.list_keys()
+        probed = mgr.log_ids()
+        if listed != [] or probed != [1, 2]:
+            raise AssertionError(f"phase S: listed {listed}, probed {probed}")
+        out["build"] = {"wall_s": build["wall_s"],
+                        "twin_wall_s": twin_build["wall_s"],
+                        "phases": build["phases"],
+                        "launches": build["launches"],
+                        "listed": listed, "probed": probed}
+        step("builds")
+
+        # 2. Phase D's seven queries: the twin's answers, no launch.
+        expected = {**expected_answers(orders, li),
+                    **expected_aggregates(orders, li)}
+        for hs in (obj, twin):
+            hs.session.enable_hyperspace()
+        mine = build_queries(obj.session, root, lineitem=S_SOURCE,
+                             aggregates=True)
+        theirs = build_queries(twin.session, root, lineitem=S_SOURCE,
+                               aggregates=True)
+        query_ms = {}
+        for name, ds in mine.items():
+            t0 = time.perf_counter()
+            table = count(f"query {name}", ds.collect, none)
+            query_ms[name] = (time.perf_counter() - t0) * 1e3
+            want, keys = expected[name]
+            require_rows(f"phase S {name}", table, want, keys,
+                         AGG_RTOL if name in AGG_QUERIES else 0.0)
+            if not table.equals(theirs[name].collect()):
+                raise AssertionError(f"phase S {name}: the answer differs "
+                                     f"from the posix twin's")
+        for name in ("point", "range"):
+            if [n for n, _ in index_scans(mine[name].optimized_plan())] \
+                    != [S_INDEX]:
+                raise AssertionError(f"phase S {name}: the plan does not "
+                                     f"read {S_INDEX}")
+        out["queries_ms"] = query_ms
+        step("queries")
+
+        # 3. Bit rot in the point key's bucket: quarantined through the
+        # emulated store under its window, the bucket answered from the
+        # source, then repaired to its former bytes.
+        entry = obj.session.index_collection_manager.get_index(S_INDEX)
+        infos = entry.content.file_infos()
+        b = int(bucket_of(np.array([POINT_KEY]), SPILL_BUCKETS)[0])
+        victims = [f.name for f in infos if bucket_id_of_file(f.name) == b]
+        if len(victims) != 1:
+            raise AssertionError(f"phase S: bucket {b} has {victims}")
+        flip_byte(victims[0])
+        t0 = time.perf_counter()
+        report = obj.verify_index(S_INDEX, "full")
+        verify_s = time.perf_counter() - t0
+        flagged = {f: s for f, s in zip(report.column("file").to_pylist(),
+                                        report.column("status").to_pylist())
+                   if s != "ok"}
+        qm = obj.session.index_collection_manager.quarantine_manager(S_INDEX)
+        candidates = [f.name for f in infos]
+        if flagged != {victims[0]: "digest-mismatch"} \
+                or type(qm.store).__name__ != "EmulatedObjectStore" \
+                or qm.store.list_keys() != [] \
+                or qm.paths(candidates) != {victims[0]}:
+            raise AssertionError(f"phase S: verify flagged {flagged}, "
+                                 f"quarantine {qm.paths(candidates)}")
+        point = mine["point"]
+        branches = bucket_in_branches(point.optimized_plan())
+        if len(branches) != 1 or branches[0].condition.buckets != (b,):
+            raise AssertionError(f"phase S: {len(branches)} BucketIn "
+                                 f"branches in the contained point query")
+        want, keys = expected["point"]
+        require_rows("phase S contained point", count(
+            "contained point", point.collect,
+            {"hash_buckets": 1, "bucket_histogram": 0}), want, keys)
+        routes = [r["strategy"] for r in
+                  obj.session.last_execution_stats.get("bucket_in", [])]
+        if cuda and routes != ["device"]:
+            raise AssertionError(f"phase S: BucketIn routes {routes}")
+        repair = count("repair", lambda: timed_build(
+            dev, "S repair", obj,
+            lambda: obj.refresh_index(S_INDEX, "repair"), one), one)
+        same_files("repair")
+        after = obj.session.index_collection_manager.get_index(S_INDEX)
+        if qm.paths([f.name for f in after.content.file_infos()]
+                    + candidates) or set(
+                obj.verify_index(S_INDEX, "full").column("status")
+                .to_pylist()) != {"ok"}:
+            raise AssertionError("phase S: the repair left a quarantined "
+                                 "or damaged file")
+        out["integrity"] = {"verify_full_s": verify_s,
+                            "repair_wall_s": repair["wall_s"],
+                            "repair_launches": repair["launches"],
+                            "bucket": b}
+        step("quarantine_and_repair")
+
+        # 4. One appended file, an incremental refresh on each log.
+        g_append(src, 0, 1, S_SEED)
+        refresh = count("incremental refresh", lambda: timed_build(
+            dev, "S incremental refresh", obj,
+            lambda: obj.refresh_index(S_INDEX, "incremental"), one), one)
+        timed_build(dev, "S posix twin refresh", twin,
+                    lambda: twin.refresh_index(S_INDEX, "incremental"), one)
+        same_files("incremental refresh")
+        out["refresh"] = {"wall_s": refresh["wall_s"],
+                          "launches": refresh["launches"],
+                          "phases": refresh["phases"]}
+        step("incremental_refresh")
+
+        # 5. A transient fault at the pointer's swap, absorbed by the
+        # retry; a torn put at a numbered entry, which burns its id, and
+        # the same refresh again.  The quick refresh puts its transient
+        # entry, its final entry, then the pointer: the third put.
+        faulted = {}
+        g_append(src, 1, 1, S_SEED + 1)
+        retries0 = float(metrics.snapshot().get("io.retry.attempts", 0.0))
+        before = s_pointer(obj)
+        plan = faults.FaultPlan(site="store.put", kind="eio", at=3, count=1)
+        faults.install(plan)
+        try:
+            outcome = quick("quick refresh, eio at the pointer")
+        finally:
+            faults.clear()
+        ids, states = log_of(obj)
+        ptr = s_pointer(obj)
+        if outcome != "ok" or plan._fired != 1 or ptr[0] != ids[-1] \
+                or ptr[2] != before[2] + 1 or states[-2:] != [
+                    "REFRESHING", "ACTIVE"] \
+                or float(metrics.snapshot().get("io.retry.attempts", 0.0)) \
+                <= retries0:
+            raise AssertionError(f"phase S: eio at the pointer: {outcome}, "
+                                 f"fired {plan._fired}, ids {ids} {states}, "
+                                 f"pointer {before} -> {ptr}")
+        faulted["eio_at_pointer"] = {"ids": ids[-2:], "pointer": list(ptr)}
+        g_append(src, 2, 1, S_SEED + 2)
+        burned = ids[-1] + 1
+        plan = faults.FaultPlan(site="store.put", kind="torn", at=1, count=1)
+        faults.install(plan)
+        try:
+            crashed = count("quick refresh, torn entry", lambda: _raised_name(
+                lambda: obj.refresh_index(S_INDEX, "quick")), none)
+        finally:
+            faults.clear()
+        if crashed != "InjectedCrash" or mgr.get_log(burned) is not None \
+                or mgr.get_latest_id() != burned:
+            raise AssertionError(f"phase S: torn put: {crashed}, latest "
+                                 f"{mgr.get_latest_id()}")
+        outcome = quick("quick refresh after the torn entry")
+        ids, states = log_of(obj)
+        ptr = s_pointer(obj)
+        if outcome != "ok" or ids[-3:] != [burned, burned + 1, burned + 2] \
+                or states[-3:] != [None, "REFRESHING", "ACTIVE"] \
+                or ptr[0] != burned + 2:
+            raise AssertionError(f"phase S: after the torn entry {outcome}, "
+                                 f"ids {ids} {states}, pointer {ptr}")
+        faulted["torn_entry"] = {"burned": burned, "ids": ids[-3:],
+                                 "pointer": list(ptr)}
+        out["faults"] = faulted
+        step("faults")
+
+        # 6. Two sessions' incremental refreshes race after one more
+        # append: both validate, both claim the next id, one wins it; the
+        # loser, held until the winner has committed, rebases on its
+        # entry and finds nothing left to do.  (Two quick refreshes would
+        # both commit: a quick refresh records the appended files without
+        # indexing them, so the rebased one still finds them, in both
+        # packages.)
+        g_append(src, 3, 1, S_SEED + 3)
+        racers = [spill_session(dev, obj_path, **S_OBJECT_CONF)
+                  for _ in range(2)]
+        gate = threading.Barrier(2, timeout=60)
+        first = threading.local()
+        committed = threading.Event()
+        write_log = ObjectStoreLogManager.write_log
+
+        def gated(self, log_id, entry):
+            if getattr(first, "seen", False):
+                return write_log(self, log_id, entry)
+            first.seen = True
+            gate.wait()
+            won = write_log(self, log_id, entry)
+            if not won:
+                committed.wait(60)
+            return won
+
+        results: dict = {}
+
+        def racer(i: int) -> None:
+            try:
+                results[i] = racers[i].refresh_index(
+                    S_INDEX, "incremental").outcome
+            except BaseException as e:  # noqa: BLE001 - reported below
+                results[i] = repr(e)
+            finally:
+                committed.set()
+
+        conflicts0 = float(metrics.snapshot().get(
+            "action.conflict.retries", 0.0))
+        ObjectStoreLogManager.write_log = gated
+        try:
+            def race():
+                threads = [threading.Thread(target=racer, args=(i,))
+                           for i in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(120)
+            count("race", race, one)
+        finally:
+            ObjectStoreLogManager.write_log = write_log
+        timed_build(dev, "S posix twin refresh after the race", twin,
+                    lambda: twin.refresh_index(S_INDEX, "incremental"), one)
+        same_files("race")
+        conflicts = float(metrics.snapshot().get(
+            "action.conflict.retries", 0.0)) - conflicts0
+        ids, states = log_of(obj)
+        ptr = s_pointer(obj)
+        if sorted(results.values()) != ["noop", "ok"] or conflicts < 1 \
+                or ptr[0] != ids[-1] or states[-1] != "ACTIVE":
+            raise AssertionError(f"phase S: race {results}, conflict "
+                                 f"retries {conflicts}, ids {ids} "
+                                 f"{states}, pointer {ptr}")
+        out["race"] = {"outcomes": [results[0], results[1]],
+                       "conflict_retries": conflicts, "ids": ids[-2:]}
+        step("race")
+
+        # The pointer only moved forward, one stable id after another.
+        ids_seen = [p[1][0] for p in pointers]
+        if any(b_ < a for a, b_ in zip(ids_seen, ids_seen[1:])):
+            raise AssertionError(f"phase S: the pointer moved back: "
+                                 f"{pointers}")
+        out["pointer_ids"] = ids_seen
+        final = mgr.get_latest_stable_log()
+        out["log"] = {"ids": ids, "states": states,
+                      "entry_bytes": len(mgr.store.read(str(final.id)))}
+        out["commit_ms"] = s_commit_ms(root, final)
+        step("commits")
+        out["launches"] = launches
+    finally:
+        faults.clear()
+        for hs in (obj, twin):
+            hs.session.disable_hyperspace()
+        device_cache().clear()
+        shutil.rmtree(src, ignore_errors=True)
+    out["steps_s"] = steps
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _raised_name(fn) -> str:
+    """The class name of what ``fn`` raised (a BaseException: an injected
+    crash is one), or "" when it returned."""
+    try:
+        fn()
+    except BaseException as e:  # noqa: BLE001 - InjectedCrash included
+        return type(e).__name__
+    return ""
+
+
+def print_object_store(s: dict) -> None:
+    print(f"phase S: object-store build {s['build']['wall_s']:.3f} s "
+          f"(posix twin {s['build']['twin_wall_s']:.3f} s), every bucket's "
+          f"sha256 the twin's after the build, the repair and the "
+          f"refresh; listed {s['build']['listed']}, probed "
+          f"{s['build']['probed']}; queries ms "
+          f"{json.dumps({k: round(v, 1) for k, v in s['queries_ms'].items()})}; "
+          f"faults {json.dumps(s['faults'])}; race "
+          f"{json.dumps(s['race'])}; ms per log commit "
+          f"{json.dumps(s['commit_ms'])}; launches "
+          f"{json.dumps(s['launches'])} ({s['phase_s']:.3f} s; by step "
+          f"{json.dumps(s['steps_s'])})", flush=True)
+
+
 def print_diagnostics(r: dict) -> None:
     st, cache = r["strict"], r["plan_cache"]
     print(f"phase R: strict build {st['build_wall_s']:.3f} s "
@@ -6402,6 +6842,8 @@ def main() -> int:
         print_telemetry(telemetry)
         diagnostics = phase_r(orders, li, root, dev)
         print_diagnostics(diagnostics)
+        object_store = phase_s(orders, li, root, dev)
+        print_object_store(object_store)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -6441,7 +6883,8 @@ def main() -> int:
                "O rerun": advisor["launches_rerun"],
                "P lifecycle": lifecycle["launches"],
                "Q telemetry": telemetry["launches"],
-               "R diagnostics": diagnostics["launches"]}
+               "R diagnostics": diagnostics["launches"],
+               "S object store": object_store["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -6475,6 +6918,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": {**lifecycle, "card": smi}}))
     print(json.dumps({"telemetry": {**telemetry, "card": smi}}))
     print(json.dumps({"diagnostics": {**diagnostics, "card": smi}}))
+    print(json.dumps({"object_store": {**object_store, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,8 +100,9 @@ class RepairAction(RefreshActionBase):
             raise HyperspaceError(
                 "Repair applies to covering indexes; rebuild a "
                 "data-skipping index with refresh_index(mode='full')")
-        qpaths = self.quarantine.paths()
-        flagged = [f for f in entry.content.file_infos() if f.name in qpaths]
+        infos = entry.content.file_infos()
+        qpaths = self.quarantine.paths([f.name for f in infos])
+        flagged = [f for f in infos if f.name in qpaths]
         if not flagged:
             raise NoChangesError(
                 "no quarantined index files; nothing to repair")
@@ -215,7 +216,8 @@ class RepairAction(RefreshActionBase):
         latest = self.log_manager.get_latest_stable_log()
         referenced = {f.name for f in latest.content.file_infos()} \
             if latest is not None else set()
-        for path in self.quarantine.paths():
+        repaired = [f.name for f in self._previous_entry.content.file_infos()]
+        for path in self.quarantine.paths(repaired):
             if path not in referenced:
                 self.quarantine.remove(path)
         return outcome

@@ -103,10 +103,10 @@ class VerifyIndexAction:
         if entry is None:
             raise HyperspaceError(
                 "verify_index: index does not exist (no stable log entry)")
-        already = self.quarantine.paths()
+        infos = entry.content.file_infos()
+        already = self.quarantine.paths([f.name for f in infos])
         rows: List[Dict] = []
         referenced = set()
-        infos = entry.content.file_infos()
         flagged = 0
         for f in infos:
             referenced.add(f.name)

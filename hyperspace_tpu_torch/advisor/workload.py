@@ -59,10 +59,11 @@ def workload_root(conf) -> str:
 
 
 def store_for(conf):
-    """The capture store, rooted at the workload directory."""
-    from hyperspace_tpu_torch.io.log_store import PosixLogStore
+    """The capture store: the class ``conf.log_store_class`` names,
+    rooted at the workload directory."""
+    from hyperspace_tpu_torch.io.log_store import store_from_conf
 
-    return PosixLogStore(workload_root(conf))
+    return store_from_conf(conf, workload_root(conf))
 
 
 def _relation_key(rel) -> str:

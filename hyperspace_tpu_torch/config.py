@@ -3,8 +3,9 @@ holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
 index lifecycle, the source watch, the transaction loop, telemetry, the
-sync guard, the doctor, deadlines, the plan cache and the flight
-recorder; defaults are the JAX package's).
+sync guard, the doctor, deadlines, the plan cache, the flight recorder
+and the pluggable log and store classes; defaults are the JAX
+package's, the class paths under the port's own modules).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -47,6 +48,21 @@ class HyperspaceConf:
     # (0 = one file per bucket).
     index_max_rows_per_file: int = 0
     signature_provider: str = "IndexSignatureProvider"
+    # The operation log's backend, a dotted class path of an
+    # IndexLogManager subclass: the default creates entries with O_EXCL
+    # and moves the pointer by an atomic rename; ObjectStoreLogManager
+    # (index/object_log_manager.py) needs neither, only the conditional
+    # puts of a LogStore.
+    log_manager_class: str = (
+        "hyperspace_tpu_torch.index.log_manager.IndexLogManager")
+    # The LogStore class (io/log_store.py) of ObjectStoreLogManager's log
+    # and of every store of records (quarantine, workload, journal,
+    # lease, watch bus, perf ledger, diagnostics bundles).
+    log_store_class: str = (
+        "hyperspace_tpu_torch.io.log_store.EmulatedObjectStore")
+    # EmulatedObjectStore's listing window (ms): keys committed within it
+    # are not listed yet, while point reads see them.
+    object_store_stale_list_ms: float = 0.0
     # The most rows one build holds on the device at once; env
     # HS_DEVICE_BATCH_ROWS overrides the default.
     device_batch_rows: int = dataclasses.field(

@@ -54,9 +54,11 @@ class IndexDataManager:
         """Remove version ``version``'s data directory, if it exists, and
         its quarantine records."""
         path = self.version_path(version)
+        files = [os.path.join(d, n) for d, _, names in os.walk(path)
+                 for n in names]
         if os.path.isdir(path):
             remove_tree(path)
         if self.quarantine is not None:
             # The files are gone: a record of one would read as
             # "missing" to every later scrub.
-            self.quarantine.clear_version(version)
+            self.quarantine.clear_version(version, files)

@@ -24,8 +24,10 @@ The failure envelope:
 Every action the manager dispatches is armed with
 ``conf.concurrency_max_retries`` and the ``io_retry_*`` backoff, so a
 write conflict rebases and retries (actions/base.py).  A degraded index
-emits an ``IndexDegradedEvent`` (telemetry/events.py).  Not ported:
-pluggable log managers."""
+emits an ``IndexDegradedEvent`` (telemetry/events.py).  The log
+manager is the class ``conf.log_manager_class`` names (the POSIX
+``IndexLogManager`` by default, or ``ObjectStoreLogManager`` over the
+``conf.log_store_class`` store)."""
 
 from __future__ import annotations
 
@@ -77,7 +79,13 @@ class IndexCollectionManager:
         return os.path.join(root, name)
 
     def _log_manager(self, name: str) -> IndexLogManager:
-        mgr = IndexLogManager(self.index_path(name))
+        from hyperspace_tpu_torch.utils.reflection import load_class
+
+        cls = load_class(self.session.conf.log_manager_class,
+                         IndexLogManager, HyperspaceError)
+        mgr = cls(self.index_path(name))
+        # The constructor takes the index path only: the retry policy and
+        # the conf (an object-store log's store class and window) follow.
         mgr.retry = policy_from_conf(self.session.conf)
         mgr.configure(self.session.conf)
         return mgr

@@ -13,8 +13,16 @@ The records live in a ``LogStore`` rooted at
 path relative to the index directory percent-encoded (keys hold no
 ``/``), the value a small JSON record (reason, size, time).
 ``put_if_absent`` makes quarantining idempotent between concurrent
-discoverers.  Keys and records are the JAX package's, so either package
-reads what the other quarantined.
+discoverers.  The store is of the class ``conf.log_store_class`` names;
+keys and records are the JAX package's, so either package reads what the
+other quarantined through the same store class.
+
+Under an object store's listing window (``conf.object_store_stale_list_ms``)
+a fresh record is not listed yet, so the readers that know which files
+can be quarantined (the rules, verify, repair, the daemon and the
+vacuum) pass them as ``candidates`` and each is probed by a point read,
+which is strongly consistent.  Without a window the listing alone
+answers, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,19 +31,18 @@ import json
 import os
 import time
 import urllib.parse
-from typing import Dict, List, Optional, Set
+from typing import Dict, Iterable, List, Optional, Set
 
-from hyperspace_tpu_torch.io.log_store import LogStore, PosixLogStore
+from hyperspace_tpu_torch.io.log_store import LogStore, store_from_conf
 
 QUARANTINE_DIR = "_hyperspace_quarantine"
 
 
 def quarantine_manager_for(conf, index_path: str) -> "QuarantineManager":
-    """The quarantine of the index at ``index_path``.  Always the POSIX
-    store: the port has no ``conf.log_store_class`` and no emulated
-    object store (ROADMAP Queue A 14)."""
-    return QuarantineManager(
-        index_path, PosixLogStore(os.path.join(index_path, QUARANTINE_DIR)))
+    """The quarantine of the index at ``index_path``, in a store of the
+    class ``conf.log_store_class`` names."""
+    return QuarantineManager(index_path, store_from_conf(
+        conf, os.path.join(index_path, QUARANTINE_DIR)))
 
 
 class QuarantineManager:
@@ -67,26 +74,48 @@ class QuarantineManager:
         for key in self.store.list_keys():
             self.store.delete(key)
 
-    def clear_version(self, version: int) -> None:
+    def clear_version(self, version: int,
+                      candidates: Iterable[str] = ()) -> None:
         """Drop the records of files under ``v__=<version>/``, so deleting
-        a version leaves no orphaned record."""
+        a version leaves no orphaned record; ``candidates`` are the
+        version's files, for the records a listing window hides."""
         from hyperspace_tpu_torch.index.data_manager import (
             INDEX_VERSION_DIR_PREFIX,
         )
 
         prefix = f"{INDEX_VERSION_DIR_PREFIX}{version}{os.sep}"
-        for key in self.store.list_keys():
-            if urllib.parse.unquote(key).startswith(prefix):
-                self.store.delete(key)
+        keys = {k for k in self.store.list_keys()
+                if urllib.parse.unquote(k).startswith(prefix)}
+        keys.update(self._key(p) for p in self._probed(candidates))
+        for key in sorted(keys):
+            self.store.delete(key)
 
-    def paths(self) -> Set[str]:
-        """Absolute paths of every quarantined file."""
-        return {self._path_of_key(k) for k in self.store.list_keys()}
+    def _keys(self, candidates: Optional[Iterable[str]]) -> List[str]:
+        """The listed keys and, under a listing window, those of the
+        ``candidates`` a point read finds."""
+        keys = set(self.store.list_keys())
+        keys.update(self._key(p) for p in self._probed(candidates, keys))
+        return sorted(keys)
 
-    def records(self) -> List[Dict]:
+    def _probed(self, candidates: Optional[Iterable[str]],
+                listed: Set[str] = frozenset()) -> List[str]:
+        """The unlisted ``candidates`` that are quarantined; none without
+        a listing window, where the listing is complete."""
+        if candidates is None or self.store.stale_list_s <= 0.0:
+            return []
+        return [p for p in candidates if self._key(p) not in listed
+                and self.store.exists(self._key(p))]
+
+    def paths(self, candidates: Optional[Iterable[str]] = None) -> Set[str]:
+        """Absolute paths of every quarantined file (of the listed ones,
+        and under a listing window of the ``candidates``)."""
+        return {self._path_of_key(k) for k in self._keys(candidates)}
+
+    def records(self, candidates: Optional[Iterable[str]] = None
+                ) -> List[Dict]:
         """[{"path": absolute path, "reason": ..., ...}] per file."""
         out: List[Dict] = []
-        for key in self.store.list_keys():
+        for key in self._keys(candidates):
             rec: Dict = {"path": self._path_of_key(key)}
             try:
                 rec.update(json.loads(self.store.read(key).decode("utf-8")))

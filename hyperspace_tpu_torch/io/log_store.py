@@ -1,14 +1,28 @@
 """A flat key -> bytes store with per-key generations and conditional
-puts (counterpart of hyperspace_tpu/io/log_store.py, its ``LogStore``
-and ``PosixLogStore``).  The quarantine records of an index
-(``index/quarantine.py``) live in one.
+puts (counterpart of hyperspace_tpu/io/log_store.py).  The operation log
+of ``ObjectStoreLogManager`` (index/object_log_manager.py), the
+quarantine records of an index (index/quarantine.py), the captured
+workload, the lifecycle journal, the maintenance lease, the watch bus,
+the perf ledger and the diagnostics bundles each live in one, of the
+class ``conf.log_store_class`` names.
 
-``PosixLogStore`` keeps each key as a file in ``root``, its generation
-in a ``<key>.g`` sidecar (``{"g": N, "t": commit time}``), and
-serialises every put and delete with ``flock`` on ``root/.lock`` plus an
-in-process mutex, so a conditional put is atomic across processes.  The
-layout on disk is the JAX package's, so either package reads the records
-the other wrote.
+  - ``PosixLogStore`` keeps each key as a file in ``root``, its
+    generation in a ``<key>.g`` sidecar (``{"g": N, "t": commit time}``),
+    and serialises every put and delete with ``flock`` on
+    ``root/.lock`` plus an in-process mutex, so a conditional put is
+    atomic across processes.  Its listing is strongly consistent.
+  - ``EmulatedObjectStore`` (the default) gives object-store semantics
+    over the same directory: keys are flat and percent-encoded into file
+    names (``/`` is data, not structure), and a listing hides the keys
+    committed within the last ``stale_list_s`` seconds while point
+    reads and conditional puts stay strong: the eventual listing of an
+    object store, which the log protocol must survive.  No rename
+    appears in its API; the ``os.replace`` inside ``_commit`` plays the
+    store server's atomic commit.
+
+The layout on disk (file names, sidecars, generations) is the JAX
+package's, so either package reads what the other wrote with the same
+store class.
 
 Every call goes through a fault site (io/faults.py): ``store.put``
 (where ``torn`` commits half the payload with a real generation, then
@@ -18,7 +32,7 @@ dies, so readers must skip the burned key), ``store.read``,
 
 Each conditional put is a ``store.put`` span and counts in
 ``log.store.puts``; a lost compare-and-swap counts in
-``log.cas.conflicts`` (telemetry/).  Not ported: ``EmulatedObjectStore``.
+``log.cas.conflicts`` (telemetry/).
 """
 
 from __future__ import annotations
@@ -28,6 +42,7 @@ import json
 import os
 import threading
 import time
+import urllib.parse
 from typing import List, Optional, Tuple
 
 from hyperspace_tpu_torch.io import faults
@@ -45,9 +60,11 @@ class LogStore:
     """Keys with generations: ``generation(key)`` is 0 for an absent key
     and grows with every put to it; the conditional puts are atomic with
     respect to every other mutation of the key; point reads are strongly
-    consistent."""
+    consistent; a listing may lag the puts."""
 
-    def list_keys(self) -> List[str]:
+    def list_keys(self, prefix: str = "") -> List[str]:
+        """The keys starting with ``prefix``, sorted; may lag recent
+        puts (the stale-list window)."""
         raise NotImplementedError
 
     def read(self, key: str) -> bytes:
@@ -83,12 +100,21 @@ class PosixLogStore(LogStore):
     """Keys are files in ``root``; puts and deletes run under ``flock``
     on ``root/.lock``; generations live in ``<key>.g`` sidecars."""
 
-    def __init__(self, root: str) -> None:
+    def __init__(self, root: str, stale_list_s: float = 0.0) -> None:
         self.root = root
+        # A posix listing is strongly consistent: the parameter is there
+        # so that every store class takes the same constructor.
+        self.stale_list_s = 0.0
         self._mutex = threading.Lock()
 
+    def _encode(self, key: str) -> str:
+        return key
+
+    def _decode(self, name: str) -> str:
+        return name
+
     def _data_path(self, key: str) -> str:
-        return os.path.join(self.root, key)
+        return os.path.join(self.root, self._encode(key))
 
     def _gen_path(self, key: str) -> str:
         return self._data_path(key) + _GEN_SUFFIX
@@ -108,18 +134,21 @@ class PosixLogStore(LogStore):
             finally:
                 os.close(fd)
 
-    def _generation(self, key: str) -> int:
-        """From the sidecar; a data file without one (a layout from
-        before generations) has generation 1, so it stays visible."""
+    def _meta(self, key: str) -> Tuple[int, float]:
+        """(generation, commit time) from the sidecar, (0, 0) when
+        absent; a data file without one (a layout from before
+        generations) has generation 1, so it stays visible."""
         try:
             with open(self._gen_path(key), "r", encoding="utf-8") as f:
-                return int(json.load(f)["g"])
+                meta = json.load(f)
+            return int(meta["g"]), float(meta.get("t", 0.0))
         except (FileNotFoundError, ValueError, KeyError):
-            return 1 if os.path.isfile(self._data_path(key)) else 0
+            return (1, 0.0) if os.path.isfile(self._data_path(key)) \
+                else (0, 0.0)
 
     def generation(self, key: str) -> int:
         faults.check("store.read")
-        return self._generation(key)
+        return self._meta(key)[0]
 
     def read(self, key: str) -> bytes:
         faults.check("store.read")
@@ -128,7 +157,7 @@ class PosixLogStore(LogStore):
 
     def read_with_generation(self, key: str) -> Tuple[Optional[bytes], int]:
         faults.check("store.read")
-        gen = self._generation(key)
+        gen = self._meta(key)[0]
         if gen == 0:
             return None, 0
         try:
@@ -137,13 +166,27 @@ class PosixLogStore(LogStore):
         except FileNotFoundError:
             return None, gen
 
-    def list_keys(self) -> List[str]:
+    def list_keys(self, prefix: str = "") -> List[str]:
         faults.check("store.list")
         if not os.path.isdir(self.root):
             return []
-        return sorted(name for name in os.listdir(self.root)
-                      if name != _LOCK_NAME and not name.endswith(_GEN_SUFFIX)
-                      and ".tmp-" not in name)
+        now = time.time()
+        out: List[str] = []
+        for name in os.listdir(self.root):
+            if name == _LOCK_NAME or name.endswith(_GEN_SUFFIX) \
+                    or ".tmp-" in name:
+                continue
+            key = self._decode(name)
+            if prefix and not key.startswith(prefix):
+                continue
+            if self.stale_list_s > 0.0:
+                # The window: a key committed within it is not listed
+                # yet; point reads see it.
+                t = self._meta(key)[1]
+                if t and now - t < self.stale_list_s:
+                    continue
+            out.append(key)
+        return sorted(out)
 
     def _commit(self, key: str, data: bytes, gen: int) -> None:
         """Install the data, then the generation, each by an atomic
@@ -168,7 +211,7 @@ class PosixLogStore(LogStore):
         kind = faults.fire("store.put")  # enospc, eio, crash raise here
         with span("store.put", key=key) as sp, self._locked():
             metrics.inc("log.store.puts")
-            cur = self._generation(key)
+            cur = self._meta(key)[0]
             if cur != int(expected_generation):
                 # Another writer moved the key's generation first.
                 metrics.inc("log.cas.conflicts")
@@ -191,3 +234,32 @@ class PosixLogStore(LogStore):
                     os.unlink(path)
                 except FileNotFoundError:
                     pass
+
+
+def store_from_conf(conf, root: str) -> LogStore:
+    """A store of the class ``conf.log_store_class`` rooted at ``root``,
+    with the window ``conf.object_store_stale_list_ms``.  A class that
+    does not load raises ``HyperspaceError``."""
+    from hyperspace_tpu_torch.exceptions import HyperspaceError
+    from hyperspace_tpu_torch.utils.reflection import load_class
+
+    cls = load_class(conf.log_store_class, LogStore, HyperspaceError)
+    return cls(root, stale_list_s=float(
+        conf.object_store_stale_list_ms) / 1000.0)
+
+
+class EmulatedObjectStore(PosixLogStore):
+    """Object-store semantics over a local directory: flat
+    percent-encoded keys, per-key generations, conditional puts, and a
+    listing that hides the keys committed within ``stale_list_s``
+    (``conf.object_store_stale_list_ms``; 0 lists every key)."""
+
+    def __init__(self, root: str, stale_list_s: float = 0.0) -> None:
+        super().__init__(root)
+        self.stale_list_s = float(stale_list_s)
+
+    def _encode(self, key: str) -> str:
+        return urllib.parse.quote(key, safe="")
+
+    def _decode(self, name: str) -> str:
+        return urllib.parse.unquote(name)

@@ -21,8 +21,13 @@ are debounced (``conf.watch_debounce_ms``): a burst of commits is one
 wake.  A backend that cannot start degrades (a forced inotify to poll);
 no backend raises out of the watcher.
 
-Publishes, events, wakes and errors count in ``lifecycle.watch.*``.  Not
-ported: the ``EmulatedObjectStore`` backend of the bus.
+The bus is a store of the class ``conf.log_store_class`` names.  Under
+an object store's listing window (``conf.object_store_stale_list_ms``) a
+marker is listed, and so wakes the watcher, once the window has passed:
+the watcher keeps the keys it has seen, so a late marker still wakes it
+once, and the delay is bounded by the window plus one tick.
+
+Publishes, events, wakes and errors count in ``lifecycle.watch.*``.
 """
 
 from __future__ import annotations
@@ -80,9 +85,9 @@ def watch_store_root(conf) -> str:
 
 
 def _store(conf):
-    from hyperspace_tpu_torch.io.log_store import PosixLogStore
+    from hyperspace_tpu_torch.telemetry.perf_ledger import store_for
 
-    return PosixLogStore(watch_store_root(conf))
+    return store_for(conf, watch_store_root(conf))
 
 
 _seq_lock = threading.Lock()

@@ -293,7 +293,8 @@ class MaintenanceDaemon:
         try:
             change = detect_changes(self.session, entry)
             quarantined = len(self.session.index_collection_manager
-                              .quarantine_manager(name).records())
+                              .quarantine_manager(name).records(
+                                  [f.name for f in entry.content.file_infos()]))
         except Exception as e:  # noqa: BLE001 - a source that cannot be
             # listed backs off like a failed action
             rec = self._journal(

@@ -3,8 +3,8 @@ hyperspace_tpu/lifecycle/journal.py): every maintenance decision, "did
 nothing, here's why" included, durable across restarts and readable from
 any process.
 
-Records go through the LogStore seam (io/log_store.py, the port's
-``PosixLogStore``) under ``<systemPath>/_hyperspace_lifecycle``, one key
+Records go through the LogStore seam (io/log_store.py, the class
+``conf.log_store_class`` names) under ``<systemPath>/_hyperspace_lifecycle``, one key
 ``d-<ms>-<pid>-<seq>`` each, at most
 ``conf.lifecycle_journal_max_entries`` (the oldest pruned), and come back
 through ``Hyperspace.lifecycle_history()``.  A record is one flat JSON
@@ -18,8 +18,10 @@ fault armed at the system under test) and never raises: a journal
 failure must not cost an action its commit.
 
 Appends count in ``lifecycle.journal.appends`` and failures in
-``lifecycle.journal.errors``.  Not ported: the ``EmulatedObjectStore``
-backend.
+``lifecycle.journal.errors``.  Under an object store's listing window
+(``conf.object_store_stale_list_ms``) ``records`` shows a record once
+the window has passed, and the cap prunes only listed records: nothing
+reads the journal to decide, so the lag delays the history only.
 """
 
 from __future__ import annotations
@@ -44,9 +46,9 @@ def journal_root(conf) -> str:
 
 
 def _store(conf):
-    from hyperspace_tpu_torch.io.log_store import PosixLogStore
+    from hyperspace_tpu_torch.telemetry.perf_ledger import store_for
 
-    return PosixLogStore(journal_root(conf))
+    return store_for(conf, journal_root(conf))
 
 
 def _next_key() -> str:

@@ -27,8 +27,10 @@ the LogStore seam's generation CAS (``put_if_generation_match``):
 Every acquire, takeover, renew, fence and release is a journal record of
 decision ``lease`` (lifecycle/journal.py).
 
+The record lives in the store ``conf.log_store_class`` names; the lease
+reads it by point reads only, so a listing window does not delay it.
 Not ported: ``WorkClaims``, whose callers are the multi-host build and
-the chaos drill, and the ``EmulatedObjectStore`` backend.  The
+the chaos drill.  The
 ``lease.*`` counters (acquires, takeovers, conflicts, renews, fenced,
 releases) are the JAX package's.
 """
@@ -79,9 +81,9 @@ def lease_root(conf) -> str:
 
 
 def _store(conf):
-    from hyperspace_tpu_torch.io.log_store import PosixLogStore
+    from hyperspace_tpu_torch.telemetry.perf_ledger import store_for
 
-    return PosixLogStore(lease_root(conf))
+    return store_for(conf, lease_root(conf))
 
 
 def _parse(payload: Optional[bytes]) -> Optional[Dict[str, Any]]:

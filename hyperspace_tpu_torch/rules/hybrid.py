@@ -112,10 +112,10 @@ def quarantined_split(session, entry: IndexLogEntry
         return cached
     from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
 
+    infos = entry.content.file_infos()
     qpaths = session.index_collection_manager \
-        .quarantine_manager(entry.name).paths()
+        .quarantine_manager(entry.name).paths([f.name for f in infos])
     result: Tuple[FrozenSet[str], Optional[Tuple[int, ...]]] = (frozenset(), ())
-    infos = entry.content.file_infos() if qpaths else []
     flagged = [f.name for f in infos if f.name in qpaths]
     if flagged:
         buckets = {bucket_id_of_file(p) for p in flagged}

@@ -168,7 +168,8 @@ def _check_integrity(session) -> DoctorCheck:
     entries = manager.get_indexes()
     quarantined: Dict[str, int] = {}
     for entry in entries:
-        count = len(manager.quarantine_manager(entry.name).records())
+        count = len(manager.quarantine_manager(entry.name).records(
+            [f.name for f in entry.content.file_infos()]))
         if count:
             quarantined[entry.name] = count
     if getattr(manager, "last_listing_degraded", False):

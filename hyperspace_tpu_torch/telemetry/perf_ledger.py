@@ -1,12 +1,12 @@
 """The persistent perf ledger: a durable record of every action run
 (counterpart of hyperspace_tpu/telemetry/perf_ledger.py).
 
-Every action appends one compact JSON record through the posix
-:class:`~hyperspace_tpu_torch.io.log_store.PosixLogStore` under
+Every action appends one compact JSON record through the store of
+``conf.log_store_class`` (io/log_store.py) under
 ``<systemPath>/_hyperspace_perf``, which survives restarts and is read by
 ``Hyperspace.perf_history()``.  The record layout and ``RECORD_VERSION``
 are the JAX package's, so either package reads the other's ledger when
-the JAX session's ``log_store_class`` is ``PosixLogStore``:
+both name the same store class:
 
   - ``kind``: ``"action"`` or ``"bench"``
   - ``name``: action class and index, or bench section name
@@ -23,8 +23,7 @@ Keys are ``r-<epoch_ms>-<pid>-<seq>``: they sort chronologically and
 oldest records.  Appends run inside ``faults.quiet()`` (diagnostic IO
 never spends an injected fault aimed at the system under test) and never
 raise: a ledger failure must not cost an action its commit.
-``conf.perf_ledger_enabled`` (on by default) turns it off.  Object-store
-ledgers (``EmulatedObjectStore``) are not ported.
+``conf.perf_ledger_enabled`` (on by default) turns it off.
 """
 
 from __future__ import annotations
@@ -49,10 +48,14 @@ def perf_root(conf) -> str:
 
 
 def store_for(conf, root: Optional[str] = None):
-    """The ledger store, rooted at the perf directory."""
-    from hyperspace_tpu_torch.io.log_store import PosixLogStore
+    """A store of the class ``conf.log_store_class``, with its window,
+    rooted at ``root`` or else the perf directory.  The journal, the
+    lease, the watch bus and the diagnostics bundles reach their stores
+    through here."""
+    from hyperspace_tpu_torch.io.log_store import store_from_conf
 
-    return PosixLogStore(root if root is not None else perf_root(conf))
+    return store_from_conf(conf, root if root is not None
+                           else perf_root(conf))
 
 
 def enabled(conf) -> bool:

@@ -1,7 +1,11 @@
-"""Reflective class loading for conf keys that name a class (counterpart
-of hyperspace_tpu/utils/reflection.py): the event logger
-(``conf.event_logger``), one loader so every such key takes the same
-path syntax and raises the same way."""
+"""Reflective class loading for conf fields that name a class
+(counterpart of hyperspace_tpu/utils/reflection.py): the event logger
+(``conf.event_logger``), the log manager (``conf.log_manager_class``)
+and the store (``conf.log_store_class``), one loader so every such field
+takes the same path syntax and raises the same way.
+
+A path into the JAX package is refused before anything is imported:
+importing it would import ``jax``, and the port runs without it."""
 
 from __future__ import annotations
 
@@ -9,6 +13,7 @@ from typing import Dict, Type
 
 
 _CACHE: Dict[tuple, type] = {}
+_JAX_PACKAGE = "hyperspace_tpu"
 
 
 def load_class(name: str, base_cls: type,
@@ -25,6 +30,13 @@ def load_class(name: str, base_cls: type,
     module_name, _, cls_name = name.replace(":", ".").rpartition(".")
     if not module_name:
         raise exc_cls(f"Invalid class path: {name!r}")
+    if module_name.split(".")[0] == _JAX_PACKAGE:
+        from hyperspace_tpu_torch.exceptions import HyperspaceError
+
+        raise HyperspaceError(
+            f"Cannot load class {name!r}: it names the JAX package "
+            f"{_JAX_PACKAGE!r}, which this package never imports; name "
+            f"the class under 'hyperspace_tpu_torch' instead")
     try:
         cls = getattr(importlib.import_module(module_name), cls_name)
     except (ImportError, AttributeError) as e:

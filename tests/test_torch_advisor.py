@@ -2,8 +2,7 @@
 JAX package: workload capture, hypothetical indexes and what-if,
 recommendations and their apply.
 
-One case per ``PosixLogStore`` case of tests/test_advisor.py (the port
-has no emulated object store, ROADMAP.md Queue A item 11), each run
+One case per case of tests/test_advisor.py, each run
 through both packages over the same seeded Parquet tables and compared
 exactly: ``captured_workload()`` in every column but the timing
 (``lastDurationMs``), the recommendation table, ``WhatIfReport.to_dict()``
@@ -12,7 +11,10 @@ and its rendered text, and the plans and answers after
 file sizes in both packages, since the port writes the JAX package's
 index bytes.  Left out: the telemetry class (spans and metrics wait for
 Queue A item 9); the capture's ``advisor.capture.dropped`` metric is
-held to the records the port kept instead.
+held to the records the port kept instead.  Both packages take their
+default store (``EmulatedObjectStore``); ``TestCaptureStores`` runs the
+JAX file's ``BOTH_STORES`` cases with both packages pinned to each store
+class.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from tests.test_advisor import _write_tables
 
 JAX, TORCH = hyperspace_tpu, hyperspace_tpu_torch
 PKGS = (JAX, TORCH)
-POSIX_STORE = "hyperspace_tpu.io.log_store.PosixLogStore"
+STORE_CLASSES = ("PosixLogStore", "EmulatedObjectStore")
 # Every column of the workload table but the timing.
 WORKLOAD_COLUMNS = ["key", "hits", "relations", "eqColumns", "rangeColumns",
                     "joinColumns", "groupColumns", "projectedColumns",
@@ -42,8 +44,11 @@ def _m(pkg, module: str):
 
 
 class _Side:
-    def __init__(self, pkg, root, fact, dim):
+    def __init__(self, pkg, root, fact, dim, store=None):
         self.pkg = pkg
+        # A store class of io/log_store.py pinned on the session; None
+        # keeps the package's default.
+        self.store = store
         self.root = os.path.join(str(root), pkg.__name__)
         self.ix = os.path.join(self.root, "ix")
         self.fact, self.dim = fact, dim
@@ -54,9 +59,11 @@ class _Side:
     def session(self):
         if self.pkg is JAX:
             s = JAX.HyperspaceSession(system_path=self.ix)
-            s.conf.log_store_class = POSIX_STORE
         else:
             s = TORCH.HyperspaceSession(system_path=self.ix, device="cpu")
+        if self.store:
+            s.conf.log_store_class = \
+                f"{self.pkg.__name__}.io.log_store.{self.store}"
         s.conf.num_buckets = 4
         return s
 
@@ -103,6 +110,30 @@ def _same(got):
 # ---------------------------------------------------------------------------
 # Workload capture
 # ---------------------------------------------------------------------------
+@pytest.fixture(params=STORE_CLASSES)
+def store_sides(request, tmp_path):
+    """Both packages with their sessions pinned to one store class."""
+    fact, dim = _write_tables(tmp_path)
+    for pkg in PKGS:
+        _m(pkg, "advisor.workload").reset_cache()
+    yield [_Side(pkg, tmp_path, fact, dim, store=request.param)
+           for pkg in PKGS]
+    for pkg in PKGS:
+        _m(pkg, "advisor.workload").reset_cache()
+
+
+class TestCaptureStores:
+    """The JAX file's ``BOTH_STORES`` cases, through each store class."""
+
+    def test_dedup_and_hit_merge(self, store_sides):
+        TestCapture.test_dedup_and_hit_merge(self, store_sides)
+        assert {type(s.wl.store_for(s.s.conf)).__name__
+                for s in store_sides} == {store_sides[0].store}
+
+    def test_capture_survives_restart(self, store_sides):
+        TestCapture.test_capture_survives_restart(self, store_sides)
+
+
 class TestCapture:
     def test_dedup_and_hit_merge(self, sides):
         got = []
@@ -147,6 +178,26 @@ class TestCapture:
         first, second = _same(got)
         assert [r["hits"] for r in first] == [2]
         assert [r["hits"] for r in second] == [4]
+
+    def test_capture_files_are_the_jax_packages(self, sides):
+        """Under the default store both packages write the same keys, so
+        each reads the other's capture."""
+        for side in sides:
+            side.s.conf.advisor_capture_enabled = True
+            for _ in range(2):
+                side.filter_q().collect()
+            side.wl.flush_pending(side.s.conf)
+        names = [sorted(os.listdir(side.wl.workload_root(side.s.conf)))
+                 for side in sides]
+        assert names[0] == names[1] and len(names[0]) == 3  # lock, key, .g
+        for reader, writer in ((sides[0], sides[1]), (sides[1], sides[0])):
+            kwargs = {} if reader.pkg is JAX else {"device": "cpu"}
+            conf = reader.pkg.HyperspaceSession(system_path=writer.ix,
+                                                **kwargs).conf
+            theirs = reader.wl.records(conf)
+            mine = writer.wl.records(writer.s.conf)
+            assert [(r["key"], r["hits"]) for r in theirs] == \
+                [(r["key"], r["hits"]) for r in mine] and len(mine) == 1
 
     def test_bounded_by_max_entries(self, sides):
         got = []
@@ -241,13 +292,17 @@ class TestWhatIf:
             hyp = _m(side.pkg, "advisor.hypothetical")
             entry = hyp.hypothetical_entry(side.s, side.filter_q(),
                                            side.config("hypo", ["k"], ["v"]))
-            mgr = _m(side.pkg, "index.log_manager").IndexLogManager(
-                os.path.join(side.ix, "hypo"))
-            mgr.configure(side.s.conf)
-            with pytest.raises(side.pkg.HyperspaceError,
-                               match="hypothetical") as ei:
-                mgr.write_log(1, entry)
-            got.append((str(ei.value).split(":")[0],
+            messages = []
+            for cls in (_m(side.pkg, "index.log_manager").IndexLogManager,
+                        _m(side.pkg, "index.object_log_manager")
+                        .ObjectStoreLogManager):
+                mgr = cls(os.path.join(side.ix, "hypo"))
+                mgr.configure(side.s.conf)
+                with pytest.raises(side.pkg.HyperspaceError,
+                                   match="hypothetical") as ei:
+                    mgr.write_log(1, entry)
+                messages.append(str(ei.value).split(":")[0])
+            got.append((messages,
                         side.s.index_collection_manager.get_indexes(),
                         side.files()))
         assert _same(got)[1:] == ([], [])

@@ -27,12 +27,13 @@ _FORBIDDEN = [
 ]
 
 
-# The query-path guards and diagnostics.
+# The query-path guards and diagnostics, and the object store.
 _GUARDS_AND_DIAGNOSTICS = (
     "execution/sync_guard.py", "utils/deadline.py",
     "execution/plan_cache.py", "interop/__init__.py", "interop/query.py",
     "telemetry/flight_recorder.py", "telemetry/slo.py",
-    "telemetry/doctor.py")
+    "telemetry/doctor.py", "io/log_store.py",
+    "index/object_log_manager.py")
 
 
 def _port_sources():
@@ -1019,6 +1020,71 @@ def test_the_guards_and_diagnostics_import_no_jax(tmp_path):
         assert hs.slow_queries().num_rows == 3
         assert hs.dump_diagnostics() and len(hs.diagnostics_bundles()) == 1
         assert hs.doctor().table().num_rows == 10
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_object_store_log_imports_no_jax(tmp_path):
+    """A build and a query through ``ObjectStoreLogManager`` over
+    ``EmulatedObjectStore`` under a listing window, then every conf
+    field naming a class of the JAX package: each raises
+    ``HyperspaceError``, and neither jax nor the JAX package is
+    imported."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import hyperspace_tpu_torch.io.log_store
+        import hyperspace_tpu_torch.index.object_log_manager
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+        from hyperspace_tpu_torch.exceptions import HyperspaceError
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        pq.write_table(pa.table({{"k": np.arange(300),
+                                  "v": np.arange(300) * 0.5}}),
+                       os.path.join(data, "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+        s.conf.log_manager_class = (
+            "hyperspace_tpu_torch.index.object_log_manager"
+            ".ObjectStoreLogManager")
+        s.conf.object_store_stale_list_ms = 60000.0
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(data), IndexConfig("ix", ["k"], ["v"]))
+        mgr = s.index_collection_manager._log_manager("ix")
+        assert mgr.store.list_keys() == [] and mgr.log_ids() == [1, 2]
+        s.enable_hyperspace()
+        out = s.read.parquet(data).filter(col("k") == 7).select("v").collect()
+        assert out.column("v").to_pylist() == [3.5]
+        refused = 0
+        for field, path in (
+                ("log_store_class", "hyperspace_tpu.io.log_store.PosixLogStore"),
+                ("log_manager_class",
+                 "hyperspace_tpu.index.log_manager.IndexLogManager")):
+            t = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+            setattr(t.conf, field, path)
+            try:
+                Hyperspace(t).create_index(t.read.parquet(data),
+                                           IndexConfig("x", ["k"], ["v"]))
+            except HyperspaceError as e:
+                refused += "JAX package" in str(e)
+        assert refused == 2, refused
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

@@ -415,13 +415,13 @@ def test_index_listing_ignores_ledger_dir(tmp_path):
 
 def test_jax_package_reads_the_ports_ledger(tmp_path):
     """A ledger the port wrote reads through the JAX package's
-    ``records`` (its posix store), with the same keys and version."""
+    ``records``, with the same keys and version; both packages keep
+    their default store (``EmulatedObjectStore``)."""
     src = str(tmp_path / "src")
     _write_source(src, n=1_000, files=2)
     out = _run_both(tmp_path, src)
     torch_s, jax_s = out["torch"][1], out["jax"][1]
     assert perf_ledger.RECORD_VERSION == jax_ledger.RECORD_VERSION
-    jax_s.conf.log_store_class = "hyperspace_tpu.io.log_store.PosixLogStore"
     mine = perf_ledger.records(torch_s.conf)
     theirs = jax_ledger.records(jax_s.conf,
                                 root=perf_ledger.perf_root(torch_s.conf))

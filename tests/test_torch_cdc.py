@@ -2,15 +2,16 @@
 merge-on-read rung of the policy, the merge debt measured on an index
 entry, ``OptimizeSummary`` and the autonomous compaction rung.
 
-The cases of tests/test_cdc.py over Parquet and the posix store, each
-held to what it asserts, on the port alone (the policy rung against the
-JAX package's too).  Its merge-on-read cases run here over a Parquet
+The cases of tests/test_cdc.py over Parquet, each held to what it
+asserts, on the port alone (the policy rung against the JAX package's
+too), on the default store (``EmulatedObjectStore``); the case the JAX
+file parametrizes by store runs on ``PosixLogStore`` too
+(``TestPosixStore``).  Its merge-on-read cases run here over a Parquet
 source, whose deletes and in-place rewrites reach the index as the lake
 commits do; the Delta and Iceberg cases themselves
-(``TestMergeOnRead``, ``TestMutatedFileDetection``) and the
-``EmulatedObjectStore`` parameter wait for ROADMAP.md Queue A item 11,
-the doctor's merge-debt check (``TestDoctorMergeDebt``) for item 9.  The
-watch seam's cases are in tests/test_torch_watch.py.
+(``TestMergeOnRead``, ``TestMutatedFileDetection``) wait for ROADMAP.md
+Queue A item 11, the doctor's merge-debt check (``TestDoctorMergeDebt``)
+for item 9.  The watch seam's cases are in tests/test_torch_watch.py.
 """
 
 from __future__ import annotations
@@ -225,13 +226,16 @@ class TestMergeOnRead:
 # ---------------------------------------------------------------------------
 # OptimizeSummary and autonomous compaction
 # ---------------------------------------------------------------------------
-def _shred_index(tmp_path, rounds: int = 3):
+def _shred_index(tmp_path, rounds: int = 3, store: str = ""):
     """An initial build and ``rounds`` incremental refreshes, each landing
-    one small file per touched bucket."""
+    one small file per touched bucket; ``store`` pins a class of
+    io/log_store.py, "" keeps the default."""
     src = str(tmp_path / "src")
     os.makedirs(src, exist_ok=True)
     pq.write_table(_table(range(200)), os.path.join(src, "p0.parquet"))
     s = _session(tmp_path, lineage_enabled=True)
+    if store:
+        s.conf.log_store_class = f"hyperspace_tpu_torch.io.log_store.{store}"
     s.conf.num_buckets = 2
     hs = Hyperspace(s)
     hs.create_index(s.read.parquet(src), IndexConfig("cix", ["id"], ["v"]))
@@ -322,13 +326,16 @@ class TestAutonomousCompaction:
         file is written, before its commit: the stable entry still
         serves, the transient OPTIMIZING entry is left, and the next
         cycle rolls it back and lands the compaction."""
-        s, hs, src = _shred_index(tmp_path)
+        store = getattr(self, "store", "")
+        s, hs, src = _shred_index(tmp_path, store=store)
         child = f"""
 import os, signal
 import hyperspace_tpu_torch.actions.optimize as opt
 from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
 
 s = HyperspaceSession({str(tmp_path / 'ix')!r}, device="cpu")
+if {store!r}:
+    s.conf.log_store_class = "hyperspace_tpu_torch.io.log_store." + {store!r}
 s.conf.num_buckets = 2
 _orig = opt.write_bucket_run
 def _killer(*a, **kw):
@@ -362,3 +369,12 @@ print("UNREACHABLE")
         recs = hs.maintenance_cycle()
         assert all(r["decision"] != "optimize" or r["outcome"] == "noop"
                    for r in recs), recs
+
+
+class TestPosixStore:
+    """The case tests/test_cdc.py parametrizes by store, on
+    ``PosixLogStore``."""
+
+    store = "PosixLogStore"
+    test_sigkill_mid_compaction_converges = \
+        TestAutonomousCompaction.test_sigkill_mid_compaction_converges

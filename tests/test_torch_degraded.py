@@ -289,22 +289,42 @@ def test_missing_index_data_degrades_planning(sides):
 
 def test_erroring_store_degrades_via_injected_faults(sides):
     """Reads of the index's log fail past the retry budget: the query
-    still answers from the source.  The JAX package runs its object-store
-    log with ``store.read`` failing; the port's POSIX log has its pointer
-    gone and its id listing failing (``io.list``, the three attempts of
-    the budget, after the system path's listing)."""
+    still answers from the source.  Each package reads the log through
+    its ``ObjectStoreLogManager`` with every ``store.read`` failing, as
+    the JAX case does."""
     got = []
     for side in sides:
         faults = importlib_faults(side.pkg)
-        if side.pkg is JAX:
-            side.s.conf.log_manager_class = (
-                "hyperspace_tpu.index.object_log_manager"
-                ".ObjectStoreLogManager")
-            plan = faults.FaultPlan(site="store.read", kind="eio", count=-1)
-        else:
-            os.unlink(os.path.join(side.ix, "dg", "_hyperspace_log",
-                                   "latestStable"))
-            plan = faults.FaultPlan(site="io.list", kind="eio", at=2, count=3)
+        side.s.conf.log_manager_class = (
+            f"{side.pkg.__name__}.index.object_log_manager"
+            ".ObjectStoreLogManager")
+        plan = faults.FaultPlan(site="store.read", kind="eio", count=-1)
+        side.s.index_collection_manager.clear_cache()
+        faults.install(plan)
+        try:
+            ds = side.ds()
+            out = ds.collect()
+        finally:
+            faults.clear()
+        rep = ds.last_run_report()
+        degraded = [d for d in rep.decisions if d["kind"] == "degraded"]
+        got.append((out.column("v").to_pylist(), side.index_scanned(),
+                    [d["index"] for d in degraded], rep.outcome,
+                    rep.skipped_indexes(), plan._calls > 0))
+    assert got[1] == got[0]
+    assert got[1][:3] == ([14.0], False, ["dg"]) and got[1][-1]
+
+
+def test_erroring_posix_log_degrades_via_injected_faults(sides):
+    """The same through the default POSIX log: its pointer gone and its
+    id listing failing (``io.list``, the three attempts of the budget,
+    after the system path's listing), each package alike."""
+    got = []
+    for side in sides:
+        faults = importlib_faults(side.pkg)
+        os.unlink(os.path.join(side.ix, "dg", "_hyperspace_log",
+                               "latestStable"))
+        plan = faults.FaultPlan(site="io.list", kind="eio", at=2, count=3)
         side.s.index_collection_manager.clear_cache()
         faults.install(plan)
         try:
@@ -317,8 +337,8 @@ def test_erroring_store_degrades_via_injected_faults(sides):
         got.append((out.column("v").to_pylist(), side.index_scanned(),
                     [d["index"] for d in degraded], rep.outcome,
                     rep.skipped_indexes()))
-    assert got[1] == got[0]
     assert got[1][:3] == ([14.0], False, ["dg"])
+    assert got[1] == got[0]
 
 
 # ---------------------------------------------------------------------------

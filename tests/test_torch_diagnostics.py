@@ -5,8 +5,9 @@ the SLO math (telemetry/slo.py) and the doctor (telemetry/doctor.py).
 tests/test_flight_recorder.py is the oracle for the recorder.  Its cases
 that need no server run here against both packages: trace-context
 parsing, retention, the local feed, HELP lines and exemplars, bundles.
-The bundle cases run on the posix store only (the object store is not
-in the port yet), and ``test_request_scope_suppresses_local_feed`` is
+The bundle cases run on each package's default store
+(``EmulatedObjectStore``), and on ``PosixLogStore`` pinned in both
+(``TestBundlesPosix``); ``test_request_scope_suppresses_local_feed`` is
 left out: the port has no served request scope yet, so every local
 collect is recorded.  One seeded workload through both packages must
 keep the same records (kinds, outcomes, reasons), and ``slo.py`` must
@@ -56,7 +57,10 @@ def _fresh_rings():
     timeline.disable_timeline()
 
 
-def _session(pkg, root: str, name: str = "ix"):
+def _session(pkg, root: str, name: str = "ix", store: str = ""):
+    """A session of ``pkg``; ``store`` pins a class of its
+    io/log_store.py, else both packages keep their default
+    (``EmulatedObjectStore``)."""
     kw = {"device": "cpu"} if pkg is TORCH else {}
     s = pkg.HyperspaceSession(system_path=os.path.join(root, name), **kw)
     s.conf.num_buckets = 4
@@ -65,7 +69,8 @@ def _session(pkg, root: str, name: str = "ix"):
     if pkg is JAX:
         s.conf.mesh_enabled = "off"
         s.conf.parallel_build = "off"
-        s.conf.log_store_class = "hyperspace_tpu.io.log_store.PosixLogStore"
+    if store:
+        s.conf.log_store_class = f"{pkg.__name__}.io.log_store.{store}"
     return s
 
 
@@ -342,14 +347,18 @@ def test_prometheus_text_equals_the_jax_package():
 
 
 # ---------------------------------------------------------------------------
-# Bundles on the posix store (TestBundles)
+# Bundles on the default store (TestBundles)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("pkg", PACKAGES, ids=IDS)
 class TestBundles:
+    # A class of io/log_store.py pinned in both packages; "" keeps the
+    # default.
+    store = ""
+
     def test_bundle_survives_restart(self, pkg, tmp_path):
         fr = _m(pkg, "telemetry.flight_recorder")
         mint = _m(pkg, "interop.query").mint_trace_id
-        s = _session(pkg, str(tmp_path))
+        s = _session(pkg, str(tmp_path), store=self.store)
         tid = mint()
         assert fr.record(s.conf, kind="spec", outcome="DEADLINE",
                          latency_ms=42.0, trace_id=tid, request_id=mint(),
@@ -357,7 +366,7 @@ class TestBundles:
         key = fr.dump_diagnostics(s.conf)
         assert key is not None
         fr.reset()
-        s2 = _session(pkg, str(tmp_path))
+        s2 = _session(pkg, str(tmp_path), store=self.store)
         got = pkg.Hyperspace(s2).diagnostics_bundles()
         assert [b["key"] for b in got] == [key]
         bundle = got[0]
@@ -368,7 +377,7 @@ class TestBundles:
 
     def test_bundles_bounded_oldest_pruned(self, pkg, tmp_path):
         fr = _m(pkg, "telemetry.flight_recorder")
-        s = _session(pkg, str(tmp_path))
+        s = _session(pkg, str(tmp_path), store=self.store)
         s.conf.flight_recorder_max_bundles = 2
         keys = [fr.dump_diagnostics(s.conf) for _ in range(4)]
         assert all(keys)
@@ -380,7 +389,7 @@ class TestBundles:
     def test_dump_never_consumes_fault_budget(self, pkg, tmp_path):
         faults = _m(pkg, "io.faults")
         fr = _m(pkg, "telemetry.flight_recorder")
-        s = _session(pkg, str(tmp_path))
+        s = _session(pkg, str(tmp_path), store=self.store)
         plan = faults.FaultPlan(site="store.put", kind="eio", at=1, count=1)
         faults.install(plan)
         try:
@@ -401,14 +410,14 @@ class TestBundles:
 
     def test_disabled_recorder_skips_dump(self, pkg, tmp_path):
         fr = _m(pkg, "telemetry.flight_recorder")
-        s = _session(pkg, str(tmp_path))
+        s = _session(pkg, str(tmp_path), store=self.store)
         s.conf.flight_recorder_enabled = False
         assert fr.dump_diagnostics(s.conf) is None
 
     def test_index_listing_ignores_diagnostics_dir(self, pkg, env):
         root, data = env
         fr = _m(pkg, "telemetry.flight_recorder")
-        s = _session(pkg, root)
+        s = _session(pkg, root, store=self.store)
         hs = pkg.Hyperspace(s)
         hs.create_index(s.read.parquet(data),
                         pkg.IndexConfig("ix", ["k"], ["v"]))
@@ -416,6 +425,12 @@ class TestBundles:
         assert os.path.isdir(os.path.join(s.conf.system_path,
                                           fr.FLIGHT_DIR))
         assert hs.indexes().num_rows == 1
+
+
+class TestBundlesPosix(TestBundles):
+    """The bundle cases with both packages pinned to ``PosixLogStore``."""
+
+    store = "PosixLogStore"
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,10 @@ import pytest
 
 import hyperspace_tpu
 import hyperspace_tpu_torch
-from tests.test_build_pipeline import POSIX_MANAGER
+from hyperspace_tpu_torch.index.log_manager import (
+    IndexLogManager as _TorchIndexLogManager,
+)
+from tests.test_build_pipeline import OBJECT_MANAGER, POSIX_MANAGER
 from tests.test_build_pipeline import _build as _jax_build
 from tests.test_build_pipeline import _write_source
 from tests.utils import sample_entry
@@ -331,12 +334,34 @@ class TestFaultInjection:
         assert _both(run, tmp_path)[0] == 2
 
 
+class TorchConditionalPutLogManager(_TorchIndexLogManager):
+    """The port's counterpart of tests/test_log_manager.py's
+    ``ConditionalPutLogManager``: commits go through a put-if-absent
+    ledger shared by the class."""
+
+    committed_ids: set = set()
+    instances: list = []
+
+    def __init__(self, index_path):
+        super().__init__(index_path)
+        type(self).instances.append(index_path)
+
+    def write_log(self, log_id, entry):
+        key = (self.index_path, log_id)
+        if key in type(self).committed_ids:
+            return False
+        ok = super().write_log(log_id, entry)
+        if ok:
+            type(self).committed_ids.add(key)
+        return ok
+
+
 def test_log_manager_class_is_conf_pluggable(tmp_path):
-    """The JAX case plugs a conditional-put log manager in through
-    ``conf.log_manager_class``.  The port's log is not pluggable
-    (ROADMAP.md, Queue A item 11): its default log is held to what the
-    JAX ledger saw (the begin at id 1, the commit at id 2) and to the
-    query's answer, and an unknown class name fails in the JAX package."""
+    """Each package plugs its conditional-put log manager in through
+    ``conf.log_manager_class``: the ledgers saw the same ids (the begin
+    at 1, the commit at 2), the queries answer alike, and an unknown
+    class name, or the port naming a class of the JAX package, fails
+    loudly."""
     from tests.test_log_manager import ConditionalPutLogManager
 
     d = str(tmp_path / "data")
@@ -348,31 +373,35 @@ def test_log_manager_class_is_conf_pluggable(tmp_path):
     for pkg in PKGS:
         if pkg is JAX:
             s = JAX.HyperspaceSession(system_path=str(tmp_path / "jax"))
+            manager = ConditionalPutLogManager
             s.conf.log_manager_class = (
                 "tests.test_log_manager.ConditionalPutLogManager")
-            ConditionalPutLogManager.instances.clear()
-            ConditionalPutLogManager.committed_ids.clear()
         else:
             s = TORCH.HyperspaceSession(system_path=str(tmp_path / "torch"),
                                         device="cpu")
+            manager = TorchConditionalPutLogManager
+            s.conf.log_manager_class = (
+                "tests.test_torch_faults.TorchConditionalPutLogManager")
+        manager.instances.clear()
+        manager.committed_ids.clear()
         s.conf.num_buckets = 2
         hs = pkg.Hyperspace(s)
         hs.create_index(s.read.parquet(d), pkg.IndexConfig("plg", ["k"],
                                                            ["v"]))
-        if pkg is JAX:
-            ids = sorted(i for (_p, i) in
-                         ConditionalPutLogManager.committed_ids)
-        else:
-            ids = s.index_collection_manager._log_manager("plg").log_ids()
+        assert manager.instances, "custom backend unused"
+        ids = sorted(i for (_p, i) in manager.committed_ids)
         s.enable_hyperspace()
         rows = (s.read.parquet(d).filter(pkg.col("k") == 7).select("k", "v")
                 .collect().to_pylist())
         out[pkg.__name__] = (ids, rows)
-        if pkg is JAX:
-            s.conf.log_manager_class = "nope.Missing"
-            with pytest.raises(JAX.HyperspaceError, match="Cannot load"):
+        s.conf.log_manager_class = "nope.Missing"
+        with pytest.raises(pkg.HyperspaceError, match="Cannot load"):
+            hs.create_index(s.read.parquet(d), pkg.IndexConfig("x", ["k"], []))
+        if pkg is TORCH:
+            s.conf.log_manager_class = POSIX_MANAGER
+            with pytest.raises(TORCH.HyperspaceError, match="JAX package"):
                 hs.create_index(s.read.parquet(d),
-                                JAX.IndexConfig("x", ["k"], []))
+                                TORCH.IndexConfig("x", ["k"], []))
     assert out["hyperspace_tpu_torch"] == out["hyperspace_tpu"]
     assert out["hyperspace_tpu"] == ([1, 2], [{"k": 7, "v": 3.5}])
 
@@ -400,20 +429,30 @@ def _torch_build(root, data, name, **conf):
     return s, hs, s.index_collection_manager.get_index(name)
 
 
-def _build_pkg(pkg, root, data, name, **conf):
+# The log manager of each package per backend of
+# tests/test_build_pipeline.py's ``backend`` fixture.
+_MANAGERS = {
+    JAX: {"posix": POSIX_MANAGER, "object_store": OBJECT_MANAGER},
+    TORCH: {"posix": "hyperspace_tpu_torch.index.log_manager.IndexLogManager",
+            "object_store": "hyperspace_tpu_torch.index.object_log_manager"
+                            ".ObjectStoreLogManager"},
+}
+
+
+def _build_pkg(pkg, root, data, name, backend="posix", **conf):
     if pkg is JAX:
         return _jax_build(root, data, name, pipelined=True,
-                          backend=POSIX_MANAGER, **conf)
-    return _torch_build(root, data, name, **conf)
+                          backend=_MANAGERS[JAX][backend], **conf)
+    return _torch_build(root, data, name,
+                        log_manager_class=_MANAGERS[TORCH][backend], **conf)
 
 
-def _session_of(pkg, root, name):
-    if pkg is JAX:
-        s = JAX.HyperspaceSession(system_path=os.path.join(root, f"ix-{name}"))
-        s.conf.log_manager_class = POSIX_MANAGER
-        return s
-    return TORCH.HyperspaceSession(
-        system_path=os.path.join(root, f"ix-{name}"), device="cpu")
+def _session_of(pkg, root, name, backend="posix"):
+    kw = {} if pkg is JAX else {"device": "cpu"}
+    s = pkg.HyperspaceSession(system_path=os.path.join(root, f"ix-{name}"),
+                              **kw)
+    s.conf.log_manager_class = _MANAGERS[pkg][backend]
+    return s
 
 
 def _spill_dirs():
@@ -441,10 +480,12 @@ def own_tmp(tmp_path, monkeypatch):
     return d
 
 
-def _fault_then_recover(tmp_path, name, plan, pkg_check=None):
+def _fault_then_recover(tmp_path, name, plan, pkg_check=None,
+                        backend="posix"):
     """Build under ``plan`` through each package, then inspect the log
     and rebuild the name with auto recovery; returns the per-package
-    observations (equal across the packages)."""
+    observations (equal across the packages; over the object-store log
+    the log directory's file names too)."""
     data = str(tmp_path / "data")
     _write_source(data)
     got = []
@@ -453,15 +494,15 @@ def _fault_then_recover(tmp_path, name, plan, pkg_check=None):
         before = _spill_dirs()
         faults = _arm(pkg, **plan)
         try:
-            err = _raised(lambda: _build_pkg(pkg, root, data, name))
+            err = _raised(lambda: _build_pkg(pkg, root, data, name, backend))
         finally:
             faults.clear()
-        mgr = _session_of(pkg, root, name).index_collection_manager \
+        mgr = _session_of(pkg, root, name, backend).index_collection_manager \
             ._log_manager(name)
         obs = {"error": type(err).__name__,
                "spill_left": sorted(_spill_dirs() - before),
                "after_fault": _log_view(mgr)}
-        s, _, entry = _build_pkg(pkg, root, data, name,
+        s, _, entry = _build_pkg(pkg, root, data, name, backend,
                                  auto_recovery_enabled=True)
         obs["recovered"] = entry.state
         obs["after_recovery"] = _log_view(mgr)
@@ -472,9 +513,10 @@ def _fault_then_recover(tmp_path, name, plan, pkg_check=None):
         if pkg_check is not None:
             pkg_check(pkg, s, name)
         got.append(obs)
-    for obs in got:
-        obs["after_fault"].pop("files")
-        obs["after_recovery"].pop("files")
+    if backend == "posix":
+        for obs in got:
+            obs["after_fault"].pop("files")
+            obs["after_recovery"].pop("files")
     assert got[1] == got[0]
     return got[1]
 
@@ -511,6 +553,41 @@ class TestFaultMatrix:
                                   {"site": "io.delete", "kind": "eio"})
         assert out["error"] == "OSError"
         assert out["spill_left"] == []
+        assert out["recovered"] == "ACTIVE"
+
+
+class TestFaultMatrixObjectStore:
+    """The ``object_store`` backend of tests/test_build_pipeline.py's
+    fault matrix: each package's ``ObjectStoreLogManager`` over its
+    default ``EmulatedObjectStore``; the log directories hold the same
+    file names, sidecars included."""
+
+    @pytest.mark.parametrize("backend", ["object_store"])
+    @pytest.mark.parametrize("kind", ["eio", "torn"])
+    def test_data_write_faults(self, tmp_path, own_tmp, kind, backend):
+        out = _fault_then_recover(tmp_path, "f",
+                                  {"site": "data.write", "kind": kind},
+                                  backend=backend)
+        assert out["error"] == ("InjectedCrash" if kind == "torn"
+                                else "OSError")
+        assert out["spill_left"] == []
+        assert out["after_fault"]["states"] == ["CREATING"]
+        assert out["after_fault"]["stable"] is None
+        assert out["recovered"] == "ACTIVE"
+        assert out["after_recovery"]["states"] == [
+            "CREATING", "DOESNOTEXIST", "CREATING", "ACTIVE"]
+        assert "latestStable.g" in out["after_recovery"]["files"]
+
+    @pytest.mark.parametrize("backend", ["object_store"])
+    def test_crash_at_commit(self, tmp_path, own_tmp, backend):
+        out = _fault_then_recover(tmp_path, "c",
+                                  {"site": "action.commit", "kind": "crash"},
+                                  backend=backend)
+        assert out["error"] == "InjectedCrash"
+        assert out["spill_left"] == []
+        assert out["after_fault"]["states"] == ["CREATING"]
+        assert out["after_fault"]["stable"] is None
+        assert out["after_fault"]["files"] == [".lock", "1", "1.g"]
         assert out["recovered"] == "ACTIVE"
 
 

@@ -735,7 +735,7 @@ def _pkg_session(pkg, root, name):
     if pkg is JAX:
         s.conf.mesh_enabled = "off"
         s.conf.parallel_build = "off"
-        s.conf.log_store_class = "hyperspace_tpu.io.log_store.PosixLogStore"
+    # Both packages keep their default store, EmulatedObjectStore.
     return s
 
 

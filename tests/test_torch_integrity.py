@@ -11,8 +11,10 @@ repaired bucket files by sha256, ``BucketIn`` masks against the JAX
 host mirror, a device error that containment must not catch, and both
 routes of the repair and of ``BucketIn`` (the kernel's plain version on
 the CPU, and the host mirror).  ``test_quarantine_store_backends``'s
-``EmulatedObjectStore`` case is left out: the port has no emulated
-object store.
+cases run through each package's ``PosixLogStore`` and
+``EmulatedObjectStore``; the cross-package quarantine cases run with both
+packages on their default store (``TestCrossPackageQuarantine``) and
+with both pinned to ``PosixLogStore`` (``...Posix``).
 """
 
 from __future__ import annotations
@@ -996,17 +998,23 @@ class TestBucketIn:
 # Quarantine records across the packages
 # ---------------------------------------------------------------------------
 class TestCrossPackageQuarantine:
+    """Both packages take their default store, ``EmulatedObjectStore``
+    (file names percent-encoded once more than the keys)."""
+
+    # conf.log_store_class per package; None keeps the default.
+    store_classes = {JAX: None, TORCH: None}
+
     def _twin(self, tmp_path):
         """One index, built by the JAX package, read by both."""
         d = str(tmp_path / "data")
         _write_source(d)
-        # The port's quarantine lives in the posix store; the JAX
-        # package's default store names its files percent-encoded once
-        # more (its EmulatedObjectStore, not ported).
-        jside = _Side(JAX, tmp_path, d,
-                      log_store_class="hyperspace_tpu.io.log_store.PosixLogStore")
+        pinned = {pkg: {"log_store_class": cls}
+                  for pkg, cls in self.store_classes.items() if cls}
+        jside = _Side(JAX, tmp_path, d, **pinned.get(JAX, {}))
         ts = TORCH.HyperspaceSession(
             system_path=jside.s.conf.system_path, device="cpu")
+        for k, v in pinned.get(TORCH, {}).items():
+            setattr(ts.conf, k, v)
         ts.conf.num_buckets = NUM_BUCKETS
         for kind in ("filter", "join", "agg", "build", "resident"):
             setattr(ts.conf, f"device_{kind}_min_rows", 0)
@@ -1061,6 +1069,13 @@ class TestCrossPackageQuarantine:
         assert tport.column("status").to_pylist().count("digest-mismatch") == 1
         assert jside.qm().paths() == {victim}
         assert _bucket_ins(JAX, jside.ds().optimized_plan())
+
+
+class TestCrossPackageQuarantinePosix(TestCrossPackageQuarantine):
+    """The same cases with both packages pinned to ``PosixLogStore``."""
+
+    store_classes = {JAX: "hyperspace_tpu.io.log_store.PosixLogStore",
+                     TORCH: "hyperspace_tpu_torch.io.log_store.PosixLogStore"}
 
 
 # ---------------------------------------------------------------------------
@@ -1147,19 +1162,23 @@ class TestLifecycle:
         assert qm.paths() == {os.path.join(path, "v__=1", "b.parquet")}
 
     def test_quarantine_store_backends(self, side):
-        """The quarantine through the posix store (the emulated object
-        store of the JAX test is not ported)."""
+        """The quarantine through both store classes, each package's
+        own."""
         victim = side.files()[0]
-        qm = side.qm()
-        qm.clear()
-        assert qm.add(victim, "test")
-        assert not qm.add(victim, "test-again")
-        assert qm.paths() == {victim}
-        assert qm.is_quarantined(victim)
-        recs = qm.records()
-        assert recs[0]["path"] == victim and recs[0]["reason"] == "test"
-        qm.remove(victim)
-        assert qm.paths() == set()
+        pkg = side.pkg.__name__
+        for cls in ("PosixLogStore", "EmulatedObjectStore"):
+            side.s.conf.log_store_class = f"{pkg}.io.log_store.{cls}"
+            qm = side.qm()
+            assert type(qm.store).__name__ == cls
+            qm.clear()
+            assert qm.add(victim, "test")
+            assert not qm.add(victim, "test-again")
+            assert qm.paths() == {victim}
+            assert qm.is_quarantined(victim)
+            recs = qm.records()
+            assert recs[0]["path"] == victim and recs[0]["reason"] == "test"
+            qm.remove(victim)
+            assert qm.paths() == set()
 
     def test_log_store_layout_equals_jax(self, tmp_path):
         """Byte for byte: the data file, the ``.g`` sidecar's generation

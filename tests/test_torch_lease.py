@@ -3,12 +3,13 @@ acquire, standby, renew, takeover, fence and release protocol, the
 daemon's standby gate, and a SIGKILLed holder's takeover with the
 pending refresh executed exactly once.
 
-The cases of tests/test_lease.py over the posix store, each held to what
-it asserts, on the port alone; the holder of the churn case is a port
-process.  The ``EmulatedObjectStore`` parameter waits for ROADMAP.md
-Queue A item 11, the lease metrics the JAX cases read (``lease.fenced``)
-for item 9: the fence is read from the journal here.  The record's
-layout is the JAX package's, so the two packages contend for one lease.
+The cases of tests/test_lease.py over both store classes (the default
+``EmulatedObjectStore``, and ``PosixLogStore`` in the ``...Posix``
+classes), each held to what it asserts, on the port alone; the holder
+of the churn case is a port process.  The lease metrics the JAX cases
+read (``lease.fenced``) wait for ROADMAP.md Queue A item 9: the fence is
+read from the journal here.  The record's layout is the JAX package's,
+so the two packages contend for one lease under the same store class.
 """
 
 from __future__ import annotations
@@ -25,15 +26,18 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
-from hyperspace_tpu_torch.io.log_store import PosixLogStore
 from hyperspace_tpu_torch.lifecycle import journal as lifecycle_journal
 from hyperspace_tpu_torch.lifecycle import lease
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _session(tmp_path, ttl_s=0.5):
+def _session(tmp_path, ttl_s=0.5, store=""):
+    """A session with the lease on; ``store`` pins a class of
+    io/log_store.py, "" keeps the default (``EmulatedObjectStore``)."""
     s = HyperspaceSession(system_path=str(tmp_path / "ix"), device="cpu")
+    if store:
+        s.conf.log_store_class = f"hyperspace_tpu_torch.io.log_store.{store}"
     for kind in ("filter", "join", "agg", "build", "resident"):
         setattr(s.conf, f"device_{kind}_min_rows", 0)
     s.conf.lifecycle_lease_enabled = True
@@ -56,8 +60,10 @@ def _write_part(src: str, name: str, lo: int, n: int, seed: int) -> None:
 
 
 class TestLeaseProtocol:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def test_acquire_standby_renew(self, tmp_path):
-        s = _session(tmp_path, ttl_s=5.0)
+        s = _session(tmp_path, ttl_s=5.0, store=self.store)
         a = lease.MaintenanceLease(s.conf, owner="a")
         b = lease.MaintenanceLease(s.conf, owner="b")
         assert a.ensure() is True
@@ -71,7 +77,7 @@ class TestLeaseProtocol:
         assert "acquire" in events and "renew" in events
 
     def test_expiry_takeover_fences_zombie(self, tmp_path):
-        s = _session(tmp_path, ttl_s=0.3)
+        s = _session(tmp_path, ttl_s=0.3, store=self.store)
         a = lease.MaintenanceLease(s.conf, owner="a")
         b = lease.MaintenanceLease(s.conf, owner="b")
         assert a.ensure() is True
@@ -93,7 +99,7 @@ class TestLeaseProtocol:
         assert b.ensure() is True
 
     def test_release_hands_off_instantly(self, tmp_path):
-        s = _session(tmp_path, ttl_s=30.0)
+        s = _session(tmp_path, ttl_s=30.0, store=self.store)
         a = lease.MaintenanceLease(s.conf, owner="a")
         b = lease.MaintenanceLease(s.conf, owner="b")
         assert a.ensure() is True
@@ -104,8 +110,9 @@ class TestLeaseProtocol:
         assert b.epoch == 2
 
     def test_torn_record_reads_absent(self, tmp_path):
-        s = _session(tmp_path)
-        store = PosixLogStore(lease.lease_root(s.conf))
+        s = _session(tmp_path, store=self.store)
+        store = lease._store(s.conf)
+        assert type(store).__name__ == (self.store or "EmulatedObjectStore")
         assert store.put_if_generation_match(
             lease.LEASE_KEY, b"\x00garbage not json", 0)
         assert lease.status(s.conf) is None
@@ -113,7 +120,7 @@ class TestLeaseProtocol:
         assert a.ensure() is True
 
     def test_margin_covers_measured_store_latency(self, tmp_path):
-        s = _session(tmp_path, ttl_s=30.0)
+        s = _session(tmp_path, ttl_s=30.0, store=self.store)
         a = lease.MaintenanceLease(s.conf, owner="a")
         assert a.margin_s() == 0.6  # a cold EWMA: 2% of the TTL
         a._observe_latency(4.0)
@@ -127,9 +134,10 @@ class TestLeaseProtocol:
         from hyperspace_tpu import HyperspaceSession as JaxSession
         from hyperspace_tpu.lifecycle import lease as jax_lease
 
-        s = _session(tmp_path, ttl_s=30.0)
+        s = _session(tmp_path, ttl_s=30.0, store=self.store)
         js = JaxSession(system_path=str(tmp_path / "ix"))
-        js.conf.log_store_class = "hyperspace_tpu.io.log_store.PosixLogStore"
+        if self.store:  # else both packages keep their default store
+            js.conf.log_store_class = f"hyperspace_tpu.io.log_store.{self.store}"
         js.conf.lifecycle_lease_ttl_s = 30.0
         j = jax_lease.MaintenanceLease(js.conf, owner="jax")
         t = lease.MaintenanceLease(s.conf, owner="torch")
@@ -148,11 +156,13 @@ class TestLeaseProtocol:
 
 
 class TestDaemonGate:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def _env(self, tmp_path):
         src = str(tmp_path / "src")
         os.makedirs(src)
         _write_part(src, "part-00000000.parquet", 0, 2000, 3)
-        s = _session(tmp_path, ttl_s=30.0)
+        s = _session(tmp_path, ttl_s=30.0, store=self.store)
         s.conf.num_buckets = 4
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(src),
@@ -188,8 +198,10 @@ import json, os, sys, time
 from hyperspace_tpu_torch import HyperspaceSession
 from hyperspace_tpu_torch.lifecycle import lease
 
-system_path, ttl = sys.argv[1:3]
+system_path, ttl, store = sys.argv[1:4]
 s = HyperspaceSession(system_path=system_path, device="cpu")
+if store:
+    s.conf.log_store_class = f"hyperspace_tpu_torch.io.log_store.{store}"
 s.conf.lifecycle_lease_enabled = True
 s.conf.lifecycle_lease_ttl_s = float(ttl)
 hold = lease.MaintenanceLease(s.conf, owner="holder-child")
@@ -205,12 +217,14 @@ while True:          # renew hot, so the SIGKILL lands mid-renew loop
 
 
 class TestLeaseChurn:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def test_sigkill_holder_takeover_no_double_execution(self, tmp_path):
         src = str(tmp_path / "src")
         os.makedirs(src)
         _write_part(src, "part-00000000.parquet", 0, 2000, 5)
         ttl = 1.0
-        s = _session(tmp_path, ttl_s=ttl)
+        s = _session(tmp_path, ttl_s=ttl, store=self.store)
         s.conf.num_buckets = 4
         hs = Hyperspace(s)
         hs.create_index(s.read.parquet(src),
@@ -221,7 +235,7 @@ class TestLeaseChurn:
         env = dict(os.environ, PYTHONPATH=REPO)
         proc = subprocess.Popen(
             [sys.executable, "-c", _HOLDER_CHILD, str(tmp_path / "ix"),
-             str(ttl)],
+             str(ttl), self.store],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env)
         try:
@@ -259,3 +273,15 @@ class TestLeaseChurn:
         assert "holder-child" in {e["holder"] for e in events}
         takeovers = [e for e in events if e["mode"] == "takeover"]
         assert any(e["epoch"] > child["epoch"] for e in takeovers)
+
+
+class TestLeaseProtocolPosix(TestLeaseProtocol):
+    store = "PosixLogStore"
+
+
+class TestDaemonGatePosix(TestDaemonGate):
+    store = "PosixLogStore"
+
+
+class TestLeaseChurnPosix(TestLeaseChurn):
+    store = "PosixLogStore"

@@ -11,16 +11,18 @@ Three kinds of case:
   string equal.  The same for ``decide_advisor``, ``decide_compaction``
   and the ``ChangeSummary`` and ``MergeDebt`` properties.
 - **Scenarios.**  Both packages index one shared Parquet source in their
-  own system paths (the JAX side's stores set to ``PosixLogStore``), go
+  own system paths (each on its default store, ``EmulatedObjectStore``), go
   through the same mutations and ``maintenance_cycle()`` calls, and after
   every cycle must agree on: the journal records (every field but
   ``ts``, ``wall_s`` and ``key``; a backoff reason's remaining seconds
   are a clock reading and are masked), each index's log ids and states,
   each bucket's sha256, and the query answers in order.
 - **The JAX package's own cases** (tests/test_lifecycle.py), each held
-  to what it asserts, on the port alone.  Its ``EmulatedObjectStore``
-  and object-store log manager cases wait for ROADMAP.md Queue A item
-  11, its flight-recorder case for item 9.
+  to what it asserts, on the port alone, on the default store
+  (``EmulatedObjectStore``); ``TestPosixStore`` runs the cases the JAX
+  file parametrizes by store on ``PosixLogStore``, and
+  ``test_cycle_converges_through_armed_store_fault`` runs over
+  ``ObjectStoreLogManager``.  Its flight-recorder case waits for item 9.
 
 And the port's one deliberate difference: a device error (a
 ``torch.OutOfMemoryError``, the kernel loader's ``KernelError``) raised
@@ -68,7 +70,8 @@ from tests.test_torch_integrity import _bitrot
 
 JAX, TORCH = hyperspace_tpu, hyperspace_tpu_torch
 PKGS = (JAX, TORCH)
-POSIX_STORE = "hyperspace_tpu.io.log_store.PosixLogStore"
+OBJECT_MANAGER = (
+    "hyperspace_tpu_torch.index.object_log_manager.ObjectStoreLogManager")
 NUM_BUCKETS = 4
 
 
@@ -76,10 +79,13 @@ def _m(pkg, module: str):
     return importlib.import_module(f"{pkg.__name__}.{module}")
 
 
-def _port_session(system_path: str) -> HyperspaceSession:
+def _port_session(system_path: str, store: str = "") -> HyperspaceSession:
     """A port session on the CPU with the device routes pinned on (the
-    kernels' plain versions run)."""
+    kernels' plain versions run); ``store`` pins a class of
+    io/log_store.py, "" keeps the default."""
     s = HyperspaceSession(system_path=system_path, device="cpu")
+    if store:
+        s.conf.log_store_class = f"hyperspace_tpu_torch.io.log_store.{store}"
     for kind in ("filter", "join", "agg", "build", "resident"):
         setattr(s.conf, f"device_{kind}_min_rows", 0)
     return s
@@ -281,7 +287,6 @@ class _Pair:
             path = str(tmp_path / ("jax" if pkg is JAX else "torch"))
             if pkg is JAX:
                 s = JAX.HyperspaceSession(system_path=path)
-                s.conf.log_store_class = POSIX_STORE
                 s.conf.mesh_enabled = "off"
                 s.conf.parallel_build = "off"
                 s.conf.device_cache_policy = "off"
@@ -671,8 +676,10 @@ class TestRefreshSummary:
 
 
 class TestJournal:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def test_roundtrip_restart_and_bound(self, tmp_path):
-        session = _port_session(str(tmp_path / "ix"))
+        session = _port_session(str(tmp_path / "ix"), self.store)
         session.conf.lifecycle_journal_max_entries = 5
         for i in range(8):
             assert lifecycle_journal.append(session.conf, {
@@ -681,15 +688,16 @@ class TestJournal:
         recs = lifecycle_journal.records(session.conf)
         assert len(recs) == 5  # bounded, oldest pruned
         assert [r["index"] for r in recs] == [f"i{i}" for i in range(3, 8)]
-        fresh = _port_session(str(tmp_path / "ix"))
+        fresh = _port_session(str(tmp_path / "ix"), self.store)
         table = Hyperspace(fresh).lifecycle_history()
         assert table.num_rows == 5
         assert table.column("decision").to_pylist() == ["none"] * 5
 
     def test_history_table_equals_jax(self, tmp_path):
         """One journal directory read by both packages' history tables:
-        the same columns and values (JAX's store set to the posix one)."""
-        session = _port_session(str(tmp_path / "ix"))
+        the same columns and values, both packages on the same store
+        class."""
+        session = _port_session(str(tmp_path / "ix"), self.store)
         lifecycle_journal.append(session.conf, {
             "cycle": 3, "decision": "refresh", "index": "a", "mode": "quick",
             "reason": "r", "outcome": "done", "wall_s": 0.25,
@@ -697,7 +705,8 @@ class TestJournal:
         lifecycle_journal.append(session.conf, {"decision": "lease",
                                                 "error": "boom"})
         jconf = JAX.HyperspaceSession(system_path=str(tmp_path / "ix")).conf
-        jconf.log_store_class = POSIX_STORE
+        if self.store:
+            jconf.log_store_class = f"hyperspace_tpu.io.log_store.{self.store}"
         want = _m(JAX, "lifecycle.journal").history_table(jconf)
         got = Hyperspace(session).lifecycle_history()
         assert got.schema == want.schema
@@ -719,13 +728,15 @@ class TestJournal:
 
 
 class TestMaintenanceCycle:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def test_acceptance_loop(self, tmp_path):
         """Capture on, append, one cycle: the journal shows the
         incremental refresh and the advisor's build within the budget,
         readable after a restart."""
         src = str(tmp_path / "src")
         _write_source(src)
-        session = _port_session(str(tmp_path / "ix"))
+        session = _port_session(str(tmp_path / "ix"), self.store)
         session.conf.num_buckets = NUM_BUCKETS
         session.conf.lineage_enabled = True
         session.conf.advisor_capture_enabled = True
@@ -751,7 +762,7 @@ class TestMaintenanceCycle:
                    for r in recs), recs
         names = hs.indexes().column("name").to_pylist()
         assert any(n != "lix" for n in names)
-        fresh = _port_session(str(tmp_path / "ix"))
+        fresh = _port_session(str(tmp_path / "ix"), self.store)
         table = Hyperspace(fresh).lifecycle_history()
         assert table.num_rows >= len(recs)
         assert "refresh" in table.column("decision").to_pylist()
@@ -931,6 +942,8 @@ def _reference(paths) -> list:
 
 
 class TestMidRefreshCorrectness:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def test_reader_sees_bit_equal_answers(self, tmp_path):
         """A thread appends and refreshes incrementally while the reader
         queries (hybrid scan on, the device column cache on): whenever
@@ -939,7 +952,7 @@ class TestMidRefreshCorrectness:
         columns of a version the refresh replaced."""
         src = str(tmp_path / "src")
         _write_source(src)
-        session = _port_session(str(tmp_path / "ix"))
+        session = _port_session(str(tmp_path / "ix"), self.store)
         session.conf.num_buckets = NUM_BUCKETS
         session.conf.lineage_enabled = True
         session.conf.hybrid_scan_enabled = True
@@ -1022,6 +1035,56 @@ class TestMidRefreshCorrectness:
 # ---------------------------------------------------------------------------
 # chip_smoke's phase P, rehearsed on the CPU
 # ---------------------------------------------------------------------------
+    def test_cycle_converges_through_armed_store_fault(self, tmp_path):
+        """Over the object-store log with a transient eio armed at
+        ``store.put``, the daemon's refresh still commits (the retry
+        absorbs it) and the answers stay right."""
+        from hyperspace_tpu_torch.io import faults
+
+        src = str(tmp_path / "src")
+        _write_source(src)
+        session = _port_session(str(tmp_path / "ix"), self.store)
+        session.conf.log_manager_class = OBJECT_MANAGER
+        session.conf.num_buckets = NUM_BUCKETS
+        session.conf.lineage_enabled = True
+        hs = Hyperspace(session)
+        hs.create_index(session.read.parquet(src),
+                        IndexConfig("lix", ["k"], ["v"]))
+        session.enable_hyperspace()
+        _append(src, start=60_000)
+        plan = faults.FaultPlan(site="store.put", kind="eio", at=1, count=1)
+        faults.install(plan)
+        try:
+            recs = hs.maintenance_cycle()
+        finally:
+            faults.clear()
+        assert plan._calls >= 1
+        assert any(r["decision"] == "refresh" and r["outcome"] == "done"
+                   for r in recs), recs
+        mgr = session.index_collection_manager._log_manager("lix")
+        assert type(mgr).__name__ == "ObjectStoreLogManager"
+        assert mgr.get_latest_stable_log().state == "ACTIVE"
+        res = (session.read.parquet(src).filter(col("k") >= 0)
+               .select("k", "v").collect())
+        assert _canonical(res) == _reference(
+            glob.glob(os.path.join(src, "*.parquet")))
+
+
+class TestPosixStore:
+    """The cases tests/test_lifecycle.py parametrizes by store class, on
+    ``PosixLogStore``."""
+
+    store = "PosixLogStore"
+    test_roundtrip_restart_and_bound = \
+        TestJournal.test_roundtrip_restart_and_bound
+    test_history_table_equals_jax = TestJournal.test_history_table_equals_jax
+    test_acceptance_loop = TestMaintenanceCycle.test_acceptance_loop
+    test_reader_sees_bit_equal_answers = \
+        TestMidRefreshCorrectness.test_reader_sees_bit_equal_answers
+    test_cycle_converges_through_armed_store_fault = \
+        TestMidRefreshCorrectness.test_cycle_converges_through_armed_store_fault
+
+
 def test_phase_p_on_the_cpu(monkeypatch, tmp_path):
     """chip_smoke's phase P end to end at 80,000 lineitem rows in 64 files
     (its file numbers are SF1's): every cycle's decision, mode, outcome

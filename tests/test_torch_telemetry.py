@@ -421,17 +421,21 @@ def test_conflict_retry_action_events(tmp_path):
 
 
 def test_cas_conflict_metric(tmp_path):
-    """The posix store counts its puts and its lost compare-and-swaps
-    (the JAX oracle uses the object store, which is not ported)."""
-    from hyperspace_tpu_torch.io.log_store import PosixLogStore
+    """Each store class counts its puts and its lost compare-and-swaps
+    (the JAX oracle's store is the emulated object store)."""
+    from hyperspace_tpu_torch.io.log_store import (
+        EmulatedObjectStore,
+        PosixLogStore,
+    )
 
-    metrics.reset()
-    store = PosixLogStore(str(tmp_path / "store"))
-    assert store.put_if_absent("key", b"a")
-    assert not store.put_if_absent("key", b"b")
-    snap = metrics.snapshot()
-    assert snap["log.store.puts"] == 2.0
-    assert snap["log.cas.conflicts"] == 1.0
+    for i, cls in enumerate((EmulatedObjectStore, PosixLogStore)):
+        metrics.reset()
+        store = cls(str(tmp_path / f"store{i}"))
+        assert store.put_if_absent("key", b"a")
+        assert not store.put_if_absent("key", b"b")
+        snap = metrics.snapshot()
+        assert snap["log.store.puts"] == 2.0
+        assert snap["log.cas.conflicts"] == 1.0
 
 
 def test_conf_enables_tracing_and_sink(tmp_path):
@@ -522,7 +526,7 @@ def _xsession(pkg, root):
     if pkg is JAX:
         s.conf.mesh_enabled = "off"
         s.conf.parallel_build = "off"
-        s.conf.log_store_class = "hyperspace_tpu.io.log_store.PosixLogStore"
+    # Both packages keep their default store, EmulatedObjectStore.
     return s
 
 

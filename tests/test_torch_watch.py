@@ -5,9 +5,10 @@ bounds staleness below the cycle interval.
 
 The watch cases of tests/test_cdc.py (``TestWatchSeam``,
 ``TestDaemonWatchWake``) on the port, each held to what it asserts, over
-the posix store; the ``EmulatedObjectStore`` parameter waits for
-ROADMAP.md Queue A item 11.  The bus's layout is the JAX package's, so a
-marker one package publishes wakes the other's watcher.
+the default store (``EmulatedObjectStore``) and, in ``TestWatchSeamPosix``,
+over ``PosixLogStore``.  The bus's layout is the JAX package's, so a
+marker one package publishes wakes the other's watcher when both name
+the same store class.
 """
 
 from __future__ import annotations
@@ -20,14 +21,17 @@ import pytest
 
 from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
 from hyperspace_tpu_torch.io import watch
-from hyperspace_tpu_torch.io.log_store import PosixLogStore
 from hyperspace_tpu_torch.lifecycle import journal as lifecycle_journal
 from hyperspace_tpu_torch.lifecycle.daemon import daemon_for
 from tests.test_cdc import _table
 
 
-def _session(tmp_path, **conf):
+def _session(tmp_path, store="", **conf):
+    """A port session; ``store`` pins a class of io/log_store.py, ""
+    keeps the default."""
     s = HyperspaceSession(system_path=str(tmp_path / "ix"), device="cpu")
+    if store:
+        s.conf.log_store_class = f"hyperspace_tpu_torch.io.log_store.{store}"
     s.conf.num_buckets = 4
     for kind in ("filter", "join", "agg", "build", "resident"):
         setattr(s.conf, f"device_{kind}_min_rows", 0)
@@ -44,6 +48,8 @@ def _wait_wake(watcher, timeout_s: float = 8.0) -> float:
 
 
 class TestWatchSeam:
+    store = ""  # a class of io/log_store.py; "" keeps the default
+
     def test_change_dir_finds_the_commit_log(self, tmp_path):
         plain = tmp_path / "plain"
         plain.mkdir()
@@ -58,7 +64,7 @@ class TestWatchSeam:
     def test_poll_backend_wakes_on_write(self, tmp_path):
         src = tmp_path / "src"
         src.mkdir()
-        s = _session(tmp_path, watch_poll_interval_s=0.05,
+        s = _session(tmp_path, self.store, watch_poll_interval_s=0.05,
                      watch_debounce_ms=10.0)
         w = watch.SourceWatcher(s.conf, [str(src)], mode="poll").start()
         try:
@@ -75,7 +81,7 @@ class TestWatchSeam:
         the watcher degrades to poll (never raises) and still detects."""
         src = tmp_path / "src"
         src.mkdir()
-        s = _session(tmp_path, watch_poll_interval_s=0.05,
+        s = _session(tmp_path, self.store, watch_poll_interval_s=0.05,
                      watch_debounce_ms=10.0)
         w = watch.SourceWatcher(s.conf, [str(src)], mode="inotify").start()
         try:
@@ -91,7 +97,7 @@ class TestWatchSeam:
         out, and the watcher runs on the store."""
         src = tmp_path / "src"
         src.mkdir()
-        s = _session(tmp_path)
+        s = _session(tmp_path, self.store)
         w = watch.SourceWatcher(s.conf, [str(src)])
         assert w.mode in ("inotify", "store")
         w.stop()
@@ -104,7 +110,7 @@ class TestWatchSeam:
         watcher made before it wakes on it."""
         src = tmp_path / "src"
         src.mkdir()
-        s = _session(tmp_path, watch_poll_interval_s=0.05,
+        s = _session(tmp_path, self.store, watch_poll_interval_s=0.05,
                      watch_debounce_ms=10.0)
         w = watch.SourceWatcher(s.conf, [str(src)], mode="store").start()
         try:
@@ -119,20 +125,21 @@ class TestWatchSeam:
             w.stop()
 
     def test_a_jax_marker_wakes_the_port(self, tmp_path):
-        """The JAX package's ``publish`` (its store set to the posix one)
-        lands a marker the port's store watcher reads."""
+        """The JAX package's ``publish`` (on the same store class) lands
+        a marker the port's store watcher reads."""
         from hyperspace_tpu import HyperspaceSession as JaxSession
         from hyperspace_tpu.io import watch as jax_watch
 
         src = tmp_path / "src"
         src.mkdir()
-        s = _session(tmp_path, watch_poll_interval_s=0.05,
+        s = _session(tmp_path, self.store, watch_poll_interval_s=0.05,
                      watch_debounce_ms=10.0)
         w = watch.SourceWatcher(s.conf, [str(src)], mode="store").start()
         try:
             js = JaxSession(system_path=str(tmp_path / "ix"))
-            js.conf.log_store_class = \
-                "hyperspace_tpu.io.log_store.PosixLogStore"
+            if self.store:  # else both keep their default store
+                js.conf.log_store_class = \
+                    f"hyperspace_tpu.io.log_store.{self.store}"
             assert jax_watch.publish(js.conf, str(src), detail="jax 3")
             _wait_wake(w)
             assert any("jax 3" in e.detail for e in w.drain())
@@ -140,11 +147,11 @@ class TestWatchSeam:
             w.stop()
 
     def test_torn_marker_still_wakes(self, tmp_path):
-        s = _session(tmp_path, watch_poll_interval_s=0.05,
+        s = _session(tmp_path, self.store, watch_poll_interval_s=0.05,
                      watch_debounce_ms=0.0)
         w = watch.SourceWatcher(s.conf, [], mode="store").start()
         try:
-            store = PosixLogStore(watch.watch_store_root(s.conf))
+            store = watch._store(s.conf)
             assert store.put_if_absent("w-torn", b"{not json")
             _wait_wake(w)
         finally:
@@ -153,7 +160,7 @@ class TestWatchSeam:
     def test_publish_is_fault_quiet(self, tmp_path):
         from hyperspace_tpu_torch.io import faults
 
-        s = _session(tmp_path)
+        s = _session(tmp_path, self.store)
         plan = faults.FaultPlan(site="store.put", kind="eio", at=1, count=1)
         faults.install(plan)
         try:
@@ -163,11 +170,39 @@ class TestWatchSeam:
             faults.clear()
 
     def test_marker_cap_bounds_the_bus(self, tmp_path):
-        s = _session(tmp_path)
+        s = _session(tmp_path, self.store)
         for i in range(watch._MARKER_CAP + 10):
             assert watch.publish(s.conf, str(tmp_path), detail=str(i))
-        store = PosixLogStore(watch.watch_store_root(s.conf))
+        store = watch._store(s.conf)
         assert len(store.list_keys()) <= watch._MARKER_CAP
+
+    def test_a_marker_under_a_listing_window_wakes_once_it_lists(
+            self, tmp_path):
+        """Under an object store's listing window a marker is hidden
+        from the watcher's listing; it wakes the watcher once the window
+        has passed, and only once."""
+        src = tmp_path / "src"
+        src.mkdir()
+        s = _session(tmp_path, self.store, watch_poll_interval_s=0.05,
+                     watch_debounce_ms=10.0, object_store_stale_list_ms=400.0)
+        w = watch.SourceWatcher(s.conf, [str(src)], mode="store").start()
+        try:
+            t0 = time.monotonic()
+            assert watch.publish(s.conf, str(src), detail="late")
+            _wait_wake(w)
+            waited = time.monotonic() - t0
+            assert any("late" in e.detail for e in w.drain())
+            # The posix store lists at once; the object store after the
+            # window.
+            assert (waited >= 0.4) == (self.store != "PosixLogStore")
+            w.wake.clear()
+            assert not w.wake.wait(0.3)
+        finally:
+            w.stop()
+
+
+class TestWatchSeamPosix(TestWatchSeam):
+    store = "PosixLogStore"
 
 
 class TestDaemonWatchWake:

@@ -679,9 +679,7 @@ def test_zorder_repair_matches_jax(tmp_path, route):
     sides = _both(tmp_path, route=route, index_max_rows_per_file=512)
     built = {}
     for pkg, (s, hs) in sides.items():
-        if pkg is JAX:
-            s.conf.log_store_class = \
-                "hyperspace_tpu.io.log_store.PosixLogStore"
+        # Both packages keep their default store, EmulatedObjectStore.
         hs.create_index(s.read.parquet(data),
                         _zcfg(pkg, "zi", ["x", "y"], ["payload"]))
         built[pkg] = _digests(s, "zi")
