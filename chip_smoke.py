@@ -471,6 +471,30 @@ beside it.
            contained query, the repair, the refresh and the race's
            winner) are ``S object store``; prints ``{"object_store": ...}`` with the card's name
            and power limit.
+  phase T  the query server (after phase S): ``QueryServer`` on one
+           ``cuda`` session over phase C's ``li_idx`` and phase D's
+           ``ord_idx`` (rebuilt if a phase before left them otherwise),
+           T_WORKERS workers, ``QueryClient`` over loopback.  (1) Phase
+           D's seven queries as wire specs (``t_specs``), each served
+           once and collected directly, both held to numpy and to each
+           other, then T_TIMED_RUNS served and direct runs in turns;
+           none launches a kernel.  (2) The seven from T_CLIENTS
+           concurrent clients, T_ROUNDS rounds each: every answer
+           numpy's, none lost or torn.  (3) Each query served with the
+           plan cache emptied first and again from it: the ms a hit
+           saves.  (4) One file appended to the lineitem source, hybrid
+           scan on: the served filtered_join is numpy's and the direct
+           collect's, its plan has a ``BucketUnion``, and it launches
+           ``hash_buckets`` for its appended rows (``T server``); the
+           file is removed after.  (5) A second server with one worker
+           and a queue of one: with the running q3 held, one queued and
+           T_BURST more requests shed ``BUSY``, as many as the
+           ``serve.shed.queue_full`` counter; a 1 ms ``deadline_ms`` on
+           q3 answers ``DEADLINE`` and the next q3 answers right; a
+           drain with a join in flight (held until the drain begins)
+           completes it and sheds the next request on an open
+           connection.  (6) Each of the nine verbs once.  Prints
+           ``{"server": ...}`` with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -500,14 +524,15 @@ phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
-R's ``R diagnostics``, phase S's ``S object store``), the
+R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
+server``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 (phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
-R) and the object-store JSON (phase S), each of the last six with the
-card's name and power limit, the
-card's name and power limit, and
+R), the object-store JSON (phase S) and the server JSON (phase T), each
+of the last eight with the card's name and power limit, the card's name
+and power limit, and
 ``{"ok": true, "device": ...}``.
 """
 
@@ -651,7 +676,7 @@ L_DS_INDEX = "li_q_ds"
 L_LI_INCLUDED = ["l_suppkey", "l_quantity", "l_extendedprice", "l_shipdate",
                  "l_commitdate", "l_receiptdate", "l_shipmode"]
 L_ORD_INCLUDED = ["o_custkey", "o_totalprice", "o_orderpriority"]
-L_TIMED_RUNS = 2                # timed collects after the checked one
+L_TIMED_RUNS = 1                # timed collects after the checked one
 L_STRING_KEYS = (600_000, 615_000)  # 1% of the order keys
 L_Q21_MONTH = (9190, 9221)      # 1995-03-01 .. 1995-04-01: ~1/80 of orders
 L_Q4_QUARTER = (8582, 8674)     # 1993-07-01 .. 1993-10-01
@@ -666,11 +691,11 @@ M_EXPLAINED = ("q12", "q21_shape", "year_1995")
 M_RULES = ("JoinIndexRule", "FilterIndexRule", "BucketPruneRule",
            "DataSkippingFilterRule")
 Q_INDEX = "li_tel"               # phase Q's SF1 spill build
-Q_PAIRS = 3                     # interleaved timeline off/on pairs
+Q_PAIRS = 2                     # interleaved timeline off/on pairs
 Q_EVENT_CALLS = ("cudaEventRecord", "cudaEventSynchronize")
 R_SOURCE = "r_lineitem"         # a hard-linked copy of phase C's lineitem
 R_INDEX = "r_li"                # phase R's strict SF1 spill build
-R_PAIRS = 3                     # interleaved guard off/armed pairs
+R_PAIRS = 2                     # interleaved guard off/armed pairs
 R_SLOW_MS = 1.0                 # flight_recorder_slow_ms: q3 is kept
 R_APPENDED_ROWS = 10_000        # one appended file: a quick refresh
 R_PLAN_RUNS = 3                 # timed optimizer passes per query
@@ -6087,6 +6112,540 @@ def phase_s(orders: dict, li: dict, root: str, dev) -> dict:
     return out
 
 
+T_WORKERS = 4                   # the server's workers (the conf default)
+T_TIMED_RUNS = 2                # timed served and direct runs per query
+T_CLIENTS = 8                   # step 2: concurrent clients
+T_ROUNDS = 3                    # step 2: rounds of the seven per client
+T_CACHE_PAIRS = 1               # step 3: miss/hit pairs per query
+T_APPENDED_ROWS = 10_000        # step 4: one file appended to lineitem
+T_SEED = 201                    # its rows
+T_BURST = 6                     # step 5: requests past 1 running + 1 queued
+T_BOUND_S = 120.0               # every wait, join and socket of phase T
+T_VERBS = ("metrics", "last_run_report", "workload", "perf_history",
+           "build_report", "slow_queries", "trace", "doctor", "lifecycle")
+
+
+def t_specs(root: str) -> dict:
+    """Phase D's seven queries as wire specs (interop/query.py): the
+    twins of ``build_queries``'s Datasets."""
+    li = {"format": "parquet", "path": os.path.join(root, "lineitem")}
+    orders = {"format": "parquet", "path": os.path.join(root, "orders")}
+
+    def between(c: str, lo, hi) -> dict:
+        return {"op": "and", "left": {"op": ">=", "col": c, "value": lo},
+                "right": {"op": "<", "col": c, "value": hi}}
+
+    on = {"op": "==", "col": "o_orderkey", "right_col": "l_orderkey"}
+    join_cols = ["o_orderkey", "o_totalprice", "l_quantity",
+                 "l_extendedprice"]
+    cheap = {"op": "<", "col": "o_totalprice", "value": PRICE_BELOW}
+    revenue = [{"op": "*", "left": {"col": "l_extendedprice"},
+                "right": {"op": "-", "left": 1,
+                          "right": {"col": "l_discount"}}}, "sum"]
+    return {
+        "point": {"source": li, "filter": {"op": "==", "col": "l_orderkey",
+                                           "value": POINT_KEY},
+                  "select": ["l_orderkey", "l_quantity"]},
+        "range": {"source": li, "filter": between("l_orderkey", *RANGE),
+                  "select": ["l_orderkey", "l_extendedprice", "l_discount"]},
+        "join": {"source": orders, "join": {"source": li, "on": on},
+                 "select": join_cols},
+        "filtered_join": {"source": orders, "filter": cheap,
+                          "join": {"source": li, "on": on},
+                          "select": join_cols},
+        "q3": {"source": orders, "filter": cheap,
+               "join": {"source": li, "on": on},
+               "group_by": ["o_custkey"], "aggs": {"revenue": revenue},
+               "sort": [["revenue", False]], "limit": Q3_TOP},
+        "q10": {"source": li, "filter": between("l_shipdate", *Q10_WINDOW),
+                "join": {"source": orders,
+                         "on": {"op": "==", "col": "l_orderkey",
+                                "right_col": "o_orderkey"}},
+                "group_by": ["o_custkey"], "aggs": {"revenue": revenue},
+                "sort": [["revenue", False]], "limit": Q10_TOP},
+        "agg_by_priority": {
+            "source": orders,
+            "filter": {"op": "<", "col": "o_orderkey",
+                       "value": AGG_ORDERKEY_BELOW},
+            "group_by": ["o_shippriority"],
+            "aggs": {"total": ["o_totalprice", "sum"],
+                     "low": ["o_totalprice", "min"],
+                     "high": ["o_totalprice", "max"],
+                     "avg": ["o_totalprice", "mean"],
+                     "n": ["o_totalprice", "count_all"]},
+            "sort": ["o_shippriority"]},
+    }
+
+
+def t_until(cond, what: str) -> None:
+    """Wait, bounded by T_BOUND_S, for what another thread makes true."""
+    end = time.monotonic() + T_BOUND_S
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"phase T: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def t_join(threads: list, what: str) -> None:
+    for t in threads:
+        t.join(timeout=T_BOUND_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"phase T: {what} hung")
+
+
+def t_table_rows(table) -> dict:
+    return {c: table.column(c).to_numpy() for c in table.column_names}
+
+
+def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
+    """The query server at SF1 (see the module docstring)."""
+    import threading
+
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch.interop import (
+        QueryClient,
+        QueryFailedError,
+        QueryServer,
+        ServerBusyError,
+        dataset_from_spec,
+    )
+    from hyperspace_tpu_torch.interop import server as server_mod
+    from hyperspace_tpu_torch.lifecycle import daemon as lifecycle_daemon
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import flight_recorder, metrics
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    session.conf.serving_workers = T_WORKERS
+    set_min_rows(session, 0)
+    hs = Hyperspace(session)
+    configs = {INDEX_NAME: ("lineitem", IndexConfig(INDEX_NAME, INDEXED,
+                                                    INCLUDED)),
+               ORDERS_INDEX: ("orders", IndexConfig(
+                   ORDERS_INDEX, ["o_orderkey"],
+                   ["o_totalprice", "o_custkey", "o_shippriority"]))}
+    out: dict = {"indexes": {}, "rebuilt": []}
+    for name, (source, config) in configs.items():
+        entry = hs.index_manager.get_index(name)
+        out["indexes"][name] = entry.state if entry else None
+        if entry is None or entry.state != "ACTIVE":
+            if entry is not None:
+                raise AssertionError(f"phase T: {name} is {entry.state}")
+            hs.create_index(session.read.parquet(os.path.join(root, source)),
+                            config)
+            out["rebuilt"].append(name)
+    session.enable_hyperspace()
+    specs = t_specs(root)
+    direct = {name: dataset_from_spec(session, spec)
+              for name, spec in specs.items()}
+    for name, ds in direct.items():
+        scans = sorted(n for n, _ in index_scans(ds.optimized_plan()))
+        if scans != query_indexes(name):
+            raise AssertionError(f"phase T {name}: plan scans {scans}, "
+                                 f"expected {query_indexes(name)}")
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
+    answers: dict = {}
+    answers_lock = threading.Lock()
+    numpy_checks: dict = {}
+
+    def check(label: str, name: str, table) -> None:
+        """``table`` equal to numpy's answer: to the first checked table
+        when equal to it, else held to numpy itself (floats of the
+        aggregates within AGG_RTOL: summation order may differ)."""
+        with answers_lock:
+            first = answers.get(name)
+        if first is not None and table.equals(first):
+            return
+        want, keys = expected[name]
+        require_rows(f"phase T {label} {name}", table, want, keys,
+                     AGG_RTOL if name in AGG_QUERIES else 0.0)
+        with answers_lock:
+            answers.setdefault(name, table)
+            numpy_checks[name] = numpy_checks.get(name, 0) + 1
+
+    def snap(name: str) -> float:
+        return float(metrics.snapshot().get(name, 0.0) or 0.0)
+
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - mark[0]
+        mark[0] = now
+        print(f"phase T step {label}: {steps[label]:.3f} s", flush=True)
+
+    real_make = server_mod._Responder._make_query_fn
+    appended = os.path.join(root, "lineitem", "part-96000.parquet")
+    staging = os.path.join(root, "t_staging")
+    metrics.reset()
+    flight_recorder.reset()
+    server = QueryServer(session).start()
+    small = client = None
+    try:
+        client = QueryClient(server.address, timeout_s=T_BOUND_S)
+        # 1. Each query served and collected directly, then timed in
+        # turns.  The first served run plans (a plan-cache miss); the
+        # timed ones are hits.
+        kernels.reset_launch_counts()
+        queries: dict = {}
+        for name, spec in specs.items():
+            served = client.query(spec)
+            check("served", name, served)
+            local = direct[name].collect()
+            check_routes("direct", name, "device",
+                         session.last_execution_stats)
+            check("direct", name, local)
+            if not served.equals(local):
+                require_rows(f"phase T served against direct {name}",
+                             served, t_table_rows(local), expected[name][1],
+                             AGG_RTOL if name in AGG_QUERIES else 0.0)
+            runs = {"served": [], "direct": []}
+            for _ in range(T_TIMED_RUNS):
+                runs["served"].append(wall_ms(lambda: client.query(spec)))
+                runs["direct"].append(wall_ms(direct[name].collect))
+            queries[name] = {
+                "rows": served.num_rows,
+                "served_ms": statistics.median(runs["served"]),
+                "direct_ms": statistics.median(runs["direct"]),
+                "served_runs_ms": runs["served"],
+                "direct_runs_ms": runs["direct"]}
+            queries[name]["served_over_direct"] = \
+                queries[name]["served_ms"] / queries[name]["direct_ms"]
+        step("1_sequential")
+
+        # 2. T_CLIENTS concurrent clients, T_ROUNDS rounds of the seven,
+        # each client starting at another query.
+        names = list(specs)
+        done, failures = [], []
+        done_lock = threading.Lock()
+
+        def concurrent_client(i: int) -> None:
+            try:
+                with QueryClient(server.address,
+                                 timeout_s=T_BOUND_S) as c:
+                    for r in range(T_ROUNDS):
+                        for j in range(len(names)):
+                            name = names[(i + j) % len(names)]
+                            t0 = time.perf_counter()
+                            table = c.query(specs[name])
+                            ms = (time.perf_counter() - t0) * 1e3
+                            check(f"client {i} round {r}", name, table)
+                            with done_lock:
+                                done.append((name, ms))
+            except Exception as e:  # noqa: BLE001 - reported below
+                with done_lock:
+                    failures.append(f"client {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=concurrent_client, args=(i,),
+                                    daemon=True) for i in range(T_CLIENTS)]
+        before = metrics.snapshot()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        t_join(threads, "a concurrent client")
+        wall = time.perf_counter() - t0
+        # The first client sat idle through step 2, and the server closes
+        # a connection idle past serving_request_timeout_s: a new one.
+        client.close()
+        client = QueryClient(server.address, timeout_s=T_BOUND_S)
+        want_n = T_CLIENTS * T_ROUNDS * len(names)
+        if failures or len(done) != want_n:
+            raise AssertionError(f"phase T: {len(done)} of {want_n} answers, "
+                                 f"failures {failures[:3]}")
+        lat = sorted(ms for _, ms in done)
+        after = metrics.snapshot()
+
+        def step_mean(name: str) -> float:
+            """The mean of a histogram over step 2 alone."""
+            b, a = before.get(name) or {}, after[name]
+            return (a["sum"] - b.get("sum", 0.0)) \
+                / (a["count"] - b.get("count", 0))
+
+        concurrent = {
+            "clients": T_CLIENTS, "requests": len(done), "wall_s": wall,
+            "qps": len(done) / wall,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            # Server side: enqueue to a worker, and enqueue to the
+            # answer's table (the wire write not included).
+            "queue_wait_ms_mean": step_mean("serve.queue_wait_ms"),
+            "server_latency_ms_mean": step_mean("serve.latency_ms"),
+            # One round of the seven served in turn (step 1's medians):
+            # what 4 workers would divide if they overlapped.
+            "sequential_round_ms": sum(q["served_ms"]
+                                       for q in queries.values())}
+        step("2_concurrent")
+        query_launches = kernels.launch_counts()
+        if any(query_launches.values()):
+            raise AssertionError(f"phase T: the served queries launched "
+                                 f"{query_launches}")
+
+        # 3. The plan cache: each query served with the cache emptied
+        # first (it plans), then from the cache.
+        hits0, misses0 = snap("serve.plan_cache.hits"), \
+            snap("serve.plan_cache.misses")
+        for name, spec in specs.items():
+            miss, hit = [], []
+            for _ in range(T_CACHE_PAIRS):
+                server.plan_cache.clear()
+                miss.append(wall_ms(lambda: client.query(spec)))
+                hit.append(wall_ms(lambda: client.query(spec)))
+            queries[name].update(
+                miss_ms=statistics.median(miss), hit_ms=statistics.median(hit),
+                cache_saved_ms=statistics.median(miss)
+                - statistics.median(hit))
+        n = T_CACHE_PAIRS * len(specs)
+        cache = {"hits": snap("serve.plan_cache.hits") - hits0,
+                 "misses": snap("serve.plan_cache.misses") - misses0}
+        if cache != {"hits": n, "misses": n}:
+            raise AssertionError(f"phase T: plan cache {cache}, expected "
+                                 f"{n} of each")
+        step("3_plan_cache")
+
+        # 4. One appended file, hybrid scan on: the served filtered join
+        # goes through the hybrid route.  No action committed, so the
+        # plan cache cannot see the new file: it is emptied.
+        cols = gen_lineitem(np.random.default_rng(T_SEED), T_APPENDED_ROWS)
+        os.makedirs(staging)
+        p_write(os.path.dirname(appended), staging,
+                os.path.basename(appended), pa.table(cols))
+        session.conf.hybrid_scan_enabled = True
+        server.plan_cache.clear()
+        grown = {c: np.concatenate([li[c], cols[c]]) for c in
+                 ("l_orderkey", "l_quantity", "l_extendedprice",
+                  "l_discount")}
+        want, keys = expected_answers(orders, grown)["filtered_join"]
+        spec = specs["filtered_join"]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        served = client.query(spec)
+        served_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        if cuda:
+            require_launches("phase T served hybrid join", launches,
+                             {"hash_buckets": 1, "bucket_histogram": 0})
+        hybrid_ds = dataset_from_spec(session, spec)
+        if "BucketUnion" not in plan_nodes(hybrid_ds.optimized_plan()):
+            raise AssertionError("phase T: the hybrid join's plan has no "
+                                 "BucketUnion")
+        require_rows("phase T served hybrid join", served, want, keys)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        local = hybrid_ds.collect()
+        direct_ms = (time.perf_counter() - t0) * 1e3
+        direct_launches = kernels.launch_counts()
+        if direct_launches != launches:
+            raise AssertionError(f"phase T: the direct hybrid join launched "
+                                 f"{direct_launches}, served {launches}")
+        if not any(j.get("hybrid") for j in
+                   session.last_execution_stats.get("joins", [])):
+            raise AssertionError("phase T: the direct join was not hybrid")
+        if not served.equals(local):
+            require_rows("phase T hybrid served against direct", served,
+                         t_table_rows(local), keys)
+        hybrid = {"rows": served.num_rows, "served_ms": served_ms,
+                  "direct_ms": direct_ms, "launches": launches}
+        os.remove(appended)
+        session.conf.hybrid_scan_enabled = False
+        server.plan_cache.clear()
+        step("4_hybrid")
+
+        # 6 (run here, on the four-worker server). Each verb once.
+        verbs: dict = {}
+        slow = client.query({"verb": "slow_queries"})
+        trace_ids = [t for t, k in zip(slow.column("traceId").to_pylist(),
+                                       slow.column("kind").to_pylist())
+                     if k == "spec"]  # the direct collects' are "local"
+        if not trace_ids:
+            raise AssertionError("phase T: no served flight record kept")
+        for verb in T_VERBS:
+            extra = {"id": trace_ids[-1]} if verb == "trace" else {}
+            t0 = time.perf_counter()
+            table = client.query({"verb": verb, **extra})
+            verbs[verb] = {"rows": table.num_rows,
+                           "ms": (time.perf_counter() - t0) * 1e3}
+        series = dict(zip(*(client.query({"verb": "metrics"}).column(c)
+                            .to_pylist() for c in ("name", "value"))))
+        if series.get("serve.ok", 0) < want_n or \
+                series.get("serve.errors", 0) != 0:
+            raise AssertionError(f"phase T: serve.ok "
+                                 f"{series.get('serve.ok')}, errors "
+                                 f"{series.get('serve.errors')}")
+        report = json.loads(client.query({"verb": "last_run_report"})
+                            .column("report_json").to_pylist()[0])
+        if report is None or sorted(report["indexes_used"]) != \
+                query_indexes("filtered_join"):  # step 4's hybrid join
+            raise AssertionError(f"phase T: last_run_report {report}")
+        rec = json.loads(client.query({"verb": "trace",
+                                       "id": trace_ids[-1]})
+                         .column("record_json").to_pylist()[0])
+        if rec["kind"] != "spec" or rec["outcome"] != "OK":
+            raise AssertionError(f"phase T: trace record {rec['kind']} "
+                                 f"{rec['outcome']}")
+        step("6_verbs")
+
+        # 5. One worker, a queue of one.  A hold keeps the next query
+        # admitted and running until released, so the burst's outcome
+        # does not hang on timing.
+        hold = {"armed": 0, "until": None}
+        hold_lock = threading.Lock()
+        held = threading.Event()
+
+        def make(self, spec):
+            fn, kind = real_make(self, spec)
+            with hold_lock:
+                take = hold["armed"] > 0
+                hold["armed"] -= take
+                until = hold["until"]
+            if not take:
+                return fn, kind
+
+            def held_fn():
+                held.set()
+                t_until(until, "the hold's release")
+                return fn()
+            return held_fn, kind
+
+        server_mod._Responder._make_query_fn = make
+        sizing = (session.conf.serving_workers,
+                  session.conf.serving_queue_depth)
+        session.conf.serving_workers = session.conf.serving_queue_depth = 1
+        small = QueryServer(session).start()  # sized when made
+        session.conf.serving_workers, session.conf.serving_queue_depth = \
+            sizing
+        release = threading.Event()
+        results: dict = {}
+
+        def serve(label: str, name: str) -> None:
+            try:
+                with QueryClient(small.address, timeout_s=T_BOUND_S) as c:
+                    results[label] = c.query(specs[name])
+            except Exception as e:  # noqa: BLE001 - checked below
+                results[label] = e
+
+        shed0 = {k: snap(k) for k in ("serve.shed", "serve.shed.queue_full")}
+        hold.update(armed=1, until=release.is_set)
+        first = threading.Thread(target=serve, args=("running", "q3"),
+                                 daemon=True)
+        first.start()
+        if not held.wait(T_BOUND_S):
+            raise AssertionError("phase T: the held q3 never ran")
+        second = threading.Thread(target=serve, args=("queued", "q3"),
+                                  daemon=True)
+        second.start()
+        t_until(lambda: snap("serve.queue_depth") == 1, "q3 to queue")
+        barrier = threading.Barrier(T_BURST)
+
+        def burst(i: int) -> None:
+            barrier.wait(T_BOUND_S)
+            serve(f"burst {i}", "q3")
+
+        bursts = [threading.Thread(target=burst, args=(i,), daemon=True)
+                  for i in range(T_BURST)]
+        for t in bursts:
+            t.start()
+        t_join(bursts, "the burst")
+        release.set()
+        t_join([first, second], "the admitted q3s")
+        busy = [r for k, r in results.items() if k.startswith("burst")
+                and isinstance(r, ServerBusyError)]
+        shed = {k: snap(k) - v for k, v in shed0.items()}
+        if len(busy) != T_BURST or shed["serve.shed.queue_full"] != T_BURST \
+                or shed["serve.shed"] != T_BURST:
+            raise AssertionError(f"phase T: burst {len(busy)} BUSY of "
+                                 f"{T_BURST}, counters {shed}")
+        for label in ("running", "queued"):
+            check(f"small server {label}", "q3", results[label])
+        burst_out = {"busy": len(busy), "counters": shed,
+                     "retry_after_ms": [e.retry_after_ms for e in busy]}
+
+        with QueryClient(small.address, timeout_s=T_BOUND_S) as c:
+            t0 = time.perf_counter()
+            try:
+                c.query(specs["q3"], deadline_ms=1)
+            except QueryFailedError as e:
+                late = e
+            else:
+                raise AssertionError("phase T: q3 beat a 1 ms deadline")
+            deadline_ms = (time.perf_counter() - t0) * 1e3
+        if late.code != "DEADLINE" or not late.retryable:
+            raise AssertionError(f"phase T: 1 ms deadline answered "
+                                 f"{late.code} {late.message}")
+        with QueryClient(small.address, timeout_s=T_BOUND_S) as c:
+            t0 = time.perf_counter()
+            check("after the deadline", "q3", c.query(specs["q3"]))
+            after_ms = (time.perf_counter() - t0) * 1e3
+        deadline_out = {"answered_ms": deadline_ms, "message": late.message,
+                        "next_q3_ms": after_ms}
+
+        open_client = QueryClient(small.address, timeout_s=T_BOUND_S)
+        try:
+            check("before the drain", "point",
+                  open_client.query(specs["point"]))
+            held.clear()
+            hold.update(armed=1, until=lambda: small.pool.draining)
+            inflight = threading.Thread(target=serve,
+                                        args=("in flight", "join"),
+                                        daemon=True)
+            inflight.start()
+            if not held.wait(T_BOUND_S):
+                raise AssertionError("phase T: the in-flight join never ran")
+            drained: dict = {}
+            t0 = time.perf_counter()
+            drainer = threading.Thread(
+                target=lambda: drained.update(clean=small.drain(
+                    grace_s=T_BOUND_S)), daemon=True)
+            drainer.start()
+            t_until(lambda: small.pool.draining, "the drain to begin")
+            try:
+                open_client.query(specs["point"])
+            except ServerBusyError as e:
+                refused = e.message
+            else:
+                raise AssertionError("phase T: a request during the drain "
+                                     "was served")
+            t_join([inflight, drainer], "the drain")
+            drain_s = time.perf_counter() - t0
+        finally:
+            open_client.close()
+        if drained.get("clean") is not True or "draining" not in refused:
+            raise AssertionError(f"phase T: drain {drained}, refusal "
+                                 f"{refused!r}")
+        check("in flight through the drain", "join", results["in flight"])
+        drain_out = {"clean": True, "drain_s": drain_s, "refused": refused}
+        step("5_small_server")
+    finally:
+        server_mod._Responder._make_query_fn = real_make
+        if client is not None:
+            client.close()
+        if small is not None:
+            small.stop()
+        server.stop()
+        lifecycle_daemon.clear_drain()
+        session.conf.hybrid_scan_enabled = False
+        if os.path.exists(appended):
+            os.remove(appended)
+        shutil.rmtree(staging, ignore_errors=True)
+        session.disable_hyperspace()
+        device_cache().clear()
+    out.update(queries=queries, concurrent=concurrent, plan_cache=cache,
+               numpy_checks=numpy_checks,
+               hybrid=hybrid, burst=burst_out, deadline=deadline_out,
+               drain=drain_out, verbs=verbs, launches=launches,
+               steps_s=steps)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _raised_name(fn) -> str:
     """The class name of what ``fn`` raised (a BaseException: an injected
     crash is one), or "" when it returned."""
@@ -6095,6 +6654,31 @@ def _raised_name(fn) -> str:
     except BaseException as e:  # noqa: BLE001 - InjectedCrash included
         return type(e).__name__
     return ""
+
+
+def print_server(t: dict) -> None:
+    for name, q in t["queries"].items():
+        print(f"phase T {name}: served {q['served_ms']:.1f} ms, direct "
+              f"{q['direct_ms']:.1f} ms ({q['served_over_direct']:.2f}x), "
+              f"plan cache miss {q['miss_ms']:.1f} hit {q['hit_ms']:.1f} ms "
+              f"(saved {q['cache_saved_ms']:.1f}), {q['rows']} rows",
+              flush=True)
+    c, h = t["concurrent"], t["hybrid"]
+    print(f"phase T: indexes {json.dumps(t['indexes'])} rebuilt "
+          f"{t['rebuilt']}; {c['clients']} clients {c['requests']} answers "
+          f"right in {c['wall_s']:.3f} s ({c['qps']:.1f} qps, p50 "
+          f"{c['p50_ms']:.1f} p99 {c['p99_ms']:.1f} ms; server latency "
+          f"{c['server_latency_ms_mean']:.1f} ms mean, queue wait "
+          f"{c['queue_wait_ms_mean']:.1f}; a round of the seven in turn "
+          f"{c['sequential_round_ms']:.1f} ms); numpy checks "
+          f"{json.dumps(t['numpy_checks'])}; hybrid join "
+          f"served {h['served_ms']:.1f} / direct {h['direct_ms']:.1f} ms, "
+          f"launches {json.dumps(h['launches'])}; burst "
+          f"{json.dumps(t['burst']['counters'])}; deadline answered in "
+          f"{t['deadline']['answered_ms']:.1f} ms, next q3 "
+          f"{t['deadline']['next_q3_ms']:.1f} ms; drain "
+          f"{t['drain']['drain_s']:.3f} s ({t['phase_s']:.3f} s; by step "
+          f"{json.dumps(t['steps_s'])})", flush=True)
 
 
 def print_object_store(s: dict) -> None:
@@ -6844,6 +7428,8 @@ def main() -> int:
         print_diagnostics(diagnostics)
         object_store = phase_s(orders, li, root, dev)
         print_object_store(object_store)
+        server = phase_t(orders, li, root, dev)
+        print_server(server)
         del orders
         t0 = time.perf_counter()
         f = phase_f(root, dev)
@@ -6884,7 +7470,8 @@ def main() -> int:
                "P lifecycle": lifecycle["launches"],
                "Q telemetry": telemetry["launches"],
                "R diagnostics": diagnostics["launches"],
-               "S object store": object_store["launches"]}
+               "S object store": object_store["launches"],
+               "T server": server["launches"]}
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
                    builds[0]["launches"])
@@ -6919,6 +7506,7 @@ def main() -> int:
     print(json.dumps({"telemetry": {**telemetry, "card": smi}}))
     print(json.dumps({"diagnostics": {**diagnostics, "card": smi}}))
     print(json.dumps({"object_store": {**object_store, "card": smi}}))
+    print(json.dumps({"server": {**server, "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

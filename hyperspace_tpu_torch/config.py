@@ -210,9 +210,32 @@ class HyperspaceConf:
     lifecycle_compaction_enabled: bool = False
     lifecycle_compaction_min_small_files: int = 8
     lifecycle_compaction_mode: str = "quick"
-    # A maintenance cycle sheds (journals a skip) while the process's
-    # resident set exceeds this many MB (0: never).
+    # The query server (interop/server.py):
+    #   - workers: query-executing threads per QueryServer, the bound on
+    #     concurrent execution; queue_depth: admitted requests waiting
+    #     for a worker (a full queue sheds ERR BUSY); max_connections:
+    #     open connections (past it the accept loop answers ERR BUSY
+    #     without spawning a thread).  Read when the server is made.
+    #   - default_deadline_ms: the deadline of a request that names none
+    #     (0: none); request_timeout_s / send_timeout_s: the socket's
+    #     read and write timeouts; drain_grace_s: how long drain() lets
+    #     in-flight requests finish.
+    #   - shed_rss_watermark_mb (a maintenance cycle reads it too) and
+    #     shed_queue_wait_watermark_ms: past either (0: off) new
+    #     requests shed ERR BUSY, and a maintenance cycle journals a skip.
+    #   - plan_cache_*: the server's optimize-result cache
+    #     (execution/plan_cache.py) and its byte budget.
+    serving_workers: int = 4
+    serving_queue_depth: int = 16
+    serving_max_connections: int = 64
+    serving_default_deadline_ms: float = 0.0
+    serving_request_timeout_s: float = 30.0
+    serving_send_timeout_s: float = 30.0
+    serving_drain_grace_s: float = 10.0
     serving_shed_rss_watermark_mb: float = 0.0
+    serving_shed_queue_wait_watermark_ms: float = 0.0
+    serving_plan_cache_enabled: bool = True
+    serving_plan_cache_bytes: int = 64 << 20
     # The source watch (io/watch.py): the daemon wakes on source events
     # instead of sleeping the whole interval.  mode "auto" takes inotify,
     # else the store notification bus; "inotify", "store" and "poll"

@@ -290,8 +290,12 @@ class Dataset:
             if isinstance(query_span, trace.Span):
                 rep.root_span = query_span
             self.session.last_run_report_value = rep
-            # Never raises: diagnostics never fail a query.
-            flight_recorder.record_local(self.session.conf, rep)
+            if trace.current_request_context() is None:
+                # A local query: recorded here, so slow_queries() works
+                # without a server.  A served one is recorded by its
+                # worker, with the wire ids and its queue wait.  Never
+                # raises: diagnostics never fail a query.
+                flight_recorder.record_local(self.session.conf, rep)
         executor.finalize_stats()
         self.session.last_execution_stats = executor.stats
         if self.session.conf.advisor_capture_enabled:

@@ -13,25 +13,36 @@ before interesting ones.
 
 One record is a flat dict:
 
-  - ``trace_id`` / ``request_id``: minted by ``interop.query``
-  - ``kind``: ``local`` (``Dataset.collect``) or ``maintenance`` (a
-    lifecycle-daemon action); the JAX package's server adds ``sql`` and
-    ``spec``
-  - ``outcome``: a local query's run-report outcome (``ok`` /
-    ``degraded`` / ``error``); ``OK`` or ``FAILED`` for maintenance
-  - ``latency_ms`` / ``queue_wait_ms`` / ``ts`` / ``slow`` / ``reason``
+  - ``trace_id`` / ``request_id``: the wire trace context a served
+    request carried (``interop.query`` adopts or mints it), else minted
+  - ``kind``: ``sql`` / ``spec`` (a served request,
+    ``interop/server.py``), ``local`` (``Dataset.collect`` outside a
+    request scope), ``maintenance`` (a lifecycle-daemon action) or
+    ``unknown`` (a request shed or refused before its kind was read)
+  - ``outcome``: ``OK`` or a wire code (``BUSY`` / ``DEADLINE`` /
+    ``BADREQ`` / ``FAILED``) for served and maintenance records; a
+    local query's run-report outcome (``ok`` / ``degraded`` /
+    ``error``)
+  - ``latency_ms`` / ``queue_wait_ms`` (served: enqueue to a worker) /
+    ``ts`` / ``slow`` / ``reason``
   - ``plan_fingerprint``: the plan-cache key when one was computed
   - ``device_ms``: the attributed kernel milliseconds of the run
-  - ``spans``: the ``query.collect`` span tree (tracing on), ``report``:
-    the whole QueryRunReport dict
+  - ``spans``: the ``serve.request`` → ``query.collect`` span tree
+    (tracing on), ``report``: the whole QueryRunReport dict
+
+A served request that answered ``OK`` also feeds the
+``serve.latency_ms`` histogram, with its trace id as the bucket's
+exemplar when its record was retained.
 
 Serialization is paid for retained records only: the offer is a few
 conf reads and a counter.
 
-:func:`dump_diagnostics` (``Hyperspace.dump_diagnostics()``) writes the
-ring, a metrics snapshot and the perf ledger's tail as ONE bundle
-through the posix store under ``<systemPath>/_hyperspace_diagnostics``,
-readable after a restart through :func:`bundles` and bounded by
+:func:`dump_diagnostics` (``Hyperspace.dump_diagnostics()``, and
+``QueryServer.drain`` once in-flight requests finished) writes the ring,
+a metrics snapshot and the perf ledger's tail as ONE bundle through the
+conf-chosen store (``perf_ledger.store_for``) under
+``<systemPath>/_hyperspace_diagnostics``, readable after a restart
+through :func:`bundles` and bounded by
 ``conf.flight_recorder_max_bundles``.  Dumps run inside
 ``faults.quiet()`` and never raise.  pyarrow is imported inside the
 functions.
@@ -272,7 +283,7 @@ def slow_queries_table(conf=None):
 
 
 # ---------------------------------------------------------------------------
-# Diagnostics bundles (the posix log store)
+# Diagnostics bundles (the conf-chosen store)
 # ---------------------------------------------------------------------------
 def flight_root(conf) -> str:
     from hyperspace_tpu_torch.index.manager import system_path_of

@@ -30,7 +30,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 _enabled = False  # module-global: the whole disabled-path cost is this bool
 
@@ -151,6 +151,32 @@ def current_span():
     no span is open — callers tag without any enabled check."""
     cur = _current.get()
     return cur if cur is not None else NOOP_SPAN
+
+
+# The wire trace context of the served request running on this context
+# (interop/server.py sets it on the worker around the job): a
+# (trace_id, request_id) pair.  It exists with tracing off too, so the
+# flight recorder can name records by the client's ids, and
+# ``Dataset.collect`` can tell a served query (its worker records it)
+# from a local one.
+_request_ctx: "contextvars.ContextVar[Optional[Tuple[str, str]]]" = \
+    contextvars.ContextVar("hyperspace_torch_request_ctx", default=None)
+
+
+@contextlib.contextmanager
+def request_scope(trace_id: str, request_id: str) -> Iterator[None]:
+    """Run the with-block under the given wire trace context."""
+    token = _request_ctx.set((trace_id, request_id))
+    try:
+        yield
+    finally:
+        _request_ctx.reset(token)
+
+
+def current_request_context() -> Optional[Tuple[str, str]]:
+    """(trace_id, request_id) of the served request this context runs,
+    or None outside the serving path."""
+    return _request_ctx.get()
 
 
 def tracing_enabled() -> bool:

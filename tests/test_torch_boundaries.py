@@ -27,13 +27,13 @@ _FORBIDDEN = [
 ]
 
 
-# The query-path guards and diagnostics, and the object store.
+# The query-path guards and diagnostics, the object store and the server.
 _GUARDS_AND_DIAGNOSTICS = (
     "execution/sync_guard.py", "utils/deadline.py",
     "execution/plan_cache.py", "interop/__init__.py", "interop/query.py",
     "telemetry/flight_recorder.py", "telemetry/slo.py",
     "telemetry/doctor.py", "io/log_store.py",
-    "index/object_log_manager.py")
+    "index/object_log_manager.py", "interop/server.py")
 
 
 def _port_sources():
@@ -1096,3 +1096,73 @@ def test_the_object_store_log_imports_no_jax(tmp_path):
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_the_query_server_imports_no_jax(tmp_path):
+    """The server and its client load without pyarrow; then a served
+    query, a verb and a drain over loopback, on a ``cpu`` session, load
+    neither jax nor the JAX package."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        from hyperspace_tpu_torch.interop import server
+        from hyperspace_tpu_torch.interop import QueryClient, QueryServer
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig)
+
+        data = {str(tmp_path / "data")!r}
+        os.makedirs(data)
+        pq.write_table(pa.table({{"k": np.arange(300), "v": np.ones(300)}}),
+                       os.path.join(data, "part-0.parquet"))
+        s = HyperspaceSession({str(tmp_path / "ix")!r}, device="cpu")
+        s.conf.num_buckets = 4
+        Hyperspace(s).create_index(s.read.parquet(data),
+                                   IndexConfig("ix", ["k"], ["v"]))
+        s.enable_hyperspace()
+        srv = QueryServer(s).start()
+        try:
+            with QueryClient(srv.address, timeout_s=60) as c:
+                out = c.query({{"source": {{"format": "parquet",
+                                            "path": data}},
+                                "filter": {{"op": "==", "col": "k",
+                                            "value": 7}}}})
+                assert out.num_rows == 1
+                assert c.query({{"verb": "metrics"}}).num_rows > 0
+            assert srv.drain(grace_s=30)
+        finally:
+            srv.stop()
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """Every import statement of chip_smoke.py, at any depth (phase T's
+    server and client included), names neither jax nor the JAX
+    package."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "hyperspace_tpu_torch.interop" in names
+    for name in names:
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "hyperspace_tpu"), name
