@@ -3,7 +3,14 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device and exits non-zero without one, or when the package is not
-beside it.
+beside it.  ``python3 chip_smoke.py --phases T,U`` runs some phases only:
+the kernel builds and phase A always, the data generation, the selected
+phases in the script's order with what they read from other phases
+(PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
+without its queries, phase L for M, phase T for U), then the kernels'
+timing, with the same last line.  An unknown letter is an error.
+``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
+async server in turns (threaded, async, async, threaded).
 
   build    compile both CUDA kernels from ``hyperspace_tpu_torch/csrc``
            (one nvcc per source, started together).
@@ -495,6 +502,35 @@ beside it.
            completes it and sheds the next request on an open
            connection.  (6) Each of the nine verbs once.  Prints
            ``{"server": ...}`` with the card's name and power limit.
+  phase U  tenants, the async IO mode and the wire faults (after phase
+           T), over phase T's indexes and wire specs, T_BOUND_S bounding
+           every wait and socket.  (1) An async ``QueryServer``
+           (U_WORKERS workers, one selector thread, workers + 4
+           dispatchers): the seven served once, each equal to phase T's
+           threaded answer (``pa.Table.equals``; phase T held it to
+           numpy), then T_CLIENTS clients x T_ROUNDS rounds as in T's
+           step 2, every answer T's or numpy's, with qps, client p50/p99,
+           the ``serve.latency_ms`` and ``serve.queue_wait_ms`` means
+           and the caching allocator's device allocations and frees
+           beside T's step 2.  (2) One worker and
+           ``serving_tenant_max_queued = 1``: tenant ``hot``'s join held
+           on the worker (``tenant_snapshot()`` polled until it counts
+           it), ``hot``'s point shed ``BUSY`` "quota" with a retry-after,
+           the ``tenants`` verb showing ``hot`` queued at least 1 and
+           shed 1, ``cold``'s point admitted behind the join; both
+           answers right, ``serve.shed.tenant`` and
+           ``serve.tenant.hot.shed`` up by 1.  (3) Wire faults on the
+           async server: ``net.send`` ``torn-frame`` at 2 on the join's
+           response a ``ConnectionError``, then a new client's join
+           right; ``net.accept`` ``reset`` a ``ConnectionError``;
+           ``net.accept`` ``black-hole`` under a U_BLACK_HOLE_S client
+           timeout a ``ConnectionError`` from its ``TimeoutError``;
+           ``net.recv`` ``slow`` (U_SLOW_RECV_MS) on point at least that
+           long and right; the join U_DETOUR_RUNS times each with a wire
+           plan armed that never fires (the buffered detour) and
+           without, in turns.  Every plan is cleared in a ``finally``.
+           No kernel launches (``U server``).  Prints ``{"server_u":
+           ...}`` with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -525,15 +561,16 @@ K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
-server``), the
+server``, phase U's ``U server``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 (phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
-R), the object-store JSON (phase S) and the server JSON (phase T), each
-of the last eight with the card's name and power limit, the card's name
-and power limit, and
-``{"ok": true, "device": ...}``.
+R), the object-store JSON (phase S), the server JSON (phase T) and the
+async, tenant and wire-fault JSON (phase U), each of the last nine with
+the card's name and power limit, the card's name and power limit, and
+``{"ok": true, "device": ...}``.  A selection prints the lines of the
+phases it ran.
 """
 
 from __future__ import annotations
@@ -1534,13 +1571,10 @@ def check_routes(label: str, name: str, route: str, stats: dict) -> None:
                              f"expected {want}")
 
 
-def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
-    """Queries through the indexes: build ``ord_idx`` beside phase C's
-    ``li_idx`` and check its files, then run QUERIES with hyperspace
-    enabled (device route cold and warm, then the host route) and
-    disabled (cold and warm), each answer held to numpy; time each, and
-    profile and split one cold and one warm indexed run.  Then q3 once
-    more under a device column cache budget below its working set."""
+def d_build(orders: dict, root: str, dev) -> tuple:
+    """Phase D's ``ord_idx`` build beside phase C's ``li_idx``, its files
+    checked, with the launch counts set to 0 just before it: the session,
+    its ``Hyperspace`` and the build's seconds."""
     from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
     from hyperspace_tpu_torch.ops import kernels
 
@@ -1560,6 +1594,20 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
                     ["o_totalprice", "o_custkey", "o_shippriority"]))
     build_s = time.perf_counter() - t0
     check_index_files("phase D", hs, ORDERS_INDEX, "o_orderkey", N_ORDERS)
+    return session, hs, build_s
+
+
+def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
+    """Queries through the indexes: build ``ord_idx`` beside phase C's
+    ``li_idx`` and check its files (``d_build``), then run QUERIES with
+    hyperspace enabled (device route cold and warm, then the host route)
+    and disabled (cold and warm), each answer held to numpy; time each,
+    and profile and split one cold and one warm indexed run.  Then q3
+    once more under a device column cache budget below its working
+    set."""
+    from hyperspace_tpu_torch.ops import kernels
+
+    session, _, build_s = d_build(orders, root, dev)
     queries = build_queries(session, root, aggregates=True)
     expected = {**expected_answers(orders, li),
                 **expected_aggregates(orders, li)}
@@ -6177,24 +6225,99 @@ def t_specs(root: str) -> dict:
     }
 
 
-def t_until(cond, what: str) -> None:
+def t_until(cond, what: str, phase: str = "T") -> None:
     """Wait, bounded by T_BOUND_S, for what another thread makes true."""
     end = time.monotonic() + T_BOUND_S
     while not cond():
         if time.monotonic() > end:
-            raise AssertionError(f"phase T: timed out waiting for {what}")
+            raise AssertionError(f"phase {phase}: timed out waiting for "
+                                 f"{what}")
         time.sleep(0.002)
 
 
-def t_join(threads: list, what: str) -> None:
+def t_join(threads: list, what: str, phase: str = "T") -> None:
     for t in threads:
         t.join(timeout=T_BOUND_S)
     if any(t.is_alive() for t in threads):
-        raise AssertionError(f"phase T: {what} hung")
+        raise AssertionError(f"phase {phase}: {what} hung")
 
 
 def t_table_rows(table) -> dict:
     return {c: table.column(c).to_numpy() for c in table.column_names}
+
+
+def t_concurrent(phase: str, address, specs: dict, check) -> dict:
+    """T_CLIENTS concurrent clients over ``address``, T_ROUNDS rounds of
+    ``specs`` each, each client starting at another query; every answer
+    goes through ``check(label, name, table)``.  The wall, qps and client
+    p50/p99, the server's queue-wait and latency means, and on the card
+    the caching allocator's device allocations and frees (``cudaMalloc``
+    and ``cudaFree``), over this step alone."""
+    import threading
+
+    import torch
+
+    from hyperspace_tpu_torch.interop import QueryClient
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    def allocator() -> dict:
+        if not torch.cuda.is_available():
+            return {}
+        stats = torch.cuda.memory_stats()
+        return {k: stats.get(f"num_device_{k}", 0) for k in ("alloc", "free")}
+
+    names = list(specs)
+    done, failures = [], []
+    done_lock = threading.Lock()
+
+    def concurrent_client(i: int) -> None:
+        try:
+            with QueryClient(address, timeout_s=T_BOUND_S) as c:
+                for r in range(T_ROUNDS):
+                    for j in range(len(names)):
+                        name = names[(i + j) % len(names)]
+                        t0 = time.perf_counter()
+                        table = c.query(specs[name])
+                        ms = (time.perf_counter() - t0) * 1e3
+                        check(f"client {i} round {r}", name, table)
+                        with done_lock:
+                            done.append((name, ms))
+        except Exception as e:  # noqa: BLE001 - reported below
+            with done_lock:
+                failures.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=concurrent_client, args=(i,),
+                                daemon=True) for i in range(T_CLIENTS)]
+    before, alloc0 = metrics.snapshot(), allocator()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    t_join(threads, "a concurrent client", phase)
+    wall = time.perf_counter() - t0
+    allocs = {k: v - alloc0[k] for k, v in allocator().items()}
+    want_n = T_CLIENTS * T_ROUNDS * len(names)
+    if failures or len(done) != want_n:
+        raise AssertionError(f"phase {phase}: {len(done)} of {want_n} "
+                             f"answers, failures {failures[:3]}")
+    lat = sorted(ms for _, ms in done)
+    after = metrics.snapshot()
+
+    def step_mean(name: str) -> float:
+        """The mean of a histogram over this step alone."""
+        b, a = before.get(name) or {}, after[name]
+        return (a["sum"] - b.get("sum", 0.0)) \
+            / (a["count"] - b.get("count", 0))
+
+    return {
+        "clients": T_CLIENTS, "requests": len(done), "wall_s": wall,
+        "qps": len(done) / wall,
+        "p50_ms": lat[len(lat) // 2],
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        # Server side: enqueue to a worker, and enqueue to the answer's
+        # table (the wire write not included).
+        "queue_wait_ms_mean": step_mean("serve.queue_wait_ms"),
+        "server_latency_ms_mean": step_mean("serve.latency_ms"),
+        "device_allocs": allocs}
 
 
 def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
@@ -6324,65 +6447,16 @@ def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
 
         # 2. T_CLIENTS concurrent clients, T_ROUNDS rounds of the seven,
         # each client starting at another query.
-        names = list(specs)
-        done, failures = [], []
-        done_lock = threading.Lock()
-
-        def concurrent_client(i: int) -> None:
-            try:
-                with QueryClient(server.address,
-                                 timeout_s=T_BOUND_S) as c:
-                    for r in range(T_ROUNDS):
-                        for j in range(len(names)):
-                            name = names[(i + j) % len(names)]
-                            t0 = time.perf_counter()
-                            table = c.query(specs[name])
-                            ms = (time.perf_counter() - t0) * 1e3
-                            check(f"client {i} round {r}", name, table)
-                            with done_lock:
-                                done.append((name, ms))
-            except Exception as e:  # noqa: BLE001 - reported below
-                with done_lock:
-                    failures.append(f"client {i}: {type(e).__name__}: {e}")
-
-        threads = [threading.Thread(target=concurrent_client, args=(i,),
-                                    daemon=True) for i in range(T_CLIENTS)]
-        before = metrics.snapshot()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        t_join(threads, "a concurrent client")
-        wall = time.perf_counter() - t0
+        concurrent = t_concurrent("T", server.address, specs, check)
         # The first client sat idle through step 2, and the server closes
         # a connection idle past serving_request_timeout_s: a new one.
         client.close()
         client = QueryClient(server.address, timeout_s=T_BOUND_S)
-        want_n = T_CLIENTS * T_ROUNDS * len(names)
-        if failures or len(done) != want_n:
-            raise AssertionError(f"phase T: {len(done)} of {want_n} answers, "
-                                 f"failures {failures[:3]}")
-        lat = sorted(ms for _, ms in done)
-        after = metrics.snapshot()
-
-        def step_mean(name: str) -> float:
-            """The mean of a histogram over step 2 alone."""
-            b, a = before.get(name) or {}, after[name]
-            return (a["sum"] - b.get("sum", 0.0)) \
-                / (a["count"] - b.get("count", 0))
-
-        concurrent = {
-            "clients": T_CLIENTS, "requests": len(done), "wall_s": wall,
-            "qps": len(done) / wall,
-            "p50_ms": lat[len(lat) // 2],
-            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-            # Server side: enqueue to a worker, and enqueue to the
-            # answer's table (the wire write not included).
-            "queue_wait_ms_mean": step_mean("serve.queue_wait_ms"),
-            "server_latency_ms_mean": step_mean("serve.latency_ms"),
-            # One round of the seven served in turn (step 1's medians):
-            # what 4 workers would divide if they overlapped.
-            "sequential_round_ms": sum(q["served_ms"]
-                                       for q in queries.values())}
+        want_n = concurrent["requests"]
+        # One round of the seven served in turn (step 1's medians): what
+        # 4 workers would divide if they overlapped.
+        concurrent["sequential_round_ms"] = sum(q["served_ms"]
+                                                for q in queries.values())
         step("2_concurrent")
         query_launches = kernels.launch_counts()
         if any(query_launches.values()):
@@ -6580,6 +6654,10 @@ def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
         if late.code != "DEADLINE" or not late.retryable:
             raise AssertionError(f"phase T: 1 ms deadline answered "
                                  f"{late.code} {late.message}")
+        # The abandoned q3 may still sit in the queue of one (a slow
+        # worker has not taken it yet): the next q3 waits for it to go.
+        if not small.pool.wait_idle(T_BOUND_S):
+            raise AssertionError("phase T: the abandoned q3 never finished")
         with QueryClient(small.address, timeout_s=T_BOUND_S) as c:
             t0 = time.perf_counter()
             check("after the deadline", "q3", c.query(specs["q3"]))
@@ -6643,7 +6721,348 @@ def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
                drain=drain_out, verbs=verbs, launches=launches,
                steps_s=steps)
     out["phase_s"] = time.perf_counter() - t_phase
+    # For phase U, never printed: the served answers of step 1 (each held
+    # to numpy) and numpy's answers.
+    out["answers"], out["expected"] = answers, expected
     return out
+
+
+U_WORKERS = 4                   # the async server's workers, as phase T's
+U_BLACK_HOLE_S = 0.5            # the client's timeout under an accept black-hole
+U_SLOW_RECV_MS = 100.0          # the net.recv "slow" plan's delay
+U_DETOUR_RUNS = 2               # join runs with a silent wire plan and without
+
+
+def phase_u(orders: dict, li: dict, root: str, dev, t: dict,
+            turns: int = 0) -> dict:
+    """Tenants, the async IO mode and the wire faults, after phase T, over
+    its indexes and specs, with ``t["answers"]`` (phase T's threaded
+    answers) and ``t["expected"]`` (numpy's) (see the module docstring).
+    ``turns`` (``--u-turns``) adds that many rounds of the 8 clients on
+    a threaded and the async server in turns after step 1."""
+    import threading
+
+    from hyperspace_tpu_torch import HyperspaceSession
+    from hyperspace_tpu_torch.interop import (
+        QueryClient,
+        QueryServer,
+        ServerBusyError,
+        dataset_from_spec,
+        netfaults,
+    )
+    from hyperspace_tpu_torch.interop import server as server_mod
+    from hyperspace_tpu_torch.io import faults
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    set_min_rows(session, 0)
+    session.enable_hyperspace()
+    specs = t_specs(root)
+    for name, spec in specs.items():
+        scans = sorted(n for n, _ in index_scans(
+            dataset_from_spec(session, spec).optimized_plan()))
+        if scans != query_indexes(name):
+            raise AssertionError(f"phase U {name}: plan scans {scans}, "
+                                 f"expected {query_indexes(name)}")
+    threaded, expected = t["answers"], t["expected"]
+    numpy_checks: dict = {}
+    checks_lock = threading.Lock()
+
+    def check(label: str, name: str, table, strict: bool = False) -> None:
+        """``table`` equal to phase T's threaded answer; unless
+        ``strict``, else held to numpy as phase T holds its later
+        answers (floats of the aggregates within AGG_RTOL)."""
+        if table.equals(threaded[name]):
+            return
+        if strict:
+            raise AssertionError(f"phase U {label} {name}: differs from "
+                                 f"phase T's threaded answer")
+        want, keys = expected[name]
+        require_rows(f"phase U {label} {name}", table, want, keys,
+                     AGG_RTOL if name in AGG_QUERIES else 0.0)
+        with checks_lock:
+            numpy_checks[name] = numpy_checks.get(name, 0) + 1
+
+    def snap(name: str) -> float:
+        return float(metrics.snapshot().get(name, 0.0) or 0.0)
+
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - mark[0]
+        mark[0] = now
+        print(f"phase U step {label}: {steps[label]:.3f} s", flush=True)
+
+    real_make = server_mod._Responder._make_query_fn
+    sizing = (session.conf.serving_workers, session.conf.serving_io_mode)
+    session.conf.serving_workers = U_WORKERS
+    session.conf.serving_io_mode = "async"
+    server = QueryServer(session).start()  # sized and moded when made
+    session.conf.serving_workers, session.conf.serving_io_mode = sizing
+    quota_server = None
+    out: dict = {}
+    try:
+        # 1. Async against threaded: each of the seven once, equal to
+        # phase T's threaded answer (which phase T held to numpy), then
+        # phase T's 8 clients x 3 rounds.  None launches a kernel.
+        kernels.reset_launch_counts()
+        with QueryClient(server.address, timeout_s=T_BOUND_S) as c:
+            for name, spec in specs.items():
+                check("async", name, c.query(spec), strict=True)
+        step("1_async_seven")
+        concurrent = t_concurrent("U", server.address, specs, check)
+        concurrent["threaded"] = {
+            k: t["concurrent"][k] for k in (
+                "wall_s", "qps", "p50_ms", "p99_ms", "queue_wait_ms_mean",
+                "server_latency_ms_mean", "device_allocs")}
+        concurrent["qps_over_threaded"] = \
+            concurrent["qps"] / t["concurrent"]["qps"]
+        out["async"] = concurrent
+        step("1_async_concurrent")
+        if turns:
+            # Threaded and async in turns on one warm process: what the
+            # order of phases T and U adds to their comparison.
+            session.conf.serving_workers = U_WORKERS
+            threaded_server = QueryServer(session).start()
+            session.conf.serving_workers = sizing[0]
+            try:
+                out["turns"] = [
+                    {"mode": mode, **t_concurrent(
+                        "U", (server if mode == "async"
+                              else threaded_server).address, specs, check)}
+                    for _ in range(turns)
+                    for mode in ("threaded", "async", "async", "threaded")]
+            finally:
+                threaded_server.stop()
+            for r in out["turns"]:
+                print(f"phase U turn {r['mode']}: {r['qps']:.2f} qps, p50 "
+                      f"{r['p50_ms']:.1f} p99 {r['p99_ms']:.1f} ms, server "
+                      f"latency {r['server_latency_ms_mean']:.1f} queue "
+                      f"wait {r['queue_wait_ms_mean']:.1f} ms, allocs "
+                      f"{json.dumps(r['device_allocs'])}", flush=True)
+            step("1_turns")
+
+        # 2. The tenant quota on one worker: hot's join held on the
+        # worker until its second request was shed, the verb read and
+        # cold's point admitted behind it.
+        session.conf.serving_workers = 1
+        quota_server = QueryServer(session).start()
+        session.conf.serving_workers = sizing[0]
+        session.conf.serving_tenant_max_queued = 1
+        hold = {"armed": 1}
+        hold_lock = threading.Lock()
+        held, release = threading.Event(), threading.Event()
+
+        def make(self, spec):
+            fn, kind = real_make(self, spec)
+            with hold_lock:
+                take = hold["armed"] > 0
+                hold["armed"] -= take
+            if not take:
+                return fn, kind
+
+            def held_fn():
+                held.set()
+                t_until(release.is_set, "the hold's release", "U")
+                return fn()
+            return held_fn, kind
+
+        server_mod._Responder._make_query_fn = make
+        results: dict = {}
+
+        def serve(tenant: str, name: str) -> None:
+            try:
+                with QueryClient(quota_server.address, tenant=tenant,
+                                 timeout_s=T_BOUND_S) as c:
+                    results[tenant] = c.query(specs[name])
+            except Exception as e:  # noqa: BLE001 - checked below
+                results[tenant] = e
+
+        shed0 = {k: snap(k) for k in ("serve.shed.tenant",
+                                      "serve.tenant.hot.shed")}
+        hot = threading.Thread(target=serve, args=("hot", "join"),
+                               daemon=True)
+        hot.start()
+        pool = quota_server.pool
+        t_until(lambda: pool.tenant_snapshot().get("hot", 0) >= 1,
+                "hot's join to be admitted", "U")
+        if not held.wait(T_BOUND_S):
+            raise AssertionError("phase U: hot's join never reached the "
+                                 "worker")
+        try:
+            with QueryClient(quota_server.address, tenant="hot",
+                             timeout_s=T_BOUND_S) as c:
+                c.query(specs["point"])
+        except ServerBusyError as e:
+            shed = e
+        else:
+            raise AssertionError("phase U: hot's second request was served")
+        if "quota" not in shed.message or shed.retry_after_ms is None:
+            raise AssertionError(f"phase U: the shed {shed.message!r}, "
+                                 f"retry-after {shed.retry_after_ms}")
+        with QueryClient(quota_server.address, timeout_s=T_BOUND_S) as c:
+            verb = c.query({"verb": "tenants"}).to_pylist()
+        rows = {r["tenant"]: r for r in verb}
+        if rows.get("hot", {}).get("queued", 0) < 1 \
+                or rows["hot"]["shed"] != 1:
+            raise AssertionError(f"phase U: the tenants verb {verb}")
+        cold = threading.Thread(target=serve, args=("cold", "point"),
+                                daemon=True)
+        cold.start()
+        t_until(lambda: pool.tenant_snapshot().get("cold", 0) >= 1,
+                "cold's point to be admitted", "U")
+        release.set()
+        t_join([hot, cold], "the tenants' requests", "U")
+        for tenant, name in (("hot", "join"), ("cold", "point")):
+            if isinstance(results[tenant], Exception):
+                raise AssertionError(f"phase U: {tenant}'s {name} raised "
+                                     f"{results[tenant]!r}")
+            check(f"tenant {tenant}", name, results[tenant])
+        sheds = {k: snap(k) - v for k, v in shed0.items()}
+        if sheds != {"serve.shed.tenant": 1.0, "serve.tenant.hot.shed": 1.0}:
+            raise AssertionError(f"phase U: tenant shed counters {sheds}")
+        out["tenants"] = {"shed_message": shed.message,
+                          "retry_after_ms": shed.retry_after_ms,
+                          "verb": verb, "counters": sheds}
+        server_mod._Responder._make_query_fn = real_make
+        session.conf.serving_tenant_max_queued = 0
+        quota_server.stop()
+        quota_server = None
+        step("2_tenants")
+
+        # 3. Wire faults against the async server; each plan cleared in
+        # a finally.
+        wire: dict = {}
+
+        def raised(fn) -> BaseException:
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 - the outcome checked
+                return e
+            raise AssertionError("phase U: a wire fault was not raised")
+
+        def query(spec, timeout_s=T_BOUND_S):
+            with QueryClient(server.address, timeout_s=timeout_s) as c:
+                return c.query(spec)
+
+        try:
+            # The client's request send is call 1, the response call 2.
+            faults.install(faults.FaultPlan("net.send", "torn-frame", at=2))
+            e = raised(lambda: query(specs["join"]))
+            faults.clear()
+            if not isinstance(e, ConnectionError):
+                raise AssertionError(f"phase U: the torn join raised {e!r}")
+            wire["torn_frame"] = f"{type(e).__name__}: {e}"[:200]
+            check("after the torn frame", "join", query(specs["join"]),
+                  strict=True)
+
+            faults.install(faults.FaultPlan("net.accept", "reset"))
+            e = raised(lambda: query(specs["point"]))
+            faults.clear()
+            if not isinstance(e, ConnectionError):
+                raise AssertionError(f"phase U: accept reset raised {e!r}")
+            wire["accept_reset"] = f"{type(e).__name__}: {e}"[:200]
+
+            faults.install(faults.FaultPlan("net.accept", "black-hole"))
+            t0 = time.perf_counter()
+            e = raised(lambda: query(specs["point"], U_BLACK_HOLE_S))
+            waited = time.perf_counter() - t0
+            faults.clear()
+            netfaults.clear_parked()
+            if not isinstance(e, ConnectionError) \
+                    or not isinstance(e.__cause__, TimeoutError) \
+                    or waited < U_BLACK_HOLE_S:
+                raise AssertionError(f"phase U: accept black-hole raised "
+                                     f"{e!r} after {waited:.3f} s")
+            wire["black_hole_s"] = waited
+
+            with QueryClient(server.address, timeout_s=T_BOUND_S) as c:
+                check("before the slow read", "point", c.query(specs["point"]))
+                t0 = time.perf_counter()
+                check("plain read", "point", c.query(specs["point"]))
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                faults.install(faults.FaultPlan(
+                    "net.recv", "slow", latency_ms=U_SLOW_RECV_MS))
+                t0 = time.perf_counter()
+                slow_table = c.query(specs["point"])
+                slow_ms = (time.perf_counter() - t0) * 1e3
+                faults.clear()
+            check("slow read", "point", slow_table, strict=True)
+            if slow_ms < U_SLOW_RECV_MS:
+                raise AssertionError(f"phase U: the slow read took "
+                                     f"{slow_ms:.1f} ms")
+            wire["slow_recv_ms"] = {"plain": plain_ms, "slow": slow_ms}
+
+            # The detour's cost: the join served with a wire plan armed
+            # that never fires (its whole frame buffered), and without,
+            # in turns.
+            silent = faults.FaultPlan("net.connect", "refused", at=1 << 40)
+            runs: dict = {"direct": [], "buffered": []}
+            with QueryClient(server.address, timeout_s=T_BOUND_S) as c:
+                for label in ("direct", "buffered") * U_DETOUR_RUNS:
+                    faults.install(silent if label == "buffered" else None)
+                    t0 = time.perf_counter()
+                    table = c.query(specs["join"])
+                    runs[label].append((time.perf_counter() - t0) * 1e3)
+                    faults.clear()
+                    check(f"join {label}", "join", table, strict=True)
+            wire["join_ms"] = runs
+        finally:
+            faults.clear()
+            netfaults.clear_parked()
+        out["wire"] = wire
+        step("3_wire_faults")
+        launches = kernels.launch_counts()
+        if cuda:
+            require_launches("phase U", launches,
+                             {"hash_buckets": 0, "bucket_histogram": 0})
+    finally:
+        server_mod._Responder._make_query_fn = real_make
+        session.conf.serving_tenant_max_queued = 0
+        faults.clear()
+        if quota_server is not None:
+            quota_server.stop()
+        server.stop()
+        session.disable_hyperspace()
+        device_cache().clear()
+    out.update(numpy_checks=numpy_checks, launches=launches, steps_s=steps,
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def print_server_u(u: dict) -> None:
+    a, th, w = u["async"], u["async"]["threaded"], u["wire"]
+    print(f"phase U: async {a['requests']} answers right in "
+          f"{a['wall_s']:.3f} s ({a['qps']:.1f} qps, p50 {a['p50_ms']:.1f} "
+          f"p99 {a['p99_ms']:.1f} ms; server latency "
+          f"{a['server_latency_ms_mean']:.1f} ms mean, queue wait "
+          f"{a['queue_wait_ms_mean']:.1f}) against threaded "
+          f"{th['wall_s']:.3f} s ({th['qps']:.1f} qps, p50 "
+          f"{th['p50_ms']:.1f} p99 {th['p99_ms']:.1f} ms; server latency "
+          f"{th['server_latency_ms_mean']:.1f}, queue wait "
+          f"{th['queue_wait_ms_mean']:.1f}); device allocs/frees async "
+          f"{json.dumps(a['device_allocs'])} threaded "
+          f"{json.dumps(th['device_allocs'])}; numpy checks "
+          f"{json.dumps(u['numpy_checks'])}; tenants "
+          f"{json.dumps(u['tenants']['verb'])}, shed "
+          f"{u['tenants']['shed_message']!r}; torn frame "
+          f"{w['torn_frame'][:60]!r}; black-hole {w['black_hole_s']:.3f} s; "
+          f"slow read {w['slow_recv_ms']['slow']:.1f} ms (plain "
+          f"{w['slow_recv_ms']['plain']:.1f}); join direct "
+          f"{json.dumps([round(x, 1) for x in w['join_ms']['direct']])} "
+          f"buffered "
+          f"{json.dumps([round(x, 1) for x in w['join_ms']['buffered']])} "
+          f"ms; launches {json.dumps(u['launches'])} "
+          f"({u['phase_s']:.3f} s; by step {json.dumps(u['steps_s'])})",
+          flush=True)
 
 
 def _raised_name(fn) -> str:
@@ -7055,7 +7474,8 @@ def measure(dev, keys: np.ndarray, launches: dict, by_path: dict,
     """One row per kernel at phase C's shape, with the other shapes of
     HASH_SHAPES / HIST_SHAPES under ``shapes``.  ``launches``: phase C's
     counts; ``by_path``: path -> counts; ``per_sf1_build``: the launches
-    of one SF1 spill build, given to the chunk-shape rows."""
+    of one SF1 spill build, given to the chunk-shape rows (None when no
+    phase E ran)."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels
@@ -7075,7 +7495,7 @@ def measure(dev, keys: np.ndarray, launches: dict, by_path: dict,
 
     def chunk_launches(name, n):
         return {"launches_per_sf1_build": per_sf1_build[name]} \
-            if n == DEFAULT_BATCH_ROWS else {}
+            if n == DEFAULT_BATCH_ROWS and per_sf1_build is not None else {}
 
     hash_rows = []
     for n, k, nb in HASH_SHAPES:
@@ -7227,9 +7647,66 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-def main() -> int:
+PHASES = "ABCDEFGHIJKLMNOPQRSTU"
+# What a phase reads from another phase besides the generated data: C
+# (the lineitem files and li_idx), D (the orders files and ord_idx), or a
+# whole phase whose results it takes (M: phase L's session and oracle;
+# U: phase T's answers and figures).
+PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
+               "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
+               "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
+               "U": "T"}
+READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
+                 "D": "phase D's ord_idx build, without its queries",
+                 "L": "phase L (phase M runs in its session)",
+                 "T": "phase T (phase U compares with its answers)"}
+
+
+def parse_args(argv: list) -> tuple:
+    """The command line: (the selected phases with A, the phases run only
+    because a selected one reads them, phase U's extra turns).  Without
+    ``--phases``, every phase; without ``--u-turns``, none."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Drive hyperspace_tpu_torch on one CUDA card.")
+    parser.add_argument(
+        "--phases", metavar="LETTERS",
+        help=f"comma-separated phase letters of {PHASES} (A and the kernel "
+             f"builds always run; a phase's data and builds run with it); "
+             f"default: every phase")
+    parser.add_argument(
+        "--u-turns", type=int, default=0, metavar="N",
+        help="phase U: N more rounds of its 8 clients on a threaded and "
+             "an async server in turns (threaded, async, async, "
+             "threaded); default 0")
+    args = parser.parse_args(argv)
+    if args.u_turns < 0:
+        parser.error("--u-turns must be 0 or more")
+    phases = args.phases
+    if phases is None:
+        return set(PHASES), set(), args.u_turns
+    selected = {p.strip() for p in phases.split(",")}
+    unknown = sorted(p for p in selected if len(p) != 1 or p not in PHASES)
+    if unknown:
+        parser.error(f"unknown phases {unknown}; the phases are the letters "
+                     f"of {PHASES}, comma-separated")
+    read: set = set()
+    todo = list(selected)
+    while todo:
+        for need in PHASE_READS.get(todo.pop(), ""):
+            if need not in selected and need not in read:
+                read.add(need)
+                todo.append(need)
+    return selected | {"A"}, read, args.u_turns
+
+
+def main(argv=None) -> int:
     import torch
 
+    selected, read, u_turns = parse_args(sys.argv[1:] if argv is None
+                                         else argv)
+    runs = selected | read
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7242,6 +7719,11 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    if len(selected) < len(PHASES):
+        reads = "; ".join(READ_ONLY_RUN[p] for p in sorted(read))
+        print(f"phases: {','.join(p for p in PHASES if p in selected)} "
+              f"selected; run for them: {reads or 'nothing else'}",
+              flush=True)
 
     t0 = time.perf_counter()
     logs = kernels.build_kernels() or {}
@@ -7263,250 +7745,318 @@ def main() -> int:
           f"rows x {len(orders)} columns generated "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
-    t0 = time.perf_counter()
-    phase_b(dev, li["l_orderkey"])
-    print(f"phase B: bucket_sort_permutation and bucket_counts bit-equal "
-          f"to the numpy mirror ({time.perf_counter() - t0:.3f} s)",
-          flush=True)
+    if "B" in runs:
+        t0 = time.perf_counter()
+        phase_b(dev, li["l_orderkey"])
+        print(f"phase B: bucket_sort_permutation and bucket_counts bit-equal "
+              f"to the numpy mirror ({time.perf_counter() - t0:.3f} s)",
+              flush=True)
 
+    # The results of the phases that ran: their JSON lines and the
+    # kernels line's launches by path (phases C and D's, the builds',
+    # then the other paths').
+    res: dict = {}
+    builds: list = []
+    head: dict = {}
+    by_path: dict = {}
+    launches = None
     root = tempfile.mkdtemp(prefix="hs_chip_smoke_")
     try:
-        c = phase_c(li, root, dev)
-        print(f"phase C: create_index {INDEX_NAME} ACTIVE, {c['files']} "
-              f"files, wall {c['wall_s']:.3f} s, phases "
-              + json.dumps({k: v for k, v in c["phases"].items()
-                            if k != "index"}), flush=True)
-        launches = c["launches"]
-        missing = [k for k, v in launches.items() if v <= 0]
-        if missing:
-            raise AssertionError(f"phase C: kernels not launched on the main "
-                                 f"path: {missing}")
-        t0 = time.perf_counter()
-        d = phase_d(orders, li, root, dev)
-        missing = [k for k, v in d["launches"].items() if v <= 0]
-        if missing:
-            raise AssertionError(f"phase D: kernels not launched by the "
-                                 f"{ORDERS_INDEX} build: {missing}")
-        for q in d["queries"]:
-            print(f"phase D {q['name']}: indexed cold {q['indexed_cold_ms']:.1f} "
-                  f"warm {q['indexed_warm_ms']:.1f} ms, host route "
-                  f"{q['host_route_ms']:.1f} ms, scan cold {q['scan_cold_ms']:.1f} "
-                  f"warm {q['scan_warm_ms']:.1f} ms; host/device cold "
-                  f"{q['host_over_device_cold']:.2f} warm "
-                  f"{q['host_over_device_warm']:.2f}; cache cold "
-                  f"{json.dumps(q['device_cache_cold'])} warm "
-                  f"{json.dumps(q['device_cache_warm'])}", flush=True)
-        for q in d["queries"]:
-            if q["name"] in ("join", "q3"):
-                print_split(f"phase D {q['name']}", q["stages"])
-        print(f"phase D q3 eviction: {json.dumps(d['eviction'])}", flush=True)
-        print(f"phase D: {ORDERS_INDEX} built in {d['build_s']:.3f} s; "
-              f"{len(d['queries'])} queries equal to numpy with indexes on "
-              f"(cold, warm, host route) and off (cold, warm); "
-              f"{d['resident_mib_end']:.1f} MiB resident at the end "
-              f"({time.perf_counter() - t0:.3f} s)", flush=True)
-        t0 = time.perf_counter()
-        h = phase_h(orders, li, root, dev)
-        cal = h["calibration"]
-        print(f"phase H calibration: probe {h['probe_s']:.3f} s, calibrated "
-              f"{json.dumps(cal['calibrated'])}, latency {cal['latency_ms']} ms, "
-              f"h2d {cal['h2d_mb_per_s']} MB/s, d2h {cal['d2h_mb_per_s']} MB/s, "
-              f"host Mrows/s {json.dumps(cal['host_mrows_per_s'])}", flush=True)
-        print(f"phase H thresholds: cold {json.dumps(cal['thresholds'])} "
-              f"resident {json.dumps(cal['resident_thresholds'])}", flush=True)
-        for q in h["queries"]:
-            print(f"phase H {q['name']}: calibrated route cold "
-                  f"{q['route_cold']} {q['calibrated_cold_ms']:.1f} ms (device "
-                  f"{q['device_cold_ms']:.1f} / host {q['host_cold_ms']:.1f} ms, "
-                  f"faster {q['faster_cold']}), warm {q['route_warm']} "
-                  f"{q['calibrated_warm_ms']:.1f} ms (device "
-                  f"{q['device_warm_ms']:.1f} / host {q['host_warm_ms']:.1f} ms, "
-                  f"faster {q['faster_warm']})", flush=True)
-        b = h["build"]
-        print(f"phase H calibrated build: {CALIBRATED_INDEX} took the "
-              f"{b['route']} route (build threshold {b['threshold']} rows), "
-              f"launches {json.dumps(b['launches'])}, wall {b['wall_s']:.3f} s, "
-              f"every bucket's sha256 equal to phase C's", flush=True)
-        ds = h["data_skipping"]
-        print(f"phase H data skipping: {DS_INDEX} created in "
-              f"{ds['create_s']:.3f} s; ds_range kept {ds['kept']}/{ds['total']} "
-              f"files, {ds['rows']} rows equal to numpy, cold "
-              f"{ds['on_ms']:.1f} ms with hyperspace (its plan "
-              f"{ds['plan_ms']:.1f} ms), {ds['off_ms']:.1f} ms without",
-              flush=True)
-        print("phase H q10 plan with li_ds present:\n" + ds["q10_plan"],
-              flush=True)
-        print(f"phase H: ({time.perf_counter() - t0:.3f} s)", flush=True)
-        t0 = time.perf_counter()
-        builds = phase_e(li, root, dev)
-        for b in builds:
-            print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
-                  f"{json.dumps(b['launches'])}, phases "
-                  f"{json.dumps(b['phases'])}", flush=True)
-        print(f"phase E: three SF1 builds bit-equal in every bucket, refresh, "
-              f"noop refresh, delete/restore/vacuum checked; "
-              f"{resident_mib():.1f} MiB resident at the end "
-              f"({time.perf_counter() - t0:.3f} s)", flush=True)
-        t0 = time.perf_counter()
-        g = phase_g(orders, li, root, dev)
-        builds.extend(g["builds"])
-        for b in g["builds"]:
-            print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
-                  f"{json.dumps(b['launches'])}, phases "
-                  f"{json.dumps(b['phases'])}", flush=True)
-        for q in g["queries"]:
-            print(f"phase G {q['name']}: cold {q['indexed_cold_ms']:.1f} warm "
-                  f"{q['indexed_warm_ms']:.1f} ms, {q['speedup_cold']:.2f}x the "
-                  f"scan cold, {q['hybrid_over_clean']:.2f}x the clean index "
-                  f"(clean cold {q['clean_cold_ms']:.1f} warm "
-                  f"{q['clean_warm_ms']:.1f} ms), busy {q['busy_share']:.4f}, "
-                  f"cache warm {json.dumps(q['device_cache_warm'])}", flush=True)
-        for label, split in g["join_splits"].items():
-            print_split(f"phase G {label}", split)
-        print(f"phase G: lineage create, quick refresh, hybrid queries, "
-              f"incremental refreshes ({g['rows']} rows, "
-              f"{g['two_version_buckets']} buckets in two versions), optimize "
-              f"checked; {g['resident_mib_end']:.1f} MiB resident at the end "
-              f"({time.perf_counter() - t0:.3f} s; by step "
-              f"{json.dumps(g['steps_s'])})", flush=True)
-        reports = {"C create li_idx": c["report"],
-                   **{b["build"]: b["report"] for b in builds
-                      if b["build"] in ("E spill pipelined",
-                                        "G refresh incremental",
-                                        "G optimize quick")}}
-        for label, report in reports.items():
-            print(f"phase H build report {label}: {json.dumps(report)}",
+        if "C" in runs:
+            c = phase_c(li, root, dev)
+            print(f"phase C: create_index {INDEX_NAME} ACTIVE, {c['files']} "
+                  f"files, wall {c['wall_s']:.3f} s, phases "
+                  + json.dumps({k: v for k, v in c["phases"].items()
+                                if k != "index"}), flush=True)
+            launches = c["launches"]
+            missing = [k for k, v in launches.items() if v <= 0]
+            if missing:
+                raise AssertionError(f"phase C: kernels not launched on the "
+                                     f"main path: {missing}")
+            head["C create li_idx"] = launches
+        if "D" in selected:
+            t0 = time.perf_counter()
+            d = phase_d(orders, li, root, dev)
+            d_launches = d["launches"]
+            for q in d["queries"]:
+                print(f"phase D {q['name']}: indexed cold "
+                      f"{q['indexed_cold_ms']:.1f} warm "
+                      f"{q['indexed_warm_ms']:.1f} ms, host route "
+                      f"{q['host_route_ms']:.1f} ms, scan cold "
+                      f"{q['scan_cold_ms']:.1f} warm {q['scan_warm_ms']:.1f} "
+                      f"ms; host/device cold {q['host_over_device_cold']:.2f} "
+                      f"warm {q['host_over_device_warm']:.2f}; cache cold "
+                      f"{json.dumps(q['device_cache_cold'])} warm "
+                      f"{json.dumps(q['device_cache_warm'])}", flush=True)
+            for q in d["queries"]:
+                if q["name"] in ("join", "q3"):
+                    print_split(f"phase D {q['name']}", q["stages"])
+            print(f"phase D q3 eviction: {json.dumps(d['eviction'])}",
                   flush=True)
-        h["build_reports"] = reports
-        t0 = time.perf_counter()
-        integ = phase_i(orders, li, root, dev)
-        print_integrity(integ)
-        print(f"phase I: digests on every file, scrubs, bit rot, containment, "
-              f"a truncated file found at execution, a device fault "
-              f"propagated, repair checked ({time.perf_counter() - t0:.3f} s)",
-              flush=True)
-        t0 = time.perf_counter()
-        zorder = phase_j(li, root, dev)
-        builds.extend(zorder["builds"])
-        codes = zorder["codes"]
-        print(f"phase J codes: {codes['rows']} rows, numpy mirror "
-              f"{codes['mirror_s']:.3f} s on the host (order words "
-              f"{codes['words_s']:.3f} s), the card {codes['card_ms']:.3f} ms "
-              f"({codes['card_with_copies_ms']:.1f} ms with the copies), bit "
-              f"for bit; {codes['files']} files, {codes['kept']} kept by the "
-              f"second-dimension range", flush=True)
-        for b in zorder["builds"]:
-            print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, launches "
-                  f"{json.dumps(b['launches'])}, phases "
-                  f"{json.dumps(b['phases'])}", flush=True)
-        q = zorder["query"]
-        print(f"phase J q_zorder_second_dim: kept {q['kept']}/{q['files']} "
-              f"files, {q['rows']} rows equal to numpy, cold "
-              f"{q['cold_ms']:.1f} warm {q['warm_ms']:.1f} ms ({q['route']}), "
-              f"scan {q['scan_ms']:.1f} ms, plan {q['plan_ms']:.1f} ms, "
-              f"calibrated cold {q['calibrated_cold_ms']:.1f} ms "
-              f"({q['calibrated_route']})", flush=True)
-        print(f"phase J: two builds equal to the mirror's layout file for "
-              f"file, refresh, optimize, repair checked "
-              f"({time.perf_counter() - t0:.3f} s)", flush=True)
-        window = phase_k(li, root, dev)
-        print_window(window)
-        plan_language, l_ctx = phase_l(root, dev)
-        print_plan_language(plan_language)
-        sql_m = phase_m(root, dev, plan_language, l_ctx)
-        del l_ctx
-        print_sql(sql_m)
-        envelope = phase_n(orders, li, root, dev)
-        print_envelope(envelope)
-        advisor = phase_o(orders, li, root, dev)
-        print_advisor(advisor)
-        lifecycle = phase_p(orders, li, root, dev)
-        print_lifecycle(lifecycle)
-        telemetry = phase_q(orders, li, root, dev)
-        print_telemetry(telemetry)
-        diagnostics = phase_r(orders, li, root, dev)
-        print_diagnostics(diagnostics)
-        object_store = phase_s(orders, li, root, dev)
-        print_object_store(object_store)
-        server = phase_t(orders, li, root, dev)
-        print_server(server)
+            print(f"phase D: {ORDERS_INDEX} built in {d['build_s']:.3f} s; "
+                  f"{len(d['queries'])} queries equal to numpy with indexes "
+                  f"on (cold, warm, host route) and off (cold, warm); "
+                  f"{d['resident_mib_end']:.1f} MiB resident at the end "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+            res["queries"] = {"queries": d["queries"], "launches": d_launches,
+                              "eviction": d["eviction"]}
+        elif "D" in read:
+            _, _, build_s = d_build(orders, root, dev)
+            d_launches = kernels.launch_counts()
+            print(f"phase D build: {ORDERS_INDEX} built in {build_s:.3f} s, "
+                  f"launches {json.dumps(d_launches)}", flush=True)
+        if "D" in runs:
+            missing = [k for k, v in d_launches.items() if v <= 0]
+            if missing:
+                raise AssertionError(f"phase D: kernels not launched by the "
+                                     f"{ORDERS_INDEX} build: {missing}")
+            head["D create ord_idx"] = d_launches
+        if "H" in runs:
+            t0 = time.perf_counter()
+            h = phase_h(orders, li, root, dev)
+            cal = h["calibration"]
+            print(f"phase H calibration: probe {h['probe_s']:.3f} s, "
+                  f"calibrated {json.dumps(cal['calibrated'])}, latency "
+                  f"{cal['latency_ms']} ms, h2d {cal['h2d_mb_per_s']} MB/s, "
+                  f"d2h {cal['d2h_mb_per_s']} MB/s, host Mrows/s "
+                  f"{json.dumps(cal['host_mrows_per_s'])}", flush=True)
+            print(f"phase H thresholds: cold {json.dumps(cal['thresholds'])} "
+                  f"resident {json.dumps(cal['resident_thresholds'])}",
+                  flush=True)
+            for q in h["queries"]:
+                print(f"phase H {q['name']}: calibrated route cold "
+                      f"{q['route_cold']} {q['calibrated_cold_ms']:.1f} ms "
+                      f"(device {q['device_cold_ms']:.1f} / host "
+                      f"{q['host_cold_ms']:.1f} ms, faster "
+                      f"{q['faster_cold']}), warm {q['route_warm']} "
+                      f"{q['calibrated_warm_ms']:.1f} ms (device "
+                      f"{q['device_warm_ms']:.1f} / host "
+                      f"{q['host_warm_ms']:.1f} ms, faster "
+                      f"{q['faster_warm']})", flush=True)
+            b = h["build"]
+            print(f"phase H calibrated build: {CALIBRATED_INDEX} took the "
+                  f"{b['route']} route (build threshold {b['threshold']} "
+                  f"rows), launches {json.dumps(b['launches'])}, wall "
+                  f"{b['wall_s']:.3f} s, every bucket's sha256 equal to "
+                  f"phase C's", flush=True)
+            ds = h["data_skipping"]
+            print(f"phase H data skipping: {DS_INDEX} created in "
+                  f"{ds['create_s']:.3f} s; ds_range kept "
+                  f"{ds['kept']}/{ds['total']} files, {ds['rows']} rows "
+                  f"equal to numpy, cold {ds['on_ms']:.1f} ms with "
+                  f"hyperspace (its plan {ds['plan_ms']:.1f} ms), "
+                  f"{ds['off_ms']:.1f} ms without", flush=True)
+            print("phase H q10 plan with li_ds present:\n" + ds["q10_plan"],
+                  flush=True)
+            print(f"phase H: ({time.perf_counter() - t0:.3f} s)", flush=True)
+        if "E" in runs:
+            t0 = time.perf_counter()
+            e_builds = phase_e(li, root, dev)
+            builds.extend(e_builds)
+            for b in e_builds:
+                print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, "
+                      f"launches {json.dumps(b['launches'])}, phases "
+                      f"{json.dumps(b['phases'])}", flush=True)
+            print(f"phase E: three SF1 builds bit-equal in every bucket, "
+                  f"refresh, noop refresh, delete/restore/vacuum checked; "
+                  f"{resident_mib():.1f} MiB resident at the end "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+        if "G" in runs:
+            t0 = time.perf_counter()
+            g = phase_g(orders, li, root, dev)
+            builds.extend(g["builds"])
+            for b in g["builds"]:
+                print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, "
+                      f"launches {json.dumps(b['launches'])}, phases "
+                      f"{json.dumps(b['phases'])}", flush=True)
+            for q in g["queries"]:
+                print(f"phase G {q['name']}: cold {q['indexed_cold_ms']:.1f} "
+                      f"warm {q['indexed_warm_ms']:.1f} ms, "
+                      f"{q['speedup_cold']:.2f}x the scan cold, "
+                      f"{q['hybrid_over_clean']:.2f}x the clean index (clean "
+                      f"cold {q['clean_cold_ms']:.1f} warm "
+                      f"{q['clean_warm_ms']:.1f} ms), busy "
+                      f"{q['busy_share']:.4f}, cache warm "
+                      f"{json.dumps(q['device_cache_warm'])}", flush=True)
+            for label, split in g["join_splits"].items():
+                print_split(f"phase G {label}", split)
+            print(f"phase G: lineage create, quick refresh, hybrid queries, "
+                  f"incremental refreshes ({g['rows']} rows, "
+                  f"{g['two_version_buckets']} buckets in two versions), "
+                  f"optimize checked; {g['resident_mib_end']:.1f} MiB "
+                  f"resident at the end ({time.perf_counter() - t0:.3f} s; "
+                  f"by step {json.dumps(g['steps_s'])})", flush=True)
+            res.setdefault("queries", {}).update(
+                hybrid_queries=g["queries"], join_splits=g["join_splits"])
+            by_path.update(g["launches_by_path"])
+        if "H" in runs:
+            reports = {"C create li_idx": c["report"],
+                       **{b["build"]: b["report"] for b in builds
+                          if b["build"] in ("E spill pipelined",
+                                            "G refresh incremental",
+                                            "G optimize quick")}}
+            for label, report in reports.items():
+                print(f"phase H build report {label}: {json.dumps(report)}",
+                      flush=True)
+            h["build_reports"] = reports
+            res.setdefault("queries", {})["calibration"] = h
+        if "I" in runs:
+            t0 = time.perf_counter()
+            integ = phase_i(orders, li, root, dev)
+            print_integrity(integ)
+            print(f"phase I: digests on every file, scrubs, bit rot, "
+                  f"containment, a truncated file found at execution, a "
+                  f"device fault propagated, repair checked "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+            res["integrity"] = integ
+            by_path["I repair"] = integ["repair_launches"]
+            by_path["I containment"] = {
+                k: sum(c_[k] for c_ in integ["contained_launches"].values())
+                for k in integ["repair_launches"]}
+        if "J" in runs:
+            t0 = time.perf_counter()
+            zorder = phase_j(li, root, dev)
+            builds.extend(zorder["builds"])
+            codes = zorder["codes"]
+            print(f"phase J codes: {codes['rows']} rows, numpy mirror "
+                  f"{codes['mirror_s']:.3f} s on the host (order words "
+                  f"{codes['words_s']:.3f} s), the card "
+                  f"{codes['card_ms']:.3f} ms "
+                  f"({codes['card_with_copies_ms']:.1f} ms with the copies), "
+                  f"bit for bit; {codes['files']} files, {codes['kept']} "
+                  f"kept by the second-dimension range", flush=True)
+            for b in zorder["builds"]:
+                print(f"phase {b['build']}: wall {b['wall_s']:.3f} s, "
+                      f"launches {json.dumps(b['launches'])}, phases "
+                      f"{json.dumps(b['phases'])}", flush=True)
+            q = zorder["query"]
+            print(f"phase J q_zorder_second_dim: kept {q['kept']}/"
+                  f"{q['files']} files, {q['rows']} rows equal to numpy, "
+                  f"cold {q['cold_ms']:.1f} warm {q['warm_ms']:.1f} ms "
+                  f"({q['route']}), scan {q['scan_ms']:.1f} ms, plan "
+                  f"{q['plan_ms']:.1f} ms, calibrated cold "
+                  f"{q['calibrated_cold_ms']:.1f} ms "
+                  f"({q['calibrated_route']})", flush=True)
+            print(f"phase J: two builds equal to the mirror's layout file "
+                  f"for file, refresh, optimize, repair checked "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+            res["zorder"] = {
+                "codes": zorder["codes"], "query": zorder["query"],
+                "union": zorder["union"],
+                "launches_by_path": zorder["launches_by_path"],
+                "walls_s": {b["build"]: b["wall_s"]
+                            for b in zorder["builds"]}}
+        if "K" in runs:
+            window = phase_k(li, root, dev)
+            print_window(window)
+            res["window"] = window
+            by_path["K analytic"] = window["launches"]
+        if "L" in runs:
+            plan_language, l_ctx = phase_l(root, dev)
+            print_plan_language(plan_language)
+            res["plan_language"] = plan_language
+            by_path["L builds"] = plan_language["launches_builds"]
+            by_path["L plan language"] = plan_language["launches"]
+            if "M" in runs:
+                sql_m = phase_m(root, dev, plan_language, l_ctx)
+                print_sql(sql_m)
+                res["sql"] = sql_m
+                by_path["M sql"] = sql_m["launches"]
+            del l_ctx
+        for letter, key, run, show, paths in (
+                ("N", "envelope", phase_n, print_envelope,
+                 (("N envelope", "launches"),)),
+                ("O", "advisor", phase_o, print_advisor,
+                 (("O apply", "launches"), ("O rerun", "launches_rerun"))),
+                ("P", "lifecycle", phase_p, print_lifecycle,
+                 (("P lifecycle", "launches"),)),
+                ("Q", "telemetry", phase_q, print_telemetry,
+                 (("Q telemetry", "launches"),)),
+                ("R", "diagnostics", phase_r, print_diagnostics,
+                 (("R diagnostics", "launches"),)),
+                ("S", "object_store", phase_s, print_object_store,
+                 (("S object store", "launches"),)),
+                ("T", "server", phase_t, print_server,
+                 (("T server", "launches"),))):
+            if letter in runs:
+                out = run(orders, li, root, dev)
+                show(out)
+                res[key] = out
+                for path, field in paths:
+                    by_path[path] = out[field]
+        if "T" in runs:
+            t_results = {k: res["server"].pop(k)
+                         for k in ("answers", "expected")}
+        if "U" in runs:
+            u = phase_u(orders, li, root, dev,
+                        {**res["server"], **t_results}, u_turns)
+            print_server_u(u)
+            res["server_u"] = u
+            by_path["U server"] = u["launches"]
         del orders
-        t0 = time.perf_counter()
-        f = phase_f(root, dev)
-        sf10_z = f.pop("zorder")
-        builds.append(f)
-        builds.append(sf10_z)
-        print(f"phase F: {SF10_INDEX} over {f['rows']} rows in {f['chunks']} "
-              f"chunks, wall {f['wall_s']:.3f} s, phases "
-              f"{json.dumps(f['phases'])}, peak RSS {f['peak_rss_mb']:.0f} MB, "
-              f"card peak {f['max_memory_allocated'] / 2**20:.0f} MiB, "
-              f"{resident_mib():.1f} MiB resident at the end "
-              f"({time.perf_counter() - t0:.3f} s, datagen "
-              f"{f['datagen_s']:.3f} s)", flush=True)
-        print(f"phase J {SF10_Z_INDEX}: {sf10_z['files']} files, wall "
-              f"{sf10_z['wall_s']:.3f} s, phases "
-              f"{json.dumps(sf10_z['phases'])}, peak RSS "
-              f"{sf10_z['peak_rss_mb']:.0f} MB, card peak "
-              f"{sf10_z['max_memory_allocated'] / 2**20:.0f} MiB; codes "
-              f"{sf10_z['codes_card_ms']:.3f} ms on the card; kept "
-              f"{sf10_z['kept']}/{sf10_z['files']}, query cold "
-              f"{sf10_z['query_cold_ms']:.1f} ms, scan "
-              f"{sf10_z['scan_cold_ms']:.1f} ms", flush=True)
+        if "T" in runs:
+            del t_results
+        if "F" in runs:
+            t0 = time.perf_counter()
+            f = phase_f(root, dev)
+            sf10_z = f.pop("zorder")
+            builds.append(f)
+            builds.append(sf10_z)
+            print(f"phase F: {SF10_INDEX} over {f['rows']} rows in "
+                  f"{f['chunks']} chunks, wall {f['wall_s']:.3f} s, phases "
+                  f"{json.dumps(f['phases'])}, peak RSS "
+                  f"{f['peak_rss_mb']:.0f} MB, card peak "
+                  f"{f['max_memory_allocated'] / 2**20:.0f} MiB, "
+                  f"{resident_mib():.1f} MiB resident at the end "
+                  f"({time.perf_counter() - t0:.3f} s, datagen "
+                  f"{f['datagen_s']:.3f} s)", flush=True)
+            print(f"phase J {SF10_Z_INDEX}: {sf10_z['files']} files, wall "
+                  f"{sf10_z['wall_s']:.3f} s, phases "
+                  f"{json.dumps(sf10_z['phases'])}, peak RSS "
+                  f"{sf10_z['peak_rss_mb']:.0f} MB, card peak "
+                  f"{sf10_z['max_memory_allocated'] / 2**20:.0f} MiB; codes "
+                  f"{sf10_z['codes_card_ms']:.3f} ms on the card; kept "
+                  f"{sf10_z['kept']}/{sf10_z['files']}, query cold "
+                  f"{sf10_z['query_cold_ms']:.1f} ms, scan "
+                  f"{sf10_z['scan_cold_ms']:.1f} ms", flush=True)
+            if "zorder" in res:
+                res["zorder"]["sf10"] = {k: v for k, v in sf10_z.items()
+                                         if k != "report"}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    contained = {k: sum(c[k] for c in integ["contained_launches"].values())
-                 for k in launches}
-    by_path = {"C create li_idx": launches, "D create ord_idx": d["launches"],
-               **{b["build"]: b["launches"] for b in builds},
-               **g["launches_by_path"], "I repair": integ["repair_launches"],
-               "I containment": contained, "K analytic": window["launches"],
-               "L builds": plan_language["launches_builds"],
-               "L plan language": plan_language["launches"],
-               "M sql": sql_m["launches"],
-               "N envelope": envelope["launches"],
-               "O apply": advisor["launches"],
-               "O rerun": advisor["launches_rerun"],
-               "P lifecycle": lifecycle["launches"],
-               "Q telemetry": telemetry["launches"],
-               "R diagnostics": diagnostics["launches"],
-               "S object store": object_store["launches"],
-               "T server": server["launches"]}
+    by_path = {**head, **{b["build"]: b["launches"] for b in builds},
+               **by_path}
+    if launches is None:
+        # No phase C in this selection: the launches of what ran.
+        launches = {k: sum(p[k] for p in by_path.values())
+                    for k in ("hash_buckets", "bucket_histogram")}
+    spill = [b for b in builds if b["build"] == "E spill pipelined"]
     t0 = time.perf_counter()
     rows = measure(dev, li["l_orderkey"], launches, by_path,
-                   builds[0]["launches"])
+                   spill[0]["launches"] if spill else None)
     print(f"timing: {time.perf_counter() - t0:.3f} s", flush=True)
     bad = [r["name"] for r in rows
            for s in r["shapes"] if s["max_abs_err"] != 0]
     if bad:
         raise AssertionError(f"kernels differ from their plain versions: {bad}")
-    telemetry.update(q_check_seams(telemetry, rows))
+    if "telemetry" in res:
+        res["telemetry"].update(q_check_seams(res["telemetry"], rows))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"builds": builds}))
-    print(json.dumps({"queries": d["queries"], "launches": d["launches"],
-                      "eviction": d["eviction"],
-                      "hybrid_queries": g["queries"],
-                      "join_splits": g["join_splits"], "calibration": h}))
+    if builds:
+        print(json.dumps({"builds": builds}))
+    if "queries" in res:
+        print(json.dumps({"queries": res["queries"]}))
     print(json.dumps({"kernels": rows}))
-    print(json.dumps({"integrity": integ}))
-    print(json.dumps({"zorder": {
-        "codes": zorder["codes"], "query": zorder["query"],
-        "union": zorder["union"],
-        "launches_by_path": zorder["launches_by_path"],
-        "walls_s": {b["build"]: b["wall_s"] for b in zorder["builds"]},
-        "sf10": {k: v for k, v in sf10_z.items() if k != "report"}}}))
-    print(json.dumps({"window": window}))
-    print(json.dumps({"plan_language": plan_language}))
-    print(json.dumps({"sql": sql_m}))
-    print(json.dumps({"envelope": {**envelope, "card": smi}}))
-    print(json.dumps({"advisor": {**advisor, "card": smi}}))
-    print(json.dumps({"lifecycle": {**lifecycle, "card": smi}}))
-    print(json.dumps({"telemetry": {**telemetry, "card": smi}}))
-    print(json.dumps({"diagnostics": {**diagnostics, "card": smi}}))
-    print(json.dumps({"object_store": {**object_store, "card": smi}}))
-    print(json.dumps({"server": {**server, "card": smi}}))
+    for key in ("integrity", "zorder", "window", "plan_language", "sql"):
+        if key in res:
+            print(json.dumps({key: res[key]}))
+    for key in ("envelope", "advisor", "lifecycle", "telemetry",
+                "diagnostics", "object_store", "server", "server_u"):
+        if key in res:
+            print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -158,7 +158,9 @@ class HyperspaceConf:
     #   - the listing of ACTIVE entries the optimizer reads is cached for
     #     this many seconds, and cleared by every lifecycle verb;
     #   - fault injection armed through the conf (the session installs
-    #     it): site, kind, the first call to fail and how many fail.
+    #     it): site, kind, the first call to fail and how many fail;
+    #     a wire kind's shaping (io/faults.py net.* sites): the delay a
+    #     ``slow`` adds and how long a ``black-hole`` hangs.
     io_retry_max_attempts: int = 3
     io_retry_initial_backoff_ms: float = 10.0
     io_retry_max_backoff_ms: float = 1000.0
@@ -169,6 +171,8 @@ class HyperspaceConf:
     fault_injection_kind: str = ""
     fault_injection_at: int = 1
     fault_injection_count: int = 1
+    fault_injection_latency_ms: float = 25.0
+    fault_injection_hang_s: float = 0.25
     # The index advisor (advisor/): capture a fingerprint of each collect
     # (at most this many distinct shapes), and enumerate at most this
     # many candidate indexes.
@@ -225,6 +229,12 @@ class HyperspaceConf:
     #     requests shed ERR BUSY, and a maintenance cycle journals a skip.
     #   - plan_cache_*: the server's optimize-result cache
     #     (execution/plan_cache.py) and its byte budget.
+    #   - io_mode: "threaded" (one thread per connection) or "async" (one
+    #     selector thread reads every connection, workers + 4 dispatcher
+    #     threads answer); read when the server is made.
+    #   - tenant_max_queued: admitted requests of one tenant (a spec's
+    #     "tenant") queued or running at once; past it that tenant sheds
+    #     ERR BUSY (0: no quota).
     serving_workers: int = 4
     serving_queue_depth: int = 16
     serving_max_connections: int = 64
@@ -236,6 +246,8 @@ class HyperspaceConf:
     serving_shed_queue_wait_watermark_ms: float = 0.0
     serving_plan_cache_enabled: bool = True
     serving_plan_cache_bytes: int = 64 << 20
+    serving_io_mode: str = "threaded"
+    serving_tenant_max_queued: int = 0
     # The source watch (io/watch.py): the daemon wakes on source events
     # instead of sleeping the whole interval.  mode "auto" takes inotify,
     # else the store notification bus; "inotify", "store" and "poll"

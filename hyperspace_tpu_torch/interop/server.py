@@ -33,28 +33,41 @@ Error codes split what a client may retry from what it may not:
 bare pre-taxonomy form ``ERR <message>`` as ``FAILED``.
 
 Connections are PIPELINED: after an ``OK`` response the client may send
-the next request on the same connection; an error closes it.  Socket IO
-runs on one thread per connection (at most ``conf.serving_max_
-connections``; past it the accept loop answers ``ERR BUSY`` without
-spawning a thread), and query execution on a fixed pool of
-``conf.serving_workers`` threads fed by a bounded admission queue
-(``conf.serving_queue_depth``).  Only the connection's own thread writes
-to its socket, one complete response per request, so frames never
-interleave.  A request's deadline (``deadline_ms``, else
-``conf.serving_default_deadline_ms``) reaches ``Dataset.collect``
-through utils/deadline.py.  Repeat queries skip the optimizer through
-the server's plan cache (execution/plan_cache.py).  ``drain()`` (or
-SIGTERM with ``handle_sigterm=True``) stops accepting, lets in-flight
-requests finish within ``conf.serving_drain_grace_s``, then closes.
+the next request on the same connection; an error closes it.  Query
+execution runs on a fixed pool of ``conf.serving_workers`` threads fed
+by a bounded admission queue (``conf.serving_queue_depth``).  Socket IO
+takes one of two modes (``conf.serving_io_mode``, read when the server
+is made): ``"threaded"``, one thread per connection, or ``"async"``, one
+selector thread that accepts and reads every connection and hands each
+complete request line to one of ``workers + 4`` dispatcher threads.
+Both run the same request engine (:class:`_Responder`), so they answer
+the same bytes.  Past ``conf.serving_max_connections`` open connections
+the accept path answers ``ERR BUSY`` without a thread or a selector
+registration.  One writer per connection, one complete response per
+request, so frames never interleave.  A request's deadline
+(``deadline_ms``, else ``conf.serving_default_deadline_ms``) reaches
+``Dataset.collect`` through utils/deadline.py.  A spec's ``"tenant"``
+(a string) is its admission key: with ``conf.serving_tenant_max_queued``
+above 0 a tenant with that many requests queued or running sheds ``ERR
+BUSY`` while other tenants are admitted.  Repeat queries skip the
+optimizer through the server's plan cache (execution/plan_cache.py).
+``drain()`` (or SIGTERM with ``handle_sigterm=True``) stops accepting,
+lets in-flight requests finish within ``conf.serving_drain_grace_s``,
+then closes.
+
+The wire seams (the client's dial, sends and reads, the server's accept
+and, while a wire plan is armed, its response) go through
+interop/netfaults.py, so the ``net.*`` fault sites can tear, reset,
+delay or silence them.
 
 The server executes against ONE session, on that session's device
 (``cuda`` unless the caller built a ``cpu`` session), so its indexes and
-conf govern rewrites exactly as for local use.
+conf govern rewrites exactly as for local use; the dispatchers and the
+selector thread only parse, admit and write.
 
-Left out of this package so far: per-tenant admission quotas (a
-``"tenant"`` key is still checked and then ignored), the selector IO
-mode, wire fault injection, the proxy front door, ``FleetQueryClient``
-and the Prometheus scrape server.  pyarrow is imported inside functions.
+Left out of this package so far: the proxy front door,
+``FleetQueryClient`` and the Prometheus scrape server.  pyarrow is
+imported inside functions.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ import socketserver
 import threading
 import time
 from typing import TYPE_CHECKING, Any, Callable, Dict, Optional, Tuple
+
+from hyperspace_tpu_torch.interop import netfaults
 
 if TYPE_CHECKING:
     import pyarrow as pa
@@ -185,13 +200,15 @@ class _Job:
 
     __slots__ = ("fn", "kind", "deadline_at", "enqueued_t", "done",
                  "result", "error", "report", "abandoned",
-                 "trace_id", "request_id", "root_span", "queue_wait_ms")
+                 "trace_id", "request_id", "root_span", "queue_wait_ms",
+                 "tenant")
 
     def __init__(self, fn: Callable[[], "pa.Table"], kind: str,
                  deadline_at: Optional[float], trace_id: str = "",
-                 request_id: str = "") -> None:
+                 request_id: str = "", tenant: str = "") -> None:
         self.fn = fn
         self.kind = kind
+        self.tenant = tenant  # the wire tenant id ("": none)
         self.deadline_at = deadline_at  # absolute time.monotonic(), or None
         self.enqueued_t = time.monotonic()
         self.done = threading.Event()
@@ -227,6 +244,10 @@ class _WorkerPool:
         self._queue_wait_ewma_ms = 0.0
         self._rss_at = 0.0
         self._rss_mb = 0.0
+        # tenant id -> its requests queued or running, which the quota
+        # (conf.serving_tenant_max_queued) grades: a hot tenant sheds
+        # against its own count while the others are admitted.
+        self._tenant_queued: Dict[str, int] = {}
         self.draining = False
         self.workers = max(1, int(workers))
 
@@ -283,20 +304,54 @@ class _WorkerPool:
                        f"{wait_mark:.0f} ms; retry later")
         # Counted BEFORE the put: a worker can finish the job before this
         # thread resumes, and wait_idle must never see a transient zero
-        # while work is in flight.
+        # while work is in flight.  The tenant's count moves in the same
+        # critical section, so it never disagrees with the pool's.
+        quota = int(conf.serving_tenant_max_queued)
         with self._lock:
-            self._queued_or_active += 1
+            tenant_over = quota > 0 and bool(job.tenant) and \
+                self._tenant_queued.get(job.tenant, 0) >= quota
+            if not tenant_over:
+                self._queued_or_active += 1
+                if job.tenant:
+                    self._tenant_queued[job.tenant] = \
+                        self._tenant_queued.get(job.tenant, 0) + 1
+            tenant_left = self._tenant_queued.get(job.tenant, 0)
+        if tenant_over:
+            metrics.inc(f"serve.tenant.{job.tenant}.shed")
+            self._shed("tenant",
+                       f"tenant {job.tenant!r} is at its queued quota "
+                       f"({quota}); retry later")
+        if job.tenant:
+            metrics.set_gauge(f"serve.tenant.{job.tenant}.queued",
+                              tenant_left)
         try:
             self._queue.put_nowait(job)
         except queue.Full:
             with self._idle:
                 self._queued_or_active -= 1
+                self._release_tenant(job)
                 self._idle.notify_all()
             self._shed("queue_full",
                        f"admission queue full "
                        f"(depth {self._queue.maxsize}); retry later")
         metrics.inc("serve.admitted")
         metrics.set_gauge("serve.queue_depth", self._queue.qsize())
+
+    def _release_tenant(self, job: _Job) -> None:
+        """One off the job's tenant count; the caller holds the lock."""
+        if not job.tenant:
+            return
+        n = self._tenant_queued.get(job.tenant, 1) - 1
+        if n <= 0:
+            self._tenant_queued.pop(job.tenant, None)
+        else:
+            self._tenant_queued[job.tenant] = n
+
+    def tenant_snapshot(self) -> Dict[str, int]:
+        """tenant id -> its requests queued or running now (the
+        ``tenants`` verb's ``queued`` column)."""
+        with self._lock:
+            return dict(self._tenant_queued)
 
     # -- workers -----------------------------------------------------------
     def _run(self) -> None:
@@ -371,8 +426,13 @@ class _WorkerPool:
                 with self._idle:
                     self._active -= 1
                     self._queued_or_active -= 1
+                    self._release_tenant(job)
+                    tenant_left = self._tenant_queued.get(job.tenant, 0)
                     metrics.set_gauge("serve.inflight", self._active)
                     self._idle.notify_all()
+                if job.tenant:
+                    metrics.set_gauge(f"serve.tenant.{job.tenant}.queued",
+                                      tenant_left)
 
     def _record_flight(self, job: _Job) -> None:
         """One finished job: one flight-recorder offer, and for an OK the
@@ -434,11 +494,11 @@ class _WorkerPool:
 
 # -- the connection handler ---------------------------------------------------
 class _Responder:
-    """The request→response engine: parse, answer a verb or admit a
-    query, stream the answer, classify errors.  It holds no socket
-    logic of its own beyond ``connection`` (the socket) and ``wfile`` (a
-    writer whose writes are ``sendall``), so another accept path can
-    reuse it; :class:`_Handler` is the threaded one."""
+    """The request→response engine of both IO modes: parse, answer a
+    verb or admit a query, stream the answer, classify errors.  It holds
+    no socket logic of its own beyond ``connection`` (the socket) and
+    ``wfile`` (a binary writer on it); :class:`_Handler` is the threaded
+    mode's shell, :class:`_AsyncResponder` the async mode's."""
 
     server: Any = None
     connection: Any = None
@@ -475,10 +535,12 @@ class _Responder:
                 metrics.inc("serve.trace.adopted")
             else:
                 metrics.inc("serve.trace.minted")
-            # A tenant id is checked and dropped here, so neither verbs
-            # nor the decoders see it; this server has no tenant quota.
+            # The tenant id is popped here, so neither verbs nor the
+            # decoders see it; admission grades it against its quota.
             tenant = spec.pop("tenant", "")
-            if tenant is not None and not isinstance(tenant, str):
+            if tenant is None:
+                tenant = ""
+            if not isinstance(tenant, str):
                 raise WireError(ERR_BADREQ, '"tenant" must be a string')
             is_verb = "verb" in spec
             if is_verb:
@@ -486,11 +548,12 @@ class _Responder:
                 # process state, never the executor, and keep working
                 # while the admission queue is full.
                 table = _serve_verb(self.server.session, spec,
-                                    self._last_report)
+                                    self._last_report,
+                                    pool=self.server.pool)
             else:
                 kind = "sql" if "sql" in spec else "spec"
                 table = self._execute_admitted(spec, conf, trace_id,
-                                               request_id)
+                                               request_id, tenant)
         except Exception as exc:  # -> coded wire error, connection closes
             if trace_id is None:
                 trace_id, request_id = mint_trace_id(), mint_trace_id()
@@ -526,10 +589,22 @@ class _Responder:
 
         try:
             self.connection.settimeout(float(conf.serving_send_timeout_s))
-            self.wfile.write(f"OK trace={trace_id}\n".encode("utf-8"))
-            with pa.ipc.new_stream(self.wfile, table.schema) as writer:
-                writer.write_table(table)
-            self.wfile.flush()
+            if netfaults.armed():
+                # The wire-fault detour: the whole frame in one buffer, so
+                # the net.send seam can tear it at an exact byte.  Only
+                # with a wire plan armed: otherwise no frame is copied.
+                import io
+
+                buf = io.BytesIO()
+                buf.write(f"OK trace={trace_id}\n".encode("utf-8"))
+                with pa.ipc.new_stream(buf, table.schema) as writer:
+                    writer.write_table(table)
+                netfaults.send_all(self.connection, buf.getvalue())
+            else:
+                self.wfile.write(f"OK trace={trace_id}\n".encode("utf-8"))
+                with pa.ipc.new_stream(self.wfile, table.schema) as writer:
+                    writer.write_table(table)
+                self.wfile.flush()
             metrics.inc("serve.ok")
             return True
         except TimeoutError:
@@ -555,7 +630,8 @@ class _Responder:
         return spec
 
     def _execute_admitted(self, spec: Dict[str, Any], conf,
-                          trace_id: str, request_id: str) -> "pa.Table":
+                          trace_id: str, request_id: str,
+                          tenant: str = "") -> "pa.Table":
         from hyperspace_tpu_torch.exceptions import DeadlineExceededError
 
         deadline_ms = spec.pop("deadline_ms", None)
@@ -571,7 +647,7 @@ class _Responder:
             else time.monotonic() + float(deadline_ms) / 1000.0
         fn, kind = self._make_query_fn(spec)
         job = _Job(fn, kind, deadline_at, trace_id=trace_id,
-                   request_id=request_id)
+                   request_id=request_id, tenant=tenant)
         self.server.pool.submit(job, conf)  # raises WireError(BUSY): shed
         self._cur_job = job  # admitted: its worker records it
         if deadline_at is None:
@@ -674,8 +750,8 @@ class _Handler(_Responder, socketserver.StreamRequestHandler):
 
 
 def _reject_connection(server, request: socket.socket) -> None:
-    """Answer ``ERR BUSY`` to a connection past the cap; bounded by a
-    1 s send timeout."""
+    """Answer ``ERR BUSY`` to a connection past the cap; shared by both
+    IO modes and bounded by a 1 s send timeout."""
     from hyperspace_tpu_torch.interop.query import mint_trace_id
     from hyperspace_tpu_torch.telemetry import flight_recorder, metrics
 
@@ -697,6 +773,252 @@ def _reject_connection(server, request: socket.socket) -> None:
         pass
 
 
+class _AsyncResponder(_Responder):
+    """One async connection's engine: the same responder over a writer
+    on the socket, kept across the connection's pipelined requests (the
+    ``last_run_report`` verb answers per connection)."""
+
+    def __init__(self, server, sock: socket.socket) -> None:
+        self.server = server
+        self.connection = sock
+        # As the threaded shell does: no Nagle wait on a response's last
+        # small send.
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.wfile = sock.makefile("wb")
+        self._init_responder()
+
+
+class _AsyncConn:
+    """The selector's state of one async connection: the socket, the
+    bytes read past the last complete request line, the responder."""
+
+    __slots__ = ("sock", "buf", "responder")
+
+    def __init__(self, server, sock: socket.socket) -> None:
+        self.sock = sock
+        self.buf = b""
+        self.responder = _AsyncResponder(server, sock)
+
+
+class _AsyncIOLoop:
+    """The async IO mode (``conf.serving_io_mode = "async"``): ONE
+    event-loop thread accepts and reads for every connection, so idle
+    connections cost no thread each.  A complete request line goes to a
+    pool of ``workers + 4`` dispatcher threads that run the same
+    :class:`_Responder` as the threaded mode: admission, verbs,
+    deadlines and the error taxonomy are one code path.  The queries
+    themselves run on the worker pool, as in the threaded mode.
+
+    While a response is in flight its socket is unregistered from the
+    selector: the dispatcher is the connection's only writer, and the
+    loop never reads ahead of an unfinished response, so pipelined
+    answers keep their order.  A finished connection comes back to the
+    loop through the requeue queue and a wakeup socketpair (the loop's
+    thread owns every selector registration).  The loop never blocks:
+    it only accepts, reads what is ready and hands off."""
+
+    def __init__(self, outer: "QueryServer", server) -> None:
+        import selectors
+
+        self._outer = outer
+        self._server = server
+        self._sel = selectors.DefaultSelector()
+        self._listener: socket.socket = server.socket
+        self._ready: "queue.Queue" = queue.Queue()
+        self._requeue: "queue.Queue" = queue.Queue()
+        self._wake_r, self._wake_w = socket.socketpair()
+        self._stop = threading.Event()
+        self._loop_thread: Optional[threading.Thread] = None
+        self._dispatchers: list = []
+        self._conns: set = set()  # owned by the loop's thread
+
+    def start(self) -> None:
+        self._listener.setblocking(False)
+        self._wake_r.setblocking(False)
+        self._sel.register(self._listener, _read_event(), "accept")
+        self._sel.register(self._wake_r, _read_event(), "wakeup")
+        self._loop_thread = threading.Thread(
+            target=self._event_loop, name="hs-serve-io", daemon=True)
+        self._loop_thread.start()
+        # Concurrent responses are bounded by the dispatchers: the
+        # workers plus headroom, so inline verbs answer while every
+        # worker is busy.
+        for i in range(self._server.pool.workers + 4):
+            t = threading.Thread(target=self._dispatch,
+                                 name=f"hs-serve-dispatch-{i}", daemon=True)
+            t.start()
+            self._dispatchers.append(t)
+
+    # -- the event loop (never blocks) ----------------------------------------
+    def _event_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                events = self._sel.select(timeout=0.2)
+            except OSError:
+                continue
+            for key, _mask in events:
+                tag = key.data
+                if tag == "accept":
+                    self._on_accept()
+                elif tag == "wakeup":
+                    self._on_wakeup()
+                else:
+                    self._on_readable(tag)
+
+    def _on_accept(self) -> None:
+        try:
+            sock, _addr = self._listener.accept()
+        except OSError:
+            return
+        if not netfaults.on_accept(sock):
+            return  # an armed net.accept fault consumed it
+        if not self._outer._acquire_conn():
+            # Refused IN the loop, never registered: the threaded accept
+            # path's ERR BUSY, with its bounded send.
+            _reject_connection(self._server, sock)
+            try:
+                sock.close()
+            except OSError:
+                pass
+            return
+        sock.setblocking(False)
+        conn = _AsyncConn(self._server, sock)
+        self._conns.add(conn)
+        self._sel.register(sock, _read_event(), conn)
+
+    def _on_readable(self, conn: _AsyncConn) -> None:
+        try:
+            data = conn.sock.recv(65536)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            self._drop(conn, registered=True)
+            return
+        if not data:
+            self._drop(conn, registered=True)  # a clean EOF
+            return
+        conn.buf += data
+        if b"\n" in conn.buf or len(conn.buf) > MAX_REQUEST_BYTES:
+            self._sel.unregister(conn.sock)
+            self._hand_off(conn)
+
+    def _on_wakeup(self) -> None:
+        try:
+            while self._wake_r.recv(4096):
+                pass
+        except (BlockingIOError, InterruptedError):
+            pass
+        except OSError:
+            return
+        while True:
+            try:
+                conn, keep = self._requeue.get_nowait()
+            except queue.Empty:
+                break
+            if not keep or self._stop.is_set():
+                self._drop(conn, registered=False)
+            elif b"\n" in conn.buf:
+                # The client pipelined ahead: its next request is read
+                # already, and no readiness event will come for it.
+                self._hand_off(conn)
+            else:
+                try:
+                    conn.sock.setblocking(False)
+                    self._sel.register(conn.sock, _read_event(), conn)
+                except (OSError, ValueError):
+                    self._drop(conn, registered=False)
+
+    def _hand_off(self, conn: _AsyncConn) -> None:
+        line, sep, rest = conn.buf.partition(b"\n")
+        conn.buf = rest
+        self._ready.put_nowait((conn, line + sep))
+
+    def _drop(self, conn: _AsyncConn, registered: bool) -> None:
+        if conn not in self._conns:
+            return
+        self._conns.discard(conn)
+        if registered:
+            try:
+                self._sel.unregister(conn.sock)
+            except (KeyError, ValueError):
+                pass
+        try:
+            conn.responder.wfile.close()  # flushes an ERR line
+        except OSError:
+            pass
+        try:
+            conn.sock.close()
+        except OSError:
+            pass
+        self._outer._release_conn()
+
+    # -- the dispatchers (one response at a time per connection) -------------
+    def _dispatch(self) -> None:
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        while True:
+            item = self._ready.get()
+            if item is None:
+                return
+            conn, line = item
+            pool = self._server.pool
+            metrics.inc("serve.requests")
+            pool.request_started()
+            keep = False
+            try:
+                keep = conn.responder._respond_one(
+                    line, self._server.session.conf)
+            except Exception:  # noqa: BLE001 - a dispatcher survives
+                keep = False   # anything the response path throws
+            finally:
+                pool.request_finished()
+            self._requeue.put((conn, keep))
+            try:
+                self._wake_w.send(b"x")
+            except OSError:
+                pass
+
+    # -- lifecycle -------------------------------------------------------------
+    def stop_accepting(self) -> None:
+        """Step one of a drain or a stop: end the event loop (no new
+        accept, no new request read).  Responses in flight go on, and
+        ``wait_idle`` waits for them."""
+        self._stop.set()
+        try:
+            self._wake_w.send(b"x")
+        except OSError:
+            pass
+        if self._loop_thread is not None:
+            self._loop_thread.join(timeout=5)
+            self._loop_thread = None
+
+    def close(self) -> None:
+        """Step two: stop the dispatchers and close every connection."""
+        self.stop_accepting()
+        for _ in self._dispatchers:
+            self._ready.put(None)
+        for t in self._dispatchers:
+            t.join(timeout=5)
+        self._dispatchers.clear()
+        for conn in list(self._conns):
+            self._drop(conn, registered=True)
+        try:
+            self._sel.close()
+        except OSError:
+            pass
+        for s in (self._wake_r, self._wake_w):
+            try:
+                s.close()
+            except OSError:
+                pass
+
+
+def _read_event() -> int:
+    import selectors
+
+    return selectors.EVENT_READ
+
+
 def _not_here(verb: str, what: str) -> None:
     """A verb of the JAX package's server whose module this package does
     not have yet: it answers ``ERR FAILED`` naming the module, never an
@@ -709,7 +1031,7 @@ def _not_here(verb: str, what: str) -> None:
 
 
 def _serve_verb(session, spec: Dict[str, Any],
-                last_report=None) -> "pa.Table":
+                last_report=None, pool=None) -> "pa.Table":
     """The non-query verbs of the wire protocol:
 
       {"verb": "metrics"}          -> (name, value) rows: counters and
@@ -734,11 +1056,15 @@ def _serve_verb(session, spec: Dict[str, Any],
                                       check and ``overall``)
       {"verb": "lifecycle"}        -> the lifecycle decision journal,
                                       oldest first
+      {"verb": "tenants"}          -> one row per tenant id seen, sorted:
+                                      ``queued`` (its requests queued or
+                                      running now, what the quota
+                                      grades) and ``shed`` (its quota
+                                      sheds so far)
 
     ``doctor`` with ``"fleet": true``, ``fleet_status`` and ``alerts``
-    (telemetry/fleet.py, telemetry/alerts.py) and ``tenants`` (the
-    per-tenant admission state) answer ``ERR FAILED`` naming what this
-    package lacks.
+    (telemetry/fleet.py, telemetry/alerts.py) answer ``ERR FAILED``
+    naming what this package lacks.
     """
     import pyarrow as pa
 
@@ -833,8 +1159,23 @@ def _serve_verb(session, spec: Dict[str, Any],
 
         return history_table(session.conf)
     if verb == "tenants":
-        _not_here("tenants", "the per-tenant admission state of the query "
-                  "server (ROADMAP Queue A item 12(b))")
+        from hyperspace_tpu_torch.telemetry import metrics as m
+
+        queued = pool.tenant_snapshot() if pool is not None else {}
+        shed: Dict[str, float] = {}
+        prefix, suffix = "serve.tenant.", ".shed"
+        for name, value in m.snapshot().items():
+            if name.startswith(prefix) and name.endswith(suffix) \
+                    and not isinstance(value, dict):
+                shed[name[len(prefix):-len(suffix)]] = float(value)
+        tenants = sorted(set(queued) | set(shed))
+        return pa.table({
+            "tenant": pa.array(tenants, type=pa.string()),
+            "queued": pa.array([int(queued.get(t, 0)) for t in tenants],
+                               type=pa.int64()),
+            "shed": pa.array([int(shed.get(t, 0)) for t in tenants],
+                             type=pa.int64()),
+        })
     raise ValueError(f"Unknown verb {verb!r}; expected metrics, "
                      f"last_run_report, workload, perf_history, "
                      f"build_report, slow_queries, trace, doctor, "
@@ -860,9 +1201,12 @@ class QueryServer:
 
     Sizing comes from the session's conf when the server is made
     (``serving_workers``, ``serving_queue_depth``,
-    ``serving_max_connections``, ``serving_plan_cache_*``); timeouts,
-    deadlines and watermarks are read per request, so a conf field set
-    on a running server applies at once.
+    ``serving_max_connections``, ``serving_plan_cache_*``,
+    ``serving_io_mode``); timeouts, deadlines, watermarks and the tenant
+    quota are read per request, so a conf field set on a running server
+    applies at once.  ``serving_io_mode = "async"`` swaps the thread per
+    connection for the selector loop (:class:`_AsyncIOLoop`): the same
+    bytes on the wire, one IO thread for every connection.
 
     ``handle_sigterm=True`` installs a SIGTERM handler (main thread only)
     that runs :meth:`drain` in the background; ``drained`` is set when
@@ -888,6 +1232,8 @@ class QueryServer:
             daemon_threads = True
 
             def process_request(self, request, client_address):
+                if not netfaults.on_accept(request):
+                    return  # an armed net.accept fault consumed it
                 if not outer._acquire_conn():
                     # Refused IN the accept loop: no thread is spawned, so
                     # a connection storm cannot grow the thread count past
@@ -922,6 +1268,13 @@ class QueryServer:
                 ttl_s=float(conf.cache_expiry_seconds))
         else:
             self._server.plan_cache = None
+        self._io_mode = str(conf.serving_io_mode).strip().lower()
+        if self._io_mode not in ("threaded", "async"):
+            self._server.server_close()
+            raise ValueError(
+                f"the server's ioMode (conf.serving_io_mode) must be "
+                f"'threaded' or 'async', got {self._io_mode!r}")
+        self._async: Optional[_AsyncIOLoop] = None
         self._max_connections = int(conf.serving_max_connections)
         self._conn_lock = threading.Lock()
         self._conn_count = 0
@@ -973,10 +1326,14 @@ class QueryServer:
 
     def start(self) -> "QueryServer":
         self._server.pool.start()
-        self._thread = threading.Thread(
-            target=self._server.serve_forever,
-            name="hs-query-server", daemon=True)
-        self._thread.start()
+        if self._io_mode == "async":
+            self._async = _AsyncIOLoop(self, self._server)
+            self._async.start()
+        else:
+            self._thread = threading.Thread(
+                target=self._server.serve_forever,
+                name="hs-query-server", daemon=True)
+            self._thread.start()
         return self
 
     def drain(self, grace_s: Optional[float] = None) -> bool:
@@ -1000,13 +1357,17 @@ class QueryServer:
         # would keep the process alive past its grace window (the latch
         # is process-wide).
         _lifecycle.notify_drain()
-        if self._thread is not None:
+        if self._async is not None:
+            self._async.stop_accepting()
+        elif self._thread is not None:
             self._server.shutdown()  # stop the accept loop
         clean = self._server.pool.wait_idle(grace_s)
         # After the in-flight requests: a SIGTERM'd server leaves "what
         # happened" readable after a restart.  Never raises.
         flight_recorder.dump_diagnostics(self.session.conf)
         self._server.pool.stop()
+        if self._async is not None:
+            self._async.close()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
@@ -1038,6 +1399,8 @@ class QueryServer:
         if self._thread is not None:
             self._server.shutdown()
         self._server.pool.stop()
+        if self._async is not None:
+            self._async.close()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
@@ -1069,13 +1432,21 @@ class QueryClient:
     with ``.code`` and ``.retryable``.  Every request carries a
     client-minted trace context that the server adopts and echoes:
     ``.last_trace_id`` after a call (and ``QueryFailedError.trace_id``)
-    is the id ``slow_queries`` and the ``trace`` verb answer for."""
+    is the id ``slow_queries`` and the ``trace`` verb answer for.
+
+    ``tenant`` stamps every spec sent on this connection with a tenant
+    id, the admission key of ``conf.serving_tenant_max_queued``; a spec's
+    own ``"tenant"`` wins.  The dial, the sends and the reads pass the
+    ``net.*`` fault seams (interop/netfaults.py); a torn or reset stream
+    raises ``ConnectionError``."""
 
     def __init__(self, address: Tuple[str, int],
+                 tenant: Optional[str] = None,
                  timeout_s: Optional[float] = None) -> None:
-        self._sock = socket.create_connection(address, timeout=timeout_s)
+        self._sock = netfaults.connect(address, timeout=timeout_s)
         self._f = self._sock.makefile("rb")
         self._broken = False
+        self.tenant = tenant
         #: The trace id of the latest query(): the server's echo, else
         #: the one minted here.
         self.last_trace_id: Optional[str] = None
@@ -1112,6 +1483,8 @@ class QueryClient:
         if deadline_ms is not None:
             spec = {**spec, "deadline_ms": deadline_ms}
         if isinstance(spec, dict):
+            if self.tenant is not None and "tenant" not in spec:
+                spec = {**spec, "tenant": self.tenant}
             if "trace_id" not in spec:
                 spec = {**spec, "trace_id": mint_trace_id()}
             if "request_id" not in spec:
@@ -1125,7 +1498,9 @@ class QueryClient:
             if timeout_s is not None:
                 # One socket timeout bounds the whole exchange.
                 self._sock.settimeout(timeout_s)
-            self._sock.sendall(json.dumps(spec).encode("utf-8") + b"\n")
+            netfaults.send_all(
+                self._sock, json.dumps(spec).encode("utf-8") + b"\n")
+            netfaults.before_recv()
             status = self._f.readline().decode("utf-8").rstrip("\n")
         except OSError as exc:
             self._broken = True

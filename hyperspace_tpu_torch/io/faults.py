@@ -1,5 +1,5 @@
 """Deterministic fault injection for the IO, op-log and action layers
-(counterpart of hyperspace_tpu/io/faults.py, its file and store sites).
+and the query server's wire (counterpart of hyperspace_tpu/io/faults.py).
 
 IO primitives call :func:`check` / :func:`write_payload` /
 :func:`atomic_replace` / :func:`corrupt_file` at named *sites*, and an
@@ -30,6 +30,14 @@ Sites:
 ``store.read``            a LogStore point read or generation probe
 ``store.list``            a LogStore key listing
 ``store.delete``          a LogStore delete
+``net.connect``           a client socket dial (``interop/netfaults.connect``)
+``net.send``              a framed wire send: the client's request line, or
+                          the server's status line and Arrow stream while a
+                          wire plan is armed (``interop/netfaults.send_all``)
+``net.recv``              a client's read of the status line and stream
+                          (``interop/netfaults.before_recv``)
+``net.accept``            the server's accept, in both IO modes
+                          (``interop/netfaults.on_accept``)
 ========================  ====================================================
 
 Kinds:
@@ -47,12 +55,25 @@ Kinds:
                           through :func:`corrupt_file`
 ``truncate``              cut the file to half its size; fires only through
                           :func:`corrupt_file`
+``refused``               the peer answers the dial with an RST
+                          (``ConnectionRefusedError``)
+``reset``                 the connection dies mid-operation
+                          (``ConnectionResetError``)
+``black-hole``            the peer goes silent: the call hangs ``hang_s``
+                          seconds, then times out
+``slow``                  the call succeeds ``latency_ms`` late
+``torn-frame``            half the frame lands, then the connection resets:
+                          the reader sees a truncated Arrow stream
 ========================  ====================================================
 
 The corruption kinds never raise: the write or read itself succeeds and
 the damage sits on disk for the integrity loop to find.  :func:`check`
 and the other checkpoints skip them without counting, so ``at=N`` counts
-only the calls that can fire the armed kind.
+only the calls that can fire the armed kind.  The wire kinds pair only
+with the ``net.*`` sites (a plan pairing a wire kind with a file site, or
+a file kind with a wire site, is refused: it could never fire) and fire
+only through :func:`net`, which never raises: ``interop/netfaults.py``
+decides how each one shows on the socket.
 
 A crash is :class:`InjectedCrash`, a ``BaseException``: ``except
 Exception`` cleanup, which a real ``kill -9`` would never run, does not
@@ -63,8 +84,7 @@ the JAX package arms none of these sites, and one installed here arms
 none of its.  Arm one with ``faults.install(FaultPlan(...))`` or through
 the conf (``fault_injection_enabled`` and the ``fault_injection_*``
 fields, read when a ``HyperspaceSession`` is made); always ``clear()``
-it afterwards.  The wire sites and kinds of the JAX package's query
-server (``net.*``) are not ported, and a plan naming one is refused.
+it afterwards.
 """
 
 from __future__ import annotations
@@ -76,10 +96,14 @@ import threading
 from typing import Optional
 
 _KNOWN_KINDS = ("enospc", "eio", "torn", "crash", "crash-before-rename",
-                "crash-after-rename", "bitrot", "truncate")
+                "crash-after-rename", "bitrot", "truncate",
+                "refused", "reset", "black-hole", "slow", "torn-frame")
 # Kinds that damage a file's content instead of failing the call; they
 # fire only through corrupt_file().
 _CORRUPT_KINDS = ("bitrot", "truncate")
+# Wire kinds: they fire only through net(), at net.* sites, and
+# interop/netfaults.py interprets them.
+_NET_KINDS = ("refused", "reset", "black-hole", "slow", "torn-frame")
 
 # Every checkpoint and every FaultPlan names one of these: a misspelt
 # site would silently never fire.
@@ -95,6 +119,10 @@ SITES = (
     "store.read",
     "store.list",
     "store.delete",
+    "net.connect",
+    "net.send",
+    "net.recv",
+    "net.accept",
 )
 
 
@@ -113,6 +141,10 @@ class FaultPlan:
     kind: str
     at: int = 1
     count: int = 1
+    # What a wire kind does, read by interop/netfaults.py: the delay of
+    # ``slow`` and the hang of ``black-hole`` before its timeout.
+    latency_ms: float = 25.0
+    hang_s: float = 0.25
 
     def __post_init__(self) -> None:
         if self.kind not in _KNOWN_KINDS:
@@ -123,16 +155,24 @@ class FaultPlan:
             raise ValueError(
                 f"Unknown fault site {self.site!r}; expected one of "
                 f"{SITES} (a misspelt site would silently never fire)")
+        if (self.kind in _NET_KINDS) != self.site.startswith("net."):
+            raise ValueError(
+                f"Fault kind {self.kind!r} cannot fire at site "
+                f"{self.site!r}: wire kinds {_NET_KINDS} pair only with "
+                f"net.* sites (a mismatched plan would silently never "
+                f"fire)")
         self._calls = 0
         self._fired = 0
         # The spill build reaches data.write and io.delete from its route
         # and finalize threads at once: the count must be exact.
         self._lock = threading.Lock()
 
-    def _should_fire(self, site: str, corrupting: bool = False) -> bool:
+    def _should_fire(self, site: str, corrupting: bool = False,
+                     net: bool = False) -> bool:
         if site != self.site:
             return False
-        if (self.kind in _CORRUPT_KINDS) != corrupting:
+        if (self.kind in _CORRUPT_KINDS) != corrupting \
+                or (self.kind in _NET_KINDS) != net:
             # A call that cannot fire this kind does not count either.
             return False
         with self._lock:
@@ -176,10 +216,11 @@ def quiet() -> _QuietSection:
     return _QuietSection()
 
 
-def _armed(site: str, corrupting: bool = False) -> Optional[FaultPlan]:
+def _armed(site: str, corrupting: bool = False,
+           net: bool = False) -> Optional[FaultPlan]:
     plan = _PLAN
     if plan is None or getattr(_quiet_tls, "depth", 0) > 0 \
-            or not plan._should_fire(site, corrupting):
+            or not plan._should_fire(site, corrupting, net):
         return None
     return plan
 
@@ -206,7 +247,9 @@ def install_from_conf(conf) -> None:
     install(FaultPlan(site=conf.fault_injection_site,
                       kind=conf.fault_injection_kind,
                       at=int(conf.fault_injection_at),
-                      count=int(conf.fault_injection_count)))
+                      count=int(conf.fault_injection_count),
+                      latency_ms=float(conf.fault_injection_latency_ms),
+                      hang_s=float(conf.fault_injection_hang_s)))
 
 
 def check(site: str) -> None:
@@ -215,6 +258,13 @@ def check(site: str) -> None:
     plan = _armed(site)
     if plan is not None:
         plan._raise()
+
+
+def net(site: str) -> Optional[FaultPlan]:
+    """Wire checkpoint: the armed plan when a wire kind fires at ``site``,
+    else None.  Never raises: the socket seam (interop/netfaults.py)
+    decides how the fault shows, this only whether the Nth call fires."""
+    return _armed(site, net=True)
 
 
 def fire(site: str) -> Optional[str]:

@@ -27,13 +27,15 @@ _FORBIDDEN = [
 ]
 
 
-# The query-path guards and diagnostics, the object store and the server.
+# The query-path guards and diagnostics, the object store, the server and
+# its wire-fault seams.
 _GUARDS_AND_DIAGNOSTICS = (
     "execution/sync_guard.py", "utils/deadline.py",
     "execution/plan_cache.py", "interop/__init__.py", "interop/query.py",
     "telemetry/flight_recorder.py", "telemetry/slo.py",
     "telemetry/doctor.py", "io/log_store.py",
-    "index/object_log_manager.py", "interop/server.py")
+    "index/object_log_manager.py", "interop/server.py",
+    "interop/netfaults.py")
 
 
 def _port_sources():
@@ -1099,12 +1101,13 @@ def test_the_object_store_log_imports_no_jax(tmp_path):
 
 
 def test_the_query_server_imports_no_jax(tmp_path):
-    """The server and its client load without pyarrow; then a served
-    query, a verb and a drain over loopback, on a ``cpu`` session, load
-    neither jax nor the JAX package."""
+    """The server, its client and the wire-fault seams load without
+    pyarrow; then a served query, a verb and a drain over loopback, on a
+    ``cpu`` session, and a torn response and a tenant on an async
+    server, load neither jax nor the JAX package."""
     script = textwrap.dedent(f"""
         import os, sys
-        from hyperspace_tpu_torch.interop import server
+        from hyperspace_tpu_torch.interop import netfaults, server
         from hyperspace_tpu_torch.interop import QueryClient, QueryServer
         assert not any(m == "pyarrow" or m.startswith("pyarrow.")
                        for m in sys.modules), "pyarrow at load"
@@ -1135,6 +1138,23 @@ def test_the_query_server_imports_no_jax(tmp_path):
             assert srv.drain(grace_s=30)
         finally:
             srv.stop()
+        from hyperspace_tpu_torch.io import faults
+        s.conf.serving_io_mode = "async"
+        s.conf.serving_tenant_max_queued = 1
+        with QueryServer(s) as srv:
+            faults.install(faults.FaultPlan("net.send", "torn-frame", at=2))
+            try:
+                with QueryClient(srv.address, timeout_s=60) as c:
+                    c.query({{"source": {{"format": "parquet",
+                                          "path": data}}}})
+            except ConnectionError:
+                pass
+            else:
+                raise AssertionError("the torn response was read")
+            finally:
+                faults.clear()
+            with QueryClient(srv.address, tenant="t", timeout_s=60) as c:
+                assert c.query({{"verb": "tenants"}}).num_rows == 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

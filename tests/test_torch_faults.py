@@ -623,18 +623,14 @@ def test_fault_plan_refuses_what_can_never_fire():
         faults.FaultPlan(site="log.wirte", kind="eio")
     with pytest.raises(ValueError, match="Unknown fault kind"):
         faults.FaultPlan(site="log.write", kind="explode")
-    # The query server's wire sites and kinds are not ported: an armed
-    # plan there would never fire.
-    for site, kind in (("net.send", "eio"), ("log.write", "reset"),
-                       ("net.connect", "refused")):
-        with pytest.raises(ValueError):
-            faults.FaultPlan(site=site, kind=kind)
-    # The JAX package accepts the same wire pairing and refuses a file
-    # kind at a wire site, as the port refuses both.
-    JAX_faults = _m(JAX, "io.faults")
-    JAX_faults.FaultPlan(site="net.send", kind="reset")
-    with pytest.raises(ValueError):
-        JAX_faults.FaultPlan(site="net.send", kind="eio")
+    # A wire kind pairs only with a wire site and a file kind only with a
+    # file site, in both packages: a mismatched plan would never fire.
+    for pkg in PKGS:
+        pkg_faults = _m(pkg, "io.faults")
+        pkg_faults.FaultPlan(site="net.send", kind="reset")
+        for site, kind in (("net.send", "eio"), ("log.write", "reset")):
+            with pytest.raises(ValueError, match="net"):
+                pkg_faults.FaultPlan(site=site, kind=kind)
 
 
 def test_corruption_kinds_count_only_corruption_calls(tmp_path):

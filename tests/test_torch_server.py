@@ -322,9 +322,7 @@ class TestObservabilityVerbs:
         ({"verb": "fleet_status"}, "telemetry/fleet.py"),
         ({"verb": "alerts"}, "telemetry/alerts.py"),
         ({"verb": "alerts", "fleet": True}, "telemetry/alerts.py"),
-        ({"verb": "tenants"}, "12(b)"),
-    ], ids=["doctor_fleet", "fleet_status", "alerts", "alerts_fleet",
-            "tenants"])
+    ], ids=["doctor_fleet", "fleet_status", "alerts", "alerts_fleet"])
     def test_verbs_of_missing_modules_fail_naming_them(self, env, spec,
                                                        module):
         s, _data = env
