@@ -7,8 +7,8 @@ beside it.  ``python3 chip_smoke.py --phases T,U`` runs some phases only:
 the kernel builds and phase A always, the data generation, the selected
 phases in the script's order with what they read from other phases
 (PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
-without its queries, phase L for M, phase T for U), then the kernels'
-timing, with the same last line.  An unknown letter is an error.
+without its queries, phase L for M, phase T for U; C and D for T and V),
+then the kernels' timing, with the same last line.  An unknown letter is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
 
@@ -531,6 +531,38 @@ async server in turns (threaded, async, async, threaded).
            without, in turns.  Every plan is cleared in a ``finally``.
            No kernel launches (``U server``).  Prints ``{"server_u":
            ...}`` with the card's name and power limit.
+  phase V  the front door (after phase U), over phase C's and D's
+           indexes (``serve_indexes``), phase T's wire specs, two
+           backend ``QueryServer``s a and b (V_WORKERS workers each) and
+           ``FleetQueryClient``s with V_DEADLINE_MS budgets.  (1) The
+           seven through one client over a and b, each held to numpy,
+           with its ms and the picks of each endpoint.  (2) Failover,
+           each fault once and answered right after a retry and a
+           failover: a ``net.connect`` ``refused`` at a new client's
+           first dial (the point query); a ``net.send`` ``torn-frame``
+           at 2 on the join's response; a fake endpoint
+           (``VBusyEndpoint``) answering ``ERR BUSY retry-after-ms=``
+           V_PARK_HINT_MS beside a, hit once in V_PARK_QUERIES point
+           queries and never picked again.  (3) A breaker
+           (V_BREAKER_FAILURES, V_BREAKER_COOLDOWN_MS) over a dead port
+           and a: it opens, ``client.breaker.open_now`` reads 1 and the
+           doctor's ``client`` check ``warn``; a server comes up on that
+           port, and after the cooldown one half-open probe closes it
+           (open, half_open and close +1 each, the doctor ``ok``); after
+           ``close()`` the gauge reads 0.  (4) V_HEDGES point queries
+           hedged after V_HEDGE_DELAY_MS, a one-shot ``net.recv``
+           ``slow`` of V_SLOW_RECV_MS armed before each:
+           ``client.hedge.sent`` V_HEDGES, wins at least 1, each ms
+           against a clean point's.  (5) A third server with
+           ``proxy_endpoints=[a, b]``: a plain ``QueryClient`` gets the
+           seven right; the join direct and proxied, V_JOIN_RUNS each in
+           turns (its 192 MB cross loopback twice through the proxy); a
+           proxy over a fake BUSY endpoint answers ``ServerBusyError``
+           with the hint V_PROXY_HINT_MS.  (6) One ``GET /metrics`` of a
+           ``MetricsScrapeServer`` carrying the ``serve.*`` and
+           ``client.*`` series (V_SCRAPED), its ms and bytes.  No kernel
+           launches (``V fleet``).  Prints ``{"fleet": ...}`` with the
+           card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -561,14 +593,14 @@ K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
-server``, phase U's ``U server``), the
+server``, phase U's ``U server``, phase V's ``V fleet``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 (phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
-R), the object-store JSON (phase S), the server JSON (phase T) and the
-async, tenant and wire-fault JSON (phase U), each of the last nine with
-the card's name and power limit, the card's name and power limit, and
+R), the object-store JSON (phase S), the server JSON (phase T), the
+async, tenant and wire-fault JSON (phase U) and the front-door JSON
+(phase V), each of the last ten with the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
 """
@@ -6320,14 +6352,40 @@ def t_concurrent(phase: str, address, specs: dict, check) -> dict:
         "device_allocs": allocs}
 
 
+def serve_indexes(session, root: str, phase: str) -> dict:
+    """Phase C's ``li_idx`` and phase D's ``ord_idx`` ACTIVE under
+    ``session``'s system path, each built here when missing (a rehearsal
+    without phases C and D): ``{"indexes": each one's state as found,
+    "rebuilt": the names built}``."""
+    from hyperspace_tpu_torch import Hyperspace, IndexConfig
+
+    hs = Hyperspace(session)
+    configs = {INDEX_NAME: ("lineitem", IndexConfig(INDEX_NAME, INDEXED,
+                                                    INCLUDED)),
+               ORDERS_INDEX: ("orders", IndexConfig(
+                   ORDERS_INDEX, ["o_orderkey"],
+                   ["o_totalprice", "o_custkey", "o_shippriority"]))}
+    out: dict = {"indexes": {}, "rebuilt": []}
+    for name, (source, config) in configs.items():
+        entry = hs.index_manager.get_index(name)
+        out["indexes"][name] = entry.state if entry else None
+        if entry is None or entry.state != "ACTIVE":
+            if entry is not None:
+                raise AssertionError(f"phase {phase}: {name} is "
+                                     f"{entry.state}")
+            hs.create_index(session.read.parquet(os.path.join(root, source)),
+                            config)
+            out["rebuilt"].append(name)
+    return out
+
+
 def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
     """The query server at SF1 (see the module docstring)."""
     import threading
 
     import pyarrow as pa
 
-    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
-    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch import HyperspaceSession
     from hyperspace_tpu_torch.interop import (
         QueryClient,
         QueryFailedError,
@@ -6348,22 +6406,7 @@ def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
     session.conf.device_batch_rows = 1 << 23
     session.conf.serving_workers = T_WORKERS
     set_min_rows(session, 0)
-    hs = Hyperspace(session)
-    configs = {INDEX_NAME: ("lineitem", IndexConfig(INDEX_NAME, INDEXED,
-                                                    INCLUDED)),
-               ORDERS_INDEX: ("orders", IndexConfig(
-                   ORDERS_INDEX, ["o_orderkey"],
-                   ["o_totalprice", "o_custkey", "o_shippriority"]))}
-    out: dict = {"indexes": {}, "rebuilt": []}
-    for name, (source, config) in configs.items():
-        entry = hs.index_manager.get_index(name)
-        out["indexes"][name] = entry.state if entry else None
-        if entry is None or entry.state != "ACTIVE":
-            if entry is not None:
-                raise AssertionError(f"phase T: {name} is {entry.state}")
-            hs.create_index(session.read.parquet(os.path.join(root, source)),
-                            config)
-            out["rebuilt"].append(name)
+    out = serve_indexes(session, root, "T")
     session.enable_hyperspace()
     specs = t_specs(root)
     direct = {name: dataset_from_spec(session, spec)
@@ -7065,6 +7108,406 @@ def print_server_u(u: dict) -> None:
           flush=True)
 
 
+V_WORKERS = 2                   # each backend server's workers
+V_DEADLINE_MS = 60_000.0        # each fleet query's budget: its sockets time
+                                # out within T_BOUND_S
+V_PARK_HINT_MS = 30_000         # step 2: the fake BUSY endpoint's hint
+V_PARK_QUERIES = 6              # step 2: point queries through it and a
+V_BREAKER_FAILURES = 2          # step 3
+V_BREAKER_COOLDOWN_MS = 500.0   # step 3
+V_BREAKER_TRIES = 20            # step 3: point queries to open, then close
+V_HEDGES = 3                    # step 4: hedged point queries
+V_HEDGE_DELAY_MS = 40.0         # step 4
+V_SLOW_RECV_MS = 400.0          # step 4: the primary's read held this long
+V_JOIN_RUNS = 2                 # step 5: the join direct and proxied, each
+V_PROXY_HINT_MS = 50            # step 5: the upstream BUSY's hint
+V_SCRAPED = ("hyperspace_serve_ok", "hyperspace_client_retry",
+             "hyperspace_client_failover", "hyperspace_client_hedge_sent",
+             "hyperspace_client_breaker_open_now")
+
+
+class VBusyEndpoint:
+    """A fake server on loopback: each request line is answered ``ERR BUSY
+    ... retry-after-ms=<hint>`` and its connection closed; ``hits``
+    counts the lines."""
+
+    def __init__(self, retry_after_ms: int) -> None:
+        import socket
+        import threading
+
+        self._listener = socket.create_server(("127.0.0.1", 0))
+        self.address = self._listener.getsockname()
+        self._hint = retry_after_ms
+        self.hits = 0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # closed
+            try:
+                conn.settimeout(T_BOUND_S)
+                if conn.makefile("rb").readline():
+                    self.hits += 1
+                    conn.sendall(f"ERR BUSY admission queue full; retry "
+                                 f"later retry-after-ms={self._hint}\n"
+                                 .encode())
+            except OSError:
+                pass
+            finally:
+                conn.close()
+
+    def close(self) -> None:
+        import socket
+
+        try:
+            # Wakes the accept: a close alone leaves it blocked on Linux.
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._listener.close()
+        t_join([self._thread], "the busy endpoint's accept loop", "V")
+
+
+def v_free_port() -> tuple:
+    """A loopback address that nothing listens on (yet)."""
+    import socket
+
+    probe = socket.create_server(("127.0.0.1", 0))
+    address = probe.getsockname()
+    probe.close()
+    return address
+
+
+def phase_v(orders: dict, li: dict, root: str, dev) -> dict:
+    """The front door over phase C's and D's indexes (see the module
+    docstring)."""
+    import urllib.request
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.interop import (
+        FleetQueryClient,
+        QueryClient,
+        QueryServer,
+        ServerBusyError,
+    )
+    from hyperspace_tpu_torch.interop.server import MetricsScrapeServer
+    from hyperspace_tpu_torch.io import faults
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import metrics
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    set_min_rows(session, 0)
+    out = serve_indexes(session, root, "V")
+    session.enable_hyperspace()
+    hs = Hyperspace(session)
+    specs = t_specs(root)
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
+    answers: dict = {}
+
+    def check(label: str, name: str, table) -> None:
+        """``table`` equal to this phase's first answer to ``name``, which
+        was held to numpy (floats of the aggregates within AGG_RTOL)."""
+        first = answers.get(name)
+        if first is not None and table.equals(first):
+            return
+        want, keys = expected[name]
+        require_rows(f"phase V {label} {name}", table, want, keys,
+                     AGG_RTOL if name in AGG_QUERIES else 0.0)
+        answers.setdefault(name, table)
+
+    def snap(name: str) -> float:
+        return float(metrics.snapshot().get(name, 0.0) or 0.0)
+
+    counted = ("client.retry", "client.retry.connection",
+               "client.retry.busy", "client.failover")
+
+    def moved(before: dict) -> dict:
+        return {k: snap(k) - v for k, v in before.items()}
+
+    def timed(fc, name: str) -> tuple:
+        t0 = time.perf_counter()
+        table = fc.query(specs[name], deadline_ms=V_DEADLINE_MS)
+        return table, (time.perf_counter() - t0) * 1e3
+
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - mark[0]
+        mark[0] = now
+        print(f"phase V step {label}: {steps[label]:.3f} s", flush=True)
+
+    workers = session.conf.serving_workers
+    session.conf.serving_workers = V_WORKERS
+    servers = [QueryServer(session).start(), QueryServer(session).start()]
+    session.conf.serving_workers = workers
+    a, b = (s.address for s in servers)
+    clients: list = []
+    busy: list = []
+
+    def fleet(endpoints, **kw) -> "FleetQueryClient":
+        fc = FleetQueryClient(endpoints, conf=session.conf, **kw)
+        clients.append(fc)
+        return fc
+
+    try:
+        # 1. The seven through one fleet client over a and b, each held
+        # to numpy; the picks each endpoint got.  None launches a kernel.
+        kernels.reset_launch_counts()
+        fc = fleet([a, b])
+        picks = {ep.label: 0 for ep in fc._endpoints}
+        real_pick = fc._pick
+
+        def pick(*args, **kw):
+            ep = real_pick(*args, **kw)
+            picks[ep.label] += 1
+            return ep
+
+        fc._pick = pick
+        fleet_ms = {}
+        for name in specs:
+            table, fleet_ms[name] = timed(fc, name)
+            check("fleet", name, table)
+        out["fleet"] = {"ms": fleet_ms, "picks": dict(picks)}
+        step("1_fleet_seven")
+
+        # 2. Failover: each fault once, answered right after a retry.
+        failover: dict = {}
+        before = {k: snap(k) for k in counted}
+        faults.install(faults.FaultPlan("net.connect", "refused", at=1,
+                                        count=1))
+        try:
+            # A new client: its first attempt dials (a pooled one would
+            # not pass the dial's seam).
+            table, ms = timed(fleet([a, b]), "point")
+        finally:
+            faults.clear()
+        check("refused dial", "point", table)
+        failover["refused_dial"] = {"ms": ms, "counters": moved(before)}
+        before = {k: snap(k) for k in counted}
+        # The client's request send is call 1, the response's call 2.
+        faults.install(faults.FaultPlan("net.send", "torn-frame", at=2,
+                                        count=1))
+        try:
+            table, ms = timed(fc, "join")
+        finally:
+            faults.clear()
+        check("torn join", "join", table)
+        failover["torn_join"] = {"ms": ms, "counters": moved(before)}
+        busy.append(VBusyEndpoint(V_PARK_HINT_MS))
+        before = {k: snap(k) for k in counted}
+        parked = fleet([busy[-1].address, a])
+        park_ms = []
+        for _ in range(V_PARK_QUERIES):
+            table, ms = timed(parked, "point")
+            check("past the busy endpoint", "point", table)
+            park_ms.append(ms)
+        failover["busy_parked"] = {"ms": park_ms, "hits": busy[-1].hits,
+                                   "counters": moved(before)}
+        for label, f in failover.items():
+            c = f["counters"]
+            if c["client.retry"] < 1 or c["client.failover"] < 1:
+                raise AssertionError(f"phase V {label}: counters {c}")
+            print(f"phase V failover {label}: {json.dumps(f)}", flush=True)
+        if busy[-1].hits != 1:
+            raise AssertionError(f"phase V: the busy endpoint was hit "
+                                 f"{busy[-1].hits} times, not once")
+        out["failover"] = failover
+        step("2_failover")
+
+        # 3. A breaker: a dead port beside a opens it, the doctor warns;
+        # a server comes up on that port, and after the cooldown one
+        # half-open probe closes it.
+        dead = v_free_port()
+        breaker = fleet([dead, a], breaker_enabled=True,
+                        breaker_failures=V_BREAKER_FAILURES,
+                        breaker_cooldown_ms=V_BREAKER_COOLDOWN_MS)
+        ep = breaker._endpoints[0]
+        before = {k: snap(k) for k in ("client.breaker.open",
+                                       "client.breaker.half_open",
+                                       "client.breaker.close")}
+        to_open = 0
+        while ep.breaker_state != "open":
+            if to_open == V_BREAKER_TRIES:
+                raise AssertionError("phase V: the breaker never opened")
+            table, _ = timed(breaker, "point")
+            check("breaker", "point", table)
+            to_open += 1
+            time.sleep(0.12)  # past the failed endpoint's 100 ms penalty
+        open_now = snap("client.breaker.open_now")
+        warned = hs.doctor().check("client")
+        session.conf.serving_workers = V_WORKERS
+        servers.append(QueryServer(session, port=dead[1]).start())
+        session.conf.serving_workers = workers
+        time.sleep(V_BREAKER_COOLDOWN_MS / 1000.0)
+        probe_ms, to_close = [], 0
+        while ep.breaker_state != "closed":
+            if to_close == V_BREAKER_TRIES:
+                raise AssertionError("phase V: the breaker never closed")
+            table, ms = timed(breaker, "point")
+            check("half-open", "point", table)
+            probe_ms.append(ms)
+            to_close += 1
+        closed_now = snap("client.breaker.open_now")
+        cleared = hs.doctor().check("client")
+        breaker.close()
+        transitions = moved(before)
+        out["breaker"] = {
+            "queries_to_open": to_open, "open_now": open_now,
+            "doctor_open": [warned.status, warned.summary],
+            "queries_to_close": to_close, "probe_ms": probe_ms,
+            "open_now_closed": closed_now,
+            "doctor_closed": cleared.status, "transitions": transitions,
+            "open_now_after_close": snap("client.breaker.open_now")}
+        if open_now != 1.0 or warned.status != "warn" \
+                or closed_now != 0.0 or cleared.status != "ok" \
+                or transitions != {"client.breaker.open": 1.0,
+                                   "client.breaker.half_open": 1.0,
+                                   "client.breaker.close": 1.0} \
+                or out["breaker"]["open_now_after_close"] != 0.0:
+            raise AssertionError(f"phase V: breaker {out['breaker']}")
+        step("3_breaker")
+
+        # 4. Hedging: the primary's read held V_SLOW_RECV_MS each time;
+        # the hedge goes to the other endpoint after V_HEDGE_DELAY_MS.
+        hedged = fleet([a, b], hedge_enabled=True,
+                       hedge_delay_ms=V_HEDGE_DELAY_MS, max_attempts=2)
+        for _ in range(4):  # both endpoints pooled
+            check("hedge warm", "point", timed(hedged, "point")[0])
+        clean_ms = [timed(hedged, "point")[1] for _ in range(3)]
+        sent0, wins0 = snap("client.hedge.sent"), snap("client.hedge.wins")
+        hedge_ms = []
+        for _ in range(V_HEDGES):
+            faults.install(faults.FaultPlan("net.recv", "slow", at=1,
+                                            count=1,
+                                            latency_ms=V_SLOW_RECV_MS))
+            try:
+                table, ms = timed(hedged, "point")
+            finally:
+                faults.clear()
+            check("hedged", "point", table)
+            hedge_ms.append(ms)
+        sent = snap("client.hedge.sent") - sent0
+        wins = snap("client.hedge.wins") - wins0
+        # The losers read their late answers to the end on their threads.
+        time.sleep(V_SLOW_RECV_MS / 1000.0 + 0.1)
+        out["hedge"] = {"sent": sent, "wins": wins, "ms": hedge_ms,
+                        "clean_ms": clean_ms}
+        if sent != V_HEDGES or not 1 <= wins <= sent:
+            raise AssertionError(f"phase V: hedges {out['hedge']}")
+        step("4_hedge")
+
+        # 5. The proxy: a plain client of a third server that forwards
+        # to a and b; the join through it against a direct, in turns;
+        # an upstream BUSY arrives as BUSY with its hint.
+        servers.append(QueryServer(session, proxy_endpoints=[a, b]).start())
+        proxy = servers[-1].address
+        proxy_ms = {}
+        with QueryClient(proxy, timeout_s=T_BOUND_S) as c:
+            for name, spec in specs.items():
+                t0 = time.perf_counter()
+                table = c.query(spec)
+                proxy_ms[name] = (time.perf_counter() - t0) * 1e3
+                check("proxy", name, table)
+        join_ms: dict = {"direct": [], "proxy": []}
+        with QueryClient(a, timeout_s=T_BOUND_S) as direct, \
+                QueryClient(proxy, timeout_s=T_BOUND_S) as proxied:
+            for label in ("direct", "proxy", "proxy", "direct")[
+                    :2 * V_JOIN_RUNS]:
+                c = direct if label == "direct" else proxied
+                t0 = time.perf_counter()
+                table = c.query(specs["join"])
+                join_ms[label].append((time.perf_counter() - t0) * 1e3)
+                check(f"join {label}", "join", table)
+        busy.append(VBusyEndpoint(V_PROXY_HINT_MS))
+        servers.append(QueryServer(
+            session, proxy_endpoints=[busy[-1].address]).start())
+        with QueryClient(servers[-1].address, timeout_s=T_BOUND_S) as c:
+            try:
+                c.query(specs["point"])
+            except ServerBusyError as e:
+                shed = e
+            else:
+                raise AssertionError("phase V: a BUSY upstream answered")
+        if not shed.retryable or shed.retry_after_ms != V_PROXY_HINT_MS:
+            raise AssertionError(f"phase V: the proxied BUSY {shed!r}, "
+                                 f"retry-after {shed.retry_after_ms}")
+        out["proxy"] = {"ms": proxy_ms, "join_ms": join_ms,
+                        "busy": {"message": shed.message,
+                                 "retry_after_ms": shed.retry_after_ms,
+                                 "upstream_hits": busy[-1].hits}}
+        step("5_proxy")
+
+        # 6. One scrape of the process's registry.
+        with MetricsScrapeServer() as scraper:
+            host, port = scraper.address
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                        timeout=T_BOUND_S) as resp:
+                body = resp.read()
+            scrape_ms = (time.perf_counter() - t0) * 1e3
+        text = body.decode("utf-8")
+        missing = [s for s in V_SCRAPED if f"\n{s} " not in text]
+        if missing:
+            raise AssertionError(f"phase V: the scrape lacks {missing}")
+        out["scrape"] = {"ms": scrape_ms, "bytes": len(body),
+                         "client_series": sum(
+                             1 for line in text.splitlines()
+                             if line.startswith("hyperspace_client_"))}
+        step("6_scrape")
+        launches = kernels.launch_counts()
+        if cuda:
+            require_launches("phase V", launches,
+                             {"hash_buckets": 0, "bucket_histogram": 0})
+    finally:
+        faults.clear()
+        for fc in clients:
+            fc.close()
+        for s in servers:
+            s.stop()
+        for e in busy:
+            e.close()
+        session.disable_hyperspace()
+        device_cache().clear()
+    out.update(launches=launches, steps_s=steps,
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def print_fleet(v: dict) -> None:
+    f, p, h = v["fleet"], v["proxy"], v["hedge"]
+    br, sc = v["breaker"], v["scrape"]
+    print(f"phase V: seven through the fleet client ms "
+          f"{json.dumps({k: round(x, 1) for k, x in f['ms'].items()})}, "
+          f"picks {json.dumps(f['picks'])}; through the proxy ms "
+          f"{json.dumps({k: round(x, 1) for k, x in p['ms'].items()})}; "
+          f"join direct "
+          f"{json.dumps([round(x, 1) for x in p['join_ms']['direct']])} "
+          f"proxied {json.dumps([round(x, 1) for x in p['join_ms']['proxy']])}"
+          f" ms; proxied BUSY {p['busy']['message']!r} retry-after "
+          f"{p['busy']['retry_after_ms']}; breaker open after "
+          f"{br['queries_to_open']} queries (doctor {br['doctor_open'][0]}), "
+          f"closed after {br['queries_to_close']} (probe ms "
+          f"{json.dumps([round(x, 1) for x in br['probe_ms']])}); hedges "
+          f"sent {h['sent']:g} won {h['wins']:g}, ms "
+          f"{json.dumps([round(x, 1) for x in h['ms']])} against clean "
+          f"{json.dumps([round(x, 1) for x in h['clean_ms']])}; scrape "
+          f"{sc['ms']:.1f} ms, {sc['bytes']} bytes; launches "
+          f"{json.dumps(v['launches'])} ({v['phase_s']:.3f} s; by step "
+          f"{json.dumps(v['steps_s'])})", flush=True)
+
+
 def _raised_name(fn) -> str:
     """The class name of what ``fn`` raised (a BaseException: an injected
     crash is one), or "" when it returned."""
@@ -7647,7 +8090,7 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-PHASES = "ABCDEFGHIJKLMNOPQRSTU"
+PHASES = "ABCDEFGHIJKLMNOPQRSTUV"
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -7655,7 +8098,7 @@ PHASES = "ABCDEFGHIJKLMNOPQRSTU"
 PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
-               "U": "T"}
+               "U": "T", "V": "CD"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -7993,6 +8436,11 @@ def main(argv=None) -> int:
             print_server_u(u)
             res["server_u"] = u
             by_path["U server"] = u["launches"]
+        if "V" in runs:
+            v = phase_v(orders, li, root, dev)
+            print_fleet(v)
+            res["fleet"] = v
+            by_path["V fleet"] = v["launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -8054,7 +8502,8 @@ def main(argv=None) -> int:
         if key in res:
             print(json.dumps({key: res[key]}))
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
-                "diagnostics", "object_store", "server", "server_u"):
+                "diagnostics", "object_store", "server", "server_u",
+                "fleet"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

@@ -248,6 +248,21 @@ class HyperspaceConf:
     serving_plan_cache_bytes: int = 64 << 20
     serving_io_mode: str = "threaded"
     serving_tenant_max_queued: int = 0
+    # The front door (interop/server.FleetQueryClient); both features
+    # off by default, so the plain request path adds only a bool check.
+    #   - hedge_enabled / hedge_delay_ms: when the first attempt is slower
+    #     than the delay (0: twice the client's latency EWMA), a second
+    #     goes to another endpoint; the first answer wins and the loser's
+    #     is dropped by request_id.
+    #   - breaker_enabled / breaker_failures / breaker_cooldown_ms: a
+    #     circuit breaker per endpoint; that many consecutive failures
+    #     open it (routing avoids it), after the cooldown one half-open
+    #     probe closes it again or re-opens it.
+    client_hedge_enabled: bool = False
+    client_hedge_delay_ms: float = 0.0
+    client_breaker_enabled: bool = False
+    client_breaker_failures: int = 5
+    client_breaker_cooldown_ms: float = 2000.0
     # The source watch (io/watch.py): the daemon wakes on source events
     # instead of sleeping the whole interval.  mode "auto" takes inotify,
     # else the store notification bus; "inotify", "store" and "poll"

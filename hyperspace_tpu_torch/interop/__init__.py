@@ -12,6 +12,7 @@ from hyperspace_tpu_torch.interop.query import (
     valid_trace_id,
 )
 from hyperspace_tpu_torch.interop.server import (
+    FleetQueryClient,
     QueryClient,
     QueryFailedError,
     QueryServer,
@@ -21,6 +22,6 @@ from hyperspace_tpu_torch.interop.server import (
 )
 
 __all__ = ["dataset_from_spec", "expr_from_json", "mint_trace_id",
-           "pop_trace_context", "valid_trace_id", "QueryClient",
-           "QueryFailedError", "QueryServer", "ServerBusyError",
-           "parse_wire_error", "request_query"]
+           "pop_trace_context", "valid_trace_id", "FleetQueryClient",
+           "QueryClient", "QueryFailedError", "QueryServer",
+           "ServerBusyError", "parse_wire_error", "request_query"]

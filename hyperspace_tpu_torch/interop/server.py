@@ -65,21 +65,32 @@ The server executes against ONE session, on that session's device
 conf govern rewrites exactly as for local use; the dispatchers and the
 selector thread only parse, admit and write.
 
-Left out of this package so far: the proxy front door,
-``FleetQueryClient`` and the Prometheus scrape server.  pyarrow is
-imported inside functions.
+The client side: :class:`FleetQueryClient` is a front door over N
+servers (least-loaded routing over pooled pipelined connections,
+failover of retryable codes and transport faults under ONE deadline
+budget, per-endpoint circuit breakers, hedged requests), and
+``QueryServer(..., proxy_endpoints=[...])`` forwards queries through
+one, so a client in any language gets the same fault tolerance.
+:class:`MetricsScrapeServer` serves the metrics registry to a Prometheus
+scraper.  Left out of this package so far, with the fleet heartbeats of
+telemetry/fleet.py: routing on the servers' published load and draining
+flags (every endpoint stays routable on local in-flight counts) and
+``MetricsScrapeServer(fleet=True)``, which raises.  pyarrow and
+http.server are imported inside functions.
 """
 
 from __future__ import annotations
 
 import json
 import queue
+import random
 import re
 import socket
 import socketserver
 import threading
 import time
-from typing import TYPE_CHECKING, Any, Callable, Dict, Optional, Tuple
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
+                    Sequence, Tuple, Union)
 
 from hyperspace_tpu_torch.interop import netfaults
 
@@ -183,6 +194,11 @@ def _classify_error(exc: BaseException) -> Tuple[str, str]:
     from hyperspace_tpu_torch.exceptions import DeadlineExceededError
 
     if isinstance(exc, WireError):
+        return exc.code, exc.message
+    if isinstance(exc, QueryFailedError):
+        # A proxied upstream error keeps its code across this hop: BUSY
+        # stays retryable, with its retry-after hint, instead of turning
+        # into a permanent FAILED at the front door.
         return exc.code, exc.message
     if isinstance(exc, DeadlineExceededError):
         return ERR_DEADLINE, str(exc)
@@ -675,6 +691,18 @@ class _Responder:
         and the request's kind."""
         session = self.server.session
         plan_cache = self.server.plan_cache
+        proxy = self.server.proxy_client
+        if proxy is not None:
+            # Proxy mode: queries go on through the fleet client (routing,
+            # failover, retry-after backoff) while verbs answer here.
+            # Checking the shape is the backend's job; its coded errors
+            # come back as they are (_classify_error keeps the code).
+            forward = dict(spec)
+
+            def run_proxy() -> "pa.Table":
+                return proxy.query(forward)
+
+            return run_proxy, ("sql" if "sql" in spec else "spec")
         if "sql" in spec:
             # {"sql": "SELECT ...", "tables": {name: parquet_dir}}
             if not isinstance(spec["sql"], str):
@@ -1211,11 +1239,18 @@ class QueryServer:
     ``handle_sigterm=True`` installs a SIGTERM handler (main thread only)
     that runs :meth:`drain` in the background; ``drained`` is set when
     the shutdown completes, so a serving script can simply
-    ``server.drained.wait()``."""
+    ``server.drained.wait()``.
+
+    ``proxy_endpoints=[...]`` makes this server a thin FRONT DOOR: its
+    queries go on through a :class:`FleetQueryClient` over those
+    backends (least-loaded routing, failover, retry-after backoff), so a
+    client in another language gets the fleet's fault tolerance without
+    writing it; the verbs still answer from THIS process."""
 
     def __init__(self, session, host: str = "127.0.0.1",
                  port: int = 0, allow_remote: bool = False,
-                 handle_sigterm: bool = False) -> None:
+                 handle_sigterm: bool = False,
+                 proxy_endpoints: Optional[list] = None) -> None:
         # The server is UNAUTHENTICATED and reads any path the process
         # can: binding a non-loopback interface must be asked for.
         if not _is_loopback(host) and not allow_remote:
@@ -1268,6 +1303,9 @@ class QueryServer:
                 ttl_s=float(conf.cache_expiry_seconds))
         else:
             self._server.plan_cache = None
+        self._server.proxy_client = (
+            FleetQueryClient(proxy_endpoints, conf=conf)
+            if proxy_endpoints else None)
         self._io_mode = str(conf.serving_io_mode).strip().lower()
         if self._io_mode not in ("threaded", "async"):
             self._server.server_close()
@@ -1368,6 +1406,8 @@ class QueryServer:
         self._server.pool.stop()
         if self._async is not None:
             self._async.close()
+        if self._server.proxy_client is not None:
+            self._server.proxy_client.close()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
@@ -1401,11 +1441,100 @@ class QueryServer:
         self._server.pool.stop()
         if self._async is not None:
             self._async.close()
+        if self._server.proxy_client is not None:
+            self._server.proxy_client.close()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
 
     def __enter__(self) -> "QueryServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+class MetricsScrapeServer:
+    """A long-lived Prometheus scrape endpoint: ``GET /metrics`` (and
+    ``/``) serves this process's metrics registry as text exposition
+    (``telemetry/metrics.registry().render_prometheus()``: the
+    ``build.*``, ``exec.*``, ``io.*``, ``serve.*`` and ``client.*``
+    series of docs/16-observability.md); any other path is a 404.
+
+    The pull-based twin of the ``metrics`` verb: the verb answers an
+    Arrow client once, this endpoint stays up for a scraper's own
+    schedule.  It binds loopback only unless ``allow_remote=True``, as
+    :class:`QueryServer` does (series values leak index names and the
+    workload's shape).
+
+    ``fleet=True`` (every published heartbeat's series merged, under
+    ``session``'s system path) reads telemetry/fleet.py, which this
+    package does not have yet: it raises ``NotImplementedError``.
+
+    >>> with MetricsScrapeServer(port=9109) as ms:
+    ...     ...  # curl http://127.0.0.1:9109/metrics
+    """
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 allow_remote: bool = False, session=None,
+                 fleet: bool = False) -> None:
+        if not _is_loopback(host) and not allow_remote:
+            raise ValueError(
+                f"MetricsScrapeServer binds {host!r}, a non-loopback "
+                f"interface, without authentication.  Pass "
+                f"allow_remote=True only behind a trusted boundary.")
+        if fleet:
+            raise NotImplementedError(
+                "MetricsScrapeServer(fleet=True) serves the fleet "
+                "heartbeats' merged series (telemetry/fleet.py), which "
+                "this package does not have yet; serve this process's "
+                "registry with fleet=False")
+        import http.server
+
+        class _MetricsHandler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self) -> None:  # noqa: N802 - the stdlib's name
+                if self.path.split("?")[0] not in ("/metrics", "/"):
+                    self.send_error(404)
+                    return
+                from hyperspace_tpu_torch.telemetry import metrics
+
+                body = metrics.registry().render_prometheus().encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args: object) -> None:
+                pass  # a scrape a second must not flood stderr
+
+        class _Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._server = _Server((host, port), _MetricsHandler)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._server.server_address
+
+    def start(self) -> "MetricsScrapeServer":
+        self._thread = threading.Thread(
+            target=self._server.serve_forever,
+            name="hs-metrics-server", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._server.shutdown()
+        self._server.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def __enter__(self) -> "MetricsScrapeServer":
         return self.start()
 
     def __exit__(self, *exc) -> None:
@@ -1539,6 +1668,557 @@ class QueryClient:
         self._sock.close()
 
     def __enter__(self) -> "QueryClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# -- the front door -----------------------------------------------------------
+def _as_address(endpoint) -> Tuple[str, int]:
+    """``"host:port"`` or ``(host, port)`` → ``(host, port)``."""
+    if isinstance(endpoint, str):
+        host, _, port = endpoint.rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(f"endpoint {endpoint!r} is not 'host:port'")
+        return host, int(port)
+    host, port = endpoint
+    return str(host), int(port)
+
+
+class _Endpoint:
+    """One server behind the front door: its address, a pool of idle
+    pipelined connections, the router's view of it (in-flight count,
+    penalty clock) and its circuit breaker (closed → open on consecutive
+    failures → half-open probe after the cooldown).  ``load`` and
+    ``draining`` come from fleet heartbeats, which this package does not
+    read yet: they stay None and False."""
+
+    __slots__ = ("address", "label", "idle", "inflight", "penalized_until",
+                 "load", "draining", "lock",
+                 "breaker_state", "breaker_fails", "breaker_until")
+
+    MAX_IDLE = 4  # idle pipelined connections kept per endpoint
+
+    def __init__(self, endpoint) -> None:
+        self.address = _as_address(endpoint)
+        self.label = f"{self.address[0]}:{self.address[1]}"
+        self.idle: List[QueryClient] = []
+        self.inflight = 0
+        self.penalized_until = 0.0   # monotonic; routing skips until then
+        self.load: Optional[float] = None
+        self.draining = False
+        self.lock = threading.Lock()
+        self.breaker_state = "closed"   # closed | open | half-open
+        self.breaker_fails = 0          # consecutive failures while closed
+        self.breaker_until = 0.0        # monotonic; open until then
+
+    def acquire(self, tenant: Optional[str],
+                timeout_s: Optional[float] = None) -> QueryClient:
+        """An idle connection that passes a peek, or a new one.  A server
+        that restarted leaves half-open TCP in the pool; handing that out
+        would turn a routine bounce into a reset charged to the retries,
+        so it is evicted here (``client.pool.evicted``).  The dial runs
+        outside the lock, and a failed dial rolls the in-flight count
+        back, so a dead endpoint does not look busy forever."""
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        with self.lock:
+            self.inflight += 1
+        while True:
+            with self.lock:
+                client = self.idle.pop() if self.idle else None
+            if client is None:
+                break
+            if client.is_stale():
+                metrics.inc("client.pool.evicted")
+                try:
+                    client.close()
+                except OSError:
+                    pass
+                continue
+            client.tenant = tenant
+            return client
+        try:
+            return QueryClient(self.address, tenant=tenant,
+                               timeout_s=timeout_s)
+        except OSError:
+            with self.lock:
+                self.inflight -= 1
+            raise
+
+    # -- circuit breaker -----------------------------------------------------
+    def breaker_blocked(self, now: float) -> bool:
+        """True when routing should avoid this endpoint: its breaker open
+        inside the cooldown, or a half-open probe already in flight."""
+        with self.lock:
+            if self.breaker_state == "open":
+                return now < self.breaker_until
+            return self.breaker_state == "half-open"
+
+    def breaker_on_pick(self, now: float) -> bool:
+        """Open → half-open when the cooldown is over and this endpoint
+        was PICKED (the probe).  True on that transition."""
+        with self.lock:
+            if self.breaker_state == "open" and now >= self.breaker_until:
+                self.breaker_state = "half-open"
+                return True
+        return False
+
+    def breaker_failure(self, threshold: int, cooldown_s: float) -> bool:
+        """A retryable or transport failure.  True when it OPENED the
+        breaker (the threshold reached, or the half-open probe failed)."""
+        now = time.monotonic()
+        with self.lock:
+            if self.breaker_state == "half-open":
+                self.breaker_state = "open"
+                self.breaker_until = now + cooldown_s
+                return True
+            self.breaker_fails += 1
+            if self.breaker_state == "closed" \
+                    and self.breaker_fails >= max(1, threshold):
+                self.breaker_state = "open"
+                self.breaker_until = now + cooldown_s
+                return True
+        return False
+
+    def breaker_success(self) -> bool:
+        """A served request.  True when it CLOSED a breaker that was not
+        closed (the half-open probe came back)."""
+        with self.lock:
+            was = self.breaker_state
+            self.breaker_state = "closed"
+            self.breaker_fails = 0
+            return was != "closed"
+
+    def release(self, client: QueryClient) -> None:
+        with self.lock:
+            self.inflight -= 1
+            if len(self.idle) < self.MAX_IDLE:
+                self.idle.append(client)
+                return
+        client.close()
+
+    def discard(self, client: QueryClient) -> None:
+        with self.lock:
+            self.inflight -= 1
+        try:
+            client.close()
+        except OSError:
+            pass
+
+    def close_idle(self) -> None:
+        with self.lock:
+            idle, self.idle = self.idle, []
+        for client in idle:
+            try:
+                client.close()
+            except OSError:
+                pass
+
+
+class FleetQueryClient:
+    """A fault-tolerant front door over N :class:`QueryServer` endpoints.
+
+    Routing is LEAST-LOADED on this client's own in-flight count per
+    endpoint, ties broken round-robin.  (The JAX package also folds in
+    the servers' published fleet heartbeats, their load and draining
+    flags; this package has no fleet plane yet, so every endpoint stays
+    routable on local counts, which is what the JAX client does when no
+    heartbeat is fresh.)
+
+    Failures:
+
+      - RETRYABLE: ``BUSY``/``DEADLINE`` wire errors and transport faults
+        (refused, reset, EOF, a torn stream, a socket timeout) retry on
+        ANOTHER endpoint when there is one, after a jittered exponential
+        backoff; a ``retry-after-ms`` hint replaces the backoff's step
+        and penalises that endpoint for the hinted window, so the next
+        pick avoids it.
+      - PERMANENT: ``BADREQ``/``FAILED`` raise at once.  A CUDA error or
+        ``torch.OutOfMemoryError`` in a backend arrives as ``FAILED``
+        and is not retried.
+
+    Retries count ``client.retry`` and ``client.retry.<kind>``; a retry
+    that lands on another endpoint than the failed one counts
+    ``client.failover``.  ``tenant`` stamps every spec with the servers'
+    admission key.
+
+    DEADLINE BUDGET: ``deadline_ms`` is ONE budget for the whole call:
+    dials, socket reads, backoff sleeps, the hedge's delay and the
+    server-side deadline all spend from it, so every failover attempt
+    together stays inside the caller's bound.
+
+    CIRCUIT BREAKERS (``conf.client_breaker_*``, off by default):
+    ``failures`` consecutive retryable or transport errors open an
+    endpoint's breaker; routing avoids it for ``cooldown_ms``, then ONE
+    half-open probe decides (a success closes it, a failure re-opens it).
+    Transitions count ``client.breaker.open``/``.half_open``/``.close``;
+    the ``client.breaker.open_now`` gauge is what the doctor's ``client``
+    check grades.
+
+    HEDGED REQUESTS (``conf.client_hedge_*``, off by default): when the
+    first attempt is slower than the hedge delay (``hedge_delay_ms``, or
+    twice the latency EWMA when 0), one more attempt goes to another
+    endpoint; the first answer wins and the loser's late answer is
+    dropped by its request_id (each attempt reads its own connection, so
+    a late frame never lands on the winner's).  ``client.hedge.sent`` and
+    ``client.hedge.wins`` count them.  Every request here is a read, so
+    sending it twice is safe.
+
+    The backoff's jitter comes from this client's own ``random.Random``,
+    uniform in [0.5, 1.5) × the step.
+
+    >>> with FleetQueryClient(["127.0.0.1:9001", "127.0.0.1:9002"],
+    ...                       conf=session.conf) as fleet:
+    ...     fleet.query({"index": "idx", "point": {"id": 7}})
+    """
+
+    def __init__(self, endpoints: Sequence[Union[str, Tuple[str, int]]],
+                 conf=None, tenant: Optional[str] = None,
+                 max_attempts: Optional[int] = None,
+                 backoff_cap_ms: float = 2000.0,
+                 hedge_enabled: Optional[bool] = None,
+                 hedge_delay_ms: Optional[float] = None,
+                 breaker_enabled: Optional[bool] = None,
+                 breaker_failures: Optional[int] = None,
+                 breaker_cooldown_ms: Optional[float] = None) -> None:
+        if not endpoints:
+            raise ValueError("FleetQueryClient needs at least one endpoint")
+        self._endpoints = [_Endpoint(e) for e in endpoints]
+        self._tenant = tenant
+        self._max_attempts = int(max_attempts if max_attempts is not None
+                                 else max(3, len(self._endpoints)))
+        self._backoff_cap_ms = float(backoff_cap_ms)
+        self._rng = random.Random()
+        self._rr = 0
+        # Guards _rr and _lat_ewma_ms only; never held across a dial, a
+        # send or a sleep.
+        self._lock = threading.Lock()
+
+        def _opt(value, field, default):
+            if value is not None:
+                return value
+            return getattr(conf, field) if conf is not None else default
+
+        self._hedge_enabled = bool(
+            _opt(hedge_enabled, "client_hedge_enabled", False))
+        self._hedge_delay_ms = float(
+            _opt(hedge_delay_ms, "client_hedge_delay_ms", 0.0))
+        self._breaker_enabled = bool(
+            _opt(breaker_enabled, "client_breaker_enabled", False))
+        self._breaker_failures = int(
+            _opt(breaker_failures, "client_breaker_failures", 5))
+        self._breaker_cooldown_ms = float(
+            _opt(breaker_cooldown_ms, "client_breaker_cooldown_ms", 2000.0))
+        self._lat_ewma_ms = 0.0  # the successful requests' latency EWMA
+        #: The trace id of the latest query(), as on QueryClient.
+        self.last_trace_id: Optional[str] = None
+
+    # -- routing --------------------------------------------------------------
+    def _pick(self, tried: set,
+              exclude: Optional[set] = None) -> _Endpoint:
+        """The least-loaded routable endpoint not yet tried for this
+        request, relaxing step by step (breaker-blocked and penalised
+        allowed, then draining, then tried) rather than failing a pick
+        while any endpoint exists.  ``exclude`` labels (the hedge's other
+        attempt) are avoided at every tier but the last."""
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        now = time.monotonic()
+        exclude = exclude or set()
+
+        def _tier(skip_tried: bool = True, skip_draining: bool = True,
+                  skip_penalized: bool = False,
+                  skip_broken: bool = False) -> List[_Endpoint]:
+            return [ep for ep in self._endpoints
+                    if ep.label not in exclude
+                    and (not skip_tried or ep.label not in tried)
+                    and (not skip_draining or not ep.draining)
+                    and (not skip_penalized or now >= ep.penalized_until)
+                    and (not skip_broken
+                         or not ep.breaker_blocked(now))]
+
+        pool = (_tier(skip_penalized=True,
+                      skip_broken=self._breaker_enabled)
+                or _tier()
+                or _tier(skip_draining=False)
+                or [ep for ep in self._endpoints if ep.label not in exclude]
+                or self._endpoints)
+
+        def _load(ep: _Endpoint) -> float:
+            base = ep.load if ep.load is not None else 0.0
+            return base + ep.inflight
+
+        low = min(_load(ep) for ep in pool)
+        ties = [ep for ep in pool if _load(ep) <= low]
+        with self._lock:
+            self._rr += 1
+            ep = ties[self._rr % len(ties)]
+        if self._breaker_enabled and ep.breaker_on_pick(now):
+            metrics.inc("client.breaker.half_open")
+            self._breaker_gauge()
+        return ep
+
+    def _breaker_gauge(self) -> None:
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        metrics.set_gauge(
+            "client.breaker.open_now",
+            sum(1 for ep in self._endpoints
+                if ep.breaker_state != "closed"))
+
+    # -- the request path -----------------------------------------------------
+    def query(self, spec: Dict[str, Any],
+              deadline_ms: Optional[float] = None) -> "pa.Table":
+        deadline_at = (time.monotonic() + float(deadline_ms) / 1000.0
+                       if deadline_ms is not None else None)
+        if self._hedge_enabled and isinstance(spec, dict):
+            return self._query_hedged(spec, deadline_ms, deadline_at)
+        return self._query_attempts(spec, deadline_ms, deadline_at)
+
+    @staticmethod
+    def _remaining_ms(deadline_at: Optional[float]) -> Optional[float]:
+        if deadline_at is None:
+            return None
+        return (deadline_at - time.monotonic()) * 1000.0
+
+    def _observe_latency(self, elapsed_ms: float) -> None:
+        with self._lock:
+            self._lat_ewma_ms = elapsed_ms if self._lat_ewma_ms <= 0.0 \
+                else 0.8 * self._lat_ewma_ms + 0.2 * elapsed_ms
+
+    def _query_attempts(self, spec: Dict[str, Any],
+                        deadline_ms: Optional[float],
+                        deadline_at: Optional[float],
+                        exclude: Optional[set] = None,
+                        note: Optional[Dict[str, Any]] = None,
+                        max_attempts: Optional[int] = None) -> "pa.Table":
+        """The retry and failover loop under ONE deadline budget: each
+        attempt's socket timeout, server-side deadline and backoff sleep
+        are bounded by what remains of ``deadline_ms``."""
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        attempts_cap = int(max_attempts) if max_attempts is not None \
+            else self._max_attempts
+        last_exc: Optional[Exception] = None
+        last_label: Optional[str] = None
+        tried: set = set()
+        for attempt in range(1, attempts_cap + 1):
+            remaining = self._remaining_ms(deadline_at)
+            if remaining is not None and remaining <= 1.0:
+                break  # the budget is spent: raise the last failure
+            if len(tried) >= len(self._endpoints):
+                tried.clear()  # every endpoint failed once: start over
+            ep = self._pick(tried, exclude=exclude)
+            tried.add(ep.label)
+            if note is not None:
+                note.setdefault("labels", set()).add(ep.label)
+            if last_label is not None and last_label != ep.label:
+                # A retry routed AWAY from the endpoint that failed.
+                metrics.inc("client.failover")
+            # Spread what remains over the attempts left (at most one per
+            # endpoint): a GRAY server, alive and answering nothing, would
+            # otherwise eat the whole budget in one socket timeout.
+            if remaining is not None:
+                spread = max(1, min(attempts_cap - attempt + 1,
+                                    len(self._endpoints)))
+                timeout_s = remaining / 1000.0 / spread + 0.05
+            else:
+                timeout_s = None
+            retry_after_ms: Optional[float] = None
+            kind = "connection"
+            t0 = time.monotonic()
+            try:
+                client = ep.acquire(self._tenant, timeout_s=timeout_s)
+            except OSError as exc:
+                last_exc = ConnectionError(
+                    f"connect to {ep.label} failed: {exc}")
+            else:
+                try:
+                    table = client.query(
+                        spec,
+                        deadline_ms=self._remaining_ms(deadline_at)
+                        if deadline_at is not None else deadline_ms,
+                        timeout_s=timeout_s)
+                except QueryFailedError as exc:
+                    # The server closed the connection after its ERR.
+                    ep.discard(client)
+                    self.last_trace_id = exc.trace_id
+                    if not exc.retryable:
+                        raise  # BADREQ/FAILED: the same answer anywhere
+                    kind = exc.code.lower()
+                    retry_after_ms = exc.retry_after_ms
+                    last_exc = exc
+                except OSError as exc:  # ConnectionError, TimeoutError
+                    ep.discard(client)
+                    last_exc = exc
+                else:
+                    ep.release(client)
+                    self.last_trace_id = client.last_trace_id
+                    self._observe_latency(
+                        (time.monotonic() - t0) * 1000.0)
+                    if self._breaker_enabled and ep.breaker_success():
+                        metrics.inc("client.breaker.close")
+                        self._breaker_gauge()
+                    return table
+            metrics.inc("client.retry")
+            metrics.inc(f"client.retry.{kind}")
+            last_label = ep.label
+            if self._breaker_enabled and ep.breaker_failure(
+                    self._breaker_failures,
+                    self._breaker_cooldown_ms / 1000.0):
+                metrics.inc("client.breaker.open")
+                self._breaker_gauge()
+            # Penalise the endpoint for the server's hinted window (or a
+            # nominal beat) so the next pick avoids it.
+            ep.penalized_until = time.monotonic() + \
+                (retry_after_ms or 100.0) / 1000.0
+            if attempt < attempts_cap:
+                if not self._backoff(attempt, retry_after_ms, deadline_at):
+                    break  # no budget left to sleep AND try again
+        if last_exc is None:
+            last_exc = TimeoutError(
+                f"deadline budget ({deadline_ms} ms) exhausted before "
+                f"any attempt completed")
+        raise last_exc
+
+    def _query_hedged(self, spec: Dict[str, Any],
+                      deadline_ms: Optional[float],
+                      deadline_at: Optional[float]) -> "pa.Table":
+        """The attempts loop on a thread; when it is slower than the
+        hedge delay, ONE more single attempt on another endpoint.  The
+        first answer wins; the loser reads its own connection to the end
+        on its thread and its answer is dropped by request_id."""
+        from hyperspace_tpu_torch.interop.query import mint_trace_id
+        from hyperspace_tpu_torch.telemetry import metrics
+
+        lock = threading.Lock()
+        done = threading.Event()
+        state: Dict[str, Any] = {"winner": None, "table": None,
+                                 "trace": None, "outstanding": 1}
+        errs: Dict[str, Exception] = {}
+        primary_note: Dict[str, Any] = {}
+
+        def _runner(tag: str, req_spec: Dict[str, Any],
+                    exclude: Optional[set], note: Optional[dict],
+                    max_attempts: Optional[int] = None) -> None:
+            try:
+                # The hedge runs ONE attempt: it is there to beat a slow
+                # primary, not to run the retry ladder a second time.
+                table = self._query_attempts(
+                    req_spec, deadline_ms, deadline_at,
+                    exclude=exclude, note=note, max_attempts=max_attempts)
+            except Exception as exc:  # noqa: BLE001 - raised by query()
+                with lock:
+                    errs[tag] = exc
+                    state["outstanding"] -= 1
+                    if state["outstanding"] <= 0 \
+                            and state["winner"] is None:
+                        done.set()
+            else:
+                with lock:
+                    state["outstanding"] -= 1
+                    if state["winner"] is None:
+                        state["winner"] = tag
+                        state["table"] = table
+                        state["trace"] = self.last_trace_id
+                        done.set()
+                    # else: the loser; its request_id lost the race and
+                    # its whole answer is dropped here.
+
+        primary_spec = {**spec, "request_id": mint_trace_id()}
+        threading.Thread(
+            target=_runner, args=("primary", primary_spec, None,
+                                  primary_note),
+            name="hs-client-primary", daemon=True).start()
+
+        delay_s = self._hedge_delay_s()
+        remaining = self._remaining_ms(deadline_at)
+        if remaining is not None:
+            delay_s = min(delay_s, max(0.0, remaining / 1000.0))
+        fired = False
+        if not done.wait(delay_s) and len(self._endpoints) > 1:
+            with lock:
+                slow_primary = state["winner"] is None \
+                    and state["outstanding"] > 0
+                if slow_primary:
+                    state["outstanding"] += 1
+            if slow_primary:
+                remaining = self._remaining_ms(deadline_at)
+                if remaining is None or remaining > 5.0:
+                    metrics.inc("client.hedge.sent")
+                    fired = True
+                    hedge_spec = {**spec, "request_id": mint_trace_id()}
+                    threading.Thread(
+                        target=_runner,
+                        args=("hedge", hedge_spec,
+                              set(primary_note.get("labels", set())),
+                              None, 1),
+                        name="hs-client-hedge", daemon=True).start()
+                else:
+                    with lock:
+                        state["outstanding"] -= 1
+        remaining = self._remaining_ms(deadline_at)
+        # The attempts' socket timeouts spend the budget, so a short
+        # grace past the deadline lets both threads settle.
+        done.wait(remaining / 1000.0 + 0.5 if remaining is not None
+                  else None)
+        with lock:
+            if state["winner"] is not None:
+                if fired and state["winner"] == "hedge":
+                    metrics.inc("client.hedge.wins")
+                self.last_trace_id = state["trace"]
+                return state["table"]
+            exc = errs.get("primary") or errs.get("hedge")
+        if exc is not None:
+            raise exc
+        raise TimeoutError(
+            f"deadline budget ({deadline_ms} ms) exhausted before any "
+            f"attempt completed")
+
+    def _hedge_delay_s(self) -> float:
+        """The wait before a hedge: the configured delay, or, when 0,
+        twice the latency EWMA within [10 ms, 500 ms] (50 ms with no
+        history yet)."""
+        if self._hedge_delay_ms > 0.0:
+            return self._hedge_delay_ms / 1000.0
+        with self._lock:
+            ewma = self._lat_ewma_ms
+        if ewma <= 0.0:
+            return 0.050
+        return min(0.500, max(0.010, 2.0 * ewma / 1000.0))
+
+    def _backoff(self, attempt: int, retry_after_ms: Optional[float],
+                 deadline_at: Optional[float] = None) -> bool:
+        """Jittered exponential backoff; the server's ``retry-after-ms``
+        hint is the step when there is one, and what remains of the
+        deadline budget caps it.  False when the budget cannot pay for
+        the sleep (the caller stops retrying)."""
+        step = retry_after_ms if retry_after_ms is not None \
+            else 50.0 * (2.0 ** (attempt - 1))
+        delay_ms = min(self._backoff_cap_ms, step) * \
+            (0.5 + self._rng.random())
+        remaining = self._remaining_ms(deadline_at)
+        if remaining is not None:
+            if remaining <= 2.0:
+                return False
+            delay_ms = min(delay_ms, remaining - 1.0)
+        time.sleep(delay_ms / 1000.0)
+        return True
+
+    def close(self) -> None:
+        for ep in self._endpoints:
+            ep.close_idle()
+        if self._breaker_enabled:
+            # The gauge describes THIS client's routing table: with the
+            # client gone nothing is open, and a stale nonzero would keep
+            # the doctor's client check warning.
+            from hyperspace_tpu_torch.telemetry import metrics
+
+            metrics.set_gauge("client.breaker.open_now", 0.0)
+
+    def __enter__(self) -> "FleetQueryClient":
         return self
 
     def __exit__(self, *exc) -> None:

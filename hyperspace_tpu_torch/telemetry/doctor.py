@@ -27,9 +27,9 @@ with the error, since "the doctor is blind here" is itself a finding):
                       against the median of its predecessors: 25% and
                       0.5 s slower is ``warn``.
   ``serving``         shed ratio and latency-SLO burn over the ``serve.*``
-                      metrics (none in this package yet: ``ok``).
-  ``client``          open circuit breakers of a front door in this
-                      process (none here yet: ``ok``).
+                      metrics of the query servers in this process.
+  ``client``          open circuit breakers of a front door
+                      (``FleetQueryClient``) in this process are ``warn``.
   ``degraded``        ``degraded.fallbacks`` / ``quarantine.files``
                       nonzero in this process is ``warn``.
   ``device_skew``     max/median of the per-device attributed kernel ms
@@ -353,9 +353,10 @@ def _check_serving(session) -> DoctorCheck:
 
 
 def _check_client(session) -> DoctorCheck:
-    """Front-door health of a fleet client in this process: open circuit
-    breakers mean whole endpoints are routed around.  This package has
-    no such client yet, so the counters read 0 and the check ``ok``."""
+    """Front-door health of the fleet clients in this process
+    (interop/server.FleetQueryClient, a proxy server's included): open
+    circuit breakers mean whole endpoints are routed around, so the
+    check warns while ``client.breaker.open_now`` is above 0."""
     from hyperspace_tpu_torch.telemetry import metrics
 
     snap = metrics.snapshot()

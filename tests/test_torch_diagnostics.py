@@ -139,11 +139,10 @@ class TestTraceContextParsing:
 
 
 def test_interop_exports_the_jax_query_names():
-    """The spec codec's and the server's names, as the JAX package
-    exports them, but ``FleetQueryClient`` (the fleet client is not
-    ported yet)."""
-    jax_names = set(_m(JAX, "interop").__all__) - {"FleetQueryClient"}
-    assert set(_m(TORCH, "interop").__all__) == jax_names
+    """The spec codec's, the server's and the fleet client's names, as
+    the JAX package exports them."""
+    assert set(_m(TORCH, "interop").__all__) == \
+        set(_m(JAX, "interop").__all__)
 
 
 # ---------------------------------------------------------------------------

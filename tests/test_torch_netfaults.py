@@ -1,17 +1,19 @@
 """The port's wire-fault seams (hyperspace_tpu_torch/interop/netfaults.py
 and the ``net.*`` channel of io/faults.py) held to tests/test_netfaults.py.
 
-Every case of ``TestNetFaultPlan`` and ``TestNetSeams`` runs through both
-packages, each with its own fault plan armed, and the two outcomes must
-be equal.  Of ``TestWirePathFaults`` the two ``QueryClient`` halves run
-here (a torn response raises ``ConnectionError``, a slow read adds its
-delay), and an accept reset seen by a plain ``QueryClient``; the other
-cases go through ``FleetQueryClient``, which the port does not have yet.
-Then what is the port's own: a plan of one package arms none of the
-other's seams, and with no wire plan armed the server writes its
-response straight to the socket, with no whole-frame buffer.
+Every case of ``TestNetFaultPlan``, ``TestNetSeams`` and
+``TestWirePathFaults`` runs through both packages, each with its own
+fault plan armed, and the two outcomes must be equal: the
+``QueryClient`` cases (a torn response raises ``ConnectionError``, a
+slow read adds its delay, an accept reset seen by a plain client) and
+the ``FleetQueryClient`` ones (a refused dial, a torn response, a reset
+read and a reset accept each retried to the right answer).  Then what
+is the port's own: a plan of one package arms none of the other's
+seams, and with no wire plan armed the server writes its response
+straight to the socket, with no whole-frame buffer.
 
-Every socket has a timeout of at most 2 s, every hang at most 0.25 s,
+Every socket has a timeout of at most 2 s (a fleet client's come from
+its deadline budget, ``FLEET_DEADLINE_MS``), every hang at most 0.25 s,
 and an autouse fixture clears both packages' plans and parked sockets.
 """
 
@@ -34,6 +36,8 @@ import hyperspace_tpu_torch
 JAX, TORCH = hyperspace_tpu, hyperspace_tpu_torch
 PKGS = (JAX, TORCH)
 SOCKET_S = 2.0  # every socket's timeout in this file
+# A fleet client's budget: no attempt's socket timeout is above 2 s.
+FLEET_DEADLINE_MS = 1950.0
 
 
 def _m(pkg, module: str):
@@ -445,6 +449,60 @@ class TestWirePathFaults:
             return out[0], "timed out" in out[1], waited
 
         assert _both(run)[TORCH] == ("ConnectionError", True, True)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_netfaults.py::TestWirePathFaults, the FleetQueryClient cases
+# ---------------------------------------------------------------------------
+class TestFleetWirePathFaults:
+    """Each fault fires once; the fleet client retries on its second
+    endpoint (the same server twice, as in the JAX cases) and answers
+    right, with at least one retry counted."""
+
+    @pytest.fixture(autouse=True)
+    def _warm(self, env):
+        """The JAX package's first query of a process compiles for
+        seconds: once here, outside any budget."""
+        sessions, data = env
+        _m(JAX, "interop.query").dataset_from_spec(
+            sessions[JAX], _point_spec(data, 0)).collect()
+
+    @staticmethod
+    def _fleet_answer(pkg, session, data, k, plan):
+        """``plan`` armed right after the fleet client's first use, then
+        the point query of ``k``: (its v column, retries counted)."""
+        srv, faults = _server(pkg), _faults(pkg)
+        retries = _m(pkg, "telemetry.metrics").registry().counter
+        with srv.QueryServer(session) as server:
+            with srv.FleetQueryClient([server.address,
+                                       server.address]) as fc:
+                retry0 = retries("client.retry")
+                faults.install(faults.FaultPlan(**plan))
+                got = fc.query(_point_spec(data, k),
+                               deadline_ms=FLEET_DEADLINE_MS)
+                faults.clear()
+                return (got.column("v").to_pylist(),
+                        retries("client.retry") - retry0 >= 1)
+
+    @pytest.mark.parametrize("plan, k, want", [
+        ({"site": "net.connect", "kind": "refused", "at": 1, "count": 1},
+         7, [21]),
+        # The client's request send is call 1, the response's call 2.
+        ({"site": "net.send", "kind": "torn-frame", "at": 2, "count": 1},
+         3, [9]),
+        ({"site": "net.recv", "kind": "reset", "at": 1, "count": 1},
+         4, [12]),
+        ({"site": "net.accept", "kind": "reset", "at": 1, "count": 1},
+         5, [15]),
+    ], ids=["connect_refused_fails_over", "torn_response_frame_is_retryable",
+            "recv_reset_fails_over", "accept_reset_fails_over"])
+    def test_fault_fails_over(self, env, plan, k, want):
+        sessions, data = env
+
+        def run(pkg):
+            return self._fleet_answer(pkg, sessions[pkg], data, k, plan)
+
+        assert _both(run)[TORCH] == (want, True)
 
 
 # ---------------------------------------------------------------------------
