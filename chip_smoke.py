@@ -7,7 +7,8 @@ beside it.  ``python3 chip_smoke.py --phases T,U`` runs some phases only:
 the kernel builds and phase A always, the data generation, the selected
 phases in the script's order with what they read from other phases
 (PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
-without its queries, phase L for M, phase T for U; C and D for T and V),
+without its queries, phase L for M, phase T for U; C and D for T and V;
+C for W),
 then the kernels' timing, with the same last line.  An unknown letter is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
@@ -563,6 +564,40 @@ async server in turns (threaded, async, async, threaded).
            ``client.*`` series (V_SCRAPED), its ms and bytes.  No kernel
            launches (``V fleet``).  Prints ``{"fleet": ...}`` with the
            card's name and power limit.
+  phase W  the source formats, hive partitions and globs (after phase
+           V), beside phase C's lineitem and ``li_idx``: six sources
+           written under ``root`` (``w_write``): ``w_hive``, the 6 M
+           rows by l_status in ``l_status=K/`` directories (N_FILES //
+           W_STATUSES files each, l_status only in the paths);
+           ``w_csv`` (with a header) and ``w_orc``, phase C's N_FILES
+           slices; ``w_json``, the orders as newline-delimited JSON;
+           ``w_avro``, the orders' first W_AVRO_ROWS rows (cut: the
+           codec is pure Python); ``w_text``, ``order-<o_orderkey>``
+           per order.  (1) ``w_csv_idx`` (li_idx's columns, 16 buckets)
+           as a spill build with DEFAULT_BATCH_ROWS, and (2)
+           ``w_orc_idx`` monolithic: each bucket's rows equal to
+           ``li_idx``'s in order, value for value (CSV reads the whole
+           doubles of l_quantity as int64; ``type_changes`` lists it).
+           (3) ``w_hive_idx`` (l_orderkey; l_status, l_extendedprice):
+           every row equal to numpy's in the index's layout, the
+           partition column included.  (4) Cold, then warm: a point and
+           a range on ``w_csv``, ``l_status == W_STATUS`` on ``w_hive``
+           (through ``w_ds``), the join of ``w_csv_idx`` with
+           ``w_json_idx``, a point on ``w_avro`` and on ``w_text``, each
+           equal to numpy and through its indexes.  (5) The glob
+           ``w_hive/l_status=*`` reads every row; ``w_glob_idx`` is
+           created over the four directories under that globbing
+           pattern (recorded as its root); a partition ``l_status=4/``
+           of ROWS_PER_FILE rows (``gen_lineitem(default_rng(211))``)
+           appears; the range through hybrid scan, then an incremental
+           refresh that indexes its rows alone, then the range through
+           the index, each equal to numpy.  (6) ``w_ds``
+           (DataSkippingIndexConfig on l_status) keeps N_FILES //
+           W_STATUSES of N_FILES files for (4)'s hive query.  Per build
+           its wall, read seconds (beside phase C's Parquet ``read_s``),
+           MB on disk, decoded and written; launches ``W formats`` over
+           the whole phase, both nonzero on the card.  Prints
+           ``{"formats": ...}`` with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -593,14 +628,16 @@ K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
 phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
-server``, phase U's ``U server``, phase V's ``V fleet``), the
+server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
+formats``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 (phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
 R), the object-store JSON (phase S), the server JSON (phase T), the
-async, tenant and wire-fault JSON (phase U) and the front-door JSON
-(phase V), each of the last ten with the card's name and power limit, the card's name and power limit, and
+async, tenant and wire-fault JSON (phase U), the front-door JSON
+(phase V) and the formats JSON (phase W), each of the last eleven with
+the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
 """
@@ -3024,7 +3061,7 @@ def zorder_sf10(root: str, src: str, dev) -> dict:
 
     t0 = time.perf_counter()
     files = sorted(os.path.join(src, f) for f in os.listdir(src))
-    table = read_table(files, ["l_shipdate", "l_extendedprice"])
+    table = read_table(files, columns=["l_shipdate", "l_extendedprice"])
     columns = {c: table.column(c).to_numpy() for c in table.column_names}
     del table
     if not np.array_equal(columns["l_shipdate"], np.arange(n)):
@@ -7485,6 +7522,511 @@ def phase_v(orders: dict, li: dict, root: str, dev) -> dict:
     return out
 
 
+W_SOURCES = ("w_hive", "w_csv", "w_orc", "w_json", "w_avro", "w_text")
+W_INDEXES = "w_indexes"         # phase W's system path
+W_STATUSES = 4                  # l_status in 0..3: one directory each
+W_SMALL_FILES = 16              # the JSON and text sources' files
+W_AVRO_ROWS = 100_000           # cut: the Avro codec is pure Python
+W_AVRO_FILES = 4
+W_STATUS = 2                    # the hive query's partition
+W_KEY_ROW = 12_345              # the orders row of the avro/text points
+W_APPENDED_SEED = 211           # the rows of the partition l_status=4/
+W_TIMED = 1                     # warm runs after the checked cold one
+
+
+def w_slices(table: dict, parts: int) -> list:
+    """``table`` as ``parts`` consecutive arrow slices, as write_files
+    cuts it."""
+    import pyarrow as pa
+
+    t = pa.table(table)
+    step = -(-t.num_rows // parts)
+    return [t.slice(f * step, step) for f in range(parts)]
+
+
+def w_json_lines(t) -> str:
+    """Newline-delimited JSON of an arrow table of numbers, formatted by
+    arrow's casts to string (the shortest text that reads back the same
+    double)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    parts: list = []
+    for i, name in enumerate(t.column_names):
+        parts += [("{" if i == 0 else ",") + json.dumps(name) + ":",
+                  pc.cast(t.column(name), pa.string())]
+    lines = pc.binary_join_element_wise(*parts, "}", "")
+    return "\n".join(lines.to_pylist()) + "\n"
+
+
+def w_write(orders: dict, li: dict, root: str) -> dict:
+    """The six sources of phase W under ``root``: name -> {path, files,
+    mb (on disk), write_s}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as paorc
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io import avro
+
+    out: dict = {}
+
+    def written(name: str, t0: float) -> None:
+        path = os.path.join(root, name)
+        files = [os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs]
+        out[name] = {"path": path, "files": len(files),
+                     "mb": sum(os.path.getsize(f) for f in files) / 1e6,
+                     "write_s": time.perf_counter() - t0}
+
+    def in_pool(jobs: list) -> None:
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda job: job[0](*job[1:]), jobs))
+
+    # w_hive: rows by l_status (stable), N_FILES // W_STATUSES files per
+    # l_status=K/ directory, l_status itself only in the paths.
+    t0 = time.perf_counter()
+    status = li["l_status"]
+    order = np.argsort(status, kind="stable")
+    hive = pa.table({c: v[order] for c, v in li.items() if c != "l_status"})
+    per = N_FILES // W_STATUSES
+    jobs, start = [], 0
+    for k, count in enumerate(np.bincount(status, minlength=W_STATUSES)):
+        d = os.path.join(root, "w_hive", f"l_status={k}")
+        os.makedirs(d)
+        step = -(-int(count) // per)
+        for f in range(per):
+            jobs.append((pq.write_table, hive.slice(start + f * step,
+                                                    min(step, int(count) - f * step)),
+                         os.path.join(d, f"part-{f:05d}.parquet")))
+        start += int(count)
+    in_pool(jobs)
+    del hive
+    written("w_hive", t0)
+    # w_csv and w_orc: phase C's slices.
+    for name, ext, write in (("w_csv", "csv", pacsv.write_csv),
+                             ("w_orc", "orc", paorc.write_table)):
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, name))
+        in_pool([(write, s, os.path.join(root, name, f"part-{f:05d}.{ext}"))
+                 for f, s in enumerate(w_slices(li, N_FILES))])
+        written(name, t0)
+    # w_json: the orders, newline-delimited.
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "w_json"))
+    for f, s in enumerate(w_slices(orders, W_SMALL_FILES)):
+        with open(os.path.join(root, "w_json", f"part-{f:05d}.json"),
+                  "w") as fh:
+            fh.write(w_json_lines(s))
+    written("w_json", t0)
+    # w_avro: the orders' first W_AVRO_ROWS rows.
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "w_avro"))
+    schema = {"type": "record", "name": "orders", "fields": [
+        {"name": c, "type": "double" if c == "o_totalprice" else "long"}
+        for c in orders]}
+    head = {c: v[:W_AVRO_ROWS].tolist() for c, v in orders.items()}
+    step = -(-W_AVRO_ROWS // W_AVRO_FILES)
+    for f in range(W_AVRO_FILES):
+        lo, hi = f * step, min(W_AVRO_ROWS, (f + 1) * step)
+        avro.write_container(
+            os.path.join(root, "w_avro", f"part-{f:05d}.avro"), schema,
+            [dict(zip(head, row)) for row in zip(*(v[lo:hi]
+                                                   for v in head.values()))])
+    written("w_avro", t0)
+    # w_text: one line "order-<o_orderkey>" per order.
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "w_text"))
+    keys = orders["o_orderkey"]
+    step = -(-len(keys) // W_SMALL_FILES)
+    for f in range(W_SMALL_FILES):
+        with open(os.path.join(root, "w_text", f"part-{f:05d}.txt"),
+                  "w") as fh:
+            fh.write("".join(f"order-{k}\n"
+                             for k in keys[f * step:(f + 1) * step].tolist()))
+    written("w_text", t0)
+    return out
+
+
+def w_as_read(label: str, want: dict, table, changed: dict) -> dict:
+    """``want`` with each column in the type the reader gave ``table``'s
+    (CSV reads whole doubles as int64), the change noted in ``changed``;
+    a change that loses a value fails."""
+    out = {}
+    for c, values in want.items():
+        got = table.column(c).type.to_pandas_dtype()
+        if np.dtype(got) != values.dtype and values.dtype != object:
+            cast = values.astype(got)
+            if not np.array_equal(cast, values):
+                raise AssertionError(f"{label}: {c} read as {got} loses "
+                                     f"values of {values.dtype}")
+            changed[c] = f"{values.dtype}->{np.dtype(got)}"
+            values = cast
+        out[c] = values
+    return out
+
+
+def w_bucket_tables(session, name: str) -> dict:
+    """bucket -> the index ``name``'s rows of that bucket, its files in
+    name order (one per bucket here)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    entry = session.index_collection_manager.get_index(name)
+    files: dict = {}
+    for f in entry.content.file_infos():
+        files.setdefault(bucket_id_of_file(f.name), []).append(f.name)
+    return {b: pa.concat_tables([pq.read_table(p, partitioning=None)
+                                 for p in sorted(paths)])
+            for b, paths in files.items()}
+
+
+def w_same_buckets(label: str, got: dict, want: dict, changed: dict) -> int:
+    """Each bucket of ``got`` holds ``want``'s rows in order, value for
+    value (a column read in another type compared in ``want``'s);
+    returns the rows compared."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: buckets {sorted(got)} against "
+                             f"{sorted(want)}")
+    rows = 0
+    for b, t in want.items():
+        g = got[b]
+        if g.column_names != t.column_names or g.num_rows != t.num_rows:
+            raise AssertionError(f"{label}: bucket {b} has {g.column_names} "
+                                 f"x {g.num_rows}, expected "
+                                 f"{t.column_names} x {t.num_rows}")
+        for c in t.column_names:
+            w = t.column(c).to_numpy()
+            x = g.column(c).to_numpy()
+            if x.dtype != w.dtype:
+                changed[c] = f"{w.dtype}->{x.dtype}"
+                x = x.astype(w.dtype)
+            if not np.array_equal(x, w):
+                raise AssertionError(f"{label}: bucket {b} column {c} "
+                                     f"differs from {INDEX_NAME}'s")
+        rows += t.num_rows
+    return rows
+
+
+def phase_w(orders: dict, li: dict, root: str, dev,
+            parquet_read_s=None) -> dict:
+    """The source formats, hive partitions and globs at SF1 (see the
+    module docstring): six sources beside phase C's lineitem, their
+    builds held to ``li_idx`` and numpy, the queries cold and warm."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import (
+        DataSkippingIndexConfig,
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+        col,
+    )
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.ops.hash import bucket_ids_np
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    steps: dict = {}
+
+    def step(label: str) -> None:
+        steps[label] = time.perf_counter() - t_phase - sum(steps.values())
+
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    sources = w_write(orders, li, root)
+    step("1_write")
+    session = HyperspaceSession(system_path=os.path.join(root, W_INDEXES),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    set_min_rows(session, 0)
+    hs = Hyperspace(session)
+    changed: dict = {}
+    builds: dict = {}
+
+    def build(label: str, source: str, fmt: str, config,
+              batch_rows: int = 1 << 23, paths=None) -> dict:
+        """``config``'s index over ``source`` (or ``paths`` of it) read
+        as ``fmt``; its wall, read seconds and bytes as ``label``."""
+        session.conf.device_batch_rows = batch_rows
+        ds = session.read.format(fmt).load(
+            *(paths or [sources[source]["path"]]))
+        t0 = time.perf_counter()
+        hs.create_index(ds, config)
+        wall = time.perf_counter() - t0
+        phases = session.build_stats_log[-1]
+        report = checked_report(f"phase W {config.index_name}", hs)
+        rec = {"index": config.index_name, "format": fmt, "wall_s": wall,
+               "read_s": phases.get("read_s"),
+               "spilled": "spill_route_s" in phases,
+               "mb_on_disk": sources[source]["mb"],
+               "mb_read": report["bytes_read"] / 1e6,
+               "mb_written": report["bytes_written"] / 1e6,
+               "files": sources[source]["files"]}
+        builds[label] = rec
+        session.conf.device_batch_rows = 1 << 23
+        return rec
+
+    # (1) w_csv: the spill build with the default batch, held to li_idx
+    # bucket by bucket; (2) w_orc monolithic, the same.
+    li_session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                   device=dev)
+    want_buckets = w_bucket_tables(li_session, INDEX_NAME)
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    rec = build("w_csv", "w_csv", "csv",
+                IndexConfig("w_csv_idx", INDEXED, INCLUDED),
+                DEFAULT_BATCH_ROWS)
+    if rec["spilled"] != (chunks > 1):
+        raise AssertionError(f"phase W: the CSV build spilled="
+                             f"{rec['spilled']} for {chunks} chunks")
+    rec["chunks"] = chunks
+    rec["rows_checked"] = w_same_buckets(
+        "phase W w_csv_idx", w_bucket_tables(session, "w_csv_idx"),
+        want_buckets, changed)
+    rec = build("w_orc", "w_orc", "orc",
+                IndexConfig("w_orc_idx", INDEXED, INCLUDED))
+    if rec["spilled"]:
+        raise AssertionError("phase W: the ORC build spilled")
+    orc_changed: dict = {}
+    rec["rows_checked"] = w_same_buckets(
+        "phase W w_orc_idx", w_bucket_tables(session, "w_orc_idx"),
+        want_buckets, orc_changed)
+    if orc_changed:
+        raise AssertionError(f"phase W: ORC changed types {orc_changed}")
+    del want_buckets
+    step("2_csv_orc")
+
+    # (3) w_hive: the partition column against numpy, row for row in the
+    # index's layout (source order is l_status's stable order).
+    hive_cols = ["l_orderkey", "l_status", "l_extendedprice"]
+    rec = build("w_hive", "w_hive", "parquet", IndexConfig(
+        "w_hive_idx", ["l_orderkey"], ["l_status", "l_extendedprice"]))
+    order = np.argsort(li["l_status"], kind="stable")
+    keys = li["l_orderkey"][order]
+    hw, _ = int64_words(keys)
+    buckets = bucket_ids_np([hw], NUM_BUCKETS)
+    layout = order[np.lexsort((keys, buckets))]
+    got = w_bucket_tables(session, "w_hive_idx")
+    got = pa.concat_tables([got[b] for b in sorted(got)])
+    for c in hive_cols:
+        if not np.array_equal(got.column(c).to_numpy(), li[c][layout]):
+            raise AssertionError(f"phase W w_hive_idx: {c} differs from "
+                                 f"numpy's in the index's layout")
+    rec["rows_checked"] = got.num_rows
+    del got, order, keys, hw, buckets, layout
+    # (6) the data-skipping index on the partition column.
+    t0 = time.perf_counter()
+    hs.create_index(session.read.parquet(sources["w_hive"]["path"]),
+                    DataSkippingIndexConfig("w_ds", ["l_status"]))
+    ds_create_s = time.perf_counter() - t0
+    step("3_hive")
+
+    # JSON, Avro and text builds for the queries.
+    for source, fmt, config in (
+            ("w_json", "json", IndexConfig("w_json_idx", ["o_orderkey"],
+                                           ["o_totalprice"])),
+            ("w_avro", "avro", IndexConfig("w_avro_idx", ["o_orderkey"],
+                                           ["o_totalprice"])),
+            ("w_text", "text", IndexConfig("w_text_idx", ["value"], []))):
+        build(source, source, fmt, config)
+    step("4_json_avro_text")
+
+    # (4) the queries, indexed, cold then warm, each held to numpy.
+    session.enable_hyperspace()
+    queries: dict = {}
+    exp = expected_answers(orders, li)
+    key = int(orders["o_orderkey"][W_KEY_ROW])
+    total = float(orders["o_totalprice"][W_KEY_ROW])
+    hive_mask = li["l_status"] == W_STATUS
+    csv_src = session.read.csv(sources["w_csv"]["path"])
+    json_src = session.read.json(sources["w_json"]["path"])
+    cases = {
+        "csv_point": (csv_src.filter(col("l_orderkey") == POINT_KEY)
+                      .select("l_orderkey", "l_quantity"),
+                      exp["point"], ["w_csv_idx"]),
+        "csv_range": (csv_src.filter((col("l_orderkey") >= RANGE[0])
+                                     & (col("l_orderkey") < RANGE[1]))
+                      .select("l_orderkey", "l_extendedprice", "l_discount"),
+                      exp["range"], ["w_csv_idx"]),
+        "hive_status": (session.read.parquet(sources["w_hive"]["path"])
+                        .filter(col("l_status") == W_STATUS)
+                        .select(*hive_cols),
+                        ({c: li[c][hive_mask] for c in hive_cols},
+                         ["l_orderkey", "l_extendedprice"]), []),
+        "csv_json_join": (json_src.join(csv_src, col("o_orderkey")
+                                        == col("l_orderkey"))
+                          .select("o_orderkey", "o_totalprice",
+                                  "l_quantity", "l_extendedprice"),
+                          exp["join"], ["w_json_idx", "w_csv_idx"]),
+        "avro_point": (session.read.avro(sources["w_avro"]["path"])
+                       .filter(col("o_orderkey") == key)
+                       .select("o_orderkey", "o_totalprice"),
+                       ({"o_orderkey": np.array([key]),
+                         "o_totalprice": np.array([total])}, None),
+                       ["w_avro_idx"]),
+        "text_point": (session.read.text(sources["w_text"]["path"])
+                       .filter(col("value") == f"order-{key}"),
+                       ({"value": np.array([f"order-{key}"],
+                                           dtype=object)}, None),
+                       ["w_text_idx"]),
+    }
+    for name, (ds, (want, sort_keys), indexes) in cases.items():
+        plan = ds.optimized_plan()
+        used = sorted(n for n, _ in index_scans(plan))
+        if used != sorted(indexes):
+            raise AssertionError(f"phase W {name}: indexes {used}, expected "
+                                 f"{sorted(indexes)}:\n{plan.tree_string()}")
+        kept = None
+        if name == "hive_status":
+            scans = [s.relation for s in plan.leaf_relations()
+                     if s.relation.data_skipping_of]
+            kept = scans[0].data_skipping_stats if scans else None
+            if kept != (N_FILES // W_STATUSES, N_FILES):
+                raise AssertionError(f"phase W: w_ds kept {kept} files, "
+                                     f"expected {N_FILES // W_STATUSES} of "
+                                     f"{N_FILES}")
+        ms = []
+        for run in range(1 + W_TIMED):
+            if run == 0:
+                device_cache().clear()
+            t0 = time.perf_counter()
+            table = ds.collect()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            require_rows(f"phase W {name}", table,
+                         w_as_read(f"phase W {name}", want, table, changed),
+                         sort_keys)
+        queries[name] = {"cold_ms": ms[0], "warm_ms": statistics.median(
+            ms[1:]), "rows": table.num_rows, "indexes": used,
+            "files_kept": kept}
+    step("5_queries")
+
+    # (5) globs and the pattern: the partition directories through a
+    # glob, an index recorded under the pattern, a new partition served
+    # by hybrid scan, then indexed after an incremental refresh.
+    pattern = os.path.join(sources["w_hive"]["path"], "l_status=*")
+    rows = session.read.parquet(pattern).count()
+    if rows != N_LINEITEM:
+        raise AssertionError(f"phase W: the glob read {rows} rows")
+    dirs = [os.path.join(sources["w_hive"]["path"], f"l_status={k}")
+            for k in range(W_STATUSES)]
+    session.conf.globbing_pattern = pattern
+    session.disable_hyperspace()
+    build("w_glob", "w_hive", "parquet", IndexConfig(
+        "w_glob_idx", ["l_orderkey"], ["l_discount"]), paths=dirs)
+    entry = session.index_collection_manager.get_index("w_glob_idx")
+    if entry.relations[0].root_paths != [pattern]:
+        raise AssertionError(f"phase W: w_glob_idx records "
+                             f"{entry.relations[0].root_paths}")
+    appended = gen_lineitem(np.random.default_rng(W_APPENDED_SEED),
+                            ROWS_PER_FILE)
+    new_dir = os.path.join(sources["w_hive"]["path"],
+                           f"l_status={W_STATUSES}")
+    os.makedirs(new_dir)
+    pq.write_table(pa.table({c: v for c, v in appended.items()
+                             if c != "l_status"}),
+                   os.path.join(new_dir, "part-00000.parquet"))
+    in_range = (li["l_orderkey"] >= RANGE[0]) & (li["l_orderkey"] < RANGE[1])
+    a_range = (appended["l_orderkey"] >= RANGE[0]) \
+        & (appended["l_orderkey"] < RANGE[1])
+    glob_want = {c: np.concatenate([li[c][in_range], appended[c][a_range]])
+                 for c in ("l_orderkey", "l_discount")}
+    glob_ds = session.read.parquet(pattern).filter(
+        (col("l_orderkey") >= RANGE[0]) & (col("l_orderkey") < RANGE[1])) \
+        .select("l_orderkey", "l_discount")
+    session.enable_hyperspace()
+    session.conf.hybrid_scan_enabled = True
+    glob: dict = {"rows_read": rows}
+    for label, hybrid in (("hybrid", True), ("refreshed", False)):
+        if not hybrid:
+            session.conf.hybrid_scan_enabled = False
+            kernels_before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            summary = hs.refresh_index("w_glob_idx", "incremental")
+            glob["refresh_s"] = time.perf_counter() - t0
+            launched = {k: v - kernels_before[k]
+                        for k, v in kernels.launch_counts().items()}
+            if (summary.outcome, summary.appended, summary.deleted) != \
+                    ("ok", 1, 0):
+                raise AssertionError(f"phase W: refresh {summary}")
+            entry = session.index_collection_manager.get_index("w_glob_idx")
+            newest = max({os.path.dirname(f.name)
+                          for f in entry.content.file_infos()},
+                         key=lambda d: int(d.rsplit("v__=", 1)[1]))
+            indexed = sum(pq.ParquetFile(f.name).metadata.num_rows
+                          for f in entry.content.file_infos()
+                          if os.path.dirname(f.name) == newest)
+            if indexed != ROWS_PER_FILE:
+                raise AssertionError(f"phase W: the refresh indexed {indexed} "
+                                     f"rows, not {ROWS_PER_FILE}")
+            glob.update(refresh_rows=indexed, refresh_launches=launched)
+        plan = glob_ds.optimized_plan()
+        used = [n for n, _ in index_scans(plan)]
+        merged = "Union" in plan.tree_string()
+        if used != ["w_glob_idx"] or merged != hybrid:
+            raise AssertionError(f"phase W glob {label}: indexes {used}, "
+                                 f"union {merged}:\n{plan.tree_string()}")
+        ms = []
+        for run in range(1 + W_TIMED):
+            if run == 0:
+                device_cache().clear()
+            t0 = time.perf_counter()
+            table = glob_ds.collect()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            require_rows(f"phase W glob {label}", table, glob_want,
+                         ["l_orderkey", "l_discount"])
+        glob[label] = {"cold_ms": ms[0], "warm_ms": statistics.median(ms[1:]),
+                       "rows": table.num_rows}
+    session.conf.globbing_pattern = ""
+    session.disable_hyperspace()
+    step("6_glob")
+    launches = kernels.launch_counts()
+    if cuda and not all(launches.values()):
+        raise AssertionError(f"phase W: kernels not launched: {launches}")
+    device_cache().clear()
+    for name in W_SOURCES:
+        shutil.rmtree(sources[name]["path"], ignore_errors=True)
+    shutil.rmtree(os.path.join(root, W_INDEXES), ignore_errors=True)
+    return {"sources": {k: {kk: vv for kk, vv in v.items() if kk != "path"}
+                        for k, v in sources.items()},
+            "builds": builds, "parquet_read_s": parquet_read_s,
+            "ds_create_s": ds_create_s, "queries": queries, "glob": glob,
+            "type_changes": changed, "launches": launches,
+            "steps_s": steps, "phase_s": time.perf_counter() - t_phase}
+
+
+def print_formats(w: dict) -> None:
+    for name, b in w["builds"].items():
+        print(f"phase W build {b['index']} ({b['format']}): wall "
+              f"{b['wall_s']:.3f} s, read {b['read_s'] or 0.0:.3f} s "
+              f"(phase C's Parquet {w['parquet_read_s'] or 0.0:.3f} s), "
+              f"{b['mb_on_disk']:.1f} MB on disk, {b['mb_read']:.1f} MB "
+              f"decoded, {b['mb_written']:.1f} MB written"
+              + (", spilled" if b["spilled"] else ""), flush=True)
+    for name, q in w["queries"].items():
+        print(f"phase W {name}: cold {q['cold_ms']:.1f} warm "
+              f"{q['warm_ms']:.1f} ms, {q['rows']} rows through "
+              f"{q['indexes'] or 'w_ds'}"
+              + (f", files kept {q['files_kept']}" if q["files_kept"] else ""),
+              flush=True)
+    g = w["glob"]
+    print(f"phase W glob: {g['rows_read']} rows through the glob; hybrid "
+          f"cold {g['hybrid']['cold_ms']:.1f} warm "
+          f"{g['hybrid']['warm_ms']:.1f} ms; refresh {g['refresh_s']:.3f} s "
+          f"indexed {g['refresh_rows']} rows, launches "
+          f"{json.dumps(g['refresh_launches'])}; refreshed cold "
+          f"{g['refreshed']['cold_ms']:.1f} warm "
+          f"{g['refreshed']['warm_ms']:.1f} ms", flush=True)
+    print(f"phase W: w_ds created in {w['ds_create_s']:.3f} s; types "
+          f"changed by the readers {json.dumps(w['type_changes'])}; launches "
+          f"{json.dumps(w['launches'])} ({w['phase_s']:.3f} s; by step "
+          f"{json.dumps(w['steps_s'])})", flush=True)
+
+
 def print_fleet(v: dict) -> None:
     f, p, h = v["fleet"], v["proxy"], v["hedge"]
     br, sc = v["breaker"], v["scrape"]
@@ -8090,7 +8632,7 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-PHASES = "ABCDEFGHIJKLMNOPQRSTUV"
+PHASES = "ABCDEFGHIJKLMNOPQRSTUVW"
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -8098,7 +8640,7 @@ PHASES = "ABCDEFGHIJKLMNOPQRSTUV"
 PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
-               "U": "T", "V": "CD"}
+               "U": "T", "V": "CD", "W": "C"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -8441,6 +8983,12 @@ def main(argv=None) -> int:
             print_fleet(v)
             res["fleet"] = v
             by_path["V fleet"] = v["launches"]
+        if "W" in runs:
+            w = phase_w(orders, li, root, dev,
+                        c["phases"].get("read_s") if "C" in runs else None)
+            print_formats(w)
+            res["formats"] = w
+            by_path["W formats"] = w["launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -8503,7 +9051,7 @@ def main(argv=None) -> int:
             print(json.dumps({key: res[key]}))
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
                 "diagnostics", "object_store", "server", "server_u",
-                "fleet"):
+                "fleet", "formats"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

@@ -3,8 +3,9 @@ the session's device, commit the log entry (counterpart of
 hyperspace_tpu/actions/create.py).
 
 The build reads the source one file at a time (``_PrefetchReader``, which
-decodes ahead on one thread) and cuts it into batches of exactly
-``conf.device_batch_rows`` rows:
+decodes ahead on one thread), in the relation's format (Parquet, CSV,
+JSON, ORC, Avro or text) with its hive partition columns, and cuts it
+into batches of exactly ``conf.device_batch_rows`` rows:
 
   - Everything fits in one batch: the monolithic build.  Key columns
     become uint32 hash and order words (``io.columnar``), the hash kernel
@@ -58,8 +59,8 @@ read, written and spilled, to the action's build report.
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
 ``_write_table_bucketed``.  Each source file read is an ``io.read``
-span.  Not ported: the mesh and multi-host builds.  pyarrow is imported
-when a function runs.
+span that names its format.  Not ported: the mesh and multi-host
+builds.  pyarrow is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -417,16 +418,21 @@ class CreateActionBase(Action):
             log.append({"index": self.index_name, **self.build_phases})
 
     def _read_chunk(self, f, columns, relation, lineage: bool):
-        """One source file's rows.  A file written before a column was
-        added to the source gets that column as nulls of the relation's
-        type, as the monolithic concatenation would promote it.  With
-        ``lineage`` the rows get the file's tracker id as
-        ``DATA_FILE_ID_COLUMN``."""
+        """One source file's rows, read with the relation's format and
+        options, its hive partition columns attached (of the relation's
+        one spec, so every chunk resolves the same types).  A file
+        written before a column was added to the source gets that column
+        as nulls of the relation's type, as the monolithic concatenation
+        would promote it.  With ``lineage`` the rows get the file's
+        tracker id as ``DATA_FILE_ID_COLUMN``."""
         import pyarrow as pa
 
         t0 = time.perf_counter()
-        with span("io.read", files=1, format="parquet") as sp:
-            t = read_file(f.name, columns)
+        with span("io.read", files=1, format=relation.file_format) as sp:
+            t = read_file(f.name, columns, relation.file_format,
+                          relation.options,
+                          partition_roots=relation.root_paths,
+                          partition_spec=relation.partition_spec())
             sp.set(rows=t.num_rows, bytes=t.nbytes)
         self._phase("read_s", time.perf_counter() - t0)
         self.build_report.add_bytes(read=t.nbytes)

@@ -13,8 +13,9 @@ which FilterIndexRule prunes index files by.
 Sketches are host work (Parquet footers, arrow and numpy); pyarrow is
 imported when a function runs.  A sketch file's content digest is
 recorded as it lands (``io/integrity.record_file``), so verify_index
-scrubs it.  Not ported: hive partition columns (the port's sources have
-none).
+scrubs it.  A source of another format than Parquet is sketched from a
+read of each file, and a hive partition column as min == max == the
+file's path value, with no data read.
 """
 
 from __future__ import annotations
@@ -145,30 +146,42 @@ def _sketch_from_parquet_footer(path: str,
     return out
 
 
-def _read_present(path: str, columns: Sequence[str]):
-    """The file's rows of those of ``columns`` it holds."""
-    from hyperspace_tpu_torch.io.parquet import read_schema, read_table
-
-    present = read_schema(path)
-    return read_table([path], [c for c in columns if c in present])
-
-
 def sketch_rows_for_files(files: Sequence[FileInfo], columns: Sequence[str],
+                          read_format: str = "parquet",
+                          options: Optional[Dict[str, str]] = None,
+                          partition_roots: Optional[Sequence[str]] = None,
                           sketch_types: Optional[Sequence[str]] = None
                           ) -> List[Dict]:
     """One sketch row per file: min, max and null count per sketched
-    column, from the Parquet footer when it has statistics.  Columns of
-    type "ValueList" also record their distinct values when there are at
-    most VALUE_LIST_MAX of them, and "BloomFilter" columns a bloom filter
-    (both read that column)."""
+    column, from the Parquet footer when it has statistics, else from a
+    read of the file (every file of another format).  A hive partition
+    column of ``partition_roots`` sketches as min == max == the file's
+    path value, with no data read.  Columns of type "ValueList" also
+    record their distinct values when there are at most VALUE_LIST_MAX
+    of them, and "BloomFilter" columns a bloom filter (both read that
+    column)."""
     import pyarrow.compute as pc
 
+    from hyperspace_tpu_torch.io.parquet import read_table
+    from hyperspace_tpu_torch.io.partitions import (
+        partition_spec_for_roots,
+        partition_values,
+        typed_value,
+    )
     from hyperspace_tpu_torch.utils.parallel_map import parallel_map_ordered
 
+    options = options or {}
     types = list(sketch_types) if sketch_types is not None \
         else ["MinMax"] * len(columns)
     value_list_cols = [c for c, t in zip(columns, types) if t == "ValueList"]
     bloom_cols = [c for c, t in zip(columns, types) if t == "BloomFilter"]
+    spec = partition_spec_for_roots(partition_roots) \
+        if partition_roots else {}
+
+    def read(path: str, cols):
+        return read_table([path], read_format, list(cols), options,
+                          partition_roots=partition_roots,
+                          partition_spec=spec)
 
     def sketch_one(f: FileInfo) -> Dict:
         row: Dict = {
@@ -176,15 +189,25 @@ def sketch_rows_for_files(files: Sequence[FileInfo], columns: Sequence[str],
             SKETCH_FILE_SIZE: f.size,
             SKETCH_FILE_MTIME: f.mtime,
         }
-        stats = _sketch_from_parquet_footer(f.name, columns)
+        stats = _sketch_from_parquet_footer(
+            f.name, [c for c in columns if c not in spec]) \
+            if read_format == "parquet" else None
         if stats is not None:
+            raw = partition_values(f.name, partition_roots or [])
+            for c in columns:
+                if c in spec:
+                    value = typed_value(raw.get(c), spec[c])
+                    stats[_min_col(c)] = value
+                    stats[_max_col(c)] = value
+                    stats[_null_col(c)] = stats[SKETCH_ROW_COUNT] \
+                        if value is None else 0
             row.update(stats)
             wanted = value_list_cols + bloom_cols
             if wanted:
-                _fill_data_sketches(row, _read_present(f.name, wanted),
+                _fill_data_sketches(row, read(f.name, wanted),
                                     value_list_cols, bloom_cols)
             return row
-        t = _read_present(f.name, columns)
+        t = read(f.name, columns)
         row[SKETCH_ROW_COUNT] = t.num_rows
         for c in columns:
             col = t.column(c) if c in t.column_names else None
@@ -307,7 +330,9 @@ class CreateDataSkippingAction(CreateActionBase):
             files = [f for f in files if f.name in wanted]
         rows = list(carry_rows or [])
         rows.extend(sketch_rows_for_files(
-            files, resolved.sketched_columns, resolved.sketch_types))
+            files, resolved.sketched_columns, relation.file_format,
+            relation.options, partition_roots=relation.root_paths,
+            sketch_types=resolved.sketch_types))
         if not rows:
             raise HyperspaceError("No source data files to sketch")
         version = self.data_manager.get_next_version()

@@ -3,8 +3,9 @@ holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
 index lifecycle, the source watch, the transaction loop, telemetry, the
-sync guard, the doctor, deadlines, the plan cache, the flight recorder
-and the pluggable log and store classes; defaults are the JAX
+sync guard, the doctor, deadlines, the plan cache, the flight recorder,
+the pluggable log and store classes, and the source formats and
+globbing pattern of the default provider; defaults are the JAX
 package's, the class paths under the port's own modules).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
@@ -63,6 +64,12 @@ class HyperspaceConf:
     # EmulatedObjectStore's listing window (ms): keys committed within it
     # are not listed yet, while point reads see them.
     object_store_stale_list_ms: float = 0.0
+    # The source formats the default provider reads, comma-separated.
+    supported_file_formats: str = "avro,csv,json,orc,parquet,text"
+    # Comma-separated glob patterns; when set, create_index records the
+    # patterns as the relation's root paths (each root must match one),
+    # so a refresh picks up directories that appeared since.
+    globbing_pattern: str = ""
     # The most rows one build holds on the device at once; env
     # HS_DEVICE_BATCH_ROWS overrides the default.
     device_batch_rows: int = dataclasses.field(

@@ -45,15 +45,20 @@ by ``ops.aggregate.grouped_aggregate``), else the host engine
 on CPU tensors, the column scattered back to the input's order.
 
 Scan semantics: ``relation.file_paths`` replaces the listing of the root
-paths (index scans); ``relation.prune_to_buckets`` drops index files
-whose bucket id (from the file name) is not wanted.
+paths (index scans, hybrid subsets); ``relation.prune_to_buckets`` drops
+index files whose bucket id (from the file name) is not wanted.  A source
+scan reads its relation's format (Parquet, CSV, JSON, ORC, Avro, text)
+with its options, and its hive partition columns from the paths below
+its root paths (io/partitions.py); an index scan never has them.
 
 Identity and residency: every scan's output table is registered with
 the fingerprint of the files it read (``device_cache.files_fingerprint``:
 paths, sizes, mtimes), a column selection and a window keep it (not the
 window's own column), and a filter's output and a join side without its
 null keys get a derived fingerprint (the parent's hashed with
-``filter:<condition>`` or ``dropnull:<keys>``).
+``filter:<condition>`` or ``dropnull:<keys>``).  A scan of another
+format than Parquet, with options, or with partition columns hashes its
+format, options and partition spec into the fingerprint too.
 A column of an identified table is converted and uploaded once per
 (device, fingerprint, column, kind) into the process-wide
 ``device_cache.global_cache()``, and later queries over the same files
@@ -127,6 +132,7 @@ from hyperspace_tpu_torch.io.parquet import (
     read_table,
     schema_to_arrow,
 )
+from hyperspace_tpu_torch.io.partitions import partition_spec_for_roots
 from hyperspace_tpu_torch.plan.expr import (
     And,
     Arith,
@@ -204,11 +210,13 @@ class Executor:
             raise
 
     # -- device column cache ------------------------------------------------
-    def _register_scan_identity(self, table, paths) -> None:
+    def _register_scan_identity(self, table, paths, salt: str = "") -> None:
         conf = self.session.conf
         if conf.device_cache_policy == "off" or conf.device_cache_bytes <= 0:
             return
         fp = files_fingerprint(paths)
+        if fp and salt:
+            fp = hashlib.md5(f"{fp}|{salt}".encode()).hexdigest()
         if fp:
             self._scan_fp[id(table)] = (fp, frozenset(table.column_names),
                                         table)
@@ -465,20 +473,35 @@ class Executor:
         self.stats["scans"].append(record)
         sp.set(**record)
         run_report.record("scan", **record)
+        # Source scans read hive partition columns from the paths below
+        # their roots; index scans never do (v__=N is no partition).
+        roots = rel.root_paths if rel.index_scan_of is None else None
+        spec = partition_spec_for_roots(roots) if roots else {}
         if not paths:
             # Every file pruned: an empty table that keeps the schema, so
             # the nodes above still resolve their columns.
             import pyarrow as pa
 
-            empty = schema_to_arrow(read_schema(all_paths[0])).empty_table() \
-                if all_paths else pa.table({})
+            if all_paths:
+                schema = read_schema(all_paths[0], rel.file_format,
+                                     rel.options_dict)
+                for k, t in spec.items():
+                    schema.setdefault(k, t)
+                empty = schema_to_arrow(schema).empty_table()
+            else:
+                empty = pa.table({})
             return empty.select(columns) if columns else empty
-        out = self._read_index_files(rel, paths,
-                                     lambda: read_table(paths, columns))
+        out = self._read_index_files(rel, paths, lambda: read_table(
+            paths, rel.file_format, columns, rel.options_dict,
+            partition_roots=roots, partition_spec=spec))
         if columns:
             out = out.select(columns)
         record["rows"] = out.num_rows
-        self._register_scan_identity(out, paths)
+        # Another format, its options or the partition spec give other
+        # columns from the same files: they key other cached columns.
+        plain = rel.file_format == "parquet" and not rel.options and not spec
+        self._register_scan_identity(out, paths, "" if plain else repr(
+            (rel.file_format, rel.options, sorted(spec.items()))))
         return out
 
     # -- filter -------------------------------------------------------------
@@ -1224,6 +1247,8 @@ class Executor:
         if not isinstance(node, Scan):
             return None
         rel = node.relation
+        if rel.file_format.lower() != "parquet":
+            return None  # no footer to count
         paths = list(rel.file_paths) if rel.file_paths is not None \
             else [f.name for f in list_data_files(rel.root_paths)]
         return self._read_index_files(rel, paths, lambda: sum(

@@ -23,7 +23,10 @@ class SignatureProvider:
 
 
 class FileBasedSignatureProvider(SignatureProvider):
-    """md5 fold over (size, mtime, name) of every leaf file."""
+    """md5 fold over (size, mtime, name) of every leaf file.  A root
+    path that is a glob pattern is expanded by the listing
+    (``io.files.expand_globs``) before the fold, so the signature covers
+    the files of the directories that match now."""
 
     name = "FileBasedSignatureProvider"
 

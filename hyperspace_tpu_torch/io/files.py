@@ -1,6 +1,8 @@
 """File listing over source root paths, and deletes (counterpart of
-hyperspace_tpu/io/files.py, its build-path subset).  Listing is
-recursive; results are sorted by path for deterministic signatures.
+hyperspace_tpu/io/files.py without its native walk).  Listing is
+recursive; results are sorted by path for deterministic signatures.  A
+root path may be a glob pattern (``expand_globs``), so an index whose
+relation records a pattern covers directories that appear later.
 
 Listings go through the ``io.list`` fault site and retry transient IO
 errors (utils/retry.py); deletes of index data go through the
@@ -8,6 +10,7 @@ errors (utils/retry.py); deletes of index data go through the
 
 from __future__ import annotations
 
+import glob as _glob
 import os
 import shutil
 from typing import List, Optional, Sequence
@@ -16,6 +19,8 @@ from hyperspace_tpu_torch.index.log_entry import FileInfo
 from hyperspace_tpu_torch.io import faults
 from hyperspace_tpu_torch.utils.paths import is_data_file, normalize_path
 from hyperspace_tpu_torch.utils.retry import RetryPolicy
+
+_GLOB_CHARS = ("*", "?", "[")
 
 
 def list_dir(path: str, retry: Optional[RetryPolicy] = None) -> List[str]:
@@ -50,12 +55,26 @@ def remove_file(path: str, missing_ok: bool = False) -> None:
             raise
 
 
+def expand_globs(root_paths: Sequence[str]) -> List[str]:
+    """``root_paths`` with each glob pattern replaced by its sorted
+    matches; a path that exists as it is, a directory named ``run[1]``
+    say, reads as itself and is never a pattern."""
+    out: List[str] = []
+    for root in root_paths:
+        if any(c in root for c in _GLOB_CHARS) and not os.path.exists(root):
+            out.extend(sorted(_glob.glob(root)))
+        else:
+            out.append(root)
+    return out
+
+
 def list_data_files(root_paths: Sequence[str],
                     extension: Optional[str] = None) -> List[FileInfo]:
-    """All data files under ``root_paths`` (each a file or directory),
-    sorted by path; with ``extension``, only the files of a directory
-    whose name ends with it.  The walk goes through the ``io.list`` site
-    and retries transient errors with the default policy."""
+    """All data files under ``root_paths`` (each a file, a directory or a
+    glob pattern of them), sorted by path; with ``extension``, only the
+    files of a directory whose name ends with it.  The walk goes through
+    the ``io.list`` site and retries transient errors with the default
+    policy."""
     def attempt() -> List[FileInfo]:
         faults.check("io.list")
         return _list_data_files(root_paths, extension)
@@ -66,7 +85,7 @@ def list_data_files(root_paths: Sequence[str],
 def _list_data_files(root_paths: Sequence[str],
                      extension: Optional[str]) -> List[FileInfo]:
     out: List[FileInfo] = []
-    for root in (normalize_path(r) for r in root_paths):
+    for root in (normalize_path(r) for r in expand_globs(root_paths)):
         if os.path.isfile(root):
             out.append(_file_info(root))
         elif os.path.isdir(root):

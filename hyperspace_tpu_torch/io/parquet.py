@@ -1,11 +1,12 @@
-"""Parquet IO: read source and index files, write bucketed index data
-(a whole sorted table, or one bucket's run of the spill build).
+"""Columnar IO: read source files (Parquet, CSV, JSON, ORC, Avro and
+text, with hive partition columns) and index files, write bucketed index
+data (a whole sorted table, or one bucket's run of the spill build).
 
-Counterpart of hyperspace_tpu/io/parquet.py (its build and query
-subset).  The
-bucketed writer writes one sorted Parquet file per non-empty bucket (more
-when ``max_rows_per_file`` splits a bucket), named ``part-bNNNNN-*`` so a
-file maps to its bucket without reading footers.  The layout and the
+Counterpart of hyperspace_tpu/io/parquet.py.  Index data is Parquet
+whatever the source's format.  The bucketed writer writes one sorted
+Parquet file per non-empty bucket (more when ``max_rows_per_file``
+splits a bucket), named ``part-bNNNNN-*`` so a file maps to its bucket
+without reading footers.  The layout and the
 bytes per bucket are the JAX package's, so either package reads the
 other's index files.  A Z-order index (one bucket) cuts its files where
 the top bits of the rows' Morton codes change (``zorder_split_chunks``),
@@ -14,9 +15,10 @@ it lands
 (``io/integrity.record_file``, in the writer threads), so the committed
 entry carries its content digest.
 
-Every single-file read goes through the ``data.read`` fault site and
-retries transient IO errors (``_read_retry``), after the corruption
-checkpoint of that site; every index data file written goes through the
+Every single-file read goes through the ``data.read`` fault site once
+and retries transient IO errors (``_read_retry``); a Parquet file read
+without partition columns passes the corruption checkpoint of that site
+first.  Every index data file written goes through the
 ``data.write`` site, and its corruption checkpoint comes after the
 digest of the intended bytes (io/faults.py).  Reads are ``io.read``
 spans and writes ``io.write`` spans, counted in ``io.files.read`` and
@@ -92,50 +94,203 @@ def read_parquet_file(path: str, columns: Optional[Sequence[str]]):
         lambda: pq.read_table(path, columns=cols, partitioning=None))
 
 
-def read_table(paths: Sequence[str], columns: Optional[Sequence[str]] = None):
-    """Read Parquet files and concatenate them, in ``paths`` order, into
-    one arrow Table."""
+def read_table(paths: Sequence[str], file_format: str = "parquet",
+               columns: Optional[Sequence[str]] = None,
+               options: Optional[Dict[str, str]] = None,
+               partition_roots: Optional[Sequence[str]] = None,
+               partition_spec: Optional[Dict[str, str]] = None):
+    """Read files of ``file_format`` and concatenate them, in ``paths``
+    order, into one arrow Table.
+
+    With ``partition_roots`` (a source scan's root paths; never given for
+    index files), each file's ``key=value`` directories below the roots
+    become constant columns (io/partitions.py) of the types
+    ``partition_spec`` gives, or the directory tree's when it is None."""
     import pyarrow as pa
 
-    with span("io.read", files=len(paths), format="parquet") as sp:
+    with span("io.read", files=len(paths), format=file_format) as sp:
         if not paths:
             return pa.table({})
+        load = _file_reader(file_format, columns, options, partition_roots,
+                            partition_spec)
         if len(paths) == 1:
-            tables = [read_parquet_file(paths[0], columns)]
+            tables = [load(paths[0])]
         else:
             # Each read runs in a copy of the caller's context, so a
             # retry it absorbs lands in the caller's run report
             # (telemetry/report.py).
             contexts = [contextvars.copy_context() for _ in paths]
             with ThreadPoolExecutor(_io_workers(len(paths))) as pool:
-                tables = list(pool.map(
-                    lambda ctx, p: ctx.run(read_parquet_file, p, columns),
-                    contexts, paths))
+                tables = list(pool.map(lambda ctx, p: ctx.run(load, p),
+                                       contexts, paths))
         out = pa.concat_tables(tables, promote_options="default")
         sp.set(rows=out.num_rows, bytes=out.nbytes)
         return out
 
 
-def read_file(path: str, columns: Sequence[str]):
-    """One Parquet file's ``columns``, those of them that the file has: a
-    file written before a column was added to the source reads without
-    it (the caller fills it with nulls)."""
+def read_file(path: str, columns: Optional[Sequence[str]],
+              file_format: str = "parquet",
+              options: Optional[Dict[str, str]] = None,
+              partition_roots: Optional[Sequence[str]] = None,
+              partition_spec: Optional[Dict[str, str]] = None):
+    """One file's ``columns``: ``read_table`` of one path without its
+    span.  A Parquet file written before a column was added to the
+    source reads without it (the caller fills it with nulls)."""
+    return _file_reader(file_format, columns, options, partition_roots,
+                        partition_spec)(path)
+
+
+def _file_reader(file_format: str, columns: Optional[Sequence[str]],
+                 options: Optional[Dict[str, str]],
+                 partition_roots: Optional[Sequence[str]],
+                 partition_spec: Optional[Dict[str, str]]):
+    """The function that reads one file of ``file_format``, its
+    partition columns attached.  The spec comes from the directory tree,
+    never from the files one call reads, so that every caller (a scan,
+    a build chunk, a hybrid subset) resolves the same types."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.partitions import (
+        attach_partition_columns,
+        partition_spec_for_roots,
+    )
+
+    options = options or {}
+    spec: Dict[str, str] = {}
+    file_columns = columns
+    if partition_roots:
+        spec = partition_spec if partition_spec is not None \
+            else partition_spec_for_roots(partition_roots)
+        if spec and columns and file_format != "parquet":
+            # Partition columns come from the paths, not the file.
+            file_columns = [c for c in columns if c not in spec]
+
+    def load(path: str):
+        file_spec, cols = spec, file_columns
+        if spec and file_format == "parquet":
+            # A column this file holds wins over the path value, decided
+            # per file: in a mixed-schema file set, a file without the
+            # column takes the path value, not nulls.  One ParquetFile
+            # gives the schema and the rows; ``columns=[]`` keeps the
+            # row count of a projection of partition columns only.
+            def read_with_spec():
+                with pq.ParquetFile(path) as pf:
+                    present = set(pf.schema_arrow.names)
+                    fspec = {k: t for k, t in spec.items()
+                             if k not in present}
+                    fcols = None if cols is None \
+                        else [c for c in columns if c not in fspec]
+                    return fspec, pf.read(
+                        columns=None if fcols is None
+                        else [c for c in fcols if c in present])
+
+            file_spec, t = _read_retry(read_with_spec)
+        else:
+            t = _read_one(path, file_format, cols, options)
+        if file_spec:
+            t = attach_partition_columns(t, path, partition_roots, file_spec,
+                                         columns)
+        return t
+
+    return load
+
+
+def _read_one(path: str, file_format: str, columns,
+              options: Dict[str, str]):
+    """One file without partition columns; each format's read passes
+    the ``data.read`` site once (Parquet's in ``read_parquet_file``)."""
+    if file_format != "parquet":
+        return _read_retry(
+            lambda: _read_one_raw(path, file_format, columns, options))
+    return _read_one_raw(path, file_format, columns, options)
+
+
+def _read_one_raw(path: str, file_format: str, columns,
+                  options: Dict[str, str]):
     import pyarrow as pa
-    import pyarrow.parquet as pq
 
-    try:
-        return read_parquet_file(path, columns)
-    except (pa.ArrowInvalid, KeyError):
-        present = set(pq.read_schema(path).names)
-        return read_parquet_file(path, [c for c in columns if c in present])
+    if file_format == "parquet":
+        if columns is None:
+            return read_parquet_file(path, None)
+        try:
+            return read_parquet_file(path, columns)
+        except (pa.ArrowInvalid, KeyError):
+            # A mixed-schema file set (a column added by a later
+            # append): the columns this file has; the concatenation
+            # promotes the rest to nulls.  An empty intersection still
+            # keeps the row count.
+            import pyarrow.parquet as pq
+
+            present = set(pq.read_schema(path).names)
+            return read_parquet_file(path, [c for c in columns
+                                            if c in present])
+    if file_format == "csv":
+        import pyarrow.csv as pacsv
+
+        read_opts = pacsv.ReadOptions()
+        if options.get("header", "true").lower() == "false":
+            read_opts.autogenerate_column_names = True
+        table = pacsv.read_csv(path, read_options=read_opts)
+    elif file_format == "json":
+        import pyarrow.json as pajson
+
+        table = pajson.read_json(path)
+    elif file_format == "orc":
+        import pyarrow.orc as paorc
+
+        if columns is not None:
+            present = set(paorc.ORCFile(path).schema.names)
+            return paorc.read_table(
+                path, columns=[c for c in columns if c in present])
+        return paorc.read_table(path)
+    elif file_format == "avro":
+        from hyperspace_tpu_torch.io import avro
+
+        return avro.to_arrow_table(path, columns)
+    elif file_format == "text":
+        # One string column "value", one row per line, split on \n, \r
+        # and \r\n only (str.splitlines would also split on \x0b,
+        # \x85, U+2028 and others); a trailing newline adds no row.
+        with open(path, "rb") as f:
+            text = f.read().decode("utf-8")
+        lines = text.replace("\r\n", "\n").replace("\r", "\n").split("\n")
+        if lines and lines[-1] == "":
+            lines.pop()
+        table = pa.table({"value": pa.array(lines, type=pa.string())})
+        if columns is not None:
+            return table.select([c for c in columns
+                                 if c in table.column_names])
+        return table
+    else:
+        raise ValueError(f"Unsupported file format: {file_format!r}")
+    if columns:
+        table = table.select(list(columns))
+    return table
 
 
-def read_schema(path: str) -> Dict[str, str]:
-    """Column name -> arrow dtype string for one Parquet file."""
-    import pyarrow.parquet as pq
+def read_schema(path: str, file_format: str = "parquet",
+                options: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """Column name -> arrow dtype string for one file of
+    ``file_format``: from the footer or header where the format has one
+    (Parquet, ORC, Avro), from a read of the file for CSV and JSON."""
+    if file_format == "parquet":
+        import pyarrow.parquet as pq
 
-    return {f.name: str(f.type)
-            for f in _read_retry(lambda: pq.read_schema(path))}
+        return {f.name: str(f.type)
+                for f in _read_retry(lambda: pq.read_schema(path))}
+    if file_format == "orc":
+        import pyarrow.orc as paorc
+
+        return {f.name: str(f.type) for f in paorc.ORCFile(path).schema}
+    if file_format == "avro":
+        from hyperspace_tpu_torch.io import avro
+
+        return {f.name: str(f.type) for f in avro.avro_schema_to_arrow(
+            avro.read_schema_only(path))}
+    if file_format == "text":
+        return {"value": "string"}
+    table = _read_one(path, file_format, None, options or {})
+    return {f.name: str(f.type) for f in table.schema}
 
 
 def schema_to_arrow(schema: Dict[str, str]):

@@ -60,17 +60,47 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
 
 
 class DataReader:
-    """``session.read.parquet(path)``."""
+    """``session.read.parquet(path)``, ``.csv``, ``.json``, ``.orc``,
+    ``.avro``, ``.text`` and ``.format(fmt).load(path)``; a path may be
+    a glob pattern.  Options ride the relation (``header="false"`` for a
+    CSV without a header row)."""
 
     def __init__(self, session: "HyperspaceSession") -> None:
         self._session = session
 
-    def parquet(self, *paths: str, **options: str):
+    def _make(self, fmt: str, *paths: str, **options: str):
         from hyperspace_tpu_torch.dataset import Dataset
 
-        rel = ScanRelation(root_paths=tuple(paths), file_format="parquet",
+        rel = ScanRelation(root_paths=tuple(paths), file_format=fmt,
                            options=tuple(sorted(options.items())))
         return Dataset(Scan(rel), self._session)
+
+    def parquet(self, *paths: str, **options: str):
+        return self._make("parquet", *paths, **options)
+
+    def csv(self, *paths: str, **options: str):
+        return self._make("csv", *paths, **options)
+
+    def json(self, *paths: str, **options: str):
+        return self._make("json", *paths, **options)
+
+    def orc(self, *paths: str, **options: str):
+        return self._make("orc", *paths, **options)
+
+    def avro(self, *paths: str, **options: str):
+        return self._make("avro", *paths, **options)
+
+    def text(self, *paths: str, **options: str):
+        return self._make("text", *paths, **options)
+
+    def format(self, fmt: str):
+        reader = self
+
+        class _FormatReader:
+            def load(self, *paths: str, **options: str):
+                return reader._make(fmt, *paths, **options)
+
+        return _FormatReader()
 
 
 class HyperspaceSession:
@@ -130,7 +160,8 @@ class HyperspaceSession:
 
     @property
     def source_provider_manager(self) -> FileBasedSourceProviderManager:
-        return FileBasedSourceProviderManager()
+        # Made per access, so a conf change takes effect.
+        return FileBasedSourceProviderManager(self.conf)
 
     @property
     def index_collection_manager(self):
@@ -146,22 +177,42 @@ class HyperspaceSession:
         return list(self.schema_map_of(scan).keys())
 
     def schema_map_of(self, scan: Scan) -> Dict[str, str]:
-        """Column name -> arrow dtype string of a Parquet scan, cached by
-        the relation's value; a hypothetical index scan has no file and
-        carries its schema itself."""
-        if scan.relation.hypothetical \
-                and scan.relation.hypothetical_schema is not None:
-            return dict(scan.relation.hypothetical_schema)
-        key = scan.relation
-        if key not in self._schema_cache:
-            if scan.relation.file_paths is not None:
+        """Column name -> arrow dtype string of a scan, read in its
+        format and cached by the relation's value; a hypothetical index
+        scan has no file and carries its schema itself.  A scan of a file
+        subset (an index scan, a hybrid subset) takes the first of its
+        files that answers, so one damaged file fails at execution, where
+        containment takes it, not at planning; a source subset also gets
+        the partition columns below its root paths."""
+        rel = scan.relation
+        if rel.hypothetical and rel.hypothetical_schema is not None:
+            return dict(rel.hypothetical_schema)
+        if rel not in self._schema_cache:
+            if rel.file_paths is not None:
                 from hyperspace_tpu_torch.io.parquet import read_schema
 
-                self._schema_cache[key] = read_schema(scan.relation.file_paths[0])
+                schema = None
+                for i, path in enumerate(rel.file_paths):
+                    try:
+                        schema = read_schema(path, rel.file_format,
+                                             rel.options_dict)
+                        break
+                    except Exception:  # noqa: BLE001 - the next file
+                        if i == len(rel.file_paths) - 1:
+                            raise
+                if rel.index_scan_of is None:
+                    from hyperspace_tpu_torch.io.partitions import (
+                        partition_spec_for_roots,
+                    )
+
+                    for k, t in partition_spec_for_roots(
+                            rel.root_paths).items():
+                        schema.setdefault(k, t)
+                self._schema_cache[rel] = schema
             else:
-                self._schema_cache[key] = \
+                self._schema_cache[rel] = \
                     self.source_provider_manager.get_relation(scan).schema()
-        return self._schema_cache[key]
+        return self._schema_cache[rel]
 
     def enable_hyperspace(self) -> "HyperspaceSession":
         self._hyperspace_enabled = True

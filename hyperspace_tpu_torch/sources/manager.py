@@ -1,10 +1,11 @@
 """Source provider manager (counterpart of
 hyperspace_tpu/sources/manager.py).  The port has one provider, the
-default Parquet source; the manager keeps the JAX package's entry points
-so the actions call it the same way."""
+default file source, made from the session's conf; the manager keeps
+the JAX package's entry points so the actions call it the same way."""
 
 from __future__ import annotations
 
+from hyperspace_tpu_torch.config import HyperspaceConf
 from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.plan.nodes import Scan
 from hyperspace_tpu_torch.sources.default.provider import (
@@ -14,8 +15,8 @@ from hyperspace_tpu_torch.sources.default.provider import (
 
 
 class FileBasedSourceProviderManager:
-    def __init__(self) -> None:
-        self._provider = DefaultFileBasedSource()
+    def __init__(self, conf: HyperspaceConf) -> None:
+        self._provider = DefaultFileBasedSource(conf)
 
     def is_supported_relation(self, scan: Scan) -> bool:
         return self._provider.is_supported_relation(scan)

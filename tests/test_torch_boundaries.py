@@ -37,6 +37,11 @@ _GUARDS_AND_DIAGNOSTICS = (
     "index/object_log_manager.py", "interop/server.py",
     "interop/netfaults.py")
 
+# The source formats, hive partitions and globs.
+_FORMATS = ("io/partitions.py", "io/avro.py", "io/files.py",
+            "io/parquet.py", "sources/default/provider.py",
+            "sources/manager.py")
+
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
@@ -72,7 +77,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "telemetry/events.py", "telemetry/timeline.py",
                    "telemetry/perf_ledger.py", "telemetry/bench_compare.py",
                    "telemetry/__init__.py", "utils/reflection.py",
-                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS):
+                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -113,7 +118,7 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "telemetry/metrics.py", "telemetry/events.py",
                    "telemetry/timeline.py", "telemetry/perf_ledger.py",
                    "telemetry/bench_compare.py", "utils/reflection.py",
-                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS):
+                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -176,6 +181,96 @@ def test_the_sql_front_end_and_the_display_never_import_pyarrow():
             else:
                 continue
             assert not any(n.split(".")[0] == "pyarrow" for n in names), path
+
+
+def test_the_format_readers_are_imported_inside_io_functions_only():
+    """``pyarrow.csv``, ``pyarrow.json`` and ``pyarrow.orc`` are imported
+    only under ``io/``, and there only inside a function."""
+    import ast
+
+    readers = {"pyarrow.csv", "pyarrow.json", "pyarrow.orc"}
+    found = []
+    for path in _port_sources():
+        if not path.endswith(".py") or not path.startswith(PORT):
+            continue
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        top = set(map(id, tree.body))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = {a.name for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                names = {node.module or ""} | {
+                    f"{node.module}.{a.name}" for a in node.names}
+            else:
+                continue
+            if names & readers:
+                rel = os.path.relpath(path, PORT)
+                assert rel.startswith("io" + os.sep), rel
+                assert id(node) not in top, rel
+                found.append(rel)
+    assert set(found) == {os.path.join("io", "parquet.py")}
+    assert len(found) == 4  # csv, json, orc read; orc schema
+
+
+def test_the_formats_and_partitions_import_no_jax(tmp_path):
+    """A CSV build and query, a hive-partitioned Parquet read, an Avro
+    read and a glob through the port, with the new modules loaded
+    without pyarrow first."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        from hyperspace_tpu_torch.io import avro, files, partitions
+        from hyperspace_tpu_torch.sources import manager
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.csv as pacsv
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        root = {str(tmp_path)!r}
+        rng = np.random.default_rng(0)
+        t = pa.table({{"k": rng.integers(0, 50, 300), "v": rng.random(300)}})
+        os.makedirs(os.path.join(root, "csv"))
+        pacsv.write_csv(t, os.path.join(root, "csv", "part-0.csv"))
+        for d in (1, 2):
+            part = os.path.join(root, "hive", f"day={{d}}")
+            os.makedirs(part)
+            pq.write_table(t, os.path.join(part, "part-0.parquet"))
+        os.makedirs(os.path.join(root, "avro"))
+        avro.write_container(
+            os.path.join(root, "avro", "a.avro"),
+            {{"type": "record", "name": "r",
+              "fields": [{{"name": "k", "type": "long"}}]}},
+            [{{"k": 1}}, {{"k": 2}}])
+        s = HyperspaceSession(os.path.join(root, "ix"), device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.csv(os.path.join(root, "csv")),
+                        IndexConfig("ix", ["k"], ["v"]))
+        s.enable_hyperspace()
+        got = s.read.csv(os.path.join(root, "csv")).filter(col("k") == 7) \
+            .select("k", "v").collect()
+        assert got.num_rows == int((t.column("k").to_numpy() == 7).sum())
+        hive = s.read.parquet(os.path.join(root, "hive")).collect()
+        assert sorted(set(hive.column("day").to_pylist())) == [1, 2]
+        assert s.read.parquet(os.path.join(root, "hive", "day=*")) \
+            .collect().num_rows == 600
+        assert s.read.avro(os.path.join(root, "avro")).collect() \
+            .column("k").to_pylist() == [1, 2]
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
 
 
 def test_a_build_through_the_port_imports_no_jax(tmp_path):

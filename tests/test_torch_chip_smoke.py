@@ -1,13 +1,13 @@
-"""chip_smoke.py's phase selector and its phases U and V, on the CPU.
+"""chip_smoke.py's phase selector and its phases U, V and W, on the CPU.
 
 The selector: ``--phases T,U`` runs the selected phases with phase A and
 the kernel builds, plus what they read (phase C's ``li_idx`` build and
 phase D's ``ord_idx`` build for T); an unknown letter is an error; and
 without a card the script exits non-zero and prints no result, also
 from a directory that holds it alone.  Phase U is rehearsed after phase
-T, and phase V alone (it builds phase C's and D's indexes itself), at
-80,000 lineitem rows on a ``cpu`` session, where the plain kernels count
-no launch."""
+T, phase V alone (it builds phase C's and D's indexes itself) and phase
+W after phase C, at 80,000 lineitem rows on a ``cpu`` session, where the
+plain kernels count no launch."""
 
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (["--phases", "B,F"], {"A", "B", "F"}, set()),
     (["--phases", "K,G"], {"A", "G", "K"}, {"C", "D"}),
     (["--phases", "V"], {"A", "V"}, {"C", "D"}),
-], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V"])
+    (["--phases", "W"], {"A", "W"}, {"C"}),
+], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W"])
 def test_a_selection_runs_what_it_reads(argv, selected, read):
     assert chip_smoke.parse_args(argv) == (selected, read, 0)
     assert chip_smoke.parse_args(argv + ["--u-turns", "2"])[2] == 2
@@ -69,7 +70,7 @@ def test_without_a_card_it_exits_non_zero(args, tmp_path):
 
 
 def test_an_unknown_phase_exits_non_zero_from_the_command_line():
-    proc = _run(["--phases", "T,W"], REPO)
+    proc = _run(["--phases", "T,Z"], REPO)
     assert proc.returncode != 0
     assert "unknown phases" in proc.stderr
     assert '"ok"' not in proc.stdout
@@ -167,3 +168,42 @@ def test_phase_v_on_the_cpu(monkeypatch, tmp_path):
     assert set(v["steps_s"]) == {"1_fleet_seven", "2_failover",
                                  "3_breaker", "4_hedge", "5_proxy",
                                  "6_scrape"}
+
+
+def test_phase_w_on_the_cpu(monkeypatch, tmp_path):
+    """Phase W after phase C at 80,000 lineitem rows: the CSV spill build
+    and the ORC build equal to li_idx bucket by bucket, the hive index's
+    partition column equal to numpy, the six queries, the glob read, the
+    pattern's index refreshed with the new partition's rows only, and 2
+    of 8 files kept by the data-skipping index."""
+    import torch
+
+    _small(monkeypatch)
+    for name, value in (("DEFAULT_BATCH_ROWS", 16_384),
+                        ("W_AVRO_ROWS", 2_000), ("W_KEY_ROW", 1_234)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    orders, li = chip_smoke.gen_data()
+    root = str(tmp_path / "smoke")
+    os.makedirs(root)
+    dev = torch.device("cpu")
+    c = chip_smoke.phase_c(li, root, dev)
+    w = chip_smoke.phase_w(orders, li, root, dev, c["phases"].get("read_s"))
+    chip_smoke.print_formats(w)
+    assert set(w["sources"]) == set(chip_smoke.W_SOURCES)
+    assert w["builds"]["w_csv"]["spilled"]
+    assert w["builds"]["w_csv"]["chunks"] == 5
+    assert not w["builds"]["w_orc"]["spilled"]
+    for name in ("w_csv", "w_orc", "w_hive"):
+        assert w["builds"][name]["rows_checked"] == 80_000
+    assert w["type_changes"] == {"l_quantity": "float64->int64"}
+    assert set(w["queries"]) == {"csv_point", "csv_range", "hive_status",
+                                 "csv_json_join", "avro_point",
+                                 "text_point"}
+    assert w["queries"]["hive_status"]["files_kept"] == (2, 8)
+    assert w["queries"]["avro_point"]["rows"] == 1
+    assert w["glob"]["rows_read"] == 80_000
+    assert w["glob"]["refresh_rows"] == 10_000
+    assert not any(w["launches"].values())  # plain kernels count none
+    assert set(w["steps_s"]) == {"1_write", "2_csv_orc", "3_hive",
+                                 "4_json_avro_text", "5_queries", "6_glob"}
+    assert not [n for n in os.listdir(root) if n.startswith("w_")]

@@ -5,10 +5,11 @@ by both packages over the same files, the JAX package's answer the
 oracle (and each case's own assertion kept), then the rest of the
 codec's verbs and its errors.
 
-One deliberate difference: the JAX package reads csv, json, orc, avro,
-text, delta and iceberg sources; the port reads Parquet only so far, so
-a spec naming another allowed format raises ``ValueError`` in the port
-("has no reader here") where the JAX package reads it."""
+Both packages read parquet, csv, json, orc, avro and text sources (a
+csv spec case below).  One deliberate difference: the JAX package reads
+delta and iceberg sources too; the port has no reader for them yet, so
+a spec naming either raises ``ValueError`` in the port ("has no reader
+here") where the JAX package reads it."""
 
 from __future__ import annotations
 
@@ -323,10 +324,33 @@ def test_subquery_specs_need_a_session():
                                     "query": {"source": {"path": "x"}}})
 
 
-def test_other_formats_have_no_reader_in_the_port(join_env):
+@pytest.mark.parametrize("fmt", ["delta", "iceberg"])
+def test_other_formats_have_no_reader_in_the_port(join_env, fmt):
     root, a, _ = join_env
     from hyperspace_tpu_torch.interop.query import dataset_from_spec
 
     with pytest.raises(ValueError, match="has no reader here"):
         dataset_from_spec(_session(TORCH, root),
-                          {"source": {"format": "csv", "path": a}})
+                          {"source": {"format": fmt, "path": a}})
+
+
+def test_csv_spec_equals_the_jax_package(join_env):
+    """A spec over a csv source (with its ``header`` option) and a join
+    with a parquet one answers as the JAX package's."""
+    import pyarrow.csv as pacsv
+
+    root, a, b = join_env
+    c = os.path.join(root, "c")
+    os.makedirs(c)
+    pacsv.write_csv(pq.read_table(a, partitioning=None),
+                    os.path.join(c, "part-0.csv"))
+    spec = {"source": {"format": "csv", "path": c,
+                       "options": {"header": "true"}},
+            "filter": {"op": "<", "col": "v", "value": 0},
+            "join": {"source": {"format": "parquet", "path": b},
+                     "on": {"op": "==", "col": "k", "right_col": "kb"}},
+            "select": ["k", "v", "s", "w"]}
+    out = _both(root, spec)
+    assert out[TORCH].num_rows > 0
+    assert out[TORCH].column_names == out[JAX].column_names
+    assert _rows(out[TORCH]) == _rows(out[JAX])
