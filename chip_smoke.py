@@ -8,7 +8,7 @@ the kernel builds and phase A always, the data generation, the selected
 phases in the script's order with what they read from other phases
 (PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
 without its queries, phase L for M, phase T for U; C and D for T and V;
-C for W),
+C for W and X),
 then the kernels' timing, with the same last line.  An unknown letter is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
@@ -598,6 +598,43 @@ async server in turns (threaded, async, async, threaded).
            MB on disk, decoded and written; launches ``W formats`` over
            the whole phase, both nonzero on the card.  Prints
            ``{"formats": ...}`` with the card's name and power limit.
+  phase X  the Delta Lake source (after phase W), over phase C's
+           lineitem and ``li_idx``: ``x_delta``, phase C's rows written
+           with the port's ``write_delta`` in X_COMMITS appends
+           (versions 0-9).  (1) ``x_delta_idx`` (li_idx's columns, 16
+           buckets, lineage on) as a spill build with
+           DEFAULT_BATCH_ROWS: each bucket's keys equal to ``li_idx``'s
+           in order and its rows to ``li_idx``'s as a multiset per key
+           (a snapshot's files follow their random names, so rows of
+           one key may come in another order); the entry is ``delta``
+           with ``versionAsOf`` 9 and one ``deltaVersions`` pair ending
+           in ``:9``.  (2) A point and a 5% range (X_RANGE), cold then
+           warm, through the index, equal to numpy.  (3) v10: an append
+           of ROWS_PER_FILE rows (``gen_lineitem(default_rng(223))``)
+           writes the first checkpoint and ``_last_checkpoint``; the
+           snapshot through it equals the JSON replay (both timed); the
+           range through hybrid scan equals numpy over the 6,093,750
+           rows; the incremental refresh indexes the appended rows
+           alone (one hash and one histogram launch on the card) and
+           ``deltaVersions`` gains a pair ending in ``:10``.  (4) After
+           it, ``versionAsOf="9"`` and ``timestampAsOf`` of v9's commit
+           are served by the v9 log entry (every file of the plan's
+           index scan is that entry's) and equal numpy over the first
+           6,000,000 rows; ``versionAsOf="5"`` equals numpy over the
+           first 3,600,000, whatever route it takes.  (5) v11
+           upserts X_UPSERTED keys and v12 deletes one, keys found in
+           the appended rows alone; ``maintenance_cycle()`` with
+           ``lifecycle_cdc_enabled`` journals a quick refresh for "CDC
+           merge-on-read", and a filter over the three keys returns the
+           upserted rows alone.  (6) ``x_delta_ow``: X_OW_COMMITS
+           commits of X_OW_ROWS rows, then an overwrite of X_OW_ROWS
+           more; a scan returns those rows alone.  Prints the write's
+           seconds and MB, the build's wall, read seconds (beside phase
+           C's Parquet ``read_s``), MB decoded and written, each query's
+           ms, the snapshot's replay ms, the refresh's and the cycle's
+           walls; launches ``X delta`` (the build, the refresh and the
+           cycle), both nonzero on the card.  Prints ``{"delta": ...}``
+           with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -629,14 +666,15 @@ phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
 server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
-formats``), the
+formats``, phase X's ``X delta``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 (phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
 R), the object-store JSON (phase S), the server JSON (phase T), the
 async, tenant and wire-fault JSON (phase U), the front-door JSON
-(phase V) and the formats JSON (phase W), each of the last eleven with
+(phase V), the formats JSON (phase W) and the Delta JSON (phase X),
+each of the last twelve with
 the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
@@ -8027,6 +8065,428 @@ def print_formats(w: dict) -> None:
           f"{json.dumps(w['steps_s'])})", flush=True)
 
 
+X_SOURCE = "x_delta"            # phase C's lineitem as a Delta table
+X_OVERWRITTEN = "x_delta_ow"    # a second table, overwritten
+X_INDEXES = "x_indexes"         # phase X's system path
+X_INDEX = "x_delta_idx"
+X_COMMITS = 10                  # append commits of N_LINEITEM // X_COMMITS
+X_APPENDED_SEED = 223           # v10: ROWS_PER_FILE rows
+X_UPSERT_SEED = 227             # v11: the upserted rows' payloads
+X_UPSERTED = 2                  # v11: keys upserted
+X_RANGE = (600_000, 675_000)    # 5% of the order keys
+X_OW_ROWS = 100_000             # the overwrite's rows
+X_OW_COMMITS = 2                # the commits it overwrites
+X_TIMED = 1                     # warm runs after the checked cold one
+
+
+def x_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def x_rows(columns: dict, mask) -> dict:
+    return {c: v[mask] for c, v in columns.items()}
+
+
+def x_concat(*parts) -> dict:
+    return {c: np.concatenate([p[c] for p in parts]) for c in parts[0]}
+
+
+def x_bucket_tables(session, name: str, columns: list, entry=None) -> dict:
+    """bucket -> the rows of ``columns`` of the index ``name`` (or of
+    ``entry``) in that bucket, its files in name order."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.io.parquet import bucket_id_of_file
+
+    entry = entry or session.index_collection_manager.get_index(name)
+    files: dict = {}
+    for f in entry.content.file_infos():
+        files.setdefault(bucket_id_of_file(f.name), []).append(f.name)
+    return {b: pa.concat_tables([pq.read_table(p, columns=columns,
+                                               partitioning=None)
+                                 for p in sorted(paths)])
+            for b, paths in files.items()}
+
+
+def x_same_buckets(label: str, got: dict, want: dict, key: str,
+                   row_id: str) -> int:
+    """Each bucket of ``got`` holds ``want``'s keys in order and its rows
+    as the same multiset per key (compared in ``(key, row_id)`` order,
+    ``row_id`` unique per row): rows of one key follow their source
+    files, whose order in a Delta snapshot is by their random names.
+    Returns the rows compared."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: buckets {sorted(got)} against "
+                             f"{sorted(want)}")
+    rows = 0
+    for b, t in want.items():
+        g = got[b]
+        if g.column_names != t.column_names or g.num_rows != t.num_rows:
+            raise AssertionError(f"{label}: bucket {b} has {g.column_names} "
+                                 f"x {g.num_rows}, expected "
+                                 f"{t.column_names} x {t.num_rows}")
+        w = {c: t.column(c).to_numpy() for c in t.column_names}
+        x = {c: g.column(c).to_numpy() for c in t.column_names}
+        if not np.array_equal(x[key], w[key]):
+            raise AssertionError(f"{label}: bucket {b}'s keys differ from "
+                                 f"{INDEX_NAME}'s")
+        x, w = sorted_rows(x, [key, row_id]), sorted_rows(w, [key, row_id])
+        for c in t.column_names:
+            if not np.array_equal(x[c], w[c]):
+                raise AssertionError(f"{label}: bucket {b} column {c} "
+                                     f"differs from {INDEX_NAME}'s per key")
+        rows += t.num_rows
+    return rows
+
+
+def x_query(label: str, ds, want: dict, keys, index: str) -> dict:
+    """``ds`` through ``index`` (its plan's index scans), cold then warm,
+    each equal to numpy's ``want``."""
+    used = sorted({n for n, _ in index_scans(ds.optimized_plan())})
+    if used != [index]:
+        raise AssertionError(f"phase X {label}: indexes {used}, expected "
+                             f"[{index}]:\n{ds.optimized_plan().tree_string()}")
+    ms = []
+    for run in range(1 + X_TIMED):
+        if run == 0:
+            device_cache().clear()
+        t0 = time.perf_counter()
+        table = ds.collect()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        require_rows(f"phase X {label}", table, want, keys)
+    return {"cold_ms": ms[0], "warm_ms": statistics.median(ms[1:]),
+            "rows": table.num_rows}
+
+
+def x_index_files(ds) -> set:
+    """The files the plan of ``ds`` reads through its index scans."""
+    return {p for s in ds.optimized_plan().leaf_relations()
+            if s.relation.index_scan_of for p in s.relation.file_paths}
+
+
+def phase_x(li: dict, root: str, dev, parquet_read_s=None) -> dict:
+    """The Delta Lake source at SF1 (see the module docstring): phase C's
+    lineitem as ``x_delta``, its index held to ``li_idx``, queries, an
+    append through a checkpoint, time travel, CDC and an overwrite."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import (
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+        col,
+    )
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.sources.delta import DeltaLog, write_delta
+    from hyperspace_tpu_torch.sources.delta.writer import (
+        delete_rows_delta,
+        upsert_delta,
+    )
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    steps: dict = {}
+
+    def step(label: str) -> None:
+        steps[label] = time.perf_counter() - t_phase - sum(steps.values())
+
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    src = os.path.join(root, X_SOURCE)
+    columns = list(li)
+    # (0) v0-v9: phase C's rows in X_COMMITS appends.
+    t0 = time.perf_counter()
+    table = pa.table(li)
+    step_rows = -(-N_LINEITEM // X_COMMITS)
+    for v in range(X_COMMITS):
+        got = write_delta(table.slice(v * step_rows, step_rows), src)
+        if got != v:
+            raise AssertionError(f"phase X: commit {got}, expected {v}")
+    del table
+    write = {"s": time.perf_counter() - t0, "mb": x_mb(src),
+             "commits": X_COMMITS}
+    log = DeltaLog(src)
+    step("1_write")
+
+    # (1) the index at v9: a spill build with the default batch, held to
+    # li_idx bucket by bucket.
+    session = HyperspaceSession(system_path=os.path.join(root, X_INDEXES),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = DEFAULT_BATCH_ROWS
+    session.conf.lineage_enabled = True
+    set_min_rows(session, 0)
+    hs = Hyperspace(session)
+    t0 = time.perf_counter()
+    hs.create_index(session.read.delta(src),
+                    IndexConfig(X_INDEX, INDEXED, INCLUDED))
+    wall = time.perf_counter() - t0
+    build_launches = kernels.launch_counts()
+    phases = session.build_stats_log[-1]
+    report = checked_report(f"phase X {X_INDEX}", hs)
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    if ("spill_route_s" in phases) != (chunks > 1):
+        raise AssertionError(f"phase X: the build's phases {phases} for "
+                             f"{chunks} chunks")
+    entry = session.index_collection_manager.get_index(X_INDEX)
+    rel = entry.relations[0]
+    history = entry.properties.get("deltaVersions", "")
+    if (rel.file_format, rel.options.get("versionAsOf")) != ("delta", "9") \
+            or len(history.split(",")) != 1 or not history.endswith(":9"):
+        raise AssertionError(f"phase X: entry {rel.file_format} "
+                             f"{rel.options} deltaVersions {history!r}")
+    v9_log_version = int(history.split(":")[0])
+    li_session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                   device=dev)
+    cols = INDEXED + INCLUDED
+    rows_checked = x_same_buckets(
+        f"phase X {X_INDEX}", x_bucket_tables(session, X_INDEX, cols),
+        x_bucket_tables(li_session, INDEX_NAME, cols), INDEXED[0],
+        "l_shipdate")
+    build = {"wall_s": wall, "read_s": phases.get("read_s"),
+             "parquet_read_s": parquet_read_s, "chunks": chunks,
+             "mb_read": report["bytes_read"] / 1e6,
+             "mb_written": report["bytes_written"] / 1e6,
+             "rows_checked": rows_checked, "launches": build_launches,
+             "delta_versions": history}
+    step("2_build")
+
+    # (2) a point and a 5% range at v9, indexed, cold and warm.
+    session.enable_hyperspace()
+    key = li["l_orderkey"]
+    in_range = (key >= X_RANGE[0]) & (key < X_RANGE[1])
+    range_cols = ("l_orderkey", "l_extendedprice", "l_discount")
+    range_keys = ["l_orderkey", "l_extendedprice"]
+    queries = {
+        "point": x_query("point", session.read.delta(src)
+                         .filter(col("l_orderkey") == POINT_KEY)
+                         .select("l_orderkey", "l_quantity"),
+                         {c: li[c][key == POINT_KEY]
+                          for c in ("l_orderkey", "l_quantity")},
+                         ["l_orderkey", "l_quantity"], X_INDEX),
+        "range": x_query("range", session.read.delta(src)
+                         .filter((col("l_orderkey") >= X_RANGE[0])
+                                 & (col("l_orderkey") < X_RANGE[1]))
+                         .select(*range_cols),
+                         {c: li[c][in_range] for c in range_cols},
+                         range_keys, X_INDEX),
+    }
+    step("3_queries")
+
+    # (3) v10: an append, which writes the first checkpoint; the snapshot
+    # through it equals the JSON replay; the hybrid range; the
+    # incremental refresh indexes the appended rows alone.
+    appended = gen_lineitem(np.random.default_rng(X_APPENDED_SEED),
+                            ROWS_PER_FILE)
+    if write_delta(pa.table(appended), src) != X_COMMITS:
+        raise AssertionError("phase X: the append is not version 10")
+    checkpoint = os.path.join(log.log_path,
+                              f"{X_COMMITS:020d}.checkpoint.parquet")
+    if not (os.path.isfile(checkpoint) and os.path.isfile(
+            os.path.join(log.log_path, "_last_checkpoint"))):
+        raise AssertionError("phase X: no checkpoint at version 10")
+
+    class JsonOnly(DeltaLog):
+        def checkpoint_versions(self):
+            return []
+
+    t0 = time.perf_counter()
+    snap9 = log.snapshot(X_COMMITS - 1)
+    replay = {"v9_json_ms": (time.perf_counter() - t0) * 1e3}
+    t0 = time.perf_counter()
+    snap10 = log.snapshot(X_COMMITS)
+    replay["v10_checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    json10 = JsonOnly(src).snapshot(X_COMMITS)
+    replay["v10_json_ms"] = (time.perf_counter() - t0) * 1e3
+    if snap10.files != json10.files or len(snap10.files) != X_COMMITS + 1 \
+            or len(snap9.files) != X_COMMITS:
+        raise AssertionError("phase X: the checkpoint's snapshot differs "
+                             "from the JSON replay")
+    a_range = (appended["l_orderkey"] >= X_RANGE[0]) \
+        & (appended["l_orderkey"] < X_RANGE[1])
+    range_ds = session.read.delta(src) \
+        .filter((col("l_orderkey") >= X_RANGE[0])
+                & (col("l_orderkey") < X_RANGE[1])).select(*range_cols)
+    with_appended = x_concat(x_rows({c: li[c] for c in range_cols},
+                                    in_range),
+                             x_rows({c: appended[c] for c in range_cols},
+                                    a_range))
+    session.conf.hybrid_scan_enabled = True
+    if "Union" not in range_ds.optimized_plan().tree_string():
+        raise AssertionError("phase X: the range after the append is not a "
+                             "hybrid scan")
+    queries["hybrid_range"] = x_query("hybrid_range", range_ds,
+                                      with_appended, range_keys, X_INDEX)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = hs.refresh_index(X_INDEX, "incremental")
+    refresh_s = time.perf_counter() - t0
+    refresh_launches = kernels.launch_counts()
+    if (summary.outcome, summary.appended, summary.deleted) != ("ok", 1, 0):
+        raise AssertionError(f"phase X: refresh {summary}")
+    if cuda and refresh_launches != {"hash_buckets": 1,
+                                     "bucket_histogram": 1}:
+        raise AssertionError(f"phase X: the refresh launched "
+                             f"{refresh_launches}")
+    entry = session.index_collection_manager.get_index(X_INDEX)
+    history = entry.properties["deltaVersions"]
+    newest = max({os.path.dirname(f.name) for f in entry.content.file_infos()},
+                 key=lambda d: int(d.rsplit("v__=", 1)[1]))
+    new_rows = sum(pq.ParquetFile(f.name).metadata.num_rows
+                   for f in entry.content.file_infos()
+                   if os.path.dirname(f.name) == newest)
+    if new_rows != ROWS_PER_FILE or len(history.split(",")) != 2 \
+            or not history.endswith(":10"):
+        raise AssertionError(f"phase X: the refresh indexed {new_rows} rows, "
+                             f"deltaVersions {history!r}")
+    step("4_append_refresh")
+
+    # (4) time travel after the refresh: versionAsOf=9 and timestampAsOf=
+    # v9's commit ms served by the index's v9 entry; versionAsOf=5.
+    v9_entry = session.index_collection_manager.get_index(X_INDEX,
+                                                          v9_log_version)
+    v9_files = {f.name for f in v9_entry.content.file_infos()}
+    v9_ms = log._commit_timestamp(X_COMMITS - 1)
+    travel = {}
+    first = {c: li[c][in_range] for c in range_cols}
+    for label, options in (("version_9", {"versionAsOf": "9"}),
+                           ("timestamp_9", {"timestampAsOf": str(v9_ms)})):
+        ds = session.read.delta(src, **options) \
+            .filter((col("l_orderkey") >= X_RANGE[0])
+                    & (col("l_orderkey") < X_RANGE[1])).select(*range_cols)
+        files = x_index_files(ds)
+        if not files or not files <= v9_files:
+            raise AssertionError(f"phase X {label}: the index scan reads "
+                                 f"{len(files - v9_files)} files outside "
+                                 f"the v9 entry's")
+        travel[label] = x_query(label, ds, first, range_keys, X_INDEX)
+    v5 = min(N_LINEITEM, (X_COMMITS // 2 + 1) * step_rows)
+    ds = session.read.delta(src, versionAsOf=str(X_COMMITS // 2)) \
+        .filter((col("l_orderkey") >= X_RANGE[0])
+                & (col("l_orderkey") < X_RANGE[1])).select(*range_cols)
+    t0 = time.perf_counter()
+    table = ds.collect()
+    travel["version_5"] = {"cold_ms": (time.perf_counter() - t0) * 1e3,
+                           "rows": table.num_rows, "indexes": sorted(
+                               {n for n, _ in index_scans(ds.optimized_plan())})}
+    require_rows("phase X version_5", table,
+                 x_rows(first, np.flatnonzero(in_range) < v5), range_keys)
+    step("5_time_travel")
+
+    # (5) CDC: v11 upserts X_UPSERTED keys, v12 deletes one, each found in
+    # the appended rows alone (so the commits rewrite that file only);
+    # the maintenance cycle journals a CDC quick refresh.
+    only_appended = np.setdiff1d(np.unique(appended["l_orderkey"]),
+                                 np.unique(li["l_orderkey"]))
+    touched = only_appended[:X_UPSERTED + 1]
+    if len(touched) != X_UPSERTED + 1:
+        raise AssertionError("phase X: no key found in the appended rows "
+                             "alone")
+    upsert = gen_lineitem(np.random.default_rng(X_UPSERT_SEED), X_UPSERTED)
+    upsert["l_orderkey"] = touched[:X_UPSERTED].astype(np.int64)
+    upsert["l_shipdate"] = np.arange(X_UPSERTED, dtype=np.int64) - X_UPSERTED
+    session.conf.lifecycle_cdc_enabled = True
+    t0 = time.perf_counter()
+    v11 = upsert_delta(pa.table(upsert), src, "l_orderkey")
+    v12 = delete_rows_delta(src, "l_orderkey", [int(touched[-1])])
+    cdc_write_s = time.perf_counter() - t0
+    if (v11, v12) != (X_COMMITS + 1, X_COMMITS + 2):
+        raise AssertionError(f"phase X: CDC commits {v11}, {v12}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = hs.maintenance_cycle()
+    cycle_s = time.perf_counter() - t0
+    cycle_launches = kernels.launch_counts()
+    quick = [r for r in recs if r["decision"] == "refresh"
+             and r["mode"] == "quick" and r["outcome"] == "done"
+             and r["index"] == X_INDEX]
+    if not quick or "CDC merge-on-read" not in quick[0]["reason"]:
+        raise AssertionError(f"phase X: the cycle journaled {recs}")
+    cdc_cols = ("l_orderkey", "l_quantity", "l_extendedprice")
+    cdc_ds = session.read.delta(src) \
+        .filter(col("l_orderkey").isin([int(k) for k in touched])) \
+        .select(*cdc_cols)
+    cdc = x_query("cdc", cdc_ds, {c: upsert[c] for c in cdc_cols},
+                  ["l_orderkey", "l_quantity"], X_INDEX)
+    cdc.update(reason=quick[0]["reason"], write_s=cdc_write_s,
+               cycle_s=cycle_s, cycle_launches=cycle_launches,
+               touched=[int(k) for k in touched])
+    step("6_cdc")
+
+    # (6) an overwrite: x_delta_ow's X_OW_COMMITS commits replaced by
+    # X_OW_ROWS rows; the scan reads those rows alone.
+    ow = os.path.join(root, X_OVERWRITTEN)
+    ow_cols = ["l_orderkey", "l_shipdate", "l_extendedprice"]
+    part = pa.table({c: li[c] for c in ow_cols})
+    for i in range(X_OW_COMMITS):
+        write_delta(part.slice(i * X_OW_ROWS, X_OW_ROWS), ow)
+    base = X_OW_COMMITS * X_OW_ROWS
+    write_delta(part.slice(base, X_OW_ROWS), ow, mode="overwrite")
+    t0 = time.perf_counter()
+    table = session.read.delta(ow).collect()
+    overwrite = {"scan_ms": (time.perf_counter() - t0) * 1e3,
+                 "rows": table.num_rows,
+                 "files_on_disk": len([n for n in os.listdir(ow)
+                                       if n.endswith(".parquet")])}
+    require_rows("phase X overwrite", table,
+                 {c: li[c][base:base + X_OW_ROWS] for c in ow_cols},
+                 ["l_shipdate"])
+    step("7_overwrite")
+
+    session.disable_hyperspace()
+    launches = {k: build_launches[k] + refresh_launches[k]
+                + cycle_launches[k] for k in build_launches}
+    if cuda and not all(launches.values()):
+        raise AssertionError(f"phase X: kernels not launched: {launches}")
+    device_cache().clear()
+    for name in (X_SOURCE, X_OVERWRITTEN, X_INDEXES):
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    return {"write": write, "build": build, "queries": queries,
+            "replay": replay, "refresh": {"s": refresh_s,
+                                          "launches": refresh_launches,
+                                          "rows": new_rows,
+                                          "delta_versions": history},
+            "travel": travel, "cdc": cdc, "overwrite": overwrite,
+            "launches": launches, "steps_s": steps,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def print_delta(x: dict) -> None:
+    w, b = x["write"], x["build"]
+    print(f"phase X write: {w['commits']} commits, {w['mb']:.1f} MB in "
+          f"{w['s']:.3f} s", flush=True)
+    print(f"phase X build {X_INDEX}: wall {b['wall_s']:.3f} s, read "
+          f"{b['read_s'] or 0.0:.3f} s (phase C's Parquet "
+          f"{b['parquet_read_s'] or 0.0:.3f} s), {b['mb_read']:.1f} MB "
+          f"decoded, {b['mb_written']:.1f} MB written, {b['chunks']} chunks, "
+          f"{b['rows_checked']} rows equal to {INDEX_NAME}'s per key, "
+          f"deltaVersions {b['delta_versions']}, launches "
+          f"{json.dumps(b['launches'])}", flush=True)
+    for name, q in {**x["queries"], **x["travel"]}.items():
+        warm = f" warm {q['warm_ms']:.1f}" if "warm_ms" in q else ""
+        print(f"phase X {name}: cold {q['cold_ms']:.1f}{warm} ms, "
+              f"{q['rows']} rows", flush=True)
+    r, f = x["replay"], x["refresh"]
+    print(f"phase X snapshot replay: v9 JSON {r['v9_json_ms']:.1f} ms, v10 "
+          f"checkpoint {r['v10_checkpoint_ms']:.1f} ms (JSON "
+          f"{r['v10_json_ms']:.1f} ms); refresh {f['s']:.3f} s indexed "
+          f"{f['rows']} rows, launches {json.dumps(f['launches'])}, "
+          f"deltaVersions {f['delta_versions']}", flush=True)
+    c, o = x["cdc"], x["overwrite"]
+    print(f"phase X cdc: commits {c['write_s']:.3f} s, maintenance cycle "
+          f"{c['cycle_s']:.3f} s ({c['reason']}), touched keys cold "
+          f"{c['cold_ms']:.1f} warm {c['warm_ms']:.1f} ms; overwrite scan "
+          f"{o['scan_ms']:.1f} ms, {o['rows']} rows of {o['files_on_disk']} "
+          f"files on disk", flush=True)
+    print(f"phase X: launches {json.dumps(x['launches'])} "
+          f"({x['phase_s']:.3f} s; by step {json.dumps(x['steps_s'])})",
+          flush=True)
+
+
 def print_fleet(v: dict) -> None:
     f, p, h = v["fleet"], v["proxy"], v["hedge"]
     br, sc = v["breaker"], v["scrape"]
@@ -8632,7 +9092,7 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-PHASES = "ABCDEFGHIJKLMNOPQRSTUVW"
+PHASES = "ABCDEFGHIJKLMNOPQRSTUVWX"
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -8640,7 +9100,7 @@ PHASES = "ABCDEFGHIJKLMNOPQRSTUVW"
 PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
-               "U": "T", "V": "CD", "W": "C"}
+               "U": "T", "V": "CD", "W": "C", "X": "C"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -8989,6 +9449,11 @@ def main(argv=None) -> int:
             print_formats(w)
             res["formats"] = w
             by_path["W formats"] = w["launches"]
+        if "X" in runs:
+            x = phase_x(li, root, dev, c["phases"].get("read_s"))
+            print_delta(x)
+            res["delta"] = x
+            by_path["X delta"] = x["launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -9051,7 +9516,7 @@ def main(argv=None) -> int:
             print(json.dumps({key: res[key]}))
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
                 "diagnostics", "object_store", "server", "server_u",
-                "fleet", "formats"):
+                "fleet", "formats", "delta"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

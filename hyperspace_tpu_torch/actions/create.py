@@ -355,11 +355,17 @@ class CreateActionBase(Action):
 
     def _build_log_entry(self) -> IndexLogEntry:
         resolved = self._resolved_config()
+        rel_meta = self._relation().create_relation_metadata(
+            self._file_id_tracker)
+        # A refresh carries the previous entry's properties forward, the
+        # providers' histories (Delta's deltaVersions) with them.
         prev = self._previous_entry
         properties: Dict[str, str] = dict(prev.properties) if prev else {}
         # The log version is the one end() commits at (base_id + 2).
         properties["lineage"] = str(self.lineage_enabled).lower()
         properties["indexLogVersion"] = str(self.base_id + 2)
+        properties = self.session.source_provider_manager \
+            .enrich_index_properties(rel_meta, properties)
         return IndexLogEntry(
             name=self.config.index_name,
             derived_dataset=CoveringIndex(
@@ -373,8 +379,7 @@ class CreateActionBase(Action):
                 self.data_manager.version_path(self._written_version),
                 FileIdTracker()),
             source=Source(
-                relations=[self._relation().create_relation_metadata(
-                    self._file_id_tracker)],
+                relations=[rel_meta],
                 fingerprint=LogicalPlanFingerprint([self._signature()])),
             properties=properties,
         )
@@ -428,8 +433,8 @@ class CreateActionBase(Action):
         import pyarrow as pa
 
         t0 = time.perf_counter()
-        with span("io.read", files=1, format=relation.file_format) as sp:
-            t = read_file(f.name, columns, relation.file_format,
+        with span("io.read", files=1, format=relation.read_format) as sp:
+            t = read_file(f.name, columns, relation.read_format,
                           relation.options,
                           partition_roots=relation.root_paths,
                           partition_spec=relation.partition_spec())

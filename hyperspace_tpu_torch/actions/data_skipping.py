@@ -330,7 +330,7 @@ class CreateDataSkippingAction(CreateActionBase):
             files = [f for f in files if f.name in wanted]
         rows = list(carry_rows or [])
         rows.extend(sketch_rows_for_files(
-            files, resolved.sketched_columns, relation.file_format,
+            files, resolved.sketched_columns, relation.read_format,
             relation.options, partition_roots=relation.root_paths,
             sketch_types=resolved.sketch_types))
         if not rows:
@@ -368,18 +368,22 @@ class CreateDataSkippingAction(CreateActionBase):
         self._build_sketch()
 
     def log_entry(self) -> IndexLogEntry:
-        # A refresh carries the previous entry's properties forward.
+        source = self._source(self._file_id_tracker)
+        # A refresh carries the previous entry's properties forward, the
+        # providers' histories (Delta's deltaVersions) with them.
         prev = self._previous_entry
         properties: Dict[str, str] = dict(prev.properties) if prev else {}
         properties["lineage"] = "false"
         properties["indexLogVersion"] = str(self.base_id + 2)
+        properties = self.session.source_provider_manager \
+            .enrich_index_properties(source.relations[0], properties)
         return IndexLogEntry(
             name=self.config.index_name,
             derived_dataset=self._derived_dataset(),
             content=Content.from_directory(
                 self.data_manager.version_path(self._written_version),
                 FileIdTracker()),
-            source=self._source(self._file_id_tracker),
+            source=source,
             properties=properties,
         )
 
@@ -401,7 +405,7 @@ class RefreshDataSkippingAction(CreateDataSkippingAction):
             else log_manager.get_latest_stable_log()
         if prev is None:
             raise HyperspaceError("Refresh: index does not exist")
-        plan = recorded_scan(prev.relations[0])
+        plan = recorded_scan(session, prev.relations[0])
         config = DataSkippingIndexConfig(
             prev.name, prev.derived_dataset.sketched_columns,
             prev.derived_dataset.sketch_types)

@@ -87,7 +87,7 @@ class RefreshActionBase(CreateActionBase):
             raise HyperspaceError("Refresh: index does not exist")
         if len(prev.relations) != 1:
             raise HyperspaceError("Refresh supports single-relation indexes")
-        plan = recorded_scan(prev.relations[0])
+        plan = recorded_scan(session, prev.relations[0])
         config = IndexConfig(
             prev.name, prev.indexed_columns, prev.included_columns,
             layout=prev.derived_dataset.properties.get("layout",

@@ -4,9 +4,11 @@ path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
 index lifecycle, the source watch, the transaction loop, telemetry, the
 sync guard, the doctor, deadlines, the plan cache, the flight recorder,
-the pluggable log and store classes, and the source formats and
-globbing pattern of the default provider; defaults are the JAX
-package's, the class paths under the port's own modules).
+the pluggable log and store classes, the source providers, and the
+source formats and globbing pattern of the default provider; defaults
+are the JAX package's, the class paths under the port's own modules,
+and ``source_providers`` without ``iceberg``, whose provider is not
+ported).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -64,6 +66,9 @@ class HyperspaceConf:
     # EmulatedObjectStore's listing window (ms): keys committed within it
     # are not listed yet, while point reads see them.
     object_store_stale_list_ms: float = 0.0
+    # The source providers (sources/manager.py), comma-separated names
+    # of its registry; a name not registered raises.
+    source_providers: str = "default,delta"
     # The source formats the default provider reads, comma-separated.
     supported_file_formats: str = "avro,csv,json,orc,parquet,text"
     # Comma-separated glob patterns; when set, create_index records the

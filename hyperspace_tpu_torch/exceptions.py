@@ -17,6 +17,12 @@ class NoChangesError(HyperspaceError):
     no-op; ``Action.run`` then commits nothing and returns "noop"."""
 
 
+class CorruptMetadataError(HyperspaceError):
+    """A source table's metadata file (a Delta ``_delta_log`` commit or
+    checkpoint) is truncated or corrupt.  The message names the file, so
+    it can be repaired or removed."""
+
+
 class DegradedIndexError(HyperspaceError):
     """An index's operation log is unreadable and the degraded fallback
     (``conf.degraded_fallback_to_source``) is off."""

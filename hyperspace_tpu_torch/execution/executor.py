@@ -102,7 +102,11 @@ Every read-back of a device result goes through
 ``exec.transfer.d2h.bytes`` counts it; each operator's entry and exit
 are deadline checks (utils/deadline.py).
 
-Not ported: the mesh filter, join and aggregates and the lake formats.
+A scan of a lake table (Delta) without ``file_paths`` reads the files of
+its provider's snapshot, never a listing of its directory, in their
+physical format (Parquet); so do the row estimates.
+
+Not ported: the mesh filter, join and aggregates.
 pyarrow is imported inside the functions.
 """
 
@@ -170,6 +174,10 @@ from hyperspace_tpu_torch.plan.nodes import (
     Union,
     Window,
     WithColumns,
+)
+from hyperspace_tpu_torch.sources.interfaces import (
+    LAKE_DATA_FORMATS,
+    physical_read_format,
 )
 from hyperspace_tpu_torch.telemetry import report as run_report
 from hyperspace_tpu_torch.telemetry import timeline
@@ -448,8 +456,16 @@ class Executor:
 
     def _scan_inner(self, plan: Scan, columns, sp):
         rel = plan.relation
+        read_format = physical_read_format(rel.file_format)
+        lake_relation = None
         if rel.file_paths is not None:
             paths = list(rel.file_paths)
+        elif rel.file_format.lower() in LAKE_DATA_FORMATS:
+            # A lake table's files are its snapshot's: a listing would
+            # also see the removed and overwritten files and the log.
+            lake_relation = self.session.source_provider_manager \
+                .get_relation(plan)
+            paths = [f.name for f in lake_relation.all_files()]
         else:
             paths = [f.name for f in list_data_files(rel.root_paths)]
         all_paths = paths
@@ -483,16 +499,20 @@ class Executor:
             import pyarrow as pa
 
             if all_paths:
-                schema = read_schema(all_paths[0], rel.file_format,
+                schema = read_schema(all_paths[0], read_format,
                                      rel.options_dict)
                 for k, t in spec.items():
                     schema.setdefault(k, t)
                 empty = schema_to_arrow(schema).empty_table()
+            elif lake_relation is not None:
+                # A lake table with no file left keeps the schema of its
+                # metadata.
+                empty = schema_to_arrow(lake_relation.schema()).empty_table()
             else:
                 empty = pa.table({})
             return empty.select(columns) if columns else empty
         out = self._read_index_files(rel, paths, lambda: read_table(
-            paths, rel.file_format, columns, rel.options_dict,
+            paths, read_format, columns, rel.options_dict,
             partition_roots=roots, partition_spec=spec))
         if columns:
             out = out.select(columns)
@@ -501,7 +521,7 @@ class Executor:
         # columns from the same files: they key other cached columns.
         plain = rel.file_format == "parquet" and not rel.options and not spec
         self._register_scan_identity(out, paths, "" if plain else repr(
-            (rel.file_format, rel.options, sorted(spec.items()))))
+            (read_format, rel.options, sorted(spec.items()))))
         return out
 
     # -- filter -------------------------------------------------------------
@@ -1247,10 +1267,15 @@ class Executor:
         if not isinstance(node, Scan):
             return None
         rel = node.relation
-        if rel.file_format.lower() != "parquet":
+        if physical_read_format(rel.file_format) != "parquet":
             return None  # no footer to count
-        paths = list(rel.file_paths) if rel.file_paths is not None \
-            else [f.name for f in list_data_files(rel.root_paths)]
+        if rel.file_paths is not None:
+            paths = list(rel.file_paths)
+        elif rel.file_format.lower() in LAKE_DATA_FORMATS:
+            paths = [f.name for f in self.session.source_provider_manager
+                     .get_relation(node).all_files()]
+        else:
+            paths = [f.name for f in list_data_files(rel.root_paths)]
         return self._read_index_files(rel, paths, lambda: sum(
             pq.ParquetFile(p).metadata.num_rows for p in paths))
 

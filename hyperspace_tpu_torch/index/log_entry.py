@@ -531,6 +531,9 @@ class IndexLogEntry:
             out.extend(rel.content.file_infos())
         return out
 
+    def source_files_size(self) -> int:
+        return sum(f.size for f in self.source_file_infos())
+
     def signature(self) -> Signature:
         """The one stored signature of the source plan."""
         sigs = self.source.fingerprint.signatures

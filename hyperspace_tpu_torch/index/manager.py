@@ -291,8 +291,12 @@ class IndexCollectionManager:
                 out.append(entry)
         return out
 
-    def get_index(self, name: str) -> Optional[IndexLogEntry]:
-        return self._log_manager(name).get_latest_stable_log()
+    def get_index(self, name: str,
+                  version: Optional[int] = None) -> Optional[IndexLogEntry]:
+        """The latest stable entry, or the entry at log ``version``."""
+        if version is None:
+            return self._log_manager(name).get_latest_stable_log()
+        return self._log_manager(name).get_log(version)
 
     def indexes(self):
         """The summary table of every index (index/statistics.py), a

@@ -179,7 +179,7 @@ def _read_source(session, source: Dict[str, Any]):
     if fmt not in _SOURCE_FORMATS:
         raise ValueError(f"Unknown source format: {fmt!r}")
     if not hasattr(session.read, fmt):
-        # The delta and iceberg readers are not ported yet.
+        # The iceberg reader is not ported yet.
         raise ValueError(f"Source format {fmt!r} has no reader here")
     path = source["path"]
     options = source.get("options", {})

@@ -12,8 +12,7 @@ refresh already accounted for do not read as new forever.  The pending
 lists are carried as debt (``hybrid_debt_bytes``, ``merge_debt_bytes``)
 for the policy to weigh.
 
-Each pass is a ``lifecycle.detect`` span tagged with its counts.  Not
-ported: the lake providers' ``refresh_relation_metadata``.
+Each pass is a ``lifecycle.detect`` span tagged with its counts.
 """
 
 from __future__ import annotations
@@ -121,9 +120,12 @@ def _effective_recorded(entry: IndexLogEntry) -> List[FileInfo]:
     return out
 
 
-def recorded_scan(rel) -> Scan:
-    """The scan of a recorded source relation.  The port's one source
-    provider pins no snapshot, so it lists the source as it is now."""
+def recorded_scan(session, rel) -> Scan:
+    """The scan of a recorded source relation as it is now: its
+    provider's ``refresh_relation_metadata`` drops the options that pin
+    a snapshot (Delta's ``versionAsOf``), so the latest version is
+    listed."""
+    rel = session.source_provider_manager.refresh_relation_metadata(rel)
     return Scan(ScanRelation(root_paths=tuple(rel.root_paths),
                              file_format=rel.file_format,
                              options=tuple(sorted(rel.options.items()))))
@@ -138,7 +140,7 @@ def current_source_files(session, entry: IndexLogEntry) -> List[FileInfo]:
         raise HyperspaceError(
             "Change detection supports single-relation indexes")
     return session.source_provider_manager.get_relation(
-        recorded_scan(entry.relations[0])).all_files()
+        recorded_scan(session, entry.relations[0])).all_files()
 
 
 def detect_changes(session, entry: IndexLogEntry) -> ChangeSummary:

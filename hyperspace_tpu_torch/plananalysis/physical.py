@@ -5,8 +5,9 @@ The executor makes its physical choices at run time; this module
 predicts them from the optimized plan with the executor's own
 applicability check (``execution.executor.bucketed_join_precheck``), so
 the predicted join operator is the one that runs, and it counts each
-scan's files and bytes after bucket and sketch pruning.  The operator
-names are the JAX package's.
+scan's files and bytes after bucket and sketch pruning (a lake table's
+files are its provider's snapshot).  The operator names are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from hyperspace_tpu_torch.plan.nodes import (
     Union,
     WithColumns,
 )
+from hyperspace_tpu_torch.sources.interfaces import LAKE_DATA_FORMATS
 
 
 def _scan_detail(session, scan: Scan) -> Tuple[str, str]:
@@ -48,7 +50,12 @@ def _scan_detail(session, scan: Scan) -> Tuple[str, str]:
         paths = list(rel.file_paths)
     else:
         try:
-            paths = [f.name for f in list_data_files(rel.root_paths)]
+            if rel.file_format.lower() in LAKE_DATA_FORMATS:
+                # A lake table's files are its snapshot's.
+                paths = [f.name for f in session.source_provider_manager
+                         .get_relation(scan).all_files()]
+            else:
+                paths = [f.name for f in list_data_files(rel.root_paths)]
         except OSError:
             return name, target
     total = len(paths)

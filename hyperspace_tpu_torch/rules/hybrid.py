@@ -22,12 +22,16 @@
     shape of the appended files.  One damaged bucket costs one bucket's
     rows of source, not the whole index; a join side cannot take the
     branch (it has no bucket structure to align) and is refused.
-
-Not ported: ``closest_index``, which serves lake formats only.
+  - versions: before the overlap test, each candidate over the scanned
+    relation is swapped for ``relation.closest_index(entry)``, the index
+    log version a time-travelled lake read is best served by (Delta's
+    ``versionAsOf``/``timestampAsOf``); an entry over another relation
+    keeps its own, so no other index's old versions are read.
 """
 
 from __future__ import annotations
 
+import os
 from typing import FrozenSet, List, Optional, Sequence, Tuple
 
 from hyperspace_tpu_torch.actions.create import DATA_FILE_ID_COLUMN
@@ -61,10 +65,19 @@ def get_hybrid_scan_candidates(session, entries: Sequence[IndexLogEntry],
                                scan: Scan) -> List[IndexLogEntry]:
     """The entries usable for ``scan`` under hybrid scan, each tagged with
     its shared bytes and its (appended, deleted) file lists."""
-    current = session.source_provider_manager.get_relation(scan).all_files()
+    relation = session.source_provider_manager.get_relation(scan)
+    current = relation.all_files()
     current_by_key = {_file_key(f): f for f in current}
     conf = session.conf
     out: List[IndexLogEntry] = []
+    scan_roots = {os.path.abspath(p) for p in relation.root_paths}
+
+    def same_relation(e: IndexLogEntry) -> bool:
+        return any(os.path.abspath(p) in scan_roots
+                   for r in e.relations for p in r.root_paths)
+
+    entries = [relation.closest_index(e) if same_relation(e) else e
+               for e in entries]
     for entry in entries:
         cached = entry.get_tag(IndexLogEntryTags.IS_HYBRIDSCAN_CANDIDATE, scan)
         if cached is not None:

@@ -61,9 +61,10 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
 
 class DataReader:
     """``session.read.parquet(path)``, ``.csv``, ``.json``, ``.orc``,
-    ``.avro``, ``.text`` and ``.format(fmt).load(path)``; a path may be
-    a glob pattern.  Options ride the relation (``header="false"`` for a
-    CSV without a header row)."""
+    ``.avro``, ``.text``, ``.delta`` and ``.format(fmt).load(path)``; a
+    path of the plain formats may be a glob pattern.  Options ride the
+    relation (``header="false"`` for a CSV without a header row,
+    ``versionAsOf`` or ``timestampAsOf`` for a Delta table)."""
 
     def __init__(self, session: "HyperspaceSession") -> None:
         self._session = session
@@ -92,6 +93,12 @@ class DataReader:
 
     def text(self, *paths: str, **options: str):
         return self._make("text", *paths, **options)
+
+    def delta(self, path: str, **options: str):
+        """A Delta table, at its latest version unless ``versionAsOf``
+        (a version) or ``timestampAsOf`` (epoch ms or an ISO timestamp)
+        travels back."""
+        return self._make("delta", path, **options)
 
     def format(self, fmt: str):
         reader = self
@@ -136,6 +143,18 @@ class HyperspaceSession:
         # its own collect().
         self._exec_stats = threading.local()
         self._run_report = threading.local()
+        # The lake schemas of one optimize pass (``_lake_schema_memo``),
+        # per thread: a pass sees one snapshot of each table.
+        self._lake_memo_tls = threading.local()
+
+    @property
+    def _lake_schema_memo(self) -> Optional[Dict[ScanRelation, Dict[str, str]]]:
+        return getattr(self._lake_memo_tls, "memo", None)
+
+    @_lake_schema_memo.setter
+    def _lake_schema_memo(
+            self, value: Optional[Dict[ScanRelation, Dict[str, str]]]) -> None:
+        self._lake_memo_tls.memo = value
 
     @property
     def last_execution_stats(self) -> Optional[Dict[str, List[Dict[str, Any]]]]:
@@ -160,8 +179,9 @@ class HyperspaceSession:
 
     @property
     def source_provider_manager(self) -> FileBasedSourceProviderManager:
-        # Made per access, so a conf change takes effect.
-        return FileBasedSourceProviderManager(self.conf)
+        # Made per access, so a conf change takes effect; the session
+        # rides along for the providers' closest_index.
+        return FileBasedSourceProviderManager(self.conf, session=self)
 
     @property
     def index_collection_manager(self):
@@ -179,14 +199,32 @@ class HyperspaceSession:
     def schema_map_of(self, scan: Scan) -> Dict[str, str]:
         """Column name -> arrow dtype string of a scan, read in its
         format and cached by the relation's value; a hypothetical index
-        scan has no file and carries its schema itself.  A scan of a file
-        subset (an index scan, a hybrid subset) takes the first of its
-        files that answers, so one damaged file fails at execution, where
-        containment takes it, not at planning; a source subset also gets
-        the partition columns below its root paths."""
+        scan has no file and carries its schema itself.  A lake table's
+        (Delta) comes from its provider and is never cached by value: an
+        overwrite can change the schema behind the same relation.  Within
+        one optimize pass it is memoised (``_lake_schema_memo``).  A scan
+        of a file subset (an index scan, a hybrid subset) takes the first
+        of its files that answers, read in the physical format, so one
+        damaged file fails at execution, where containment takes it, not
+        at planning; a source subset also gets the partition columns
+        below its root paths."""
+        from hyperspace_tpu_torch.sources.interfaces import (
+            LAKE_DATA_FORMATS,
+            physical_read_format,
+        )
+
         rel = scan.relation
         if rel.hypothetical and rel.hypothetical_schema is not None:
             return dict(rel.hypothetical_schema)
+        if rel.file_format.lower() in LAKE_DATA_FORMATS \
+                and rel.file_paths is None:
+            memo = self._lake_schema_memo
+            if memo is None:
+                return self.source_provider_manager.get_relation(scan).schema()
+            if rel not in memo:
+                memo[rel] = \
+                    self.source_provider_manager.get_relation(scan).schema()
+            return memo[rel]
         if rel not in self._schema_cache:
             if rel.file_paths is not None:
                 from hyperspace_tpu_torch.io.parquet import read_schema
@@ -194,8 +232,9 @@ class HyperspaceSession:
                 schema = None
                 for i, path in enumerate(rel.file_paths):
                     try:
-                        schema = read_schema(path, rel.file_format,
-                                             rel.options_dict)
+                        schema = read_schema(
+                            path, physical_read_format(rel.file_format),
+                            rel.options_dict)
                         break
                     except Exception:  # noqa: BLE001 - the next file
                         if i == len(rel.file_paths) - 1:
@@ -230,8 +269,15 @@ class HyperspaceSession:
         # The rules swap nodes by identity: a Dataset reused under two
         # branches must not share one node object.
         plan = _uniquify(plan)
-        with trace.span("optimize", use_indexes=use_indexes):
-            return self._optimize(plan, use_indexes, hypothetical)
+        # Saved and restored, not cleared: a subquery's pass runs inside
+        # this one and must leave the outer pass's memo in place.
+        prev_memo = self._lake_schema_memo
+        self._lake_schema_memo = {}
+        try:
+            with trace.span("optimize", use_indexes=use_indexes):
+                return self._optimize(plan, use_indexes, hypothetical)
+        finally:
+            self._lake_schema_memo = prev_memo
 
     def _optimize(self, plan: LogicalPlan, use_indexes: bool,
                   hypothetical) -> LogicalPlan:

@@ -2,7 +2,9 @@
 Parquet, CSV, JSON, ORC, Avro or text files, hive-partitioned or not
 (counterpart of hyperspace_tpu/sources/default/provider.py).  Listing
 is a recursive walk; the relation snapshot records every file with its
-tracker id.  The formats come from ``conf.supported_file_formats``."""
+tracker id, and its signature is the md5 fold over every file's (size,
+mtime, path).  The formats come from ``conf.supported_file_formats``;
+a relation of another format belongs to another provider."""
 
 from __future__ import annotations
 
@@ -18,32 +20,21 @@ from hyperspace_tpu_torch.index.log_entry import (
 )
 from hyperspace_tpu_torch.io.files import expand_globs, list_data_files
 from hyperspace_tpu_torch.io.parquet import read_schema
-from hyperspace_tpu_torch.io.partitions import partition_spec_for_roots
 from hyperspace_tpu_torch.plan.nodes import Scan
+from hyperspace_tpu_torch.sources.interfaces import (
+    FileBasedRelation,
+    FileBasedSourceProvider,
+)
+from hyperspace_tpu_torch.utils.hashing import fold_md5
 from hyperspace_tpu_torch.utils.paths import normalize_path
 
 
-class DefaultFileBasedRelation:
-    """One supported leaf relation of a plan."""
-
+class DefaultFileBasedRelation(FileBasedRelation):
     def __init__(self, scan: Scan, conf: HyperspaceConf) -> None:
-        self.scan = scan
+        super().__init__(scan)
         self._conf = conf
         self._files_cache: Optional[List[FileInfo]] = None
         self._schema_cache: Optional[Dict[str, str]] = None
-        self._spec_cache: Optional[Dict[str, str]] = None
-
-    @property
-    def root_paths(self) -> List[str]:
-        return list(self.scan.relation.root_paths)
-
-    @property
-    def file_format(self) -> str:
-        return self.scan.relation.file_format
-
-    @property
-    def options(self) -> Dict[str, str]:
-        return self.scan.relation.options_dict
 
     def all_files(self, tracker: Optional[FileIdTracker] = None) -> List[FileInfo]:
         """Every data file, listed once per relation object; registering
@@ -55,13 +46,6 @@ class DefaultFileBasedRelation:
         return [FileInfo(f.name, f.size, f.mtime,
                          tracker.add_file(f.name, f.size, f.mtime))
                 for f in self._files_cache]
-
-    def partition_spec(self) -> Dict[str, str]:
-        """The hive partition columns below the root paths and their
-        types, from one walk of the directory tree per relation object."""
-        if self._spec_cache is None:
-            self._spec_cache = partition_spec_for_roots(self.root_paths)
-        return self._spec_cache
 
     def schema(self) -> Dict[str, str]:
         """The first file's columns, read in the relation's format, then
@@ -77,6 +61,10 @@ class DefaultFileBasedRelation:
                 schema.setdefault(k, t)
             self._schema_cache = schema
         return self._schema_cache
+
+    def signature(self) -> str:
+        return fold_md5(f"{f.size}{f.mtime}{f.name}"
+                        for f in self.all_files())
 
     def create_relation_metadata(self, tracker: FileIdTracker) -> Relation:
         files = self.all_files(tracker)
@@ -110,7 +98,7 @@ class DefaultFileBasedRelation:
         return patterns
 
 
-class DefaultFileBasedSource:
+class DefaultFileBasedSource(FileBasedSourceProvider):
     name = "default"
 
     def __init__(self, conf: HyperspaceConf) -> None:
@@ -127,3 +115,19 @@ class DefaultFileBasedSource:
         if not self.is_supported_relation(scan):
             return None
         return DefaultFileBasedRelation(scan, self._conf)
+
+    def _owns(self, relation: Relation) -> bool:
+        return relation.file_format.lower() in self._supported_formats()
+
+    def internal_file_format_name(self, relation: Relation) -> Optional[str]:
+        return relation.file_format.lower() if self._owns(relation) else None
+
+    def refresh_relation_metadata(self, relation: Relation
+                                  ) -> Optional[Relation]:
+        # Plain files pin no snapshot.
+        return relation if self._owns(relation) else None
+
+    def enrich_index_properties(self, relation: Relation,
+                                properties: Dict[str, str]
+                                ) -> Optional[Dict[str, str]]:
+        return properties if self._owns(relation) else None

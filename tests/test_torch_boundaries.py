@@ -42,6 +42,11 @@ _FORMATS = ("io/partitions.py", "io/avro.py", "io/files.py",
             "io/parquet.py", "sources/default/provider.py",
             "sources/manager.py")
 
+# The source-provider plug-in and the Delta Lake source.
+_LAKE = ("io/schemas.py", "sources/interfaces.py",
+         "sources/delta/__init__.py", "sources/delta/log.py",
+         "sources/delta/writer.py", "sources/delta/provider.py")
+
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
@@ -77,7 +82,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "telemetry/events.py", "telemetry/timeline.py",
                    "telemetry/perf_ledger.py", "telemetry/bench_compare.py",
                    "telemetry/__init__.py", "utils/reflection.py",
-                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS):
+                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS,
+                   *_LAKE):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -118,7 +124,8 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "telemetry/metrics.py", "telemetry/events.py",
                    "telemetry/timeline.py", "telemetry/perf_ledger.py",
                    "telemetry/bench_compare.py", "utils/reflection.py",
-                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS):
+                   "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS,
+                   *_LAKE):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -260,6 +267,57 @@ def test_the_formats_and_partitions_import_no_jax(tmp_path):
             .collect().num_rows == 600
         assert s.read.avro(os.path.join(root, "avro")).collect() \
             .column("k").to_pylist() == [1, 2]
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_delta_source_imports_no_jax(tmp_path):
+    """Every module under ``sources/`` and ``io/schemas.py`` load without
+    pyarrow; then a Delta table written, indexed, queried at its latest
+    and an older version, appended to and refreshed through the port."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        from hyperspace_tpu_torch.io import schemas
+        from hyperspace_tpu_torch.sources import interfaces, manager
+        from hyperspace_tpu_torch.sources.default import provider
+        from hyperspace_tpu_torch.sources.delta import (log, provider as dp,
+                                                        writer)
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        root = {str(tmp_path)!r}
+        t = os.path.join(root, "t")
+        rng = np.random.default_rng(0)
+        for i in range(2):
+            writer.write_delta(pa.table({{"k": rng.integers(0, 50, 300),
+                                          "v": rng.random(300)}}), t)
+        s = HyperspaceSession(os.path.join(root, "ix"), device="cpu")
+        s.conf.num_buckets = 4
+        hs = Hyperspace(s)
+        hs.create_index(s.read.delta(t), IndexConfig("ix", ["k"], ["v"]))
+        writer.write_delta(pa.table({{"k": [7], "v": [0.5]}}), t)
+        hs.refresh_index("ix", "incremental")
+        entry = s.index_collection_manager.get_index("ix")
+        assert entry.properties["deltaVersions"] == "2:1,4:2"
+        s.enable_hyperspace()
+        s.conf.hybrid_scan_enabled = True
+        now = s.read.delta(t).filter(col("k") == 7).select("k").count()
+        then = s.read.delta(t, versionAsOf="1").filter(col("k") == 7) \
+            .select("k").count()
+        assert now == then + 1
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

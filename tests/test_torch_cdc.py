@@ -2,16 +2,19 @@
 merge-on-read rung of the policy, the merge debt measured on an index
 entry, ``OptimizeSummary`` and the autonomous compaction rung.
 
-The cases of tests/test_cdc.py over Parquet, each held to what it
-asserts, on the port alone (the policy rung against the JAX package's
-too), on the default store (``EmulatedObjectStore``); the case the JAX
-file parametrizes by store runs on ``PosixLogStore`` too
-(``TestPosixStore``).  Its merge-on-read cases run here over a Parquet
+The cases of tests/test_cdc.py, each held to what it asserts, on the
+port alone (the policy rung against the JAX package's too), on the
+default store (``EmulatedObjectStore``); the case the JAX file
+parametrizes by store runs on ``PosixLogStore`` too
+(``TestPosixStore``).  Its merge-on-read cases run over a Parquet
 source, whose deletes and in-place rewrites reach the index as the lake
-commits do; the Delta and Iceberg cases themselves
-(``TestMergeOnRead``, ``TestMutatedFileDetection``) wait for ROADMAP.md
-Queue A item 11, the doctor's merge-debt check (``TestDoctorMergeDebt``)
-for item 9.  The watch seam's cases are in tests/test_torch_watch.py.
+commits do, and over a Delta table (``TestDeltaMergeOnRead``,
+``TestDeltaMutatedFileDetection``: the ``delta`` cases of
+``TestMergeOnRead``, its tight budget, the Delta half of the no-op row
+delete with both packages' writers, and the in-place rewrite in the
+log).  The Iceberg cases wait for ROADMAP.md Queue A item 14(c), the
+doctor's merge-debt check (``TestDoctorMergeDebt``) for item 9.  The
+watch seam's cases are in tests/test_torch_watch.py.
 """
 
 from __future__ import annotations
@@ -217,6 +220,135 @@ class TestMergeOnRead:
         s, hs, src = _parquet_env(tmp_path)
         entry = s.index_collection_manager.get_index("cdx")
         _upsert(src, file_no=4, key=41, tag=2)
+        change = detect_changes(s, entry)
+        assert change.mutated == 1
+        assert change.appended == 1 and change.deleted == 1
+        assert change.deleted_bytes > 0
+
+
+# ---------------------------------------------------------------------------
+# Merge-on-read over a Delta source (tests/test_cdc.py's delta cases)
+# ---------------------------------------------------------------------------
+def _delta_env(tmp_path, **conf):
+    """A Delta table of 20 commits of 10 ids each, so one rewritten file
+    is a low churn and the CDC rung decides, and its index ``cdx``."""
+    from hyperspace_tpu_torch.sources.delta import write_delta
+
+    path = str(tmp_path / "t")
+    for i in range(20):
+        write_delta(_table(range(i * 10, (i + 1) * 10)), path, mode="append")
+    s = _session(tmp_path, lineage_enabled=True, hybrid_scan_enabled=True,
+                 lifecycle_cdc_enabled=True, **conf)
+    hs = Hyperspace(s)
+    hs.create_index(s.read.delta(path), IndexConfig("cdx", ["id"], ["name"]))
+    s.enable_hyperspace()
+    return s, hs, path
+
+
+class TestDeltaMergeOnRead:
+    def test_upsert_stream_rides_quick_bit_equal(self, tmp_path):
+        """Upserts and row deletes through the Delta log: each cycle
+        journals the CDC quick refresh, and every answer equals the
+        source scan's, the upserted key with its new payload and the
+        deleted key gone."""
+        from hyperspace_tpu_torch.sources.delta.writer import (
+            delete_rows_delta,
+            upsert_delta,
+        )
+
+        s, hs, path = _delta_env(tmp_path, lifecycle_cdc_merge_debt_ratio=5.0)
+        for i in range(3):
+            upsert_delta(_table([5 + i, 200 + i], tag=i + 1), path, "id")
+            delete_rows_delta(path, "id", [17 + i])
+            recs = hs.maintenance_cycle()
+            quick = [r for r in recs if r["decision"] == "refresh"
+                     and r["mode"] == "quick" and r["outcome"] == "done"]
+            assert quick, recs
+            assert "CDC merge-on-read" in quick[0]["reason"]
+            got = (s.read.delta(path).filter(col("id") >= 0)
+                   .select("id", "name").collect())
+            s.disable_hyperspace()
+            try:
+                want = (s.read.delta(path).filter(col("id") >= 0)
+                        .select("id", "name").collect())
+            finally:
+                s.enable_hyperspace()
+            assert _canonical(got) == _canonical(want)
+            rows = dict(_canonical(got))
+            assert rows[5 + i] == f"n{5 + i}-{i + 1}"
+            assert 17 + i not in rows
+
+    def test_merge_debt_is_measured_on_the_entry(self, tmp_path):
+        from hyperspace_tpu_torch.sources.delta.writer import upsert_delta
+
+        s, hs, path = _delta_env(tmp_path, lifecycle_cdc_merge_debt_ratio=5.0)
+        upsert_delta(_table([3, 300], tag=9), path, "id")
+        hs.maintenance_cycle()
+        entry = s.index_collection_manager.get_index("cdx")
+        debt = cdc.merge_debt(entry)
+        assert debt.deleted_files >= 1 and debt.appended_files >= 1
+        assert debt.total_bytes > 0 and debt.ratio > 0
+        assert debt.readable
+        assert debt.to_dict()["index"] == "cdx"
+
+    def test_tight_budget_escalates_to_incremental(self, tmp_path):
+        from hyperspace_tpu_torch.sources.delta.writer import upsert_delta
+
+        s, hs, path = _delta_env(tmp_path,
+                                 lifecycle_cdc_merge_debt_ratio=0.0001)
+        upsert_delta(_table([3, 300], tag=9), path, "id")
+        recs = hs.maintenance_cycle()
+        inc = [r for r in recs if r["decision"] == "refresh"
+               and r["mode"] == "incremental" and r["outcome"] == "done"]
+        assert inc, recs
+        entry = s.index_collection_manager.get_index("cdx")
+        assert cdc.merge_debt(entry).total_bytes == 0
+        # The refresh indexed the latest version: its pin moved on.
+        assert entry.relations[0].options["versionAsOf"] == "20"
+        assert entry.properties["deltaVersions"].endswith(":20")
+
+    def test_delete_rows_noop_when_nothing_matches(self, tmp_path):
+        """No matching row: no commit, the current version back, from
+        both packages' writers over one table."""
+        from hyperspace_tpu_torch.sources.delta import DeltaLog, write_delta
+        from hyperspace_tpu_torch.sources.delta.writer import delete_rows_delta
+
+        path = str(tmp_path / "t")
+        write_delta(_table(range(10)), path)
+        v = DeltaLog(path).latest_version()
+        assert delete_rows_delta(path, "id", [999]) == v
+        jwriter = importlib.import_module(
+            "hyperspace_tpu.sources.delta.writer")
+        assert jwriter.delete_rows_delta(path, "id", [999]) == v
+        assert DeltaLog(path).commit_versions() == [0]
+
+
+class TestDeltaMutatedFileDetection:
+    def test_delta_inplace_rewrite_reads_as_mutated(self, tmp_path):
+        """A commit adding again the same path with another size and
+        mtime (what an in-place rewrite leaves in the log) reads as
+        mutated, not as an unrelated append."""
+        import time
+
+        from hyperspace_tpu_torch.sources.delta import DeltaLog
+
+        s, hs, path = _delta_env(tmp_path)
+        log = DeltaLog(path)
+        victim = log.snapshot().files[0]
+        rel = victim.path[len(log.table_path.rstrip("/")) + 1:]
+        bigger = pa.concat_tables([pq.read_table(victim.path)] * 2)
+        pq.write_table(bigger, victim.path)
+        now_ms = int(time.time() * 1000)
+        log.write_commit(log.latest_version() + 1, [
+            {"remove": {"path": rel, "deletionTimestamp": now_ms,
+                        "dataChange": True}},
+            {"add": {"path": rel, "partitionValues": {},
+                     "size": os.stat(victim.path).st_size,
+                     "modificationTime": victim.modification_time + 1,
+                     "dataChange": True}},
+            {"commitInfo": {"timestamp": now_ms, "operation": "WRITE"}},
+        ])
+        entry = s.index_collection_manager.get_index("cdx")
         change = detect_changes(s, entry)
         assert change.mutated == 1
         assert change.appended == 1 and change.deleted == 1

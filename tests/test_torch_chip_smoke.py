@@ -1,13 +1,14 @@
-"""chip_smoke.py's phase selector and its phases U, V and W, on the CPU.
+"""chip_smoke.py's phase selector and its phases U, V, W and X, on the
+CPU.
 
 The selector: ``--phases T,U`` runs the selected phases with phase A and
 the kernel builds, plus what they read (phase C's ``li_idx`` build and
 phase D's ``ord_idx`` build for T); an unknown letter is an error; and
 without a card the script exits non-zero and prints no result, also
 from a directory that holds it alone.  Phase U is rehearsed after phase
-T, phase V alone (it builds phase C's and D's indexes itself) and phase
-W after phase C, at 80,000 lineitem rows on a ``cpu`` session, where the
-plain kernels count no launch."""
+T, phase V alone (it builds phase C's and D's indexes itself) and phases
+W and X after phase C, at 80,000 lineitem rows on a ``cpu`` session,
+where the plain kernels count no launch."""
 
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (["--phases", "K,G"], {"A", "G", "K"}, {"C", "D"}),
     (["--phases", "V"], {"A", "V"}, {"C", "D"}),
     (["--phases", "W"], {"A", "W"}, {"C"}),
-], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W"])
+    (["--phases", "X"], {"A", "X"}, {"C"}),
+], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W", "X"])
 def test_a_selection_runs_what_it_reads(argv, selected, read):
     assert chip_smoke.parse_args(argv) == (selected, read, 0)
     assert chip_smoke.parse_args(argv + ["--u-turns", "2"])[2] == 2
@@ -207,3 +209,51 @@ def test_phase_w_on_the_cpu(monkeypatch, tmp_path):
     assert set(w["steps_s"]) == {"1_write", "2_csv_orc", "3_hive",
                                  "4_json_avro_text", "5_queries", "6_glob"}
     assert not [n for n in os.listdir(root) if n.startswith("w_")]
+
+
+def test_phase_x_on_the_cpu(monkeypatch, tmp_path):
+    """Phase X after phase C at 80,000 lineitem rows: the Delta index
+    equal to li_idx per key, the queries at v9, the checkpoint at v10,
+    the hybrid range and the refresh of the appended rows alone, time
+    travel served by the v9 entry, the CDC quick refresh and the
+    overwrite."""
+    import torch
+
+    _small(monkeypatch)
+    # An append of 2,000 rows: its share of the merge debt stays under
+    # the CDC rung's 0.2, as 93,750 of 6,000,000 rows do on the card.
+    for name, value in (("DEFAULT_BATCH_ROWS", 16_384),
+                        ("X_RANGE", (5_000, 6_000)), ("X_OW_ROWS", 10_000),
+                        ("ROWS_PER_FILE", 2_000)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    orders, li = chip_smoke.gen_data()
+    root = str(tmp_path / "smoke")
+    os.makedirs(root)
+    dev = torch.device("cpu")
+    c = chip_smoke.phase_c(li, root, dev)
+    x = chip_smoke.phase_x(li, root, dev, c["phases"].get("read_s"))
+    chip_smoke.print_delta(x)
+    assert x["write"]["commits"] == 10
+    assert x["build"]["chunks"] == 5
+    assert x["build"]["rows_checked"] == 80_000
+    assert x["build"]["delta_versions"].endswith(":9")
+    assert x["queries"]["point"]["rows"] == int(
+        (li["l_orderkey"] == chip_smoke.POINT_KEY).sum())
+    assert set(x["queries"]) == {"point", "range", "hybrid_range"}
+    assert x["queries"]["hybrid_range"]["rows"] \
+        > x["queries"]["range"]["rows"]
+    assert x["refresh"]["rows"] == 2_000
+    assert x["refresh"]["delta_versions"].count(",") == 1
+    assert set(x["travel"]) == {"version_9", "timestamp_9", "version_5"}
+    assert x["travel"]["version_9"]["rows"] == x["queries"]["range"]["rows"]
+    assert x["travel"]["version_5"]["rows"] \
+        < x["travel"]["version_9"]["rows"]
+    assert x["cdc"]["rows"] == 2
+    assert "CDC merge-on-read" in x["cdc"]["reason"]
+    assert x["overwrite"]["rows"] == 10_000
+    assert x["overwrite"]["files_on_disk"] == 3
+    assert not any(x["launches"].values())  # plain kernels count none
+    assert set(x["steps_s"]) == {"1_write", "2_build", "3_queries",
+                                 "4_append_refresh", "5_time_travel",
+                                 "6_cdc", "7_overwrite"}
+    assert not [n for n in os.listdir(root) if n.startswith("x_")]

@@ -5,11 +5,11 @@ by both packages over the same files, the JAX package's answer the
 oracle (and each case's own assertion kept), then the rest of the
 codec's verbs and its errors.
 
-Both packages read parquet, csv, json, orc, avro and text sources (a
-csv spec case below).  One deliberate difference: the JAX package reads
-delta and iceberg sources too; the port has no reader for them yet, so
-a spec naming either raises ``ValueError`` in the port ("has no reader
-here") where the JAX package reads it."""
+Both packages read parquet, csv, json, orc, avro, text and delta
+sources (a csv and a delta spec case below).  One deliberate
+difference: the JAX package reads iceberg sources too; the port has no
+reader for them yet, so a spec naming it raises ``ValueError`` in the
+port ("has no reader here") where the JAX package reads it."""
 
 from __future__ import annotations
 
@@ -324,7 +324,7 @@ def test_subquery_specs_need_a_session():
                                     "query": {"source": {"path": "x"}}})
 
 
-@pytest.mark.parametrize("fmt", ["delta", "iceberg"])
+@pytest.mark.parametrize("fmt", ["iceberg"])
 def test_other_formats_have_no_reader_in_the_port(join_env, fmt):
     root, a, _ = join_env
     from hyperspace_tpu_torch.interop.query import dataset_from_spec
@@ -332,6 +332,33 @@ def test_other_formats_have_no_reader_in_the_port(join_env, fmt):
     with pytest.raises(ValueError, match="has no reader here"):
         dataset_from_spec(_session(TORCH, root),
                           {"source": {"format": fmt, "path": a}})
+
+
+@pytest.mark.parametrize("options", [{}, {"versionAsOf": "0"}],
+                         ids=["latest", "versionAsOf"])
+def test_delta_spec_equals_the_jax_package(join_env, options):
+    """A spec over a Delta table (two commits of join_env's ``a``), at
+    its latest version and travelled back to the first, joined with a
+    parquet source, answers as the JAX package's."""
+    from hyperspace_tpu_torch.sources.delta import write_delta
+
+    root, a, b = join_env
+    t = os.path.join(root, "t")
+    rows = pq.read_table(a, partitioning=None)
+    write_delta(rows.slice(0, 400), t)
+    write_delta(rows.slice(400), t, mode="append")
+    spec = {"source": {"format": "delta", "path": t, "options": options},
+            "filter": {"op": "<", "col": "v", "value": 5},
+            "join": {"source": {"format": "parquet", "path": b},
+                     "on": {"op": "==", "col": "k", "right_col": "kb"}},
+            "select": ["k", "v", "s", "w"]}
+    if not options:
+        del spec["source"]["options"]
+    out = _both(root, spec)
+    keys = out[TORCH].column("k").to_pylist()
+    assert keys and (max(keys) < 400) == bool(options)
+    assert out[TORCH].column_names == out[JAX].column_names
+    assert _rows(out[TORCH]) == _rows(out[JAX])
 
 
 def test_csv_spec_equals_the_jax_package(join_env):
