@@ -8,7 +8,7 @@ the kernel builds and phase A always, the data generation, the selected
 phases in the script's order with what they read from other phases
 (PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
 without its queries, phase L for M, phase T for U; C and D for T and V;
-C for W and X),
+C for W, X and Y),
 then the kernels' timing, with the same last line.  An unknown letter is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
@@ -635,6 +635,46 @@ async server in turns (threaded, async, async, threaded).
            walls; launches ``X delta`` (the build, the refresh and the
            cycle), both nonzero on the card.  Prints ``{"delta": ...}``
            with the card's name and power limit.
+  phase Y  the Iceberg source (after phase X), over phase C's lineitem
+           and ``li_idx``: ``y_iceberg``, phase C's rows written with
+           the port's ``write_iceberg`` in Y_COMMITS appends (snapshots
+           1-10).  (1) ``y_iceberg_idx`` (li_idx's columns, 16 buckets,
+           lineage on) as a spill build with DEFAULT_BATCH_ROWS, one
+           hash and one histogram launch per chunk on the card, held to
+           ``li_idx`` per key as phase X's index is; the entry is
+           ``iceberg`` with the 10th snapshot's ``snapshot-id`` and one
+           ``icebergSnapshots`` pair.  (2) A point and a 5% range
+           (Y_RANGE), cold then warm, through the index, equal to numpy.
+           (3) The 11th snapshot appends ROWS_PER_FILE rows
+           (``gen_lineitem(default_rng(233))``); ``plan_files`` is timed
+           over the 10th and the 11th snapshots (metadata, manifest list
+           and manifest read); the range through hybrid scan, then the
+           incremental refresh (the appended rows alone, one launch of
+           each kernel on the card), then the range through the
+           refreshed index, each equal to numpy.  (4) ``snapshot_id``
+           and ``as_of_timestamp`` (its ``timestamp-ms``) of the 10th
+           snapshot are served by the build's log entry through
+           ``closest_index`` (every file of the plan's index scan is
+           that entry's) and equal numpy over the first 6,000,000 rows;
+           ``snapshot_id`` of the 6th snapshot takes the source route
+           and equals numpy over the first 3,600,000.  (5) An
+           ``upsert_iceberg`` of Y_UPSERTED keys and a
+           ``delete_rows_iceberg`` of one, keys found in the appended
+           rows alone; ``maintenance_cycle()`` journals a quick refresh
+           for "CDC merge-on-read", and a filter over the three keys
+           returns the upserted rows alone.  (6) ``y_iceberg_ow``:
+           Y_OW_COMMITS snapshots of Y_OW_ROWS rows, then an overwrite
+           of Y_OW_ROWS more that drops ``l_shipdate`` and adds
+           ``l_discount``: the surviving columns keep their field ids,
+           the new one takes 4, and a scan returns those rows alone.
+           (7) A truncated copy of the newest metadata JSON raises
+           ``CorruptMetadataError`` naming the file.  Prints the
+           write's seconds and MB, the build's wall, read seconds, MB
+           decoded and written, each query's ms, ``plan_files``'s ms,
+           the refresh's and the cycle's walls; launches ``Y iceberg``
+           (the build, the refresh and the cycle: 7 and 7 on the card).
+           Prints ``{"iceberg": ...}`` with the card's name and power
+           limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -666,15 +706,15 @@ phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
 server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
-formats``, phase X's ``X delta``), the
+formats``, phase X's ``X delta``, phase Y's ``Y iceberg``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 (phase P), the telemetry JSON (phase Q), the diagnostics JSON (phase
 R), the object-store JSON (phase S), the server JSON (phase T), the
 async, tenant and wire-fault JSON (phase U), the front-door JSON
-(phase V), the formats JSON (phase W) and the Delta JSON (phase X),
-each of the last twelve with
+(phase V), the formats JSON (phase W), the Delta JSON (phase X) and the
+Iceberg JSON (phase Y), each of the last thirteen with
 the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
@@ -720,11 +760,12 @@ AGG_RTOL = 1e-9
 # The slice's device programs, timed by name in the profiled run.
 AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
                 "_topk_groups")
-# Two timed runs per variant of phase I, one of phase D's variants, of
-# phase G's hybrid and clean queries and scans and of phase K's shapes:
-# with phases Q and R added, what keeps the whole script well inside its
-# time limit on the slower card hosts.
-TIMED_QUERY_RUNS = 2
+# One timed run per variant of phases H, I and J, of phase D's variants,
+# of phase G's hybrid and clean queries and scans and of phase K's
+# shapes: with phases Q to Y added, what keeps the whole script inside
+# its time limit on the slower card hosts (A-Y took 1,078 s on one
+# H100 80GB HBM3 machine).
+TIMED_QUERY_RUNS = 1
 D_TIMED_RUNS = 1
 G_TIMED_RUNS = 1
 # The cold and the resident thresholds of the host route: more rows than
@@ -835,11 +876,11 @@ M_EXPLAINED = ("q12", "q21_shape", "year_1995")
 M_RULES = ("JoinIndexRule", "FilterIndexRule", "BucketPruneRule",
            "DataSkippingFilterRule")
 Q_INDEX = "li_tel"               # phase Q's SF1 spill build
-Q_PAIRS = 2                     # interleaved timeline off/on pairs
+Q_PAIRS = 1                     # interleaved timeline off/on pairs
 Q_EVENT_CALLS = ("cudaEventRecord", "cudaEventSynchronize")
 R_SOURCE = "r_lineitem"         # a hard-linked copy of phase C's lineitem
 R_INDEX = "r_li"                # phase R's strict SF1 spill build
-R_PAIRS = 2                     # interleaved guard off/armed pairs
+R_PAIRS = 1                     # interleaved guard off/armed pairs
 R_SLOW_MS = 1.0                 # flight_recorder_slow_ms: q3 is kept
 R_APPENDED_ROWS = 10_000        # one appended file: a quick refresh
 R_PLAN_RUNS = 3                 # timed optimizer passes per query
@@ -6268,9 +6309,9 @@ def phase_s(orders: dict, li: dict, root: str, dev) -> dict:
 
 
 T_WORKERS = 4                   # the server's workers (the conf default)
-T_TIMED_RUNS = 2                # timed served and direct runs per query
+T_TIMED_RUNS = 1                # timed served and direct runs per query
 T_CLIENTS = 8                   # step 2: concurrent clients
-T_ROUNDS = 3                    # step 2: rounds of the seven per client
+T_ROUNDS = 2                    # step 2: rounds of the seven per client
 T_CACHE_PAIRS = 1               # step 3: miss/hit pairs per query
 T_APPENDED_ROWS = 10_000        # step 4: one file appended to lineitem
 T_SEED = 201                    # its rows
@@ -6848,7 +6889,7 @@ def phase_t(orders: dict, li: dict, root: str, dev) -> dict:
 U_WORKERS = 4                   # the async server's workers, as phase T's
 U_BLACK_HOLE_S = 0.5            # the client's timeout under an accept black-hole
 U_SLOW_RECV_MS = 100.0          # the net.recv "slow" plan's delay
-U_DETOUR_RUNS = 2               # join runs with a silent wire plan and without
+U_DETOUR_RUNS = 1               # join runs with a silent wire plan and without
 
 
 def phase_u(orders: dict, li: dict, root: str, dev, t: dict,
@@ -7194,7 +7235,7 @@ V_BREAKER_TRIES = 20            # step 3: point queries to open, then close
 V_HEDGES = 3                    # step 4: hedged point queries
 V_HEDGE_DELAY_MS = 40.0         # step 4
 V_SLOW_RECV_MS = 400.0          # step 4: the primary's read held this long
-V_JOIN_RUNS = 2                 # step 5: the join direct and proxied, each
+V_JOIN_RUNS = 1                 # step 5: the join direct and proxied, each
 V_PROXY_HINT_MS = 50            # step 5: the upstream BUSY's hint
 V_SCRAPED = ("hyperspace_serve_ok", "hyperspace_client_retry",
              "hyperspace_client_failover", "hyperspace_client_hedge_sent",
@@ -8141,13 +8182,15 @@ def x_same_buckets(label: str, got: dict, want: dict, key: str,
     return rows
 
 
-def x_query(label: str, ds, want: dict, keys, index: str) -> dict:
+def x_query(label: str, ds, want: dict, keys, index: str,
+            phase: str = "X") -> dict:
     """``ds`` through ``index`` (its plan's index scans), cold then warm,
     each equal to numpy's ``want``."""
     used = sorted({n for n, _ in index_scans(ds.optimized_plan())})
     if used != [index]:
-        raise AssertionError(f"phase X {label}: indexes {used}, expected "
-                             f"[{index}]:\n{ds.optimized_plan().tree_string()}")
+        raise AssertionError(f"phase {phase} {label}: indexes {used}, "
+                             f"expected [{index}]:\n"
+                             f"{ds.optimized_plan().tree_string()}")
     ms = []
     for run in range(1 + X_TIMED):
         if run == 0:
@@ -8155,7 +8198,7 @@ def x_query(label: str, ds, want: dict, keys, index: str) -> dict:
         t0 = time.perf_counter()
         table = ds.collect()
         ms.append((time.perf_counter() - t0) * 1e3)
-        require_rows(f"phase X {label}", table, want, keys)
+        require_rows(f"phase {phase} {label}", table, want, keys)
     return {"cold_ms": ms[0], "warm_ms": statistics.median(ms[1:]),
             "rows": table.num_rows}
 
@@ -8484,6 +8527,383 @@ def print_delta(x: dict) -> None:
           f"files on disk", flush=True)
     print(f"phase X: launches {json.dumps(x['launches'])} "
           f"({x['phase_s']:.3f} s; by step {json.dumps(x['steps_s'])})",
+          flush=True)
+
+
+Y_SOURCE = "y_iceberg"          # phase C's lineitem as an Iceberg table
+Y_OVERWRITTEN = "y_iceberg_ow"  # a second table, overwritten
+Y_TORN = "y_torn"               # a copy of a metadata JSON, truncated
+Y_INDEXES = "y_indexes"         # phase Y's system path
+Y_INDEX = "y_iceberg_idx"
+Y_COMMITS = 10                  # append snapshots of N_LINEITEM // Y_COMMITS
+Y_APPENDED_SEED = 233           # the 11th snapshot: ROWS_PER_FILE rows
+Y_UPSERT_SEED = 239             # the upserted rows' payloads
+Y_UPSERTED = 2                  # keys upserted
+Y_EARLY = 6                     # the snapshot read by the source route
+Y_RANGE = (600_000, 675_000)    # 5% of the order keys
+Y_OW_ROWS = 100_000             # the overwrite's rows
+Y_OW_COMMITS = 2                # the snapshots it overwrites
+
+
+def y_plan_ms(src: str, snapshot_id: int) -> tuple:
+    """(ms to load the metadata and plan ``snapshot_id``'s files, the
+    files)."""
+    from hyperspace_tpu_torch.sources.iceberg import IcebergTable
+
+    t0 = time.perf_counter()
+    table = IcebergTable(src)
+    md = table.load_metadata()
+    files = table.plan_files(md.snapshot_by_id(snapshot_id), md)
+    return (time.perf_counter() - t0) * 1e3, files
+
+
+def phase_y(li: dict, root: str, dev, parquet_read_s=None) -> dict:
+    """The Iceberg source at SF1 (see the module docstring): phase C's
+    lineitem as ``y_iceberg``, its index held to ``li_idx``, queries, an
+    append and a refresh, time travel, CDC, an overwrite with a schema
+    change and a torn metadata file."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import (
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+        col,
+    )
+    from hyperspace_tpu_torch.exceptions import CorruptMetadataError
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.sources.iceberg import (
+        IcebergTable,
+        write_iceberg,
+    )
+    from hyperspace_tpu_torch.sources.iceberg.writer import (
+        delete_rows_iceberg,
+        upsert_iceberg,
+    )
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    steps: dict = {}
+
+    def step(label: str) -> None:
+        steps[label] = time.perf_counter() - t_phase - sum(steps.values())
+
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    src = os.path.join(root, Y_SOURCE)
+    # (0) snapshots 1-10: phase C's rows in Y_COMMITS appends.
+    t0 = time.perf_counter()
+    table = pa.table(li)
+    step_rows = -(-N_LINEITEM // Y_COMMITS)
+    snaps = [write_iceberg(table.slice(i * step_rows, step_rows), src)
+             for i in range(Y_COMMITS)]
+    del table
+    write = {"s": time.perf_counter() - t0, "mb": x_mb(src),
+             "snapshots": Y_COMMITS}
+    md = IcebergTable(src).load_metadata()
+    if [s.snapshot_id for s in md.snapshots] != snaps \
+            or md.current_snapshot_id != snaps[-1]:
+        raise AssertionError("phase Y: the snapshots are not the appends'")
+    step("1_write")
+
+    # (1) the index at the 10th snapshot: a spill build with the default
+    # batch, held to li_idx bucket by bucket.
+    session = HyperspaceSession(system_path=os.path.join(root, Y_INDEXES),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = DEFAULT_BATCH_ROWS
+    session.conf.lineage_enabled = True
+    set_min_rows(session, 0)
+    hs = Hyperspace(session)
+    t0 = time.perf_counter()
+    hs.create_index(session.read.iceberg(src),
+                    IndexConfig(Y_INDEX, INDEXED, INCLUDED))
+    wall = time.perf_counter() - t0
+    build_launches = kernels.launch_counts()
+    phases = session.build_stats_log[-1]
+    report = checked_report(f"phase Y {Y_INDEX}", hs)
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    if ("spill_route_s" in phases) != (chunks > 1):
+        raise AssertionError(f"phase Y: the build's phases {phases} for "
+                             f"{chunks} chunks")
+    if cuda and build_launches != {"hash_buckets": chunks,
+                                   "bucket_histogram": chunks}:
+        raise AssertionError(f"phase Y: the build launched {build_launches}")
+    entry = session.index_collection_manager.get_index(Y_INDEX)
+    rel = entry.relations[0]
+    history = entry.properties.get("icebergSnapshots", "")
+    if (rel.file_format, rel.options.get("snapshot-id")) \
+            != ("iceberg", str(snaps[-1])) \
+            or len(history.split(",")) != 1 \
+            or not history.endswith(f":{snaps[-1]}"):
+        raise AssertionError(f"phase Y: entry {rel.file_format} "
+                             f"{rel.options} icebergSnapshots {history!r}")
+    build_log_version = int(history.split(":")[0])
+    li_session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                   device=dev)
+    cols = INDEXED + INCLUDED
+    rows_checked = x_same_buckets(
+        f"phase Y {Y_INDEX}", x_bucket_tables(session, Y_INDEX, cols),
+        x_bucket_tables(li_session, INDEX_NAME, cols), INDEXED[0],
+        "l_shipdate")
+    build = {"wall_s": wall, "read_s": phases.get("read_s"),
+             "parquet_read_s": parquet_read_s, "chunks": chunks,
+             "mb_read": report["bytes_read"] / 1e6,
+             "mb_written": report["bytes_written"] / 1e6,
+             "rows_checked": rows_checked, "launches": build_launches,
+             "iceberg_snapshots": history}
+    step("2_build")
+
+    # (2) a point and a 5% range at the 10th snapshot, cold and warm.
+    session.enable_hyperspace()
+    key = li["l_orderkey"]
+    in_range = (key >= Y_RANGE[0]) & (key < Y_RANGE[1])
+    range_cols = ("l_orderkey", "l_extendedprice", "l_discount")
+    range_keys = ["l_orderkey", "l_extendedprice"]
+
+    def range_of(**options):
+        return session.read.iceberg(src, **options) \
+            .filter((col("l_orderkey") >= Y_RANGE[0])
+                    & (col("l_orderkey") < Y_RANGE[1])).select(*range_cols)
+
+    first = {c: li[c][in_range] for c in range_cols}
+    queries = {
+        "point": x_query("point", session.read.iceberg(src)
+                         .filter(col("l_orderkey") == POINT_KEY)
+                         .select("l_orderkey", "l_quantity"),
+                         {c: li[c][key == POINT_KEY]
+                          for c in ("l_orderkey", "l_quantity")},
+                         ["l_orderkey", "l_quantity"], Y_INDEX, "Y"),
+        "range": x_query("range", range_of(), first, range_keys, Y_INDEX,
+                         "Y"),
+    }
+    step("3_queries")
+
+    # (3) the 11th snapshot: an append; the planned files over 10 and 11
+    # snapshots; the hybrid range; the incremental refresh indexes the
+    # appended rows alone, and the range after it.
+    appended = gen_lineitem(np.random.default_rng(Y_APPENDED_SEED),
+                            ROWS_PER_FILE)
+    snaps.append(write_iceberg(pa.table(appended), src))
+    plan = {}
+    for n in (Y_COMMITS, Y_COMMITS + 1):
+        ms, files = y_plan_ms(src, snaps[n - 1])
+        if len(files) != n:
+            raise AssertionError(f"phase Y: {len(files)} files planned at "
+                                 f"snapshot {n}")
+        plan[f"snapshot_{n}_ms"] = ms
+    a_range = (appended["l_orderkey"] >= Y_RANGE[0]) \
+        & (appended["l_orderkey"] < Y_RANGE[1])
+    with_appended = x_concat(first, x_rows({c: appended[c]
+                                            for c in range_cols}, a_range))
+    session.conf.hybrid_scan_enabled = True
+    if "Union" not in range_of().optimized_plan().tree_string():
+        raise AssertionError("phase Y: the range after the append is not a "
+                             "hybrid scan")
+    queries["hybrid_range"] = x_query("hybrid_range", range_of(),
+                                      with_appended, range_keys, Y_INDEX, "Y")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = hs.refresh_index(Y_INDEX, "incremental")
+    refresh_s = time.perf_counter() - t0
+    refresh_launches = kernels.launch_counts()
+    if (summary.outcome, summary.appended, summary.deleted) != ("ok", 1, 0):
+        raise AssertionError(f"phase Y: refresh {summary}")
+    if cuda and refresh_launches != {"hash_buckets": 1,
+                                     "bucket_histogram": 1}:
+        raise AssertionError(f"phase Y: the refresh launched "
+                             f"{refresh_launches}")
+    entry = session.index_collection_manager.get_index(Y_INDEX)
+    history = entry.properties["icebergSnapshots"]
+    newest = max({os.path.dirname(f.name) for f in entry.content.file_infos()},
+                 key=lambda d: int(d.rsplit("v__=", 1)[1]))
+    new_rows = sum(pq.ParquetFile(f.name).metadata.num_rows
+                   for f in entry.content.file_infos()
+                   if os.path.dirname(f.name) == newest)
+    if new_rows != ROWS_PER_FILE or len(history.split(",")) != 2 \
+            or not history.endswith(f":{snaps[-1]}"):
+        raise AssertionError(f"phase Y: the refresh indexed {new_rows} rows, "
+                             f"icebergSnapshots {history!r}")
+    if "Union" in range_of().optimized_plan().tree_string():
+        raise AssertionError("phase Y: the range after the refresh is still "
+                             "a hybrid scan")
+    queries["refreshed_range"] = x_query("refreshed_range", range_of(),
+                                         with_appended, range_keys, Y_INDEX,
+                                         "Y")
+    step("4_append_refresh")
+
+    # (4) time travel after the refresh: snapshot_id and as_of_timestamp
+    # of the 10th snapshot served by the build's entry (closest_index);
+    # the 6th snapshot by the source route.
+    tenth = IcebergTable(src).load_metadata().snapshot_by_id(snaps[9])
+    build_files = {f.name for f in session.index_collection_manager
+                   .get_index(Y_INDEX, build_log_version).content.file_infos()}
+    travel = {}
+    for label, options in (
+            ("snapshot_10", {"snapshot_id": str(tenth.snapshot_id)}),
+            ("timestamp_10", {"as_of_timestamp": str(tenth.timestamp_ms)})):
+        ds = range_of(**options)
+        files = x_index_files(ds)
+        if not files or not files <= build_files:
+            raise AssertionError(f"phase Y {label}: the index scan reads "
+                                 f"{len(files - build_files)} files outside "
+                                 f"the build's entry")
+        travel[label] = x_query(label, ds, first, range_keys, Y_INDEX, "Y")
+    early = min(N_LINEITEM, Y_EARLY * step_rows)
+    ds = range_of(snapshot_id=str(snaps[Y_EARLY - 1]))
+    used = sorted({n for n, _ in index_scans(ds.optimized_plan())})
+    if used:
+        raise AssertionError(f"phase Y snapshot_{Y_EARLY}: indexes {used}, "
+                             f"expected the source route")
+    t0 = time.perf_counter()
+    table = ds.collect()
+    travel[f"snapshot_{Y_EARLY}"] = {
+        "cold_ms": (time.perf_counter() - t0) * 1e3, "rows": table.num_rows,
+        "indexes": used}
+    require_rows(f"phase Y snapshot_{Y_EARLY}", table,
+                 x_rows(first, np.flatnonzero(in_range) < early), range_keys)
+    step("5_time_travel")
+
+    # (5) CDC: one snapshot upserts Y_UPSERTED keys, the next deletes one,
+    # each found in the appended rows alone (so the commits rewrite that
+    # file only); the maintenance cycle journals a CDC quick refresh.
+    only_appended = np.setdiff1d(np.unique(appended["l_orderkey"]),
+                                 np.unique(li["l_orderkey"]))
+    touched = only_appended[:Y_UPSERTED + 1]
+    if len(touched) != Y_UPSERTED + 1:
+        raise AssertionError("phase Y: no key found in the appended rows "
+                             "alone")
+    upsert = gen_lineitem(np.random.default_rng(Y_UPSERT_SEED), Y_UPSERTED)
+    upsert["l_orderkey"] = touched[:Y_UPSERTED].astype(np.int64)
+    upsert["l_shipdate"] = np.arange(Y_UPSERTED, dtype=np.int64) - Y_UPSERTED
+    session.conf.lifecycle_cdc_enabled = True
+    t0 = time.perf_counter()
+    snaps.append(upsert_iceberg(pa.table(upsert), src, "l_orderkey"))
+    snaps.append(delete_rows_iceberg(src, "l_orderkey", [int(touched[-1])]))
+    cdc_write_s = time.perf_counter() - t0
+    md = IcebergTable(src).load_metadata()
+    if [s.snapshot_id for s in md.snapshots] != snaps \
+            or [s.summary["operation"] for s in md.snapshots[-2:]] \
+            != ["overwrite", "delete"]:
+        raise AssertionError("phase Y: the CDC snapshots are not the upsert "
+                             "and the delete")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = hs.maintenance_cycle()
+    cycle_s = time.perf_counter() - t0
+    cycle_launches = kernels.launch_counts()
+    quick = [r for r in recs if r["decision"] == "refresh"
+             and r["mode"] == "quick" and r["outcome"] == "done"
+             and r["index"] == Y_INDEX]
+    if not quick or "CDC merge-on-read" not in quick[0]["reason"]:
+        raise AssertionError(f"phase Y: the cycle journaled {recs}")
+    cdc_cols = ("l_orderkey", "l_quantity", "l_extendedprice")
+    cdc_ds = session.read.iceberg(src) \
+        .filter(col("l_orderkey").isin([int(k) for k in touched])) \
+        .select(*cdc_cols)
+    cdc = x_query("cdc", cdc_ds, {c: upsert[c] for c in cdc_cols},
+                  ["l_orderkey", "l_quantity"], Y_INDEX, "Y")
+    cdc.update(reason=quick[0]["reason"], write_s=cdc_write_s,
+               cycle_s=cycle_s, cycle_launches=cycle_launches,
+               touched=[int(k) for k in touched])
+    step("6_cdc")
+
+    # (6) an overwrite that changes the schema: y_iceberg_ow's
+    # Y_OW_COMMITS snapshots replaced by Y_OW_ROWS rows with l_shipdate
+    # dropped and l_discount added; the surviving columns keep their
+    # field ids, l_discount takes the next, and a scan reads those rows.
+    ow = os.path.join(root, Y_OVERWRITTEN)
+    part = pa.table({c: li[c] for c in ("l_orderkey", "l_shipdate",
+                                         "l_extendedprice")})
+    for i in range(Y_OW_COMMITS):
+        write_iceberg(part.slice(i * Y_OW_ROWS, Y_OW_ROWS), ow)
+    base = Y_OW_COMMITS * Y_OW_ROWS
+    ow_cols = ["l_orderkey", "l_discount", "l_extendedprice"]
+    write_iceberg(pa.table({c: li[c][base:base + Y_OW_ROWS]
+                            for c in ow_cols}), ow, mode="overwrite")
+    ow_md = IcebergTable(ow).load_metadata()
+    ids = {f["name"]: f["id"] for f in ow_md.schema["fields"]}
+    if ids != {"l_orderkey": 1, "l_discount": 4, "l_extendedprice": 3} \
+            or ow_md.last_column_id != 4:
+        raise AssertionError(f"phase Y: the overwrite's field ids {ids}, "
+                             f"last-column-id {ow_md.last_column_id}")
+    t0 = time.perf_counter()
+    table = session.read.iceberg(ow).collect()
+    overwrite = {"scan_ms": (time.perf_counter() - t0) * 1e3,
+                 "rows": table.num_rows, "field_ids": ids,
+                 "files_on_disk": len(os.listdir(os.path.join(ow, "data")))}
+    require_rows("phase Y overwrite", table,
+                 {c: li[c][base:base + Y_OW_ROWS] for c in ow_cols},
+                 ["l_orderkey", "l_extendedprice"])
+    step("7_overwrite")
+
+    # (7) a truncated copy of the newest metadata JSON raises
+    # CorruptMetadataError naming the file.
+    torn = os.path.join(root, Y_TORN, "metadata")
+    os.makedirs(torn)
+    with open(os.path.join(src, "metadata",
+                           f"v{md.metadata_version}.metadata.json"),
+              "rb") as f:
+        body = f.read()
+    torn_md = os.path.join(torn, "v1.metadata.json")
+    with open(torn_md, "wb") as f:
+        f.write(body[:len(body) // 2])
+    try:
+        IcebergTable(os.path.dirname(torn)).load_metadata()
+    except CorruptMetadataError as e:
+        if torn_md not in str(e):
+            raise AssertionError(f"phase Y: the error {e} does not name "
+                                 f"{torn_md}") from e
+        torn_error = str(e)
+    else:
+        raise AssertionError("phase Y: a truncated metadata JSON loaded")
+    step("8_torn")
+
+    session.disable_hyperspace()
+    launches = {k: build_launches[k] + refresh_launches[k]
+                + cycle_launches[k] for k in build_launches}
+    if cuda and launches != {"hash_buckets": chunks + 1,
+                             "bucket_histogram": chunks + 1}:
+        raise AssertionError(f"phase Y: launches {launches}")
+    device_cache().clear()
+    for name in (Y_SOURCE, Y_OVERWRITTEN, Y_TORN, Y_INDEXES):
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    return {"write": write, "build": build, "queries": queries,
+            "plan_files": plan,
+            "refresh": {"s": refresh_s, "launches": refresh_launches,
+                        "rows": new_rows, "iceberg_snapshots": history},
+            "travel": travel, "cdc": cdc, "overwrite": overwrite,
+            "torn": torn_error, "launches": launches, "steps_s": steps,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def print_iceberg(y: dict) -> None:
+    w, b = y["write"], y["build"]
+    print(f"phase Y write: {w['snapshots']} snapshots, {w['mb']:.1f} MB in "
+          f"{w['s']:.3f} s", flush=True)
+    print(f"phase Y build {Y_INDEX}: wall {b['wall_s']:.3f} s, read "
+          f"{b['read_s'] or 0.0:.3f} s (phase C's Parquet "
+          f"{b['parquet_read_s'] or 0.0:.3f} s), {b['mb_read']:.1f} MB "
+          f"decoded, {b['mb_written']:.1f} MB written, {b['chunks']} chunks, "
+          f"{b['rows_checked']} rows equal to {INDEX_NAME}'s per key, "
+          f"launches {json.dumps(b['launches'])}", flush=True)
+    for name, q in {**y["queries"], **y["travel"]}.items():
+        warm = f" warm {q['warm_ms']:.1f}" if "warm_ms" in q else ""
+        print(f"phase Y {name}: cold {q['cold_ms']:.1f}{warm} ms, "
+              f"{q['rows']} rows", flush=True)
+    p, r = y["plan_files"], y["refresh"]
+    print(f"phase Y plan_files: {json.dumps(p)}; refresh {r['s']:.3f} s "
+          f"indexed {r['rows']} rows, launches {json.dumps(r['launches'])}",
+          flush=True)
+    c, o = y["cdc"], y["overwrite"]
+    print(f"phase Y cdc: snapshots {c['write_s']:.3f} s, maintenance cycle "
+          f"{c['cycle_s']:.3f} s ({c['reason']}), touched keys cold "
+          f"{c['cold_ms']:.1f} warm {c['warm_ms']:.1f} ms; overwrite scan "
+          f"{o['scan_ms']:.1f} ms, {o['rows']} rows, field ids "
+          f"{json.dumps(o['field_ids'])}; torn metadata raised", flush=True)
+    print(f"phase Y: launches {json.dumps(y['launches'])} "
+          f"({y['phase_s']:.3f} s; by step {json.dumps(y['steps_s'])})",
           flush=True)
 
 
@@ -9092,7 +9512,7 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-PHASES = "ABCDEFGHIJKLMNOPQRSTUVWX"
+PHASES = "ABCDEFGHIJKLMNOPQRSTUVWXY"
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -9100,7 +9520,7 @@ PHASES = "ABCDEFGHIJKLMNOPQRSTUVWX"
 PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
-               "U": "T", "V": "CD", "W": "C", "X": "C"}
+               "U": "T", "V": "CD", "W": "C", "X": "C", "Y": "C"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -9454,6 +9874,11 @@ def main(argv=None) -> int:
             print_delta(x)
             res["delta"] = x
             by_path["X delta"] = x["launches"]
+        if "Y" in runs:
+            y = phase_y(li, root, dev, c["phases"].get("read_s"))
+            print_iceberg(y)
+            res["iceberg"] = y
+            by_path["Y iceberg"] = y["launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -9516,7 +9941,7 @@ def main(argv=None) -> int:
             print(json.dumps({key: res[key]}))
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
                 "diagnostics", "object_store", "server", "server_u",
-                "fleet", "formats", "delta"):
+                "fleet", "formats", "delta", "iceberg"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

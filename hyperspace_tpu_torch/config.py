@@ -6,9 +6,8 @@ index lifecycle, the source watch, the transaction loop, telemetry, the
 sync guard, the doctor, deadlines, the plan cache, the flight recorder,
 the pluggable log and store classes, the source providers, and the
 source formats and globbing pattern of the default provider; defaults
-are the JAX package's, the class paths under the port's own modules,
-and ``source_providers`` without ``iceberg``, whose provider is not
-ported).
+are the JAX package's, with the class paths under the port's own
+modules).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -68,7 +67,7 @@ class HyperspaceConf:
     object_store_stale_list_ms: float = 0.0
     # The source providers (sources/manager.py), comma-separated names
     # of its registry; a name not registered raises.
-    source_providers: str = "default,delta"
+    source_providers: str = "default,delta,iceberg"
     # The source formats the default provider reads, comma-separated.
     supported_file_formats: str = "avro,csv,json,orc,parquet,text"
     # Comma-separated glob patterns; when set, create_index records the

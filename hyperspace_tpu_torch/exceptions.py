@@ -19,8 +19,9 @@ class NoChangesError(HyperspaceError):
 
 class CorruptMetadataError(HyperspaceError):
     """A source table's metadata file (a Delta ``_delta_log`` commit or
-    checkpoint) is truncated or corrupt.  The message names the file, so
-    it can be repaired or removed."""
+    checkpoint, an Iceberg metadata JSON, manifest list or manifest) is
+    truncated or corrupt.  The message names the file, so it can be
+    repaired or removed."""
 
 
 class DegradedIndexError(HyperspaceError):

@@ -178,9 +178,6 @@ def _read_source(session, source: Dict[str, Any]):
     fmt = source.get("format", "parquet")
     if fmt not in _SOURCE_FORMATS:
         raise ValueError(f"Unknown source format: {fmt!r}")
-    if not hasattr(session.read, fmt):
-        # The iceberg reader is not ported yet.
-        raise ValueError(f"Source format {fmt!r} has no reader here")
     path = source["path"]
     options = source.get("options", {})
     reader = getattr(session.read, fmt)

@@ -61,10 +61,12 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
 
 class DataReader:
     """``session.read.parquet(path)``, ``.csv``, ``.json``, ``.orc``,
-    ``.avro``, ``.text``, ``.delta`` and ``.format(fmt).load(path)``; a
-    path of the plain formats may be a glob pattern.  Options ride the
-    relation (``header="false"`` for a CSV without a header row,
-    ``versionAsOf`` or ``timestampAsOf`` for a Delta table)."""
+    ``.avro``, ``.text``, ``.delta``, ``.iceberg`` and
+    ``.format(fmt).load(path)``; a path of the plain formats may be a
+    glob pattern.  Options ride the relation (``header="false"`` for a
+    CSV without a header row, ``versionAsOf`` or ``timestampAsOf`` for a
+    Delta table, ``snapshot-id`` or ``as-of-timestamp`` for an Iceberg
+    table)."""
 
     def __init__(self, session: "HyperspaceSession") -> None:
         self._session = session
@@ -99,6 +101,13 @@ class DataReader:
         (a version) or ``timestampAsOf`` (epoch ms or an ISO timestamp)
         travels back."""
         return self._make("delta", path, **options)
+
+    def iceberg(self, path: str, **options: str):
+        """An Iceberg table, at its current snapshot unless ``snapshot_id``
+        or ``as_of_timestamp`` (epoch ms) travels back; an option's
+        underscores become dashes (``snapshot-id``)."""
+        renamed = {k.replace("_", "-"): v for k, v in options.items()}
+        return self._make("iceberg", path, **renamed)
 
     def format(self, fmt: str):
         reader = self

@@ -3,12 +3,12 @@ hyperspace_tpu/sources/manager.py): dispatches each provider API to
 exactly one provider.
 
 The providers are the names in ``conf.source_providers``, each looked up
-in ``PROVIDER_REGISTRY`` (``default`` and ``delta`` are built in;
-``register_provider`` adds one); a name not registered raises when the
-manager is made.  Every call asks each provider and takes the one
-answer: none, or more than one, raises ``HyperspaceError``.  A provider
-with ``bind_session`` gets the session, which ``closest_index`` needs to
-read older index log versions.
+in ``PROVIDER_REGISTRY`` (``default``, ``delta`` and ``iceberg`` are
+built in; ``register_provider`` adds one); a name not registered raises
+when the manager is made.  Every call asks each provider and takes the
+one answer: none, or more than one, raises ``HyperspaceError``.  A
+provider with ``bind_session`` gets the session, which ``closest_index``
+needs to read older index log versions.
 """
 
 from __future__ import annotations
@@ -48,6 +48,10 @@ def _builtin_providers() -> None:
         from hyperspace_tpu_torch.sources.delta.provider import DeltaLakeSource
 
         register_provider("delta", DeltaLakeSource)
+    if "iceberg" not in PROVIDER_REGISTRY:
+        from hyperspace_tpu_torch.sources.iceberg.provider import IcebergSource
+
+        register_provider("iceberg", IcebergSource)
 
 
 class FileBasedSourceProviderManager:

@@ -42,10 +42,12 @@ _FORMATS = ("io/partitions.py", "io/avro.py", "io/files.py",
             "io/parquet.py", "sources/default/provider.py",
             "sources/manager.py")
 
-# The source-provider plug-in and the Delta Lake source.
+# The source-provider plug-in, the Delta Lake and the Iceberg sources.
 _LAKE = ("io/schemas.py", "sources/interfaces.py",
          "sources/delta/__init__.py", "sources/delta/log.py",
-         "sources/delta/writer.py", "sources/delta/provider.py")
+         "sources/delta/writer.py", "sources/delta/provider.py",
+         "sources/iceberg/__init__.py", "sources/iceberg/metadata.py",
+         "sources/iceberg/writer.py", "sources/iceberg/provider.py")
 
 
 def _port_sources():
@@ -282,8 +284,9 @@ def test_the_formats_and_partitions_import_no_jax(tmp_path):
 
 def test_the_delta_source_imports_no_jax(tmp_path):
     """Every module under ``sources/`` and ``io/schemas.py`` load without
-    pyarrow; then a Delta table written, indexed, queried at its latest
-    and an older version, appended to and refreshed through the port."""
+    pyarrow; then a Delta table and an Iceberg table, each written,
+    indexed, queried at its latest and an older version, appended to and
+    refreshed through the port."""
     script = textwrap.dedent(f"""
         import os, sys
         from hyperspace_tpu_torch.io import schemas
@@ -291,6 +294,8 @@ def test_the_delta_source_imports_no_jax(tmp_path):
         from hyperspace_tpu_torch.sources.default import provider
         from hyperspace_tpu_torch.sources.delta import (log, provider as dp,
                                                         writer)
+        from hyperspace_tpu_torch.sources.iceberg import (
+            metadata, provider as ip, writer as iw)
         assert not any(m == "pyarrow" or m.startswith("pyarrow.")
                        for m in sys.modules), "pyarrow at load"
         import numpy as np
@@ -317,6 +322,19 @@ def test_the_delta_source_imports_no_jax(tmp_path):
         now = s.read.delta(t).filter(col("k") == 7).select("k").count()
         then = s.read.delta(t, versionAsOf="1").filter(col("k") == 7) \
             .select("k").count()
+        assert now == then + 1
+        it = os.path.join(root, "it")
+        first = iw.write_iceberg(pa.table({{"k": rng.integers(0, 50, 300),
+                                            "v": rng.random(300)}}), it)
+        hs.create_index(s.read.iceberg(it), IndexConfig("ii", ["k"], ["v"]))
+        iw.write_iceberg(pa.table({{"k": [7], "v": [0.5]}}), it)
+        hs.refresh_index("ii", "incremental")
+        entry = s.index_collection_manager.get_index("ii")
+        assert entry.properties["icebergSnapshots"].startswith(
+            f"2:{{first}},4:")
+        now = s.read.iceberg(it).filter(col("k") == 7).select("k").count()
+        then = s.read.iceberg(it, snapshot_id=str(first)) \
+            .filter(col("k") == 7).select("k").count()
         assert now == then + 1
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

@@ -12,9 +12,13 @@ commits do, and over a Delta table (``TestDeltaMergeOnRead``,
 ``TestDeltaMutatedFileDetection``: the ``delta`` cases of
 ``TestMergeOnRead``, its tight budget, the Delta half of the no-op row
 delete with both packages' writers, and the in-place rewrite in the
-log).  The Iceberg cases wait for ROADMAP.md Queue A item 14(c), the
-doctor's merge-debt check (``TestDoctorMergeDebt``) for item 9.  The
-watch seam's cases are in tests/test_torch_watch.py.
+log) and over an Iceberg table (``TestIcebergMergeOnRead``,
+``TestIcebergMutatedFileDetection``: the ``iceberg`` cases of
+``TestMergeOnRead``, the Iceberg half of the no-op row delete with both
+packages' writers, and the in-place rewrite seen through the file's
+mtime).  The doctor's merge-debt check (``TestDoctorMergeDebt``) waits
+for ROADMAP.md Queue A item 9.  The watch seam's cases are in
+tests/test_torch_watch.py.  Every comparison is exact.
 """
 
 from __future__ import annotations
@@ -353,6 +357,112 @@ class TestDeltaMutatedFileDetection:
         assert change.mutated == 1
         assert change.appended == 1 and change.deleted == 1
         assert change.deleted_bytes > 0
+
+
+# ---------------------------------------------------------------------------
+# Merge-on-read over an Iceberg source (tests/test_cdc.py's iceberg cases)
+# ---------------------------------------------------------------------------
+def _iceberg_env(tmp_path, **conf):
+    """An Iceberg table of 20 snapshots of 10 ids each, so one rewritten
+    file is a low churn and the CDC rung decides, and its index
+    ``cdx``."""
+    from hyperspace_tpu_torch.sources.iceberg import write_iceberg
+
+    path = str(tmp_path / "t")
+    for i in range(20):
+        write_iceberg(_table(range(i * 10, (i + 1) * 10)), path)
+    s = _session(tmp_path, lineage_enabled=True, hybrid_scan_enabled=True,
+                 lifecycle_cdc_enabled=True, **conf)
+    hs = Hyperspace(s)
+    hs.create_index(s.read.iceberg(path), IndexConfig("cdx", ["id"], ["name"]))
+    s.enable_hyperspace()
+    return s, hs, path
+
+
+class TestIcebergMergeOnRead:
+    def test_upsert_stream_rides_quick_bit_equal(self, tmp_path):
+        """Upserts and row deletes as copy-on-write snapshots: each cycle
+        journals the CDC quick refresh, and every answer equals the
+        source scan's, the upserted key with its new payload and the
+        deleted key gone."""
+        from hyperspace_tpu_torch.sources.iceberg.writer import (
+            delete_rows_iceberg,
+            upsert_iceberg,
+        )
+
+        s, hs, path = _iceberg_env(tmp_path,
+                                   lifecycle_cdc_merge_debt_ratio=5.0)
+        for i in range(3):
+            upsert_iceberg(_table([5 + i, 200 + i], tag=i + 1), path, "id")
+            delete_rows_iceberg(path, "id", [17 + i])
+            recs = hs.maintenance_cycle()
+            quick = [r for r in recs if r["decision"] == "refresh"
+                     and r["mode"] == "quick" and r["outcome"] == "done"]
+            assert quick, recs
+            assert "CDC merge-on-read" in quick[0]["reason"]
+            got = (s.read.iceberg(path).filter(col("id") >= 0)
+                   .select("id", "name").collect())
+            s.disable_hyperspace()
+            try:
+                want = (s.read.iceberg(path).filter(col("id") >= 0)
+                        .select("id", "name").collect())
+            finally:
+                s.enable_hyperspace()
+            assert _canonical(got) == _canonical(want)
+            rows = dict(_canonical(got))
+            assert rows[5 + i] == f"n{5 + i}-{i + 1}"
+            assert 17 + i not in rows
+
+    def test_merge_debt_is_measured_on_the_entry(self, tmp_path):
+        from hyperspace_tpu_torch.sources.iceberg.writer import upsert_iceberg
+
+        s, hs, path = _iceberg_env(tmp_path,
+                                   lifecycle_cdc_merge_debt_ratio=5.0)
+        upsert_iceberg(_table([3, 300], tag=9), path, "id")
+        hs.maintenance_cycle()
+        entry = s.index_collection_manager.get_index("cdx")
+        debt = cdc.merge_debt(entry)
+        assert debt.deleted_files >= 1 and debt.appended_files >= 1
+        assert debt.total_bytes > 0 and debt.ratio > 0
+        assert debt.readable
+        assert debt.to_dict()["index"] == "cdx"
+
+    def test_delete_rows_noop_when_nothing_matches(self, tmp_path):
+        """No matching row: no commit, the current snapshot id back, from
+        both packages' writers over one table."""
+        from hyperspace_tpu_torch.sources.iceberg import (
+            IcebergTable,
+            write_iceberg,
+        )
+        from hyperspace_tpu_torch.sources.iceberg.writer import (
+            delete_rows_iceberg,
+        )
+
+        path = str(tmp_path / "t2")
+        write_iceberg(_table(range(10)), path)
+        snap = IcebergTable(path).load_metadata().current_snapshot_id
+        assert delete_rows_iceberg(path, "id", [999]) == snap
+        jwriter = importlib.import_module(
+            "hyperspace_tpu.sources.iceberg.writer")
+        assert jwriter.delete_rows_iceberg(path, "id", [999]) == snap
+        assert IcebergTable(path).metadata_versions() == [1]
+
+
+class TestIcebergMutatedFileDetection:
+    def test_iceberg_inplace_rewrite_reads_as_mutated(self, tmp_path):
+        """A file's size comes from the manifest and its mtime from the
+        file: a rewrite in place, with no new snapshot, reads as
+        mutated."""
+        import time
+
+        s, hs, path = _iceberg_env(tmp_path)
+        entry = s.index_collection_manager.get_index("cdx")
+        victim = entry.source_file_infos()[0]
+        time.sleep(0.02)  # mtimes are in ms: make the rewrite's differ
+        pq.write_table(pq.read_table(victim.name), victim.name)
+        change = detect_changes(s, entry)
+        assert change.mutated == 1
+        assert change.appended == 1 and change.deleted == 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""chip_smoke.py's phase selector and its phases U, V, W and X, on the
-CPU.
+"""chip_smoke.py's phase selector and its phases U, V, W, X and Y, on
+the CPU.
 
 The selector: ``--phases T,U`` runs the selected phases with phase A and
 the kernel builds, plus what they read (phase C's ``li_idx`` build and
@@ -7,7 +7,7 @@ phase D's ``ord_idx`` build for T); an unknown letter is an error; and
 without a card the script exits non-zero and prints no result, also
 from a directory that holds it alone.  Phase U is rehearsed after phase
 T, phase V alone (it builds phase C's and D's indexes itself) and phases
-W and X after phase C, at 80,000 lineitem rows on a ``cpu`` session,
+W, X and Y after phase C, at 80,000 lineitem rows on a ``cpu`` session,
 where the plain kernels count no launch."""
 
 from __future__ import annotations
@@ -36,7 +36,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (["--phases", "V"], {"A", "V"}, {"C", "D"}),
     (["--phases", "W"], {"A", "W"}, {"C"}),
     (["--phases", "X"], {"A", "X"}, {"C"}),
-], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W", "X"])
+    (["--phases", "Y"], {"A", "Y"}, {"C"}),
+    (["--phases", "X,Y"], {"A", "X", "Y"}, {"C"}),
+], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W", "X", "Y",
+        "X,Y"])
 def test_a_selection_runs_what_it_reads(argv, selected, read):
     assert chip_smoke.parse_args(argv) == (selected, read, 0)
     assert chip_smoke.parse_args(argv + ["--u-turns", "2"])[2] == 2
@@ -257,3 +260,60 @@ def test_phase_x_on_the_cpu(monkeypatch, tmp_path):
                                  "4_append_refresh", "5_time_travel",
                                  "6_cdc", "7_overwrite"}
     assert not [n for n in os.listdir(root) if n.startswith("x_")]
+
+
+def test_phase_y_on_the_cpu(monkeypatch, tmp_path):
+    """Phase Y after phase C at 80,000 lineitem rows: the Iceberg index
+    equal to li_idx per key, the queries at the 10th snapshot, the files
+    planned at the 10th and 11th, the hybrid range, the refresh of the
+    appended rows alone and the range after it, time travel served by
+    the build's entry and by the source, the CDC quick refresh, the
+    overwrite's field ids and the torn metadata."""
+    import torch
+
+    _small(monkeypatch)
+    # An append of 2,000 rows: its share of the merge debt stays under
+    # the CDC rung's 0.2, as 93,750 of 6,000,000 rows do on the card.
+    for name, value in (("DEFAULT_BATCH_ROWS", 16_384),
+                        ("Y_RANGE", (5_000, 6_000)), ("Y_OW_ROWS", 10_000),
+                        ("ROWS_PER_FILE", 2_000)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    orders, li = chip_smoke.gen_data()
+    root = str(tmp_path / "smoke")
+    os.makedirs(root)
+    dev = torch.device("cpu")
+    c = chip_smoke.phase_c(li, root, dev)
+    y = chip_smoke.phase_y(li, root, dev, c["phases"].get("read_s"))
+    chip_smoke.print_iceberg(y)
+    assert y["write"]["snapshots"] == 10
+    assert y["build"]["chunks"] == 5
+    assert y["build"]["rows_checked"] == 80_000
+    assert y["build"]["iceberg_snapshots"].startswith("2:")
+    assert y["queries"]["point"]["rows"] == int(
+        (li["l_orderkey"] == chip_smoke.POINT_KEY).sum())
+    assert set(y["queries"]) == {"point", "range", "hybrid_range",
+                                 "refreshed_range"}
+    assert y["queries"]["hybrid_range"]["rows"] \
+        == y["queries"]["refreshed_range"]["rows"] \
+        > y["queries"]["range"]["rows"]
+    assert set(y["plan_files"]) == {"snapshot_10_ms", "snapshot_11_ms"}
+    assert y["refresh"]["rows"] == 2_000
+    assert y["refresh"]["iceberg_snapshots"].count(",") == 1
+    assert set(y["travel"]) == {"snapshot_10", "timestamp_10", "snapshot_6"}
+    for name in ("snapshot_10", "timestamp_10"):
+        assert y["travel"][name]["rows"] == y["queries"]["range"]["rows"]
+    assert y["travel"]["snapshot_6"]["indexes"] == []
+    assert y["travel"]["snapshot_6"]["rows"] \
+        < y["travel"]["snapshot_10"]["rows"]
+    assert y["cdc"]["rows"] == 2
+    assert "CDC merge-on-read" in y["cdc"]["reason"]
+    assert y["overwrite"]["rows"] == 10_000
+    assert y["overwrite"]["files_on_disk"] == 3
+    assert y["overwrite"]["field_ids"] == {
+        "l_orderkey": 1, "l_discount": 4, "l_extendedprice": 3}
+    assert "Truncated or corrupt Iceberg metadata" in y["torn"]
+    assert not any(y["launches"].values())  # plain kernels count none
+    assert set(y["steps_s"]) == {"1_write", "2_build", "3_queries",
+                                 "4_append_refresh", "5_time_travel",
+                                 "6_cdc", "7_overwrite", "8_torn"}
+    assert not [n for n in os.listdir(root) if n.startswith("y_")]

@@ -5,11 +5,8 @@ by both packages over the same files, the JAX package's answer the
 oracle (and each case's own assertion kept), then the rest of the
 codec's verbs and its errors.
 
-Both packages read parquet, csv, json, orc, avro, text and delta
-sources (a csv and a delta spec case below).  One deliberate
-difference: the JAX package reads iceberg sources too; the port has no
-reader for them yet, so a spec naming it raises ``ValueError`` in the
-port ("has no reader here") where the JAX package reads it."""
+Both packages read parquet, csv, json, orc, avro, text, delta and
+iceberg sources (a csv, a delta and an iceberg spec case below)."""
 
 from __future__ import annotations
 
@@ -324,14 +321,32 @@ def test_subquery_specs_need_a_session():
                                     "query": {"source": {"path": "x"}}})
 
 
-@pytest.mark.parametrize("fmt", ["iceberg"])
-def test_other_formats_have_no_reader_in_the_port(join_env, fmt):
-    root, a, _ = join_env
-    from hyperspace_tpu_torch.interop.query import dataset_from_spec
+@pytest.mark.parametrize("travel", [False, True],
+                         ids=["latest", "snapshot-id"])
+def test_iceberg_spec_equals_the_jax_package(join_env, travel):
+    """A spec over an Iceberg table (two snapshots of join_env's ``a``),
+    at its current snapshot and travelled back to the first by
+    ``snapshot-id``, joined with a parquet source, answers as the JAX
+    package's."""
+    from hyperspace_tpu_torch.sources.iceberg import write_iceberg
 
-    with pytest.raises(ValueError, match="has no reader here"):
-        dataset_from_spec(_session(TORCH, root),
-                          {"source": {"format": fmt, "path": a}})
+    root, a, b = join_env
+    t = os.path.join(root, "t")
+    rows = pq.read_table(a, partitioning=None)
+    first = write_iceberg(rows.slice(0, 400), t)
+    write_iceberg(rows.slice(400), t)
+    spec = {"source": {"format": "iceberg", "path": t},
+            "filter": {"op": "<", "col": "v", "value": 5},
+            "join": {"source": {"format": "parquet", "path": b},
+                     "on": {"op": "==", "col": "k", "right_col": "kb"}},
+            "select": ["k", "v", "s", "w"]}
+    if travel:
+        spec["source"]["options"] = {"snapshot-id": str(first)}
+    out = _both(root, spec)
+    keys = out[TORCH].column("k").to_pylist()
+    assert keys and (max(keys) < 400) == travel
+    assert out[TORCH].column_names == out[JAX].column_names
+    assert _rows(out[TORCH]) == _rows(out[JAX])
 
 
 @pytest.mark.parametrize("options", [{}, {"versionAsOf": "0"}],

@@ -1,8 +1,9 @@
 """The source-provider plug-in through the port, held to the JAX package:
 ``io/schemas.py``'s type tables and fallbacks, function by function over
 every type; the manager's exactly-one dispatch and its errors for no
-answer and for two; ``conf.source_providers`` naming a provider not
-registered (``iceberg`` among them: its provider is not ported); and
+answer and for two; the default providers (``default,delta,iceberg``
+in both) and ``conf.source_providers`` naming a provider not registered;
+and
 ``FileBasedRelation._select_closest_version``, the index version a
 versioned source's read picks, in its floor, exact, before-first and
 diff-bytes cases."""
@@ -209,22 +210,23 @@ def test_no_answer_or_two_answers_raise(fakes, providers, match):
 
 
 def test_the_default_providers():
-    assert TORCH.HyperspaceConf().source_providers == "default,delta"
-    assert JAX.HyperspaceConf().source_providers == "default,delta,iceberg"
-    registry = _mod(TORCH, "sources.manager").PROVIDER_REGISTRY
-    _manager(TORCH, "default,delta")
-    assert {"default", "delta"} <= set(registry)
+    for pkg in PKGS:
+        assert pkg.HyperspaceConf().source_providers \
+            == "default,delta,iceberg"
+        registry = _mod(pkg, "sources.manager").PROVIDER_REGISTRY
+        _manager(pkg, "default,delta,iceberg")
+        assert {"default", "delta", "iceberg"} <= set(registry)
 
 
 @pytest.mark.parametrize("providers, unknown", [
-    ("default,delta,iceberg", ["iceberg"]),
-    ("iceberg", ["iceberg"]),
+    ("default,delta,iceberg,nope", ["nope"]),
+    ("iceberg,other", ["other"]),
     ("default,nope", ["nope"]),
     ("nope, delta ,other", ["nope", "other"]),
 ])
 def test_an_unregistered_provider_raises(providers, unknown):
-    """``iceberg`` is not registered in the port until its provider is
-    ported; the JAX package raises the same error for the others."""
+    """A name not in the registry raises, in both packages alike, when
+    the manager is made, and a session's first read raises it."""
     from hyperspace_tpu_torch import HyperspaceSession
     from hyperspace_tpu_torch.exceptions import HyperspaceError
 
@@ -236,11 +238,10 @@ def test_an_unregistered_provider_raises(providers, unknown):
     s.conf.source_providers = providers
     with pytest.raises(HyperspaceError, match="Unknown source providers"):
         s.read.parquet("/unused").columns
-    if "iceberg" not in unknown:
-        with pytest.raises(_mod(JAX, "exceptions").HyperspaceError,
-                           match=r"Unknown source providers: "
-                                 + repr(unknown).replace("[", r"\[")):
-            _manager(JAX, providers)
+    with pytest.raises(_mod(JAX, "exceptions").HyperspaceError,
+                       match=r"Unknown source providers: "
+                             + repr(unknown).replace("[", r"\[")):
+        _manager(JAX, providers)
 
 
 # ---------------------------------------------------------------------------
