@@ -145,8 +145,8 @@ async server in turns (threaded, async, async, threaded).
            the files, the lineage and the four answers checked after
            each; after the first incremental refresh the four queries
            through the clean ``li_lin`` are timed cold and warm (every
-           warm device entry resident), and the clean join and the two
-           hybrid joins are split by stage cold and warm
+           warm device entry resident), and the clean join and the
+           hybrid join are split by stage cold and warm
            (``stage_breakdown``: the 200 bucket joins' thread-ms by stage
            and the wait on the pool).  Phases E, F and G start on an
            empty cache, every timed build empties it first (so the
@@ -675,6 +675,36 @@ async server in turns (threaded, async, async, threaded).
            (the build, the refresh and the cycle: 7 and 7 on the card).
            Prints ``{"iceberg": ...}`` with the card's name and power
            limit.
+  phase Z  the mesh of Z_SHARDS logical shards on the one card (after
+           phase Y), over phase C's lineitem and phase D's orders:
+           ``parallel/mesh.local_devices`` gives Z_SHARDS copies of the
+           card (``logical_shards``, the seam of the port's mesh
+           tests).  (1) ``li_idx`` as a spill build with
+           DEFAULT_BATCH_ROWS (6 chunks), each chunk routed over the
+           mesh: the build report's ``mesh_devices`` is 8, one hash and
+           one histogram launch per shard and chunk (48 and 48), and
+           every bucket file's sha256 equals phase C's ``li_idx``'s;
+           then the same build with the mesh off (6 and 6, the same
+           files), for the detour's cost.  (2) ``ord_idx`` with
+           ``parallel_build="on"``: the bucket shuffle over the mesh (8
+           hash launches, the writer's one histogram), its files equal
+           to phase D's.  (3) With every ``mesh_*_min_rows`` at 0: the
+           point and the range (strategy device-mesh), the join through
+           the indexes (bucketed-mesh) and over the sources (the flat
+           join, join kernel mesh), q3's groups whole
+           (mesh-fused-agg and mesh-join-agg; its top Q3_TOP are phase
+           D's q3) and agg_by_priority (mesh-segment), each collected
+           once unchecked, then cold once over the mesh and once on the
+           single device with the mesh off, each answer equal to numpy
+           (floats within AGG_RTOL).
+           (4) One chunk's spill route (DEFAULT_BATCH_ROWS rows, 16
+           buckets) by ``route_partition`` and by
+           ``route_partition_mesh``, the same (perm, counts), Z_ROUTE_RUNS
+           host-clock calls of each in turns.  Logical shards on one card
+           run one after another, so this measures the detour, not
+           scaling.  Launches ``Z sharded spill`` and ``Z distributed
+           build``.  Prints ``{"mesh": ...}`` with the card's name and
+           power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -706,7 +736,8 @@ phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 ``O rerun``, phase P's ``P lifecycle``, phase Q's ``Q telemetry``, phase
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
 server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
-formats``, phase X's ``X delta``, phase Y's ``Y iceberg``), the
+formats``, phase X's ``X delta``, phase Y's ``Y iceberg``, phase Z's
+``Z sharded spill`` and ``Z distributed build``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
@@ -714,7 +745,8 @@ envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 R), the object-store JSON (phase S), the server JSON (phase T), the
 async, tenant and wire-fault JSON (phase U), the front-door JSON
 (phase V), the formats JSON (phase W), the Delta JSON (phase X) and the
-Iceberg JSON (phase Y), each of the last thirteen with
+Iceberg JSON (phase Y) and the mesh JSON (phase Z), each of the last
+fourteen with
 the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
@@ -1262,6 +1294,24 @@ def sorted_rows(columns: dict, keys) -> dict:
     return {c: v[order] for c, v in columns.items()}
 
 
+def in_key_order(columns: dict, keys) -> bool:
+    """Whether the rows are already ordered by ``keys`` (lexicographic;
+    NaN keys never count as ordered), so that ``sorted_rows``, a stable
+    sort, would leave them as they are."""
+    undecided = None
+    for k in keys:
+        v = columns[k]
+        if v.dtype.kind == "f" and np.isnan(v).any():
+            return False
+        lt, gt = v[:-1] < v[1:], v[:-1] > v[1:]
+        if undecided is None:
+            undecided = np.ones(len(lt), dtype=bool)
+        if (undecided & gt).any():
+            return False
+        undecided &= ~lt
+    return True
+
+
 def require_rows(name: str, table, want: dict, keys=None,
                  rtol: float = 0.0) -> None:
     """``table`` holds exactly the rows of ``want`` (column name ->
@@ -1274,7 +1324,9 @@ def require_rows(name: str, table, want: dict, keys=None,
                              f"expected {list(want)}")
     got = {c: table.column(c).to_numpy() for c in want}
     if keys is not None:
-        got, want = sorted_rows(got, keys), sorted_rows(want, keys)
+        got = sorted_rows(got, keys)
+        if not in_key_order(want, keys):
+            want = sorted_rows(want, keys)
     for c, values in want.items():
         if rtol and np.issubdtype(values.dtype, np.floating) \
                 and got[c].shape == values.shape:
@@ -1336,7 +1388,9 @@ def expected_aggregates(orders: dict, li: dict) -> dict:
 
 def expected_answers(orders: dict, li: dict) -> dict:
     """Each query of QUERIES answered by numpy from the generated arrays:
-    (expected columns, sort keys or None for "in source order").
+    (expected columns, sort keys or None for "in source order"), the
+    columns of a keyed answer already in key order (``require_rows`` then
+    sorts only the rows it checks).
     ``o_orderkey`` is a permutation of ``arange``, so the join is a
     gather of the order row of each lineitem row."""
     lk = li["l_orderkey"]
@@ -1350,14 +1404,16 @@ def expected_answers(orders: dict, li: dict) -> dict:
               "l_extendedprice": li["l_extendedprice"]}
     cheap = price < PRICE_BELOW
     join_keys = ["o_orderkey", "l_extendedprice"]
+    range_keys = ["l_orderkey", "l_extendedprice"]
     return {
         "point": ({c: li[c][point] for c in ("l_orderkey", "l_quantity")},
                   None),
-        "range": ({c: li[c][in_range] for c in
-                   ("l_orderkey", "l_extendedprice", "l_discount")},
-                  ["l_orderkey", "l_extendedprice"]),
-        "join": (joined, join_keys),
-        "filtered_join": ({c: v[cheap] for c, v in joined.items()}, join_keys),
+        "range": (sorted_rows({c: li[c][in_range] for c in (
+            "l_orderkey", "l_extendedprice", "l_discount")}, range_keys),
+            range_keys),
+        "join": (sorted_rows(joined, join_keys), join_keys),
+        "filtered_join": (sorted_rows({c: v[cheap] for c, v in joined.items()},
+                                      join_keys), join_keys),
     }
 
 
@@ -2292,6 +2348,9 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
                          {"hash_buckets": int(join), "bucket_histogram": 0})
         if join:
             by_path["hybrid_route"] = launches
+        if name == "join":
+            # The hybrid join alone is split by stage (the filtered
+            # join's split left the script's time limit to phase Z).
             device_cache().clear()
             splits[f"hybrid {name}"] = {"cold": stage_breakdown(ds.collect),
                                         "warm": stage_breakdown(ds.collect)}
@@ -8907,6 +8966,278 @@ def print_iceberg(y: dict) -> None:
           flush=True)
 
 
+Z_SHARDS = 8                    # logical shards of the mesh on the one card
+Z_INDEXES = "z_indexes"         # phase Z's system path
+Z_ROUTE_RUNS = 3                # timed calls of each chunk route
+# Phase Z's queries: (over the indexes, the strategies each kind records
+# over the mesh, then on the single device with the mesh off).
+Z_QUERIES = {
+    "point": (True, {"filters": ["device-mesh"]}, {"filters": ["device"]}),
+    "range": (True, {"filters": ["device-mesh"]}, {"filters": ["device"]}),
+    "bucketed_join": (True, {"joins": ["bucketed-mesh"], "join_kernels": []},
+                      {"joins": ["bucketed"], "join_kernels": ["device"]}),
+    "flat_join": (False, {"joins": ["plain"], "join_kernels": ["mesh"]},
+                  {"joins": ["plain"], "join_kernels": ["device"]}),
+    "q3_groups": (True, {"filters": ["device-mesh"],
+                         "joins": ["mesh-fused-agg"],
+                         "aggregates": ["mesh-join-agg"]},
+                  {"filters": ["device"], "joins": ["device-fused-agg"],
+                   "aggregates": ["device-join-agg"]}),
+    "agg_by_priority": (True, {"filters": ["device-mesh"],
+                               "aggregates": ["mesh-segment"]},
+                        {"filters": ["device"],
+                         "aggregates": ["device-segment"]}),
+}
+
+
+@contextlib.contextmanager
+def logical_shards(dev, n: int):
+    """``parallel/mesh.local_devices`` replaced by ``n`` copies of the
+    session's device, the seam of the port's mesh tests: ``n`` logical
+    shards on one card.  Yields that mesh."""
+    import torch
+
+    from hyperspace_tpu_torch.parallel import mesh as parallel_mesh
+
+    shard = torch.device("cuda", torch.cuda.current_device()) \
+        if dev.type == "cuda" else dev
+    real = parallel_mesh.local_devices
+    parallel_mesh.local_devices = lambda device=None: [shard] * n
+    try:
+        yield parallel_mesh.build_mesh()
+    finally:
+        parallel_mesh.local_devices = real
+
+
+def z_strategies(stats: dict, kinds) -> dict:
+    return {k: sorted({d["strategy"] for d in stats.get(k, [])})
+            for k in kinds}
+
+
+def z_expected(orders: dict, li: dict) -> dict:
+    """Phase Z's answers by numpy: phase D's, and q3's groups whole (no
+    ORDER BY ... LIMIT: a top-n keeps the fused single-device path), in
+    o_custkey order."""
+    expected = {**expected_answers(orders, li),
+                **expected_aggregates(orders, li)}
+    position = np.empty(N_ORDERS, dtype=np.int64)
+    position[orders["o_orderkey"]] = np.arange(N_ORDERS)
+    row = position[li["l_orderkey"]]
+    cheap = orders["o_totalprice"][row] < PRICE_BELOW
+    cust = orders["o_custkey"][row][cheap]
+    revenue = (li["l_extendedprice"] * (1 - li["l_discount"]))[cheap]
+    keys = np.unique(cust)
+    expected["q3_groups"] = ({"o_custkey": keys, "revenue": np.bincount(
+        cust, weights=revenue)[keys]}, ["o_custkey"])
+    for name in ("bucketed_join", "flat_join"):
+        expected[name] = expected["join"]
+    return expected
+
+
+def z_route_timing(dev, li: dict, mesh) -> dict:
+    """The spill route of one chunk (the first DEFAULT_BATCH_ROWS rows of
+    l_orderkey, NUM_BUCKETS buckets) on the single device
+    (``route_partition``) and over the mesh (``route_partition_mesh``):
+    the same (perm, counts), and Z_ROUTE_RUNS host-clock calls of each,
+    uploads and read-backs included, in turns (single, mesh, mesh,
+    single, ...)."""
+    from hyperspace_tpu_torch.ops.hash import (
+        route_partition,
+        route_partition_mesh,
+    )
+
+    hw, ow = int64_words(li["l_orderkey"][:DEFAULT_BATCH_ROWS])
+    single = lambda: route_partition([hw], [ow], NUM_BUCKETS, dev)  # noqa: E731
+    meshed = lambda: route_partition_mesh(  # noqa: E731
+        [hw], [ow], NUM_BUCKETS, mesh)
+    p1, c1 = single()
+    p2, c2 = meshed()
+    if not (np.array_equal(p1, p2) and np.array_equal(c1, c2)):
+        raise AssertionError("phase Z: the mesh route's (perm, counts) "
+                             "differ from route_partition's")
+    times: dict = {"single": [], "mesh": []}
+    for i in range(Z_ROUTE_RUNS):
+        for name in (("single", "mesh") if i % 2 == 0 else ("mesh", "single")):
+            times[name].append(wall_ms(single if name == "single" else meshed))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"rows": len(hw), "buckets": NUM_BUCKETS, "shards": mesh.size,
+            "single_ms": med["single"], "mesh_ms": med["mesh"],
+            "detour_ms": med["mesh"] - med["single"],
+            "single_runs_ms": times["single"], "mesh_runs_ms": times["mesh"]}
+
+
+def phase_z(orders: dict, li: dict, root: str, dev) -> dict:
+    """The mesh of Z_SHARDS logical shards on the one card (see the module
+    docstring): the sharded spill build held to li_idx, the distributed
+    orders build held to ord_idx, the mesh routes of the queries held to
+    numpy beside the single device's, and the spill route's detour."""
+    from hyperspace_tpu_torch import (
+        Hyperspace,
+        HyperspaceSession,
+        IndexConfig,
+        col,
+    )
+    from hyperspace_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    steps: dict = {}
+
+    def step(label: str) -> None:
+        steps[label] = time.perf_counter() - t_phase - sum(steps.values())
+
+    reference = Hyperspace(HyperspaceSession(
+        system_path=os.path.join(root, "indexes"), device=dev))
+    want_li = bucket_digests(reference, INDEX_NAME)
+    want_ord = bucket_digests(reference, ORDERS_INDEX)
+    session = HyperspaceSession(system_path=os.path.join(root, Z_INDEXES),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    hs = Hyperspace(session)
+    chunks = -(-N_LINEITEM // DEFAULT_BATCH_ROWS)
+    builds: dict = {}
+
+    def build(label: str, src: str, config, want: dict,
+              want_launches: dict, mesh_devices: int) -> None:
+        device_cache().clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hs.create_index(session.read.parquet(os.path.join(root, src)),
+                        config)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        report = checked_report(f"phase Z {label}", hs)
+        if report.get("properties", {}).get("mesh_devices", 0) \
+                != mesh_devices:
+            raise AssertionError(f"phase Z {label}: mesh_devices "
+                                 f"{report.get('properties')}")
+        if cuda and launches != want_launches:
+            raise AssertionError(f"phase Z {label}: launches {launches}, "
+                                 f"expected {want_launches}")
+        if bucket_digests(hs, config.index_name) != want:
+            raise AssertionError(f"phase Z {label}: the files' sha256 differ "
+                                 f"from phase C's and D's builds")
+        builds[label] = {"wall_s": wall, "launches": launches,
+                         "phases": {k: v for k, v in
+                                    session.build_stats_log[-1].items()
+                                    if k != "index"},
+                         "device_kernel_ms": report.get("device_kernel_ms")}
+
+    with logical_shards(dev, Z_SHARDS) as mesh:
+        # (1) li_idx as a spill build, each chunk routed over the mesh:
+        # one hash and one histogram launch per shard and chunk.
+        session.conf.device_batch_rows = DEFAULT_BATCH_ROWS
+        per_chunk = {"hash_buckets": chunks * Z_SHARDS,
+                     "bucket_histogram": chunks * Z_SHARDS}
+        build("sharded spill", "lineitem",
+              IndexConfig(INDEX_NAME, INDEXED, INCLUDED), want_li, per_chunk,
+              Z_SHARDS)
+        # The same build on the single device, for the detour's cost.
+        session.conf.mesh_enabled = "off"
+        build("single-device spill", "lineitem",
+              IndexConfig("z_single", INDEXED, INCLUDED), want_li,
+              {"hash_buckets": chunks, "bucket_histogram": chunks}, 0)
+        hs.delete_index("z_single")
+        hs.vacuum_index("z_single")
+        session.conf.mesh_enabled = "auto"
+        step("1_spill_builds")
+        # (2) ord_idx monolithic, the bucket shuffle over the mesh: one
+        # hash launch per shard, the writer's one histogram.
+        session.conf.device_batch_rows = 1 << 23
+        session.conf.parallel_build = "on"
+        ord_config = IndexConfig(ORDERS_INDEX, ["o_orderkey"],
+                                 ["o_totalprice", "o_custkey",
+                                  "o_shippriority"])
+        build("distributed", "orders", ord_config, want_ord,
+              {"hash_buckets": Z_SHARDS, "bucket_histogram": 1}, 0)
+        session.conf.parallel_build = "off"
+        step("2_distributed_build")
+        # (3) the queries, over the two indexes just built (their files
+        # are li_idx's and ord_idx's).
+        for kind in ("filter", "join", "agg"):
+            setattr(session.conf, f"mesh_{kind}_min_rows", 0)
+        queries = build_queries(session, root, aggregates=True)
+        queries["bucketed_join"] = queries["flat_join"] = queries["join"]
+        revenue = col("l_extendedprice") * (1 - col("l_discount"))
+        queries["q3_groups"] = (
+            session.read.parquet(os.path.join(root, "orders"))
+            .filter(col("o_totalprice") < PRICE_BELOW)
+            .join(session.read.parquet(os.path.join(root, "lineitem")),
+                  col("o_orderkey") == col("l_orderkey"))
+            .group_by("o_custkey").agg(revenue=(revenue, "sum")))
+        expected = z_expected(orders, li)
+        kernels.reset_launch_counts()
+        rows = {}
+        for name, (indexed, on_mesh, single) in Z_QUERIES.items():
+            ds = queries[name]
+            want, keys = expected[name]
+            rtol = AGG_RTOL if name in AGG_QUERIES + ("q3_groups",) else 0.0
+            if indexed:
+                session.enable_hyperspace()
+            # Unchecked and untimed: a query's first collect pays one-time
+            # costs (its ops' first use), which would land on the route
+            # timed first.
+            ds.collect()
+            out = {}
+            for label, mode, routes_want in (("mesh", "auto", on_mesh),
+                                             ("single", "off", single)):
+                session.conf.mesh_enabled = mode
+                device_cache().clear()
+                t0 = time.perf_counter()
+                table = ds.collect()
+                out[f"{label}_cold_ms"] = (time.perf_counter() - t0) * 1e3
+                require_rows(f"phase Z {name} {label}", table, want, keys,
+                             rtol)
+                got = z_strategies(session.last_execution_stats, routes_want)
+                if got != routes_want:
+                    raise AssertionError(f"phase Z {name} {label}: routes "
+                                         f"{got}, expected {routes_want}")
+                if name == "q3_groups":
+                    # Its top groups are phase D's q3.
+                    top = np.argsort(-table.column("revenue").to_numpy(),
+                                     kind="stable")[:Q3_TOP]
+                    require_rows(f"phase Z q3 {label}", table.take(top),
+                                 expected["q3"][0], None, AGG_RTOL)
+            session.conf.mesh_enabled = "auto"
+            session.disable_hyperspace()
+            out["detour_ms"] = out["mesh_cold_ms"] - out["single_cold_ms"]
+            out["rows"] = len(next(iter(want.values())))
+            rows[name] = out
+        query_launches = kernels.launch_counts()
+        step("3_queries")
+        # (4) the spill route of one chunk, single device and mesh.
+        route = z_route_timing(dev, li, mesh)
+        step("4_route_timing")
+    device_cache().clear()
+    shutil.rmtree(os.path.join(root, Z_INDEXES), ignore_errors=True)
+    return {"shards": Z_SHARDS, "builds": builds, "queries": rows,
+            "query_launches": query_launches, "route": route,
+            "launches": builds["sharded spill"]["launches"],
+            "steps_s": steps, "phase_s": time.perf_counter() - t_phase}
+
+
+def print_mesh(z: dict) -> None:
+    for label, b in z["builds"].items():
+        print(f"phase Z {label} build: wall {b['wall_s']:.3f} s, launches "
+              f"{json.dumps(b['launches'])}, phases {json.dumps(b['phases'])}"
+              f", device_kernel_ms {json.dumps(b['device_kernel_ms'])}",
+              flush=True)
+    for name, q in z["queries"].items():
+        print(f"phase Z {name}: mesh cold {q['mesh_cold_ms']:.1f} ms, single "
+              f"device cold {q['single_cold_ms']:.1f} ms (detour "
+              f"{q['detour_ms']:+.1f} ms), {q['rows']} rows", flush=True)
+    r = z["route"]
+    print(f"phase Z chunk route ({r['rows']} rows, {r['buckets']} buckets): "
+          f"single device {r['single_ms']:.2f} ms, mesh of {r['shards']} "
+          f"shards {r['mesh_ms']:.2f} ms (detour {r['detour_ms']:+.2f} ms)",
+          flush=True)
+    print(f"phase Z: {z['shards']} logical shards, every build equal to "
+          f"phases C and D, every answer to numpy; query launches "
+          f"{json.dumps(z['query_launches'])} ({z['phase_s']:.3f} s; by step "
+          f"{json.dumps(z['steps_s'])})", flush=True)
+
+
 def print_fleet(v: dict) -> None:
     f, p, h = v["fleet"], v["proxy"], v["hedge"]
     br, sc = v["breaker"], v["scrape"]
@@ -9512,7 +9843,7 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-PHASES = "ABCDEFGHIJKLMNOPQRSTUVWXY"
+PHASES = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -9520,7 +9851,8 @@ PHASES = "ABCDEFGHIJKLMNOPQRSTUVWXY"
 PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
-               "U": "T", "V": "CD", "W": "C", "X": "C", "Y": "C"}
+               "U": "T", "V": "CD", "W": "C", "X": "C", "Y": "C",
+               "Z": "CD"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -9879,6 +10211,13 @@ def main(argv=None) -> int:
             print_iceberg(y)
             res["iceberg"] = y
             by_path["Y iceberg"] = y["launches"]
+        if "Z" in runs:
+            z = phase_z(orders, li, root, dev)
+            print_mesh(z)
+            res["mesh"] = z
+            by_path["Z sharded spill"] = z["launches"]
+            by_path["Z distributed build"] = \
+                z["builds"]["distributed"]["launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -9941,7 +10280,7 @@ def main(argv=None) -> int:
             print(json.dumps({key: res[key]}))
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
                 "diagnostics", "object_store", "server", "server_u",
-                "fleet", "formats", "delta", "iceberg"):
+                "fleet", "formats", "delta", "iceberg", "mesh"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

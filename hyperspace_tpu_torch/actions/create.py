@@ -26,6 +26,18 @@ into batches of exactly ``conf.device_batch_rows`` rows:
     device holds a few batches at once whatever the source's size, and
     every bucket's bytes equal the monolithic build's.
 
+With a mesh of logical shards (``parallel/mesh.active_mesh``: at least 2
+local devices under ``conf.mesh_enabled``), each spill chunk is routed
+over the mesh instead (``ops.hash.route_partition_mesh``: the hash per
+shard, the exchange to each bucket's owner, the sort and the histogram
+per shard; the same ``(perm, counts)``), and the build report records
+``mesh_devices`` and the route's milliseconds per mesh position.  The
+monolithic build takes the bucket shuffle over the mesh
+(``parallel.distributed_bucket_sort_permutation``) when
+``conf.parallel_build`` asks for it ("on", or "auto" with more than one
+local device); "on" also keeps a source beyond one batch in one
+monolithic build.  Every route writes the same bytes.
+
 With ``conf.lineage_enabled`` each row carries its source file's
 tracker id in ``DATA_FILE_ID_COLUMN`` (stamped per file as it is read),
 an int64 column of the index like any other, through both builds.
@@ -59,8 +71,8 @@ read, written and spilled, to the action's build report.
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
 ``_write_table_bucketed``.  Each source file read is an ``io.read``
-span that names its format.  Not ported: the mesh and multi-host
-builds.  pyarrow is imported when a function runs.
+span that names its format.  Not ported: the multi-host build.  pyarrow
+is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -105,12 +117,18 @@ from hyperspace_tpu_torch.io.parquet import (
     zorder_codes_from_order_words,
     zorder_split_chunks,
 )
-from hyperspace_tpu_torch.ops.hash import route_partition, route_partition_np
+from hyperspace_tpu_torch.ops.hash import (
+    route_partition,
+    route_partition_mesh,
+    route_partition_np,
+)
 from hyperspace_tpu_torch.ops.sort import (
     bucket_sort_permutation,
     bucket_sort_permutation_np,
 )
 from hyperspace_tpu_torch.ops.zorder import key64_to_codes, zorder_sort
+from hyperspace_tpu_torch.parallel import mesh as parallel_mesh
+from hyperspace_tpu_torch.parallel.sharded_build import bucket_group_bounds
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
 from hyperspace_tpu_torch.telemetry.events import CreateActionEvent
 from hyperspace_tpu_torch.telemetry.trace import span
@@ -166,13 +184,6 @@ def reap_orphan_spill_dirs(tmp_root: Optional[str] = None) -> int:
         remove_tree(os.path.join(root, name), ignore_errors=True)
         reaped += 1
     return reaped
-
-
-def bucket_group_bounds(num_buckets: int, groups: int) -> list:
-    """Contiguous bucket ranges: group ``g`` owns the buckets
-    ``bounds[g] <= b < bounds[g + 1]`` (the JAX package's
-    ``parallel/sharded_build.bucket_group_bounds``)."""
-    return [-(-g * num_buckets // groups) for g in range(groups + 1)]
 
 
 class _PrefetchReader:
@@ -399,8 +410,14 @@ class CreateActionBase(Action):
         if not files:
             raise HyperspaceError("No source data files to index")
         batch_rows = max(1, int(self.conf.device_batch_rows))
+        # A source beyond one batch spills, its chunks routed over the mesh
+        # when there is one; only an explicit parallel_build="on" keeps the
+        # monolithic build over the mesh, which holds the whole source.
+        streaming = not (
+            str(self.conf.parallel_build).lower() in ("on", "true")
+            and self._use_distributed_build())
         self._phase("plan_s", time.perf_counter() - t0)
-        if resolved.layout == "zorder":
+        if streaming and resolved.layout == "zorder":
             self._zorder_streaming_build(files, resolved.all_columns, relation,
                                          self.lineage_enabled, resolved,
                                          batch_rows)
@@ -410,7 +427,7 @@ class CreateActionBase(Action):
         try:
             self._stream_build(files, resolved.all_columns, relation,
                                self.lineage_enabled, resolved, batch_rows,
-                               spill)
+                               streaming, spill)
             self._publish_build_stats()
         finally:
             # Joins the route and finalize pools and removes the spill
@@ -454,10 +471,12 @@ class CreateActionBase(Action):
         return t
 
     def _stream_build(self, files, columns, relation, lineage: bool, resolved,
-                      batch_rows, spill: "_BucketSpill") -> None:
+                      batch_rows, streaming: bool,
+                      spill: "_BucketSpill") -> None:
         """Read the source and cut it into batches of exactly
         ``batch_rows`` rows for the spill; a source that fits one batch
-        never spills and takes the monolithic build.  The pipeline
+        never spills and takes the monolithic build, and so does every
+        source when ``streaming`` is off.  The pipeline
         (prefetch, route workers, streaming finalize) changes scheduling
         only: with ``build_pipeline_enabled`` off the same functions run
         in the same order on this thread."""
@@ -473,7 +492,7 @@ class CreateActionBase(Action):
             for t in reader:
                 buffer.append(t)
                 buffered += t.num_rows
-                while buffered > batch_rows:
+                while streaming and buffered > batch_rows:
                     combined = pa.concat_tables(buffer,
                                                 promote_options="default")
                     spill.add_chunk(combined.slice(0, batch_rows))
@@ -690,6 +709,21 @@ class CreateActionBase(Action):
                                  for w in order_words])
         return key64_to_codes(key), perm
 
+    def _use_distributed_build(self) -> bool:
+        """Whether the monolithic build takes the bucket shuffle over the
+        mesh: ``conf.parallel_build`` "on", or "auto" with more than one
+        local device (``parallel/mesh.local_devices``)."""
+        mode = str(self.conf.parallel_build).lower()
+        if mode in ("on", "true"):
+            return True
+        if mode in ("off", "false"):
+            return False
+        if mode != "auto":
+            raise HyperspaceError(
+                f"Invalid {self.conf.parallel_build!r} for parallel_build; "
+                f"expected 'auto', 'on', or 'off'")
+        return len(parallel_mesh.local_devices(self.session.device)) > 1
+
     def _write_table_bucketed(self, table, resolved: IndexConfig) -> None:
         device = self.session.device
         t0 = time.perf_counter()
@@ -704,7 +738,20 @@ class CreateActionBase(Action):
                                   device=perm.device)
         else:
             word_cols = [columnar.to_hash_words(table.column(c)) for c in keys]
-            if self._host_route(table.num_rows):
+            if self._use_distributed_build():
+                from hyperspace_tpu_torch.parallel import (
+                    distributed_bucket_sort_permutation,
+                )
+
+                # The bucket shuffle over every local device (no
+                # mesh_max_devices cap, as in the JAX package); the
+                # writer's histogram runs on the session's device.
+                ids, perm_np = distributed_bucket_sort_permutation(
+                    table, keys, self.num_buckets,
+                    parallel_mesh.build_mesh(device=device))
+                buckets = torch.from_numpy(ids).to(device)
+                perm = torch.from_numpy(perm_np)
+            elif self._host_route(table.num_rows):
                 # The host mirror: the same bytes, no transfer, no launch.
                 buckets, perm = (torch.from_numpy(a) for a in
                                  bucket_sort_permutation_np(
@@ -838,6 +885,8 @@ class _BucketSpill:
         self._finalize_pool: Optional[ThreadPoolExecutor] = None
         self._finalize_futures: List = []
         self._out_dir: Optional[str] = None
+        self._mesh = None  # resolved at the first route
+        self._mesh_probed = False
 
     def _route_pool(self) -> Optional[ThreadPoolExecutor]:
         if not self.pipelined:
@@ -943,6 +992,16 @@ class _BucketSpill:
             if fire:
                 self._close_groups()
 
+    def _active_mesh(self):
+        """The mesh of this build's chunk routes, resolved once
+        (``parallel/mesh.active_mesh``; None: the single device).  Two
+        route threads that race here resolve the same mesh."""
+        if not self._mesh_probed:
+            self._mesh = parallel_mesh.active_mesh(
+                self.action.conf, self.action.session.device)
+            self._mesh_probed = True
+        return self._mesh
+
     def _route_chunk(self, table, chunk_no: int) -> None:
         import pyarrow as pa
 
@@ -956,6 +1015,17 @@ class _BucketSpill:
             buckets, perm = route_partition_np(word_cols, codes64,
                                                self._num_buckets)
             counts = np.bincount(buckets, minlength=self._num_buckets)
+        elif (mesh := self._active_mesh()) is not None:
+            # Over the mesh: each shard owns the buckets b % n; the same
+            # (perm, counts), so the same runs.
+            perm, counts = route_partition_mesh(
+                word_cols, [columnar.split_words64(k) for k in codes64],
+                self._num_buckets, mesh)
+            ms = (time.perf_counter() - t0) * 1000.0
+            report = self.action.build_report
+            report.properties["mesh_devices"] = mesh.size
+            for position in range(mesh.size):
+                report.add_device_kernel_ms(position, ms)
         else:
             perm, counts = route_partition(
                 word_cols, [columnar.split_words64(k) for k in codes64],

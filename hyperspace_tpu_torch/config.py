@@ -3,11 +3,11 @@ holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
 index lifecycle, the source watch, the transaction loop, telemetry, the
-sync guard, the doctor, deadlines, the plan cache, the flight recorder,
-the pluggable log and store classes, the source providers, and the
-source formats and globbing pattern of the default provider; defaults
-are the JAX package's, with the class paths under the port's own
-modules).
+sync guard, the doctor, deadlines, the mesh, the plan cache, the flight
+recorder, the pluggable log and store classes, the source providers,
+and the source formats and globbing pattern of the default provider;
+defaults are the JAX package's, with the class paths under the port's
+own modules).
 
 The routing thresholds default to None: ``device_min_rows(kind, device)``
 and ``resident_min_rows(kind, device)`` then take the value calibration
@@ -110,6 +110,23 @@ class HyperspaceConf:
     # will be, under "eager") runs on the device; a value set applies to
     # every kind, None calibrates one per kind.
     device_resident_min_rows: Optional[int] = None
+    # The mesh of logical shards (parallel/mesh.py): "auto" takes the
+    # sharded paths (the spill route, the mesh filter, join and
+    # aggregates) when at least 2 local devices are seen, "on" too (still
+    # nothing below 2), "off" never (the same bytes and answers either
+    # way); mesh_max_devices caps the devices it spans (0 = all).
+    mesh_enabled: str = "auto"
+    mesh_max_devices: int = 0
+    # Rows from which, with a mesh, a device filter, a join (and the
+    # bucketed join's buckets, and the fused join->aggregate) and a
+    # grouped aggregate run over the mesh.
+    mesh_filter_min_rows: int = 1 << 24
+    mesh_join_min_rows: int = 1 << 24
+    mesh_agg_min_rows: int = 1 << 24
+    # The monolithic build over the mesh (parallel/build.py): "auto" when
+    # more than one local device is seen, "on" always, which also keeps
+    # a source beyond one batch in one monolithic build, "off" never.
+    parallel_build: str = "auto"
     # Build reports (telemetry/build_report.py): off keeps the phase
     # seconds and bytes but skips the memory sampling, the metric and
     # span export and the perf-ledger append.

@@ -106,8 +106,22 @@ A scan of a lake table (Delta) without ``file_paths`` reads the files of
 its provider's snapshot, never a listing of its directory, in their
 physical format (Parquet); so do the row estimates.
 
-Not ported: the mesh filter, join and aggregates.
-pyarrow is imported inside the functions.
+With a mesh of logical shards (``parallel/mesh.active_mesh``, resolved
+once per collect: at least 2 local devices under ``conf.mesh_enabled``),
+five routes run over its shards from their own thresholds, each on host
+columns (the shards are their own placement, so the column cache is not
+read), each with the single-device route's answer: a device filter
+splits its columns row-wise ("device-mesh", from
+``mesh_filter_min_rows``); a join on one numeric key partitions both
+sides by key ownership ("mesh" join kernel, from
+``mesh_join_min_rows``); a bucket-aligned INNER join on one numeric
+bucket column gives bucket ``b`` to shard ``b % n`` ("bucketed-mesh",
+from ``mesh_join_min_rows`` rows by the footers); a GROUP BY partitions
+its rows by group-key ownership ("mesh-segment", from
+``mesh_agg_min_rows``); and the fused join->aggregate without top-n runs
+as three mesh stages ("mesh-fused-agg" / "mesh-join-agg", from
+``mesh_join_min_rows``).  ``mesh_enabled="off"``, or one device, keeps
+every route above.  pyarrow is imported inside the functions.
 """
 
 from __future__ import annotations
@@ -200,6 +214,19 @@ class Executor:
         # a read error (``containment.is_read_error``): what
         # Dataset.collect's containment takes, and nothing else.
         self.index_read_failures: List[Tuple[str, List[str]]] = []
+        # The mesh of logical shards, resolved once per executor (one
+        # collect): ``conf.mesh_enabled`` gates every sharded route below;
+        # None keeps the single-device paths.
+        self._mesh_cache: Tuple[bool, object] = (False, None)
+
+    def _active_mesh(self):
+        probed, mesh = self._mesh_cache
+        if not probed:
+            from hyperspace_tpu_torch.parallel.mesh import active_mesh
+
+            mesh = active_mesh(self.session.conf, self.session.device)
+            self._mesh_cache = (True, mesh)
+        return mesh
 
     def _read_index_files(self, rel, paths, read):
         """``read()``, which reads ``paths`` of ``rel``; a read error of
@@ -338,11 +365,12 @@ class Executor:
         except Exception:  # noqa: BLE001 - non-POSIX platform
             pass
         device = self.session.device
+        on_card = ("device", "mesh", "bucketed-mesh")
         touched_device = bool(
             self.stats.get("device_cache")
-            or any(j.get("strategy", "").startswith("device")
+            or any(j.get("strategy", "").startswith(on_card)
                    for j in self.stats.get("joins", []))
-            or any(a.get("strategy", "").startswith("device")
+            or any(a.get("strategy", "").startswith(on_card)
                    for a in self.stats.get("aggregates", [])))
         if touched_device and device.type == "cuda":
             live = int(torch.cuda.memory_allocated(device))
@@ -540,23 +568,33 @@ class Executor:
     def _eval_predicate(self, expr: Expr, table) -> np.ndarray:
         """The device path needs at least one column, every referenced
         column numeric and null-free, and ``device_min_rows("filter")``
-        rows (or the resident threshold); all else takes the arrow
-        path."""
+        rows (or the resident threshold); all else takes the arrow path.
+        With a mesh, ``mesh_filter_min_rows`` rows also open it (else a
+        device threshold above the mesh's would hide the mesh route), and
+        from there the columns are split over the mesh's shards."""
         cols = expr.referenced_columns()
         identity = self._scan_identity(table)
         pairs = [(c, "num") for c in cols]
         min_rows = self._cache_aware_min_rows(identity, pairs, "filter")
+        mesh = self._active_mesh()
+        if mesh is not None:
+            min_rows = min(min_rows, self.session.conf.mesh_filter_min_rows)
         on_device = bool(cols) \
             and table.num_rows >= min_rows \
             and all(columnar.is_numeric_type(table.schema.field(c).type)
                     and table.column(c).null_count == 0 for c in cols) \
             and _device_compatible(expr, table)
         if on_device:
-            resident = self._all_resident(identity, pairs)
-            mask = self._eval_device(expr, table, identity)
+            # The mesh takes host columns (its shards are its own
+            # placement), so it never reads the column cache.
+            use_mesh = mesh is not None and table.num_rows \
+                >= self.session.conf.mesh_filter_min_rows
+            resident = not use_mesh and self._all_resident(identity, pairs)
+            mask = self._eval_device(expr, table, identity,
+                                     mesh if use_mesh else None)
             self.stats.setdefault("filters", []).append({
-                "strategy": "device", "rows": table.num_rows,
-                "resident": resident})
+                "strategy": "device-mesh" if use_mesh else "device",
+                "rows": table.num_rows, "resident": resident})
             return mask
         self.stats.setdefault("filters", []).append({
             "strategy": "host", "rows": table.num_rows})
@@ -587,12 +625,21 @@ class Executor:
             "rows": table.num_rows})
         return ids
 
-    def _eval_device(self, expr: Expr, table, identity) -> np.ndarray:
+    def _eval_device(self, expr: Expr, table, identity,
+                     mesh=None) -> np.ndarray:
         from hyperspace_tpu_torch.ops.aggregate import to_device
         from hyperspace_tpu_torch.ops.filter import compile_predicate
 
         order = sorted(expr.referenced_columns())
         fn, literals = compile_predicate(_normalize_literals(expr, table), order)
+        if mesh is not None:
+            from hyperspace_tpu_torch.parallel.filter import (
+                eval_predicate_on_mesh,
+            )
+
+            return eval_predicate_on_mesh(
+                fn, [columnar.to_device_numeric(table.column(c))
+                     for c in order], literals, mesh)
         device = self.session.device
         cols = [to_device(self._device_column(table, c, identity, "num"),
                           device) for c in order]
@@ -730,7 +777,22 @@ class Executor:
                 use_device = eff < cold and max_rows >= eff
             resident = use_device and self._all_resident(id_l, pl) \
                 and self._all_resident(id_r, pr)
-            if use_device:
+            # With a mesh, from its own threshold, the key space is split
+            # over the shards by key ownership (host keys: cached tensors
+            # keep the single-device join).  The same match set.
+            mesh = self._active_mesh()
+            use_mesh = mesh is not None and not resident \
+                and max_rows >= self.session.conf.mesh_join_min_rows
+            if use_mesh:
+                from hyperspace_tpu_torch.ops.join import (
+                    sorted_equi_join_mesh,
+                )
+
+                li, ri = sorted_equi_join_mesh(
+                    columnar.to_device_numeric(left.column(l_keys[0])),
+                    columnar.to_device_numeric(right.column(r_keys[0])),
+                    mesh)
+            elif use_device:
                 lk = self._device_column(left, l_keys[0], id_l, "num")
                 rk = self._device_column(right, r_keys[0], id_r, "num")
                 li, ri = sorted_equi_join(lk, rk, self.session.device)
@@ -739,7 +801,8 @@ class Executor:
                     columnar.to_device_numeric(left.column(l_keys[0])),
                     columnar.to_device_numeric(right.column(r_keys[0])))
             self.stats.setdefault("join_kernels", []).append({
-                "strategy": "device" if use_device else "host",
+                "strategy": "mesh" if use_mesh
+                else ("device" if use_device else "host"),
                 "rows": int(max_rows), "resident": resident})
             return np.asarray(li, dtype=np.int64), np.asarray(ri, dtype=np.int64)
         # Composite or string keys: the digest join with exact
@@ -796,11 +859,17 @@ class Executor:
             if plan.how in ("left", "full", "anti") else []
         extra_right = sorted(set(r_parts) - set(l_parts)) \
             if plan.how in ("right", "full") else []
+        hybrid = bool(left_side.appended or right_side.appended)
+        meshed = self._try_mesh_bucketed_join(
+            plan, left_side, right_side, l_parts, r_parts, shared,
+            extra_left or extra_right, hybrid, l_files, r_files)
+        if meshed is not None:
+            return meshed
         self.stats["joins"].append({
             "strategy": "bucketed",
             "how": plan.how,
             "buckets": len(shared) + len(extra_left) + len(extra_right),
-            "hybrid": bool(left_side.appended or right_side.appended),
+            "hybrid": hybrid,
         })
         # The zero-row donors come from one shared bucket, read once and
         # reused for that bucket's own join.
@@ -832,6 +901,97 @@ class Executor:
         parts = parallel_map_ordered(
             join_bucket, sorted(shared + extra_left + extra_right),
             max_workers=8)
+        return pa.concat_tables(parts, promote_options="default")
+
+    def _try_mesh_bucketed_join(self, plan: Join, left_side, right_side,
+                                l_parts, r_parts, shared, one_sided: bool,
+                                hybrid: bool, l_files, r_files):
+        """The per-bucket joins over the mesh instead of the thread pool:
+        bucket ``b`` goes to shard ``b % n`` (the mod ownership the
+        sharded build writes with), and ``copartitioned_join_ragged``
+        joins each shard's buckets with no exchange, since equal keys
+        share a bucket.  Strategy "bucketed-mesh".
+
+        Only an INNER join on one numeric key (the single bucket column),
+        with no bucket on one side only, with a mesh, and with at least
+        ``mesh_join_min_rows`` rows by the index files' Parquet footers
+        (read before anything is decoded: a join under the threshold
+        keeps the pool's bounded memory, since the mesh route holds every
+        bucket at once).  None otherwise."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        if plan.how != "inner" or one_sided:
+            return None
+        mesh = self._active_mesh()
+        if mesh is None:
+            return None
+        pairs = as_equi_join_pairs(plan.condition)
+        if pairs is None or len(pairs) != 1:
+            return None
+        names = []
+        for side in (left_side, right_side):
+            name = side.scan.relation.bucket_spec[1][0]
+            stored = {k.lower(): v for k, v in
+                      self.session.schema_map_of(side.scan).items()}
+            if name.lower() not in stored or not columnar.is_numeric_type(
+                    schema_to_arrow({"c": stored[name.lower()]})
+                    .field(0).type):
+                return None
+            names.append(name)
+        if _footer_row_estimate(l_files, shared) \
+                + _footer_row_estimate(r_files, shared) \
+                < self.session.conf.mesh_join_min_rows:
+            return None
+
+        from hyperspace_tpu_torch.parallel.join import (
+            copartitioned_join_ragged,
+        )
+        from hyperspace_tpu_torch.telemetry import metrics
+        from hyperspace_tpu_torch.utils.parallel_map import parallel_map_ordered
+
+        l_tabs = parallel_map_ordered(lambda b: self.execute(l_parts[b]()),
+                                      shared, max_workers=8)
+        r_tabs = parallel_map_ordered(lambda b: self.execute(r_parts[b]()),
+                                      shared, max_workers=8)
+        # The executed tables' spelling of the key (the spec's columns
+        # match case-insensitively).
+        lk_name = _find_column(l_tabs[0], names[0])
+        rk_name = _find_column(r_tabs[0], names[1])
+        if lk_name is None or rk_name is None:
+            return pa.concat_tables(
+                [self._join(Join(InMemory(lt), InMemory(rt), plan.condition,
+                                 plan.how))
+                 for lt, rt in zip(l_tabs, r_tabs)],
+                promote_options="default")
+        # A null key never matches an inner join.
+        l_tabs = [t.filter(pc.is_valid(t.column(lk_name)))
+                  if t.column(lk_name).null_count else t for t in l_tabs]
+        r_tabs = [t.filter(pc.is_valid(t.column(rk_name)))
+                  if t.column(rk_name).null_count else t for t in r_tabs]
+        owned = [[i for i, b in enumerate(shared) if b % mesh.size == d]
+                 for d in range(mesh.size)]
+        l_shard_tabs = [pa.concat_tables([l_tabs[i] for i in g]) if g
+                        else l_tabs[0].slice(0, 0) for g in owned]
+        r_shard_tabs = [pa.concat_tables([r_tabs[i] for i in g]) if g
+                        else r_tabs[0].slice(0, 0) for g in owned]
+        dev_ids, l_local, r_local = copartitioned_join_ragged(
+            [columnar.to_device_numeric(t.column(lk_name))
+             for t in l_shard_tabs],
+            [columnar.to_device_numeric(t.column(rk_name))
+             for t in r_shard_tabs], mesh)
+        metrics.set_gauge("exec.mesh.devices", mesh.size)
+        self.stats["joins"].append({
+            "strategy": "bucketed-mesh", "how": plan.how,
+            "buckets": len(shared), "devices": mesh.size, "hybrid": hybrid})
+        bounds = np.searchsorted(dev_ids, np.arange(mesh.size + 1), "left")
+        parts = [_concat_horizontal(
+            l_shard_tabs[d].take(pa.array(l_local[bounds[d]:bounds[d + 1]])),
+            r_shard_tabs[d].take(pa.array(r_local[bounds[d]:bounds[d + 1]])))
+            for d in range(mesh.size) if bounds[d + 1] > bounds[d]]
+        if not parts:
+            return _concat_horizontal(l_shard_tabs[0].slice(0, 0),
+                                      r_shard_tabs[0].slice(0, 0))
         return pa.concat_tables(parts, promote_options="default")
 
     def _side_bucket_parts(self, side: "_BucketedSide", by_bucket):
@@ -1138,11 +1298,18 @@ class Executor:
         keys would split arrow's one NaN group by bit pattern), null-free
         int or float inputs, and only sum/min/max/mean/count/count_all.
         Groups come back in ascending key order (GROUP BY leaves the
-        order open, as on the arrow route)."""
+        order open, as on the arrow route).  With a mesh, from
+        ``mesh_agg_min_rows`` rows, the rows are split over its shards by
+        group-key ownership (``grouped_aggregate_mesh``, strategy
+        "mesh-segment"); that threshold also opens the device route."""
         import pyarrow as pa
         import pyarrow.compute as pc
 
-        from hyperspace_tpu_torch.ops.aggregate import AGG_OPS, grouped_aggregate
+        from hyperspace_tpu_torch.ops.aggregate import (
+            AGG_OPS,
+            grouped_aggregate,
+            grouped_aggregate_mesh,
+        )
 
         if table.num_rows == 0:
             return None
@@ -1150,7 +1317,11 @@ class Executor:
             (agg_inputs[i], "num")
             for i, (func, _in, _out) in enumerate(plan.aggs)
             if func not in ("count", "count_all")]
-        if table.num_rows < self._cache_aware_min_rows(identity, pairs, "agg"):
+        min_rows = self._cache_aware_min_rows(identity, pairs, "agg")
+        mesh = self._active_mesh()
+        if mesh is not None:
+            min_rows = min(min_rows, self.session.conf.mesh_agg_min_rows)
+        if table.num_rows < min_rows:
             return None
         if any(func not in AGG_OPS for func, _i, _o in plan.aggs):
             return None
@@ -1175,19 +1346,34 @@ class Executor:
             if not (pa.types.is_integer(t) or pa.types.is_floating(t)) \
                     or pa.types.is_uint64(t) or column.null_count > 0:
                 return None
-        resident = self._all_resident(identity, pairs)
-        key_cols = [self._device_column(table, k, identity, "order")
-                    for k in plan.group_by]
-        # One column per aggregate that is not a count.
-        value_cols = [self._device_column(table, agg_inputs[i], identity, "num")
-                      for i, (func, _in, _out) in enumerate(plan.aggs)
-                      if func not in ("count", "count_all")]
-        first_rows, counts, results = grouped_aggregate(
-            key_cols, value_cols, [f for f, _i, _o in plan.aggs],
-            device=self.session.device)
+        ops = [f for f, _i, _o in plan.aggs]
+        value_inputs = [agg_inputs[i]
+                        for i, (func, _in, _out) in enumerate(plan.aggs)
+                        if func not in ("count", "count_all")]
+        use_mesh = mesh is not None \
+            and table.num_rows >= self.session.conf.mesh_agg_min_rows
+        if use_mesh:
+            # Host columns: the mesh's shards are its own placement, so
+            # the column cache is not read.
+            resident = False
+            first_rows, counts, results = grouped_aggregate_mesh(
+                [columnar.to_device_numeric(table.column(k))
+                 for k in plan.group_by],
+                [columnar.to_device_numeric(table.column(c))
+                 for c in value_inputs], ops, mesh)
+        else:
+            resident = self._all_resident(identity, pairs)
+            key_cols = [self._device_column(table, k, identity, "order")
+                        for k in plan.group_by]
+            # One column per aggregate that is not a count.
+            value_cols = [self._device_column(table, c, identity, "num")
+                          for c in value_inputs]
+            first_rows, counts, results = grouped_aggregate(
+                key_cols, value_cols, ops, device=self.session.device)
         self.stats.setdefault("aggregates", []).append({
-            "strategy": "device-segment", "groups": int(len(first_rows)),
-            "rows": table.num_rows, "resident": resident})
+            "strategy": "mesh-segment" if use_mesh else "device-segment",
+            "groups": int(len(first_rows)), "rows": table.num_rows,
+            "resident": resident})
         # Only the key columns are gathered.
         taken = table.select(list(plan.group_by)).take(pa.array(first_rows))
         data = {k: taken.column(k) for k in plan.group_by}
@@ -1331,7 +1517,10 @@ class Executor:
         import pyarrow.compute as pc
 
         from hyperspace_tpu_torch.ops.filter import build_value_fn
-        from hyperspace_tpu_torch.ops.join_agg import join_group_aggregate
+        from hyperspace_tpu_torch.ops.join_agg import (
+            join_group_aggregate,
+            join_group_aggregate_mesh,
+        )
 
         conf = self.session.conf
         if not plan.group_by:
@@ -1470,19 +1659,29 @@ class Executor:
         pr = [(c, "num") for c in need_r]
         max_rows = max(lv.num_rows, rv.num_rows)
         cold = conf.device_min_rows("join_agg", self.session.device)
+        # The mesh pipeline opens at its own threshold; top-n and
+        # resident inputs keep the fused single-device path.
+        mesh = self._active_mesh()
+        use_mesh = mesh is not None and topn is None \
+            and max_rows >= conf.mesh_join_min_rows
         use_device = max_rows >= cold
         if not use_device:
             eff = max(self._cache_aware_min_rows(id_l, pl, "join_agg"),
                       self._cache_aware_min_rows(id_r, pr, "join_agg"))
             use_device = eff < cold and max_rows >= eff
-        if not use_device:
+        if not use_device and not use_mesh:
             return fallback()
         resident = self._all_resident(id_l, pl) and self._all_resident(id_r, pr)
+        use_mesh = use_mesh and not resident
         ref_order = [("l", c) for c in need_l] + [("r", c) for c in need_r]
         col_ix = {c: i for i, (_s, c) in enumerate(ref_order)}
-        columns = [self._device_column(table_of(s), c,
-                                       id_l if s == "l" else id_r, "num")
-                   for s, c in ref_order]
+        if use_mesh:  # host columns: the mesh's shards place them
+            columns = [columnar.to_device_numeric(table_of(s).column(c))
+                       for s, c in ref_order]
+        else:
+            columns = [self._device_column(table_of(s), c,
+                                           id_l if s == "l" else id_r, "num")
+                       for s, c in ref_order]
         value_fns, lits_list = [], []
         for func, agg_in, _out in plan.aggs:
             if func in ("count", "count_all"):
@@ -1494,15 +1693,20 @@ class Executor:
                 return fallback()
             value_fns.append(fn)
             lits_list.append(lits)
-        li_first, ri_first, counts, results = join_group_aggregate(
-            columns[col_ix[lk_name]], columns[col_ix[rk_name]], columns,
-            [s for s, _c in ref_order], [col_ix[k] for k in plan.group_by],
-            [f for f, _i, _o in plan.aggs], value_fns, lits_list, topn=topn,
-            device=self.session.device)
-        self.stats["joins"].append({"strategy": "device-fused-agg",
+        args = (columns[col_ix[lk_name]], columns[col_ix[rk_name]], columns,
+                [s for s, _c in ref_order], [col_ix[k] for k in plan.group_by],
+                [f for f, _i, _o in plan.aggs], value_fns, lits_list)
+        if use_mesh:
+            li_first, ri_first, counts, results = \
+                join_group_aggregate_mesh(*args, mesh)
+        else:
+            li_first, ri_first, counts, results = join_group_aggregate(
+                *args, topn=topn, device=self.session.device)
+        route = "mesh" if use_mesh else "device"
+        self.stats["joins"].append({"strategy": f"{route}-fused-agg",
                                     "how": "inner", "resident": resident})
         self.stats.setdefault("aggregates", []).append({
-            "strategy": "device-join-agg", "groups": int(len(counts)),
+            "strategy": f"{route}-join-agg", "groups": int(len(counts)),
             "rows": int(max_rows), "resident": resident,
             "topn": None if topn is None else int(topn[2])})
         data = {}
@@ -2214,6 +2418,32 @@ def _concat_horizontal(left, right):
         names.append(out_name)
         cols.append(column)
     return pa.table(dict(zip(names, cols)))
+
+
+def _footer_row_estimate(files_by_bucket, buckets) -> int:
+    """The Parquet footers' row counts of the given buckets' files, with
+    no column decoded; a file whose footer cannot be read counts 0 (the
+    estimate only routes)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    total = 0
+    for b in buckets:
+        for path in files_by_bucket.get(b, ()):
+            try:
+                total += pq.read_metadata(path).num_rows
+            except (OSError, pa.ArrowException):
+                pass
+    return total
+
+
+def _find_column(table, name: str) -> Optional[str]:
+    """``name`` in ``table``, its exact spelling first, else matched
+    case-insensitively; None when absent."""
+    if name in table.column_names:
+        return name
+    return next((c for c in table.column_names
+                 if c.lower() == name.lower()), None)
 
 
 def _valid_key_positions(table, keys: List[str]) -> np.ndarray:

@@ -1,6 +1,9 @@
 """Grouped aggregation on the device (counterpart of
-hyperspace_tpu/ops/aggregate.py, without its mesh entry): sort the rows
-by their group keys, then reduce each run of equal keys.
+hyperspace_tpu/ops/aggregate.py): sort the rows by their group keys,
+then reduce each run of equal keys.  ``grouped_aggregate_mesh`` is the
+mesh entry: the rows partitioned by group-key ownership over the
+logical shards of a mesh, each group reduced whole on its owner
+(``parallel/aggregate.py``).
 
   1. ``_group_sort``: a stable LSD lexsort of the rows by the key
      columns (``torch.sort(stable=True)``, last key first); a group
@@ -149,3 +152,15 @@ def grouped_aggregate(key_cols: Sequence[Array], value_cols: Sequence[Array],
     counts = sync_guard.pull(out[1], "aggregate.counts")
     return first_rows, counts, [sync_guard.pull(r, "aggregate.results")
                                 for r in out[2:]]
+
+
+def grouped_aggregate_mesh(key_cols: Sequence[np.ndarray],
+                           value_cols: Sequence[np.ndarray],
+                           ops: Sequence[str], mesh
+                           ) -> Tuple[np.ndarray, np.ndarray, List[np.ndarray]]:
+    """``grouped_aggregate`` over the logical shards of ``mesh``: the same
+    contract and group order, each group's rows on one shard, so every
+    reduction is exact (``parallel/aggregate.py``).  Host inputs only."""
+    from hyperspace_tpu_torch.parallel.aggregate import mesh_grouped_aggregate
+
+    return mesh_grouped_aggregate(key_cols, value_cols, ops, mesh)

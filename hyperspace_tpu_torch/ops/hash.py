@@ -8,7 +8,9 @@ stays a library sort (``torch.sort(stable=True)``), as it was an XLA
 program outside any Pallas kernel in the JAX package.
 
 ``route_partition`` is the spill build's per-chunk pass: the same
-hash and sorts, and the histogram kernel's counts as the run cuts.
+hash and sorts, and the histogram kernel's counts as the run cuts;
+``route_partition_mesh`` is the same pass over the logical shards of a
+mesh (``parallel/sharded_build.py``).
 
 ``bucket_ids`` and ``route_partition`` are timeline seams
 (telemetry/timeline.py): with the timeline on, each is bracketed by a
@@ -125,6 +127,20 @@ def route_partition(word_cols: Sequence[np.ndarray],
     return (sync_guard.pull(perm, "route_partition.perm"),
             sync_guard.pull(counts, "route_partition.counts")
             .astype(np.int64))
+
+
+def route_partition_mesh(word_cols: Sequence[np.ndarray],
+                         order_words: Sequence[np.ndarray], num_buckets: int,
+                         mesh) -> Tuple[np.ndarray, np.ndarray]:
+    """``route_partition`` over the logical shards of ``mesh``: the same
+    ``(perm, counts)``, bit for bit, with each shard owning the buckets
+    ``b % n`` and one attributed read-back per shard
+    (``parallel/sharded_build.py``)."""
+    from hyperspace_tpu_torch.parallel.sharded_build import (
+        mesh_route_partition,
+    )
+
+    return mesh_route_partition(word_cols, order_words, num_buckets, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The device equi-join over sorted keys (counterpart of
-hyperspace_tpu/ops/join.py, without its mesh entry).
+hyperspace_tpu/ops/join.py).
 
   1. stable-sort the right keys (``torch.sort(stable=True)``; index data
      arrives sorted within each bucket),
@@ -21,6 +21,10 @@ codes of the total order ``jnp.sort`` uses: -0.0 equals 0.0, and every
 NaN equals every other NaN and sorts after +inf, so NaN keys match NaN
 keys on both packages' device paths.  torch's own float ``searchsorted``
 gives other ranges once a NaN is in the sorted keys.
+
+``sorted_equi_join_mesh`` is the mesh entry: both sides partitioned by
+key-hash ownership over the logical shards of a mesh, each shard joining
+its own keys (``parallel/join.py``).
 
 pyarrow is imported inside the functions that take arrow tables.
 """
@@ -134,6 +138,54 @@ def match_pairs(lk: torch.Tensor, rk: torch.Tensor
     total = int(sync_guard.scalar((hi - lo).sum(), "join.match_count"))
     left_idx, right_pos = _expand(lo, hi, total)
     return left_idx, r_perm[right_pos]
+
+
+def _key_owner_shards(keys: np.ndarray, n_shards: int):
+    """(shards, originals): per mesh shard, the key values it owns and
+    their input positions.  The owner is the key's bucket mod the shard
+    count, by the build's hash on the host (``bucket_ids_np``), the mod
+    ownership of the sharded build route: EQUAL keys always share an
+    owner, so the per-shard joins find every match."""
+    import pyarrow as pa
+
+    from hyperspace_tpu_torch.io import columnar
+    from hyperspace_tpu_torch.ops.hash import bucket_ids_np
+
+    words = columnar.to_hash_words(pa.chunked_array([pa.array(keys)]))
+    owner = bucket_ids_np([words], n_shards)
+    order = np.argsort(owner, kind="stable")
+    bounds = np.searchsorted(owner[order], np.arange(n_shards + 1), "left")
+    originals = [order[bounds[d]:bounds[d + 1]] for d in range(n_shards)]
+    return [keys[o] for o in originals], originals
+
+
+def sorted_equi_join_mesh(left_keys: np.ndarray, right_keys: np.ndarray,
+                          mesh) -> Tuple[np.ndarray, np.ndarray]:
+    """The inner equi-join over the logical shards of ``mesh``: the match
+    set of ``sorted_equi_join`` (pair order is not part of the contract),
+    both sides partitioned by key ownership and every shard joining only
+    its own keys (``parallel/join.copartitioned_join_ragged``, no
+    exchange; only the match indices come back).  Host inputs only:
+    cached tensors keep the single-device join."""
+    from hyperspace_tpu_torch.parallel.join import copartitioned_join_ragged
+
+    left_keys = np.asarray(left_keys)
+    right_keys = np.asarray(right_keys)
+    if left_keys.size == 0 or right_keys.size == 0:
+        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+    l_shards, l_orig = _key_owner_shards(left_keys, mesh.size)
+    r_shards, r_orig = _key_owner_shards(right_keys, mesh.size)
+    dev_ids, l_local, r_local = copartitioned_join_ragged(
+        l_shards, r_shards, mesh)
+    if dev_ids.size == 0:
+        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+    # Shard d's pairs are one contiguous run (shard order).
+    bounds = np.searchsorted(dev_ids, np.arange(mesh.size + 1), "left")
+    li = np.concatenate([l_orig[d][l_local[bounds[d]:bounds[d + 1]]]
+                         for d in range(mesh.size)])
+    ri = np.concatenate([r_orig[d][r_local[bounds[d]:bounds[d + 1]]]
+                         for d in range(mesh.size)])
+    return li.astype(np.int64), ri.astype(np.int64)
 
 
 def sorted_equi_join_np(left_keys: np.ndarray, right_keys: np.ndarray

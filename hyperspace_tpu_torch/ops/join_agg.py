@@ -1,7 +1,7 @@
 """The fused join→aggregate on the device (counterpart of
-hyperspace_tpu/ops/join_agg.py, without its mesh entry): the TPC-H
-Q3/Q10 shape, ``aggregate(filter ⋈ index)``, with the joined rows never
-leaving the device.
+hyperspace_tpu/ops/join_agg.py): the TPC-H Q3/Q10 shape,
+``aggregate(filter ⋈ index)``, with the joined rows never leaving the
+device.
 
   1. the sorted equi-join of the two key columns
      (``ops.join.match_pairs``: ``_sort_codes``, ``_match_ranges``,
@@ -19,6 +19,10 @@ Only per-group results reach the host: counts, reductions, and the
 (left, right) row indices of each group's first joined row, with which
 the executor takes the group-key values from its arrow tables in their
 own types.
+
+``join_group_aggregate_mesh`` is the mesh entry: three stages over the
+logical shards of a mesh, the joined rows crossing the host between
+them.
 """
 
 from __future__ import annotations
@@ -130,3 +134,51 @@ def join_group_aggregate(
             sync_guard.pull(ri[first_rows], "join_agg.right_rows"),
             sync_guard.pull(counts, "join_agg.counts"),
             [sync_guard.pull(r, "join_agg.results") for r in results])
+
+
+def join_group_aggregate_mesh(
+    l_key,
+    r_key,
+    columns: Sequence,
+    column_sides: Sequence[str],
+    group_col_ix: Sequence[int],
+    agg_ops: Sequence[str],
+    value_fns: Sequence[Callable],
+    literals: Sequence[Sequence],
+    mesh,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List[np.ndarray]]:
+    """``join_group_aggregate``'s result (groups in ascending key order)
+    over the logical shards of ``mesh``, in three stages:
+
+      1. the inner join, both sides partitioned by join-key ownership
+         (``ops.join.sorted_equi_join_mesh``: no exchange, only the match
+         indices come back);
+      2. each aggregate's input evaluated row-split over the shards
+         (``parallel/filter.eval_predicate_on_mesh``);
+      3. the grouped aggregation with GROUP-key ownership
+         (``parallel/aggregate.mesh_grouped_aggregate``: each group
+         reduced whole on one shard).
+
+    The joined rows cross the host between the stages (O(matches)
+    traffic: the price of moving from join-key to group-key ownership),
+    and their order is the mesh join's, so float sums may round apart
+    from the fused path's.  No ``topn``: a caller that wants it keeps
+    the fused path.  Host inputs only."""
+    from hyperspace_tpu_torch.ops.join import sorted_equi_join_mesh
+    from hyperspace_tpu_torch.parallel.aggregate import mesh_grouped_aggregate
+    from hyperspace_tpu_torch.parallel.filter import eval_predicate_on_mesh
+
+    l_key, r_key = np.asarray(l_key), np.asarray(r_key)
+    if l_key.shape[0] == 0 or r_key.shape[0] == 0:
+        return _empty(agg_ops)
+    li, ri = sorted_equi_join_mesh(l_key, r_key, mesh)
+    if li.size == 0:
+        return _empty(agg_ops)
+    gathered = [np.asarray(c)[li if side == "l" else ri]
+                for c, side in zip(columns, column_sides)]
+    # The literals typed as one vector, as the fused path types them.
+    value_cols = [eval_predicate_on_mesh(fn, gathered, np.asarray(lits), mesh)
+                  for fn, lits in zip(value_fns, literals)]
+    first_rows, counts, results = mesh_grouped_aggregate(
+        [gathered[i] for i in group_col_ix], value_cols, agg_ops, mesh)
+    return li[first_rows], ri[first_rows], counts, results

@@ -18,6 +18,9 @@ Every action run through ``actions/base.Action.run()`` owns one
     temporary run bytes (``spill_bytes``, ``spill_runs``).
   - **memory**: the peak host RSS and, on a CUDA session, the card's
     allocated bytes, sampled once at the action's end.
+  - **the mesh**: ``mesh_devices``, the shards a mesh route spanned (0:
+    the single device throughout), and ``device_kernel_ms``, the route's
+    milliseconds per mesh position.
 
 Finish exports the report into the metrics registry
 (``build.phase.<name>.seconds``, ``build.spill.bytes``,
@@ -73,7 +76,10 @@ class BuildReport:
         # Action-specific annotations (a refresh's mode and diff counts);
         # flat scalars only.
         self.properties: Dict[str, Any] = {}
-        # Kernel milliseconds attributed per CUDA device index.
+        # Kernel milliseconds attributed per mesh position: a route over a
+        # mesh of logical shards (parallel/) gives its milliseconds to
+        # each position.  The shards may share one card and run one after
+        # another, so the position, not the card's index, is the key.
         self.device_kernel_ms: Dict[int, float] = {}
         # Timeline intervals (lane = phase name) and memory samples, kept
         # while the timeline is on (telemetry/timeline.py).
@@ -99,7 +105,7 @@ class BuildReport:
             timeline.record_interval(name, "build.phase", start_ns, end_ns)
 
     def add_device_kernel_ms(self, device_id: int, ms: float) -> None:
-        """Attribute ``ms`` of kernel time to one CUDA device index."""
+        """Attribute ``ms`` of kernel time to one mesh position."""
         with self._lock:
             self.device_kernel_ms[int(device_id)] = \
                 self.device_kernel_ms.get(int(device_id), 0.0) + float(ms)
@@ -143,6 +149,12 @@ class BuildReport:
     # -- derived -------------------------------------------------------------
     def phase_total_s(self) -> float:
         return sum(self.phases.values())
+
+    @property
+    def mesh_devices(self) -> int:
+        """The shards of the mesh this build's routes spanned (0: the
+        single-device path throughout)."""
+        return int(self.properties.get("mesh_devices", 0) or 0)
 
     @property
     def device_s(self) -> float:

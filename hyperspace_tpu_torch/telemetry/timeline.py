@@ -238,7 +238,7 @@ def _device_id_of(out: Any, fallback=None) -> int:
 
 
 def kernel_end(name: str, mark: Optional[_KernelMark],
-               out: Any = None) -> None:
+               out: Any = None, shards: int = 0) -> None:
     """Close one device program begun with :func:`kernel_begin`.  On
     ``cuda``: record the end event on the current stream, synchronize on
     that event only (the counterpart of ``jax.block_until_ready``) and
@@ -246,7 +246,15 @@ def kernel_end(name: str, mark: Optional[_KernelMark],
     go to the ``exec.kernel.<name>.device_ms`` histogram, the
     ``exec.device.<index>.kernel_ms`` counter, a ``device:<index>`` lane
     interval and a ``kernel`` decision on the active run report.  A no-op
-    (no sync, no ``torch.cuda`` call) when the mark is None."""
+    (no sync, no ``torch.cuda`` call) when the mark is None.
+
+    ``shards`` > 0 names a program that ran over a mesh of that many
+    logical shards (parallel/): the milliseconds go to every mesh
+    position, ``exec.device.<position>.kernel_ms`` and a
+    ``device:<position>`` lane each, as the JAX package gives an SPMD
+    program's time to every mesh device.  Logical shards may share one
+    card and run one after another, so the position, not the card's
+    index, keys the attribution."""
     if mark is None:
         return
     if mark.event is not None:
@@ -268,13 +276,16 @@ def kernel_end(name: str, mark: Optional[_KernelMark],
     try:
         from hyperspace_tpu_torch.telemetry import report as run_report
 
-        dev = _device_id_of(out, mark.device)
         metrics.observe(f"exec.kernel.{name}.device_ms", ms)
-        metrics.inc(f"exec.device.{dev}.kernel_ms", ms)
-        _RECORDER.record(f"device:{dev}", f"kernel.{name}", start_ns,
-                         end_ns)
+        ids = list(range(shards)) if shards > 0 \
+            else [_device_id_of(out, mark.device)]
+        for dev in ids:
+            metrics.inc(f"exec.device.{dev}.kernel_ms", ms)
+            _RECORDER.record(f"device:{dev}", f"kernel.{name}", start_ns,
+                             end_ns)
         run_report.record("kernel", name=name, device_ms=round(ms, 3),
-                          device=dev)
+                          device=ids[0],
+                          **({"devices": ids} if shards > 0 else {}))
     except Exception:  # noqa: BLE001 - the timeline's own bookkeeping
         metrics.inc("timeline.errors")
 

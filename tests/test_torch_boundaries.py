@@ -50,6 +50,13 @@ _LAKE = ("io/schemas.py", "sources/interfaces.py",
          "sources/iceberg/writer.py", "sources/iceberg/provider.py")
 
 
+# The mesh of logical shards and its data plane.
+_PARALLEL = ("parallel/__init__.py", "parallel/mesh.py", "parallel/shuffle.py",
+             "parallel/sharded_build.py", "parallel/build.py",
+             "parallel/join.py", "parallel/filter.py",
+             "parallel/aggregate.py")
+
+
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
@@ -85,7 +92,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                    "telemetry/perf_ledger.py", "telemetry/bench_compare.py",
                    "telemetry/__init__.py", "utils/reflection.py",
                    "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS,
-                   *_LAKE):
+                   *_LAKE, *_PARALLEL):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -127,7 +134,7 @@ def test_no_module_of_the_port_imports_pyarrow_when_loaded():
                    "telemetry/timeline.py", "telemetry/perf_ledger.py",
                    "telemetry/bench_compare.py", "utils/reflection.py",
                    "lint/catalog.py", *_GUARDS_AND_DIAGNOSTICS, *_FORMATS,
-                   *_LAKE):
+                   *_LAKE, *_PARALLEL):
         assert os.path.join(PORT, module) in sources
     for path in sources:
         with open(path, encoding="utf-8") as f:
@@ -336,6 +343,67 @@ def test_the_delta_source_imports_no_jax(tmp_path):
         then = s.read.iceberg(it, snapshot_id=str(first)) \
             .filter(col("k") == 7).select("k").count()
         assert now == then + 1
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_mesh_imports_no_jax(tmp_path):
+    """``parallel/`` loads without pyarrow; then, on 8 logical CPU shards
+    (the ``local_devices`` seam), a sharded spill build, a distributed
+    build and the mesh filter, join and aggregate run through the port
+    without loading jax or the JAX package."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        import torch
+        from hyperspace_tpu_torch import parallel
+        from hyperspace_tpu_torch.parallel import (aggregate, build, filter,
+                                                   join, mesh, sharded_build,
+                                                   shuffle)
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig, col)
+
+        mesh.local_devices = lambda device=None: [torch.device("cpu")] * 8
+        root = {str(tmp_path)!r}
+        src = os.path.join(root, "src")
+        os.makedirs(src)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{"k": rng.integers(0, 500, 3000),
+                                  "v": rng.random(3000)}}),
+                       os.path.join(src, "p.parquet"))
+        s = HyperspaceSession(os.path.join(root, "ix"), device="cpu")
+        s.conf.num_buckets = 4
+        s.conf.device_batch_rows = 1000
+        for kind in ("filter", "join", "agg", "build", "resident"):
+            setattr(s.conf, f"device_{{kind}}_min_rows", 0)
+            if kind in ("filter", "join", "agg"):
+                setattr(s.conf, f"mesh_{{kind}}_min_rows", 0)
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(src), IndexConfig("a", ["k"], ["v"]))
+        assert hs.last_build_report().mesh_devices == 8
+        s.conf.parallel_build = "on"
+        hs.create_index(s.read.parquet(src), IndexConfig("b", ["k"], ["v"]))
+        s.enable_hyperspace()
+        df = s.read.parquet(src)
+        assert df.filter(col("k") < 10).select("k").count() \
+            == int((pq.read_table(src).column("k").to_numpy() < 10).sum())
+        df.group_by("k").agg(n=("", "count_all")).collect()
+        strategies = {{d["strategy"] for d in
+                       s.last_execution_stats["aggregates"]}}
+        assert strategies == {{"mesh-segment"}}, strategies
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))

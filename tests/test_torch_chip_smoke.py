@@ -1,5 +1,5 @@
-"""chip_smoke.py's phase selector and its phases U, V, W, X and Y, on
-the CPU.
+"""chip_smoke.py's phase selector and its phases U, V, W, X, Y and Z,
+on the CPU.
 
 The selector: ``--phases T,U`` runs the selected phases with phase A and
 the kernel builds, plus what they read (phase C's ``li_idx`` build and
@@ -7,8 +7,9 @@ phase D's ``ord_idx`` build for T); an unknown letter is an error; and
 without a card the script exits non-zero and prints no result, also
 from a directory that holds it alone.  Phase U is rehearsed after phase
 T, phase V alone (it builds phase C's and D's indexes itself) and phases
-W, X and Y after phase C, at 80,000 lineitem rows on a ``cpu`` session,
-where the plain kernels count no launch."""
+W, X and Y after phase C, and phase Z after phases C and D, at 80,000
+lineitem rows on a ``cpu`` session, where the plain kernels count no
+launch."""
 
 from __future__ import annotations
 
@@ -38,14 +39,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (["--phases", "X"], {"A", "X"}, {"C"}),
     (["--phases", "Y"], {"A", "Y"}, {"C"}),
     (["--phases", "X,Y"], {"A", "X", "Y"}, {"C"}),
+    (["--phases", "Z"], {"A", "Z"}, {"C", "D"}),
 ], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W", "X", "Y",
-        "X,Y"])
+        "X,Y", "Z"])
 def test_a_selection_runs_what_it_reads(argv, selected, read):
     assert chip_smoke.parse_args(argv) == (selected, read, 0)
     assert chip_smoke.parse_args(argv + ["--u-turns", "2"])[2] == 2
 
 
-@pytest.mark.parametrize("argv", [["--phases", "T,Z"], ["--phases", "TU"],
+@pytest.mark.parametrize("argv", [["--phases", "T,1"], ["--phases", "TU"],
                                   ["--phases", ""], ["--phases", "t"],
                                   ["--u-turns", "-1"], ["--bogus"]])
 def test_an_unknown_phase_is_an_error(argv):
@@ -75,7 +77,7 @@ def test_without_a_card_it_exits_non_zero(args, tmp_path):
 
 
 def test_an_unknown_phase_exits_non_zero_from_the_command_line():
-    proc = _run(["--phases", "T,Z"], REPO)
+    proc = _run(["--phases", "T,1"], REPO)
     assert proc.returncode != 0
     assert "unknown phases" in proc.stderr
     assert '"ok"' not in proc.stdout
@@ -317,3 +319,42 @@ def test_phase_y_on_the_cpu(monkeypatch, tmp_path):
                                  "4_append_refresh", "5_time_travel",
                                  "6_cdc", "7_overwrite", "8_torn"}
     assert not [n for n in os.listdir(root) if n.startswith("y_")]
+
+
+def test_phase_z_on_the_cpu(monkeypatch, tmp_path):
+    """Phase Z after phases C and D at 80,000 lineitem rows, on 8 logical
+    shards of the CPU: the sharded spill build equal to li_idx, the
+    distributed orders build to ord_idx, each query's mesh and single
+    device routes equal to numpy, and the chunk route's two timings."""
+    import torch
+
+    from hyperspace_tpu_torch.parallel import mesh as parallel_mesh
+
+    _small(monkeypatch)
+    for name, value in (("DEFAULT_BATCH_ROWS", 16_384), ("Z_ROUTE_RUNS", 1)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    orders, li = chip_smoke.gen_data()
+    root = str(tmp_path / "smoke")
+    os.makedirs(root)
+    dev = torch.device("cpu")
+    chip_smoke.phase_c(li, root, dev)
+    chip_smoke.d_build(orders, root, dev)
+    local_devices = parallel_mesh.local_devices
+    z = chip_smoke.phase_z(orders, li, root, dev)
+    chip_smoke.print_mesh(z)
+    assert parallel_mesh.local_devices is local_devices  # the seam undone
+    assert set(z["builds"]) == {"sharded spill", "single-device spill",
+                                "distributed"}
+    assert set(z["builds"]["sharded spill"]["device_kernel_ms"]) \
+        == {str(d) for d in range(8)}
+    assert "spill_route_s" in z["builds"]["sharded spill"]["phases"]
+    assert "spill_route_s" not in z["builds"]["distributed"]["phases"]
+    assert set(z["queries"]) == set(chip_smoke.Z_QUERIES)
+    assert z["queries"]["point"]["rows"] == int(
+        (li["l_orderkey"] == chip_smoke.POINT_KEY).sum())
+    assert z["route"]["rows"] == 16_384 and z["route"]["shards"] == 8
+    assert len(z["route"]["mesh_runs_ms"]) == 1
+    assert not any(z["launches"].values())  # plain kernels count none
+    assert set(z["steps_s"]) == {"1_spill_builds", "2_distributed_build",
+                                 "3_queries", "4_route_timing"}
+    assert not os.path.exists(os.path.join(root, chip_smoke.Z_INDEXES))
