@@ -7,9 +7,11 @@ beside it.  ``python3 chip_smoke.py --phases T,U`` runs some phases only:
 the kernel builds and phase A always, the data generation, the selected
 phases in the script's order with what they read from other phases
 (PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
-without its queries, phase L for M, phase T for U; C and D for T and V;
-C for W, X and Y),
-then the kernels' timing, with the same last line.  An unknown letter is an error.
+without its queries, phase L for M, phase T for U; C and D for T, V, Z
+and MH; C for W, X and Y),
+then the kernels' timing, with the same last line.  A phase is named by
+its letter, or by its name of more than one letter (MH); an unknown name
+is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
 
@@ -88,8 +90,8 @@ async server in turns (threaded, async, async, threaded).
            and misses of the checked cold and warm collects.  One
            profiled cold run gives ``device_ms`` (the sum of its device
            activities), ``busy_share`` (``device_ms`` over that run's
-           wall) and the torch ops with the most device time, a warm one
-           ``warm_device_ms`` and ``warm_busy_share``; for the aggregates
+           wall) and the torch ops with the most device time (the warm
+           profiled run left the time limit to phase MH); for the aggregates
            also ``programs`` (calls and device ms of AGG_PROGRAMS, each
            under a ``record_function`` of its name).  ``stages`` splits
            one cold and one warm run by stage (``stage_breakdown``:
@@ -134,8 +136,8 @@ async server in turns (threaded, async, async, threaded).
            hybrid plans (``Union`` or ``BucketUnion`` and the lineage
            filter), the "bucketed" join marked hybrid, one hash launch
            per join to route the appended rows, and each timed cold and
-           warm as phase D times its queries, over G_TIMED_RUNS
-           collects (the buckets that gained
+           warm over G_TIMED_RUNS collects, the checking collects the
+           first (the buckets that gained
            rows are unions, which have no file identity: their columns
            are uploaded every time).  Then ``refresh_index("incremental")``
            (6,375,000 rows, one launch of each kernel), 2 more files
@@ -145,10 +147,10 @@ async server in turns (threaded, async, async, threaded).
            the files, the lineage and the four answers checked after
            each; after the first incremental refresh the four queries
            through the clean ``li_lin`` are timed cold and warm (every
-           warm device entry resident), and the clean join and the
-           hybrid join are split by stage cold and warm
-           (``stage_breakdown``: the 200 bucket joins' thread-ms by stage
-           and the wait on the pool).  Phases E, F and G start on an
+           warm device entry resident).  Phase D profiles and splits
+           the query shapes by stage; phase G no longer does (its
+           splits and profiled runs left the time limit to phase MH).
+           Phases E, F and G start on an
            empty cache, every timed build empties it first (so the
            card's peak is the build's own), and each phase prints the
            MiB resident at its end.
@@ -705,6 +707,31 @@ async server in turns (threaded, async, async, threaded).
            scaling.  Launches ``Z sharded spill`` and ``Z distributed
            build``.  Prints ``{"mesh": ...}`` with the card's name and
            power limit.
+  phase MH the multi-host layer on the one card (after phase Z), over
+           phase C's lineitem and phase D's orders.  (1) ``li_idx``'s
+           config as ``li_mh`` by MH_HOSTS host subprocesses on
+           ``cuda:0`` (``multihost_build_hosts``), DEFAULT_BATCH_ROWS (6
+           chunk claims, 8 group claims): every bucket's sha256 equal to
+           ``li_idx``'s, the hosts' launches from the chunk claims
+           (``multihost_launches``: 6 and 6), none in the parent, one
+           ``claim``/``commit`` journal record, no claim left, and the
+           route and finalize walls from the claim spans.  (2) The same
+           as ``li_mh_kill`` with a MH_KILL_TTL_S claim TTL and the first
+           host SIGKILLed after its first done chunk: the survivor
+           reclaims its claims and lands the same bytes, with one commit
+           and no item completed twice.  (3) Phase D's orders (1,500,000
+           rows) through ``hierarchical_bucket_shuffle`` over
+           ``build_mesh_2d(2, 4)`` of 8 logical shards and through the
+           flat ``bucket_shuffle`` on the same shards, in turns (flat,
+           two-stage, two-stage, flat; 8 hash launches each): the same
+           perm, buckets, counts and payload.  (4) MH_PROCESSES processes
+           on ``cuda:0`` joined by ``initialize_distributed`` over Gloo
+           (``mh_worker``), 2 shards each, stage 1 by
+           ``all_to_all_single`` through host memory: each process's
+           shards equal the flat shuffle's over the same 4 shards.
+           Launches ``MH multihost build`` and ``MH hierarchical
+           shuffle``.  Prints ``{"multihost": ...}`` with the card's name
+           and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -728,7 +755,7 @@ launches on every path the script drives (``launches_by_path``); the
 chunk-shape rows carry ``launches_per_sf1_build``.  The last lines are
 the builds JSON (phases E, G, J and F, each with its build ``report``),
 the queries JSON (phase D's with its ``eviction`` run, phase G's as
-``hybrid_queries``, phase G's stage splits as ``join_splits`` and phase
+``hybrid_queries`` and phase
 H's under ``calibration``), the kernels JSON (``launches_by_path`` with
 phase I's ``I repair`` and ``I containment``, phase J's steps and phase
 K's ``K analytic``, phase L's ``L builds`` and ``L plan language``,
@@ -737,7 +764,8 @@ phase M's ``M sql``, phase N's ``N envelope``, phase O's ``O apply`` and
 R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
 server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
 formats``, phase X's ``X delta``, phase Y's ``Y iceberg``, phase Z's
-``Z sharded spill`` and ``Z distributed build``), the
+``Z sharded spill`` and ``Z distributed build``, phase MH's ``MH
+multihost build`` and ``MH hierarchical shuffle``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
@@ -745,8 +773,8 @@ envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 R), the object-store JSON (phase S), the server JSON (phase T), the
 async, tenant and wire-fault JSON (phase U), the front-door JSON
 (phase V), the formats JSON (phase W), the Delta JSON (phase X) and the
-Iceberg JSON (phase Y) and the mesh JSON (phase Z), each of the last
-fourteen with
+Iceberg JSON (phase Y), the mesh JSON (phase Z) and the multi-host JSON
+(phase MH), each of the last fifteen with
 the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
@@ -793,10 +821,10 @@ AGG_RTOL = 1e-9
 AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
                 "_topk_groups")
 # One timed run per variant of phases H, I and J, of phase D's variants,
-# of phase G's hybrid and clean queries and scans and of phase K's
-# shapes: with phases Q to Y added, what keeps the whole script inside
-# its time limit on the slower card hosts (A-Y took 1,078 s on one
-# H100 80GB HBM3 machine).
+# of phase G's hybrid and clean queries and scans (its checking collects,
+# since phase MH) and of phase K's shapes: with phases Q to Y added, what
+# keeps the whole script inside its time limit on the slower card hosts
+# (A-Y took 1,078 s on one H100 80GB HBM3 machine).
 TIMED_QUERY_RUNS = 1
 D_TIMED_RUNS = 1
 G_TIMED_RUNS = 1
@@ -1746,6 +1774,13 @@ def resident_mib() -> float:
     return device_cache().bytes_cached / 2**20
 
 
+def timed_collect(ds) -> tuple:
+    """(``ds.collect()``, its host milliseconds), as ``wall_ms`` times."""
+    t0 = time.perf_counter()
+    table = ds.collect()
+    return table, (time.perf_counter() - t0) * 1e3
+
+
 def cold_ms(fn) -> float:
     """``wall_ms(fn)`` on an empty device column cache (emptied before
     the clock starts)."""
@@ -1844,9 +1879,6 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
         indexed_warm = [wall_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         device_cache().clear()
         profiled = profile_query(dev, ds.collect, programs=name in AGG_QUERIES)
-        warm_profile = profile_query(dev, ds.collect)
-        profiled.update(warm_device_ms=warm_profile["device_ms"],
-                        warm_busy_share=warm_profile["busy_share"])
         device_cache().clear()
         profiled["stages"] = {"cold": stage_breakdown(ds.collect),
                               "warm": stage_breakdown(ds.collect)}
@@ -2231,8 +2263,9 @@ def g_queries(phase: str, session, root: str, expected: dict, hybrid: bool,
     Without ``hybrid`` the plan must hold no union.  Returns per query
     its Dataset, launches and stats, and with ``timed`` the median wall
     of ``timed`` cold collects (the cache emptied before each) and of
-    ``timed`` warm ones after a checked warm collect, with the stats of
-    the last."""
+    ``timed`` warm ones, with the stats of the last: the checking collect
+    is the first cold one and a checked warm collect the first warm
+    one."""
     from hyperspace_tpu_torch.ops import kernels
 
     session.conf.hybrid_scan_enabled = hybrid
@@ -2248,13 +2281,18 @@ def g_queries(phase: str, session, root: str, expected: dict, hybrid: bool,
         want, keys = expected[name]
         device_cache().clear()
         kernels.reset_launch_counts()
-        require_rows(f"{phase} {name}", ds.collect(), want, keys)
+        table, first_ms = timed_collect(ds)
         launches = kernels.launch_counts()
+        require_rows(f"{phase} {name}", table, want, keys)
         stats = session.last_execution_stats
-        cold = [cold_ms(ds.collect) for _ in range(timed)]
+        cold, warm = [], []
         if timed:
-            require_rows(f"{phase} {name} warm", ds.collect(), want, keys)
-        warm = [wall_ms(ds.collect) for _ in range(timed)]
+            cold = [first_ms] + [cold_ms(ds.collect)
+                                 for _ in range(timed - 1)]
+            table, warm_first = timed_collect(ds)
+            require_rows(f"{phase} {name} warm", table, want, keys)
+            warm = [warm_first] + [wall_ms(ds.collect)
+                                   for _ in range(timed - 1)]
         out[name] = {
             "ds": ds, "launches": launches, "stats": stats,
             "cold_ms": statistics.median(cold) if cold else None,
@@ -2326,7 +2364,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
                                  f"used without hybrid scan")
     step("quick refresh")
 
-    rows_out, splits = [], {}
+    rows_out = []
     for name, q in g_queries("phase G hybrid", session, root, expected, True,
                              timed=G_TIMED_RUNS).items():
         ds, launches, stats = q["ds"], q["launches"], q["stats"]
@@ -2348,19 +2386,16 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
                          {"hash_buckets": int(join), "bucket_histogram": 0})
         if join:
             by_path["hybrid_route"] = launches
-        if name == "join":
-            # The hybrid join alone is split by stage (the filtered
-            # join's split left the script's time limit to phase Z).
-            device_cache().clear()
-            splits[f"hybrid {name}"] = {"cold": stage_breakdown(ds.collect),
-                                        "warm": stage_breakdown(ds.collect)}
-        device_cache().clear()
-        profiled = profile_query(dev, ds.collect)
         session.disable_hyperspace()
         want, keys = expected[name]
+        # The checking scan is the first timed one (phase D splits and
+        # profiles the query shapes; phase G's splits and profiled runs
+        # left the time limit to phase MH).
         device_cache().clear()
-        require_rows(f"phase G {name} source", ds.collect(), want, keys)
-        scan = [cold_ms(ds.collect) for _ in range(G_TIMED_RUNS)]
+        table, first_ms = timed_collect(ds)
+        require_rows(f"phase G {name} source", table, want, keys)
+        scan = [first_ms] + [cold_ms(ds.collect)
+                             for _ in range(G_TIMED_RUNS - 1)]
         session.enable_hyperspace()
         scan_ms = statistics.median(scan)
         rows_out.append({
@@ -2368,8 +2403,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
             "indexed_cold_ms": q["cold_ms"], "indexed_warm_ms": q["warm_ms"],
             "scan_cold_ms": scan_ms,
             "speedup_cold": scan_ms / q["cold_ms"],
-            "speedup_warm": scan_ms / q["warm_ms"], **profiled,
-            "device_ops": profiled["device_ops"][:10],
+            "speedup_warm": scan_ms / q["warm_ms"],
             "pruned_buckets": [len(b) if b is not None else None
                                for _, b in index_scans(plan)],
             "files_read": sum(s["files_read"] for s in stats["scans"]),
@@ -2402,10 +2436,6 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
         row.update(clean_cold_ms=q["cold_ms"], clean_warm_ms=q["warm_ms"],
                    hybrid_over_clean=row["indexed_cold_ms"] / q["cold_ms"],
                    clean_device_cache_warm=q["warm_stats"]["device_cache"])
-    device_cache().clear()
-    join_ds = clean["join"]["ds"]
-    splits["clean join"] = {"cold": stage_breakdown(join_ds.collect),
-                            "warm": stage_breakdown(join_ds.collect)}
     step("incremental")
 
     appended.append(g_append(mut, G_APPENDED, G_APPENDED_AGAIN, 31))
@@ -2454,7 +2484,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
     device_cache().clear()
     return {"builds": builds, "queries": rows_out, "launches_by_path": by_path,
             "two_version_buckets": len(two_versions), "rows": rows,
-            "steps_s": steps, "join_splits": splits,
+            "steps_s": steps,
             "resident_mib_hybrid": resident_hybrid,
             "resident_mib_end": resident_end}
 
@@ -9238,6 +9268,341 @@ def print_mesh(z: dict) -> None:
           f"{json.dumps(z['steps_s'])})", flush=True)
 
 
+MH_INDEXES = "mh_indexes"       # phase MH's system path
+MH_HOSTS = 2                    # host subprocesses of each multi-host build
+MH_KILL_TTL_S = 1.5             # step 2's claim TTL
+MH_SHAPE = (2, 4)               # step 3's (dcn, ici) mesh of logical shards
+MH_PROCESSES = 2                # step 3's Gloo processes, 2 shards each
+MH_WORKER_TIMEOUT_S = 300.0     # each Gloo process's wait
+
+
+def mh_build(hs, name: str, src: str, want: dict, kill: bool) -> dict:
+    """A MH_HOSTS-host build of ``name`` (li_idx's config) over ``src``:
+    its bucket files' sha256 held to ``want``, exactly one ``commit``
+    record, no item completed twice, no claim left behind, the parent
+    launching nothing and, on the card, the hosts' chunk claims one hash
+    and one histogram launch per chunk.  With ``kill``, the first host
+    that has a done chunk claim and holds a pending one is SIGKILLed; the
+    survivor must reclaim that claim and land the same bytes."""
+    import signal
+    import threading
+
+    from hyperspace_tpu_torch import IndexConfig
+    from hyperspace_tpu_torch.lifecycle import journal
+    from hyperspace_tpu_torch.lifecycle.lease import WorkClaims
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.parallel import multihost_build
+
+    session = hs.session
+    killed: dict = {}
+    spawn = multihost_build.spawn_hosts
+
+    def holder_pid(rec: dict) -> str:
+        # A host's identity is <host>-<pid>-<start_ms>.
+        parts = str(rec.get("holder", "")).rsplit("-", 2)
+        return parts[1] if len(parts) == 3 else ""
+
+    def spawn_and_kill(conf, build_id, n, device="cuda"):
+        procs = spawn(conf, build_id, n, device=device)
+        store = multihost_build._store(conf, build_id)
+        watch = WorkClaims(store, conf, owner="mh-watcher")
+
+        def watcher() -> None:
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline \
+                    and all(p.poll() is None for p in procs):
+                recs = [watch.get(key[len(WorkClaims.PREFIX):])[0]
+                        for key in store.list_keys(WorkClaims.PREFIX)]
+                for p in procs:
+                    mine = [r for r in recs
+                            if r and holder_pid(r) == str(p.pid)]
+                    done = [r["item"] for r in mine if r.get("done")
+                            and r["item"].startswith("chunk-")]
+                    held = [r["item"] for r in mine if not r.get("done")]
+                    if done and held:
+                        os.kill(p.pid, signal.SIGKILL)
+                        killed.update(after=done[0], holding=held,
+                                      at_s=time.perf_counter() - t0)
+                        return
+                time.sleep(0.02)
+
+        thread = threading.Thread(target=watcher, daemon=True)
+        thread.start()
+        killed["thread"] = thread
+        return procs
+
+    if kill:
+        multihost_build.spawn_hosts = spawn_and_kill
+    logged = len(journal.records(session.conf))
+    device_cache().clear()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        hs.create_index(session.read.parquet(src),
+                        IndexConfig(name, INDEXED, INCLUDED))
+    finally:
+        multihost_build.spawn_hosts = spawn
+        if "thread" in killed:
+            killed.pop("thread").join(timeout=10)
+    wall = time.perf_counter() - t0
+    parent = kernels.launch_counts()
+    report = checked_report(f"phase MH {name}", hs)
+    props = report["properties"]
+    if kill and "after" not in killed:
+        raise AssertionError(f"phase MH {name}: no host was killed")
+    chunks = -(-N_LINEITEM // session.conf.device_batch_rows)
+    if props["multihost_hosts"] != MH_HOSTS \
+            or props["multihost_chunks"] != chunks:
+        raise AssertionError(f"phase MH {name}: report {props}")
+    launches = props["multihost_launches"]
+    if session.device.type == "cuda":
+        require_launches(f"phase MH {name} hosts", launches,
+                         {"hash_buckets": chunks, "bucket_histogram": chunks})
+    require_launches(f"phase MH {name} parent", parent,
+                     {"hash_buckets": 0, "bucket_histogram": 0})
+    if bucket_digests(hs, name) != want:
+        raise AssertionError(f"phase MH {name}: the files' sha256 differ "
+                             f"from li_idx's")
+    events = [r for r in journal.records(session.conf)[logged:]
+              if r.get("decision") == "claim" and r.get("index") == name]
+    commits = [e for e in events if e["mode"] == "commit"]
+    completes = [e["item"] for e in events if e["mode"] == "complete"]
+    if len(commits) != 1 or len(completes) != len(set(completes)):
+        raise AssertionError(f"phase MH {name}: {len(commits)} commits, "
+                             f"completes {completes}")
+    if multihost_build.scan_build_claims(session.conf):
+        raise AssertionError(f"phase MH {name}: claims left behind")
+    reclaimed = sorted(e["item"] for e in events if e["mode"] == "reclaim")
+    if kill and not set(killed["holding"]) <= set(reclaimed):
+        raise AssertionError(f"phase MH {name}: the victim held "
+                             f"{killed['holding']}, reclaimed {reclaimed}")
+    return {"wall_s": wall, "launches": launches,
+            "route_wall_s": props["multihost_route_wall_s"],
+            "finalize_wall_s": props["multihost_finalize_wall_s"],
+            "hosts_wall_s": props["multihost_total_wall_s"],
+            "chunks": chunks, "groups": props["multihost_groups"],
+            "phases": {k: v for k, v in session.build_stats_log[-1].items()
+                       if k != "index"},
+            "killed_after": killed.get("after"),
+            "killed_holding": killed.get("holding"),
+            "killed_at_s": killed.get("at_s"), "reclaimed": reclaimed}
+
+
+def mh_worker(address: str, rank: int, path: str,
+              device: str = "cuda:0") -> None:
+    """One of phase MH's Gloo processes on ``device``: slice ``rank`` of
+    MH_PROCESSES, 2 logical shards; its shards' records held to the flat
+    shuffle's over MH_PROCESSES * 2 shards (``path``: the keys and that
+    shuffle's output, saved by the parent)."""
+    import torch
+    import torch.distributed as dist
+
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        process_bucket_shuffle,
+    )
+
+    data = np.load(path)
+    keys = data["keys"]
+    dev = torch.device(device)
+    backend = initialize_distributed(address, MH_PROCESSES, rank, device=dev)
+    if backend != "gloo":
+        raise AssertionError(f"backend {backend} for {MH_PROCESSES} "
+                             f"processes on one card")
+    per = -(-len(keys) // MH_PROCESSES)
+    lo = rank * per
+    hw, ow = int64_words(keys[lo:lo + per])
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = process_bucket_shuffle([hw], [ow], NUM_BUCKETS, lo, 2, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    counts = data["counts"]
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for p, out in enumerate(outs):
+        d = rank * 2 + p
+        got = out[:, :2].cpu().numpy()
+        want_rows = data["perm"][starts[d]:starts[d + 1]]
+        want_buckets = data["buckets"][starts[d]:starts[d + 1]]
+        if not (np.array_equal(got[:, 1], want_rows)
+                and np.array_equal(got[:, 0], want_buckets)):
+            raise AssertionError(f"process {rank} shard {p}: records differ "
+                                 f"from the flat shuffle's")
+    dist.barrier()
+    dist.destroy_process_group()
+    print("MH_WORKER " + json.dumps({"rank": rank, "ms": ms,
+                                      "rows": int(min(per, len(keys) - lo)),
+                                      "launches": launches}), flush=True)
+
+
+def mh_processes(dev, keys: np.ndarray, root: str) -> dict:
+    """MH_PROCESSES processes on ``dev`` joined over Gloo, each a slice
+    of 2 logical shards: the cross-process two-stage shuffle of ``keys``
+    held to the flat shuffle over the same 4 shards."""
+    import socket
+
+    from hyperspace_tpu_torch.parallel import bucket_shuffle
+
+    hw, ow = int64_words(keys)
+    with logical_shards(dev, MH_PROCESSES * 2) as mesh:
+        flat, _ = bucket_shuffle([hw], [ow], NUM_BUCKETS, mesh)
+    path = os.path.join(root, "mh_processes.npz")
+    np.savez(path, keys=keys, perm=flat.perm, buckets=flat.buckets_sorted,
+             counts=flat.device_row_counts)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sock.getsockname()[1]}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    device = "cuda:0" if dev.type == "cuda" else str(dev)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.mh_worker("
+         f"{address!r}, {rank}, {path!r}, {device!r})"], cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(MH_PROCESSES)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=MH_WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    workers = []
+    for rank, (p, out) in enumerate(zip(procs, outputs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MH_WORKER ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"phase MH process {rank} (rc "
+                                 f"{p.returncode}):\n{out[-4000:]}")
+        workers.append(json.loads(lines[0].split(" ", 1)[1]))
+    return {"processes": MH_PROCESSES, "shards": MH_PROCESSES * 2,
+            "rows": len(keys), "wall_s": wall, "workers": workers}
+
+
+def phase_mh(orders: dict, li: dict, root: str, dev) -> dict:
+    """The multi-host layer on the one card (see the module docstring):
+    two 2-host builds held to li_idx (the second with a host SIGKILLed),
+    the two-stage shuffle held to the flat one, and two Gloo processes
+    sharing the card."""
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.parallel import (
+        bucket_shuffle,
+        build_mesh_2d,
+        hierarchical_bucket_shuffle,
+    )
+
+    t_phase = time.perf_counter()
+    steps: dict = {}
+
+    def step(label: str) -> None:
+        steps[label] = time.perf_counter() - t_phase - sum(steps.values())
+
+    reference = Hyperspace(HyperspaceSession(
+        system_path=os.path.join(root, "indexes"), device=dev))
+    want = bucket_digests(reference, INDEX_NAME)
+    session = HyperspaceSession(system_path=os.path.join(root, MH_INDEXES),
+                                device=dev)
+    session.conf.device_batch_rows = DEFAULT_BATCH_ROWS
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    session.conf.multihost_build_hosts = MH_HOSTS
+    hs = Hyperspace(session)
+    src = os.path.join(root, "lineitem")
+    builds = {"clean": mh_build(hs, "li_mh", src, want, kill=False)}
+    step("1_build")
+    session.conf.multihost_build_claim_ttl_s = MH_KILL_TTL_S
+    builds["sigkill"] = mh_build(hs, "li_mh_kill", src, want, kill=True)
+    step("2_sigkill_build")
+
+    hw, ow = int64_words(orders["o_orderkey"])
+    payload = int64_words(orders["o_custkey"])[0]
+    with logical_shards(dev, MH_SHAPE[0] * MH_SHAPE[1]) as mesh:
+        mesh2d = build_mesh_2d(*MH_SHAPE)
+        if mesh2d.devices != mesh.devices:
+            raise AssertionError("phase MH: the 2-axis mesh's shards are not "
+                                 "the flat mesh's")
+        times: dict = {"flat": [], "hierarchical": []}
+        for name in ("flat", "hierarchical", "hierarchical", "flat"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if name == "flat":
+                got = bucket_shuffle([hw], [ow], NUM_BUCKETS, mesh,
+                                     payload_words=payload)
+            else:
+                got = hierarchical_bucket_shuffle([hw], [ow], NUM_BUCKETS,
+                                                  mesh2d,
+                                                  payload_words=payload)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            shuffle_launches = kernels.launch_counts()
+            if dev.type == "cuda":
+                require_launches(f"phase MH {name} shuffle",
+                                 shuffle_launches,
+                                 {"hash_buckets": mesh.size,
+                                  "bucket_histogram": 0})
+            if name == "flat":
+                flat, flat_pl = got
+            else:
+                hier, hier_pl = got
+                hier_launches = shuffle_launches
+    for field in ("perm", "buckets_sorted", "device_row_counts"):
+        if not np.array_equal(getattr(hier, field), getattr(flat, field)):
+            raise AssertionError(f"phase MH: the two-stage shuffle's {field} "
+                                 f"differs from the flat shuffle's")
+    if not (np.array_equal(hier_pl, flat_pl)
+            and np.array_equal(hier_pl, payload[hier.perm])
+            and np.array_equal(np.sort(hier.perm), np.arange(N_ORDERS))):
+        raise AssertionError("phase MH: the two-stage shuffle's payload or "
+                             "permutation is wrong")
+    shuffle = {"rows": N_ORDERS, "shape": list(MH_SHAPE),
+               "flat_ms": statistics.median(times["flat"]),
+               "hierarchical_ms": statistics.median(times["hierarchical"]),
+               "flat_runs_ms": times["flat"],
+               "hierarchical_runs_ms": times["hierarchical"],
+               "capacity": hier.capacity, "launches": hier_launches}
+    step("3_shuffle")
+    processes = mh_processes(dev, orders["o_orderkey"], root)
+    step("4_processes")
+    device_cache().clear()
+    shutil.rmtree(os.path.join(root, MH_INDEXES), ignore_errors=True)
+    return {"builds": builds, "shuffle": shuffle, "processes": processes,
+            "launches": builds["clean"]["launches"],
+            "shuffle_launches": hier_launches,
+            "steps_s": steps, "phase_s": time.perf_counter() - t_phase}
+
+
+def print_multihost(mh: dict) -> None:
+    for label, b in mh["builds"].items():
+        print(f"phase MH {label} build: wall {b['wall_s']:.3f} s (hosts "
+              f"{b['hosts_wall_s']:.3f} s from spawn), route "
+              f"{b['route_wall_s']:.3f} s and finalize "
+              f"{b['finalize_wall_s']:.3f} s by the claim spans, "
+              f"{b['chunks']} chunks, {b['groups']} groups, host launches "
+              f"{json.dumps(b['launches'])}, a host killed after "
+              f"{b['killed_after']} holding {b['killed_holding']}, "
+              f"reclaimed {json.dumps(b['reclaimed'])}", flush=True)
+    s = mh["shuffle"]
+    print(f"phase MH shuffle ({s['rows']} rows, mesh {s['shape']}): flat "
+          f"{s['flat_ms']:.1f} ms, two-stage {s['hierarchical_ms']:.1f} ms, "
+          f"equal; launches {json.dumps(s['launches'])}, stage-2 capacity "
+          f"{s['capacity']}", flush=True)
+    p = mh["processes"]
+    print(f"phase MH processes: {p['processes']} Gloo processes x 2 "
+          f"shards on one device, {p['rows']} rows equal to the flat "
+          f"shuffle, wall {p['wall_s']:.3f} s, shuffle ms "
+          f"{json.dumps([w['ms'] for w in p['workers']])}, launches "
+          f"{json.dumps([w['launches'] for w in p['workers']])}", flush=True)
+    print(f"phase MH: both builds equal to li_idx ({mh['phase_s']:.3f} s; "
+          f"by step {json.dumps(mh['steps_s'])})", flush=True)
+
+
 def print_fleet(v: dict) -> None:
     f, p, h = v["fleet"], v["proxy"], v["hedge"]
     br, sc = v["breaker"], v["scrape"]
@@ -9843,7 +10208,9 @@ def print_split(label: str, split: dict) -> None:
                             if k != "worker_busy_ms"}), flush=True)
 
 
-PHASES = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+# The phases in the order the script runs their checks: the letters, then
+# the names of more than one letter.
+PHASES = tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ") + ("MH",)
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -9852,7 +10219,7 @@ PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
                "U": "T", "V": "CD", "W": "C", "X": "C", "Y": "C",
-               "Z": "CD"}
+               "Z": "CD", "MH": "CD"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -9868,10 +10235,10 @@ def parse_args(argv: list) -> tuple:
     parser = argparse.ArgumentParser(
         description="Drive hyperspace_tpu_torch on one CUDA card.")
     parser.add_argument(
-        "--phases", metavar="LETTERS",
-        help=f"comma-separated phase letters of {PHASES} (A and the kernel "
-             f"builds always run; a phase's data and builds run with it); "
-             f"default: every phase")
+        "--phases", metavar="NAMES",
+        help=f"comma-separated phase names of {','.join(PHASES)} (A and the "
+             f"kernel builds always run; a phase's data and builds run with "
+             f"it); default: every phase")
     parser.add_argument(
         "--u-turns", type=int, default=0, metavar="N",
         help="phase U: N more rounds of its 8 clients on a threaded and "
@@ -9884,10 +10251,10 @@ def parse_args(argv: list) -> tuple:
     if phases is None:
         return set(PHASES), set(), args.u_turns
     selected = {p.strip() for p in phases.split(",")}
-    unknown = sorted(p for p in selected if len(p) != 1 or p not in PHASES)
+    unknown = sorted(p for p in selected if p not in PHASES)
     if unknown:
-        parser.error(f"unknown phases {unknown}; the phases are the letters "
-                     f"of {PHASES}, comma-separated")
+        parser.error(f"unknown phases {unknown}; the phases are "
+                     f"{','.join(PHASES)}, comma-separated")
     read: set = set()
     todo = list(selected)
     while todo:
@@ -10072,11 +10439,8 @@ def main(argv=None) -> int:
                       f"{q['speedup_cold']:.2f}x the scan cold, "
                       f"{q['hybrid_over_clean']:.2f}x the clean index (clean "
                       f"cold {q['clean_cold_ms']:.1f} warm "
-                      f"{q['clean_warm_ms']:.1f} ms), busy "
-                      f"{q['busy_share']:.4f}, cache warm "
+                      f"{q['clean_warm_ms']:.1f} ms), cache warm "
                       f"{json.dumps(q['device_cache_warm'])}", flush=True)
-            for label, split in g["join_splits"].items():
-                print_split(f"phase G {label}", split)
             print(f"phase G: lineage create, quick refresh, hybrid queries, "
                   f"incremental refreshes ({g['rows']} rows, "
                   f"{g['two_version_buckets']} buckets in two versions), "
@@ -10084,7 +10448,7 @@ def main(argv=None) -> int:
                   f"resident at the end ({time.perf_counter() - t0:.3f} s; "
                   f"by step {json.dumps(g['steps_s'])})", flush=True)
             res.setdefault("queries", {}).update(
-                hybrid_queries=g["queries"], join_splits=g["join_splits"])
+                hybrid_queries=g["queries"])
             by_path.update(g["launches_by_path"])
         if "H" in runs:
             reports = {"C create li_idx": c["report"],
@@ -10218,6 +10582,12 @@ def main(argv=None) -> int:
             by_path["Z sharded spill"] = z["launches"]
             by_path["Z distributed build"] = \
                 z["builds"]["distributed"]["launches"]
+        if "MH" in runs:
+            mh = phase_mh(orders, li, root, dev)
+            print_multihost(mh)
+            res["multihost"] = mh
+            by_path["MH multihost build"] = mh["launches"]
+            by_path["MH hierarchical shuffle"] = mh["shuffle_launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -10280,7 +10650,8 @@ def main(argv=None) -> int:
             print(json.dumps({key: res[key]}))
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
                 "diagnostics", "object_store", "server", "server_u",
-                "fleet", "formats", "delta", "iceberg", "mesh"):
+                "fleet", "formats", "delta", "iceberg", "mesh",
+                "multihost"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

@@ -71,8 +71,10 @@ read, written and spilled, to the action's build report.
 ``RefreshAction`` (actions/refresh.py) rebuilds through the same
 ``_build_index_data``; ``RefreshIncrementalAction`` writes through
 ``_write_table_bucketed``.  Each source file read is an ``io.read``
-span that names its format.  Not ported: the multi-host build.  pyarrow
-is imported when a function runs.
+span that names its format.  With ``conf.multihost_build_hosts`` >= 1
+the build runs as host subprocesses under work claims instead
+(``parallel/multihost_build.py``), before the Z-order and spill branches.
+pyarrow is imported when a function runs.
 """
 
 from __future__ import annotations
@@ -128,6 +130,7 @@ from hyperspace_tpu_torch.ops.sort import (
 )
 from hyperspace_tpu_torch.ops.zorder import key64_to_codes, zorder_sort
 from hyperspace_tpu_torch.parallel import mesh as parallel_mesh
+from hyperspace_tpu_torch.parallel import multihost_build
 from hyperspace_tpu_torch.parallel.sharded_build import bucket_group_bounds
 from hyperspace_tpu_torch.plan.nodes import LogicalPlan
 from hyperspace_tpu_torch.telemetry.events import CreateActionEvent
@@ -417,6 +420,15 @@ class CreateActionBase(Action):
             str(self.conf.parallel_build).lower() in ("on", "true")
             and self._use_distributed_build())
         self._phase("plan_s", time.perf_counter() - t0)
+        if multihost_build.armed(self.conf):
+            # Host subprocesses route and finalize under work claims; this
+            # action coordinates, checks the staged union, and keeps its
+            # own commit as the one transaction.
+            multihost_build.run_multihost_build(
+                self, files, resolved.all_columns, relation, resolved,
+                self.lineage_enabled, batch_rows)
+            self._publish_build_stats()
+            return
         if streaming and resolved.layout == "zorder":
             self._zorder_streaming_build(files, resolved.all_columns, relation,
                                          self.lineage_enabled, resolved,

@@ -127,6 +127,16 @@ class HyperspaceConf:
     # more than one local device is seen, "on" always, which also keeps
     # a source beyond one batch in one monolithic build, "off" never.
     parallel_build: str = "auto"
+    # The multi-host build (parallel/multihost_build.py): hosts >= 1 runs
+    # create_index as that many host subprocesses under work claims (0:
+    # the build of this process); a claim expires claim_ttl_s after its
+    # last renew, and a survivor reclaims it; hosts and the coordinator
+    # poll the claim table every poll_s; the coordinator fails the build
+    # past deadline_s.
+    multihost_build_hosts: int = 0
+    multihost_build_claim_ttl_s: float = 10.0
+    multihost_build_poll_s: float = 0.05
+    multihost_build_deadline_s: float = 600.0
     # Build reports (telemetry/build_report.py): off keeps the phase
     # seconds and bytes but skips the memory sampling, the metric and
     # span export and the perf-ledger append.

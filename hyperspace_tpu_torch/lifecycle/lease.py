@@ -29,10 +29,15 @@ decision ``lease`` (lifecycle/journal.py).
 
 The record lives in the store ``conf.log_store_class`` names; the lease
 reads it by point reads only, so a listing window does not delay it.
-Not ported: ``WorkClaims``, whose callers are the multi-host build and
-the chaos drill.  The
-``lease.*`` counters (acquires, takeovers, conflicts, renews, fenced,
-releases) are the JAX package's.
+The ``lease.*`` counters (acquires, takeovers, conflicts, renews,
+fenced, releases) are the JAX package's.
+
+``WorkClaims`` is the same protocol over a SET of named work items, one
+record per item (the multi-host build's chunk and bucket-group claims,
+``parallel/multihost_build.py``): a done record is final, a takeover
+bumps the item's epoch, and a fenced holder's ``complete`` loses the
+CAS, so exactly one done record per item ever lands.  Its journal
+records have decision ``claim``; its counters are ``claims.*``.
 """
 
 from __future__ import annotations
@@ -251,3 +256,178 @@ class MaintenanceLease:
         if error:
             rec["error"] = error[:500]
         journal.append(self.conf, rec)
+
+
+class WorkClaims:
+    """A crash-recoverable claim table: the lease's TTL and epoch fencing
+    per named work item.
+
+    One JSON record per item at ``<store root>/claim-<item>`` (flat keys:
+    both store classes list one level):
+
+      pending: ``{"v": 1, "item", "holder", "epoch", "acquired_at",
+                  "expires_at", "done": false}``
+      done:    ``{"v": 1, "item", "holder", "epoch", "done": true,
+                  "acquired_at", "completed_at", "result": {...}}``
+
+      - ``try_claim`` commits a fresh record over an absent, torn or
+        expired pending one (the epoch bumped on a takeover); a done
+        record is final and never taken.
+      - ``renew`` commits against the holder's own last generation; a
+        lost CAS means the item was taken while this process stalled:
+        it is fenced and drops its work.
+      - ``complete`` commits the done record through the same CAS, so a
+        fenced holder's completion loses and one done record per item
+        lands.
+      - ``holds`` keeps the store-latency margin: a holder stands down
+        ``margin_s`` before its expiry on its own clock.
+
+    Acquire, reclaim, fence and complete are journal records of decision
+    ``claim``, with the item and the epoch."""
+
+    PREFIX = "claim-"
+
+    def __init__(self, store, conf, owner: Optional[str] = None,
+                 ttl_s: float = 10.0, index: str = "") -> None:
+        self.store = store
+        self.conf = conf
+        self.owner = owner or process_identity()
+        self.ttl_s = max(0.1, float(ttl_s))
+        self.index = index
+        self._lat_ewma_s = 0.0
+
+    def margin_s(self) -> float:
+        """Two measured store round trips, clamped to [2% of the TTL, a
+        third of it], as :meth:`MaintenanceLease.margin_s`."""
+        return min(self.ttl_s / 3.0,
+                   max(2.0 * self._lat_ewma_s, 0.02 * self.ttl_s))
+
+    def holds(self, claim: Dict[str, Any]) -> bool:
+        """The claim is still safely ours: not within ``margin_s`` of its
+        expiry on our clock."""
+        return time.time() < \
+            float(claim.get("expires_at", 0.0)) - self.margin_s()
+
+    def _observe_latency(self, elapsed_s: float) -> None:
+        self._lat_ewma_s = elapsed_s if self._lat_ewma_s <= 0.0 \
+            else 0.7 * self._lat_ewma_s + 0.3 * elapsed_s
+
+    def _key(self, item: str) -> str:
+        return self.PREFIX + item
+
+    def get(self, item: str):
+        """(record or None, generation): a torn put reads as None with
+        the generation it burned, so a reclaim commits over it."""
+        t0 = time.monotonic()
+        payload, gen = self.store.read_with_generation(self._key(item))
+        self._observe_latency(time.monotonic() - t0)
+        return _parse(payload), gen
+
+    def result(self, item: str) -> Optional[Dict[str, Any]]:
+        """A done item's result, or None while it is pending."""
+        rec, _gen = self.get(item)
+        if rec is not None and rec.get("done"):
+            return rec.get("result", {})
+        return None
+
+    def pending(self, items) -> list:
+        """The items with no done record yet."""
+        return [it for it in items if self.result(it) is None]
+
+    def _put(self, item: str, body: Dict[str, Any], gen: int) -> bool:
+        t0 = time.monotonic()
+        committed = self.store.put_if_generation_match(
+            self._key(item), json.dumps(body).encode("utf-8"), gen)
+        self._observe_latency(time.monotonic() - t0)
+        return committed
+
+    def try_claim(self, item: str) -> Optional[Dict[str, Any]]:
+        """Claim ``item`` when it is absent, torn or expired.  Returns the
+        handle ``{"item", "epoch", "gen", "acquired_at", "expires_at"}``
+        that ``renew`` and ``complete`` take, or None (done, a live
+        holder, or a lost CAS)."""
+        rec, gen = self.get(item)
+        now = time.time()
+        if rec is not None:
+            if rec.get("done"):
+                return None
+            if float(rec.get("expires_at", 0.0)) > now:
+                return None
+        # A torn record hides its epoch; every commit bumps the generation
+        # by at least one, so gen + 1 passes any epoch it could carry.
+        prior_epoch = int(rec.get("epoch", gen)) if rec is not None else gen
+        epoch = prior_epoch + 1
+        if not self._put(item, {
+                "v": RECORD_VERSION, "item": item, "holder": self.owner,
+                "epoch": epoch, "acquired_at": now,
+                "expires_at": now + self.ttl_s, "done": False}, gen):
+            metrics.inc("claims.conflicts")
+            return None
+        claim = {"item": item, "epoch": epoch, "gen": gen + 1,
+                 "acquired_at": now, "expires_at": now + self.ttl_s}
+        if rec is not None or gen:
+            metrics.inc("claims.reclaims")
+            holder = rec.get("holder", "?") if rec is not None else "?"
+            self._note("reclaim", item, epoch,
+                       reason=f"expired/torn claim (holder {holder}) "
+                              f"taken over as epoch {epoch}")
+        else:
+            metrics.inc("claims.acquires")
+            self._note("acquire", item, epoch,
+                       reason=f"fresh claim, epoch {epoch}")
+        return claim
+
+    def renew(self, claim: Dict[str, Any]) -> bool:
+        """Extend the claim; False means fenced (taken under us): the
+        caller drops the item's work at once."""
+        now = time.time()
+        if self._put(claim["item"], {
+                "v": RECORD_VERSION, "item": claim["item"],
+                "holder": self.owner, "epoch": claim["epoch"],
+                "acquired_at": now, "expires_at": now + self.ttl_s,
+                "done": False}, claim["gen"]):
+            claim["gen"] += 1
+            claim["expires_at"] = now + self.ttl_s
+            return True
+        metrics.inc("claims.fenced")
+        self._note("fence", claim["item"], claim["epoch"], outcome="error",
+                   reason=f"renew lost the CAS at epoch {claim['epoch']}; "
+                          f"claim reclaimed — standing down")
+        return False
+
+    def complete(self, claim: Dict[str, Any],
+                 result: Optional[Dict[str, Any]] = None) -> bool:
+        """Commit the done record through the claim's CAS.  False means
+        fenced: another holder took the item, and this one's output is
+        discarded."""
+        if self._put(claim["item"], {
+                "v": RECORD_VERSION, "item": claim["item"],
+                "holder": self.owner, "epoch": claim["epoch"], "done": True,
+                "acquired_at": claim.get("acquired_at", 0.0),
+                "completed_at": time.time(), "result": result or {}},
+                claim["gen"]):
+            claim["gen"] += 1
+            metrics.inc("claims.completes")
+            self._note("complete", claim["item"], claim["epoch"],
+                       reason=f"epoch {claim['epoch']} done")
+            return True
+        metrics.inc("claims.fenced")
+        self._note("fence", claim["item"], claim["epoch"], outcome="error",
+                   reason=f"complete lost the CAS at epoch "
+                          f"{claim['epoch']}; output discarded")
+        return False
+
+    def _note(self, event: str, item: str, epoch: int, reason: str = "",
+              outcome: str = "done") -> None:
+        from hyperspace_tpu_torch.lifecycle import journal
+
+        journal.append(self.conf, {
+            "decision": "claim",
+            "index": self.index,
+            "mode": event,
+            "reason": reason,
+            "outcome": outcome,
+            "holder": self.owner,
+            "epoch": epoch,
+            "item": item,
+        })

@@ -36,8 +36,8 @@ entry per CUDA card for a CUDA session, ``[cpu]`` for a CPU session.
 So under "auto" one card never takes a mesh route, as one TPU chip does
 not.  Replacing it (a test's monkeypatch) with N copies of the session's
 device gives N logical shards, the counterpart of the JAX tests'
-``--xla_force_host_platform_device_count=8``.  There is no process
-group: the multi-host mesh is not ported.
+``--xla_force_host_platform_device_count=8``.  The 2-axis ``(dcn,
+ici)`` mesh and the process group are ``parallel/multihost.py``'s.
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ class Mesh:
     """A 1-D mesh: one ``torch.device`` per logical shard, in order."""
 
     __slots__ = ("devices",)
+    axis_names = (SHARD_AXIS,)
 
     def __init__(self, devices: Sequence) -> None:
         self.devices: Tuple[torch.device, ...] = tuple(

@@ -50,11 +50,13 @@ _LAKE = ("io/schemas.py", "sources/interfaces.py",
          "sources/iceberg/writer.py", "sources/iceberg/provider.py")
 
 
-# The mesh of logical shards and its data plane.
+# The mesh of logical shards and its data plane; the (dcn, ici) mesh and
+# the multi-host build (pyarrow inside functions only).
 _PARALLEL = ("parallel/__init__.py", "parallel/mesh.py", "parallel/shuffle.py",
              "parallel/sharded_build.py", "parallel/build.py",
              "parallel/join.py", "parallel/filter.py",
-             "parallel/aggregate.py")
+             "parallel/aggregate.py", "parallel/multihost.py",
+             "parallel/multihost_build.py")
 
 
 def _port_sources():
@@ -415,6 +417,67 @@ def test_the_mesh_imports_no_jax(tmp_path):
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_the_multihost_build_hosts_import_no_jax(tmp_path):
+    """``multihost`` and ``multihost_build`` load without pyarrow; then a
+    2-host build on the CPU, whose host subprocesses each record, after
+    ``host_main`` returns, the jax and JAX-package modules they loaded:
+    none, as in the coordinator."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        from hyperspace_tpu_torch.parallel import multihost, multihost_build
+        assert not any(m == "pyarrow" or m.startswith("pyarrow.")
+                       for m in sys.modules), "pyarrow at load"
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        from hyperspace_tpu_torch import (Hyperspace, HyperspaceSession,
+                                          IndexConfig)
+
+        root = {str(tmp_path)!r}
+        probe = (
+            "; import os, sys; bad = sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith('jax.') or m == 'hyperspace_tpu' "
+            "or m.startswith('hyperspace_tpu.')); "
+            "open(os.path.join(" + repr(root) + ", 'host-%d.txt' "
+            "% os.getpid()), 'w').write(repr(bad))")
+        multihost_build.HOST_CODE += probe
+        src = os.path.join(root, "src")
+        os.makedirs(src)
+        rng = np.random.default_rng(0)
+        pq.write_table(pa.table({{"k": rng.integers(0, 500, 3000),
+                                  "v": rng.random(3000)}}),
+                       os.path.join(src, "p.parquet"))
+        s = HyperspaceSession(os.path.join(root, "ix"), device="cpu")
+        s.conf.num_buckets = 4
+        s.conf.device_batch_rows = 1000
+        s.conf.device_build_min_rows = 0
+        s.conf.multihost_build_hosts = 2
+        s.conf.multihost_build_poll_s = 0.02
+        hs = Hyperspace(s)
+        hs.create_index(s.read.parquet(src), IndexConfig("m", ["k"], ["v"]))
+        assert hs.last_build_report().properties["multihost_hosts"] == 2
+        hosts = sorted(f for f in os.listdir(root) if f.startswith("host-"))
+        assert len(hosts) == 2, hosts
+        for f in hosts:
+            with open(os.path.join(root, f)) as fh:
+                print("HOST", f, fh.read())
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+    hosts = [line for line in proc.stdout.splitlines()
+             if line.startswith("HOST ")]
+    assert len(hosts) == 2 and all(h.endswith(" []") for h in hosts), \
+        proc.stdout
 
 
 def test_a_build_through_the_port_imports_no_jax(tmp_path):

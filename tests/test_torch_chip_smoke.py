@@ -1,5 +1,5 @@
-"""chip_smoke.py's phase selector and its phases U, V, W, X, Y and Z,
-on the CPU.
+"""chip_smoke.py's phase selector and its phases U, V, W, X, Y, Z and
+MH, on the CPU.
 
 The selector: ``--phases T,U`` runs the selected phases with phase A and
 the kernel builds, plus what they read (phase C's ``li_idx`` build and
@@ -7,9 +7,9 @@ phase D's ``ord_idx`` build for T); an unknown letter is an error; and
 without a card the script exits non-zero and prints no result, also
 from a directory that holds it alone.  Phase U is rehearsed after phase
 T, phase V alone (it builds phase C's and D's indexes itself) and phases
-W, X and Y after phase C, and phase Z after phases C and D, at 80,000
-lineitem rows on a ``cpu`` session, where the plain kernels count no
-launch."""
+W, X and Y after phase C, and phases Z and MH after phases C and D, at
+80,000 lineitem rows on a ``cpu`` session, where the plain kernels count
+no launch."""
 
 from __future__ import annotations
 
@@ -40,8 +40,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (["--phases", "Y"], {"A", "Y"}, {"C"}),
     (["--phases", "X,Y"], {"A", "X", "Y"}, {"C"}),
     (["--phases", "Z"], {"A", "Z"}, {"C", "D"}),
+    (["--phases", "MH"], {"A", "MH"}, {"C", "D"}),
+    (["--phases", "Z,MH"], {"A", "Z", "MH"}, {"C", "D"}),
 ], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W", "X", "Y",
-        "X,Y", "Z"])
+        "X,Y", "Z", "MH", "Z,MH"])
 def test_a_selection_runs_what_it_reads(argv, selected, read):
     assert chip_smoke.parse_args(argv) == (selected, read, 0)
     assert chip_smoke.parse_args(argv + ["--u-turns", "2"])[2] == 2
@@ -49,6 +51,7 @@ def test_a_selection_runs_what_it_reads(argv, selected, read):
 
 @pytest.mark.parametrize("argv", [["--phases", "T,1"], ["--phases", "TU"],
                                   ["--phases", ""], ["--phases", "t"],
+                                  ["--phases", "mh"], ["--phases", "M,H,X1"],
                                   ["--u-turns", "-1"], ["--bogus"]])
 def test_an_unknown_phase_is_an_error(argv):
     with pytest.raises(SystemExit) as ei:
@@ -358,3 +361,46 @@ def test_phase_z_on_the_cpu(monkeypatch, tmp_path):
     assert set(z["steps_s"]) == {"1_spill_builds", "2_distributed_build",
                                  "3_queries", "4_route_timing"}
     assert not os.path.exists(os.path.join(root, chip_smoke.Z_INDEXES))
+
+
+def test_the_phases_are_the_letters_then_mh():
+    assert chip_smoke.PHASES[:26] == tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    assert chip_smoke.PHASES[26:] == ("MH",)
+    assert chip_smoke.PHASE_READS["MH"] == "CD"
+
+
+def test_phase_mh_on_the_cpu(monkeypatch, tmp_path):
+    """Phase MH after phases C and D at 80,000 lineitem rows on the CPU:
+    both 2-host builds (the second with a host SIGKILLed while it holds a
+    claim) equal to li_idx with one commit, and the two-stage shuffle of
+    the orders equal to the flat one, also across two Gloo processes."""
+    import torch
+
+    from hyperspace_tpu_torch.parallel import mesh as parallel_mesh
+
+    _small(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "DEFAULT_BATCH_ROWS", 16_384)
+    orders, li = chip_smoke.gen_data()
+    root = str(tmp_path / "smoke")
+    os.makedirs(root)
+    dev = torch.device("cpu")
+    chip_smoke.phase_c(li, root, dev)
+    local_devices = parallel_mesh.local_devices
+    mh = chip_smoke.phase_mh(orders, li, root, dev)
+    chip_smoke.print_multihost(mh)
+    assert parallel_mesh.local_devices is local_devices  # the seam undone
+    clean, kill = mh["builds"]["clean"], mh["builds"]["sigkill"]
+    assert clean["chunks"] == kill["chunks"] == 5
+    assert clean["groups"] == 8
+    assert clean["killed_after"] is None and not clean["reclaimed"]
+    assert kill["killed_after"].startswith("chunk-")
+    assert set(kill["killed_holding"]) <= set(kill["reclaimed"])
+    assert clean["route_wall_s"] > 0 and clean["finalize_wall_s"] > 0
+    assert not any(clean["launches"].values())  # plain kernels count none
+    assert mh["shuffle"]["rows"] == chip_smoke.N_ORDERS
+    assert len(mh["shuffle"]["hierarchical_runs_ms"]) == 2
+    assert mh["processes"]["rows"] == chip_smoke.N_ORDERS
+    assert [w["rank"] for w in mh["processes"]["workers"]] == [0, 1]
+    assert set(mh["steps_s"]) == {"1_build", "2_sigkill_build", "3_shuffle",
+                                  "4_processes"}
+    assert not os.path.exists(os.path.join(root, chip_smoke.MH_INDEXES))
