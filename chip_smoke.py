@@ -7,11 +7,11 @@ beside it.  ``python3 chip_smoke.py --phases T,U`` runs some phases only:
 the kernel builds and phase A always, the data generation, the selected
 phases in the script's order with what they read from other phases
 (PHASE_READS: phase C's ``li_idx`` build, phase D's ``ord_idx`` build
-without its queries, phase L for M, phase T for U; C and D for T, V, Z
-and MH; C for W, X and Y),
+without its queries, phase L for M, phase T for U; C and D for T, V, Z,
+MH and FL; C for W, X and Y),
 then the kernels' timing, with the same last line.  A phase is named by
-its letter, or by its name of more than one letter (MH); an unknown name
-is an error.
+its letter, or by its name of more than one letter (MH, FL); an unknown
+name is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
 
@@ -87,16 +87,18 @@ async server in turns (threaded, async, async, threaded).
            ``scan_cold_ms`` and ``scan_warm_ms`` the same with hyperspace
            off; ``host_route_ms`` the host route.  Beside them the two
            speedups, the two ``host_over_device`` and the cache's hits
-           and misses of the checked cold and warm collects.  One
-           profiled cold run gives ``device_ms`` (the sum of its device
-           activities), ``busy_share`` (``device_ms`` over that run's
-           wall) and the torch ops with the most device time (the warm
-           profiled run left the time limit to phase MH); for the aggregates
-           also ``programs`` (calls and device ms of AGG_PROGRAMS, each
-           under a ``record_function`` of its name).  ``stages`` splits
-           one cold and one warm run by stage (``stage_breakdown``:
-           reads, fingerprints, arrow, uploads, predicates, device calls,
-           the pool's wait).  Then q3 runs twice with the cache's budget
+           and misses of the checked cold and warm collects.  For the
+           queries of D_PROFILED one profiled cold run gives
+           ``device_ms`` (the sum of its device activities),
+           ``busy_share`` (``device_ms`` over that run's wall) and the
+           torch ops with the most device time (the warm profiled run
+           left the time limit to phase MH, the other queries' to phase
+           FL); for the aggregates also ``programs`` (calls and device
+           ms of AGG_PROGRAMS, each under a ``record_function`` of its
+           name).  For those of D_SPLIT ``stages`` splits one cold and
+           one warm run by stage (``stage_breakdown``: reads,
+           fingerprints, arrow, uploads, predicates, device calls, the
+           pool's wait).  Then q3 runs twice with the cache's budget
            at EVICTION_BUDGET, under its working set: both answers held
            to numpy, and the cache must have evicted or rejected columns.
            The resident MiB at the phase's end are printed.
@@ -261,7 +263,8 @@ async server in turns (threaded, async, async, threaded).
            emptied cache, then warm (both windows "device-segment" over
            4 groups, resident), answers within AGG_RTOL of the host
            route's.  Seven tie-heavy windows ordered by ``l_quantity``
-           (49 values: ties about 30,000 rows deep): the RANGE running
+           over the K_TIES_STATUS partition (a quarter of the rows since
+           phase FL; 49 values: ties about 30,000 rows deep): the RANGE running
            sum, ``dense_rank``, ``ntile(4)``, ``lag`` and ``lead`` of
            ``l_orderkey``, ``min`` over ROWS (-2, 2), ``first_value``.
            Through ``li_idx``: a 5% key range, ``rank`` by price within
@@ -732,6 +735,33 @@ async server in turns (threaded, async, async, threaded).
            Launches ``MH multihost build`` and ``MH hierarchical
            shuffle``.  Prints ``{"multihost": ...}`` with the card's name
            and power limit.
+  phase FL the fleet plane (after phase MH) over phase C's and D's
+           indexes, every process heartbeating every FL_INTERVAL_S under
+           ``root/indexes``.  (1) FL_CHILDREN port server subprocesses
+           on ``cuda:0`` (``fl_child``): each marks the kernel seam,
+           builds ``fl_ord_<rank>`` over D's orders (one hash and one
+           histogram launch, counted in the child), serves ``li_idx`` and
+           ``ord_idx`` and announces its identity and address.  (2) A
+           ``FleetQueryClient`` given the conf routes FL_POINTS point
+           queries and FL_JOINS filtered joins on the children's rows,
+           each answer equal to numpy; the picks per endpoint.  (3)
+           ``fleet_status()`` has both children's fresh rows,
+           ``fleet_metrics()``'s ``serve.requests`` (this process's own
+           taken out) equals the children's own counts, each child's
+           heartbeat carries ``device_kernel_ms``; ``fleet_status``,
+           ``fleet_metrics``, ``render_fleet_prometheus`` (with bytes)
+           and ``doctor(fleet=True)`` timed.  (4) A query failing in
+           child 0 resolves here by ``trace(id, fleet=True)`` naming it.
+           (5) Child 0 drains with one query held in flight: its row
+           reads ``draining``, FL_DRAINING_QUERIES points go to the
+           other, and after the drain its row is gone.  (6) Child 1 is
+           SIGKILLed: ``doctor(fleet=True)`` reads ``fleet.heartbeats``
+           crit naming it, the seconds from the kill printed.  (7) A
+           point served in this process, FL_SERVED with its publisher
+           off and on in turns, and ``publish_once`` FL_PUBLISHES times
+           on each store class.  Launches ``FL fleet`` (the children's).
+           Prints ``{"fleet_plane": ...}`` with the card's name and power
+           limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -765,7 +795,8 @@ R's ``R diagnostics``, phase S's ``S object store``, phase T's ``T
 server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
 formats``, phase X's ``X delta``, phase Y's ``Y iceberg``, phase Z's
 ``Z sharded spill`` and ``Z distributed build``, phase MH's ``MH
-multihost build`` and ``MH hierarchical shuffle``), the
+multihost build`` and ``MH hierarchical shuffle``, phase FL's ``FL
+fleet``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
@@ -773,8 +804,9 @@ envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
 R), the object-store JSON (phase S), the server JSON (phase T), the
 async, tenant and wire-fault JSON (phase U), the front-door JSON
 (phase V), the formats JSON (phase W), the Delta JSON (phase X) and the
-Iceberg JSON (phase Y), the mesh JSON (phase Z) and the multi-host JSON
-(phase MH), each of the last fifteen with
+Iceberg JSON (phase Y), the mesh JSON (phase Z), the multi-host JSON
+(phase MH) and the fleet-plane JSON (phase FL), each of the last sixteen
+with
 the card's name and power limit, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.  A selection prints the lines of the
 phases it ran.
@@ -828,6 +860,11 @@ AGG_PROGRAMS = ("match_pairs", "_group_sort", "_segment_reduce",
 TIMED_QUERY_RUNS = 1
 D_TIMED_RUNS = 1
 G_TIMED_RUNS = 1
+# Phase D's profiled run (the join and the aggregates, whose device
+# programs PERF.md reads) and stage splits (the join and q3, the two
+# printed): the other queries' left the time limit to phase FL.
+D_PROFILED = ("join", "q3", "q10", "agg_by_priority")
+D_SPLIT = ("join", "q3")
 # The cold and the resident thresholds of the host route: more rows than
 # any query has, so every filter, join kernel and aggregate runs on the
 # host, resident columns or not.
@@ -900,6 +937,7 @@ K_SET_A = (100_000, 160_000)    # step 5: two overlapping key ranges
 K_SET_B = (140_000, 200_000)
 K_UNION_KEYS = (POINT_KEY, POINT_KEY + 1)
 K_DISTINCT_ROWS = 4 * 49        # (l_status, l_quantity) pairs
+K_TIES_STATUS = 0               # step 3: the one l_status partition windowed
 # Phase L: the plan language over TPC-H-shaped orders and lineitem.
 L_SEED = 31
 L_ORDERS = N_ORDERS
@@ -1877,11 +1915,15 @@ def phase_d(orders: dict, li: dict, root: str, dev) -> dict:
         indexed_cold = [cold_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
         cache_warm = checked("indexed warm", "device", warm=True)["device_cache"]
         indexed_warm = [wall_ms(ds.collect) for _ in range(D_TIMED_RUNS)]
-        device_cache().clear()
-        profiled = profile_query(dev, ds.collect, programs=name in AGG_QUERIES)
-        device_cache().clear()
-        profiled["stages"] = {"cold": stage_breakdown(ds.collect),
-                              "warm": stage_breakdown(ds.collect)}
+        profiled: dict = {}
+        if name in D_PROFILED:
+            device_cache().clear()
+            profiled = profile_query(dev, ds.collect,
+                                     programs=name in AGG_QUERIES)
+        if name in D_SPLIT:
+            device_cache().clear()
+            profiled["stages"] = {"cold": stage_breakdown(ds.collect),
+                                  "warm": stage_breakdown(ds.collect)}
         # Resident columns lower no threshold here: the route is the host.
         set_min_rows(session, HOST_ROUTE_MIN_ROWS)
         checked("host route", "host")
@@ -3603,10 +3645,15 @@ def phase_k(li: dict, root: str, dev) -> dict:
         "resident_threshold": cal.conf.resident_min_rows("agg", dev)}
     device_cache().clear()
 
-    # (3) tie-heavy windows: ordered by l_quantity, 49 distinct values.
+    # (3) tie-heavy windows: ordered by l_quantity, 49 distinct values,
+    # over one l_status partition (a quarter of the rows, ties as deep).
     over = dict(partition_by=["l_status"], order_by=["l_quantity"])
-    ties = (li_ds.select("l_status", "l_quantity", "l_extendedprice",
-                         "l_orderkey")
+    part = li["l_status"] == K_TIES_STATUS
+    ties_atol = K_PREFIX_RTOL * float(np.abs(li["l_extendedprice"][part])
+                                      .sum())
+    ties = (li_ds.filter(col("l_status") == K_TIES_STATUS)
+            .select("l_status", "l_quantity", "l_extendedprice",
+                    "l_orderkey")
             .with_window("tie_rs", "sum", value="l_extendedprice", **over)
             .with_window("dr", "dense_rank", **over)
             .with_window("nt", "ntile", offset=K_NTILE, **over)
@@ -3622,9 +3669,11 @@ def phase_k(li: dict, root: str, dev) -> dict:
     errs = {}
     for c in ("tie_rs", "dr", "nt", "lg", "ld", "mn", "fv"):
         values, valid = want[c]
-        errs[c] = k_require(f"ties {c}", got.column(c), values, valid,
-                            atol=prefix_atol if c == "tie_rs" else 0.0)
-    out["ties"] = {"wall_ms": ties_ms, "windows": 7, "max_abs_err": errs}
+        errs[c] = k_require(f"ties {c}", got.column(c), values[part],
+                            None if valid is None else valid[part],
+                            atol=ties_atol if c == "tie_rs" else 0.0)
+    out["ties"] = {"wall_ms": ties_ms, "windows": 7,
+                   "rows": int(part.sum()), "max_abs_err": errs}
 
     # (4) through the index: a key range, a rank, a computed select.
     session.enable_hyperspace()
@@ -6400,7 +6449,9 @@ def phase_s(orders: dict, li: dict, root: str, dev) -> dict:
 T_WORKERS = 4                   # the server's workers (the conf default)
 T_TIMED_RUNS = 1                # timed served and direct runs per query
 T_CLIENTS = 8                   # step 2: concurrent clients
-T_ROUNDS = 2                    # step 2: rounds of the seven per client
+# Step 2's rounds of the seven per client: 1 since phase FL (a repeat cut
+# to keep the whole script inside its time limit on slower card hosts).
+T_ROUNDS = 1
 T_CACHE_PAIRS = 1               # step 3: miss/hit pairs per query
 T_APPENDED_ROWS = 10_000        # step 4: one file appended to lineitem
 T_SEED = 201                    # its rows
@@ -9603,6 +9654,539 @@ def print_multihost(mh: dict) -> None:
           f"by step {json.dumps(mh['steps_s'])})", flush=True)
 
 
+FL_INTERVAL_S = 0.5             # every fleet process's heartbeat interval
+FL_CHILDREN = 2                 # port server subprocesses on the card
+FL_POINTS = 40                  # point queries through the fleet client
+FL_JOINS = 4                    # filtered joins through it
+FL_DRAINING_QUERIES = 10        # point queries while one child drains
+FL_PUBLISHES = 20               # timed publish_once calls per store class
+FL_SERVED = 20                  # timed served points, publisher on and off
+FL_VERB_RUNS = 3                # timed calls of each federation read
+FL_BOUND_S = 120.0              # every wait of phase FL
+FL_SEED = 241                   # the point queries' keys
+FL_GATE = "fl_gate"             # the source a draining child holds
+
+
+def fl_child(root: str, rank: int, device: str) -> None:
+    """One of phase FL's server processes on ``device``.  It marks the
+    kernel seam (the timeline on), builds ``fl_ord_<rank>`` over phase
+    D's orders under a system path of its own (its launches counted
+    here), serves phase C's and D's indexes under ``root/indexes`` with
+    the fleet plane on, announces itself on an ``FL_CHILD`` line, then
+    answers the parent's lines on stdin: ``report`` publishes at once and
+    prints its ``serve.requests``; ``drain`` holds one query over the
+    gate source in flight, starts ``drain()`` and says so; ``release``
+    lets the held query finish and returns when the drain has."""
+    import threading
+
+    import torch
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession, IndexConfig
+    from hyperspace_tpu_torch.interop import QueryClient, QueryServer
+    from hyperspace_tpu_torch.interop import server as server_mod
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import fleet, metrics, timeline
+
+    def say(tag: str, **fields) -> None:
+        print(f"FL_{tag} " + json.dumps(fields), flush=True)
+
+    dev = torch.device(device)
+    timeline.enable_timeline()
+    build = HyperspaceSession(
+        system_path=os.path.join(root, f"fl_build_{rank}"), device=dev)
+    build.conf.num_buckets = NUM_BUCKETS
+    build.conf.device_batch_rows = 1 << 23
+    set_min_rows(build, 0)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    Hyperspace(build).create_index(
+        build.read.parquet(os.path.join(root, "orders")),
+        IndexConfig(f"fl_ord_{rank}", ["o_orderkey"], ["o_totalprice"]))
+    build_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev)
+    session.conf.num_buckets = NUM_BUCKETS
+    set_min_rows(session, 0)
+    session.conf.fleet_telemetry_enabled = True
+    session.conf.fleet_publish_interval_s = FL_INTERVAL_S
+    session.enable_hyperspace()
+    gate_path = os.path.join(root, FL_GATE)
+    opened, reached = threading.Event(), threading.Event()
+    real = server_mod._Responder._make_query_fn
+
+    def make(self, spec):
+        """Queries over the gate source wait until ``release``."""
+        fn, kind = real(self, spec)
+        source = spec.get("source")
+        if not (isinstance(source, dict) and source.get("path") == gate_path):
+            return fn, kind
+
+        def gated():
+            reached.set()
+            opened.wait(FL_BOUND_S)
+            return fn()
+        return gated, kind
+
+    server_mod._Responder._make_query_fn = make
+    server = QueryServer(session).start()
+    say("CHILD", rank=rank, process=fleet.process_identity(),
+        pid=os.getpid(), address=f"{server.address[0]}:{server.address[1]}",
+        launches=launches, build_s=build_s)
+    held: dict = {}
+    threads: list = []
+    for line in sys.stdin:
+        command = line.strip()
+        if command == "report":
+            fleet.publish_once(session.conf)
+            counters = metrics.registry().typed_snapshot()["counters"]
+            say("REPORT", rank=rank,
+                requests=float(counters.get("serve.requests", 0.0)),
+                device_kernel_ms=fleet.device_kernel_ms_map(counters))
+        elif command == "drain":
+            def hold() -> None:
+                with QueryClient(server.address, timeout_s=FL_BOUND_S) as c:
+                    held["rows"] = c.query({
+                        "source": {"format": "parquet", "path": gate_path},
+                        "select": ["k"]}).num_rows
+
+            threads.append(threading.Thread(target=hold, daemon=True))
+            threads[-1].start()
+            if not reached.wait(FL_BOUND_S):
+                raise AssertionError("phase FL: the held query never "
+                                     "reached the server")
+            threads.append(threading.Thread(
+                target=lambda: held.update(
+                    clean=server.drain(grace_s=FL_BOUND_S)), daemon=True))
+            threads[-1].start()
+            say("DRAINING", rank=rank)
+        elif command == "release":
+            opened.set()
+            for t in threads:
+                t.join(FL_BOUND_S)
+            say("DRAINED", rank=rank, clean=held.get("clean"),
+                rows=held.get("rows"))
+            return
+
+
+class FlChild:
+    """A phase FL child: its process, its announcement, and its stdout
+    lines read by a thread into a queue (stderr merged in)."""
+
+    def __init__(self, root: str, rank: int, dev) -> None:
+        import queue
+        import threading
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        device = "cuda:0" if dev.type == "cuda" else str(dev)
+        self.rank = rank
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.fl_child("
+             f"{root!r}, {rank}, {device!r})"], cwd=here,
+            env=dict(os.environ, PYTHONPATH=here), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: "queue.Queue" = queue.Queue()
+        self.tail: list = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        self.info: dict = {}
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+        self.lines.put(None)
+
+    def expect(self, tag: str) -> dict:
+        """The fields of the next ``FL_<tag>`` line, waiting at most
+        FL_BOUND_S; raises with the child's last lines otherwise."""
+        import queue
+
+        prefix = f"FL_{tag} "
+        end = time.monotonic() + FL_BOUND_S
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, end - time.monotonic()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(
+                    f"phase FL child {self.rank}: no {prefix.strip()} line "
+                    f"(rc {self.proc.poll()}):\n" + "\n".join(self.tail[-40:]))
+            if line.startswith(prefix):
+                return json.loads(line[len(prefix):])
+            self.tail.append(line)
+
+    def send(self, command: str) -> None:
+        self.proc.stdin.write(command + "\n")
+        self.proc.stdin.flush()
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=FL_BOUND_S)
+        self._reader.join(FL_BOUND_S)
+        self.proc.stdin.close()
+        self.proc.stdout.close()
+
+
+def fl_filtered_join(orders: dict, li: dict) -> tuple:
+    """``expected_answers``'s filtered join alone: its unfiltered join's
+    sort over 6 M rows took about 5 s of phase FL on the card."""
+    lk = li["l_orderkey"]
+    position = np.empty(N_ORDERS, dtype=np.int64)
+    position[orders["o_orderkey"]] = np.arange(N_ORDERS)
+    price = orders["o_totalprice"][position[lk]]
+    cheap = price < PRICE_BELOW
+    keys = ["o_orderkey", "l_extendedprice"]
+    return sorted_rows({"o_orderkey": lk[cheap], "o_totalprice": price[cheap],
+                        "l_quantity": li["l_quantity"][cheap],
+                        "l_extendedprice": li["l_extendedprice"][cheap]},
+                       keys), keys
+
+
+def fl_until(cond, what: str, bound_s: float = FL_BOUND_S):
+    """Poll ``cond()`` until it returns something true, at most
+    ``bound_s``: (its value, the seconds it took)."""
+    t0 = time.monotonic()
+    while True:
+        got = cond()
+        if got:
+            return got, time.monotonic() - t0
+        if time.monotonic() - t0 > bound_s:
+            raise AssertionError(f"phase FL: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
+    """The fleet plane over phase C's and D's indexes (see the module
+    docstring)."""
+    import signal
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.config import HyperspaceConf
+    from hyperspace_tpu_torch.interop import (
+        FleetQueryClient,
+        QueryClient,
+        QueryFailedError,
+        QueryServer,
+    )
+    from hyperspace_tpu_torch.telemetry import fleet, metrics
+
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - mark[0]
+        mark[0] = now
+
+    conf = HyperspaceConf()
+    conf.fleet_telemetry_enabled = True
+    conf.fleet_publish_interval_s = FL_INTERVAL_S
+    # This process serves nothing in steps 1-5: an address left by an
+    # earlier phase's server must not match a child's endpoint.
+    fleet.set_serving_address("")
+    fleet.set_serving_draining(False)
+    session = HyperspaceSession(system_path=os.path.join(root, "indexes"),
+                                device=dev, conf=conf)
+    session.conf.num_buckets = NUM_BUCKETS
+    session.conf.device_batch_rows = 1 << 23
+    set_min_rows(session, 0)
+    out = serve_indexes(session, root, "FL")
+    session.enable_hyperspace()
+    hs = Hyperspace(session)
+    os.makedirs(os.path.join(root, FL_GATE))
+    pq.write_table(pa.table({"k": np.arange(10, dtype=np.int64)}),
+                   os.path.join(root, FL_GATE, "part-00000.parquet"))
+    specs = t_specs(root)
+    lk = li["l_orderkey"]
+    keys = np.random.default_rng(FL_SEED).choice(lk, FL_POINTS - 1)
+    keys = [POINT_KEY] + [int(k) for k in keys]
+    point_keys = ["l_orderkey", "l_quantity"]
+
+    def point(k: int) -> dict:
+        return {**specs["point"], "filter": {"op": "==", "col": "l_orderkey",
+                                             "value": int(k)}}
+
+    def check_point(label: str, k: int, table) -> None:
+        sel = lk == k
+        require_rows(f"phase FL {label} point {k}", table,
+                     {c: li[c][sel] for c in point_keys}, point_keys)
+
+    children = [FlChild(root, rank, dev) for rank in range(FL_CHILDREN)]
+    clients: list = []
+    server = None
+    try:
+        # 1. Two children: each built fl_ord_<rank> (one launch of each
+        # kernel) and serves li_idx/ord_idx; both heartbeat.
+        for c in children:
+            c.info = c.expect("CHILD")
+            if dev.type == "cuda":
+                require_launches(f"phase FL child {c.rank} build",
+                                 c.info["launches"],
+                                 {"hash_buckets": 1, "bucket_histogram": 1})
+        by_address = {c.info["address"]: c for c in children}
+
+        def child_rows():
+            rows = {s.get("address"): s for s in fleet.fresh_snapshots(conf)
+                    if s.get("address") in by_address}
+            return rows if len(rows) == FL_CHILDREN else None
+
+        _, out["heartbeats_seen_s"] = fl_until(child_rows,
+                                               "both children's heartbeats")
+        step("1_children")
+
+        # 2. Routing: FL_POINTS points and FL_JOINS filtered joins through
+        # one fleet client that reads the heartbeats, each held to numpy.
+        fc = FleetQueryClient([c.info["address"] for c in children],
+                              conf=conf, status_refresh_s=FL_INTERVAL_S / 5)
+        clients.append(fc)
+        picks = {ep.label: 0 for ep in fc._endpoints}
+        real_pick = fc._pick
+
+        def pick(*args, **kw):
+            ep = real_pick(*args, **kw)
+            picks[ep.label] += 1
+            return ep
+
+        fc._pick = pick
+        point_ms = []
+        for k in keys:
+            t0 = time.perf_counter()
+            table = fc.query(point(k), deadline_ms=FL_BOUND_S * 1e3)
+            point_ms.append((time.perf_counter() - t0) * 1e3)
+            check_point("routed", k, table)
+        want, join_keys = fl_filtered_join(orders, li)
+        join_ms = []
+        for _ in range(FL_JOINS):
+            t0 = time.perf_counter()
+            table = fc.query(specs["filtered_join"],
+                             deadline_ms=FL_BOUND_S * 1e3)
+            join_ms.append((time.perf_counter() - t0) * 1e3)
+            require_rows("phase FL routed filtered_join", table, want,
+                         join_keys)
+        if sum(picks.values()) != FL_POINTS + FL_JOINS \
+                or not all(picks.values()):
+            raise AssertionError(f"phase FL: picks {picks}")
+        out["routing"] = {"picks": dict(picks),
+                          "point_ms_median": statistics.median(point_ms),
+                          "join_ms": join_ms,
+                          "loads": {ep.label: ep.load
+                                    for ep in fc._endpoints}}
+        step("2_routing")
+
+        # 3. Federation: the status rows, the merged requests against the
+        # children's own counts, each child's kernel ms; the reads timed.
+        reports = []
+        for c in children:
+            c.send("report")
+            reports.append(c.expect("REPORT"))
+        status = hs.fleet_status()
+        rows = [r for r in status.to_pylist()
+                if r["address"] in by_address]
+        if len(rows) != FL_CHILDREN or not all(r["fresh"] and r["role"]
+                                               == "server" for r in rows):
+            raise AssertionError(f"phase FL: fleet_status rows {rows}")
+        merged = hs.fleet_metrics()
+        own = metrics.registry().counter("serve.requests")
+        children_sum = sum(r["requests"] for r in reports)
+        fleet_sum = merged["counters"].get("serve.requests", 0.0) - own
+        if fleet_sum != children_sum:
+            raise AssertionError(f"phase FL: merged serve.requests "
+                                 f"{fleet_sum} (this process's {own} taken "
+                                 f"out), the children's {children_sum}")
+        snaps = {s["process"]: s for s in fleet.fresh_snapshots(conf)}
+        for c in children:
+            if not snaps[c.info["process"]].get("device_kernel_ms"):
+                raise AssertionError(f"phase FL child {c.rank}: no "
+                                     f"device_kernel_ms in its heartbeat")
+        verbs = {}
+        for name, run in (
+                ("fleet_status", hs.fleet_status),
+                ("fleet_metrics", hs.fleet_metrics),
+                ("render_fleet_prometheus",
+                 lambda: fleet.render_fleet_prometheus(conf)),
+                ("doctor_fleet", lambda: hs.doctor(fleet=True))):
+            times = []
+            for _ in range(FL_VERB_RUNS):
+                t0 = time.perf_counter()
+                got = run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            verbs[name] = statistics.median(times)
+            if name == "render_fleet_prometheus":
+                verbs["prometheus_bytes"] = len(got.encode("utf-8"))
+        out["federation"] = {
+            "status_rows": status.num_rows, "children_requests":
+            [r["requests"] for r in reports], "merged_requests": fleet_sum,
+            "device_kernel_ms": [r["device_kernel_ms"] for r in reports],
+            "merged_processes": len(merged["processes"]), "ms": verbs}
+        step("3_federation")
+
+        # 4. A query that fails in child 0 resolves from here by its id.
+        try:
+            host, port = children[0].info["address"].rsplit(":", 1)
+            with QueryClient((host, int(port)), timeout_s=FL_BOUND_S) as qc:
+                qc.query({**specs["point"], "filter": {
+                    "op": "==", "col": "no_such_column", "value": 1}})
+            raise AssertionError("phase FL: the bad query answered")
+        except QueryFailedError as e:
+            trace_id = e.trace_id
+        rec, trace_s = fl_until(lambda: hs.trace(trace_id, fleet=True),
+                                f"trace {trace_id} in the fleet")
+        if rec["process"] != children[0].info["process"] \
+                or rec["outcome"] != "FAILED":
+            raise AssertionError(f"phase FL: trace {trace_id} resolved to "
+                                 f"{rec['process']} ({rec['outcome']})")
+        out["trace"] = {"seconds": trace_s, "outcome": rec["outcome"]}
+        step("4_trace")
+
+        # 5. Drain child 0: its row reads draining, the client sends it
+        # nothing, and after the drain its row is gone.
+        gone, other = children
+        gone.send("drain")
+        gone.expect("DRAINING")
+        _, draining_s = fl_until(
+            lambda: any(s.get("draining") and s["process"]
+                        == gone.info["process"]
+                        for s in fleet.fresh_snapshots(conf)),
+            "the draining row")
+        before = dict(picks)
+        for k in keys[:FL_DRAINING_QUERIES]:
+            check_point("draining", k, fc.query(
+                point(k), deadline_ms=FL_BOUND_S * 1e3))
+        sent = {label: picks[label] - before[label] for label in picks}
+        if sent[gone.info["address"]] != 0:
+            raise AssertionError(f"phase FL: the draining child got "
+                                 f"requests: {sent}")
+        gone.send("release")
+        drained = gone.expect("DRAINED")
+        if drained["clean"] is not True or drained["rows"] != 10:
+            raise AssertionError(f"phase FL: drain {drained}")
+        if gone.proc.wait(timeout=FL_BOUND_S) != 0:
+            raise AssertionError("phase FL: the drained child failed")
+        if any(s["process"] == gone.info["process"]
+               for s in fleet.live_snapshots(conf)):
+            raise AssertionError("phase FL: the drained child's row is left")
+        out["drain"] = {"draining_seen_s": draining_s, "sent": sent,
+                        "held_rows": drained["rows"]}
+        step("5_drain")
+
+        # 6. SIGKILL child 1: doctor(fleet=True) reads fleet.heartbeats
+        # crit naming it within 2 heartbeat intervals (and the polling).
+        os.kill(other.info["pid"], signal.SIGKILL)
+        t_kill = time.monotonic()
+
+        def crit():
+            check = hs.doctor(fleet=True).check("fleet.heartbeats")
+            return check if check.status == "crit" \
+                and other.info["process"] in check.data.get("stale", {}) \
+                else None
+
+        check, kill_s = fl_until(crit, "fleet.heartbeats crit",
+                                 2 * FL_INTERVAL_S + 2.0)
+        other.proc.wait(timeout=FL_BOUND_S)
+        out["kill"] = {"kill_to_crit_s": kill_s,
+                       "stale_s": check.data["stale"][other.info["process"]],
+                       "stale_after_s": fleet.stale_after_s(conf)}
+        step("6_kill")
+
+        # 7. One served point in this process, its publisher off and on,
+        # in turns; then publish_once on each store class.
+        server = QueryServer(session).start()
+        publisher = fleet.publisher_for(session)
+        served: dict = {"off": [], "on": []}
+        with QueryClient(server.address, timeout_s=FL_BOUND_S) as qc:
+            check_point("served", POINT_KEY, qc.query(point(POINT_KEY)))
+            for state in ("off", "on", "on", "off"):
+                if state == "on":
+                    publisher.start()
+                else:
+                    publisher.stop(deregister=False)
+                for _ in range(FL_SERVED // 2):
+                    t0 = time.perf_counter()
+                    qc.query(point(POINT_KEY))
+                    served[state].append((time.perf_counter() - t0) * 1e3)
+        server.stop()
+        server = None
+        publish: dict = {}
+        for store in ("PosixLogStore", "EmulatedObjectStore"):
+            timing = HyperspaceConf()
+            timing.system_path = os.path.join(root, f"fl_{store}")
+            timing.log_store_class = \
+                f"hyperspace_tpu_torch.io.log_store.{store}"
+            timing.fleet_telemetry_enabled = True
+            times = []
+            for _ in range(FL_PUBLISHES):
+                t0 = time.perf_counter()
+                if not fleet.publish_once(timing):
+                    raise AssertionError(f"phase FL: publish on {store}")
+                times.append((time.perf_counter() - t0) * 1e3)
+            publish[store] = statistics.median(times)
+        publish["bytes"] = len(json.dumps(fleet.build_snapshot(conf),
+                                          default=str).encode("utf-8"))
+        out["timings"] = {
+            "served_point_ms": {k: statistics.median(v)
+                                for k, v in served.items()},
+            "served_point_runs_ms": served, "publish_once_ms": publish}
+        step("7_timings")
+    finally:
+        for fc in clients:
+            fc.close()
+        if server is not None:
+            server.stop()
+        fleet.publisher_for(session).stop()
+        fleet.set_serving_address("")
+        for c in children:
+            c.close()
+        fleet.clear(conf)
+        for name in [f"fl_build_{r}" for r in range(FL_CHILDREN)] + [
+                FL_GATE, "fl_PosixLogStore", "fl_EmulatedObjectStore"]:
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    out.update(children=[{**c.info, "requests": r["requests"]}
+                         for c, r in zip(children, reports)],
+               launches={k: sum(c.info["launches"][k] for c in children)
+                         for k in ("hash_buckets", "bucket_histogram")},
+               steps_s=steps, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def print_fleet_plane(fl: dict) -> None:
+    r, f, d, k, t = (fl["routing"], fl["federation"], fl["drain"],
+                     fl["kill"], fl["timings"])
+    for c in fl["children"]:
+        print(f"phase FL child {c['rank']}: {c['process']} at "
+              f"{c['address']}, fl_ord_{c['rank']} built in "
+              f"{c['build_s']:.3f} s, launches {json.dumps(c['launches'])}, "
+              f"serve.requests {c['requests']:g}", flush=True)
+    print(f"phase FL routing: {FL_POINTS} points (median "
+          f"{r['point_ms_median']:.1f} ms) and {FL_JOINS} filtered joins "
+          f"(ms {json.dumps([round(x, 1) for x in r['join_ms']])}) equal to "
+          f"numpy; picks {json.dumps(r['picks'])}", flush=True)
+    print(f"phase FL federation: {f['status_rows']} status rows, merged "
+          f"serve.requests {f['merged_requests']:g} = the children's "
+          f"{json.dumps(f['children_requests'])}; ms "
+          f"{json.dumps({n: round(v, 2) for n, v in f['ms'].items()})}",
+          flush=True)
+    print(f"phase FL trace: a failed query in child 0 resolved from here in "
+          f"{fl['trace']['seconds']:.3f} s; drain: the draining row seen "
+          f"after {d['draining_seen_s']:.3f} s, requests sent while it "
+          f"drained {json.dumps(d['sent'])}, then deregistered; kill: "
+          f"fleet.heartbeats crit {k['kill_to_crit_s']:.3f} s after the "
+          f"SIGKILL (stale after {k['stale_after_s']:g} s)", flush=True)
+    print(f"phase FL timings: served point ms publisher off / on "
+          f"{t['served_point_ms']['off']:.2f} / "
+          f"{t['served_point_ms']['on']:.2f}; publish_once ms "
+          f"{json.dumps({n: round(v, 3) if isinstance(v, float) else v for n, v in t['publish_once_ms'].items()})}",
+          flush=True)
+    print(f"phase FL: the fleet plane checked ({fl['phase_s']:.3f} s; by "
+          f"step {json.dumps(fl['steps_s'])})", flush=True)
+
+
 def print_fleet(v: dict) -> None:
     f, p, h = v["fleet"], v["proxy"], v["hedge"]
     br, sc = v["breaker"], v["scrape"]
@@ -10148,7 +10732,8 @@ def print_window(window: dict) -> None:
           f"(device-segment, resident), host route {d['host_ms']:.1f} ms, "
           f"host_over_device {d['host_over_device']:.2f}", flush=True)
     t = window["ties"]
-    print(f"phase K ties: {t['windows']} windows ordered by l_quantity in "
+    print(f"phase K ties: {t['windows']} windows ordered by l_quantity over "
+          f"{t['rows']} rows in "
           f"{t['wall_ms']:.1f} ms, equal to numpy (max abs diff "
           f"{json.dumps(t['max_abs_err'])})", flush=True)
     i = window["indexed"]
@@ -10210,7 +10795,7 @@ def print_split(label: str, split: dict) -> None:
 
 # The phases in the order the script runs their checks: the letters, then
 # the names of more than one letter.
-PHASES = tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ") + ("MH",)
+PHASES = tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ") + ("MH", "FL")
 # What a phase reads from another phase besides the generated data: C
 # (the lineitem files and li_idx), D (the orders files and ord_idx), or a
 # whole phase whose results it takes (M: phase L's session and oracle;
@@ -10219,7 +10804,7 @@ PHASE_READS = {"D": "C", "E": "C", "G": "CD", "H": "CD", "I": "CD",
                "J": "C", "K": "C", "M": "L", "N": "CD", "O": "CD",
                "P": "CD", "Q": "CD", "R": "CD", "S": "CD", "T": "CD",
                "U": "T", "V": "CD", "W": "C", "X": "C", "Y": "C",
-               "Z": "CD", "MH": "CD"}
+               "Z": "CD", "MH": "CD", "FL": "CD"}
 READ_ONLY_RUN = {"C": "phase C (the li_idx build and its checks)",
                  "D": "phase D's ord_idx build, without its queries",
                  "L": "phase L (phase M runs in its session)",
@@ -10588,6 +11173,11 @@ def main(argv=None) -> int:
             res["multihost"] = mh
             by_path["MH multihost build"] = mh["launches"]
             by_path["MH hierarchical shuffle"] = mh["shuffle_launches"]
+        if "FL" in runs:
+            fl = phase_fl(orders, li, root, dev)
+            print_fleet_plane(fl)
+            res["fleet_plane"] = fl
+            by_path["FL fleet"] = fl["launches"]
         del orders
         if "T" in runs:
             del t_results
@@ -10651,7 +11241,7 @@ def main(argv=None) -> int:
     for key in ("envelope", "advisor", "lifecycle", "telemetry",
                 "diagnostics", "object_store", "server", "server_u",
                 "fleet", "formats", "delta", "iceberg", "mesh",
-                "multihost"):
+                "multihost", "fleet_plane"):
         if key in res:
             print(json.dumps({key: {**res[key], "card": smi}}))
     print(smi)

@@ -3,8 +3,9 @@ holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
 index lifecycle, the source watch, the transaction loop, telemetry, the
-sync guard, the doctor, deadlines, the mesh, the plan cache, the flight
-recorder, the pluggable log and store classes, the source providers,
+sync guard, the doctor, the fleet plane, deadlines, the mesh, the plan
+cache, the flight recorder, the pluggable log and store classes, the
+source providers,
 and the source formats and globbing pattern of the default provider;
 defaults are the JAX package's, with the class paths under the port's
 own modules).
@@ -322,6 +323,17 @@ class HyperspaceConf:
     doctor_latency_slo_ms: float = 1000.0
     doctor_shed_warn_ratio: float = 0.05
     doctor_device_skew_warn: float = 4.0
+    # The fleet plane (telemetry/fleet.py): each process publishes one
+    # bounded heartbeat (identity and role, typed metrics, health grade,
+    # per-device kernel ms, the flight recorder's interesting tail) under
+    # <systemPath>/_hyperspace_fleet every publish interval; a heartbeat
+    # older than stale_after_s (0: twice the interval) reads as a dead or
+    # hung process, and one older than prune_after_s is deleted.  Off by
+    # default: it writes small files on a cadence.
+    fleet_telemetry_enabled: bool = False
+    fleet_publish_interval_s: float = 5.0
+    fleet_stale_after_s: float = 0.0
+    fleet_prune_after_s: float = 600.0
     # The flight recorder (telemetry/flight_recorder.py): a bounded ring
     # of completed queries; slow (>= slow_ms), error and deadline ones
     # always kept, healthy ones sampled 1-in-N (0: none); bundles dumped

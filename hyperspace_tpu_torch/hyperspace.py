@@ -273,8 +273,13 @@ class Hyperspace:
         merge debt, the daemon's backoffs, the perf-ledger trend, the
         degraded events and the per-device kernel-ms skew, graded
         ok/warn/crit, the worst check winning, and published as the
-        ``health.status`` gauge.  ``fleet=True`` raises: this package
-        has no fleet plane yet."""
+        ``health.status`` gauge.  ``fleet=True`` adds the cluster checks
+        over the published heartbeats (telemetry/fleet.py): a stale
+        heartbeat (a dead or hung process) is crit, so is a lease or
+        build-claim holder without one; more than one daemon without a
+        lease warns; the merged shed ratio, SLO burn and kernel-ms skew
+        grade the fleet.  Their worst grade is published as
+        ``health.fleet.status``."""
         from hyperspace_tpu_torch.telemetry.doctor import doctor
 
         return doctor(self.session, fleet=fleet)
@@ -285,8 +290,16 @@ class Hyperspace:
         deadline queries always, healthy ones sampled 1-in-N.  Columns:
         ts, traceId, requestId, kind, outcome, latencyMs, queueWaitMs,
         deviceMs, slow, reason, error, recordJson (the whole record).
-        ``fleet=True`` raises: this package has no fleet plane yet."""
-        _no_fleet(fleet, "slow_queries")
+        ``fleet=True`` federates (telemetry/fleet.py): this process's
+        ring, every heartbeat's interesting tail and the persisted
+        diagnostics bundles, deduplicated, with a ``process`` column
+        naming where each request ran."""
+        if fleet:
+            from hyperspace_tpu_torch.telemetry.fleet import (
+                fleet_slow_queries_table,
+            )
+
+            return fleet_slow_queries_table(self.session.conf)
         from hyperspace_tpu_torch.telemetry.flight_recorder import (
             slow_queries_table,
         )
@@ -295,8 +308,14 @@ class Hyperspace:
 
     def trace(self, trace_id: str, fleet: bool = False):
         """The retained flight record (a dict) of ``trace_id``, or None.
-        ``fleet=True`` raises: this package has no fleet plane yet."""
-        _no_fleet(fleet, "trace")
+        ``fleet=True`` also looks in every heartbeat's interesting tail
+        and then the persisted bundles, so a query another process served
+        is found here by its echoed id; the record's ``process`` names
+        where it ran."""
+        if fleet:
+            from hyperspace_tpu_torch.telemetry.fleet import find_trace
+
+            return find_trace(self.session.conf, trace_id)
         from hyperspace_tpu_torch.telemetry import flight_recorder
 
         return flight_recorder.recorder().find(trace_id.lower())
@@ -329,11 +348,41 @@ class Hyperspace:
 
         return bundles(self.session.conf)
 
+    # -- the fleet plane (telemetry/fleet.py) -----------------------------
+    def fleet_status(self):
+        """Every published heartbeat as a pyarrow table: process, host,
+        pid, role, address, status (its last health grade), ageSeconds,
+        fresh, draining, records, snapshotJson; what the ``fleet_status``
+        verb serves."""
+        from hyperspace_tpu_torch.telemetry.fleet import fleet_status_table
 
-def _no_fleet(fleet: bool, verb: str) -> None:
-    if fleet:
-        from hyperspace_tpu_torch.exceptions import HyperspaceError
+        return fleet_status_table(self.session.conf)
 
-        raise HyperspaceError(
-            f"{verb}(fleet=True) reads the fleet heartbeats "
-            f"(telemetry/fleet.py), which this package does not have yet")
+    def fleet_metrics(self) -> dict:
+        """The metrics merged over every fresh heartbeat and this
+        process's live registry: counters summed, gauges per process
+        (``name -> {process: value}``), fixed-bucket histograms summed
+        bucket by bucket with their exemplars.  Keys: ``processes``,
+        ``counters``, ``gauges``, ``histograms``."""
+        from hyperspace_tpu_torch.telemetry.fleet import fleet_metrics
+
+        return fleet_metrics(self.session.conf)
+
+    def start_fleet_telemetry(self):
+        """Start this session's heartbeat thread
+        (``conf.fleet_telemetry_enabled`` must be set; it publishes every
+        ``conf.fleet_publish_interval_s``).  Sessions, ``QueryServer`` and
+        the lifecycle daemon start it when the conf is on at their start;
+        this is the handle for a conf set later.  Returns the
+        :class:`~hyperspace_tpu_torch.telemetry.fleet.FleetPublisher`."""
+        from hyperspace_tpu_torch.telemetry.fleet import publisher_for
+
+        return publisher_for(self.session).start()
+
+    def stop_fleet_telemetry(self) -> None:
+        """Stop the heartbeat thread and delete this process's heartbeat
+        (idempotent)."""
+        from hyperspace_tpu_torch.telemetry.fleet import publisher_for
+
+        publisher_for(self.session).stop()
+

@@ -72,10 +72,14 @@ budget, per-endpoint circuit breakers, hedged requests), and
 ``QueryServer(..., proxy_endpoints=[...])`` forwards queries through
 one, so a client in any language gets the same fault tolerance.
 :class:`MetricsScrapeServer` serves the metrics registry to a Prometheus
-scraper.  Left out of this package so far, with the fleet heartbeats of
-telemetry/fleet.py: routing on the servers' published load and draining
-flags (every endpoint stays routable on local in-flight counts) and
-``MetricsScrapeServer(fleet=True)``, which raises.  pyarrow and
+scraper, or with ``fleet=True`` every published heartbeat's series.
+
+The fleet plane (telemetry/fleet.py): a started server publishes the
+role ``server`` and its address in its heartbeat, and ``drain`` flags
+the heartbeat draining at once and deletes it at the end; the front door
+routes on the servers' published load and skips draining rows.  The SLO
+alert engine (telemetry/alerts.py) is not in this package yet: the
+``alerts`` verb answers ``ERR FAILED`` naming it.  pyarrow and
 http.server are imported inside functions.
 """
 
@@ -1090,9 +1094,10 @@ def _serve_verb(session, spec: Dict[str, Any],
                                       grades) and ``shed`` (its quota
                                       sheds so far)
 
-    ``doctor`` with ``"fleet": true``, ``fleet_status`` and ``alerts``
-    (telemetry/fleet.py, telemetry/alerts.py) answer ``ERR FAILED``
-    naming what this package lacks.
+    ``doctor`` with ``"fleet": true`` adds the cluster checks over the
+    published heartbeats, and ``fleet_status`` serves every heartbeat
+    (telemetry/fleet.py).  ``alerts`` (telemetry/alerts.py) answers
+    ``ERR FAILED`` naming what this package lacks.
     """
     import pyarrow as pa
 
@@ -1178,10 +1183,11 @@ def _serve_verb(session, spec: Dict[str, Any],
             _not_here("alerts", "the SLO alert engine (telemetry/alerts.py)")
         from hyperspace_tpu_torch.telemetry.doctor import doctor
 
-        # fleet=True raises, naming telemetry/fleet.py.
         return doctor(session, fleet=fleet).table()
     if verb == "fleet_status":
-        _not_here("fleet_status", "the fleet heartbeats (telemetry/fleet.py)")
+        from hyperspace_tpu_torch.telemetry.fleet import fleet_status_table
+
+        return fleet_status_table(session.conf)
     if verb == "lifecycle":
         from hyperspace_tpu_torch.lifecycle.journal import history_table
 
@@ -1363,6 +1369,17 @@ class QueryServer:
         return self._server.server_address
 
     def start(self) -> "QueryServer":
+        # A serving process publishes the role "server" and its address
+        # in its fleet heartbeat (telemetry/fleet.py; off unless the conf
+        # turns it on, and never raises), so the front door matches rows
+        # to endpoints; a start clears a draining flag an earlier server
+        # of this process left behind.
+        from hyperspace_tpu_torch.telemetry import fleet
+
+        fleet.set_process_role("server")
+        fleet.set_serving_address(f"{self.address[0]}:{self.address[1]}")
+        fleet.set_serving_draining(False)
+        fleet.maybe_start(self.session)
         self._server.pool.start()
         if self._io_mode == "async":
             self._async = _AsyncIOLoop(self, self._server)
@@ -1378,11 +1395,16 @@ class QueryServer:
         """Graceful shutdown: stop accepting new connections AND new
         requests (both shed ``ERR BUSY``), let in-flight requests finish
         within ``grace_s`` (default ``conf.serving_drain_grace_s``),
-        dump the flight recorder's bundle, then stop the workers and
-        close the listener.  True when everything in flight completed
-        inside the grace window.  Idempotent."""
+        dump the flight recorder's bundle, deregister the fleet
+        heartbeat, then stop the workers and close the listener.  True
+        when everything in flight completed inside the grace window.
+        Idempotent."""
         from hyperspace_tpu_torch.lifecycle import daemon as _lifecycle
-        from hyperspace_tpu_torch.telemetry import flight_recorder, metrics
+        from hyperspace_tpu_torch.telemetry import (
+            fleet,
+            flight_recorder,
+            metrics,
+        )
 
         if self.drained.is_set():
             return True
@@ -1395,6 +1417,11 @@ class QueryServer:
         # would keep the process alive past its grace window (the latch
         # is process-wide).
         _lifecycle.notify_drain()
+        # Flag the heartbeat draining and publish at once: the front door
+        # skips draining rows, so new requests go elsewhere during the
+        # grace window instead of shedding here (conf-gated, fault-quiet).
+        fleet.set_serving_draining(True)
+        fleet.publish_once(self.session.conf)
         if self._async is not None:
             self._async.stop_accepting()
         elif self._thread is not None:
@@ -1403,6 +1430,10 @@ class QueryServer:
         # After the in-flight requests: a SIGTERM'd server leaves "what
         # happened" readable after a restart.  Never raises.
         flight_recorder.dump_diagnostics(self.session.conf)
+        # A drained server is a planned exit, not a dead process: delete
+        # its heartbeat, or the fleet doctor would page on every rolling
+        # restart.  A SIGKILL skips this, which is how a dead one shows.
+        fleet.publisher_for(self.session).stop()
         self._server.pool.stop()
         if self._async is not None:
             self._async.close()
@@ -1467,9 +1498,11 @@ class MetricsScrapeServer:
     :class:`QueryServer` does (series values leak index names and the
     workload's shape).
 
-    ``fleet=True`` (every published heartbeat's series merged, under
-    ``session``'s system path) reads telemetry/fleet.py, which this
-    package does not have yet: it raises ``NotImplementedError``.
+    ``fleet=True`` (it needs ``session``) serves the fleet's exposition
+    instead (telemetry/fleet.py): every fresh heartbeat's series under
+    ``session``'s system path and this process's live registry, each
+    labelled ``process="<id>"``, so one scrape target answers for the
+    fleet and the label says which server is slow.
 
     >>> with MetricsScrapeServer(port=9109) as ms:
     ...     ...  # curl http://127.0.0.1:9109/metrics
@@ -1483,12 +1516,12 @@ class MetricsScrapeServer:
                 f"MetricsScrapeServer binds {host!r}, a non-loopback "
                 f"interface, without authentication.  Pass "
                 f"allow_remote=True only behind a trusted boundary.")
-        if fleet:
-            raise NotImplementedError(
-                "MetricsScrapeServer(fleet=True) serves the fleet "
-                "heartbeats' merged series (telemetry/fleet.py), which "
-                "this package does not have yet; serve this process's "
-                "registry with fleet=False")
+        if fleet and session is None:
+            raise ValueError(
+                "MetricsScrapeServer(fleet=True) needs session=...: the "
+                "merged exposition reads the fleet heartbeats under that "
+                "session's system path")
+        scrape_conf = session.conf if session is not None else None
         import http.server
 
         class _MetricsHandler(http.server.BaseHTTPRequestHandler):
@@ -1498,7 +1531,16 @@ class MetricsScrapeServer:
                     return
                 from hyperspace_tpu_torch.telemetry import metrics
 
-                body = metrics.registry().render_prometheus().encode("utf-8")
+                if fleet:
+                    from hyperspace_tpu_torch.telemetry.fleet import (
+                        render_fleet_prometheus,
+                    )
+
+                    body = render_fleet_prometheus(scrape_conf).encode(
+                        "utf-8")
+                else:
+                    body = metrics.registry().render_prometheus().encode(
+                        "utf-8")
                 self.send_response(200)
                 self.send_header("Content-Type",
                                  "text/plain; version=0.0.4; charset=utf-8")
@@ -1690,9 +1732,10 @@ class _Endpoint:
     """One server behind the front door: its address, a pool of idle
     pipelined connections, the router's view of it (in-flight count,
     penalty clock) and its circuit breaker (closed → open on consecutive
-    failures → half-open probe after the cooldown).  ``load`` and
-    ``draining`` come from fleet heartbeats, which this package does not
-    read yet: they stay None and False."""
+    failures → half-open probe after the cooldown).  ``load`` (the
+    server's published ``serve.inflight + serve.queue_depth``) and
+    ``draining`` come from its fresh fleet heartbeat; without one the
+    endpoint stays routable on local counts."""
 
     __slots__ = ("address", "label", "idle", "inflight", "penalized_until",
                  "load", "draining", "lock",
@@ -1706,7 +1749,7 @@ class _Endpoint:
         self.idle: List[QueryClient] = []
         self.inflight = 0
         self.penalized_until = 0.0   # monotonic; routing skips until then
-        self.load: Optional[float] = None
+        self.load: Optional[float] = None  # the fleet-reported load
         self.draining = False
         self.lock = threading.Lock()
         self.breaker_state = "closed"   # closed | open | half-open
@@ -1820,12 +1863,15 @@ class _Endpoint:
 class FleetQueryClient:
     """A fault-tolerant front door over N :class:`QueryServer` endpoints.
 
-    Routing is LEAST-LOADED on this client's own in-flight count per
-    endpoint, ties broken round-robin.  (The JAX package also folds in
-    the servers' published fleet heartbeats, their load and draining
-    flags; this package has no fleet plane yet, so every endpoint stays
-    routable on local counts, which is what the JAX client does when no
-    heartbeat is fresh.)
+    Routing is LEAST-LOADED.  Given a ``conf`` with the servers' system
+    path, the client reads their fresh fleet heartbeats (at most once per
+    ``status_refresh_s``): each carries the server's address, its
+    ``serve.inflight`` and ``serve.queue_depth`` gauges and a
+    ``draining`` flag.  Rows are matched to endpoints by address,
+    draining endpoints are skipped, and each request goes to the least
+    loaded of the rest (published load plus this client's in-flight
+    count; round-robin among ties).  An endpoint without a fresh row
+    stays routable on the local count alone.
 
     Failures:
 
@@ -1878,6 +1924,7 @@ class FleetQueryClient:
                  conf=None, tenant: Optional[str] = None,
                  max_attempts: Optional[int] = None,
                  backoff_cap_ms: float = 2000.0,
+                 status_refresh_s: float = 1.0,
                  hedge_enabled: Optional[bool] = None,
                  hedge_delay_ms: Optional[float] = None,
                  breaker_enabled: Optional[bool] = None,
@@ -1886,14 +1933,17 @@ class FleetQueryClient:
         if not endpoints:
             raise ValueError("FleetQueryClient needs at least one endpoint")
         self._endpoints = [_Endpoint(e) for e in endpoints]
+        self._conf = conf
         self._tenant = tenant
         self._max_attempts = int(max_attempts if max_attempts is not None
                                  else max(3, len(self._endpoints)))
         self._backoff_cap_ms = float(backoff_cap_ms)
+        self._status_refresh_s = float(status_refresh_s)
+        self._status_stamp = 0.0  # monotonic; 0 forces a first refresh
         self._rng = random.Random()
         self._rr = 0
-        # Guards _rr and _lat_ewma_ms only; never held across a dial, a
-        # send or a sleep.
+        # Guards _rr, _status_stamp and _lat_ewma_ms only; never held
+        # across a dial, a send or a sleep.
         self._lock = threading.Lock()
 
         def _opt(value, field, default):
@@ -1916,6 +1966,40 @@ class FleetQueryClient:
         self.last_trace_id: Optional[str] = None
 
     # -- routing --------------------------------------------------------------
+    def _refresh_status(self) -> None:
+        """Fold the fresh fleet heartbeats into the endpoint table, by
+        their ``address``.  At most once per ``status_refresh_s``; on any
+        failure routing keeps the local in-flight counts."""
+        if self._conf is None:
+            return
+        now = time.monotonic()
+        with self._lock:
+            if now - self._status_stamp < self._status_refresh_s:
+                return
+            self._status_stamp = now
+        try:
+            from hyperspace_tpu_torch.telemetry import fleet
+
+            rows = {}
+            for snap in fleet.fresh_snapshots(self._conf):
+                addr = str(snap.get("address", "") or "")
+                if addr:
+                    rows[addr] = snap
+        except Exception:  # noqa: BLE001 - telemetry never breaks routing
+            return
+        for ep in self._endpoints:
+            snap = rows.get(ep.label)
+            if snap is None:
+                # No fresh row (the server may publish none): routable on
+                # local counts.
+                ep.load = None
+                ep.draining = False
+                continue
+            gauges = snap.get("metrics", {}).get("gauges", {})
+            ep.load = (float(gauges.get("serve.inflight", 0.0)) +
+                       float(gauges.get("serve.queue_depth", 0.0)))
+            ep.draining = bool(snap.get("draining", False))
+
     def _pick(self, tried: set,
               exclude: Optional[set] = None) -> _Endpoint:
         """The least-loaded routable endpoint not yet tried for this
@@ -1925,6 +2009,7 @@ class FleetQueryClient:
         attempt) are avoided at every tier but the last."""
         from hyperspace_tpu_torch.telemetry import metrics
 
+        self._refresh_status()
         now = time.monotonic()
         exclude = exclude or set()
 

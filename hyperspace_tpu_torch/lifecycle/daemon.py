@@ -44,7 +44,8 @@ refresh the daemon dispatches goes through the manager's transaction
 loop, so one that races a refresh run by hand rebases and ends in
 "done" or a journaled "noop" instead of a backoff.  Each executed
 decision is also offered to the flight recorder as a ``maintenance``
-record (telemetry/flight_recorder.py).  Not ported: the fleet role.
+record (telemetry/flight_recorder.py).  A started daemon publishes the
+role ``daemon`` in its fleet heartbeat (telemetry/fleet.py).
 """
 
 from __future__ import annotations
@@ -132,6 +133,13 @@ class MaintenanceDaemon:
                 "yourself via Hyperspace.maintenance_cycle())")
         if self._thread is not None and self._thread.is_alive():
             return self
+        # A maintainer publishes the role "daemon" in its fleet heartbeat
+        # (telemetry/fleet.py): the fleet doctor warns when more than one
+        # runs over a tree without a lease.  maybe_start never raises.
+        from hyperspace_tpu_torch.telemetry import fleet
+
+        fleet.set_process_role("daemon")
+        fleet.maybe_start(self.session)
         self._stop.clear()
         self._error = None
         self._thread = threading.Thread(

@@ -44,31 +44,17 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Any, Dict, Optional
 
 from hyperspace_tpu_torch.telemetry import metrics
+# The fleet plane's identity, so the lease holder, the build claims'
+# holders and the heartbeat name one process alike.
+from hyperspace_tpu_torch.telemetry.fleet import process_identity
 
 LEASE_DIR = "_hyperspace_lease"
 LEASE_KEY = "maintenance"
 RECORD_VERSION = 1
-
-_identity: Optional[str] = None
-_identity_lock = threading.Lock()
-
-
-def process_identity() -> str:
-    """This process's identity, ``<host>-<pid>-<start_ms>``: a restart
-    mints a new one."""
-    global _identity
-    with _identity_lock:
-        if _identity is None:
-            import platform
-
-            _identity = (f"{platform.node() or 'host'}-{os.getpid()}-"
-                         f"{int(time.time() * 1000)}")
-        return _identity
 
 
 def enabled(conf) -> bool:

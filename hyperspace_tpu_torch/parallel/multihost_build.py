@@ -40,8 +40,12 @@ a process holding a CUDA context is never forked) and load the kernels
 the parent built from ``csrc/build/``.  The parent's launch counters do
 not see the hosts' launches: the coordinator sums the chunk claims'
 ``launches`` into the build report's ``multihost_launches``, a key the
-JAX package lacks.  Not ported: the fleet heartbeat of the hosts.
-pyarrow is imported when a function runs.
+JAX package lacks.  With ``conf.fleet_telemetry_enabled`` each host
+publishes a fleet heartbeat (telemetry/fleet.py) at its start, after
+each item and each idle poll, and at its end, under the same process
+identity that holds its claims: ``fleet.build_claims`` grades a fresh
+claim whose holder has no fresh heartbeat crit.  pyarrow is imported
+when a function runs.
 """
 
 from __future__ import annotations
@@ -414,6 +418,13 @@ def _safe_name(owner: str) -> str:
     return "".join(c if c.isalnum() or c in "-_." else "_" for c in owner)
 
 
+def _heartbeat(conf) -> None:
+    from hyperspace_tpu_torch.telemetry import fleet
+
+    if fleet.enabled(conf):
+        fleet.publish_once(conf)
+
+
 def run_host(conf, build_id: str, owner: Optional[str] = None,
              device="cuda") -> int:
     """One host's loop: claim and route every chunk, then claim and
@@ -425,10 +436,8 @@ def run_host(conf, build_id: str, owner: Optional[str] = None,
 
     from hyperspace_tpu_torch.exceptions import HyperspaceError
     from hyperspace_tpu_torch.io.files import remove_tree
-    from hyperspace_tpu_torch.lifecycle.lease import (
-        WorkClaims,
-        process_identity,
-    )
+    from hyperspace_tpu_torch.lifecycle.lease import WorkClaims
+    from hyperspace_tpu_torch.telemetry.fleet import process_identity
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -444,6 +453,7 @@ def run_host(conf, build_id: str, owner: Optional[str] = None,
                         index=plan["index"])
     poll_s = max(0.005, float(conf.multihost_build_poll_s))
     cache: Dict[str, Any] = {}
+    _heartbeat(conf)
 
     def drive(items, process) -> int:
         """Claim and process items until every one is done; returns how
@@ -474,10 +484,12 @@ def run_host(conf, build_id: str, owner: Optional[str] = None,
                         remove_tree(orphan, ignore_errors=True)
                     remaining = True
                 progress = True
+                _heartbeat(conf)
             if not remaining:
                 return done_here
             if not progress:
                 time.sleep(poll_s)
+                _heartbeat(conf)
 
     def route(item, claim) -> Dict:
         # Run files are shared and deterministic: a fenced duplicate
@@ -499,6 +511,7 @@ def run_host(conf, build_id: str, owner: Optional[str] = None,
                 "discard": [staged]}
 
     completed += drive(_group_items(plan), finalize)
+    _heartbeat(conf)
     return completed
 
 
@@ -520,7 +533,8 @@ _WORKER_CONF_FIELDS = (
     "num_buckets", "device_batch_rows", "index_max_rows_per_file",
     "index_file_compression", "log_store_class",
     "object_store_stale_list_ms", "multihost_build_claim_ttl_s",
-    "multihost_build_poll_s", "lineage_enabled",
+    "multihost_build_poll_s", "fleet_telemetry_enabled",
+    "fleet_publish_interval_s", "lineage_enabled",
 )
 
 
@@ -593,11 +607,9 @@ def run_multihost_build(action, files, columns, relation, resolved,
     from hyperspace_tpu_torch.exceptions import HyperspaceError
     from hyperspace_tpu_torch.io.files import remove_tree
     from hyperspace_tpu_torch.lifecycle import journal
-    from hyperspace_tpu_torch.lifecycle.lease import (
-        WorkClaims,
-        process_identity,
-    )
+    from hyperspace_tpu_torch.lifecycle.lease import WorkClaims
     from hyperspace_tpu_torch.telemetry import metrics
+    from hyperspace_tpu_torch.telemetry.fleet import process_identity
 
     conf = action.conf
     reap_orphan_build_dirs(conf)

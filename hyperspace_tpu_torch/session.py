@@ -155,6 +155,13 @@ class HyperspaceSession:
         # The lake schemas of one optimize pass (``_lake_schema_memo``),
         # per thread: a pass sees one snapshot of each table.
         self._lake_memo_tls = threading.local()
+        # The fleet heartbeat (telemetry/fleet.py) starts here when the
+        # conf turns it on, so every process of a fleet shows in
+        # fleet_status(); a conf set later goes through
+        # Hyperspace.start_fleet_telemetry.  Never raises.
+        from hyperspace_tpu_torch.telemetry import fleet
+
+        fleet.maybe_start(self)
 
     @property
     def _lake_schema_memo(self) -> Optional[Dict[ScanRelation, Dict[str, str]]]:

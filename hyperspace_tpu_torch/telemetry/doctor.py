@@ -37,9 +37,14 @@ with the error, since "the doctor is blind here" is itself a finding):
                       ``conf.doctor_device_skew_warn`` is ``warn``.
   ==================  =======================================================
 
+``fleet=True`` adds the cluster checks over the published heartbeats
+(telemetry/fleet.py: ``fleet.heartbeats``, ``fleet.daemons``,
+``fleet.serving``, ``fleet.skew``, ``fleet.build_claims``,
+``fleet.alerts``) and grades them apart as ``health.fleet.status``.
+
 Not here: the JAX doctor's ``lint`` check (this package has no lint
-baseline), its fleet checks (``fleet=True`` raises) and the CLI's
-``--alerts`` gate.  The report is cheap: stat-level listings, process
+baseline) and the CLI's ``--alerts`` gate (the SLO alert engine,
+telemetry/alerts.py, is not in this package yet).  The report is cheap: stat-level listings, process
 counters and one ledger read.  pyarrow is imported inside ``table``.
 """
 
@@ -52,10 +57,6 @@ from typing import Any, Dict, List, Optional
 
 SEVERITY = {"ok": 0, "warn": 1, "crit": 2}
 _STATUS = {v: k for k, v in SEVERITY.items()}
-
-# Below this many milliseconds between the max and the median, kernel-ms
-# totals are noise, not skew (the JAX package's fleet.SKEW_FLOOR_MS).
-SKEW_FLOOR_MS = 50.0
 
 @dataclasses.dataclass
 class DoctorCheck:
@@ -126,19 +127,13 @@ def _guarded(name: str, fn) -> DoctorCheck:
 
 def doctor(session, fleet: bool = False) -> DoctorReport:
     """Run every health check against ``session``'s index tree and this
-    process's telemetry; publish ``health.status``.  ``fleet=True`` (the
-    cluster checks over published heartbeats) raises: this package has
-    no fleet plane yet."""
+    process's telemetry; publish ``health.status``.  ``fleet=True`` also
+    runs the cluster checks over the published heartbeats
+    (telemetry/fleet.py) and publishes their worst grade as the
+    ``health.fleet.status`` gauge."""
     from hyperspace_tpu_torch.telemetry import metrics
     from hyperspace_tpu_torch.telemetry.trace import span
 
-    if fleet:
-        from hyperspace_tpu_torch.exceptions import HyperspaceError
-
-        raise HyperspaceError(
-            "doctor(fleet=True) reads the fleet heartbeats "
-            "(telemetry/fleet.py), which this package does not have yet; "
-            "run doctor() for this process")
     with span("doctor.run") as sp:
         checks = [
             _guarded("integrity", lambda: _check_integrity(session)),
@@ -153,9 +148,20 @@ def doctor(session, fleet: bool = False) -> DoctorReport:
             _guarded("device_skew",
                      lambda: _check_device_skew(session)),
         ]
-        report = DoctorReport(checks)
+        # health.status grades this process alone: a fleet-wide crit
+        # must neither mask nor fake its own state.
+        local = DoctorReport(checks)
         metrics.inc("doctor.runs")
-        metrics.set_gauge("health.status", SEVERITY[report.status])
+        metrics.set_gauge("health.status", SEVERITY[local.status])
+        if fleet:
+            from hyperspace_tpu_torch.telemetry import fleet as _fleet
+
+            fleet_part = _fleet.fleet_checks(session)
+            worst = max((SEVERITY[c.status] for c in fleet_part),
+                        default=0)
+            metrics.set_gauge("health.fleet.status", worst)
+            checks = checks + fleet_part
+        report = DoctorReport(checks)
         sp.set(status=report.status, checks=len(checks))
         return report
 
@@ -403,6 +409,10 @@ def _check_device_skew(session) -> DoctorCheck:
     (``exec.device.<id>.kernel_ms``), graded against
     ``conf.doctor_device_skew_warn``."""
     from hyperspace_tpu_torch.telemetry import metrics
+    from hyperspace_tpu_torch.telemetry.fleet import (
+        device_kernel_ms_map,
+        skew_ratio,
+    )
 
     warn_at = float(getattr(session.conf, "doctor_device_skew_warn",
                             4.0))
@@ -421,37 +431,6 @@ def _check_device_skew(session) -> DoctorCheck:
         "device_skew", "ok",
         f"{len(per_device)} device(s) attributed, no kernel-ms skew",
         data)
-
-
-def device_kernel_ms_map(counters: Dict[str, Any]) -> Dict[str, float]:
-    """The per-device attributed kernel-ms map out of a counters dict
-    (the ``exec.device.<id>.kernel_ms`` series); copied from the JAX
-    package's telemetry/fleet.py."""
-    out: Dict[str, float] = {}
-    for name, value in counters.items():
-        if not name.startswith("exec.device.") \
-                or not name.endswith(".kernel_ms"):
-            continue
-        dev = name[len("exec.device."):-len(".kernel_ms")]
-        try:
-            out[dev] = float(value)
-        except (TypeError, ValueError):
-            continue
-    return out
-
-
-def skew_ratio(values: List[float]) -> float:
-    """max/median over attributed kernel-ms totals, 0.0 when there is
-    nothing to compare (fewer than two lanes, or totals under the noise
-    floor); copied from the JAX package's telemetry/fleet.py."""
-    vals = [float(v) for v in values if v is not None]
-    if len(vals) < 2:
-        return 0.0
-    med = statistics.median(vals)
-    mx = max(vals)
-    if med <= 0 or mx - med < SKEW_FLOOR_MS:
-        return 0.0
-    return mx / med
 
 
 def _check_degraded(session) -> DoctorCheck:
@@ -479,7 +458,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         python -m hyperspace_tpu_torch.telemetry.doctor --system-path /lake/ix
         python -m hyperspace_tpu_torch.telemetry.doctor --json \\
             --conf hybrid_scan_enabled=true
+        python -m hyperspace_tpu_torch.telemetry.doctor --fleet \\
+            --system-path /lake/ix
 
+    ``--fleet`` adds the cluster checks over the published heartbeats;
     ``--json`` prints the machine-readable report; ``--conf
     field=value`` sets a ``HyperspaceConf`` field (repeatable; the value
     is parsed as the field's type); ``--device`` picks the session's
@@ -496,6 +478,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "conf default)")
     parser.add_argument("--device", default="cuda",
                         help="the session's device (default: cuda)")
+    parser.add_argument("--fleet", action="store_true",
+                        help="add the cluster checks over the published "
+                             "fleet heartbeats")
     parser.add_argument("--json", action="store_true", dest="as_json",
                         help="print the full report as JSON")
     parser.add_argument("--conf", action="append", default=[],
@@ -513,7 +498,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                          f"got {item!r}")
         setattr(session.conf, key, _parse_value(
             getattr(session.conf, key), value))
-    report = doctor(session)
+    report = doctor(session, fleet=args.fleet)
     if args.as_json:
         print(_json.dumps(report.to_dict(), default=str, indent=2))
     else:

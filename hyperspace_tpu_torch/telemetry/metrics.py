@@ -232,6 +232,12 @@ def _catalog_help():
     return lookup
 
 
+def help_lookup():
+    """The docs/16 HELP lookup, for an exposition rendered outside the
+    registry (telemetry/fleet.py's, one block per process)."""
+    return _catalog_help()
+
+
 # One registry per process: the subsystems it observes (device cache, IO
 # pool, op-log stores) are process-level resources themselves.
 _REGISTRY = MetricsRegistry()

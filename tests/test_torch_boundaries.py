@@ -28,14 +28,14 @@ _FORBIDDEN = [
 
 
 # The query-path guards and diagnostics, the object store, the server and
-# its wire-fault seams.
+# its wire-fault seams, the fleet plane.
 _GUARDS_AND_DIAGNOSTICS = (
     "execution/sync_guard.py", "utils/deadline.py",
     "execution/plan_cache.py", "interop/__init__.py", "interop/query.py",
     "telemetry/flight_recorder.py", "telemetry/slo.py",
     "telemetry/doctor.py", "io/log_store.py",
     "index/object_log_manager.py", "interop/server.py",
-    "interop/netfaults.py")
+    "interop/netfaults.py", "telemetry/fleet.py")
 
 # The source formats, hive partitions and globs.
 _FORMATS = ("io/partitions.py", "io/avro.py", "io/files.py",
@@ -478,6 +478,43 @@ def test_the_multihost_build_hosts_import_no_jax(tmp_path):
              if line.startswith("HOST ")]
     assert len(hosts) == 2 and all(h.endswith(" []") for h in hosts), \
         proc.stdout
+
+
+def test_the_fleet_plane_imports_no_jax(tmp_path):
+    """``telemetry/fleet.py`` loads without jax and pyarrow; then a
+    heartbeat published, read back, merged, rendered and graded by the
+    fleet doctor, with its status table: nothing of jax or the JAX
+    package loaded."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        from hyperspace_tpu_torch.telemetry import fleet
+        loaded = [m for m in sys.modules if m == "pyarrow"
+                  or m.startswith("pyarrow.") or m == "jax"
+                  or m.startswith("jax.")]
+        assert not loaded, loaded
+        from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+
+        s = HyperspaceSession(os.path.join({str(tmp_path)!r}, "ix"),
+                              device="cpu")
+        s.conf.fleet_telemetry_enabled = True
+        assert fleet.publish_once(s.conf)
+        hs = Hyperspace(s)
+        assert hs.fleet_status().num_rows == 1
+        assert fleet.process_identity() in hs.fleet_metrics()["processes"]
+        assert "process=" in fleet.render_fleet_prometheus(s.conf)
+        report = hs.doctor(fleet=True)
+        assert report.check("fleet.heartbeats").status == "ok"
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "hyperspace_tpu" or m.startswith("hyperspace_tpu."))
+        print("LEAKED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
 
 
 def test_a_build_through_the_port_imports_no_jax(tmp_path):

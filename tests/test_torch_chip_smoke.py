@@ -1,5 +1,5 @@
-"""chip_smoke.py's phase selector and its phases U, V, W, X, Y, Z and
-MH, on the CPU.
+"""chip_smoke.py's phase selector and its phases U, V, W, X, Y, Z, MH
+and FL, on the CPU.
 
 The selector: ``--phases T,U`` runs the selected phases with phase A and
 the kernel builds, plus what they read (phase C's ``li_idx`` build and
@@ -7,7 +7,8 @@ phase D's ``ord_idx`` build for T); an unknown letter is an error; and
 without a card the script exits non-zero and prints no result, also
 from a directory that holds it alone.  Phase U is rehearsed after phase
 T, phase V alone (it builds phase C's and D's indexes itself) and phases
-W, X and Y after phase C, and phases Z and MH after phases C and D, at
+W, X and Y after phase C, phases Z and MH after phases C and D, and
+phase FL alone (it builds phase C's and D's indexes itself), at
 80,000 lineitem rows on a ``cpu`` session, where the plain kernels count
 no launch."""
 
@@ -42,8 +43,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (["--phases", "Z"], {"A", "Z"}, {"C", "D"}),
     (["--phases", "MH"], {"A", "MH"}, {"C", "D"}),
     (["--phases", "Z,MH"], {"A", "Z", "MH"}, {"C", "D"}),
+    (["--phases", "FL"], {"A", "FL"}, {"C", "D"}),
+    (["--phases", "MH,FL"], {"A", "MH", "FL"}, {"C", "D"}),
 ], ids=["all", "T,U", "U", "M", "A", "B,F", "K,G", "V", "W", "X", "Y",
-        "X,Y", "Z", "MH", "Z,MH"])
+        "X,Y", "Z", "MH", "Z,MH", "FL", "MH,FL"])
 def test_a_selection_runs_what_it_reads(argv, selected, read):
     assert chip_smoke.parse_args(argv) == (selected, read, 0)
     assert chip_smoke.parse_args(argv + ["--u-turns", "2"])[2] == 2
@@ -364,9 +367,12 @@ def test_phase_z_on_the_cpu(monkeypatch, tmp_path):
 
 
 def test_the_phases_are_the_letters_then_mh():
+    """The letters, then MH, then FL (the fleet plane), each of the two
+    reading phases C and D."""
     assert chip_smoke.PHASES[:26] == tuple("ABCDEFGHIJKLMNOPQRSTUVWXYZ")
-    assert chip_smoke.PHASES[26:] == ("MH",)
+    assert chip_smoke.PHASES[26:] == ("MH", "FL")
     assert chip_smoke.PHASE_READS["MH"] == "CD"
+    assert chip_smoke.PHASE_READS["FL"] == "CD"
 
 
 def test_phase_mh_on_the_cpu(monkeypatch, tmp_path):
@@ -404,3 +410,45 @@ def test_phase_mh_on_the_cpu(monkeypatch, tmp_path):
     assert set(mh["steps_s"]) == {"1_build", "2_sigkill_build", "3_shuffle",
                                   "4_processes"}
     assert not os.path.exists(os.path.join(root, chip_smoke.MH_INDEXES))
+
+
+def test_phase_fl_on_the_cpu(monkeypatch, tmp_path):
+    """Phase FL at 80,000 lineitem rows on the CPU: two port server
+    children behind the fleet client, every answer equal to numpy, the
+    merged requests equal to the children's, a failed query's trace
+    resolved from the parent, the drained child skipped then gone, the
+    killed one crit, and the timings taken."""
+    import torch
+
+    _small(monkeypatch)
+    orders, li = chip_smoke.gen_data()
+    root = str(tmp_path / "smoke")
+    chip_smoke.write_files(li, os.path.join(root, "lineitem"))
+    chip_smoke.write_files(orders, os.path.join(root, "orders"))
+    fl = chip_smoke.phase_fl(orders, li, root, torch.device("cpu"))
+    chip_smoke.print_fleet_plane(fl)
+    assert fl["rebuilt"] == ["li_idx", "ord_idx"]
+    assert len(fl["children"]) == chip_smoke.FL_CHILDREN
+    assert len({c["process"] for c in fl["children"]}) == 2
+    assert sum(fl["routing"]["picks"].values()) == \
+        chip_smoke.FL_POINTS + chip_smoke.FL_JOINS
+    f = fl["federation"]
+    assert f["merged_requests"] == sum(f["children_requests"]) > 0
+    assert all(f["device_kernel_ms"])
+    assert f["ms"]["prometheus_bytes"] > 0
+    assert fl["trace"]["outcome"] == "FAILED"
+    gone = fl["children"][0]["address"]
+    assert fl["drain"]["sent"][gone] == 0
+    assert sum(fl["drain"]["sent"].values()) == \
+        chip_smoke.FL_DRAINING_QUERIES
+    assert fl["kill"]["kill_to_crit_s"] <= \
+        2 * chip_smoke.FL_INTERVAL_S + 2.0
+    assert set(fl["timings"]["publish_once_ms"]) == {
+        "PosixLogStore", "EmulatedObjectStore", "bytes"}
+    assert not any(fl["launches"].values())  # plain kernels count none
+    assert set(fl["steps_s"]) == {"1_children", "2_routing",
+                                  "3_federation", "4_trace", "5_drain",
+                                  "6_kill", "7_timings"}
+    left = os.listdir(os.path.join(root, "indexes", "_hyperspace_fleet"))
+    assert not [f for f in left if f.startswith("hb-")]  # no heartbeat
+    assert not os.path.exists(os.path.join(root, chip_smoke.FL_GATE))

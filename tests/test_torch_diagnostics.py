@@ -13,9 +13,10 @@ One seeded workload through both packages must keep the same records
 (kinds, outcomes, reasons), and ``slo.py`` must
 give the JAX functions' results on seeded samples.  The doctor runs the
 same steps in both packages and must grade every check alike, leaving
-out the JAX doctor's ``lint`` check (the port has no lint baseline) and
-``fleet=True`` (the port raises); ``test_phase_r_on_the_cpu`` rehearses
-chip_smoke's phase R."""
+out the JAX doctor's ``lint`` check (the port has no lint baseline);
+``fleet=True`` answers in both alike (tests/test_torch_fleet.py holds the
+fleet plane itself); ``test_phase_r_on_the_cpu`` rehearses chip_smoke's
+phase R."""
 
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ import torch
 import hyperspace_tpu
 import hyperspace_tpu_torch
 from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
-from hyperspace_tpu_torch.exceptions import HyperspaceError
 from hyperspace_tpu_torch.telemetry import flight_recorder, metrics, timeline
 from hyperspace_tpu_torch.telemetry import trace
 
@@ -308,13 +308,41 @@ TORCH_SLOW_COLUMNS = ["ts", "traceId", "requestId", "kind", "outcome",
 
 
 def test_fleet_verbs_raise_in_the_port(env):
+    """The three ``fleet=True`` verbs, which raised before the port had
+    the fleet plane, now answer as the JAX package's: the same fleet
+    checks and grades from ``doctor``, the same columns and records from
+    ``slow_queries``, and ``trace`` resolving a record of the package's
+    own ring with ``process`` naming this process (None for an unknown
+    id).  Each package runs under its own system path."""
     root, _ = env
-    hs = Hyperspace(_session(TORCH, root))
-    for call in (lambda: hs.doctor(fleet=True),
-                 lambda: hs.slow_queries(fleet=True),
-                 lambda: hs.trace("a" * 16, fleet=True)):
-        with pytest.raises(HyperspaceError, match="fleet"):
-            call()
+
+    def run(pkg):
+        s = _session(pkg, root, name=f"fleet_{pkg.__name__}")
+        hs = pkg.Hyperspace(s)
+        own = _m(pkg, "telemetry.fleet").process_identity()
+        _m(pkg, "telemetry.flight_recorder").record(
+            s.conf, kind="spec", outcome="FAILED", latency_ms=2.0,
+            trace_id="a" * 16, request_id="b" * 16, error="seeded")
+        report = hs.doctor(fleet=True)
+        table = hs.slow_queries(fleet=True)
+        rec = hs.trace("a" * 16, fleet=True)
+        return {
+            "checks": [(c.name, c.status, c.data) for c in report.checks
+                       if c.name.startswith("fleet.")],
+            "columns": table.column_names,
+            "rows": [{k: r[k] for k in ("traceId", "requestId", "kind",
+                                        "outcome", "error", "reason")}
+                     for r in table.to_pylist()],
+            "processes": {r["process"] == own for r in table.to_pylist()},
+            "trace": (rec["process"] == own, rec["error"]),
+            "unknown": hs.trace("c" * 16, fleet=True)}
+
+    got, want = run(TORCH), run(JAX)
+    assert got == want
+    assert [c[0] for c in got["checks"]] == [
+        "fleet.heartbeats", "fleet.daemons", "fleet.serving",
+        "fleet.skew", "fleet.build_claims", "fleet.alerts"]
+    assert got["trace"] == (True, "seeded") and got["unknown"] is None
 
 
 # ---------------------------------------------------------------------------

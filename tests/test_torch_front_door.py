@@ -1081,6 +1081,40 @@ class TestMetricsScrapeServer:
             assert f"\n{series} " in body, series
         assert "# HELP hyperspace_client_failover " in body
 
-    def test_fleet_is_not_here_yet(self):
-        with pytest.raises(NotImplementedError, match="telemetry/fleet.py"):
-            _server(TORCH).MetricsScrapeServer(fleet=True)
+    def test_fleet_is_not_here_yet(self, tmp_path):
+        """``MetricsScrapeServer(fleet=True)``, which raised before the
+        port had the fleet plane, now serves as the JAX package's: it
+        needs a session, and a peer's heartbeat reaches the scrape as
+        the same lines, each labelled with that peer's process."""
+        peer = {"v": 1, "ts": time.time(), "process": "peer-8-8",
+                "host": "h", "pid": 1, "role": "server", "health": None,
+                "address": "", "draining": False,
+                "metrics": {"counters": {"serve.requests": 3.0},
+                            "gauges": {"serve.inflight": 1.0},
+                            "histograms": {"serve.latency_ms": {
+                                "count": 2, "sum": 30.0, "min": 10.0,
+                                "max": 20.0,
+                                "buckets": {"10.0": 1, "25.0": 1,
+                                            "+Inf": 0},
+                                "exemplars": {"7": ["a" * 16, 10.0]}}}},
+                "device_kernel_ms": {}, "records": []}
+
+        def run(pkg):
+            srv, fleet = _server(pkg), _m(pkg, "telemetry.fleet")
+            with pytest.raises(ValueError, match="session"):
+                srv.MetricsScrapeServer(fleet=True)
+            s = _session(pkg, str(tmp_path / f"ix_{pkg.__name__}"))
+            store = _m(pkg, "telemetry.perf_ledger").store_for(
+                s.conf, fleet.fleet_root(s.conf))
+            assert store.put_if_generation_match(
+                "hb-peer-8-8", json.dumps(peer).encode(), 0)
+            with srv.MetricsScrapeServer(session=s, fleet=True) as ms:
+                body, ctype, status = _scrape(ms.address)
+            own = f'process="{fleet.process_identity()}"'
+            assert own in body
+            return status, ctype, [line for line in body.splitlines()
+                                   if 'process="peer-8-8"' in line]
+
+        got = _both(run)[TORCH]
+        assert got[0] == 200
+        assert 'hyperspace_serve_requests{process="peer-8-8"} 3' in got[2]

@@ -25,6 +25,7 @@ import os
 import re
 import socket
 import threading
+import time
 
 import numpy as np
 import pyarrow as pa
@@ -324,15 +325,64 @@ class TestObservabilityVerbs:
         ({"verb": "alerts", "fleet": True}, "telemetry/alerts.py"),
     ], ids=["doctor_fleet", "fleet_status", "alerts", "alerts_fleet"])
     def test_verbs_of_missing_modules_fail_naming_them(self, env, spec,
-                                                       module):
+                                                       module, monkeypatch):
+        """``alerts`` reads a module the port does not have yet and fails
+        naming it.  The two telemetry/fleet.py verbs, which failed so
+        before the port had the fleet plane, now answer as the JAX
+        server does over the same system path: the same heartbeat rows
+        from ``fleet_status`` (``ageSeconds`` and the read-time
+        ``age_s`` aside) and the same fleet checks from ``doctor``."""
         s, _data = env
+        if module == "telemetry/alerts.py":
+            with QueryServer(s) as server:
+                with pytest.raises(QueryFailedError) as ei:
+                    request_query(server.address, spec)
+            assert ei.value.code == "FAILED"
+            assert ei.value.message.startswith("HyperspaceError: ")
+            assert module in ei.value.message
+            assert "does not have yet" in ei.value.message
+            return
+        import types
+
+        from hyperspace_tpu.telemetry import fleet as jax_fleet
+        from hyperspace_tpu_torch.telemetry import fleet
+        from hyperspace_tpu_torch.telemetry.perf_ledger import store_for
+
+        # Both fleet modules read one pinned clock: ages are equal.
+        now = time.time()
+        for module_ in (fleet, jax_fleet):
+            monkeypatch.setattr(module_, "time",
+                                types.SimpleNamespace(time=lambda: now))
+        store = store_for(s.conf, fleet.fleet_root(s.conf))
+        for name, age in (("live-1-1", 0.0), ("gone-2-2", 900.0)):
+            snap = {"v": 1, "ts": now - age, "process": name,
+                    "host": "h", "pid": 1, "role": "server",
+                    "health": 1.0, "address": "", "draining": False,
+                    "metrics": {"counters": {}, "gauges": {},
+                                "histograms": {}},
+                    "device_kernel_ms": {}, "records": []}
+            assert store.put_if_generation_match(
+                f"hb-{name}", json.dumps(snap).encode(), 0)
+        js = _session(JAX, s.conf.system_path)
+
+        def rows(table):
+            out = table.to_pylist()
+            if spec["verb"] == "doctor":
+                return [r for r in out if r["check"].startswith("fleet.")]
+            for r in out:
+                r.pop("ageSeconds")
+                r["snapshotJson"] = {
+                    k: v for k, v in json.loads(r["snapshotJson"]).items()
+                    if k != "age_s"}
+            return out
+
         with QueryServer(s) as server:
-            with pytest.raises(QueryFailedError) as ei:
-                request_query(server.address, spec)
-        assert ei.value.code == "FAILED"
-        assert ei.value.message.startswith("HyperspaceError: ")
-        assert module in ei.value.message
-        assert "does not have yet" in ei.value.message
+            got = request_query(server.address, spec)
+        with jax_server.QueryServer(js) as server:
+            want = request_query(server.address, spec)
+        assert got.schema == want.schema
+        assert rows(got) == rows(want)
+        assert len(rows(got)) == (6 if spec["verb"] == "doctor" else 2)
 
     def test_verb_arguments_are_checked(self, env):
         s, _data = env
