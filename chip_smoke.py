@@ -14,6 +14,9 @@ its letter, or by its name of more than one letter (MH, FL); an unknown
 name is an error.
 ``--u-turns N`` adds N rounds of phase U's 8 clients on a threaded and an
 async server in turns (threaded, async, async, threaded).
+With ``HS_SMOKE_SAMPLE=<path>`` in the environment it samples its main
+thread every 50 ms and writes the seconds per phase and per line of this
+script to ``<path>`` as JSON (``sampled``).
 
   build    compile both CUDA kernels from ``hyperspace_tpu_torch/csrc``
            (one nvcc per source, started together).
@@ -125,7 +128,8 @@ async server in turns (threaded, async, async, threaded).
            with its wall, phases, the process's peak RSS and the card's
            peak allocation.
   phase G  an index over a changing source, at SF1 with 200 buckets and
-           the default batch: over a copy of phase C's lineitem (hard
+           the default batch: over a copy of phase C's first
+           G_SOURCE_FILES (56) lineitem files (5,250,000 rows, hard
            links), ``ord200`` on the orders and ``li_lin`` with the
            lineage column (6 spill chunks), both indexes' files checked
            and every row's ``_data_file_id`` held to its file's id (the
@@ -142,8 +146,8 @@ async server in turns (threaded, async, async, threaded).
            first (the buckets that gained
            rows are unions, which have no file identity: their columns
            are uploaded every time).  Then ``refresh_index("incremental")``
-           (6,375,000 rows, one launch of each kernel), 2 more files
-           appended and a second incremental refresh (6,562,500 rows,
+           (5,625,000 rows, one launch of each kernel), 2 more files
+           appended and a second incremental refresh (5,812,500 rows,
            buckets with files in two versions), ``optimize_index("quick")``
            (one file per compacted bucket) and again (outcome "noop"),
            the files, the lineage and the four answers checked after
@@ -752,16 +756,33 @@ async server in turns (threaded, async, async, threaded).
            ``fleet_metrics``, ``render_fleet_prometheus`` (with bytes)
            and ``doctor(fleet=True)`` timed.  (4) A query failing in
            child 0 resolves here by ``trace(id, fleet=True)`` naming it.
-           (5) Child 0 drains with one query held in flight: its row
-           reads ``draining``, FL_DRAINING_QUERIES points go to the
-           other, and after the drain its row is gone.  (6) Child 1 is
-           SIGKILLed: ``doctor(fleet=True)`` reads ``fleet.heartbeats``
-           crit naming it, the seconds from the kill printed.  (7) A
-           point served in this process, FL_SERVED with its publisher
-           off and on in turns, and ``publish_once`` FL_PUBLISHES times
-           on each store class.  Launches ``FL fleet`` (the children's).
-           Prints ``{"fleet_plane": ...}`` with the card's name and power
-           limit.
+           (5) The SLO alert engine (``fl_alerts``), as the JAX package's
+           chaos drill drives it: FL_ALERT_CONF's tiny burn windows on
+           this process's conf and a ``QueryServer`` here, whose start
+           starts the engine; FL's points served over ``li_idx`` for one
+           long window, each equal to numpy; an armed ``net.send``
+           black-hole and raw-socket probes until ``availability`` fires
+           with its incident bundle (the engine then stopped, so the
+           page holds, and the fault disarmed); child 1's ``alerts``
+           verb with ``fleet`` lists it under this process and its
+           ``doctor`` verb grades ``fleet.alerts`` crit; the bundle in
+           ``diagnostics_bundles()`` with its ``incident``; a fresh
+           session reads ``firing``; the doctor CLI with ``--alerts``
+           returns 2; served points again until it resolves.  Ticks and
+           seconds to firing and to resolved, the bundle's bytes,
+           ``run_once`` and ``load_states`` ms, the seconds until child 1
+           sees the page; no launch (``FL alerts``).  (6) Child 0 drains
+           with one query held in flight: its row reads ``draining``,
+           FL_DRAINING_QUERIES points go to the other, and after the
+           drain its row is gone.  (7) Child 1 is SIGKILLed:
+           ``doctor(fleet=True)`` reads ``fleet.heartbeats`` crit naming
+           it, the seconds from the kill printed.  (8) A point served in
+           this process, FL_SERVED with its publisher off, on, and on
+           beside the alert engine ticking every 0.1 s, in turns (the
+           engine's ratio printed, not gated), and ``publish_once``
+           FL_PUBLISHES times on each store class.  Launches ``FL fleet``
+           (the children's) and ``FL alerts``.  Prints
+           ``{"fleet_plane": ...}`` with the card's name and power limit.
 
 The data is bench.py's generators, copied here.  Then each kernel is
 timed at the shapes of HASH_SHAPES and HIST_SHAPES (the first of each is
@@ -796,7 +817,7 @@ server``, phase U's ``U server``, phase V's ``V fleet``, phase W's ``W
 formats``, phase X's ``X delta``, phase Y's ``Y iceberg``, phase Z's
 ``Z sharded spill`` and ``Z distributed build``, phase MH's ``MH
 multihost build`` and ``MH hierarchical shuffle``, phase FL's ``FL
-fleet``), the
+fleet`` and ``FL alerts``), the
 integrity JSON (phase I), the Z-order JSON (phase J), the window JSON
 (phase K), the plan-language JSON (phase L), the SQL JSON (phase M), the
 envelope JSON (phase N), the advisor JSON (phase O), the lifecycle JSON
@@ -887,6 +908,10 @@ SF10_FILES = 64
 LINEAGE_INDEX = "li_lin"
 ORDERS_INDEX_200 = "ord200"
 ROWS_PER_FILE = N_LINEITEM // N_FILES  # 93,750: write_files's cut
+# Phase G's source: the first G_SOURCE_FILES of phase C's 64 lineitem
+# files (5,250,000 rows), the depth that leaves the time limit room for
+# phase FL's alert step.
+G_SOURCE_FILES = 56
 G_APPENDED = 8                  # files appended before the quick refresh
 G_DELETED = (3, 17, 31, 45)     # original files deleted with them
 G_APPENDED_AGAIN = 2            # files appended before the last refresh
@@ -1033,16 +1058,22 @@ def gen_data():
 
 def write_files(table: dict, path: str) -> None:
     """``table`` as N_FILES Parquet files under ``path``, as bench.py
-    writes them."""
+    writes them (on 8 threads: the writer releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import pyarrow as pa
     import pyarrow.parquet as pq
 
     os.makedirs(path)
     table = pa.table(table)
     step = -(-table.num_rows // N_FILES)
-    for f in range(N_FILES):
+
+    def write(f: int) -> None:
         pq.write_table(table.slice(f * step, step),
                        os.path.join(path, f"part-{f:05d}.parquet"))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(N_FILES)))
 
 
 def int64_words(values: np.ndarray):
@@ -1354,10 +1385,142 @@ def phase_c(li: dict, root: str, dev) -> dict:
             "report": report}
 
 
+def host_tensor(v: np.ndarray):
+    """``v`` as a CPU tensor over its memory (only read here: an Arrow
+    column's array is read-only, which ``torch.from_numpy`` warns of)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def row_words(v: np.ndarray):
+    """``v`` as a CPU tensor that torch can gather and compare: floats as
+    themselves, every other fixed-width dtype as the signed integers of
+    its width (the same bits); None for any other dtype."""
+    if v.dtype.kind == "f" and v.dtype.itemsize in (2, 4, 8):
+        return host_tensor(v)
+    if v.dtype.kind in "iubmM" and v.dtype.itemsize in (1, 2, 4, 8):
+        return host_tensor(v.view(f"i{v.dtype.itemsize}"))
+    return None
+
+
+def take_rows(v: np.ndarray, order) -> np.ndarray:
+    """``v[order]``, ``order`` an int64 CPU tensor of row numbers: torch's
+    gather where it takes ``v``'s dtype (several times numpy's speed on
+    6 M rows), else numpy's."""
+    words = row_words(v)
+    if words is None:
+        return v[order.numpy()]
+    return words[order].numpy().view(v.dtype)
+
+
+def sort_words(v: np.ndarray):
+    """``v`` as a CPU tensor whose ascending order is ``v``'s (floats with
+    -0.0 as 0.0, bools and unsigned words as int64), or None when ``v``
+    is not numeric."""
+    if v.dtype.kind == "f":
+        return host_tensor(v.astype(np.float64, copy=False)) + 0.0
+    if v.dtype.kind in "iub" and (v.dtype.kind != "u" or v.dtype.itemsize < 8):
+        return host_tensor(v.astype(np.int64, copy=False))
+    if v.dtype.kind in "mM" and v.dtype.itemsize == 8:
+        return host_tensor(v.view(np.int64))
+    return None
+
+
 def sorted_rows(columns: dict, keys) -> dict:
-    """The columns' rows ordered by ``keys`` (lexicographic)."""
-    order = np.lexsort([columns[k] for k in reversed(keys)])
-    return {c: v[order] for c, v in columns.items()}
+    """The columns' rows ordered by ``keys`` (lexicographic, stable): one
+    stable sort of the torch CPU kernels per key, from the last key to
+    the first (``np.lexsort``'s order, several times faster over the
+    6 M-row answers), or ``np.lexsort`` when a key is not numeric."""
+    import torch
+
+    words = [sort_words(columns[k]) for k in keys]
+    if any(w is None for w in words):
+        order = np.lexsort([columns[k] for k in reversed(keys)])
+        return {c: v[order] for c, v in columns.items()}
+    order = None
+    for w in reversed(words):
+        w = w if order is None else w[order]
+        step = torch.sort(w, stable=True).indices
+        order = step if order is None else order[step]
+    if order is None:
+        return dict(columns)
+    return {c: take_rows(v, order) for c, v in columns.items()}
+
+
+# 0x9E3779B97F4A7C15 as an int64: row_hashes' multiplier.
+HASH_MIX = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def row_hashes(columns: dict):
+    """One 64-bit hash of each row of ``columns`` (every column's bits in
+    turn, floats with -0.0 as 0.0), an int64 CPU tensor, or None when a
+    column is not numeric."""
+    import torch
+
+    h = None
+    for v in columns.values():
+        if v.dtype.kind == "f":
+            w = (host_tensor(v.astype(np.float64, copy=False)) + 0.0) \
+                .view(torch.int64)
+        elif v.dtype.kind in "iub":
+            w = host_tensor(v.astype(np.int64, copy=False))
+        elif v.dtype.kind in "mM" and v.dtype.itemsize == 8:
+            w = host_tensor(v.view(np.int64))
+        else:
+            return None
+        h = w * HASH_MIX if h is None else (h ^ w) * HASH_MIX
+        h ^= h >> 29
+    return h
+
+
+# The hash order of the last answers ``require_rows`` checked against:
+# id key -> (the answer's arrays, held so that their ids stay theirs, and
+# its columns as tensors in that order).  Phases check one answer several
+# times.
+HASH_ALIGNED_WANT: dict = {}
+HASH_ALIGNED_KEEP = 8
+
+
+def hash_aligned_equal(got: dict, want: dict) -> bool:
+    """Whether ``got`` and ``want`` (column name -> numpy array, the same
+    names) hold the same multiset of rows, by the same dtypes: both
+    ordered by their rows' hashes (one stable sort of the torch CPU
+    kernels) and compared column by column.  Two tables holding the same
+    multiset of rows come out equal (equal rows have equal hashes, and
+    the stable order of distinct rows with one hash differs only when
+    such rows collide, which makes this False); rows in another multiset
+    cannot.  False too when a column is not numeric: the caller then
+    sorts by the keys, as it does to name a mismatch.  Several times
+    faster than a stable ``np.lexsort`` by the keys over 6 M rows."""
+    import torch
+
+    n = len(next(iter(want.values())))
+    if any(len(v) != n or v.dtype != want[c].dtype
+           or row_words(v) is None for c, v in got.items()):
+        return False
+    ident = tuple(want) + tuple(id(v) for v in want.values())
+    cached = HASH_ALIGNED_WANT.get(ident)
+    if cached is None:
+        hw = row_hashes(want)
+        if hw is None:
+            return False
+        order = torch.sort(hw, stable=True).indices
+        cached = (tuple(want.values()),
+                  {c: row_words(v)[order] for c, v in want.items()})
+        HASH_ALIGNED_WANT[ident] = cached
+        while len(HASH_ALIGNED_WANT) > HASH_ALIGNED_KEEP:
+            HASH_ALIGNED_WANT.pop(next(iter(HASH_ALIGNED_WANT)))
+    hg = row_hashes(got)
+    if hg is None:
+        return False
+    order = torch.sort(hg, stable=True).indices
+    return all(torch.equal(row_words(v)[order], cached[1][c])
+               for c, v in got.items())
 
 
 def in_key_order(columns: dict, keys) -> bool:
@@ -1382,17 +1545,29 @@ def require_rows(name: str, table, want: dict, keys=None,
                  rtol: float = 0.0) -> None:
     """``table`` holds exactly the rows of ``want`` (column name ->
     numpy array): in the same order when ``keys`` is None, else as the
-    same multiset of rows, compared after sorting both by ``keys``.  With
-    ``rtol``, float columns (sums in another order) agree within it and
-    the rest exactly."""
+    same multiset of rows, compared after ordering both by their hashes
+    (``hash_aligned_equal``) or, with ``rtol``, a column that is not
+    numeric or a mismatch (to name it), after sorting both by ``keys``.
+    With ``rtol``, float columns (sums in another order) agree within it
+    and the rest exactly."""
     if table.column_names != list(want):
         raise AssertionError(f"{name}: columns {table.column_names}, "
                              f"expected {list(want)}")
     got = {c: table.column(c).to_numpy() for c in want}
-    if keys is not None:
-        got = sorted_rows(got, keys)
-        if not in_key_order(want, keys):
-            want = sorted_rows(want, keys)
+    if keys is None:
+        rows_differ(name, got, want, rtol)
+        return
+    if not rtol and hash_aligned_equal(got, want):
+        return
+    got = sorted_rows(got, keys)
+    if not in_key_order(want, keys):
+        want = sorted_rows(want, keys)
+    rows_differ(name, got, want, rtol)
+
+
+def rows_differ(name: str, got: dict, want: dict, rtol: float) -> None:
+    """Raise, naming the first column of ``got`` that differs from
+    ``want``'s row by row."""
     for c, values in want.items():
         if rtol and np.issubdtype(values.dtype, np.floating) \
                 and got[c].shape == values.shape:
@@ -1452,13 +1627,31 @@ def expected_aggregates(orders: dict, li: dict) -> dict:
     }
 
 
+# expected_answers' last inputs and answers: most phases ask for phase
+# C's, whose join sort costs seconds each time.
+EXPECTED_ANSWERS: dict = {}
+
+
 def expected_answers(orders: dict, li: dict) -> dict:
     """Each query of QUERIES answered by numpy from the generated arrays:
     (expected columns, sort keys or None for "in source order"), the
     columns of a keyed answer already in key order (``require_rows`` then
     sorts only the rows it checks).
     ``o_orderkey`` is a permutation of ``arange``, so the join is a
-    gather of the order row of each lineitem row."""
+    gather of the order row of each lineitem row.  The same two dicts
+    of arrays give the same arrays again, in new dicts."""
+    ident = (id(orders), id(li), *map(id, orders.values()),
+             *map(id, li.values()))
+    if EXPECTED_ANSWERS.get("ident") != ident:
+        EXPECTED_ANSWERS.clear()
+        EXPECTED_ANSWERS.update(ident=ident, inputs=(orders, li),
+                                answers=answers_of(orders, li))
+    return {name: (dict(want), keys) for name, (want, keys)
+            in EXPECTED_ANSWERS["answers"].items()}
+
+
+def answers_of(orders: dict, li: dict) -> dict:
+    """``expected_answers``' arrays, computed."""
     lk = li["l_orderkey"]
     point = lk == POINT_KEY
     in_range = (lk >= RANGE[0]) & (lk < RANGE[1])
@@ -2284,7 +2477,7 @@ def g_file_name(block: int) -> str:
 def g_rows(li: dict, appended: list) -> dict:
     """The query columns of the changed source in listing order: the
     original rows of the files not deleted, then the appended files'."""
-    keep = np.ones(N_LINEITEM, dtype=bool)
+    keep = np.arange(N_LINEITEM) < G_SOURCE_FILES * ROWS_PER_FILE
     for f in G_DELETED:
         keep[f * ROWS_PER_FILE:(f + 1) * ROWS_PER_FILE] = False
     return {c: np.concatenate([li[c][keep]] + [a[c] for a in appended])
@@ -2361,6 +2554,9 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
     device_cache().clear()
     mut = os.path.join(root, "lineitem_mut")
     shutil.copytree(os.path.join(root, "lineitem"), mut, copy_function=os.link)
+    for f in range(G_SOURCE_FILES, N_FILES):
+        os.remove(os.path.join(mut, g_file_name(f)))
+    g_base = G_SOURCE_FILES * ROWS_PER_FILE
     path = os.path.join(root, "g_indexes")
     hs = spill_session(dev, path)
     session = hs.session
@@ -2374,12 +2570,12 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
     session.conf.lineage_enabled = True
     rec = timed_build(dev, "G create li_lin (lineage)", hs, lambda: hs.create_index(
         session.read.parquet(mut), IndexConfig(LINEAGE_INDEX, INDEXED, INCLUDED)),
-        -(-N_LINEITEM // DEFAULT_BATCH_ROWS))
+        -(-g_base // DEFAULT_BATCH_ROWS))
     builds.append(rec)
     by_path["lineage_create"] = rec["launches"]
     step("create")
     check_index_files("phase G create", hs, LINEAGE_INDEX, "l_orderkey",
-                      N_LINEITEM, SPILL_BUCKETS, lineage=True)
+                      g_base, SPILL_BUCKETS, lineage=True)
     check_index_files("phase G create", hs, ORDERS_INDEX_200, "o_orderkey",
                       N_ORDERS, SPILL_BUCKETS)
     step("check create")
@@ -2387,7 +2583,7 @@ def phase_g(orders: dict, li: dict, root: str, dev) -> dict:
     appended = [g_append(mut, 0, G_APPENDED, 29)]
     for f in G_DELETED:
         os.remove(os.path.join(mut, g_file_name(f)))
-    rows = N_LINEITEM + (G_APPENDED - len(G_DELETED)) * ROWS_PER_FILE
+    rows = g_base + (G_APPENDED - len(G_DELETED)) * ROWS_PER_FILE
     expected = expected_answers(orders, g_rows(li, appended))
     step("mutate")
 
@@ -9665,6 +9861,16 @@ FL_VERB_RUNS = 3                # timed calls of each federation read
 FL_BOUND_S = 120.0              # every wait of phase FL
 FL_SEED = 241                   # the point queries' keys
 FL_GATE = "fl_gate"             # the source a draining child holds
+FL_ALERT_CONF = {               # the alert step's tiny burn windows
+    "alerts_interval_s": 0.1,
+    "alerts_availability_target": 0.9,
+    "alerts_fast_short_s": 0.4,
+    "alerts_fast_long_s": 0.8,
+    "alerts_fast_factor": 1.5,
+    "alerts_pending_evals": 1,
+    "alerts_resolve_evals": 1,
+}
+FL_ALERT_RUNS = 20              # timed run_once and load_states calls
 
 
 def fl_child(root: str, rank: int, device: str) -> None:
@@ -9858,6 +10064,175 @@ def fl_until(cond, what: str, bound_s: float = FL_BOUND_S):
         time.sleep(0.02)
 
 
+def fl_alerts(session, root: str, dev, keys: list, point, check_point,
+              child) -> dict:
+    """Phase FL's step 5: the SLO alert engine of this process, driven as
+    the JAX package's chaos drill drives it (see the module docstring).
+    ``child`` is a live child asked over the wire; ``point`` and
+    ``check_point`` are the phase's spec and numpy check."""
+    import contextlib
+    import io
+    import socket
+
+    from hyperspace_tpu_torch import Hyperspace, HyperspaceSession
+    from hyperspace_tpu_torch.interop import QueryClient, QueryServer
+    from hyperspace_tpu_torch.io import faults
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.telemetry import alerts, fleet, metrics
+    from hyperspace_tpu_torch.telemetry import doctor as doctor_mod
+
+    conf = session.conf
+    path = os.path.join(root, "indexes")
+    host, port = child.info["address"].rsplit(":", 1)
+    before = kernels.launch_counts()
+    for field, value in FL_ALERT_CONF.items():
+        setattr(conf, field, value)
+    conf.alerts_enabled = True
+    engine = alerts.engine_for(session)
+    server = QueryServer(session).start()  # starts the engine's thread
+    out: dict = {}
+
+    def state() -> dict:
+        return engine.current_states().get("availability", {})
+
+    def ticks() -> float:
+        return metrics.registry().counter("alerts.evaluations")
+
+    def served(n: int) -> None:
+        """``n`` points served here, each held to numpy."""
+        with QueryClient(server.address, timeout_s=FL_BOUND_S) as qc:
+            for i in range(n):
+                k = keys[i % len(keys)]
+                check_point("alert step", k, qc.query(point(k)))
+
+    def probe() -> None:
+        """One inline verb sent on a raw socket, its answer not read: the
+        armed seam tears only this server's sends."""
+        sock = socket.create_connection(server.address, timeout=FL_BOUND_S)
+        try:
+            sock.sendall(b'{"verb": "metrics"}\n')
+        finally:
+            sock.close()
+
+    try:
+        if not engine.running():
+            raise AssertionError("phase FL: the server's start left the "
+                                 "alert engine off")
+        # Good traffic over the long window: the burn rates' baseline.
+        t0, out["good_points"] = time.monotonic(), 0
+        while time.monotonic() - t0 < FL_ALERT_CONF["alerts_fast_long_s"]:
+            served(len(keys) // 4)
+            out["good_points"] += len(keys) // 4
+        if state().get("state") == "firing":
+            raise AssertionError("phase FL: availability fired on good "
+                                 "traffic")
+
+        # Every response send black-holes: each probe is a lost answer
+        # (serve.send_timeouts) until availability pages with its bundle.
+        faults.install(faults.FaultPlan(site="net.send", kind="black-hole",
+                                        at=1, count=10 ** 6, hang_s=0.01))
+        tick0, t_arm = ticks(), time.monotonic()
+
+        def paged():
+            probe()
+            st = state()
+            return st if st.get("state") == "firing" \
+                and st.get("bundle_key") else None
+
+        st, out["arm_to_firing_s"] = fl_until(paged, "availability firing")
+        out["arm_to_firing_ticks"] = ticks() - tick0
+        t_fired = time.monotonic()
+        # Stopped, the engine holds the page while it is read elsewhere:
+        # with no traffic its next ticks would resolve it.
+        engine.stop()
+        faults.clear()
+        if state().get("state") != "firing" or st["severity"] != "page":
+            raise AssertionError(f"phase FL: availability {state()}")
+
+        # Child 1 sees the parent's page over the wire: its alerts verb
+        # lists it under this process, its cluster doctor grades crit.
+        own = fleet.process_identity()
+
+        def child_sees():
+            with QueryClient((host, int(port)), timeout_s=FL_BOUND_S) as qc:
+                rows = qc.query({"verb": "alerts", "fleet": True}).to_pylist()
+            return [r for r in rows if r["process"] == own
+                    and r["alert"] == "availability"
+                    and r["state"] == "firing"]
+
+        fl_until(child_sees, "the carried alert in child 1")
+        out["child_sees_s"] = time.monotonic() - t_fired
+        with QueryClient((host, int(port)), timeout_s=FL_BOUND_S) as qc:
+            doc = {r["check"]: r for r in qc.query(
+                {"verb": "doctor", "fleet": True}).to_pylist()}
+        firing = json.loads(doc["fleet.alerts"]["dataJson"])["firing"]
+        if doc["fleet.alerts"]["status"] != "crit" or \
+                [a["process"] for a in firing] != [own]:
+            raise AssertionError(f"phase FL: child 1's fleet.alerts "
+                                 f"{doc['fleet.alerts']}")
+
+        # The incident bundle, the state across a restart, the CLI gate.
+        bundle = [b for b in Hyperspace(session).diagnostics_bundles()
+                  if b.get("key") == st["bundle_key"]]
+        if not bundle or bundle[0].get("incident", {}).get("alert") \
+                != "availability":
+            raise AssertionError(f"phase FL: no incident bundle "
+                                 f"{st['bundle_key']}")
+        out["bundle_bytes"] = len(json.dumps(bundle[0], default=str))
+        fresh = HyperspaceSession(system_path=path, device=dev)
+        restarted = alerts.engine_for(fresh).current_states()
+        if restarted.get("availability", {}).get("state") != "firing":
+            raise AssertionError(f"phase FL: after a restart {restarted}")
+        times = []
+        for _ in range(FL_ALERT_RUNS):
+            t0 = time.perf_counter()
+            alerts.load_states(conf)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["load_states_ms"] = statistics.median(times)
+        device = "cuda:0" if dev.type == "cuda" else str(dev)
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            out["cli_exit"] = doctor_mod.main(
+                ["--system-path", path, "--device", device, "--alerts",
+                 "--json"])
+        gate = {c["name"]: c["status"]
+                for c in json.loads(text.getvalue())["checks"]}
+        if out["cli_exit"] != 2 or gate.get("alerts") != "crit":
+            raise AssertionError(f"phase FL: the doctor CLI exited "
+                                 f"{out['cli_exit']}, alerts "
+                                 f"{gate.get('alerts')}")
+
+        # Good traffic again until the page resolves.
+        engine.start()
+        tick0, t0 = ticks(), time.monotonic()
+
+        def resolved():
+            served(4)
+            return state().get("state") == "resolved"
+
+        fl_until(resolved, "availability resolved")
+        out["to_resolved_s"] = time.monotonic() - t0
+        out["to_resolved_ticks"] = ticks() - tick0
+        engine.stop()
+        times = []
+        for _ in range(FL_ALERT_RUNS):
+            t0 = time.perf_counter()
+            engine.run_once()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["run_once_ms"] = statistics.median(times)
+        out["history"] = [(r["alert"], r["transition"])
+                          for r in alerts.records(conf)
+                          if r["transition"]]
+    finally:
+        faults.clear()
+        engine.stop()
+        server.stop()
+        conf.alerts_enabled = False
+        fleet.set_serving_address("")
+    after = kernels.launch_counts()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    return out
+
+
 def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
     """The fleet plane over phase C's and D's indexes (see the module
     docstring)."""
@@ -9874,7 +10249,7 @@ def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
         QueryFailedError,
         QueryServer,
     )
-    from hyperspace_tpu_torch.telemetry import fleet, metrics
+    from hyperspace_tpu_torch.telemetry import alerts, fleet, metrics
 
     t_phase = time.perf_counter()
     steps: dict = {}
@@ -10045,7 +10420,13 @@ def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
         out["trace"] = {"seconds": trace_s, "outcome": rec["outcome"]}
         step("4_trace")
 
-        # 5. Drain child 0: its row reads draining, the client sends it
+        # 5. This process's SLO alert engine pages on a wire fault, and
+        # child 1 reads the page over the wire; no launch here.
+        out["alerts"] = fl_alerts(session, root, dev, keys, point,
+                                  check_point, children[1])
+        step("5_alerts")
+
+        # 6. Drain child 0: its row reads draining, the client sends it
         # nothing, and after the drain its row is gone.
         gone, other = children
         gone.send("drain")
@@ -10074,9 +10455,9 @@ def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
             raise AssertionError("phase FL: the drained child's row is left")
         out["drain"] = {"draining_seen_s": draining_s, "sent": sent,
                         "held_rows": drained["rows"]}
-        step("5_drain")
+        step("6_drain")
 
-        # 6. SIGKILL child 1: doctor(fleet=True) reads fleet.heartbeats
+        # 7. SIGKILL child 1: doctor(fleet=True) reads fleet.heartbeats
         # crit naming it within 2 heartbeat intervals (and the polling).
         os.kill(other.info["pid"], signal.SIGKILL)
         t_kill = time.monotonic()
@@ -10093,24 +10474,33 @@ def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
         out["kill"] = {"kill_to_crit_s": kill_s,
                        "stale_s": check.data["stale"][other.info["process"]],
                        "stale_after_s": fleet.stale_after_s(conf)}
-        step("6_kill")
+        step("7_kill")
 
-        # 7. One served point in this process, its publisher off and on,
-        # in turns; then publish_once on each store class.
+        # 8. One served point in this process with its publisher off, on,
+        # and on beside the alert engine at FL_ALERT_CONF's interval, in
+        # turns; then publish_once on each store class.
         server = QueryServer(session).start()
         publisher = fleet.publisher_for(session)
-        served: dict = {"off": [], "on": []}
+        engine = alerts.engine_for(session)
+        served: dict = {"off": [], "on": [], "engine": []}
         with QueryClient(server.address, timeout_s=FL_BOUND_S) as qc:
             check_point("served", POINT_KEY, qc.query(point(POINT_KEY)))
-            for state in ("off", "on", "on", "off"):
-                if state == "on":
-                    publisher.start()
-                else:
+            for state in ("off", "on", "engine", "engine", "on", "off"):
+                conf.alerts_enabled = state == "engine"
+                if state == "off":
                     publisher.stop(deregister=False)
+                else:
+                    publisher.start()
+                if state == "engine":
+                    engine.start()
+                else:
+                    engine.stop()
                 for _ in range(FL_SERVED // 2):
                     t0 = time.perf_counter()
                     qc.query(point(POINT_KEY))
                     served[state].append((time.perf_counter() - t0) * 1e3)
+        engine.stop()
+        conf.alerts_enabled = False
         server.stop()
         server = None
         publish: dict = {}
@@ -10133,17 +10523,20 @@ def phase_fl(orders: dict, li: dict, root: str, dev) -> dict:
             "served_point_ms": {k: statistics.median(v)
                                 for k, v in served.items()},
             "served_point_runs_ms": served, "publish_once_ms": publish}
-        step("7_timings")
+        step("8_timings")
     finally:
         for fc in clients:
             fc.close()
         if server is not None:
             server.stop()
+        alerts.engine_for(session).stop()
+        conf.alerts_enabled = False
         fleet.publisher_for(session).stop()
         fleet.set_serving_address("")
         for c in children:
             c.close()
         fleet.clear(conf)
+        alerts.clear(conf)
         for name in [f"fl_build_{r}" for r in range(FL_CHILDREN)] + [
                 FL_GATE, "fl_PosixLogStore", "fl_EmulatedObjectStore"]:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
@@ -10178,9 +10571,23 @@ def print_fleet_plane(fl: dict) -> None:
           f"drained {json.dumps(d['sent'])}, then deregistered; kill: "
           f"fleet.heartbeats crit {k['kill_to_crit_s']:.3f} s after the "
           f"SIGKILL (stale after {k['stale_after_s']:g} s)", flush=True)
-    print(f"phase FL timings: served point ms publisher off / on "
-          f"{t['served_point_ms']['off']:.2f} / "
-          f"{t['served_point_ms']['on']:.2f}; publish_once ms "
+    a = fl["alerts"]
+    print(f"phase FL alerts: {a['good_points']} served points equal to "
+          f"numpy, then availability firing {a['arm_to_firing_s']:.3f} s "
+          f"({a['arm_to_firing_ticks']:g} ticks) after the armed net.send "
+          f"black-hole, its bundle {a['bundle_bytes']} bytes with "
+          f"incident; firing after a restart; the doctor CLI exited "
+          f"{a['cli_exit']}; child 1 saw it {a['child_sees_s']:.3f} s after "
+          f"it fired and graded fleet.alerts crit; resolved "
+          f"{a['to_resolved_s']:.3f} s ({a['to_resolved_ticks']:g} ticks) "
+          f"into good traffic; run_once {a['run_once_ms']:.3f} ms, "
+          f"load_states {a['load_states_ms']:.3f} ms (medians); launches "
+          f"{json.dumps(a['launches'])}", flush=True)
+    ms = t["served_point_ms"]
+    print(f"phase FL timings: served point ms publisher off / on / on with "
+          f"the alert engine {ms['off']:.2f} / {ms['on']:.2f} / "
+          f"{ms['engine']:.2f} (engine over on {ms['engine'] / ms['on']:.3f}"
+          f"x); publish_once ms "
           f"{json.dumps({n: round(v, 3) if isinstance(v, float) else v for n, v in t['publish_once_ms'].items()})}",
           flush=True)
     print(f"phase FL: the fleet plane checked ({fl['phase_s']:.3f} s; by "
@@ -10850,7 +11257,67 @@ def parse_args(argv: list) -> tuple:
     return selected | {"A"}, read, args.u_turns
 
 
+# HS_SMOKE_SAMPLE=<path>: sample the main thread every SAMPLE_INTERVAL_S
+# and write where the script's wall time went to <path> (JSON).
+SAMPLE_INTERVAL_S = 0.05
+
+
+@contextlib.contextmanager
+def sampled(path: str):
+    """Sample the calling thread's stack every SAMPLE_INTERVAL_S of wall
+    time while the block runs, then write to ``path`` the seconds per
+    phase function (``phase_*``, ``measure``, ``gen_data``; else "main")
+    and per (phase, innermost line of this script), most first."""
+    import collections
+    import threading
+
+    ident = threading.get_ident()
+    me = os.path.abspath(__file__)
+    by_phase, by_line = collections.Counter(), collections.Counter()
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(SAMPLE_INTERVAL_S):
+            f = sys._current_frames().get(ident)
+            ours = []
+            while f is not None:
+                if os.path.abspath(f.f_code.co_filename) == me:
+                    ours.append(f)
+                f = f.f_back
+            phase = next((fr.f_code.co_name for fr in reversed(ours)
+                          if fr.f_code.co_name.startswith("phase_")
+                          or fr.f_code.co_name in ("measure", "gen_data")),
+                         "main")
+            line = f"{ours[0].f_code.co_name}:{ours[0].f_lineno}" \
+                if ours else "-"
+            by_phase[phase] += SAMPLE_INTERVAL_S
+            by_line[(phase, line)] += SAMPLE_INTERVAL_S
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump({"interval_s": SAMPLE_INTERVAL_S,
+                       "phase": by_phase.most_common(),
+                       "line": [[ph, ln, s] for (ph, ln), s
+                                in by_line.most_common(400)]}, fh)
+
+
 def main(argv=None) -> int:
+    path = os.environ.get("HS_SMOKE_SAMPLE")
+    if not path:
+        return run_phases(argv)
+    with sampled(path):
+        return run_phases(argv)
+
+
+def run_phases(argv=None) -> int:
+    """``main`` without the sampler."""
     import torch
 
     selected, read, u_turns = parse_args(sys.argv[1:] if argv is None
@@ -11178,6 +11645,7 @@ def main(argv=None) -> int:
             print_fleet_plane(fl)
             res["fleet_plane"] = fl
             by_path["FL fleet"] = fl["launches"]
+            by_path["FL alerts"] = fl["alerts"]["launches"]
         del orders
         if "T" in runs:
             del t_results

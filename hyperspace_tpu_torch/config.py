@@ -3,10 +3,9 @@ holding the fields the build, the refresh and optimize verbs, the query
 path, the device column cache, the build reports and the integrity loop
 read, the explain display mode, the failure envelope, the advisor, the
 index lifecycle, the source watch, the transaction loop, telemetry, the
-sync guard, the doctor, the fleet plane, deadlines, the mesh, the plan
-cache, the flight recorder, the pluggable log and store classes, the
-source providers,
-and the source formats and globbing pattern of the default provider;
+sync guard, the doctor, the fleet plane, the SLO alert engine, deadlines,
+the mesh, the plan cache, the flight recorder, the pluggable log and
+store classes, the source providers, and the source formats and globbing pattern of the default provider;
 defaults are the JAX package's, with the class paths under the port's
 own modules).
 
@@ -334,6 +333,33 @@ class HyperspaceConf:
     fleet_publish_interval_s: float = 5.0
     fleet_stale_after_s: float = 0.0
     fleet_prune_after_s: float = 600.0
+    # The SLO alert engine (telemetry/alerts.py + telemetry/slo.py).
+    # Default OFF; when on, an evaluator thread samples the metrics
+    # registry every interval_s (0 = ride the fleet-heartbeat cadence)
+    # and evaluates multi-window multi-burn-rate rules: the fast pair
+    # (fast_short_s+fast_long_s at fast_factor budgets/window) pages, the
+    # slow pair warns.  availability_target/latency_target set the error
+    # budgets (latency splits serve.latency_ms at doctor_latency_slo_ms);
+    # staleness_warn_s thresholds the staleness objective;
+    # pending_evals/resolve_evals flap-damp the pending -> firing ->
+    # resolved machine; max_entries bounds the persisted transition log;
+    # notify_command runs off-thread on firing/resolved with the record
+    # as JSON on stdin.
+    alerts_enabled: bool = False
+    alerts_interval_s: float = 0.0
+    alerts_availability_target: float = 0.999
+    alerts_latency_target: float = 0.99
+    alerts_fast_short_s: float = 300.0
+    alerts_fast_long_s: float = 3600.0
+    alerts_fast_factor: float = 14.4
+    alerts_slow_short_s: float = 21600.0
+    alerts_slow_long_s: float = 259200.0
+    alerts_slow_factor: float = 1.0
+    alerts_pending_evals: int = 2
+    alerts_resolve_evals: int = 2
+    alerts_staleness_warn_s: float = 600.0
+    alerts_max_entries: int = 512
+    alerts_notify_command: str = ""
     # The flight recorder (telemetry/flight_recorder.py): a bounded ring
     # of completed queries; slow (>= slow_ms), error and deadline ones
     # always kept, healthy ones sampled 1-in-N (0: none); bundles dumped

@@ -9,7 +9,10 @@ advisor's verbs ``whatif``, ``captured_workload``,
 telemetry's ``metrics``, ``metrics_text``, ``reset_metrics``,
 ``perf_history`` and ``export_timeline``, and the diagnostics'
 ``doctor``, ``slow_queries``, ``trace``, ``diagnostics``,
-``dump_diagnostics`` and ``diagnostics_bundles``."""
+``dump_diagnostics`` and ``diagnostics_bundles``, the fleet plane's
+``fleet_status``, ``fleet_metrics``, ``start_fleet_telemetry`` and
+``stop_fleet_telemetry``, and the SLO alert engine's ``alerts``,
+``alert_history``, ``start_alerting`` and ``stop_alerting``."""
 
 from __future__ import annotations
 
@@ -385,4 +388,41 @@ class Hyperspace:
         from hyperspace_tpu_torch.telemetry.fleet import publisher_for
 
         publisher_for(self.session).stop()
+
+    # -- SLO alerting (telemetry/alerts.py) -------------------------------
+    def alerts(self, fleet: bool = False):
+        """The SLO alert states as a pyarrow table, one row per objective
+        (availability, latency, staleness, build_claims): process, alert,
+        state (pending/firing/resolved), severity, since, bundleKey (the
+        incident bundle captured at the page) and detailJson; what the
+        ``alerts`` verb serves.  ``fleet=True`` adds every fresh
+        heartbeat's carried alerts, and ``process`` names each row's."""
+        from hyperspace_tpu_torch.telemetry.alerts import alerts_table
+
+        return alerts_table(self.session, fleet=fleet)
+
+    def alert_history(self):
+        """The persisted transition log under
+        ``<systemPath>/_hyperspace_alerts`` as a pyarrow table, oldest
+        first: every change of state the engine recorded, on either store
+        class and across restarts."""
+        from hyperspace_tpu_torch.telemetry.alerts import history_table
+
+        return history_table(self.session.conf)
+
+    def start_alerting(self):
+        """Start the SLO evaluator thread (``conf.alerts_enabled`` must be
+        set; it ticks every ``conf.alerts_interval_s``, or with the fleet
+        heartbeat when that is 0).  Returns the
+        :class:`~hyperspace_tpu_torch.telemetry.alerts.AlertEngine`."""
+        from hyperspace_tpu_torch.telemetry.alerts import engine_for
+
+        return engine_for(self.session).start()
+
+    def stop_alerting(self) -> None:
+        """Stop the evaluator thread (idempotent; the persisted states
+        remain for the next engine)."""
+        from hyperspace_tpu_torch.telemetry.alerts import engine_for
+
+        engine_for(self.session).stop()
 

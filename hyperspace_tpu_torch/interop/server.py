@@ -77,10 +77,10 @@ scraper, or with ``fleet=True`` every published heartbeat's series.
 The fleet plane (telemetry/fleet.py): a started server publishes the
 role ``server`` and its address in its heartbeat, and ``drain`` flags
 the heartbeat draining at once and deletes it at the end; the front door
-routes on the servers' published load and skips draining rows.  The SLO
-alert engine (telemetry/alerts.py) is not in this package yet: the
-``alerts`` verb answers ``ERR FAILED`` naming it.  pyarrow and
-http.server are imported inside functions.
+routes on the servers' published load and skips draining rows.  A
+started server also starts the SLO alert engine (telemetry/alerts.py)
+when the conf turns it on, and the ``alerts`` verb answers its states
+inline.  pyarrow and http.server are imported inside functions.
 """
 
 from __future__ import annotations
@@ -1051,17 +1051,6 @@ def _read_event() -> int:
     return selectors.EVENT_READ
 
 
-def _not_here(verb: str, what: str) -> None:
-    """A verb of the JAX package's server whose module this package does
-    not have yet: it answers ``ERR FAILED`` naming the module, never an
-    empty table."""
-    from hyperspace_tpu_torch.exceptions import HyperspaceError
-
-    raise HyperspaceError(
-        f"the {verb} verb reads {what}, which this package does not have "
-        f"yet")
-
-
 def _serve_verb(session, spec: Dict[str, Any],
                 last_report=None, pool=None) -> "pa.Table":
     """The non-query verbs of the wire protocol:
@@ -1096,8 +1085,9 @@ def _serve_verb(session, spec: Dict[str, Any],
 
     ``doctor`` with ``"fleet": true`` adds the cluster checks over the
     published heartbeats, and ``fleet_status`` serves every heartbeat
-    (telemetry/fleet.py).  ``alerts`` (telemetry/alerts.py) answers
-    ``ERR FAILED`` naming what this package lacks.
+    (telemetry/fleet.py).  ``alerts`` serves the SLO alert states
+    (telemetry/alerts.py), and with ``"fleet": true`` every fresh
+    heartbeat's carried alerts too, by process.
     """
     import pyarrow as pa
 
@@ -1180,7 +1170,9 @@ def _serve_verb(session, spec: Dict[str, Any],
         if not isinstance(fleet, bool):
             raise ValueError('"fleet" must be a boolean')
         if verb == "alerts":
-            _not_here("alerts", "the SLO alert engine (telemetry/alerts.py)")
+            from hyperspace_tpu_torch.telemetry.alerts import alerts_table
+
+            return alerts_table(session, fleet=fleet)
         from hyperspace_tpu_torch.telemetry.doctor import doctor
 
         return doctor(session, fleet=fleet).table()
@@ -1373,13 +1365,16 @@ class QueryServer:
         # in its fleet heartbeat (telemetry/fleet.py; off unless the conf
         # turns it on, and never raises), so the front door matches rows
         # to endpoints; a start clears a draining flag an earlier server
-        # of this process left behind.
-        from hyperspace_tpu_torch.telemetry import fleet
+        # of this process left behind.  The SLO alert engine watches this
+        # server's counters (off unless the conf turns it on; never
+        # raises either).
+        from hyperspace_tpu_torch.telemetry import alerts, fleet
 
         fleet.set_process_role("server")
         fleet.set_serving_address(f"{self.address[0]}:{self.address[1]}")
         fleet.set_serving_draining(False)
         fleet.maybe_start(self.session)
+        alerts.maybe_start(self.session)
         self._server.pool.start()
         if self._io_mode == "async":
             self._async = _AsyncIOLoop(self, self._server)

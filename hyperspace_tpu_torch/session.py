@@ -158,10 +158,14 @@ class HyperspaceSession:
         # The fleet heartbeat (telemetry/fleet.py) starts here when the
         # conf turns it on, so every process of a fleet shows in
         # fleet_status(); a conf set later goes through
-        # Hyperspace.start_fleet_telemetry.  Never raises.
-        from hyperspace_tpu_torch.telemetry import fleet
+        # Hyperspace.start_fleet_telemetry.  Never raises.  The SLO alert
+        # engine (telemetry/alerts.py) follows the same pattern under
+        # conf.alerts_enabled; a conf set later goes through
+        # Hyperspace.start_alerting.
+        from hyperspace_tpu_torch.telemetry import alerts, fleet
 
         fleet.maybe_start(self)
+        alerts.maybe_start(self)
 
     @property
     def _lake_schema_memo(self) -> Optional[Dict[ScanRelation, Dict[str, str]]]:

@@ -3,8 +3,9 @@ events (``events``), per-query run reports (``report``), the timeline
 with kernel attribution (``timeline``), per-action build reports
 (``build_report``), the perf ledger (``perf_ledger``), the bench diff
 (``bench_compare``), the flight recorder (``flight_recorder``), the SLO
-math (``slo``), the doctor (``doctor``) and the fleet plane
-(``fleet``); docs/16-observability.md is the catalog."""
+math (``slo``) and its alert engine (``alerts``), the doctor
+(``doctor``) and the fleet plane (``fleet``); docs/16-observability.md is
+the catalog."""
 
 from hyperspace_tpu_torch.telemetry.events import (
     AppInfo,

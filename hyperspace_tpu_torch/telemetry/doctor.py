@@ -42,9 +42,11 @@ with the error, since "the doctor is blind here" is itself a finding):
 ``fleet.serving``, ``fleet.skew``, ``fleet.build_claims``,
 ``fleet.alerts``) and grades them apart as ``health.fleet.status``.
 
-Not here: the JAX doctor's ``lint`` check (this package has no lint
-baseline) and the CLI's ``--alerts`` gate (the SLO alert engine,
-telemetry/alerts.py, is not in this package yet).  The report is cheap: stat-level listings, process
+The CLI's ``--alerts`` folds the persisted SLO alert states
+(telemetry/alerts.py) into its grade as the ``alerts`` check: a firing
+page is crit, so the CLI exits 2 while an incident the engine detected
+is open.  Not here: the JAX doctor's ``lint`` check (this package has no
+lint baseline).  The report is cheap: stat-level listings, process
 counters and one ledger read.  pyarrow is imported inside ``table``.
 """
 
@@ -452,6 +454,38 @@ def _check_degraded(session) -> DoctorCheck:
 # ---------------------------------------------------------------------------
 # Headless CLI: cron and CI gate on health without writing Python
 # ---------------------------------------------------------------------------
+def _alerts_check(conf) -> DoctorCheck:
+    """The persisted SLO alert states as one check of the CLI's grade: a
+    FIRING page is crit, a firing warn or any pending alert warns, so
+    ``--alerts`` exits nonzero while an incident the engine detected is
+    still open."""
+    from hyperspace_tpu_torch.telemetry import alerts as _alerts
+
+    states = _alerts.load_states(conf)
+    firing = {n: s for n, s in states.items()
+              if s.get("state") == "firing"}
+    pending = {n: s for n, s in states.items()
+               if s.get("state") == "pending"}
+    data = {"firing": sorted(firing), "pending": sorted(pending)}
+    if firing:
+        pages = [n for n, s in firing.items()
+                 if s.get("severity") == "page"]
+        status = "crit" if pages else "warn"
+        return DoctorCheck(
+            "alerts", status,
+            f"{len(firing)} firing SLO alert(s): "
+            f"{', '.join(sorted(firing))} — see alert_history() and "
+            f"the captured incident bundle(s)", data)
+    if pending:
+        return DoctorCheck(
+            "alerts", "warn",
+            f"{len(pending)} pending SLO alert(s): "
+            f"{', '.join(sorted(pending))}", data)
+    return DoctorCheck("alerts", "ok",
+                       f"{len(states)} alert(s) tracked, none active",
+                       data)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     """Grade a system path and exit ok=0 / warn=1 / crit=2::
 
@@ -460,9 +494,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             --conf hybrid_scan_enabled=true
         python -m hyperspace_tpu_torch.telemetry.doctor --fleet \\
             --system-path /lake/ix
+        python -m hyperspace_tpu_torch.telemetry.doctor --alerts \\
+            --system-path /lake/ix
 
     ``--fleet`` adds the cluster checks over the published heartbeats;
-    ``--json`` prints the machine-readable report; ``--conf
+    ``--alerts`` folds the persisted SLO alert states into the grade (a
+    firing page exits 2, from any process); ``--json`` prints the machine-readable report; ``--conf
     field=value`` sets a ``HyperspaceConf`` field (repeatable; the value
     is parsed as the field's type); ``--device`` picks the session's
     device (default ``cuda``)."""
@@ -481,6 +518,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--fleet", action="store_true",
                         help="add the cluster checks over the published "
                              "fleet heartbeats")
+    parser.add_argument("--alerts", action="store_true",
+                        help="fold the persisted SLO alert states into "
+                             "the grade (a firing page exits 2)")
     parser.add_argument("--json", action="store_true", dest="as_json",
                         help="print the full report as JSON")
     parser.add_argument("--conf", action="append", default=[],
@@ -499,6 +539,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         setattr(session.conf, key, _parse_value(
             getattr(session.conf, key), value))
     report = doctor(session, fleet=args.fleet)
+    if args.alerts:
+        report = DoctorReport(list(report.checks) + [_guarded(
+            "alerts", lambda: _alerts_check(session.conf))])
     if args.as_json:
         print(_json.dumps(report.to_dict(), default=str, indent=2))
     else:

@@ -43,10 +43,11 @@ program by its shard position).  Two processes on one card both report
 device ``"0"``, so ``fleet.skew``'s per-device ratio adds them together
 on a one-card host; there only the per-process ratio shows a straggler.
 
-Not here yet: the SLO alert engine (the JAX package's
-telemetry/alerts.py).  The snapshot's ``alerts`` is ``[]``, what the
-JAX engine carries when it is off (its default), and ``fleet.alerts``
-grades the FIRING alerts that other processes' fresh heartbeats carry.
+The snapshot's ``alerts`` are the SLO alert engine's active alerts
+(telemetry/alerts.py ``carried_alerts``, read from the persisted alert
+log; ``[]`` while the engine is off), and ``fleet.alerts`` grades the
+FIRING alerts of this process's engine and of every other fresh
+heartbeat.
 
 A heartbeat is stale past ``fleet_stale_after_s`` (0: twice the publish
 interval, so a SIGKILLed process reads crit within two intervals) and
@@ -177,9 +178,13 @@ def device_kernel_ms_map(counters: Dict[str, Any]) -> Dict[str, float]:
 
 def build_snapshot(conf) -> Dict[str, Any]:
     """This process's current heartbeat: identity and role, the typed
-    metrics snapshot, the health grade, the per-device kernel-ms map and
-    the tail of the interesting flight records."""
-    from hyperspace_tpu_torch.telemetry import flight_recorder, metrics
+    metrics snapshot, the health grade, the per-device kernel-ms map,
+    the tail of the interesting flight records and the active alerts."""
+    from hyperspace_tpu_torch.telemetry import (
+        alerts,
+        flight_recorder,
+        metrics,
+    )
 
     typed = metrics.registry().typed_snapshot()
     interesting = [r for r in flight_recorder.recorder().records()
@@ -197,8 +202,9 @@ def build_snapshot(conf) -> Dict[str, Any]:
         "metrics": typed,
         "device_kernel_ms": device_kernel_ms_map(typed["counters"]),
         "records": interesting[-FLEET_RECORDS_MAX:],
-        # Active SLO alerts: none without an alert engine.
-        "alerts": [],
+        # Active SLO alerts ([] while the engine is off): what
+        # alerts(fleet=True) and the fleet.alerts check read.
+        "alerts": alerts.carried_alerts(conf),
     }
 
 
@@ -673,6 +679,7 @@ def fleet_checks(session) -> List[Any]:
     """The cluster checks of ``doctor(fleet=True)``, each guarded like
     the local ones (a blind check is a warn, never a crash).  Read-only:
     the doctor verb answers inline while the admission queue sheds."""
+    from hyperspace_tpu_torch.telemetry.alerts import fleet_alert_check
     from hyperspace_tpu_torch.telemetry.doctor import _guarded
 
     conf = session.conf
@@ -684,38 +691,10 @@ def fleet_checks(session) -> List[Any]:
         _guarded("fleet.skew", lambda: _check_fleet_skew(conf)),
         _guarded("fleet.build_claims",
                  lambda: _check_build_claims(conf)),
-        _guarded("fleet.alerts", lambda: _check_fleet_alerts(conf)),
+        # telemetry/alerts.py grades this one, so the check and the
+        # engine cannot drift.
+        _guarded("fleet.alerts", lambda: fleet_alert_check(session)),
     ]
-
-
-def _check_fleet_alerts(conf):
-    """A FIRING SLO alert that another process's fresh heartbeat carries
-    grades the cluster crit (severity ``page``) or warn.  Without an
-    alert engine in this package, this process carries none."""
-    from hyperspace_tpu_torch.telemetry.doctor import DoctorCheck
-    from hyperspace_tpu_torch.telemetry.slo import FIRING
-
-    firing: List[Dict[str, Any]] = []
-    own = process_identity()
-    for snap in fresh_snapshots(conf):
-        proc = str(snap.get("process", ""))
-        if proc == own:
-            continue
-        for a in snap.get("alerts") or []:
-            if isinstance(a, dict) and a.get("state") == FIRING:
-                firing.append({**a, "process": proc})
-    if not firing:
-        return DoctorCheck("fleet.alerts", "ok",
-                           "no firing SLO alerts across the fleet", {})
-    pages = [a for a in firing if a.get("severity") == "page"]
-    status = "crit" if pages else "warn"
-    names = sorted({f"{a.get('alert')}@{a.get('process', '')[:24]}"
-                    for a in firing})
-    return DoctorCheck(
-        "fleet.alerts", status,
-        f"{len(firing)} firing SLO alert(s) across the fleet: "
-        f"{', '.join(names[:4])} — incident bundles are in "
-        f"diagnostics_bundles()", {"firing": firing})
 
 
 def _check_heartbeats(conf):

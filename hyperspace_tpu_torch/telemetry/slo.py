@@ -6,8 +6,7 @@ Everything here is a pure function over plain data, a list of
 ``(ts, counters, histograms)`` samples in, burn rates and state
 transitions out, so the clock-skew and flap-damping cases are
 unit-testable with no IO.  The alert engine that owns threads, conf and
-the store (the JAX package's telemetry/alerts.py) is not part of this
-package yet.
+the store is telemetry/alerts.py.
 
 The model is the Google-SRE multi-window multi-burn-rate recipe:
 

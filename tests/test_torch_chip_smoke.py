@@ -89,6 +89,111 @@ def test_an_unknown_phase_exits_non_zero_from_the_command_line():
     assert '"ok"' not in proc.stdout
 
 
+def _answer(n=5_000, seed=3):
+    """A keyed answer with repeated keys and rows, a signed zero, a bool,
+    a date, a string column and a row number."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    want = {"k": rng.integers(0, 50, n), "x": rng.integers(0, 4, n) / 2.0,
+            "b": rng.integers(0, 2, n).astype(bool),
+            "d": rng.integers(0, 9, n).astype("datetime64[D]"),
+            "s": np.array([f"s{v}" for v in rng.integers(0, 5, n)],
+                          dtype=object),
+            "i": np.arange(n)}
+    want["x"][::11] = -0.0
+    return want
+
+
+def _changed(want: dict, change: str) -> dict:
+    import numpy as np
+
+    got = {c: v[np.random.default_rng(4).permutation(len(v))]
+           for c, v in want.items()}
+    if change == "signed zero":
+        got["x"] = np.abs(got["x"])
+    elif change == "one value":
+        got["x"] = got["x"].copy()
+        got["x"][7] += 0.5
+    elif change == "two cells swapped":
+        i = int(np.flatnonzero(got["k"] != got["k"][0])[0])
+        got["k"] = got["k"].copy()
+        got["k"][[0, i]] = got["k"][[i, 0]]
+    elif change == "a row twice":
+        got = {c: np.concatenate([v[:-1], v[:1]]) for c, v in got.items()}
+    elif change == "a row missing":
+        got = {c: v[:-1] for c, v in got.items()}
+    elif change == "another dtype":
+        got["k"] = got["k"].astype(np.int32)
+    elif change == "a string changed":
+        got["s"] = got["s"].copy()
+        got["s"][3] = "t"
+    return got
+
+
+@pytest.mark.parametrize("columns, keys", [
+    (("k", "x", "b", "d"), ["k", "x"]),
+    (("k", "x", "b", "d", "s", "i"), ["k", "i"])],
+    ids=["numeric", "with strings"])
+@pytest.mark.parametrize("change, holds", [
+    ("permuted", True), ("signed zero", True), ("one value", False),
+    ("two cells swapped", False), ("a row twice", False),
+    ("a row missing", False), ("another dtype", False),
+    ("a string changed", False)])
+def test_require_rows_holds_the_multiset_of_rows(columns, keys, change,
+                                                holds):
+    """A keyed check passes exactly when the answer holds the expected
+    rows in any order, whether it takes the hash path (numeric columns,
+    repeated rows) or the key sort (a string column, keys that name each
+    row); a mismatch names its column."""
+    import pyarrow as pa
+
+    want = {c: v for c, v in _answer().items() if c in columns}
+    got = {c: v for c, v in _changed(_answer(), change).items()
+           if c in columns}
+    if change == "a string changed" and "s" not in columns:
+        holds = True
+    table = pa.Table.from_pydict(got)
+    if holds:
+        chip_smoke.require_rows(change, table, want, keys)
+        assert chip_smoke.hash_aligned_equal(got, want) == ("s" not in columns)
+        return
+    with pytest.raises(AssertionError, match=f"{change}: (column|columns)"):
+        chip_smoke.require_rows(change, table, want, keys)
+    assert not chip_smoke.hash_aligned_equal(got, want)
+
+
+@pytest.mark.parametrize("keys", [["k"], ["x", "k"], ["b", "d", "k"],
+                                  ["s", "k"]])
+def test_sorted_rows_is_numpys_lexsort(keys):
+    """``sorted_rows`` on torch's stable sorts gives ``np.lexsort``'s
+    order, column for column and dtype for dtype."""
+    import numpy as np
+
+    cols = _answer()
+    order = np.lexsort([cols[k] for k in reversed(keys)])
+    got = chip_smoke.sorted_rows(cols, keys)
+    for c, v in cols.items():
+        assert got[c].dtype == v.dtype
+        assert np.array_equal(got[c], v[order]), c
+
+
+def test_the_sampler_writes_where_the_time_went(tmp_path, monkeypatch):
+    """``HS_SMOKE_SAMPLE``'s sampler: seconds per phase function and per
+    line of chip_smoke.py, as JSON."""
+    import json
+    import time
+
+    monkeypatch.setattr(chip_smoke, "SAMPLE_INTERVAL_S", 0.01)
+    path = tmp_path / "out" / "sample.json"
+    with chip_smoke.sampled(str(path)):
+        chip_smoke.wall_ms(lambda: time.sleep(0.3))
+    got = json.loads(path.read_text())
+    assert got["interval_s"] == 0.01
+    assert [p for p, _ in got["phase"]] == ["main"]
+    assert any(line.startswith("wall_ms:") for _, line, _ in got["line"])
+
+
 def test_phase_u_on_the_cpu(monkeypatch, tmp_path):
     """Phase T, then phase U with its answers, at 80,000 lineitem rows:
     the async server's seven answers equal to T's threaded ones, its
@@ -416,8 +521,11 @@ def test_phase_fl_on_the_cpu(monkeypatch, tmp_path):
     """Phase FL at 80,000 lineitem rows on the CPU: two port server
     children behind the fleet client, every answer equal to numpy, the
     merged requests equal to the children's, a failed query's trace
-    resolved from the parent, the drained child skipped then gone, the
-    killed one crit, and the timings taken."""
+    resolved from the parent, the parent's SLO alert firing on a wire
+    fault (its bundle, its state across a restart, the doctor CLI's exit
+    2, child 1 reading it over the wire) and resolving, the drained
+    child skipped then gone, the killed one crit, and the timings
+    taken."""
     import torch
 
     _small(monkeypatch)
@@ -445,10 +553,20 @@ def test_phase_fl_on_the_cpu(monkeypatch, tmp_path):
         2 * chip_smoke.FL_INTERVAL_S + 2.0
     assert set(fl["timings"]["publish_once_ms"]) == {
         "PosixLogStore", "EmulatedObjectStore", "bytes"}
+    assert set(fl["timings"]["served_point_ms"]) == {"off", "on", "engine"}
     assert not any(fl["launches"].values())  # plain kernels count none
+    a = fl["alerts"]
+    assert a["cli_exit"] == 2
+    assert a["arm_to_firing_ticks"] >= 1 and a["to_resolved_ticks"] >= 1
+    assert a["bundle_bytes"] > 0 and a["child_sees_s"] > 0
+    assert [h for h in a["history"] if h[0] == "availability"] == [
+        ("availability", "firing"), ("availability", "resolved")]
+    assert not any(a["launches"].values())
     assert set(fl["steps_s"]) == {"1_children", "2_routing",
-                                  "3_federation", "4_trace", "5_drain",
-                                  "6_kill", "7_timings"}
+                                  "3_federation", "4_trace", "5_alerts",
+                                  "6_drain", "7_kill", "8_timings"}
     left = os.listdir(os.path.join(root, "indexes", "_hyperspace_fleet"))
     assert not [f for f in left if f.startswith("hb-")]  # no heartbeat
+    left = os.listdir(os.path.join(root, "indexes", "_hyperspace_alerts"))
+    assert not [f for f in left if f.startswith("a-")]  # no alert record
     assert not os.path.exists(os.path.join(root, chip_smoke.FL_GATE))

@@ -505,6 +505,40 @@ class TestDoctor:
         assert "held by live process" in check.summary
         assert check.data["holder"] == fleet.process_identity()
 
+    def test_own_firing_alert_rides_the_heartbeat_and_grades_crit(
+            self, tmp_path):
+        """This process's engine pages: its heartbeat carries the alert,
+        and ``doctor(fleet=True)`` grades ``fleet.alerts`` crit from the
+        own engine, with no other process in the fleet."""
+        from hyperspace_tpu_torch.telemetry import alerts
+
+        s = _session(tmp_path)
+        for field, value in (("alerts_enabled", True),
+                             ("alerts_availability_target", 0.9),
+                             ("alerts_fast_short_s", 0.2),
+                             ("alerts_fast_long_s", 0.4),
+                             ("alerts_fast_factor", 1.5),
+                             ("alerts_pending_evals", 1)):
+            setattr(s.conf, field, value)
+        engine = alerts.engine_for(s)
+        deadline = time.monotonic() + WAIT_S
+        while engine.current_states().get("availability", {}).get(
+                "state") != "firing" and time.monotonic() < deadline:
+            metrics.inc("serve.errors", 25)
+            engine.run_once()
+            time.sleep(0.08)
+        s.conf.fleet_telemetry_enabled = True
+        assert fleet.publish_once(s.conf)
+        own = [snap for snap in fleet.fresh_snapshots(s.conf)
+               if snap["process"] == fleet.process_identity()]
+        assert [(a["alert"], a["state"], a["severity"])
+                for a in own[0]["alerts"]] == [
+            ("availability", "firing", "page")]
+        check = Hyperspace(s).doctor(fleet=True).check("fleet.alerts")
+        assert check.status == "crit"
+        assert [(a["alert"], a["process"]) for a in check.data["firing"]] \
+            == [("availability", fleet.process_identity())]
+
     def test_doctor_cli_fleet_flag(self, tmp_path, capsys):
         from hyperspace_tpu_torch.telemetry import doctor as doctor_mod
 

@@ -324,23 +324,19 @@ class TestObservabilityVerbs:
         ({"verb": "alerts"}, "telemetry/alerts.py"),
         ({"verb": "alerts", "fleet": True}, "telemetry/alerts.py"),
     ], ids=["doctor_fleet", "fleet_status", "alerts", "alerts_fleet"])
-    def test_verbs_of_missing_modules_fail_naming_them(self, env, spec,
-                                                       module, monkeypatch):
-        """``alerts`` reads a module the port does not have yet and fails
-        naming it.  The two telemetry/fleet.py verbs, which failed so
-        before the port had the fleet plane, now answer as the JAX
-        server does over the same system path: the same heartbeat rows
-        from ``fleet_status`` (``ageSeconds`` and the read-time
-        ``age_s`` aside) and the same fleet checks from ``doctor``."""
+    def test_fleet_and_alert_verbs_answer(self, env, spec, module,
+                                          monkeypatch):
+        """The verbs of telemetry/fleet.py and telemetry/alerts.py, which
+        failed naming their module before the port had it, answer as the
+        JAX server does over the same system path: the same heartbeat
+        rows from ``fleet_status`` (``ageSeconds`` and the read-time
+        ``age_s`` aside) and the same fleet checks from ``doctor``.
+        ``alerts`` serves ``Hyperspace.alerts()``, the JAX package's
+        table over the same alert log; with ``fleet`` it adds a fresh
+        heartbeat's carried alert, attributed to its process."""
         s, _data = env
         if module == "telemetry/alerts.py":
-            with QueryServer(s) as server:
-                with pytest.raises(QueryFailedError) as ei:
-                    request_query(server.address, spec)
-            assert ei.value.code == "FAILED"
-            assert ei.value.message.startswith("HyperspaceError: ")
-            assert module in ei.value.message
-            assert "does not have yet" in ei.value.message
+            self._check_alerts_verb(s, spec)
             return
         import types
 
@@ -383,6 +379,48 @@ class TestObservabilityVerbs:
         assert got.schema == want.schema
         assert rows(got) == rows(want)
         assert len(rows(got)) == (6 if spec["verb"] == "doctor" else 2)
+
+    @staticmethod
+    def _check_alerts_verb(s, spec):
+        from hyperspace_tpu.telemetry import alerts as jax_alerts
+        from hyperspace_tpu_torch.telemetry import alerts, fleet
+        from hyperspace_tpu_torch.telemetry.perf_ledger import store_for
+
+        assert alerts.append_transition(s.conf, {
+            "alert": "availability", "state": "firing",
+            "prev_state": "pending", "severity": "page",
+            "transition": "firing", "since": 7.0, "bundle_key": "b-own",
+            "detail": {"breached": True}})
+        carried = {"alert": "latency", "state": "firing",
+                   "severity": "warn", "since": 3.0, "bundle_key": "b-far"}
+        store = store_for(s.conf, fleet.fleet_root(s.conf))
+        snap = {"v": 1, "ts": time.time(), "process": "remote-3-3",
+                "host": "h", "pid": 3, "role": "server", "health": 0.0,
+                "address": "", "draining": False,
+                "metrics": {"counters": {}, "gauges": {}, "histograms": {}},
+                "device_kernel_ms": {}, "records": [], "alerts": [carried]}
+        assert store.put_if_generation_match(
+            "hb-remote-3-3", json.dumps(snap).encode(), 0)
+        fleet_flag = spec.get("fleet", False)
+        with QueryServer(s) as server:
+            got = request_query(server.address, spec)
+        assert got == Hyperspace(s).alerts(fleet=fleet_flag)
+        rows = got.to_pylist()
+        own = {"alert": "availability", "state": "firing",
+               "severity": "page", "since": 7.0, "bundleKey": "b-own",
+               "detailJson": json.dumps({"breached": True})}
+        far = {"process": "remote-3-3", "alert": "latency",
+               "state": "firing", "severity": "warn", "since": 3.0,
+               "bundleKey": "b-far", "detailJson": "{}"}
+        if fleet_flag:
+            assert rows == [{"process": fleet.process_identity(), **own},
+                            far]
+        else:
+            assert rows == [{"process": "", **own}]
+        want = jax_alerts.alerts_table(_session(JAX, s.conf.system_path),
+                                       fleet=fleet_flag)
+        assert want.schema == got.schema
+        assert want.to_pylist()[len(rows) - 1:] == rows[len(rows) - 1:]
 
     def test_verb_arguments_are_checked(self, env):
         s, _data = env
